@@ -1,0 +1,522 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (whisper_tensor_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--layers N]
+
+Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
+and the CUDA toolkit (nvcc). It imports nothing of JAX, and it fails
+(non-zero exit, no result line) without a GPU or outside a checkout.
+
+Phases:
+  0. the card: name and power limit (nvidia-smi), compute capability,
+     whether ml_dtypes imports;
+  1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and time it;
+  2. each kernel against its plain PyTorch version on the card, at the
+     text slice's shapes: max error against a stated tolerance, and the
+     median time of kernel and plain version (CUDA events);
+  3. the slice: a Llama-3-8B-width checkpoint (hidden 4096, 32/8 heads
+     of 128, FFN 14336, vocab 128256, rope theta 5e5; depth cut to
+     --layers, random weights from a seed) is written to disk, loaded by
+     the port's Server through the reference loader (bf16, int8 weights,
+     max_len 2048), and served by the reference OpenAI HTTP API; three
+     requests go through it, and the kernels' launch counters must rise.
+     Then the greedy decode again: each decode_attention call against
+     its plain version on the same inputs, the decode's logits with the
+     plain version swapped in, and against a teacher-forced prefill.
+The last three lines are the kernels' JSON summary line, the card, and
+the result line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import http.client
+import json
+import math
+import resource
+import shutil
+import statistics
+import struct
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 20240418
+# Llama-3-8B's published widths (bench.py:360-368)
+WIDTHS = dict(hidden_size=4096, num_attention_heads=32, num_key_value_heads=8,
+              intermediate_size=14336, vocab_size=128256, rope_theta=500000.0,
+              rms_norm_eps=1e-5, max_position_embeddings=8192)
+MAX_LEN = 2048
+BYTE_VOCAB = 259          # ids the byte tokenizer decodes to text
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+def time_ms(torch, fn, argsets, reps: int = 7, inner: int = 5) -> float:
+    """Median ms per call over `reps` runs of `inner` calls, cycling
+    through argsets (copies larger than L2 together, so every call reads
+    its operands from device memory as the main path does)."""
+    for a in argsets[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    times, i = [], 0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn(*argsets[i % len(argsets)])
+            i += 1
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def copies_for(nbytes: int) -> int:
+    return max(2, math.ceil(160e6 / max(nbytes, 1)))   # > 3x the 50 MB L2
+
+
+def worst_share(got, ref, magnitude, bound):
+    """(max |got - ref|, max of |got - ref| / bound, element by element)."""
+    err = (got.float() - ref.float()).abs()
+    lim = bound(ref, magnitude).clamp_min(1e-30)
+    return err.max().item(), (err / lim).max().item()
+
+
+def phase2(torch, results):
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
+        int8_matmul, int8_matmul_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # Tolerance, element by element (agreement_bound): kernel and plain
+    # version compute in f32 from the same bf16/int8 inputs and round
+    # once to bf16, so they may land one bf16 ulp apart (2^-7 |plain|),
+    # plus f32 summation-order noise (2^-16 of the sum of the terms'
+    # magnitudes, the plain version on absolute inputs).
+    say("phase 2: kernels against their plain versions (tolerance per "
+        "element: 2^-7 |plain| + 2^-16 * plain on |inputs|)")
+
+    Hq, Hkv, D, L = 32, 8, 128, MAX_LEN
+    scale = 1.0 / math.sqrt(D)
+    worst, timing = 0.0, None
+    for B, pos_list in ((1, [L - 1]), (1, [1234]),
+                        (8, [0, 1, 17, 511, 1000, L - 2, L - 1, 5000])):
+        kv_bytes = 2 * B * Hkv * L * D * 2
+        sets = []
+        for _ in range(copies_for(kv_bytes)):
+            q = torch.randn(B, Hq, 1, D, generator=gen, device=dev).bfloat16()
+            k = torch.randn(B, Hkv, L, D, generator=gen, device=dev).bfloat16()
+            v = torch.randn(B, Hkv, L, D, generator=gen, device=dev).bfloat16()
+            pos = torch.tensor(pos_list, dtype=torch.int64, device=dev)
+            if pos_list == [1234]:
+                pos = pos.reshape(()).to(torch.int32)   # () int32 form
+            sets.append((q, k, v, pos, scale))
+        q, k, v, pos, _ = sets[0]
+        got = decode_attention(*sets[0])
+        ref = decode_attention_plain(*sets[0])
+        err, share = worst_share(got, ref, decode_attention_plain(
+            q.float(), k, v.abs(), pos, scale), agreement_bound)
+        ms = time_ms(torch, decode_attention, sets)
+        plain_ms = time_ms(torch, decode_attention_plain, sets)
+        say(f"  decode_attention B={B} Hq/Hkv={Hq}/{Hkv} D={D} L={L} "
+            f"pos={pos_list}: max_abs_err={err:.6g}, worst err/tol "
+            f"{share:.4g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not share <= 1.0:
+            fail(f"decode_attention disagrees with its plain version "
+                 f"(B={B}, pos={pos_list}): err/tol {share}")
+        worst = max(worst, err)
+        if timing is None:
+            timing = (ms, plain_ms, f"B=1 L={L} all keys live")
+    results.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "whisper_tensor_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "whisper_tensor_tpu/backends/pallas/decode_attention.py:179",
+        "launches": None, "max_abs_err": worst, "ms": timing[0],
+        "plain_ms": timing[1], "shape": timing[2]})
+
+    worst, timing = 0.0, None
+    # (K, N): fused q/k/v, o, fused gate/up, down, lm_head
+    pairs = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+             (4096, 128256))
+    for K, N in pairs:
+        wsets = []
+        for _ in range(copies_for(K * N)):
+            w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                              dtype=torch.int8)
+            s = torch.rand(N, generator=gen, device=dev) * 0.01 + 1e-3
+            wsets.append((w, s))
+        for M in (1, 8, 128, 512):
+            sets = [(torch.randn(M, K, generator=gen, device=dev).bfloat16(),
+                     w, s) for w, s in wsets]
+            x, w, s = sets[0]
+            got = int8_matmul(*sets[0])
+            ref = int8_matmul_plain(*sets[0])
+            err, share = worst_share(got, ref, int8_matmul_plain(
+                x.float().abs(), w.abs(), s), agreement_bound)
+            ms = time_ms(torch, int8_matmul, sets)
+            plain_ms = time_ms(torch, int8_matmul_plain, sets)
+            say(f"  int8_matmul M={M} K={K} N={N}: max_abs_err={err:.6g}, "
+                f"worst err/tol {share:.4g}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms")
+            if not share <= 1.0:
+                fail(f"int8_matmul disagrees with its plain version "
+                     f"(M={M}, K={K}, N={N}): err/tol {share}")
+            worst = max(worst, err)
+            if (M, K, N) == (1, 4096, 28672):
+                timing = (ms, plain_ms, "M=1 K=4096 N=28672 (gate/up)")
+        del wsets, sets
+        torch.cuda.empty_cache()
+    results.append({
+        "name": "int8_matmul", "route": "cuda",
+        "source": "whisper_tensor_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "whisper_tensor_tpu/backends/pallas/quant_matmul.py:68",
+        "launches": None, "max_abs_err": worst, "ms": timing[0],
+        "plain_ms": timing[1], "shape": timing[2]})
+
+
+# ---------------------------------------------------------------------------
+def write_checkpoint(d: Path, layers: int, np, bf16) -> int:
+    """config.json + model.safetensors at Llama-3-8B widths, `layers`
+    deep. Each tensor tiles a seeded block of 2^20 + 7 normal values
+    (the block length is odd, so rows do not repeat in step), scaled
+    0.02; norms are ones. lm_head rows outside the byte tokenizer's ids
+    are zero, so greedy text decodes to printable bytes."""
+    E, I, V = WIDTHS["hidden_size"], WIDTHS["intermediate_size"], \
+        WIDTHS["vocab_size"]
+    hd = E // WIDTHS["num_attention_heads"]
+    kv = WIDTHS["num_key_value_heads"] * hd
+    shapes = {"model.embed_tokens.weight": (V, E), "model.norm.weight": (E,),
+              "lm_head.weight": (V, E)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        shapes.update({p + "input_layernorm.weight": (E,),
+                       p + "post_attention_layernorm.weight": (E,),
+                       p + "self_attn.q_proj.weight": (E, E),
+                       p + "self_attn.k_proj.weight": (kv, E),
+                       p + "self_attn.v_proj.weight": (kv, E),
+                       p + "self_attn.o_proj.weight": (E, E),
+                       p + "mlp.gate_proj.weight": (I, E),
+                       p + "mlp.up_proj.weight": (I, E),
+                       p + "mlp.down_proj.weight": (E, I)})
+    (d / "config.json").write_text(json.dumps({
+        "model_type": "llama", "architectures": ["LlamaForCausalLM"],
+        "num_hidden_layers": layers, "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16" if bf16 else "float16", **WIDTHS}))
+    st_dtype, np_dtype = (("BF16", bf16) if bf16 is not None
+                          else ("F16", np.float16))
+    header, off = {}, 0
+    for n, s in shapes.items():
+        size = int(np.prod(s)) * 2
+        header[n] = {"dtype": st_dtype, "shape": list(s),
+                     "data_offsets": [off, off + size]}
+        off += size
+    hb = json.dumps(header).encode()
+    hb += b" " * (-len(hb) % 8)
+    rng = np.random.default_rng(SEED)
+    with open(d / "model.safetensors", "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for n, s in shapes.items():
+            if n.endswith("norm.weight"):
+                arr = np.ones(s, np.float32)
+            else:
+                base = rng.standard_normal((1 << 20) + 7,
+                                           dtype=np.float32) * 0.02
+                arr = np.resize(base, s)
+                if n == "lm_head.weight":
+                    arr[BYTE_VOCAB:] = 0.0
+            f.write(np.ascontiguousarray(arr.astype(np_dtype)).tobytes())
+            del arr
+    return off
+
+
+def request(port: int, path: str, body: dict):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        c.request("POST", path, body=json.dumps(body),
+                  headers={"Content-Type": "application/json"})
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def completion(port: int, body: dict) -> dict:
+    status, data = request(port, "/v1/completions", body)
+    if status != 200:
+        fail(f"/v1/completions returned {status}: {data[:500]!r}")
+    return json.loads(data)
+
+
+def shadow_checked(lowering, plain, bound):
+    """Install, in the Attention lowering, a decode_attention that calls
+    the one installed before and holds each result against `plain` on
+    the same inputs. Returns it; `.inner` is the one it wraps."""
+    inner = lowering.decode_attention
+
+    def checked(q, k, v, pos, scale):
+        got = inner(q, k, v, pos, scale)
+        err, share = worst_share(got, plain(q, k, v, pos, scale), plain(
+            q.float(), k, v.abs(), pos, scale), bound)
+        checked.calls += 1
+        checked.worst = max(checked.worst, share)
+        checked.max_err = max(checked.max_err, err)
+        return got
+
+    checked.inner, checked.calls, checked.worst, checked.max_err = \
+        inner, 0, 0.0, 0.0
+    lowering.decode_attention = checked
+    return checked
+
+
+def phase3(torch, np, layers: int, results) -> None:
+    from whisper_tensor_tpu.server.openai_api import OpenAIApi
+    from whisper_tensor_tpu.tokenizer import ByteTokenizer, apply_chat_template
+
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
+    from whisper_tensor_tpu_torch.milli.ops import attention as attn_lowering
+    from whisper_tensor_tpu_torch.server.main import Server
+
+    try:
+        import ml_dtypes
+        bf16 = np.dtype(ml_dtypes.bfloat16)
+    except ImportError:       # the reference then reads f16 and casts
+        bf16 = None
+    ckpt = ROOT / "build" / "smoke" / f"llama3-8b-widths-{layers}L"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_checkpoint(ckpt, layers, np, bf16)
+        say(f"phase 3: wrote a {layers}-layer Llama-3-8B-width checkpoint "
+            f"({nbytes / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
+        srv = Server()
+        t0 = time.perf_counter()
+        entries = srv.models.run_loader("transformers", {
+            "path": str(ckpt), "dtype": "bf16", "quantize": "int8",
+            "max_len": MAX_LEN})
+        say(f"  reference loader (ONNX build + parse): "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        iface = srv._text_iface(entries[0])
+        iface._weights()
+        torch.cuda.synchronize()
+        say(f"  port interface (int8 quantize + upload): "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+            f"peak host RSS "
+            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.1f} GB")
+        api = OpenAIApi(srv, "127.0.0.1", 0).start()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        port = api.port
+        greedy = {"prompt": "The capital of France is", "max_tokens": 32,
+                  "temperature": 0}
+        chat = {"messages": [{"role": "user", "content": "Say hello."}],
+                "max_tokens": 16, "temperature": 0, "stream": True}
+        sampled = {"prompt": "Once upon a time", "max_tokens": 24,
+                   "temperature": 0.8, "top_k": 50, "seed": 7}
+        decode_attention.launches = 0
+        int8_matmul.launches = 0
+        t0 = time.perf_counter()
+        r1 = completion(port, greedy)
+        status, raw = request(port, "/v1/chat/completions", chat)
+        r3 = completion(port, sampled)
+        served_s = time.perf_counter() - t0
+        launches = {"decode_attention": decode_attention.launches,
+                    "int8_matmul": int8_matmul.launches}
+        say(f"  three requests served in {served_s:.2f} s; kernel launches "
+            f"during them: {launches}")
+        for res in results:
+            res["launches"] = launches[res["name"]]
+        if min(launches.values()) <= 0:
+            fail(f"a kernel of the path was never launched: {launches}")
+        if status != 200:
+            fail(f"/v1/chat/completions returned {status}: {raw[:500]!r}")
+        events = [ln[6:] for ln in raw.split(b"\n") if ln.startswith(b"data: ")]
+        if not events or events[-1] != b"[DONE]":
+            fail(f"chat stream did not end with [DONE]: {raw[-300:]!r}")
+        chat_text = "".join(
+            json.loads(e)["choices"][0].get("delta", {}).get("content") or ""
+            for e in events[:-1])
+        for r, want in ((r1, 32), (r3, 24)):
+            got = r["usage"]["completion_tokens"]
+            if got != want:
+                fail(f"completion returned {got} tokens, expected {want}")
+        say(f"  greedy completion: {r1['choices'][0]['text']!r}")
+        say(f"  streamed chat: {chat_text!r}")
+        say(f"  sampled completion (seed 7): {r3['choices'][0]['text']!r}")
+        if completion(port, greedy)["choices"][0]["text"] != \
+                r1["choices"][0]["text"]:
+            fail("repeating the greedy request gave another text")
+        if completion(port, sampled)["choices"][0]["text"] != \
+                r3["choices"][0]["text"]:
+            fail("repeating the seeded sampled request gave another text")
+        tok = ByteTokenizer()
+        rendered = apply_chat_template(tok, chat["messages"])
+        ids = np.asarray(tok.encode(rendered), np.int64)[None]
+        chat_toks = iface.generate_tokens(ids, 16)[0]
+        if len(chat_toks) != 16 or tok.decode(list(chat_toks)) != chat_text:
+            fail("the streamed chat text is not the interface's 16 tokens")
+        if "jax" in sys.modules:
+            fail("jax was imported")
+
+        # the greedy decode again, outside the counted run: (a) each
+        # decode_attention call is held against its plain version on the
+        # same inputs, element by element (agreement_bound); (b) the same
+        # decode with the plain version in place of the kernel, its
+        # per-step logits against the kernel path's; (c) one teacher-
+        # forced prefill over prompt plus output (plain attention,
+        # prefill-sized matmuls) against the decode-step logits.
+        prompt = np.asarray(tok.encode(greedy["prompt"]), np.int64)[None]
+        checked = shadow_checked(attn_lowering, decode_attention_plain,
+                                 agreement_bound)
+        try:
+            toks, step_logits = iface.generate_with_logits(prompt, 32)
+        finally:
+            attn_lowering.decode_attention = checked.inner
+        kernel_in_place = attn_lowering.decode_attention
+        attn_lowering.decode_attention = decode_attention_plain
+        try:
+            toks_w, logits_w = iface.generate_with_logits(prompt, 32)
+        finally:
+            attn_lowering.decode_attention = kernel_in_place
+        full = np.concatenate([prompt, toks[:, :-1]], axis=1)
+        teacher = iface.logits(full).astype(np.float32)
+        P = prompt.shape[1]
+        forced = teacher[:, P - 1:P - 1 + 32, :]
+        scale = float(np.abs(forced).max())
+        # (a)
+        say(f"  (a) {checked.calls} decode_attention calls of the greedy "
+            f"decode against the plain version on their inputs: worst "
+            f"|err|/bound {checked.worst:.4g} (max |err| "
+            f"{checked.max_err:.5g})")
+        # (b) logits at step i follow from tokens < i: compare the steps
+        # up to the first token the two runs pick differently
+        differ = np.nonzero(toks[0] != toks_w[0])[0]
+        n_same = int(differ[0]) + 1 if differ.size else 32
+        wdiff = float(np.abs(logits_w[:, :n_same]
+                             - step_logits[:, :n_same]).max())
+        # (c) bf16 activations round at 2^-8 relative per op. The two
+        # paths round in different places (the decode kernel keeps
+        # attention probabilities in f32, prefill rounds them to bf16 as
+        # the JAX package does), so each layer adds an independent
+        # difference of a few bf16 ulps to the residual stream: the
+        # logits part like a random walk, by sqrt(layers). Bound: 1.5% of
+        # the logits' scale per sqrt(layer), 3% at 4 layers.
+        frac = 0.015 * math.sqrt(layers)
+        tol = frac * scale
+        diff = float(np.abs(forced - step_logits).max())
+        agree = float((forced.argmax(-1) == toks).mean())
+        say(f"  (b) plain attention in place of the kernel: logits of "
+            f"{n_same} steps differ by at most {wdiff:.5g} "
+            f"({wdiff / scale:.3%} of max|logit| {scale:.4g}; bound "
+            f"{tol:.5g} as in (c)), same tokens: {not differ.size}")
+        say(f"  (c) decode vs teacher-forced prefill logits: max_abs_diff="
+            f"{diff:.5g} ({diff / scale:.3%}; tol {tol:.5g} = {frac:.1%} "
+            f"of max|logit| {scale:.4g}), argmax agreement {agree:.3f}")
+        if tok.decode(list(toks[0])) != r1["choices"][0]["text"]:
+            fail("the interface's greedy tokens differ from the HTTP text")
+        if not checked.worst <= 1.0:
+            fail("a decode_attention call of the greedy decode disagrees "
+                 "with its plain version on the same inputs")
+        if not wdiff <= tol:
+            fail("decode-step logits with the plain attention disagree "
+                 "with the kernel path's")
+        if not diff <= tol:
+            fail("decode-step logits disagree with the prefill logits")
+
+        # information: time to first token and decode rate, direct calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iface.generate_tokens(prompt, 1)
+        ttft = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        iface.generate_tokens(prompt, 129)
+        total = time.perf_counter() - t0
+        rate = 128 / max(total - ttft, 1e-9)
+        bucket = min(b for b in iface.prompt_buckets if b >= P)
+        say(f"  time to first token {ttft * 1e3:.1f} ms (prompt {P} tokens, "
+            f"bucket {bucket}), decode {rate:.1f} tok/s (batch 1, {layers} "
+            f"layers) on {card_line()}")
+    finally:
+        api.stop()
+
+
+# ---------------------------------------------------------------------------
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layers", type=int, default=4,
+                    help="transformer layers of the smoke model (32 = full "
+                         "Llama-3-8B depth)")
+    args = ap.parse_args()
+    if not (ROOT / "whisper_tensor_tpu_torch" / "csrc").is_dir():
+        fail(f"no whisper_tensor_tpu_torch/csrc beside {Path(__file__).name}: "
+             f"run from a checkout of the repository")
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
+    import whisper_tensor_tpu_torch  # noqa: F401  (precision contract)
+
+    card = card_line()
+    say(f"phase 0: {card}; compute capability "
+        f"{torch.cuda.get_device_capability(0)}; torch {torch.__version__} "
+        f"(CUDA {torch.version.cuda})")
+    try:
+        import ml_dtypes
+        say(f"  ml_dtypes {ml_dtypes.__version__} imports")
+    except ImportError:
+        say("  ml_dtypes does not import: bf16 crosses as f32 on the host")
+
+    from whisper_tensor_tpu_torch.backends.cuda import build
+
+    t0 = time.perf_counter()
+    build.library()
+    info = build.build_info()
+    say(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {info.seconds:.1f} s) -> {info.path.relative_to(ROOT)}")
+    for line in info.log.splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            say(f"  {line.strip()}")
+
+    results = []
+    phase2(torch, results)
+    phase3(torch, np, args.layers, results)
+    say(json.dumps({"kernels": results}))
+    say(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

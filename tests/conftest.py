@@ -27,3 +27,9 @@ if not os.environ.get("WT_TPU_TESTS"):
 from whisper_tensor_tpu.compile_cache import enable_persistent_cache  # noqa: E402
 
 enable_persistent_cache()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels of the PyTorch "
+        "port); skips where torch.cuda.is_available() is False")

@@ -1,0 +1,203 @@
+"""The PyTorch port's CUDA kernels against their plain versions, on a GPU.
+
+Every test here is marked `cuda` and skips where torch sees no CUDA
+device. The module imports torch, numpy and the port only, so it also
+runs on a GPU machine without JAX:
+
+    python -m pytest --noconftest tests/test_torch_port_cuda.py
+
+(`--noconftest` skips tests/conftest.py, which sets JAX up for the rest
+of the suite.) Inputs come from numpy or from seeded torch generators.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+    decode_attention, decode_attention_plain)
+from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
+    int8_matmul, int8_matmul_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _assert_agree(got, want, magnitude):
+    """|got - want| within agreement_bound, element by element: one ulp
+    of each output plus f32 summation-order noise (see its docstring)."""
+    err = (got.float() - want.float()).abs()
+    bound = agreement_bound(want, magnitude)
+    assert bool((err <= bound).all()), \
+        f"max |err| {err.max().item()}, worst err/bound " \
+        f"{(err / bound.clamp_min(1e-30)).max().item()}"
+
+
+# (B, Hq, Hkv, L, D); the last three have groups of 16, 12 and 11 query
+# heads, which the kernel splits over blocks of 8, 6 and 1 heads
+DECODE_SHAPES = [(4, 8, 2, 192, 128), (2, 4, 4, 256, 128),
+                 (3, 16, 2, 512, 128), (1, 32, 8, 64, 128),
+                 (2, 32, 8, 2048, 128), (2, 32, 2, 256, 128),
+                 (2, 24, 2, 128, 128), (1, 11, 1, 64, 128)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,D", DECODE_SHAPES)
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32])
+def test_decode_attention_kernel_matches_plain(cuda, B, Hq, Hkv, L, D, qdt):
+    """An f32 query (a model computing in f32 over a bf16 cache) gives
+    an f32 output."""
+    rng = np.random.default_rng(B * L)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to(cuda).bfloat16()
+               for s in ((B, Hq, 1, D), (B, Hkv, L, D), (B, Hkv, L, D)))
+    q = q.to(qdt)
+    # a row at 0, one at the last slot, one in between, one beyond L
+    pos = torch.tensor([0, L - 1, L // 2, L + 5][:B], device=cuda)
+    n0 = decode_attention.launches
+    got = decode_attention(q, k, v, pos, 0.088)
+    want = decode_attention_plain(q, k, v, pos, 0.088)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n0 + 1
+    assert got.dtype == qdt
+    _assert_agree(got, want,
+                  decode_attention_plain(q.float(), k, v.abs(), pos, 0.088))
+
+
+def test_decode_attention_kernel_pos_forms(cuda):
+    """pos as () or (B,), int64 or int32, all give the same rows."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(2, 8, 1, 128, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, 2, 96, 128, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    full = decode_attention(q, k, v, torch.tensor([40, 40], device=cuda), 0.1)
+    for pos in (torch.tensor(40, device=cuda),
+                torch.tensor(40, dtype=torch.int32, device=cuda),
+                torch.tensor([40, 40], dtype=torch.int32, device=cuda)):
+        torch.testing.assert_close(decode_attention(q, k, v, pos, 0.1), full,
+                                   atol=0, rtol=0)
+
+
+# (M, K, N): decode rows, a partial row tile, K not a multiple of the
+# 128-row stage, N not a multiple of the 64-column tile, prefill rows
+INT8_SHAPES = [(1, 256, 384), (8, 384, 512), (33, 256, 128), (5, 200, 48),
+               (17, 1024, 1040), (512, 256, 384), (3, 4096, 6144)]
+
+
+@pytest.mark.parametrize("M,K,N", INT8_SHAPES)
+@pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32])
+def test_int8_matmul_kernel_matches_plain(cuda, M, K, N, tdt):
+    """bf16: within agreement_bound, element by element; f32: the same
+    f32 products summed in another order, 1e-5 of the scale."""
+    g = torch.Generator(device=cuda).manual_seed(M * N)
+    x = torch.randn(M, K, generator=g, device=cuda).to(tdt)
+    w = torch.randint(-127, 128, (K, N), generator=g, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand(N, generator=g, device=cuda) * 0.01
+    n0 = int8_matmul.launches
+    got, want = int8_matmul(x, w, s), int8_matmul_plain(x, w, s)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == n0 + 1
+    if tdt == torch.bfloat16:
+        _assert_agree(got, want, int8_matmul_plain(x.float().abs(), w.abs(),
+                                                   s))
+    else:
+        torch.testing.assert_close(
+            got, want, atol=1e-5 * max(1.0, want.abs().max().item()), rtol=0)
+
+
+def test_int8_matmul_above_512_rows_takes_the_dense_form(cuda):
+    """More than 512 rows: the f32 torch.matmul form, as the JAX package
+    leaves that product to XLA; the kernel is not launched."""
+    x = torch.randn(600, 128, device=cuda).bfloat16()
+    w = torch.randint(-127, 128, (128, 256), device=cuda, dtype=torch.int8)
+    s = torch.rand(256, device=cuda)
+    n0 = int8_matmul.launches
+    torch.testing.assert_close(int8_matmul(x, w, s),
+                               int8_matmul_plain(x, w, s), atol=0, rtol=0)
+    assert int8_matmul.launches == n0
+
+
+def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
+    q = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="unsupported"):
+        decode_attention(q, kv, kv, torch.tensor(3, device=cuda), 0.1)
+    x = torch.zeros(2, 64, dtype=torch.float16, device=cuda)
+    w = torch.zeros(64, 128, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        int8_matmul(x, w, torch.ones(128, device=cuda))
+    with pytest.raises(ValueError, match="N % 16"):
+        int8_matmul(x.bfloat16(), w[:, :100].contiguous(),
+                    torch.ones(100, device=cuda))
+
+
+def test_attention_lowering_raises_for_a_decode_step_the_kernel_lacks(cuda):
+    """A bf16 single-query step with head dim 64 goes to the kernel's
+    wrapper, which raises: no quiet plain path on the card."""
+    from whisper_tensor_tpu.milli.ops.attention import AttentionMilli
+    from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
+
+    q = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16, device=cuda)
+    n0 = decode_attention.launches
+    with pytest.raises(ValueError, match="head dim 128"):
+        LOWERINGS["Attention"](AttentionMilli(scale=0.125),
+                               [q, kv, kv, torch.tensor(3, device=cuda)],
+                               [None] * 4, cuda)
+    assert decode_attention.launches == n0
+
+
+def test_tiny_llama_on_the_gpu_goes_through_both_kernels(cuda):
+    """A 2-layer bf16 int8 llama (the CPU tests' tiny shapes) on the
+    card: greedy decoding launches both kernels, and its per-step logits
+    stay within 3% of their scale of a teacher-forced prefill over the
+    same tokens on the CPU, whose wrappers take the plain versions (bf16
+    rounds at 2^-8 relative, and the two paths round and sum in other
+    places through both layers)."""
+    import zlib
+
+    from whisper_tensor_tpu.dtype import DType
+    from whisper_tensor_tpu.importers.recipes.llm.llama import (
+        LlamaConfig, build_llama_step)
+    from whisper_tensor_tpu.model import Model
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+
+    cfg = LlamaConfig(num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, hidden_size=256,
+                      intermediate_size=384, vocab_size=512, head_dim=128)
+
+    def weights(name):
+        rng = np.random.default_rng(zlib.crc32(name.encode()))
+        if "norm" in name:
+            return (1.0 + 0.1 * rng.standard_normal(256)).astype(np.float32)
+        shape = {"embed": (512, 256), "lm_head": (512, 256),
+                 "q_proj": (256, 256), "o_proj": (256, 256),
+                 "k_proj": (128, 256), "v_proj": (128, 256),
+                 "gate_proj": (384, 256), "up_proj": (384, 256),
+                 "down_proj": (256, 384)}
+        s = next(v for key, v in shape.items() if key in name)
+        return (rng.standard_normal(s) * 0.08).astype(np.float32)
+
+    model = Model.new_from_onnx(build_llama_step(weights, cfg, max_len=64,
+                                                 dtype=DType.BF16))
+    kw = dict(max_len=64, cache_dtype=DType.BF16, quantize="int8")
+    gpu = TextInferenceInterface(model, device=cuda, **kw)
+    cpu = TextInferenceInterface(model, device="cpu", **kw)
+    prompt = np.random.default_rng(11).integers(3, 259, (2, 7))
+    a0, m0 = decode_attention.launches, int8_matmul.launches
+    toks, logits = gpu.generate_with_logits(prompt, 8)
+    assert decode_attention.launches - a0 == 2 * 7     # 2 layers x 7 steps
+    assert int8_matmul.launches > m0
+    assert toks.shape == (2, 8)
+    full = np.concatenate([prompt, toks[:, :-1]], axis=1)
+    want = cpu.logits(full).astype(np.float32)[:, prompt.shape[1] - 1:]
+    np.testing.assert_allclose(logits, want, rtol=0,
+                               atol=0.03 * np.abs(want).max())

@@ -1,0 +1,158 @@
+"""Command-line interface of the port: `generate` and `serve`.
+
+Counterpart of whisper_tensor_tpu/cli.py:41 (generate) and :445
+(serve), on a torch device chosen with --device (CUDA by default, the
+CPU only when asked for). The reference's other subcommands are not
+ported yet.
+
+Usage:
+  python -m whisper_tensor_tpu_torch.cli generate --model DIR \
+      --prompt "..." [--max-new-tokens 64] [-c quantize=int8] [--device cuda]
+  python -m whisper_tensor_tpu_torch.cli serve --model DIR \
+      --http-port 8000 [-c quantize=int8] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+from whisper_tensor_tpu.cli import _parse_kv
+
+
+def cmd_generate(args) -> None:
+    from whisper_tensor_tpu.importers.loaders import (identify_and_load,
+                                                      loader_registry)
+    from whisper_tensor_tpu.interfaces.text import SamplingParams
+    from whisper_tensor_tpu.tokenizer import AnyTokenizer, apply_chat_template
+
+    from .interfaces.text import TextInferenceInterface
+
+    cfg = _parse_kv(args.config)
+    cfg.setdefault("max_len", args.max_len)
+    t0 = time.time()
+    if args.loader == "auto":
+        bundle = identify_and_load(args.model, **cfg)
+    else:
+        bundle = loader_registry()[args.loader].load({"path": args.model,
+                                                      **cfg})
+    iface_cfg = bundle.interfaces.get("text")
+    if iface_cfg is None:
+        raise SystemExit("the port generates text from causal LMs only; "
+                         "this bundle has no text interface")
+    if iface_cfg.get("windows"):
+        raise SystemExit("decode_windows is not ported to PyTorch yet")
+    model = bundle.models[iface_cfg.get("model") or next(iter(bundle.models))]
+    print(f"loaded {model.name} in {time.time() - t0:.1f}s", file=sys.stderr)
+    # the KV cache keeps the element type the step graph declares for it
+    g = model.graph
+    cache_dtype = next(g.tensors[g.by_name[n]].info.dtype
+                       for n in g.by_name if n.startswith("cache_"))
+    iface = TextInferenceInterface(
+        model, max_len=int(iface_cfg.get("max_len", args.max_len)),
+        cache_dtype=cache_dtype, eos_token_id=iface_cfg.get("eos_token_id"),
+        quantize=iface_cfg.get("quantize") or None, device=args.device)
+    iface.tokenizer = AnyTokenizer.load(args.tokenizer
+                                        or bundle.tokenizer_source or "bytes")
+    if args.chat:
+        messages = ([{"role": "system", "content": args.system}]
+                    if args.system else [])
+        messages.append({"role": "user", "content": args.prompt})
+        args.prompt = apply_chat_template(iface.tokenizer, messages)
+    sampling = None
+    if (args.temperature > 0 or args.repetition_penalty != 1.0
+            or args.presence_penalty != 0.0 or args.frequency_penalty != 0.0):
+        sampling = SamplingParams(
+            temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+            min_p=args.min_p, repetition_penalty=args.repetition_penalty,
+            presence_penalty=args.presence_penalty,
+            frequency_penalty=args.frequency_penalty, seed=args.seed)
+    t1 = time.time()
+    text = iface.run_string_in_string_out(args.prompt, args.max_new_tokens,
+                                          sampling=sampling)
+    for s in args.stop:
+        i = text.find(s)
+        if i >= 0:
+            text = text[:i]
+    dt = time.time() - t1
+    print(text)
+    print(f"[{args.max_new_tokens} tokens in {dt:.2f}s "
+          f"({args.max_new_tokens / dt:.1f} tok/s) on {iface.device}]",
+          file=sys.stderr)
+
+
+def cmd_serve(args) -> None:
+    import asyncio
+
+    from .server.main import Server
+
+    srv = Server(device=args.device)
+    if args.model:
+        cfg = dict(kv.split("=", 1) for kv in args.config)
+        cfg["path"] = args.model
+        for e in srv.models.run_loader(args.loader, cfg):
+            print(f"loaded model #{e.id} {e.name}", file=sys.stderr)
+    if args.http_port is not None:
+        from whisper_tensor_tpu.server.openai_api import OpenAIApi
+
+        api = OpenAIApi(srv, args.host, args.http_port).start()
+        print(f"OpenAI-compatible API on http://{args.host}:{api.port}/v1",
+              flush=True)
+    print(f"whisper-tensor-tpu (PyTorch, {srv.device}) server on "
+          f"ws://{args.host}:{args.port}", flush=True)
+    asyncio.run(srv.run(args.host, args.port))
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser("whisper-tensor-tpu-torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    g = sub.add_parser("generate", help="LLM text generation")
+    g.add_argument("--model", required=True)
+    g.add_argument("--prompt", required=True)
+    g.add_argument("--loader", default="auto")
+    g.add_argument("--tokenizer")
+    g.add_argument("--max-new-tokens", type=int, default=64)
+    g.add_argument("--max-len", type=int, default=1024)
+    g.add_argument("--temperature", type=float, default=0.0)
+    g.add_argument("--top-k", type=int, default=0)
+    g.add_argument("--top-p", type=float, default=1.0)
+    g.add_argument("--min-p", type=float, default=0.0)
+    g.add_argument("--repetition-penalty", type=float, default=1.0)
+    g.add_argument("--presence-penalty", type=float, default=0.0)
+    g.add_argument("--frequency-penalty", type=float, default=0.0)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--stop", action="append", default=[],
+                   help="stop sequence: truncate the output at its first "
+                        "occurrence (repeatable)")
+    g.add_argument("--chat", action="store_true",
+                   help="treat --prompt as a user message and render the "
+                        "tokenizer's chat template")
+    g.add_argument("--system", help="system message for --chat")
+    g.add_argument("-c", "--config", action="append", default=[],
+                   help="loader config key=value")
+    g.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    g.set_defaults(fn=cmd_generate)
+
+    s = sub.add_parser("serve", help="run the WebSocket server")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=3000)
+    s.add_argument("--http-port", type=int,
+                   help="also serve the OpenAI-compatible HTTP API on this "
+                        "port (0 = auto-pick)")
+    s.add_argument("--model", help="preload a model at startup")
+    s.add_argument("--loader", default="auto")
+    s.add_argument("-c", "--config", action="append", default=[],
+                   help="loader config key=value (repeatable)")
+    s.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    s.set_defaults(fn=cmd_serve)
+
+    args = ap.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

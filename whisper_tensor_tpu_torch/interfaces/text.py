@@ -1,0 +1,342 @@
+"""Text inference on PyTorch: tokens in, logits and generated tokens out.
+
+Counterpart of whisper_tensor_tpu/interfaces/text.py:249-1236, the part
+the server's direct text path calls. The reference compiles prefill and
+the whole decode loop into one XLA program with donated caches; here
+the step graph runs eagerly through GraphExecutor:
+  * prefill at the prompt's bucket length, then one step per token;
+  * the KV caches are device tensors this interface allocates, written
+    in place by the graph's cache writes;
+  * positions, tokens and sampling state stay on the device, so the
+    loop never waits for the device until the tokens are read back.
+
+Ported: dense and `quantize="int8"` weights, q/k/v and gate/up matmul
+fusion (always on: the reference turns it off only for meshes and LoRA,
+which are not ported), prompt buckets DEFAULT_PROMPT_BUCKETS, greedy
+decoding, SamplingParams on a seeded torch.Generator,
+logit_bias. Not ported yet, and raising NotImplementedError: packed and
+host-quantized weights, windowed decode, meshes, LoRA adapters, beam
+search, DFA-constrained decoding.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from whisper_tensor_tpu.dtype import DType
+from whisper_tensor_tpu.interfaces.text import (DEFAULT_PROMPT_BUCKETS,
+                                                SamplingParams, _bucket,
+                                                _uses_seen)
+from whisper_tensor_tpu.milli.transforms import (fuse_parallel_matmuls,
+                                                 quantize_matmul_weights)
+from whisper_tensor_tpu.model import Model
+
+from ..backends.torch_exec.compiler import GraphExecutor
+from ..device import resolve_device
+from ..dtype import to_host, to_torch
+from ..weights import carry_weights
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to PyTorch yet")
+
+
+def _filtered_logits(lg: torch.Tensor, sp: SamplingParams) -> torch.Tensor:
+    """Temperature, top-k, top-p and min-p applied to (B, V) logits, in
+    f32: softmax of the result is the distribution tokens are drawn
+    from (reference _filtered_logits, interfaces/text.py:57)."""
+    lg = lg.float() / sp.temperature
+    if sp.top_k:
+        kth = torch.topk(lg, sp.top_k, dim=-1).values[..., -1:]
+        lg = lg.masked_fill(lg < kth, -torch.inf)
+    if sp.top_p < 1.0:
+        srt = torch.sort(lg, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        keep = (torch.cumsum(probs, dim=-1) - probs) <= sp.top_p
+        thresh = torch.where(keep, srt, torch.inf).amin(dim=-1, keepdim=True)
+        lg = lg.masked_fill(lg < thresh, -torch.inf)
+    if sp.min_p > 0.0:
+        probs = torch.softmax(lg, dim=-1)
+        cut = sp.min_p * probs.amax(dim=-1, keepdim=True)
+        lg = lg.masked_fill(probs < cut, -torch.inf)
+    return lg
+
+
+def _pick_token(logits: torch.Tensor, gen: Optional[torch.Generator],
+                sp: Optional[SamplingParams],
+                seen: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, V) logits -> (B,) int64 tokens (reference _pick_token, :83).
+    `seen` is the (B, V) count of prompt + generated tokens that the
+    repetition / presence / frequency penalties read."""
+    if seen is not None:
+        lg = logits.float()
+        emitted = seen > 0
+        if sp.repetition_penalty != 1.0:
+            pen = torch.where(lg > 0, lg / sp.repetition_penalty,
+                              lg * sp.repetition_penalty)
+            lg = torch.where(emitted, pen, lg)
+        if sp.presence_penalty != 0.0:
+            lg = lg - sp.presence_penalty * emitted.float()
+        if sp.frequency_penalty != 0.0:
+            lg = lg - sp.frequency_penalty * seen.float()
+        logits = lg
+    if sp is None or sp.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(_filtered_logits(logits, sp), dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+
+class TextInferenceInterface:
+    """Drives a unified step graph (see importers/recipes/llm):
+    inputs  input_ids (B, S), pos (), cache_k_i / cache_v_i
+            (B, H, MAX, D), weights
+    outputs logits (B, S, V), new_cache_k_i / new_cache_v_i."""
+
+    def __init__(self, model: Model, max_len: int,
+                 cache_dtype: DType = DType.F32,
+                 tokenizer=None, eos_token_id=None,
+                 quantize: Optional[str] = None,
+                 window_models=None, mesh=None,
+                 device=None):
+        if window_models:
+            raise _not_ported("windowed decode (window_models)")
+        if mesh is not None:
+            raise _not_ported("multi-device serving (mesh)")
+        if quantize not in (None, "int8"):
+            raise _not_ported(f"quantize={quantize!r} (packed / host-"
+                              f"quantized weights)")
+        if quantize is None and getattr(model.graph.store,
+                                        "packed_sources", None):
+            raise _not_ported("packed GGUF/GPTQ/AWQ weights")
+        self.device = resolve_device(device)
+        self.model = model
+        self.max_len = max_len
+        self.cache_dtype = cache_dtype
+        self.prompt_buckets = [b for b in DEFAULT_PROMPT_BUCKETS
+                               if b <= max_len]
+        if not self.prompt_buckets:
+            raise ValueError(f"no prompt bucket <= max_len={max_len} "
+                             f"(buckets={list(DEFAULT_PROMPT_BUCKETS)})")
+        self.tokenizer = tokenizer
+        if eos_token_id is None or isinstance(eos_token_id, int):
+            self.eos_token_id = eos_token_id
+            self.eos_token_ids = (None if eos_token_id is None
+                                  else (eos_token_id,))
+        else:
+            ids = tuple(int(e) for e in eos_token_id)
+            self.eos_token_id = ids[0] if ids else None
+            self.eos_token_ids = ids or None
+        milli, weight_inputs = model.graph.to_milli()
+        self.milli = milli
+        # the reference's numpy graph passes, unchanged
+        self._fused: Dict[str, List[Tuple[str, int]]] = \
+            fuse_parallel_matmuls(milli, set(weight_inputs))
+        live = [n for n in milli.inputs
+                if n in weight_inputs or n in self._fused]
+        self._quantized: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        if quantize == "int8":
+            self._quantized = quantize_matmul_weights(milli, live,
+                                                      self._dense_np)
+        self.weight_names = [n for n in milli.inputs
+                             if n in weight_inputs or n in self._fused
+                             or n.endswith("::scale")]
+        self.weight_dtypes = {
+            n: (DType.F32 if n.endswith("::scale")
+                else DType.I8 if n in self._quantized else self._declared(n))
+            for n in self.weight_names}
+        self.cache_in_names = [n for n in milli.inputs
+                               if n.startswith("cache_")]
+        self.cache_out_names = [n for n in milli.outputs
+                                if n.startswith("new_cache_")]
+        pos_tid = milli.inputs.get("pos")
+        self._pos_per_row = (pos_tid is not None
+                             and milli.tensors[pos_tid].info.rank == 1)
+        info = model.graph.tensors[
+            model.graph.by_name[self.cache_in_names[0]]].info
+        self.n_heads = int(info.dims()[1].value())
+        self.head_dim = int(info.dims()[3].value())
+        self._exec = GraphExecutor(milli, self.device)
+        self._weights_dev: Optional[Dict[str, torch.Tensor]] = None
+
+    # ------------------------------------------------------------------
+    def _dense_np(self, n: str) -> np.ndarray:
+        """Dense host weight by milli input name; a fused input is its
+        members concatenated column-wise (reference :457)."""
+        store = self.model.graph.store
+        if n in self._fused:
+            return np.concatenate([store.get_numeric(m).numpy()
+                                   for m, _ in self._fused[n]], axis=1)
+        return store.get_numeric(n).numpy()
+
+    def _declared(self, n: str) -> DType:
+        """The element type the model declares for a weight input (a
+        fused input has its members' type)."""
+        g = self.model.graph
+        name = self._fused[n][0][0] if n in self._fused else n
+        return g.tensors[g.by_name[name]].info.dtype
+
+    def host_weights(self) -> Dict[str, np.ndarray]:
+        """{milli input name: host array}, assembled as the reference's
+        `_weights` does (interfaces/text.py:584-633)."""
+        out = {}
+        for n in self.weight_names:
+            if n.endswith("::scale"):
+                out[n] = self._quantized[n[:-7]][1]
+            elif n in self._quantized:
+                out[n] = self._quantized[n][0]
+            else:
+                out[n] = self._dense_np(n)
+        return out
+
+    def load_weights(self, arrays: Mapping[str, np.ndarray]) -> None:
+        """Upload a weight set named as `host_weights` names it."""
+        self._weights_dev = carry_weights(arrays, self.weight_dtypes,
+                                          self.device)
+
+    def _weights(self) -> Dict[str, torch.Tensor]:
+        if self._weights_dev is None:
+            self.load_weights(self.host_weights())
+        return self._weights_dev
+
+    def _vocab_size(self) -> int:
+        info = self.model.graph.tensors[
+            self.model.graph.by_name["logits"]].info
+        return int(info.dims()[-1].value())
+
+    def fresh_cache(self, batch: int) -> List[torch.Tensor]:
+        out = []
+        for n in self.cache_in_names:
+            info = self.model.graph.tensors[self.model.graph.by_name[n]].info
+            dims = tuple(batch if not d.is_known else int(d.value())
+                         for d in info.dims())
+            out.append(torch.zeros(dims, dtype=to_torch(self.cache_dtype),
+                                   device=self.device))
+        return out
+
+    def step(self, ids: torch.Tensor, pos: torch.Tensor,
+             caches: List[torch.Tensor]) -> torch.Tensor:
+        """One step graph run: ids (B, S) int64 and pos () int64 on the
+        device -> logits (B, S, V). `caches` are updated in place."""
+        if self._pos_per_row:
+            pos = pos.reshape(-1).expand(ids.shape[0])
+        feeds = {"input_ids": ids, "pos": pos}
+        feeds.update(zip(self.cache_in_names, caches))
+        feeds.update(self._weights())
+        return self._exec(feeds)["logits"]
+
+    # ------------------------------------------------------------------
+    def _prompt(self, prompt_ids) -> Tuple[torch.Tensor, int]:
+        """(B, L) prompt -> its zero-padded bucket on the device, and L."""
+        prompt_ids = np.asarray(prompt_ids, dtype=np.int64)
+        if prompt_ids.ndim == 1:
+            prompt_ids = prompt_ids[None]
+        B, L = prompt_ids.shape
+        padded = np.zeros((B, _bucket(L, self.prompt_buckets)), np.int64)
+        padded[:, :L] = prompt_ids
+        return torch.from_numpy(padded).to(self.device), L
+
+    def _decode(self, prompt_ids, n_new: int, caches,
+                sampling: Optional[SamplingParams],
+                logit_bias: Optional[np.ndarray], keep_logits: bool):
+        """Prefill, then n_new - 1 decode steps. Returns (tokens (B,
+        n_new) on the device, per-token f32 logits or None)."""
+        ids, L = self._prompt(prompt_ids)
+        B = ids.shape[0]
+        if caches is None:
+            caches = self.fresh_cache(B)
+        bias = (None if logit_bias is None else torch.as_tensor(
+            np.asarray(logit_bias, np.float32), device=self.device))
+        gen = None
+        if sampling is not None and sampling.temperature > 0.0:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(sampling.seed))
+        pos = torch.zeros((), dtype=torch.int64, device=self.device)
+        last = self.step(ids, pos, caches)[:, L - 1, :]
+        seen = None
+        if _uses_seen(sampling):
+            # prompt tokens count as seen (only the real prefix)
+            seen = torch.zeros((B, last.shape[-1]), dtype=torch.int32,
+                               device=self.device)
+            seen.scatter_add_(1, ids[:, :L],
+                              torch.ones_like(ids[:, :L], dtype=torch.int32))
+        toks, kept = [], []
+        pos = pos + L
+        for i in range(n_new):
+            if i:
+                last = self.step(toks[-1][:, None], pos, caches)[:, -1, :]
+                pos = pos + 1
+            if bias is not None:
+                last = last + bias
+            if keep_logits:
+                kept.append(last.float())
+            tok = _pick_token(last, gen, sampling, seen)
+            if seen is not None:
+                seen.scatter_add_(1, tok[:, None],
+                                  torch.ones_like(tok[:, None],
+                                                  dtype=torch.int32))
+            toks.append(tok)
+        out = (torch.stack(toks, dim=1) if toks
+               else torch.zeros((B, 0), dtype=torch.int64, device=self.device))
+        return out, (torch.stack(kept, dim=1) if keep_logits and kept
+                     else None)
+
+    def generate_tokens(self, prompt_ids: np.ndarray, n_new: int,
+                        caches=None,
+                        sampling: Optional[SamplingParams] = None,
+                        constraint=None,
+                        logit_bias: Optional[np.ndarray] = None
+                        ) -> np.ndarray:
+        """prompt_ids (B, L) int64, the same L for every row -> (B,
+        n_new) int64. sampling=None is greedy; otherwise tokens are
+        drawn from a torch.Generator seeded with sampling.seed.
+        logit_bias: (V,) f32 added to every step's logits."""
+        if constraint is not None:
+            raise _not_ported("DFA-constrained decoding")
+        toks, _ = self._decode(prompt_ids, n_new, caches, sampling,
+                               logit_bias, keep_logits=False)
+        return toks.cpu().numpy()
+
+    def generate_with_logits(self, prompt_ids: np.ndarray, n_new: int,
+                             sampling: Optional[SamplingParams] = None
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+        """generate_tokens, also returning the f32 logits each token was
+        picked from: (B, n_new) tokens, (B, n_new, V) logits."""
+        toks, logits = self._decode(prompt_ids, n_new, None, sampling,
+                                    None, keep_logits=True)
+        return toks.cpu().numpy(), logits.cpu().numpy()
+
+    def logits(self, prompt_ids: np.ndarray) -> np.ndarray:
+        """Single forward: (B, L) -> (B, L, V) logits (prefill step)."""
+        ids, L = self._prompt(prompt_ids)
+        pos = torch.zeros((), dtype=torch.int64, device=self.device)
+        out = self.step(ids, pos, self.fresh_cache(ids.shape[0]))
+        return to_host(out[:, :L, :])
+
+    def run_string_in_string_out(self, text: str, n_new: int = 32,
+                                 sampling: Optional[SamplingParams] = None,
+                                 regex: Optional[str] = None,
+                                 json_schema=None) -> str:
+        if self.tokenizer is None:
+            raise ValueError("no tokenizer configured")
+        if regex is not None or json_schema is not None:
+            raise _not_ported("DFA-constrained decoding (regex / schema)")
+        ids = np.asarray(self.tokenizer.encode(text), dtype=np.int64)[None]
+        toks = self.generate_tokens(ids, n_new, sampling=sampling)[0]
+        if self.eos_token_ids:
+            eos = np.nonzero(np.isin(toks, np.asarray(self.eos_token_ids)))[0]
+            if eos.size:
+                toks = toks[:eos[0]]
+        return self.tokenizer.decode([int(t) for t in toks])
+
+    # -- entry points of the reference that the port does not have yet --
+    def compile_constraint(self, regex=None, json_schema=None):
+        raise _not_ported("DFA-constrained decoding")
+
+    def beam_search_tokens(self, *args, **kwargs):
+        raise _not_ported("beam search")
+
+    def install_adapters(self, adapters):
+        raise _not_ported("LoRA adapters")
