@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (whisper_tensor_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--layers N]
+    python3 chip_smoke.py [--layers N] [--plant-fault]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX, and it fails
@@ -12,17 +12,31 @@ Phases:
      whether ml_dtypes imports;
   1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and time it;
   2. each kernel against its plain PyTorch version on the card, at the
-     text slice's shapes: max error against a stated tolerance, and the
-     median time of kernel and plain version (CUDA events);
-  3. the slice: a Llama-3-8B-width checkpoint (hidden 4096, 32/8 heads
-     of 128, FFN 14336, vocab 128256, rope theta 5e5; depth cut to
+     served paths' shapes: max error against a stated tolerance (zero
+     for ragged_kv_write, a copy, over the whole cache), and the median
+     time of kernel and plain version (CUDA events; for ragged_kv_write,
+     which is shorter than its launch, also the device time alone);
+  3. the direct path: a Llama-3-8B-width checkpoint (hidden 4096, 32/8
+     heads of 128, FFN 14336, vocab 128256, rope theta 5e5; depth cut to
      --layers, random weights from a seed) is written to disk, loaded by
      the port's Server through the reference loader (bf16, int8 weights,
      max_len 2048), and served by the reference OpenAI HTTP API; three
      requests go through it, and the kernels' launch counters must rise.
      Then the greedy decode again: each decode_attention call against
      its plain version on the same inputs, the decode's logits with the
-     plain version swapped in, and against a teacher-forced prefill.
+     plain version swapped in, and against a teacher-forced prefill;
+  4. the batched path: the same checkpoint loaded with ragged_decode
+     (16 slots, chunks of 16 up to 64, prefill pieces of 128, an
+     automatic prefix pool of 8) and served over HTTP to 32 client
+     threads in three waves (28 completions and 4 streamed chats,
+     prompts of 5 to 400 tokens, eight sharing a 64-token prefix, 24
+     greedy and 8 sampled). Every request must answer in full, all three
+     kernels' counters must rise, (d) each greedy answer must stand a
+     teacher-forced prefill over prompt and answer, and (e) the greedy
+     requests again on a fresh batcher must give the same tokens with
+     the plain ragged_kv_write in place of the kernel.
+     --plant-fault makes every decode-step cache write of the served
+     traffic land one position early, which (d) must catch.
 The last three lines are the kernels' JSON summary line, the card, and
 the result line.
 """
@@ -30,6 +44,8 @@ the result line.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import gc
 import http.client
 import json
 import math
@@ -39,6 +55,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -80,6 +97,30 @@ def time_ms(torch, fn, argsets, reps: int = 7, inner: int = 5) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn(*argsets[i % len(argsets)])
+            i += 1
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def device_time_ms(torch, fn, argsets, reps: int = 7, inner: int = 20) -> float:
+    """Median device ms per call, for kernels shorter than their launch:
+    each run of `inner` calls is enqueued behind a spin kernel
+    (torch.cuda._sleep, ~25 ms) that holds the stream while the host
+    enqueues them, so the events time the calls back to back on the
+    device, not the host's launch rate."""
+    for a in argsets[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    times, i = [], 0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
         start.record()
         for _ in range(inner):
             fn(*argsets[i % len(argsets)])
@@ -196,6 +237,69 @@ def phase2(torch, results):
         "plain_ms": timing[1], "shape": timing[2]})
 
 
+def phase2_kv_write(torch, results):
+    """ragged_kv_write against its plain version: a copy, so bit-exact
+    over the whole cache (the written slabs and every untouched
+    element), written in place."""
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        ragged_kv_write, ragged_kv_write_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    H, L, D = 8, MAX_LEN, 128
+    decode_pos = [0, 1, 511, 2046, 2047, 5000, -1] + list(range(100, 1000, 100))
+    # (label, B, S, cache type, update type, positions): a decode step of
+    # the 16 slots (5000 clamps to L - 1, -1 counts from the end), a
+    # chunked-prefill piece of 4 rows (1950 + 128 and 3000 clamp to
+    # L - 128), an f32 update into the bf16 cache
+    cases = (("decode", 16, 1, torch.bfloat16, torch.bfloat16, decode_pos),
+             ("admission piece", 4, 128, torch.bfloat16, torch.bfloat16,
+              [0, 128, 1950, 3000]),
+             ("f32 update", 16, 1, torch.bfloat16, torch.float32,
+              decode_pos))
+    say("  ragged_kv_write: bit-exact against the plain version over the "
+        "whole cache, in place")
+    timing = None
+    for label, B, S, cdt, udt, pos_list in cases:
+        sets = []
+        for _ in range(copies_for(B * H * L * D * 2)):
+            cache = torch.randn(B, H, L, D, generator=gen,
+                                device=dev).to(cdt)
+            upd = torch.randn(B, H, S, D, generator=gen, device=dev).to(udt)
+            sets.append((cache, upd, torch.tensor(pos_list, device=dev)))
+        cache, upd, pos = sets[0]
+        want = ragged_kv_write_plain(cache.clone(), upd, pos)
+        ptr = cache.data_ptr()
+        got = ragged_kv_write(cache, upd, pos)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+        err = (got.float() - want.float()).abs().max().item()
+        ms = time_ms(torch, ragged_kv_write, sets)
+        plain_ms = time_ms(torch, ragged_kv_write_plain, sets)
+        dev_ms = device_time_ms(torch, ragged_kv_write, sets)
+        plain_dev_ms = device_time_ms(torch, ragged_kv_write_plain, sets)
+        say(f"  ragged_kv_write {label} B={B} H={H} L={L} D={D} S={S} "
+            f"{str(udt)[6:]} into {str(cdt)[6:]}: bit-exact {same}, in place "
+            f"{got.data_ptr() == ptr}, max_abs_err={err:.6g}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms; device time alone: "
+            f"kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f} ms")
+        if not same or got.data_ptr() != ptr:
+            fail(f"ragged_kv_write ({label}) is not the plain version's "
+                 f"in-place copy")
+        if timing is None:
+            timing = (ms, plain_ms, f"B={B} H={H} L={L} D={D} S=1 bf16",
+                      dev_ms, plain_dev_ms)
+        del sets, cache, upd, want, got
+        torch.cuda.empty_cache()
+    results.append({
+        "name": "ragged_kv_write", "route": "cuda",
+        "source": "whisper_tensor_tpu_torch/csrc/kv_write.cu",
+        "replaces": "whisper_tensor_tpu/backends/pallas/kv_write.py:104",
+        "launches": None, "max_abs_err": 0.0, "ms": timing[0],
+        "plain_ms": timing[1], "shape": timing[2],
+        "device_ms": timing[3], "plain_device_ms": timing[4]})
+
+
 # ---------------------------------------------------------------------------
 def write_checkpoint(d: Path, layers: int, np, bf16) -> int:
     """config.json + model.safetensors at Llama-3-8B widths, `layers`
@@ -291,7 +395,7 @@ def shadow_checked(lowering, plain, bound):
     return checked
 
 
-def phase3(torch, np, layers: int, results) -> None:
+def phase3(torch, np, ckpt: Path, layers: int, results) -> None:
     from whisper_tensor_tpu.server.openai_api import OpenAIApi
     from whisper_tensor_tpu.tokenizer import ByteTokenizer, apply_chat_template
 
@@ -302,38 +406,24 @@ def phase3(torch, np, layers: int, results) -> None:
     from whisper_tensor_tpu_torch.milli.ops import attention as attn_lowering
     from whisper_tensor_tpu_torch.server.main import Server
 
-    try:
-        import ml_dtypes
-        bf16 = np.dtype(ml_dtypes.bfloat16)
-    except ImportError:       # the reference then reads f16 and casts
-        bf16 = None
-    ckpt = ROOT / "build" / "smoke" / f"llama3-8b-widths-{layers}L"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    ckpt.mkdir(parents=True)
-    try:
-        t0 = time.perf_counter()
-        nbytes = write_checkpoint(ckpt, layers, np, bf16)
-        say(f"phase 3: wrote a {layers}-layer Llama-3-8B-width checkpoint "
-            f"({nbytes / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
-        srv = Server()
-        t0 = time.perf_counter()
-        entries = srv.models.run_loader("transformers", {
-            "path": str(ckpt), "dtype": "bf16", "quantize": "int8",
-            "max_len": MAX_LEN})
-        say(f"  reference loader (ONNX build + parse): "
-            f"{time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        iface = srv._text_iface(entries[0])
-        iface._weights()
-        torch.cuda.synchronize()
-        say(f"  port interface (int8 quantize + upload): "
-            f"{time.perf_counter() - t0:.1f} s, "
-            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
-            f"peak host RSS "
-            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.1f} GB")
-        api = OpenAIApi(srv, "127.0.0.1", 0).start()
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    say("phase 3: the direct path")
+    srv = Server()
+    t0 = time.perf_counter()
+    entries = srv.models.run_loader("transformers", {
+        "path": str(ckpt), "dtype": "bf16", "quantize": "int8",
+        "max_len": MAX_LEN})
+    say(f"  reference loader (ONNX build + parse): "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    iface = srv._text_iface(entries[0])
+    iface._weights()
+    torch.cuda.synchronize()
+    say(f"  port interface (int8 quantize + upload): "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+        f"peak host RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.1f} GB")
+    api = OpenAIApi(srv, "127.0.0.1", 0).start()
     try:
         port = api.port
         greedy = {"prompt": "The capital of France is", "max_tokens": 32,
@@ -354,7 +444,8 @@ def phase3(torch, np, layers: int, results) -> None:
         say(f"  three requests served in {served_s:.2f} s; kernel launches "
             f"during them: {launches}")
         for res in results:
-            res["launches"] = launches[res["name"]]
+            if res["name"] in launches:
+                res["launches_direct"] = launches[res["name"]]
         if min(launches.values()) <= 0:
             fail(f"a kernel of the path was never launched: {launches}")
         if status != 200:
@@ -470,11 +561,314 @@ def phase3(torch, np, layers: int, results) -> None:
 
 
 # ---------------------------------------------------------------------------
+SERVE_CFG = {"dtype": "bf16", "quantize": "int8", "max_len": MAX_LEN,
+             "ragged_decode": True, "serve_batch": 16, "serve_chunk": 16,
+             "serve_chunk_max": 64, "prefill_chunk": 128,
+             "serve_auto_prefix": 8}
+
+
+def free_memory(torch) -> None:
+    """Return a finished phase's host and device memory before the next
+    load (the reference loader peaks at ~68 GB of host RSS at 32
+    layers)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
+
+
+def host_rss_gb() -> float:
+    """This process's resident memory now (ru_maxrss is the peak)."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1e6
+    return float("nan")
+
+
+def traffic(np):
+    """Three waves of requests (seeded): (wave, path, body). Prompts are
+    lowercase text, one byte-tokenizer token per character; eight share
+    a 64-character prefix (65-95 tokens: their 32-aligned pool key is
+    the prefix itself). Wave 0 admits whole buckets, wave 1 long prompts
+    in 128-token pieces, and wave 2, sent once wave 1 is admitted, the
+    prefix-sharing prompts that hit the pool entry wave 0 left."""
+    rng = np.random.default_rng(SEED + 4)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz    "))
+
+    def text(n):
+        return "".join(rng.choice(letters, n))
+
+    prefix = text(64)
+    waves = [[("c", prefix + text(16))]
+             + [("c", text(n)) for n in (5, 9, 14, 20, 27, 31, 12, 7, 45,
+                                         70, 110)],
+             [("c", text(n)) for n in (150, 190, 230, 270, 300, 340, 370,
+                                       400)]
+             + [("s", text(n)) for n in (180, 220, 260, 330)],
+             [("c", prefix + text(n)) for n in (3, 8, 12, 17, 21, 26, 30)]
+             + [("c", text(18))]]
+    out = []
+    sampled = {1, 4, 8, 13, 17, 21, 26, 31}           # 8 of the 32
+    for w, wave in enumerate(waves):
+        for kind, prompt in wave:
+            i = len(out)
+            body = {"max_tokens": int(rng.integers(8, 65))}
+            if i in sampled:
+                body.update(temperature=0.8, top_k=40, seed=100 + i)
+            else:
+                body["temperature"] = 0
+            if kind == "s":
+                body.update(messages=[{"role": "user", "content": prompt}],
+                            stream=True)
+            else:
+                body["prompt"] = prompt
+            out.append((w, kind, body))
+    return out
+
+
+def stream_chat(port: int, body: dict):
+    """(status, data events, seconds to the first content delta)."""
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        t0 = time.perf_counter()
+        c.request("POST", "/v1/chat/completions", body=json.dumps(body),
+                  headers={"Content-Type": "application/json"})
+        r = c.getresponse()
+        events, first = [], None
+        for line in r:
+            if not line.startswith(b"data: "):
+                continue
+            ev = line[6:].strip()
+            events.append(ev)
+            if first is None and ev != b"[DONE]" and (json.loads(ev).get(
+                    "choices") or [{}])[0].get("delta", {}).get("content"):
+                first = time.perf_counter() - t0
+        return r.status, events, first
+    finally:
+        c.close()
+
+
+def teacher_gaps(torch, np, iface, prompt, toks):
+    """One prefill over prompt + answer through the batcher's interface:
+    per answer step, (largest logit - the emitted token's logit) and the
+    logits' scale max|logit| over those steps."""
+    full = np.concatenate([prompt, toks[:-1]])
+    padded = np.zeros((1, -(-len(full) // 64) * 64), np.int64)
+    padded[0, :len(full)] = full
+    dev = iface.device
+    logits = iface.step(torch.from_numpy(padded).to(dev),
+                        torch.zeros(1, dtype=torch.int64, device=dev),
+                        iface.fresh_cache(1))
+    P = len(prompt)
+    forced = logits[0, P - 1:P - 1 + len(toks)].float().cpu().numpy()
+    emitted = forced[np.arange(len(toks)), toks]
+    return forced.max(-1) - emitted, float(np.abs(forced).max())
+
+
+def phase4(torch, np, ckpt: Path, layers: int, results,
+           plant_fault: bool) -> None:
+    from whisper_tensor_tpu.server.openai_api import OpenAIApi
+
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        ragged_kv_write, ragged_kv_write_plain)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
+    from whisper_tensor_tpu_torch.milli.ops import misc as misc_lowering
+    from whisper_tensor_tpu_torch.server.batching import ContinuousBatcher
+    from whisper_tensor_tpu_torch.server.main import Server
+
+    say(f"phase 4: the batched path (ContinuousBatcher); host RSS "
+        f"{host_rss_gb():.1f} GB after phase 3 was freed")
+    srv = Server()
+    t0 = time.perf_counter()
+    (entry,) = srv.models.run_loader("transformers",
+                                     {"path": str(ckpt), **SERVE_CFG})
+    say(f"  reference loader (ragged_decode graph): "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bat = srv._batcher(entry)         # what the first request would build
+    bat.iface._weights()
+    torch.cuda.synchronize()
+    say(f"  batcher interface (int8 quantize + upload): "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+        f"peak host RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.1f} GB")
+    # every request the front end hands the batcher, with its future
+    records, submit = [], bat.submit
+
+    def recorded(prompt_ids, n_new, **kw):
+        fut = submit(prompt_ids, n_new, **kw)
+        records.append((np.asarray(prompt_ids, np.int64).reshape(-1), n_new,
+                        kw.get("sampling"), fut))
+        return fut
+
+    bat.submit = recorded
+    kernel_write = misc_lowering.ragged_kv_write
+    if plant_fault:
+        say("  PLANTED FAULT: every decode-step cache write lands at pos - 1")
+
+        def early(cache, update, pos):
+            return kernel_write(cache, update,
+                                pos - 1 if update.shape[2] == 1 else pos)
+
+        misc_lowering.ragged_kv_write = early
+    api = OpenAIApi(srv, "127.0.0.1", 0).start()
+    reqs = traffic(np)
+    answers = [None] * len(reqs)
+
+    def client(i):
+        w, kind, body = reqs[i]
+        t = time.perf_counter()
+        if kind == "s":
+            answers[i] = stream_chat(api.port, body)
+        else:
+            st, data = request(api.port, "/v1/completions", body)
+            answers[i] = (st, data, time.perf_counter() - t)
+
+    def admitted(n):
+        """Wait until the batcher holds n requests and has admitted them
+        all (none queued, no admission in flight)."""
+        deadline = time.time() + 600
+        while time.time() < deadline:
+            st = bat.stats()
+            if len(records) >= n and not st["queued"] and not st["admitting"]:
+                return
+            time.sleep(0.01)
+        fail(f"the batcher did not admit {n} requests in 600 s: "
+             f"{bat.stats()}")
+
+    try:
+        decode_attention.launches = 0
+        int8_matmul.launches = 0
+        ragged_kv_write.launches = 0
+        threads = []
+        t0 = time.perf_counter()
+        for w in range(3):
+            if w:
+                admitted(len(threads))
+            for i, (wave, _, _) in enumerate(reqs):
+                if wave == w:
+                    threads.append(threading.Thread(target=client, args=(i,)))
+                    threads[-1].start()
+        for t in threads:
+            t.join(900)
+        served_s = time.perf_counter() - t0
+        launches = {"decode_attention": decode_attention.launches,
+                    "int8_matmul": int8_matmul.launches,
+                    "ragged_kv_write": ragged_kv_write.launches}
+    finally:
+        misc_lowering.ragged_kv_write = kernel_write
+        bat.submit = submit
+        api.stop()
+    st = bat.stats()
+    say(f"  32 requests served in {served_s:.2f} s: {st['chunks_dispatched']} "
+        f"chunks, {st['steps_dispatched']} steps, {st['tokens_emitted']} "
+        f"tokens emitted, auto-prefix pool {st['auto_prefix']}; scheduler "
+        f"host time: admissions {st['time_admit_s']} s, chunk enqueue "
+        f"{st['time_dispatch_s']} s, waiting on the device "
+        f"{st['time_fetch_s']} s; kernel launches during them: {launches}")
+    for res in results:
+        res["launches"] = launches[res["name"]]
+    n_tokens, ttfts = 0, []
+    for i, ((w, kind, body), ans) in enumerate(zip(reqs, answers)):
+        if ans is None:
+            fail(f"request {i} got no answer")
+        if kind == "s":
+            status, events, first = ans
+            usage = (json.loads(events[-2]).get("usage", {})
+                     if len(events) > 1 else {})
+            if status != 200 or events[-1:] != [b"[DONE]"]:
+                fail(f"streamed chat {i}: status {status}, events "
+                     f"{events[-2:]!r}")
+            got = usage.get("completion_tokens")
+            ttfts.append(first)
+        else:
+            status, data, _ = ans
+            if status != 200:
+                fail(f"completion {i} returned {status}: {data[:300]!r}")
+            got = json.loads(data)["usage"]["completion_tokens"]
+        if got != body["max_tokens"]:
+            fail(f"request {i} answered {got} tokens of {body['max_tokens']}")
+        n_tokens += got
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the batched path was never launched: {launches}")
+    if len(records) != len(reqs) or "jax" in sys.modules:
+        fail(f"{len(records)} batcher requests for {len(reqs)} HTTP "
+             f"requests, or jax was imported")
+
+    # (d) every greedy answer against one teacher-forced prefill over its
+    # prompt and answer (plain attention, prefill-sized matmuls): each
+    # emitted token's logit within phase 3's bound (c), 1.5% of the
+    # logits' scale per sqrt(layer), of that step's largest logit
+    frac = 0.015 * math.sqrt(layers)
+    greedy = [(p, f.result()) for p, _, sp, f in records
+              if sp is None or sp.temperature <= 0]
+    worst, worst_gap, steps = 0.0, 0.0, 0
+    for prompt, toks in greedy:
+        gaps, scale = teacher_gaps(torch, np, bat.iface, prompt, toks)
+        worst = max(worst, float(gaps.max()) / (frac * scale))
+        worst_gap = max(worst_gap, float(gaps.max()))
+        steps += len(toks)
+    say(f"  (d) {len(greedy)} greedy answers ({steps} tokens) against "
+        f"teacher-forced prefills: worst (max logit - emitted logit) "
+        f"{worst_gap:.5g}, {worst:.4g} of the bound ({frac:.1%} of each "
+        f"answer's max|logit|)")
+    if len(greedy) != 24 or not worst <= 1.0:
+        fail("a greedy answer of the batched path disagrees with the "
+             "teacher-forced prefill" if greedy else "no greedy answers")
+
+    # (e) the greedy requests again on a fresh batcher sharing the
+    # interface, all queued before start() so both runs schedule alike:
+    # with the kernel, then with the plain write in its place
+    def rerun():
+        b = ContinuousBatcher(None, max_len=MAX_LEN, max_batch=32, chunk=16,
+                              chunk_max=64, prefill_chunk=128, auto_prefix=8,
+                              iface=bat.iface)
+        futs = [b.submit(p, len(t)) for p, t in greedy]
+        b.start()
+        try:
+            return [f.result(timeout=900) for f in futs]
+        finally:
+            b.stop()
+
+    n0 = ragged_kv_write.launches
+    with_kernel = rerun()
+    n_kernel = ragged_kv_write.launches - n0
+    misc_lowering.ragged_kv_write = ragged_kv_write_plain
+    try:
+        with_plain = rerun()
+    finally:
+        misc_lowering.ragged_kv_write = kernel_write
+    same = all(np.array_equal(a, b) for a, b in zip(with_kernel, with_plain))
+    say(f"  (e) the {len(greedy)} greedy requests on a fresh batcher: "
+        f"{n_kernel} kernel writes, then the plain write: same tokens "
+        f"{same}")
+    if not same or n_kernel <= 0 or ragged_kv_write.launches != n0 + n_kernel:
+        fail("the batched path's tokens change with the plain ragged write")
+
+    ttfts = [t for t in ttfts if t is not None]
+    say(f"  information: {n_tokens} completion tokens in {served_s:.2f} s = "
+        f"{n_tokens / served_s:.1f} tok/s over the phase; time to first "
+        f"token of the {len(ttfts)} streamed chats: median "
+        f"{statistics.median(ttfts) * 1e3:.1f} ms, p99 "
+        f"{float(np.percentile(ttfts, 99)) * 1e3:.1f} ms ({layers} layers) "
+        f"on {card_line()}")
+    for b in srv._batchers.values():
+        b.stop()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
                     help="transformer layers of the smoke model (32 = full "
                          "Llama-3-8B depth)")
+    ap.add_argument("--plant-fault", action="store_true",
+                    help="phase 4 writes every decode step's K/V one "
+                         "position early; check (d) must fail")
     args = ap.parse_args()
     if not (ROOT / "whisper_tensor_tpu_torch" / "csrc").is_dir():
         fail(f"no whisper_tensor_tpu_torch/csrc beside {Path(__file__).name}: "
@@ -510,7 +904,25 @@ def main() -> None:
 
     results = []
     phase2(torch, results)
-    phase3(torch, np, args.layers, results)
+    phase2_kv_write(torch, results)
+    try:
+        import ml_dtypes
+        bf16 = np.dtype(ml_dtypes.bfloat16)
+    except ImportError:       # the reference then reads f16 and casts
+        bf16 = None
+    ckpt = ROOT / "build" / "smoke" / f"llama3-8b-widths-{args.layers}L"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_checkpoint(ckpt, args.layers, np, bf16)
+        say(f"wrote a {args.layers}-layer Llama-3-8B-width checkpoint "
+            f"({nbytes / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
+        phase3(torch, np, ckpt, args.layers, results)
+        free_memory(torch)
+        phase4(torch, np, ckpt, args.layers, results, args.plant_fault)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     say(json.dumps({"kernels": results}))
     say(card_line())
     print(json.dumps({"ok": True, "device": {

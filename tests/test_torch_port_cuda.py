@@ -17,6 +17,8 @@ import torch
 from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
 from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
     decode_attention, decode_attention_plain)
+from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+    ragged_kv_write, ragged_kv_write_plain)
 from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
     int8_matmul, int8_matmul_plain)
 
@@ -124,6 +126,57 @@ def test_int8_matmul_above_512_rows_takes_the_dense_form(cuda):
     assert int8_matmul.launches == n0
 
 
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+KV_WRITE_DTYPES = [(torch.bfloat16, torch.bfloat16),
+                   (torch.float32, torch.float32),
+                   (torch.bfloat16, torch.float32)]      # f32 into bf16
+
+
+@pytest.mark.parametrize("cache_dt,upd_dt", KV_WRITE_DTYPES)
+@pytest.mark.parametrize("B,S,D,L", [
+    (B, S, D, L) for B in (1, 8, 64) for S in (1, 16, 128) for D in (64, 128)
+    for L in (64, 2048) if S <= L])
+def test_ragged_kv_write_kernel_is_bit_exact(cuda, B, S, D, L, cache_dt,
+                                             upd_dt):
+    """A copy: the whole cache equals the plain version's bit for bit
+    (written slabs and untouched elements), in place. Rows at 0, the
+    last slot, in between, beyond L - S and negative (clamped)."""
+    g = torch.Generator(device=cuda).manual_seed(B * S + D + L)
+    H = 2
+    cache = torch.randn(B, H, L, D, generator=g, device=cuda).to(cache_dt)
+    upd = torch.randn(B, H, S, D, generator=g, device=cuda).to(upd_dt)
+    pos = torch.tensor([0, L - S, L // 3, L + 7, -3, 5, 1, L - 1] * 8,
+                       device=cuda)[:B]
+    want = ragged_kv_write_plain(cache.clone(), upd, pos)
+    n0, ptr = ragged_kv_write.launches, cache.data_ptr()
+    got = ragged_kv_write(cache, upd, pos)
+    torch.cuda.synchronize()
+    assert ragged_kv_write.launches == n0 + 1
+    assert got is cache and got.data_ptr() == ptr
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("cache_dt,upd_dt", KV_WRITE_DTYPES)
+def test_ragged_kv_write_kernel_reads_strided_updates(cuda, cache_dt, upd_dt):
+    """The llama recipe's V update is a transposed view, and an odd
+    stride takes the element-by-element path: both bit-exact."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, H, L, D, S = 4, 8, 256, 128, 16
+    base = torch.randn(B, S, H, D, generator=g, device=cuda).to(upd_dt)
+    wide = torch.randn(B, H, S, D + 1, generator=g, device=cuda).to(upd_dt)
+    pos = torch.tensor([0, 17, 240, 100], device=cuda, dtype=torch.int32)
+    for upd in (base.transpose(1, 2), wide[..., :D]):
+        assert not upd.is_contiguous()
+        cache = torch.randn(B, H, L, D, generator=g, device=cuda).to(cache_dt)
+        want = ragged_kv_write_plain(cache.clone(), upd, pos)
+        got = ragged_kv_write(cache, upd, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want))
+
+
 def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     q = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16, device=cuda)
     kv = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16, device=cuda)
@@ -136,6 +189,26 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     with pytest.raises(ValueError, match="N % 16"):
         int8_matmul(x.bfloat16(), w[:, :100].contiguous(),
                     torch.ones(100, device=cuda))
+    cache = torch.zeros(2, 2, 16, 64, dtype=torch.bfloat16, device=cuda)
+    upd = torch.zeros(2, 2, 1, 64, dtype=torch.bfloat16, device=cuda)
+    pos = torch.tensor([1, 2], device=cuda)
+    n0 = ragged_kv_write.launches
+    for bad in (upd.half(),                                   # f16 update
+                torch.zeros(2, 2, 17, 64, dtype=torch.bfloat16,
+                            device=cuda),                     # S > L
+                upd[:1]):                                     # batch differs
+        with pytest.raises(ValueError, match="unsupported"):
+            ragged_kv_write(cache, bad, pos)
+    with pytest.raises(ValueError, match="unsupported"):
+        ragged_kv_write(cache.float(), upd, pos)              # bf16 into f32
+    with pytest.raises(ValueError, match="contiguous"):
+        ragged_kv_write(cache.transpose(2, 3).contiguous().transpose(2, 3),
+                        upd, pos)
+    with pytest.raises(ValueError, match="pos"):
+        ragged_kv_write(cache, upd, pos.float())
+    with pytest.raises(ValueError, match="pos"):
+        ragged_kv_write(cache, upd, pos.cpu())
+    assert ragged_kv_write.launches == n0
 
 
 def test_attention_lowering_raises_for_a_decode_step_the_kernel_lacks(cuda):
@@ -201,3 +274,51 @@ def test_tiny_llama_on_the_gpu_goes_through_both_kernels(cuda):
     want = cpu.logits(full).astype(np.float32)[:, prompt.shape[1] - 1:]
     np.testing.assert_allclose(logits, want, rtol=0,
                                atol=0.03 * np.abs(want).max())
+
+
+def test_tiny_llama_batcher_on_the_gpu_launches_all_three_kernels(cuda):
+    """The batcher on the card over a 2-layer bf16 int8 llama: every
+    request is served, each kernel's launch counter rises, and the
+    ragged cache write takes the kernel (no plain path on the card)."""
+    import zlib
+
+    from whisper_tensor_tpu.dtype import DType
+    from whisper_tensor_tpu.importers.recipes.llm.llama import (
+        LlamaConfig, build_llama_step)
+    from whisper_tensor_tpu.model import Model
+    from whisper_tensor_tpu_torch.server.batching import ContinuousBatcher
+
+    cfg = LlamaConfig(num_hidden_layers=2, num_attention_heads=2,
+                      num_key_value_heads=1, hidden_size=256,
+                      intermediate_size=384, vocab_size=512, head_dim=128)
+
+    def weights(name):
+        rng = np.random.default_rng(zlib.crc32(name.encode()))
+        if "norm" in name:
+            return (1.0 + 0.1 * rng.standard_normal(256)).astype(np.float32)
+        shape = {"embed": (512, 256), "lm_head": (512, 256),
+                 "q_proj": (256, 256), "o_proj": (256, 256),
+                 "k_proj": (128, 256), "v_proj": (128, 256),
+                 "gate_proj": (384, 256), "up_proj": (384, 256),
+                 "down_proj": (256, 384)}
+        s = next(v for key, v in shape.items() if key in name)
+        return (rng.standard_normal(s) * 0.08).astype(np.float32)
+
+    model = Model.new_from_onnx(build_llama_step(
+        weights, cfg, max_len=128, dtype=DType.BF16, pos_per_row=True))
+    b = ContinuousBatcher(model, max_len=128, max_batch=4, chunk=4,
+                          quantize="int8", prefill_chunk=16,
+                          device=cuda).start()
+    counters = (decode_attention, int8_matmul, ragged_kv_write)
+    before = [f.launches for f in counters]
+    try:
+        rng = np.random.default_rng(2)
+        futs = [b.submit(rng.integers(3, 259, (n,)), 6) for n in (5, 40, 9,
+                                                                  12, 3)]
+        outs = [f.result(timeout=300) for f in futs]
+    finally:
+        b.stop()
+    assert all(o.shape == (6,) and (o >= 0).all() and (o < 512).all()
+               for o in outs)
+    rose = [f.launches - n for f, n in zip(counters, before)]
+    assert min(rose) > 0, rose

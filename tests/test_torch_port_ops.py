@@ -1,6 +1,8 @@
 """The PyTorch port's milli-op lowerings and graph executor against the
-numpy oracle (MilliGraph.eval), on a tiny llama step graph: 2 layers,
-hidden 256, 2 query heads and 1 KV head of 128, vocab 512, max_len 64,
+numpy oracle (MilliGraph.eval), on a tiny llama step graph (2 layers,
+hidden 256, 2 query heads and 1 KV head of 128, vocab 512, max_len 64)
+and on the tiny GPT-2 step graphs of tests/test_batching.py (2 layers,
+n_embd 32, 2 heads, vocab 211), scalar and per-row (ragged) position;
 weights and inputs from numpy with fixed seeds."""
 
 import zlib
@@ -10,6 +12,9 @@ import pytest
 import torch
 
 from whisper_tensor_tpu.dtype import DType
+from whisper_tensor_tpu.importers.recipes.llm.gpt2 import (GPT2Config,
+                                                            build_gpt2_step,
+                                                            random_gpt2_weights)
 from whisper_tensor_tpu.importers.recipes.llm.llama import (LlamaConfig,
                                                              build_llama_step)
 from whisper_tensor_tpu.milli.ir import MilliGraph
@@ -58,11 +63,12 @@ def _iface(config):
 def _feeds(iface, S, pos, seed):
     rng = np.random.default_rng(seed)
     np_dt = iface.cache_dtype.to_numpy()
-    feeds = {"input_ids": rng.integers(0, 512, (2, S)).astype(np.int64),
+    feeds = {"input_ids": rng.integers(0, iface._vocab_size(), (2, S)
+                                       ).astype(np.int64),
              "pos": np.asarray(pos, np.int64)}
     for n in iface.cache_in_names:
-        feeds[n] = (rng.standard_normal((2, 1, MAX_LEN, 128)) * 0.5
-                    ).astype(np_dt)
+        feeds[n] = (rng.standard_normal(
+            (2, iface.n_heads, MAX_LEN, iface.head_dim)) * 0.5).astype(np_dt)
     feeds.update(iface.host_weights())
     return feeds
 
@@ -95,34 +101,37 @@ def per_kind_errors():
     the oracle's RMSNorm keeps ml_dtypes bf16 in bf16 (its f32 stash
     tests dtype.kind == "f", which ml_dtypes' bf16 is not), where the
     reference's XLA lowering and the port compute in f32."""
-    out = {}
-    for config in CONFIGS:
-        iface = _iface(config)
-        worst = {}
+    return {config: _kind_errors(_iface(config), ((16, 0, 1), (1, 21, 2)))
+            for config in CONFIGS}
 
-        def op_impl(op, ins):
-            want = op.eval(ins)
-            ref = op.eval([_widen(a) for a in ins])
-            tens = [None if a is None else to_device(np.asarray(a), CPU)
-                    for a in ins]
-            got = LOWERINGS[op.KIND](op, tens, list(ins), CPU)
-            ratio = 0.0
-            for g, w, r in zip(got, want, ref):
-                w = np.asarray(w)
-                g = to_host(g)
-                assert g.shape == w.shape and g.dtype == w.dtype, op.KIND
-                err = float(np.abs(g.astype(np.float64)
-                                   - np.asarray(r, np.float64)).max(initial=0))
-                tol = _tol(w)
-                ratio = max(ratio, err / tol if tol else
-                            (0.0 if err == 0 else np.inf))
-            worst[op.KIND] = max(worst.get(op.KIND, 0.0), ratio)
-            return want
 
-        for S, pos, seed in ((16, 0, 1), (1, 21, 2)):
-            iface.milli.eval(_feeds(iface, S, pos, seed), op_impl=op_impl)
-        out[config] = worst
-    return out
+def _kind_errors(iface, runs):
+    """{op kind: worst error / tolerance} over oracle runs of `iface`'s
+    step graph at (S, pos, seed), the port's lowering beside each node."""
+    worst = {}
+
+    def op_impl(op, ins):
+        want = op.eval(ins)
+        ref = op.eval([_widen(a) for a in ins])
+        tens = [None if a is None else to_device(np.asarray(a), CPU)
+                for a in ins]
+        got = LOWERINGS[op.KIND](op, tens, list(ins), CPU)
+        ratio = 0.0
+        for g, w, r in zip(got, want, ref):
+            w = np.asarray(w)
+            g = to_host(g)
+            assert g.shape == w.shape and g.dtype == w.dtype, op.KIND
+            err = float(np.abs(g.astype(np.float64)
+                               - np.asarray(r, np.float64)).max(initial=0))
+            tol = _tol(w)
+            ratio = max(ratio, err / tol if tol else
+                        (0.0 if err == 0 else np.inf))
+        worst[op.KIND] = max(worst.get(op.KIND, 0.0), ratio)
+        return want
+
+    for S, pos, seed in runs:
+        iface.milli.eval(_feeds(iface, S, pos, seed), op_impl=op_impl)
+    return worst
 
 
 @pytest.mark.parametrize("config,kind", CASES)
@@ -188,3 +197,74 @@ def test_executor_raises_for_an_op_without_lowering():
     ex = GraphExecutor(g, CPU)
     with pytest.raises(NotImplementedError, match="Einsum"):
         ex({"a": torch.ones(2, 3), "b": torch.ones(3, 2)})
+
+
+# -- the GPT-2 step graphs (the batcher tests' fixtures) ---------------------
+GPT2_CONFIGS = ["gpt2-scalar-f32", "gpt2-ragged-f32", "gpt2-ragged-bf16"]
+GPT2_KINDS = ["Attention", "CastLike", "Constant", "DynUpdateSlice",
+              "Gather", "LayerNorm", "MatMul", "Range", "Reshape", "Shape",
+              "SimpleBinary", "SimpleUnary", "Split", "Squeeze",
+              "Transpose", "Unsqueeze"]
+GPT2_SCALAR_KINDS = ["Cast", "Where"]        # the scalar graph's mask
+
+
+def _gpt2_kinds(config):
+    return GPT2_KINDS + (GPT2_SCALAR_KINDS if "scalar" in config else [])
+
+
+def _gpt2_iface(config):
+    cfg = GPT2Config(n_layer=2, n_head=2, n_embd=32, vocab_size=211,
+                     n_positions=MAX_LEN)
+    dt = DType.F32 if config.endswith("f32") else DType.BF16
+    m = Model.new_from_onnx(build_gpt2_step(
+        random_gpt2_weights(cfg), cfg, max_len=MAX_LEN, dtype=dt,
+        pos_per_row="ragged" in config))
+    return TextInferenceInterface(m, max_len=MAX_LEN, cache_dtype=dt,
+                                  device="cpu")
+
+
+def _gpt2_runs(config):
+    """(S, pos, seed): a prefill and decode steps; the ragged graph's
+    rows at different positions."""
+    if "ragged" in config:
+        return ((16, [0, 0], 7), (1, [21, 5], 8), (1, [22, 6], 9))
+    return ((16, 0, 7), (1, 21, 8), (1, 22, 9))
+
+
+@pytest.fixture(scope="module")
+def gpt2_per_kind_errors():
+    return {c: _kind_errors(_gpt2_iface(c), _gpt2_runs(c)[:2])
+            for c in GPT2_CONFIGS}
+
+
+@pytest.mark.parametrize("config,kind", [(c, k) for c in GPT2_CONFIGS
+                                         for k in _gpt2_kinds(c)])
+def test_gpt2_lowering_matches_oracle_in_step_graph(gpt2_per_kind_errors,
+                                                    config, kind):
+    """The llama graph's tolerances (_tol: 1e-5 of the scale at f32,
+    2e-2 at bf16)."""
+    worst = gpt2_per_kind_errors[config]
+    assert kind in worst, f"{kind} not in the {config} step graph"
+    assert worst[kind] <= 1.0, (config, kind, worst[kind])
+
+
+@pytest.mark.parametrize("config", GPT2_CONFIGS)
+def test_gpt2_step_graph_kinds_are_all_covered(gpt2_per_kind_errors, config):
+    assert set(gpt2_per_kind_errors[config]) == set(_gpt2_kinds(config))
+
+
+@pytest.mark.parametrize("config", ["gpt2-scalar-f32", "gpt2-ragged-f32"])
+def test_gpt2_executor_matches_oracle_whole_step(config):
+    """GraphExecutor over a whole f32 GPT-2 step graph (prefill, then two
+    decode steps on the updated caches) against MilliGraph.eval: logits
+    and every cache, 1e-5 of their scale."""
+    iface = _gpt2_iface(config)
+    ex = GraphExecutor(iface.milli, CPU)
+    for S, pos, seed in _gpt2_runs(config):
+        feeds = _feeds(iface, S, pos, seed)
+        want = iface.milli.eval(feeds)
+        got = ex({n: to_device(a, CPU) for n, a in feeds.items()})
+        for name, w in want.items():
+            g = to_host(got[name])
+            err = np.abs(g.astype(np.float64) - w.astype(np.float64)).max()
+            assert err <= _tol(w), (config, name, err)

@@ -34,6 +34,8 @@ from whisper_tensor_tpu.tokenizer import ByteTokenizer  # noqa: E402
 from whisper_tensor_tpu_torch.dtype import to_host  # noqa: E402
 from whisper_tensor_tpu_torch.interfaces.text import (  # noqa: E402
     TextInferenceInterface, _filtered_logits, _pick_token)
+from whisper_tensor_tpu_torch.server.batching import (  # noqa: E402
+    ContinuousBatcher)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E, I, V, D, MAX_LEN = 256, 384, 512, 128, 64
@@ -265,8 +267,8 @@ def _post(port, path, body):
 def test_openai_request_on_the_port_server(checkpoint):
     """/v1/completions and a streamed /v1/chat/completions through the
     reference OpenAIApi on the port's Server return the port
-    interface's own tokens; a ragged_decode model reports that the
-    batcher is not ported."""
+    interface's own tokens; a ragged_decode model is served by the
+    port's ContinuousBatcher, with its interface's own tokens."""
     from whisper_tensor_tpu.server.openai_api import OpenAIApi
     from whisper_tensor_tpu.tokenizer import apply_chat_template
     from whisper_tensor_tpu_torch.server.main import Server
@@ -321,9 +323,17 @@ def test_openai_request_on_the_port_server(checkpoint):
         status, data = _post(api.port, "/v1/completions", {
             "model": str(ragged.id), "prompt": "hi", "max_tokens": 2,
             "temperature": 0})
-        assert status != 200 and b"ragged_decode serving" in data
+        assert status == 200, data
+        bat = srv._batchers[ragged.id]
+        assert isinstance(bat, ContinuousBatcher)
+        own = bat.iface.generate_tokens(
+            np.asarray(tok.encode("hi"), np.int64)[None], 2)[0]
+        assert json.loads(data)["choices"][0]["text"] == tok.decode(list(own))
+        assert bat.stats()["tokens_emitted"] == 2
     finally:
         api.stop()
+        for bat in srv._batchers.values():
+            bat.stop()
 
 
 def test_port_server_on_cuda_raises_without_a_gpu():
@@ -347,26 +357,35 @@ from whisper_tensor_tpu_torch.server.main import Server
 srv = Server(device="cpu")
 srv.models.run_loader("transformers", {"path": sys.argv[1], "dtype": "bf16",
                                        "quantize": "int8", "max_len": 64})
+(ragged,) = srv.models.run_loader("transformers", {
+    "path": sys.argv[1], "dtype": "bf16", "quantize": "int8", "max_len": 64,
+    "ragged_decode": True, "serve_batch": 2, "prefill_chunk": 16})
 api = OpenAIApi(srv, "127.0.0.1", 0).start()
-c = http.client.HTTPConnection("127.0.0.1", api.port, timeout=120)
-c.request("POST", "/v1/completions", body=json.dumps(
-    {"prompt": "hi", "max_tokens": 3, "temperature": 0}),
-    headers={"Content-Type": "application/json"})
-r = c.getresponse()
-print("STATUS", r.status, json.loads(r.read())["usage"]["completion_tokens"])
+for model in ("1", str(ragged.id)):
+    c = http.client.HTTPConnection("127.0.0.1", api.port, timeout=120)
+    c.request("POST", "/v1/completions", body=json.dumps(
+        {"model": model, "prompt": "hi", "max_tokens": 3,
+         "temperature": 0}), headers={"Content-Type": "application/json"})
+    r = c.getresponse()
+    print("STATUS", r.status,
+          json.loads(r.read())["usage"]["completion_tokens"])
+print("BATCHED", srv._batchers[ragged.id].stats()["tokens_emitted"])
 api.stop()
+srv._batchers[ragged.id].stop()
 print("JAX_IMPORTED", "jax" in sys.modules)
 """
 
 
 def test_slice_runs_without_importing_jax(checkpoint):
-    """`cli generate` and an HTTP request on the port's Server, in a
-    fresh interpreter: the slice never imports jax."""
+    """`cli generate` and HTTP requests on the port's Server, to a
+    direct model and to a ragged_decode model served by the batcher, in
+    a fresh interpreter: the slice never imports jax."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT, checkpoint],
                           capture_output=True, text=True, env=env,
                           timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "STATUS 200 3" in proc.stdout, proc.stdout
+    assert proc.stdout.count("STATUS 200 3") == 2, proc.stdout
+    assert "BATCHED 3" in proc.stdout, proc.stdout
     assert "JAX_IMPORTED False" in proc.stdout, proc.stdout
     assert "tok/s" in proc.stderr and "on cpu" in proc.stderr

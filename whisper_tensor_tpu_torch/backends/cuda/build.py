@@ -34,12 +34,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, pos (int64), out, B, Hq, Hkv, L, D, scale, stream
     "wt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             ctypes.c_float, _P],
     # x, w_i8, scale, out, M, K, N, x_is_bf16, stream
     "wt_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # cache, update, pos (int64), B, H, L, D, S, update strides (b, h, s,
+    # d), mode, stream
+    "wt_ragged_kv_write": [_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
+                           _LL, _I, _P],
 }
 
 

@@ -81,6 +81,9 @@ class GraphExecutor:
         key = tuple((tuple(a.shape), a.dtype) for a in args)
         plan = self._plans.get(key)
         if plan is None:
+            # two threads may build one key at once (the batcher's loop
+            # and an HTTP thread rescoring logprobs): each builds from
+            # local state, and either plan serves later calls
             plan, vals = self._build(args)
             self._plans[key] = plan
         else:

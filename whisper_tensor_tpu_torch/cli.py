@@ -10,6 +10,11 @@ Usage:
       --prompt "..." [--max-new-tokens 64] [-c quantize=int8] [--device cuda]
   python -m whisper_tensor_tpu_torch.cli serve --model DIR \
       --http-port 8000 [-c quantize=int8] [--device cuda]
+      [-c ragged_decode=1 -c serve_batch=16 -c prefill_chunk=128]
+
+`serve -c ragged_decode=1` serves the model through the port's
+ContinuousBatcher; the reference loader maps serve_batch, serve_chunk,
+serve_chunk_max, prefill_chunk and serve_auto_prefix onto it.
 """
 
 from __future__ import annotations
@@ -89,7 +94,9 @@ def cmd_serve(args) -> None:
 
     srv = Server(device=args.device)
     if args.model:
-        cfg = dict(kv.split("=", 1) for kv in args.config)
+        # typed values, as `generate` parses them: "ragged_decode=0"
+        # must read as off, where the string "0" is true
+        cfg = _parse_kv(args.config)
         cfg["path"] = args.model
         for e in srv.models.run_loader(args.loader, cfg):
             print(f"loaded model #{e.id} {e.name}", file=sys.stderr)

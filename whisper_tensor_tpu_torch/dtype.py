@@ -79,6 +79,17 @@ def to_device(arr: np.ndarray, device: torch.device,
     return t
 
 
+def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Upload a small host array without waiting for the device: on CUDA
+    it is staged in pinned memory and copied on the current stream
+    (PyTorch's copy from pageable memory synchronizes the stream, which
+    would stall a pipelined loop). The array may change afterwards."""
+    t = torch.from_numpy(np.array(arr, order="C"))
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def to_host(t: torch.Tensor) -> np.ndarray:
     """Download a tensor into the reference's host representation:
     bf16 as ml_dtypes.bfloat16 (float32 where ml_dtypes is missing)."""

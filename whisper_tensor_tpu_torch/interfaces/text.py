@@ -12,16 +12,18 @@ the step graph runs eagerly through GraphExecutor:
 
 Ported: dense and `quantize="int8"` weights, q/k/v and gate/up matmul
 fusion (always on: the reference turns it off only for meshes and LoRA,
-which are not ported), prompt buckets DEFAULT_PROMPT_BUCKETS, greedy
-decoding, SamplingParams on a seeded torch.Generator,
-logit_bias. Not ported yet, and raising NotImplementedError: packed and
-host-quantized weights, windowed decode, meshes, LoRA adapters, beam
-search, DFA-constrained decoding.
+which are not ported), prompt buckets, greedy decoding, SamplingParams
+on a seeded torch.Generator, logit_bias, and the per-row sampling the
+ContinuousBatcher runs (`_pick_token_rows`). Not ported yet, and
+raising NotImplementedError: packed and host-quantized weights,
+windowed decode, meshes, LoRA adapters, beam search, DFA-constrained
+decoding.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Tuple
+import threading
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,14 +31,14 @@ import torch
 from whisper_tensor_tpu.dtype import DType
 from whisper_tensor_tpu.interfaces.text import (DEFAULT_PROMPT_BUCKETS,
                                                 SamplingParams, _bucket,
-                                                _uses_seen)
+                                                _rows_arrays, _uses_seen)
 from whisper_tensor_tpu.milli.transforms import (fuse_parallel_matmuls,
                                                  quantize_matmul_weights)
 from whisper_tensor_tpu.model import Model
 
 from ..backends.torch_exec.compiler import GraphExecutor
 from ..device import resolve_device
-from ..dtype import to_host, to_torch
+from ..dtype import host_to_device, to_host, to_torch
 from ..weights import carry_weights
 
 
@@ -89,6 +91,96 @@ def _pick_token(logits: torch.Tensor, gen: Optional[torch.Generator],
     return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A bijective 32-bit integer hash (lowbias32, from Wellons' hash
+    prospector) on a Python int or an int64 tensor of values in
+    [0, 2^32): each product stays below 2^63, so int64 never wraps."""
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _M32
+    return x ^ (x >> 15)
+
+
+def _fold(key: int, data: int) -> int:
+    """A new 32-bit key from a key and a number (jax.random.fold_in's
+    role, on the host)."""
+    return _mix32((_mix32(key & _M32) + data) & _M32)
+
+
+def _gumbel_rows(key: int, seed: torch.Tensor, V: int) -> torch.Tensor:
+    """(B, V) f32 standard Gumbel noise. Row b's noise is a function of
+    (key, seed[b], token id) alone, so a request's draws do not depend
+    on its neighbours in the batch, and the same seed under the same key
+    gives the same draws wherever the row sits."""
+    row = _mix32((seed.long() & _M32) ^ (key & _M32))              # (B,)
+    tok = _mix32(torch.arange(V, device=seed.device, dtype=torch.int64))
+    h = _mix32((row[:, None] + tok[None, :]) & _M32)
+    u = ((h >> 8).float() + 0.5) * 2.0 ** -24                      # (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+def _pick_token_rows(logits: torch.Tensor, key: int, rows, flags,
+                     seen: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row sampling (reference _pick_token_rows, interfaces/text.py
+    :143-192): (B, V) logits -> (B,) int64 tokens, with temperature,
+    top-k, top-p, min-p, the three penalties and the seed each a (B,)
+    tensor, in one batched pass. `flags` is _rows_flags over the rows'
+    SamplingParams; `rows` the 8 tensors of _rows_arrays (None when no
+    flag is set). `key` is a 32-bit int for this step.
+
+    The draw is Gumbel-max: argmax(filtered logits + Gumbel noise) is a
+    sample of softmax(filtered logits). The noise is hashed from (key,
+    the row's seed, the token id), which keeps the reference's per-row
+    streams (each row's seed folds into the step key) without one
+    torch.Generator per row; jax.random's bits are not reproduced."""
+    any_sampled, any_topk, any_topp, any_minp, any_pen = flags
+    lg = logits.float()
+    if any_pen and seen is not None:
+        _, _, _, _, rep, pres, freq, _ = rows
+        emitted = seen > 0
+        pen = torch.where(lg > 0, lg / rep[:, None], lg * rep[:, None])
+        lg = torch.where(emitted, pen, lg)
+        lg = lg - pres[:, None] * emitted.float()
+        lg = lg - freq[:, None] * seen.float()
+    greedy = torch.argmax(lg, dim=-1)
+    if not any_sampled:
+        return greedy
+    temp, topk, topp, minp, _, _, _, seed = rows
+    slg = lg / torch.where(temp > 0, temp, 1.0)[:, None]
+    V = lg.shape[-1]
+    if any_topk:
+        srt = torch.sort(slg, dim=-1, descending=True).values
+        kth = srt.gather(1, (topk.long() - 1).clamp(0, V - 1)[:, None])
+        slg = slg.masked_fill((topk[:, None] > 0) & (slg < kth), -torch.inf)
+    if any_topp:
+        # HF warper order: top-p ranks the post-top-k distribution
+        srt = torch.sort(slg, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        keep = (torch.cumsum(probs, dim=-1) - probs) <= topp[:, None]
+        thresh = torch.where(keep, srt, torch.inf).amin(dim=-1, keepdim=True)
+        slg = slg.masked_fill(slg < thresh, -torch.inf)
+    if any_minp:
+        probs = torch.softmax(slg, dim=-1)
+        cut = minp[:, None] * probs.amax(dim=-1, keepdim=True)
+        slg = slg.masked_fill((minp[:, None] > 0) & (probs < cut), -torch.inf)
+    sampled = torch.argmax(slg + _gumbel_rows(key, seed, V), dim=-1)
+    return torch.where(temp > 0, sampled, greedy)
+
+
+def rows_tensors(sps, device: torch.device):
+    """The 8 per-row sampling tensors of _pick_token_rows for a list of
+    SamplingParams (None = greedy), from the reference's _rows_arrays,
+    in one host-to-device copy that does not wait for the device."""
+    cols = np.stack([np.asarray(a, np.float64) for a in _rows_arrays(sps)])
+    t = host_to_device(cols, device)
+    return (t[0].float(), t[1].long(), t[2].float(), t[3].float(),
+            t[4].float(), t[5].float(), t[6].float(), t[7].long())
+
+
 class TextInferenceInterface:
     """Drives a unified step graph (see importers/recipes/llm):
     inputs  input_ids (B, S), pos (), cache_k_i / cache_v_i
@@ -97,6 +189,7 @@ class TextInferenceInterface:
 
     def __init__(self, model: Model, max_len: int,
                  cache_dtype: DType = DType.F32,
+                 prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
                  tokenizer=None, eos_token_id=None,
                  quantize: Optional[str] = None,
                  window_models=None, mesh=None,
@@ -115,11 +208,10 @@ class TextInferenceInterface:
         self.model = model
         self.max_len = max_len
         self.cache_dtype = cache_dtype
-        self.prompt_buckets = [b for b in DEFAULT_PROMPT_BUCKETS
-                               if b <= max_len]
+        self.prompt_buckets = [b for b in prompt_buckets if b <= max_len]
         if not self.prompt_buckets:
             raise ValueError(f"no prompt bucket <= max_len={max_len} "
-                             f"(buckets={list(DEFAULT_PROMPT_BUCKETS)})")
+                             f"(buckets={list(prompt_buckets)})")
         self.tokenizer = tokenizer
         if eos_token_id is None or isinstance(eos_token_id, int):
             self.eos_token_id = eos_token_id
@@ -160,6 +252,13 @@ class TextInferenceInterface:
         self.head_dim = int(info.dims()[3].value())
         self._exec = GraphExecutor(milli, self.device)
         self._weights_dev: Optional[Dict[str, torch.Tensor]] = None
+        # the batcher's loop and an HTTP thread's logprobs rescoring may
+        # both make the first call: one upload, not two
+        self._weights_lock = threading.Lock()
+        # the reference's multi-LoRA fields, at their no-adapter values:
+        # submit(adapter=...) then fails as "unknown adapter"
+        self.adapter_slots: Dict[Optional[str], int] = {None: 0}
+        self.row_extra_names: List[str] = []
 
     # ------------------------------------------------------------------
     def _dense_np(self, n: str) -> np.ndarray:
@@ -198,7 +297,9 @@ class TextInferenceInterface:
 
     def _weights(self) -> Dict[str, torch.Tensor]:
         if self._weights_dev is None:
-            self.load_weights(self.host_weights())
+            with self._weights_lock:
+                if self._weights_dev is None:
+                    self.load_weights(self.host_weights())
         return self._weights_dev
 
     def _vocab_size(self) -> int:
@@ -218,8 +319,9 @@ class TextInferenceInterface:
 
     def step(self, ids: torch.Tensor, pos: torch.Tensor,
              caches: List[torch.Tensor]) -> torch.Tensor:
-        """One step graph run: ids (B, S) int64 and pos () int64 on the
-        device -> logits (B, S, V). `caches` are updated in place."""
+        """One step graph run: ids (B, S) int64 and pos () or (B,) int64
+        on the device -> logits (B, S, V). `caches` are updated in
+        place."""
         if self._pos_per_row:
             pos = pos.reshape(-1).expand(ids.shape[0])
         feeds = {"input_ids": ids, "pos": pos}

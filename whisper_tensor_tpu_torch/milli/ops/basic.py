@@ -1,4 +1,5 @@
-"""Constant, Cast, SimpleUnary, SimpleBinary and MatMul lowerings.
+"""Constant, Cast, CastLike, SimpleUnary, SimpleBinary, Where and MatMul
+lowerings.
 
 Counterparts of the `to_jax` methods in whisper_tensor_tpu/milli/ops/
 basic.py. Oracle contract: bf16/f16 elementwise math computes in f32
@@ -27,6 +28,11 @@ def constant(op, inputs, static, device):
 @lowering("Cast")
 def cast(op, inputs, static, device):
     return [inputs[0].to(to_torch(op.dtype))]
+
+
+@lowering("CastLike")
+def cast_like(op, inputs, static, device):
+    return [inputs[0].to(inputs[1].dtype)]
 
 
 _UNARY = {
@@ -84,6 +90,13 @@ def simple_binary(op, inputs, static, device):
         out = _BINARY[m](a.float(), c.float())
         return [out.to(dt) if out.dtype == torch.float32 else out]
     return [_BINARY[m](a, c)]
+
+
+@lowering("Where")
+def where(op, inputs, static, device):
+    cond, a, c = inputs
+    dt = torch.promote_types(a.dtype, c.dtype)   # numpy/jax promotion
+    return [torch.where(cond.bool(), a.to(dt), c.to(dt))]
 
 
 @lowering("MatMul")

@@ -9,8 +9,11 @@ is where text runs:
     enables no XLA compile cache;
   * `_text_iface` builds the port's TextInferenceInterface on that
     device (`_score_iface`, inherited, returns it for direct models);
-  * `_batcher` raises: the ContinuousBatcher (`ragged_decode`) is not
-    ported yet.
+  * `_make_batcher` builds the port's ContinuousBatcher on that device
+    for a `ragged_decode` model; the inherited `_batcher`,
+    `_score_iface` (the batcher's own interface) and
+    `_generate_text_ragged` run on it unchanged. Served LoRA adapters
+    (`serve_adapters`) raise "not ported".
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from whisper_tensor_tpu.server.scheduler import Scheduler
 
 from ..device import resolve_device
 from ..interfaces.text import TextInferenceInterface, _not_ported
+from .batching import ContinuousBatcher
 
 
 class Server(_ReferenceServer):
@@ -61,8 +65,26 @@ class Server(_ReferenceServer):
                 self._text_ifaces[entry.id] = iface
             return iface
 
-    def _batcher(self, entry):
-        raise _not_ported("ragged_decode serving (the ContinuousBatcher)")
+    def _make_batcher(self, entry) -> ContinuousBatcher:
+        """Construct (not start) the batcher from the entry's text spec,
+        as the reference does (server/main.py:697-727)."""
+        cfg = entry.interfaces["text"]
+        if cfg.get("adapters"):
+            raise _not_ported("LoRA adapters (serve_adapters)")
+        pc = cfg.get("prefill_chunk")
+        return ContinuousBatcher(
+            entry.model, max_len=int(cfg["max_len"]),
+            max_batch=int(cfg.get("max_batch", 8)),
+            chunk=int(cfg.get("chunk", 16)),
+            chunk_max=(int(cfg["chunk_max"]) if cfg.get("chunk_max")
+                       else None),
+            admit_coalesce_s=float(cfg.get("admit_coalesce_s", 0.05)),
+            auto_prefix=int(cfg.get("auto_prefix", 0) or 0),
+            cache_dtype=DType.BF16,
+            prefill_chunk=int(pc) if pc else None,
+            quantize=cfg.get("quantize") or None,
+            eos_token_id=cfg.get("eos_token_id"),
+            device=self.device)
 
 
 __all__ = ["Server"]
