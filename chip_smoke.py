@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--layers N] [--plant-fault]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
-and the CUDA toolkit (nvcc). It imports nothing of JAX, and it fails
-(non-zero exit, no result line) without a GPU or outside a checkout.
+and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
+package, and it fails (non-zero exit, no result line) without a GPU or
+outside a checkout.
 
 Phases:
   0. the card: name and power limit (nvidia-smi), compute capability,
@@ -13,14 +14,21 @@ Phases:
   1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and time it;
   2. each kernel against its plain PyTorch version on the card, at the
      served paths' shapes: max error against a stated tolerance (zero
-     for ragged_kv_write, a copy, over the whole cache), and the median
-     time of kernel and plain version (CUDA events; for ragged_kv_write,
-     which is shorter than its launch, also the device time alone);
+     for ragged_kv_write, a copy, over the whole cache), the median time
+     of kernel and plain version (CUDA events; for ragged_kv_write,
+     which is shorter than its launch, also the device time alone), the
+     time of one PyTorch call computing the same function where there is
+     one (scaled_dot_product_attention for the attention kernels, timed
+     only), and the kernel's bound: the larger of the bytes it must move
+     over 3.35 TB/s and its operations over 989 TFLOP/s. flash_attention
+     runs eight cases: a 2048-token direct prefill, an admission group,
+     a 128-row piece, an 8192-token prompt, GPT-2's width, the causal
+     and additive modes, and ragged edges;
   3. the direct path: a Llama-3-8B-width checkpoint (hidden 4096, 32/8
      heads of 128, FFN 14336, vocab 128256, rope theta 5e5; depth cut to
      --layers, random weights from a seed) is written to disk, loaded by
-     the port's Server through the reference loader (bf16, int8 weights,
-     max_len 2048), and served by the reference OpenAI HTTP API; three
+     the port's Server through its loader (bf16, int8 weights, max_len
+     2048), and served by its OpenAI HTTP API; three
      requests go through it, and the kernels' launch counters must rise.
      Then the greedy decode again: each decode_attention call against
      its plain version on the same inputs, the decode's logits with the
@@ -36,7 +44,17 @@ Phases:
      requests again on a fresh batcher must give the same tokens with
      the plain ragged_kv_write in place of the kernel.
      --plant-fault makes every decode-step cache write of the served
-     traffic land one position early, which (d) must catch.
+     traffic land one position early, which (d) must catch;
+  5. long prompts, on the same checkpoint, run at the end of phases 3
+     and 4 on their models: a 1900-token prompt served by the direct
+     path (bucket 2048, 32 tokens), then its decode again with each
+     flash_attention call shadowed by the plain version, and with the
+     plain version in place (logits within phase 3's bound), and its time
+     to first token with either; four concurrent prompts of 500 to 1900
+     tokens served by the batcher in 128-token pieces, every
+     flash_attention call shadowed, and each answer held to a
+     teacher-forced prefill. The flash_attention counter must rise in
+     both.
 The last three lines are the kernels' JSON summary line, the card, and
 the result line.
 """
@@ -67,6 +85,9 @@ WIDTHS = dict(hidden_size=4096, num_attention_heads=32, num_key_value_heads=8,
               rms_norm_eps=1e-5, max_position_embeddings=8192)
 MAX_LEN = 2048
 BYTE_VOCAB = 259          # ids the byte tokenizer decodes to text
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W)
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOP_S = 989e12
 
 
 def fail(msg: str) -> None:
@@ -76,6 +97,15 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def foreign_modules() -> list:
+    """Imported modules of jax or of the JAX package (whisper_tensor_tpu,
+    by exact name or the `whisper_tensor_tpu.` prefix, so the port's own
+    whisper_tensor_tpu_torch does not count)."""
+    return sorted(m for m in sys.modules
+                  if m in ("jax", "whisper_tensor_tpu")
+                  or m.startswith(("jax.", "whisper_tensor_tpu.")))
 
 
 def card_line() -> str:
@@ -131,6 +161,15 @@ def device_time_ms(torch, fn, argsets, reps: int = 7, inner: int = 20) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, flops: float) -> tuple:
+    """(bound_ms, bound_by): the least time for the work, the larger of
+    its bytes over the memory rate and its operations over the bf16
+    tensor-core rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def copies_for(nbytes: int) -> int:
     return max(2, math.ceil(160e6 / max(nbytes, 1)))   # > 3x the 50 MB L2
 
@@ -181,21 +220,35 @@ def phase2(torch, results):
             q.float(), k, v.abs(), pos, scale), agreement_bound)
         ms = time_ms(torch, decode_attention, sets)
         plain_ms = time_ms(torch, decode_attention_plain, sets)
+        # the library call: SDPA over each row's live keys (a boolean
+        # mask), GQA by head index
+        live = (torch.arange(L, device=dev)
+                <= pos.reshape(-1).expand(B)[:, None].clamp(0, L - 1))
+        lsets = [(q, k, v, live[:, None, None, :]) for q, k, v, _, _ in sets]
+        calls = [(sdpa_gqa(torch, q, k, v, m, scale),)
+                 for q, k, v, m in lsets]
+        lib_ms = time_ms(torch, lambda f: f(), calls)
+        n_live = int(live.sum())
+        bms, bby = bound(2 * B * Hq * D * 2 + 2 * Hkv * n_live * D * 2,
+                         4 * Hq * D * n_live)
         say(f"  decode_attention B={B} Hq/Hkv={Hq}/{Hkv} D={D} L={L} "
             f"pos={pos_list}: max_abs_err={err:.6g}, worst err/tol "
-            f"{share:.4g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"{share:.4g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"SDPA {lib_ms:.4f} ms, bound {bms:.4f} ms ({bby})")
         if not share <= 1.0:
             fail(f"decode_attention disagrees with its plain version "
                  f"(B={B}, pos={pos_list}): err/tol {share}")
         worst = max(worst, err)
         if timing is None:
-            timing = (ms, plain_ms, f"B=1 L={L} all keys live")
+            timing = (ms, plain_ms, f"B=1 L={L} all keys live", bms, bby,
+                      lib_ms)
     results.append({
         "name": "decode_attention", "route": "cuda",
         "source": "whisper_tensor_tpu_torch/csrc/decode_attention.cu",
         "replaces": "whisper_tensor_tpu/backends/pallas/decode_attention.py:179",
         "launches": None, "max_abs_err": worst, "ms": timing[0],
-        "plain_ms": timing[1], "shape": timing[2]})
+        "plain_ms": timing[1], "bound_ms": timing[3], "bound_by": timing[4],
+        "library_ms": timing[5], "shape": timing[2]})
 
     worst, timing = 0.0, None
     # (K, N): fused q/k/v, o, fused gate/up, down, lm_head
@@ -218,15 +271,18 @@ def phase2(torch, results):
                 x.float().abs(), w.abs(), s), agreement_bound)
             ms = time_ms(torch, int8_matmul, sets)
             plain_ms = time_ms(torch, int8_matmul_plain, sets)
+            bms, bby = bound(M * K * 2 + K * N + N * 4 + M * N * 2,
+                             2 * M * K * N)
             say(f"  int8_matmul M={M} K={K} N={N}: max_abs_err={err:.6g}, "
                 f"worst err/tol {share:.4g}; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms")
+                f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({bby})")
             if not share <= 1.0:
                 fail(f"int8_matmul disagrees with its plain version "
                      f"(M={M}, K={K}, N={N}): err/tol {share}")
             worst = max(worst, err)
             if (M, K, N) == (1, 4096, 28672):
-                timing = (ms, plain_ms, "M=1 K=4096 N=28672 (gate/up)")
+                timing = (ms, plain_ms, "M=1 K=4096 N=28672 (gate/up)",
+                          bms, bby)
         del wsets, sets
         torch.cuda.empty_cache()
     results.append({
@@ -234,7 +290,10 @@ def phase2(torch, results):
         "source": "whisper_tensor_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "whisper_tensor_tpu/backends/pallas/quant_matmul.py:68",
         "launches": None, "max_abs_err": worst, "ms": timing[0],
-        "plain_ms": timing[1], "shape": timing[2]})
+        "plain_ms": timing[1], "bound_ms": timing[3], "bound_by": timing[4],
+        # no one PyTorch call multiplies by int8 weights with per-column
+        # scales on the card
+        "library_ms": None, "shape": timing[2]})
 
 
 def phase2_kv_write(torch, results):
@@ -278,17 +337,21 @@ def phase2_kv_write(torch, results):
         plain_ms = time_ms(torch, ragged_kv_write_plain, sets)
         dev_ms = device_time_ms(torch, ragged_kv_write, sets)
         plain_dev_ms = device_time_ms(torch, ragged_kv_write_plain, sets)
+        # the update read once and written once into its slab
+        bms, bby = bound(B * H * S * D * (upd.element_size()
+                                          + cache.element_size()), 0)
         say(f"  ragged_kv_write {label} B={B} H={H} L={L} D={D} S={S} "
             f"{str(udt)[6:]} into {str(cdt)[6:]}: bit-exact {same}, in place "
             f"{got.data_ptr() == ptr}, max_abs_err={err:.6g}; kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms; device time alone: "
-            f"kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f} ms")
+            f"kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f} ms; bound "
+            f"{bms:.5f} ms ({bby})")
         if not same or got.data_ptr() != ptr:
             fail(f"ragged_kv_write ({label}) is not the plain version's "
                  f"in-place copy")
         if timing is None:
             timing = (ms, plain_ms, f"B={B} H={H} L={L} D={D} S=1 bf16",
-                      dev_ms, plain_dev_ms)
+                      dev_ms, plain_dev_ms, bms, bby)
         del sets, cache, upd, want, got
         torch.cuda.empty_cache()
     results.append({
@@ -296,8 +359,134 @@ def phase2_kv_write(torch, results):
         "source": "whisper_tensor_tpu_torch/csrc/kv_write.cu",
         "replaces": "whisper_tensor_tpu/backends/pallas/kv_write.py:104",
         "launches": None, "max_abs_err": 0.0, "ms": timing[0],
-        "plain_ms": timing[1], "shape": timing[2],
+        "plain_ms": timing[1], "bound_ms": timing[5], "bound_by": timing[6],
+        # a write at a per-row offset is no one PyTorch call
+        "library_ms": None, "shape": timing[2],
         "device_ms": timing[3], "plain_device_ms": timing[4]})
+
+
+def sdpa_gqa(torch, q, k, v, mask, scale):
+    """One call of scaled_dot_product_attention with GQA by head index
+    (enable_gqa), ready to run: the yardstick attention call, timed
+    only. The port never calls it."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+def flash_work(torch, mode, B, Hq, Hkv, Sq, Skv, D, extra):
+    """(visible (query, key) pairs per query head, the K/V bytes those
+    pairs read): what this run's data needs. A key tile past the last
+    visible key is never read; K/V rows up to the last visible key of
+    each batch row are read once."""
+    dev = torch.device("cuda")
+    j = torch.arange(Skv, device=dev)
+    s = torch.arange(Sq, device=dev)[:, None]
+    if mode == "pos":
+        limit = extra["pos_bound"].reshape(-1).expand(B).long()
+        vis = j <= limit.view(B, 1, 1) + s
+    elif mode == "causal":
+        vis = (j <= s + (Skv - Sq)).expand(B, Sq, Skv)
+    else:
+        vis = torch.isfinite(extra["mask"][:, 0]).expand(B, Sq, Skv)
+    pairs = int(vis.sum())
+    last = torch.where(vis.any(1), j, -1).amax(1)          # (B,)
+    kv_bytes = int((last + 1).clamp_min(0).sum()) * Hkv * D * 2 * 2
+    return pairs, kv_bytes
+
+
+def phase2_flash(torch, results):
+    """flash_attention against its plain version, at the shapes of the
+    direct prefill, an admission group, a 128-row piece, a long prompt,
+    GPT-2's width, the causal and additive modes, and ragged edges."""
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_agreement_bound, flash_attention, flash_attention_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    say("  flash_attention (tolerance per element: flash_agreement_bound, "
+        "2^-7 |plain| + (2^-7 + 2^-16) * plain with |v|)")
+    # (label, mode, B, Hq, Hkv, Sq, Skv, D, pos)
+    cases = (("(i) direct prefill", "pos", 1, 32, 8, 2048, 2048, 128, [0]),
+             ("(ii) admission group", "pos", 4, 32, 8, 512, 2048, 128,
+              [0, 300, 1000, 1536]),
+             ("(iii) prefill piece", "pos", 1, 32, 8, 128, 2048, 128, [1024]),
+             ("(iv) long prompt", "pos", 1, 32, 8, 8192, 8192, 128, [0]),
+             ("(v) GPT-2 width", "pos", 1, 12, 12, 1024, 1024, 64, [0]),
+             ("(vi) causal", "causal", 2, 32, 8, 1024, 1536, 128, None),
+             ("(vii) additive mask", "mask", 2, 32, 8, 512, 1024, 128, None),
+             ("(viii) ragged edges", "pos", 1, 32, 8, 300, 1000, 128, [700]))
+    worst, head = 0.0, None
+    for label, mode, B, Hq, Hkv, Sq, Skv, D, pos_list in cases:
+        extra, dense = {}, None
+        if mode == "pos":
+            extra["pos_bound"] = torch.tensor(pos_list, device=dev)
+            dense = (torch.arange(Skv, device=dev)
+                     <= extra["pos_bound"].view(B, 1, 1)
+                     + torch.arange(Sq, device=dev)[:, None])[:, None]
+        elif mode == "causal":
+            extra["causal"] = True
+            dense = (torch.arange(Skv, device=dev)
+                     <= torch.arange(Sq, device=dev)[:, None]
+                     + (Skv - Sq))[None, None]
+        else:
+            m = torch.randn(B, 1, Sq, Skv, generator=gen, device=dev) * 2
+            m[torch.rand(m.shape, generator=gen, device=dev) < 0.3] = \
+                -torch.inf
+            extra["mask"] = dense = m
+        nbytes = (2 * B * Hq * Sq + 2 * B * Hkv * Skv) * D * 2
+        sets = []
+        for _ in range(copies_for(nbytes)):
+            q = torch.randn(B, Sq, Hq, D, generator=gen,
+                            device=dev).bfloat16().transpose(1, 2)
+            k, v = (torch.randn(B, Hkv, Skv, D, generator=gen,
+                                device=dev).bfloat16() for _ in range(2))
+            sets.append((q, k, v))
+        q, k, v = sets[0]
+        scale = 1.0 / math.sqrt(D)
+        got = flash_attention(q, k, v, scale, **extra)
+        ref = flash_attention_plain(q, k, v, scale, **extra)
+        err, share = worst_share(got, ref, flash_attention_plain(
+            q, k, v.abs(), scale, **extra), flash_agreement_bound)
+        del ref
+        big = Sq * Skv >= 8192 * 8192
+        ms = time_ms(torch, lambda q, k, v: flash_attention(
+            q, k, v, scale, **extra), sets)
+        plain_ms = time_ms(torch, lambda q, k, v: flash_attention_plain(
+            q, k, v, scale, **extra), sets[:2], reps=3 if big else 7,
+            inner=1 if big else 5)
+        calls = [(sdpa_gqa(torch, q, k, v, dense, scale),)
+                 for q, k, v in sets[:2]]
+        lib_ms = time_ms(torch, lambda f: f(), calls, reps=3 if big else 7,
+                         inner=1 if big else 5)
+        pairs, kv_bytes = flash_work(torch, mode, B, Hq, Hkv, Sq, Skv, D,
+                                     extra)
+        io_bytes = 2 * B * Hq * Sq * D * 2 + kv_bytes + (
+            extra["mask"].numel() * 4 if mode == "mask" else 0)
+        bms, bby = bound(io_bytes, 4 * D * Hq * pairs)
+        tflops = 4 * D * Hq * pairs / (ms * 1e-3) / 1e12
+        say(f"  flash_attention {label} {mode} B={B} Hq/Hkv={Hq}/{Hkv} "
+            f"Sq={Sq} Skv={Skv} D={D} pos={pos_list}: max_abs_err="
+            f"{err:.6g}, worst err/tol {share:.4g}; kernel {ms:.4f} ms "
+            f"({tflops:.1f} TFLOP/s over visible keys), plain "
+            f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({bby})")
+        if not share <= 1.0:
+            fail(f"flash_attention disagrees with its plain version "
+                 f"({label}): err/tol {share}")
+        worst = max(worst, err)
+        if head is None:
+            head = (ms, plain_ms, lib_ms, bms, bby,
+                    f"B={B} Hq/Hkv={Hq}/{Hkv} Sq=Skv={Sq} D={D} pos=0")
+        del sets, calls, q, k, v, got, dense
+        extra.clear()
+        torch.cuda.empty_cache()
+    results.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "whisper_tensor_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "whisper_tensor_tpu/backends/pallas/attention.py:175",
+        "launches": None, "max_abs_err": worst, "ms": head[0],
+        "plain_ms": head[1], "bound_ms": head[3], "bound_by": head[4],
+        "library_ms": head[2], "shape": head[5]})
 
 
 # ---------------------------------------------------------------------------
@@ -396,15 +585,17 @@ def shadow_checked(lowering, plain, bound):
 
 
 def phase3(torch, np, ckpt: Path, layers: int, results) -> None:
-    from whisper_tensor_tpu.server.openai_api import OpenAIApi
-    from whisper_tensor_tpu.tokenizer import ByteTokenizer, apply_chat_template
-
     from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
     from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
         decode_attention, decode_attention_plain)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
     from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
     from whisper_tensor_tpu_torch.milli.ops import attention as attn_lowering
     from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+    from whisper_tensor_tpu_torch.tokenizer import (ByteTokenizer,
+                                                    apply_chat_template)
 
     say("phase 3: the direct path")
     srv = Server()
@@ -412,7 +603,7 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> None:
     entries = srv.models.run_loader("transformers", {
         "path": str(ckpt), "dtype": "bf16", "quantize": "int8",
         "max_len": MAX_LEN})
-    say(f"  reference loader (ONNX build + parse): "
+    say(f"  loader (ONNX build + parse): "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     iface = srv._text_iface(entries[0])
@@ -434,13 +625,15 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> None:
                    "temperature": 0.8, "top_k": 50, "seed": 7}
         decode_attention.launches = 0
         int8_matmul.launches = 0
+        flash_attention.launches = 0
         t0 = time.perf_counter()
         r1 = completion(port, greedy)
         status, raw = request(port, "/v1/chat/completions", chat)
         r3 = completion(port, sampled)
         served_s = time.perf_counter() - t0
         launches = {"decode_attention": decode_attention.launches,
-                    "int8_matmul": int8_matmul.launches}
+                    "int8_matmul": int8_matmul.launches,
+                    "flash_attention": flash_attention.launches}
         say(f"  three requests served in {served_s:.2f} s; kernel launches "
             f"during them: {launches}")
         for res in results:
@@ -475,8 +668,8 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> None:
         chat_toks = iface.generate_tokens(ids, 16)[0]
         if len(chat_toks) != 16 or tok.decode(list(chat_toks)) != chat_text:
             fail("the streamed chat text is not the interface's 16 tokens")
-        if "jax" in sys.modules:
-            fail("jax was imported")
+        if foreign_modules():
+            fail(f"the JAX package or jax was imported: {foreign_modules()}")
 
         # the greedy decode again, outside the counted run: (a) each
         # decode_attention call is held against its plain version on the
@@ -556,6 +749,7 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> None:
         say(f"  time to first token {ttft * 1e3:.1f} ms (prompt {P} tokens, "
             f"bucket {bucket}), decode {rate:.1f} tok/s (batch 1, {layers} "
             f"layers) on {card_line()}")
+        phase5_direct(torch, np, iface, port, layers, results)
     finally:
         api.stop()
 
@@ -569,8 +763,7 @@ SERVE_CFG = {"dtype": "bf16", "quantize": "int8", "max_len": MAX_LEN,
 
 def free_memory(torch) -> None:
     """Return a finished phase's host and device memory before the next
-    load (the reference loader peaks at ~68 GB of host RSS at 32
-    layers)."""
+    load (the loader peaks at ~68 GB of host RSS at 32 layers)."""
     gc.collect()
     torch.cuda.empty_cache()
     try:
@@ -669,16 +862,17 @@ def teacher_gaps(torch, np, iface, prompt, toks):
 
 def phase4(torch, np, ckpt: Path, layers: int, results,
            plant_fault: bool) -> None:
-    from whisper_tensor_tpu.server.openai_api import OpenAIApi
-
     from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
         decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
     from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
         ragged_kv_write, ragged_kv_write_plain)
     from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
     from whisper_tensor_tpu_torch.milli.ops import misc as misc_lowering
     from whisper_tensor_tpu_torch.server.batching import ContinuousBatcher
     from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
 
     say(f"phase 4: the batched path (ContinuousBatcher); host RSS "
         f"{host_rss_gb():.1f} GB after phase 3 was freed")
@@ -686,7 +880,7 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
     t0 = time.perf_counter()
     (entry,) = srv.models.run_loader("transformers",
                                      {"path": str(ckpt), **SERVE_CFG})
-    say(f"  reference loader (ragged_decode graph): "
+    say(f"  loader (ragged_decode graph): "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     bat = srv._batcher(entry)         # what the first request would build
@@ -745,6 +939,7 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
         decode_attention.launches = 0
         int8_matmul.launches = 0
         ragged_kv_write.launches = 0
+        flash_attention.launches = 0
         threads = []
         t0 = time.perf_counter()
         for w in range(3):
@@ -759,7 +954,8 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
         served_s = time.perf_counter() - t0
         launches = {"decode_attention": decode_attention.launches,
                     "int8_matmul": int8_matmul.launches,
-                    "ragged_kv_write": ragged_kv_write.launches}
+                    "ragged_kv_write": ragged_kv_write.launches,
+                    "flash_attention": flash_attention.launches}
     finally:
         misc_lowering.ragged_kv_write = kernel_write
         bat.submit = submit
@@ -796,9 +992,9 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
         n_tokens += got
     if min(launches.values()) <= 0:
         fail(f"a kernel of the batched path was never launched: {launches}")
-    if len(records) != len(reqs) or "jax" in sys.modules:
+    if len(records) != len(reqs) or foreign_modules():
         fail(f"{len(records)} batcher requests for {len(reqs)} HTTP "
-             f"requests, or jax was imported")
+             f"requests, or foreign modules imported: {foreign_modules()}")
 
     # (d) every greedy answer against one teacher-forced prefill over its
     # prompt and answer (plain attention, prefill-sized matmuls): each
@@ -857,8 +1053,200 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
         f"{statistics.median(ttfts) * 1e3:.1f} ms, p99 "
         f"{float(np.percentile(ttfts, 99)) * 1e3:.1f} ms ({layers} layers) "
         f"on {card_line()}")
-    for b in srv._batchers.values():
-        b.stop()
+    try:
+        phase5_batched(torch, np, srv, bat, layers, results)
+    finally:
+        for b in srv._batchers.values():
+            b.stop()
+
+
+def long_text(np, n: int, seed: int) -> str:
+    """n characters of seeded lowercase text (n byte-tokenizer tokens)."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz    "))
+    return "".join(np.random.default_rng(seed).choice(letters, n))
+
+
+def flash_shadow(lowering, plain, bound):
+    """Install, in the Attention lowering, a flash_attention that calls
+    the one installed before and holds each result against `plain` on
+    the same inputs (flash_agreement_bound). Returns it; `.inner` is the
+    one it wraps."""
+    inner = lowering.flash_attention
+
+    def checked(q, k, v, scale, **kw):
+        got = inner(q, k, v, scale, **kw)
+        err, share = worst_share(got, plain(q, k, v, scale, **kw),
+                                 plain(q, k, v.abs(), scale, **kw), bound)
+        checked.calls += 1
+        checked.worst = max(checked.worst, share)
+        checked.max_err = max(checked.max_err, err)
+        return got
+
+    checked.inner, checked.calls, checked.worst, checked.max_err = \
+        inner, 0, 0.0, 0.0
+    lowering.flash_attention = checked
+    return checked
+
+
+def phase5_direct(torch, np, iface, port: int, layers: int, results) -> None:
+    """Phase 5, the direct path (phase 3's model and HTTP API): a
+    1,900-token prompt (bucket 2048) served with 32 greedy tokens; the
+    flash_attention counter must rise; then the same decode with each
+    flash_attention call held against its plain version, and with the
+    plain version in place of the kernel (logits within phase 3's
+    bound); time to first token with the kernel and with the plain
+    version, as information."""
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_agreement_bound, flash_attention, flash_attention_plain)
+    from whisper_tensor_tpu_torch.milli.ops import attention as attn_lowering
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    say("phase 5: long prompts, the direct path (phase 3's model)")
+    text = long_text(np, 1900, SEED + 5)
+    flash_attention.launches = 0
+    r = completion(port, {"prompt": text, "max_tokens": 32,
+                          "temperature": 0})
+    n_flash = flash_attention.launches
+    got = r["usage"]["completion_tokens"]
+    say(f"  1900-token prompt served: {got} tokens, flash_attention "
+        f"launches {n_flash} ({layers} layers, one prefill)")
+    if got != 32:
+        fail(f"the long prompt answered {got} tokens of 32")
+    if n_flash <= 0:
+        fail("flash_attention was not launched by the long-prompt prefill")
+    for res in results:
+        if res["name"] == "flash_attention":
+            res["launches_long_direct"] = n_flash
+    tok = ByteTokenizer()
+    prompt = np.asarray(tok.encode(text), np.int64)[None]
+    checked = flash_shadow(attn_lowering, flash_attention_plain,
+                           flash_agreement_bound)
+    try:
+        toks, logits = iface.generate_with_logits(prompt, 32)
+    finally:
+        attn_lowering.flash_attention = checked.inner
+    if tok.decode(list(toks[0])) != r["choices"][0]["text"]:
+        fail("the interface's greedy tokens differ from the HTTP text")
+    attn_lowering.flash_attention = flash_attention_plain
+    try:
+        toks_p, logits_p = iface.generate_with_logits(prompt, 32)
+    finally:
+        attn_lowering.flash_attention = checked.inner
+    differ = np.nonzero(toks[0] != toks_p[0])[0]
+    n_same = int(differ[0]) + 1 if differ.size else 32
+    scale = float(np.abs(logits).max())
+    frac = 0.015 * math.sqrt(layers)
+    diff = float(np.abs(logits_p[:, :n_same] - logits[:, :n_same]).max())
+    say(f"  {checked.calls} flash_attention calls of the greedy decode "
+        f"against the plain version on their inputs: worst |err|/bound "
+        f"{checked.worst:.4g} (max |err| {checked.max_err:.5g})")
+    say(f"  plain flash_attention in place of the kernel: logits of "
+        f"{n_same} steps differ by at most {diff:.5g} ({diff / scale:.3%} "
+        f"of max|logit| {scale:.4g}; bound {frac * scale:.5g}, phase 3's), "
+        f"same tokens: {not differ.size}")
+    if checked.calls <= 0 or not checked.worst <= 1.0:
+        fail("a flash_attention call of the long prompt disagrees with its "
+             "plain version on the same inputs")
+    if not diff <= frac * scale:
+        fail("the long prompt's logits with the plain flash_attention "
+             "disagree with the kernel path's")
+    ttft = {}
+    for name, fn in (("kernel", checked.inner), ("plain",
+                                                 flash_attention_plain),
+                     ("kernel again", checked.inner)):
+        attn_lowering.flash_attention = fn
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            iface.generate_tokens(prompt, 1)
+            ttft[name] = (time.perf_counter() - t0) * 1e3
+        finally:
+            attn_lowering.flash_attention = checked.inner
+    say(f"  information: time to first token of the 1900-token prompt "
+        f"(bucket 2048, {layers} layers): kernel {ttft['kernel']:.1f} ms, "
+        f"plain version {ttft['plain']:.1f} ms, kernel again "
+        f"{ttft['kernel again']:.1f} ms, on {card_line()}")
+
+
+def phase5_batched(torch, np, srv, bat, layers: int, results) -> None:
+    """Phase 5, the batched path (phase 4's batcher, prefill pieces of
+    128): four concurrent prompts of 500 to 1,900 tokens over HTTP, every
+    flash_attention call held against its plain version on its inputs;
+    the counter must rise, every request answer in full, and each answer
+    stand a teacher-forced prefill (phase 4's check (d))."""
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_agreement_bound, flash_attention, flash_attention_plain)
+    from whisper_tensor_tpu_torch.milli.ops import attention as attn_lowering
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+
+    say("phase 5: long prompts, the batched path (phase 4's batcher, "
+        f"prefill pieces of {bat.prefill_chunk})")
+    lengths = (500, 900, 1400, 1900)
+    texts = [long_text(np, n, SEED + 6 + n) for n in lengths]
+    api = OpenAIApi(srv, "127.0.0.1", 0).start()
+    answers = [None] * len(texts)
+    records, submit = [], bat.submit
+
+    def recorded(prompt_ids, n_new, **kw):
+        fut = submit(prompt_ids, n_new, **kw)
+        records.append((np.asarray(prompt_ids, np.int64).reshape(-1), fut))
+        return fut
+
+    def client(i):
+        answers[i] = request(api.port, "/v1/completions", {
+            "prompt": texts[i], "max_tokens": 16, "temperature": 0})
+
+    checked = flash_shadow(attn_lowering, flash_attention_plain,
+                           flash_agreement_bound)
+    bat.submit = recorded
+    try:
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(texts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        served_s = time.perf_counter() - t0
+        n_flash = flash_attention.launches
+    finally:
+        attn_lowering.flash_attention = checked.inner
+        bat.submit = submit
+        api.stop()
+    say(f"  {len(texts)} prompts of {lengths} tokens served in "
+        f"{served_s:.2f} s; flash_attention launches {n_flash}; "
+        f"{checked.calls} calls against the plain version on their inputs: "
+        f"worst |err|/bound {checked.worst:.4g} (max |err| "
+        f"{checked.max_err:.5g})")
+    for res in results:
+        if res["name"] == "flash_attention":
+            res["launches_long_batched"] = n_flash
+    if n_flash <= 0:
+        fail("flash_attention was not launched by the batched long prompts")
+    if not checked.worst <= 1.0:
+        fail("a flash_attention call of the batched long prompts disagrees "
+             "with its plain version on the same inputs")
+    for i, ans in enumerate(answers):
+        if ans is None or ans[0] != 200:
+            fail(f"long prompt {i} got no answer or an error: "
+                 f"{None if ans is None else ans[1][:300]!r}")
+        got = json.loads(ans[1])["usage"]["completion_tokens"]
+        if got != 16:
+            fail(f"long prompt {i} answered {got} tokens of 16")
+    if len(records) != len(texts):
+        fail(f"{len(records)} batcher requests for {len(texts)} prompts")
+    frac = 0.015 * math.sqrt(layers)
+    worst = 0.0
+    for prompt, fut in records:
+        gaps, scale = teacher_gaps(torch, np, bat.iface, prompt,
+                                   fut.result())
+        worst = max(worst, float(gaps.max()) / (frac * scale))
+    say(f"  answers against teacher-forced prefills: worst (max logit - "
+        f"emitted logit) {worst:.4g} of the bound ({frac:.1%} of max|logit|)")
+    if not worst <= 1.0:
+        fail("a batched long-prompt answer disagrees with the "
+             "teacher-forced prefill")
 
 
 def main() -> None:
@@ -905,10 +1293,11 @@ def main() -> None:
     results = []
     phase2(torch, results)
     phase2_kv_write(torch, results)
+    phase2_flash(torch, results)
     try:
         import ml_dtypes
         bf16 = np.dtype(ml_dtypes.bfloat16)
-    except ImportError:       # the reference then reads f16 and casts
+    except ImportError:       # the loader then reads f16 and casts
         bf16 = None
     ckpt = ROOT / "build" / "smoke" / f"llama3-8b-widths-{args.layers}L"
     shutil.rmtree(ckpt, ignore_errors=True)

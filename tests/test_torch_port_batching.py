@@ -9,7 +9,8 @@ scalar one for the direct path, and a tiny HF llama. Every cache is f32,
 so batched and sequential decoding are token-exact: each request's
 tokens must equal the port's TextInferenceInterface.generate_tokens on
 the scalar graph (tolerance zero). One case also holds the batcher
-against the JAX ContinuousBatcher.
+against the JAX ContinuousBatcher. Each package's Model is built from
+the same ONNX bytes (the JAX package's recipe).
 
 Not mirrored: the four multi-LoRA tests (test_batching.py:697-890; LoRA
 is not ported), window admission (:990; windowed decode is not ported)
@@ -26,16 +27,18 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from whisper_tensor_tpu.dtype import DType  # noqa: E402
+from whisper_tensor_tpu.dtype import DType as JaxDType  # noqa: E402
 from whisper_tensor_tpu.importers.recipes.llm.gpt2 import (  # noqa: E402
     GPT2Config, build_gpt2_step, random_gpt2_weights)
 from whisper_tensor_tpu.interfaces.text import (  # noqa: E402
     TextInferenceInterface as JaxTextInterface)
-from whisper_tensor_tpu.model import Model  # noqa: E402
+from whisper_tensor_tpu.model import Model as JaxModel  # noqa: E402
 from whisper_tensor_tpu.server.batching import (  # noqa: E402
     ContinuousBatcher as JaxBatcher)
+from whisper_tensor_tpu_torch.dtype import DType  # noqa: E402
 from whisper_tensor_tpu_torch.interfaces.text import (  # noqa: E402
     TextInferenceInterface)
+from whisper_tensor_tpu_torch.model import Model  # noqa: E402
 from whisper_tensor_tpu_torch.server.batching import (  # noqa: E402
     ContinuousBatcher)
 
@@ -58,16 +61,18 @@ def sharp_gpt2_weights(cfg):
     return get
 
 
-def _models(max_len=64):
+def _onnx(max_len=64):
+    """The scalar- and per-row-position GPT-2 step graphs, as ONNX bytes."""
     cfg = GPT2Config(n_layer=2, n_head=2, n_embd=32, vocab_size=V,
                      n_positions=max_len)
     wg = sharp_gpt2_weights(cfg)
-    m_scalar = Model.new_from_onnx(
-        build_gpt2_step(wg, cfg, max_len=max_len, dtype=DType.F32))
-    m_ragged = Model.new_from_onnx(
-        build_gpt2_step(wg, cfg, max_len=max_len, dtype=DType.F32,
-                        pos_per_row=True))
-    return m_scalar, m_ragged
+    return [build_gpt2_step(wg, cfg, max_len=max_len, dtype=JaxDType.F32,
+                            pos_per_row=ppr) for ppr in (False, True)]
+
+
+def _models(max_len=64, cls=Model):
+    """(scalar, ragged) Models of `cls`, the port's or the JAX package's."""
+    return tuple(cls.new_from_onnx(data) for data in _onnx(max_len))
 
 
 def _direct(model, buckets=(16,), max_len=64):
@@ -96,10 +101,9 @@ def _assert_sequential(ref, jobs, timeout=120):
 def test_gpt2_greedy_token_exact_against_the_jax_interface():
     """Both GPT-2 step graphs through the port's interface: the JAX
     package's greedy tokens at f32 (tolerance zero)."""
-    m_scalar, m_ragged = _models()
     prompts = np.stack(_prompts([7, 7]))
-    for m in (m_scalar, m_ragged):
-        want = JaxTextInterface(m, max_len=64, prompt_buckets=(16,)
+    for m, jm in zip(_models(), _models(cls=JaxModel)):
+        want = JaxTextInterface(jm, max_len=64, prompt_buckets=(16,)
                                 ).generate_tokens(prompts, 9)
         np.testing.assert_array_equal(_direct(m).generate_tokens(prompts, 9),
                                       want)
@@ -124,13 +128,14 @@ def test_concurrent_requests_match_sequential():
 def test_matches_the_jax_continuous_batcher():
     """The same requests through the JAX package's ContinuousBatcher and
     the port's, on the same ragged graph: the same tokens."""
-    _, m_ragged = _models()
     prompts = _prompts((3, 9, 5))
     n_news = [6, 4, 8]
     outs = []
-    for cls, kw in ((JaxBatcher, {}), (ContinuousBatcher, {"device": "cpu"})):
-        b = cls(m_ragged, max_len=64, max_batch=2, chunk=4,
-                cache_dtype=DType.F32, prompt_buckets=(16,), **kw).start()
+    for cls, model, dt, kw in (
+            (JaxBatcher, _models(cls=JaxModel)[1], JaxDType, {}),
+            (ContinuousBatcher, _models()[1], DType, {"device": "cpu"})):
+        b = cls(model, max_len=64, max_batch=2, chunk=4,
+                cache_dtype=dt.F32, prompt_buckets=(16,), **kw).start()
         try:
             futs = [b.submit(p, n) for p, n in zip(prompts, n_news)]
             outs.append([f.result(timeout=300) for f in futs])
@@ -203,7 +208,7 @@ def _llama_models(max_len):
                                "rope_theta": 10000.0, "rms_norm_eps": 1e-6})
     wg = hf_weight_getter(hf)
     return [Model.new_from_onnx(build_llama_step(
-        wg, cfg, max_len=max_len, dtype=DType.F32, pos_per_row=ppr))
+        wg, cfg, max_len=max_len, dtype=JaxDType.F32, pos_per_row=ppr))
         for ppr in (False, True)]
 
 

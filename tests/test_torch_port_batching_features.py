@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from whisper_tensor_tpu.dtype import DType
-from whisper_tensor_tpu.interfaces.text import SamplingParams, _rows_flags
+from whisper_tensor_tpu_torch.dtype import DType
 from whisper_tensor_tpu_torch.interfaces.text import (
-    TextInferenceInterface, _filtered_logits, _pick_token_rows, rows_tensors)
+    SamplingParams, TextInferenceInterface, _filtered_logits,
+    _pick_token_rows, _rows_flags, rows_tensors)
 from whisper_tensor_tpu_torch.server.batching import ContinuousBatcher
 
 from tests.test_torch_port_batching import V, _models

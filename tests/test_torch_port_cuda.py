@@ -17,6 +17,8 @@ import torch
 from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
 from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
     decode_attention, decode_attention_plain)
+from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+    flash_agreement_bound, flash_attention, flash_attention_plain)
 from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
     ragged_kv_write, ragged_kv_write_plain)
 from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
@@ -84,6 +86,103 @@ def test_decode_attention_kernel_pos_forms(cuda):
                 torch.tensor([40, 40], dtype=torch.int32, device=cuda)):
         torch.testing.assert_close(decode_attention(q, k, v, pos, 0.1), full,
                                    atol=0, rtol=0)
+
+
+# (mode, B, Hq, Hkv, Sq, Skv, D): a direct prefill, admission pieces of
+# 128 at ragged positions, GPT-2 width with ragged edges, a group of 8
+# heads (two blocks of 4) and of 3 (blocks of 1), causal with rows that
+# see no key (Sq > Skv), and an additive mask per batch row and for the
+# batch
+FLASH_CASES = [("pos", 1, 32, 8, 512, 2048, 128),
+               ("pos", 4, 32, 8, 128, 2048, 128),
+               ("pos", 2, 12, 12, 300, 1000, 64),
+               ("pos", 1, 8, 1, 100, 100, 128),
+               ("pos", 2, 6, 2, 70, 90, 64),
+               ("causal", 2, 32, 8, 300, 1000, 128),
+               ("causal", 1, 4, 2, 200, 120, 64),
+               ("mask", 2, 8, 2, 130, 200, 128),
+               ("mask1", 1, 4, 4, 64, 256, 64)]
+
+
+def _flash_inputs(cuda, mode, B, Hq, Hkv, Sq, Skv, D):
+    """bf16 q as a transposed view (the recipes' layout), k, v, and the
+    mode's extras; pos of row 0 is 0 (a whole prompt)."""
+    g = torch.Generator(device=cuda).manual_seed(B * Sq + Skv + D)
+    q = torch.randn(B, Sq, Hq, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, Hkv, Skv, D, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    extra = {}
+    if mode == "pos":
+        pos = torch.randint(0, Skv, (B,), generator=g, device=cuda)
+        pos[0] = 0
+        extra["pos_bound"] = pos
+    elif mode == "causal":
+        extra["causal"] = True
+    else:
+        m = torch.randn(B if mode == "mask" else 1, 1, Sq, Skv, generator=g,
+                        device=cuda) * 2
+        m[torch.rand(m.shape, generator=g, device=cuda) < 0.3] = -torch.inf
+        m[0, 0, 3] = -torch.inf
+        extra["mask"] = m
+    return q.transpose(1, 2), k, v, extra
+
+
+@pytest.mark.parametrize("mode,B,Hq,Hkv,Sq,Skv,D", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, mode, B, Hq, Hkv, Sq, Skv,
+                                              D):
+    """Within flash_agreement_bound, element by element; rows with no
+    visible key are 0; q is read through its strides."""
+    q, k, v, extra = _flash_inputs(cuda, mode, B, Hq, Hkv, Sq, Skv, D)
+    assert not q.is_contiguous()
+    scale = D ** -0.5
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, scale, **extra)
+    want = flash_attention_plain(q, k, v, scale, **extra)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert got.shape == (B, Hq, Sq, D) and got.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs()
+    bound = flash_agreement_bound(
+        want, flash_attention_plain(q, k, v.abs(), scale, **extra))
+    assert bool((err <= bound).all()), \
+        f"max |err| {err.max().item()}, worst err/bound " \
+        f"{(err / bound.clamp_min(1e-30)).max().item()}"
+    if mode == "causal" and Sq > Skv:
+        assert not got[:, :, :Sq - Skv].float().any()
+    if mode.startswith("mask"):
+        assert not got[0, :, 3].float().any()
+
+
+def test_flash_attention_kernel_pos_forms(cuda):
+    """pos_bound as () or (B,), int64 or int32: the same rows."""
+    q, k, v, _ = _flash_inputs(cuda, "causal", 2, 8, 2, 48, 200, 128)
+    full = flash_attention(q, k, v, 0.1,
+                           pos_bound=torch.tensor([40, 40], device=cuda))
+    for pos in (torch.tensor(40, device=cuda),
+                torch.tensor(40, dtype=torch.int32, device=cuda),
+                torch.tensor([40, 40], dtype=torch.int32, device=cuda)):
+        torch.testing.assert_close(flash_attention(q, k, v, 0.1,
+                                                   pos_bound=pos),
+                                   full, atol=0, rtol=0)
+
+
+def test_flash_attention_wrapper_raises_on_unsupported_cuda_inputs(cuda):
+    q, k, v, _ = _flash_inputs(cuda, "causal", 1, 4, 2, 32, 64, 64)
+    pos = torch.tensor(3, device=cuda)
+    n0 = flash_attention.launches
+    for args, kw, match in (
+            ((q[..., :48], k[..., :48].contiguous(), v[..., :48].contiguous()),
+             {"pos_bound": pos}, "unsupported"),              # head dim 48
+            ((q.float(), k, v), {"pos_bound": pos}, "unsupported"),
+            ((q, k.transpose(2, 3).contiguous().transpose(2, 3), v),
+             {"pos_bound": pos}, "contiguous"),
+            ((q, k, v), {"pos_bound": pos, "causal": True}, "excludes"),
+            ((q, k, v), {"pos_bound": pos.float()}, "pos_bound"),
+            ((q, k, v), {"mask": torch.zeros(1, 1, 32, 63, device=cuda)},
+             "mask")):
+        with pytest.raises(ValueError, match=match):
+            flash_attention(*args, 0.1, **kw)
+    assert flash_attention.launches == n0
 
 
 # (M, K, N): decode rows, a partial row tile, K not a multiple of the
@@ -214,7 +313,7 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
 def test_attention_lowering_raises_for_a_decode_step_the_kernel_lacks(cuda):
     """A bf16 single-query step with head dim 64 goes to the kernel's
     wrapper, which raises: no quiet plain path on the card."""
-    from whisper_tensor_tpu.milli.ops.attention import AttentionMilli
+    from whisper_tensor_tpu_torch.milli.ops.attention import AttentionMilli
     from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
 
     q = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16, device=cuda)
@@ -227,21 +326,15 @@ def test_attention_lowering_raises_for_a_decode_step_the_kernel_lacks(cuda):
     assert decode_attention.launches == n0
 
 
-def test_tiny_llama_on_the_gpu_goes_through_both_kernels(cuda):
-    """A 2-layer bf16 int8 llama (the CPU tests' tiny shapes) on the
-    card: greedy decoding launches both kernels, and its per-step logits
-    stay within 3% of their scale of a teacher-forced prefill over the
-    same tokens on the CPU, whose wrappers take the plain versions (bf16
-    rounds at 2^-8 relative, and the two paths round and sum in other
-    places through both layers)."""
+def _tiny_llama(max_len, pos_per_row=False):
+    """A 2-layer bf16 llama (the CPU tests' tiny shapes: hidden 256, 2
+    query heads and 1 KV head of 128, vocab 512), weights from numpy."""
     import zlib
 
-    from whisper_tensor_tpu.dtype import DType
-    from whisper_tensor_tpu.importers.recipes.llm.llama import (
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.recipes.llm.llama import (
         LlamaConfig, build_llama_step)
-    from whisper_tensor_tpu.model import Model
-    from whisper_tensor_tpu_torch.interfaces.text import (
-        TextInferenceInterface)
+    from whisper_tensor_tpu_torch.model import Model
 
     cfg = LlamaConfig(num_hidden_layers=2, num_attention_heads=2,
                       num_key_value_heads=1, hidden_size=256,
@@ -259,66 +352,78 @@ def test_tiny_llama_on_the_gpu_goes_through_both_kernels(cuda):
         s = next(v for key, v in shape.items() if key in name)
         return (rng.standard_normal(s) * 0.08).astype(np.float32)
 
-    model = Model.new_from_onnx(build_llama_step(weights, cfg, max_len=64,
-                                                 dtype=DType.BF16))
-    kw = dict(max_len=64, cache_dtype=DType.BF16, quantize="int8")
-    gpu = TextInferenceInterface(model, device=cuda, **kw)
-    cpu = TextInferenceInterface(model, device="cpu", **kw)
-    prompt = np.random.default_rng(11).integers(3, 259, (2, 7))
-    a0, m0 = decode_attention.launches, int8_matmul.launches
-    toks, logits = gpu.generate_with_logits(prompt, 8)
-    assert decode_attention.launches - a0 == 2 * 7     # 2 layers x 7 steps
+    return Model.new_from_onnx(build_llama_step(
+        weights, cfg, max_len=max_len, dtype=DType.BF16,
+        pos_per_row=pos_per_row))
+
+
+def _direct_pair(cuda, max_len):
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+
+    model = _tiny_llama(max_len)
+    kw = dict(max_len=max_len, cache_dtype=DType.BF16, quantize="int8")
+    return (TextInferenceInterface(model, device=cuda, **kw),
+            TextInferenceInterface(model, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("max_len,L,n_new", [(64, 7, 8), (512, 300, 6)])
+def test_tiny_llama_on_the_gpu_goes_through_both_kernels(cuda, max_len, L,
+                                                         n_new):
+    """A 2-layer bf16 int8 llama on the card, a short prompt and a long
+    one (300 tokens, bucket 512): the prefill launches flash_attention
+    once per layer, greedy decoding launches decode_attention and
+    int8_matmul, and the per-step logits stay within 3% of their scale
+    of a teacher-forced prefill over the same tokens on the CPU, whose
+    wrappers take the plain versions (bf16 rounds at 2^-8 relative, and
+    the two paths round and sum in other places through both layers)."""
+    gpu, cpu = _direct_pair(cuda, max_len)
+    prompt = np.random.default_rng(11).integers(3, 259, (2, L))
+    a0, f0, m0 = (decode_attention.launches, flash_attention.launches,
+                  int8_matmul.launches)
+    toks, logits = gpu.generate_with_logits(prompt, n_new)
+    assert flash_attention.launches - f0 == 2              # 2 layers
+    assert decode_attention.launches - a0 == 2 * (n_new - 1)
     assert int8_matmul.launches > m0
-    assert toks.shape == (2, 8)
+    assert toks.shape == (2, n_new)
     full = np.concatenate([prompt, toks[:, :-1]], axis=1)
-    want = cpu.logits(full).astype(np.float32)[:, prompt.shape[1] - 1:]
+    want = cpu.logits(full).astype(np.float32)[:, L - 1:]
     np.testing.assert_allclose(logits, want, rtol=0,
                                atol=0.03 * np.abs(want).max())
 
 
 def test_tiny_llama_batcher_on_the_gpu_launches_all_three_kernels(cuda):
-    """The batcher on the card over a 2-layer bf16 int8 llama: every
-    request is served, each kernel's launch counter rises, and the
-    ragged cache write takes the kernel (no plain path on the card)."""
-    import zlib
-
-    from whisper_tensor_tpu.dtype import DType
-    from whisper_tensor_tpu.importers.recipes.llm.llama import (
-        LlamaConfig, build_llama_step)
-    from whisper_tensor_tpu.model import Model
+    """The batcher on the card over a 2-layer bf16 int8 llama, prompts of
+    3 to 300 tokens in 16-token prefill pieces: every request is served,
+    each kernel's launch counter rises (flash_attention in every piece),
+    the ragged cache write takes the kernel (no plain path on the card),
+    and each answer stands a teacher-forced prefill of the direct path
+    on the card: every emitted token's logit within 3% of the logits'
+    scale of that step's largest."""
     from whisper_tensor_tpu_torch.server.batching import ContinuousBatcher
 
-    cfg = LlamaConfig(num_hidden_layers=2, num_attention_heads=2,
-                      num_key_value_heads=1, hidden_size=256,
-                      intermediate_size=384, vocab_size=512, head_dim=128)
-
-    def weights(name):
-        rng = np.random.default_rng(zlib.crc32(name.encode()))
-        if "norm" in name:
-            return (1.0 + 0.1 * rng.standard_normal(256)).astype(np.float32)
-        shape = {"embed": (512, 256), "lm_head": (512, 256),
-                 "q_proj": (256, 256), "o_proj": (256, 256),
-                 "k_proj": (128, 256), "v_proj": (128, 256),
-                 "gate_proj": (384, 256), "up_proj": (384, 256),
-                 "down_proj": (256, 384)}
-        s = next(v for key, v in shape.items() if key in name)
-        return (rng.standard_normal(s) * 0.08).astype(np.float32)
-
-    model = Model.new_from_onnx(build_llama_step(
-        weights, cfg, max_len=128, dtype=DType.BF16, pos_per_row=True))
-    b = ContinuousBatcher(model, max_len=128, max_batch=4, chunk=4,
+    model = _tiny_llama(512, pos_per_row=True)
+    b = ContinuousBatcher(model, max_len=512, max_batch=4, chunk=4,
                           quantize="int8", prefill_chunk=16,
                           device=cuda).start()
-    counters = (decode_attention, int8_matmul, ragged_kv_write)
+    counters = (decode_attention, int8_matmul, ragged_kv_write,
+                flash_attention)
     before = [f.launches for f in counters]
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(3, 259, (n,)) for n in (5, 40, 300, 12, 3, 170)]
     try:
-        rng = np.random.default_rng(2)
-        futs = [b.submit(rng.integers(3, 259, (n,)), 6) for n in (5, 40, 9,
-                                                                  12, 3)]
-        outs = [f.result(timeout=300) for f in futs]
+        outs = [f.result(timeout=300)
+                for f in [b.submit(p, 6) for p in prompts]]
     finally:
         b.stop()
     assert all(o.shape == (6,) and (o >= 0).all() and (o < 512).all()
                for o in outs)
     rose = [f.launches - n for f, n in zip(counters, before)]
     assert min(rose) > 0, rose
+    gpu, _ = _direct_pair(cuda, 512)
+    for p, o in zip(prompts, outs):
+        full = np.concatenate([p, o[:-1]])[None]
+        lg = gpu.logits(full).astype(np.float32)[0, len(p) - 1:]
+        gap = lg.max(-1) - lg[np.arange(6), o]
+        assert gap.max() <= 0.03 * np.abs(lg).max(), (len(p), gap)

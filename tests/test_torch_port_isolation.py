@@ -1,0 +1,126 @@
+"""The PyTorch port stands alone: it imports neither jax nor the JAX
+package (whisper_tensor_tpu), at any level.
+
+(a) An AST scan of every module of whisper_tensor_tpu_torch/ and of
+    chip_smoke.py: no `import jax...`, and no import of
+    `whisper_tensor_tpu` or `whisper_tensor_tpu.<anything>`, top-level
+    or nested in a function.
+(b) A fresh interpreter writes a tiny llama checkpoint and serves one
+    direct and one ragged_decode completion through the port's Server
+    and OpenAIApi on the CPU; neither jax nor the JAX package (by exact
+    name or the `whisper_tensor_tpu.` prefix) is then in sys.modules.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "whisper_tensor_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "whisper_tensor_tpu")
+
+
+def _foreign(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imports(tree):
+    """(line, module) of every absolute import in the tree."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_source_imports_nothing_of_jax_or_the_jax_package(path):
+    tree = ast.parse(path.read_text(), str(path))
+    bad = [(line, mod) for line, mod in _imports(tree) if _foreign(mod)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_scan_sees_nested_imports():
+    """The scan finds imports inside functions and the exact package
+    name, and leaves the port's own name alone."""
+    src = ("def f():\n    import jax.numpy\n"
+           "def g():\n    from whisper_tensor_tpu.dtype import DType\n"
+           "import whisper_tensor_tpu\n"
+           "from whisper_tensor_tpu_torch.dtype import DType\n")
+    found = [mod for _, mod in sorted(_imports(ast.parse(src)))
+             if _foreign(mod)]
+    assert found == ["jax.numpy", "whisper_tensor_tpu.dtype",
+                     "whisper_tensor_tpu"]
+
+
+_SERVE_SCRIPT = r"""
+import http.client, json, sys
+import numpy as np
+from safetensors.numpy import save_file
+from pathlib import Path
+E, I, V, D = 256, 384, 512, 128
+shapes = {"model.embed_tokens.weight": (V, E), "lm_head.weight": (V, E),
+          "model.norm.weight": (E,)}
+for i in range(2):
+    p = f"model.layers.{i}."
+    shapes.update({
+        p + "input_layernorm.weight": (E,),
+        p + "post_attention_layernorm.weight": (E,),
+        p + "self_attn.q_proj.weight": (E, E),
+        p + "self_attn.k_proj.weight": (D, E),
+        p + "self_attn.v_proj.weight": (D, E),
+        p + "self_attn.o_proj.weight": (E, E),
+        p + "mlp.gate_proj.weight": (I, E), p + "mlp.up_proj.weight": (I, E),
+        p + "mlp.down_proj.weight": (E, I)})
+rng = np.random.default_rng(0)
+weights = {n: (1.0 + 0.1 * rng.standard_normal(s) if len(s) == 1
+               else 0.08 * rng.standard_normal(s)).astype(np.float32)
+           for n, s in shapes.items()}
+d = Path(sys.argv[1])
+d.mkdir(parents=True, exist_ok=True)
+(d / "config.json").write_text(json.dumps({
+    "model_type": "llama", "num_hidden_layers": 2, "hidden_size": E,
+    "num_attention_heads": 2, "num_key_value_heads": 1, "head_dim": D,
+    "intermediate_size": I, "vocab_size": V, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-5, "max_position_embeddings": 64}))
+save_file(weights, str(d / "model.safetensors"))
+from whisper_tensor_tpu_torch.server.main import Server
+from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+srv = Server(device="cpu")
+(direct,) = srv.models.run_loader("transformers", {
+    "path": str(d), "dtype": "bf16", "max_len": 64})
+(ragged,) = srv.models.run_loader("transformers", {
+    "path": str(d), "dtype": "bf16", "max_len": 64, "ragged_decode": True})
+api = OpenAIApi(srv, "127.0.0.1", 0).start()
+for entry in (direct, ragged):
+    c = http.client.HTTPConnection("127.0.0.1", api.port, timeout=120)
+    c.request("POST", "/v1/completions", body=json.dumps(
+        {"model": str(entry.id), "prompt": "hi", "max_tokens": 3,
+         "temperature": 0}), headers={"Content-Type": "application/json"})
+    r = c.getresponse()
+    print("STATUS", r.status, json.loads(r.read())["usage"]["completion_tokens"])
+api.stop()
+srv._batchers[ragged.id].stop()
+print("FOREIGN", sorted(m for m in sys.modules
+                        if m in ("jax", "whisper_tensor_tpu")
+                        or m.startswith(("jax.", "whisper_tensor_tpu."))))
+"""
+
+
+def test_a_served_completion_loads_nothing_of_jax(tmp_path):
+    """The script writes its checkpoint with numpy and safetensors alone,
+    so whatever of jax is loaded afterwards, the port loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVE_SCRIPT, str(tmp_path / "tiny-llama")],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.count("STATUS 200 3") == 2, proc.stdout
+    assert "FOREIGN []" in proc.stdout, proc.stdout

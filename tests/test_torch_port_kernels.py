@@ -236,8 +236,7 @@ def test_dtype_round_trip_bit_exact(dt, arr):
 
 
 def test_dtype_unmapped_raises_and_f32_declared_bf16_is_cast():
-    from whisper_tensor_tpu.dtype import DType
-    from whisper_tensor_tpu_torch.dtype import to_torch
+    from whisper_tensor_tpu_torch.dtype import DType, to_torch
 
     with pytest.raises(NotImplementedError, match="U16"):
         to_torch(DType.U16)

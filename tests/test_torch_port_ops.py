@@ -1,5 +1,7 @@
 """The PyTorch port's milli-op lowerings and graph executor against the
-numpy oracle (MilliGraph.eval), on a tiny llama step graph (2 layers,
+JAX package's numpy oracle (its MilliGraph.eval, over its own lowering
+of the same ONNX bytes and its own graph passes), on a tiny llama step
+graph (2 layers,
 hidden 256, 2 query heads and 1 KV head of 128, vocab 512, max_len 64)
 and on the tiny GPT-2 step graphs of tests/test_batching.py (2 layers,
 n_embd 32, 2 heads, vocab 211), scalar and per-row (ragged) position;
@@ -11,18 +13,21 @@ import numpy as np
 import pytest
 import torch
 
-from whisper_tensor_tpu.dtype import DType
+from whisper_tensor_tpu.dtype import DType as JaxDType
 from whisper_tensor_tpu.importers.recipes.llm.gpt2 import (GPT2Config,
                                                             build_gpt2_step,
                                                             random_gpt2_weights)
 from whisper_tensor_tpu.importers.recipes.llm.llama import (LlamaConfig,
                                                              build_llama_step)
 from whisper_tensor_tpu.milli.ir import MilliGraph
-from whisper_tensor_tpu.model import Model
+from whisper_tensor_tpu.milli.transforms import (fuse_parallel_matmuls,
+                                                 quantize_matmul_weights)
+from whisper_tensor_tpu.model import Model as JaxModel
 from whisper_tensor_tpu_torch.backends.torch_exec.compiler import GraphExecutor
-from whisper_tensor_tpu_torch.dtype import to_device, to_host
+from whisper_tensor_tpu_torch.dtype import DType, to_device, to_host
 from whisper_tensor_tpu_torch.interfaces.text import TextInferenceInterface
 from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
+from whisper_tensor_tpu_torch.model import Model
 
 CPU = torch.device("cpu")
 CFG = LlamaConfig(num_hidden_layers=2, num_attention_heads=2,
@@ -51,13 +56,35 @@ def _weights(name):
     return (1.0 + 0.1 * rng.standard_normal(E)).astype(np.float32)
 
 
+def _with_oracle(iface, data):
+    """Give the port interface `iface` (built from the ONNX bytes `data`)
+    its oracle: the JAX package's milli graph of the same bytes, after
+    the JAX package's fusion and int8 passes, as `iface.ref_milli`. Its
+    weight inputs carry the port's names, so one feed dict drives both;
+    `iface.port_op` maps each of its ops to the port's op at the same
+    node."""
+    milli, weight_inputs = JaxModel.new_from_onnx(data).graph.to_milli()
+    fused = fuse_parallel_matmuls(milli, set(weight_inputs))
+    if iface._quantized:
+        live = [n for n in milli.inputs if n in weight_inputs or n in fused]
+        quantize_matmul_weights(milli, live, iface._dense_np)
+    assert list(milli.inputs) == list(iface.milli.inputs)
+    assert ([n.op.KIND for n in milli.nodes]
+            == [n.op.KIND for n in iface.milli.nodes])
+    iface.ref_milli = milli
+    iface.port_op = {id(r.op): p.op
+                     for r, p in zip(milli.nodes, iface.milli.nodes)}
+    return iface
+
+
 def _iface(config):
     dt = DType.F32 if config.startswith("f32") else DType.BF16
-    m = Model.new_from_onnx(build_llama_step(_weights, CFG, max_len=MAX_LEN,
-                                             dtype=dt))
-    return TextInferenceInterface(
-        m, max_len=MAX_LEN, cache_dtype=dt, device="cpu",
-        quantize="int8" if config.endswith("int8") else None)
+    data = build_llama_step(_weights, CFG, max_len=MAX_LEN,
+                            dtype=JaxDType[dt.name])
+    return _with_oracle(TextInferenceInterface(
+        Model.new_from_onnx(data), max_len=MAX_LEN, cache_dtype=dt,
+        device="cpu", quantize="int8" if config.endswith("int8") else None),
+        data)
 
 
 def _feeds(iface, S, pos, seed):
@@ -115,7 +142,7 @@ def _kind_errors(iface, runs):
         ref = op.eval([_widen(a) for a in ins])
         tens = [None if a is None else to_device(np.asarray(a), CPU)
                 for a in ins]
-        got = LOWERINGS[op.KIND](op, tens, list(ins), CPU)
+        got = LOWERINGS[op.KIND](iface.port_op[id(op)], tens, list(ins), CPU)
         ratio = 0.0
         for g, w, r in zip(got, want, ref):
             w = np.asarray(w)
@@ -130,7 +157,7 @@ def _kind_errors(iface, runs):
         return want
 
     for S, pos, seed in runs:
-        iface.milli.eval(_feeds(iface, S, pos, seed), op_impl=op_impl)
+        iface.ref_milli.eval(_feeds(iface, S, pos, seed), op_impl=op_impl)
     return worst
 
 
@@ -151,7 +178,8 @@ def test_step_graph_kinds_are_all_covered(per_kind_errors, config):
 @pytest.mark.parametrize("config", ["f32-dense", "f32-int8"])
 def test_executor_matches_oracle_whole_step(config):
     """GraphExecutor over the whole f32 step graph (prefill, then decode
-    steps on the updated caches) against MilliGraph.eval: logits and
+    steps on the updated caches) against the JAX package's
+    MilliGraph.eval: logits and
     every cache, 1e-5 of their scale. (Whole bf16 graphs are held
     against the JAX package in test_torch_port_slice.py: the oracle
     runs bf16 RMSNorm in bf16, see per_kind_errors.)"""
@@ -159,7 +187,7 @@ def test_executor_matches_oracle_whole_step(config):
     ex = GraphExecutor(iface.milli, CPU)
     for S, pos, seed in ((16, 0, 3), (1, 17, 4), (1, 18, 5)):
         feeds = _feeds(iface, S, pos, seed)
-        want = iface.milli.eval(feeds)
+        want = iface.ref_milli.eval(feeds)
         got = ex({n: to_device(a, CPU) for n, a in feeds.items()})
         for name, w in want.items():
             g = to_host(got[name])
@@ -216,11 +244,12 @@ def _gpt2_iface(config):
     cfg = GPT2Config(n_layer=2, n_head=2, n_embd=32, vocab_size=211,
                      n_positions=MAX_LEN)
     dt = DType.F32 if config.endswith("f32") else DType.BF16
-    m = Model.new_from_onnx(build_gpt2_step(
-        random_gpt2_weights(cfg), cfg, max_len=MAX_LEN, dtype=dt,
-        pos_per_row="ragged" in config))
-    return TextInferenceInterface(m, max_len=MAX_LEN, cache_dtype=dt,
-                                  device="cpu")
+    data = build_gpt2_step(random_gpt2_weights(cfg), cfg, max_len=MAX_LEN,
+                           dtype=JaxDType[dt.name],
+                           pos_per_row="ragged" in config)
+    return _with_oracle(TextInferenceInterface(
+        Model.new_from_onnx(data), max_len=MAX_LEN, cache_dtype=dt,
+        device="cpu"), data)
 
 
 def _gpt2_runs(config):
@@ -256,13 +285,14 @@ def test_gpt2_step_graph_kinds_are_all_covered(gpt2_per_kind_errors, config):
 @pytest.mark.parametrize("config", ["gpt2-scalar-f32", "gpt2-ragged-f32"])
 def test_gpt2_executor_matches_oracle_whole_step(config):
     """GraphExecutor over a whole f32 GPT-2 step graph (prefill, then two
-    decode steps on the updated caches) against MilliGraph.eval: logits
+    decode steps on the updated caches) against the JAX package's
+    MilliGraph.eval: logits
     and every cache, 1e-5 of their scale."""
     iface = _gpt2_iface(config)
     ex = GraphExecutor(iface.milli, CPU)
     for S, pos, seed in _gpt2_runs(config):
         feeds = _feeds(iface, S, pos, seed)
-        want = iface.milli.eval(feeds)
+        want = iface.ref_milli.eval(feeds)
         got = ex({n: to_device(a, CPU) for n, a in feeds.items()})
         for name, w in want.items():
             g = to_host(got[name])

@@ -1,5 +1,5 @@
 """The port's Server serving a ragged_decode checkpoint through its
-ContinuousBatcher, over the reference OpenAI HTTP API and WebSocket
+ContinuousBatcher, over the port's OpenAI HTTP API and WebSocket
 protocol, on the CPU.
 
 The tiny llama checkpoint of tests/test_torch_port_slice.py (2 layers,
@@ -22,11 +22,12 @@ import time
 import numpy as np
 import pytest
 
-from whisper_tensor_tpu.server.openai_api import OpenAIApi
-from whisper_tensor_tpu.tokenizer import (ByteTokenizer, IncrementalDecoder,
-                                          apply_chat_template)
 from whisper_tensor_tpu_torch.server.batching import ContinuousBatcher
 from whisper_tensor_tpu_torch.server.main import Server
+from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+from whisper_tensor_tpu_torch.tokenizer import (ByteTokenizer,
+                                                IncrementalDecoder,
+                                                apply_chat_template)
 
 from tests.test_torch_port_slice import ROOT, _post
 from tests.test_torch_port_slice import checkpoint  # noqa: F401 (fixture)
@@ -225,3 +226,65 @@ def test_cli_serve_reaches_the_batcher(checkpoint):  # noqa: F811
         proc.wait(30)
         proc.stdout.close()
         proc.stderr.close()
+
+
+@pytest.mark.parametrize("path,body,what", [
+    ("/v1/embeddings", {"input": "hi"}, "/v1/embeddings"),
+    ("/v1/images/generations", {"prompt": "a cat"}, "/v1/images/generations"),
+    ("/v1/audio/speech", {"input": "hi"}, "/v1/audio/speech"),
+    ("/v1/completions", {"prompt": "hi", "max_tokens": 2,
+                         "response_format": {"type": "json_object"}},
+     "constrained decoding"),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hi"}],
+                              "max_tokens": 2, "tools": [{"type": "function",
+                                                          "function": {"name": "f"}}]},
+     "tool calls")])
+def test_unported_routes_answer_not_ported(served, path, body, what):
+    """The reference's routes and request features the port does not
+    serve answer 501 with an OpenAI-style error that names them."""
+    srv, entry, api = served
+    status, data = _post(api.port, path, dict(body, model=str(entry.id)))
+    assert status == 501, data
+    err = json.loads(data)["error"]
+    assert err["type"] == "not_implemented_error"
+    assert what in err["message"] and "not ported" in err["message"]
+
+
+@pytest.mark.parametrize("msg,what", [
+    ({"type": "get_super_graph"}, "super graphs"),
+    ({"type": "generate_image", "model_id": 1}, "image generation"),
+    ({"type": "transcribe", "model_id": 1}, "transcription"),
+    ({"type": "generate_multimodal", "model_id": 1}, "multimodal"),
+    ({"type": "generate_text", "model_id": 1, "prompt": "hi",
+      "draft_model_id": 1},
+     "speculative decoding")])
+def test_unported_messages_raise_not_ported(served, msg, what):
+    srv, entry, _ = served
+    msg = dict(msg, model_id=entry.id) if "model_id" in msg else msg
+    with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
+        srv._dispatch(msg)
+
+
+@pytest.mark.parametrize("config,error,match", [
+    ({"lora": "/nowhere"}, NotImplementedError, "'lora' is not ported"),
+    ({"serve_adapters": "a=/nowhere"}, NotImplementedError,
+     "'serve_adapters' is not ported"),
+    ({"decode_windows": "32"}, NotImplementedError,
+     "'decode_windows' is not ported")])
+def test_loader_options_left_out_raise(checkpoint, config, error, match):  # noqa: F811
+    """The port's transformers loader names each option it leaves out."""
+    with pytest.raises(error, match=match):
+        Server(device="cpu").models.run_loader(
+            "transformers", dict(config, path=checkpoint, max_len=64))
+
+
+def test_loader_rejects_a_model_type_it_lacks(tmp_path):
+    d = tmp_path / "neox"
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps({"model_type": "gpt_neox"}))
+    from safetensors.numpy import save_file
+
+    save_file({"w": np.zeros(2, np.float32)}, str(d / "model.safetensors"))
+    with pytest.raises(ValueError, match="gpt_neox"):
+        Server(device="cpu").models.run_loader("transformers",
+                                               {"path": str(d)})

@@ -3,7 +3,8 @@
 The same tiny llama (2 layers, hidden 256, 2 query heads and 1 KV head
 of 128, vocab 512, max_len 64; weights and prompts from numpy with fixed
 seeds) runs through the JAX TextInferenceInterface and the port's, and
-through the reference OpenAI HTTP API on the port's Server. Greedy
+through the port's OpenAI HTTP API on its Server; each package's Model
+is built from the same ONNX bytes (the JAX package's recipe). Greedy
 decoding is token-exact at an f32 cache; sampling, whose random streams
 differ between jax.random and torch.Generator, is held to the same
 filtered distribution and to its greedy limits.
@@ -23,17 +24,19 @@ import torch
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from whisper_tensor_tpu.dtype import DType  # noqa: E402
+from whisper_tensor_tpu.dtype import DType as JaxDType  # noqa: E402
 from whisper_tensor_tpu.importers.recipes.llm.llama import (  # noqa: E402
     LlamaConfig, build_llama_step)
 from whisper_tensor_tpu.interfaces.text import (  # noqa: E402
-    SamplingParams, TextInferenceInterface as JaxTextInterface,
+    SamplingParams as JaxSamplingParams,
+    TextInferenceInterface as JaxTextInterface,
     _filtered_logits as jax_filtered_logits)
-from whisper_tensor_tpu.model import Model  # noqa: E402
-from whisper_tensor_tpu.tokenizer import ByteTokenizer  # noqa: E402
-from whisper_tensor_tpu_torch.dtype import to_host  # noqa: E402
+from whisper_tensor_tpu.model import Model as JaxModel  # noqa: E402
+from whisper_tensor_tpu_torch.dtype import DType, to_host  # noqa: E402
 from whisper_tensor_tpu_torch.interfaces.text import (  # noqa: E402
-    TextInferenceInterface, _filtered_logits, _pick_token)
+    SamplingParams, TextInferenceInterface, _filtered_logits, _pick_token)
+from whisper_tensor_tpu_torch.model import Model  # noqa: E402
+from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer  # noqa: E402
 from whisper_tensor_tpu_torch.server.batching import (  # noqa: E402
     ContinuousBatcher)
 
@@ -71,15 +74,28 @@ PROMPT = np.random.default_rng(11).integers(3, 259, (2, 7)).astype(np.int64)
 
 @pytest.fixture(scope="module")
 def models():
-    return {dt: Model.new_from_onnx(build_llama_step(
-        _weights, CFG, max_len=MAX_LEN, dtype=dt))
-        for dt in (DType.F32, DType.BF16)}
+    """{DType: the port's Model, ("jax", DType): the JAX package's}, each
+    pair built from one set of ONNX bytes."""
+    out = {}
+    for dt in (DType.F32, DType.BF16):
+        data = build_llama_step(_weights, CFG, max_len=MAX_LEN,
+                                dtype=JaxDType[dt.name])
+        out[dt] = Model.new_from_onnx(data)
+        out["jax", dt] = JaxModel.new_from_onnx(data)
+    return out
+
+
+def _jax_sp(sp):
+    """The JAX package's SamplingParams with the same fields."""
+    return None if sp is None else JaxSamplingParams(**vars(sp))
 
 
 def _pair(models, dt, quantize):
-    kw = dict(max_len=MAX_LEN, cache_dtype=dt, quantize=quantize)
-    return (JaxTextInterface(models[dt], **kw),
-            TextInferenceInterface(models[dt], device="cpu", **kw))
+    kw = dict(max_len=MAX_LEN, quantize=quantize)
+    return (JaxTextInterface(models["jax", dt], cache_dtype=JaxDType[dt.name],
+                             **kw),
+            TextInferenceInterface(models[dt], cache_dtype=dt, device="cpu",
+                                   **kw))
 
 
 @pytest.mark.parametrize("quantize", [None, "int8"])
@@ -149,7 +165,7 @@ def test_sampling_filters_match_reference(sp):
     """Same logits -> the same candidate set as the reference's
     _filtered_logits, and the same f32 values on it (1e-6)."""
     lg = np.random.default_rng(3).standard_normal((4, V)).astype(np.float32)
-    want = np.asarray(jax_filtered_logits(jnp.asarray(lg), sp))
+    want = np.asarray(jax_filtered_logits(jnp.asarray(lg), _jax_sp(sp)))
     got = _filtered_logits(torch.from_numpy(lg), sp).numpy()
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
     keep = np.isfinite(want)
@@ -163,7 +179,7 @@ def test_sampling_draws_follow_the_filtered_distribution():
     sp = SamplingParams(temperature=0.8, top_k=6, seed=5)
     lg = np.random.default_rng(4).standard_normal(12).astype(np.float32)
     p = np.asarray(jax.nn.softmax(jax_filtered_logits(jnp.asarray(lg[None]),
-                                                      sp)))[0]
+                                                      _jax_sp(sp))))[0]
     gen = torch.Generator().manual_seed(sp.seed)
     rows = torch.from_numpy(np.tile(lg, (40000, 1)))
     draws = _pick_token(rows, gen, sp, None).numpy()
@@ -201,8 +217,9 @@ def test_penalties_and_logit_bias_token_exact(models):
     ref, port = _pair(models, DType.F32, None)
     sp = SamplingParams(temperature=0.0, repetition_penalty=1.3,
                         presence_penalty=0.5, frequency_penalty=0.2)
-    np.testing.assert_array_equal(port.generate_tokens(PROMPT, 10, sampling=sp),
-                                  ref.generate_tokens(PROMPT, 10, sampling=sp))
+    np.testing.assert_array_equal(
+        port.generate_tokens(PROMPT, 10, sampling=sp),
+        ref.generate_tokens(PROMPT, 10, sampling=_jax_sp(sp)))
     bias = np.zeros(V, np.float32)
     bias[ref.generate_tokens(PROMPT, 1)[:, 0]] = -100.0
     bias[[40, 41]] = 3.0
@@ -266,12 +283,12 @@ def _post(port, path, body):
 
 def test_openai_request_on_the_port_server(checkpoint):
     """/v1/completions and a streamed /v1/chat/completions through the
-    reference OpenAIApi on the port's Server return the port
+    port's OpenAIApi on its Server return the port
     interface's own tokens; a ragged_decode model is served by the
     port's ContinuousBatcher, with its interface's own tokens."""
-    from whisper_tensor_tpu.server.openai_api import OpenAIApi
-    from whisper_tensor_tpu.tokenizer import apply_chat_template
     from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+    from whisper_tensor_tpu_torch.tokenizer import apply_chat_template
 
     srv = Server(device="cpu")
     (entry,) = srv.models.run_loader("transformers", {
@@ -352,8 +369,8 @@ import http.client, json, sys
 from whisper_tensor_tpu_torch.cli import main
 main(["generate", "--model", sys.argv[1], "--prompt", "hi",
       "--max-new-tokens", "4", "--device", "cpu", "-c", "quantize=int8"])
-from whisper_tensor_tpu.server.openai_api import OpenAIApi
 from whisper_tensor_tpu_torch.server.main import Server
+from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
 srv = Server(device="cpu")
 srv.models.run_loader("transformers", {"path": sys.argv[1], "dtype": "bf16",
                                        "quantize": "int8", "max_len": 64})

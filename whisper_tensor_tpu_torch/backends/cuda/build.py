@@ -39,6 +39,10 @@ _SIGNATURES = {
     # q, k, v, pos (int64), out, B, Hq, Hkv, L, D, scale, stream
     "wt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             ctypes.c_float, _P],
+    # q, k, v, mask, pos (int64), out, B, Hq, Hkv, Sq, Skv, D, q strides
+    # (b, h, s), mask batch stride, causal, scale, stream
+    "wt_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _LL, _LL, _LL, _LL, _I, ctypes.c_float, _P],
     # x, w_i8, scale, out, M, K, N, x_is_bf16, stream
     "wt_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # cache, update, pos (int64), B, H, L, D, S, update strides (b, h, s,

@@ -1,0 +1,143 @@
+"""Flash attention: the CUDA kernel's wrapper and its plain version.
+
+Replaces flash_attention (whisper_tensor_tpu/backends/pallas/
+attention.py:175). The kernel is csrc/flash_attention.cu; its source
+note says what bounds it on the H100, how its design answers that, and
+what of the TPU kernel it leaves out (the KV-chunk carry, the padding to
+128, the environment knobs and the 4 GiB threshold).
+
+The Attention lowering (milli/ops/attention.py) sends every bf16 prefill
+with a position mask here (the pos-bound mode). The causal and additive
+modes are the TPU kernel's too, and are checked on the card; no graph
+the port loads emits them yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import agreement_bound
+from .build import check, library
+
+
+def flash_agreement_bound(ref: torch.Tensor, magnitude: torch.Tensor
+                          ) -> torch.Tensor:
+    """Per-element bound on |kernel - plain| (or on the TPU kernel
+    against the plain version). `magnitude` is the plain version run
+    with |v|: M = sum_j p_j |v_j| / l. Three parts:
+      * agreement_bound(ref, M): one bf16 ulp of the output (2^-7 |ref|),
+        as both round their f32 result once, and 2^-16 M of f32
+        summation-order noise in the scores and the value sums;
+      * 2^-7 M: both round each unnormalized probability p_j to bf16 once
+        (at most half an ulp, 2^-8 of p_j), but the kernel rounds
+        exp(s_j - m) against the running max m of the key tiles seen so
+        far and rescales later, the plain version against the row's
+        final max. So a term p_j v_j / l may differ by two half-ulps,
+        2^-7 of p_j |v_j| / l, and the terms add up to 2^-7 M."""
+    return agreement_bound(ref, magnitude) + 2.0 ** -7 * magnitude.float().abs()
+
+
+def flash_attention_plain(q, k, v, scale: float, *, causal: bool = False,
+                          mask=None, pos_bound=None) -> torch.Tensor:
+    """The kernel's semantics in plain PyTorch. q (B, Hq, Sq, D); k, v
+    (B, Hkv, Skv, Dv), Hq a multiple of Hkv; mask additive (1|B, 1, Sq,
+    Skv); pos_bound (B,) or (): query row s of batch b sees key j iff
+    j <= pos[b] + s; causal: iff j <= s + (Skv - Sq). Scores and softmax
+    statistics in f32; the unnormalized probabilities are rounded to v's
+    type before the value product, which sums in f32, and the sum of the
+    (unrounded) probabilities divides at the end; a row with no visible
+    key gives zeros. Returns (B, Hq, Sq, Dv) in q's type."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    s = torch.matmul(q.float().reshape(B, Hkv, rep, Sq, D),
+                     k.float().unsqueeze(2).transpose(-1, -2)) * scale
+    if mask is not None:
+        s = s + mask.float().reshape(mask.shape[0], 1, 1, Sq, Skv)
+    j = torch.arange(Skv, device=q.device)
+    row = torch.arange(Sq, device=q.device)[:, None]
+    if causal:
+        s = s.masked_fill(j > row + (Skv - Sq), -torch.inf)
+    if pos_bound is not None:
+        pos = pos_bound.reshape(-1).expand(B).long()
+        hidden = j > pos.view(B, 1, 1) + row          # (B, Sq, Skv)
+        s = s.masked_fill(hidden.view(B, 1, 1, Sq, Skv), -torch.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(v.dtype).float(), v.float().unsqueeze(2))
+    out = out / torch.where(l == 0, 1.0, l)
+    return out.reshape(B, Hq, Sq, v.shape[-1]).to(q.dtype)
+
+
+def flash_attention(q, k, v, scale: float, *, causal: bool = False,
+                    mask=None, pos_bound=None) -> torch.Tensor:
+    """q (B, Hq, Sq, D) bf16, read through its strides (the feature
+    stride must be 1); k, v (B, Hkv, Skv, D) bf16 contiguous; D 64 or
+    128; mask f32-castable (1|B, 1, Sq, Skv); pos_bound int64/int32 ()
+    or (B,), read on the device. pos_bound excludes causal and mask.
+    Returns (B, Hq, Sq, D) bf16.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel,
+    or raise when it does not take them."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, causal=causal,
+                                     mask=mask, pos_bound=pos_bound)
+    ok = q.ndim == k.ndim == 4 and v.shape == k.shape
+    if ok:
+        B, Hq, Sq, D = q.shape
+        Hkv, Skv = k.shape[1], k.shape[2]
+        ok = (k.shape[0] == B and D == k.shape[3] and D in (64, 128)
+              and Hkv > 0 and Hq % Hkv == 0 and B <= 65535
+              and q.dtype == k.dtype == v.dtype == torch.bfloat16)
+    if not ok:
+        raise ValueError(
+            f"flash_attention kernel: unsupported q {tuple(q.shape)} "
+            f"{q.dtype}, k {tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} "
+            f"{v.dtype}: it takes bf16 q, k and v of one head dim, 64 or "
+            f"128, and Hq a multiple of Hkv")
+    if q.device != k.device or q.stride(3) != 1:
+        raise ValueError(f"flash_attention kernel: q must lie on {k.device} "
+                         f"with feature stride 1, got strides {q.stride()}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention kernel: {name} must be a "
+                             f"contiguous, 16-byte aligned tensor on "
+                             f"{q.device}")
+    if pos_bound is not None and (causal or mask is not None):
+        raise ValueError("flash_attention kernel: pos_bound excludes causal "
+                         "and mask")
+    pos = None
+    if pos_bound is not None:
+        if pos_bound.dtype not in (torch.int64, torch.int32) \
+                or pos_bound.ndim > 1 or pos_bound.numel() not in (1, B) \
+                or pos_bound.device != q.device:
+            raise ValueError(
+                f"flash_attention kernel: pos_bound must be int64/int32 of "
+                f"shape () or ({B},) on {q.device}, got {pos_bound.dtype} "
+                f"{tuple(pos_bound.shape)}")
+        pos = pos_bound.reshape(-1).expand(B).to(torch.int64).contiguous()
+    mask_sb = 0
+    if mask is not None:
+        if mask.ndim != 4 or mask.shape[0] not in (1, B) \
+                or tuple(mask.shape[1:]) != (1, Sq, Skv) \
+                or mask.device != q.device:
+            raise ValueError(
+                f"flash_attention kernel: mask must be (1|{B}, 1, {Sq}, "
+                f"{Skv}) on {q.device}, got {tuple(mask.shape)}")
+        mask = mask.float().contiguous()
+        mask_sb = Sq * Skv if mask.shape[0] == B and B > 1 else 0
+    out = torch.empty(B, Hq, Sq, D, dtype=q.dtype, device=q.device)
+    code = library().wt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        None if pos is None else pos.data_ptr(), out.data_ptr(),
+        B, Hq, Hkv, Sq, Skv, D, q.stride(0), q.stride(1), q.stride(2),
+        mask_sb, int(causal), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    check(code, "flash_attention kernel")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -28,9 +28,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from whisper_tensor_tpu.milli.ir import MilliGraph
-
 from ...dtype import to_device
+from ...milli.ir import MilliGraph
 from ...milli.ops import LOWERINGS
 
 _FOLD_BLOCKLIST = {"RandomNormalLike"}

@@ -13,8 +13,9 @@ Usage:
       [-c ragged_decode=1 -c serve_batch=16 -c prefill_chunk=128]
 
 `serve -c ragged_decode=1` serves the model through the port's
-ContinuousBatcher; the reference loader maps serve_batch, serve_chunk,
-serve_chunk_max, prefill_chunk and serve_auto_prefix onto it.
+ContinuousBatcher; the loader (importers/loaders.py) maps serve_batch,
+serve_chunk, serve_chunk_max, prefill_chunk and serve_auto_prefix onto
+it.
 """
 
 from __future__ import annotations
@@ -22,17 +23,32 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from typing import Dict, List
 
-from whisper_tensor_tpu.cli import _parse_kv
+
+def _parse_kv(pairs: List[str]) -> Dict[str, object]:
+    """`key=value` strings -> typed config values: int, then float,
+    then true/false, else the string (the reference CLI's parsing)."""
+    out: Dict[str, object] = {}
+    for p in pairs or []:
+        if "=" not in p:
+            raise SystemExit(f"bad config entry {p!r}; expected key=value")
+        k, v = p.split("=", 1)
+        for cast in (int, float):
+            try:
+                out[k] = cast(v)
+                break
+            except ValueError:
+                continue
+        else:
+            out[k] = {"true": True, "false": False}.get(v.lower(), v)
+    return out
 
 
 def cmd_generate(args) -> None:
-    from whisper_tensor_tpu.importers.loaders import (identify_and_load,
-                                                      loader_registry)
-    from whisper_tensor_tpu.interfaces.text import SamplingParams
-    from whisper_tensor_tpu.tokenizer import AnyTokenizer, apply_chat_template
-
-    from .interfaces.text import TextInferenceInterface
+    from .importers.loaders import identify_and_load, loader_registry
+    from .interfaces.text import SamplingParams, TextInferenceInterface
+    from .tokenizer import AnyTokenizer, apply_chat_template
 
     cfg = _parse_kv(args.config)
     cfg.setdefault("max_len", args.max_len)
@@ -101,7 +117,7 @@ def cmd_serve(args) -> None:
         for e in srv.models.run_loader(args.loader, cfg):
             print(f"loaded model #{e.id} {e.name}", file=sys.stderr)
     if args.http_port is not None:
-        from whisper_tensor_tpu.server.openai_api import OpenAIApi
+        from .server.openai_api import OpenAIApi
 
         api = OpenAIApi(srv, args.host, args.http_port).start()
         print(f"OpenAI-compatible API on http://{args.host}:{api.port}/v1",

@@ -1,31 +1,175 @@
-"""DType <-> torch.dtype, and host <-> device transfers.
+"""The port's DType, and DType <-> torch.dtype, host <-> device transfers.
 
-Counterpart of the numpy/jax mappings in whisper_tensor_tpu/dtype.py.
-Only the element types the text slice runs are mapped; every other
-DType raises NotImplementedError naming itself.
+`DType`, `ONNX_TO_DTYPE` and `DTYPE_TO_ONNX` are the port's copy of
+whisper_tensor_tpu/dtype.py, trimmed to the scalar types: packed
+(block-quantized) formats, `AnyDType`, `promote` and the jax mapping
+are left out. Only the element types the text slice runs map to torch;
+every other DType raises NotImplementedError naming itself.
 
 bf16 crosses between host and device as raw 16-bit words: numpy has no
-bf16 of its own (the reference uses ml_dtypes' bfloat16), and
+bf16 of its own (the host keeps ml_dtypes' bfloat16), and
 ``torch.from_numpy`` rejects ml_dtypes arrays. When ml_dtypes is
-missing, the reference stores BF16 tensors on the host as float32; such
-an array is uploaded as float32 and cast to bf16 on the device.
+missing, BF16 tensors are stored on the host as float32; such an array
+is uploaded as float32 and cast to bf16 on the device.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import enum
+
 import numpy as np
 import torch
-
-from whisper_tensor_tpu.dtype import DType
 
 try:
     import ml_dtypes
 
     _NP_BF16: Optional[np.dtype] = np.dtype(ml_dtypes.bfloat16)
-except ImportError:  # the reference then keeps BF16 as float32 on host
+except ImportError:  # BF16 is then kept as float32 on the host
+    ml_dtypes = None
     _NP_BF16 = None
+
+
+class DType(enum.Enum):
+    """Scalar element types. Mirrors ONNX TensorProto.DataType coverage."""
+
+    F64 = "f64"
+    F32 = "f32"
+    BF16 = "bf16"
+    F16 = "f16"
+    F8E4M3 = "f8e4m3"
+    F8E5M2 = "f8e5m2"
+    I64 = "i64"
+    I32 = "i32"
+    I16 = "i16"
+    I8 = "i8"
+    U64 = "u64"
+    U32 = "u32"
+    U16 = "u16"
+    U8 = "u8"
+    BOOL = "bool"
+    STRING = "string"
+    # U4/I4 sub-byte types (ONNX 21+); stored unpacked as u8/i8 on host.
+    U4 = "u4"
+    I4 = "i4"
+    # FLOAT4E2M1 (ONNX 23); ml_dtypes float4_e2m1fn host representation
+    F4E2M1 = "f4e2m1"
+
+    def __repr__(self) -> str:
+        return f"DType.{self.name}"
+
+    @property
+    def is_float(self) -> bool:
+        return self in _FLOATS
+
+    @property
+    def is_signed_int(self) -> bool:
+        return self in (DType.I64, DType.I32, DType.I16, DType.I8, DType.I4)
+
+    @property
+    def is_unsigned_int(self) -> bool:
+        return self in (DType.U64, DType.U32, DType.U16, DType.U8, DType.U4)
+
+    @property
+    def is_int(self) -> bool:
+        return self.is_signed_int or self.is_unsigned_int
+
+    @property
+    def size_bytes(self) -> Optional[float]:
+        """Bytes per element; fractional for sub-byte types; None for STRING."""
+        return _SIZES.get(self)
+
+    def to_numpy(self) -> np.dtype:
+        """The numpy dtype of the host (oracle) representation."""
+        if self is DType.STRING:
+            return np.dtype(object)
+        return np.dtype(_NP_MAP[self])
+
+    @staticmethod
+    def from_numpy(dt) -> "DType":
+        dt = np.dtype(dt)
+        if dt == np.dtype(object) or dt.kind in ("U", "S"):
+            return DType.STRING
+        for k, v in _NP_MAP.items():
+            if np.dtype(v) == dt and k not in (DType.U4, DType.I4):
+                return k
+        raise ValueError(f"no DType for numpy dtype {dt}")
+
+    def accumulate_dtype(self) -> "DType":
+        """Default accumulation dtype for contractions of this element
+        type: bf16/f16/f8 accumulate in f32, small ints in i32."""
+        if self in (DType.BF16, DType.F16, DType.F8E4M3, DType.F8E5M2,
+                    DType.F4E2M1):
+            return DType.F32
+        if self in (DType.I8, DType.I16, DType.U8, DType.U16, DType.I4, DType.U4):
+            return DType.I32
+        return self
+
+
+_FLOATS = (DType.F64, DType.F32, DType.BF16, DType.F16, DType.F8E4M3,
+           DType.F8E5M2, DType.F4E2M1)
+
+_SIZES = {
+    DType.F64: 8.0, DType.F32: 4.0, DType.BF16: 2.0, DType.F16: 2.0,
+    DType.F8E4M3: 1.0, DType.F8E5M2: 1.0, DType.F4E2M1: 0.5,
+    DType.I64: 8.0, DType.I32: 4.0, DType.I16: 2.0, DType.I8: 1.0,
+    DType.U64: 8.0, DType.U32: 4.0, DType.U16: 2.0, DType.U8: 1.0,
+    DType.BOOL: 1.0, DType.U4: 0.5, DType.I4: 0.5,
+}
+
+_NP_MAP = {
+    DType.F64: np.float64,
+    DType.F32: np.float32,
+    DType.F16: np.float16,
+    DType.I64: np.int64,
+    DType.I32: np.int32,
+    DType.I16: np.int16,
+    DType.I8: np.int8,
+    DType.U64: np.uint64,
+    DType.U32: np.uint32,
+    DType.U16: np.uint16,
+    DType.U8: np.uint8,
+    DType.BOOL: np.bool_,
+    # sub-byte types are stored widened on host
+    DType.U4: np.uint8,
+    DType.I4: np.int8,
+}
+if ml_dtypes is not None:
+    _NP_MAP[DType.BF16] = ml_dtypes.bfloat16
+    _NP_MAP[DType.F8E4M3] = ml_dtypes.float8_e4m3fn
+    _NP_MAP[DType.F8E5M2] = ml_dtypes.float8_e5m2
+    _NP_MAP[DType.F4E2M1] = getattr(ml_dtypes, "float4_e2m1fn",
+                                    ml_dtypes.float8_e4m3fn)
+else:
+    _NP_MAP[DType.BF16] = np.float32
+    _NP_MAP[DType.F8E4M3] = np.float32
+    _NP_MAP[DType.F8E5M2] = np.float32
+    _NP_MAP[DType.F4E2M1] = np.float32
+
+# ONNX TensorProto.DataType <-> DType (the public ONNX IR constants)
+ONNX_TO_DTYPE = {
+    1: DType.F32,
+    2: DType.U8,
+    3: DType.I8,
+    4: DType.U16,
+    5: DType.I16,
+    6: DType.I32,
+    7: DType.I64,
+    8: DType.STRING,
+    9: DType.BOOL,
+    10: DType.F16,
+    11: DType.F64,
+    12: DType.U32,
+    13: DType.U64,
+    16: DType.BF16,
+    17: DType.F8E4M3,
+    19: DType.F8E5M2,
+    21: DType.U4,
+    22: DType.I4,
+    23: DType.F4E2M1,
+}
+DTYPE_TO_ONNX = {v: k for k, v in ONNX_TO_DTYPE.items()}
 
 _TORCH = {
     DType.F32: torch.float32,
@@ -91,8 +235,8 @@ def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
-    """Download a tensor into the reference's host representation:
-    bf16 as ml_dtypes.bfloat16 (float32 where ml_dtypes is missing)."""
+    """Download a tensor into the host representation: bf16 as
+    ml_dtypes.bfloat16 (float32 where ml_dtypes is missing)."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         if _NP_BF16 is None:

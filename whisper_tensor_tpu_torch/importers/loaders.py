@@ -1,0 +1,244 @@
+"""Loader registry, the transformers loader and identify_and_load.
+
+The port's copy of whisper_tensor_tpu/importers/loaders.py, trimmed to
+the `transformers` loader for llama- and GPT-2-family checkpoints
+(config.json + safetensors) and the `auto` loader that probes for it.
+Its config keys and its bundle's `text` interface spec are the
+reference's (:124-522): dtype, quantize, max_len, ragged_decode,
+serve_batch, serve_chunk, serve_chunk_max, serve_admit_coalesce_ms,
+prefill_chunk and serve_auto_prefix; the end-of-sequence ids come from
+the checkpoint (`_resolve_eos`). Left out, each raising: other model
+types (ValueError, as the reference does for an unknown one), GPTQ/AWQ
+checkpoints, `lora`, `serve_adapters` and `decode_windows`
+(NotImplementedError), and the ONNX, GGUF, RWKV, TTS and image loaders
+(not registered).
+
+Like the reference, the loader embeds every weight in one in-memory
+ONNX ModelProto, then decodes it into the graph's TensorStore: host
+memory peaks at several times the checkpoint's size.
+"""
+
+from __future__ import annotations
+
+import enum
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+from ..dtype import DType
+from ..model import Model
+
+
+class ConfigFieldType(enum.Enum):
+    FILE_PATH = "file_path"
+    STRING = "string"
+    INT = "int"
+    FLOAT = "float"
+    BOOL = "bool"
+    ENUM = "enum"
+
+
+@dataclass
+class ConfigField:
+    name: str
+    type: ConfigFieldType
+    description: str = ""
+    default: Any = None
+    required: bool = False
+    choices: Optional[List[str]] = None
+    min: Optional[float] = None
+    max: Optional[float] = None
+
+    def to_json(self):
+        return {"name": self.name, "type": self.type.value,
+                "description": self.description, "default": self.default,
+                "required": self.required, "choices": self.choices,
+                "min": self.min, "max": self.max}
+
+
+@dataclass
+class LoadedBundle:
+    """What a loader produces: named models + interface descriptors."""
+
+    models: Dict[str, Model]
+    interfaces: Dict[str, Any] = field(default_factory=dict)
+    tokenizer_source: Optional[str] = None
+    meta: Dict[str, Any] = field(default_factory=dict)
+
+
+class Loader:
+    NAME = "?"
+    DESCRIPTION = ""
+
+    def config_schema(self) -> List[ConfigField]:
+        return [ConfigField("path", ConfigFieldType.FILE_PATH,
+                            "model file or directory", required=True)]
+
+    def can_load(self, path: str) -> bool:
+        return False
+
+    def load(self, config: Dict[str, Any]) -> LoadedBundle:
+        raise NotImplementedError
+
+
+_LOADERS: Dict[str, Loader] = {}
+
+
+def register_loader(cls):
+    _LOADERS[cls.NAME] = cls()
+    return cls
+
+
+def loader_registry() -> Dict[str, Loader]:
+    return dict(_LOADERS)
+
+
+def _resolve_eos(d: str, hf_cfg: dict):
+    """End-of-sequence token id(s) for a HF checkpoint dir:
+    generation_config.json wins over config.json. Returns int, list of
+    ints (Llama-3-style multi-eos), or None."""
+    eos = None
+    gp = os.path.join(d, "generation_config.json")
+    if os.path.exists(gp):
+        try:
+            with open(gp, "r", encoding="utf-8") as f:
+                eos = json.load(f).get("eos_token_id")
+        except (OSError, ValueError):
+            eos = None
+    if eos is None:
+        eos = hf_cfg.get("eos_token_id")
+    return eos
+
+
+_LLAMA_FAMILY = ("llama", "mistral", "mixtral", "qwen2", "qwen3",
+                 "qwen3_moe")
+
+
+@register_loader
+class TransformersLoader(Loader):
+    NAME = "transformers"
+    DESCRIPTION = "HF transformers checkpoint dir (config.json + safetensors)"
+    SUPPORTED = ("gpt2",) + _LLAMA_FAMILY
+
+    def config_schema(self):
+        return super().config_schema() + [
+            ConfigField("max_len", ConfigFieldType.INT, "KV cache slots",
+                        default=1024, min=16),
+            ConfigField("dtype", ConfigFieldType.ENUM, "compute dtype",
+                        default="bf16", choices=["f32", "bf16", "f16"]),
+            ConfigField("ragged_decode", ConfigFieldType.BOOL,
+                        "per-row positions for continuous batching",
+                        default=False),
+            ConfigField("prefill_chunk", ConfigFieldType.INT,
+                        "chunked-prefill piece width for the serving "
+                        "batcher (0 = whole-bucket prefill)", default=0),
+            ConfigField("serve_batch", ConfigFieldType.INT,
+                        "serving batcher slot count (max_batch)",
+                        default=8, min=1),
+            ConfigField("serve_chunk", ConfigFieldType.INT,
+                        "decode steps per batcher dispatch",
+                        default=16, min=1),
+            ConfigField("serve_chunk_max", ConfigFieldType.INT,
+                        "adaptive long-chunk length for steady-state "
+                        "decode (0 = off)", default=0),
+            ConfigField("serve_admit_coalesce_ms", ConfigFieldType.INT,
+                        "admission coalescing deadline (ms)", default=50),
+            ConfigField("serve_auto_prefix", ConfigFieldType.INT,
+                        "automatic prefix caching: LRU pool of N cached "
+                        "KV rows (0 = off)", default=0),
+            ConfigField("quantize", ConfigFieldType.ENUM,
+                        "weight quantization for the text interface",
+                        default="", choices=["", "int8"]),
+        ]
+
+    def can_load(self, path: str) -> bool:
+        return os.path.isdir(path) and os.path.exists(
+            os.path.join(path, "config.json"))
+
+    def load(self, config):
+        from .safetensors_io import SafetensorsStore, load_hf_config
+
+        for key in ("lora", "serve_adapters", "decode_windows"):
+            if config.get(key):
+                raise NotImplementedError(
+                    f"transformers loader option {key!r} is not ported to "
+                    f"PyTorch yet")
+        d = config["path"]
+        hf_cfg = load_hf_config(d)
+        mt = hf_cfg.get("model_type")
+        if hf_cfg.get("quantization_config"):
+            raise NotImplementedError(
+                "GPTQ/AWQ checkpoints (quantization_config) are not ported "
+                "to PyTorch yet")
+        dtype = {"f32": DType.F32, "bf16": DType.BF16,
+                 "f16": DType.F16}[config.get("dtype", "bf16")]
+        max_len = int(config.get("max_len", 1024))
+        store = SafetensorsStore.from_dir(d)
+        ragged = bool(config.get("ragged_decode", False))
+        if mt == "gpt2":
+            from .recipes.llm.gpt2 import GPT2Config, build_gpt2_step
+
+            cfg = GPT2Config.from_hf(hf_cfg)
+            data = build_gpt2_step(store.getter(), cfg,
+                                   max_len=min(max_len, cfg.n_positions),
+                                   dtype=dtype, pos_per_row=ragged)
+            geometry = dict(n_layers=cfg.n_layer, n_kv_heads=cfg.n_head,
+                            head_dim=cfg.n_embd // cfg.n_head)
+        elif mt in _LLAMA_FAMILY:
+            from .recipes.llm.llama import LlamaConfig, build_llama_step
+
+            cfg = LlamaConfig.from_hf(hf_cfg)
+
+            def getter(name):
+                if name == "lm_head.weight" and name not in store:
+                    return store.load("model.embed_tokens.weight")
+                return store.load(name)
+
+            data = build_llama_step(getter, cfg, max_len=max_len, dtype=dtype,
+                                    pos_per_row=ragged)
+            geometry = dict(n_layers=cfg.num_hidden_layers,
+                            n_kv_heads=cfg.num_key_value_heads, head_dim=cfg.hd)
+        else:
+            raise ValueError(f"transformers model_type {mt!r} not supported "
+                             f"by the port (have: {self.SUPPORTED})")
+        name = hf_cfg.get("_name_or_path") or os.path.basename(os.path.normpath(d))
+        model = Model.new_from_onnx(data, name=name)
+        tok = d if os.path.exists(os.path.join(d, "tokenizer.json")) else None
+        return LoadedBundle(models={name: model},
+                            interfaces={"text": {"model": name,
+                                                 "max_len": max_len,
+                                                 "ragged": ragged,
+                                                 "prefill_chunk": int(config.get("prefill_chunk", 0) or 0),
+                                                 "max_batch": int(config.get("serve_batch", 8) or 8),
+                                                 "chunk": int(config.get("serve_chunk", 16) or 16),
+                                                 "chunk_max": int(config.get("serve_chunk_max", 0) or 0),
+                                                 "admit_coalesce_s": float(config.get("serve_admit_coalesce_ms", 50) or 0) / 1e3,
+                                                 "auto_prefix": int(config.get("serve_auto_prefix", 0) or 0),
+                                                 "quantize": config.get("quantize") or "",
+                                                 "eos_token_id":
+                                                     _resolve_eos(d, hf_cfg),
+                                                 **geometry}},
+                            tokenizer_source=tok,
+                            meta={"model_type": mt, "dtype": dtype.name})
+
+
+@register_loader
+class AutoLoader(Loader):
+    NAME = "auto"
+    DESCRIPTION = "Probe the path and delegate to the right loader"
+
+    def can_load(self, path: str) -> bool:
+        return True
+
+    def load(self, config):
+        path = config["path"]
+        for name, loader in _LOADERS.items():
+            if name != "auto" and loader.can_load(path):
+                return loader.load(config)
+        raise ValueError(f"cannot identify model format at {path!r} (the "
+                         f"port loads transformers checkpoint dirs only)")
+
+
+def identify_and_load(path: str, **config) -> LoadedBundle:
+    return _LOADERS["auto"].load({"path": path, **config})

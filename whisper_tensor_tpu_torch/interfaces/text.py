@@ -14,7 +14,11 @@ Ported: dense and `quantize="int8"` weights, q/k/v and gate/up matmul
 fusion (always on: the reference turns it off only for meshes and LoRA,
 which are not ported), prompt buckets, greedy decoding, SamplingParams
 on a seeded torch.Generator, logit_bias, and the per-row sampling the
-ContinuousBatcher runs (`_pick_token_rows`). Not ported yet, and
+ContinuousBatcher runs (`_pick_token_rows`). SamplingParams, the
+prompt buckets and the per-row sampling arrays are the port's copy of
+the reference's (:27-56, :109-142, :224-233); the default buckets go on
+past the reference's 1024 to 8192, so a long prompt prefills at its
+own bucket instead of failing. Not ported yet, and
 raising NotImplementedError: packed and host-quantized weights,
 windowed decode, meshes, LoRA adapters, beam search, DFA-constrained
 decoding.
@@ -23,27 +27,99 @@ decoding.
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from whisper_tensor_tpu.dtype import DType
-from whisper_tensor_tpu.interfaces.text import (DEFAULT_PROMPT_BUCKETS,
-                                                SamplingParams, _bucket,
-                                                _rows_arrays, _uses_seen)
-from whisper_tensor_tpu.milli.transforms import (fuse_parallel_matmuls,
-                                                 quantize_matmul_weights)
-from whisper_tensor_tpu.model import Model
-
 from ..backends.torch_exec.compiler import GraphExecutor
 from ..device import resolve_device
-from ..dtype import host_to_device, to_host, to_torch
+from ..dtype import DType, host_to_device, to_host, to_torch
+from ..milli.transforms import fuse_parallel_matmuls, quantize_matmul_weights
+from ..model import Model
 from ..weights import carry_weights
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to PyTorch yet")
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    """Sampling settings of a request. temperature==0 means
+    greedy. top_k/top_p/min_p restrict the candidate set before the
+    categorical draw; repetition_penalty divides positive / multiplies
+    negative logits of already-seen tokens (prompt + generated, HF
+    semantics); presence_penalty subtracts a flat amount from every
+    seen token's logit and frequency_penalty subtracts per occurrence
+    (OpenAI mu[j] -= c[j]*alpha_freq + 1[c[j]>0]*alpha_pres, counted
+    over prompt + generated text, tracked as a (B, V) int32 count
+    array)."""
+
+    temperature: float = 1.0
+    top_k: int = 0                   # 0 = disabled
+    top_p: float = 1.0               # 1.0 = disabled
+    min_p: float = 0.0               # 0.0 = disabled
+    repetition_penalty: float = 1.0  # 1.0 = disabled
+    presence_penalty: float = 0.0    # 0.0 = disabled (additive, OpenAI-style)
+    frequency_penalty: float = 0.0   # 0.0 = disabled (additive, per count)
+    seed: int = 0
+
+
+def _uses_seen(sp: Optional[SamplingParams]) -> bool:
+    """True when decoding must keep the (B, V) token-count array
+    (repetition / presence / frequency penalties)."""
+    return sp is not None and (sp.repetition_penalty != 1.0
+                               or sp.presence_penalty != 0.0
+                               or sp.frequency_penalty != 0.0)
+
+
+def _rows_neutral(sp: Optional[SamplingParams]) -> tuple:
+    """Per-row sampling parameter vector for one row: the row's own
+    SamplingParams, or the neutral (greedy) settings when None."""
+    if sp is None:
+        return (0.0, 0, 1.0, 0.0, 1.0, 0.0, 0.0, 0)
+    return (sp.temperature, sp.top_k, sp.top_p, sp.min_p,
+            sp.repetition_penalty, sp.presence_penalty,
+            sp.frequency_penalty, sp.seed)
+
+
+def _rows_flags(sps) -> tuple:
+    """Flags over a set of per-row SamplingParams: (any_sampled,
+    any_topk, any_topp, any_minp, any_pen). With all False the pick is
+    a plain argmax: batched greedy traffic pays nothing for per-row
+    sampling support."""
+    live = [sp for sp in sps if sp is not None]
+    return (any(sp.temperature > 0.0 for sp in live),
+            any(sp.top_k > 0 for sp in live),
+            any(sp.top_p < 1.0 for sp in live),
+            any(sp.min_p > 0.0 for sp in live),
+            any(_uses_seen(sp) for sp in live))
+
+
+def _rows_arrays(sps) -> tuple:
+    """Stack per-row SamplingParams into the 8 (B,) arrays
+    _pick_token_rows consumes (host numpy)."""
+    cols = list(zip(*[_rows_neutral(sp) for sp in sps]))
+    return (np.asarray(cols[0], np.float32), np.asarray(cols[1], np.int32),
+            np.asarray(cols[2], np.float32), np.asarray(cols[3], np.float32),
+            np.asarray(cols[4], np.float32), np.asarray(cols[5], np.float32),
+            np.asarray(cols[6], np.float32), np.asarray(cols[7], np.uint32))
+
+
+# the reference's buckets, then 2048..8192 for long prompts (buckets
+# above an interface's max_len are dropped)
+DEFAULT_PROMPT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+def _bucket(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(
+        f"prompt length {n} exceeds the largest prompt bucket "
+        f"{buckets[-1]}; pass larger prompt_buckets / max_len")
 
 
 def _filtered_logits(lg: torch.Tensor, sp: SamplingParams) -> torch.Tensor:
@@ -173,8 +249,8 @@ def _pick_token_rows(logits: torch.Tensor, key: int, rows, flags,
 
 def rows_tensors(sps, device: torch.device):
     """The 8 per-row sampling tensors of _pick_token_rows for a list of
-    SamplingParams (None = greedy), from the reference's _rows_arrays,
-    in one host-to-device copy that does not wait for the device."""
+    SamplingParams (None = greedy), from _rows_arrays, in one
+    host-to-device copy that does not wait for the device."""
     cols = np.stack([np.asarray(a, np.float64) for a in _rows_arrays(sps)])
     t = host_to_device(cols, device)
     return (t[0].float(), t[1].long(), t[2].float(), t[3].float(),
@@ -223,7 +299,7 @@ class TextInferenceInterface:
             self.eos_token_ids = ids or None
         milli, weight_inputs = model.graph.to_milli()
         self.milli = milli
-        # the reference's numpy graph passes, unchanged
+        # the numpy graph passes (milli/transforms.py)
         self._fused: Dict[str, List[Tuple[str, int]]] = \
             fuse_parallel_matmuls(milli, set(weight_inputs))
         live = [n for n in milli.inputs

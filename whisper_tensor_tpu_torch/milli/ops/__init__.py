@@ -1,8 +1,24 @@
-"""Importing this package registers every lowering the port has; the
-filled table is LOWERINGS."""
+"""The milli ops the text recipes lower to, and their PyTorch lowerings.
+
+Each module holds op classes (the port's copy of whisper_tensor_tpu/
+milli/ops, numpy `eval` and shape inference) beside the lowerings of
+their KINDs. Importing this package registers every lowering the port
+has; the filled table is LOWERINGS.
+"""
 
 from .. import transforms  # noqa: F401  (QuantMatMul)
 from ..registry import LOWERINGS
-from . import attention, basic, index, misc, norm, shape  # noqa: F401
+from .attention import AttentionMilli, RotaryMilli
+from .basic import (Cast, CastLike, Constant, MatMul, SimpleBinary,
+                    SimpleUnary, Where)
+from .index import Gather, Range
+from .misc import DynUpdateSliceMilli
+from .norm import LayerNormMilli, RMSNormMilli
+from .shape import Reshape, Shape, Split, Squeeze, Transpose, Unsqueeze
 
-__all__ = ["LOWERINGS"]
+__all__ = [
+    "LOWERINGS", "AttentionMilli", "RotaryMilli", "Cast", "CastLike",
+    "Constant", "MatMul", "SimpleBinary", "SimpleUnary", "Where", "Gather",
+    "Range", "DynUpdateSliceMilli", "LayerNormMilli", "RMSNormMilli",
+    "Reshape", "Shape", "Split", "Squeeze", "Transpose", "Unsqueeze",
+]

@@ -1,28 +1,276 @@
-"""Attention and Rotary lowerings.
+"""Attention and Rotary: the milli op classes and their PyTorch
+lowerings.
 
-Counterparts of whisper_tensor_tpu/milli/ops/attention.py:147-260
-(Attention) and :547 (Rotary).
+The classes are the port's copy of AttentionMilli and RotaryMilli from
+whisper_tensor_tpu/milli/ops/attention.py (numpy `eval` and shape
+inference; no `to_jax`). The lowerings are the counterparts of its
+`to_jax` at :147-260 (Attention) and :547 (Rotary).
 
 Attention with a rank-0 or rank-1 integer POSITION mask (the recipes'
 `pos`): query row s of batch b sees keys j <= pos[b] + s. A rank-0
 mask is broadcast to (B,) first, as the reference does at :170-171.
-A single-query step (Sq == 1) over a bf16 cache runs the hand-written
-decode-attention kernel (backends/cuda/decode_attention.py), which
-raises on a CUDA device for shapes it does not take (a head dim other
-than 128); every other call, prefill included, runs the plain f32 path
-below, which mirrors the reference's XLA path: scores in f32, softmax
-in f32, the probabilities rounded to the input type, the value product
-accumulated in f32.
+Without softcap, a qk output or is_causal, such a call over a bf16
+cache goes to a hand-written kernel's wrapper, which on a CUDA device
+launches the kernel or raises for shapes it does not take:
+  * a single-query step (Sq == 1) to decode_attention
+    (backends/cuda/decode_attention.py; q bf16 or f32);
+  * a prefill (Sq > 1) with bf16 q, k and v to flash_attention
+    (backends/cuda/flash_attention.py), in its pos-bound mode: the
+    visibility rule stays in registers and the key loop stops at the
+    last visible key.
+Every other call (f32 caches among them, as the TPU kernel is bf16
+only) runs the plain f32 path below, which mirrors the reference's XLA
+path: scores in f32, softmax in f32, the probabilities rounded to the
+input type, the value product accumulated in f32. The kernels' causal
+and additive-mask modes have no caller here yet: no graph the port
+loads emits them with a bf16 cache.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
+from typing import Optional
 
+import numpy as np
 import torch
 
 from ...backends.cuda.decode_attention import decode_attention
+from ...backends.cuda.flash_attention import flash_attention
+from ...tensor_info import Level, TensorInfo
+from ..ir import MilliOp
 from ..registry import lowering
+
+
+def _np_softmax(x, axis=-1):
+    m = np.max(x, axis=axis, keepdims=True)
+    e = np.exp(x - m)
+    return e / e.sum(axis=axis, keepdims=True)
+
+
+@dataclass
+class AttentionMilli(MilliOp):
+    """Scaled dot-product attention (full ONNX opset-23 Attention).
+
+    inputs: q, k, v [, mask [, past_key [, past_value]]] — None gaps
+    stay positional.  4-D layout: q (B, Hq, Sq, D), k (B, Hkv, Skv, D),
+    v (B, Hkv, Skv, Dv).  3-D layout (B, S, H*D) is accepted when
+    q_heads is set (kv_heads for GQA); Y then comes back 3-D while the
+    present outputs are always 4-D, per the ONNX spec.
+    GQA: Hq may be a multiple of Hkv.  mask is additive (or boolean),
+    broadcastable to (B, Hq, Sq, S_total).
+
+    outputs (n_out of): Y, present_key, present_value, qk_matmul_output
+    qk_mode selects the captured stage per ONNX qk_matmul_output_mode:
+    0 = scaled QK^T, 1 = after mask/causal bias, 2 = after softcap,
+    3 = after softmax.  Stage order follows the ONNX-23 reference:
+    bias first, then softcap, then softmax (with 0/-inf masks this is
+    numerically identical to the Gemma-2 cap-then-mask order the
+    in-house recipes assume, because tanh saturates at the mask floor).
+
+    wt extension — rank-0/rank-1 POSITION mask: an integer mask of
+    shape () or (B,) is a (per-row) position; query row s of batch b
+    may attend keys j <= mask[b] + s (exactly the visibility the
+    recipes built as a dense Where mask from `pos`).  The port's
+    lowering (below) sends such calls to its CUDA kernels; `eval` here
+    synthesizes the dense boolean mask.
+    """
+
+    scale: Optional[float] = None
+    is_causal: bool = False
+    softcap: float = 0.0
+    qk_mode: int = 0
+    q_heads: int = 0
+    kv_heads: int = 0
+    n_out: int = 1
+    KIND = "Attention"
+
+    def _norm(self, xp, inputs):
+        """Normalize the input surface to 4-D (q, k, v, mask, was_3d),
+        concatenating past KV into k/v along the sequence axis."""
+        q, k, v = inputs[0], inputs[1], inputs[2]
+        mask = inputs[3] if len(inputs) > 3 else None
+        past_k = inputs[4] if len(inputs) > 4 else None
+        past_v = inputs[5] if len(inputs) > 5 else None
+        was_3d = q.ndim == 3
+        if was_3d:
+            Hq = self.q_heads
+            Hkv = self.kv_heads or Hq
+            B, Sq = q.shape[0], q.shape[1]
+            Skv = k.shape[1]
+            q = xp.swapaxes(q.reshape(B, Sq, Hq, q.shape[2] // Hq), 1, 2)
+            k = xp.swapaxes(k.reshape(B, Skv, Hkv, k.shape[2] // Hkv), 1, 2)
+            v = xp.swapaxes(v.reshape(B, Skv, Hkv, v.shape[2] // Hkv), 1, 2)
+        if past_k is not None:
+            k = xp.concatenate([past_k, k], axis=2)
+        if past_v is not None:
+            v = xp.concatenate([past_v, v], axis=2)
+        return q, k, v, mask, was_3d
+
+    @staticmethod
+    def _expand_pos_mask(xp, pos, Sq, Skv):
+        """Rank-1 position mask -> dense boolean (B, 1, Sq, Skv):
+        query row s of batch b sees keys j <= pos[b] + s."""
+        j = xp.arange(Skv).reshape(1, 1, 1, Skv).astype(pos.dtype)
+        s = xp.arange(Sq).reshape(1, 1, Sq, 1).astype(pos.dtype)
+        return j <= (pos.reshape(-1, 1, 1, 1) + s)
+
+    def eval(self, inputs):
+        out_dt = inputs[0].dtype
+        q, k, v, mask, was_3d = self._norm(np, inputs)
+        if mask is not None and mask.ndim in (0, 1):
+            mask = self._expand_pos_mask(np, np.reshape(mask, (-1,)),
+                                         q.shape[2], k.shape[2])
+        qf = q.astype(np.float32)
+        kf = k.astype(np.float32)
+        vf = v.astype(np.float32)
+        B, Hq, Sq, D = qf.shape
+        Hkv = kf.shape[1]
+        rep = Hq // Hkv
+        if rep > 1:
+            kf = np.repeat(kf, rep, axis=1)
+            vf = np.repeat(vf, rep, axis=1)
+        scale = self.scale if self.scale is not None else 1.0 / np.sqrt(D)
+        scores = np.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+        qk_out = scores
+        if mask is not None:
+            if mask.dtype == np.bool_:
+                scores = np.where(mask, scores, np.float32(-1e30))
+            else:
+                scores = scores + mask.astype(np.float32)
+        if self.is_causal:
+            Skv = kf.shape[2]
+            causal = np.tril(np.ones((Sq, Skv), dtype=bool), k=Skv - Sq)
+            scores = np.where(causal, scores, np.float32(-1e30))
+        if self.qk_mode >= 1:
+            qk_out = scores
+        if self.softcap > 0:
+            scores = self.softcap * np.tanh(scores / self.softcap)
+        if self.qk_mode >= 2:
+            qk_out = scores
+        p = _np_softmax(scores, axis=-1)
+        if self.qk_mode >= 3:
+            qk_out = p
+        y = np.einsum("bhqk,bhkd->bhqd", p, vf).astype(out_dt)
+        if was_3d:
+            yB, yH, yS, yDv = y.shape
+            y = np.swapaxes(y, 1, 2).reshape(yB, yS, yH * yDv)
+        outs = [y, k, v, qk_out.astype(out_dt)]
+        return outs[:self.n_out]
+
+    def infer(self, infos):
+        if all(i is None or i.level is Level.NUMERIC for i in infos) \
+                and all(i is not None for i in infos[:3]):
+            outs = self.eval([None if i is None else i.value for i in infos])
+            return [TensorInfo.numeric(o) for o in outs]
+        q, k, v = infos[0], infos[1], infos[2]
+        has_past = len(infos) > 4 and infos[4] is not None
+        if self.n_out == 1 and not has_past and q.rank == 4:
+            dq, dv = q.dims(), v.dims()
+            if dq is not None and dv is not None:
+                return [TensorInfo.shaped(q.dtype, [dq[0], dq[1], dq[2], dv[3]])]
+            return [TensorInfo.ranked(q.dtype, 4)]
+        # multi-output / past-KV / 3-D surfaces: Y keeps q's rank, the
+        # present outputs are always 4-D, the qk capture is 4-D; seq
+        # dims after past-concat are left unknown (conservative lattice
+        # level — validate-by-default eval accepts any lower level)
+        outs = []
+        if q.rank is not None:
+            outs.append(TensorInfo.ranked(q.dtype, q.rank))
+        else:
+            outs.append(TensorInfo.minimal(q.dtype))
+        if self.n_out >= 2:
+            outs.append(TensorInfo.ranked(k.dtype, 4)
+                        if k is not None else TensorInfo.minimal(q.dtype))
+        if self.n_out >= 3:
+            outs.append(TensorInfo.ranked(v.dtype, 4)
+                        if v is not None else TensorInfo.minimal(q.dtype))
+        if self.n_out >= 4:
+            outs.append(TensorInfo.ranked(q.dtype, 4))
+        return outs[:self.n_out]
+
+
+@dataclass
+class RotaryMilli(MilliOp):
+    """Rotary position embedding.
+
+    inputs: x (B, H, S, D) — or (B, S, H*D) when num_heads is set —
+            cos (S', D/2 or D), sin (S', D/2 or D)
+            [, position_ids (B, S) or (S,)]
+    Without position_ids the caches may also be (B, S, D/2) per the
+    ONNX-23 spec (rows already positioned).
+    interleaved=False (GPT-NeoX style halves) or True (GPT-J pairs).
+    rotary_dim: apply to the first `rotary_dim` features only (0 = all).
+    """
+
+    interleaved: bool = False
+    rotary_dim: int = 0
+    num_heads: int = 0
+    KIND = "Rotary"
+
+    def _tables(self, xp, cos, sin, pos, S):
+        # select rows by positions; 3-D (B,S,half) caches come
+        # pre-positioned (the ONNX-23 no-position_ids form)
+        if pos is not None:
+            cos = cos[pos.astype(np.int64) if isinstance(pos, np.ndarray) else pos]
+            sin = sin[pos.astype(np.int64) if isinstance(pos, np.ndarray) else pos]
+        elif cos.ndim == 2:
+            cos = cos[:S]
+            sin = sin[:S]
+        return cos, sin
+
+    def eval(self, inputs):
+        x = inputs[0]
+        cos, sin = inputs[1], inputs[2]
+        pos = inputs[3] if len(inputs) > 3 and inputs[3] is not None else None
+        out_dt = x.dtype
+        xf = x.astype(np.float32)
+        was_3d = xf.ndim == 3
+        if was_3d:
+            Bx, Sx = xf.shape[0], xf.shape[1]
+            xf = np.swapaxes(xf.reshape(Bx, Sx, self.num_heads, -1), 1, 2)
+        B, H, S, D = xf.shape
+        rd = self.rotary_dim or D
+        xr, xpass = xf[..., :rd], xf[..., rd:]
+        cos, sin = self._tables(xf, cos.astype(np.float32), sin.astype(np.float32), pos, S)
+        # shape cos/sin to (B or 1, 1, S, rd/2)
+        while cos.ndim < 3:
+            cos = cos[None]
+            sin = sin[None]
+        cos = cos[:, None, :, :]
+        sin = sin[:, None, :, :]
+        half = rd // 2
+        if cos.shape[-1] == rd:  # full-width tables
+            cos_h, sin_h = cos[..., :half], sin[..., :half]
+        else:
+            cos_h, sin_h = cos, sin
+        if self.interleaved:
+            x1 = xr[..., 0::2]
+            x2 = xr[..., 1::2]
+            o1 = x1 * cos_h - x2 * sin_h
+            o2 = x2 * cos_h + x1 * sin_h
+            rot = np.empty_like(xr)
+            rot[..., 0::2] = o1
+            rot[..., 1::2] = o2
+        else:
+            x1 = xr[..., :half]
+            x2 = xr[..., half:]
+            rot = np.concatenate([x1 * cos_h - x2 * sin_h,
+                                  x2 * cos_h + x1 * sin_h], axis=-1)
+        out = np.concatenate([rot, xpass], axis=-1) if rd < D else rot
+        if was_3d:
+            out = np.swapaxes(out, 1, 2).reshape(B, S, H * D)
+        return [out.astype(out_dt)]
+
+    def infer(self, infos):
+        i = infos[0]
+        if all(f is not None and f.level is Level.NUMERIC for f in infos):
+            return [TensorInfo.numeric(self.eval([f.value for f in infos])[0])]
+        return [i.forget_value()]
+
+
+# -- lowerings ----------------------------------------------------------
+
 
 _EXACT = (torch.float32, torch.float64, torch.float16)
 
@@ -75,11 +323,16 @@ def attention(op, inputs, static, device):
 
     if mask is not None and mask.ndim in (0, 1):
         pos = mask.reshape(-1).expand(B) if mask.ndim == 0 else mask
-        if (Sq == 1 and not need_qk and not op.softcap and not op.is_causal
-                and k.dtype == v.dtype == torch.bfloat16):
-            # (a cache read in place is contiguous already: no copy)
+        kernel = (not need_qk and not op.softcap and not op.is_causal
+                  and k.dtype == v.dtype == torch.bfloat16)
+        # (a cache read in place is contiguous already: no copy)
+        if kernel and Sq == 1:
             return finish(decode_attention(q.contiguous(), k.contiguous(),
                                            v.contiguous(), pos, scale))
+        if kernel and q.dtype == torch.bfloat16:
+            # q is read through its strides (the recipes' Transpose view)
+            return finish(flash_attention(q, k.contiguous(), v.contiguous(),
+                                          scale, pos_bound=pos))
         mask = position_mask(pos, Sq, Skv)
 
     rep = 1 if need_qk else Hq // Hkv

@@ -1,21 +1,298 @@
-"""Constant, Cast, CastLike, SimpleUnary, SimpleBinary, Where and MatMul
-lowerings.
+"""Constant, Cast, CastLike, SimpleUnary, SimpleBinary, Where and
+MatMul: the milli op classes and their PyTorch lowerings.
 
-Counterparts of the `to_jax` methods in whisper_tensor_tpu/milli/ops/
-basic.py. Oracle contract: bf16/f16 elementwise math computes in f32
-and rounds back once; matmuls accumulate in f32 (bf16/f16 inputs) or in
-their own type (f32, f64).
+The classes are the port's copy of those of whisper_tensor_tpu/milli/
+ops/basic.py (numpy `eval` and shape inference; no `to_jax`). Oracle
+contract: bf16/f16 elementwise math computes in f32 and rounds back
+once; matmuls accumulate in f32 (bf16/f16 inputs) or in their own type
+(f32, f64).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
 import numpy as np
 import torch
 
-from whisper_tensor_tpu.dtype import DType
-
-from ...dtype import from_torch, to_device, to_torch
+from ...dtype import DType, from_torch, to_device, to_torch
+from ...scalar_info import ScalarInfo
+from ...tensor_info import Level, TensorInfo
+from ..ir import MilliOp
 from ..registry import lowering
+from .common import (binary_compute, broadcast_dims, elementwise_infer,
+                     unary_compute, upcast_for_compute)
+
+
+@dataclass
+class Constant(MilliOp):
+    """Embedded constant value."""
+
+    value: np.ndarray = None  # type: ignore[assignment]
+    KIND = "Constant"
+
+    def eval(self, inputs):
+        return [np.asarray(self.value)]
+
+    def infer(self, infos):
+        return [TensorInfo.numeric(np.asarray(self.value))]
+
+    def properties(self):
+        v = np.asarray(self.value)
+        return {"dtype": str(v.dtype), "shape": list(v.shape)}
+
+
+@dataclass
+class Cast(MilliOp):
+    dtype: DType = DType.F32
+    KIND = "Cast"
+
+    def eval(self, inputs):
+        x = inputs[0]
+        if self.dtype is DType.STRING:
+            return [np.asarray(x).astype(str).astype(object)]
+        if x.dtype == np.dtype(object) or x.dtype.kind in ("U", "S"):
+            tgt = self.dtype.to_numpy()
+            return [np.asarray(x).astype(np.float64 if self.dtype.is_float else np.int64).astype(tgt)]
+        if self.dtype is DType.BOOL:
+            return [np.asarray(x).astype(np.bool_)]
+        return [np.asarray(x).astype(self.dtype.to_numpy())]
+
+    def infer(self, infos):
+        i = infos[0]
+        if i.level is Level.NUMERIC:
+            return [TensorInfo.numeric(self.eval([i.value])[0], self.dtype)]
+        return [TensorInfo(self.dtype, i.level, shape=i.shape, rank_=i.rank_)]
+
+
+@dataclass
+class CastLike(MilliOp):
+    """Cast input 0 to the dtype of input 1."""
+
+    KIND = "CastLike"
+
+    def eval(self, inputs):
+        return [np.asarray(inputs[0]).astype(inputs[1].dtype)]
+
+    def infer(self, infos):
+        x, like = infos
+        dt = like.dtype
+        if x.level is Level.NUMERIC:
+            return [TensorInfo.numeric(x.value.astype(dt.to_numpy()), dt)]
+        return [TensorInfo(dt, x.level, shape=x.shape, rank_=x.rank_)]
+
+
+def _np_erf(x: np.ndarray) -> np.ndarray:
+    # torch is the oracle for special functions (baked-in, CPU);
+    # ascontiguousarray promotes 0-d to (1,), so restore the shape
+    import torch
+
+    out = torch.erf(torch.from_numpy(np.ascontiguousarray(x))).numpy()
+    return out.reshape(np.shape(x))
+
+
+def _np_round(x):
+    return np.round(x)  # half-to-even, matches ONNX Round
+
+
+_UNARY_TABLE = {
+    # mode: (numpy_fn, unused name, bool_out)
+    "neg": (lambda x: -x, "negative", False),
+    "abs": (np.abs, "abs", False),
+    "exp": (np.exp, "exp", False),
+    "log": (np.log, "log", False),
+    "sqrt": (np.sqrt, "sqrt", False),
+    "sin": (np.sin, "sin", False),
+    "cos": (np.cos, "cos", False),
+    "tan": (np.tan, "tan", False),
+    "asin": (np.arcsin, "arcsin", False),
+    "acos": (np.arccos, "arccos", False),
+    "atan": (np.arctan, "arctan", False),
+    "sinh": (np.sinh, "sinh", False),
+    "cosh": (np.cosh, "cosh", False),
+    "tanh": (np.tanh, "tanh", False),
+    "asinh": (np.arcsinh, "arcsinh", False),
+    "acosh": (np.arccosh, "arccosh", False),
+    "atanh": (np.arctanh, "arctanh", False),
+    "sigmoid": (lambda x: 1.0 / (1.0 + np.exp(-x)), "_sigmoid", False),
+    "erf": (_np_erf, "_erf", False),
+    "floor": (np.floor, "floor", False),
+    "ceil": (np.ceil, "ceil", False),
+    "round": (_np_round, "round", False),
+    "reciprocal": (lambda x: 1.0 / x, "_reciprocal", False),
+    "not": (np.logical_not, "logical_not", True),
+    "bitnot": (np.invert, "invert", False),
+    "sign": (np.sign, "sign", False),
+    "relu": (lambda x: np.maximum(x, 0), "_relu", False),
+    "isnan": (np.isnan, "isnan", True),
+    "softplus": (lambda x: np.logaddexp(x, 0.0), "_softplus", False),
+}
+
+
+@dataclass
+class SimpleUnary(MilliOp):
+    mode: str = "neg"
+    KIND = "SimpleUnary"
+
+    def eval(self, inputs):
+        fn, _, bool_out = _UNARY_TABLE[self.mode]
+        x = inputs[0]
+        if self.mode in ("not",):
+            return [np.logical_not(x)]
+        if x.dtype.kind in "iub" and self.mode in ("neg", "abs", "sign",
+                                                   "bitnot"):
+            return [fn(x)]
+        if bool_out:
+            # isnan etc.: BOOL result — never round back to the input
+            # dtype (the f32-compute contract applies to float outputs)
+            return [fn(upcast_for_compute(x)[0]).astype(np.bool_)]
+        return [unary_compute(x, fn)]
+
+    def infer(self, infos):
+        i = infos[0]
+        bool_out = _UNARY_TABLE[self.mode][2]
+        dt = DType.BOOL if bool_out else i.dtype
+        if i.level is Level.NUMERIC:
+            return [TensorInfo.numeric(self.eval([i.value])[0], dt)]
+        return [TensorInfo(dt, min(i.level, Level.SHAPED), shape=i.shape, rank_=i.rank_)]
+
+
+_BOOL_MODES = ("eq", "ne", "lt", "le", "gt", "ge", "and", "or", "xor")
+
+
+@dataclass
+class SimpleBinary(MilliOp):
+    mode: str = "add"
+    KIND = "SimpleBinary"
+
+    def eval(self, inputs):
+        a, c = inputs
+        m = self.mode
+        if m == "add":
+            return [binary_compute(a, c, np.add)]
+        if m == "sub":
+            return [binary_compute(a, c, np.subtract)]
+        if m == "mul":
+            return [binary_compute(a, c, np.multiply)]
+        if m == "div":
+            if a.dtype.kind == "u":
+                return [a // c]
+            if a.dtype.kind == "i":  # ONNX integer Div truncates toward zero
+                q = (np.abs(a) // np.abs(c)) * (np.sign(a) * np.sign(c))
+                return [q.astype(a.dtype)]
+            return [binary_compute(a, c, np.divide)]
+        if m == "mod":  # fmod=0: sign of divisor (python %)
+            return [binary_compute(a, c, np.mod)]
+        if m == "fmod":
+            return [binary_compute(a, c, np.fmod)]
+        if m == "max":
+            return [binary_compute(a, c, np.maximum)]
+        if m == "min":
+            return [binary_compute(a, c, np.minimum)]
+        if m == "and":
+            return [np.logical_and(a, c)]
+        if m == "or":
+            return [np.logical_or(a, c)]
+        if m == "xor":
+            return [np.logical_xor(a, c)]
+        if m == "bitand":
+            return [np.bitwise_and(a, c)]
+        if m == "bitor":
+            return [np.bitwise_or(a, c)]
+        if m == "bitxor":
+            return [np.bitwise_xor(a, c)]
+        if m == "bitshift_left":
+            return [np.left_shift(a, c)]
+        if m == "bitshift_right":
+            return [np.right_shift(a, c)]
+        if m in _BOOL_MODES:
+            fn = {"eq": np.equal, "ne": np.not_equal, "lt": np.less, "le": np.less_equal,
+                  "gt": np.greater, "ge": np.greater_equal}[m]
+            return [binary_compute(a, c, fn, bool_out=True)]
+        raise NotImplementedError(m)
+
+    def infer(self, infos):
+        if all(i.level is Level.NUMERIC for i in infos):
+            out = self.eval([i.value for i in infos])[0]
+            return [TensorInfo.numeric(out)]
+        dt = DType.BOOL if self.mode in _BOOL_MODES else None
+        return [elementwise_infer(infos, out_dtype=dt)]
+
+
+@dataclass
+class Where(MilliOp):
+    """Select(cond, a, b)."""
+
+    KIND = "Where"
+
+    def eval(self, inputs):
+        cond, a, c = inputs
+        return [np.where(cond, a, c).astype(np.result_type(a, c) if a.dtype != c.dtype else a.dtype)]
+
+    def infer(self, infos):
+        if all(i.level is Level.NUMERIC for i in infos):
+            return [TensorInfo.numeric(self.eval([i.value for i in infos])[0])]
+        dt = infos[1].dtype
+        return [elementwise_infer(infos, out_dtype=dt)]
+
+
+@dataclass
+class MatMul(MilliOp):
+    """Batched matmul (numpy semantics) with explicit accumulation dtype.
+
+    Reference: src/milli_graph/ops/binary.rs:530-620 — bf16/f16 inputs
+    accumulate in f32. On TPU this maps to the MXU's native f32
+    accumulator via preferred_element_type (or the Pallas matmul kernel).
+    """
+
+    accumulate: Optional[DType] = None  # None = dtype-default
+    out_dtype: Optional[DType] = None   # None = input dtype
+    KIND = "MatMul"
+
+    def _acc(self, in_dt: DType) -> DType:
+        return self.accumulate or in_dt.accumulate_dtype()
+
+    def eval(self, inputs):
+        a, c = inputs
+        in_dt = DType.from_numpy(a.dtype)
+        acc = self._acc(in_dt)
+        out_dt = self.out_dtype or in_dt
+        an = a.astype(acc.to_numpy(), copy=False)
+        cn = c.astype(acc.to_numpy(), copy=False)
+        out = np.matmul(an, cn)
+        return [out.astype(out_dt.to_numpy(), copy=False)]
+
+    def infer(self, infos):
+        a, c = infos
+        out_dt = self.out_dtype or a.dtype
+        if a.level is Level.NUMERIC and c.level is Level.NUMERIC:
+            return [TensorInfo.numeric(self.eval([a.value, c.value])[0], out_dt)]
+        da, dc = a.dims(), c.dims()
+        if da is not None and dc is not None:
+            da, dc = list(da), list(dc)
+            squeeze_a = squeeze_c = False
+            if len(da) == 1:
+                da = [ScalarInfo.of(1)] + da
+                squeeze_a = True
+            if len(dc) == 1:
+                dc = dc + [ScalarInfo.of(1)]
+                squeeze_c = True
+            batch = broadcast_dims(da[:-2], dc[:-2])
+            if batch is not None:
+                dims = batch + [da[-2], dc[-1]]
+                if squeeze_a:
+                    dims.pop(-2)
+                if squeeze_c:
+                    dims.pop(-1)
+                return [TensorInfo.shaped(out_dt, dims)]
+        if a.rank is not None and c.rank is not None:
+            return [TensorInfo.ranked(out_dt, max(a.rank, c.rank))]
+        return [TensorInfo.minimal(out_dt)]
+
+
+# -- lowerings ----------------------------------------------------------
+
 
 _LOW = (torch.bfloat16, torch.float16)
 

@@ -1,4 +1,9 @@
-"""DynUpdateSlice lowering: the recipes' KV-cache write (CacheWrite).
+"""DynUpdateSlice: the recipes' KV-cache write (CacheWrite), its milli
+op class and its PyTorch lowering.
+
+The class is the port's copy of DynUpdateSliceMilli from
+whisper_tensor_tpu/milli/ops/misc.py (numpy `eval` and shape inference;
+no `to_jax`).
 
 Counterpart of whisper_tensor_tpu/milli/ops/misc.py:258. The reference
 is functional and relies on buffer donation (interfaces/text.py:806-807)
@@ -18,10 +23,54 @@ the reference, not a kernel, and stays an index_copy_ here.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from ...backends.cuda.kv_write import clamped_start, ragged_kv_write
+from ...tensor_info import Level, TensorInfo
+from ..ir import MilliOp
 from ..registry import lowering
+
+
+@dataclass
+class DynUpdateSliceMilli(MilliOp):
+    """data, update, start(scalar i64 | (B,) i64) -> data with update
+    written at offset `start` along `axis`. The static-shape KV-cache
+    write: maps to jax.lax.dynamic_update_slice_in_dim (XLA
+    DynamicUpdateSlice), which donated-buffer jit turns into an in-place
+    write on TPU. A (B,) start writes PER BATCH ROW (dim 0) — the
+    ragged-decode KV write for continuous batching (lowered via vmap)."""
+
+    axis: int = 0
+    KIND = "DynUpdateSlice"
+
+    def eval(self, inputs):
+        data, update, start = inputs
+        ax = self.axis % data.ndim
+        s_arr = np.asarray(start)
+        out = data.copy()
+        if s_arr.ndim == 1:
+            for bi in range(data.shape[0]):
+                s = int(s_arr[bi])
+                idx = [slice(None)] * (data.ndim - 1)
+                idx[ax - 1] = slice(s, s + update.shape[ax])
+                out[bi][tuple(idx)] = update[bi].astype(data.dtype)
+            return [out]
+        s = int(s_arr.reshape(()))
+        idx = [slice(None)] * data.ndim
+        idx[ax] = slice(s, s + update.shape[ax])
+        out[tuple(idx)] = update.astype(data.dtype)
+        return [out]
+
+    def infer(self, infos):
+        if all(f.level is Level.NUMERIC for f in infos):
+            return [TensorInfo.numeric(self.eval([f.value for f in infos])[0])]
+        return [infos[0].forget_value()]
+
+
+# -- lowerings ----------------------------------------------------------
 
 
 @lowering("DynUpdateSlice")

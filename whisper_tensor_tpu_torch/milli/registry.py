@@ -1,9 +1,9 @@
 """Lowering table: milli op KIND -> PyTorch implementation.
 
-The reference op classes (whisper_tensor_tpu/milli/ops) carry their own
-`to_jax`; the port leaves them untouched and keys its lowerings by
-`op.KIND` instead. A lowering has the `to_jax` signature plus the
-device:
+The port's op classes (milli/ops, copies of the reference's without
+`to_jax`) carry the numpy `eval` and shape inference; the lowerings
+are keyed by `op.KIND`. A lowering has the reference's `to_jax`
+signature plus the device:
 
     fn(op, inputs, static, device) -> list of output tensors
 

@@ -3,13 +3,14 @@ one batched decode with per-row KV-cache positions.
 
 Counterpart of whisper_tensor_tpu/server/batching.py:70-1415, with the
 same constructor, `submit`, `cancel`, `drain`, `start`/`stop` and
-`stats()` keys, so the reference server (`_batcher`, `_score_iface`,
-`_generate_text_ragged`, the OpenAI front end, `GET /metrics`) runs on
-it unchanged. Each request occupies a SLOT (row) of a persistent batched
-KV cache. Admissions prefill in power-of-two groups at a bucketed length
-into fresh k-row caches, which are spliced into the slots; all rows then
-advance together through a `chunk`-step decode (per-row positions via
-the pos_per_row step graph). Idle rows park at the reserved position
+`stats()` keys, which the port's server (`_batcher`, `_score_iface`,
+`_generate_text_ragged`, the OpenAI front end, `GET /metrics`) uses as
+the reference's server uses the reference batcher. Each request
+occupies a SLOT (row) of a persistent batched KV cache. Admissions
+prefill in power-of-two groups at a bucketed length into fresh k-row
+caches, which are spliced into the slots; all rows then advance
+together through a `chunk`-step decode (per-row positions via the
+pos_per_row step graph). Idle rows park at the reserved position
 max_len - 1.
 
 The loop is PIPELINED as in the reference: row state (cur, pos, active)
@@ -70,14 +71,11 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from whisper_tensor_tpu.dtype import DType
-from whisper_tensor_tpu.interfaces.text import (SamplingParams, _bucket,
-                                                _rows_flags)
-from whisper_tensor_tpu.model import Model
-
-from ..dtype import host_to_device
-from ..interfaces.text import (TextInferenceInterface, _fold, _mix32,
-                               _not_ported, _pick_token_rows, rows_tensors)
+from ..dtype import DType, host_to_device
+from ..interfaces.text import (SamplingParams, TextInferenceInterface,
+                               _bucket, _fold, _mix32, _not_ported,
+                               _pick_token_rows, _rows_flags, rows_tensors)
+from ..model import Model
 
 
 @dataclass

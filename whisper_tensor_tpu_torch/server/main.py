@@ -1,61 +1,204 @@
-"""The reference server, with the port's interfaces behind it.
+"""WebSocket server of the port: routes protocol messages to ModelServer
+and Scheduler and streams reports back, with the port's interfaces and
+ContinuousBatcher on a chosen torch device.
 
-Counterpart of whisper_tensor_tpu/server/main.py:43-66 and :650-695.
-`Server` subclasses the reference's, so its protocol handling, model
-registry, scheduler and the OpenAI HTTP front end
-(whisper_tensor_tpu/server/openai_api.py) run unchanged; what differs
-is where text runs:
-  * `__init__` sets the reference's fields on a chosen torch device and
-    enables no XLA compile cache;
-  * `_text_iface` builds the port's TextInferenceInterface on that
-    device (`_score_iface`, inherited, returns it for direct models);
-  * `_make_batcher` builds the port's ContinuousBatcher on that device
-    for a `ragged_decode` model; the inherited `_batcher`,
-    `_score_iface` (the batcher's own interface) and
-    `_generate_text_ragged` run on it unchanged. Served LoRA adapters
-    (`serve_adapters`) raise "not ported".
+The port's own copy of whisper_tensor_tpu/server/main.py, trimmed to
+the text flows it serves:
+  * model registry: ping, list_loaders, run_loader, unload_model,
+    list_models, get_model_graph, get_stored_tensor, get_tokenizer,
+    compile_model;
+  * generate_text, direct (`_text_iface`) or, for a `ragged_decode`
+    model, through the batcher (`_batcher`, `_generate_text_ragged`),
+    with sampling, stop strings, chat messages and `with_probs`;
+  * cancel_request, update_observer_settings, get_batcher_stats;
+  * `_score_iface`, which the OpenAI front end's logprobs and echo use.
+Every other message of the reference (super graphs, images, speech,
+transcription, multimodal generation, adapters, graph layout, tensor
+slices, the profiler) and the unported generate_text variants
+(speculative decoding, beam search, constrained decoding, RNN models)
+answer with an error naming them as not ported.
 """
 
 from __future__ import annotations
 
+import asyncio
+import json
 import threading
-from typing import Set
+import time
+from typing import Any, Dict, Optional, Set
 
-from whisper_tensor_tpu.dtype import DType
-from whisper_tensor_tpu.server.main import Server as _ReferenceServer
-from whisper_tensor_tpu.server.model_server import ModelServer
-from whisper_tensor_tpu.server.scheduler import Scheduler
+import numpy as np
 
 from ..device import resolve_device
-from ..interfaces.text import TextInferenceInterface, _not_ported
+from ..dtype import DType
+from ..interfaces.text import (SamplingParams, TextInferenceInterface,
+                               _not_ported)
+from . import protocol as P
 from .batching import ContinuousBatcher
+from .model_server import ModelServer
+from .scheduler import ObserverSettings, Scheduler
+from .ws import WebSocketConnection, serve_websocket
+
+# messages of the reference's protocol that the port does not serve
+_UNPORTED_MESSAGES = {
+    "get_graph_layout": "graph layout",
+    "get_tensor_slice": "tensor slices",
+    "start_profiler": "the profiler",
+    "stop_profiler": "the profiler",
+    P.GENERATE_IMAGE: "image generation",
+    "load_adapter": "LoRA adapters",
+    "generate_multimodal": "multimodal generation",
+    "generate_speech": "speech generation",
+    "transcribe": "transcription",
+    "transcribe_stream": "streaming transcription",
+    "get_op_milli": "per-op milli lowering views",
+    "get_super_graph": "super graphs",
+    P.SUPER_GRAPH_REQUEST: "super graphs",
+}
 
 
-class Server(_ReferenceServer):
+class Server:
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self.models = ModelServer()
         self.scheduler = Scheduler()
-        self._conns: Set = set()
-        self._loop = None
-        self._text_ifaces: dict = {}
-        self._batchers: dict = {}
-        self._batch_jobs: dict = {}
-        self._spec_decoders: dict = {}
-        self._mm_ifaces: dict = {}
-        self._stt_streams: dict = {}
-        self._stt_ifaces: dict = {}
-        # guards get-then-create on the caches above (the HTTP front end
-        # is a ThreadingHTTPServer)
+        self._conns: Set[WebSocketConnection] = set()
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._text_ifaces: dict = {}      # entry id -> direct interface
+        self._batchers: dict = {}         # entry id -> ContinuousBatcher
+        self._batch_jobs: dict = {}       # job_id -> (batcher, future)
+        # guards get-then-create on the caches above: the HTTP front end
+        # is a ThreadingHTTPServer, so two concurrent first requests
+        # would otherwise both build (and upload) a batcher or interface
         self._cache_lock = threading.RLock()
 
+    # -- report pump: scheduler queue -> all sockets ----------------------
+    def _start_report_pump(self):
+        def pump():
+            while True:
+                report = self.scheduler.reports.get()
+                if report is None:
+                    return
+                data = json.dumps(_json_safe(report))
+                loop = self._loop
+                if loop is None:
+                    continue
+                for conn in list(self._conns):
+                    asyncio.run_coroutine_threadsafe(conn.send_text(data), loop)
+
+        threading.Thread(target=pump, daemon=True).start()
+
+    # -- message handling ----------------------------------------------------
+    async def handle(self, conn: WebSocketConnection):
+        self._conns.add(conn)
+        try:
+            while True:
+                raw = await conn.recv()
+                if raw is None:
+                    return
+                try:
+                    msg = P.parse_message(raw)
+                    reply = await asyncio.get_event_loop().run_in_executor(
+                        None, self._dispatch, msg)
+                except Exception as e:  # noqa: BLE001
+                    reply = {"type": P.JOB_ERROR, "error": str(e)}
+                if reply is not None:
+                    await conn.send_text(json.dumps(_json_safe(reply)))
+        finally:
+            self._conns.discard(conn)
+
+    def _dispatch(self, msg: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        t = msg["type"]
+        if t == P.PING:
+            return {"type": P.PONG}
+        if t == P.LIST_LOADERS:
+            from ..importers.loaders import loader_registry
+
+            return {"type": P.LOADERS_REPORT, "loaders": {
+                name: {"description": ld.DESCRIPTION,
+                       "config": [f.to_json() for f in ld.config_schema()]}
+                for name, ld in loader_registry().items()}}
+        if t == P.RUN_LOADER:
+            entries = self.models.run_loader(msg["loader"], msg.get("config", {}))
+            return {"type": P.MODELS_REPORT, "models": self.models.list_models(),
+                    "loaded": [e.id for e in entries]}
+        if t == P.UNLOAD_MODEL:
+            mid = int(msg["model_id"])
+            with self._cache_lock:
+                bat = self._batchers.pop(mid, None)
+                self._text_ifaces.pop(mid, None)
+            if bat is not None:
+                bat.stop()
+            self.models.unload(mid)
+            return {"type": P.MODELS_REPORT, "models": self.models.list_models()}
+        if t == P.LIST_MODELS:
+            return {"type": P.MODELS_REPORT, "models": self.models.list_models()}
+        if t == "get_batcher_stats":
+            bat = self._batchers.get(int(msg["model_id"]))
+            return {"type": "batcher_stats", "model_id": msg["model_id"],
+                    "stats": bat.stats() if bat is not None else None}
+        if t == P.GET_MODEL_GRAPH:
+            return {"type": P.MODEL_GRAPH,
+                    "graph": self.models.graph_json(int(msg["model_id"]))}
+        if t == P.GET_STORED_TENSOR:
+            entry = self.models.get(int(msg["model_id"]))
+            arr = entry.model.graph.store.get_numeric(msg["name"]).numpy()
+            if msg.get("abbreviated", True):
+                return {"type": P.STORED_TENSOR, "name": msg["name"],
+                        "tensor": P.AbbreviatedTensor.from_array(arr).__dict__}
+            return {"type": P.STORED_TENSOR, "name": msg["name"],
+                    "tensor": P.encode_tensor(arr)}
+        if t == P.CANCEL_REQUEST:
+            jid = int(msg["job"])
+            batched = self._batch_jobs.get(jid)
+            if batched is not None:
+                bat, fut = batched
+                ok = bat.cancel(fut)
+            else:
+                ok = self.scheduler.cancel(jid)
+            return {"type": "cancel_ack", "job": msg["job"], "ok": ok}
+        if t == P.UPDATE_OBSERVER_SETTINGS:
+            ok = self.scheduler.update_settings(int(msg["job"]),
+                                                **msg.get("settings", {}))
+            return {"type": "settings_ack", "job": msg["job"], "ok": ok}
+        if t == P.COMPILE_MODEL:
+            # one warm-up generate, so the first request finds the
+            # kernels built and the executor's plans recorded
+            entry = self.models.get(int(msg["model_id"]))
+            if entry.interfaces.get("text") is None:
+                raise ValueError("model has no text interface to compile")
+            t0 = time.time()
+            iface = self._text_iface(entry)
+            B = int(msg.get("batch", 1))
+            n_new = int(msg.get("max_new_tokens", 32))
+            iface.generate_tokens(np.zeros((B, 8), dtype=np.int64), n_new)
+            entry.meta["compiled"] = True
+            return {"type": P.MODEL_COMPILED, "model_id": msg["model_id"],
+                    "seconds": round(time.time() - t0, 2)}
+        if t == P.GET_TOKENIZER:
+            import os
+
+            entry = self.models.get(int(msg["model_id"]))
+            src = entry.tokenizer_source
+            if not src:
+                raise ValueError("model has no tokenizer source")
+            path = (src if os.path.isfile(src)
+                    else os.path.join(src, "tokenizer.json"))
+            with open(path, encoding="utf-8") as f:
+                return {"type": P.TOKENIZER_FILE,
+                        "model_id": msg["model_id"], "json": f.read()}
+        if t == P.GENERATE_TEXT:
+            return self._generate_text(msg)
+        if t in _UNPORTED_MESSAGES:
+            raise _not_ported(f"{_UNPORTED_MESSAGES[t]} ({t!r})")
+        raise ValueError(f"unknown message type {t!r}")
+
+    # -- interfaces and batchers ---------------------------------------------
     def _text_iface(self, entry) -> TextInferenceInterface:
         with self._cache_lock:
             iface = self._text_ifaces.get(entry.id)
             if iface is None:
                 cfg = entry.interfaces["text"]
-                if cfg.get("windows"):
-                    raise _not_ported("windowed decode (decode_windows)")
                 iface = TextInferenceInterface(
                     entry.model, max_len=int(cfg["max_len"]),
                     cache_dtype=DType.BF16,
@@ -65,12 +208,28 @@ class Server(_ReferenceServer):
                 self._text_ifaces[entry.id] = iface
             return iface
 
+    def _score_iface(self, entry) -> TextInferenceInterface:
+        """Interface for teacher-forced scoring (logprobs / echo).
+        Batcher-served models reuse the batcher's own interface: its
+        weights are already on the device."""
+        if (entry.interfaces.get("text") or {}).get("ragged"):
+            return self._batcher(entry).iface
+        return self._text_iface(entry)
+
+    def _batcher(self, entry) -> ContinuousBatcher:
+        """Shared ContinuousBatcher for ragged-decode models: concurrent
+        generate_text requests batch into one decode instead of
+        serializing through the job worker."""
+        with self._cache_lock:
+            bat = self._batchers.get(entry.id)
+            if bat is None:
+                bat = self._make_batcher(entry).start()
+                self._batchers[entry.id] = bat
+            return bat
+
     def _make_batcher(self, entry) -> ContinuousBatcher:
-        """Construct (not start) the batcher from the entry's text spec,
-        as the reference does (server/main.py:697-727)."""
+        """Construct (not start) the batcher from the entry's text spec."""
         cfg = entry.interfaces["text"]
-        if cfg.get("adapters"):
-            raise _not_ported("LoRA adapters (serve_adapters)")
         pc = cfg.get("prefill_chunk")
         return ContinuousBatcher(
             entry.model, max_len=int(cfg["max_len"]),
@@ -85,6 +244,204 @@ class Server(_ReferenceServer):
             quantize=cfg.get("quantize") or None,
             eos_token_id=cfg.get("eos_token_id"),
             device=self.device)
+
+    # -- text generation -------------------------------------------------------
+    @staticmethod
+    def _sampling_from_msg(msg) -> Optional[SamplingParams]:
+        """Message sampling knobs -> SamplingParams (None = greedy). A
+        penalties-only message stays penalized-greedy."""
+        temp = float(msg.get("temperature", 0.0))
+        if (temp <= 0.0 and float(msg.get("repetition_penalty", 1.0)) == 1.0
+                and float(msg.get("presence_penalty", 0.0)) == 0.0
+                and float(msg.get("frequency_penalty", 0.0)) == 0.0):
+            return None
+        return SamplingParams(
+            temperature=max(temp, 0.0),
+            top_k=int(msg.get("top_k", 0)),
+            top_p=float(msg.get("top_p", 1.0)),
+            min_p=float(msg.get("min_p", 0.0)),
+            repetition_penalty=float(msg.get("repetition_penalty", 1.0)),
+            presence_penalty=float(msg.get("presence_penalty", 0.0)),
+            frequency_penalty=float(msg.get("frequency_penalty", 0.0)),
+            seed=int(msg.get("seed", 0)))
+
+    def _generate_text_ragged(self, msg, entry, tok, n_new,
+                              sampling=None) -> None:
+        bat = self._batcher(entry)
+        ids = np.asarray(tok.encode(msg["prompt"]), dtype=np.int64)
+        job_id = next(self.scheduler._next)
+        self.scheduler.reports.put({"type": P.JOB_ACCEPTED, "job": job_id})
+        stops = [s for s in (msg.get("stop") or []) if s]
+        # incremental detokenization: on_tok runs on the batcher's
+        # single scheduler thread, so per-token work must stay O(1)
+        from ..tokenizer import IncrementalDecoder
+
+        dec = IncrementalDecoder(tok) if stops else None
+        max_stop = max((len(s) for s in stops), default=0)
+        state = {"hit": None, "fut": None, "prev": 0}
+
+        def on_tok(t):
+            self.scheduler.reports.put({"type": P.PROGRESS, "job": job_id,
+                                        "token": int(t)})
+            if stops and state["hit"] is None:
+                dec.push(int(t))
+                # a stop can only newly appear within max_stop chars of
+                # the previous end: search that window, not all text
+                start = max(0, state["prev"] - max_stop)
+                ctx = dec.text_from(start)
+                state["prev"] = dec.length
+                best = None
+                for s in stops:
+                    i = ctx.find(s)
+                    if i >= 0 and (best is None or start + i < best):
+                        best = start + i
+                if best is not None:
+                    state["hit"] = dec.text[:best]
+                    # a hit also frees the row on the device
+                    if state["fut"] is not None:
+                        bat.cancel(state["fut"])
+
+        fut = bat.submit(ids, n_new, on_token=on_tok, sampling=sampling)
+        state["fut"] = fut
+        if state["hit"] is not None:       # hit during the race window
+            bat.cancel(fut)
+        self._batch_jobs[job_id] = (bat, fut)
+
+        def done(f):
+            self._batch_jobs.pop(job_id, None)
+            try:
+                toks = [int(x) for x in f.result()]
+                if bat.eos_token_ids:
+                    hits = [toks.index(e) for e in bat.eos_token_ids
+                            if e in toks]
+                    if hits:
+                        toks = toks[:min(hits)]
+                if state["hit"] is not None:
+                    text = state["hit"]
+                else:
+                    text = tok.decode(toks)
+                    for s in stops:
+                        i = text.find(s)
+                        if i >= 0:
+                            text = text[:i]
+                            break
+                self.scheduler.reports.put({"type": P.JOB_RESULT,
+                                            "job": job_id,
+                                            "result": {"text": text}})
+            except Exception as e:  # noqa: BLE001
+                self.scheduler.reports.put({"type": P.JOB_ERROR,
+                                            "job": job_id,
+                                            "error": f"{type(e).__name__}: {e}"})
+
+        fut.add_done_callback(done)
+
+    def _generate_text(self, msg) -> None:
+        entry = self.models.get(int(msg["model_id"]))
+        iface_cfg = entry.interfaces.get("text")
+        if iface_cfg is None:
+            raise ValueError("model has no text interface")
+        for key, what in (("draft_model_id", "speculative decoding"),
+                          ("regex", "constrained decoding (regex)"),
+                          ("json_schema", "constrained decoding (json_schema)")):
+            if msg.get(key) is not None:
+                raise _not_ported(what)
+        if int(msg.get("num_beams", 1)) > 1:
+            raise _not_ported("beam search (num_beams)")
+        if iface_cfg.get("rnn_state"):
+            raise _not_ported("constant-state (RNN) models")
+        from ..tokenizer import AnyTokenizer, apply_chat_template
+
+        tok = AnyTokenizer.load(msg.get("tokenizer")
+                                or entry.tokenizer_source or "bytes")
+        if msg.get("messages") and not msg.get("prompt"):
+            # chat form: render the tokenizer's chat template (or the
+            # ChatML fallback) into the prompt every path below uses
+            msg["prompt"] = apply_chat_template(tok, msg["messages"])
+        n_new = int(msg.get("max_new_tokens", 32))
+        sampling = self._sampling_from_msg(msg)
+        with_probs = bool(msg.get("with_probs"))
+        if iface_cfg.get("ragged") and not with_probs:
+            # with_probs needs the direct path's teacher-forced rescore
+            self._generate_text_ragged(msg, entry, tok, n_new,
+                                       sampling=sampling)
+            return None
+        iface = self._text_iface(entry)
+        iface.tokenizer = tok
+        settings = ObserverSettings(
+            tensor_subscriptions=set(msg.get("tensor_subscriptions", [])))
+        stops = [s for s in (msg.get("stop") or []) if s]
+
+        def _trim(text):
+            for s in stops:
+                i = text.find(s)
+                if i >= 0:
+                    return text[:i]
+            return text
+
+        def job(obs):
+            if not with_probs:
+                return {"text": _trim(iface.run_string_in_string_out(
+                    msg["prompt"], n_new, sampling=sampling))}
+            ids = np.asarray(tok.encode(msg["prompt"]), dtype=np.int64)[None]
+            toks = iface.generate_tokens(ids, n_new, sampling=sampling)[0]
+            if iface.eos_token_ids:
+                eos = np.nonzero(np.isin(
+                    toks, np.asarray(iface.eos_token_ids)))[0]
+                if eos.size:
+                    toks = toks[:int(eos[0])]
+            toks = [int(t) for t in toks]
+            if stops:
+                # trim the token list at the first stop hit so the
+                # probability table matches the returned text
+                kept, acc = [], ""
+                for t in toks:
+                    nxt = tok.decode(kept + [t])
+                    if any(s in nxt for s in stops):
+                        break
+                    kept.append(t)
+                    acc = nxt
+                toks = kept
+                text = _trim(acc)
+            else:
+                text = tok.decode(toks)
+            # token probabilities: one teacher-forced prefill over
+            # prompt + generated scores every emitted token
+            full = np.concatenate([ids[0], np.asarray(toks, np.int64)])[None]
+            logits = iface.logits(full[:, :-1]).astype(np.float32)
+            start = ids.shape[1] - 1
+            token_info = []
+            for k, t in enumerate(toks):
+                lg = logits[0, start + k]
+                lg = lg - lg.max()
+                p = float(np.exp(lg[t]) / np.exp(lg).sum())
+                token_info.append({"id": t, "text": tok.decode([t]),
+                                   "p": round(p, 4)})
+            return {"text": text, "tokens": token_info}
+
+        self.scheduler.submit(job, settings)
+        return None  # job_accepted is emitted via the report pump
+
+    # -- lifecycle ---------------------------------------------------------------
+    async def run(self, host: str = "127.0.0.1", port: int = 3000):
+        self._loop = asyncio.get_event_loop()
+        self._start_report_pump()
+        server = await serve_websocket(self.handle, host, port)
+        async with server:
+            await server.serve_forever()
+
+
+def _json_safe(v):
+    if isinstance(v, dict):
+        return {k: _json_safe(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_json_safe(x) for x in v]
+    if isinstance(v, (np.integer,)):
+        return int(v)
+    if isinstance(v, (np.floating,)):
+        return float(v)
+    if isinstance(v, np.ndarray):
+        return P.encode_tensor(v)
+    return v
 
 
 __all__ = ["Server"]

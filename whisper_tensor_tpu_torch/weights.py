@@ -14,9 +14,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from whisper_tensor_tpu.dtype import DType
-
-from .dtype import to_device
+from .dtype import DType, to_device
 
 
 def carry_weights(arrays: Mapping[str, np.ndarray],
