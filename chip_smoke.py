@@ -23,7 +23,12 @@ Phases:
      over 3.35 TB/s and its operations over 989 TFLOP/s. flash_attention
      runs eight cases: a 2048-token direct prefill, an admission group,
      a 128-row piece, an 8192-token prompt, GPT-2's width, the causal
-     and additive modes, and ragged edges;
+     and additive modes, and ragged edges; packed_matmul runs the
+     layouts of Q4_0, Q4_K, Q6_K (int8 values, G 16), Q8_0 (no offsets)
+     and a 128-row group at the fused q/k/v, o, gate/up, down and
+     lm_head shapes, M 1, 16, 128 and 512 for Q4_0 and M 1 and 512 for
+     the others, with torch's _weight_int4pack_mm as the 4-bit
+     yardstick;
   3. the direct path: a Llama-3-8B-width checkpoint (hidden 4096, 32/8
      heads of 128, FFN 14336, vocab 128256, rope theta 5e5; depth cut to
      --layers, random weights from a seed) is written to disk, loaded by
@@ -54,9 +59,26 @@ Phases:
      tokens served by the batcher in 128-token pieces, every
      flash_attention call shadowed, and each answer held to a
      teacher-forced prefill. The flash_attention counter must rise in
-     both.
-The last three lines are the kernels' JSON summary line, the card, and
-the result line.
+     both;
+  6. packed weights. (6a) The checkpoint loaded with quantize="q4_0"
+     (host-quantized into Q4_0 blocks, kept packed on the card) answers
+     phase 3's three requests over HTTP; packed_matmul's counter must
+     rise and int8_matmul's stay 0, one forward must launch it once per
+     matmul weight; then phase 3's checks (a)-(c) with every
+     packed_matmul call shadowed by its plain version, and the rates
+     against phase 3's int8. (6b) The same weights written by the port's
+     write_gguf as an arch-llama GGUF, Q/K rows permuted the way
+     llama.cpp's converter permutes them (Q4_K, Q6_K for ffn_down and
+     output), loaded by GgufLoader with ragged_decode (16 slots, pieces
+     of 128) and served 16 concurrent requests (prompts of 5 to 400
+     tokens, 12 greedy, 4 sampled); the counters of packed_matmul and
+     the three attention and cache kernels must rise, (d) each greedy
+     answer stand a teacher-forced prefill, and (f) the longest greedy
+     answer stand one over the same file loaded dense
+     (packed_weights=False).
+Each step prints its seconds and the peak host RSS. The last three
+lines are the kernels' JSON summary line, the card, and the result
+line.
 """
 
 from __future__ import annotations
@@ -489,13 +511,135 @@ def phase2_flash(torch, results):
         "library_ms": head[2], "shape": head[5]})
 
 
+# (label, bits, G, has_off): the layouts the GGUF formats repack to, and
+# a GPTQ-style group of 128
+PACKED_CASES = (("Q4_0", 4, 32, True), ("Q4_K", 4, 32, True),
+                ("Q6_K", 8, 16, True), ("Q8_0", 8, 32, False),
+                ("G128", 4, 128, True))
+# (K, N): fused q/k/v, o, fused gate/up, down, lm_head
+MATMUL_SHAPES = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+                 (4096, 128256))
+
+
+def random_packed(torch, gen, bits, G, has_off, K, N):
+    """Random packed weights on the card: q bytes, positive scales, and
+    offsets in [0, 16) scales (zeros without offsets)."""
+    dev = torch.device("cuda")
+    if bits == 4:
+        q = torch.randint(0, 256, (K // 2, N), generator=gen, device=dev,
+                          dtype=torch.uint8)
+    else:
+        q = torch.randint(-128, 128, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+    s = torch.rand(K // G, N, generator=gen, device=dev) * 0.01 + 1e-3
+    o = (s * torch.rand(K // G, N, generator=gen, device=dev) * 16 if has_off
+         else torch.zeros_like(s))
+    return q, s, o
+
+
+def packed_magnitude(torch, x, q, s, o, bits, has_off):
+    """|x| @ |W|: the plain version's sum of the terms' magnitudes, by
+    column chunks (agreement_bound's second part)."""
+    from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+        dequantize_packed)
+
+    xa = x.reshape(-1, x.shape[-1]).float().abs()
+    out = torch.empty((xa.shape[0], q.shape[1]), device=x.device)
+    for n0 in range(0, q.shape[1], 8192):
+        sl = slice(n0, n0 + 8192)
+        out[:, sl] = xa @ dequantize_packed(q, s, o, bits, has_off, sl).abs()
+    return out.reshape(*x.shape[:-1], q.shape[1])
+
+
+def int4pack_call(torch, x, q, s, o, G):
+    """One torch.ops.aten._weight_int4pack_mm call computing x @ W for a
+    bits-4 layout (the yardstick, timed only; the port never calls it):
+    its weight is (N, K) 4-bit values packed two to a byte, its scales
+    and zeros bf16 (K/G, N, 2) with W = (v - 8) * scale + zero, so zero =
+    8 s - o. Returns a ready call, or raises where the card's torch has
+    no such kernel for these inputs."""
+    K, N = q.shape[0] * 2, q.shape[1]
+    v = torch.cat([q & 0x0F, q >> 4], dim=0).t().to(torch.int32)  # (N, K)
+    packed = ((v[:, ::2] << 4) | v[:, 1::2]).to(torch.uint8)
+    w = torch.ops.aten._convert_weight_to_int4pack(packed.contiguous(), 8)
+    sz = torch.stack([s, 8 * s - o], dim=-1).bfloat16().contiguous()
+    xb = x.bfloat16()
+    mm = torch.ops.aten._weight_int4pack_mm
+    mm(xb, w, G, sz)
+    return lambda: mm(xb, w, G, sz)
+
+
+def phase2_packed(torch, results):
+    """packed_matmul against its plain version at the served paths'
+    shapes, for the layouts of Q4_0, Q4_K, Q6_K, Q8_0 and a 128-row
+    group; M 1, 16, 128 and 512 for Q4_0, M 1 and 512 for the others."""
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+        packed_matmul, packed_matmul_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    say("  packed_matmul (tolerance per element: agreement_bound, plain "
+        "version on |x| and |W|; library: _weight_int4pack_mm, bf16 "
+        "scales)")
+    worst, head, lib_err = 0.0, None, None
+    for label, bits, G, has_off in PACKED_CASES:
+        rows = (1, 16, 128, 512) if label == "Q4_0" else (1, 512)
+        for K, N in MATMUL_SHAPES:
+            wbytes = (K // 2 if bits == 4 else K) * N + (
+                2 if bits == 4 or has_off else 1) * (K // G) * N * 4
+            wsets = [random_packed(torch, gen, bits, G, has_off, K, N)
+                     for _ in range(copies_for(wbytes))]
+            for M in rows:
+                sets = [(torch.randn(M, K, generator=gen, device=dev)
+                         .bfloat16(), *w, bits, has_off) for w in wsets]
+                got = packed_matmul(*sets[0])
+                ref = packed_matmul_plain(*sets[0])
+                err, share = worst_share(got, ref, packed_magnitude(
+                    torch, *sets[0]), agreement_bound)
+                ms = time_ms(torch, packed_matmul, sets)
+                plain_ms = time_ms(torch, packed_matmul_plain, sets[:2],
+                                   reps=3, inner=2)
+                lib_ms = None
+                if bits == 4 and G in (32, 128):
+                    try:
+                        calls = [(int4pack_call(torch, x, q, s, o, G),)
+                                 for x, q, s, o, _, _ in sets[:2]]
+                        lib_ms = time_ms(torch, lambda f: f(), calls)
+                        del calls
+                    except (RuntimeError, NotImplementedError) as e:
+                        lib_err = f"{type(e).__name__}: {str(e)[:200]}"
+                bms, bby = bound(M * K * 2 + wbytes + M * N * 2,
+                                 2 * M * K * N)
+                lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+                say(f"  packed_matmul {label} (bits {bits}, G {G}) M={M} "
+                    f"K={K} N={N}: max_abs_err={err:.6g}, worst err/tol "
+                    f"{share:.4g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                    f"ms, library {lib}, bound {bms:.4f} ms ({bby})")
+                if not share <= 1.0:
+                    fail(f"packed_matmul disagrees with its plain version "
+                         f"({label}, M={M}, K={K}, N={N}): err/tol {share}")
+                worst = max(worst, err)
+                if (label, M, K, N) == ("Q4_0", 1, 4096, 28672):
+                    head = (ms, plain_ms, lib_ms, bms, bby)
+                del sets, got, ref
+            del wsets
+            torch.cuda.empty_cache()
+    if lib_err:
+        say(f"  _weight_int4pack_mm raised on the card: {lib_err}")
+    results.append({
+        "name": "packed_matmul", "route": "cuda",
+        "source": "whisper_tensor_tpu_torch/csrc/packed_matmul.cu",
+        "replaces": "whisper_tensor_tpu/backends/pallas/packed_matmul.py:278",
+        "launches": None, "max_abs_err": worst, "ms": head[0],
+        "plain_ms": head[1], "bound_ms": head[3], "bound_by": head[4],
+        "library_ms": head[2], "library_error": lib_err,
+        "shape": "Q4_0 M=1 K=4096 N=28672 (gate/up)"})
+
+
 # ---------------------------------------------------------------------------
-def write_checkpoint(d: Path, layers: int, np, bf16) -> int:
-    """config.json + model.safetensors at Llama-3-8B widths, `layers`
-    deep. Each tensor tiles a seeded block of 2^20 + 7 normal values
-    (the block length is odd, so rows do not repeat in step), scaled
-    0.02; norms are ones. lm_head rows outside the byte tokenizer's ids
-    are zero, so greedy text decodes to printable bytes."""
+def checkpoint_shapes(layers: int) -> dict:
+    """HF name -> shape of the smoke checkpoint, in file order."""
     E, I, V = WIDTHS["hidden_size"], WIDTHS["intermediate_size"], \
         WIDTHS["vocab_size"]
     hd = E // WIDTHS["num_attention_heads"]
@@ -513,6 +657,31 @@ def write_checkpoint(d: Path, layers: int, np, bf16) -> int:
                        p + "mlp.gate_proj.weight": (I, E),
                        p + "mlp.up_proj.weight": (I, E),
                        p + "mlp.down_proj.weight": (E, I)})
+    return shapes
+
+
+def checkpoint_tensors(layers: int, np):
+    """(HF name, f32 array) of the smoke checkpoint, one at a time, in
+    file order. Each tensor tiles a seeded block of 2^20 + 7 normal values
+    (the block length is odd, so rows do not repeat in step), scaled
+    0.02; norms are ones. lm_head rows outside the byte tokenizer's ids
+    are zero, so greedy text decodes to printable bytes."""
+    rng = np.random.default_rng(SEED)
+    for n, s in checkpoint_shapes(layers).items():
+        if n.endswith("norm.weight"):
+            yield n, np.ones(s, np.float32)
+            continue
+        base = rng.standard_normal((1 << 20) + 7, dtype=np.float32) * 0.02
+        arr = np.resize(base, s)
+        if n == "lm_head.weight":
+            arr[BYTE_VOCAB:] = 0.0
+        yield n, arr
+
+
+def write_checkpoint(d: Path, layers: int, np, bf16) -> int:
+    """config.json + model.safetensors at Llama-3-8B widths, `layers`
+    deep, with the weights of checkpoint_tensors (stored in bf16, or
+    f16 where ml_dtypes is missing)."""
     (d / "config.json").write_text(json.dumps({
         "model_type": "llama", "architectures": ["LlamaForCausalLM"],
         "num_hidden_layers": layers, "tie_word_embeddings": False,
@@ -520,26 +689,17 @@ def write_checkpoint(d: Path, layers: int, np, bf16) -> int:
     st_dtype, np_dtype = (("BF16", bf16) if bf16 is not None
                           else ("F16", np.float16))
     header, off = {}, 0
-    for n, s in shapes.items():
+    for n, s in checkpoint_shapes(layers).items():
         size = int(np.prod(s)) * 2
         header[n] = {"dtype": st_dtype, "shape": list(s),
                      "data_offsets": [off, off + size]}
         off += size
     hb = json.dumps(header).encode()
     hb += b" " * (-len(hb) % 8)
-    rng = np.random.default_rng(SEED)
     with open(d / "model.safetensors", "wb") as f:
         f.write(struct.pack("<Q", len(hb)))
         f.write(hb)
-        for n, s in shapes.items():
-            if n.endswith("norm.weight"):
-                arr = np.ones(s, np.float32)
-            else:
-                base = rng.standard_normal((1 << 20) + 7,
-                                           dtype=np.float32) * 0.02
-                arr = np.resize(base, s)
-                if n == "lm_head.weight":
-                    arr[BYTE_VOCAB:] = 0.0
+        for _, arr in checkpoint_tensors(layers, np):
             f.write(np.ascontiguousarray(arr.astype(np_dtype)).tobytes())
             del arr
     return off
@@ -584,7 +744,178 @@ def shadow_checked(lowering, plain, bound):
     return checked
 
 
-def phase3(torch, np, ckpt: Path, layers: int, results) -> None:
+GREEDY = {"prompt": "The capital of France is", "max_tokens": 32,
+          "temperature": 0}
+CHAT = {"messages": [{"role": "user", "content": "Say hello."}],
+        "max_tokens": 16, "temperature": 0, "stream": True}
+SAMPLED = {"prompt": "Once upon a time", "max_tokens": 24,
+           "temperature": 0.8, "top_k": 50, "seed": 7}
+
+
+def serve_three(np, port: int, iface, counters: dict):
+    """The direct path's three requests over HTTP (a greedy completion,
+    a streamed chat, a seeded sampled completion), with every counter of
+    `counters` ({name: wrapper}) set to 0 just before them and read just
+    after. All must answer in full; the greedy and the sampled request
+    repeat to the same text; the chat's text is the interface's 16
+    greedy tokens. Returns (greedy response, launches, seconds)."""
+    from whisper_tensor_tpu_torch.tokenizer import (ByteTokenizer,
+                                                    apply_chat_template)
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    r1 = completion(port, GREEDY)
+    status, raw = request(port, "/v1/chat/completions", CHAT)
+    r3 = completion(port, SAMPLED)
+    served_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    say(f"  three requests served in {served_s:.2f} s; kernel launches "
+        f"during them: {launches}")
+    if status != 200:
+        fail(f"/v1/chat/completions returned {status}: {raw[:500]!r}")
+    events = [ln[6:] for ln in raw.split(b"\n") if ln.startswith(b"data: ")]
+    if not events or events[-1] != b"[DONE]":
+        fail(f"chat stream did not end with [DONE]: {raw[-300:]!r}")
+    chat_text = "".join(
+        json.loads(e)["choices"][0].get("delta", {}).get("content") or ""
+        for e in events[:-1])
+    for r, want in ((r1, 32), (r3, 24)):
+        got = r["usage"]["completion_tokens"]
+        if got != want:
+            fail(f"completion returned {got} tokens, expected {want}")
+    say(f"  greedy completion: {r1['choices'][0]['text']!r}")
+    say(f"  streamed chat: {chat_text!r}")
+    say(f"  sampled completion (seed 7): {r3['choices'][0]['text']!r}")
+    if completion(port, GREEDY)["choices"][0]["text"] != \
+            r1["choices"][0]["text"]:
+        fail("repeating the greedy request gave another text")
+    if completion(port, SAMPLED)["choices"][0]["text"] != \
+            r3["choices"][0]["text"]:
+        fail("repeating the seeded sampled request gave another text")
+    tok = ByteTokenizer()
+    rendered = apply_chat_template(tok, CHAT["messages"])
+    ids = np.asarray(tok.encode(rendered), np.int64)[None]
+    chat_toks = iface.generate_tokens(ids, 16)[0]
+    if len(chat_toks) != 16 or tok.decode(list(chat_toks)) != chat_text:
+        fail("the streamed chat text is not the interface's 16 tokens")
+    if foreign_modules():
+        fail(f"the JAX package or jax was imported: {foreign_modules()}")
+    return r1, launches, served_s
+
+
+def decode_checks(np, iface, greedy_text: str, layers: int, kernel: str,
+                  module, attr: str, install, plain):
+    """The greedy request's decode again, outside the counted run: (a)
+    with `install()` shadowing each call of `module.attr` (the kernel's
+    wrapper as a lowering calls it) by its plain version on the same
+    inputs, element by element; (b) with `plain` in place of the kernel,
+    its per-step logits against the kernel path's; (c) one teacher-
+    forced prefill over prompt plus output against the decode-step
+    logits. Returns the prompt (1, P)."""
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    prompt = np.asarray(tok.encode(GREEDY["prompt"]), np.int64)[None]
+    checked = install()
+    try:
+        toks, step_logits = iface.generate_with_logits(prompt, 32)
+    finally:
+        setattr(module, attr, checked.inner)
+    setattr(module, attr, plain)
+    try:
+        toks_w, logits_w = iface.generate_with_logits(prompt, 32)
+    finally:
+        setattr(module, attr, checked.inner)
+    full = np.concatenate([prompt, toks[:, :-1]], axis=1)
+    teacher = iface.logits(full).astype(np.float32)
+    P = prompt.shape[1]
+    forced = teacher[:, P - 1:P - 1 + 32, :]
+    scale = float(np.abs(forced).max())
+    # (a)
+    say(f"  (a) {checked.calls} {kernel} calls of the greedy decode "
+        f"against the plain version on their inputs: worst |err|/bound "
+        f"{checked.worst:.4g} (max |err| {checked.max_err:.5g})")
+    # (b) logits at step i follow from tokens < i: compare the steps up
+    # to the first token the two runs pick differently
+    differ = np.nonzero(toks[0] != toks_w[0])[0]
+    n_same = int(differ[0]) + 1 if differ.size else 32
+    wdiff = float(np.abs(logits_w[:, :n_same]
+                         - step_logits[:, :n_same]).max())
+    # (c) bf16 activations round at 2^-8 relative per op. The two paths
+    # round in different places (the decode kernel keeps attention
+    # probabilities in f32, prefill rounds them to bf16 as the JAX
+    # package does), so each layer adds an independent difference of a
+    # few bf16 ulps to the residual stream: the logits part like a random
+    # walk, by sqrt(layers). Bound: 1.5% of the logits' scale per
+    # sqrt(layer), 3% at 4 layers.
+    frac = 0.015 * math.sqrt(layers)
+    tol = frac * scale
+    diff = float(np.abs(forced - step_logits).max())
+    agree = float((forced.argmax(-1) == toks).mean())
+    say(f"  (b) plain {kernel} in place of the kernel: logits of {n_same} "
+        f"steps differ by at most {wdiff:.5g} ({wdiff / scale:.3%} of "
+        f"max|logit| {scale:.4g}; bound {tol:.5g} as in (c)), same "
+        f"tokens: {not differ.size}")
+    say(f"  (c) decode vs teacher-forced prefill logits: max_abs_diff="
+        f"{diff:.5g} ({diff / scale:.3%}; tol {tol:.5g} = {frac:.1%} of "
+        f"max|logit| {scale:.4g}), argmax agreement {agree:.3f}")
+    if tok.decode(list(toks[0])) != greedy_text:
+        fail("the interface's greedy tokens differ from the HTTP text")
+    if checked.calls <= 0 or not checked.worst <= 1.0:
+        fail(f"a {kernel} call of the greedy decode disagrees with its "
+             f"plain version on the same inputs")
+    if not wdiff <= tol:
+        fail(f"decode-step logits with the plain {kernel} disagree with "
+             f"the kernel path's")
+    if not diff <= tol:
+        fail("decode-step logits disagree with the prefill logits")
+    return prompt
+
+
+def direct_rates(torch, iface, prompt, layers: int) -> dict:
+    """Time to first token and decode rate at batch 1 (host clock,
+    direct calls), and the bytes on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iface.generate_tokens(prompt, 1)
+    ttft = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    iface.generate_tokens(prompt, 129)
+    total = time.perf_counter() - t0
+    rate = 128 / max(total - ttft, 1e-9)
+    P = prompt.shape[1]
+    bucket = min(b for b in iface.prompt_buckets if b >= P)
+    gb = torch.cuda.memory_allocated() / 1e9
+    say(f"  time to first token {ttft * 1e3:.1f} ms (prompt {P} tokens, "
+        f"bucket {bucket}), decode {rate:.1f} tok/s (batch 1, {layers} "
+        f"layers), {gb:.2f} GB on the card, on {card_line()}")
+    return {"ttft_ms": ttft * 1e3, "tok_s": rate, "gb": gb}
+
+
+def load_direct(torch, srv, ckpt: Path, quantize: str):
+    """The smoke checkpoint through the port's loader and text interface
+    (bf16, `quantize`, max_len 2048), weights uploaded."""
+    t0 = time.perf_counter()
+    entries = srv.models.run_loader("transformers", {
+        "path": str(ckpt), "dtype": "bf16", "quantize": quantize,
+        "max_len": MAX_LEN})
+    say(f"  loader (ONNX build + parse): "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    iface = srv._text_iface(entries[0])
+    iface._weights()
+    torch.cuda.synchronize()
+    say(f"  port interface ({quantize} quantize + upload): "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+        f"peak host RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.1f} GB")
+    return iface
+
+
+def phase3(torch, np, ckpt: Path, layers: int, results) -> dict:
+    """Returns the direct path's rates (direct_rates)."""
     from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
     from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
         decode_attention, decode_attention_plain)
@@ -594,164 +925,31 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> None:
     from whisper_tensor_tpu_torch.milli.ops import attention as attn_lowering
     from whisper_tensor_tpu_torch.server.main import Server
     from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
-    from whisper_tensor_tpu_torch.tokenizer import (ByteTokenizer,
-                                                    apply_chat_template)
 
     say("phase 3: the direct path")
     srv = Server()
-    t0 = time.perf_counter()
-    entries = srv.models.run_loader("transformers", {
-        "path": str(ckpt), "dtype": "bf16", "quantize": "int8",
-        "max_len": MAX_LEN})
-    say(f"  loader (ONNX build + parse): "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    iface = srv._text_iface(entries[0])
-    iface._weights()
-    torch.cuda.synchronize()
-    say(f"  port interface (int8 quantize + upload): "
-        f"{time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
-        f"peak host RSS "
-        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.1f} GB")
+    iface = load_direct(torch, srv, ckpt, "int8")
     api = OpenAIApi(srv, "127.0.0.1", 0).start()
     try:
-        port = api.port
-        greedy = {"prompt": "The capital of France is", "max_tokens": 32,
-                  "temperature": 0}
-        chat = {"messages": [{"role": "user", "content": "Say hello."}],
-                "max_tokens": 16, "temperature": 0, "stream": True}
-        sampled = {"prompt": "Once upon a time", "max_tokens": 24,
-                   "temperature": 0.8, "top_k": 50, "seed": 7}
-        decode_attention.launches = 0
-        int8_matmul.launches = 0
-        flash_attention.launches = 0
-        t0 = time.perf_counter()
-        r1 = completion(port, greedy)
-        status, raw = request(port, "/v1/chat/completions", chat)
-        r3 = completion(port, sampled)
-        served_s = time.perf_counter() - t0
-        launches = {"decode_attention": decode_attention.launches,
-                    "int8_matmul": int8_matmul.launches,
-                    "flash_attention": flash_attention.launches}
-        say(f"  three requests served in {served_s:.2f} s; kernel launches "
-            f"during them: {launches}")
+        r1, launches, _ = serve_three(np, api.port, iface, {
+            "decode_attention": decode_attention, "int8_matmul": int8_matmul,
+            "flash_attention": flash_attention})
         for res in results:
             if res["name"] in launches:
                 res["launches_direct"] = launches[res["name"]]
         if min(launches.values()) <= 0:
             fail(f"a kernel of the path was never launched: {launches}")
-        if status != 200:
-            fail(f"/v1/chat/completions returned {status}: {raw[:500]!r}")
-        events = [ln[6:] for ln in raw.split(b"\n") if ln.startswith(b"data: ")]
-        if not events or events[-1] != b"[DONE]":
-            fail(f"chat stream did not end with [DONE]: {raw[-300:]!r}")
-        chat_text = "".join(
-            json.loads(e)["choices"][0].get("delta", {}).get("content") or ""
-            for e in events[:-1])
-        for r, want in ((r1, 32), (r3, 24)):
-            got = r["usage"]["completion_tokens"]
-            if got != want:
-                fail(f"completion returned {got} tokens, expected {want}")
-        say(f"  greedy completion: {r1['choices'][0]['text']!r}")
-        say(f"  streamed chat: {chat_text!r}")
-        say(f"  sampled completion (seed 7): {r3['choices'][0]['text']!r}")
-        if completion(port, greedy)["choices"][0]["text"] != \
-                r1["choices"][0]["text"]:
-            fail("repeating the greedy request gave another text")
-        if completion(port, sampled)["choices"][0]["text"] != \
-                r3["choices"][0]["text"]:
-            fail("repeating the seeded sampled request gave another text")
-        tok = ByteTokenizer()
-        rendered = apply_chat_template(tok, chat["messages"])
-        ids = np.asarray(tok.encode(rendered), np.int64)[None]
-        chat_toks = iface.generate_tokens(ids, 16)[0]
-        if len(chat_toks) != 16 or tok.decode(list(chat_toks)) != chat_text:
-            fail("the streamed chat text is not the interface's 16 tokens")
-        if foreign_modules():
-            fail(f"the JAX package or jax was imported: {foreign_modules()}")
-
-        # the greedy decode again, outside the counted run: (a) each
-        # decode_attention call is held against its plain version on the
-        # same inputs, element by element (agreement_bound); (b) the same
-        # decode with the plain version in place of the kernel, its
-        # per-step logits against the kernel path's; (c) one teacher-
-        # forced prefill over prompt plus output (plain attention,
-        # prefill-sized matmuls) against the decode-step logits.
-        prompt = np.asarray(tok.encode(greedy["prompt"]), np.int64)[None]
-        checked = shadow_checked(attn_lowering, decode_attention_plain,
-                                 agreement_bound)
-        try:
-            toks, step_logits = iface.generate_with_logits(prompt, 32)
-        finally:
-            attn_lowering.decode_attention = checked.inner
-        kernel_in_place = attn_lowering.decode_attention
-        attn_lowering.decode_attention = decode_attention_plain
-        try:
-            toks_w, logits_w = iface.generate_with_logits(prompt, 32)
-        finally:
-            attn_lowering.decode_attention = kernel_in_place
-        full = np.concatenate([prompt, toks[:, :-1]], axis=1)
-        teacher = iface.logits(full).astype(np.float32)
-        P = prompt.shape[1]
-        forced = teacher[:, P - 1:P - 1 + 32, :]
-        scale = float(np.abs(forced).max())
-        # (a)
-        say(f"  (a) {checked.calls} decode_attention calls of the greedy "
-            f"decode against the plain version on their inputs: worst "
-            f"|err|/bound {checked.worst:.4g} (max |err| "
-            f"{checked.max_err:.5g})")
-        # (b) logits at step i follow from tokens < i: compare the steps
-        # up to the first token the two runs pick differently
-        differ = np.nonzero(toks[0] != toks_w[0])[0]
-        n_same = int(differ[0]) + 1 if differ.size else 32
-        wdiff = float(np.abs(logits_w[:, :n_same]
-                             - step_logits[:, :n_same]).max())
-        # (c) bf16 activations round at 2^-8 relative per op. The two
-        # paths round in different places (the decode kernel keeps
-        # attention probabilities in f32, prefill rounds them to bf16 as
-        # the JAX package does), so each layer adds an independent
-        # difference of a few bf16 ulps to the residual stream: the
-        # logits part like a random walk, by sqrt(layers). Bound: 1.5% of
-        # the logits' scale per sqrt(layer), 3% at 4 layers.
-        frac = 0.015 * math.sqrt(layers)
-        tol = frac * scale
-        diff = float(np.abs(forced - step_logits).max())
-        agree = float((forced.argmax(-1) == toks).mean())
-        say(f"  (b) plain attention in place of the kernel: logits of "
-            f"{n_same} steps differ by at most {wdiff:.5g} "
-            f"({wdiff / scale:.3%} of max|logit| {scale:.4g}; bound "
-            f"{tol:.5g} as in (c)), same tokens: {not differ.size}")
-        say(f"  (c) decode vs teacher-forced prefill logits: max_abs_diff="
-            f"{diff:.5g} ({diff / scale:.3%}; tol {tol:.5g} = {frac:.1%} "
-            f"of max|logit| {scale:.4g}), argmax agreement {agree:.3f}")
-        if tok.decode(list(toks[0])) != r1["choices"][0]["text"]:
-            fail("the interface's greedy tokens differ from the HTTP text")
-        if not checked.worst <= 1.0:
-            fail("a decode_attention call of the greedy decode disagrees "
-                 "with its plain version on the same inputs")
-        if not wdiff <= tol:
-            fail("decode-step logits with the plain attention disagree "
-                 "with the kernel path's")
-        if not diff <= tol:
-            fail("decode-step logits disagree with the prefill logits")
-
-        # information: time to first token and decode rate, direct calls
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        iface.generate_tokens(prompt, 1)
-        ttft = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        iface.generate_tokens(prompt, 129)
-        total = time.perf_counter() - t0
-        rate = 128 / max(total - ttft, 1e-9)
-        bucket = min(b for b in iface.prompt_buckets if b >= P)
-        say(f"  time to first token {ttft * 1e3:.1f} ms (prompt {P} tokens, "
-            f"bucket {bucket}), decode {rate:.1f} tok/s (batch 1, {layers} "
-            f"layers) on {card_line()}")
-        phase5_direct(torch, np, iface, port, layers, results)
+        prompt = decode_checks(
+            np, iface, r1["choices"][0]["text"], layers, "decode_attention",
+            attn_lowering, "decode_attention",
+            lambda: shadow_checked(attn_lowering, decode_attention_plain,
+                                   agreement_bound),
+            decode_attention_plain)
+        rates = direct_rates(torch, iface, prompt, layers)
+        phase5_direct(torch, np, iface, api.port, layers, results)
     finally:
         api.stop()
+    return rates
 
 
 # ---------------------------------------------------------------------------
@@ -968,7 +1166,8 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
         f"{st['time_dispatch_s']} s, waiting on the device "
         f"{st['time_fetch_s']} s; kernel launches during them: {launches}")
     for res in results:
-        res["launches"] = launches[res["name"]]
+        if res["name"] in launches:
+            res["launches"] = launches[res["name"]]
     n_tokens, ttfts = 0, []
     for i, ((w, kind, body), ans) in enumerate(zip(reqs, answers)):
         if ans is None:
@@ -1249,6 +1448,312 @@ def phase5_batched(torch, np, srv, bat, layers: int, results) -> None:
              "teacher-forced prefill")
 
 
+# ---------------------------------------------------------------------------
+def packed_shadow(torch, lowering, bound):
+    """Install, in the PackedMatMul lowering's module, a packed_matmul
+    that calls the one installed before and holds each result against
+    the plain version on the same inputs (`bound`, with |x| @ |W| as the
+    magnitude). Returns it; `.inner` is the one it wraps."""
+    from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+        packed_matmul_plain)
+
+    inner = lowering.packed_matmul
+
+    def checked(x, q, s, o, bits, has_off=True):
+        got = inner(x, q, s, o, bits, has_off)
+        err, share = worst_share(
+            got, packed_matmul_plain(x, q, s, o, bits, has_off),
+            packed_magnitude(torch, x, q, s, o, bits, has_off), bound)
+        checked.calls += 1
+        checked.worst = max(checked.worst, share)
+        checked.max_err = max(checked.max_err, err)
+        return got
+
+    checked.inner, checked.calls, checked.worst, checked.max_err = \
+        inner, 0, 0.0, 0.0
+    lowering.packed_matmul = checked
+    return checked
+
+
+def phase6a(torch, np, ckpt: Path, layers: int, results, int8: dict) -> None:
+    """Phase 6a: phase 3's checkpoint host-quantized to q4_0 on the direct
+    path, phase 3's requests and checks (a)-(c) with packed_matmul in the
+    place of decode_attention, and the rates against phase 3's int8."""
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+        packed_matmul, packed_matmul_plain)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
+    from whisper_tensor_tpu_torch.milli import transforms
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    say(f"phase 6a: the direct path, host-quantized q4_0; host RSS "
+        f"{host_rss_gb():.1f} GB after phase 4 was freed")
+    srv = Server()
+    iface = load_direct(torch, srv, ckpt, "q4_0")
+    say(f"  {len(iface._packed)} packed weights, "
+        f"{len(iface.weight_names) - 3 * len(iface._packed)} dense inputs")
+    api = OpenAIApi(srv, "127.0.0.1", 0).start()
+    try:
+        r1, launches, _ = serve_three(np, api.port, iface, {
+            "packed_matmul": packed_matmul, "int8_matmul": int8_matmul,
+            "decode_attention": decode_attention,
+            "flash_attention": flash_attention})
+        for res in results:
+            if res["name"] in launches:
+                res["launches_q4_0_direct"] = launches[res["name"]]
+        if launches["int8_matmul"] or min(
+                n for k, n in launches.items() if k != "int8_matmul") <= 0:
+            fail(f"the q4_0 direct path did not go through packed_matmul "
+                 f"alone: {launches}")
+        prompt = decode_checks(
+            np, iface, r1["choices"][0]["text"], layers, "packed_matmul",
+            transforms, "packed_matmul",
+            lambda: packed_shadow(torch, transforms, agreement_bound),
+            packed_matmul_plain)
+        packed_matmul.launches = 0
+        iface.generate_tokens(prompt, 2)       # a prefill and a step
+        per_forward = packed_matmul.launches / 2
+        say(f"  packed_matmul launches per forward: {per_forward:g} (4 per "
+            f"layer + lm_head = {4 * layers + 1})")
+        if per_forward != 4 * layers + 1:
+            fail("a forward did not launch packed_matmul for every weight")
+        rates = direct_rates(torch, iface, prompt, layers)
+        say(f"  information: q4_0 against phase 3's int8: time to first "
+            f"token {rates['ttft_ms']:.1f} against {int8['ttft_ms']:.1f} "
+            f"ms, decode {rates['tok_s']:.1f} against {int8['tok_s']:.1f} "
+            f"tok/s, {rates['gb']:.2f} against {int8['gb']:.2f} GB on the "
+            f"card")
+        # phase 5's long prompt: its 2048 rows take the plain version
+        long = np.asarray(ByteTokenizer().encode(
+            long_text(np, 1900, SEED + 5)), np.int64)[None]
+        ttft = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            iface.generate_tokens(long, 1)
+            ttft.append((time.perf_counter() - t0) * 1e3)
+        say(f"  information: time to first token of phase 5's 1900-token "
+            f"prompt at q4_0 (matmuls above 512 rows take the plain "
+            f"version): {ttft[0]:.1f} ms, again {ttft[1]:.1f} ms")
+    finally:
+        api.stop()
+
+
+GGUF_NAMES = {"input_layernorm": "attn_norm",
+              "post_attention_layernorm": "ffn_norm",
+              "self_attn.q_proj": "attn_q", "self_attn.k_proj": "attn_k",
+              "self_attn.v_proj": "attn_v", "self_attn.o_proj": "attn_output",
+              "mlp.gate_proj": "ffn_gate", "mlp.up_proj": "ffn_up",
+              "mlp.down_proj": "ffn_down"}
+
+
+def write_smoke_gguf(path: Path, layers: int, np, bf16) -> None:
+    """The smoke checkpoint's weights (rounded to the checkpoint's bf16)
+    as an arch-llama GGUF written by the port's write_gguf the way
+    llama.cpp's converter writes one: Q/K rows permuted for GGML's
+    interleaved rope (LlamaModel.permute); Q4_K for attn_q/k/v/output,
+    ffn_gate/up and token_embd, Q6_K for ffn_down and output, F32
+    norms."""
+    from whisper_tensor_tpu_torch.backends.cpu.dequant import quantize_blocks
+    from whisper_tensor_tpu_torch.importers.gguf import write_gguf
+    from whisper_tensor_tpu_torch.packed_format import PackedFormat
+    from whisper_tensor_tpu_torch.tensor import PackedTensor
+
+    Hq, Hkv = WIDTHS["num_attention_heads"], WIDTHS["num_key_value_heads"]
+    tensors = {}
+    for n, arr in checkpoint_tensors(layers, np):
+        if bf16 is not None:
+            arr = arr.astype(bf16).astype(np.float32)
+        if n.startswith("model.layers."):
+            i, leaf = n[len("model.layers."):].split(".", 1)
+            leaf = GGUF_NAMES[leaf[:-len(".weight")]]
+            name = f"blk.{i}.{leaf}.weight"
+            heads = {"attn_q": Hq, "attn_k": Hkv}.get(leaf)
+            if heads:
+                arr = arr.reshape(heads, 2, -1, arr.shape[1]).swapaxes(
+                    1, 2).reshape(arr.shape)
+        else:
+            name = {"model.embed_tokens.weight": "token_embd.weight",
+                    "model.norm.weight": "output_norm.weight",
+                    "lm_head.weight": "output.weight"}[n]
+        if arr.ndim == 1:
+            tensors[name] = arr
+            continue
+        fmt = (PackedFormat.Q6_K if name.endswith(("ffn_down.weight",
+                                                   "output.weight"))
+               else PackedFormat.Q4_K)
+        # the output rows past the byte tokenizer's ids are zero: the
+        # K-quant writers divide 0 by a zero scale there, and the blocks
+        # they write still dequantize to zeros
+        with np.errstate(invalid="ignore", divide="ignore"):
+            tensors[name] = PackedTensor(quantize_blocks(arr, fmt), fmt,
+                                         arr.shape)
+        del arr
+    meta = {"general.architecture": "llama",
+            "general.name": f"llama3-8b-widths-{layers}L",
+            "llama.block_count": layers,
+            "llama.embedding_length": WIDTHS["hidden_size"],
+            "llama.attention.head_count": Hq,
+            "llama.attention.head_count_kv": Hkv,
+            "llama.feed_forward_length": WIDTHS["intermediate_size"],
+            "llama.context_length": WIDTHS["max_position_embeddings"],
+            "llama.vocab_size": WIDTHS["vocab_size"],
+            "llama.attention.layer_norm_rms_epsilon": WIDTHS["rms_norm_eps"],
+            "llama.rope.freq_base": WIDTHS["rope_theta"]}
+    write_gguf(str(path), meta, tensors)
+
+
+def phase6b(torch, np, gguf_path: Path, layers: int, results) -> None:
+    """Phase 6b: the GGUF file through GgufLoader with ragged_decode (16
+    slots, prefill pieces of 128) and 16 concurrent HTTP requests; the
+    packed and attention kernels' counters must rise; (d) each greedy
+    answer against a teacher-forced prefill; (f) one greedy answer
+    against the same file loaded host-dequantized (dense)."""
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        ragged_kv_write)
+    from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+        packed_matmul)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+
+    say(f"phase 6b: the batched path, GGUF; host RSS {host_rss_gb():.1f} GB "
+        f"after phase 6a was freed")
+    cfg = {"path": str(gguf_path), "dtype": "bf16", "max_len": MAX_LEN,
+           "ragged_decode": True, "serve_batch": 16, "serve_chunk": 16,
+           "serve_chunk_max": 64, "prefill_chunk": 128}
+    srv = Server()
+    t0 = time.perf_counter()
+    (entry,) = srv.models.run_loader("gguf", cfg)
+    say(f"  GgufLoader (packed, structure-only ONNX): "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bat = srv._batcher(entry)
+    bat.iface._weights()
+    torch.cuda.synchronize()
+    say(f"  batcher interface (repack + upload): "
+        f"{time.perf_counter() - t0:.1f} s, {len(bat.iface._packed)} packed "
+        f"weights, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+        f"card, peak host RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.1f} GB")
+    records, submit = [], bat.submit
+
+    def recorded(prompt_ids, n_new, **kw):
+        fut = submit(prompt_ids, n_new, **kw)
+        records.append((np.asarray(prompt_ids, np.int64).reshape(-1),
+                        kw.get("sampling"), fut))
+        return fut
+
+    rng = np.random.default_rng(SEED + 7)
+    lengths = (5, 9, 14, 20, 31, 45, 70, 110, 150, 190, 230, 270, 300, 340,
+               370, 400)
+    reqs = []
+    for i, n in enumerate(lengths):
+        body = {"prompt": long_text(np, n, SEED + 100 + i),
+                "max_tokens": int(rng.integers(8, 49)), "temperature": 0}
+        if i % 4 == 2:                     # 4 of the 16 sampled
+            body.update(temperature=0.8, top_k=40, seed=200 + i)
+        reqs.append(body)
+    answers = [None] * len(reqs)
+    counters = {"packed_matmul": packed_matmul, "int8_matmul": int8_matmul,
+                "decode_attention": decode_attention,
+                "ragged_kv_write": ragged_kv_write,
+                "flash_attention": flash_attention}
+    bat.submit = recorded
+    api = OpenAIApi(srv, "127.0.0.1", 0).start()
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(
+            i, request(api.port, "/v1/completions", reqs[i])))
+            for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        served_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        bat.submit = submit
+        api.stop()
+    n_tokens = 0
+    for i, (body, ans) in enumerate(zip(reqs, answers)):
+        if ans is None or ans[0] != 200:
+            fail(f"GGUF request {i} got no answer or an error: "
+                 f"{None if ans is None else ans[1][:300]!r}")
+        got = json.loads(ans[1])["usage"]["completion_tokens"]
+        if got != body["max_tokens"]:
+            fail(f"GGUF request {i} answered {got} tokens of "
+                 f"{body['max_tokens']}")
+        n_tokens += got
+    st = bat.stats()
+    say(f"  {len(reqs)} requests served in {served_s:.2f} s: "
+        f"{st['chunks_dispatched']} chunks, {st['steps_dispatched']} steps; "
+        f"kernel launches during them: {launches}")
+    for res in results:
+        if res["name"] == "packed_matmul":
+            res["launches"] = launches["packed_matmul"]
+        elif res["name"] in launches:
+            res["launches_gguf_batched"] = launches[res["name"]]
+    if launches["int8_matmul"] or min(
+            n for k, n in launches.items() if k != "int8_matmul") <= 0:
+        fail(f"a kernel of the GGUF batched path was never launched, or "
+             f"int8_matmul was: {launches}")
+    if len(records) != len(reqs) or foreign_modules():
+        fail(f"{len(records)} batcher requests for {len(reqs)} HTTP "
+             f"requests, or foreign modules imported: {foreign_modules()}")
+    # (d) every greedy answer against a teacher-forced prefill (phase 4's
+    # check and bound)
+    frac = 0.015 * math.sqrt(layers)
+    greedy = [(p, f.result()) for p, sp, f in records
+              if sp is None or sp.temperature <= 0]
+    worst = 0.0
+    for prompt, toks in greedy:
+        gaps, scale = teacher_gaps(torch, np, bat.iface, prompt, toks)
+        worst = max(worst, float(gaps.max()) / (frac * scale))
+    say(f"  (d) {len(greedy)} greedy answers against teacher-forced "
+        f"prefills: worst (max logit - emitted logit) {worst:.4g} of the "
+        f"bound ({frac:.1%} of each answer's max|logit|)")
+    if len(greedy) != 12 or not worst <= 1.0:
+        fail("a greedy GGUF answer disagrees with the teacher-forced prefill")
+    say(f"  information: {n_tokens} completion tokens in {served_s:.2f} s = "
+        f"{n_tokens / served_s:.1f} tok/s over the phase ({layers} layers) "
+        f"on {card_line()}")
+    for b in srv._batchers.values():
+        b.stop()
+    del bat, srv, entry
+    free_memory(torch)
+
+    # (f) the longest greedy answer against the same file loaded with
+    # every weight dequantized on the host (dense bf16)
+    prompt, toks = max(greedy, key=lambda pt: len(pt[0]))
+    srv = Server()
+    t0 = time.perf_counter()
+    (entry,) = srv.models.run_loader("gguf", dict(cfg, packed_weights=False))
+    iface = srv._text_iface(entry)
+    gaps, scale = teacher_gaps(torch, np, iface, prompt, toks)
+    share = float(gaps.max()) / (frac * scale)
+    say(f"  (f) the {len(prompt)}-token prompt's greedy answer against the "
+        f"file loaded dense ({time.perf_counter() - t0:.1f} s to load and "
+        f"run, peak host RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.1f} GB, "
+        f"packed weights {len(iface._packed)}): worst (max logit - emitted "
+        f"logit) {share:.4g} of the bound")
+    if iface._packed or not share <= 1.0:
+        fail("the GGUF batched answer disagrees with the dense load")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -1291,27 +1796,51 @@ def main() -> None:
             say(f"  {line.strip()}")
 
     results = []
-    phase2(torch, results)
-    phase2_kv_write(torch, results)
-    phase2_flash(torch, results)
+    t_start = time.perf_counter()
+
+    def step(label, fn, *a):
+        """Run one step; print its seconds and the peak host RSS."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        say(f"[{label}: {time.perf_counter() - t0:.1f} s, peak host RSS "
+            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.1f}"
+            f" GB, {time.perf_counter() - t_start:.0f} s since phase 2]")
+        free_memory(torch)
+        return out
+
+    step("phase 2: decode_attention, int8_matmul", phase2, torch, results)
+    step("phase 2: ragged_kv_write", phase2_kv_write, torch, results)
+    step("phase 2: flash_attention", phase2_flash, torch, results)
+    step("phase 2: packed_matmul", phase2_packed, torch, results)
     try:
         import ml_dtypes
         bf16 = np.dtype(ml_dtypes.bfloat16)
     except ImportError:       # the loader then reads f16 and casts
         bf16 = None
     ckpt = ROOT / "build" / "smoke" / f"llama3-8b-widths-{args.layers}L"
+    gguf_path = ckpt.with_suffix(".gguf")
     shutil.rmtree(ckpt, ignore_errors=True)
     ckpt.mkdir(parents=True)
     try:
-        t0 = time.perf_counter()
-        nbytes = write_checkpoint(ckpt, args.layers, np, bf16)
+        nbytes = step("write the checkpoint", write_checkpoint, ckpt,
+                      args.layers, np, bf16)
         say(f"wrote a {args.layers}-layer Llama-3-8B-width checkpoint "
-            f"({nbytes / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
-        phase3(torch, np, ckpt, args.layers, results)
-        free_memory(torch)
-        phase4(torch, np, ckpt, args.layers, results, args.plant_fault)
+            f"({nbytes / 1e9:.2f} GB)")
+        int8 = step("phases 3 and 5 (direct)", phase3, torch, np, ckpt,
+                    args.layers, results)
+        step("phases 4 and 5 (batched)", phase4, torch, np, ckpt,
+             args.layers, results, args.plant_fault)
+        step("phase 6a (q4_0 direct)", phase6a, torch, np, ckpt, args.layers,
+             results, int8)
+        step("write the GGUF", write_smoke_gguf, gguf_path, args.layers, np,
+             bf16)
+        say(f"wrote the checkpoint as a Q4_K/Q6_K GGUF "
+            f"({gguf_path.stat().st_size / 1e9:.2f} GB)")
+        step("phase 6b (GGUF batched)", phase6b, torch, np, gguf_path,
+             args.layers, results)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+        gguf_path.unlink(missing_ok=True)
     say(json.dumps({"kernels": results}))
     say(card_line())
     print(json.dumps({"ok": True, "device": {

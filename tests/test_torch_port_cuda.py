@@ -21,6 +21,8 @@ from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
     flash_agreement_bound, flash_attention, flash_attention_plain)
 from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
     ragged_kv_write, ragged_kv_write_plain)
+from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+    dequant_repacked, dequantize_packed, packed_matmul, packed_matmul_plain)
 from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
     int8_matmul, int8_matmul_plain)
 
@@ -225,6 +227,108 @@ def test_int8_matmul_above_512_rows_takes_the_dense_form(cuda):
     assert int8_matmul.launches == n0
 
 
+def _packed_layout(bits, G, K, N, has_off, seed):
+    """Random packed weights in the kernel's layout, from numpy: q bytes,
+    scales in [0.001, 0.05), offsets in [-0.2, 0.2) or zeros."""
+    rng = np.random.default_rng(seed)
+    q = (rng.integers(0, 256, (K // 2, N), dtype=np.uint8) if bits == 4
+         else rng.integers(-128, 128, (K, N), dtype=np.int8))
+    s = rng.uniform(0.001, 0.05, (K // G, N)).astype(np.float32)
+    o = (rng.uniform(-0.2, 0.2, (K // G, N)).astype(np.float32) if has_off
+         else np.zeros_like(s))
+    return q, s, o
+
+
+# (bits, G, has_off): the nibble layout at the classic block, the K-quant
+# sub-scale, the GPTQ group and a group shorter than a thread's 16 rows;
+# the int8 layout at Q6_K's and Q8_K's groups and without offsets (Q8_0)
+PACKED_LAYOUTS = [(4, 32, True), (4, 16, True), (4, 128, True),
+                  (4, 8, True), (8, 16, True), (8, 256, True),
+                  (8, 32, False)]
+
+
+@pytest.mark.parametrize("bits,G,has_off", PACKED_LAYOUTS)
+@pytest.mark.parametrize("M,N", [(1, 256), (5, 384), (5, 77), (16, 1040),
+                                 (512, 128), (600, 256)])
+@pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32])
+def test_packed_matmul_kernel_matches_plain(cuda, bits, G, has_off, M, N,
+                                            tdt):
+    """K = 512, so every G divides it and K/2 is a whole number of
+    stages at bits 4. bf16: within agreement_bound, element by element;
+    f32: the same f32 products summed in another order, 1e-5 of the
+    scale. Above 512 rows the plain version runs and the kernel is not
+    launched."""
+    K = 512
+    q, s, o = (torch.from_numpy(a).to(cuda) for a in
+               _packed_layout(bits, G, K, N, has_off, seed=M * N + G))
+    g = torch.Generator(device=cuda).manual_seed(M + N)
+    x = torch.randn(M, K, generator=g, device=cuda).to(tdt)
+    n0 = packed_matmul.launches
+    got = packed_matmul(x, q, s, o, bits, has_off)
+    want = packed_matmul_plain(x, q, s, o, bits, has_off)
+    torch.cuda.synchronize()
+    assert packed_matmul.launches == n0 + (M <= 512)
+    assert got.dtype == tdt and got.shape == (M, N)
+    if tdt == torch.bfloat16:
+        w = dequantize_packed(q, s, o, bits, has_off)
+        _assert_agree(got, want, x.float().abs() @ w.abs())
+    else:
+        torch.testing.assert_close(
+            got, want, atol=1e-5 * max(1.0, want.abs().max().item()), rtol=0)
+
+
+@pytest.mark.parametrize("bits,G,has_off", PACKED_LAYOUTS)
+def test_packed_matmul_kernel_dequantizes_bit_exactly(cuda, bits, G,
+                                                      has_off):
+    """x = the identity: every output is one product 1 * W[k, n] added to
+    zero, so the kernel's f32 output is its dequantized W, which must
+    equal the numpy dequant_repacked bit for bit (q * s and - o each
+    rounded; an FMA would round once). N = 100 takes the unaligned
+    staging."""
+    K = 256
+    for N in (256, 100):
+        q, s, o = _packed_layout(bits, G, K, N, has_off, seed=G + N)
+        want = dequant_repacked({"q": q, "scales": s, "offsets": o,
+                                 "bits": np.int8(bits)})
+        got = packed_matmul(torch.eye(K, device=cuda),
+                            *(torch.from_numpy(a).to(cuda) for a in (q, s, o)),
+                            bits, True if bits == 4 else has_off)
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                      want.view(np.int32))
+
+
+def test_packed_matmul_kernel_is_deterministic(cuda):
+    q, s, o = (torch.from_numpy(a).to(cuda)
+               for a in _packed_layout(4, 32, 4096, 1024, True, seed=3))
+    x = torch.randn(7, 4096, device=cuda).bfloat16()
+    first = packed_matmul(x, q, s, o, 4, True)
+    for _ in range(3):
+        assert torch.equal(packed_matmul(x, q, s, o, 4, True).view(
+            torch.int16), first.view(torch.int16))
+
+
+def test_packed_matmul_wrapper_raises_on_unsupported_cuda_inputs(cuda):
+    q, s, o = (torch.from_numpy(a).to(cuda)
+               for a in _packed_layout(4, 32, 256, 128, True, seed=1))
+    x = torch.randn(2, 256, device=cuda)
+    n0 = packed_matmul.launches
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        packed_matmul(x.half(), q, s, o, 4)
+    with pytest.raises(ValueError, match="bits"):
+        packed_matmul(x, q.view(torch.int8), s, o, 4)      # int8 q at bits 4
+    with pytest.raises(ValueError, match="bits"):
+        packed_matmul(x, q, s, o, 8)                       # q rows are K/2
+    with pytest.raises(ValueError, match="K % 16"):
+        packed_matmul(x[:, :248], q[:124], s[:31], o[:31], 4)
+    with pytest.raises(ValueError, match="scales"):
+        packed_matmul(x, q, s[:, :64], o, 4)
+    with pytest.raises(ValueError, match="offsets"):
+        packed_matmul(x, q, s, o[:7], 4)                   # 7 does not divide
+    with pytest.raises(ValueError, match="contiguous"):
+        packed_matmul(x, q, s.t().contiguous().t(), o, 4)
+    assert packed_matmul.launches == n0
+
+
 def _bits(t):
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
@@ -357,13 +461,13 @@ def _tiny_llama(max_len, pos_per_row=False):
         pos_per_row=pos_per_row))
 
 
-def _direct_pair(cuda, max_len):
+def _direct_pair(cuda, max_len, quantize="int8"):
     from whisper_tensor_tpu_torch.dtype import DType
     from whisper_tensor_tpu_torch.interfaces.text import (
         TextInferenceInterface)
 
     model = _tiny_llama(max_len)
-    kw = dict(max_len=max_len, cache_dtype=DType.BF16, quantize="int8")
+    kw = dict(max_len=max_len, cache_dtype=DType.BF16, quantize=quantize)
     return (TextInferenceInterface(model, device=cuda, **kw),
             TextInferenceInterface(model, device="cpu", **kw))
 
@@ -426,4 +530,42 @@ def test_tiny_llama_batcher_on_the_gpu_launches_all_three_kernels(cuda):
         full = np.concatenate([p, o[:-1]])[None]
         lg = gpu.logits(full).astype(np.float32)[0, len(p) - 1:]
         gap = lg.max(-1) - lg[np.arange(6), o]
+        assert gap.max() <= 0.03 * np.abs(lg).max(), (len(p), gap)
+
+
+def test_tiny_llama_q4_0_on_the_gpu_direct_and_batched(cuda):
+    """The 2-layer bf16 llama host-quantized to q4_0: the direct path and
+    the batcher launch packed_matmul (and int8_matmul never); each
+    answer stands a teacher-forced prefill of the direct path on the
+    card (3% of the logits' scale, as above), and the direct path's
+    decode logits stay within 3% of the scale of the CPU's teacher-
+    forced prefill (plain versions)."""
+    from whisper_tensor_tpu_torch.server.batching import ContinuousBatcher
+
+    gpu, cpu = _direct_pair(cuda, 64, quantize="q4_0")
+    assert gpu._packed and not gpu._quantized
+    prompt = np.random.default_rng(5).integers(3, 259, (2, 9))
+    p0, i0 = packed_matmul.launches, int8_matmul.launches
+    toks, logits = gpu.generate_with_logits(prompt, 6)
+    assert packed_matmul.launches > p0 and int8_matmul.launches == i0
+    full = np.concatenate([prompt, toks[:, :-1]], axis=1)
+    want = cpu.logits(full).astype(np.float32)[:, 8:]
+    np.testing.assert_allclose(logits, want, rtol=0,
+                               atol=0.03 * np.abs(want).max())
+    b = ContinuousBatcher(_tiny_llama(64, pos_per_row=True), max_len=64,
+                          max_batch=4, chunk=4, quantize="q4_0",
+                          prefill_chunk=16, device=cuda).start()
+    p0 = packed_matmul.launches
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(3, 259, (n,)) for n in (4, 21, 9)]
+    try:
+        outs = [f.result(timeout=300)
+                for f in [b.submit(p, 5) for p in prompts]]
+    finally:
+        b.stop()
+    assert packed_matmul.launches > p0 and int8_matmul.launches == i0
+    for p, o in zip(prompts, outs):
+        lg = gpu.logits(np.concatenate([p, o[:-1]])[None]
+                        ).astype(np.float32)[0, len(p) - 1:]
+        gap = lg.max(-1) - lg[np.arange(5), o]
         assert gap.max() <= 0.03 * np.abs(lg).max(), (len(p), gap)

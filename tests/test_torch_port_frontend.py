@@ -12,8 +12,9 @@ Here each copy is held to the module it came from, at small sizes
   int8 weights and scales are bit-identical;
 * every milli op kind the port lowers evaluates (numpy `eval`) to the
   same bytes as the reference's class, on the inputs it meets when the
-  reference graph runs on seeded feeds (QuantMatMul, which only the
-  quantization pass makes, on seeded inputs of its own);
+  reference graph runs on seeded feeds (QuantMatMul and PackedMatMul,
+  which only the quantization and packing passes make, on seeded
+  inputs of their own);
 * the tokenizers encode, decode, stream and render chat prompts exactly
   as the reference's, byte-level and through an HF tokenizer.json.
 Tolerance: zero everywhere (the copies run the same numpy code). The
@@ -214,6 +215,16 @@ def _capture_eval_cases(per_kind=4):
         cases.setdefault("QuantMatMul", []).append(
             (jax_transforms.QuantMatMulMilli(), transforms.QuantMatMulMilli(),
              [x, w_i8, scale]))
+        # PackedMatMul (made by the packing pass): the nibble layout at
+        # G 32 and the int8 layout at G 16, seeded
+        for bits, G in ((4, 32), (8, 16)):
+            q = (rng.integers(0, 256, (64, 96), dtype=np.uint8) if bits == 4
+                 else rng.integers(-128, 128, (128, 96), dtype=np.int8))
+            s = rng.uniform(0.001, 0.05, (128 // G, 96)).astype(np.float32)
+            o = rng.uniform(-0.2, 0.2, (128 // G, 96)).astype(np.float32)
+            cases.setdefault("PackedMatMul", []).append(
+                (jax_transforms.PackedMatMulMilli(bits=bits),
+                 transforms.PackedMatMulMilli(bits=bits), [x, q, s, o]))
     return cases
 
 

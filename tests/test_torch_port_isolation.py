@@ -5,10 +5,12 @@ package (whisper_tensor_tpu), at any level.
     chip_smoke.py: no `import jax...`, and no import of
     `whisper_tensor_tpu` or `whisper_tensor_tpu.<anything>`, top-level
     or nested in a function.
-(b) A fresh interpreter writes a tiny llama checkpoint and serves one
-    direct and one ragged_decode completion through the port's Server
-    and OpenAIApi on the CPU; neither jax nor the JAX package (by exact
-    name or the `whisper_tensor_tpu.` prefix) is then in sys.modules.
+(b) A fresh interpreter writes a tiny llama checkpoint and a GGUF file
+    of its weights (the port's write_gguf, Q4_0 blocks) and serves one
+    direct, one ragged_decode, one host-quantized q4_0 and one GGUF
+    completion through the port's Server and OpenAIApi on the CPU;
+    neither jax nor the JAX package (by exact name or the
+    `whisper_tensor_tpu.` prefix) is then in sys.modules.
 """
 
 import ast
@@ -91,6 +93,35 @@ d.mkdir(parents=True, exist_ok=True)
     "intermediate_size": I, "vocab_size": V, "rope_theta": 10000.0,
     "rms_norm_eps": 1e-5, "max_position_embeddings": 64}))
 save_file(weights, str(d / "model.safetensors"))
+from whisper_tensor_tpu_torch.backends.cpu.dequant import quantize_blocks
+from whisper_tensor_tpu_torch.importers.gguf import write_gguf
+from whisper_tensor_tpu_torch.packed_format import PackedFormat
+from whisper_tensor_tpu_torch.tensor import PackedTensor
+names = {"input_layernorm": "attn_norm", "post_attention_layernorm": "ffn_norm",
+         "self_attn.q_proj": "attn_q", "self_attn.k_proj": "attn_k",
+         "self_attn.v_proj": "attn_v", "self_attn.o_proj": "attn_output",
+         "mlp.gate_proj": "ffn_gate", "mlp.up_proj": "ffn_up",
+         "mlp.down_proj": "ffn_down"}
+tensors = {"token_embd.weight": weights["model.embed_tokens.weight"],
+           "output_norm.weight": weights["model.norm.weight"]}
+for n, w in weights.items():
+    if n.startswith("model.layers."):
+        i, leaf = n[len("model.layers."):].split(".", 1)
+        n = f"blk.{i}.{names[leaf[:-len('.weight')]]}.weight"
+    elif n == "lm_head.weight":
+        n = "output.weight"
+    else:
+        continue
+    tensors[n] = (w if w.ndim == 1 else PackedTensor(
+        quantize_blocks(w, PackedFormat.Q4_0), PackedFormat.Q4_0, w.shape))
+for i in range(2):                      # qwen2's attention biases
+    for p, n in (("q", E), ("k", D), ("v", D)):
+        tensors[f"blk.{i}.attn_{p}.bias"] = np.zeros(n, np.float32)
+write_gguf(str(d / "tiny.gguf"), {
+    "general.architecture": "qwen2", "qwen2.block_count": 2,
+    "qwen2.embedding_length": E, "qwen2.attention.head_count": 2,
+    "qwen2.attention.head_count_kv": 1, "qwen2.attention.key_length": D,
+    "qwen2.feed_forward_length": I, "qwen2.vocab_size": V}, tensors)
 from whisper_tensor_tpu_torch.server.main import Server
 from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
 srv = Server(device="cpu")
@@ -98,8 +129,12 @@ srv = Server(device="cpu")
     "path": str(d), "dtype": "bf16", "max_len": 64})
 (ragged,) = srv.models.run_loader("transformers", {
     "path": str(d), "dtype": "bf16", "max_len": 64, "ragged_decode": True})
+(q4_0,) = srv.models.run_loader("transformers", {
+    "path": str(d), "dtype": "bf16", "max_len": 64, "quantize": "q4_0"})
+(packed,) = srv.models.run_loader("auto", {
+    "path": str(d / "tiny.gguf"), "max_len": 64})
 api = OpenAIApi(srv, "127.0.0.1", 0).start()
-for entry in (direct, ragged):
+for entry in (direct, ragged, q4_0, packed):
     c = http.client.HTTPConnection("127.0.0.1", api.port, timeout=120)
     c.request("POST", "/v1/completions", body=json.dumps(
         {"model": str(entry.id), "prompt": "hi", "max_tokens": 3,
@@ -108,6 +143,7 @@ for entry in (direct, ragged):
     print("STATUS", r.status, json.loads(r.read())["usage"]["completion_tokens"])
 api.stop()
 srv._batchers[ragged.id].stop()
+print("PACKED", [len(srv._text_iface(e)._packed) for e in (q4_0, packed)])
 print("FOREIGN", sorted(m for m in sys.modules
                         if m in ("jax", "whisper_tensor_tpu")
                         or m.startswith(("jax.", "whisper_tensor_tpu."))))
@@ -122,5 +158,6 @@ def test_a_served_completion_loads_nothing_of_jax(tmp_path):
         [sys.executable, "-c", _SERVE_SCRIPT, str(tmp_path / "tiny-llama")],
         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.count("STATUS 200 3") == 2, proc.stdout
+    assert proc.stdout.count("STATUS 200 3") == 4, proc.stdout
+    assert "PACKED [9, 9]" in proc.stdout, proc.stdout
     assert "FOREIGN []" in proc.stdout, proc.stdout

@@ -233,9 +233,9 @@ def test_unported_modes_raise(models):
     with pytest.raises(NotImplementedError, match="windowed"):
         TextInferenceInterface(m, max_len=MAX_LEN, device="cpu",
                                window_models={32: m})
-    with pytest.raises(NotImplementedError, match="q4_0"):
+    with pytest.raises(ValueError, match="unknown quantize mode 'q2_k'"):
         TextInferenceInterface(m, max_len=MAX_LEN, device="cpu",
-                               quantize="q4_0")
+                               quantize="q2_k")
     with pytest.raises(NotImplementedError, match="mesh"):
         TextInferenceInterface(m, max_len=MAX_LEN, device="cpu", mesh=object())
     port = TextInferenceInterface(m, max_len=MAX_LEN, device="cpu",

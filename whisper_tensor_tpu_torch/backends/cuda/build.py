@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Every `.cu` file under whisper_tensor_tpu_torch/csrc/ is compiled by
-nvcc, in one call, for Hopper (`-gencode arch=compute_90a,code=sm_90a`)
-into one shared library with a plain C interface, which is loaded with
-ctypes. No PyTorch header is included, so the build takes seconds.
+its own nvcc process, all started together, for Hopper (`-gencode
+arch=compute_90a,code=sm_90a`); one more nvcc links the objects into a
+shared library with a plain C interface, which is loaded with ctypes.
+No PyTorch header is included, so the build takes seconds, as long as
+its slowest source.
 
 The build runs at the first kernel launch of a process, never at
 import. Its output goes to <repo>/build/cuda/, named by a hash of the
@@ -30,7 +32,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +47,10 @@ _SIGNATURES = {
                            _LL, _LL, _LL, _LL, _I, ctypes.c_float, _P],
     # x, w_i8, scale, out, M, K, N, x_is_bf16, stream
     "wt_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, q, scales, offsets, out, M, K, N, G, bits, has_off, x_is_bf16,
+    # stream
+    "wt_packed_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
     # cache, update, pos (int64), B, H, L, D, S, update strides (b, h, s,
     # d), mode, stream
     "wt_ragged_kv_write": [_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
@@ -74,6 +80,23 @@ def _nvcc() -> str:
     return found
 
 
+def _run(cmds):
+    """Run the commands at once; (stdout + stderr of each) or raise."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        log = proc.communicate()[0]
+        logs.append(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
 def _compile() -> BuildInfo:
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -85,15 +108,20 @@ def _compile() -> BuildInfo:
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        logs = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                     for src, o in zip(sources, objs)])
+        logs += _run([[nvcc, NVCC_FLAGS[0], NVCC_FLAGS[1], "-shared", "-o",
+                       str(tmp), *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)      # atomic: a concurrent build never sees half
-    return BuildInfo(out, seconds, proc.stdout + proc.stderr)
+    return BuildInfo(out, seconds, "".join(logs))
 
 
 def library() -> ctypes.CDLL:

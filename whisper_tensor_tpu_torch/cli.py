@@ -12,6 +12,11 @@ Usage:
       --http-port 8000 [-c quantize=int8] [--device cuda]
       [-c ragged_decode=1 -c serve_batch=16 -c prefill_chunk=128]
 
+--model takes a transformers checkpoint dir or a llama-family GGUF
+file (its blocks stay packed on the device; -c packed_weights=0 loads
+them dequantized). -c quantize=q4_0|q8_0|q5_0|q4_k|q6_k quantizes a
+dense checkpoint's matmul weights into GGUF blocks on the host.
+
 `serve -c ragged_decode=1` serves the model through the port's
 ContinuousBatcher; the loader (importers/loaders.py) maps serve_batch,
 serve_chunk, serve_chunk_max, prefill_chunk and serve_auto_prefix onto

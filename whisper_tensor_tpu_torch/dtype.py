@@ -1,9 +1,9 @@
 """The port's DType, and DType <-> torch.dtype, host <-> device transfers.
 
 `DType`, `ONNX_TO_DTYPE` and `DTYPE_TO_ONNX` are the port's copy of
-whisper_tensor_tpu/dtype.py, trimmed to the scalar types: packed
-(block-quantized) formats, `AnyDType`, `promote` and the jax mapping
-are left out. Only the element types the text slice runs map to torch;
+whisper_tensor_tpu/dtype.py, trimmed to the scalar types: the packed
+(block-quantized) formats live in packed_format.py; `AnyDType`,
+`promote` and the jax mapping are left out. Only the element types the text slice runs map to torch;
 every other DType raises NotImplementedError naming itself.
 
 bf16 crosses between host and device as raw 16-bit words: numpy has no

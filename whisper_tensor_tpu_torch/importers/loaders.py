@@ -1,17 +1,21 @@
-"""Loader registry, the transformers loader and identify_and_load.
+"""Loader registry, the transformers and GGUF loaders, identify_and_load.
 
 The port's copy of whisper_tensor_tpu/importers/loaders.py, trimmed to
 the `transformers` loader for llama- and GPT-2-family checkpoints
-(config.json + safetensors) and the `auto` loader that probes for it.
-Its config keys and its bundle's `text` interface spec are the
-reference's (:124-522): dtype, quantize, max_len, ragged_decode,
-serve_batch, serve_chunk, serve_chunk_max, serve_admit_coalesce_ms,
-prefill_chunk and serve_auto_prefix; the end-of-sequence ids come from
-the checkpoint (`_resolve_eos`). Left out, each raising: other model
-types (ValueError, as the reference does for an unknown one), GPTQ/AWQ
-checkpoints, `lora`, `serve_adapters` and `decode_windows`
-(NotImplementedError), and the ONNX, GGUF, RWKV, TTS and image loaders
-(not registered).
+(config.json + safetensors), the `gguf` loader for llama-family GGUF
+files (:525-652) and the `auto` loader that probes for them. Their
+config keys and their bundles' `text` interface spec are the
+reference's: dtype, quantize (int8, or host quantization to q4_0, q8_0,
+q5_0, q4_k or q6_k), max_len, ragged_decode, serve_batch, serve_chunk,
+serve_chunk_max, serve_admit_coalesce_ms, prefill_chunk and
+serve_auto_prefix, and for GGUF packed_weights (keep the file's blocks
+packed on the device, default on); the end-of-sequence ids come from
+the checkpoint (`_resolve_eos`) or the GGUF metadata. Left out, each
+raising: other model types and GGUF archs (ValueError, as the reference
+does for an unknown one; NotImplementedError for the gemma and phi3
+GGUF adapters), GPTQ/AWQ checkpoints, `lora`, `serve_adapters` and
+`decode_windows` (NotImplementedError), and the ONNX, RWKV, TTS and
+image loaders (not registered).
 
 Like the reference, the loader embeds every weight in one in-memory
 ONNX ModelProto, then decodes it into the graph's TensorStore: host
@@ -149,7 +153,8 @@ class TransformersLoader(Loader):
                         "KV rows (0 = off)", default=0),
             ConfigField("quantize", ConfigFieldType.ENUM,
                         "weight quantization for the text interface",
-                        default="", choices=["", "int8"]),
+                        default="", choices=["", "int8", "q4_0", "q8_0",
+                                             "q5_0", "q4_k", "q6_k"]),
         ]
 
     def can_load(self, path: str) -> bool:
@@ -224,6 +229,111 @@ class TransformersLoader(Loader):
 
 
 @register_loader
+class GgufLoader(Loader):
+    NAME = "gguf"
+    DESCRIPTION = "GGUF quantized checkpoint (llama.cpp format)"
+
+    def config_schema(self):
+        return super().config_schema() + [
+            ConfigField("max_len", ConfigFieldType.INT, "KV cache slots",
+                        default=1024, min=16),
+            ConfigField("dtype", ConfigFieldType.ENUM, "compute dtype",
+                        default="bf16", choices=["f32", "bf16", "f16"]),
+            ConfigField("ragged_decode", ConfigFieldType.BOOL,
+                        "per-row positions for continuous batching",
+                        default=False),
+            ConfigField("prefill_chunk", ConfigFieldType.INT,
+                        "chunked-prefill piece width for the serving "
+                        "batcher (0 = whole-bucket prefill)", default=0),
+            ConfigField("serve_batch", ConfigFieldType.INT,
+                        "serving batcher slot count (max_batch)",
+                        default=8, min=1),
+            ConfigField("serve_chunk", ConfigFieldType.INT,
+                        "decode steps per batcher dispatch",
+                        default=16, min=1),
+            ConfigField("serve_chunk_max", ConfigFieldType.INT,
+                        "adaptive long-chunk length for steady-state "
+                        "decode (0 = off)", default=0),
+            ConfigField("serve_admit_coalesce_ms", ConfigFieldType.INT,
+                        "admission coalescing deadline (ms)", default=50),
+            ConfigField("serve_auto_prefix", ConfigFieldType.INT,
+                        "automatic prefix caching: LRU pool of N cached "
+                        "KV rows (0 = off)", default=0),
+            ConfigField("packed_weights", ConfigFieldType.BOOL,
+                        "keep GGUF quants packed on the device (the "
+                        "packed_matmul kernel; llama-family)", default=True),
+        ]
+
+    def can_load(self, path: str) -> bool:
+        if not os.path.isfile(path) or not path.endswith(".gguf"):
+            return False
+        with open(path, "rb") as f:
+            return f.read(4) == b"GGUF"
+
+    def load(self, config):
+        from ..symbolic_graph.tensor_store import LazyTensor
+        from ..tensor import NumericTensor
+        from .gguf import GGUFFile
+        from .recipes.llm.gguf_llama import (LLAMA_FAMILY, build_from_gguf,
+                                             build_from_gguf_packed)
+
+        if config.get("decode_windows"):
+            raise NotImplementedError(
+                "gguf loader option 'decode_windows' is not ported to "
+                "PyTorch yet")
+        g = GGUFFile(config["path"])
+        arch = g.architecture
+        if arch in ("phi3", "gemma", "gemma2"):
+            raise NotImplementedError(
+                f"gguf architecture {arch!r} is not ported to PyTorch yet")
+        if arch not in LLAMA_FAMILY:
+            raise ValueError(f"gguf architecture {arch!r} not supported yet")
+        max_len = int(config.get("max_len", 1024))
+        dtype = {"f32": DType.F32, "bf16": DType.BF16,
+                 "f16": DType.F16}[config.get("dtype", "bf16")]
+        ragged = bool(config.get("ragged_decode", False))
+        name = g.metadata.get("general.name", os.path.basename(config["path"]))
+        if bool(config.get("packed_weights", True)):
+            # sub-byte weights stay packed end to end: structure-only
+            # ONNX + TensorStore entries (lazy dense fallback + packed
+            # source for the packed_matmul kernel)
+            data, geometry, entries = build_from_gguf_packed(
+                g, max_len=max_len, dtype=dtype, pos_per_row=ragged)
+            model = Model.new_from_onnx(data, name=name)
+            store = model.graph.store
+            for wname, e in entries.items():
+                if "value" in e:
+                    store.put(wname, NumericTensor(e["value"]))
+                    continue
+                store.put(wname, LazyTensor(
+                    loader=(lambda ld=e["lazy"]: NumericTensor(ld()))))
+                if e["packed"] is not None:
+                    store.packed_sources[wname] = e["packed"]
+        else:
+            data, geometry = build_from_gguf(g, max_len=max_len, dtype=dtype,
+                                             pos_per_row=ragged)
+            model = Model.new_from_onnx(data, name=name)
+        eos = g.metadata.get("tokenizer.ggml.eos_token_id")
+        return LoadedBundle(models={name: model},
+                            interfaces={"text": {"model": name,
+                                                 "max_len": max_len,
+                                                 "ragged": ragged,
+                                                 "prefill_chunk": int(config.get("prefill_chunk", 0) or 0),
+                                                 "max_batch": int(config.get("serve_batch", 8) or 8),
+                                                 "chunk": int(config.get("serve_chunk", 16) or 16),
+                                                 "chunk_max": int(config.get("serve_chunk_max", 0) or 0),
+                                                 "admit_coalesce_s": float(config.get("serve_admit_coalesce_ms", 50) or 0) / 1e3,
+                                                 "auto_prefix": int(config.get("serve_auto_prefix", 0) or 0),
+                                                 "quantize": config.get("quantize") or "",
+                                                 "eos_token_id":
+                                                     (int(eos) if eos
+                                                      is not None else None),
+                                                 **geometry}},
+                            meta={"architecture": arch,
+                                  "quantized": True})
+
+
+@register_loader
 class AutoLoader(Loader):
     NAME = "auto"
     DESCRIPTION = "Probe the path and delegate to the right loader"
@@ -237,7 +347,8 @@ class AutoLoader(Loader):
             if name != "auto" and loader.can_load(path):
                 return loader.load(config)
         raise ValueError(f"cannot identify model format at {path!r} (the "
-                         f"port loads transformers checkpoint dirs only)")
+                         f"port loads transformers checkpoint dirs and "
+                         f"GGUF files only)")
 
 
 def identify_and_load(path: str, **config) -> LoadedBundle:

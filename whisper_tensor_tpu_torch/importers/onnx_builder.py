@@ -6,24 +6,53 @@ weights.rs weight managers). Python redesign: one generic `node()`
 emitter with attribute coercion plus typed sugar methods.
 
 The port's copy of whisper_tensor_tpu/importers/onnx_builder.py, trimmed
-to the one weight storage the port loads: every initializer embedded in
-the ONNX bytes. The reference's external .bin file, structure-only,
-sink and origin-reference strategies (with LazyWeight), `hint_shape`
-and `gemm` are left out: the port's recipes and loader use none of
-them.
+to the weight storages the port's loaders use (WeightStorage, :29-70):
+"embed" (every initializer inline, the default), "none" (structure
+only) and "sink" (structure only, every initializer value handed to a
+dict: the GGUF loader installs them in the TensorStore itself). The
+reference's external .bin file and origin-reference strategies (with
+LazyWeight), `hint_shape` and `gemm` are left out.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from ..dtype import DTYPE_TO_ONNX, DType
 from ..onnx_pb import (AttributeProto, AttrType, GraphProto, ModelProto,
-                       NodeProto, OperatorSetIdProto, TensorShapeDim,
-                       TensorShapeProto, TensorTypeProto, TypeProto,
-                       ValueInfoProto, numpy_to_tensor_proto)
+                       NodeProto, OperatorSetIdProto, TensorProto,
+                       TensorShapeDim, TensorShapeProto, TensorTypeProto,
+                       TypeProto, ValueInfoProto, numpy_to_tensor_proto)
+
+
+@dataclass
+class WeightStorage:
+    """Storage strategy for initializer payloads.
+
+    kind: "embed" (raw_data inline), "none" (structure only — payloads
+    dropped; reference WeightStorageStrategy::None), "sink" (structure
+    only in the ONNX bytes, but every initializer VALUE lands in the
+    given dict — the caller installs them into the TensorStore directly,
+    so large payloads never round-trip through protobuf serialization).
+    """
+
+    kind: str = "embed"
+    sink: Optional[dict] = None
+
+    @staticmethod
+    def embed() -> "WeightStorage":
+        return WeightStorage("embed")
+
+    @staticmethod
+    def none() -> "WeightStorage":
+        return WeightStorage("none")
+
+    @staticmethod
+    def to_sink(sink: dict) -> "WeightStorage":
+        return WeightStorage("sink", sink=sink)
 
 
 def _shape_proto(dims: Sequence[Union[int, str]]) -> TensorShapeProto:
@@ -184,19 +213,28 @@ class OnnxBuilder:
                          interleaved=1 if interleaved else None)
 
     # -- build ----------------------------------------------------------------
-    def build_graph_proto(self) -> GraphProto:
+    def build_graph_proto(self, storage: WeightStorage) -> GraphProto:
         g = GraphProto(name=self.name, node=self.nodes,
                        input=self.inputs, output=self.outputs,
                        value_info=self.value_infos)
         for name, w in self.initializers.items():
             arr = np.asarray(w)
-            g.initializer.append(
-                numpy_to_tensor_proto(arr, name, DType.from_numpy(arr.dtype)))
+            dt = DType.from_numpy(arr.dtype)
+            if storage.kind == "sink":
+                storage.sink[name] = w
+            if storage.kind in ("none", "sink"):
+                g.initializer.append(TensorProto(
+                    name=name, data_type=DTYPE_TO_ONNX[dt],
+                    dims=[int(d) for d in arr.shape]))
+                continue
+            g.initializer.append(numpy_to_tensor_proto(arr, name, dt))
         return g
 
-    def build(self, producer: str = "whisper-tensor-tpu") -> bytes:
+    def build(self, storage: Optional[WeightStorage] = None,
+              producer: str = "whisper-tensor-tpu") -> bytes:
+        storage = storage or WeightStorage.embed()
         m = ModelProto(ir_version=10, producer_name=producer,
-                       graph=self.build_graph_proto())
+                       graph=self.build_graph_proto(storage))
         m.opset_import = [OperatorSetIdProto(domain="", version=self.opset)]
         for dom, ver in self.custom_opsets.items():
             m.opset_import.append(OperatorSetIdProto(domain=dom, version=ver))

@@ -12,7 +12,7 @@ caches are donated buffers updated in place via CacheWrite
 The port's copy of whisper_tensor_tpu/importers/recipes/llm/gpt2.py,
 without the training graph, the HF-module weight getter, the weight
 storage strategies other than embedding and the `weight_map`
-out-parameter (LoRA and packed GGUF weights, not ported).
+out-parameter (LoRA serving, not ported).
 """
 
 from __future__ import annotations

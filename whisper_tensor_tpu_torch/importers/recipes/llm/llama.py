@@ -6,9 +6,11 @@ step graph with fixed-shape KV caches + scalar position; RMSNorm,
 rotary embeddings (NeoX halves), GQA fused attention, SwiGLU MLP.
 
 The port's copy of whisper_tensor_tpu/importers/recipes/llm/llama.py,
-without the training graph, the HF-module weight getter, the weight
-storage strategies other than embedding, the `weight_map` out-parameter
-(LoRA and packed GGUF weights, not ported) and `logits_last_only`.
+without the training graph, the HF-module weight getter and
+`logits_last_only`. `storage` and the `weight_map` out-parameter
+(:88-125, :280-304) are the reference's: the packed GGUF loader builds
+the graph structure-only into a sink and binds the matmul weights that
+weight_map names to packed sources.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from ....dtype import DType
-from ...onnx_builder import OnnxBuilder
+from ...onnx_builder import OnnxBuilder, WeightStorage
 
 
 @dataclass
@@ -88,13 +90,19 @@ def rope_tables(cfg: LlamaConfig, max_len: int):
 
 def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
                      max_len: int, dtype: DType = DType.F32,
-                     pos_per_row: bool = False) -> bytes:
+                     storage: Optional[WeightStorage] = None,
+                     pos_per_row: bool = False,
+                     weight_map: Optional[dict] = None) -> bytes:
     """HF llama state-dict names; HF Linear weights are (out, in) and are
-    transposed once at import into matmul-RHS layout. Every weight is
-    embedded in the returned ONNX bytes.
+    transposed once at import into matmul-RHS layout.
 
     pos_per_row=True gives `pos` shape (batch,) — ragged continuous
-    batching (see recipes/llm/gpt2.py and server/batching.py)."""
+    batching (see recipes/llm/gpt2.py and server/batching.py).
+
+    weight_map (optional out-param): records {initializer_name:
+    hf_name} for every 2-D matmul-RHS weight — the packed-GGUF loader
+    uses it to bind those initializers to lazily-loaded packed tensors
+    instead of dense payloads."""
     E = cfg.hidden_size
     Hq = cfg.num_attention_heads
     Hkv = cfg.num_key_value_heads
@@ -111,7 +119,9 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
         return np.ascontiguousarray(w(name).T)
 
     def lin(init_name: str, hf_name: str) -> str:
-        # matmul-RHS weight: dense transposed payload
+        # matmul-RHS weight: dense transposed payload + weight_map entry
+        if weight_map is not None:
+            weight_map[init_name] = hf_name
         return b.initializer(init_name, wT(hf_name))
 
     b = OnnxBuilder(f"{cfg.model_type}_step", opset=23, custom_opsets={"wt": 1})
@@ -253,4 +263,4 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
     for i, (nk, nv) in enumerate(cache_outs):
         b.output(nk, dtype, ["batch", Hkv, max_len, D])
         b.output(nv, dtype, ["batch", Hkv, max_len, D])
-    return b.build()
+    return b.build(storage or WeightStorage.embed())

@@ -10,18 +10,23 @@ the step graph runs eagerly through GraphExecutor:
   * positions, tokens and sampling state stay on the device, so the
     loop never waits for the device until the tokens are read back.
 
-Ported: dense and `quantize="int8"` weights, q/k/v and gate/up matmul
-fusion (always on: the reference turns it off only for meshes and LoRA,
-which are not ported), prompt buckets, greedy decoding, SamplingParams
-on a seeded torch.Generator, logit_bias, and the per-row sampling the
-ContinuousBatcher runs (`_pick_token_rows`). SamplingParams, the
-prompt buckets and the per-row sampling arrays are the port's copy of
-the reference's (:27-56, :109-142, :224-233); the default buckets go on
-past the reference's 1024 to 8192, so a long prompt prefills at its
-own bucket instead of failing. Not ported yet, and
-raising NotImplementedError: packed and host-quantized weights,
-windowed decode, meshes, LoRA adapters, beam search, DFA-constrained
-decoding.
+Ported: dense and `quantize="int8"` weights; packed weights kept
+packed on the device through the packed_matmul kernel, both from a GGUF
+file's packed sources (`quantize="packed"`, or automatically when the
+loader recorded packed sources) and host-quantized from any dense
+checkpoint (`quantize="q4_0" | "q8_0" | "q5_0" | "q4_k" | "q6_k"`,
+reference :341-390; weights that are not 2-D or whose K is not a
+multiple of the block stay dense); q/k/v and gate/up matmul fusion
+(always on: the reference turns it off only for meshes and LoRA, which
+are not ported), prompt buckets, greedy decoding, SamplingParams on a
+seeded torch.Generator, logit_bias, and the per-row sampling the
+ContinuousBatcher runs (`_pick_token_rows`). SamplingParams, the prompt
+buckets and the per-row sampling arrays are the port's copy of the
+reference's (:27-56, :109-142, :224-233); the default buckets go on
+past the reference's 1024 to 8192, so a long prompt prefills at its own
+bucket instead of failing. Not ported yet, and raising
+NotImplementedError: windowed decode, meshes, LoRA adapters, beam
+search, DFA-constrained decoding.
 """
 
 from __future__ import annotations
@@ -33,11 +38,15 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..backends.cpu.dequant import quantize_blocks
 from ..backends.torch_exec.compiler import GraphExecutor
 from ..device import resolve_device
 from ..dtype import DType, host_to_device, to_host, to_torch
-from ..milli.transforms import fuse_parallel_matmuls, quantize_matmul_weights
+from ..milli.transforms import (fuse_parallel_matmuls, pack_matmul_nodes,
+                                quantize_matmul_weights)
 from ..model import Model
+from ..packed_format import PackedFormat
+from ..tensor import PackedTensor
 from ..weights import carry_weights
 
 
@@ -268,22 +277,25 @@ class TextInferenceInterface:
                  prompt_buckets: Sequence[int] = DEFAULT_PROMPT_BUCKETS,
                  tokenizer=None, eos_token_id=None,
                  quantize: Optional[str] = None,
+                 weight_dtype: Optional[DType] = None,
                  window_models=None, mesh=None,
                  device=None):
         if window_models:
             raise _not_ported("windowed decode (window_models)")
         if mesh is not None:
             raise _not_ported("multi-device serving (mesh)")
-        if quantize not in (None, "int8"):
-            raise _not_ported(f"quantize={quantize!r} (packed / host-"
-                              f"quantized weights)")
-        if quantize is None and getattr(model.graph.store,
-                                        "packed_sources", None):
-            raise _not_ported("packed GGUF/GPTQ/AWQ weights")
         self.device = resolve_device(device)
         self.model = model
         self.max_len = max_len
         self.cache_dtype = cache_dtype
+        # the type a packed store entry dequantizes to on the host; the
+        # KV cache's type never drags the weights down (reference
+        # :284-291)
+        if weight_dtype is None:
+            weight_dtype = (cache_dtype if cache_dtype in
+                            (DType.F32, DType.F16, DType.BF16)
+                            else DType.BF16)
+        self.weight_dtype = weight_dtype
         self.prompt_buckets = [b for b in prompt_buckets if b <= max_len]
         if not self.prompt_buckets:
             raise ValueError(f"no prompt bucket <= max_len={max_len} "
@@ -305,16 +317,44 @@ class TextInferenceInterface:
         live = [n for n in milli.inputs
                 if n in weight_inputs or n in self._fused]
         self._quantized: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        self._packed: Dict[str, Dict[str, np.ndarray]] = {}
+        store = model.graph.store
         if quantize == "int8":
-            self._quantized = quantize_matmul_weights(milli, live,
-                                                      self._dense_np)
+            self._quantized = quantize_matmul_weights(
+                milli, live, lambda n: self._dense_np(n, DType.F32))
+        elif quantize == "packed" or (quantize is None
+                                      and store.packed_sources):
+            # GGUF weights stay packed on the device (reference :341-355),
+            # automatically when the loader recorded packed sources
+            self._packed = pack_matmul_nodes(
+                milli, live, store, sources=self._packed_sources_with_fused(
+                    dict(store.packed_sources)))
+        elif quantize in ("q4_0", "q8_0", "q5_0", "q4_k", "q6_k"):
+            # host-quantize any dense checkpoint into GGUF blocks
+            # (reference :356-388); weights that are not 2-D, or whose K
+            # is not a multiple of max(64, block), stay dense
+            fmt = PackedFormat[quantize.upper()]
+
+            def q_source(n):
+                def make():
+                    w = self._dense_np(n, DType.F32)
+                    if w.ndim != 2 or w.shape[0] % max(64, fmt.block_size):
+                        return None
+                    return PackedTensor(
+                        quantize_blocks(np.ascontiguousarray(w.T), fmt),
+                        fmt, (w.shape[1], w.shape[0]))           # (N, K)
+                return make
+
+            self._packed = pack_matmul_nodes(
+                milli, live, store, sources={n: q_source(n) for n in live})
+        elif quantize is not None:
+            raise ValueError(f"unknown quantize mode {quantize!r}")
         self.weight_names = [n for n in milli.inputs
                              if n in weight_inputs or n in self._fused
-                             or n.endswith("::scale")]
-        self.weight_dtypes = {
-            n: (DType.F32 if n.endswith("::scale")
-                else DType.I8 if n in self._quantized else self._declared(n))
-            for n in self.weight_names}
+                             or n.endswith(("::scale", "::pscales",
+                                            "::poffsets"))]
+        self.weight_dtypes = {n: self._weight_dtype(n)
+                              for n in self.weight_names}
         self.cache_in_names = [n for n in milli.inputs
                                if n.startswith("cache_")]
         self.cache_out_names = [n for n in milli.outputs
@@ -337,14 +377,44 @@ class TextInferenceInterface:
         self.row_extra_names: List[str] = []
 
     # ------------------------------------------------------------------
-    def _dense_np(self, n: str) -> np.ndarray:
+    def _dense_np(self, n: str, dtype: Optional[DType] = None) -> np.ndarray:
         """Dense host weight by milli input name; a fused input is its
-        members concatenated column-wise (reference :457)."""
+        members concatenated column-wise (reference :457). A packed store
+        entry dequantizes to `dtype` (default weight_dtype)."""
         store = self.model.graph.store
+        dt = dtype or self.weight_dtype
         if n in self._fused:
-            return np.concatenate([store.get_numeric(m).numpy()
+            return np.concatenate([store.get_numeric(m, dt).numpy()
                                    for m, _ in self._fused[n]], axis=1)
-        return store.get_numeric(n).numpy()
+        return store.get_numeric(n, dt).numpy()
+
+    def _packed_sources_with_fused(self, sources: Dict) -> Dict:
+        """Extend GGUF packed sources with fused entries (reference
+        :469-513): PackedTensor rows are output channels, so a fused
+        (N1+N2, K) tensor is the raw byte concatenation of its members.
+        Members of different formats fuse to None: the fused weight then
+        stays a dense MatMul."""
+        for fname, members in self._fused.items():
+            if not all(m in sources for m, _ in members):
+                continue
+
+            def make(members=members):
+                pts = [sources[m]() for m, _ in members]
+                if not all(isinstance(p, PackedTensor) for p in pts):
+                    return None
+                fmts = {p.fmt for p in pts}
+                if len(fmts) != 1 or any(len(p.shape) != 2 for p in pts):
+                    return None
+                K = pts[0].shape[1]
+                if any(p.shape[1] != K for p in pts):
+                    return None
+                data = np.concatenate(
+                    [np.frombuffer(p.data, dtype=np.uint8) for p in pts])
+                return PackedTensor(data.tobytes(), pts[0].fmt,
+                                    (sum(p.shape[0] for p in pts), K))
+
+            sources[fname] = make
+        return sources
 
     def _declared(self, n: str) -> DType:
         """The element type the model declares for a weight input (a
@@ -352,6 +422,18 @@ class TextInferenceInterface:
         g = self.model.graph
         name = self._fused[n][0][0] if n in self._fused else n
         return g.tensors[g.by_name[name]].info.dtype
+
+    def _weight_dtype(self, n: str) -> DType:
+        """The device type of weight input `n`: f32 scales and offsets,
+        int8 quantized matrices, packed q in uint8 (bits 4) or int8
+        (bits 8), else the model's declared type."""
+        if n.endswith(("::scale", "::pscales", "::poffsets")):
+            return DType.F32
+        if n in self._quantized:
+            return DType.I8
+        if n in self._packed:
+            return DType.U8 if int(self._packed[n]["bits"]) == 4 else DType.I8
+        return self._declared(n)
 
     def host_weights(self) -> Dict[str, np.ndarray]:
         """{milli input name: host array}, assembled as the reference's
@@ -362,6 +444,12 @@ class TextInferenceInterface:
                 out[n] = self._quantized[n[:-7]][1]
             elif n in self._quantized:
                 out[n] = self._quantized[n][0]
+            elif n.endswith("::pscales"):
+                out[n] = self._packed[n[:-9]]["scales"]
+            elif n.endswith("::poffsets"):
+                out[n] = self._packed[n[:-10]]["offsets"]
+            elif n in self._packed:
+                out[n] = self._packed[n]["q"]
             else:
                 out[n] = self._dense_np(n)
         return out

@@ -6,7 +6,7 @@ their KINDs. Importing this package registers every lowering the port
 has; the filled table is LOWERINGS.
 """
 
-from .. import transforms  # noqa: F401  (QuantMatMul)
+from .. import transforms  # noqa: F401  (QuantMatMul, PackedMatMul)
 from ..registry import LOWERINGS
 from .attention import AttentionMilli, RotaryMilli
 from .basic import (Cast, CastLike, Constant, MatMul, SimpleBinary,

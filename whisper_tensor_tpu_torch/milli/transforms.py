@@ -9,9 +9,14 @@ that the text interfaces run:
     function of whisper_tensor_tpu/backends/pallas/quant_matmul.py:
     23-37) computing the weights and scales;
   * QuantMatMulMilli, whose lowering runs the port's int8_matmul
-    (backends/cuda/quant_matmul.py).
-LoRA injection, packed (GGUF) matmuls and the windowed-decode reuse of
-precomputed weights are not ported.
+    (backends/cuda/quant_matmul.py);
+  * pack_matmul_nodes (:515-571): MatMul(x, W) -> PackedMatMul(x, q,
+    scales, offsets) for weights with a packed source (GGUF blocks, or
+    a dense weight quantized on the host), and PackedMatMulMilli
+    (:474-512), whose lowering runs the port's packed_matmul
+    (backends/cuda/packed_matmul.py).
+LoRA injection and the windowed-decode reuse of precomputed weights are
+not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..backends.cuda.packed_matmul import (dequant_repacked, packed_matmul,
+                                           repack_packed_tensor)
 from ..backends.cuda.quant_matmul import int8_matmul
 from ..graph import new_global_id
 from ..tensor_info import Level, TensorInfo
@@ -199,7 +206,101 @@ def fuse_parallel_matmuls(
     return fused
 
 
+@dataclass
+class PackedMatMulMilli(MilliOp):
+    """x (…,K) float @ dequant(q, scales, offsets) for GGUF blocks kept
+    packed on the device (backends/cuda/packed_matmul.py layout).
+
+    inputs: x, q (K//2,N u8 nibble-packed | K,N i8), scales (K//G,N)
+    f32, offsets (K//G,N) f32. Reference: QuantMatMul executing GGUF
+    without float materialization (src/packed_tensor.rs:96)."""
+
+    bits: int = 4
+    # statically elides the offset subtraction for all-zero-offset
+    # layouts (Q8_0, plain int8) in the 8-bit kernel path
+    has_off: bool = True
+    KIND = "PackedMatMul"
+
+    def eval(self, inputs):
+        x, q, s, o = inputs
+        w = dequant_repacked({"q": np.asarray(q), "scales": np.asarray(s),
+                              "offsets": np.asarray(o),
+                              "bits": np.int8(self.bits)})
+        out = x.astype(np.float32) @ w
+        return [out.astype(x.dtype)]
+
+    def infer(self, infos):
+        x, q = infos[0], infos[1]
+        dx, dq = x.dims(), q.dims()
+        if dx is not None and dq is not None:
+            return [TensorInfo.shaped(x.dtype, list(dx[:-1]) + [dq[-1]])]
+        if x.rank is not None:
+            return [TensorInfo.ranked(x.dtype, x.rank)]
+        return [TensorInfo.minimal(x.dtype)]
+
+
+def pack_matmul_nodes(
+    milli: MilliGraph,
+    weight_names: Sequence[str],
+    store,
+    sources: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Dict[str, np.ndarray]]:
+    """Mutate `milli`: every MatMul whose 2-D RHS weight has a packed
+    GGUF source recorded in ``store.packed_sources`` becomes
+    PackedMatMul with `<name>::pscales` / `<name>::poffsets` inputs;
+    the nibble/int8 array feeds under the original weight name. Returns
+    {name: repacked device arrays} for the caller to feed.
+
+    This is how GGUF weights execute WITHOUT ever holding a dense float
+    copy on the device (reference QuantMatMul path).
+
+    `sources` overrides store.packed_sources: {name: () -> PackedTensor
+    | None} — used by the interface's host-quantize path (quantize=
+    "q4_0"/"q8_0"/... on ANY dense checkpoint, not just GGUF files)."""
+    from .ops import MatMul   # (milli.ops imports this module)
+
+    if sources is None:
+        sources = getattr(store, "packed_sources", None) or {}
+    name_to_tid = dict(milli.inputs)
+    packed: Dict[str, Dict[str, np.ndarray]] = {}
+    extra_tids: Dict[str, Tuple[int, int]] = {}
+    for node in milli.nodes:
+        if not isinstance(node.op, MatMul) or len(node.inputs) != 2:
+            continue
+        rhs = node.inputs[1]
+        rhs_name = None
+        for name in weight_names:
+            if name_to_tid.get(name) == rhs:
+                rhs_name = name
+                break
+        if rhs_name is None or rhs_name not in sources:
+            continue
+        if rhs_name not in packed:
+            pt = sources[rhs_name]()
+            rp = repack_packed_tensor(pt) if pt is not None else None
+            if rp is None:
+                continue
+            packed[rhs_name] = rp
+            extra_tids[rhs_name] = (
+                milli.add_input(f"{rhs_name}::pscales"),
+                milli.add_input(f"{rhs_name}::poffsets"))
+        if rhs_name not in packed:
+            continue
+        s_tid, o_tid = extra_tids[rhs_name]
+        node.op = PackedMatMulMilli(
+            bits=int(packed[rhs_name]["bits"]),
+            has_off=bool(packed[rhs_name].get("has_off", True)))
+        node.inputs = [node.inputs[0], rhs, s_tid, o_tid]
+    return packed
+
+
 @lowering("QuantMatMul")
 def quant_matmul(op, inputs, static, device):
     x, w_i8, scale = inputs
     return [int8_matmul(x, w_i8, scale)]
+
+
+@lowering("PackedMatMul")
+def packed_matmul_lowering(op, inputs, static, device):
+    x, q, scales, offsets = inputs
+    return [packed_matmul(x, q, scales, offsets, op.bits, op.has_off)]

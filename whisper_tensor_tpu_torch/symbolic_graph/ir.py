@@ -10,8 +10,9 @@ NodeProtos via the registry.
 port's GraphExecutor runs.
 
 The port's copy of whisper_tensor_tpu/symbolic_graph/ir.py, trimmed to
-ONNX ingest and whole-graph lowering: graph surgery, ONNX re-export,
-control-flow sub-graphs and packed initializers are left out.
+ONNX ingest and whole-graph lowering: graph surgery, ONNX re-export
+and control-flow sub-graphs are left out. An initializer whose store
+entry is lazy (the GGUF loader's) is not materialized to lower it.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from ..symbolic import SymbolicResolver
 from ..tensor import NumericTensor
 from ..tensor_info import TensorInfo
 from .ops.base import Attrs, LowerCtx, Operation, registry
-from .tensor_store import TensorStore
+from .tensor_store import LazyTensor, TensorStore
 
 # Initializers at or below this many elements are baked into the milli
 # graph as constants (so trace-time shape folding sees them); larger
@@ -317,12 +318,22 @@ class SymbolicGraph:
     def _lower_initializer(self, ctx: LowerCtx, milli: MilliGraph, t: STensor,
                            weight_inputs: Dict[str, str],
                            bake_small_constants: bool = True) -> int:
-        if t.name in self.store:
-            stored = self.store.get(t.name)
-            if bake_small_constants and stored.size <= CONST_BAKE_MAX_ELEMENTS:
+        if t.name in self.store and bake_small_constants:
+            # a small NumericTensor bakes as a constant; a LazyTensor is
+            # materialized only if it is that small (reference :387-404,
+            # which materializes every lazy entry to count it)
+            stored = self.store.raw(t.name)
+            if isinstance(stored, LazyTensor):
+                dims = t.info.dims() if t.info is not None else None
+                small = dims is not None and all(d.is_known for d in dims) \
+                    and int(np.prod([int(d.value()) for d in dims])) \
+                    <= CONST_BAKE_MAX_ELEMENTS
+                stored = self.store.get(t.name) if small else None
+            if isinstance(stored, NumericTensor) \
+                    and stored.size <= CONST_BAKE_MAX_ELEMENTS:
                 return ctx.const(stored.numpy())
-        # big weight (or one whose payload comes with a shared store):
-        # a runtime input
+        # big weight (or one whose payload comes with a shared store, or
+        # a packed one): a runtime input
         name = t.name
         info = t.info
         mt = milli.add_input(name, info)

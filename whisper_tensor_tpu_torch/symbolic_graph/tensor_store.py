@@ -1,31 +1,51 @@
 """TensorStore: the weights of a symbolic graph, by name.
 
 The port's copy of whisper_tensor_tpu/symbolic_graph/tensor_store.py,
-trimmed to in-memory NumericTensors: the step graphs the port loads
-embed every weight in their ONNX bytes. Out-of-line and packed
-(GGUF-quantized) entries are not ported; `packed_sources` stays as an
-empty map, which the text interface checks before it runs a model.
+trimmed to what the port's loaders store: in-memory NumericTensors (the
+transformers loader embeds every weight in its ONNX bytes),
+PackedTensors, and LazyTensors (:58-64), whose loader runs on first use
+and is cached (the GGUF loader's dense fallback of a packed weight).
+`packed_sources` maps a weight name to a zero-argument loader of its
+packed source (GGUF orientation), which the text interface keeps packed
+on the device. The out-of-line file entries (ExternalBinary,
+ExternalPacked) are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Union
 
-from ..tensor import NumericTensor
+from ..dtype import DType
+from ..tensor import NumericTensor, PackedTensor
+
+
+@dataclass
+class LazyTensor:
+    """Arbitrary deferred loader (e.g. a GGUF tensor's dequantization)."""
+
+    loader: Callable[[], Union[NumericTensor, PackedTensor]]
+
+
+Stored = Union[NumericTensor, PackedTensor, LazyTensor]
 
 
 class TensorStore:
     def __init__(self) -> None:
-        self._store: Dict[str, NumericTensor] = {}
-        # weight name -> loader of a packed source (not ported: stays empty)
+        self._store: Dict[str, Stored] = {}
+        self._cache: Dict[str, Union[NumericTensor, PackedTensor]] = {}
+        # weight name -> zero-arg loader of the ORIGINAL PackedTensor
+        # (GGUF orientation) for weights whose dense entry is a
+        # transposed dequantization (milli.transforms.pack_matmul_nodes)
         self.packed_sources: Dict[str, Any] = {}
 
-    def put(self, name: str, t: NumericTensor) -> None:
-        if not isinstance(t, NumericTensor):
+    def put(self, name: str, t: Stored) -> None:
+        if not isinstance(t, (NumericTensor, PackedTensor, LazyTensor)):
             raise NotImplementedError(
                 f"stored tensor {name!r} of type {type(t).__name__}: only "
-                f"in-memory NumericTensors are ported")
+                f"NumericTensor, PackedTensor and LazyTensor are ported")
         self._store[name] = t
+        self._cache.pop(name, None)
 
     def __contains__(self, name: str) -> bool:
         return name in self._store
@@ -33,15 +53,33 @@ class TensorStore:
     def names(self):
         return self._store.keys()
 
-    def get(self, name: str) -> NumericTensor:
+    def raw(self, name: str) -> Stored:
         return self._store[name]
 
-    def get_numeric(self, name: str) -> NumericTensor:
-        return self._store[name]
+    def get(self, name: str) -> Union[NumericTensor, PackedTensor]:
+        """Materialize (numeric or packed). Cached."""
+        if name in self._cache:
+            return self._cache[name]
+        s = self._store[name]
+        out = s.loader() if isinstance(s, LazyTensor) else s
+        self._cache[name] = out
+        return out
+
+    def get_numeric(self, name: str,
+                    dequant_dtype: DType = DType.F32) -> NumericTensor:
+        t = self.get(name)
+        if isinstance(t, PackedTensor):
+            return t.dequantize(dequant_dtype)
+        return t
 
     def total_bytes(self) -> int:
-        return sum(int(s.size * (s.dtype.size_bytes or 0))
-                   for s in self._store.values())
+        n = 0
+        for s in self._store.values():
+            if isinstance(s, NumericTensor):
+                n += int(s.size * (s.dtype.size_bytes or 0))
+            elif isinstance(s, PackedTensor):
+                n += len(s.data)
+        return n
 
     def __len__(self) -> int:
         return len(self._store)
