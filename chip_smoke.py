@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (whisper_tensor_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--layers N] [--plant-fault]
+    python3 chip_smoke.py [--layers N] [--plant-fault] [--kernels-only]
+                          [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -26,9 +27,11 @@ Phases:
      and additive modes, and ragged edges; packed_matmul runs the
      layouts of Q4_0, Q4_K, Q6_K (int8 values, G 16), Q8_0 (no offsets)
      and a 128-row group at the fused q/k/v, o, gate/up, down and
-     lm_head shapes, M 1, 16, 128 and 512 for Q4_0 and M 1 and 512 for
-     the others, with torch's _weight_int4pack_mm as the 4-bit
-     yardstick;
+     lm_head shapes, M 1, 16, 128, 512 and 2048 for Q4_0 and M 1 and
+     512 for the others, with torch's _weight_int4pack_mm as the 4-bit
+     yardstick, then f32 x at M 512 and 2048 and both of its paths at
+     M 1 to 16; at decode shapes it also prints the device time alone
+     and the host's microseconds a call;
   3. the direct path: a Llama-3-8B-width checkpoint (hidden 4096, 32/8
      heads of 128, FFN 14336, vocab 128256, rope theta 5e5; depth cut to
      --layers, random weights from a seed) is written to disk, loaded by
@@ -183,6 +186,26 @@ def device_time_ms(torch, fn, argsets, reps: int = 7, inner: int = 20) -> float:
     return statistics.median(times)
 
 
+def host_us(torch, fn, argsets, reps: int = 5, inner: int = 100) -> float:
+    """Median host microseconds a call: the wall time to enqueue `inner`
+    calls behind a spin kernel (torch.cuda._sleep), which keeps the
+    device busy so that no call waits on it; the wrapper's own cost and
+    its launches, what holds a host-bound decode step back."""
+    for a in argsets[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    times, i = [], 0
+    for _ in range(reps):
+        torch.cuda._sleep(50_000_000)
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn(*argsets[i % len(argsets)])
+            i += 1
+        times.append((time.perf_counter() - t0) / inner * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def bound(nbytes: float, flops: float) -> tuple:
     """(bound_ms, bound_by): the least time for the work, the larger of
     its bytes over the memory rate and its operations over the bf16
@@ -206,7 +229,7 @@ def worst_share(got, ref, magnitude, bound):
 def phase2(torch, results):
     from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
     from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
-        decode_attention, decode_attention_plain)
+        decode_attention, decode_attention_plain, decode_splits)
     from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
         int8_matmul, int8_matmul_plain)
 
@@ -222,9 +245,12 @@ def phase2(torch, results):
 
     Hq, Hkv, D, L = 32, 8, 128, MAX_LEN
     scale = 1.0 / math.sqrt(D)
-    worst, timing = 0.0, None
-    for B, pos_list in ((1, [L - 1]), (1, [1234]),
-                        (8, [0, 1, 17, 511, 1000, L - 2, L - 1, 5000])):
+    worst, timing, shapes = 0.0, None, {}
+    # B=1 all keys live, the smoke's direct decode (pos near 100), a
+    # () int32 pos, phase 4's ragged slots, 16 full rows
+    for B, pos_list in ((1, [L - 1]), (1, [100]), (1, [1234]),
+                        (8, [0, 1, 17, 511, 1000, L - 2, L - 1, 5000]),
+                        (16, [L - 1] * 16)):
         kv_bytes = 2 * B * Hkv * L * D * 2
         sets = []
         for _ in range(copies_for(kv_bytes)):
@@ -242,6 +268,10 @@ def phase2(torch, results):
             q.float(), k, v.abs(), pos, scale), agreement_bound)
         ms = time_ms(torch, decode_attention, sets)
         plain_ms = time_ms(torch, decode_attention_plain, sets)
+        # device time alone (calls queued behind a spin kernel): at these
+        # sizes the times above are the host's launch rate
+        dev_ms = device_time_ms(torch, decode_attention, sets)
+        h_us = host_us(torch, decode_attention, sets)
         # the library call: SDPA over each row's live keys (a boolean
         # mask), GQA by head index
         live = (torch.arange(L, device=dev)
@@ -250,13 +280,24 @@ def phase2(torch, results):
         calls = [(sdpa_gqa(torch, q, k, v, m, scale),)
                  for q, k, v, m in lsets]
         lib_ms = time_ms(torch, lambda f: f(), calls)
+        lib_dev = device_time_ms(torch, lambda f: f(), calls)
         n_live = int(live.sum())
         bms, bby = bound(2 * B * Hq * D * 2 + 2 * Hkv * n_live * D * 2,
                          4 * Hq * D * n_live)
+        splits, chunk = decode_splits(B, Hq, Hkv, L,
+                                      torch.cuda.current_device())
+        label = f"B={B} pos={pos_list[0] if B == 1 else 'ragged' if B == 8 else 'L-1'}"
+        shapes[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bms, "device_ms": dev_ms,
+                         "library_device_ms": lib_dev, "host_us": h_us}
         say(f"  decode_attention B={B} Hq/Hkv={Hq}/{Hkv} D={D} L={L} "
-            f"pos={pos_list}: max_abs_err={err:.6g}, worst err/tol "
-            f"{share:.4g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"SDPA {lib_ms:.4f} ms, bound {bms:.4f} ms ({bby})")
+            f"pos={pos_list} ({splits} splits of {chunk} keys): "
+            f"max_abs_err={err:.6g}, worst err/tol {share:.4g}; kernel "
+            f"{ms:.4f} ms ({bms / ms:.1%} of the bound), plain "
+            f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (kernel/SDPA "
+            f"{ms / lib_ms:.2f}), bound {bms:.4f} ms ({bby}); device time "
+            f"alone: kernel {dev_ms:.4f} ms ({bms / dev_ms:.1%} of the "
+            f"bound), SDPA {lib_dev:.4f} ms; host {h_us:.1f} us a call")
         if not share <= 1.0:
             fail(f"decode_attention disagrees with its plain version "
                  f"(B={B}, pos={pos_list}): err/tol {share}")
@@ -270,9 +311,9 @@ def phase2(torch, results):
         "replaces": "whisper_tensor_tpu/backends/pallas/decode_attention.py:179",
         "launches": None, "max_abs_err": worst, "ms": timing[0],
         "plain_ms": timing[1], "bound_ms": timing[3], "bound_by": timing[4],
-        "library_ms": timing[5], "shape": timing[2]})
+        "library_ms": timing[5], "shape": timing[2], "shapes": shapes})
 
-    worst, timing = 0.0, None
+    worst, timing, shapes, lib_err = 0.0, None, {}, None
     # (K, N): fused q/k/v, o, fused gate/up, down, lm_head
     pairs = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
              (4096, 128256))
@@ -293,29 +334,57 @@ def phase2(torch, results):
                 x.float().abs(), w.abs(), s), agreement_bound)
             ms = time_ms(torch, int8_matmul, sets)
             plain_ms = time_ms(torch, int8_matmul_plain, sets)
+            lib_ms = None
+            try:
+                calls = [(int8pack_call(torch, x, w, s),)
+                         for x, w, s in sets[:2]]
+                lib_ms = time_ms(torch, lambda f: f(), calls)
+                del calls
+            except (RuntimeError, NotImplementedError) as e:
+                lib_err = f"{type(e).__name__}: {str(e)[:200]}"
             bms, bby = bound(M * K * 2 + K * N + N * 4 + M * N * 2,
                              2 * M * K * N)
+            lib = "none" if lib_ms is None else (
+                f"{lib_ms:.4f} ms (kernel/library {ms / lib_ms:.2f})")
             say(f"  int8_matmul M={M} K={K} N={N}: max_abs_err={err:.6g}, "
                 f"worst err/tol {share:.4g}; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({bby})")
+                f"{plain_ms:.4f} ms, _weight_int8pack_mm {lib}, bound "
+                f"{bms:.4f} ms ({bby})")
             if not share <= 1.0:
                 fail(f"int8_matmul disagrees with its plain version "
                      f"(M={M}, K={K}, N={N}): err/tol {share}")
             worst = max(worst, err)
+            shapes[f"M={M} K={K} N={N}"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bms}
             if (M, K, N) == (1, 4096, 28672):
                 timing = (ms, plain_ms, "M=1 K=4096 N=28672 (gate/up)",
-                          bms, bby)
+                          bms, bby, lib_ms)
         del wsets, sets
         torch.cuda.empty_cache()
+    if lib_err:
+        say(f"  _weight_int8pack_mm raised on the card: {lib_err}")
     results.append({
         "name": "int8_matmul", "route": "cuda",
         "source": "whisper_tensor_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "whisper_tensor_tpu/backends/pallas/quant_matmul.py:68",
         "launches": None, "max_abs_err": worst, "ms": timing[0],
         "plain_ms": timing[1], "bound_ms": timing[3], "bound_by": timing[4],
-        # no one PyTorch call multiplies by int8 weights with per-column
-        # scales on the card
-        "library_ms": None, "shape": timing[2]})
+        "library_ms": timing[5], "library_error": lib_err,
+        "shape": timing[2], "shapes": shapes})
+
+
+def int8pack_call(torch, x, w, s):
+    """One torch.ops.aten._weight_int8pack_mm call computing x @ W *
+    scales for an int8 (K, N) weight (the yardstick, timed only; the port
+    never calls it): its weight is (N, K) int8, its scales bf16 (N,).
+    Returns a ready call, or raises where the card's torch has no such
+    kernel for these inputs."""
+    wt = w.t().contiguous()
+    sb = s.bfloat16()
+    mm = torch.ops.aten._weight_int8pack_mm
+    mm(x, wt, sb)
+    return lambda: mm(x, wt, sb)
 
 
 def phase2_kv_write(torch, results):
@@ -323,7 +392,7 @@ def phase2_kv_write(torch, results):
     over the whole cache (the written slabs and every untouched
     element), written in place."""
     from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
-        ragged_kv_write, ragged_kv_write_plain)
+        clamped_start, ragged_kv_write, ragged_kv_write_plain)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -359,21 +428,40 @@ def phase2_kv_write(torch, results):
         plain_ms = time_ms(torch, ragged_kv_write_plain, sets)
         dev_ms = device_time_ms(torch, ragged_kv_write, sets)
         plain_dev_ms = device_time_ms(torch, ragged_kv_write_plain, sets)
+        # the library call: one scatter_ along the cache axis, its index
+        # (B, H, S, D) and the update in the cache's type built first
+        lsets = [(c, (clamped_start(p, L, S)[:, None, None, None]
+                      + torch.arange(S, device=dev)[None, None, :, None]
+                      ).expand(B, H, S, D).contiguous(), u.to(cdt))
+                 for c, u, p in sets]
+
+        def scatter(c, idx, u):
+            return c.scatter_(2, idx, u)
+
+        view = torch.int16 if cdt == torch.bfloat16 else torch.int32
+        same_lib = torch.equal(
+            scatter(cache.clone(), *lsets[0][1:]).view(view),
+            ragged_kv_write(cache.clone(), upd, pos).view(view))
+        lib_ms = time_ms(torch, scatter, lsets)
+        lib_dev_ms = device_time_ms(torch, scatter, lsets)
+        del lsets
         # the update read once and written once into its slab
         bms, bby = bound(B * H * S * D * (upd.element_size()
                                           + cache.element_size()), 0)
         say(f"  ragged_kv_write {label} B={B} H={H} L={L} D={D} S={S} "
             f"{str(udt)[6:]} into {str(cdt)[6:]}: bit-exact {same}, in place "
             f"{got.data_ptr() == ptr}, max_abs_err={err:.6g}; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms; device time alone: "
-            f"kernel {dev_ms:.4f} ms, plain {plain_dev_ms:.4f} ms; bound "
-            f"{bms:.5f} ms ({bby})")
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_ {lib_ms:.4f} "
+            f"ms; device time alone: kernel {dev_ms:.4f} ms, plain "
+            f"{plain_dev_ms:.4f} ms, scatter_ {lib_dev_ms:.4f} ms (same "
+            f"cache as the kernel's: {same_lib}); bound {bms:.5f} ms "
+            f"({bby})")
         if not same or got.data_ptr() != ptr:
             fail(f"ragged_kv_write ({label}) is not the plain version's "
                  f"in-place copy")
         if timing is None:
             timing = (ms, plain_ms, f"B={B} H={H} L={L} D={D} S=1 bf16",
-                      dev_ms, plain_dev_ms, bms, bby)
+                      dev_ms, plain_dev_ms, bms, bby, lib_ms, lib_dev_ms)
         del sets, cache, upd, want, got
         torch.cuda.empty_cache()
     results.append({
@@ -382,9 +470,9 @@ def phase2_kv_write(torch, results):
         "replaces": "whisper_tensor_tpu/backends/pallas/kv_write.py:104",
         "launches": None, "max_abs_err": 0.0, "ms": timing[0],
         "plain_ms": timing[1], "bound_ms": timing[5], "bound_by": timing[6],
-        # a write at a per-row offset is no one PyTorch call
-        "library_ms": None, "shape": timing[2],
-        "device_ms": timing[3], "plain_device_ms": timing[4]})
+        "library_ms": timing[7], "shape": timing[2],
+        "device_ms": timing[3], "plain_device_ms": timing[4],
+        "library_device_ms": timing[8]})
 
 
 def sdpa_gqa(torch, q, k, v, mask, scale):
@@ -572,19 +660,24 @@ def int4pack_call(torch, x, q, s, o, G):
 def phase2_packed(torch, results):
     """packed_matmul against its plain version at the served paths'
     shapes, for the layouts of Q4_0, Q4_K, Q6_K, Q8_0 and a 128-row
-    group; M 1, 16, 128 and 512 for Q4_0, M 1 and 512 for the others."""
+    group; M 1, 16, 128, 512 and 2048 for Q4_0, M 1 and 512 for the
+    others; f32 x at M 512 and 2048 on gate/up and down; then both
+    paths at M 1..16 on the down and gate/up shapes (the crossover of
+    packed_plan)."""
     from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda import packed_matmul as pm
     from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
-        packed_matmul, packed_matmul_plain)
+        packed_matmul, packed_matmul_plain, packed_plan)
 
     dev = torch.device("cuda")
+    card = torch.cuda.current_device()
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     say("  packed_matmul (tolerance per element: agreement_bound, plain "
         "version on |x| and |W|; library: _weight_int4pack_mm, bf16 "
         "scales)")
-    worst, head, lib_err = 0.0, None, None
+    worst, head, down, lib_err, shapes = 0.0, None, None, None, {}
     for label, bits, G, has_off in PACKED_CASES:
-        rows = (1, 16, 128, 512) if label == "Q4_0" else (1, 512)
+        rows = (1, 16, 128, 512, 2048) if label == "Q4_0" else (1, 512)
         for K, N in MATMUL_SHAPES:
             wbytes = (K // 2 if bits == 4 else K) * N + (
                 2 if bits == 4 or has_off else 1) * (K // G) * N * 4
@@ -597,36 +690,127 @@ def phase2_packed(torch, results):
                 ref = packed_matmul_plain(*sets[0])
                 err, share = worst_share(got, ref, packed_magnitude(
                     torch, *sets[0]), agreement_bound)
+                del got, ref
                 ms = time_ms(torch, packed_matmul, sets)
                 plain_ms = time_ms(torch, packed_matmul_plain, sets[:2],
                                    reps=3, inner=2)
-                lib_ms = None
+                # device time alone at decode rows, where the times above
+                # are the host's launch rate, and the host's time a call
+                decode_rows = M <= 16 and label == "Q4_0"
+                dev_ms = (device_time_ms(torch, packed_matmul, sets)
+                          if decode_rows else None)
+                h_us = (host_us(torch, packed_matmul, sets)
+                        if decode_rows and M == 1 else None)
+                lib_ms = lib_dev = None
                 if bits == 4 and G in (32, 128):
                     try:
                         calls = [(int4pack_call(torch, x, q, s, o, G),)
                                  for x, q, s, o, _, _ in sets[:2]]
                         lib_ms = time_ms(torch, lambda f: f(), calls)
+                        if decode_rows:
+                            lib_dev = device_time_ms(torch, lambda f: f(),
+                                                     calls)
                         del calls
                     except (RuntimeError, NotImplementedError) as e:
                         lib_err = f"{type(e).__name__}: {str(e)[:200]}"
                 bms, bby = bound(M * K * 2 + wbytes + M * N * 2,
                                  2 * M * K * N)
-                lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+                plan = packed_plan(M, K, N, G, bits, True, card)
+                lib = "none" if lib_ms is None else (
+                    f"{lib_ms:.4f} ms (kernel/library {ms / lib_ms:.2f})")
                 say(f"  packed_matmul {label} (bits {bits}, G {G}) M={M} "
-                    f"K={K} N={N}: max_abs_err={err:.6g}, worst err/tol "
-                    f"{share:.4g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                    f"ms, library {lib}, bound {bms:.4f} ms ({bby})")
+                    f"K={K} N={N} ({plan.path}, {plan.splits} splits): "
+                    f"max_abs_err={err:.6g}, worst err/tol {share:.4g}; "
+                    f"kernel {ms:.4f} ms ({bms / ms:.1%} of the bound), "
+                    f"plain {plain_ms:.4f} ms, library {lib}, bound "
+                    f"{bms:.4f} ms ({bby})"
+                    + ("" if dev_ms is None else
+                       f"; device time alone: kernel {dev_ms:.4f} ms "
+                       f"({bms / dev_ms:.1%} of the bound), library "
+                       f"{'none' if lib_dev is None else f'{lib_dev:.4f} ms'}")
+                    + ("" if h_us is None else f"; host {h_us:.1f} us a call"))
                 if not share <= 1.0:
                     fail(f"packed_matmul disagrees with its plain version "
                          f"({label}, M={M}, K={K}, N={N}): err/tol {share}")
                 worst = max(worst, err)
+                if label == "Q4_0":
+                    shapes[f"M={M} K={K} N={N}"] = {
+                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": bms, "device_ms": dev_ms,
+                        "library_device_ms": lib_dev, "host_us": h_us,
+                        "path": plan.path, "splits": plan.splits}
                 if (label, M, K, N) == ("Q4_0", 1, 4096, 28672):
                     head = (ms, plain_ms, lib_ms, bms, bby)
-                del sets, got, ref
+                del sets
             del wsets
             torch.cuda.empty_cache()
     if lib_err:
         say(f"  _weight_int4pack_mm raised on the card: {lib_err}")
+
+    # f32 x (a model computing in f32) takes the CUDA cores at every M:
+    # Q4_0 at prefill rows on gate/up and down, beside the plain version
+    for K, N in ((4096, 28672), (14336, 4096)):
+        wbytes = K // 2 * N + 2 * (K // 32) * N * 4
+        wsets = [random_packed(torch, gen, 4, 32, True, K, N)
+                 for _ in range(copies_for(wbytes))]
+        for M in (512, 2048):
+            sets = [(torch.randn(M, K, generator=gen, device=dev), *w, 4,
+                     True) for w in wsets]
+            err, share = worst_share(
+                packed_matmul(*sets[0]), packed_matmul_plain(*sets[0]),
+                packed_magnitude(torch, *sets[0]), agreement_bound)
+            ms = time_ms(torch, packed_matmul, sets, reps=3, inner=2)
+            plain_ms = time_ms(torch, packed_matmul_plain, sets[:2], reps=3,
+                               inner=2)
+            bms, bby = bound(M * K * 4 + wbytes + M * N * 4, 2 * M * K * N)
+            plan = packed_plan(M, K, N, 32, 4, False, card)
+            say(f"  packed_matmul Q4_0 f32 x M={M} K={K} N={N} ({plan.path}, "
+                f"{plan.bm} rows a block, {plan.splits} splits): "
+                f"max_abs_err={err:.6g}, worst err/tol {share:.4g}; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms (kernel/plain "
+                f"{ms / plain_ms:.2f}), bound {bms:.4f} ms ({bby})")
+            if not share <= 1.0:
+                fail(f"packed_matmul disagrees with its plain version (f32 "
+                     f"x, M={M}, K={K}, N={N}): err/tol {share}")
+            worst = max(worst, err)
+            shapes[f"f32 M={M} K={K} N={N}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "path": plan.path, "splits": plan.splits}
+            del sets
+        del wsets
+        torch.cuda.empty_cache()
+
+    # the crossover: both paths at the same rows, Q4_0, down and gate/up
+    say("  packed_matmul paths at decode rows (Q4_0): device ms of the "
+        "CUDA-core path / the tensor-core path, each with packed_plan's "
+        "splits")
+    for K, N in ((14336, 4096), (4096, 28672)):
+        wbytes = K // 2 * N + 2 * (K // 32) * N * 4
+        wsets = [random_packed(torch, gen, 4, 32, True, K, N)
+                 for _ in range(copies_for(wbytes))]
+        line = []
+        for M in (1, 4, 8, 9, 12, 16):
+            sets = [(torch.randn(M, K, generator=gen, device=dev).bfloat16(),
+                     *w, 4, True) for w in wsets]
+            t = []
+            for path in ("cores", "tensor"):
+                plan = pm._path_plan(path, M, K, N, 32, 4, True, card)
+
+                def run(x, q, s, o, bits, has_off, plan=plan):
+                    return pm._launch(x, q, s, o, bits, has_off, plan)
+
+                _, share = worst_share(run(*sets[0]), packed_matmul_plain(
+                    *sets[0]), packed_magnitude(torch, *sets[0]),
+                    agreement_bound)
+                if not share <= 1.0:
+                    fail(f"packed_matmul's {path} path disagrees with its "
+                         f"plain version (M={M}, K={K}, N={N})")
+                t.append(device_time_ms(torch, run, sets))
+            line.append(f"M={M} {t[0]:.4f}/{t[1]:.4f}")
+            del sets
+        say(f"    K={K} N={N}: " + ", ".join(line))
+        del wsets
+        torch.cuda.empty_cache()
     results.append({
         "name": "packed_matmul", "route": "cuda",
         "source": "whisper_tensor_tpu_torch/csrc/packed_matmul.cu",
@@ -634,7 +818,77 @@ def phase2_packed(torch, results):
         "launches": None, "max_abs_err": worst, "ms": head[0],
         "plain_ms": head[1], "bound_ms": head[3], "bound_by": head[4],
         "library_ms": head[2], "library_error": lib_err,
-        "shape": "Q4_0 M=1 K=4096 N=28672 (gate/up)"})
+        "shape": "Q4_0 M=1 K=4096 N=28672 (gate/up)",
+        "down": shapes["M=1 K=14336 N=4096"], "shapes": shapes})
+
+
+def sweep_plans(torch) -> None:
+    """--plans: device ms of packed_matmul (Q4_0) and decode_attention
+    under forced K and key splits, beside the plan each wrapper picks (the
+    numbers behind packed_plan and decode_splits). Timing only."""
+    from whisper_tensor_tpu_torch.backends.cuda import decode_attention as da
+    from whisper_tensor_tpu_torch.backends.cuda import packed_matmul as pm
+
+    dev = torch.device("cuda")
+    card = torch.cuda.current_device()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def forced(M, K, N, path, splits):
+        bm = pm._path_plan(path, M, K, N, 32, 4, True, card).bm
+        unit = math.lcm(pm.kernel_limits(path, bm, 4, True, 32,
+                                         card).stage_q_rows, 32)
+        units = -(-K // 2 // unit)
+        per = -(-units // min(splits, units))
+        return pm.PackedPlan(path, bm, -(-units // per), per * unit)
+
+    say("plans: packed_matmul Q4_0, device ms by K splits (* the wrapper's)")
+    for K, N in MATMUL_SHAPES:
+        wsets = [random_packed(torch, gen, 4, 32, True, K, N)
+                 for _ in range(copies_for(K // 2 * N + (K // 32) * N * 8))]
+        for M, path in ((1, "cores"), (16, "cores"), (16, "tensor"),
+                        (64, "tensor"), (128, "tensor"), (512, "tensor")):
+            sets = [(torch.randn(M, K, generator=gen, device=dev).bfloat16(),
+                     *w, 4, True) for w in wsets]
+            pick = pm._path_plan(path, M, K, N, 32, 4, True, card).splits
+            row, seen = [], set()
+            for s in (1, 2, 3, 4, 6, 8, 11, 12, 16, 24, 32, pick):
+                plan = forced(M, K, N, path, s)
+                if plan.splits in seen:
+                    continue
+                seen.add(plan.splits)
+                t = device_time_ms(torch, lambda *a, plan=plan: pm._launch(
+                    *a, plan), sets, reps=5, inner=10)
+                row.append((plan.splits, t))
+            say(f"  K={K} N={N} M={M} {path}: " + ", ".join(
+                f"{s}{'*' if s == pick else ''} {t:.4f}"
+                for s, t in sorted(row)))
+            del sets
+        del wsets
+        torch.cuda.empty_cache()
+
+    say("plans: decode_attention Hq/Hkv 32/8 L=2048 all keys live, device "
+        "ms by key splits (* the wrapper's)")
+    L = MAX_LEN
+    for B in (1, 4, 8, 16, 32):
+        sets = []
+        for _ in range(copies_for(2 * B * 8 * L * 128 * 2)):
+            sets.append((
+                torch.randn(B, 32, 1, 128, generator=gen,
+                            device=dev).bfloat16(),
+                *(torch.randn(B, 8, L, 128, generator=gen,
+                              device=dev).bfloat16() for _ in range(2)),
+                torch.full((B,), L - 1, device=dev), 0.088))
+        pick = da.decode_splits(B, 32, 8, L, card)[0]
+        row = []
+        for s in sorted({1, 2, 4, 8, 16, 32, 64, pick}):
+            chunk = -(-L // s)
+            row.append((s, device_time_ms(
+                torch, lambda *a, c=chunk: da._launch(*a, -(-L // c), c),
+                sets, reps=5, inner=10)))
+        say(f"  B={B}: " + ", ".join(
+            f"{s}{'*' if s == pick else ''} {t:.4f}" for s, t in row))
+        del sets
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -946,7 +1200,8 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> dict:
                                    agreement_bound),
             decode_attention_plain)
         rates = direct_rates(torch, iface, prompt, layers)
-        phase5_direct(torch, np, iface, api.port, layers, results)
+        rates["long_ttft_ms"] = phase5_direct(torch, np, iface, api.port,
+                                              layers, results)
     finally:
         api.stop()
     return rates
@@ -1287,14 +1542,16 @@ def flash_shadow(lowering, plain, bound):
     return checked
 
 
-def phase5_direct(torch, np, iface, port: int, layers: int, results) -> None:
+def phase5_direct(torch, np, iface, port: int, layers: int,
+                  results) -> float:
     """Phase 5, the direct path (phase 3's model and HTTP API): a
     1,900-token prompt (bucket 2048) served with 32 greedy tokens; the
     flash_attention counter must rise; then the same decode with each
     flash_attention call held against its plain version, and with the
     plain version in place of the kernel (logits within phase 3's
     bound); time to first token with the kernel and with the plain
-    version, as information."""
+    version, as information. Returns the kernel's time to first token
+    (ms)."""
     from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
         flash_agreement_bound, flash_attention, flash_attention_plain)
     from whisper_tensor_tpu_torch.milli.ops import attention as attn_lowering
@@ -1365,6 +1622,7 @@ def phase5_direct(torch, np, iface, port: int, layers: int, results) -> None:
         f"(bucket 2048, {layers} layers): kernel {ttft['kernel']:.1f} ms, "
         f"plain version {ttft['plain']:.1f} ms, kernel again "
         f"{ttft['kernel again']:.1f} ms, on {card_line()}")
+    return ttft["kernel"]
 
 
 def phase5_batched(torch, np, srv, bat, layers: int, results) -> None:
@@ -1529,9 +1787,27 @@ def phase6a(torch, np, ckpt: Path, layers: int, results, int8: dict) -> None:
             f"ms, decode {rates['tok_s']:.1f} against {int8['tok_s']:.1f} "
             f"tok/s, {rates['gb']:.2f} against {int8['gb']:.2f} GB on the "
             f"card")
-        # phase 5's long prompt: its 2048 rows take the plain version
+        # phase 5's long prompt: its prefill runs the kernel at 2048 rows,
+        # every call held against the plain version on its inputs
         long = np.asarray(ByteTokenizer().encode(
             long_text(np, 1900, SEED + 5)), np.int64)[None]
+        checked = packed_shadow(torch, transforms, agreement_bound)
+        packed_matmul.launches = 0
+        try:
+            iface.generate_tokens(long, 1)
+        finally:
+            transforms.packed_matmul = checked.inner
+        n_long = packed_matmul.launches
+        say(f"  the 1900-token prompt's prefill (bucket 2048) at q4_0: "
+            f"{n_long} packed_matmul launches, {checked.calls} calls "
+            f"against the plain version on their inputs: worst |err|/bound "
+            f"{checked.worst:.4g} (max |err| {checked.max_err:.5g})")
+        if n_long <= 0 or checked.calls != n_long or not checked.worst <= 1.0:
+            fail("the long prompt's packed_matmul calls at 2048 rows did not "
+                 "all launch the kernel within agreement_bound")
+        for res in results:
+            if res["name"] == "packed_matmul":
+                res["launches_long_q4_0"] = n_long
         ttft = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -1539,8 +1815,9 @@ def phase6a(torch, np, ckpt: Path, layers: int, results, int8: dict) -> None:
             iface.generate_tokens(long, 1)
             ttft.append((time.perf_counter() - t0) * 1e3)
         say(f"  information: time to first token of phase 5's 1900-token "
-            f"prompt at q4_0 (matmuls above 512 rows take the plain "
-            f"version): {ttft[0]:.1f} ms, again {ttft[1]:.1f} ms")
+            f"prompt at q4_0: {ttft[0]:.1f} ms, again {ttft[1]:.1f} ms, "
+            f"against int8's {int8['long_ttft_ms']:.1f} ms (phase 5, this "
+            f"run) on {card_line()}")
     finally:
         api.stop()
 
@@ -1762,6 +2039,11 @@ def main() -> None:
     ap.add_argument("--plant-fault", action="store_true",
                     help="phase 4 writes every decode step's K/V one "
                          "position early; check (d) must fail")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 2 (no result line)")
+    ap.add_argument("--plans", action="store_true",
+                    help="time packed_matmul and decode_attention under "
+                         "forced splits, then stop (no result line)")
     args = ap.parse_args()
     if not (ROOT / "whisper_tensor_tpu_torch" / "csrc").is_dir():
         fail(f"no whisper_tensor_tpu_torch/csrc beside {Path(__file__).name}: "
@@ -1794,7 +2076,29 @@ def main() -> None:
     for line in info.log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             say(f"  {line.strip()}")
+    from whisper_tensor_tpu_torch.backends.cuda import decode_attention as da
+    from whisper_tensor_tpu_torch.backends.cuda import packed_matmul as pm
 
+    index = torch.cuda.current_device()
+
+    def per_sm(path, rows, bits, bf16, G):
+        return "/".join(str(pm.kernel_limits(path, bm, bits, bf16, G, index)
+                            .blocks_per_sm) for bm in rows)
+
+    say(f"  blocks a multiprocessor, read on the card (occupancy): "
+        f"decode_attention 32/8 heads {da.decode_limits(32, 8, index)[1]}; "
+        f"packed_matmul at 1/2/4/8/16 rows a block on the CUDA cores and "
+        f"16/64 on the tensor cores: Q4_0 bf16 x "
+        f"{per_sm('cores', pm.CORE_ROWS, 4, True, 32)} and "
+        f"{per_sm('tensor', (16, 64), 4, True, 32)}, Q6_K (bits 8, G 16) "
+        f"{per_sm('cores', pm.CORE_ROWS, 8, True, 16)} and "
+        f"{per_sm('tensor', (16, 64), 8, True, 16)}, Q4_0 f32 x "
+        f"{per_sm('cores', pm.CORE_ROWS, 4, False, 32)}")
+
+    if args.plans:
+        sweep_plans(torch)
+        say(f"{card_line()} (--plans: phases 2-6 not run)")
+        return
     results = []
     t_start = time.perf_counter()
 
@@ -1812,6 +2116,10 @@ def main() -> None:
     step("phase 2: ragged_kv_write", phase2_kv_write, torch, results)
     step("phase 2: flash_attention", phase2_flash, torch, results)
     step("phase 2: packed_matmul", phase2_packed, torch, results)
+    if args.kernels_only:
+        say(json.dumps({"kernels": results}))
+        say(f"{card_line()} (--kernels-only: phases 3-6 not run)")
+        return
     try:
         import ml_dtypes
         bf16 = np.dtype(ml_dtypes.bfloat16)

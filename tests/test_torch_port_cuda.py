@@ -15,14 +15,17 @@ import pytest
 import torch
 
 from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+from whisper_tensor_tpu_torch.backends.cuda import packed_matmul as pm
 from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
-    decode_attention, decode_attention_plain)
+    decode_attention, decode_attention_plain, decode_limits, decode_splits,
+    heads_per_block)
 from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
     flash_agreement_bound, flash_attention, flash_attention_plain)
 from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
     ragged_kv_write, ragged_kv_write_plain)
 from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
-    dequant_repacked, dequantize_packed, packed_matmul, packed_matmul_plain)
+    dequant_repacked, dequantize_packed, packed_matmul, packed_matmul_plain,
+    packed_plan)
 from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
     int8_matmul, int8_matmul_plain)
 
@@ -46,12 +49,16 @@ def _assert_agree(got, want, magnitude):
         f"{(err / bound.clamp_min(1e-30)).max().item()}"
 
 
-# (B, Hq, Hkv, L, D); the last three have groups of 16, 12 and 11 query
-# heads, which the kernel splits over blocks of 8, 6 and 1 heads
+# (B, Hq, Hkv, L, D); groups of 16, 12 and 11 query heads are split
+# over blocks of 8, 6 and 1 heads; the keys are split over blocks at
+# every shape below 264 head blocks (decode_splits: 64 splits at B = 1,
+# L = 2048, 4 at B = 16), and B = 64 runs one split
 DECODE_SHAPES = [(4, 8, 2, 192, 128), (2, 4, 4, 256, 128),
                  (3, 16, 2, 512, 128), (1, 32, 8, 64, 128),
                  (2, 32, 8, 2048, 128), (2, 32, 2, 256, 128),
-                 (2, 24, 2, 128, 128), (1, 11, 1, 64, 128)]
+                 (2, 24, 2, 128, 128), (1, 11, 1, 64, 128),
+                 (1, 32, 8, 2048, 128), (16, 32, 8, 2048, 128),
+                 (64, 32, 8, 96, 128)]
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,L,D", DECODE_SHAPES)
@@ -65,7 +72,8 @@ def test_decode_attention_kernel_matches_plain(cuda, B, Hq, Hkv, L, D, qdt):
                for s in ((B, Hq, 1, D), (B, Hkv, L, D), (B, Hkv, L, D)))
     q = q.to(qdt)
     # a row at 0, one at the last slot, one in between, one beyond L
-    pos = torch.tensor([0, L - 1, L // 2, L + 5][:B], device=cuda)
+    pos = torch.tensor([0, L - 1, L // 2, L + 5] * (B // 4 + 1),
+                       device=cuda)[:B]
     n0 = decode_attention.launches
     got = decode_attention(q, k, v, pos, 0.088)
     want = decode_attention_plain(q, k, v, pos, 0.088)
@@ -76,8 +84,52 @@ def test_decode_attention_kernel_matches_plain(cuda, B, Hq, Hkv, L, D, qdt):
                   decode_attention_plain(q.float(), k, v.abs(), pos, 0.088))
 
 
+# (B, L, positions): pos on the last key of a split and on the first of
+# the next (64 splits of 32 keys at B = 1, L = 2048), pos 0 with 63 empty
+# splits, a ragged batch of 16 at L = 2048 (4 splits of 512)
+SPLIT_EDGES = [(1, 2048, [31]), (1, 2048, [32]), (1, 2048, [63]),
+               (1, 2048, [64]), (1, 2048, [62]), (1, 2048, [125]),
+               (1, 2048, [0]), (1, 2048, [2047]), (2, 100, [31, 32]),
+               (16, 2048, [0, 1, 17, 100, 511, 512, 513, 1000, 1023, 1024,
+                           1366, 1535, 1536, 2046, 2047, 9000])]
+
+
+@pytest.mark.parametrize("B,L,pos_list", SPLIT_EDGES)
+def test_decode_attention_kernel_split_edges(cuda, B, L, pos_list):
+    """Rows whose live keys end at a split's edge, a row of one key among
+    64 splits (63 of them empty), and a ragged batch of 16 rows over 4
+    splits: within agreement_bound of the plain version."""
+    Hq, Hkv, D = 32, 8, 128
+    splits, chunk = decode_splits(B, Hq, Hkv, L, torch.cuda.current_device())
+    assert splits > 1
+    g = torch.Generator(device=cuda).manual_seed(B + L + pos_list[0])
+    q = torch.randn(B, Hq, 1, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, Hkv, L, D, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    pos = torch.tensor(pos_list, device=cuda)
+    got = decode_attention(q, k, v, pos, 0.088)
+    want = decode_attention_plain(q, k, v, pos, 0.088)
+    torch.cuda.synchronize()
+    _assert_agree(got, want,
+                  decode_attention_plain(q.float(), k, v.abs(), pos, 0.088))
+
+
+def test_decode_attention_kernel_is_deterministic(cuda):
+    """Split keys and their merge in a fixed order: repeats are bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(2, 32, 1, 128, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, 8, 2048, 128, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    pos = torch.tensor([700, 2047], device=cuda)
+    first = decode_attention(q, k, v, pos, 0.088)
+    for _ in range(3):
+        assert torch.equal(decode_attention(q, k, v, pos, 0.088).view(
+            torch.int16), first.view(torch.int16))
+
+
 def test_decode_attention_kernel_pos_forms(cuda):
-    """pos as () or (B,), int64 or int32, all give the same rows."""
+    """pos as () or (B,), int64 or int32, or a () expanded to (B,) (the
+    Attention lowering's form of a scalar mask), all give the same rows."""
     g = torch.Generator(device=cuda).manual_seed(1)
     q = torch.randn(2, 8, 1, 128, generator=g, device=cuda).bfloat16()
     k, v = (torch.randn(2, 2, 96, 128, generator=g, device=cuda).bfloat16()
@@ -85,7 +137,8 @@ def test_decode_attention_kernel_pos_forms(cuda):
     full = decode_attention(q, k, v, torch.tensor([40, 40], device=cuda), 0.1)
     for pos in (torch.tensor(40, device=cuda),
                 torch.tensor(40, dtype=torch.int32, device=cuda),
-                torch.tensor([40, 40], dtype=torch.int32, device=cuda)):
+                torch.tensor([40, 40], dtype=torch.int32, device=cuda),
+                torch.tensor(40, device=cuda).reshape(-1).expand(2)):
         torch.testing.assert_close(decode_attention(q, k, v, pos, 0.1), full,
                                    atol=0, rtol=0)
 
@@ -247,17 +300,21 @@ PACKED_LAYOUTS = [(4, 32, True), (4, 16, True), (4, 128, True),
                   (8, 32, False)]
 
 
+# (M, N): decode rows (the CUDA cores), then bf16 rows from 9 up on
+# the tensor cores (f32 x stays on the CUDA cores at every M), with
+# ragged N (77, 100) and no row cap (513, 600, 2048)
+PACKED_ROWS = [(1, 256), (5, 384), (5, 77), (12, 77), (16, 1040), (17, 77),
+               (64, 100), (512, 128), (513, 77), (600, 256), (2048, 100)]
+
+
 @pytest.mark.parametrize("bits,G,has_off", PACKED_LAYOUTS)
-@pytest.mark.parametrize("M,N", [(1, 256), (5, 384), (5, 77), (16, 1040),
-                                 (512, 128), (600, 256)])
+@pytest.mark.parametrize("M,N", PACKED_ROWS)
 @pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32])
 def test_packed_matmul_kernel_matches_plain(cuda, bits, G, has_off, M, N,
                                             tdt):
-    """K = 512, so every G divides it and K/2 is a whole number of
-    stages at bits 4. bf16: within agreement_bound, element by element;
-    f32: the same f32 products summed in another order, 1e-5 of the
-    scale. Above 512 rows the plain version runs and the kernel is not
-    launched."""
+    """K = 512, so every G divides it. bf16: within agreement_bound,
+    element by element; f32: the same f32 products summed in another
+    order, 1e-5 of the scale. The kernel is launched at every M."""
     K = 512
     q, s, o = (torch.from_numpy(a).to(cuda) for a in
                _packed_layout(bits, G, K, N, has_off, seed=M * N + G))
@@ -267,7 +324,7 @@ def test_packed_matmul_kernel_matches_plain(cuda, bits, G, has_off, M, N,
     got = packed_matmul(x, q, s, o, bits, has_off)
     want = packed_matmul_plain(x, q, s, o, bits, has_off)
     torch.cuda.synchronize()
-    assert packed_matmul.launches == n0 + (M <= 512)
+    assert packed_matmul.launches == n0 + 1
     assert got.dtype == tdt and got.shape == (M, N)
     if tdt == torch.bfloat16:
         w = dequantize_packed(q, s, o, bits, has_off)
@@ -297,14 +354,78 @@ def test_packed_matmul_kernel_dequantizes_bit_exactly(cuda, bits, G,
                                       want.view(np.int32))
 
 
-def test_packed_matmul_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("path,M,dtype", [("cores", 7, torch.bfloat16),
+                                          ("cores", 12, torch.float32),
+                                          ("tensor", 12, torch.bfloat16)])
+def test_packed_matmul_kernel_is_deterministic(cuda, path, M, dtype):
+    """Both paths, chosen by rows and x's type, with K split (fixed-order
+    sums, no atomics): repeats are bit-equal, and within agreement_bound
+    of the plain version."""
     q, s, o = (torch.from_numpy(a).to(cuda)
                for a in _packed_layout(4, 32, 4096, 1024, True, seed=3))
-    x = torch.randn(7, 4096, device=cuda).bfloat16()
+    x = torch.randn(M, 4096, device=cuda).to(dtype)
+    plan = packed_plan(M, 4096, 1024, 32, 4, dtype == torch.bfloat16,
+                       torch.cuda.current_device())
+    assert plan.path == path and plan.splits > 1
     first = packed_matmul(x, q, s, o, 4, True)
     for _ in range(3):
         assert torch.equal(packed_matmul(x, q, s, o, 4, True).view(
-            torch.int16), first.view(torch.int16))
+            _bits(first).dtype), _bits(first))
+    w = dequantize_packed(q, s, o, 4, True)
+    _assert_agree(first, packed_matmul_plain(x, q, s, o, 4, True),
+                  x.float().abs() @ w.abs())
+
+
+def test_kernel_limits_on_the_card_match_the_cpu_defaults(cuda):
+    """The launch plans read each kernel's tile constants and blocks a
+    multiprocessor on the card (wt_packed_limits, wt_decode_limits: the
+    occupancy calculator). The tile constants and the heads a block equal
+    the CPU defaults everywhere; on an H100 (132 multiprocessors, compute
+    capability 9.0) so do the blocks a multiprocessor where the defaults
+    were measured (bits 4, G 32, bf16 x; other layouts change a block's
+    shared memory and registers), so the CPU plan tests of Llama-3-8B's
+    Q4_0 shapes check the plans the card runs."""
+    index = torch.cuda.current_device()
+    props = torch.cuda.get_device_properties(index)
+    h100 = props.multi_processor_count == 132 and props.major == 9
+    for path, rows in (("cores", (1, 2, 4, 8, 16)), ("tensor", (16, 64))):
+        for bm in rows:
+            for bits in (4, 8):
+                for bf16 in (True, False) if path == "cores" else (True,):
+                    for G in (4, 16, 32, 128):
+                        card = pm.kernel_limits(path, bm, bits, bf16, G, index)
+                        cpu = pm.kernel_limits(path, bm, bits, bf16, G)
+                        assert (card.stage_q_rows, card.tile_cols) == (
+                            cpu.stage_q_rows, cpu.tile_cols)
+                        assert card.blocks_per_sm >= 1
+                        if h100 and (bits, G, bf16) == (4, 32, True):
+                            assert card == cpu, (path, bm)
+    for Hq, Hkv in ((32, 8), (16, 1), (24, 2), (11, 1), (8, 2), (4, 4)):
+        card = decode_limits(Hq, Hkv, index)
+        assert card[0] == heads_per_block(Hq, Hkv) and card[1] >= 1
+        if h100:
+            assert card == decode_limits(Hq, Hkv)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("G", [16, 32, 128])
+@pytest.mark.parametrize("M", [1, 16, 64])
+def test_packed_matmul_kernel_at_the_down_projection(cuda, bits, G, M):
+    """Llama-3-8B's down projection (K 14,336, N 4,096): 32 column blocks,
+    so K is split (12 ways at M = 1, 8 on the tensor cores at M = 16 and
+    64); within agreement_bound."""
+    K, N = 14336, 4096
+    q, s, o = (torch.from_numpy(a).to(cuda)
+               for a in _packed_layout(bits, G, K, N, True, seed=G + bits))
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    assert packed_plan(M, K, N, G, bits, True,
+                       torch.cuda.current_device()).splits > 1
+    got = packed_matmul(x, q, s, o, bits, True)
+    w = dequantize_packed(q, s, o, bits, True)
+    want = packed_matmul_plain(x, q, s, o, bits, True)
+    torch.cuda.synchronize()
+    _assert_agree(got, want, x.float().abs() @ w.abs())
 
 
 def test_packed_matmul_wrapper_raises_on_unsupported_cuda_inputs(cuda):

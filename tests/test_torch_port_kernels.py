@@ -23,7 +23,8 @@ from whisper_tensor_tpu.backends.pallas.quant_matmul import (  # noqa: E402
 from whisper_tensor_tpu.milli.ops.attention import AttentionMilli  # noqa: E402
 from whisper_tensor_tpu.milli.transforms import QuantMatMulMilli  # noqa: E402
 from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_plain)
+    CARD_SMS, decode_attention, decode_attention_plain, decode_splits,
+    heads_per_block, merge_partial_softmax)
 from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (  # noqa: E402
     int8_matmul, int8_matmul_plain)
 from whisper_tensor_tpu_torch.dtype import to_device, to_host  # noqa: E402
@@ -95,6 +96,125 @@ def test_decode_attention_pos_forms_and_clamp():
                 torch.tensor([L - 1, 10 * L], dtype=torch.int32)):
         torch.testing.assert_close(decode_attention(q, k, v, pos, scale),
                                    full, atol=0, rtol=0)
+
+
+# (B, Hq, Hkv, L): the smoke's direct decode and batched slots, ragged
+# lengths, a group of 11 heads, one key
+SPLIT_SHAPES = [(1, 32, 8, 2048), (8, 32, 8, 2048), (16, 32, 8, 2048),
+                (64, 32, 8, 2048), (1, 32, 8, 2047), (3, 11, 1, 100),
+                (2, 4, 4, 33), (1, 8, 2, 1)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L", SPLIT_SHAPES)
+def test_decode_splits_cover_every_key_once(B, Hq, Hkv, L):
+    """Split c takes keys [c * chunk, (c + 1) * chunk): every key of the
+    cache lies in exactly one split, and no split is empty of cache."""
+    splits, chunk = decode_splits(B, Hq, Hkv, L)
+    owner = np.zeros(L, np.int64)
+    for c in range(splits):
+        owner[c * chunk:min((c + 1) * chunk, L)] += 1
+    assert (owner == 1).all()
+    assert (splits - 1) * chunk < L <= splits * chunk
+
+
+def test_decode_splits_fill_the_card_and_stop_when_the_batch_does():
+    """B = 1 at Llama-3-8B's 32/8 heads: 8 head blocks a row, split into
+    at least 2 blocks a multiprocessor of the H100's 132; a batch whose
+    head blocks already reach that runs one split."""
+    assert heads_per_block(32, 8) == 4
+    splits, _ = decode_splits(1, 32, 8, 2048)
+    assert 8 * splits >= 2 * CARD_SMS
+    for B in (64, 128):
+        assert B * 8 >= 2 * CARD_SMS
+        assert decode_splits(B, 32, 8, 2048) == (1, 2048)
+    assert decode_splits(16, 32, 8, 2048)[0] > 1
+
+
+def _split_states(q, k, v, pos, scale, splits, chunk):
+    """Each split's partial softmax state in plain f32 torch: m, l (B, Hq,
+    S) and acc (B, Hq, S, D) over the live keys of its chunk; a chunk past
+    pos is (-inf, 0, 0)."""
+    B, Hq, _, D = q.shape
+    Hkv, L = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    s = (q.float() * scale) @ kf.transpose(-1, -2)            # (B, Hq, 1, L)
+    s = s[:, :, 0]
+    n_keys = pos.reshape(-1).expand(B).long().clamp(0, L - 1) + 1
+    m = torch.full((B, Hq, splits), -np.inf)
+    l = torch.zeros(B, Hq, splits)
+    acc = torch.zeros(B, Hq, splits, D)
+    for b in range(B):
+        for c in range(splits):
+            lo, hi = c * chunk, min((c + 1) * chunk, int(n_keys[b]))
+            if lo >= hi:
+                continue
+            sc = s[b, :, lo:hi]
+            m[b, :, c] = sc.amax(-1)
+            p = torch.exp(sc - m[b, :, c, None])
+            l[b, :, c] = p.sum(-1)
+            acc[b, :, c] = (p[:, None, :] @ vf[b, :, lo:hi])[:, 0]
+    return m, l, acc
+
+
+# (B, Hq, Hkv, L, positions, splits): empty splits (a short row among
+# many splits), pos 0, L not a multiple of the chunk, a split of one key
+MERGE_CASES = [(2, 8, 2, 192, [5, 191], 12), (1, 4, 4, 64, [0], 8),
+               (3, 8, 2, 100, [99, 33, 64], 7), (1, 4, 2, 37, [36], 37),
+               (2, 4, 1, 50, [49, 1], 1)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,pos_list,splits", MERGE_CASES)
+def test_merging_split_states_is_the_plain_attention(B, Hq, Hkv, L, pos_list,
+                                                     splits):
+    """The second pass's reference: the plain computation cut into
+    splits and merged equals decode_attention_plain in f32, up to f32
+    rounding (the same terms summed in another order)."""
+    rng = np.random.default_rng(B * L + splits)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+               for sh in ((B, Hq, 1, 128), (B, Hkv, L, 128),
+                          (B, Hkv, L, 128)))
+    pos = torch.tensor(pos_list)
+    chunk = -(-L // splits)
+    m, l, acc = _split_states(q, k, v, pos, 0.09, splits, chunk)
+    assert splits == 1 or bool((m == -np.inf).any()) or pos_list[0] == L - 1
+    got = merge_partial_softmax(m, l, acc)
+    want = decode_attention_plain(q, k, v, pos, 0.09)[:, :, 0]
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5)
+
+
+def test_merge_partial_softmax_weighs_empty_splits_zero():
+    """(m, l) = (-inf, 0) adds nothing, and all-empty gives 0 (no NaN)."""
+    m = torch.tensor([[1.0, -np.inf, 0.5], [-np.inf, -np.inf, -np.inf]])
+    l = torch.tensor([[2.0, 0.0, 1.0], [0.0, 0.0, 0.0]])
+    acc = torch.tensor([[[4.0], [0.0], [3.0]], [[0.0], [0.0], [0.0]]])
+    got = merge_partial_softmax(m, l, acc)
+    w = float(np.exp(0.5 - 1.0))
+    want = (4.0 + 3.0 * w) / (2.0 + 1.0 * w)
+    torch.testing.assert_close(got, torch.tensor([[want], [0.0]]))
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,D", DECODE_SHAPES)
+def test_merged_split_states_match_pallas_interpret(B, Hq, Hkv, L, D):
+    """The split-and-merge computation, with the wrapper's own plan for
+    these shapes, against the TPU kernel in interpret mode; bf16 in and
+    out, 2e-2 absolute as the plain version's test above."""
+    q, k, v = _attn_inputs(B, Hq, Hkv, L, D, seed=B + L)
+    pos = np.asarray([0, L - 1, L // 2, 7][:B], np.int32)
+    scale = 1.0 / np.sqrt(D)
+    want = ragged_decode_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+        jnp.asarray(pos), scale, interpret=True)
+    splits, chunk = decode_splits(B, Hq, Hkv, L)
+    assert splits > 1
+    m, l, acc = _split_states(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
+        torch.from_numpy(pos), scale, splits, chunk)
+    got = merge_partial_softmax(m, l, acc).bfloat16()
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32)[:, :, 0],
+                               atol=2e-2, rtol=0)
 
 
 def _attention_lowering(q, k, v, mask, scale):

@@ -228,6 +228,68 @@ def test_packed_matmul_plain_matches_the_jax_function(bits, G, has_off, M,
             assert bool((err <= agreement_bound(ref, mag)).all())
 
 
+# -- the kernel's launch plan (packed_plan) ----------------------------------------
+
+# (K, N): Llama-3-8B's fused q/k/v, o, gate/up, down and lm_head, GPT-2's
+# lm_head (ragged N), a small odd case
+PLAN_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
+               (4096, 128256), (768, 50257), (512, 77)]
+PLAN_LAYOUTS = [(4, 32), (4, 16), (4, 128), (4, 256), (8, 16), (8, 32),
+                (8, 256)]
+
+
+@pytest.mark.parametrize("K,N", PLAN_SHAPES)
+@pytest.mark.parametrize("bits,G", PLAN_LAYOUTS)
+@pytest.mark.parametrize("M", [1, 7, 16, 17, 512, 2048])
+def test_packed_plan_splits_on_stages_and_groups(K, N, bits, G, M):
+    """The splits cover the rows of q once, each a whole number of
+    stages and of groups; at bits 4 a split is a run of q rows, so the
+    low nibble (W row r) and the high nibble (row r + K/2) of a byte
+    fall in the same split."""
+    plan = pm.packed_plan(M, K, N, G, bits)
+    kq = K // 2 if bits == 4 else K
+    assert plan.kchunk % pm.STAGE_Q_ROWS[plan.path, bits] == 0
+    assert plan.kchunk % G == 0
+    assert (plan.splits - 1) * plan.kchunk < kq <= plan.splits * plan.kchunk
+    split_of = np.minimum(np.arange(K) % kq // plan.kchunk, plan.splits - 1)
+    owner = np.zeros((plan.splits, K), bool)
+    owner[split_of, np.arange(K)] = True
+    assert (owner.sum(0) == 1).all()                 # each W row once
+    if bits == 4:
+        r = np.arange(K // 2)
+        assert (split_of[r] == split_of[r + K // 2]).all()
+    for c in range(plan.splits):                     # no split cuts a group
+        lo = c * plan.kchunk
+        assert lo % G == 0
+
+
+@pytest.mark.parametrize("M", [1, 2, 5, 8, 15, 16, 17, 64, 512, 513, 2048,
+                               100000])
+def test_packed_plan_path_follows_the_rows_without_a_cap(M):
+    """bf16 x: the CUDA cores up to 8 rows, the tensor cores from 9 on,
+    at any M; f32 x: the CUDA cores at every M (16 rows a block)."""
+    bf16 = pm.packed_plan(M, 4096, 4096, 32, 4)
+    assert bf16.path == ("tensor" if M >= pm.TENSOR_MIN_ROWS else "cores")
+    assert pm.TENSOR_MIN_ROWS == 9
+    f32 = pm.packed_plan(M, 4096, 4096, 32, 4, x_bf16=False)
+    assert f32.path == "cores" and f32.bm == min(16, 1 << (M - 1).bit_length())
+
+
+def test_packed_plan_fills_the_card_at_decode():
+    """M = 1: the down projection (32 column tiles) is split to fill the
+    H100's 132 multiprocessors twice over; lm_head (1,002 tiles) already
+    does and is not split. M = 16 on the tensor cores (16-row tiles):
+    the split grid fills one wave of blocks rather than spill a few
+    blocks into a second."""
+    down = pm.packed_plan(1, 14336, 4096, 32, 4)
+    assert down.splits > 1 and 32 * down.splits >= 2 * pm.card_sms()
+    assert pm.packed_plan(1, 4096, 128256, 32, 4).splits == 1
+    tdown = pm.packed_plan(16, 14336, 4096, 32, 4)
+    wave = pm.BLOCKS_PER_SM["tensor", tdown.bm] * pm.card_sms()
+    assert tdown.path == "tensor" and tdown.bm == 16
+    assert wave - 32 < 32 * tdown.splits <= wave
+
+
 # -- tiny models -----------------------------------------------------------------
 
 # V covers the byte tokenizer's ids (the HTTP test sends text)

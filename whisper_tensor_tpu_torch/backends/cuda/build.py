@@ -12,13 +12,18 @@ import. Its output goes to <repo>/build/cuda/, named by a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one
 is loaded as it is.
 
-Each C entry point launches on the stream it is given and returns
-`cudaGetLastError()`; `check()` turns a non-zero code into an error.
+Each C entry point launches on the stream it is given (`raw_stream`)
+and returns `cudaGetLastError()`; `check()` turns a non-zero code into
+an error. `card_sms` and `kernel_limits` give the launch plans what
+they size their grids by: the device's multiprocessors, and what the
+`wt_*_limits` entries read of a kernel (its tile constants, and its
+blocks a multiprocessor from the CUDA occupancy calculator).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,6 +34,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -38,19 +45,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    # q, k, v, pos (int64), out, B, Hq, Hkv, L, D, scale, stream
-    "wt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            ctypes.c_float, _P],
+    # q, k, v, pos (int64), out, partial acc, partial (m, l), q_f32, B,
+    # Hq, Hkv, L, D, splits, chunk, scale, stream
+    "wt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, ctypes.c_float, _P],
+    # Hq, Hkv, limits (int[2]: heads a block, blocks a multiprocessor)
+    "wt_decode_limits": [_I, _I, _P],
     # q, k, v, mask, pos (int64), out, B, Hq, Hkv, Sq, Skv, D, q strides
     # (b, h, s), mask batch stride, causal, scale, stream
     "wt_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _LL, _LL, _LL, _LL, _I, ctypes.c_float, _P],
     # x, w_i8, scale, out, M, K, N, x_is_bf16, stream
     "wt_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, q, scales, offsets, out, M, K, N, G, bits, has_off, x_is_bf16,
-    # stream
-    "wt_packed_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P],
+    # x, q, scales, offsets, out, partial sums, M, K, N, G, bits,
+    # has_off, x_is_bf16, path, bm, splits, kchunk, sms, stream
+    "wt_packed_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _P],
+    # path, bm, bits, x_is_bf16, G, limits (int[3]: rows of q a stage,
+    # columns a block, blocks a multiprocessor)
+    "wt_packed_limits": [_I, _I, _I, _I, _I, _P],
     # cache, update, pos (int64), B, H, L, D, S, update strides (b, h, s,
     # d), mode, stream
     "wt_ragged_kv_write": [_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
@@ -127,6 +140,8 @@ def _compile() -> BuildInfo:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib, _info
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             info = _compile()
@@ -144,6 +159,44 @@ def library() -> ctypes.CDLL:
 def build_info() -> Optional[BuildInfo]:
     """How the library of this process was obtained (None before)."""
     return _info
+
+
+CARD_SMS = 132      # an H100 SXM's multiprocessors: the plans' CPU default
+
+
+def device_index(device: torch.device) -> int:
+    """The index of a CUDA device (the current one for plain "cuda")."""
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+@functools.lru_cache(maxsize=None)
+def card_sms(index: Optional[int] = None) -> int:
+    """The multiprocessors of CUDA device `index`, asked once per device
+    (the launch plans size their grids by it); CARD_SMS for None, the
+    plans' CPU tests."""
+    if index is None:
+        return CARD_SMS
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kernel_limits(entry: str, index: int, *args) -> tuple:
+    """The ints a `wt_*_limits` C entry writes for `args` on CUDA device
+    `index` (what the launch plans read of a kernel on the card)."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(index):
+        check(getattr(library(), entry)(*args, out), entry)
+    return tuple(out)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The handle of `device`'s current CUDA stream, for the C entry
+    points: torch's raw-stream query (a torch.cuda.Stream object for it
+    costs about 12 us of host time a call beside an H100)."""
+    i = device_index(device)
+    query = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if query is None:
+        return torch.cuda.current_stream(i).cuda_stream
+    return query(i)
 
 
 def check(code: int, what: str) -> None:

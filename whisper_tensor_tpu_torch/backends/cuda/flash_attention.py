@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import agreement_bound
-from .build import check, library
+from .build import check, library, raw_stream
 
 
 def flash_agreement_bound(ref: torch.Tensor, magnitude: torch.Tensor
@@ -134,7 +134,7 @@ def flash_attention(q, k, v, scale: float, *, causal: bool = False,
         None if pos is None else pos.data_ptr(), out.data_ptr(),
         B, Hq, Hkv, Sq, Skv, D, q.stride(0), q.stride(1), q.stride(2),
         mask_sb, int(causal), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        raw_stream(q.device))
     check(code, "flash_attention kernel")
     flash_attention.launches += 1
     return out

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import check, library
+from .build import check, library, raw_stream
 
 _MODES = {(torch.bfloat16, torch.bfloat16): 0,
           (torch.float32, torch.float32): 1,
@@ -80,7 +80,7 @@ def ragged_kv_write(cache, update, pos) -> torch.Tensor:
     code = library().wt_ragged_kv_write(
         cache.data_ptr(), update.data_ptr(), pos64.data_ptr(), B, H, L, D,
         update.shape[2], *update.stride(), mode,
-        torch.cuda.current_stream(cache.device).cuda_stream)
+        raw_stream(cache.device))
     check(code, "ragged_kv_write kernel")
     ragged_kv_write.launches += 1
     return cache

@@ -17,16 +17,21 @@ the high nibble row r + K/2; bits 8: q (K, N) int8; scales and offsets
 AWQ groups). The repack is exact: dequant_repacked equals
 backends/cpu/dequant.py's dequantize_blocks(...).T bit for bit.
 
-On the device the kernel covers M <= 512 rows at any N and any G
-dividing K. Above 512 rows the reference dequantizes and runs a dense
-f32 dot (:298-302); the port does the same with the plain version. The
-plain version dequantizes as dequant_repacked does (q * s, then - o,
-each rounded in f32), multiplies in f32 (TF32 is off, device.py) and
-rounds the result to x's type once.
+On the device the kernel takes every M at any N and any G dividing K,
+by one of two paths (packed_plan below, and the source note): the CUDA
+cores at decode M and for f32 x, the tensor cores at prefill M. The
+reference's route of more than 512 rows to a dequantize-and-dot form
+(:294-302) is a limit of the TPU's scoped VMEM, which the card does not
+have, and is not carried over. The plain version dequantizes as
+dequant_repacked does (q * s, then - o, each rounded in f32), multiplies
+in f32 (TF32 is off, device.py) and rounds the result to x's type once.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
@@ -34,9 +39,9 @@ import torch
 
 from ...packed_format import PackedFormat
 from ..cpu.dequant import PIECE_BLOCKS, in_pieces
-from .build import check, library
+from . import build
+from .build import card_sms, check, device_index, library, raw_stream
 
-MAX_KERNEL_ROWS = 512
 _DENSE_COLS = 8192      # column chunk of the plain version: bounds the f32 copy
 
 
@@ -303,20 +308,124 @@ def packed_matmul_plain(x, q, scales, offsets, bits: int,
     return out.reshape(*x.shape[:-1], N)
 
 
+# -- the launch plan ------------------------------------------------------
+
+TENSOR_MIN_ROWS = 9       # bf16 x with at least this many rows: path (b)
+CORE_ROWS = (1, 2, 4, 8, 16)
+# The CPU defaults, for the plan's tests, of what wt_packed_limits reads
+# of each kernel on the card (KernelLimits): rows of q a stage by path
+# and bits, columns a block by path, and blocks a multiprocessor by path
+# and rows of a block, as the H100 gives them at bits 4, G 32 and bf16 x
+# (other layouts change a block's shared memory and registers).
+STAGE_Q_ROWS = {("cores", 4): 64, ("cores", 8): 128,
+                ("tensor", 4): 32, ("tensor", 8): 64}
+TILE_COLS = {"cores": 128, "tensor": 128}
+BLOCKS_PER_SM = {("cores", 1): 3, ("cores", 2): 2, ("cores", 4): 2,
+                 ("cores", 8): 2, ("cores", 16): 1, ("tensor", 16): 2,
+                 ("tensor", 64): 2}
+BLOCK_COST = 1 / 128      # a block's fixed cost, in whole-K blocks of work
+MAX_SPLITS = 64
+
+
+@dataclass(frozen=True)
+class KernelLimits:
+    """What a launch plan sizes its grid by, for one kernel of
+    csrc/packed_matmul.cu on one card."""
+    stage_q_rows: int     # rows of q a stage: splits are whole stages
+    tile_cols: int        # output columns a block
+    blocks_per_sm: int    # blocks a multiprocessor runs at once
+    sms: int              # the card's multiprocessors
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_limits(path: str, bm: int, bits: int, x_bf16: bool, G: int,
+                  device: Optional[int] = None) -> KernelLimits:
+    """The limits of the kernel for `path`, `bm` rows a block, `bits`,
+    x's type and groups of G rows: read on CUDA device `device`
+    (wt_packed_limits: the kernel's constants and the occupancy
+    calculator), or for None the CPU defaults above."""
+    if device is None:
+        return KernelLimits(STAGE_Q_ROWS[path, bits], TILE_COLS[path],
+                            BLOCKS_PER_SM[path, bm], card_sms())
+    return KernelLimits(*build.kernel_limits(
+        "wt_packed_limits", device, int(path == "tensor"), bm, bits,
+        int(x_bf16), G), card_sms(device))
+
+
+@dataclass(frozen=True)
+class PackedPlan:
+    """How one packed_matmul call runs on the card (csrc/packed_matmul.cu):
+    `path` "cores" (the decode path, `bm` rows of x per block, BM 1..16)
+    or "tensor" (the prefill path, tiles of `bm` 16 or 64 rows); K split into `splits`
+    runs of `kchunk` rows of q, each a whole number of stages and of
+    groups where the shapes allow (bits 4: a q row holds W rows r and
+    r + K/2, so both nibbles stay in one split)."""
+    path: str
+    bm: int
+    splits: int
+    kchunk: int
+
+
+@functools.lru_cache(maxsize=4096)
+def packed_plan(M: int, K: int, N: int, G: int, bits: int,
+                x_bf16: bool = True,
+                device: Optional[int] = None) -> PackedPlan:
+    """The launch plan for x (M, K) @ W (K, N) in groups of G rows, sized
+    by the kernel's limits on CUDA device `device` (kernel_limits; None:
+    the CPU defaults).
+
+    bf16 x with at least TENSOR_MIN_ROWS rows takes the tensor cores, any
+    other call the CUDA cores (f32 x at every M: the tensor path rounds x
+    to bf16). There is no row cap."""
+    path = "tensor" if x_bf16 and M >= TENSOR_MIN_ROWS else "cores"
+    return _path_plan(path, M, K, N, G, bits, x_bf16, device)
+
+
+def _path_plan(path: str, M: int, K: int, N: int, G: int, bits: int,
+               x_bf16: bool, device: Optional[int]) -> PackedPlan:
+    """packed_plan on a given path (chip_smoke.py times both paths at the
+    same rows through it).
+
+    K splits cut each block's work but round the grid up to whole waves
+    (blocks_per_sm x sms blocks each): of the splits that keep the grid
+    within two waves' worth, the plan takes the one whose waves x (work
+    per block + BLOCK_COST) is least, the fewest splits on a tie; a grid
+    that fills two waves unsplit is not split (chip_smoke.py --plans
+    measured these choices)."""
+    if path == "tensor":
+        bm = 16 if M <= 16 else 64
+    else:
+        bm = next(b for b in CORE_ROWS if b >= min(M, 16))
+    lim = kernel_limits(path, bm, bits, x_bf16, G, device)
+    kq = K // 2 if bits == 4 else K
+    unit = math.lcm(lim.stage_q_rows, G)            # stages and groups
+    units = -(-kq // unit)
+    blocks = -(-M // bm) * -(-N // lim.tile_cols)
+    wave = lim.blocks_per_sm * lim.sms
+    best = None
+    for s in range(1, min(units, MAX_SPLITS, -(-2 * wave // blocks)) + 1):
+        per = -(-units // s)                         # units per split
+        waves = -(-blocks * -(-units // per) // wave)
+        cost = waves * (per / units + BLOCK_COST)
+        if best is None or cost < best[0]:
+            best = (cost, per)
+    per = best[1]
+    return PackedPlan(path, bm, -(-units // per), per * unit)
+
+
 def packed_matmul(x, q, scales, offsets, bits: int,
                   has_off: bool = True) -> torch.Tensor:
     """x (..., K) bf16/f32 @ dequant(q, scales, offsets) (K, N) -> (...,
     N) in x's type.
 
-    CPU tensors take the plain version. CUDA tensors with at most 512
-    rows launch the kernel or raise; more rows take the plain version,
-    as the reference does."""
+    CPU tensors take the plain version. CUDA tensors launch the kernel
+    at every M, by packed_plan, or raise. A call whose plan splits K
+    runs two device kernels (the splits, then their sum); the launch
+    counter counts calls, one per call."""
     if x.device.type == "cpu":
         return packed_matmul_plain(x, q, scales, offsets, bits, has_off)
     K = x.shape[-1]
     M = x.numel() // K if K else 0
-    if M > MAX_KERNEL_ROWS:
-        return packed_matmul_plain(x, q, scales, offsets, bits, has_off)
     bits = int(bits)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"packed_matmul kernel: x must be bf16 or f32, "
@@ -337,8 +446,8 @@ def packed_matmul(x, q, scales, offsets, bits: int,
                 f"packed_matmul kernel: {name} must be f32 (K/G, N) with G "
                 f"dividing K={K}, got {t.dtype} {tuple(t.shape)}")
     x2 = x.reshape(M, K).contiguous()
-    # 16-byte copies of x; of q rows and float4 reads of scales and
-    # offsets only when N % 16 == 0 (the kernel reads bytes otherwise)
+    # 16-byte copies of x; of q rows and of scales and offsets only when
+    # N % 16 == 0 (the kernel copies bytes and floats otherwise)
     align = 16 if N % 16 == 0 else 4
     for name, t, a in (("x", x2, 16), ("q", q, align),
                        ("scales", scales, align), ("offsets", offsets, align)):
@@ -346,15 +455,30 @@ def packed_matmul(x, q, scales, offsets, bits: int,
             raise ValueError(f"packed_matmul kernel: {name} must be a "
                              f"contiguous, {a}-byte aligned tensor on "
                              f"{x.device}")
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    plan = packed_plan(M, K, N, K // Kg, bits, x.dtype == torch.bfloat16,
+                       device_index(x.device))
+    return _launch(x2, q, scales, offsets, bits, has_off, plan).reshape(
+        *x.shape[:-1], N)
+
+
+def _launch(x2, q, scales, offsets, bits: int, has_off: bool,
+            plan: PackedPlan) -> torch.Tensor:
+    """Launch the kernel by `plan` (packed_plan's, or another that
+    chip_smoke.py times) on checked CUDA inputs, x2 (M, K); (M, N)."""
+    (M, K), N = x2.shape, q.shape[1]
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    part = (torch.empty((plan.splits, M, N), dtype=torch.float32,
+                        device=x2.device) if plan.splits > 1 else None)
     code = library().wt_packed_matmul(
         x2.data_ptr(), q.data_ptr(), scales.data_ptr(), offsets.data_ptr(),
-        out.data_ptr(), M, K, N, K // Kg, bits, int(bool(has_off)),
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), None if part is None else part.data_ptr(), M, K, N,
+        K // scales.shape[0], bits, int(bool(has_off)),
+        int(x2.dtype == torch.bfloat16), int(plan.path == "tensor"), plan.bm,
+        plan.splits, plan.kchunk, card_sms(device_index(x2.device)),
+        raw_stream(x2.device))
     check(code, "packed_matmul kernel")
     packed_matmul.launches += 1
-    return out.reshape(*x.shape[:-1], N)
+    return out
 
 
 packed_matmul.launches = 0

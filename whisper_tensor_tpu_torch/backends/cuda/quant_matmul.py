@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import check, library
+from .build import check, library, raw_stream
 
 MAX_KERNEL_ROWS = 512
 _DENSE_COLS = 8192      # column chunk of the dense path: bounds the f32 copy
@@ -72,7 +72,7 @@ def int8_matmul(x, w_i8, scale) -> torch.Tensor:
     code = library().wt_int8_matmul(
         x2.data_ptr(), w_i8.data_ptr(), scale.data_ptr(), out.data_ptr(),
         M, K, N, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        raw_stream(x.device))
     check(code, "int8_matmul kernel")
     int8_matmul.launches += 1
     return out.reshape(*x.shape[:-1], N)

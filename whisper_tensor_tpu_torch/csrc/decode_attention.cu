@@ -15,31 +15,48 @@
 // What bounds it on the H100: the bytes of LIVE K/V. Each K and V
 // element of a row's live prefix is read once (2 * Hkv * (pos+1) * D *
 // 2 bytes per row); the work per byte is a few FMAs, far below the
-// card's compute roofline. The design follows from that:
-//   * one block per (KV head, batch row); the rep = Hq/Hkv query heads
-//     of the group share every K/V tile the block loads, so K/V is read
-//     once per group and not once per query head. A group of more than
-//     8 heads is split over rep/R blocks of R heads each, R the largest
-//     divisor of rep up to 8 (the heads' scores and accumulators live in
-//     shared memory and registers);
-//   * the key loop stops at the row's live length, so dead cache slots
-//     cost no traffic (the TPU kernel's clamped block index does the
-//     same);
+// card's compute roofline. What holds a kernel back from that bound at
+// small batch is the grid: one block per (KV head, row) is 8 blocks at
+// B = 1 for Llama-3-8B, and one SM cannot stream a row's megabyte of K/V
+// at the card's rate. So the key range is split (flash-decoding):
+//   * blocks (head group part, row, split): split c of a row takes keys
+//     [c * chunk, (c + 1) * chunk). The wrapper picks the number of
+//     splits from B, the head blocks and L alone
+//     (decode_attention.py:decode_splits: as many blocks as the
+//     multiprocessors hold at once, which wt_decode_limits reads on the
+//     card, down to 32 keys a split: 64 splits of 32 keys at
+//     B = 1, L = 2048, 8 of 256 at B = 8, 4 of 512 at B = 16; one split
+//     once the batch alone gives 2 blocks a multiprocessor), so pos stays
+//     on the device and nothing waits on the host;
+//   * each block reads pos[b] and streams only the live keys of its
+//     chunk; a chunk wholly past pos[b] writes an empty state (m = -inf,
+//     l = 0) and exits;
+//   * the rep = Hq/Hkv query heads of a group share every K/V tile the
+//     block loads (a group of more than 8 heads is split over rep/R
+//     blocks of R heads each, R the largest divisor of rep up to 8);
 //   * K and V tiles of 32 keys (8 KB each) stream through shared memory
-//     in a ring of 4 cp.async stages, so three tiles are in flight while
-//     the block computes on the fourth;
-//   * scores: 8 lanes share a key, each lane 16 of its 128 features, so
-//     a warp scores 4 keys per pass and reduces with 3 shuffles;
-//     P @ V: thread t owns feature t of every head of the group.
-// What it does not do yet: B * Hkv blocks under-fill the 132 SMs at
-// small batch (8 blocks at B=1 for Llama-3-8B), so one row's keys are
-// streamed by one SM. Splitting the key range over several blocks, with
-// a second pass that merges their partial softmax states, is the next
-// step for this kernel.
+//     in a ring of 3 cp.async stages (48 KB, 4 blocks a multiprocessor):
+//     a split's range is short (one tile at B = 1), so a deeper ring
+//     would only cost occupancy; at B = 16 a chunk is 16 tiles and 2 stay
+//     in flight per block;
+//   * scores: 8 lanes share a key, each lane 16 of its 128 features and
+//     two keys at a time (q in registers for up to 4 heads, else read
+//     from shared memory once per two keys), reduced with 3 shuffles;
+//     P @ V: thread t owns feature t of every head of the group and
+//     reads the probabilities four keys at a time;
+//   * with more than one split each block writes its partial state, the
+//     running max m, the sum l and the unnormalized acc (D floats) of
+//     each head, to an f32 scratch, and a second kernel merges a head's
+//     splits in split order: m* = max m_i, l = sum l_i e^(m_i - m*),
+//     out = sum acc_i e^(m_i - m*) / l, empty splits skipped (no
+//     exp(-inf + inf)), 0 where l is 0. With one split the block writes
+//     the output itself.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -47,7 +64,7 @@ constexpr int kD = 128;                 // head dim (one thread per feature)
 constexpr int kThreads = kD;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;               // keys per stage (one per lane)
-constexpr int kStages = 4;              // cp.async ring depth
+constexpr int kStages = 3;              // cp.async ring depth
 constexpr int kRow = kD * 2;            // bytes of one key's features
 constexpr int kStageBytes = 2 * kTile * kRow;   // a K tile and a V tile
 constexpr int kSmem = kStages * kStageBytes;    // dynamic shared memory
@@ -95,18 +112,20 @@ __device__ __forceinline__ void unpack8(const uint4 u, float* f) {
 // REP: the query heads of one block, all of KV head g's group or a
 // part of it
 template <int REP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 decode_attention_kernel(const void* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
                         const long long* __restrict__ pos,
-                        void* __restrict__ out, int q_f32,
-                        int Hq, int Hkv, int L, float scale) {
+                        void* __restrict__ out,
+                        float* __restrict__ part_acc,
+                        float* __restrict__ part_ml, int q_f32,
+                        int Hq, int Hkv, int L, int chunk, float scale) {
   extern __shared__ __align__(16) unsigned char ring[];   // [S][K | V tile]
   // query heads, pre-scaled f32, permuted so that lane c of a key's 8
   // lanes reads its 4 float4s at [i][c]: conflict-free 16-byte reads
   __shared__ __align__(16) float s_q[REP][4][8][4];
-  __shared__ float s_p[REP][kTile];     // scores, then probabilities
+  __shared__ __align__(16) float s_p[REP][kTile];  // scores, then probs
   __shared__ float s_m[REP];            // running max
   __shared__ float s_l[REP];            // running sum
   __shared__ float s_alpha[REP];        // rescale of the previous tiles
@@ -119,10 +138,24 @@ decode_attention_kernel(const void* __restrict__ q,
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
+  const int split = blockIdx.z, splits = gridDim.z;
+  const size_t head0 = static_cast<size_t>(b) * Hq +
+                       static_cast<size_t>(g) * rep + part * REP;
+
   long long p = pos[b];
   p = p < 0 ? 0 : (p > L - 1 ? L - 1 : p);
   const int n_keys = static_cast<int>(p) + 1;
-  const int n_tiles = (n_keys + kTile - 1) / kTile;
+  const int k0 = split * chunk;             // this split's keys [k0, k1)
+  if (k0 >= n_keys) {                       // wholly past pos: empty state
+    if (tid < REP) {
+      float* ml = part_ml + ((head0 + tid) * splits + split) * 2;
+      ml[0] = -CUDART_INF_F;
+      ml[1] = 0.f;
+    }
+    return;
+  }
+  const int k1 = min(k0 + chunk, n_keys);
+  const int n_tiles = (k1 - k0 + kTile - 1) / kTile;
 
   const size_t kv0 = (static_cast<size_t>(b) * Hkv + g) *
                      static_cast<size_t>(L) * kD;
@@ -130,10 +163,10 @@ decode_attention_kernel(const void* __restrict__ q,
   const unsigned char* vb = reinterpret_cast<const unsigned char*>(v + kv0);
   auto load_tile = [&](int slot, int t) {
     unsigned char* dst = ring + slot * kStageBytes;
-    const int key0 = t * kTile;
+    const int key0 = k0 + t * kTile;
     for (int c = tid; c < kTile * kRow / 16; c += kThreads) {
       const int j = c / (kRow / 16), off = (c % (kRow / 16)) * 16;
-      const bool ok = key0 + j < n_keys;
+      const bool ok = key0 + j < k1;
       const size_t src = ok ? static_cast<size_t>(key0 + j) * kRow + off : 0;
       cp_async16(dst + j * kRow + off, kb + src, ok);
       cp_async16(dst + kTile * kRow + j * kRow + off, vb + src, ok);
@@ -146,8 +179,6 @@ decode_attention_kernel(const void* __restrict__ q,
   }
 
   // feature of (i, c, e): lane c holds [8c, 8c+8) and [64+8c, 64+8c+8)
-  const size_t head0 = static_cast<size_t>(b) * Hq +
-                       static_cast<size_t>(g) * rep + part * REP;
   for (int idx = tid; idx < REP * kD; idx += kThreads) {
     const int h = idx / kD, r = idx % kD;
     const int i = r / 32, c = (r % 32) / 4, e = r % 4;
@@ -166,8 +197,22 @@ decode_attention_kernel(const void* __restrict__ q,
 #pragma unroll
   for (int h = 0; h < REP; ++h) acc[h] = 0.f;
 
-  const int kk = lane >> 3;             // key of this lane within a pass
+  static_assert(kTile == kWarps * 8, "a warp scores 8 keys of a tile");
+  const int kk = lane >> 3;             // keys kk, kk + 4 of its warp's 8
   const int c8 = lane & 7;              // this lane's 16 features
+  // With up to 4 heads a lane keeps its 16 features of each in registers:
+  // read from s_q on every tile they were the scores' largest shared-
+  // memory traffic. More heads would not fit and stay in s_q.
+  constexpr bool kQRegs = REP <= 4;
+  float4 qr[kQRegs ? REP : 1][4];
+  if constexpr (kQRegs) {
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < REP; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qr[h][i] = *reinterpret_cast<const float4*>(s_q[h][i][c8]);
+  }
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<kStages - 2>();       // this thread's copies of tile t
     __syncthreads();                    // everyone's; slot t-1 is free
@@ -177,31 +222,47 @@ decode_attention_kernel(const void* __restrict__ q,
     const unsigned char* ks = ring + (t % kStages) * kStageBytes;
     const __nv_bfloat16* vs =
         reinterpret_cast<const __nv_bfloat16*>(ks + kTile * kRow);
-    const int tn = min(kTile, n_keys - t * kTile);
+    const int tn = min(kTile, k1 - k0 - t * kTile);
 
-    // scores: warp w takes keys 8w .. 8w+7, four per pass
-#pragma unroll
-    for (int pass = 0; pass < kTile / kWarps / 4; ++pass) {
-      const int j = warp * (kTile / kWarps) + pass * 4 + kk;
-      float kf[16];
-      unpack8(*reinterpret_cast<const uint4*>(ks + j * kRow + 16 * c8), kf);
-      unpack8(*reinterpret_cast<const uint4*>(ks + j * kRow + 128 + 16 * c8),
-              kf + 8);
+    // scores: warp w takes keys 8w .. 8w+7; a lane scores keys kk and
+    // kk + 4 together, so each q load serves two keys
+    {
+      const int j0 = warp * (kTile / kWarps) + kk, j1 = j0 + 4;
+      float ka[16], kb[16];
+      unpack8(*reinterpret_cast<const uint4*>(ks + j0 * kRow + 16 * c8), ka);
+      unpack8(*reinterpret_cast<const uint4*>(ks + j0 * kRow + 128 + 16 * c8),
+              ka + 8);
+      unpack8(*reinterpret_cast<const uint4*>(ks + j1 * kRow + 16 * c8), kb);
+      unpack8(*reinterpret_cast<const uint4*>(ks + j1 * kRow + 128 + 16 * c8),
+              kb + 8);
 #pragma unroll
       for (int h = 0; h < REP; ++h) {
-        float d = 0.f;
+        float d0 = 0.f, d1 = 0.f;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float4 qv = *reinterpret_cast<const float4*>(s_q[h][i][c8]);
-          d = fmaf(qv.x, kf[4 * i], d);
-          d = fmaf(qv.y, kf[4 * i + 1], d);
-          d = fmaf(qv.z, kf[4 * i + 2], d);
-          d = fmaf(qv.w, kf[4 * i + 3], d);
+          float4 qv;
+          if constexpr (kQRegs)
+            qv = qr[h][i];
+          else
+            qv = *reinterpret_cast<const float4*>(s_q[h][i][c8]);
+          d0 = fmaf(qv.x, ka[4 * i], d0);
+          d0 = fmaf(qv.y, ka[4 * i + 1], d0);
+          d0 = fmaf(qv.z, ka[4 * i + 2], d0);
+          d0 = fmaf(qv.w, ka[4 * i + 3], d0);
+          d1 = fmaf(qv.x, kb[4 * i], d1);
+          d1 = fmaf(qv.y, kb[4 * i + 1], d1);
+          d1 = fmaf(qv.z, kb[4 * i + 2], d1);
+          d1 = fmaf(qv.w, kb[4 * i + 3], d1);
         }
-        d += __shfl_xor_sync(0xffffffffu, d, 4);
-        d += __shfl_xor_sync(0xffffffffu, d, 2);
-        d += __shfl_xor_sync(0xffffffffu, d, 1);
-        if (c8 == 0) s_p[h][j] = d;
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) {
+          d0 += __shfl_xor_sync(0xffffffffu, d0, o);
+          d1 += __shfl_xor_sync(0xffffffffu, d1, o);
+        }
+        if (c8 == 0) {
+          s_p[h][j0] = d0;
+          s_p[h][j1] = d1;
+        }
       }
     }
     __syncthreads();
@@ -223,16 +284,38 @@ decode_attention_kernel(const void* __restrict__ q,
       }
     }
     __syncthreads();
-    // P @ V: thread tid owns feature tid of every head in the group
+    // P @ V: thread tid owns feature tid of every head in the group;
+    // keys four at a time, one 16-byte probability read per head (keys
+    // past tn have p = 0 and zero-filled V rows, so they add nothing)
 #pragma unroll
     for (int h = 0; h < REP; ++h) acc[h] *= s_alpha[h];
-    for (int j = 0; j < tn; ++j) {
-      const float vj = __bfloat162float(vs[j * kD + tid]);
+    for (int j = 0; j < tn; j += 4) {
+      float vj[4];
 #pragma unroll
-      for (int h = 0; h < REP; ++h) acc[h] = fmaf(s_p[h][j], vj, acc[h]);
+      for (int e = 0; e < 4; ++e)
+        vj[e] = __bfloat162float(vs[(j + e) * kD + tid]);
+#pragma unroll
+      for (int h = 0; h < REP; ++h) {
+        const float4 p = *reinterpret_cast<const float4*>(&s_p[h][j]);
+        acc[h] = fmaf(p.x, vj[0], acc[h]);
+        acc[h] = fmaf(p.y, vj[1], acc[h]);
+        acc[h] = fmaf(p.z, vj[2], acc[h]);
+        acc[h] = fmaf(p.w, vj[3], acc[h]);
+      }
     }
   }
   cp_async_wait<0>();
+  if (part_acc != nullptr) {                // the split's partial state
+#pragma unroll
+    for (int h = 0; h < REP; ++h)
+      part_acc[((head0 + h) * splits + split) * kD + tid] = acc[h];
+    if (tid < REP) {
+      float* ml = part_ml + ((head0 + tid) * splits + split) * 2;
+      ml[0] = s_m[tid];
+      ml[1] = s_l[tid];
+    }
+    return;
+  }
 #pragma unroll
   for (int h = 0; h < REP; ++h) {
     const float l = s_l[h];
@@ -245,49 +328,157 @@ decode_attention_kernel(const void* __restrict__ q,
   }
 }
 
+// The second pass: block bh = b * Hq + h merges the head's `splits`
+// partial states in split order; thread d owns feature d. The (m, l)
+// pairs are read once, side by side, into shared memory.
+__global__ void __launch_bounds__(kThreads)
+decode_merge_kernel(const float* __restrict__ part_acc,
+                    const float* __restrict__ part_ml,
+                    void* __restrict__ out, int q_f32, int splits) {
+  extern __shared__ float s_w[];          // [splits] weights, then [splits] l
+  const size_t bh = blockIdx.x;
+  const int d = threadIdx.x;
+  const float* ml = part_ml + bh * splits * 2;
+  for (int c = d; c < splits; c += kThreads) {
+    s_w[c] = ml[2 * c];
+    s_w[splits + c] = ml[2 * c + 1];
+  }
+  __syncthreads();
+  float m = -CUDART_INF_F;
+  for (int c = 0; c < splits; ++c) m = fmaxf(m, s_w[c]);
+  __syncthreads();
+  for (int c = d; c < splits; c += kThreads)   // an empty split weighs 0
+    s_w[c] = s_w[c] == -CUDART_INF_F ? 0.f : expf(s_w[c] - m);
+  __syncthreads();
+  float l = 0.f, a = 0.f;
+  const float* acc = part_acc + bh * splits * kD + d;
+#pragma unroll 4
+  for (int c = 0; c < splits; ++c) {
+    const float w = s_w[c];
+    if (w == 0.f) continue;
+    l = fmaf(s_w[splits + c], w, l);
+    a = fmaf(acc[static_cast<size_t>(c) * kD], w, a);
+  }
+  const float y = l > 0.f ? a / l : 0.f;
+  if (q_f32)
+    static_cast<float*>(out)[bh * kD + d] = y;
+  else
+    static_cast<__nv_bfloat16*>(out)[bh * kD + d] = __float2bfloat16(y);
+}
+
+// The 48 KB ring and the static arrays pass 48 KB: allowed once per
+// device (of the first 16), not on every launch.
+template <int REP>
+cudaError_t allow_smem() {
+  static bool allowed[16] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 16 || !allowed[dev]) {
+    e = cudaFuncSetAttribute(decode_attention_kernel<REP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+    if (e != cudaSuccess) return e;
+    if (dev < 16) allowed[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 template <int REP>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* pos, void* out, int q_f32, int B, int Hq,
-                   int Hkv, int L, float scale, cudaStream_t stream) {
-  // the ring is above the 48 KB a block gets without asking
-  const cudaError_t e = cudaFuncSetAttribute(
-      decode_attention_kernel<REP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+                   const void* pos, void* out, float* part_acc,
+                   float* part_ml, int q_f32, int B, int Hq, int Hkv, int L,
+                   int splits, int chunk, float scale, cudaStream_t stream) {
+  cudaError_t e = allow_smem<REP>();
   if (e != cudaSuccess) return e;
-  decode_attention_kernel<REP><<<dim3(Hq / REP, B), kThreads, kSmem,
+  const bool merge = splits > 1;
+  decode_attention_kernel<REP><<<dim3(Hq / REP, B, splits), kThreads, kSmem,
                                   stream>>>(
       q, static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<const long long*>(pos), out, q_f32, Hq, Hkv, L, scale);
+      static_cast<const long long*>(pos), out, merge ? part_acc : nullptr,
+      part_ml, q_f32, Hq, Hkv, L, chunk, scale);
   return cudaGetLastError();
+}
+
+// Blocks of the REP kernel one multiprocessor of the current device runs
+// at once.
+template <int REP>
+cudaError_t occupancy(int* blocks) {
+  cudaError_t e = allow_smem<REP>();
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, decode_attention_kernel<REP>, kThreads, kSmem);
+}
+
+// Query heads of one block: the largest divisor of the group Hq / Hkv up
+// to 8.
+int heads_per_block(int Hq, int Hkv) {
+  int heads = 8;
+  while ((Hq / Hkv) % heads) --heads;
+  return heads;
+}
+
+// f(std::integral_constant<int, R>) for R heads a block
+template <typename F>
+cudaError_t with_heads(int heads, F&& f) {
+  switch (heads) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    default: return f(std::integral_constant<int, 8>{});
+  }
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch; cudaErrorInvalidValue for
-// a shape the kernel does not take (the Python wrapper checks first).
+// The limits the wrapper's split plan (decode_attention.py:decode_splits)
+// sizes its grid by, for a group of Hq / Hkv heads: limits[0] the query
+// heads of one block, limits[1] the blocks of that kernel one
+// multiprocessor of the current device runs at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns a CUDA error
+// code.
+extern "C" int wt_decode_limits(int Hq, int Hkv, int* limits) {
+  if (Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || limits == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  limits[0] = heads_per_block(Hq, Hkv);
+  return static_cast<int>(with_heads(limits[0], [&](auto R) {
+    return occupancy<decltype(R)::value>(limits + 1);
+  }));
+}
+
+// One call: the split kernel over `splits` runs of `chunk` keys, then,
+// when splits > 1, the merge of the partial states (part_acc: f32 (B, Hq,
+// splits, D), part_ml: f32 (B, Hq, splits, 2)) into `out`. Returns
+// cudaGetLastError() after the launches; cudaErrorInvalidValue for a
+// shape or plan the kernel does not take (the Python wrapper checks
+// first).
 extern "C" int wt_decode_attention(const void* q, const void* k,
                                    const void* v, const void* pos, void* out,
-                                   int q_f32, int B, int Hq, int Hkv, int L,
-                                   int D, float scale, void* stream) {
-  if (D != kD || Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0 || B > 65535)
+                                   void* part_acc, void* part_ml, int q_f32,
+                                   int B, int Hq, int Hkv, int L, int D,
+                                   int splits, int chunk, float scale,
+                                   void* stream) {
+  if (D != kD || Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0 ||
+      B > 65535 || splits < 1 || splits > 4096 || chunk <= 0 ||
+      static_cast<long long>(splits) * chunk < L ||
+      static_cast<long long>(splits - 1) * chunk >= L ||
+      (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int heads = 8;                        // heads per block: divides rep
-  while ((Hq / Hkv) % heads) --heads;
-#define WT_LAUNCH(R) \
-  launch<R>(q, k, v, pos, out, q_f32, B, Hq, Hkv, L, scale, s)
-  cudaError_t e;
-  switch (heads) {
-    case 1: e = WT_LAUNCH(1); break;
-    case 2: e = WT_LAUNCH(2); break;
-    case 3: e = WT_LAUNCH(3); break;
-    case 4: e = WT_LAUNCH(4); break;
-    case 5: e = WT_LAUNCH(5); break;
-    case 6: e = WT_LAUNCH(6); break;
-    case 7: e = WT_LAUNCH(7); break;
-    default: e = WT_LAUNCH(8); break;
-  }
-#undef WT_LAUNCH
-  return static_cast<int>(e);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
+  cudaError_t e = with_heads(heads_per_block(Hq, Hkv), [&](auto R) {
+    return launch<decltype(R)::value>(q, k, v, pos, out, pa, pm, q_f32, B, Hq,
+                                      Hkv, L, splits, chunk, scale, s);
+  });
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  decode_merge_kernel<<<static_cast<unsigned>(B) * Hq, kThreads,
+                        2 * splits * sizeof(float), s>>>(pa, pm, out, q_f32,
+                                                         splits);
+  return static_cast<int>(cudaGetLastError());
 }
