@@ -230,8 +230,6 @@ def phase2(torch, results):
     from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
     from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
         decode_attention, decode_attention_plain, decode_splits)
-    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
-        int8_matmul, int8_matmul_plain)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -243,14 +241,19 @@ def phase2(torch, results):
     say("phase 2: kernels against their plain versions (tolerance per "
         "element: 2^-7 |plain| + 2^-16 * plain on |inputs|)")
 
-    Hq, Hkv, D, L = 32, 8, 128, MAX_LEN
-    scale = 1.0 / math.sqrt(D)
     worst, timing, shapes = 0.0, None, {}
-    # B=1 all keys live, the smoke's direct decode (pos near 100), a
-    # () int32 pos, phase 4's ragged slots, 16 full rows
-    for B, pos_list in ((1, [L - 1]), (1, [100]), (1, [1234]),
-                        (8, [0, 1, 17, 511, 1000, L - 2, L - 1, 5000]),
-                        (16, [L - 1] * 16)):
+    L = MAX_LEN
+    # (Hq, Hkv, D, L, B, positions). Llama-3-8B's heads: B=1 all keys
+    # live, the smoke's direct decode (pos near 100), a () int32 pos,
+    # phase 4's ragged slots, 16 full rows; GPT-2's 12 heads of 64 (phase
+    # 7's model) over its 1,024 positions at B 1, 16 and 64
+    cases = [(32, 8, 128, L, 1, [L - 1]), (32, 8, 128, L, 1, [100]),
+             (32, 8, 128, L, 1, [1234]),
+             (32, 8, 128, L, 8, [0, 1, 17, 511, 1000, L - 2, L - 1, 5000]),
+             (32, 8, 128, L, 16, [L - 1] * 16)] + [
+        (12, 12, 64, 1024, B, [1023] * B) for B in (1, 16, 64)]
+    for Hq, Hkv, D, L, B, pos_list in cases:
+        scale = 1.0 / math.sqrt(D)
         kv_bytes = 2 * B * Hkv * L * D * 2
         sets = []
         for _ in range(copies_for(kv_bytes)):
@@ -284,9 +287,10 @@ def phase2(torch, results):
         n_live = int(live.sum())
         bms, bby = bound(2 * B * Hq * D * 2 + 2 * Hkv * n_live * D * 2,
                          4 * Hq * D * n_live)
-        splits, chunk = decode_splits(B, Hq, Hkv, L,
+        splits, chunk = decode_splits(B, Hq, Hkv, L, D,
                                       torch.cuda.current_device())
-        label = f"B={B} pos={pos_list[0] if B == 1 else 'ragged' if B == 8 else 'L-1'}"
+        label = (f"GPT-2 D=64 B={B} L={L}" if D == 64 else
+                 f"B={B} pos={pos_list[0] if B == 1 else 'ragged' if B == 8 else 'L-1'}")
         shapes[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bms, "device_ms": dev_ms,
                          "library_device_ms": lib_dev, "host_us": h_us}
@@ -313,57 +317,136 @@ def phase2(torch, results):
         "plain_ms": timing[1], "bound_ms": timing[3], "bound_by": timing[4],
         "library_ms": timing[5], "shape": timing[2], "shapes": shapes})
 
+    phase2_int8(torch, results)
+
+
+def phase2_int8(torch, results):
+    """int8_matmul against its plain version: M 1, 16, 128, 512 and 2048
+    on the five Llama-3-8B shapes, GPT-2's tied head (N 50,257, odd) at M
+    1 and 64, f32 x at M 512 and 2048 on gate/up and down; each with its
+    plan, kernel and device time, the plain version's, the library call's
+    (_weight_int8pack_mm) and, as information, a bf16 torch.matmul of x
+    against the weight already converted to bf16 (the tensor-core product
+    without the conversion; the port never calls it). Then both paths at
+    M 1 to 16 on down and gate/up (the crossover of int8_plan)."""
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda import quant_matmul as qm
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
+        int8_matmul, int8_matmul_plain, int8_plan)
+
+    dev = torch.device("cuda")
+    card = torch.cuda.current_device()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    say("  int8_matmul (tolerance per element: agreement_bound, plain "
+        "version on |x| and |W|; library: _weight_int8pack_mm, bf16 "
+        "scales; yardstick: bf16 x @ W already in bf16)")
     worst, timing, shapes, lib_err = 0.0, None, {}, None
-    # (K, N): fused q/k/v, o, fused gate/up, down, lm_head
-    pairs = ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096),
-             (4096, 128256))
-    for K, N in pairs:
+    # (K, N, rows, x type): Llama-3-8B's five shapes, GPT-2's head, f32 x
+    cases = [(K, N, (1, 16, 128, 512, 2048), torch.bfloat16)
+             for K, N in MATMUL_SHAPES] + [
+        (768, 50257, (1, 64), torch.bfloat16),
+        (4096, 28672, (512, 2048), torch.float32),
+        (14336, 4096, (512, 2048), torch.float32)]
+    for K, N, rows, xdt in cases:
         wsets = []
         for _ in range(copies_for(K * N)):
             w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
                               dtype=torch.int8)
             s = torch.rand(N, generator=gen, device=dev) * 0.01 + 1e-3
             wsets.append((w, s))
-        for M in (1, 8, 128, 512):
-            sets = [(torch.randn(M, K, generator=gen, device=dev).bfloat16(),
+        wbf = wsets[0][0].bfloat16()            # the yardstick's weight
+        for M in rows:
+            sets = [(torch.randn(M, K, generator=gen, device=dev).to(xdt),
                      w, s) for w, s in wsets]
             x, w, s = sets[0]
             got = int8_matmul(*sets[0])
             ref = int8_matmul_plain(*sets[0])
             err, share = worst_share(got, ref, int8_matmul_plain(
                 x.float().abs(), w.abs(), s), agreement_bound)
+            del got, ref
+            big = M >= 512
+            slow = dict(reps=3, inner=1) if big else {}
             ms = time_ms(torch, int8_matmul, sets)
-            plain_ms = time_ms(torch, int8_matmul_plain, sets)
-            lib_ms = None
-            try:
-                calls = [(int8pack_call(torch, x, w, s),)
-                         for x, w, s in sets[:2]]
-                lib_ms = time_ms(torch, lambda f: f(), calls)
-                del calls
-            except (RuntimeError, NotImplementedError) as e:
-                lib_err = f"{type(e).__name__}: {str(e)[:200]}"
-            bms, bby = bound(M * K * 2 + K * N + N * 4 + M * N * 2,
+            dev_ms = device_time_ms(torch, int8_matmul, sets,
+                                    **(dict(reps=3, inner=5) if big else {}))
+            plain_ms = time_ms(torch, int8_matmul_plain, sets[:2], **slow)
+            lib_ms = yard_ms = None
+            if xdt == torch.bfloat16:
+                try:
+                    calls = [(int8pack_call(torch, x, w, s),)
+                             for x, w, s in sets[:2]]
+                    lib_ms = time_ms(torch, lambda f: f(), calls, **slow)
+                    del calls
+                except (RuntimeError, NotImplementedError) as e:
+                    lib_err = f"{type(e).__name__}: {str(e)[:200]}"
+                yard_ms = time_ms(torch, lambda x: torch.matmul(x, wbf),
+                                  [(x,) for x, _, _ in sets[:2]], **slow)
+            xb = x.element_size()
+            bms, bby = bound(M * K * xb + K * N + N * 4 + M * N * xb,
                              2 * M * K * N)
+            plan = int8_plan(M, K, N, xdt == torch.bfloat16, card)
             lib = "none" if lib_ms is None else (
                 f"{lib_ms:.4f} ms (kernel/library {ms / lib_ms:.2f})")
-            say(f"  int8_matmul M={M} K={K} N={N}: max_abs_err={err:.6g}, "
-                f"worst err/tol {share:.4g}; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, _weight_int8pack_mm {lib}, bound "
-                f"{bms:.4f} ms ({bby})")
+            yard = "" if yard_ms is None else (
+                f", bf16 yardstick {yard_ms:.4f} ms")
+            tname = "bf16" if xdt == torch.bfloat16 else "f32"
+            say(f"  int8_matmul {tname} x M={M} K={K} N={N} ({plan.path}, "
+                f"{plan.bm} rows a block, {plan.splits} splits): "
+                f"max_abs_err={err:.6g}, worst err/tol {share:.4g}; kernel "
+                f"{ms:.4f} ms, device {dev_ms:.4f} ms ({bms / dev_ms:.1%} of "
+                f"the bound), plain {plain_ms:.4f} ms (kernel/plain "
+                f"{ms / plain_ms:.2f}), _weight_int8pack_mm {lib}{yard}, "
+                f"bound {bms:.4f} ms ({bby})")
             if not share <= 1.0:
                 fail(f"int8_matmul disagrees with its plain version "
-                     f"(M={M}, K={K}, N={N}): err/tol {share}")
+                     f"({tname} x, M={M}, K={K}, N={N}): err/tol {share}")
             worst = max(worst, err)
-            shapes[f"M={M} K={K} N={N}"] = {
-                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bms}
-            if (M, K, N) == (1, 4096, 28672):
+            shapes[f"{tname} M={M} K={K} N={N}"] = {
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "yardstick_ms": yard_ms,
+                "bound_ms": bms, "path": plan.path, "splits": plan.splits}
+            if (M, K, N, xdt) == (1, 4096, 28672, torch.bfloat16):
                 timing = (ms, plain_ms, "M=1 K=4096 N=28672 (gate/up)",
                           bms, bby, lib_ms)
-        del wsets, sets
+            del sets
+        del wsets, wbf
         torch.cuda.empty_cache()
     if lib_err:
         say(f"  _weight_int8pack_mm raised on the card: {lib_err}")
+
+    # the crossover: both paths at the same rows, down and gate/up
+    say("  int8_matmul paths at decode rows: device ms of the CUDA-core "
+        "path / the tensor-core path, each with int8_plan's splits")
+    for K, N in ((14336, 4096), (4096, 28672)):
+        wsets = [(torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                                dtype=torch.int8),
+                  torch.rand(N, generator=gen, device=dev) * 0.01 + 1e-3)
+                 for _ in range(copies_for(K * N))]
+        line = []
+        for M in (1, 2, 4, 5, 8, 16):
+            sets = [(torch.randn(M, K, generator=gen, device=dev).bfloat16(),
+                     w, s) for w, s in wsets]
+            t = []
+            for path in ("cores", "tensor"):
+                plan = qm._path_plan(path, M, K, N, True, card)
+
+                def run(x, w, s, plan=plan):
+                    return qm._launch(x, w, s, plan)
+
+                _, share = worst_share(run(*sets[0]), int8_matmul_plain(
+                    *sets[0]), int8_matmul_plain(sets[0][0].float().abs(),
+                                                 sets[0][1].abs(),
+                                                 sets[0][2]),
+                    agreement_bound)
+                if not share <= 1.0:
+                    fail(f"int8_matmul's {path} path disagrees with its "
+                         f"plain version (M={M}, K={K}, N={N})")
+                t.append(device_time_ms(torch, run, sets))
+            line.append(f"M={M} {t[0]:.4f}/{t[1]:.4f}")
+            del sets
+        say(f"    K={K} N={N}: " + ", ".join(line))
+        del wsets
+        torch.cuda.empty_cache()
     results.append({
         "name": "int8_matmul", "route": "cuda",
         "source": "whisper_tensor_tpu_torch/csrc/int8_matmul.cu",
@@ -509,7 +592,8 @@ def phase2_flash(torch, results):
     direct prefill, an admission group, a 128-row piece, a long prompt,
     GPT-2's width, the causal and additive modes, and ragged edges."""
     from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
-        flash_agreement_bound, flash_attention, flash_attention_plain)
+        flash_agreement_bound, flash_attention, flash_attention_plain,
+        flash_splits)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -524,8 +608,10 @@ def phase2_flash(torch, results):
              ("(v) GPT-2 width", "pos", 1, 12, 12, 1024, 1024, 64, [0]),
              ("(vi) causal", "causal", 2, 32, 8, 1024, 1536, 128, None),
              ("(vii) additive mask", "mask", 2, 32, 8, 512, 1024, 128, None),
-             ("(viii) ragged edges", "pos", 1, 32, 8, 300, 1000, 128, [700]))
-    worst, head = 0.0, None
+             ("(viii) ragged edges", "pos", 1, 32, 8, 300, 1000, 128, [700]),
+             ("(ix) GPT-2 piece", "pos", 1, 12, 12, 128, 1024, 64, [512]))
+    card = torch.cuda.current_device()
+    worst, head, shapes = 0.0, None, {}
     for label, mode, B, Hq, Hkv, Sq, Skv, D, pos_list in cases:
         extra, dense = {}, None
         if mode == "pos":
@@ -559,8 +645,13 @@ def phase2_flash(torch, results):
             q, k, v.abs(), scale, **extra), flash_agreement_bound)
         del ref
         big = Sq * Skv >= 8192 * 8192
-        ms = time_ms(torch, lambda q, k, v: flash_attention(
-            q, k, v, scale, **extra), sets)
+
+        def kernel(q, k, v):
+            return flash_attention(q, k, v, scale, **extra)
+
+        ms = time_ms(torch, kernel, sets)
+        dev_ms = device_time_ms(torch, kernel, sets,
+                                **(dict(reps=3, inner=5) if big else {}))
         plain_ms = time_ms(torch, lambda q, k, v: flash_attention_plain(
             q, k, v, scale, **extra), sets[:2], reps=3 if big else 7,
             inner=1 if big else 5)
@@ -568,6 +659,9 @@ def phase2_flash(torch, results):
                  for q, k, v in sets[:2]]
         lib_ms = time_ms(torch, lambda f: f(), calls, reps=3 if big else 7,
                          inner=1 if big else 5)
+        lib_dev = device_time_ms(torch, lambda f: f(), calls,
+                                 **(dict(reps=3, inner=5) if big else {}))
+        splits, _ = flash_splits(B, Hq, Hkv, Sq, Skv, D, card)
         pairs, kv_bytes = flash_work(torch, mode, B, Hq, Hkv, Sq, Skv, D,
                                      extra)
         io_bytes = 2 * B * Hq * Sq * D * 2 + kv_bytes + (
@@ -575,15 +669,20 @@ def phase2_flash(torch, results):
         bms, bby = bound(io_bytes, 4 * D * Hq * pairs)
         tflops = 4 * D * Hq * pairs / (ms * 1e-3) / 1e12
         say(f"  flash_attention {label} {mode} B={B} Hq/Hkv={Hq}/{Hkv} "
-            f"Sq={Sq} Skv={Skv} D={D} pos={pos_list}: max_abs_err="
-            f"{err:.6g}, worst err/tol {share:.4g}; kernel {ms:.4f} ms "
-            f"({tflops:.1f} TFLOP/s over visible keys), plain "
-            f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({bby})")
+            f"Sq={Sq} Skv={Skv} D={D} pos={pos_list} ({splits} key "
+            f"splits): max_abs_err={err:.6g}, worst err/tol {share:.4g}; "
+            f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s over visible keys), "
+            f"device {dev_ms:.4f} ms ({bms / dev_ms:.1%} of the bound), "
+            f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (kernel/SDPA "
+            f"{ms / lib_ms:.2f}), SDPA device {lib_dev:.4f} ms, bound "
+            f"{bms:.4f} ms ({bby})")
         if not share <= 1.0:
             fail(f"flash_attention disagrees with its plain version "
                  f"({label}): err/tol {share}")
         worst = max(worst, err)
+        shapes[label] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "library_device_ms": lib_dev,
+                         "bound_ms": bms, "splits": splits}
         if head is None:
             head = (ms, plain_ms, lib_ms, bms, bby,
                     f"B={B} Hq/Hkv={Hq}/{Hkv} Sq=Skv={Sq} D={D} pos=0")
@@ -596,7 +695,7 @@ def phase2_flash(torch, results):
         "replaces": "whisper_tensor_tpu/backends/pallas/attention.py:175",
         "launches": None, "max_abs_err": worst, "ms": head[0],
         "plain_ms": head[1], "bound_ms": head[3], "bound_by": head[4],
-        "library_ms": head[2], "shape": head[5]})
+        "library_ms": head[2], "shape": head[5], "shapes": shapes})
 
 
 # (label, bits, G, has_off): the layouts the GGUF formats repack to, and
@@ -878,7 +977,7 @@ def sweep_plans(torch) -> None:
                 *(torch.randn(B, 8, L, 128, generator=gen,
                               device=dev).bfloat16() for _ in range(2)),
                 torch.full((B,), L - 1, device=dev), 0.088))
-        pick = da.decode_splits(B, 32, 8, L, card)[0]
+        pick = da.decode_splits(B, 32, 8, L, 128, card)[0]
         row = []
         for s in sorted({1, 2, 4, 8, 16, 32, 64, pick}):
             chunk = -(-L // s)
@@ -934,16 +1033,23 @@ def checkpoint_tensors(layers: int, np):
 
 def write_checkpoint(d: Path, layers: int, np, bf16) -> int:
     """config.json + model.safetensors at Llama-3-8B widths, `layers`
-    deep, with the weights of checkpoint_tensors (stored in bf16, or
-    f16 where ml_dtypes is missing)."""
+    deep, with the weights of checkpoint_tensors."""
     (d / "config.json").write_text(json.dumps({
         "model_type": "llama", "architectures": ["LlamaForCausalLM"],
         "num_hidden_layers": layers, "tie_word_embeddings": False,
         "torch_dtype": "bfloat16" if bf16 else "float16", **WIDTHS}))
+    return write_safetensors(d, checkpoint_shapes(layers),
+                             checkpoint_tensors(layers, np), np, bf16)
+
+
+def write_safetensors(d: Path, shapes: dict, tensors, np, bf16) -> int:
+    """d/model.safetensors holding `tensors` ((name, f32 array) in the
+    order of `shapes`), stored in bf16, or f16 where ml_dtypes is
+    missing; returns the data bytes."""
     st_dtype, np_dtype = (("BF16", bf16) if bf16 is not None
                           else ("F16", np.float16))
     header, off = {}, 0
-    for n, s in checkpoint_shapes(layers).items():
+    for n, s in shapes.items():
         size = int(np.prod(s)) * 2
         header[n] = {"dtype": st_dtype, "shape": list(s),
                      "data_offsets": [off, off + size]}
@@ -953,7 +1059,7 @@ def write_checkpoint(d: Path, layers: int, np, bf16) -> int:
     with open(d / "model.safetensors", "wb") as f:
         f.write(struct.pack("<Q", len(hb)))
         f.write(hb)
-        for _, arr in checkpoint_tensors(layers, np):
+        for _, arr in tensors:
             f.write(np.ascontiguousarray(arr.astype(np_dtype)).tobytes())
             del arr
     return off
@@ -996,6 +1102,45 @@ def shadow_checked(lowering, plain, bound):
         inner, 0, 0.0, 0.0
     lowering.decode_attention = checked
     return checked
+
+
+def quant_spy(transforms):
+    """Install, in the QuantMatMul lowering's module, an int8_matmul that
+    calls the one installed before and records every call the lowering
+    makes: their count, the kernel launches they made (the wrapper's
+    counter around each), the most rows of x, x's types and the
+    weights' shapes.
+    Returns it; `.inner` is the one it wraps."""
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
+        int8_matmul)
+
+    inner = transforms.int8_matmul
+
+    def spy(x, w, s):
+        n0 = int8_matmul.launches
+        out = inner(x, w, s)
+        spy.calls += 1
+        spy.launched += int8_matmul.launches - n0
+        spy.rows = max(spy.rows, x.numel() // x.shape[-1])
+        spy.shapes.add(tuple(w.shape))
+        spy.types.add(str(x.dtype)[6:])
+        return out
+
+    spy.inner, spy.calls, spy.launched, spy.rows, spy.shapes, spy.types = \
+        inner, 0, 0, 0, set(), set()
+    transforms.int8_matmul = spy
+    return spy
+
+
+def check_quant_spy(spy, what: str, min_rows: int = 1) -> None:
+    """Every QuantMatMul call the lowering made launched the kernel once
+    (no plain route on the card), and some call had `min_rows` rows."""
+    say(f"  int8_matmul in {what}: {spy.calls} QuantMatMul calls of the "
+        f"lowering, {spy.launched} kernel launches, up to {spy.rows} rows, "
+        f"x in {sorted(spy.types)}")
+    if spy.calls <= 0 or spy.launched != spy.calls or spy.rows < min_rows:
+        fail(f"the QuantMatMul calls of {what} did not each launch the "
+             f"int8_matmul kernel once (up to {min_rows} rows)")
 
 
 GREEDY = {"prompt": "The capital of France is", "max_tokens": 32,
@@ -1147,6 +1292,38 @@ def direct_rates(torch, iface, prompt, layers: int) -> dict:
     return {"ttft_ms": ttft * 1e3, "tok_s": rate, "gb": gb}
 
 
+def profile_decode(torch, iface, prompt, label: str) -> None:
+    """torch.profiler over one prefill and 8 decode steps of the direct
+    path: the wall time, the device time its kernels took (the busy
+    share of the window), and the entries with the most device time and
+    the most host time. Information only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    iface.generate_tokens(prompt, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        iface.generate_tokens(prompt, 9)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+
+    def top(key):
+        return "; ".join(f"{e.key[:48]} {key(e) / 1e3:.3f} ms x{e.count}"
+                         for e in sorted(events, key=key, reverse=True)[:6])
+
+    say(f"  profile ({label}, a prefill and 8 decode steps): wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.2f} ms "
+        f"({busy_ms / wall_ms:.1%}); most device time: {top(dev_us)}; "
+        f"most host time: {top(lambda e: e.self_cpu_time_total)}")
+
+
 def load_direct(torch, srv, ckpt: Path, quantize: str):
     """The smoke checkpoint through the port's loader and text interface
     (bf16, `quantize`, max_len 2048), weights uploaded."""
@@ -1180,10 +1357,13 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> dict:
     from whisper_tensor_tpu_torch.server.main import Server
     from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
 
+    from whisper_tensor_tpu_torch.milli import transforms
+
     say("phase 3: the direct path")
     srv = Server()
     iface = load_direct(torch, srv, ckpt, "int8")
     api = OpenAIApi(srv, "127.0.0.1", 0).start()
+    spy = quant_spy(transforms)
     try:
         r1, launches, _ = serve_three(np, api.port, iface, {
             "decode_attention": decode_attention, "int8_matmul": int8_matmul,
@@ -1200,10 +1380,14 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> dict:
                                    agreement_bound),
             decode_attention_plain)
         rates = direct_rates(torch, iface, prompt, layers)
+        profile_decode(torch, iface, prompt, "int8")
         rates["long_ttft_ms"] = phase5_direct(torch, np, iface, api.port,
                                               layers, results)
     finally:
+        transforms.int8_matmul = spy.inner
         api.stop()
+    # the long prompt's prefill runs 2,048 rows (bucket 2048)
+    check_quant_spy(spy, "phases 3 and 5 (direct)", min_rows=2048)
     return rates
 
 
@@ -1322,6 +1506,7 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
     from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
         ragged_kv_write, ragged_kv_write_plain)
     from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
+    from whisper_tensor_tpu_torch.milli import transforms
     from whisper_tensor_tpu_torch.milli.ops import misc as misc_lowering
     from whisper_tensor_tpu_torch.server.batching import ContinuousBatcher
     from whisper_tensor_tpu_torch.server.main import Server
@@ -1354,6 +1539,7 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
         return fut
 
     bat.submit = recorded
+    spy = quant_spy(transforms)
     kernel_write = misc_lowering.ragged_kv_write
     if plant_fault:
         say("  PLANTED FAULT: every decode-step cache write lands at pos - 1")
@@ -1510,8 +1696,11 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
     try:
         phase5_batched(torch, np, srv, bat, layers, results)
     finally:
+        transforms.int8_matmul = spy.inner
         for b in srv._batchers.values():
             b.stop()
+    check_quant_spy(spy, "phases 4 and 5 (batched)",
+                    min_rows=bat.prefill_chunk)
 
 
 def long_text(np, n: int, seed: int) -> str:
@@ -1782,6 +1971,7 @@ def phase6a(torch, np, ckpt: Path, layers: int, results, int8: dict) -> None:
         if per_forward != 4 * layers + 1:
             fail("a forward did not launch packed_matmul for every weight")
         rates = direct_rates(torch, iface, prompt, layers)
+        profile_decode(torch, iface, prompt, "q4_0")
         say(f"  information: q4_0 against phase 3's int8: time to first "
             f"token {rates['ttft_ms']:.1f} against {int8['ttft_ms']:.1f} "
             f"ms, decode {rates['tok_s']:.1f} against {int8['tok_s']:.1f} "
@@ -2031,6 +2221,214 @@ def phase6b(torch, np, gguf_path: Path, layers: int, results) -> None:
         fail("the GGUF batched answer disagrees with the dense load")
 
 
+# ---------------------------------------------------------------------------
+# GPT-2 124M's published widths (bench.py:138-139) and the reference's
+# serving arm (bench.py:142-170): a bf16 cache of 256 positions, 64
+# slots, chunks of 32 steps up to 128
+GPT2_WIDTHS = dict(n_layer=12, n_head=12, n_embd=768, vocab_size=50257,
+                   n_positions=1024, layer_norm_epsilon=1e-5)
+GPT2_SERVE = {"dtype": "bf16", "max_len": 256, "ragged_decode": True,
+              "serve_batch": 64, "serve_chunk": 32, "serve_chunk_max": 128}
+
+
+def gpt2_shapes() -> dict:
+    """HF name -> shape of the GPT-2 checkpoint, in file order."""
+    E, V, P = (GPT2_WIDTHS[k] for k in ("n_embd", "vocab_size",
+                                         "n_positions"))
+    shapes = {"transformer.wte.weight": (V, E),
+              "transformer.wpe.weight": (P, E)}
+    for i in range(GPT2_WIDTHS["n_layer"]):
+        p = f"transformer.h.{i}."
+        shapes.update({p + "ln_1.weight": (E,), p + "ln_1.bias": (E,),
+                       p + "attn.c_attn.weight": (E, 3 * E),
+                       p + "attn.c_attn.bias": (3 * E,),
+                       p + "attn.c_proj.weight": (E, E),
+                       p + "attn.c_proj.bias": (E,),
+                       p + "ln_2.weight": (E,), p + "ln_2.bias": (E,),
+                       p + "mlp.c_fc.weight": (E, 4 * E),
+                       p + "mlp.c_fc.bias": (4 * E,),
+                       p + "mlp.c_proj.weight": (4 * E, E),
+                       p + "mlp.c_proj.bias": (E,)})
+    shapes.update({"transformer.ln_f.weight": (E,),
+                   "transformer.ln_f.bias": (E,)})
+    return shapes
+
+
+def gpt2_tensors(np):
+    """(HF name, f32 array) of the GPT-2 checkpoint, in file order: the
+    matrices tile a seeded block of 2^20 + 7 normal values scaled 0.02,
+    LayerNorm gains are ones and biases zeros; the rows of the tied
+    embedding past the byte tokenizer's ids are zero, so greedy text
+    decodes to printable bytes."""
+    rng = np.random.default_rng(SEED + 10)
+    for n, s in gpt2_shapes().items():
+        if len(s) == 1:
+            yield n, (np.ones(s, np.float32) if "ln_" in n and
+                      n.endswith("weight") else np.zeros(s, np.float32))
+            continue
+        base = rng.standard_normal((1 << 20) + 7, dtype=np.float32) * 0.02
+        arr = np.resize(base, s)
+        if n == "transformer.wte.weight":
+            arr[BYTE_VOCAB:] = 0.0
+        yield n, arr
+
+
+def write_gpt2_checkpoint(d: Path, np, bf16) -> int:
+    (d / "config.json").write_text(json.dumps({
+        "model_type": "gpt2", "architectures": ["GPT2LMHeadModel"],
+        "torch_dtype": "bfloat16" if bf16 else "float16", **GPT2_WIDTHS}))
+    return write_safetensors(d, gpt2_shapes(), gpt2_tensors(np), np, bf16)
+
+
+def phase7(torch, np, ckpt: Path, results) -> None:
+    """Phase 7: GPT-2 124M widths (12 layers, 12 heads of 64, vocab
+    50,257) through the batcher, dense bf16 weights and then int8: 64
+    concurrent greedy requests over HTTP (prompts of 8 to 32 tokens, 32
+    new tokens each). Every answer must arrive in full; decode_attention
+    and flash_attention must launch, at head dim 64 only, and
+    ragged_kv_write; with int8, every QuantMatMul call must launch
+    int8_matmul once, the (768, 50,257) tied head among them; (d) every
+    answer must stand a teacher-forced prefill. tok/s as information."""
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        ragged_kv_write)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
+    from whisper_tensor_tpu_torch.milli import transforms
+    from whisper_tensor_tpu_torch.milli.ops import attention as attn_lowering
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+
+    layers = GPT2_WIDTHS["n_layer"]
+    rng = np.random.default_rng(SEED + 11)
+    reqs = [{"prompt": long_text(np, int(rng.integers(8, 33)), SEED + 400 + i),
+             "max_tokens": 32, "temperature": 0} for i in range(64)]
+    counters = {"decode_attention": decode_attention,
+                "flash_attention": flash_attention,
+                "ragged_kv_write": ragged_kv_write,
+                "int8_matmul": int8_matmul}
+    frac = 0.015 * math.sqrt(layers)
+    for quantize in ("", "int8"):
+        label = quantize or "bf16"
+        say(f"phase 7 ({label} weights): GPT-2 124M widths through the "
+            f"batcher; host RSS {host_rss_gb():.1f} GB")
+        srv = Server()
+        t0 = time.perf_counter()
+        (entry,) = srv.models.run_loader("transformers", {
+            "path": str(ckpt), **GPT2_SERVE, "quantize": quantize})
+        bat = srv._batcher(entry)
+        bat.iface._weights()
+        torch.cuda.synchronize()
+        say(f"  loader and batcher interface: "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{len(bat.iface._quantized)} int8 weights, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+        records, submit = [], bat.submit
+
+        def recorded(prompt_ids, n_new, **kw):
+            fut = submit(prompt_ids, n_new, **kw)
+            records.append((np.asarray(prompt_ids, np.int64).reshape(-1),
+                            fut))
+            return fut
+
+        dims = {"decode_attention": set(), "flash_attention": set()}
+        inner_dec = attn_lowering.decode_attention
+        inner_flash = attn_lowering.flash_attention
+
+        def dec(q, k, v, pos, scale):
+            dims["decode_attention"].add(q.shape[-1])
+            return inner_dec(q, k, v, pos, scale)
+
+        def flash(q, k, v, scale, **kw):
+            dims["flash_attention"].add(q.shape[-1])
+            return inner_flash(q, k, v, scale, **kw)
+
+        answers = [None] * len(reqs)
+        bat.submit = recorded
+        attn_lowering.decode_attention = dec
+        attn_lowering.flash_attention = flash
+        spy = quant_spy(transforms)
+        api = OpenAIApi(srv, "127.0.0.1", 0).start()
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            threads = [threading.Thread(
+                target=lambda i=i: answers.__setitem__(
+                    i, request(api.port, "/v1/completions", reqs[i])))
+                for i in range(len(reqs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900)
+            served_s = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+        finally:
+            attn_lowering.decode_attention = inner_dec
+            attn_lowering.flash_attention = inner_flash
+            transforms.int8_matmul = spy.inner
+            bat.submit = submit
+            api.stop()
+        n_tokens = 0
+        for i, ans in enumerate(answers):
+            if ans is None or ans[0] != 200:
+                fail(f"GPT-2 request {i} got no answer or an error: "
+                     f"{None if ans is None else ans[1][:300]!r}")
+            got = json.loads(ans[1])["usage"]["completion_tokens"]
+            if got != 32:
+                fail(f"GPT-2 request {i} answered {got} tokens of 32")
+            n_tokens += got
+        st = bat.stats()
+        say(f"  {len(reqs)} requests served in {served_s:.2f} s: "
+            f"{st['chunks_dispatched']} chunks, {st['steps_dispatched']} "
+            f"steps; kernel launches during them: {launches}; head dims "
+            f"seen: {dims}")
+        for res in results:
+            if res["name"] in launches:
+                res[f"launches_gpt2_{label}"] = launches[res["name"]]
+        if min(launches[k] for k in ("decode_attention", "flash_attention",
+                                     "ragged_kv_write")) <= 0 \
+                or dims != {"decode_attention": {64},
+                            "flash_attention": {64}}:
+            fail(f"GPT-2's attention did not go through the kernels at head "
+                 f"dim 64: {launches}, {dims}")
+        if quantize:
+            check_quant_spy(spy, "phase 7 (int8)")
+            if launches["int8_matmul"] != spy.calls or \
+                    (GPT2_WIDTHS["n_embd"], GPT2_WIDTHS["vocab_size"]) \
+                    not in spy.shapes:
+                fail(f"int8_matmul did not launch for every QuantMatMul call "
+                     f"or not on the (768, 50257) head: {spy.shapes}")
+        elif launches["int8_matmul"] or spy.calls:
+            fail(f"the dense GPT-2 launched int8_matmul: {launches}")
+        if len(records) != len(reqs) or foreign_modules():
+            fail(f"{len(records)} batcher requests for {len(reqs)} HTTP "
+                 f"requests, or foreign modules imported: "
+                 f"{foreign_modules()}")
+        # (d) every greedy answer against a teacher-forced prefill (phase
+        # 4's check and bound)
+        worst = 0.0
+        for prompt, fut in records:
+            gaps, scale = teacher_gaps(torch, np, bat.iface, prompt,
+                                       fut.result())
+            worst = max(worst, float(gaps.max()) / (frac * scale))
+        say(f"  (d) {len(records)} greedy answers against teacher-forced "
+            f"prefills: worst (max logit - emitted logit) {worst:.4g} of "
+            f"the bound ({frac:.1%} of each answer's max|logit|)")
+        if not worst <= 1.0:
+            fail("a greedy GPT-2 answer disagrees with the teacher-forced "
+                 "prefill")
+        say(f"  information: {n_tokens} completion tokens in {served_s:.2f} "
+            f"s = {n_tokens / served_s:.1f} tok/s over the phase "
+            f"({label} weights, {layers} layers) on {card_line()}")
+        for b in srv._batchers.values():
+            b.stop()
+        del bat, srv, entry
+        free_memory(torch)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -2086,7 +2484,7 @@ def main() -> None:
                             .blocks_per_sm) for bm in rows)
 
     say(f"  blocks a multiprocessor, read on the card (occupancy): "
-        f"decode_attention 32/8 heads {da.decode_limits(32, 8, index)[1]}; "
+        f"decode_attention 32/8 heads {da.decode_limits(32, 8, 128, index)[1]}; "
         f"packed_matmul at 1/2/4/8/16 rows a block on the CUDA cores and "
         f"16/64 on the tensor cores: Q4_0 bf16 x "
         f"{per_sm('cores', pm.CORE_ROWS, 4, True, 32)} and "
@@ -2127,8 +2525,10 @@ def main() -> None:
         bf16 = None
     ckpt = ROOT / "build" / "smoke" / f"llama3-8b-widths-{args.layers}L"
     gguf_path = ckpt.with_suffix(".gguf")
-    shutil.rmtree(ckpt, ignore_errors=True)
-    ckpt.mkdir(parents=True)
+    gpt2_ckpt = ROOT / "build" / "smoke" / "gpt2-124m-widths"
+    for d in (ckpt, gpt2_ckpt):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
     try:
         nbytes = step("write the checkpoint", write_checkpoint, ckpt,
                       args.layers, np, bf16)
@@ -2146,8 +2546,14 @@ def main() -> None:
             f"({gguf_path.stat().st_size / 1e9:.2f} GB)")
         step("phase 6b (GGUF batched)", phase6b, torch, np, gguf_path,
              args.layers, results)
+        nbytes = step("write the GPT-2 checkpoint", write_gpt2_checkpoint,
+                      gpt2_ckpt, np, bf16)
+        say(f"wrote a GPT-2 124M-width checkpoint ({nbytes / 1e9:.2f} GB)")
+        step("phase 7 (GPT-2 batched, bf16 and int8)", phase7, torch, np,
+             gpt2_ckpt, results)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(gpt2_ckpt, ignore_errors=True)
         gguf_path.unlink(missing_ok=True)
     say(json.dumps({"kernels": results}))
     say(card_line())

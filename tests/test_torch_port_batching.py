@@ -423,3 +423,36 @@ def test_drain_finishes_accepted_work_then_stops():
     assert b.drain(timeout=120)
     _assert_sequential(ref, jobs, timeout=1)
     assert b._thread is None
+
+
+def test_int8_gpt2_of_head_dim_64_at_a_bf16_cache_matches_the_jax_batcher():
+    """GPT-2's shape on the card's path, at a tiny size: head dim 64
+    (n_embd 128, 2 heads), quantize="int8" (the 128 x 512 MLP matrices and
+    the tied head, 128 x 521: an odd N), a bf16 cache and 16-token prefill
+    pieces, through the JAX package's batcher and the port's on the same
+    ONNX bytes: the same tokens. (On the card the same graph runs
+    decode_attention and flash_attention at D = 64 and int8_matmul on the
+    odd head; here the wrappers take their plain versions.)"""
+    vocab = 521
+    cfg = GPT2Config(n_layer=2, n_head=2, n_embd=128, vocab_size=vocab,
+                     n_positions=128)
+    data = build_gpt2_step(sharp_gpt2_weights(cfg), cfg, max_len=128,
+                           dtype=JaxDType.BF16, pos_per_row=True)
+    gen = np.random.default_rng(31)
+    prompts = [gen.integers(0, vocab, (n,)).astype(np.int64)
+               for n in (5, 23, 40)]
+    outs = []
+    for cls, model, dt, kw in (
+            (JaxBatcher, JaxModel.new_from_onnx(data), JaxDType, {}),
+            (ContinuousBatcher, Model.new_from_onnx(data), DType,
+             {"device": "cpu"})):
+        b = cls(model, max_len=128, max_batch=3, chunk=4, quantize="int8",
+                cache_dtype=dt.BF16, prompt_buckets=(16, 32, 64),
+                prefill_chunk=16, **kw).start()
+        try:
+            outs.append([f.result(timeout=300)
+                         for f in [b.submit(p, 6) for p in prompts]])
+        finally:
+            b.stop()
+    for want, got in zip(*outs):
+        np.testing.assert_array_equal(got, want)

@@ -15,19 +15,22 @@ import pytest
 import torch
 
 from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+from whisper_tensor_tpu_torch.backends.cuda import flash_attention as fa
 from whisper_tensor_tpu_torch.backends.cuda import packed_matmul as pm
+from whisper_tensor_tpu_torch.backends.cuda import quant_matmul as qm
 from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
     decode_attention, decode_attention_plain, decode_limits, decode_splits,
     heads_per_block)
 from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
-    flash_agreement_bound, flash_attention, flash_attention_plain)
+    flash_agreement_bound, flash_attention, flash_attention_plain,
+    flash_splits)
 from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
     ragged_kv_write, ragged_kv_write_plain)
 from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
     dequant_repacked, dequantize_packed, packed_matmul, packed_matmul_plain,
     packed_plan)
 from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
-    int8_matmul, int8_matmul_plain)
+    int8_matmul, int8_matmul_plain, int8_plan)
 
 pytestmark = pytest.mark.cuda
 
@@ -52,13 +55,19 @@ def _assert_agree(got, want, magnitude):
 # (B, Hq, Hkv, L, D); groups of 16, 12 and 11 query heads are split
 # over blocks of 8, 6 and 1 heads; the keys are split over blocks at
 # every shape below 264 head blocks (decode_splits: 64 splits at B = 1,
-# L = 2048, 4 at B = 16), and B = 64 runs one split
+# L = 2048, 4 at B = 16), and B = 64 runs one split. Head dim 64: GPT-2's
+# 12 heads of 64 (a group of 1) at B 1, 16 and 64, L 256 and 1,024, and
+# GQA groups of 4 and 3
 DECODE_SHAPES = [(4, 8, 2, 192, 128), (2, 4, 4, 256, 128),
                  (3, 16, 2, 512, 128), (1, 32, 8, 64, 128),
                  (2, 32, 8, 2048, 128), (2, 32, 2, 256, 128),
                  (2, 24, 2, 128, 128), (1, 11, 1, 64, 128),
                  (1, 32, 8, 2048, 128), (16, 32, 8, 2048, 128),
-                 (64, 32, 8, 96, 128)]
+                 (64, 32, 8, 96, 128),
+                 (1, 12, 12, 256, 64), (16, 12, 12, 256, 64),
+                 (64, 12, 12, 256, 64), (1, 12, 12, 1024, 64),
+                 (16, 12, 12, 1024, 64), (64, 12, 12, 1024, 64),
+                 (2, 8, 2, 192, 64), (3, 9, 3, 100, 64)]
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,L,D", DECODE_SHAPES)
@@ -95,12 +104,15 @@ SPLIT_EDGES = [(1, 2048, [31]), (1, 2048, [32]), (1, 2048, [63]),
 
 
 @pytest.mark.parametrize("B,L,pos_list", SPLIT_EDGES)
-def test_decode_attention_kernel_split_edges(cuda, B, L, pos_list):
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 128), (12, 12, 64)])
+def test_decode_attention_kernel_split_edges(cuda, B, L, pos_list, Hq, Hkv,
+                                             D):
     """Rows whose live keys end at a split's edge, a row of one key among
     64 splits (63 of them empty), and a ragged batch of 16 rows over 4
-    splits: within agreement_bound of the plain version."""
-    Hq, Hkv, D = 32, 8, 128
-    splits, chunk = decode_splits(B, Hq, Hkv, L, torch.cuda.current_device())
+    splits, at Llama-3's heads and GPT-2's: within agreement_bound of the
+    plain version."""
+    splits, chunk = decode_splits(B, Hq, Hkv, L, D,
+                                  torch.cuda.current_device())
     assert splits > 1
     g = torch.Generator(device=cuda).manual_seed(B + L + pos_list[0])
     q = torch.randn(B, Hq, 1, D, generator=g, device=cuda).bfloat16()
@@ -114,11 +126,12 @@ def test_decode_attention_kernel_split_edges(cuda, B, L, pos_list):
                   decode_attention_plain(q.float(), k, v.abs(), pos, 0.088))
 
 
-def test_decode_attention_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 128), (12, 12, 64)])
+def test_decode_attention_kernel_is_deterministic(cuda, Hq, Hkv, D):
     """Split keys and their merge in a fixed order: repeats are bit-equal."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    q = torch.randn(2, 32, 1, 128, generator=g, device=cuda).bfloat16()
-    k, v = (torch.randn(2, 8, 2048, 128, generator=g, device=cuda).bfloat16()
+    q = torch.randn(2, Hq, 1, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, Hkv, 2048, D, generator=g, device=cuda).bfloat16()
             for _ in range(2))
     pos = torch.tensor([700, 2047], device=cuda)
     first = decode_attention(q, k, v, pos, 0.088)
@@ -144,10 +157,12 @@ def test_decode_attention_kernel_pos_forms(cuda):
 
 
 # (mode, B, Hq, Hkv, Sq, Skv, D): a direct prefill, admission pieces of
-# 128 at ragged positions, GPT-2 width with ragged edges, a group of 8
-# heads (two blocks of 4) and of 3 (blocks of 1), causal with rows that
-# see no key (Sq > Skv), and an additive mask per batch row and for the
-# batch
+# 128 at ragged positions (keys split over blocks), GPT-2 width with
+# ragged edges, a group of 8 heads (one block of 8) and of 3 (blocks of
+# 1), causal with rows that see no key (Sq > Skv), an additive mask per
+# batch row and for the batch; then the 128-row tiling's edges at both
+# head dims: Sq and Skv one past or short of a multiple of 128 and of the
+# 64-key tile, a pos inside a tile, and small grids whose keys split
 FLASH_CASES = [("pos", 1, 32, 8, 512, 2048, 128),
                ("pos", 4, 32, 8, 128, 2048, 128),
                ("pos", 2, 12, 12, 300, 1000, 64),
@@ -156,7 +171,15 @@ FLASH_CASES = [("pos", 1, 32, 8, 512, 2048, 128),
                ("causal", 2, 32, 8, 300, 1000, 128),
                ("causal", 1, 4, 2, 200, 120, 64),
                ("mask", 2, 8, 2, 130, 200, 128),
-               ("mask1", 1, 4, 4, 64, 256, 64)]
+               ("mask1", 1, 4, 4, 64, 256, 64),
+               ("pos", 1, 32, 8, 129, 2001, 128),
+               ("pos", 1, 12, 12, 257, 1000, 64),
+               ("pos", 3, 32, 8, 127, 1090, 128),
+               ("causal", 1, 16, 2, 333, 333, 64),
+               ("causal", 2, 8, 8, 127, 129, 128),
+               ("causal", 1, 32, 8, 3, 65, 128),
+               ("mask", 1, 12, 12, 100, 190, 64),
+               ("mask1", 2, 32, 8, 129, 127, 128)]
 
 
 def _flash_inputs(cuda, mode, B, Hq, Hkv, Sq, Skv, D):
@@ -208,6 +231,26 @@ def test_flash_attention_kernel_matches_plain(cuda, mode, B, Hq, Hkv, Sq, Skv,
         assert not got[0, :, 3].float().any()
 
 
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_kernel_split_is_deterministic(cuda, D):
+    """A 128-row piece at B = 1 fills a fraction of the card, so its keys
+    are split over blocks and merged in split order: repeats are
+    bit-equal, and within flash_agreement_bound."""
+    Hq, Hkv = (12, 12) if D == 64 else (32, 8)
+    q, k, v, extra = _flash_inputs(cuda, "pos", 1, Hq, Hkv, 128, 2048, D)
+    extra["pos_bound"] = torch.tensor([1000], device=cuda)
+    assert flash_splits(1, Hq, Hkv, 128, 2048, D,
+                        torch.cuda.current_device())[0] > 1
+    first = flash_attention(q, k, v, D ** -0.5, **extra)
+    for _ in range(3):
+        assert torch.equal(flash_attention(q, k, v, D ** -0.5, **extra)
+                           .view(torch.int16), first.view(torch.int16))
+    want = flash_attention_plain(q, k, v, D ** -0.5, **extra)
+    err = (first.float() - want.float()).abs()
+    assert bool((err <= flash_agreement_bound(want, flash_attention_plain(
+        q, k, v.abs(), D ** -0.5, **extra))).all())
+
+
 def test_flash_attention_kernel_pos_forms(cuda):
     """pos_bound as () or (B,), int64 or int32: the same rows."""
     q, k, v, _ = _flash_inputs(cuda, "causal", 2, 8, 2, 48, 200, 128)
@@ -241,16 +284,22 @@ def test_flash_attention_wrapper_raises_on_unsupported_cuda_inputs(cuda):
 
 
 # (M, K, N): decode rows, a partial row tile, K not a multiple of the
-# 128-row stage, N not a multiple of the 64-column tile, prefill rows
+# stages (200, 1000; 72, 1001 not of 8 either), N not a multiple of the
+# 128-column tile nor of 16 (odd: 77, 99, 33, GPT-2's 50,257 head), the
+# tensor path's 16-, 64- and 128-row tiles, prefill rows past 512
 INT8_SHAPES = [(1, 256, 384), (8, 384, 512), (33, 256, 128), (5, 200, 48),
-               (17, 1024, 1040), (512, 256, 384), (3, 4096, 6144)]
+               (17, 1024, 1040), (512, 256, 384), (3, 4096, 6144),
+               (1, 768, 50257), (64, 768, 50257), (2, 200, 77), (9, 72, 99),
+               (16, 1000, 33), (3, 1001, 77), (130, 4096, 1000),
+               (300, 1001, 200), (600, 256, 384), (2048, 512, 256)]
 
 
 @pytest.mark.parametrize("M,K,N", INT8_SHAPES)
 @pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32])
 def test_int8_matmul_kernel_matches_plain(cuda, M, K, N, tdt):
     """bf16: within agreement_bound, element by element; f32: the same
-    f32 products summed in another order, 1e-5 of the scale."""
+    f32 products summed in another order, 1e-5 of the scale. Every
+    shape launches the kernel."""
     g = torch.Generator(device=cuda).manual_seed(M * N)
     x = torch.randn(M, K, generator=g, device=cuda).to(tdt)
     w = torch.randint(-127, 128, (K, N), generator=g, device=cuda,
@@ -268,16 +317,53 @@ def test_int8_matmul_kernel_matches_plain(cuda, M, K, N, tdt):
             got, want, atol=1e-5 * max(1.0, want.abs().max().item()), rtol=0)
 
 
-def test_int8_matmul_above_512_rows_takes_the_dense_form(cuda):
-    """More than 512 rows: the f32 torch.matmul form, as the JAX package
-    leaves that product to XLA; the kernel is not launched."""
-    x = torch.randn(600, 128, device=cuda).bfloat16()
-    w = torch.randint(-127, 128, (128, 256), device=cuda, dtype=torch.int8)
-    s = torch.rand(256, device=cuda)
+@pytest.mark.parametrize("M", [600, 2048])
+def test_int8_matmul_kernel_takes_prefill_rows_past_512(cuda, M):
+    """More than 512 rows launch the kernel (the tensor cores; the JAX
+    package leaves them to XLA, a limit of the TPU's VMEM): within
+    agreement_bound of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn(M, 4096, generator=g, device=cuda).bfloat16()
+    w = torch.randint(-127, 128, (4096, 1024), generator=g, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand(1024, generator=g, device=cuda) * 0.01
     n0 = int8_matmul.launches
-    torch.testing.assert_close(int8_matmul(x, w, s),
-                               int8_matmul_plain(x, w, s), atol=0, rtol=0)
-    assert int8_matmul.launches == n0
+    got = int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == n0 + 1
+    assert int8_plan(M, 4096, 1024, True,
+                     torch.cuda.current_device()).path == "tensor"
+    _assert_agree(got, int8_matmul_plain(x, w, s),
+                  int8_matmul_plain(x.float().abs(), w.abs(), s))
+
+
+@pytest.mark.parametrize("path,M,dtype", [("cores", 1, torch.bfloat16),
+                                          ("cores", 7, torch.float32),
+                                          ("tensor", 12, torch.bfloat16),
+                                          ("tensor", 100, torch.bfloat16)])
+def test_int8_matmul_kernel_is_deterministic(cuda, path, M, dtype):
+    """Both paths, chosen by rows and x's type, with K split (fixed-order
+    sums, no atomics): repeats are bit-equal, and within agreement_bound
+    of the plain version (f32: 1e-5 of the scale)."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn(M, 4096, generator=g, device=cuda).to(dtype)
+    w = torch.randint(-127, 128, (4096, 1024), generator=g, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand(1024, generator=g, device=cuda) * 0.01
+    plan = int8_plan(M, 4096, 1024, dtype == torch.bfloat16,
+                     torch.cuda.current_device())
+    assert plan.path == path and plan.splits > 1
+    first = int8_matmul(x, w, s)
+    for _ in range(3):
+        assert torch.equal(_bits(int8_matmul(x, w, s)), _bits(first))
+    want = int8_matmul_plain(x, w, s)
+    if dtype == torch.bfloat16:
+        _assert_agree(first, want, int8_matmul_plain(x.float().abs(),
+                                                     w.abs(), s))
+    else:
+        torch.testing.assert_close(
+            first, want, atol=1e-5 * max(1.0, want.abs().max().item()),
+            rtol=0)
 
 
 def _packed_layout(bits, G, K, N, has_off, seed):
@@ -388,6 +474,7 @@ def test_kernel_limits_on_the_card_match_the_cpu_defaults(cuda):
     index = torch.cuda.current_device()
     props = torch.cuda.get_device_properties(index)
     h100 = props.multi_processor_count == 132 and props.major == 9
+    differ = []          # (kernel, key, card, CPU default) on an H100
     for path, rows in (("cores", (1, 2, 4, 8, 16)), ("tensor", (16, 64))):
         for bm in rows:
             for bits in (4, 8):
@@ -400,11 +487,30 @@ def test_kernel_limits_on_the_card_match_the_cpu_defaults(cuda):
                         assert card.blocks_per_sm >= 1
                         if h100 and (bits, G, bf16) == (4, 32, True):
                             assert card == cpu, (path, bm)
-    for Hq, Hkv in ((32, 8), (16, 1), (24, 2), (11, 1), (8, 2), (4, 4)):
-        card = decode_limits(Hq, Hkv, index)
-        assert card[0] == heads_per_block(Hq, Hkv) and card[1] >= 1
-        if h100:
-            assert card == decode_limits(Hq, Hkv)
+    for Hq, Hkv in ((32, 8), (16, 1), (24, 2), (11, 1), (8, 2), (4, 4),
+                    (12, 12)):
+        for D in (64, 128):
+            card = decode_limits(Hq, Hkv, D, index)
+            cpu = decode_limits(Hq, Hkv, D)
+            assert card[0] == heads_per_block(Hq, Hkv) and card[1] >= 1
+            # at D = 64 the default is GPT-2's group of 1 (the registers
+            # of other groups' blocks give one block less)
+            if h100 and card != cpu and (D == 128 or Hq == Hkv):
+                differ.append(("decode", (Hq, Hkv, D), card, cpu))
+            card = fa.flash_limits(Hq, Hkv, D, index)
+            cpu = fa.flash_limits(Hq, Hkv, D)
+            assert card[:2] == cpu[:2] and card[2] >= 1
+            if h100 and card != cpu:
+                differ.append(("flash", (Hq, Hkv, D), card, cpu))
+    for path, bm, bf16 in qm.BLOCKS_PER_SM:
+        card = qm.kernel_limits(path, bm, bf16, index)
+        cpu = qm.kernel_limits(path, bm, bf16)
+        assert (card.stage_rows, card.tile_cols) == (cpu.stage_rows,
+                                                     cpu.tile_cols)
+        assert card.blocks_per_sm >= 1
+        if h100 and card != cpu:
+            differ.append(("int8", (path, bm, bf16), card, cpu))
+    assert not differ, differ
 
 
 @pytest.mark.parametrize("bits", [4, 8])
@@ -505,14 +611,22 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     q = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16, device=cuda)
     kv = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="unsupported"):
-        decode_attention(q, kv, kv, torch.tensor(3, device=cuda), 0.1)
+        decode_attention(q, kv, kv.float(), torch.tensor(3, device=cuda), 0.1)
+    with pytest.raises(ValueError, match="unsupported"):
+        decode_attention(q[..., :48].contiguous(), kv[..., :48].contiguous(),
+                         kv[..., :48].contiguous(),
+                         torch.tensor(3, device=cuda), 0.1)   # head dim 48
     x = torch.zeros(2, 64, dtype=torch.float16, device=cuda)
     w = torch.zeros(64, 128, dtype=torch.int8, device=cuda)
+    n0 = int8_matmul.launches
     with pytest.raises(ValueError, match="bf16 or f32"):
         int8_matmul(x, w, torch.ones(128, device=cuda))
-    with pytest.raises(ValueError, match="N % 16"):
-        int8_matmul(x.bfloat16(), w[:, :100].contiguous(),
-                    torch.ones(100, device=cuda))
+    with pytest.raises(ValueError, match="scale"):
+        int8_matmul(x.bfloat16(), w, torch.ones(100, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul(x.bfloat16(), w.t().contiguous().t(),
+                    torch.ones(128, device=cuda))
+    assert int8_matmul.launches == n0
     cache = torch.zeros(2, 2, 16, 64, dtype=torch.bfloat16, device=cuda)
     upd = torch.zeros(2, 2, 1, 64, dtype=torch.bfloat16, device=cuda)
     pos = torch.tensor([1, 2], device=cuda)
@@ -535,20 +649,25 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     assert ragged_kv_write.launches == n0
 
 
-def test_attention_lowering_raises_for_a_decode_step_the_kernel_lacks(cuda):
-    """A bf16 single-query step with head dim 64 goes to the kernel's
-    wrapper, which raises: no quiet plain path on the card."""
+def test_attention_lowering_sends_a_head_dim_64_decode_step_to_the_kernel(
+        cuda):
+    """A bf16 single-query step with head dim 64 (GPT-2's) goes to the
+    kernel: it launches, within agreement_bound of the plain version."""
     from whisper_tensor_tpu_torch.milli.ops.attention import AttentionMilli
     from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
 
-    q = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16, device=cuda)
-    kv = torch.zeros(1, 2, 16, 64, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(2, 12, 1, 64, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, 12, 256, 64, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    pos = torch.tensor([3, 200], device=cuda)
     n0 = decode_attention.launches
-    with pytest.raises(ValueError, match="head dim 128"):
-        LOWERINGS["Attention"](AttentionMilli(scale=0.125),
-                               [q, kv, kv, torch.tensor(3, device=cuda)],
-                               [None] * 4, cuda)
-    assert decode_attention.launches == n0
+    (got,) = LOWERINGS["Attention"](AttentionMilli(scale=0.125),
+                                    [q, k, v, pos], [None] * 4, cuda)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n0 + 1
+    _assert_agree(got, decode_attention_plain(q, k, v, pos, 0.125),
+                  decode_attention_plain(q.float(), k, v.abs(), pos, 0.125))
 
 
 def _tiny_llama(max_len, pos_per_row=False):

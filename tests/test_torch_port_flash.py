@@ -28,6 +28,10 @@ from whisper_tensor_tpu.dtype import DType as JaxDType  # noqa: E402
 from whisper_tensor_tpu.model import Model as JaxModel  # noqa: E402
 from whisper_tensor_tpu.server.batching import (  # noqa: E402
     ContinuousBatcher as JaxBatcher)
+from whisper_tensor_tpu_torch.backends.cuda import (  # noqa: E402
+    flash_attention as fa)
+from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (  # noqa: E402
+    merge_partial_softmax)
 from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (  # noqa: E402
     flash_agreement_bound, flash_attention, flash_attention_plain)
 from whisper_tensor_tpu_torch.dtype import DType  # noqa: E402
@@ -237,3 +241,95 @@ def test_bf16_pieces_go_through_flash(monkeypatch):
         b.stop()
     assert out.shape == (5,)
     assert calls == [16] * 6
+
+
+# (B, Hq, Hkv, Sq, Skv, D): the smoke's direct prefill (i), an admission
+# group (ii), a 128-row piece (iii), a long prompt (iv), GPT-2's width,
+# a GQA group of 8 (16 positions a block), one row, ragged Skv
+FLASH_PLAN_SHAPES = [(1, 32, 8, 2048, 2048, 128), (4, 32, 8, 512, 2048, 128),
+                     (1, 32, 8, 128, 2048, 128), (1, 32, 8, 8192, 8192, 128),
+                     (1, 12, 12, 1024, 1024, 64), (1, 12, 12, 16, 256, 64),
+                     (2, 16, 2, 130, 200, 128), (1, 4, 4, 1, 1, 64),
+                     (1, 32, 8, 128, 100, 128)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", FLASH_PLAN_SHAPES)
+def test_flash_splits_cover_every_key_once_in_whole_tiles(B, Hq, Hkv, Sq,
+                                                          Skv, D):
+    """Split c takes keys [c * chunk, (c + 1) * chunk), a whole number of
+    64-key tiles: every key lies in exactly one split, none is empty of
+    keys, and the grid with its splits stays within one wave of the card
+    unless it already fills one unsplit (CPU defaults: the H100's)."""
+    splits, chunk = fa.flash_splits(B, Hq, Hkv, Sq, Skv, D)
+    assert chunk % fa.KEY_TILE == 0
+    assert (splits - 1) * chunk < Skv <= splits * chunk
+    heads, tq, per_sm, sms = fa.flash_limits(Hq, Hkv, D)
+    assert heads == fa.heads_per_block(Hq, Hkv) and heads * tq == 128
+    assert (per_sm, sms) == (fa.BLOCKS_PER_SM[D], fa.CARD_SMS)
+    blocks = B * (Hq // heads) * -(-Sq // tq)
+    wave = per_sm * sms
+    if blocks >= wave:
+        assert splits == 1
+    else:
+        assert splits <= min(fa.MAX_SPLITS, -(-Skv // fa.KEY_TILE))
+        assert blocks * (splits - 1) < wave
+
+
+def test_flash_splits_count_by_waves():
+    """(i), (ii) and (iv) fill the card unsplit; the 128-row piece at
+    B = 1 (32 blocks of 4 heads x 32 positions) takes enough splits to
+    fill one wave, and GPT-2's 1,024-token prompt (96 blocks) a few."""
+    assert fa.flash_splits(1, 32, 8, 2048, 2048, 128) == (1, 2048)
+    assert fa.flash_splits(4, 32, 8, 512, 2048, 128) == (1, 2048)
+    assert fa.flash_splits(1, 32, 8, 8192, 8192, 128) == (1, 8192)
+    splits, chunk = fa.flash_splits(1, 32, 8, 128, 2048, 128)
+    assert 32 * splits >= fa.BLOCKS_PER_SM[128] * fa.CARD_SMS
+    assert chunk == -(-2048 // 64 // splits) * 64
+    assert fa.flash_splits(1, 12, 12, 1024, 1024, 64)[0] > 1
+
+
+def _flash_split_states(q, k, v, scale, pos, splits, chunk):
+    """Each key split's partial softmax state in plain f32 torch, with
+    the pos-bound visibility: m, l (B, Hq, Sq, S) and acc (B, Hq, Sq, S,
+    D) over the visible keys of its range; a range with no visible key of
+    a row is (-inf, 0, 0) for that row."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    j = torch.arange(Skv)
+    vis = j <= pos.view(B, 1, 1, 1) + torch.arange(Sq).view(1, 1, Sq, 1)
+    ms, ls, accs = [], [], []
+    for c in range(splits):
+        part = vis & (j >= c * chunk) & (j < (c + 1) * chunk)
+        sc = s.masked_fill(~part, -torch.inf)
+        m = sc.amax(-1)
+        p = torch.exp(sc - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.matmul(p, vf))
+    return torch.stack(ms, -1), torch.stack(ls, -1), torch.stack(accs, -2)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D", [(1, 4, 2, 40, 300, 64),
+                                               (2, 4, 4, 70, 200, 128)])
+def test_flash_split_states_merge_to_the_plain_attention(B, Hq, Hkv, Sq, Skv,
+                                                         D):
+    """The kernel's split-and-merge computation in plain torch, with the
+    wrapper's plan for these shapes (the keys split over blocks):
+    merge_partial_softmax of the splits' states equals
+    flash_attention_plain over f32 inputs (no bf16 rounding of p) to
+    1e-5; rows whose keys all lie in later splits, or with none visible,
+    included."""
+    splits, chunk = fa.flash_splits(B, Hq, Hkv, Sq, Skv, D)
+    assert splits > 1
+    rng = np.random.default_rng(Sq + Skv)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D)))
+    pos = torch.tensor([-5, 150][:B])
+    m, l, acc = _flash_split_states(q, k, v, D ** -0.5, pos, splits, chunk)
+    want = flash_attention_plain(q, k, v, D ** -0.5, pos_bound=pos)
+    torch.testing.assert_close(merge_partial_softmax(m, l, acc), want,
+                               atol=1e-5, rtol=1e-5)

@@ -25,8 +25,9 @@ from whisper_tensor_tpu.milli.transforms import QuantMatMulMilli  # noqa: E402
 from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (  # noqa: E402
     CARD_SMS, decode_attention, decode_attention_plain, decode_splits,
     heads_per_block, merge_partial_softmax)
+from whisper_tensor_tpu_torch.backends.cuda import quant_matmul as qm  # noqa: E402,E501
 from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (  # noqa: E402
-    int8_matmul, int8_matmul_plain)
+    int8_matmul, int8_matmul_plain, int8_plan)
 from whisper_tensor_tpu_torch.dtype import to_device, to_host  # noqa: E402
 from whisper_tensor_tpu_torch.milli.ops import LOWERINGS  # noqa: E402
 
@@ -222,6 +223,80 @@ def _attention_lowering(q, k, v, mask, scale):
     return LOWERINGS["Attention"](op, [q, k, v, mask], [None] * 4, CPU)[0]
 
 
+# GPT-2's 12 heads of 64 (a group of 1) and a GQA group of 4 at head
+# dim 64, which the TPU kernel does not take (its jnp form would)
+DECODE_SHAPES_64 = [(2, 12, 12, 256, 64), (1, 8, 2, 100, 64)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,L,D", DECODE_SHAPES_64)
+def test_head_dim_64_split_states_match_the_oracle(B, Hq, Hkv, L, D):
+    """At head dim 64 the plain version, and the split-and-merge
+    computation with the wrapper's own plan for D = 64, against
+    AttentionMilli.eval's rank-1 position mask in f32: the same f32
+    arithmetic in another order, 1e-5."""
+    q, k, v = _attn_inputs(B, Hq, Hkv, L, D, seed=3 * B + L)
+    pos = np.asarray([5, L - 1][:B], np.int64)
+    scale = 1.0 / np.sqrt(D)
+    want = AttentionMilli(scale=scale).eval([q, k, v, pos])[0]
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = decode_attention_plain(tq, tk, tv, torch.from_numpy(pos), scale)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    splits, chunk = decode_splits(B, Hq, Hkv, L, D)
+    assert splits > 1
+    m, l, acc = _split_states(tq, tk, tv, torch.from_numpy(pos), scale,
+                              splits, chunk)
+    np.testing.assert_allclose(merge_partial_softmax(m, l, acc).numpy(),
+                               want[:, :, 0], atol=1e-5, rtol=1e-5)
+
+
+# (M, K, N): the fused q/k/v, down and lm_head of Llama-3-8B, GPT-2's
+# tied head (odd N), and a K and N that are multiples of nothing
+INT8_PLAN_SHAPES = [(4096, 6144), (14336, 4096), (4096, 128256),
+                    (768, 50257), (1001, 77)]
+
+
+@pytest.mark.parametrize("K,N", INT8_PLAN_SHAPES)
+@pytest.mark.parametrize("M", [1, 2, 5, 8, 9, 16, 17, 128, 300, 512, 2048])
+@pytest.mark.parametrize("x_bf16", [True, False])
+def test_int8_plan_splits_on_whole_stages(K, N, M, x_bf16):
+    """The path by rows and x's type (the tensor cores from
+    TENSOR_MIN_ROWS rows of bf16 x, f32 x on the CUDA cores at every M),
+    rows a block that cover M (CUDA cores: the smallest power of two, up
+    to 8), and K splits of whole stages that cover every row of W once,
+    within two waves of the card."""
+    plan = int8_plan(M, K, N, x_bf16)
+    assert plan.path == ("tensor" if x_bf16 and M >= qm.TENSOR_MIN_ROWS
+                         else "cores")
+    if plan.path == "cores":
+        assert plan.bm == next(b for b in qm.CORE_ROWS if b >= min(M, 8))
+    else:
+        assert plan.bm == (16 if M <= 16 else 64 if M <= 256 else 128)
+    lim = qm.kernel_limits(plan.path, plan.bm, x_bf16)
+    assert plan.kchunk % lim.stage_rows == 0
+    assert (plan.splits - 1) * plan.kchunk < K <= plan.splits * plan.kchunk
+    blocks = -(-M // plan.bm) * -(-N // lim.tile_cols)
+    wave = lim.blocks_per_sm * lim.sms
+    assert plan.splits <= max(1, -(-2 * wave // blocks))
+
+
+def test_int8_plan_counts_by_waves_with_the_cpu_defaults():
+    """The H100's limits as CPU defaults (132 multiprocessors): at M = 1
+    the down projection's 32 column blocks split K, within two waves; the
+    lm_head's 1,002 column blocks fill two waves and run unsplit, as do
+    2,048 prefill rows; 16 rows on the down projection split too."""
+    for (path, bm, bf16), blocks in qm.BLOCKS_PER_SM.items():
+        lim = qm.kernel_limits(path, bm, bf16)
+        assert (lim.stage_rows, lim.tile_cols, lim.blocks_per_sm,
+                lim.sms) == (qm.STAGE_ROWS[path], qm.TILE_COLS[path], blocks,
+                             CARD_SMS)
+    down = int8_plan(1, 14336, 4096)
+    assert down.path == "cores" and down.splits > 1
+    assert 32 * down.splits <= 2 * qm.BLOCKS_PER_SM["cores", 1, True] * CARD_SMS
+    assert int8_plan(1, 4096, 128256).splits == 1
+    assert int8_plan(2048, 4096, 28672) == qm.Int8Plan("tensor", 128, 1, 4096)
+    assert int8_plan(16, 14336, 4096).splits > 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Sq", [1, 4])
 def test_attention_rank0_equals_rank1_equals_dense(dtype, Sq):
@@ -289,7 +364,8 @@ def test_attention_lowering_routes_decode_steps_to_the_kernel_wrapper(
             y, decode_attention_plain(q, k, v, pos, 0.1), atol=0, rtol=0)
 
 
-INT8_SHAPES = [(1, 256, 384), (8, 384, 512), (33, 256, 128), (600, 128, 256)]
+INT8_SHAPES = [(1, 256, 384), (8, 384, 512), (33, 256, 128), (600, 128, 256),
+               (3, 200, 77), (2, 768, 1001)]
 
 
 @pytest.mark.parametrize("M,K,N", INT8_SHAPES)

@@ -86,6 +86,33 @@ def test_concurrent_completions_go_through_the_batcher(served):
                                                n_tok[i])
 
 
+def test_a_burst_of_connections_is_queued_not_reset(served):
+    """64 clients connect at once (the batcher's 64 slots filled in one
+    burst): the listening socket queues them all (http.server's default
+    backlog of 5 reset some), and every /v1/models answers 200."""
+    _, _, api = served
+    assert api._httpd.request_queue_size == OpenAIApi.BACKLOG >= 64
+    n = 64
+    start, out = threading.Barrier(n), [None] * n
+
+    def go(i):
+        start.wait()
+        c = http.client.HTTPConnection("127.0.0.1", api.port, timeout=120)
+        try:
+            c.request("GET", "/v1/models")
+            r = c.getresponse()
+            out[i] = (r.status, r.read())
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert all(o is not None and o[0] == 200 for o in out), out
+
+
 def test_stream_logprobs_and_metrics(served):
     """A streamed chat ends with [DONE] and carries the direct path's
     text; logprobs are rescored by the batcher's own interface; GET

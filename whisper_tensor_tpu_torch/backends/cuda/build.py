@@ -49,14 +49,24 @@ _SIGNATURES = {
     # Hq, Hkv, L, D, splits, chunk, scale, stream
     "wt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, ctypes.c_float, _P],
-    # Hq, Hkv, limits (int[2]: heads a block, blocks a multiprocessor)
-    "wt_decode_limits": [_I, _I, _P],
-    # q, k, v, mask, pos (int64), out, B, Hq, Hkv, Sq, Skv, D, q strides
-    # (b, h, s), mask batch stride, causal, scale, stream
-    "wt_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _LL, _LL, _LL, _LL, _I, ctypes.c_float, _P],
-    # x, w_i8, scale, out, M, K, N, x_is_bf16, stream
-    "wt_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # Hq, Hkv, D, limits (int[2]: heads a block, blocks a multiprocessor)
+    "wt_decode_limits": [_I, _I, _I, _P],
+    # q, k, v, mask, pos (int64), out, partial acc, partial (m, l), B,
+    # Hq, Hkv, Sq, Skv, D, q strides (b, h, s), mask batch stride, causal,
+    # scale, splits, chunk, stream
+    "wt_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _LL, _LL, _LL, _LL, _I, ctypes.c_float,
+                           _I, _I, _P],
+    # Hq, Hkv, D, limits (int[3]: heads a block, query positions a block,
+    # blocks a multiprocessor)
+    "wt_flash_limits": [_I, _I, _I, _P],
+    # x, w_i8, scale, out, partial sums, M, K, N, x_is_bf16, path, bm,
+    # splits, kchunk, sms, stream
+    "wt_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _P],
+    # path, bm, x_is_bf16, limits (int[3]: rows of W a stage, columns a
+    # block, blocks a multiprocessor)
+    "wt_int8_limits": [_I, _I, _I, _P],
     # x, q, scales, offsets, out, partial sums, M, K, N, G, bits,
     # has_off, x_is_bf16, path, bm, splits, kchunk, sms, stream
     "wt_packed_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -186,6 +196,26 @@ def kernel_limits(entry: str, index: int, *args) -> tuple:
     with torch.cuda.device(index):
         check(getattr(library(), entry)(*args, out), entry)
     return tuple(out)
+
+
+def split_units(units: int, blocks: int, wave: int, block_cost: float,
+                max_splits: int) -> int:
+    """The units of K (whole stages, or stages and groups) a split takes,
+    for a grid of `blocks` blocks a split over `units` units, on a card
+    that runs `wave` blocks at once. Splits cut each block's work but
+    round the grid up to whole waves: of the split counts that keep the
+    grid within two waves' worth, the one whose waves x (work per block +
+    block_cost) is least, the fewest splits on a tie; a grid that fills
+    two waves unsplit is not split (chip_smoke.py --plans measured these
+    choices for packed_matmul)."""
+    best = None
+    for s in range(1, min(units, max_splits, -(-2 * wave // blocks)) + 1):
+        per = -(-units // s)                         # units per split
+        waves = -(-blocks * -(-units // per) // wave)
+        cost = waves * (per / units + block_cost)
+        if best is None or cost < best[0]:
+            best = (cost, per)
+    return best[1]
 
 
 def raw_stream(device: torch.device) -> int:

@@ -7,7 +7,8 @@ on the H100 and how its design answers that.
 
 The v5e gates of the TPU kernel (batch below 64, a key block of at most
 512 that divides L) are measurements of that chip and are not carried
-over: this kernel takes any batch, cache length and GQA group size.
+over: this kernel takes any batch, cache length and GQA group size, at
+head dim 64 or 128.
 
 The kernel splits each row's key range over blocks when the batch does
 not fill the card (decode_splits) and merges the splits' partial softmax
@@ -27,9 +28,12 @@ from .build import (CARD_SMS, card_sms, check, device_index, kernel_limits,
                     library, raw_stream)
 
 MIN_CHUNK = 32            # keys of one split at least: one key tile
-# the kernel's blocks a multiprocessor (its 48 KB ring, launch bounds of
-# 4): the CPU default of what wt_decode_limits reads on the card
-BLOCKS_PER_SM = 4
+HEAD_DIMS = (64, 128)
+# the kernel's blocks a multiprocessor by head dim (the 48 KB ring at
+# D = 128; launch bounds of 4): the CPU default of what wt_decode_limits
+# reads on the card, for every group at D = 128 and for GPT-2's (a group
+# of 1) at D = 64 (other groups' registers give 4 there)
+BLOCKS_PER_SM = {128: 4, 64: 5}
 
 
 def heads_per_block(Hq: int, Hkv: int) -> int:
@@ -41,20 +45,20 @@ def heads_per_block(Hq: int, Hkv: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def decode_limits(Hq: int, Hkv: int,
+def decode_limits(Hq: int, Hkv: int, D: int = 128,
                   device: Optional[int] = None) -> Tuple[int, int, int]:
     """(query heads a block, blocks a multiprocessor, multiprocessors) of
-    the kernel for groups of Hq / Hkv heads: read on CUDA device `device`
-    (wt_decode_limits: the occupancy calculator), or for None the CPU
-    defaults the plan's tests use."""
+    the kernel for groups of Hq / Hkv heads of dim D: read on CUDA device
+    `device` (wt_decode_limits: the occupancy calculator), or for None
+    the CPU defaults the plan's tests use."""
     if device is None:
-        return heads_per_block(Hq, Hkv), BLOCKS_PER_SM, CARD_SMS
-    heads, blocks, _ = kernel_limits("wt_decode_limits", device, Hq, Hkv)
+        return heads_per_block(Hq, Hkv), BLOCKS_PER_SM[D], CARD_SMS
+    heads, blocks, _ = kernel_limits("wt_decode_limits", device, Hq, Hkv, D)
     return heads, blocks, card_sms(device)
 
 
 @functools.lru_cache(maxsize=4096)
-def decode_splits(B: int, Hq: int, Hkv: int, L: int,
+def decode_splits(B: int, Hq: int, Hkv: int, L: int, D: int = 128,
                   device: Optional[int] = None) -> Tuple[int, int]:
     """(splits, chunk): split c of a row takes keys [c * chunk, (c + 1) *
     chunk), chunk * splits >= L > (splits - 1) * chunk. From the shapes
@@ -63,8 +67,8 @@ def decode_splits(B: int, Hq: int, Hkv: int, L: int,
     keep the grid within the blocks the multiprocessors hold at once
     (each block streams its chunk with few tiles in flight, so more
     blocks hide more latency), down to MIN_CHUNK keys a split. The
-    kernel's limits come from `device` (decode_limits)."""
-    heads, per_sm, sms = decode_limits(Hq, Hkv, device)
+    kernel's limits at head dim D come from `device` (decode_limits)."""
+    heads, per_sm, sms = decode_limits(Hq, Hkv, D, device)
     blocks = B * (Hq // heads)
     if blocks >= 2 * sms:
         return 1, L
@@ -120,7 +124,8 @@ def decode_attention(q, k, v, pos, scale: float) -> torch.Tensor:
     if ok:
         B, Hq, Sq, D = q.shape
         Hkv, L = k.shape[1], k.shape[2]
-        ok = (Sq == 1 and k.shape[0] == B and D == k.shape[3] == 128
+        ok = (Sq == 1 and k.shape[0] == B and D == k.shape[3]
+              and D in HEAD_DIMS
               and Hkv > 0 and Hq % Hkv == 0
               and q.dtype in (torch.bfloat16, torch.float32)
               and k.dtype == v.dtype == torch.bfloat16)
@@ -129,7 +134,8 @@ def decode_attention(q, k, v, pos, scale: float) -> torch.Tensor:
             f"decode_attention kernel: unsupported q {tuple(q.shape)} "
             f"{q.dtype}, k {tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} "
             f"{v.dtype}: it takes one bf16 or f32 query step over a bf16 "
-            f"cache, head dim 128 for q, k and v, and Hq a multiple of Hkv")
+            f"cache, head dim 64 or 128 for q, k and v, and Hq a multiple "
+            f"of Hkv")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"decode_attention kernel: {name} must be a "
@@ -141,7 +147,7 @@ def decode_attention(q, k, v, pos, scale: float) -> torch.Tensor:
                          f"of shape () or ({B},) on {q.device}, got "
                          f"{pos.dtype} {tuple(pos.shape)}")
     return _launch(q, k, v, pos, scale, *decode_splits(
-        B, Hq, Hkv, L, device_index(q.device)))
+        B, Hq, Hkv, L, D, device_index(q.device)))
 
 
 def _launch(q, k, v, pos, scale: float, splits: int, chunk: int):

@@ -10,14 +10,73 @@ The Attention lowering (milli/ops/attention.py) sends every bf16 prefill
 with a position mask here (the pos-bound mode). The causal and additive
 modes are the TPU kernel's too, and are checked on the card; no graph
 the port loads emits them yet.
+
+When the grid does not fill the card, the kernel splits each block's
+keys over blocks (flash_splits) and merges the splits' partial softmax
+states in a second pass, as decode_attention does;
+decode_attention.merge_partial_softmax is that pass in plain PyTorch.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import Optional, Tuple
+
 import torch
 
 from . import agreement_bound
-from .build import check, library, raw_stream
+from .build import (CARD_SMS, card_sms, check, device_index, kernel_limits,
+                    library, raw_stream)
+
+KEY_TILE = 64             # keys a tile: splits are whole tiles
+BLOCK_ROWS = 128          # query rows a block (heads x positions)
+MAX_SPLITS = 16
+# the kernel's blocks a multiprocessor by head dim: the CPU default of
+# what wt_flash_limits reads on the card
+BLOCKS_PER_SM = {128: 1, 64: 1}
+
+
+def heads_per_block(Hq: int, Hkv: int) -> int:
+    """Query heads of one block: the most of 8, 4, 2, 1 that divide the
+    group size. The CPU default of what wt_flash_limits reads of
+    csrc/flash_attention.cu on the card."""
+    rep = Hq // Hkv
+    return next(h for h in (8, 4, 2, 1) if rep % h == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_limits(Hq: int, Hkv: int, D: int,
+                 device: Optional[int] = None) -> Tuple[int, int, int, int]:
+    """(query heads a block, query positions a block, blocks a
+    multiprocessor, multiprocessors) of the kernel for groups of Hq / Hkv
+    heads of dim D: read on CUDA device `device` (wt_flash_limits: the
+    occupancy calculator), or for None the CPU defaults."""
+    if device is None:
+        heads = heads_per_block(Hq, Hkv)
+        return heads, BLOCK_ROWS // heads, BLOCKS_PER_SM[D], CARD_SMS
+    heads, tq, blocks = kernel_limits("wt_flash_limits", device, Hq, Hkv, D)
+    return heads, tq, blocks, card_sms(device)
+
+
+@functools.lru_cache(maxsize=4096)
+def flash_splits(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, D: int,
+                 device: Optional[int] = None) -> Tuple[int, int]:
+    """(splits, chunk): split c of a block takes keys [c * chunk, (c + 1)
+    * chunk), chunk a whole number of KEY_TILE tiles, chunk * splits >=
+    Skv > (splits - 1) * chunk. From the shapes alone (pos stays on the
+    device): one split when the grid (B x head blocks x query tiles)
+    fills a wave of the card (blocks a multiprocessor x its
+    multiprocessors); else as many as fill one wave, at most MAX_SPLITS
+    and one tile each. The kernel's limits come from `device`
+    (flash_limits)."""
+    heads, tq, per_sm, sms = flash_limits(Hq, Hkv, D, device)
+    blocks = B * (Hq // heads) * -(-Sq // tq)
+    tiles = -(-Skv // KEY_TILE)
+    wave = per_sm * sms
+    if blocks >= wave:
+        return 1, tiles * KEY_TILE
+    per = -(-tiles // min(-(-wave // blocks), tiles, MAX_SPLITS))
+    return -(-tiles // per), per * KEY_TILE
 
 
 def flash_agreement_bound(ref: torch.Tensor, magnitude: torch.Tensor
@@ -79,7 +138,9 @@ def flash_attention(q, k, v, scale: float, *, causal: bool = False,
     Returns (B, Hq, Sq, D) bf16.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel,
-    or raise when it does not take them."""
+    or raise when it does not take them. A call that splits the keys
+    (flash_splits) runs two device kernels, the splits and their merge;
+    the launch counter counts calls, one per call."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, causal=causal,
                                      mask=mask, pos_bound=pos_bound)
@@ -127,13 +188,23 @@ def flash_attention(q, k, v, scale: float, *, causal: bool = False,
                 f"{Skv}) on {q.device}, got {tuple(mask.shape)}")
         mask = mask.float().contiguous()
         mask_sb = Sq * Skv if mask.shape[0] == B and B > 1 else 0
+    splits, chunk = flash_splits(B, Hq, Hkv, Sq, Skv, D,
+                                 device_index(q.device))
     out = torch.empty(B, Hq, Sq, D, dtype=q.dtype, device=q.device)
+    acc = ml = None
+    if splits > 1:
+        # the partial states: acc (splits, B, Hq, Sq, D), then (m, l)
+        n = splits * B * Hq * Sq
+        scratch = torch.empty(n * (D + 2), dtype=torch.float32,
+                              device=q.device)
+        acc = scratch.data_ptr()
+        ml = acc + n * D * 4
     code = library().wt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(),
-        None if pos is None else pos.data_ptr(), out.data_ptr(),
+        None if pos is None else pos.data_ptr(), out.data_ptr(), acc, ml,
         B, Hq, Hkv, Sq, Skv, D, q.stride(0), q.stride(1), q.stride(2),
-        mask_sb, int(causal), float(scale),
+        mask_sb, int(causal), float(scale), splits, chunk,
         raw_stream(q.device))
     check(code, "flash_attention kernel")
     flash_attention.launches += 1

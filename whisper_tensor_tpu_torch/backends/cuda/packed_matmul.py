@@ -384,14 +384,8 @@ def packed_plan(M: int, K: int, N: int, G: int, bits: int,
 def _path_plan(path: str, M: int, K: int, N: int, G: int, bits: int,
                x_bf16: bool, device: Optional[int]) -> PackedPlan:
     """packed_plan on a given path (chip_smoke.py times both paths at the
-    same rows through it).
-
-    K splits cut each block's work but round the grid up to whole waves
-    (blocks_per_sm x sms blocks each): of the splits that keep the grid
-    within two waves' worth, the plan takes the one whose waves x (work
-    per block + BLOCK_COST) is least, the fewest splits on a tie; a grid
-    that fills two waves unsplit is not split (chip_smoke.py --plans
-    measured these choices)."""
+    same rows through it). K splits of whole stages and groups, chosen by
+    build.split_units, a wave being blocks_per_sm x sms blocks."""
     if path == "tensor":
         bm = 16 if M <= 16 else 64
     else:
@@ -401,15 +395,8 @@ def _path_plan(path: str, M: int, K: int, N: int, G: int, bits: int,
     unit = math.lcm(lim.stage_q_rows, G)            # stages and groups
     units = -(-kq // unit)
     blocks = -(-M // bm) * -(-N // lim.tile_cols)
-    wave = lim.blocks_per_sm * lim.sms
-    best = None
-    for s in range(1, min(units, MAX_SPLITS, -(-2 * wave // blocks)) + 1):
-        per = -(-units // s)                         # units per split
-        waves = -(-blocks * -(-units // per) // wave)
-        cost = waves * (per / units + BLOCK_COST)
-        if best is None or cost < best[0]:
-            best = (cost, per)
-    per = best[1]
+    per = build.split_units(units, blocks, lim.blocks_per_sm * lim.sms,
+                            BLOCK_COST, MAX_SPLITS)
     return PackedPlan(path, bm, -(-units // per), per * unit)
 
 

@@ -8,6 +8,8 @@
 //
 //   q   (B, Hq, 1, D) bf16 or f32 (q_f32)    k, v (B, Hkv, L, D) bf16
 //   pos (B,) int64             out  (B, Hq, 1, D) in q's type
+//   D   64 or 128 (a template parameter: GPT-2 and llama models of head
+//       dim 64, and Llama-3's 128)
 //
 // (an f32 q is a model computing in f32 over a bf16 cache: the scores
 // take q's f32 values as they are)
@@ -39,10 +41,14 @@
 //     a split's range is short (one tile at B = 1), so a deeper ring
 //     would only cost occupancy; at B = 16 a chunk is 16 tiles and 2 stay
 //     in flight per block;
-//   * scores: 8 lanes share a key, each lane 16 of its 128 features and
-//     two keys at a time (q in registers for up to 4 heads, else read
-//     from shared memory once per two keys), reduced with 3 shuffles;
-//     P @ V: thread t owns feature t of every head of the group and
+//   * scores: 8 lanes share a key, each lane D/8 of its features (16 at
+//     D = 128, 8 at D = 64) and two keys at a time (q in registers for up
+//     to 4 heads, else read from shared memory once per two keys),
+//     reduced with 3 shuffles;
+//     P @ V: the block's 128 threads cover the D features 128 / D times:
+//     at D = 128 thread t owns feature t, at D = 64 threads t and t + 64
+//     own feature t, each over every other group of four keys, and the
+//     two halves are added in a fixed order at the end; every thread
 //     reads the probabilities four keys at a time;
 //   * with more than one split each block writes its partial state, the
 //     running max m, the sum l and the unnormalized acc (D floats) of
@@ -58,16 +64,26 @@
 
 #include <type_traits>
 
+#include "device_common.cuh"
+
 namespace {
 
-constexpr int kD = 128;                 // head dim (one thread per feature)
-constexpr int kThreads = kD;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;               // keys per stage (one per lane)
 constexpr int kStages = 3;              // cp.async ring depth
-constexpr int kRow = kD * 2;            // bytes of one key's features
-constexpr int kStageBytes = 2 * kTile * kRow;   // a K tile and a V tile
-constexpr int kSmem = kStages * kStageBytes;    // dynamic shared memory
+
+// the shared memory of head dim D: bytes of one key's features, of a
+// stage (a K tile and a V tile), and of the ring
+template <int D> __host__ __device__ constexpr int row_bytes() {
+  return D * 2;
+}
+template <int D> __host__ __device__ constexpr int stage_bytes() {
+  return 2 * kTile * row_bytes<D>();
+}
+template <int D> __host__ __device__ constexpr int smem_bytes() {
+  return kStages * stage_bytes<D>();
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -82,22 +98,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// 16-byte global -> shared copy; when !valid it writes 16 zero bytes and
-// reads nothing (src-size 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // 8 bf16 (16 bytes, lowest address first) -> f32; a bf16 is the top
 // half of the f32 with the same bits, so the conversion is exact
 __device__ __forceinline__ void unpack8(const uint4 u, float* f) {
@@ -109,9 +109,9 @@ __device__ __forceinline__ void unpack8(const uint4 u, float* f) {
   }
 }
 
-// REP: the query heads of one block, all of KV head g's group or a
-// part of it
-template <int REP>
+// D: the head dim; REP: the query heads of one block, all of KV head
+// g's group or a part of it
+template <int D, int REP>
 __global__ void __launch_bounds__(kThreads, 4)
 decode_attention_kernel(const void* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -121,10 +121,14 @@ decode_attention_kernel(const void* __restrict__ q,
                         float* __restrict__ part_acc,
                         float* __restrict__ part_ml, int q_f32,
                         int Hq, int Hkv, int L, int chunk, float scale) {
+  constexpr int kRow = row_bytes<D>();
+  constexpr int kStageBytes = stage_bytes<D>();
+  constexpr int NI = D / 32;            // float4s of q a lane holds
+  constexpr int KH = kThreads / D;      // threads a feature in P @ V
   extern __shared__ __align__(16) unsigned char ring[];   // [S][K | V tile]
   // query heads, pre-scaled f32, permuted so that lane c of a key's 8
-  // lanes reads its 4 float4s at [i][c]: conflict-free 16-byte reads
-  __shared__ __align__(16) float s_q[REP][4][8][4];
+  // lanes reads its NI float4s at [i][c]: conflict-free 16-byte reads
+  __shared__ __align__(16) float s_q[REP][NI][8][4];
   __shared__ __align__(16) float s_p[REP][kTile];  // scores, then probs
   __shared__ float s_m[REP];            // running max
   __shared__ float s_l[REP];            // running sum
@@ -158,7 +162,7 @@ decode_attention_kernel(const void* __restrict__ q,
   const int n_tiles = (k1 - k0 + kTile - 1) / kTile;
 
   const size_t kv0 = (static_cast<size_t>(b) * Hkv + g) *
-                     static_cast<size_t>(L) * kD;
+                     static_cast<size_t>(L) * D;
   const unsigned char* kb = reinterpret_cast<const unsigned char*>(k + kv0);
   const unsigned char* vb = reinterpret_cast<const unsigned char*>(v + kv0);
   auto load_tile = [&](int slot, int t) {
@@ -178,12 +182,13 @@ decode_attention_kernel(const void* __restrict__ q,
     cp_async_commit();
   }
 
-  // feature of (i, c, e): lane c holds [8c, 8c+8) and [64+8c, 64+8c+8)
-  for (int idx = tid; idx < REP * kD; idx += kThreads) {
-    const int h = idx / kD, r = idx % kD;
+  // feature of (i, c, e): lane c holds [8c, 8c+8) and, at D = 128,
+  // [64+8c, 64+8c+8)
+  for (int idx = tid; idx < REP * D; idx += kThreads) {
+    const int h = idx / D, r = idx % D;
     const int i = r / 32, c = (r % 32) / 4, e = r % 4;
     const int d = (i >> 1) * 64 + 8 * c + (i & 1) * 4 + e;
-    const size_t at = (head0 + h) * kD + d;
+    const size_t at = (head0 + h) * D + d;
     s_q[h][i][c][e] =
         (q_f32 ? static_cast<const float*>(q)[at]
                : __bfloat162float(static_cast<const __nv_bfloat16*>(q)[at])) *
@@ -199,18 +204,18 @@ decode_attention_kernel(const void* __restrict__ q,
 
   static_assert(kTile == kWarps * 8, "a warp scores 8 keys of a tile");
   const int kk = lane >> 3;             // keys kk, kk + 4 of its warp's 8
-  const int c8 = lane & 7;              // this lane's 16 features
-  // With up to 4 heads a lane keeps its 16 features of each in registers:
+  const int c8 = lane & 7;              // this lane's D/8 features
+  // With up to 4 heads a lane keeps its D/8 features of each in registers:
   // read from s_q on every tile they were the scores' largest shared-
   // memory traffic. More heads would not fit and stay in s_q.
   constexpr bool kQRegs = REP <= 4;
-  float4 qr[kQRegs ? REP : 1][4];
+  float4 qr[kQRegs ? REP : 1][NI];
   if constexpr (kQRegs) {
     __syncthreads();
 #pragma unroll
     for (int h = 0; h < REP; ++h)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < NI; ++i)
         qr[h][i] = *reinterpret_cast<const float4*>(s_q[h][i][c8]);
   }
   for (int t = 0; t < n_tiles; ++t) {
@@ -228,18 +233,21 @@ decode_attention_kernel(const void* __restrict__ q,
     // kk + 4 together, so each q load serves two keys
     {
       const int j0 = warp * (kTile / kWarps) + kk, j1 = j0 + 4;
-      float ka[16], kb[16];
-      unpack8(*reinterpret_cast<const uint4*>(ks + j0 * kRow + 16 * c8), ka);
-      unpack8(*reinterpret_cast<const uint4*>(ks + j0 * kRow + 128 + 16 * c8),
-              ka + 8);
-      unpack8(*reinterpret_cast<const uint4*>(ks + j1 * kRow + 16 * c8), kb);
-      unpack8(*reinterpret_cast<const uint4*>(ks + j1 * kRow + 128 + 16 * c8),
-              kb + 8);
+      float ka[D / 8], kb[D / 8];
+#pragma unroll
+      for (int hh = 0; hh < D / 64; ++hh) {   // 128-byte halves of a key
+        unpack8(*reinterpret_cast<const uint4*>(ks + j0 * kRow + 128 * hh +
+                                                16 * c8),
+                ka + 8 * hh);
+        unpack8(*reinterpret_cast<const uint4*>(ks + j1 * kRow + 128 * hh +
+                                                16 * c8),
+                kb + 8 * hh);
+      }
 #pragma unroll
       for (int h = 0; h < REP; ++h) {
         float d0 = 0.f, d1 = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < NI; ++i) {
           float4 qv;
           if constexpr (kQRegs)
             qv = qr[h][i];
@@ -284,16 +292,17 @@ decode_attention_kernel(const void* __restrict__ q,
       }
     }
     __syncthreads();
-    // P @ V: thread tid owns feature tid of every head in the group;
-    // keys four at a time, one 16-byte probability read per head (keys
-    // past tn have p = 0 and zero-filled V rows, so they add nothing)
+    // P @ V: thread tid owns feature f of every head in the group, over
+    // the groups of four keys kh, kh + KH, ...; one 16-byte probability
+    // read per head (keys past tn have p = 0 and zero-filled V rows, so
+    // they add nothing)
 #pragma unroll
     for (int h = 0; h < REP; ++h) acc[h] *= s_alpha[h];
-    for (int j = 0; j < tn; j += 4) {
+    for (int j = 4 * (tid / D); j < tn; j += 4 * KH) {
       float vj[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        vj[e] = __bfloat162float(vs[(j + e) * kD + tid]);
+        vj[e] = __bfloat162float(vs[(j + e) * D + tid % D]);
 #pragma unroll
       for (int h = 0; h < REP; ++h) {
         const float4 p = *reinterpret_cast<const float4*>(&s_p[h][j]);
@@ -305,10 +314,23 @@ decode_attention_kernel(const void* __restrict__ q,
     }
   }
   cp_async_wait<0>();
+  if constexpr (KH > 1) {
+    // the second half's sums (keys 4-7 of every 8) to the first half's
+    // threads, added in that fixed order
+    __shared__ float s_half[REP][D];
+    if (tid >= D) {
+#pragma unroll
+      for (int h = 0; h < REP; ++h) s_half[h][tid - D] = acc[h];
+    }
+    __syncthreads();
+    if (tid >= D) return;
+#pragma unroll
+    for (int h = 0; h < REP; ++h) acc[h] += s_half[h][tid];
+  }
   if (part_acc != nullptr) {                // the split's partial state
 #pragma unroll
     for (int h = 0; h < REP; ++h)
-      part_acc[((head0 + h) * splits + split) * kD + tid] = acc[h];
+      part_acc[((head0 + h) * splits + split) * D + tid] = acc[h];
     if (tid < REP) {
       float* ml = part_ml + ((head0 + tid) * splits + split) * 2;
       ml[0] = s_m[tid];
@@ -320,7 +342,7 @@ decode_attention_kernel(const void* __restrict__ q,
   for (int h = 0; h < REP; ++h) {
     const float l = s_l[h];
     const float y = l > 0.f ? acc[h] / l : 0.f;
-    const size_t at = (head0 + h) * kD + tid;
+    const size_t at = (head0 + h) * D + tid;
     if (q_f32)
       static_cast<float*>(out)[at] = y;
     else
@@ -329,9 +351,10 @@ decode_attention_kernel(const void* __restrict__ q,
 }
 
 // The second pass: block bh = b * Hq + h merges the head's `splits`
-// partial states in split order; thread d owns feature d. The (m, l)
-// pairs are read once, side by side, into shared memory.
-__global__ void __launch_bounds__(kThreads)
+// partial states in split order; thread d owns feature d (D threads).
+// The (m, l) pairs are read once, side by side, into shared memory.
+template <int D>
+__global__ void __launch_bounds__(D)
 decode_merge_kernel(const float* __restrict__ part_acc,
                     const float* __restrict__ part_ml,
                     void* __restrict__ out, int q_f32, int splits) {
@@ -339,7 +362,7 @@ decode_merge_kernel(const float* __restrict__ part_acc,
   const size_t bh = blockIdx.x;
   const int d = threadIdx.x;
   const float* ml = part_ml + bh * splits * 2;
-  for (int c = d; c < splits; c += kThreads) {
+  for (int c = d; c < splits; c += D) {
     s_w[c] = ml[2 * c];
     s_w[splits + c] = ml[2 * c + 1];
   }
@@ -347,53 +370,53 @@ decode_merge_kernel(const float* __restrict__ part_acc,
   float m = -CUDART_INF_F;
   for (int c = 0; c < splits; ++c) m = fmaxf(m, s_w[c]);
   __syncthreads();
-  for (int c = d; c < splits; c += kThreads)   // an empty split weighs 0
+  for (int c = d; c < splits; c += D)   // an empty split weighs 0
     s_w[c] = s_w[c] == -CUDART_INF_F ? 0.f : expf(s_w[c] - m);
   __syncthreads();
   float l = 0.f, a = 0.f;
-  const float* acc = part_acc + bh * splits * kD + d;
+  const float* acc = part_acc + bh * splits * D + d;
 #pragma unroll 4
   for (int c = 0; c < splits; ++c) {
     const float w = s_w[c];
     if (w == 0.f) continue;
     l = fmaf(s_w[splits + c], w, l);
-    a = fmaf(acc[static_cast<size_t>(c) * kD], w, a);
+    a = fmaf(acc[static_cast<size_t>(c) * D], w, a);
   }
   const float y = l > 0.f ? a / l : 0.f;
   if (q_f32)
-    static_cast<float*>(out)[bh * kD + d] = y;
+    static_cast<float*>(out)[bh * D + d] = y;
   else
-    static_cast<__nv_bfloat16*>(out)[bh * kD + d] = __float2bfloat16(y);
+    static_cast<__nv_bfloat16*>(out)[bh * D + d] = __float2bfloat16(y);
 }
 
-// The 48 KB ring and the static arrays pass 48 KB: allowed once per
-// device (of the first 16), not on every launch.
-template <int REP>
+// The ring and the static arrays may pass 48 KB (at D = 128): allowed
+// once per device (of the first 16), not on every launch.
+template <int D, int REP>
 cudaError_t allow_smem() {
   static bool allowed[16] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 16 || !allowed[dev]) {
-    e = cudaFuncSetAttribute(decode_attention_kernel<REP>,
+    e = cudaFuncSetAttribute(decode_attention_kernel<D, REP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem);
+                             smem_bytes<D>());
     if (e != cudaSuccess) return e;
     if (dev < 16) allowed[dev] = true;
   }
   return cudaSuccess;
 }
 
-template <int REP>
+template <int D, int REP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* pos, void* out, float* part_acc,
                    float* part_ml, int q_f32, int B, int Hq, int Hkv, int L,
                    int splits, int chunk, float scale, cudaStream_t stream) {
-  cudaError_t e = allow_smem<REP>();
+  cudaError_t e = allow_smem<D, REP>();
   if (e != cudaSuccess) return e;
   const bool merge = splits > 1;
-  decode_attention_kernel<REP><<<dim3(Hq / REP, B, splits), kThreads, kSmem,
-                                  stream>>>(
+  decode_attention_kernel<D, REP><<<dim3(Hq / REP, B, splits), kThreads,
+                                     smem_bytes<D>(), stream>>>(
       q, static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const long long*>(pos), out, merge ? part_acc : nullptr,
@@ -401,14 +424,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// Blocks of the REP kernel one multiprocessor of the current device runs
-// at once.
-template <int REP>
+// Blocks of the (D, REP) kernel one multiprocessor of the current
+// device runs at once.
+template <int D, int REP>
 cudaError_t occupancy(int* blocks) {
-  cudaError_t e = allow_smem<REP>();
+  cudaError_t e = allow_smem<D, REP>();
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, decode_attention_kernel<REP>, kThreads, kSmem);
+      blocks, decode_attention_kernel<D, REP>, kThreads, smem_bytes<D>());
 }
 
 // Query heads of one block: the largest divisor of the group Hq / Hkv up
@@ -434,20 +457,30 @@ cudaError_t with_heads(int heads, F&& f) {
   }
 }
 
+// f(std::integral_constant<int, D>) for head dim D (64 or 128)
+template <typename F>
+cudaError_t with_dim(int D, F&& f) {
+  if (D == 64) return f(std::integral_constant<int, 64>{});
+  return f(std::integral_constant<int, 128>{});
+}
+
 }  // namespace
 
 // The limits the wrapper's split plan (decode_attention.py:decode_splits)
-// sizes its grid by, for a group of Hq / Hkv heads: limits[0] the query
-// heads of one block, limits[1] the blocks of that kernel one
+// sizes its grid by, for a group of Hq / Hkv heads of dim D: limits[0]
+// the query heads of one block, limits[1] the blocks of that kernel one
 // multiprocessor of the current device runs at once
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns a CUDA error
 // code.
-extern "C" int wt_decode_limits(int Hq, int Hkv, int* limits) {
-  if (Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || limits == nullptr)
+extern "C" int wt_decode_limits(int Hq, int Hkv, int D, int* limits) {
+  if (Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || limits == nullptr ||
+      (D != 64 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   limits[0] = heads_per_block(Hq, Hkv);
-  return static_cast<int>(with_heads(limits[0], [&](auto R) {
-    return occupancy<decltype(R)::value>(limits + 1);
+  return static_cast<int>(with_dim(D, [&](auto d) {
+    return with_heads(limits[0], [&](auto R) {
+      return occupancy<decltype(d)::value, decltype(R)::value>(limits + 1);
+    });
   }));
 }
 
@@ -463,7 +496,7 @@ extern "C" int wt_decode_attention(const void* q, const void* k,
                                    int B, int Hq, int Hkv, int L, int D,
                                    int splits, int chunk, float scale,
                                    void* stream) {
-  if (D != kD || Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0 ||
+  if ((D != 64 && D != 128) || Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0 ||
       B > 65535 || splits < 1 || splits > 4096 || chunk <= 0 ||
       static_cast<long long>(splits) * chunk < L ||
       static_cast<long long>(splits - 1) * chunk >= L ||
@@ -472,13 +505,18 @@ extern "C" int wt_decode_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
-  cudaError_t e = with_heads(heads_per_block(Hq, Hkv), [&](auto R) {
-    return launch<decltype(R)::value>(q, k, v, pos, out, pa, pm, q_f32, B, Hq,
-                                      Hkv, L, splits, chunk, scale, s);
+  cudaError_t e = with_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    cudaError_t r = with_heads(heads_per_block(Hq, Hkv), [&](auto R) {
+      return launch<kD, decltype(R)::value>(q, k, v, pos, out, pa, pm, q_f32,
+                                            B, Hq, Hkv, L, splits, chunk,
+                                            scale, s);
+    });
+    if (r != cudaSuccess || splits == 1) return r;
+    decode_merge_kernel<kD><<<static_cast<unsigned>(B) * Hq, kD,
+                              2 * splits * sizeof(float), s>>>(
+        pa, pm, out, q_f32, splits);
+    return cudaGetLastError();
   });
-  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  decode_merge_kernel<<<static_cast<unsigned>(B) * Hq, kThreads,
-                        2 * splits * sizeof(float), s>>>(pa, pm, out, q_f32,
-                                                         splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }

@@ -9,6 +9,8 @@
 
 #include <type_traits>
 
+#include "device_common.cuh"
+
 namespace wt_packed {
 
 // (a) x @ W on the CUDA cores, `bm` rows of x per block (1, 2, 4, 8 or
@@ -27,51 +29,6 @@ cudaError_t cores_bf16_blocks(int bits, int bm, int G, int* blocks);
 cudaError_t cores_f32_blocks(int bits, int bm, int G, int* blocks);
 
 namespace {
-
-// -- shared helpers ----------------------------------------------------------
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-// 16-byte global -> shared copy; when !valid it writes 16 zero bytes and
-// reads nothing (src-size 0).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-// the same for 4 bytes
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
-                                         uint32_t sel) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
-  return r;
-}
 
 // q * s rounded once (what __fmul_rn(q, s) gives), q the value of byte c
 // of v. prmt puts the byte under the exponent of 2^23 (byte c, two zero
@@ -165,24 +122,6 @@ __device__ __forceinline__ void stage_groups(float* dst,
       }
     }
   }
-}
-
-// Above 48 KB a block's dynamic shared memory must be allowed first, on
-// each device. `allowed` is the caller's record (a static per kernel) of
-// the most it allowed on each of the first kDevices devices: the
-// attribute is set once per size and device, not on every launch.
-constexpr int kDevices = 16;
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, int* allowed) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kDevices && bytes <= allowed[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes);
-  if (e == cudaSuccess && dev < kDevices) allowed[dev] = bytes;
-  return e;
 }
 
 // -- (a) the decode path: CUDA cores, K split across blocks ------------------

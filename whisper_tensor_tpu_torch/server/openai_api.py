@@ -676,6 +676,11 @@ class OpenAIApi:
     Server's model registry, interfaces, and batchers — load models over
     the WS protocol (or CLI `serve --load`) and query them over HTTP."""
 
+    # connections the listening socket queues while the accept loop is
+    # busy: http.server's default of 5 resets clients of a burst, such as
+    # the batcher's 64 slots filled at once
+    BACKLOG = 128
+
     def __init__(self, server, host: str = "127.0.0.1", port: int = 8000):
         self.server = server
         self.host = host
@@ -684,7 +689,15 @@ class OpenAIApi:
         self._thread: Optional[threading.Thread] = None
 
     def start(self) -> "OpenAIApi":
-        self._httpd = ThreadingHTTPServer((self.host, self.port), _Handler)
+        self._httpd = ThreadingHTTPServer((self.host, self.port), _Handler,
+                                          bind_and_activate=False)
+        self._httpd.request_queue_size = self.BACKLOG
+        try:
+            self._httpd.server_bind()
+            self._httpd.server_activate()
+        except BaseException:
+            self._httpd.server_close()
+            raise
         self._httpd.api = self           # type: ignore[attr-defined]
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(target=self._httpd.serve_forever,
