@@ -15,12 +15,14 @@ Phases:
   1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and time it;
   2. each kernel against its plain PyTorch version on the card, at the
      served paths' shapes: max error against a stated tolerance (zero
-     for ragged_kv_write, a copy, over the whole cache), the median time
-     of kernel and plain version (CUDA events; for ragged_kv_write,
-     which is shorter than its launch, also the device time alone), the
-     time of one PyTorch call computing the same function where there is
-     one (scaled_dot_product_attention for the attention kernels, timed
-     only), and the kernel's bound: the larger of the bytes it must move
+     for the cache write, a copy, over the whole caches), the median time
+     of kernel and plain version (CUDA events; for the cache write,
+     which is shorter than its launch, also the device time alone and
+     the host's microseconds a call), the time of one PyTorch call
+     computing the same function where there is one
+     (scaled_dot_product_attention for the attention kernels, scatter_
+     a cache for the cache write; timed only), and the kernel's bound:
+     the larger of the bytes it must move
      over 3.35 TB/s and its operations over 989 TFLOP/s. flash_attention
      runs eight cases: a 2048-token direct prefill, an admission group,
      a 128-row piece, an 8192-token prompt, GPT-2's width, the causal
@@ -31,13 +33,19 @@ Phases:
      512 for the others, with torch's _weight_int4pack_mm as the 4-bit
      yardstick, then f32 x at M 512 and 2048 and both of its paths at
      M 1 to 16; at decode shapes it also prints the device time alone
-     and the host's microseconds a call;
+     and the host's microseconds a call. The cache write runs as one
+     cache (ragged_kv_write) and as the pair that the served paths run
+     (kv_write_pair: a layer's K and V in one launch) at the decode
+     step of 16 slots, a 128-row piece, GPT-2's 64 slots and the direct
+     path's scalar start;
   3. the direct path: a Llama-3-8B-width checkpoint (hidden 4096, 32/8
      heads of 128, FFN 14336, vocab 128256, rope theta 5e5; depth cut to
      --layers, random weights from a seed) is written to disk, loaded by
      the port's Server through its loader (bf16, int8 weights, max_len
      2048), and served by its OpenAI HTTP API; three
-     requests go through it, and the kernels' launch counters must rise.
+     requests go through it, and the kernels' launch counters must rise;
+     in this phase and in phases 4, 6 and 7 every run of the step graph
+     must write each layer's K and V caches in one kv_write_pair launch.
      Then the greedy decode again: each decode_attention call against
      its plain version on the same inputs, the decode's logits with the
      plain version swapped in, and against a teacher-forced prefill;
@@ -50,7 +58,7 @@ Phases:
      kernels' counters must rise, (d) each greedy answer must stand a
      teacher-forced prefill over prompt and answer, and (e) the greedy
      requests again on a fresh batcher must give the same tokens with
-     the plain ragged_kv_write in place of the kernel.
+     the plain kv_write_pair in place of the kernel.
      --plant-fault makes every decode-step cache write of the served
      traffic land one position early, which (d) must catch;
   5. long prompts, on the same checkpoint, run at the end of phases 3
@@ -471,29 +479,47 @@ def int8pack_call(torch, x, w, s):
 
 
 def phase2_kv_write(torch, results):
-    """ragged_kv_write against its plain version: a copy, so bit-exact
-    over the whole cache (the written slabs and every untouched
-    element), written in place."""
+    """The cache-write kernel against its plain version: a copy, so
+    bit-exact over the whole caches (the written slabs and every
+    untouched element), written in place. First the single-cache call
+    (ragged_kv_write), then the pair that writes a layer's K and V caches
+    in one launch (kv_write_pair, what the served paths run), each timed
+    against its bound and the library call (one scatter_ a cache), with
+    the host's microseconds a call."""
     from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
-        clamped_start, ragged_kv_write, ragged_kv_write_plain)
+        clamped_start, kv_write_pair, kv_write_pair_plain, kv_write_plan,
+        ragged_kv_write, ragged_kv_write_plain)
 
     dev = torch.device("cuda")
+    card = torch.cuda.current_device()
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    H, L, D = 8, MAX_LEN, 128
     decode_pos = [0, 1, 511, 2046, 2047, 5000, -1] + list(range(100, 1000, 100))
-    # (label, B, S, cache type, update type, positions): a decode step of
-    # the 16 slots (5000 clamps to L - 1, -1 counts from the end), a
-    # chunked-prefill piece of 4 rows (1950 + 128 and 3000 clamp to
+
+    def scatter_index(p, B, H, L, S, D):
+        """The library call's index (B, H, S, D) along the cache axis."""
+        return (clamped_start(p.reshape(-1), L, S)[:, None, None, None]
+                + torch.arange(S, device=dev)[None, None, :, None]
+                ).expand(B, H, S, D).contiguous()
+
+    def same(got, want):
+        view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+        return torch.equal(got.view(view), want.view(view))
+
+    # (label, B, H, L, D, S, cache type, update type, positions): a decode
+    # step of the 16 slots (5000 clamps to L - 1, -1 counts from the end),
+    # a chunked-prefill piece of 4 rows (1950 + 128 and 3000 clamp to
     # L - 128), an f32 update into the bf16 cache
-    cases = (("decode", 16, 1, torch.bfloat16, torch.bfloat16, decode_pos),
-             ("admission piece", 4, 128, torch.bfloat16, torch.bfloat16,
-              [0, 128, 1950, 3000]),
-             ("f32 update", 16, 1, torch.bfloat16, torch.float32,
+    L = MAX_LEN
+    cases = (("decode", 16, 8, L, 128, 1, torch.bfloat16, torch.bfloat16,
+              decode_pos),
+             ("admission piece", 4, 8, L, 128, 128, torch.bfloat16,
+              torch.bfloat16, [0, 128, 1950, 3000]),
+             ("f32 update", 16, 8, L, 128, 1, torch.bfloat16, torch.float32,
               decode_pos))
     say("  ragged_kv_write: bit-exact against the plain version over the "
         "whole cache, in place")
     timing = None
-    for label, B, S, cdt, udt, pos_list in cases:
+    for label, B, H, L, D, S, cdt, udt, pos_list in cases:
         sets = []
         for _ in range(copies_for(B * H * L * D * 2)):
             cache = torch.randn(B, H, L, D, generator=gen,
@@ -505,26 +531,23 @@ def phase2_kv_write(torch, results):
         ptr = cache.data_ptr()
         got = ragged_kv_write(cache, upd, pos)
         torch.cuda.synchronize()
-        same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+        exact = same(got, want)
         err = (got.float() - want.float()).abs().max().item()
         ms = time_ms(torch, ragged_kv_write, sets)
         plain_ms = time_ms(torch, ragged_kv_write_plain, sets)
         dev_ms = device_time_ms(torch, ragged_kv_write, sets)
         plain_dev_ms = device_time_ms(torch, ragged_kv_write_plain, sets)
+        h_us = host_us(torch, ragged_kv_write, sets)
         # the library call: one scatter_ along the cache axis, its index
         # (B, H, S, D) and the update in the cache's type built first
-        lsets = [(c, (clamped_start(p, L, S)[:, None, None, None]
-                      + torch.arange(S, device=dev)[None, None, :, None]
-                      ).expand(B, H, S, D).contiguous(), u.to(cdt))
+        lsets = [(c, scatter_index(p, B, H, L, S, D), u.to(cdt))
                  for c, u, p in sets]
 
         def scatter(c, idx, u):
             return c.scatter_(2, idx, u)
 
-        view = torch.int16 if cdt == torch.bfloat16 else torch.int32
-        same_lib = torch.equal(
-            scatter(cache.clone(), *lsets[0][1:]).view(view),
-            ragged_kv_write(cache.clone(), upd, pos).view(view))
+        same_lib = same(scatter(cache.clone(), *lsets[0][1:]),
+                        ragged_kv_write(cache.clone(), upd, pos))
         lib_ms = time_ms(torch, scatter, lsets)
         lib_dev_ms = device_time_ms(torch, scatter, lsets)
         del lsets
@@ -532,30 +555,130 @@ def phase2_kv_write(torch, results):
         bms, bby = bound(B * H * S * D * (upd.element_size()
                                           + cache.element_size()), 0)
         say(f"  ragged_kv_write {label} B={B} H={H} L={L} D={D} S={S} "
-            f"{str(udt)[6:]} into {str(cdt)[6:]}: bit-exact {same}, in place "
-            f"{got.data_ptr() == ptr}, max_abs_err={err:.6g}; kernel "
+            f"{str(udt)[6:]} into {str(cdt)[6:]}: bit-exact {exact}, in "
+            f"place {got.data_ptr() == ptr}, max_abs_err={err:.6g}; kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_ {lib_ms:.4f} "
             f"ms; device time alone: kernel {dev_ms:.4f} ms, plain "
             f"{plain_dev_ms:.4f} ms, scatter_ {lib_dev_ms:.4f} ms (same "
-            f"cache as the kernel's: {same_lib}); bound {bms:.5f} ms "
-            f"({bby})")
-        if not same or got.data_ptr() != ptr:
+            f"cache as the kernel's: {same_lib}); host {h_us:.1f} us a "
+            f"call; bound {bms:.5f} ms ({bby})")
+        if not exact or got.data_ptr() != ptr:
             fail(f"ragged_kv_write ({label}) is not the plain version's "
                  f"in-place copy")
         if timing is None:
-            timing = (ms, plain_ms, f"B={B} H={H} L={L} D={D} S=1 bf16",
-                      dev_ms, plain_dev_ms, bms, bby, lib_ms, lib_dev_ms)
+            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                          bound_by=bby, library_ms=lib_ms,
+                          shape=f"B={B} H={H} L={L} D={D} S=1 bf16",
+                          device_ms=dev_ms, plain_device_ms=plain_dev_ms,
+                          library_device_ms=lib_dev_ms, host_us=h_us)
         del sets, cache, upd, want, got
         torch.cuda.empty_cache()
     results.append({
         "name": "ragged_kv_write", "route": "cuda",
         "source": "whisper_tensor_tpu_torch/csrc/kv_write.cu",
         "replaces": "whisper_tensor_tpu/backends/pallas/kv_write.py:104",
-        "launches": None, "max_abs_err": 0.0, "ms": timing[0],
-        "plain_ms": timing[1], "bound_ms": timing[5], "bound_by": timing[6],
-        "library_ms": timing[7], "shape": timing[2],
-        "device_ms": timing[3], "plain_device_ms": timing[4],
-        "library_device_ms": timing[8]})
+        "launches": None, "max_abs_err": 0.0, **timing})
+
+    # the pair: K contiguous, V the llama recipe's transposed view; the
+    # decode pair of the 16 slots, the 128-row piece, GPT-2's decode pair
+    # at 64 slots, the direct path's scalar start (S 1 and 32), f32 into
+    # bf16; the same positions as above
+    pair_cases = (
+        ("decode pair", 16, 8, L, 128, 1, torch.bfloat16, torch.bfloat16,
+         decode_pos),
+        ("piece pair", 4, 8, L, 128, 128, torch.bfloat16, torch.bfloat16,
+         [0, 128, 1950, 3000]),
+        ("GPT-2 decode pair", 64, 12, 256, 64, 1, torch.bfloat16,
+         torch.bfloat16, [0, 255, 300, -1, 17, 128, -256, 9] * 8),
+        ("direct pair", 1, 8, L, 128, 1, torch.bfloat16, torch.bfloat16,
+         100),
+        ("direct pair", 1, 8, L, 128, 32, torch.bfloat16, torch.bfloat16,
+         2040),
+        ("f32 update pair", 16, 8, L, 128, 1, torch.bfloat16,
+         torch.float32, decode_pos))
+    say("  kv_write_pair: a layer's K and V caches in one launch, bit-exact "
+        "against the plain version (two ragged_kv_write_plain) over both "
+        "whole caches, in place; library: two scatter_ calls")
+    pair, shapes = None, {}
+    for label, B, H, L, D, S, cdt, udt, pos_list in pair_cases:
+        sets = []
+        for _ in range(copies_for(2 * B * H * L * D * 2)):
+            ck, cv = (torch.randn(B, H, L, D, generator=gen,
+                                  device=dev).to(cdt) for _ in range(2))
+            uk = torch.randn(B, H, S, D, generator=gen, device=dev).to(udt)
+            uv = torch.randn(B, S, H, D, generator=gen,
+                             device=dev).to(udt).transpose(1, 2)
+            sets.append((ck, uk, cv, uv, torch.tensor(pos_list, device=dev)))
+        ck, uk, cv, uv, pos = sets[0]
+        want = kv_write_pair_plain(ck.clone(), uk, cv.clone(), uv, pos)
+        n0 = kv_write_pair.launches
+        ptrs = ck.data_ptr(), cv.data_ptr()
+        got = kv_write_pair(ck, uk, cv, uv, pos)
+        torch.cuda.synchronize()
+        exact = all(same(a, b) for a, b in zip(got, want))
+        in_place = (got[0].data_ptr(), got[1].data_ptr()) == ptrs
+        if not (exact and in_place and kv_write_pair.launches == n0 + 1):
+            fail(f"kv_write_pair ({label}, S={S}) is not the plain "
+                 f"version's in-place copy in one launch")
+        ms = time_ms(torch, kv_write_pair, sets)
+        plain_ms = time_ms(torch, kv_write_pair_plain, sets)
+        dev_ms = device_time_ms(torch, kv_write_pair, sets)
+        h_us = host_us(torch, kv_write_pair, sets)
+        lsets = [(k, scatter_index(p, B, H, L, S, D), a.to(cdt), v, b.to(cdt))
+                 for k, a, v, b, p in sets]
+
+        def scatters(k, idx, a, v, b):
+            return k.scatter_(2, idx, a), v.scatter_(2, idx, b)
+
+        same_lib = all(same(x, y) for x, y in zip(
+            scatters(ck.clone(), lsets[0][1], lsets[0][2], cv.clone(),
+                     lsets[0][4]),
+            kv_write_pair(ck.clone(), uk, cv.clone(), uv, pos)))
+        lib_ms = time_ms(torch, scatters, lsets)
+        lib_dev_ms = device_time_ms(torch, scatters, lsets)
+        del lsets
+        bms, bby = bound(2 * B * H * S * D * (uk.element_size()
+                                              + ck.element_size()), 0)
+        plan = kv_write_plan(2, B, H, S, D, ck.element_size(),
+                             uk.element_size(), card)
+        scalar = "scalar pos" if isinstance(pos_list, int) else "pos (B,)"
+        say(f"  kv_write_pair {label} B={B} H={H} L={L} D={D} S={S} "
+            f"{str(udt)[6:]} into {str(cdt)[6:]}, {scalar} ({plan.blocks} "
+            f"blocks, {plan.units} 16-byte units): bit-exact {exact}, in "
+            f"place {in_place}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, two scatter_ {lib_ms:.4f} ms (kernel/library "
+            f"{ms / lib_ms:.2f}); device time alone: kernel {dev_ms:.4f} "
+            f"ms ({bms / dev_ms:.1%} of the bound), two scatter_ "
+            f"{lib_dev_ms:.4f} ms (same caches as the kernel's: "
+            f"{same_lib}); host {h_us:.1f} us a call; bound {bms:.5f} ms "
+            f"({bby})")
+        shapes[f"{label} B={B} S={S} {str(udt)[6:]}"] = {
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+            "bound_ms": bms, "host_us": h_us, "blocks": plan.blocks}
+        if pair is None:
+            pair = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
+                        library_ms=lib_ms,
+                        shape=f"B={B} H={H} L={L} D={D} S=1 bf16, K and V",
+                        device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                        host_us=h_us)
+        del sets, ck, cv, uk, uv, want, got
+        torch.cuda.empty_cache()
+    decode = shapes["decode pair B=16 S=1 bfloat16"]
+    piece = shapes["piece pair B=4 S=128 bfloat16"]
+    say(f"  aims (information): the decode pair host-timed no slower than "
+        f"two scatter_ ({decode['ms']:.4f} against {decode['library_ms']:.4f}"
+        f" ms: {'met' if decode['ms'] <= decode['library_ms'] else 'missed'})"
+        f", on the device at most 0.0035 ms ({decode['device_ms']:.4f}: "
+        f"{'met' if decode['device_ms'] <= 0.0035 else 'missed'}); the piece "
+        f"pair on the device at most 0.0056 ms ({piece['device_ms']:.4f}: "
+        f"{'met' if piece['device_ms'] <= 0.0056 else 'missed'}); "
+        f"{card_line()}")
+    results.append({
+        "name": "kv_write_pair", "route": "cuda",
+        "source": "whisper_tensor_tpu_torch/csrc/kv_write.cu",
+        "replaces": "whisper_tensor_tpu/backends/pallas/kv_write.py:104",
+        "launches": None, "max_abs_err": 0.0, **pair, "shapes": shapes})
 
 
 def sdpa_gqa(torch, q, k, v, mask, scale):
@@ -1151,26 +1274,64 @@ SAMPLED = {"prompt": "Once upon a time", "max_tokens": 24,
            "temperature": 0.8, "top_k": 50, "seed": 7}
 
 
-def serve_three(np, port: int, iface, counters: dict):
+def count_steps(iface):
+    """Count the runs of `iface`'s step graph until `del iface.step`."""
+    inner = iface.step
+
+    def counted(*args, **kw):
+        counted.runs += 1
+        return inner(*args, **kw)
+
+    counted.runs = 0
+    iface.step = counted
+    return counted
+
+
+def check_cache_writes(launches: dict, runs: int, layers: int,
+                       what: str) -> None:
+    """Every run of the step graph wrote each layer's K and V caches in
+    one launch of the cache-write kernel (kv_write_pair), and the kernel
+    launched for nothing else (ragged_kv_write counts all its launches)."""
+    pairs, total = launches["kv_write_pair"], launches["ragged_kv_write"]
+    say(f"  cache writes ({what}): {pairs} kv_write_pair launches, {total} "
+        f"launches of the kernel in all, for {runs} runs of the step graph "
+        f"x {layers} layers = {runs * layers}")
+    if runs <= 0 or pairs != runs * layers or total != pairs:
+        fail(f"the {what} path did not write each layer's caches in one "
+             f"launch a step")
+
+
+def serve_three(np, port: int, iface, counters: dict, layers: int):
     """The direct path's three requests over HTTP (a greedy completion,
     a streamed chat, a seeded sampled completion), with every counter of
-    `counters` ({name: wrapper}) set to 0 just before them and read just
-    after. All must answer in full; the greedy and the sampled request
-    repeat to the same text; the chat's text is the interface's 16
-    greedy tokens. Returns (greedy response, launches, seconds)."""
+    `counters` ({name: wrapper}) and the cache-write kernel's set to 0
+    just before them and read just after. All must answer in full; the
+    greedy and the sampled request repeat to the same text; the chat's
+    text is the interface's 16 greedy tokens; each run of the step graph
+    writes a layer's caches in one launch. Returns (greedy response,
+    launches, seconds)."""
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        kv_write_pair, ragged_kv_write)
     from whisper_tensor_tpu_torch.tokenizer import (ByteTokenizer,
                                                     apply_chat_template)
 
+    counters = dict(counters, ragged_kv_write=ragged_kv_write,
+                    kv_write_pair=kv_write_pair)
+    steps = count_steps(iface)
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    r1 = completion(port, GREEDY)
-    status, raw = request(port, "/v1/chat/completions", CHAT)
-    r3 = completion(port, SAMPLED)
-    served_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    try:
+        r1 = completion(port, GREEDY)
+        status, raw = request(port, "/v1/chat/completions", CHAT)
+        r3 = completion(port, SAMPLED)
+        served_s = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        del iface.step
     say(f"  three requests served in {served_s:.2f} s; kernel launches "
         f"during them: {launches}")
+    check_cache_writes(launches, steps.runs, layers, "direct")
     if status != 200:
         fail(f"/v1/chat/completions returned {status}: {raw[:500]!r}")
     events = [ln[6:] for ln in raw.split(b"\n") if ln.startswith(b"data: ")]
@@ -1313,6 +1474,9 @@ def profile_decode(torch, iface, prompt, label: str) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     busy_ms = sum(dev_us(e) for e in events) / 1e3
+    n_launch = sum(e.count for e in events if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+        "cuLaunchKernelEx"))
 
     def top(key):
         return "; ".join(f"{e.key[:48]} {key(e) / 1e3:.3f} ms x{e.count}"
@@ -1320,7 +1484,8 @@ def profile_decode(torch, iface, prompt, label: str) -> None:
 
     say(f"  profile ({label}, a prefill and 8 decode steps): wall "
         f"{wall_ms:.1f} ms, device busy {busy_ms:.2f} ms "
-        f"({busy_ms / wall_ms:.1%}); most device time: {top(dev_us)}; "
+        f"({busy_ms / wall_ms:.1%}), {n_launch} kernel launches; most "
+        f"device time: {top(dev_us)}; "
         f"most host time: {top(lambda e: e.self_cpu_time_total)}")
 
 
@@ -1367,7 +1532,7 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> dict:
     try:
         r1, launches, _ = serve_three(np, api.port, iface, {
             "decode_attention": decode_attention, "int8_matmul": int8_matmul,
-            "flash_attention": flash_attention})
+            "flash_attention": flash_attention}, layers)
         for res in results:
             if res["name"] in launches:
                 res["launches_direct"] = launches[res["name"]]
@@ -1504,7 +1669,7 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
     from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
         flash_attention)
     from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
-        ragged_kv_write, ragged_kv_write_plain)
+        kv_write_pair, kv_write_pair_plain, ragged_kv_write)
     from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
     from whisper_tensor_tpu_torch.milli import transforms
     from whisper_tensor_tpu_torch.milli.ops import misc as misc_lowering
@@ -1540,15 +1705,15 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
 
     bat.submit = recorded
     spy = quant_spy(transforms)
-    kernel_write = misc_lowering.ragged_kv_write
+    kernel_write = misc_lowering.kv_write_pair
     if plant_fault:
         say("  PLANTED FAULT: every decode-step cache write lands at pos - 1")
 
-        def early(cache, update, pos):
-            return kernel_write(cache, update,
-                                pos - 1 if update.shape[2] == 1 else pos)
+        def early(cache_k, update_k, cache_v, update_v, pos):
+            return kernel_write(cache_k, update_k, cache_v, update_v,
+                                pos - 1 if update_k.shape[2] == 1 else pos)
 
-        misc_lowering.ragged_kv_write = early
+        misc_lowering.kv_write_pair = early
     api = OpenAIApi(srv, "127.0.0.1", 0).start()
     reqs = traffic(np)
     answers = [None] * len(reqs)
@@ -1574,10 +1739,12 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
         fail(f"the batcher did not admit {n} requests in 600 s: "
              f"{bat.stats()}")
 
+    steps = count_steps(bat.iface)
     try:
         decode_attention.launches = 0
         int8_matmul.launches = 0
         ragged_kv_write.launches = 0
+        kv_write_pair.launches = 0
         flash_attention.launches = 0
         threads = []
         t0 = time.perf_counter()
@@ -1594,9 +1761,11 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
         launches = {"decode_attention": decode_attention.launches,
                     "int8_matmul": int8_matmul.launches,
                     "ragged_kv_write": ragged_kv_write.launches,
+                    "kv_write_pair": kv_write_pair.launches,
                     "flash_attention": flash_attention.launches}
     finally:
-        misc_lowering.ragged_kv_write = kernel_write
+        misc_lowering.kv_write_pair = kernel_write
+        del bat.iface.step
         bat.submit = submit
         api.stop()
     st = bat.stats()
@@ -1632,6 +1801,7 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
         n_tokens += got
     if min(launches.values()) <= 0:
         fail(f"a kernel of the batched path was never launched: {launches}")
+    check_cache_writes(launches, steps.runs, layers, "batched")
     if len(records) != len(reqs) or foreign_modules():
         fail(f"{len(records)} batcher requests for {len(reqs)} HTTP "
              f"requests, or foreign modules imported: {foreign_modules()}")
@@ -1671,20 +1841,20 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
         finally:
             b.stop()
 
-    n0 = ragged_kv_write.launches
+    n0 = kv_write_pair.launches
     with_kernel = rerun()
-    n_kernel = ragged_kv_write.launches - n0
-    misc_lowering.ragged_kv_write = ragged_kv_write_plain
+    n_kernel = kv_write_pair.launches - n0
+    misc_lowering.kv_write_pair = kv_write_pair_plain
     try:
         with_plain = rerun()
     finally:
-        misc_lowering.ragged_kv_write = kernel_write
+        misc_lowering.kv_write_pair = kernel_write
     same = all(np.array_equal(a, b) for a, b in zip(with_kernel, with_plain))
     say(f"  (e) the {len(greedy)} greedy requests on a fresh batcher: "
-        f"{n_kernel} kernel writes, then the plain write: same tokens "
-        f"{same}")
-    if not same or n_kernel <= 0 or ragged_kv_write.launches != n0 + n_kernel:
-        fail("the batched path's tokens change with the plain ragged write")
+        f"{n_kernel} kernel writes (K and V in each), then the plain write: "
+        f"same tokens {same}")
+    if not same or n_kernel <= 0 or kv_write_pair.launches != n0 + n_kernel:
+        fail("the batched path's tokens change with the plain cache write")
 
     ttfts = [t for t in ttfts if t is not None]
     say(f"  information: {n_tokens} completion tokens in {served_s:.2f} s = "
@@ -1950,7 +2120,7 @@ def phase6a(torch, np, ckpt: Path, layers: int, results, int8: dict) -> None:
         r1, launches, _ = serve_three(np, api.port, iface, {
             "packed_matmul": packed_matmul, "int8_matmul": int8_matmul,
             "decode_attention": decode_attention,
-            "flash_attention": flash_attention})
+            "flash_attention": flash_attention}, layers)
         for res in results:
             if res["name"] in launches:
                 res["launches_q4_0_direct"] = launches[res["name"]]
@@ -2087,7 +2257,7 @@ def phase6b(torch, np, gguf_path: Path, layers: int, results) -> None:
     from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
         flash_attention)
     from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
-        ragged_kv_write)
+        kv_write_pair, ragged_kv_write)
     from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
         packed_matmul)
     from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
@@ -2135,9 +2305,11 @@ def phase6b(torch, np, gguf_path: Path, layers: int, results) -> None:
     counters = {"packed_matmul": packed_matmul, "int8_matmul": int8_matmul,
                 "decode_attention": decode_attention,
                 "ragged_kv_write": ragged_kv_write,
+                "kv_write_pair": kv_write_pair,
                 "flash_attention": flash_attention}
     bat.submit = recorded
     api = OpenAIApi(srv, "127.0.0.1", 0).start()
+    steps = count_steps(bat.iface)
     try:
         for fn in counters.values():
             fn.launches = 0
@@ -2152,6 +2324,7 @@ def phase6b(torch, np, gguf_path: Path, layers: int, results) -> None:
         served_s = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
     finally:
+        del bat.iface.step
         bat.submit = submit
         api.stop()
     n_tokens = 0
@@ -2177,6 +2350,7 @@ def phase6b(torch, np, gguf_path: Path, layers: int, results) -> None:
             n for k, n in launches.items() if k != "int8_matmul") <= 0:
         fail(f"a kernel of the GGUF batched path was never launched, or "
              f"int8_matmul was: {launches}")
+    check_cache_writes(launches, steps.runs, layers, "GGUF batched")
     if len(records) != len(reqs) or foreign_modules():
         fail(f"{len(records)} batcher requests for {len(reqs)} HTTP "
              f"requests, or foreign modules imported: {foreign_modules()}")
@@ -2294,7 +2468,7 @@ def phase7(torch, np, ckpt: Path, results) -> None:
     from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
         flash_attention)
     from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
-        ragged_kv_write)
+        kv_write_pair, ragged_kv_write)
     from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
     from whisper_tensor_tpu_torch.milli import transforms
     from whisper_tensor_tpu_torch.milli.ops import attention as attn_lowering
@@ -2308,6 +2482,7 @@ def phase7(torch, np, ckpt: Path, results) -> None:
     counters = {"decode_attention": decode_attention,
                 "flash_attention": flash_attention,
                 "ragged_kv_write": ragged_kv_write,
+                "kv_write_pair": kv_write_pair,
                 "int8_matmul": int8_matmul}
     frac = 0.015 * math.sqrt(layers)
     for quantize in ("", "int8"):
@@ -2351,6 +2526,7 @@ def phase7(torch, np, ckpt: Path, results) -> None:
         attn_lowering.flash_attention = flash
         spy = quant_spy(transforms)
         api = OpenAIApi(srv, "127.0.0.1", 0).start()
+        steps = count_steps(bat.iface)
         try:
             for fn in counters.values():
                 fn.launches = 0
@@ -2366,6 +2542,7 @@ def phase7(torch, np, ckpt: Path, results) -> None:
             served_s = time.perf_counter() - t0
             launches = {name: fn.launches for name, fn in counters.items()}
         finally:
+            del bat.iface.step
             attn_lowering.decode_attention = inner_dec
             attn_lowering.flash_attention = inner_flash
             transforms.int8_matmul = spy.inner
@@ -2388,6 +2565,7 @@ def phase7(torch, np, ckpt: Path, results) -> None:
         for res in results:
             if res["name"] in launches:
                 res[f"launches_gpt2_{label}"] = launches[res["name"]]
+        check_cache_writes(launches, steps.runs, layers, f"GPT-2 {label}")
         if min(launches[k] for k in ("decode_attention", "flash_attention",
                                      "ragged_kv_write")) <= 0 \
                 or dims != {"decode_attention": {64},

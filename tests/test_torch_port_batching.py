@@ -279,6 +279,38 @@ def test_tick_failure_fails_futures_and_recovers():
         b.stop()
 
 
+def test_a_request_submitted_as_a_tick_fails_is_served():
+    """A caller woken by its failed future submits again at once (here
+    from the future's done callback, which runs in the batcher's thread
+    while it fails the tick's requests): the new request is not the
+    failed tick's, and is served exactly."""
+    m_scalar, m_ragged = _models()
+    ref = _direct(m_scalar)
+    b = _batcher(m_ragged, max_batch=2, chunk=4)
+    real = b._run_chunk
+    state = {"boom": 1}
+
+    def poisoned(*args):
+        if state["boom"]:
+            state["boom"] -= 1
+            raise RuntimeError("injected device failure")
+        return real(*args)
+
+    b._run_chunk = poisoned
+    p2 = np.random.default_rng(8).integers(0, V, (7,)).astype(np.int64)
+    again = []
+    b.start()
+    try:
+        fut = b.submit(np.random.default_rng(7).integers(0, V, (5,)), 6)
+        fut.add_done_callback(lambda f: again.append(b.submit(p2, 5)))
+        with pytest.raises(RuntimeError, match="injected device failure"):
+            fut.result(timeout=120)
+        assert len(again) == 1
+        _assert_sequential(ref, [(p2, 5, again[0])])
+    finally:
+        b.stop()
+
+
 def test_pipelined_slot_churn_matches_sequential():
     """Many short requests churn through two slots: admissions land while
     a chunk is in flight, finished rows decode on until their park
@@ -430,9 +462,32 @@ def test_int8_gpt2_of_head_dim_64_at_a_bf16_cache_matches_the_jax_batcher():
     (n_embd 128, 2 heads), quantize="int8" (the 128 x 512 MLP matrices and
     the tied head, 128 x 521: an odd N), a bf16 cache and 16-token prefill
     pieces, through the JAX package's batcher and the port's on the same
-    ONNX bytes: the same tokens. (On the card the same graph runs
-    decode_attention and flash_attention at D = 64 and int8_matmul on the
-    odd head; here the wrappers take their plain versions.)"""
+    ONNX bytes. (On the card the same graph runs decode_attention and
+    flash_attention at D = 64 and int8_matmul on the odd head; here the
+    wrappers take their plain versions.)
+
+    At bf16 the two packages round in different places that the contract
+    (bf16 elementwise math in f32, rounded back; f32 accumulation in
+    matmuls) leaves open: XLA's CPU compiler keeps f32 across fused
+    elementwise chains (the first node to part is the first LayerNorm,
+    fed the embedding sum unrounded), the reference's CPU attention
+    rounds normalized probabilities where the port's kernels round
+    unnormalized ones (prefill) or none (decode), and the reference's
+    native int8 quantizer (built with -ffast-math) may differ from its
+    numpy path, which the port copies, in the last bit of a scale. So:
+      * each row's prompt plus the JAX batcher's tokens, teacher-forced
+        through both direct paths, gives every step's logits within
+        TOL of the step's largest |logit|. One rounding is 2^-8
+        relative; the reference against itself, compiled with and
+        without XLA's excess precision, parts by up to 4.3% on these
+        prompts, the port from it by up to 3.8%
+        (tests/test_torch_port_bf16_parity.py prints both); TOL is
+        1/16;
+      * the batchers' tokens agree exactly up to the first step where
+        the JAX logits' top two lie within that tolerance;
+      * at that step the port's token is one of the JAX candidates
+        within the tolerance of the top."""
+    TOL = 1 / 16
     vocab = 521
     cfg = GPT2Config(n_layer=2, n_head=2, n_embd=128, vocab_size=vocab,
                      n_positions=128)
@@ -454,5 +509,23 @@ def test_int8_gpt2_of_head_dim_64_at_a_bf16_cache_matches_the_jax_batcher():
                          for f in [b.submit(p, 6) for p in prompts]])
         finally:
             b.stop()
-    for want, got in zip(*outs):
-        np.testing.assert_array_equal(got, want)
+    direct = dict(max_len=128, quantize="int8", prompt_buckets=(16, 32, 64))
+    ref = JaxTextInterface(JaxModel.new_from_onnx(data),
+                           cache_dtype=JaxDType.BF16, **direct)
+    port = TextInferenceInterface(Model.new_from_onnx(data),
+                                  cache_dtype=DType.BF16, device="cpu",
+                                  **direct)
+    for p, want, got in zip(prompts, *outs):
+        assert got.shape == want.shape == (6,)
+        seq = np.concatenate([p, want[:-1]])[None]
+        lj = np.asarray(ref.logits(seq), np.float32)[0, len(p) - 1:]
+        lp = port.logits(seq).astype(np.float32)[0, len(p) - 1:]
+        tol = TOL * np.abs(lj).max(axis=-1)
+        np.testing.assert_array_less(np.abs(lp - lj).max(axis=-1), tol,
+                                     err_msg=f"L={len(p)}")
+        for i, (a, b) in enumerate(zip(want, got)):
+            top2 = np.sort(lj[i])[-2:]
+            if top2[1] - top2[0] < tol[i]:
+                assert lj[i][b] > lj[i].max() - tol[i], (len(p), i, a, b)
+                break
+            assert a == b, (len(p), i, want, got)

@@ -25,6 +25,7 @@ from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
     flash_agreement_bound, flash_attention, flash_attention_plain,
     flash_splits)
 from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+    kv_write_limits, kv_write_pair, kv_write_pair_plain, kv_write_plan,
     ragged_kv_write, ragged_kv_write_plain)
 from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
     dequant_repacked, dequantize_packed, packed_matmul, packed_matmul_plain,
@@ -649,6 +650,113 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     assert ragged_kv_write.launches == n0
 
 
+# (B, H, L, D, S, positions): the decode pair of 16 slots with phase 2's
+# positions (5000 clamps to L - 1, -1 counts from the end), a 128-row
+# piece of 4 rows (1950 + 128 and 3000 clamp to L - 128), GPT-2's decode
+# pair at 64 slots, and the direct path's scalar start at S 1 and 32
+PAIR_SHAPES = [
+    (16, 8, 2048, 128, 1, [0, 1, 511, 2046, 2047, 5000, -1] + list(
+        range(100, 1000, 100))),
+    (4, 8, 2048, 128, 128, [0, 128, 1950, 3000]),
+    (64, 12, 256, 64, 1, [0, 255, 300, -1, 17, 128, -256, 9] * 8),
+    (1, 8, 2048, 128, 1, 100), (1, 8, 2048, 128, 32, 2040),
+    (1, 8, 2048, 128, 1, -1), (3, 2, 64, 5, 3, [0, 62, -4])]
+
+
+@pytest.mark.parametrize("cache_dt,upd_dt", KV_WRITE_DTYPES)
+@pytest.mark.parametrize("B,H,L,D,S,pos_list", PAIR_SHAPES)
+def test_kv_write_pair_kernel_is_bit_exact(cuda, B, H, L, D, S, pos_list,
+                                           cache_dt, upd_dt):
+    """A layer's K and V writes in one launch: both whole caches equal
+    the plain version's bit for bit, in place, V's update the llama
+    recipe's transposed view; one launch, counted once by each wrapper's
+    counter. D = 5 takes the element-by-element path."""
+    g = torch.Generator(device=cuda).manual_seed(B * S + D + L)
+    ck, cv = (torch.randn(B, H, L, D, generator=g, device=cuda).to(cache_dt)
+              for _ in range(2))
+    uk = torch.randn(B, H, S, D, generator=g, device=cuda).to(upd_dt)
+    uv = torch.randn(B, S, H, D, generator=g, device=cuda).to(
+        upd_dt).transpose(1, 2)
+    pos = torch.tensor(pos_list, device=cuda)
+    want = kv_write_pair_plain(ck.clone(), uk, cv.clone(), uv, pos)
+    n0 = ragged_kv_write.launches, kv_write_pair.launches
+    ptrs = ck.data_ptr(), cv.data_ptr()
+    got = kv_write_pair(ck, uk, cv, uv, pos)
+    torch.cuda.synchronize()
+    assert (ragged_kv_write.launches, kv_write_pair.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    assert got[0] is ck and got[1] is cv
+    assert (ck.data_ptr(), cv.data_ptr()) == ptrs
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_kv_write_pair_kernel_pos_forms(cuda):
+    """int32 starts, a strided (B,) view and a () start expanded to (B,)
+    (stride 0) give the int64 starts' caches."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, H, L, D = 6, 4, 64, 128
+    ck, cv = (torch.randn(B, H, L, D, generator=g, device=cuda).bfloat16()
+              for _ in range(2))
+    uk, uv = (torch.randn(B, H, 1, D, generator=g, device=cuda).bfloat16()
+              for _ in range(2))
+    pos = torch.tensor([3, 63, -2, 70, 0, 9], device=cuda)
+    want = kv_write_pair_plain(ck.clone(), uk, cv.clone(), uv, pos)
+    wide = torch.stack([pos, pos * 0]).t().reshape(-1)[::2]
+    for p in (pos.int(), wide):
+        got = kv_write_pair(ck.clone(), uk, cv.clone(), uv, p)
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b))
+    one = torch.tensor(17, device=cuda)
+    want = kv_write_pair_plain(ck.clone(), uk, cv.clone(), uv, one)
+    for p in (one, one.expand(B)):
+        got = kv_write_pair(ck.clone(), uk, cv.clone(), uv, p)
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+def test_kv_write_pair_wrapper_raises_on_unsupported_cuda_inputs(cuda):
+    cache = torch.zeros(2, 2, 16, 64, dtype=torch.bfloat16, device=cuda)
+    upd = torch.zeros(2, 2, 1, 64, dtype=torch.bfloat16, device=cuda)
+    pos = torch.tensor([1, 2], device=cuda)
+    n0 = ragged_kv_write.launches, kv_write_pair.launches
+    bad = [  # (cache_v, update_v, pos, message)
+        (cache[..., :32].contiguous(), upd, pos, "unsupported"),  # V shape
+        (cache.float(), upd, pos, "unsupported"),                 # V type
+        (cache, upd.float(), pos, "unsupported"),        # updates' types
+        (cache, torch.zeros(2, 2, 2, 64, dtype=torch.bfloat16,
+                            device=cuda), pos, "unsupported"),    # S differs
+        (cache, upd.half(), pos, "unsupported"),          # f16 update
+        (cache.transpose(2, 3).contiguous().transpose(2, 3), upd, pos,
+         "contiguous"),
+        (cache, upd.cpu(), pos, "contiguous"),            # update on the CPU
+        (cache, upd, pos.float(), "pos"), (cache, upd, pos.cpu(), "pos"),
+        (cache, upd, pos[:1], "pos"), (cache, upd, pos[None], "pos")]
+    for cv, uv, p, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            kv_write_pair(cache, upd, cv, uv, p)
+    assert (ragged_kv_write.launches, kv_write_pair.launches) == n0
+
+
+def test_kv_write_plan_on_the_card_matches_the_cpu_defaults(cuda):
+    """wt_kv_write_limits reads the kernel's threads and blocks a
+    multiprocessor on the card (its launch bounds hold 16); on an H100
+    the plans of phase 2's shapes are the CPU tests' plans."""
+    index = torch.cuda.current_device()
+    props = torch.cuda.get_device_properties(index)
+    h100 = props.multi_processor_count == 132 and props.major == 9
+    for cb, ub in ((2, 2), (4, 4), (2, 4)):
+        card = kv_write_limits(cb, ub, index)
+        assert card[:2] == kv_write_limits(cb, ub)[:2]
+        assert card[2] == props.multi_processor_count
+    for args in ((2, 16, 8, 1, 128), (2, 4, 8, 128, 128), (2, 64, 12, 1, 64),
+                 (2, 1, 8, 1, 128), (2, 1, 8, 32, 128)):
+        card, cpu = kv_write_plan(*args, 2, 2, index), kv_write_plan(*args)
+        assert card.units == cpu.units and card.blocks >= 1
+        if h100:
+            assert card == cpu, args
+
+
 def test_attention_lowering_sends_a_head_dim_64_decode_step_to_the_kernel(
         cuda):
     """A bf16 single-query step with head dim 64 (GPT-2's) goes to the
@@ -735,6 +843,47 @@ def test_tiny_llama_on_the_gpu_goes_through_both_kernels(cuda, max_len, L,
     want = cpu.logits(full).astype(np.float32)[:, L - 1:]
     np.testing.assert_allclose(logits, want, rtol=0,
                                atol=0.03 * np.abs(want).max())
+
+
+def test_tiny_llama_writes_each_layer_s_caches_in_one_launch(cuda):
+    """The direct path (a scalar start) and the batcher (per-row starts)
+    on the card: one cache-write launch a layer for every run of the step
+    graph, all of them pairs; no index_copy_ on the direct path."""
+    from whisper_tensor_tpu_torch.server.batching import ContinuousBatcher
+
+    gpu, _ = _direct_pair(cuda, 64)
+    runs = []
+    step = gpu.step
+
+    def counted(*a, **kw):
+        runs.append(1)
+        return step(*a, **kw)
+
+    gpu.step = counted
+    n0 = ragged_kv_write.launches, kv_write_pair.launches
+    gpu.generate_tokens(np.random.default_rng(3).integers(3, 259, (2, 7)), 5)
+    torch.cuda.synchronize()
+    assert len(runs) == 5
+    assert (ragged_kv_write.launches - n0[0],
+            kv_write_pair.launches - n0[1]) == (2 * 5, 2 * 5)
+    b = ContinuousBatcher(_tiny_llama(64, pos_per_row=True), max_len=64,
+                          max_batch=4, chunk=4, quantize="int8",
+                          prefill_chunk=16, device=cuda)
+    runs.clear()
+    step = b.iface.step
+    b.iface.step = counted
+    n0 = ragged_kv_write.launches, kv_write_pair.launches
+    b.start()
+    rng = np.random.default_rng(4)
+    try:
+        for f in [b.submit(rng.integers(3, 259, (n,)), 5)
+                  for n in (4, 21, 9)]:
+            f.result(timeout=300)
+    finally:
+        b.stop()
+    assert runs
+    assert (ragged_kv_write.launches - n0[0],
+            kv_write_pair.launches - n0[1]) == (2 * len(runs),) * 2
 
 
 def test_tiny_llama_batcher_on_the_gpu_launches_all_three_kernels(cuda):

@@ -233,7 +233,12 @@ def eval_cases():
     return _capture_eval_cases()
 
 
-@pytest.mark.parametrize("kind", sorted(LOWERINGS))
+# KVWrite, the port's merge of a layer's two cache writes
+# (pair_cache_writes), has no counterpart in the JAX package: its eval is
+# held against two of the reference's DynUpdateSlice evals in
+# tests/test_torch_port_transforms.py
+@pytest.mark.parametrize("kind", sorted(k for k in LOWERINGS
+                                        if k != "KVWrite"))
 def test_milli_op_eval_matches_the_reference(kind, eval_cases):
     cases = eval_cases.get(kind)
     assert cases, f"no node of kind {kind} in the recipes' graphs"

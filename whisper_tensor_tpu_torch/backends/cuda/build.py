@@ -74,10 +74,13 @@ _SIGNATURES = {
     # path, bm, bits, x_is_bf16, G, limits (int[3]: rows of q a stage,
     # columns a block, blocks a multiprocessor)
     "wt_packed_limits": [_I, _I, _I, _I, _I, _P],
-    # cache, update, pos (int64), B, H, L, D, S, update strides (b, h, s,
-    # d), mode, stream
-    "wt_ragged_kv_write": [_P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
-                           _LL, _I, _P],
+    # cache 0, update 0, cache 1, update 1, pos, geometry (int64[20]:
+    # caches, B, H, L, D, S, mode, pos int32, pos stride, units a slab,
+    # units, blocks, update strides (b, h, s, d) of each cache), stream
+    "wt_kv_write": [_P, _P, _P, _P, _P, _P, _P],
+    # mode, limits (int[3]: threads a block, blocks a multiprocessor,
+    # cache values a unit)
+    "wt_kv_write_limits": [_I, _P],
 }
 
 
@@ -218,11 +221,12 @@ def split_units(units: int, blocks: int, wave: int, block_cost: float,
     return best[1]
 
 
-def raw_stream(device: torch.device) -> int:
-    """The handle of `device`'s current CUDA stream, for the C entry
-    points: torch's raw-stream query (a torch.cuda.Stream object for it
-    costs about 12 us of host time a call beside an H100)."""
-    i = device_index(device)
+def raw_stream(device) -> int:
+    """The handle of the current CUDA stream of `device` (a torch.device
+    or a device index), for the C entry points: torch's raw-stream query
+    (a torch.cuda.Stream object for it costs about 12 us of host time a
+    call beside an H100)."""
+    i = device if isinstance(device, int) else device_index(device)
     query = getattr(torch._C, "_cuda_getCurrentRawStream", None)
     if query is None:
         return torch.cuda.current_stream(i).cuda_stream

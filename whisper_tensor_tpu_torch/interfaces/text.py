@@ -6,7 +6,8 @@ the whole decode loop into one XLA program with donated caches; here
 the step graph runs eagerly through GraphExecutor:
   * prefill at the prompt's bucket length, then one step per token;
   * the KV caches are device tensors this interface allocates, written
-    in place by the graph's cache writes;
+    in place by the graph's cache writes, a layer's K and V in one
+    KVWrite node (milli/transforms.py:pair_cache_writes);
   * positions, tokens and sampling state stay on the device, so the
     loop never waits for the device until the tokens are read back.
 
@@ -31,6 +32,7 @@ search, DFA-constrained decoding.
 
 from __future__ import annotations
 
+import copy
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -43,7 +45,7 @@ from ..backends.torch_exec.compiler import GraphExecutor
 from ..device import resolve_device
 from ..dtype import DType, host_to_device, to_host, to_torch
 from ..milli.transforms import (fuse_parallel_matmuls, pack_matmul_nodes,
-                                quantize_matmul_weights)
+                                pair_cache_writes, quantize_matmul_weights)
 from ..model import Model
 from ..packed_format import PackedFormat
 from ..tensor import PackedTensor
@@ -366,7 +368,11 @@ class TextInferenceInterface:
             model.graph.by_name[self.cache_in_names[0]]].info
         self.n_heads = int(info.dims()[1].value())
         self.head_dim = int(info.dims()[3].value())
-        self._exec = GraphExecutor(milli, self.device)
+        # the graph that runs is `milli` with the port's own pass, on a
+        # copy: `self.milli` stays the JAX package's graph node for node
+        run = copy.copy(milli)
+        pair_cache_writes(run)
+        self._exec = GraphExecutor(run, self.device)
         self._weights_dev: Optional[Dict[str, torch.Tensor]] = None
         # the batcher's loop and an HTTP thread's logprobs rescoring may
         # both make the first call: one upload, not two

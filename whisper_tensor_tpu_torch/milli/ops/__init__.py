@@ -12,13 +12,14 @@ from .attention import AttentionMilli, RotaryMilli
 from .basic import (Cast, CastLike, Constant, MatMul, SimpleBinary,
                     SimpleUnary, Where)
 from .index import Gather, Range
-from .misc import DynUpdateSliceMilli
+from .misc import DynUpdateSliceMilli, KVWriteMilli
 from .norm import LayerNormMilli, RMSNormMilli
 from .shape import Reshape, Shape, Split, Squeeze, Transpose, Unsqueeze
 
 __all__ = [
     "LOWERINGS", "AttentionMilli", "RotaryMilli", "Cast", "CastLike",
     "Constant", "MatMul", "SimpleBinary", "SimpleUnary", "Where", "Gather",
-    "Range", "DynUpdateSliceMilli", "LayerNormMilli", "RMSNormMilli",
-    "Reshape", "Shape", "Split", "Squeeze", "Transpose", "Unsqueeze",
+    "Range", "DynUpdateSliceMilli", "KVWriteMilli", "LayerNormMilli",
+    "RMSNormMilli", "Reshape", "Shape", "Split", "Squeeze", "Transpose",
+    "Unsqueeze",
 ]

@@ -4,6 +4,9 @@ The port's copy of the parts of whisper_tensor_tpu/milli/transforms.py
 that the text interfaces run:
   * fuse_parallel_matmuls: same-input weight matmuls (q/k/v, gate/up)
     become one wide matmul and a static Split;
+  * pair_cache_writes (the port's own, no counterpart in the JAX
+    package): a layer's K and V cache writes (DynUpdateSlice with one
+    start) become one KVWrite node, one launch of the cache-write kernel;
   * quantize_matmul_weights: MatMul(x, W) -> QuantMatMul(x, W_i8,
     scale) for 2-D weight inputs, with quantize_int8 (the numpy
     function of whisper_tensor_tpu/backends/pallas/quant_matmul.py:
@@ -204,6 +207,87 @@ def fuse_parallel_matmuls(
             new_nodes.append(node)
     milli.nodes = new_nodes
     return fused
+
+
+def pair_cache_writes(milli: MilliGraph) -> int:
+    """Merge each layer's K and V cache writes into one KVWrite node.
+
+    Two DynUpdateSlice nodes merge when they share their start tensor,
+    both write axis 2 of a 4-D cache, their caches have one shape and
+    type, their updates one type and shape (as far as the graph knows
+    them; the kernel's wrapper checks the rest), and no node between
+    them, nor the second, reads the first one's output. The merged node
+    takes the second write's place, where both updates exist, and keeps
+    both output tensors, so the graph's new_cache_k_i / new_cache_v_i
+    are the same tensors. Exact: the two writes touch different caches.
+    Writes that do not pair stay as they are.
+
+    Why: a decode step writes every layer's two caches, and each write is
+    a kernel launch and a wrapper call on the host (on the direct path,
+    whose start is a scalar, about seven launches of index arithmetic
+    and an index_copy_); merged, a layer's writes are one launch.
+
+    Mutates `milli`; returns the number of pairs merged."""
+    from .ops import KVWriteMilli   # (milli.ops imports this module)
+
+    def info(tid):
+        t = milli.tensors.get(tid)
+        return None if t is None else t.info
+
+    def write(node):
+        """(cache info, update info) of a node that may pair, or None."""
+        if node.op.KIND != "DynUpdateSlice" or len(node.inputs) != 3 \
+                or len(node.outputs) != 1:
+            return None
+        cache = info(node.inputs[0])
+        if cache is None or cache.rank != 4 or cache.dims() is None \
+                or node.op.axis % 4 != 2:
+            return None
+        return cache, info(node.inputs[1])
+
+    def agree(a, b) -> bool:
+        """The two caches' infos match; the updates' where both known."""
+        if a[0].dtype != b[0].dtype or a[0].dims() != b[0].dims():
+            return False
+        ua, ub = a[1], b[1]
+        if ua is None or ub is None:
+            return True
+        return (ua.dtype == ub.dtype
+                and (ua.rank is None or ub.rank is None
+                     or ua.rank == ub.rank == 4)
+                and (ua.dims() is None or ub.dims() is None
+                     or ua.dims() == ub.dims()))
+
+    readers: Dict[int, List[int]] = {}
+    for idx, node in enumerate(milli.nodes):
+        for t in node.inputs:
+            if t is not None:
+                readers.setdefault(t, []).append(idx)
+    merged: Dict[int, MilliNode] = {}      # second write's index -> node
+    removed: set = set()
+    for i, first in enumerate(milli.nodes):
+        a = write(first)
+        if a is None or i in merged:
+            continue
+        out = first.outputs[0]
+        for j in range(i + 1, len(milli.nodes)):
+            if any(i < r <= j for r in readers.get(out, ())):
+                break
+            second = milli.nodes[j]
+            b = write(second)
+            if (b is None or j in merged or second.inputs[2] != first.inputs[2]
+                    or not agree(a, b)):
+                continue
+            (ck, uk, start), (cv, uv, _) = first.inputs, second.inputs
+            merged[j] = MilliNode(new_global_id(), KVWriteMilli(axis=2),
+                                  [ck, uk, cv, uv, start],
+                                  [out, second.outputs[0]], second.phase,
+                                  second.group)
+            removed.add(i)
+            break
+    milli.nodes = [merged.get(j, node) for j, node in enumerate(milli.nodes)
+                   if j not in removed]
+    return len(merged)
 
 
 @dataclass

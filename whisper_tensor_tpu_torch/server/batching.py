@@ -697,24 +697,23 @@ class ContinuousBatcher:
             try:
                 inflight = self._tick(inflight)
             except Exception as e:  # noqa: BLE001 -- keep serving
+                # every request outstanding at the failure, taken before
+                # any future fails: a caller woken by its failed future
+                # may submit again at once, and that request is served
+                failed = [s.req for s in self._slots if s.req is not None]
                 for slot in self._slots:
-                    if slot.req is not None and not slot.req.future.done():
-                        slot.req.future.set_exception(e)
                     slot.req = None
                     slot.emitted = []
                     slot.dispatched = None
                     slot.first_group = None
                 while True:
                     try:
-                        req = self._queue.get_nowait()
+                        failed.append(self._queue.get_nowait())
                     except queue.Empty:
                         break
-                    if not req.future.done():
-                        req.future.set_exception(e)
-                for _, req in self._admit_backlog:
-                    if not req.future.done():
-                        req.future.set_exception(e)
-                for req in self._wait:
+                failed += [req for _, req in self._admit_backlog]
+                failed += self._wait
+                for req in failed:
                     if not req.future.done():
                         req.future.set_exception(e)
                 self._wait = []
