@@ -86,10 +86,36 @@ Phases:
      the three attention and cache kernels must rise, (d) each greedy
      answer stand a teacher-forced prefill, and (f) the longest greedy
      answer stand one over the same file loaded dense
-     (packed_weights=False).
-Each step prints its seconds and the peak host RSS. The last three
-lines are the kernels' JSON summary line, the card, and the result
-line.
+     (packed_weights=False);
+  7. GPT-2 124M's widths (12 layers, 12 heads of 64, vocab 50,257) in
+     the reference's serving arm, dense bf16 then int8: 64 concurrent
+     greedy requests through the batcher, (d) for each;
+  8. the direct path's other routes, at the end of phase 3 on its int8
+     model: (g) a json_schema and a regex completion must finish inside
+     their languages, each token admitted by the DFA table from the
+     state before it; (h) a chat with `tools` must answer one tool call
+     that parses; (i) /v1/embeddings of three inputs, last and mean
+     pooling, unit vectors, the hidden states within phase 3's bound of
+     a prefill with every plain version in place (the C12 case: an int8
+     lm_head); (j) best_of=4 must answer the candidate sequence_scores
+     ranks first; (k) num_beams=4 through the generate_text message:
+     the best beam's teacher-forced score must stand the search's. The
+     int8, decode and cache-write counters must rise in each (flash in
+     the place of decode in (i), a prefill). It prints the DFA tables'
+     MB, constrained against unconstrained tok/s, beam ms a step and the
+     cache reorder's;
+  9. the checkpoint written as GPTQ (4-bit, groups of 128, the classic
+     zeros-1 format, desc_act off, lm_head dense), loaded by the
+     TransformersLoader with ragged_decode (16 slots): one PackedMatMul
+     node per quantized Linear (q/k/v and gate/up fused), 16 concurrent
+     completions (12 greedy, 4 sampled) with a constrained and an
+     embeddings request among them; packed_matmul's launches must equal
+     the lowering's PackedMatMul calls and int8_matmul's stay 0, (d) for
+     each greedy answer, and one prompt's logits must stand those of
+     the checkpoint's dequantized dense weights.
+Each step prints its seconds, the peak host RSS and its peak bytes on
+the card. The last three lines are the kernels' JSON summary line, the
+card, and the result line.
 """
 
 from __future__ import annotations
@@ -100,6 +126,7 @@ import gc
 import http.client
 import json
 import math
+import re
 import resource
 import shutil
 import statistics
@@ -1548,12 +1575,359 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> dict:
         profile_decode(torch, iface, prompt, "int8")
         rates["long_ttft_ms"] = phase5_direct(torch, np, iface, api.port,
                                               layers, results)
+        phase8(torch, np, srv, iface, api.port, layers, rates, results)
     finally:
         transforms.int8_matmul = spy.inner
         api.stop()
     # the long prompt's prefill runs 2,048 rows (bucket 2048)
     check_quant_spy(spy, "phases 3 and 5 (direct)", min_rows=2048)
     return rates
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the direct path's other routes, on phase 3's model
+SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "color": {"enum": ["red", "green", "blue"]}},
+    "required": ["ok", "color"]}
+REGEX = r"(yes|no|maybe), [0-9]{2}!"
+TOOLS = [{"type": "function", "function": {
+    "name": "set_alarm", "parameters": {
+        "type": "object", "properties": {"hour": {"enum": [6, 7, 8]},
+                                         "am": {"type": "boolean"}},
+        "required": ["hour", "am"]}}}]
+EMBED_INPUTS = ["The capital of France is", "a", "Once upon a time there "
+                "was a very long sentence that goes on"]
+
+
+def admitted(cons, toks) -> bool:
+    """Every token admitted by the TokenDFA's table from the state before
+    it: eos only in an accepting state and then only eos."""
+    state = cons.start
+    for t in (int(t) for t in toks):
+        if t == cons.eos_token_id:
+            if not cons.accepting[state]:
+                return False
+            state = cons.done
+        elif state == cons.done or cons.trans[state, t] < 0:
+            return False
+        else:
+            state = int(cons.trans[state, t])
+    return True
+
+
+def zero(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def rose(counters: dict, what: str, names) -> dict:
+    """The counters' launches since zero(); fail unless each of `names`
+    rose."""
+    got = {name: fn.launches for name, fn in counters.items()}
+    say(f"  kernel launches in {what}: {got}")
+    if min(got[n] for n in names) <= 0:
+        fail(f"a kernel of {what} was never launched: {got}")
+    return got
+
+
+class PlainVersions:
+    """Within the block, every kernel wrapper a lowering calls is its
+    plain version (the int8 and packed products, both attentions, the
+    cache write)."""
+
+    def __enter__(self):
+        from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+            decode_attention_plain)
+        from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+            flash_attention_plain)
+        from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+            kv_write_pair_plain)
+        from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+            packed_matmul_plain)
+        from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
+            int8_matmul_plain)
+        from whisper_tensor_tpu_torch.milli import transforms
+        from whisper_tensor_tpu_torch.milli.ops import attention, misc
+
+        self.swaps = [(transforms, "int8_matmul", int8_matmul_plain),
+                      (transforms, "packed_matmul", packed_matmul_plain),
+                      (attention, "flash_attention", flash_attention_plain),
+                      (attention, "decode_attention", decode_attention_plain),
+                      (misc, "kv_write_pair", kv_write_pair_plain)]
+        self.saved = [getattr(m, a) for m, a, _ in self.swaps]
+        for m, a, fn in self.swaps:
+            setattr(m, a, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a, _), fn in zip(self.swaps, self.saved):
+            setattr(m, a, fn)
+
+
+def embeddings_check(torch, np, port: int, iface, layers: int,
+                     inputs=EMBED_INPUTS) -> float:
+    """/v1/embeddings of `inputs`, last and mean pooling: unit vectors,
+    the interface's own; the hidden states of one prefill with the
+    kernels stand one with every plain version in place, within phase
+    3's bound (1.5% per sqrt(layer) of the largest |hidden|). Returns the
+    request's seconds (last pooling)."""
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    secs = {}
+    for pooling in ("last", "mean"):
+        t0 = time.perf_counter()
+        status, data = request(port, "/v1/embeddings",
+                               {"input": inputs, "pooling": pooling})
+        secs[pooling] = time.perf_counter() - t0
+        if status != 200:
+            fail(f"/v1/embeddings returned {status}: {data[:300]!r}")
+        vecs = [np.asarray(d["embedding"]) for d in json.loads(data)["data"]]
+        norms = [float(np.linalg.norm(v)) for v in vecs]
+        if len(vecs) != len(inputs) or max(abs(n - 1) for n in norms) > 1e-5:
+            fail(f"embeddings ({pooling}) are not {len(inputs)} unit vectors: "
+                 f"norms {norms}")
+        width = vecs[0].shape
+    ids = [np.asarray(tok.encode(t), np.int64) for t in inputs]
+    batch = np.zeros((len(ids), max(map(len, ids))), np.int64)
+    for i, a in enumerate(ids):
+        batch[i, :len(a)] = a
+    hidden = iface.hidden_states(batch).astype(np.float32)
+    with PlainVersions():
+        plain = iface.hidden_states(batch).astype(np.float32)
+    mask = np.arange(batch.shape[1])[None, :] < np.asarray(
+        [len(a) for a in ids])[:, None]
+    scale = float(np.abs(plain[mask]).max())
+    diff = float(np.abs(hidden - plain)[mask].max())
+    frac = 0.015 * math.sqrt(layers)
+    say(f"  {len(inputs)} embeddings of width {width[0]}, unit norm; the "
+        f"hidden states against the plain versions: max |diff| {diff:.5g} "
+        f"({diff / scale:.3%} of max|hidden| {scale:.4g}; bound "
+        f"{frac:.1%}); the request took {secs['last'] * 1e3:.1f} ms (last) "
+        f"and {secs['mean'] * 1e3:.1f} ms (mean)")
+    if not diff <= frac * scale:
+        fail("the hidden states with the kernels disagree with the plain "
+             "versions'")
+    return secs["last"]
+
+
+def beam_scores(np, iface, prompt, toks, layers: int) -> tuple:
+    """(the best beam's teacher-forced summed log-probability, the bound):
+    one prefill over prompt and beam; the bound is phase 3's logit bound
+    (1.5% per sqrt(layer) of the largest |logit|), twice over for a
+    log-softmax, for each new token."""
+    full = np.concatenate([prompt, toks], axis=1)
+    P, n = prompt.shape[1], toks.shape[1]
+    mean = iface.sequence_scores(full, np.full(1, P), np.full(1, P + n))
+    logits = iface.logits(full[:, :-1]).astype(np.float32)[:, P - 1:]
+    bound = n * 2 * 0.015 * math.sqrt(layers) * float(np.abs(logits).max())
+    return float(mean[0]) * n, bound
+
+
+def phase8(torch, np, srv, iface, port: int, layers: int, rates: dict,
+           results) -> None:
+    """Phase 8: the direct path's other routes on phase 3's int8 model:
+    (g) constrained completions, (h) a tool call, (i) embeddings, (j)
+    best_of reranking, (k) beam search through the generate_text
+    message."""
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import kv_write_pair
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
+    from whisper_tensor_tpu_torch.interfaces.text import SamplingParams
+    from whisper_tensor_tpu_torch.server import protocol as P
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    say("phase 8: the direct path's other routes (phase 3's model)")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tok = ByteTokenizer()
+    counters = {"int8_matmul": int8_matmul, "decode_attention":
+                decode_attention, "kv_write_pair": kv_write_pair,
+                "flash_attention": flash_attention}
+    decoding = ("int8_matmul", "decode_attention", "kv_write_pair")
+    launches = {}
+
+    # (g) a json_schema completion and a regex one, greedy
+    zero(counters)
+    for label, body, check in (
+            ("json_schema", {"response_format": {
+                "type": "json_schema", "json_schema": {"schema": SCHEMA}}},
+             lambda t: (isinstance(json.loads(t)["ok"], bool) and
+                        json.loads(t)["color"] in ("red", "green", "blue"))),
+            ("regex", {"regex": REGEX},
+             lambda t: re.fullmatch(REGEX, t) is not None)):
+        r = completion(port, dict(body, prompt=GREEDY["prompt"],
+                                  max_tokens=48, temperature=0))
+        text = r["choices"][0]["text"]
+        cons = (iface.compile_constraint(json_schema=SCHEMA)
+                if label == "json_schema" else
+                iface.compile_constraint(regex=REGEX))
+        toks = tok.encode(text) + [cons.eos_token_id]
+        say(f"  (g) {label}: {text!r}, finish {r['choices'][0]['finish_reason']}"
+            f", DFA {cons.n_states} states, table "
+            f"{cons.trans.nbytes / 1e6:.1f} MB on the card")
+        try:
+            ok = check(text)
+        except (ValueError, KeyError, TypeError):
+            ok = False
+        if r["choices"][0]["finish_reason"] != "stop" or not ok:
+            fail(f"the {label} completion did not finish inside its language")
+        if not admitted(cons, toks):
+            fail(f"a token of the {label} completion is not admitted by the "
+                 f"table from the state before it")
+    launches["g"] = rose(counters, "(g)", decoding)
+
+    # (h) a tool call
+    zero(counters)
+    status, data = request(port, "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "Wake me at seven."}],
+        "max_tokens": 64, "temperature": 0, "tools": TOOLS,
+        "tool_choice": "required"})
+    ch = json.loads(data)["choices"][0] if status == 200 else {}
+    calls = (ch.get("message") or {}).get("tool_calls") or []
+    say(f"  (h) tool call: {calls}, finish {ch.get('finish_reason')}")
+    try:
+        args = json.loads(calls[0]["function"]["arguments"])
+        ok = (len(calls) == 1 and calls[0]["function"]["name"] == "set_alarm"
+              and args["hour"] in (6, 7, 8) and isinstance(args["am"], bool)
+              and ch["finish_reason"] == "tool_calls")
+    except (IndexError, KeyError, ValueError, TypeError):
+        ok = False
+    if not ok:
+        fail(f"the tools request did not answer one tool call that parses: "
+             f"{status} {data[:300]!r}")
+    launches["h"] = rose(counters, "(h)", decoding)
+
+    # (i) embeddings: a prefill, so flash_attention in the place of
+    # decode_attention
+    zero(counters)
+    embed_s = embeddings_check(torch, np, port, iface, layers)
+    launches["i"] = rose(counters, "(i)", ("int8_matmul", "kv_write_pair",
+                                           "flash_attention"))
+
+    # (j) best_of=4, n=1: the answer is the candidate sequence_scores
+    # ranks first
+    zero(counters)
+    body = {"prompt": SAMPLED["prompt"], "max_tokens": 16, "temperature": 0.8,
+            "top_k": 40, "seed": 11, "n": 1, "best_of": 4}
+    r = completion(port, body)
+    prompt = np.asarray(tok.encode(body["prompt"]), np.int64)
+    rows = iface.generate_tokens(np.tile(prompt[None], (4, 1)), 16,
+                                 sampling=SamplingParams(temperature=0.8,
+                                                         top_k=40, seed=11))
+    cands = []
+    for row in rows:
+        row = [int(t) for t in row]
+        cut = [row.index(e) for e in (iface.eos_token_ids or ()) if e in row]
+        cands.append(row[:min(cut)] if cut else row)
+    full = np.zeros((4, len(prompt) + 16), np.int64)
+    for i, c in enumerate(cands):
+        full[i, :len(prompt)], full[i, len(prompt):len(prompt) + len(c)] = \
+            prompt, c
+    lens = np.asarray([len(prompt) + len(c) for c in cands])
+    scores = iface.sequence_scores(full, np.full(4, len(prompt)), lens)
+    scores = np.where(lens > len(prompt), scores, -np.inf)
+    best = tok.decode(cands[int(np.argmax(scores))])
+    say(f"  (j) best_of=4: {r['choices'][0]['text']!r}; candidates' mean "
+        f"log-probabilities {np.round(scores, 4).tolist()}")
+    if r["choices"][0]["text"] != best:
+        fail("the best_of answer is not the candidate sequence_scores ranks "
+             "first")
+    launches["j"] = rose(counters, "(j)", decoding)
+
+    # (k) num_beams=4 through the Server's generate_text message
+    zero(counters)
+    beam_prompt = np.asarray(tok.encode(GREEDY["prompt"]), np.int64)[None]
+    srv._dispatch({"type": P.GENERATE_TEXT, "model_id": srv_entry_id(srv),
+                   "prompt": GREEDY["prompt"], "max_new_tokens": 16,
+                   "num_beams": 4, "tokenizer": "bytes"})
+    deadline = time.time() + 600
+    res = None
+    while res is None and time.time() < deadline:
+        rep = srv.scheduler.reports.get(timeout=600)
+        if rep["type"] in (P.JOB_RESULT, P.JOB_ERROR):
+            res = rep
+    if res is None or res["type"] != P.JOB_RESULT:
+        fail(f"the num_beams generate_text message failed: {res}")
+    events, inner = [], iface._reorder_caches
+
+    def timed(src, dst, rows):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        inner(src, dst, rows)
+        b.record()
+        events.append((a, b))
+
+    iface._reorder_caches = timed
+    try:
+        toks, score = iface.beam_search_tokens(beam_prompt, 16, beam=4,
+                                               return_scores=True)
+    finally:
+        del iface._reorder_caches
+    torch.cuda.synchronize()
+    reorder_ms = sum(a.elapsed_time(b) for a, b in events) / max(
+        1, len(events))
+    forced, bound = beam_scores(np, iface, beam_prompt, toks, layers)
+    say(f"  (k) num_beams=4: {res['result']['text']!r}; the search's score "
+        f"{float(score[0]):.5g}, teacher-forced {forced:.5g} (|diff| "
+        f"{abs(forced - float(score[0])):.4g}, bound {bound:.4g})")
+    if res["result"]["text"] != tok.decode([int(t) for t in toks[0]]):
+        fail("the generate_text beam answer is not the interface's best beam")
+    if not abs(forced - float(score[0])) <= bound:
+        fail("the best beam's teacher-forced score disagrees with the "
+             "search's")
+    launches["k"] = rose(counters, "(k)", decoding)
+    for res_k in results:
+        if res_k["name"] in counters:
+            res_k["launches_routes"] = sum(
+                launches[k][res_k["name"]] for k in launches)
+
+    # information: constrained decode rate beside the unconstrained one
+    # (back to back), beam step and reorder times, the DFA table's size
+    cons = iface.compile_constraint(regex=r"[a-z ]{1,160}")
+    iface.generate_tokens(beam_prompt, 2, constraint=cons)   # the upload
+
+    def rate(constraint):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iface.generate_tokens(beam_prompt, 1, constraint=constraint)
+        t1 = time.perf_counter()
+        iface.generate_tokens(beam_prompt, 129, constraint=constraint)
+        return 128 / max((time.perf_counter() - t1) - (t1 - t0), 1e-9)
+
+    free_rate, cons_rate, free_again = rate(None), rate(cons), rate(None)
+    beam_t = []
+    for n in (1, 33):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iface.beam_search_tokens(beam_prompt, n, beam=4)
+        beam_t.append(time.perf_counter() - t0)
+    step_ms = (beam_t[1] - beam_t[0]) / 32 * 1e3
+    cache_mb = sum(c.numel() * c.element_size()
+                   for c in iface.fresh_cache(4)) / 1e6
+    say(f"  information: constrained decode {cons_rate:.1f} tok/s against "
+        f"{free_rate:.1f} and {free_again:.1f} unconstrained just before "
+        f"and after (phase 3's: {rates['tok_s']:.1f}; batch 1, {layers} "
+        f"layers; a DFA of {cons.n_states} states, table "
+        f"{cons.trans.nbytes / 1e6:.1f} MB); beam W=4 {step_ms:.2f} ms a "
+        f"step, the cache reorder {reorder_ms:.4f} ms a step (device, "
+        f"{len(events)} steps; {cache_mb:.1f} MB of caches read "
+        f"and written); /v1/embeddings of {len(EMBED_INPUTS)} inputs "
+        f"{embed_s * 1e3:.1f} ms; on {card_line()}")
+    say(f"[phase 8: {time.perf_counter() - t_phase:.1f} s, peak host RSS "
+        f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.1f} GB, "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB on the card]")
+    if foreign_modules():
+        fail(f"the JAX package or jax was imported: {foreign_modules()}")
+
+
+def srv_entry_id(srv) -> int:
+    """The id of the one model the Server holds."""
+    (entry,) = srv.models._models.values()
+    return int(entry.id)
 
 
 # ---------------------------------------------------------------------------
@@ -2092,10 +2466,11 @@ def packed_shadow(torch, lowering, bound):
     return checked
 
 
-def phase6a(torch, np, ckpt: Path, layers: int, results, int8: dict) -> None:
+def phase6a(torch, np, ckpt: Path, layers: int, results, int8: dict) -> dict:
     """Phase 6a: phase 3's checkpoint host-quantized to q4_0 on the direct
     path, phase 3's requests and checks (a)-(c) with packed_matmul in the
-    place of decode_attention, and the rates against phase 3's int8."""
+    place of decode_attention, and the rates against phase 3's int8.
+    Returns the q4_0 rates (direct_rates)."""
     from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
     from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
         decode_attention)
@@ -2180,6 +2555,7 @@ def phase6a(torch, np, ckpt: Path, layers: int, results, int8: dict) -> None:
             f"run) on {card_line()}")
     finally:
         api.stop()
+    return rates
 
 
 GGUF_NAMES = {"input_layernorm": "attn_norm",
@@ -2607,6 +2983,269 @@ def phase7(torch, np, ckpt: Path, results) -> None:
         free_memory(torch)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: a GPTQ checkpoint of the smoke weights through the batcher
+GPTQ_GROUP = 128
+GPTQ_LINEARS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
+                "mlp.down_proj")
+
+
+def write_gptq_checkpoint(d: Path, layers: int, torch, np, bf16) -> int:
+    """The smoke checkpoint's weights as a GPTQ checkpoint: every Linear
+    of the layers 4-bit in groups of 128 along K, asymmetric (min/max
+    per group and column, the zero point clamped to 1..15 as the classic
+    zeros-1 format needs), packed by the port's pack_gptq; desc_act off;
+    embeddings, norms and lm_head dense (bf16, or f16 without
+    ml_dtypes). The quantization runs on the card. Returns the bytes."""
+    from whisper_tensor_tpu_torch.importers.quantized import (QuantSpec,
+                                                              pack_gptq)
+
+    spec = QuantSpec("gptq", 4, GPTQ_GROUP)
+    arrays = {}
+    for n, arr in checkpoint_tensors(layers, np):
+        mod = n[:-len(".weight")]
+        if not mod.endswith(GPTQ_LINEARS):
+            arrays[n] = arr.astype(bf16 if bf16 is not None else np.float16)
+            continue
+        w = torch.from_numpy(arr).cuda().T.contiguous()          # (K, N)
+        K, N = w.shape
+        g = w.reshape(K // GPTQ_GROUP, GPTQ_GROUP, N)
+        lo, hi = g.amin(1), g.amax(1)
+        scale = ((hi - lo) / 15).clamp_min(1e-6).half().float()
+        zero = torch.round(-lo / scale).clamp(1, 15)
+        q = (torch.round(g / scale[:, None]) + zero[:, None]).clamp(0, 15)
+        packed = pack_gptq(q.to(torch.uint8).reshape(K, N).cpu().numpy(),
+                           zero.cpu().numpy(), scale.cpu().numpy(), spec)
+        for leaf, a in zip(("qweight", "qzeros", "scales"), packed):
+            arrays[f"{mod}.{leaf}"] = a
+        del w, g, q, arr
+    (d / "config.json").write_text(json.dumps({
+        "model_type": "llama", "architectures": ["LlamaForCausalLM"],
+        "num_hidden_layers": layers, "tie_word_embeddings": False,
+        "torch_dtype": "float16", **WIDTHS, "quantization_config": {
+            "quant_method": "gptq", "bits": 4, "group_size": GPTQ_GROUP,
+            "desc_act": False, "sym": False, "checkpoint_format": "gptq"}}))
+    codes = {np.dtype(np.int32): "I32", np.dtype(np.float16): "F16"}
+    if bf16 is not None:
+        codes[np.dtype(bf16)] = "BF16"
+    header, off = {}, 0
+    for n, a in arrays.items():
+        header[n] = {"dtype": codes[a.dtype], "shape": list(a.shape),
+                     "data_offsets": [off, off + a.nbytes]}
+        off += a.nbytes
+    hb = json.dumps(header).encode()
+    hb += b" " * (-len(hb) % 8)
+    with open(d / "model.safetensors", "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for a in arrays.values():
+            f.write(np.ascontiguousarray(a).tobytes())
+    return off
+
+
+def packed_spy(transforms):
+    """Install, in the PackedMatMul lowering's module, a packed_matmul
+    that calls the one installed before and counts the lowering's calls
+    (from every thread: the batcher's and the HTTP threads' direct
+    requests). Returns it; `.inner` is the one it wraps."""
+    inner = transforms.packed_matmul
+    lock = threading.Lock()
+
+    def spy(x, q, s, o, bits, has_off=True):
+        with lock:
+            spy.calls += 1
+        return inner(x, q, s, o, bits, has_off)
+
+    spy.inner, spy.calls = inner, 0
+    transforms.packed_matmul = spy
+    return spy
+
+
+def phase9(torch, np, ckpt: Path, layers: int, results, q4_0: dict) -> None:
+    """Phase 9: the GPTQ checkpoint through the port's TransformersLoader
+    with ragged_decode (16 slots, pieces of 128): one PackedMatMul node
+    per quantized Linear (gate/up and q/k/v fused); 16 concurrent
+    completions (12 greedy, 4 sampled) with a constrained request and an
+    embeddings request among them; every PackedMatMul call of the
+    lowering launches the kernel, int8_matmul never; (d) each greedy
+    answer stands a teacher-forced prefill; one prompt's logits stand
+    those of the checkpoint's dequantized dense weights."""
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import kv_write_pair
+    from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+        packed_matmul)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+    from whisper_tensor_tpu_torch.milli import transforms
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    say(f"phase 9: a GPTQ checkpoint (4-bit, groups of {GPTQ_GROUP}) through "
+        f"the batcher; host RSS {host_rss_gb():.1f} GB")
+    cfg = {"path": str(ckpt), "dtype": "bf16", "max_len": MAX_LEN,
+           "ragged_decode": True, "serve_batch": 16, "serve_chunk": 16,
+           "serve_chunk_max": 64, "prefill_chunk": 128}
+    srv = Server()
+    t0 = time.perf_counter()
+    (entry,) = srv.models.run_loader("transformers", cfg)
+    store = entry.model.graph.store
+    say(f"  TransformersLoader (GPTQ, dequantized on the host for the "
+        f"recipe): {time.perf_counter() - t0:.1f} s, "
+        f"{len(store.packed_sources)} packed sources")
+    t0 = time.perf_counter()
+    bat = srv._batcher(entry)
+    iface = bat.iface
+    iface._weights()
+    torch.cuda.synchronize()
+    kinds = [node.op.KIND for node in iface._exec.graph.nodes]
+    covered = set()
+    for name in iface._packed:
+        covered.update([m for m, _ in iface._fused[name]]
+                       if name in iface._fused else [name])
+    say(f"  batcher interface (repack + upload): "
+        f"{time.perf_counter() - t0:.1f} s, {len(iface._packed)} packed "
+        f"nodes covering {len(covered)} quantized Linears, "
+        f"{kinds.count('PackedMatMul')} PackedMatMul nodes, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    if (len(store.packed_sources) != 7 * layers
+            or covered != set(store.packed_sources)
+            or kinds.count("PackedMatMul") != len(iface._packed)
+            or len(iface._packed) != 4 * layers or "QuantMatMul" in kinds):
+        fail("the GPTQ model's quantized Linears are not each in one "
+             "PackedMatMul node")
+    records, submit = [], bat.submit
+
+    def recorded(prompt_ids, n_new, **kw):
+        fut = submit(prompt_ids, n_new, **kw)
+        records.append((np.asarray(prompt_ids, np.int64).reshape(-1),
+                        kw.get("sampling"), fut))
+        return fut
+
+    rng = np.random.default_rng(SEED + 9)
+    lengths = (5, 9, 14, 20, 31, 45, 70, 110, 150, 190, 230, 270, 300, 340,
+               370, 400)
+    reqs = []
+    for i, n in enumerate(lengths):
+        body = {"prompt": long_text(np, n, SEED + 300 + i),
+                "max_tokens": int(rng.integers(8, 49)), "temperature": 0}
+        if i % 4 == 1:                     # 4 of the 16 sampled
+            body.update(temperature=0.8, top_k=40, seed=300 + i)
+        reqs.append(("/v1/completions", body))
+    reqs.append(("/v1/completions", {"prompt": GREEDY["prompt"],
+                                     "max_tokens": 48, "temperature": 0,
+                                     "regex": REGEX}))
+    reqs.append(("/v1/embeddings", {"input": EMBED_INPUTS}))
+    answers = [None] * len(reqs)
+    counters = {"packed_matmul": packed_matmul, "int8_matmul": int8_matmul,
+                "decode_attention": decode_attention,
+                "kv_write_pair": kv_write_pair,
+                "flash_attention": flash_attention}
+    bat.submit = recorded
+    api = OpenAIApi(srv, "127.0.0.1", 0).start()
+    spy = packed_spy(transforms)
+    try:
+        zero(counters)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(
+            i, request(api.port, *reqs[i]))) for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        served_s = time.perf_counter() - t0
+        launches = rose(counters, "the GPTQ batched path", (
+            "packed_matmul", "decode_attention", "kv_write_pair",
+            "flash_attention"))
+    finally:
+        transforms.packed_matmul = spy.inner
+        bat.submit = submit
+        api.stop()
+    say(f"  packed_matmul: {spy.calls} PackedMatMul calls of the lowering, "
+        f"{launches['packed_matmul']} kernel launches; int8_matmul "
+        f"{launches['int8_matmul']}")
+    if (launches["int8_matmul"] or spy.calls <= 0
+            or spy.calls != launches["packed_matmul"]):
+        fail("the GPTQ path's PackedMatMul calls did not each launch the "
+             "kernel once, or int8_matmul was launched")
+    for res in results:
+        if res["name"] in launches:
+            res["launches_gptq_batched"] = launches[res["name"]]
+    n_tokens = 0
+    for i, ((path, body), ans) in enumerate(zip(reqs, answers)):
+        if ans is None or ans[0] != 200:
+            fail(f"GPTQ request {i} got no answer or an error: "
+                 f"{None if ans is None else ans[1][:300]!r}")
+        r = json.loads(ans[1])
+        if path == "/v1/embeddings":
+            norms = [float(np.linalg.norm(d["embedding"])) for d in r["data"]]
+            if max(abs(n - 1) for n in norms) > 1e-5:
+                fail(f"GPTQ embeddings are not unit vectors: {norms}")
+            continue
+        if "regex" in body:
+            text = r["choices"][0]["text"]
+            say(f"  the constrained request among them: {text!r}")
+            if (r["choices"][0]["finish_reason"] != "stop"
+                    or not re.fullmatch(REGEX, text)):
+                fail("the GPTQ constrained request did not finish inside "
+                     "its language")
+            continue
+        got = r["usage"]["completion_tokens"]
+        if got != body["max_tokens"]:
+            fail(f"GPTQ request {i} answered {got} tokens of "
+                 f"{body['max_tokens']}")
+        n_tokens += got
+    if len(records) != 16 or foreign_modules():
+        fail(f"{len(records)} batcher requests for 16 completions, or foreign "
+             f"modules imported: {foreign_modules()}")
+    frac = 0.015 * math.sqrt(layers)
+    greedy = [(p, f.result()) for p, sp, f in records
+              if sp is None or sp.temperature <= 0]
+    worst = 0.0
+    for prompt, toks in greedy:
+        gaps, scale = teacher_gaps(torch, np, iface, prompt, toks)
+        worst = max(worst, float(gaps.max()) / (frac * scale))
+    say(f"  (d) {len(greedy)} greedy answers against teacher-forced "
+        f"prefills: worst (max logit - emitted logit) {worst:.4g} of the "
+        f"bound ({frac:.1%} of each answer's max|logit|); {n_tokens} "
+        f"completion tokens in {served_s:.2f} s")
+    if len(greedy) != 12 or not worst <= 1.0:
+        fail("a greedy GPTQ answer disagrees with the teacher-forced prefill")
+    for b in srv._batchers.values():
+        b.stop()
+    prompt = np.asarray(ByteTokenizer().encode(GREEDY["prompt"]),
+                        np.int64)[None]
+    rates = direct_rates(torch, iface, prompt, layers)
+    profile_decode(torch, iface, prompt, "GPTQ")
+    say(f"  information: GPTQ decode {rates['tok_s']:.1f} tok/s against "
+        f"phase 6a's q4_0 {q4_0['tok_s']:.1f} (batch 1, {layers} layers), "
+        f"{rates['gb']:.2f} against {q4_0['gb']:.2f} GB on the card")
+    # the same checkpoint's dequantized dense weights (the recipe's
+    # initializers): an interface without packed sources runs them
+    packed_logits = iface.logits(prompt).astype(np.float32)
+    saved = dict(store.packed_sources)
+    store.packed_sources.clear()
+    try:
+        dense = TextInferenceInterface(entry.model, max_len=MAX_LEN,
+                                       cache_dtype=DType.BF16)
+    finally:
+        store.packed_sources.update(saved)
+    dense_logits = dense.logits(prompt).astype(np.float32)
+    scale = float(np.abs(dense_logits).max())
+    diff = float(np.abs(packed_logits - dense_logits).max())
+    say(f"  the prompt's logits, packed against the dequantized dense "
+        f"weights ({len(dense._packed)} packed): max |diff| {diff:.5g} "
+        f"({diff / scale:.3%} of max|logit| {scale:.4g}; bound {frac:.1%})")
+    if dense._packed or not diff <= frac * scale:
+        fail("the GPTQ model's logits disagree with its dequantized weights'")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -2679,12 +3318,15 @@ def main() -> None:
     t_start = time.perf_counter()
 
     def step(label, fn, *a):
-        """Run one step; print its seconds and the peak host RSS."""
+        """Run one step; print its seconds, the peak host RSS and the
+        step's peak bytes on the card."""
         t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         out = fn(*a)
         say(f"[{label}: {time.perf_counter() - t0:.1f} s, peak host RSS "
             f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6:.1f}"
-            f" GB, {time.perf_counter() - t_start:.0f} s since phase 2]")
+            f" GB, peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB on "
+            f"the card, {time.perf_counter() - t_start:.0f} s since phase 2]")
         free_memory(torch)
         return out
 
@@ -2704,6 +3346,7 @@ def main() -> None:
     ckpt = ROOT / "build" / "smoke" / f"llama3-8b-widths-{args.layers}L"
     gguf_path = ckpt.with_suffix(".gguf")
     gpt2_ckpt = ROOT / "build" / "smoke" / "gpt2-124m-widths"
+    gptq_ckpt = ckpt.with_name(ckpt.name + "-gptq")
     for d in (ckpt, gpt2_ckpt):
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
@@ -2716,8 +3359,8 @@ def main() -> None:
                     args.layers, results)
         step("phases 4 and 5 (batched)", phase4, torch, np, ckpt,
              args.layers, results, args.plant_fault)
-        step("phase 6a (q4_0 direct)", phase6a, torch, np, ckpt, args.layers,
-             results, int8)
+        q4_0 = step("phase 6a (q4_0 direct)", phase6a, torch, np, ckpt,
+                    args.layers, results, int8)
         step("write the GGUF", write_smoke_gguf, gguf_path, args.layers, np,
              bf16)
         say(f"wrote the checkpoint as a Q4_K/Q6_K GGUF "
@@ -2729,9 +3372,17 @@ def main() -> None:
         say(f"wrote a GPT-2 124M-width checkpoint ({nbytes / 1e9:.2f} GB)")
         step("phase 7 (GPT-2 batched, bf16 and int8)", phase7, torch, np,
              gpt2_ckpt, results)
+        shutil.rmtree(gptq_ckpt, ignore_errors=True)
+        gptq_ckpt.mkdir(parents=True)
+        nbytes = step("write the GPTQ checkpoint", write_gptq_checkpoint,
+                      gptq_ckpt, args.layers, torch, np, bf16)
+        say(f"wrote the checkpoint as GPTQ ({nbytes / 1e9:.2f} GB)")
+        step("phase 9 (GPTQ batched)", phase9, torch, np, gptq_ckpt,
+             args.layers, results, q4_0)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(gpt2_ckpt, ignore_errors=True)
+        shutil.rmtree(gptq_ckpt, ignore_errors=True)
         gguf_path.unlink(missing_ok=True)
     say(json.dumps({"kernels": results}))
     say(card_line())

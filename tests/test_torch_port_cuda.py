@@ -958,3 +958,127 @@ def test_tiny_llama_q4_0_on_the_gpu_direct_and_batched(cuda):
                         ).astype(np.float32)[0, len(p) - 1:]
         gap = lg.max(-1) - lg[np.arange(5), o]
         assert gap.max() <= 0.03 * np.abs(lg).max(), (len(p), gap)
+
+
+# -- GPTQ/AWQ layouts, beam search, constraints, hidden states ------------
+
+def _gptq_layout(K, N, G, seed):
+    """A GPTQ-style quantized weight in the kernel's layout, by the
+    port's repack_for_kernel: 4-bit values, zero points 1..15, scales
+    in [0.001, 0.011); returns (layout dict, the (K, N) f32 weight)."""
+    from whisper_tensor_tpu_torch.importers.quantized import (
+        dequant_dense, repack_for_kernel)
+
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 16, (K, N)).astype(np.uint8)
+    zeros = rng.integers(1, 16, (K // G, N)).astype(np.float32)
+    scales = rng.random((K // G, N), dtype=np.float32) * 0.01 + 0.001
+    return repack_for_kernel(q, zeros, scales), dequant_dense(q, zeros, scales)
+
+
+@pytest.mark.parametrize("G", [64, 128])
+@pytest.mark.parametrize("M,K,N", [(1, 4096, 1024), (1, 4096, 6144),
+                                   (5, 512, 200), (16, 14336, 512),
+                                   (17, 512, 1064), (512, 4096, 256)])
+@pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32])
+def test_packed_matmul_kernel_on_the_gptq_layout(cuda, G, M, K, N, tdt):
+    """The kernel on repack_for_kernel's layout (groups of 64 and 128,
+    offsets from zero points, ragged N): bf16 within agreement_bound of
+    the plain version, element by element; f32 the same products summed
+    in another order, 1e-5 of the scale; x = I gives the numpy
+    dequantization of the layout bit for bit."""
+    rp, _ = _gptq_layout(K, N, G, seed=M + K + N + G)
+    assert bool(rp["has_off"])
+    q, s, o = (torch.from_numpy(rp[k]).to(cuda)
+               for k in ("q", "scales", "offsets"))
+    g = torch.Generator(device=cuda).manual_seed(M * G)
+    x = torch.randn(M, K, generator=g, device=cuda).to(tdt)
+    n0 = packed_matmul.launches
+    got = packed_matmul(x, q, s, o, 4, True)
+    want = packed_matmul_plain(x, q, s, o, 4, True)
+    torch.cuda.synchronize()
+    assert packed_matmul.launches == n0 + 1 and got.shape == (M, N)
+    if tdt == torch.bfloat16:
+        w = dequantize_packed(q, s, o, 4, True)
+        _assert_agree(got, want, x.float().abs() @ w.abs())
+    else:
+        torch.testing.assert_close(
+            got, want, atol=1e-5 * max(1.0, want.abs().max().item()), rtol=0)
+    if K <= 4096 and N <= 1064:
+        eye = packed_matmul(torch.eye(K, device=cuda), q, s, o, 4, True)
+        np.testing.assert_array_equal(eye.cpu().numpy().view(np.int32),
+                                      dequant_repacked(rp).view(np.int32))
+
+
+@pytest.mark.parametrize("cache_dt,upd_dt", KV_WRITE_DTYPES)
+@pytest.mark.parametrize("B,W,H,L,D,pos", [(1, 4, 8, 2048, 128, 37),
+                                           (2, 3, 2, 64, 128, 63),
+                                           (3, 2, 12, 256, 64, 0)])
+def test_beam_reorder_then_kv_write_pair(cuda, B, W, H, L, D, pos, cache_dt,
+                                         upd_dt):
+    """A beam step on the card: the caches gathered by parent beam into
+    the second buffer (TextInferenceInterface._reorder_caches), then
+    the next step's kv_write_pair at the direct path's scalar start into
+    that buffer. Both whole caches equal the plain write into the CPU's
+    gather bit for bit: the write lands in the reordered rows."""
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+
+    R = B * W
+    g = torch.Generator(device=cuda).manual_seed(R * L + D + pos)
+    src = [torch.randn(R, H, L, D, generator=g, device=cuda).to(cache_dt)
+           for _ in range(2)]
+    dst = [torch.empty_like(c) for c in src]
+    rows = torch.randint(0, W, (B, W), generator=g, device=cuda)
+    rows = (torch.arange(B, device=cuda)[:, None] * W + rows).reshape(-1)
+    uk = torch.randn(R, H, 1, D, generator=g, device=cuda).to(upd_dt)
+    uv = torch.randn(R, 1, H, D, generator=g, device=cuda).to(
+        upd_dt).transpose(1, 2)
+    start = torch.tensor(pos, device=cuda)
+    want = kv_write_pair_plain(src[0].cpu()[rows.cpu()], uk.cpu(),
+                               src[1].cpu()[rows.cpu()], uv.cpu(),
+                               start.cpu())
+    TextInferenceInterface._reorder_caches(None, src, dst, rows)
+    n0 = kv_write_pair.launches
+    got = kv_write_pair(dst[0], uk, dst[1], uv, start)
+    torch.cuda.synchronize()
+    assert kv_write_pair.launches == n0 + 1
+    assert got[0] is dst[0] and got[1] is dst[1]
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a.cpu()), _bits(b))
+
+
+def test_tiny_llama_beam_constraint_and_hidden_states_on_the_gpu(cuda):
+    """The 2-layer bf16 int8 llama on the card: beam search (W = 3)
+    launches decode_attention and one kv_write_pair a layer a step at
+    B*W rows, and the best beam's mean log-probability by
+    sequence_scores stands the score the search ranks it by (1% of its
+    size: bf16 rounding between decode and prefill); a constrained
+    greedy decode fullmatches with the kernels launched; hidden_states
+    (C12: the lm_head is a QuantMatMul) stands the CPU's plain versions
+    within 3% of its scale."""
+    import re
+
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    gpu, cpu = _direct_pair(cuda, 64)
+    prompt = np.random.default_rng(8).integers(3, 259, (2, 7))
+    a0, p0 = decode_attention.launches, kv_write_pair.launches
+    toks, score = gpu.beam_search_tokens(prompt, 6, beam=3,
+                                         return_scores=True)
+    torch.cuda.synchronize()
+    assert toks.shape == (2, 6)
+    assert decode_attention.launches - a0 == 2 * 5
+    assert kv_write_pair.launches - p0 == 2 * 6
+    full = np.concatenate([prompt, toks], axis=1)
+    mean = gpu.sequence_scores(full, np.full(2, 7), np.full(2, 13))
+    np.testing.assert_allclose(mean * 6, score, rtol=0.01)
+    gpu.tokenizer = ByteTokenizer()
+    a0, m0 = decode_attention.launches, int8_matmul.launches
+    text = gpu.run_string_in_string_out("hi", 16, regex=r"ab{1,4}c")
+    assert re.fullmatch(r"ab{1,4}c", text)
+    assert decode_attention.launches > a0 and int8_matmul.launches > m0
+    want = cpu.hidden_states(prompt).astype(np.float32)
+    got = gpu.hidden_states(prompt).astype(np.float32)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=0.03 * np.abs(want).max())

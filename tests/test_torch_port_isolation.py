@@ -5,12 +5,14 @@ package (whisper_tensor_tpu), at any level.
     chip_smoke.py: no `import jax...`, and no import of
     `whisper_tensor_tpu` or `whisper_tensor_tpu.<anything>`, top-level
     or nested in a function.
-(b) A fresh interpreter writes a tiny llama checkpoint and a GGUF file
-    of its weights (the port's write_gguf, Q4_0 blocks) and serves one
-    direct, one ragged_decode, one host-quantized q4_0 and one GGUF
-    completion through the port's Server and OpenAIApi on the CPU;
-    neither jax nor the JAX package (by exact name or the
-    `whisper_tensor_tpu.` prefix) is then in sys.modules.
+(b) A fresh interpreter writes a tiny llama checkpoint, a GGUF file of
+    its weights (the port's write_gguf, Q4_0 blocks) and a GPTQ
+    checkpoint of them (the port's pack_gptq), and serves one direct,
+    one ragged_decode, one host-quantized q4_0, one GGUF and one GPTQ
+    completion through the port's Server and OpenAIApi on the CPU, then
+    a regex completion, an embeddings request on the q4_0 model and a
+    best_of completion; neither jax nor the JAX package (by exact name
+    or the `whisper_tensor_tpu.` prefix) is then in sys.modules.
 """
 
 import ast
@@ -122,6 +124,24 @@ write_gguf(str(d / "tiny.gguf"), {
     "qwen2.embedding_length": E, "qwen2.attention.head_count": 2,
     "qwen2.attention.head_count_kv": 1, "qwen2.attention.key_length": D,
     "qwen2.feed_forward_length": I, "qwen2.vocab_size": V}, tensors)
+from whisper_tensor_tpu_torch.importers.quantized import QuantSpec, pack_gptq
+g = d / "gptq"
+g.mkdir()
+gptq = {}
+for n, w in weights.items():
+    if not n.endswith("proj.weight"):
+        gptq[n] = w
+        continue
+    q = rng.integers(0, 16, w.T.shape).astype(np.uint8)
+    zeros = np.full((w.shape[1] // 64, w.shape[0]), 8.0, np.float32)
+    scales = np.full_like(zeros, 0.01)
+    gptq.update(zip((n[:-6] + "qweight", n[:-6] + "qzeros",
+                     n[:-6] + "scales"),
+                    pack_gptq(q, zeros, scales, QuantSpec("gptq", 4, 64))))
+(g / "config.json").write_text(json.dumps(dict(json.loads(
+    (d / "config.json").read_text()), quantization_config={
+        "quant_method": "gptq", "bits": 4, "group_size": 64})))
+save_file(gptq, str(g / "model.safetensors"))
 from whisper_tensor_tpu_torch.server.main import Server
 from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
 srv = Server(device="cpu")
@@ -133,17 +153,34 @@ srv = Server(device="cpu")
     "path": str(d), "dtype": "bf16", "max_len": 64, "quantize": "q4_0"})
 (packed,) = srv.models.run_loader("auto", {
     "path": str(d / "tiny.gguf"), "max_len": 64})
+(gptq,) = srv.models.run_loader("auto", {"path": str(g), "max_len": 64})
 api = OpenAIApi(srv, "127.0.0.1", 0).start()
-for entry in (direct, ragged, q4_0, packed):
+
+
+def post(path, body):
     c = http.client.HTTPConnection("127.0.0.1", api.port, timeout=120)
-    c.request("POST", "/v1/completions", body=json.dumps(
-        {"model": str(entry.id), "prompt": "hi", "max_tokens": 3,
-         "temperature": 0}), headers={"Content-Type": "application/json"})
+    c.request("POST", path, body=json.dumps(body),
+              headers={"Content-Type": "application/json"})
     r = c.getresponse()
-    print("STATUS", r.status, json.loads(r.read())["usage"]["completion_tokens"])
+    return r.status, json.loads(r.read())
+
+
+for entry in (direct, ragged, q4_0, packed, gptq):
+    status, r = post("/v1/completions", {
+        "model": str(entry.id), "prompt": "hi", "max_tokens": 3,
+        "temperature": 0})
+    print("STATUS", status, r["usage"]["completion_tokens"])
+for path, entry, body in (
+        ("/v1/completions", direct, {"prompt": "hi", "max_tokens": 8,
+                                     "regex": "ab{1,3}c"}),
+        ("/v1/embeddings", q4_0, {"input": ["hi", "there"]}),
+        ("/v1/completions", direct, {"prompt": "hi", "max_tokens": 3,
+                                     "n": 1, "best_of": 2})):
+    print("ROUTE", post(path, dict(body, model=str(entry.id)))[0])
 api.stop()
 srv._batchers[ragged.id].stop()
-print("PACKED", [len(srv._text_iface(e)._packed) for e in (q4_0, packed)])
+print("PACKED", [len(srv._text_iface(e)._packed)
+                 for e in (q4_0, packed, gptq)])
 print("FOREIGN", sorted(m for m in sys.modules
                         if m in ("jax", "whisper_tensor_tpu")
                         or m.startswith(("jax.", "whisper_tensor_tpu."))))
@@ -158,6 +195,7 @@ def test_a_served_completion_loads_nothing_of_jax(tmp_path):
         [sys.executable, "-c", _SERVE_SCRIPT, str(tmp_path / "tiny-llama")],
         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.count("STATUS 200 3") == 4, proc.stdout
-    assert "PACKED [9, 9]" in proc.stdout, proc.stdout
+    assert proc.stdout.count("STATUS 200 3") == 5, proc.stdout
+    assert proc.stdout.count("ROUTE 200") == 3, proc.stdout
+    assert "PACKED [9, 9, 8]" in proc.stdout, proc.stdout
     assert "FOREIGN []" in proc.stdout, proc.stdout

@@ -256,16 +256,14 @@ def test_cli_serve_reaches_the_batcher(checkpoint):  # noqa: F811
 
 
 @pytest.mark.parametrize("path,body,what", [
-    ("/v1/embeddings", {"input": "hi"}, "/v1/embeddings"),
+    ("/v1/audio/transcriptions", {}, "/v1/audio/transcriptions"),
     ("/v1/images/generations", {"prompt": "a cat"}, "/v1/images/generations"),
     ("/v1/audio/speech", {"input": "hi"}, "/v1/audio/speech"),
-    ("/v1/completions", {"prompt": "hi", "max_tokens": 2,
-                         "response_format": {"type": "json_object"}},
-     "constrained decoding"),
-    ("/v1/chat/completions", {"messages": [{"role": "user", "content": "hi"}],
-                              "max_tokens": 2, "tools": [{"type": "function",
-                                                          "function": {"name": "f"}}]},
-     "tool calls")])
+    ("/v1/completions", {"prompt": "hi", "max_tokens": 2, "adapter": "a"},
+     "LoRA adapters"),
+    ("/v1/chat/completions", {"messages": [{"role": "user", "content": [
+        {"type": "image_url", "image_url": {"url": "data:,"}}]}],
+        "max_tokens": 2}, "image content parts")])
 def test_unported_routes_answer_not_ported(served, path, body, what):
     """The reference's routes and request features the port does not
     serve answer 501 with an OpenAI-style error that names them."""

@@ -240,12 +240,6 @@ def test_unported_modes_raise(models):
         TextInferenceInterface(m, max_len=MAX_LEN, device="cpu", mesh=object())
     port = TextInferenceInterface(m, max_len=MAX_LEN, device="cpu",
                                   tokenizer=ByteTokenizer())
-    with pytest.raises(NotImplementedError, match="DFA"):
-        port.generate_tokens(PROMPT, 2, constraint=object())
-    with pytest.raises(NotImplementedError, match="DFA"):
-        port.run_string_in_string_out("hi", 2, regex="[a-z]+")
-    with pytest.raises(NotImplementedError, match="beam"):
-        port.beam_search_tokens(PROMPT, 2, beam=2)
     with pytest.raises(NotImplementedError, match="LoRA"):
         port.install_adapters({})
 

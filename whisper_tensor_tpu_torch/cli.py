@@ -1,18 +1,22 @@
-"""Command-line interface of the port: `generate` and `serve`.
+"""Command-line interface of the port: `generate`, `embed` and `serve`.
 
-Counterpart of whisper_tensor_tpu/cli.py:41 (generate) and :445
-(serve), on a torch device chosen with --device (CUDA by default, the
-CPU only when asked for). The reference's other subcommands are not
-ported yet.
+Counterpart of whisper_tensor_tpu/cli.py:41 (generate), :171 (embed)
+and :445 (serve), on a torch device chosen with --device (CUDA by
+default, the CPU only when asked for). The reference's other
+subcommands, and `generate --draft-model`, are not ported yet.
 
 Usage:
   python -m whisper_tensor_tpu_torch.cli generate --model DIR \
       --prompt "..." [--max-new-tokens 64] [-c quantize=int8] [--device cuda]
+      [--regex RE | --json-schema JSON | --num-beams W]
+  python -m whisper_tensor_tpu_torch.cli embed --model DIR \
+      [--pooling last|mean] [--device cuda] TEXT [TEXT ...]
   python -m whisper_tensor_tpu_torch.cli serve --model DIR \
       --http-port 8000 [-c quantize=int8] [--device cuda]
       [-c ragged_decode=1 -c serve_batch=16 -c prefill_chunk=128]
 
---model takes a transformers checkpoint dir or a llama-family GGUF
+--model takes a transformers checkpoint dir (a GPTQ/AWQ one too: its
+quantized Linears stay packed on the device) or a llama-family GGUF
 file (its blocks stay packed on the device; -c packed_weights=0 loads
 them dequantized). -c quantize=q4_0|q8_0|q5_0|q4_k|q6_k quantizes a
 dense checkpoint's matmul weights into GGUF blocks on the host.
@@ -26,6 +30,7 @@ it.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from typing import Dict, List
@@ -50,14 +55,15 @@ def _parse_kv(pairs: List[str]) -> Dict[str, object]:
     return out
 
 
-def cmd_generate(args) -> None:
+def _load_text(args):
+    """--model through the loader -> (the text interface on --device,
+    with its tokenizer, and the model's name)."""
     from .importers.loaders import identify_and_load, loader_registry
-    from .interfaces.text import SamplingParams, TextInferenceInterface
-    from .tokenizer import AnyTokenizer, apply_chat_template
+    from .interfaces.text import TextInferenceInterface
+    from .tokenizer import AnyTokenizer
 
     cfg = _parse_kv(args.config)
     cfg.setdefault("max_len", args.max_len)
-    t0 = time.time()
     if args.loader == "auto":
         bundle = identify_and_load(args.model, **cfg)
     else:
@@ -65,12 +71,11 @@ def cmd_generate(args) -> None:
                                                       **cfg})
     iface_cfg = bundle.interfaces.get("text")
     if iface_cfg is None:
-        raise SystemExit("the port generates text from causal LMs only; "
-                         "this bundle has no text interface")
+        raise SystemExit("the port runs causal LMs only; this bundle has "
+                         "no text interface")
     if iface_cfg.get("windows"):
         raise SystemExit("decode_windows is not ported to PyTorch yet")
     model = bundle.models[iface_cfg.get("model") or next(iter(bundle.models))]
-    print(f"loaded {model.name} in {time.time() - t0:.1f}s", file=sys.stderr)
     # the KV cache keeps the element type the step graph declares for it
     g = model.graph
     cache_dtype = next(g.tensors[g.by_name[n]].info.dtype
@@ -81,6 +86,21 @@ def cmd_generate(args) -> None:
         quantize=iface_cfg.get("quantize") or None, device=args.device)
     iface.tokenizer = AnyTokenizer.load(args.tokenizer
                                         or bundle.tokenizer_source or "bytes")
+    return iface, model.name
+
+
+def cmd_generate(args) -> None:
+    import numpy as np
+
+    from .interfaces.text import SamplingParams
+    from .tokenizer import apply_chat_template
+
+    if (args.regex or args.json_schema) and args.num_beams > 1:
+        raise SystemExit("--regex/--json-schema are not supported with "
+                         "--num-beams")
+    t0 = time.time()
+    iface, name = _load_text(args)
+    print(f"loaded {name} in {time.time() - t0:.1f}s", file=sys.stderr)
     if args.chat:
         messages = ([{"role": "system", "content": args.system}]
                     if args.system else [])
@@ -95,8 +115,17 @@ def cmd_generate(args) -> None:
             presence_penalty=args.presence_penalty,
             frequency_penalty=args.frequency_penalty, seed=args.seed)
     t1 = time.time()
-    text = iface.run_string_in_string_out(args.prompt, args.max_new_tokens,
-                                          sampling=sampling)
+    if args.num_beams > 1:
+        ids = np.asarray(iface.tokenizer.encode(args.prompt),
+                         dtype=np.int64)[None]
+        toks = iface.beam_search_tokens(ids, args.max_new_tokens,
+                                        beam=args.num_beams)[0]
+        text = iface.tokenizer.decode([int(t) for t in toks])
+    else:
+        schema = json.loads(args.json_schema) if args.json_schema else None
+        text = iface.run_string_in_string_out(
+            args.prompt, args.max_new_tokens, sampling=sampling,
+            regex=args.regex, json_schema=schema)
     for s in args.stop:
         i = text.find(s)
         if i >= 0:
@@ -106,6 +135,19 @@ def cmd_generate(args) -> None:
     print(f"[{args.max_new_tokens} tokens in {dt:.2f}s "
           f"({args.max_new_tokens / dt:.1f} tok/s) on {iface.device}]",
           file=sys.stderr)
+
+
+def cmd_embed(args) -> None:
+    """Text embeddings from a causal LM through the hidden-state tap
+    (the pooling of /v1/embeddings), one JSON line per input."""
+    import numpy as np
+
+    iface, _ = _load_text(args)
+    ids_list = [np.asarray(iface.tokenizer.encode(t), np.int64)
+                for t in args.text]
+    for i, v in enumerate(iface.embed(ids_list, pooling=args.pooling)):
+        print(json.dumps({"index": i, "embedding":
+                          [round(float(x), 7) for x in v]}))
 
 
 def cmd_serve(args) -> None:
@@ -150,7 +192,14 @@ def main(argv=None) -> None:
     g.add_argument("--repetition-penalty", type=float, default=1.0)
     g.add_argument("--presence-penalty", type=float, default=0.0)
     g.add_argument("--frequency-penalty", type=float, default=0.0)
+    g.add_argument("--num-beams", type=int, default=1)
     g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--regex",
+                   help="constrain output to match this regex "
+                        "(token-DFA guided decoding)")
+    g.add_argument("--json-schema",
+                   help="constrain output to a JSON document matching "
+                        "this schema (JSON string)")
     g.add_argument("--stop", action="append", default=[],
                    help="stop sequence: truncate the output at its first "
                         "occurrence (repeatable)")
@@ -163,6 +212,20 @@ def main(argv=None) -> None:
     g.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     g.set_defaults(fn=cmd_generate)
+
+    e = sub.add_parser("embed", help="text embeddings from a causal LM "
+                       "(hidden-state tap, one JSON line per input)")
+    e.add_argument("--model", required=True)
+    e.add_argument("--loader", default="auto")
+    e.add_argument("--tokenizer", default=None)
+    e.add_argument("--max-len", type=int, default=1024)
+    e.add_argument("--pooling", choices=["last", "mean"], default="last")
+    e.add_argument("-c", "--config", action="append", default=[],
+                   help="loader config key=value")
+    e.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    e.add_argument("text", nargs="+", help="input text(s)")
+    e.set_defaults(fn=cmd_embed)
 
     s = sub.add_parser("serve", help="run the WebSocket server")
     s.add_argument("--host", default="127.0.0.1")

@@ -13,9 +13,10 @@ packed on the device, default on); the end-of-sequence ids come from
 the checkpoint (`_resolve_eos`) or the GGUF metadata. Left out, each
 raising: other model types and GGUF archs (ValueError, as the reference
 does for an unknown one; NotImplementedError for the gemma and phi3
-GGUF adapters), GPTQ/AWQ checkpoints, `lora`, `serve_adapters` and
-`decode_windows` (NotImplementedError), and the ONNX, RWKV, TTS and
-image loaders (not registered).
+GGUF adapters), GPTQ/AWQ GPT-2 checkpoints, `lora`, `serve_adapters`
+and `decode_windows` (NotImplementedError), and the ONNX, RWKV, TTS and
+image loaders (not registered). GPTQ/AWQ llama-family checkpoints load
+(importers/quantized.py): their quantized Linears run packed.
 
 Like the reference, the loader embeds every weight in one in-memory
 ONNX ModelProto, then decodes it into the graph's TensorStore: host
@@ -162,6 +163,7 @@ class TransformersLoader(Loader):
             os.path.join(path, "config.json"))
 
     def load(self, config):
+        from .quantized import QuantizedStore, parse_quantization_config
         from .safetensors_io import SafetensorsStore, load_hf_config
 
         for key in ("lora", "serve_adapters", "decode_windows"):
@@ -172,14 +174,24 @@ class TransformersLoader(Loader):
         d = config["path"]
         hf_cfg = load_hf_config(d)
         mt = hf_cfg.get("model_type")
-        if hf_cfg.get("quantization_config"):
-            raise NotImplementedError(
-                "GPTQ/AWQ checkpoints (quantization_config) are not ported "
-                "to PyTorch yet")
         dtype = {"f32": DType.F32, "bf16": DType.BF16,
                  "f16": DType.F16}[config.get("dtype", "bf16")]
         max_len = int(config.get("max_len", 1024))
         store = SafetensorsStore.from_dir(d)
+        # GPTQ/AWQ checkpoints (config.json quantization_config), as the
+        # reference loads them (:204-213, :466-471): `.weight` names
+        # dequantize on the host for the recipe, and each quantized
+        # Linear the recipe reads as a matmul weight records a packed
+        # source, so it runs through packed_matmul at 4 bits a weight
+        qspec = parse_quantization_config(hf_cfg)
+        qstore = None
+        if qspec is not None:
+            if mt == "gpt2":
+                raise NotImplementedError(
+                    "GPTQ/AWQ GPT-2 checkpoints are not ported to PyTorch "
+                    "yet (the port's GPT-2 recipe records no weight map)")
+            store = qstore = QuantizedStore(store, qspec)
+        weight_map: Dict[str, str] = {}   # initializer -> HF name
         ragged = bool(config.get("ragged_decode", False))
         if mt == "gpt2":
             from .recipes.llm.gpt2 import GPT2Config, build_gpt2_step
@@ -201,7 +213,7 @@ class TransformersLoader(Loader):
                 return store.load(name)
 
             data = build_llama_step(getter, cfg, max_len=max_len, dtype=dtype,
-                                    pos_per_row=ragged)
+                                    pos_per_row=ragged, weight_map=weight_map)
             geometry = dict(n_layers=cfg.num_hidden_layers,
                             n_kv_heads=cfg.num_key_value_heads, head_dim=cfg.hd)
         else:
@@ -209,6 +221,11 @@ class TransformersLoader(Loader):
                              f"by the port (have: {self.SUPPORTED})")
         name = hf_cfg.get("_name_or_path") or os.path.basename(os.path.normpath(d))
         model = Model.new_from_onnx(data, name=name)
+        if qstore is not None:
+            for init_name, hf_name in weight_map.items():
+                src = qstore.packed_source(hf_name)
+                if src is not None:
+                    model.graph.store.packed_sources[init_name] = src
         tok = d if os.path.exists(os.path.join(d, "tokenizer.json")) else None
         return LoadedBundle(models={name: model},
                             interfaces={"text": {"model": name,

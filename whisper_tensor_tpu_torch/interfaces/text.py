@@ -12,22 +12,35 @@ the step graph runs eagerly through GraphExecutor:
     loop never waits for the device until the tokens are read back.
 
 Ported: dense and `quantize="int8"` weights; packed weights kept
-packed on the device through the packed_matmul kernel, both from a GGUF
-file's packed sources (`quantize="packed"`, or automatically when the
-loader recorded packed sources) and host-quantized from any dense
-checkpoint (`quantize="q4_0" | "q8_0" | "q5_0" | "q4_k" | "q6_k"`,
-reference :341-390; weights that are not 2-D or whose K is not a
-multiple of the block stay dense); q/k/v and gate/up matmul fusion
-(always on: the reference turns it off only for meshes and LoRA, which
-are not ported), prompt buckets, greedy decoding, SamplingParams on a
-seeded torch.Generator, logit_bias, and the per-row sampling the
-ContinuousBatcher runs (`_pick_token_rows`). SamplingParams, the prompt
-buckets and the per-row sampling arrays are the port's copy of the
-reference's (:27-56, :109-142, :224-233); the default buckets go on
-past the reference's 1024 to 8192, so a long prompt prefills at its own
-bucket instead of failing. Not ported yet, and raising
-NotImplementedError: windowed decode, meshes, LoRA adapters, beam
-search, DFA-constrained decoding.
+packed on the device through the packed_matmul kernel, from a GGUF
+file's or a GPTQ/AWQ checkpoint's packed sources (`quantize="packed"`,
+or automatically when the loader recorded packed sources) and
+host-quantized from any dense checkpoint (`quantize="q4_0" | "q8_0" |
+"q5_0" | "q4_k" | "q6_k"`, reference :341-390; weights that are not 2-D
+or whose K is not a multiple of the block stay dense); q/k/v and
+gate/up matmul fusion (always on: the reference turns it off only for
+meshes and LoRA, which are not ported), prompt buckets, greedy
+decoding, SamplingParams on a seeded torch.Generator, logit_bias, and
+the per-row sampling the ContinuousBatcher runs (`_pick_token_rows`).
+SamplingParams, the prompt buckets and the per-row sampling arrays are
+the port's copy of the reference's (:27-56, :109-142, :224-233); the
+default buckets go on past the reference's 1024 to 8192, so a long
+prompt prefills at its own bucket instead of failing.
+
+Also ported (reference :195-214, :868-978, :1236-1441):
+  * DFA-constrained decoding (`compile_constraint`, `generate_tokens(
+    constraint=)`, `run_string_in_string_out(regex=, json_schema=)`):
+    each step masks the logits with the TokenDFA row of each sequence's
+    state and advances the state, which stays on the device;
+  * `hidden_states`, `embed` and `sequence_scores`: the hidden-state tap
+    is found on the graph that runs, after fusion and quantization, so a
+    QuantMatMul or PackedMatMul lm_head is found too (the reference's
+    walk accepts only MatMul, Einsum and Gemm and raises on an int8 or
+    packed lm_head); hidden_states runs only the nodes the tap needs;
+  * `beam_search_tokens`: top-k over (B, W*V) a step, the caches
+    gathered by parent beam into a second buffer.
+Not ported yet, and raising NotImplementedError: windowed decode,
+meshes, LoRA adapters.
 """
 
 from __future__ import annotations
@@ -178,6 +191,25 @@ def _pick_token(logits: torch.Tensor, gen: Optional[torch.Generator],
     return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
 
+def _dfa_mask(logits: torch.Tensor, row: torch.Tensor,
+              acc_state: torch.Tensor, eos: int) -> torch.Tensor:
+    """Keep only the tokens the TokenDFA admits from each row's state;
+    eos is admitted exactly in accepting states (reference _dfa_mask,
+    :195). row: (B, V) int32 next-state table rows, acc_state: (B,)
+    bool. Returns f32 logits with -inf at every other token."""
+    allowed = row >= 0
+    allowed[:, eos] = acc_state
+    return torch.where(allowed, logits.float(), -torch.inf)
+
+
+def _dfa_advance(row: torch.Tensor, tok: torch.Tensor, eos: int,
+                 done: int) -> torch.Tensor:
+    """Each row's state after emitting `tok`; eos parks the row in the
+    `done` sink, which admits only further eos (reference :207)."""
+    nxt = row.gather(1, tok[:, None])[:, 0]
+    return torch.where(tok == eos, done, nxt)
+
+
 _M32 = 0xFFFFFFFF
 
 
@@ -266,6 +298,21 @@ def rows_tensors(sps, device: torch.device):
     t = host_to_device(cols, device)
     return (t[0].float(), t[1].long(), t[2].float(), t[3].float(),
             t[4].float(), t[5].float(), t[6].float(), t[7].long())
+
+
+def _concat_device_layouts(pts: List[Dict]) -> Optional[Dict]:
+    """Fuse packed_matmul device layouts (GPTQ/AWQ dicts) of one K
+    column-wise: q, scales and offsets concatenate along N exactly; None
+    when the members' bits, K or groups differ."""
+    if (len({int(p["bits"]) for p in pts}) != 1
+            or len({p["q"].shape[0] for p in pts}) != 1
+            or len({p["scales"].shape[0] for p in pts}) != 1):
+        return None
+    out = {k: np.concatenate([p[k] for p in pts], axis=1)
+           for k in ("q", "scales", "offsets")}
+    out["bits"] = pts[0]["bits"]
+    out["has_off"] = np.bool_(any(bool(p.get("has_off", True)) for p in pts))
+    return out
 
 
 class TextInferenceInterface:
@@ -381,6 +428,11 @@ class TextInferenceInterface:
         # submit(adapter=...) then fails as "unknown adapter"
         self.adapter_slots: Dict[Optional[str], int] = {None: 0}
         self.row_extra_names: List[str] = []
+        # constrained decoding: TokenDFAs by (regex, eos) and their
+        # device tables by (pattern, table shape, eos)
+        self._dfa_cache: Dict[Tuple, object] = {}
+        self._dfa_device: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._hidden_exec: Optional[GraphExecutor] = None
 
     # ------------------------------------------------------------------
     def _dense_np(self, n: str, dtype: Optional[DType] = None) -> np.ndarray:
@@ -395,17 +447,20 @@ class TextInferenceInterface:
         return store.get_numeric(n, dt).numpy()
 
     def _packed_sources_with_fused(self, sources: Dict) -> Dict:
-        """Extend GGUF packed sources with fused entries (reference
+        """Extend packed sources with fused entries (reference
         :469-513): PackedTensor rows are output channels, so a fused
-        (N1+N2, K) tensor is the raw byte concatenation of its members.
-        Members of different formats fuse to None: the fused weight then
-        stays a dense MatMul."""
+        (N1+N2, K) tensor is the raw byte concatenation of its members;
+        GPTQ/AWQ device-layout dicts concatenate column-wise. Members of
+        different formats fuse to None: the fused weight then stays a
+        dense MatMul."""
         for fname, members in self._fused.items():
             if not all(m in sources for m, _ in members):
                 continue
 
             def make(members=members):
                 pts = [sources[m]() for m, _ in members]
+                if pts and all(isinstance(p, dict) for p in pts):
+                    return _concat_device_layouts(pts)
                 if not all(isinstance(p, PackedTensor) for p in pts):
                     return None
                 fmts = {p.fmt for p in pts}
@@ -487,17 +542,21 @@ class TextInferenceInterface:
                                    device=self.device))
         return out
 
-    def step(self, ids: torch.Tensor, pos: torch.Tensor,
-             caches: List[torch.Tensor]) -> torch.Tensor:
-        """One step graph run: ids (B, S) int64 and pos () or (B,) int64
-        on the device -> logits (B, S, V). `caches` are updated in
-        place."""
+    def _feeds(self, ids: torch.Tensor, pos: torch.Tensor,
+               caches: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
         if self._pos_per_row:
             pos = pos.reshape(-1).expand(ids.shape[0])
         feeds = {"input_ids": ids, "pos": pos}
         feeds.update(zip(self.cache_in_names, caches))
         feeds.update(self._weights())
-        return self._exec(feeds)["logits"]
+        return feeds
+
+    def step(self, ids: torch.Tensor, pos: torch.Tensor,
+             caches: List[torch.Tensor]) -> torch.Tensor:
+        """One step graph run: ids (B, S) int64 and pos () or (B,) int64
+        on the device -> logits (B, S, V). `caches` are updated in
+        place."""
+        return self._exec(self._feeds(ids, pos, caches))["logits"]
 
     # ------------------------------------------------------------------
     def _prompt(self, prompt_ids) -> Tuple[torch.Tensor, int]:
@@ -512,15 +571,26 @@ class TextInferenceInterface:
 
     def _decode(self, prompt_ids, n_new: int, caches,
                 sampling: Optional[SamplingParams],
-                logit_bias: Optional[np.ndarray], keep_logits: bool):
+                logit_bias: Optional[np.ndarray], keep_logits: bool,
+                constraint=None):
         """Prefill, then n_new - 1 decode steps. Returns (tokens (B,
-        n_new) on the device, per-token f32 logits or None)."""
+        n_new) on the device, per-token f32 logits or None).
+
+        Each token is picked in the reference's order (:756-800): the
+        bias is added, the constraint's mask applied (its table row of
+        each sequence's state), the token picked with the penalties, and
+        the state advanced; the state never leaves the device."""
         ids, L = self._prompt(prompt_ids)
         B = ids.shape[0]
         if caches is None:
             caches = self.fresh_cache(B)
         bias = (None if logit_bias is None else torch.as_tensor(
             np.asarray(logit_bias, np.float32), device=self.device))
+        if constraint is not None:
+            trans, acc = self._dfa_tables(constraint)
+            eos, done = int(constraint.eos_token_id), int(constraint.done)
+            dstate = torch.full((B,), int(constraint.start),
+                                dtype=torch.int64, device=self.device)
         gen = None
         if sampling is not None and sampling.temperature > 0.0:
             gen = torch.Generator(device=self.device)
@@ -542,9 +612,14 @@ class TextInferenceInterface:
                 pos = pos + 1
             if bias is not None:
                 last = last + bias
+            if constraint is not None:
+                row = trans[dstate]
+                last = _dfa_mask(last, row, acc[dstate], eos)
             if keep_logits:
                 kept.append(last.float())
             tok = _pick_token(last, gen, sampling, seen)
+            if constraint is not None:
+                dstate = _dfa_advance(row, tok, eos, done).long()
             if seen is not None:
                 seen.scatter_add_(1, tok[:, None],
                                   torch.ones_like(tok[:, None],
@@ -564,11 +639,13 @@ class TextInferenceInterface:
         """prompt_ids (B, L) int64, the same L for every row -> (B,
         n_new) int64. sampling=None is greedy; otherwise tokens are
         drawn from a torch.Generator seeded with sampling.seed.
-        logit_bias: (V,) f32 added to every step's logits."""
-        if constraint is not None:
-            raise _not_ported("DFA-constrained decoding")
+        logit_bias: (V,) f32 added to every step's logits. constraint:
+        a TokenDFA (compile_constraint); every emitted token keeps the
+        output inside its language, and eos follows once it is
+        complete."""
         toks, _ = self._decode(prompt_ids, n_new, caches, sampling,
-                               logit_bias, keep_logits=False)
+                               logit_bias, keep_logits=False,
+                               constraint=constraint)
         return toks.cpu().numpy()
 
     def generate_with_logits(self, prompt_ids: np.ndarray, n_new: int,
@@ -593,22 +670,266 @@ class TextInferenceInterface:
                                  json_schema=None) -> str:
         if self.tokenizer is None:
             raise ValueError("no tokenizer configured")
+        constraint = None
         if regex is not None or json_schema is not None:
-            raise _not_ported("DFA-constrained decoding (regex / schema)")
+            constraint = self.compile_constraint(regex, json_schema)
         ids = np.asarray(self.tokenizer.encode(text), dtype=np.int64)[None]
-        toks = self.generate_tokens(ids, n_new, sampling=sampling)[0]
-        if self.eos_token_ids:
-            eos = np.nonzero(np.isin(toks, np.asarray(self.eos_token_ids)))[0]
+        toks = self.generate_tokens(ids, n_new, sampling=sampling,
+                                    constraint=constraint)[0]
+        eos_ids = ((constraint.eos_token_id,) if constraint is not None
+                   else self.eos_token_ids)
+        if eos_ids:
+            eos = np.nonzero(np.isin(toks, np.asarray(eos_ids)))[0]
             if eos.size:
                 toks = toks[:eos[0]]
         return self.tokenizer.decode([int(t) for t in toks])
 
-    # -- entry points of the reference that the port does not have yet --
-    def compile_constraint(self, regex=None, json_schema=None):
-        raise _not_ported("DFA-constrained decoding")
+    # -- constrained decoding ------------------------------------------
+    def compile_constraint(self, regex: Optional[str] = None,
+                           json_schema=None):
+        """A regex or JSON schema compiled into a TokenDFA bound to this
+        interface's tokenizer and vocab width, cached per (regex, eos)
+        (reference :1391-1421). A byte-tokenizer model without an eos id
+        takes the tokenizer's, as the reference does."""
+        from ..constrained import compile_token_dfa, json_schema_to_regex
+        from ..tokenizer import ByteTokenizer
 
-    def beam_search_tokens(self, *args, **kwargs):
-        raise _not_ported("beam search")
+        if (regex is None) == (json_schema is None):
+            raise ValueError("pass exactly one of regex / json_schema")
+        if json_schema is not None:
+            regex = json_schema_to_regex(json_schema)
+        if self.tokenizer is None:
+            raise ValueError("constrained decoding needs a tokenizer")
+        if self.eos_token_id is None:
+            if not isinstance(self.tokenizer, ByteTokenizer):
+                raise ValueError(
+                    "constrained decoding needs eos_token_id (the DFA "
+                    "stops generation by emitting eos once the pattern "
+                    "is complete)")
+            self.eos_token_id = ByteTokenizer.EOS
+            self.eos_token_ids = (ByteTokenizer.EOS,)
+        key = (regex, self.eos_token_id)
+        hit = self._dfa_cache.get(key)
+        if hit is None:
+            hit = compile_token_dfa(regex, self.tokenizer, self.eos_token_id,
+                                    vocab_size=self._vocab_size())
+            self._dfa_cache[key] = hit
+        return hit
+
+    def _dfa_tables(self, constraint) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(trans (S+1, V) int32, accepting (S+1,) bool) on the device,
+        uploaded once per (pattern, table shape, eos) and reused
+        (reference :957-978)."""
+        key = (constraint.pattern, constraint.trans.shape,
+               constraint.eos_token_id)
+        hit = self._dfa_device.get(key)
+        if hit is None:
+            V = self._vocab_size()
+            if constraint.trans.shape[1] != V:
+                raise ValueError(
+                    f"constraint vocab width {constraint.trans.shape[1]} != "
+                    f"model vocab {V}; pass vocab_size={V} to "
+                    f"compile_token_dfa")
+            hit = (host_to_device(constraint.trans, self.device),
+                   host_to_device(constraint.accepting, self.device))
+            self._dfa_device[key] = hit
+        return hit
+
+    # -- hidden states, embeddings, sequence scores ---------------------
+    def _hidden_tid(self) -> int:
+        """tid of the final hidden state, the lm_head's activation input,
+        in the graph that runs, found by walking back from the logits
+        output through the elementwise tail (bias Add, softcap
+        Mul/Tanh/Div, Cast/Reshape), as the reference does (:1236-1277),
+        following the deepest input. The lm_head may be a MatMul, Einsum
+        or Gemm, or, after quantization, a QuantMatMul or PackedMatMul,
+        whose activation is input 0."""
+        milli = self._exec.graph
+        producer = {t: node for node in milli.nodes for t in node.outputs}
+        depth: Dict[int, int] = {}
+        for node in milli.nodes:
+            d = 1 + max((depth.get(i, 0) for i in node.inputs
+                         if i is not None), default=0)
+            for t in node.outputs:
+                depth[t] = d
+        tid = milli.outputs["logits"]
+        for _ in range(16):
+            node = producer.get(tid)
+            if node is None:
+                break
+            kind = node.op.KIND
+            if kind in ("QuantMatMul", "PackedMatMul"):
+                return node.inputs[0]
+            ins = [i for i in node.inputs if i is not None]
+            deepest = max(ins, key=lambda i: depth.get(i, 0), default=None)
+            if kind in ("MatMul", "Einsum", "Gemm"):
+                return deepest
+            if kind in ("SimpleBinary", "SimpleUnary", "Cast", "CastLike",
+                        "Reshape", "Transpose", "Identity", "Squeeze",
+                        "Unsqueeze") and deepest is not None:
+                tid = deepest
+                continue
+            break
+        raise ValueError("could not locate the lm_head activation in "
+                         "this graph (no hidden-state tap)")
+
+    def _hidden_executor(self) -> GraphExecutor:
+        """An executor of the running graph pruned to the nodes the
+        hidden-state tap needs, with the tap as its one output `hidden`
+        (the reference's _trace_graph(..., [tap]), :1279-1323)."""
+        if self._hidden_exec is None:
+            with self._weights_lock:
+                if self._hidden_exec is None:
+                    run = self._exec.graph
+                    tap = self._hidden_tid()
+                    need, kept = {tap}, []
+                    for node in reversed(run.nodes):
+                        if need.intersection(node.outputs):
+                            kept.append(node)
+                            need.update(i for i in node.inputs
+                                        if i is not None)
+                    pruned = copy.copy(run)
+                    pruned.nodes = kept[::-1]
+                    pruned.outputs = {"hidden": tap}
+                    self._hidden_exec = GraphExecutor(pruned, self.device)
+        return self._hidden_exec
+
+    def hidden_states(self, prompt_ids: np.ndarray) -> np.ndarray:
+        """Single forward: (B, L) -> (B, L, E) final hidden states (the
+        lm_head's input), from a prefill that stops at the tap. Backs
+        /v1/embeddings."""
+        ids, L = self._prompt(prompt_ids)
+        pos = torch.zeros((), dtype=torch.int64, device=self.device)
+        feeds = self._feeds(ids, pos, self.fresh_cache(ids.shape[0]))
+        return to_host(self._hidden_executor()(feeds)["hidden"][:, :L])
+
+    def sequence_scores(self, full_ids: np.ndarray, start, lens
+                        ) -> np.ndarray:
+        """(B, L) right-padded token rows -> (B,) mean log-probability of
+        the tokens in positions [start_i, lens_i) under teacher forcing
+        (reference :1325-1365). One batched prefill; the log-softmax,
+        gather and masked mean run on the device and only (B,) comes
+        back."""
+        full_ids = np.asarray(full_ids, np.int64)
+        B, L = full_ids.shape
+        Sb = _bucket(max(L - 1, 1), self.prompt_buckets)
+        padded = np.zeros((B, Sb), np.int64)
+        padded[:, :L - 1] = full_ids[:, :-1]
+        tgt = np.zeros((B, Sb), np.int64)
+        tgt[:, :L - 1] = full_ids[:, 1:]
+        ids = torch.from_numpy(padded).to(self.device)
+        targets = torch.from_numpy(tgt).to(self.device)
+        starts = torch.as_tensor(np.asarray(start, np.int64),
+                                 device=self.device)
+        lengths = torch.as_tensor(np.asarray(lens, np.int64),
+                                  device=self.device)
+        pos0 = torch.zeros((), dtype=torch.int64, device=self.device)
+        logits = self.step(ids, pos0, self.fresh_cache(B))
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        chosen = lp.gather(2, targets[:, :, None])[..., 0]
+        pos = torch.arange(Sb, device=self.device)[None, :]
+        mask = (pos >= starts[:, None] - 1) & (pos < lengths[:, None] - 1)
+        n = mask.sum(-1).clamp_min(1)
+        return ((chosen * mask).sum(-1) / n).cpu().numpy()
+
+    def embed(self, ids_list: Sequence[np.ndarray],
+              pooling: str = "last") -> List[np.ndarray]:
+        """Pooled text embeddings (reference :1367-1389): the token lists
+        right-padded into one hidden-states prefill, each row pooled
+        over its own length (exact under the causal mask), then
+        L2-normalized. Shared by /v1/embeddings and `cli embed`."""
+        if pooling not in ("last", "mean"):
+            raise ValueError(f"unknown pooling {pooling!r} (last|mean)")
+        ids_list = [np.asarray(a, np.int64).reshape(-1) for a in ids_list]
+        if not ids_list or any(a.size == 0 for a in ids_list):
+            raise ValueError("inputs must be non-empty token lists")
+        L = max(a.size for a in ids_list)
+        batch = np.zeros((len(ids_list), L), np.int64)
+        for i, a in enumerate(ids_list):
+            batch[i, :a.size] = a
+        h = self.hidden_states(batch)
+        out = []
+        for i, a in enumerate(ids_list):
+            hv = h[i, :a.size].astype(np.float64)
+            v = hv[-1] if pooling == "last" else hv.mean(0)
+            out.append(v / (np.linalg.norm(v) + 1e-12))
+        return out
+
+    # -- beam search ----------------------------------------------------
+    def _reorder_caches(self, src: List[torch.Tensor],
+                        dst: List[torch.Tensor], rows: torch.Tensor) -> None:
+        """dst[j] = src[j][rows]: the caches gathered by parent beam into
+        the second buffer (whole caches, as the reference's c[rows])."""
+        for a, b in zip(src, dst):
+            torch.index_select(a, 0, rows, out=b)
+
+    def beam_search_tokens(self, prompt_ids: np.ndarray, n_new: int,
+                           beam: int = 4, length_penalty: float = 0.0,
+                           eos_token_id: Optional[int] = None,
+                           return_scores: bool = False):
+        """(B, L) prompt -> (B, n_new) best beam sequences (reference
+        _beam_program, :868-955): a prefill at B rows, the caches
+        repeated to B*W rows, then each step a top-k over (B, W*V) of
+        the running log-probabilities and the caches gathered by parent
+        beam; finished beams extend only with eos. The best beam by
+        score, divided by length ** length_penalty when that is not 0.
+        Everything runs on the device; the tokens come back once.
+        return_scores: also return the best beams' summed
+        log-probabilities (B,) f32, before the length penalty."""
+        ids, L = self._prompt(prompt_ids)
+        B, W = ids.shape[0], int(beam)
+        R = B * W
+        eos = (eos_token_id if eos_token_id is not None
+               else (self.eos_token_id if self.eos_token_id is not None
+                     else -1))
+        dev = self.device
+        pos = torch.zeros((), dtype=torch.int64, device=dev)
+        caches = self.fresh_cache(B)
+        last = torch.log_softmax(
+            self.step(ids, pos, caches)[:, L - 1, :].float(), dim=-1)
+        V = last.shape[-1]
+        top_s, top_i = torch.topk(last, W, dim=-1)             # (B, W)
+        cur = top_i.reshape(-1)
+        scores = top_s.reshape(-1)
+        caches = [c.repeat_interleave(W, dim=0) for c in caches]
+        spare = [torch.empty_like(c) for c in caches]
+        alive = cur != eos
+        hist = torch.zeros((R, n_new), dtype=torch.int64, device=dev)
+        hist[:, 0] = cur
+        eos_only = torch.full((V,), -torch.inf, device=dev)
+        eos_only[eos] = 0.0
+        base = torch.arange(B, device=dev)[:, None] * W
+        pos = pos + L
+        for i in range(1, n_new):
+            lp = torch.log_softmax(
+                self.step(cur[:, None], pos, caches)[:, -1, :].float(), dim=-1)
+            lp = torch.where(alive[:, None], lp, eos_only[None])
+            flat = (scores[:, None] + lp).reshape(B, W * V)
+            top_s, top_i = torch.topk(flat, W, dim=-1)
+            rows = (base + top_i // V).reshape(-1)
+            token = (top_i % V).reshape(-1)
+            self._reorder_caches(caches, spare, rows)
+            caches, spare = spare, caches
+            hist = hist[rows]
+            hist[:, i] = token
+            cur = token
+            scores = top_s.reshape(-1)
+            alive = alive[rows] & (cur != eos)
+            pos = pos + 1
+        norm = scores.reshape(B, W)
+        if length_penalty != 0.0:
+            hit = hist == eos
+            lengths = torch.minimum(
+                hit.int().argmax(dim=1)
+                + torch.where(hit.any(dim=1), 1, n_new), torch.tensor(
+                    n_new, device=dev))
+            norm = norm / lengths.reshape(B, W).float() ** length_penalty
+        best = norm.argmax(dim=1)
+        pick = (torch.arange(B, device=dev), best)
+        out = hist.reshape(B, W, n_new)[pick].cpu().numpy()
+        if return_scores:
+            return out, scores.reshape(B, W)[pick].cpu().numpy()
+        return out
 
     def install_adapters(self, adapters):
         raise _not_ported("LoRA adapters")

@@ -339,8 +339,10 @@ def pack_matmul_nodes(
     copy on the device (reference QuantMatMul path).
 
     `sources` overrides store.packed_sources: {name: () -> PackedTensor
-    | None} — used by the interface's host-quantize path (quantize=
-    "q4_0"/"q8_0"/... on ANY dense checkpoint, not just GGUF files)."""
+    | device-layout dict | None} — used by the interface's host-quantize
+    path (quantize="q4_0"/"q8_0"/... on ANY dense checkpoint, not just
+    GGUF files). A dict (GPTQ/AWQ, reference :554) is the kernel's
+    layout already and carries `has_off`."""
     from .ops import MatMul   # (milli.ops imports this module)
 
     if sources is None:
@@ -361,7 +363,10 @@ def pack_matmul_nodes(
             continue
         if rhs_name not in packed:
             pt = sources[rhs_name]()
-            rp = repack_packed_tensor(pt) if pt is not None else None
+            if isinstance(pt, dict):     # already in device layout
+                rp = pt                  # (GPTQ/AWQ, importers/quantized.py)
+            else:
+                rp = repack_packed_tensor(pt) if pt is not None else None
             if rp is None:
                 continue
             packed[rhs_name] = rp

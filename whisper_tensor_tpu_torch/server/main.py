@@ -7,16 +7,20 @@ the text flows it serves:
   * model registry: ping, list_loaders, run_loader, unload_model,
     list_models, get_model_graph, get_stored_tensor, get_tokenizer,
     compile_model;
-  * generate_text, direct (`_text_iface`) or, for a `ragged_decode`
-    model, through the batcher (`_batcher`, `_generate_text_ragged`),
-    with sampling, stop strings, chat messages and `with_probs`;
+  * generate_text, through the batcher for a `ragged_decode` model
+    (`_batcher`, `_generate_text_ragged`), else on the direct path
+    (`_score_iface`: the model's `_text_iface`, or a ragged model's
+    batcher interface for `with_probs`, `regex` / `json_schema`
+    constrained decoding and `num_beams` beam search), with sampling,
+    stop strings and chat messages;
   * cancel_request, update_observer_settings, get_batcher_stats;
-  * `_score_iface`, which the OpenAI front end's logprobs and echo use.
+  * `_score_iface`, which the OpenAI front end's logprobs, echo,
+    embeddings, best_of reranking and constrained requests use.
 Every other message of the reference (super graphs, images, speech,
 transcription, multimodal generation, adapters, graph layout, tensor
 slices, the profiler) and the unported generate_text variants
-(speculative decoding, beam search, constrained decoding, RNN models)
-answer with an error naming them as not ported.
+(speculative decoding, RNN models) answer with an error naming them as
+not ported.
 """
 
 from __future__ import annotations
@@ -340,13 +344,8 @@ class Server:
         iface_cfg = entry.interfaces.get("text")
         if iface_cfg is None:
             raise ValueError("model has no text interface")
-        for key, what in (("draft_model_id", "speculative decoding"),
-                          ("regex", "constrained decoding (regex)"),
-                          ("json_schema", "constrained decoding (json_schema)")):
-            if msg.get(key) is not None:
-                raise _not_ported(what)
-        if int(msg.get("num_beams", 1)) > 1:
-            raise _not_ported("beam search (num_beams)")
+        if msg.get("draft_model_id") is not None:
+            raise _not_ported("speculative decoding")
         if iface_cfg.get("rnn_state"):
             raise _not_ported("constant-state (RNN) models")
         from ..tokenizer import AnyTokenizer, apply_chat_template
@@ -358,14 +357,35 @@ class Server:
             # ChatML fallback) into the prompt every path below uses
             msg["prompt"] = apply_chat_template(tok, msg["messages"])
         n_new = int(msg.get("max_new_tokens", 32))
+        regex, json_schema = msg.get("regex"), msg.get("json_schema")
+        constrained = regex is not None or json_schema is not None
+        beams = int(msg.get("num_beams", 1))
+        if constrained and beams > 1:
+            raise ValueError("regex/json_schema constraints are not "
+                             "supported with num_beams")
+        if beams > 1:
+            iface = self._score_iface(entry)
+
+            def beam_job(obs):
+                ids = np.asarray(tok.encode(msg["prompt"]),
+                                 dtype=np.int64)[None]
+                toks = iface.beam_search_tokens(
+                    ids, n_new, beam=beams,
+                    length_penalty=float(msg.get("length_penalty", 0.0)),
+                    eos_token_id=msg.get("eos_token_id"))[0]
+                return {"text": tok.decode([int(t) for t in toks])}
+
+            self.scheduler.submit(beam_job, ObserverSettings())
+            return None
         sampling = self._sampling_from_msg(msg)
         with_probs = bool(msg.get("with_probs"))
-        if iface_cfg.get("ragged") and not with_probs:
-            # with_probs needs the direct path's teacher-forced rescore
+        if iface_cfg.get("ragged") and not with_probs and not constrained:
+            # with_probs needs the direct path's teacher-forced rescore,
+            # and a constraint the direct path's per-step mask
             self._generate_text_ragged(msg, entry, tok, n_new,
                                        sampling=sampling)
             return None
-        iface = self._text_iface(entry)
+        iface = self._score_iface(entry)
         iface.tokenizer = tok
         settings = ObserverSettings(
             tensor_subscriptions=set(msg.get("tensor_subscriptions", [])))
@@ -381,12 +401,19 @@ class Server:
         def job(obs):
             if not with_probs:
                 return {"text": _trim(iface.run_string_in_string_out(
-                    msg["prompt"], n_new, sampling=sampling))}
+                    msg["prompt"], n_new, sampling=sampling, regex=regex,
+                    json_schema=json_schema))}
+            constraint = (iface.compile_constraint(regex, json_schema)
+                          if constrained else None)
             ids = np.asarray(tok.encode(msg["prompt"]), dtype=np.int64)[None]
-            toks = iface.generate_tokens(ids, n_new, sampling=sampling)[0]
-            if iface.eos_token_ids:
-                eos = np.nonzero(np.isin(
-                    toks, np.asarray(iface.eos_token_ids)))[0]
+            toks = iface.generate_tokens(ids, n_new, sampling=sampling,
+                                         constraint=constraint)[0]
+            # a constraint emits its own eos once the pattern completes:
+            # trim so text and table cover only the match
+            eos_ids = ((constraint.eos_token_id,) if constraint is not None
+                       else iface.eos_token_ids)
+            if eos_ids:
+                eos = np.nonzero(np.isin(toks, np.asarray(eos_ids)))[0]
                 if eos.size:
                     toks = toks[:int(eos[0])]
             toks = [int(t) for t in toks]

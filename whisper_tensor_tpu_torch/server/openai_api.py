@@ -3,21 +3,23 @@
 The port's copy of whisper_tensor_tpu/server/openai_api.py, trimmed to
 the text routes the port serves: `/v1/completions` and
 `/v1/chat/completions` (with `stream`, `logprobs`, `echo`, `n`,
-`seed`, `stop` and `logit_bias`), `GET /v1/models` and `GET /metrics`,
-on the Python stdlib (`http.server`). The reference's other routes
-(`/v1/embeddings`, `/v1/images/generations`, `/v1/audio/speech`,
+`best_of` reranking, `seed`, `stop`, `logit_bias`, `response_format`
+and the `regex` extension for constrained decoding, and `tools` for
+guided function calls), `/v1/embeddings`, `GET /v1/models` and `GET
+/metrics`, on the Python stdlib (`http.server`). The reference's media
+routes (`/v1/images/generations`, `/v1/audio/speech`,
 `/v1/audio/transcriptions`, `/v1/audio/translations`) answer 501 with
-an OpenAI-style error naming them as not ported, and so do the request
-features that need unported machinery: `response_format` and `regex`
-(constrained decoding), `tools`, image content parts, `adapter`, and
-`best_of` reranking.
+an OpenAI-style error naming them as not ported, and so do image
+content parts and `adapter`.
 
-Routing mirrors the WebSocket server: requests against a ragged-decode
-model go through the ContinuousBatcher (per-request sampling params
-batch greedy and sampled traffic together), everything else through the
-direct interface. `stream: true` answers with server-sent events.
-`logprobs` (legacy int form, or chat's bool + `top_logprobs`) reports
-per-token log-probabilities from one teacher-forced rescoring prefill.
+Routing mirrors the WebSocket server: unconstrained requests against a
+ragged-decode model go through the ContinuousBatcher (per-request
+sampling params batch greedy and sampled traffic together); constrained
+requests, and everything against other models, through the direct
+interface (for a ragged model, the batcher's own, `_score_iface`).
+`stream: true` answers with server-sent events. `logprobs` (legacy int
+form, or chat's bool + `top_logprobs`) reports per-token
+log-probabilities from one teacher-forced rescoring prefill.
 """
 
 from __future__ import annotations
@@ -31,6 +33,17 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+# a permissive JSON-document regex for response_format json_object
+_JSON_VALUE = (
+    r'\s*(-?(0|[1-9][0-9]*)(\.[0-9]+)?([eE][+-]?[0-9]+)?|true|false|null'
+    r'|"([^"\\\x00-\x1f]|\\["\\/bfnrt]|\\u[0-9a-fA-F]{4})*")\s*')
+_JSON_OBJECT_REGEX = (
+    r'\s*\{(\s*"([^"\\\x00-\x1f]|\\["\\/bfnrt]|\\u[0-9a-fA-F]{4})*"\s*:'
+    + _JSON_VALUE +
+    r'(,\s*"([^"\\\x00-\x1f]|\\["\\/bfnrt]|\\u[0-9a-fA-F]{4})*"\s*:'
+    + _JSON_VALUE + r')*)?\s*\}\s*')
+
+
 class ApiError(Exception):
     def __init__(self, status: int, message: str, etype: str = "invalid_request_error"):
         super().__init__(message)
@@ -43,10 +56,9 @@ def _not_ported(what: str) -> ApiError:
                     "not_implemented_error")
 
 
-# the reference's routes that the port answers with _not_ported
-_UNPORTED_ROUTES = ("/v1/embeddings", "/v1/images/generations",
-                    "/v1/audio/speech", "/v1/audio/transcriptions",
-                    "/v1/audio/translations")
+# the reference's media routes, which the port answers with _not_ported
+_UNPORTED_ROUTES = ("/v1/images/generations", "/v1/audio/speech",
+                    "/v1/audio/transcriptions", "/v1/audio/translations")
 
 
 def _sampling_from(body: Dict[str, Any]):
@@ -81,6 +93,27 @@ def _stops_from(body: Dict[str, Any]) -> List[str]:
     return [s for s in stop if s]
 
 
+def _constraint_from(body: Dict[str, Any]):
+    """-> (regex, json_schema) from response_format / regex extension."""
+    if body.get("regex") is not None:
+        return body["regex"], None
+    rf = body.get("response_format")
+    if not rf:
+        return None, None
+    kind = rf.get("type")
+    if kind in (None, "text"):
+        return None, None
+    if kind == "json_object":
+        return _JSON_OBJECT_REGEX, None
+    if kind == "json_schema":
+        js = rf.get("json_schema") or {}
+        schema = js.get("schema", js if "type" in js else None)
+        if schema is None:
+            raise ApiError(400, "response_format.json_schema.schema missing")
+        return None, schema
+    raise ApiError(400, f"unsupported response_format type {kind!r}")
+
+
 def _normalize_messages(messages):
     """Tool-protocol message shapes -> renderable content: an assistant
     tool_calls turn (content null) serializes its calls; bare null
@@ -101,6 +134,55 @@ def _normalize_messages(messages):
     return out
 
 
+def _tools_schema(body: Dict[str, Any]):
+    """tools + tool_choice -> a JSON schema forcing one function call
+    `{"name": ..., "arguments": {...}}` (guided function calling through
+    the token-DFA constrained decoder). tool_choice "none" disables;
+    "auto"/"required"/a named function force a call."""
+    tools = body.get("tools")
+    if not tools:
+        return None
+    tc = body.get("tool_choice", "auto")
+    if tc in (None, "none"):
+        return None
+    chosen = None
+    if isinstance(tc, dict):
+        chosen = (tc.get("function") or {}).get("name")
+        if not chosen:
+            raise ApiError(400, "tool_choice.function.name required")
+    fns = [t.get("function") or {} for t in tools
+           if t.get("type", "function") == "function"]
+    if not all(f.get("name") for f in fns):
+        raise ApiError(400, "every tool needs function.name")
+    if chosen is not None:
+        fns = [f for f in fns if f["name"] == chosen]
+        if not fns:
+            raise ApiError(404, f"tool {chosen!r} not in tools",
+                           "not_found_error")
+    variants = [{"type": "object",
+                 "properties": {
+                     "name": {"const": f["name"]},
+                     "arguments": f.get("parameters")
+                     or {"type": "object"}},
+                 "required": ["name", "arguments"]}
+                for f in fns]
+    return variants[0] if len(variants) == 1 else {"anyOf": variants}
+
+
+def _resolve_model(server, name):
+    """The loaded model entry named `name` (by name or id); with no name,
+    the one model loaded."""
+    models = server.models._models
+    if name is None:
+        if len(models) == 1:
+            return next(iter(models.values()))
+        raise ApiError(400, "model field required (several loaded)")
+    for e in models.values():
+        if e.name == name or str(e.id) == str(name):
+            return e
+    raise ApiError(404, f"model {name!r} not found", "not_found_error")
+
+
 class _Generator:
     """One request's execution: resolves the model, runs through the
     batcher (ragged, unconstrained) or the direct interface, and yields
@@ -111,7 +193,7 @@ class _Generator:
 
         self.server = server
         self.body = body
-        self.entry = self._resolve_model(body.get("model"))
+        self.entry = _resolve_model(server, body.get("model"))
         self.cfg = self.entry.interfaces.get("text")
         if self.cfg is None:
             raise ApiError(400, f"model {self.entry.name!r} has no text "
@@ -125,11 +207,7 @@ class _Generator:
             raise ApiError(400, "n must be in 1..64")
         self.sampling = _sampling_from(body)
         self.stops = _stops_from(body)
-        if body.get("regex") is not None or (
-                (body.get("response_format") or {}).get("type")
-                not in (None, "text")):
-            raise _not_ported("constrained decoding (response_format / "
-                              "regex)")
+        self.regex, self.schema = _constraint_from(body)
         # logprobs: the handler normalizes chat's bool+top_logprobs and
         # completions' int into one Optional[int] (N top alternatives)
         lp = body.get("logprobs")
@@ -152,24 +230,15 @@ class _Generator:
             raise _not_ported("LoRA adapters (adapter)")
         self.prompt_ids = np.asarray(self.tok.encode(prompt), np.int64)
 
-    def _resolve_model(self, name):
-        models = self.server.models._models
-        if name is None:
-            if len(models) == 1:
-                return next(iter(models.values()))
-            raise ApiError(400, "model field required (several loaded)")
-        for e in models.values():
-            if e.name == name or str(e.id) == str(name):
-                return e
-        raise ApiError(404, f"model {name!r} not found", "not_found_error")
-
     # ------------------------------------------------------------------
     def run(self, on_delta=None) -> Dict[str, Any]:
         """Generate to completion. on_delta(text_piece) streams decoded
         increments. Returns {"text", "finish_reason", "usage"}."""
+        constrained = self.regex is not None or self.schema is not None
         if self.n_new == 0:
             toks, finish = [], "length"
-        elif self.cfg.get("ragged") and self.logit_bias is None:
+        elif (self.cfg.get("ragged") and not constrained
+              and self.logit_bias is None):
             toks, finish = self._run_batched(on_delta)
         else:
             toks, finish = self._run_direct(on_delta)
@@ -195,22 +264,26 @@ class _Generator:
                           + len(toks)}}
 
     def run_many(self) -> List[Dict[str, Any]]:
-        """n>1: independent sampled completions in ONE batch. Direct
-        models tile the prompt to the candidate count (the draw is
-        independent per row); ragged models submit batcher requests
-        with staggered seeds. best_of > n (reranking) is not ported."""
+        """n>1 / best_of: independent sampled completions in ONE batch.
+        Direct models tile the prompt to the candidate count (the draw
+        is independent per row); ragged models submit batcher requests
+        with staggered seeds. best_of > n reranks the candidates by mean
+        token logprob (one scoring prefill, sequence_scores) and returns
+        the top n."""
         import dataclasses as _dc
 
         best_of = int(self.body.get("best_of") or self.n)
         if best_of < self.n:
             raise ApiError(400, "best_of must be >= n")
-        if best_of > self.n:
-            raise _not_ported("best_of reranking")
+        if not 1 <= best_of <= 64:
+            raise ApiError(400, "best_of must be in 1..64")
         if self.sampling is None:
             raise ApiError(400, "n>1 / best_of requires temperature > 0")
-        if self.want_logprobs is not None or self.echo:
+        if (self.regex is not None or self.schema is not None
+                or self.want_logprobs is not None or self.echo):
             raise ApiError(400, "n>1 / best_of is not supported "
-                                "together with logprobs/echo")
+                                "together with logprobs/echo/"
+                                "response_format")
         if self.cfg.get("ragged") and self.logit_bias is None:
             bat = self.server._batcher(self.entry)
             futs = [bat.submit(self.prompt_ids, self.n_new,
@@ -230,14 +303,33 @@ class _Generator:
                 logit_bias=self._bias_vec(iface))
             eos = getattr(iface, "eos_token_ids", None)
         results = []
+        trimmed: List[List[int]] = []
         for r in rows:
             toks, finish = self._trim_eos(r, eos)
             toks = [int(t) for t in toks]
             if self.stops:
                 toks, finish = self._stop_trim_tokens(toks, finish)
+            trimmed.append(toks)
             results.append({"text": self.tok.decode(toks),
                             "finish_reason": finish,
                             "n_tokens": len(toks)})
+        if best_of > self.n:
+            P = int(self.prompt_ids.shape[0])
+            Lmax = P + max((len(t) for t in trimmed), default=0)
+            full = np.zeros((best_of, max(Lmax, P + 1)), np.int64)
+            lens = np.zeros(best_of, np.int64)
+            for i, t in enumerate(trimmed):
+                full[i, :P] = self.prompt_ids
+                full[i, P:P + len(t)] = t
+                lens[i] = P + len(t)
+            iface = self.server._score_iface(self.entry)
+            scores = iface.sequence_scores(full, np.full(best_of, P), lens)
+            # a zero-token completion scores 0.0 from the masked mean,
+            # above every real candidate's negative mean logprob: rank
+            # empty candidates last instead
+            scores = np.where(lens > P, scores, -np.inf)
+            order = np.argsort(-scores)[:self.n]
+            results = [results[int(i)] for i in order]
         return results
 
     def _stop_trim_tokens(self, toks, finish):
@@ -378,10 +470,16 @@ class _Generator:
     def _run_direct(self, on_delta):
         iface = self.server._score_iface(self.entry)
         iface.tokenizer = self.tok
+        constraint = None
+        if self.regex is not None or self.schema is not None:
+            constraint = iface.compile_constraint(self.regex, self.schema)
         toks = iface.generate_tokens(self.prompt_ids[None], self.n_new,
                                      sampling=self.sampling,
+                                     constraint=constraint,
                                      logit_bias=self._bias_vec(iface))[0]
-        toks, finish = self._trim_eos(toks, iface.eos_token_ids)
+        eos = (constraint.eos_token_id if constraint is not None
+               else iface.eos_token_ids)
+        toks, finish = self._trim_eos(toks, eos)
         if on_delta is not None:
             # the direct decode reads its tokens back once, at the end:
             # stream the decoded pieces after
@@ -493,6 +591,8 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._completions(body, chat=False)
             if path == "/v1/chat/completions":
                 return self._completions(body, chat=True)
+            if path == "/v1/embeddings":
+                return self._embeddings(body)
             raise ApiError(404, f"no route {path}", "not_found_error")
         except Exception as e:  # noqa: BLE001
             try:
@@ -501,9 +601,57 @@ class _Handler(BaseHTTPRequestHandler):
                 pass
 
     # ------------------------------------------------------------------
+    def _embeddings(self, body: Dict[str, Any]):
+        """/v1/embeddings (reference :701-756): final-hidden-state
+        pooling over a causal LM, `pooling` last (default) or mean,
+        L2-normalized; one batched prefill that stops at the hidden-state
+        tap serves the whole input list (right-padding is exact under
+        the causal mask)."""
+        from ..tokenizer import AnyTokenizer
+
+        server = self.api.server
+        inputs = body.get("input")
+        if isinstance(inputs, str):
+            items: List[Any] = [inputs]
+        elif isinstance(inputs, list):
+            items = ([inputs] if inputs
+                     and all(isinstance(x, int) for x in inputs)
+                     else inputs)
+        else:
+            raise ApiError(400, "input must be a string or an array")
+        if not items:
+            raise ApiError(400, "input is empty")
+        if body.get("encoding_format", "float") != "float":
+            raise ApiError(400, "only encoding_format='float' is supported")
+        pooling = body.get("pooling", "last")
+        if pooling not in ("last", "mean"):
+            raise ApiError(400, f"unknown pooling {pooling!r} (last|mean)")
+        entry = _resolve_model(server, body.get("model"))
+        if "text" not in entry.interfaces:
+            raise ApiError(400, f"model {entry.name!r} has no text "
+                                "interface")
+        tok = AnyTokenizer.load(entry.tokenizer_source or "bytes")
+        iface = server._score_iface(entry)
+        ids_list = [np.asarray(tok.encode(it) if isinstance(it, str)
+                               else it, np.int64).reshape(-1)
+                    for it in items]
+        try:
+            vecs = iface.embed(ids_list, pooling=pooling)
+        except ValueError as e:
+            raise ApiError(400, str(e))
+        total = sum(int(a.size) for a in ids_list)
+        data = [{"object": "embedding", "index": i,
+                 "embedding": [float(x) for x in v]}
+                for i, v in enumerate(vecs)]
+        self._json(200, {"object": "list", "data": data,
+                         "model": entry.name,
+                         "usage": {"prompt_tokens": total,
+                                   "total_tokens": total}})
+
     def _completions(self, body: Dict[str, Any], chat: bool):
         from ..tokenizer import apply_chat_template
 
+        tool_schema = None
         if chat:
             messages = body.get("messages")
             if not messages:
@@ -526,9 +674,17 @@ class _Handler(BaseHTTPRequestHandler):
             body["logprobs"] = (int(body.get("top_logprobs", 0) or 0)
                                 if body.get("logprobs") else None)
             body["echo"] = False            # completions-only field
-            if body.get("tools") and body.get("tool_choice", "auto") \
-                    not in (None, "none"):
-                raise _not_ported("tool calls (tools)")
+            tool_schema = _tools_schema(body)
+            if tool_schema is not None:
+                if body.get("stream"):
+                    raise ApiError(400, "stream is not supported with "
+                                        "tool calls")
+                if body.get("response_format"):
+                    raise ApiError(400, "tools and response_format are "
+                                        "mutually exclusive")
+                body["response_format"] = {
+                    "type": "json_schema",
+                    "json_schema": {"schema": tool_schema}}
             # render AFTER model resolution needs the tokenizer; build
             # the generator with a placeholder then re-render
             gen = _Generator(self.api.server, body, "")
@@ -575,7 +731,23 @@ class _Handler(BaseHTTPRequestHandler):
                                   "finish_reason": res["finish_reason"],
                                   "logprobs": self._fmt_logprobs(
                                       res["logprobs"], chat)}
-        if chat:
+        if chat and tool_schema is not None:
+            try:
+                call = json.loads(res["text"])
+                choice["message"] = {
+                    "role": "assistant", "content": None,
+                    "tool_calls": [{
+                        "id": f"call_{rid[5:]}", "type": "function",
+                        "function": {
+                            "name": call["name"],
+                            "arguments": json.dumps(call["arguments"])}}]}
+                choice["finish_reason"] = "tool_calls"
+            except (ValueError, KeyError):
+                # the constraint hit the token cap mid-document: the raw
+                # text with its own finish_reason
+                choice["message"] = {"role": "assistant",
+                                     "content": res["text"]}
+        elif chat:
             choice["message"] = {"role": "assistant",
                                  "content": res["text"]}
         else:
