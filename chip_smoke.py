@@ -24,9 +24,10 @@ Phases:
      a cache for the cache write; timed only), and the kernel's bound:
      the larger of the bytes it must move
      over 3.35 TB/s and its operations over 989 TFLOP/s. flash_attention
-     runs eight cases: a 2048-token direct prefill, an admission group,
-     a 128-row piece, an 8192-token prompt, GPT-2's width, the causal
-     and additive modes, and ragged edges; packed_matmul runs the
+     runs eleven cases: a 2048-token direct prefill, an admission group,
+     a 128-row piece, an 8192-token prompt, GPT-2's width and piece, the
+     causal and additive modes, ragged edges, and the speculative verify
+     block (4 rows at a scalar start, 5 rows at 4 ragged starts); packed_matmul runs the
      layouts of Q4_0, Q4_K, Q6_K (int8 values, G 16), Q8_0 (no offsets)
      and a 128-row group at the fused q/k/v, o, gate/up, down and
      lm_head shapes, M 1, 16, 128, 512 and 2048 for Q4_0 and M 1 and
@@ -112,7 +113,35 @@ Phases:
      embeddings request among them; packed_matmul's launches must equal
      the lowering's PackedMatMul calls and int8_matmul's stay 0, (d) for
      each greedy answer, and one prompt's logits must stand those of
-     the checkpoint's dequantized dense weights.
+     the checkpoint's dequantized dense weights;
+ 10. LoRA adapters, speculative decoding and the profiler.
+     (m) speculative decoding, at the end of phase 3 on its int8 model:
+     the target drafting for itself and a truncated draft (layer 0 of
+     the same weights with the embedding and the head, loaded from the
+     same file), greedy at k 4 and 5 over 64 tokens, sampled at
+     temperature 0.8 (repeatable), once over the WebSocket's
+     generate_text with draft_model_id, and timed against plain decode;
+     at the end of phase 4, a batch of 4 self-drafted on its pos_per_row
+     model. Greedy tokens must equal the target's own greedy decode up
+     to a near tie and stand a teacher-forced prefill (spec_agreement:
+     the verify block and a decode step round in bf16 in different
+     places); flash_attention must launch once a layer for each prefill
+     and verify round, and int8_matmul once for each QuantMatMul call.
+     (l) after phase 9: the checkpoint loaded dense bf16 with
+     ragged_decode and serve_adapters a and b (PEFT dirs the smoke
+     writes: r 16, alpha 32, all seven projections), 24 concurrent
+     completions (8 base, 8 `"adapter": "a"`, 8 `"model": "<name>:b"`):
+     answers in full, one cache write a layer a step through both
+     graphs, (d) under each answer's adapter; a decode step of 16 rows
+     through the pre-surgery and the adapted graph timed in turns;
+     load_adapter c over the WebSocket with requests in flight, 8
+     completions under c, /v1/models, the card's GB before, during and
+     after the swap; one prompt's logits under a against the checkpoint
+     loaded with lora=<a> (merged at load) on the direct path. (n)
+     start_profiler, one served completion, stop_profiler over the
+     WebSocket: the Chrome trace must hold the port's kernels by name.
+     Last, `cli generate --draft-model` on phase 7's GPT-2 checkpoint
+     must print the speculative decoder's text.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -759,7 +788,10 @@ def phase2_flash(torch, results):
              ("(vi) causal", "causal", 2, 32, 8, 1024, 1536, 128, None),
              ("(vii) additive mask", "mask", 2, 32, 8, 512, 1024, 128, None),
              ("(viii) ragged edges", "pos", 1, 32, 8, 300, 1000, 128, [700]),
-             ("(ix) GPT-2 piece", "pos", 1, 12, 12, 128, 1024, 64, [512]))
+             ("(ix) GPT-2 piece", "pos", 1, 12, 12, 128, 1024, 64, [512]),
+             ("(x) verify block", "pos", 1, 32, 8, 4, 2048, 128, [700]),
+             ("(xi) verify block, 4 rows", "pos", 4, 32, 8, 5, 2048, 128,
+              [0, 65, 1000, 2043]))
     card = torch.cuda.current_device()
     worst, head, shapes = 0.0, None, {}
     for label, mode, B, Hq, Hkv, Sq, Skv, D, pos_list in cases:
@@ -1192,10 +1224,11 @@ def write_checkpoint(d: Path, layers: int, np, bf16) -> int:
                              checkpoint_tensors(layers, np), np, bf16)
 
 
-def write_safetensors(d: Path, shapes: dict, tensors, np, bf16) -> int:
-    """d/model.safetensors holding `tensors` ((name, f32 array) in the
-    order of `shapes`), stored in bf16, or f16 where ml_dtypes is
-    missing; returns the data bytes."""
+def write_safetensors(d: Path, shapes: dict, tensors, np, bf16,
+                      name: str = "model.safetensors") -> int:
+    """d/`name` holding `tensors` ((name, f32 array) in the order of
+    `shapes`), stored in bf16, or f16 where ml_dtypes is missing; returns
+    the data bytes."""
     st_dtype, np_dtype = (("BF16", bf16) if bf16 is not None
                           else ("F16", np.float16))
     header, off = {}, 0
@@ -1206,7 +1239,7 @@ def write_safetensors(d: Path, shapes: dict, tensors, np, bf16) -> int:
         off += size
     hb = json.dumps(header).encode()
     hb += b" " * (-len(hb) % 8)
-    with open(d / "model.safetensors", "wb") as f:
+    with open(d / name, "wb") as f:
         f.write(struct.pack("<Q", len(hb)))
         f.write(hb)
         for _, arr in tensors:
@@ -1576,6 +1609,7 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> dict:
         rates["long_ttft_ms"] = phase5_direct(torch, np, iface, api.port,
                                               layers, results)
         phase8(torch, np, srv, iface, api.port, layers, rates, results)
+        phase10_spec_direct(torch, np, srv, iface, ckpt, layers, results)
     finally:
         transforms.int8_matmul = spy.inner
         api.stop()
@@ -2019,17 +2053,19 @@ def stream_chat(port: int, body: dict):
         c.close()
 
 
-def teacher_gaps(torch, np, iface, prompt, toks):
-    """One prefill over prompt + answer through the batcher's interface:
-    per answer step, (largest logit - the emitted token's logit) and the
-    logits' scale max|logit| over those steps."""
+def teacher_gaps(torch, np, iface, prompt, toks, slot: int = 0):
+    """One prefill over prompt + answer through the batcher's interface,
+    under adapter `slot` (0: the base model): per answer step, (largest
+    logit - the emitted token's logit) and the logits' scale max|logit|
+    over those steps."""
     full = np.concatenate([prompt, toks[:-1]])
     padded = np.zeros((1, -(-len(full) // 64) * 64), np.int64)
     padded[0, :len(full)] = full
     dev = iface.device
     logits = iface.step(torch.from_numpy(padded).to(dev),
                         torch.zeros(1, dtype=torch.int64, device=dev),
-                        iface.fresh_cache(1))
+                        iface.fresh_cache(1),
+                        torch.tensor([slot], device=dev) if slot else None)
     P = len(prompt)
     forced = logits[0, P - 1:P - 1 + len(toks)].float().cpu().numpy()
     emitted = forced[np.arange(len(toks)), toks]
@@ -2239,6 +2275,7 @@ def phase4(torch, np, ckpt: Path, layers: int, results,
         f"on {card_line()}")
     try:
         phase5_batched(torch, np, srv, bat, layers, results)
+        phase10_spec_batched(torch, np, bat.iface, layers, results)
     finally:
         transforms.int8_matmul = spy.inner
         for b in srv._batchers.values():
@@ -3246,6 +3283,778 @@ def phase9(torch, np, ckpt: Path, layers: int, results, q4_0: dict) -> None:
         fail("the GPTQ model's logits disagree with its dequantized weights'")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: LoRA adapters, speculative decoding, the profiler
+LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                "up_proj", "down_proj")
+LORA_R, LORA_ALPHA = 16, 32
+
+
+class WSClient:
+    """A client of the port's WebSocket server (RFC 6455 text frames,
+    masked), enough for the protocol's JSON messages."""
+
+    def __init__(self, port: int):
+        import base64
+        import os
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=900)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((
+            f"GET / HTTP/1.1\r\nHost: 127.0.0.1\r\nUpgrade: websocket\r\n"
+            f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+            f"Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        resp = b""
+        while b"\r\n\r\n" not in resp:
+            resp += self.sock.recv(4096)
+        if b" 101 " not in resp.split(b"\r\n")[0]:
+            fail(f"the WebSocket upgrade was refused: {resp[:200]!r}")
+
+    def send(self, obj) -> None:
+        import os
+
+        payload = json.dumps(obj).encode()
+        head = bytearray([0x81])
+        n = len(payload)
+        if n < 126:
+            head.append(0x80 | n)
+        elif n < (1 << 16):
+            head += bytes([0x80 | 126]) + struct.pack(">H", n)
+        else:
+            head += bytes([0x80 | 127]) + struct.pack(">Q", n)
+        mask = os.urandom(4)
+        self.sock.sendall(bytes(head) + mask + bytes(
+            b ^ mask[i % 4] for i, b in enumerate(payload)))
+
+    def recv(self) -> dict:
+        def exact(n):
+            out = b""
+            while len(out) < n:
+                chunk = self.sock.recv(n - len(out))
+                if not chunk:
+                    fail("the WebSocket server closed the connection")
+                out += chunk
+            return out
+
+        head = exact(2)
+        n = head[1] & 0x7F
+        if n == 126:
+            n = struct.unpack(">H", exact(2))[0]
+        elif n == 127:
+            n = struct.unpack(">Q", exact(8))[0]
+        return json.loads(exact(n))
+
+    def until(self, *types) -> dict:
+        """The next message of one of `types`; a job_error fails."""
+        while True:
+            r = self.recv()
+            if r["type"] in types:
+                return r
+            if r["type"] == "job_error":
+                fail(f"the WebSocket server answered an error: {r}")
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def ws_serve(srv):
+    """srv's WebSocket server on a free port, in a thread of its own:
+    (port, stop). stop() cancels the server's tasks, closes its loop and
+    ends its report pump."""
+    import asyncio
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    loop = asyncio.new_event_loop()
+    main = loop.create_task(srv.run("127.0.0.1", port))
+
+    def run():
+        asyncio.set_event_loop(loop)
+        try:
+            loop.run_until_complete(main)
+        except asyncio.CancelledError:
+            pass                      # stop()
+        finally:
+            rest = asyncio.all_tasks(loop)
+            for task in rest:
+                task.cancel()
+            loop.run_until_complete(asyncio.gather(*rest,
+                                                   return_exceptions=True))
+            loop.close()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    deadline = time.time() + 30
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            break
+        except OSError:
+            if time.time() > deadline:
+                fail("the WebSocket server did not start")
+            time.sleep(0.05)
+
+    def stop():
+        srv.scheduler.reports.put(None)
+        loop.call_soon_threadsafe(main.cancel)
+        t.join(30)
+
+    return port, stop
+
+
+def write_adapter(d: Path, layers: int, seed: int, np, bf16) -> None:
+    """A PEFT LoRA dir the way peft's save_pretrained writes one:
+    adapter_config.json and adapter_model.safetensors, r 16 and alpha 32
+    (scale 2) on the seven projections of every layer. A (r, in) and B
+    (out, r) are seeded normals scaled 0.02 (a fresh PEFT adapter's B is
+    zero; here both are random, so each adapter changes the model)."""
+    E, I = WIDTHS["hidden_size"], WIDTHS["intermediate_size"]
+    kv = WIDTHS["num_key_value_heads"] * E // WIDTHS["num_attention_heads"]
+    dims = {"q_proj": (E, E), "k_proj": (kv, E), "v_proj": (kv, E),
+            "o_proj": (E, E), "gate_proj": (I, E), "up_proj": (I, E),
+            "down_proj": (E, I)}                       # (out, in)
+    shapes = {}
+    for i in range(layers):
+        for t in LORA_TARGETS:
+            block = "mlp" if t.endswith(("gate_proj", "up_proj",
+                                         "down_proj")) else "self_attn"
+            mod = f"base_model.model.model.layers.{i}.{block}.{t}"
+            shapes[mod + ".lora_A.weight"] = (LORA_R, dims[t][1])
+            shapes[mod + ".lora_B.weight"] = (dims[t][0], LORA_R)
+    rng = np.random.default_rng(seed)
+    write_safetensors(d, shapes, ((n, rng.standard_normal(s, np.float32)
+                                   * 0.02) for n, s in shapes.items()),
+                      np, bf16, "adapter_model.safetensors")
+    (d / "adapter_config.json").write_text(json.dumps({
+        "peft_type": "LORA", "task_type": "CAUSAL_LM", "r": LORA_R,
+        "lora_alpha": LORA_ALPHA, "target_modules": list(LORA_TARGETS),
+        "fan_in_fan_out": False, "use_rslora": False}))
+
+
+def spec_counters() -> dict:
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import kv_write_pair
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
+
+    return {"flash_attention": flash_attention, "int8_matmul": int8_matmul,
+            "decode_attention": decode_attention,
+            "kv_write_pair": kv_write_pair}
+
+
+def spec_agreement(np, iface, prompts, toks, plain, layers: int,
+                   what: str) -> None:
+    """Greedy speculative tokens against the target's own greedy decode,
+    `plain` = (tokens, per-step logits), row by row. The verify block
+    (k rows through flash_attention and k-row products) and a decode
+    step (one row through decode_attention) round in bf16 at different
+    places, so they can pick different tokens where the two best logits
+    nearly tie (phase 3's (c) measures decode against prefill logits
+    within 1.5% of their scale per sqrt(layer), at an argmax agreement
+    near 0.97 on these random weights). So: the tokens must be equal up
+    to the first difference, and there the plain decode must rate the
+    speculative token within twice that bound of its own pick (a near
+    tie); and every speculative token must stand a teacher-forced
+    prefill over prompt and answer ((d): its logit within the bound of
+    the step's largest). A verify that wrote or read the cache at a
+    wrong offset breaks both."""
+    frac = 0.015 * math.sqrt(layers)
+    ptoks, plogits = plain
+    P = prompts.shape[1]
+    forced = iface.logits(np.concatenate([prompts, toks[:, :-1]], 1)
+                          ).astype(np.float32)[:, P - 1:]
+    same, worst_tie, worst_d = [], 0.0, 0.0
+    for b in range(toks.shape[0]):
+        tol = frac * float(np.abs(plogits[b]).max())
+        differ = np.nonzero(toks[b] != ptoks[b])[0]
+        same.append(int(differ[0]) if differ.size else toks.shape[1])
+        if differ.size:
+            i = int(differ[0])
+            row = plogits[b, i]
+            worst_tie = max(worst_tie, float(row[ptoks[b, i]]
+                                             - row[toks[b, i]]) / (2 * tol))
+        f = forced[b, np.arange(toks.shape[1])]
+        gaps = f.max(-1) - f[np.arange(toks.shape[1]), toks[b]]
+        worst_d = max(worst_d, float(gaps.max()) / (frac * float(
+            np.abs(f).max())))
+    say(f"    {what}: tokens equal to plain greedy for the first {same} of "
+        f"{toks.shape[1]}; at the first difference the plain decode's "
+        f"margin over the speculative token {worst_tie:.4g} of its bound "
+        f"(2 x {frac:.1%} of max|logit|); (d) against a teacher-forced "
+        f"prefill: worst {worst_d:.4g} of the bound ({frac:.1%})")
+    if not worst_tie <= 1.0 or not worst_d <= 1.0:
+        fail(f"speculative greedy tokens ({what}) part from the target's "
+             f"greedy decode away from a near tie, or do not stand a "
+             f"teacher-forced prefill")
+
+
+def spec_run(torch, np, dec, prompts, n_new: int, plain, draft_layers: int,
+             layers: int, what: str, sampling=None) -> tuple:
+    """One speculative generation of `prompts` (B, P) with the counters
+    set to 0 just before and read just after: greedy tokens against the
+    target's own greedy decode `plain` (spec_agreement); flash_attention
+    launched once a layer for the target's prefill, the draft's and every
+    verify round (the draft's own steps are one row: decode_attention);
+    every QuantMatMul call of the lowering launched int8_matmul once.
+    Returns (tokens, rounds, seconds, launches)."""
+    from whisper_tensor_tpu_torch.milli import transforms
+
+    counters = spec_counters()
+    spy = quant_spy(transforms)
+    try:
+        zero(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = dec.generate_tokens(prompts, n_new, sampling=sampling)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {n: fn.launches for n, fn in counters.items()}
+    finally:
+        transforms.int8_matmul = spy.inner
+    rounds, k = dec.last_rounds, dec.k
+    flash = (1 + rounds) * layers + draft_layers
+    acc = (n_new / rounds - 1) / (k - 1)
+    say(f"  {what}, k={k}: {rounds} rounds (full acceptance: "
+        f"{-(-(n_new - 1) // k)}), acceptance {acc:.3f}, "
+        f"{secs / rounds * 1e3:.2f} ms a round, {toks.size / secs:.1f} "
+        f"tok/s; launches {got}; QuantMatMul calls {spy.calls}, int8 "
+        f"launches {spy.launched}, up to {spy.rows} rows")
+    if sampling is None:
+        spec_agreement(np, dec.target, prompts, toks, plain, layers, what)
+    if got["flash_attention"] != flash:
+        fail(f"flash_attention launched {got['flash_attention']} times for "
+             f"{rounds} verify rounds ({what}, k={k}): {flash} expected")
+    if spy.calls <= 0 or spy.launched != spy.calls \
+            or got["int8_matmul"] != spy.calls:
+        fail(f"the QuantMatMul calls of the speculative run ({what}) did "
+             f"not each launch int8_matmul once")
+    return toks, rounds, secs, got
+
+
+def phase10_spec_direct(torch, np, srv, iface, ckpt: Path, layers: int,
+                        results) -> None:
+    """Phase 10 (m), at the end of phase 3 on its int8 model: speculative
+    decoding with two drafts, the target itself (self-draft: every
+    proposal accepted) and the first layer of the same weights with the
+    embedding and the head (a truncated draft, near the all-rejected
+    floor with random weights); greedy at k 4 and 5, 64 new tokens, each
+    token-exact against the target's own greedy decode; sampled at
+    temperature 0.8 (seeded, repeatable); once over the WebSocket
+    generate_text with draft_model_id; speculative against plain decode
+    timed back to back."""
+    from whisper_tensor_tpu_torch.interfaces.speculative import (
+        SpeculativeDecoder)
+    from whisper_tensor_tpu_torch.interfaces.text import SamplingParams
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    say("phase 10 (m): speculative decoding on phase 3's int8 model")
+    t_phase = time.perf_counter()
+    draft_dir = ckpt.with_name(ckpt.name + "-draft")
+    shutil.rmtree(draft_dir, ignore_errors=True)
+    draft_dir.mkdir(parents=True)
+    cfg = json.loads((ckpt / "config.json").read_text())
+    (draft_dir / "config.json").write_text(json.dumps(
+        {**cfg, "num_hidden_layers": 1}))
+    (draft_dir / "model.safetensors").symlink_to(ckpt / "model.safetensors")
+    try:
+        t0 = time.perf_counter()
+        (dentry,) = srv.models.run_loader("transformers", {
+            "path": str(draft_dir), "dtype": "bf16", "quantize": "int8",
+            "max_len": MAX_LEN})
+        draft = srv._score_iface(dentry)
+        draft._weights()
+        torch.cuda.synchronize()
+        say(f"  the truncated draft (layer 0, the embedding and the head, "
+            f"int8) loaded in {time.perf_counter() - t0:.1f} s")
+        tok = ByteTokenizer()
+        prompt = np.asarray(tok.encode(GREEDY["prompt"]), np.int64)[None]
+        n_new = 64
+        plain = iface.generate_with_logits(prompt, n_new)
+        kernels = {}
+        for dname, d, dl in (("self-draft", iface, layers),
+                             ("truncated draft", draft, 1)):
+            for k in (4, 5):
+                dec = SpeculativeDecoder(iface, d, k=k)
+                _, rounds, _, got = spec_run(torch, np, dec, prompt, n_new,
+                                             plain, dl, layers, dname)
+                kernels = {n: kernels.get(n, 0) + v for n, v in got.items()}
+        for res in results:
+            if res["name"] in kernels:
+                res["launches_spec_direct"] = kernels[res["name"]]
+        sp = SamplingParams(temperature=0.8, seed=7)
+        dec = SpeculativeDecoder(iface, draft, k=4)
+        a, *_ = spec_run(torch, np, dec, prompt, n_new, None, 1, layers,
+                         "truncated draft, sampled at temperature 0.8",
+                         sampling=sp)
+        b = dec.generate_tokens(prompt, n_new, sampling=sp)
+        V = iface._vocab_size()
+        # the WebSocket's decoder below: the same draft and k, greedy
+        want_ws = dec.generate_tokens(prompt, n_new)[0]
+        if not np.array_equal(a, b) or a.min() < 0 or a.max() >= V:
+            fail("the sampled speculative run is not repeatable, or left "
+                 "the vocabulary")
+        # speculative (self-draft, k 4) against plain decode, back to back
+        dec = SpeculativeDecoder(iface, iface, k=4)
+        times = {"plain": [], "spec": []}
+        for which in ("plain", "spec", "spec", "plain"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if which == "plain":
+                iface.generate_tokens(prompt, n_new)
+            else:
+                dec.generate_tokens(prompt, n_new)
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t0)
+        tp, ts = min(times["plain"]), min(times["spec"])
+        say(f"  information: {n_new} tokens, plain decode {n_new / tp:.1f} "
+            f"tok/s, self-drafted k=4 {n_new / ts:.1f} tok/s "
+            f"({dec.last_rounds} rounds, {ts / dec.last_rounds * 1e3:.2f} ms "
+            f"a round; batch 1, {layers} layers) on {card_line()}")
+        # the WebSocket server's generate_text with draft_model_id
+        port, stop = ws_serve(srv)
+        try:
+            ws = WSClient(port)
+            (entry,) = [e for e in srv.models._models.values()
+                        if e.id != dentry.id]
+            ws.send({"type": "generate_text", "model_id": entry.id,
+                     "prompt": GREEDY["prompt"], "max_new_tokens": n_new,
+                     "tokenizer": "bytes", "draft_model_id": dentry.id,
+                     "draft_k": 4})
+            r = ws.until("job_result")
+            ws.close()
+        finally:
+            stop()
+        say(f"  WebSocket generate_text with draft_model_id: "
+            f"{r['result']['rounds']} rounds, text "
+            f"{r['result']['text'][:40]!r}...")
+        if r["result"]["text"] != tok.decode([int(t) for t in want_ws]):
+            fail("the WebSocket speculative answer differs from the same "
+                 "decoder's tokens called directly")
+        srv._dispatch({"type": "unload_model", "model_id": dentry.id})
+    finally:
+        shutil.rmtree(draft_dir, ignore_errors=True)
+    say(f"[phase 10 (m), direct: {time.perf_counter() - t_phase:.1f} s]")
+
+
+def phase10_spec_batched(torch, np, iface, layers: int, results) -> None:
+    """Phase 10 (m), at the end of phase 4 on its pos_per_row int8 model:
+    a batch of 4 prompts, self-drafted at k 4 (both interfaces
+    pos_per_row: each row's start is its own), token-exact against the
+    interface's plain greedy decode of the batch."""
+    from whisper_tensor_tpu_torch.interfaces.speculative import (
+        SpeculativeDecoder)
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    say("phase 10 (m): speculative decoding, a batch of 4 on phase 4's "
+        "pos_per_row int8 model")
+    tok = ByteTokenizer()
+    prompts = np.stack([np.asarray(tok.encode(long_text(np, 40, SEED + 70 + i)),
+                                   np.int64) for i in range(4)])
+    plain = iface.generate_with_logits(prompts, 64)
+    dec = SpeculativeDecoder(iface, iface, k=4)
+    _, rounds, _, got = spec_run(torch, np, dec, prompts, 64, plain, layers,
+                                 layers, "B=4 self-draft")
+    for res in results:
+        if res["name"] in got:
+            res["launches_spec_batched"] = got[res["name"]]
+
+
+def lora_step_rates(torch, iface, B: int, layers: int) -> None:
+    """Decode steps of B rows (one chunk's step) through the pre-surgery
+    graph (every row base) and through the adapted graph (rows under
+    base, a and b in turn), timed in turns: base, adapted, adapted,
+    base. Information only."""
+    dev = iface.device
+    caches = iface.fresh_cache(B)
+    ids = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    pos = torch.arange(B, device=dev) * 64 + 100
+    lora = torch.arange(B, device=dev) % 3
+
+    def ms(idx, n=32):
+        iface.step(ids, pos, caches, idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            iface.step(ids, pos, caches, idx)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    got = {"base": [], "adapted": []}
+    for which in ("base", "adapted", "adapted", "base"):
+        got[which].append(ms(None if which == "base" else lora))
+    b, a = min(got["base"]), min(got["adapted"])
+    say(f"  information: a decode step of {B} rows, every row base "
+        f"(pre-surgery graph) {b:.2f} ms = {B / b * 1e3:.0f} tok/s; rows "
+        f"under base, a and b (adapted graph) {a:.2f} ms = "
+        f"{B / a * 1e3:.0f} tok/s ({a / b:.2f}x; {layers} layers, de-fused "
+        f"q/k/v and gate/up in both) on {card_line()}")
+
+
+def phase10(torch, np, ckpt: Path, gpt2_ckpt: Path, layers: int, bf16,
+            results) -> None:
+    """Phase 10: (l) multi-LoRA serving, (n) the profiler, and `cli
+    generate --draft-model`. (l): the checkpoint loaded dense bf16 with
+    ragged_decode and serve_adapters a and b (r 16, alpha 32, all seven
+    projections), 16 slots, pieces of 128; 24 concurrent completions (8
+    base, 8 with "adapter": "a", 8 with model "<name>:b"); every answer
+    in full, the attention and cache-write kernels' counters rise, one
+    cache-write launch a layer a step through either graph, (d) each
+    greedy answer stands a teacher-forced prefill under its own adapter;
+    then load_adapter c over the WebSocket while 8 requests are in
+    flight, 8 completions under c, /v1/models listing a, b and c, and
+    the card's GB before, during and after the swap; one prompt's logits
+    under a within the bound of (c) of the checkpoint loaded with
+    lora=<a> (merged at load) on the direct path. (n): start_profiler,
+    one served completion, stop_profiler over the WebSocket; the Chrome
+    trace must name the port's kernels. Last, `cli generate
+    --draft-model` on the GPT-2 checkpoint (int8, self-drafted) must
+    print the plain `cli generate` text."""
+    import contextlib
+    import io
+
+    from whisper_tensor_tpu_torch import cli
+    from whisper_tensor_tpu_torch.interfaces.speculative import (
+        SpeculativeDecoder)
+
+    say(f"phase 10 (l): multi-LoRA serving through the batcher; host RSS "
+        f"{host_rss_gb():.1f} GB")
+    ads = {n: ckpt.with_name(f"adapter-{n}") for n in "abc"}
+    for i, (n, d) in enumerate(ads.items()):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        write_adapter(d, layers, SEED + 40 + i, np, bf16)
+    pdir = ckpt.with_name("profile")
+    try:
+        phase10_lora(torch, np, ckpt, ads, pdir, layers, results)
+    finally:
+        for d in list(ads.values()) + [pdir]:
+            shutil.rmtree(d, ignore_errors=True)
+
+    say("phase 10: cli generate --draft-model (GPT-2 124M widths, int8, "
+        "self-drafted at k 4)")
+    args = ["generate", "--model", str(gpt2_ckpt), "--prompt",
+            GREEDY["prompt"], "--max-new-tokens", "32", "--max-len", "256",
+            "-c", "quantize=int8"]
+    outs = []
+    for extra in ([], ["--draft-model", str(gpt2_ckpt), "--draft-k", "4"]):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli.main(args + extra)
+        outs.append((out.getvalue(), err.getvalue()))
+    spec_line = [ln for ln in outs[1][1].splitlines() if "speculative" in ln]
+    # the CLI's speculative text is the decoder's, on an interface loaded
+    # as the CLI loads it; against plain `generate` it may part at a near
+    # tie (spec_agreement), so that is reported, not required
+    iface, _ = cli._load_text(argparse.Namespace(
+        model=str(gpt2_ckpt), config=["quantize=int8"], max_len=256,
+        loader="auto", tokenizer=None, device="cuda"))
+    want = iface.tokenizer.decode([int(t) for t in SpeculativeDecoder(
+        iface, iface, k=4).generate_tokens(np.asarray(
+            iface.tokenizer.encode(GREEDY["prompt"]), np.int64), 32)[0]])
+    plain_text, spec_text = outs[0][0].rstrip("\n"), outs[1][0].rstrip("\n")
+    same = next((i for i, (a, b) in enumerate(zip(plain_text, spec_text))
+                 if a != b), min(len(plain_text), len(spec_text)))
+    say(f"  --draft-model: {spec_line}; its text is the decoder's called "
+        f"directly: {spec_text == want}; equal to plain `generate` for its "
+        f"first {same} of {len(spec_text)} characters")
+    if spec_text != want or not spec_line:
+        fail("cli generate --draft-model printed another text than the "
+             "speculative decoder's")
+
+
+def phase10_lora(torch, np, ckpt: Path, ads: dict, pdir: Path, layers: int,
+                 results) -> None:
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        kv_write_pair, ragged_kv_write)
+    from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+        packed_matmul)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    cfg = {"path": str(ckpt), "dtype": "bf16", "max_len": MAX_LEN,
+           "ragged_decode": True, "serve_batch": 16, "serve_chunk": 16,
+           "prefill_chunk": 128,
+           "serve_adapters": f"a={ads['a']},b={ads['b']}"}
+    srv = Server()
+    t0 = time.perf_counter()
+    (entry,) = srv.models.run_loader("transformers", cfg)
+    say(f"  loader (ragged_decode graph, dense bf16): "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bat = srv._batcher(entry)
+    iface = bat.iface
+    iface._weights()
+    torch.cuda.synchronize()
+    gb_loaded = torch.cuda.memory_allocated() / 1e9
+    base_kinds = [n.op.KIND for n in iface._exec.graph.nodes]
+    lora_kinds = [n.op.KIND for n in iface._exec_lora.graph.nodes]
+    say(f"  batcher interface (adapters a, b installed, de-fused, upload): "
+        f"{time.perf_counter() - t0:.1f} s, {gb_loaded:.2f} GB on the card; "
+        f"graphs: base {base_kinds.count('KVWrite')} KVWrite, "
+        f"{base_kinds.count('MatMul')} MatMul; adapted "
+        f"{lora_kinds.count('KVWrite')} KVWrite, "
+        f"{lora_kinds.count('Einsum')} Einsum")
+    if (base_kinds.count("KVWrite") != layers
+            or lora_kinds.count("KVWrite") != layers
+            or lora_kinds.count("Einsum") != 3 * len(LORA_TARGETS) * layers
+            or "Einsum" in base_kinds):
+        fail("the adapted and base graphs do not each write a layer's "
+             "caches in one KVWrite, or the surgery is not the expected one")
+    name = entry.name
+    records, submit = [], bat.submit
+
+    def recorded(prompt_ids, n_new, **kw):
+        fut = submit(prompt_ids, n_new, **kw)
+        records.append((np.asarray(prompt_ids, np.int64).reshape(-1),
+                        kw.get("adapter"), fut))
+        return fut
+
+    rng = np.random.default_rng(SEED + 10)
+    lengths = (5, 9, 14, 20, 31, 45, 70, 110, 150, 190, 230, 300) * 2
+    reqs = []
+    for i, n in enumerate(lengths):
+        body = {"prompt": long_text(np, n, SEED + 400 + i),
+                "max_tokens": int(rng.integers(12, 41)), "temperature": 0,
+                "model": name}
+        if i % 3 == 1:
+            body["adapter"] = "a"
+        elif i % 3 == 2:
+            body["model"] = f"{name}:b"
+        reqs.append(body)
+    counters = {"decode_attention": decode_attention,
+                "kv_write_pair": kv_write_pair,
+                "ragged_kv_write": ragged_kv_write,
+                "flash_attention": flash_attention,
+                "int8_matmul": int8_matmul, "packed_matmul": packed_matmul}
+    answers = [None] * len(reqs)
+    bat.submit = recorded
+    api = OpenAIApi(srv, "127.0.0.1", 0).start()
+    ws_port, ws_stop = ws_serve(srv)
+    steps = count_steps(iface)
+    try:
+        zero(counters)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(
+            i, request(api.port, "/v1/completions", reqs[i])))
+            for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(900)
+        served_s = time.perf_counter() - t0
+        launches = rose(counters, "the adapted batched path", (
+            "decode_attention", "kv_write_pair", "flash_attention"))
+        runs = steps.runs
+    finally:
+        del iface.step
+        bat.submit = submit
+    if launches["int8_matmul"] or launches["packed_matmul"]:
+        fail("the dense adapted path launched a quantized product")
+    check_cache_writes(launches, runs, layers, "adapted batched")
+    for res in results:
+        if res["name"] in launches:
+            res["launches_lora_batched"] = launches[res["name"]]
+    n_tokens = 0
+    for i, (body, ans) in enumerate(zip(reqs, answers)):
+        if ans is None or ans[0] != 200:
+            fail(f"adapter request {i} got no answer or an error: "
+                 f"{None if ans is None else ans[1][:300]!r}")
+        got = json.loads(ans[1])["usage"]["completion_tokens"]
+        if got != body["max_tokens"]:
+            fail(f"adapter request {i} answered {got} tokens of "
+                 f"{body['max_tokens']}")
+        n_tokens += got
+    if len(records) != len(reqs) or sorted(
+            str(a) for _, a, _ in records) != sorted(["None"] * 8 + ["a"] * 8
+                                                     + ["b"] * 8):
+        fail(f"the batcher did not receive 8 base, 8 a and 8 b requests: "
+             f"{[a for _, a, _ in records]}")
+    st = bat.stats()
+    say(f"  24 requests (8 base, 8 a, 8 b) served in {served_s:.2f} s: "
+        f"{n_tokens} tokens = {n_tokens / served_s:.1f} tok/s over the "
+        f"phase, {st['chunks_dispatched']} chunks, {runs} runs of the step "
+        f"graph")
+    frac = 0.015 * math.sqrt(layers)
+
+    def d_check(iface, recs, what):
+        worst, outs = 0.0, {}
+        for prompt, adapter, fut in recs:
+            toks = fut.result()
+            gaps, scale = teacher_gaps(torch, np, iface, prompt, toks,
+                                       iface.adapter_slots[adapter])
+            worst = max(worst, float(gaps.max()) / (frac * scale))
+            outs.setdefault(adapter, []).append(toks)
+        say(f"  (d) {len(recs)} greedy answers ({what}) against "
+            f"teacher-forced prefills under their own adapter: worst (max "
+            f"logit - emitted logit) {worst:.4g} of the bound ({frac:.1%} of "
+            f"each answer's max|logit|)")
+        if not worst <= 1.0:
+            fail(f"a greedy answer ({what}) disagrees with the "
+                 f"teacher-forced prefill under its adapter")
+        return outs
+
+    d_check(iface, records, "base, a and b")
+    lora_step_rates(torch, iface, bat.max_batch, layers)
+    tok = ByteTokenizer()
+    prompt = np.asarray(tok.encode(GREEDY["prompt"]), np.int64)
+    P = prompt.shape[0]
+    padded = torch.zeros((1, 32), dtype=torch.int64, device=iface.device)
+    padded[0, :P] = torch.from_numpy(prompt)
+    adapted_logits = iface.step(
+        padded, torch.zeros(1, dtype=torch.int64, device=iface.device),
+        iface.fresh_cache(1), torch.tensor(
+            [iface.adapter_slots["a"]], device=iface.device))[0, :P]
+    adapted_logits = adapted_logits.float().cpu().numpy()
+
+    # load_adapter c over the WebSocket while 8 requests are in flight
+    inflight = [{"prompt": long_text(np, 60 + 20 * i, SEED + 500 + i),
+                 "max_tokens": 64, "temperature": 0, "model": name,
+                 **({"adapter": "ab"[i % 2]} if i % 3 else {})}
+                for i in range(8)]
+    fly = [None] * 8
+    ws = WSClient(ws_port)
+    try:
+        fly_threads = [threading.Thread(target=lambda i=i: fly.__setitem__(
+            i, request(api.port, "/v1/completions", inflight[i])))
+            for i in range(8)]
+        for t in fly_threads:
+            t.start()
+        deadline = time.time() + 60
+        while bat.stats()["active"] < 8 and time.time() < deadline:
+            time.sleep(0.002)
+        active = bat.stats()["active"]
+        torch.cuda.synchronize()
+        gb_before = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ws.send({"type": "load_adapter", "model_id": entry.id, "name": "c",
+                 "path": str(ads["c"])})
+        rep = ws.until("adapter_loaded")
+        swap_s = time.perf_counter() - t0
+        new = srv._batcher(entry)
+        if new is bat or rep["adapters"] != ["a", "b", "c"]:
+            fail(f"load_adapter did not swap in a batcher serving a, b and "
+                 f"c: {rep}")
+        c_records, c_submit = [], new.submit
+
+        def c_recorded(prompt_ids, n_new, **kw):
+            fut = c_submit(prompt_ids, n_new, **kw)
+            c_records.append((np.asarray(prompt_ids, np.int64).reshape(-1),
+                              kw.get("adapter"), fut))
+            return fut
+
+        new.submit = c_recorded
+        c_reqs = [{"prompt": long_text(np, 10 + 30 * i, SEED + 600 + i),
+                   "max_tokens": 24, "temperature": 0,
+                   "model": f"{name}:c"} for i in range(8)]
+        c_ans = [None] * 8
+        c_threads = [threading.Thread(target=lambda i=i: c_ans.__setitem__(
+            i, request(api.port, "/v1/completions", c_reqs[i])))
+            for i in range(8)]
+        for t in c_threads:
+            t.start()
+        for t in c_threads + fly_threads:
+            t.join(900)
+        new.submit = c_submit
+        deadline = time.time() + 300
+        while bat._thread is not None and time.time() < deadline:
+            time.sleep(0.01)       # the old batcher drains, then stops
+        torch.cuda.synchronize()
+        gb_peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        ws.close()
+    for i, ans in enumerate(fly + c_ans):
+        body = (inflight + c_reqs)[i]
+        if ans is None or ans[0] != 200 or json.loads(ans[1])["usage"][
+                "completion_tokens"] != body["max_tokens"]:
+            fail(f"request {i} across the adapter swap was not answered in "
+                 f"full: {None if ans is None else ans[1][:300]!r}")
+    # nothing here may keep the old batcher (its caches) alive
+    del bat, iface, steps, submit, recorded
+    free_memory(torch)
+    gb_after = torch.cuda.memory_allocated() / 1e9
+    say(f"  load_adapter c over the WebSocket with {active} rows in flight: "
+        f"{swap_s:.2f} s to the adapter_loaded reply; 8 in-flight and 8 c "
+        f"requests answered in full; card GB before the swap {gb_before:.2f}"
+        f", peak during it {gb_peak:.2f}, after the old batcher drained "
+        f"{gb_after:.2f} (the new batcher shares the old one's device "
+        f"weights and uploads the adapter stacks)")
+    new_iface = srv._batcher(entry).iface
+    outs = d_check(new_iface, c_records, "under c, on the new batcher")
+    if len(outs.get("c", [])) != 8:
+        fail("the 8 c requests did not reach the new batcher as c")
+    models = models_listing(api.port)
+    say(f"  /v1/models: {models}")
+    if not {f"{name}:{a}" for a in "abc"} <= set(models):
+        fail("/v1/models does not list the three adapters")
+
+    # (n) the profiler over the WebSocket around one served completion
+    ws = WSClient(ws_port)
+    try:
+        ws.send({"type": "start_profiler", "dir": str(pdir)})
+        ack = ws.until("profiler_ack")
+        completion(api.port, {"prompt": GREEDY["prompt"], "max_tokens": 16,
+                              "temperature": 0, "model": f"{name}:a"})
+        ws.send({"type": "stop_profiler"})
+        ack2 = ws.until("profiler_ack")
+    finally:
+        ws.close()
+    trace = Path(ack2["trace"])
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernel_names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in n for n in kernel_names) for k in (
+        "decode_attention_kernel", "kv_write", "flash_attention_kernel")}
+    say(f"  (n) profiler: {ack['dir']} -> {trace.name} "
+        f"({trace.stat().st_size / 1e6:.1f} MB), {len(kernel_names)} kernel "
+        f"events, the port's by name: {found}")
+    if not ack["started"] or ack2["started"] or min(found.values()) <= 0:
+        fail("the profiler's trace does not hold the port's kernel events")
+    api.stop()
+    ws_stop()
+    for b in srv._batchers.values():
+        b.stop()
+    srv._batchers.clear()
+    free_memory(torch)
+
+    # the same checkpoint with `a` merged at load, on the direct path
+    t0 = time.perf_counter()
+    msrv = Server()
+    (mentry,) = msrv.models.run_loader("transformers", {
+        "path": str(ckpt), "dtype": "bf16", "max_len": MAX_LEN,
+        "lora": str(ads["a"])})
+    merged = msrv._text_iface(mentry).logits(prompt[None]).astype(
+        np.float32)[0]
+    scale = float(np.abs(merged).max())
+    diff = float(np.abs(merged - adapted_logits).max())
+    say(f"  the prompt's logits under a, adapted batcher (x W + (x A) B) "
+        f"against -c lora=<a> merged at load (x (W + s B A)), direct: max "
+        f"|diff| {diff:.5g} ({diff / scale:.3%} of max|logit| {scale:.4g}; "
+        f"bound {frac:.1%} as in (c)); merged load {time.perf_counter() - t0:.1f} s")
+    if not diff <= frac * scale:
+        fail("the adapted logits disagree with the merged-at-load model's")
+
+
+def models_listing(port: int) -> list:
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request("GET", "/v1/models")
+        r = c.getresponse()
+        return [m["id"] for m in json.loads(r.read())["data"]]
+    finally:
+        c.close()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -3379,6 +4188,8 @@ def main() -> None:
         say(f"wrote the checkpoint as GPTQ ({nbytes / 1e9:.2f} GB)")
         step("phase 9 (GPTQ batched)", phase9, torch, np, gptq_ckpt,
              args.layers, results, q4_0)
+        step("phase 10 (multi-LoRA, the profiler, cli --draft-model)",
+             phase10, torch, np, ckpt, gpt2_ckpt, args.layers, bf16, results)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(gpt2_ckpt, ignore_errors=True)

@@ -12,8 +12,9 @@ the scalar graph (tolerance zero). One case also holds the batcher
 against the JAX ContinuousBatcher. Each package's Model is built from
 the same ONNX bytes (the JAX package's recipe).
 
-Not mirrored: the four multi-LoRA tests (test_batching.py:697-890; LoRA
-is not ported), window admission (:990; windowed decode is not ported)
+Not mirrored here: the four multi-LoRA tests (test_batching.py:697-890;
+tests/test_torch_port_lora.py holds the port's adapters against the JAX
+package), window admission (:990; windowed decode is not ported)
 and the power-of-two cliff guard (:359; the port keeps max_batch as
 configured).
 """
@@ -437,9 +438,14 @@ def test_shared_iface_across_batchers():
 
 
 def test_unported_options_raise_and_unknown_adapters_are_refused():
+    """An adapter on a weight the graph does not take at run time fails
+    at construction (test_batching.py test_multi_lora_validation); an
+    adapter name the batcher does not serve fails at submit."""
     _, m_ragged = _models()
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        _batcher(m_ragged, adapters={"fr": {}})
+    with pytest.raises(ValueError, match="not runtime weight inputs"):
+        _batcher(m_ragged, adapters={"fr": {"no_such_weight": (
+            np.zeros((4, 2), np.float32), np.zeros((2, 4), np.float32),
+            1.0)}})
     b = _batcher(m_ragged, max_batch=2)
     with pytest.raises(ValueError, match="unknown adapter"):
         b.submit(np.arange(3), 2, adapter="fr")

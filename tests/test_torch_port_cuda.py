@@ -232,6 +232,37 @@ def test_flash_attention_kernel_matches_plain(cuda, mode, B, Hq, Hkv, Sq, Skv,
         assert not got[0, :, 3].float().any()
 
 
+# the speculative verify block: Sq = k query rows at a scalar start (B =
+# 1, the direct path) or at ragged per-row starts (B = 4), among them 0,
+# a start just inside a 64-key tile (65) and one whose last row sees the
+# cache's last key
+@pytest.mark.parametrize("Sq", [2, 4, 5, 8])
+@pytest.mark.parametrize("Hq,Hkv,D,Skv", [(32, 8, 128, 2048),
+                                          (12, 12, 64, 1024)])
+@pytest.mark.parametrize("B", [1, 4])
+def test_flash_attention_kernel_at_the_verify_block(cuda, Sq, Hq, Hkv, D,
+                                                    Skv, B):
+    """Within flash_agreement_bound, element by element; the grid is a
+    few blocks, so the keys split over blocks (flash_splits)."""
+    q, k, v, _ = _flash_inputs(cuda, "pos", B, Hq, Hkv, Sq, Skv, D)
+    pos = (torch.tensor(700, device=cuda) if B == 1 else
+           torch.tensor([0, 65, 1000, Skv - Sq], device=cuda))
+    assert flash_splits(B, Hq, Hkv, Sq, Skv, D,
+                        torch.cuda.current_device())[0] > 1
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, D ** -0.5, pos_bound=pos)
+    want = flash_attention_plain(q, k, v, D ** -0.5, pos_bound=pos)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert got.shape == (B, Hq, Sq, D)
+    err = (got.float() - want.float()).abs()
+    bound = flash_agreement_bound(
+        want, flash_attention_plain(q, k, v.abs(), D ** -0.5, pos_bound=pos))
+    assert bool((err <= bound).all()), \
+        f"max |err| {err.max().item()}, worst err/bound " \
+        f"{(err / bound.clamp_min(1e-30)).max().item()}"
+
+
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_attention_kernel_split_is_deterministic(cuda, D):
     """A 128-row piece at B = 1 fills a fraction of the card, so its keys
@@ -287,12 +318,16 @@ def test_flash_attention_wrapper_raises_on_unsupported_cuda_inputs(cuda):
 # (M, K, N): decode rows, a partial row tile, K not a multiple of the
 # stages (200, 1000; 72, 1001 not of 8 either), N not a multiple of the
 # 128-column tile nor of 16 (odd: 77, 99, 33, GPT-2's 50,257 head), the
-# tensor path's 16-, 64- and 128-row tiles, prefill rows past 512
+# tensor path's 16-, 64- and 128-row tiles, prefill rows past 512, and
+# the speculative verify block's M = k at Llama-3-8B's widths, k = 4 and
+# 5 on either side of int8_plan's switch between the two paths
 INT8_SHAPES = [(1, 256, 384), (8, 384, 512), (33, 256, 128), (5, 200, 48),
                (17, 1024, 1040), (512, 256, 384), (3, 4096, 6144),
                (1, 768, 50257), (64, 768, 50257), (2, 200, 77), (9, 72, 99),
                (16, 1000, 33), (3, 1001, 77), (130, 4096, 1000),
-               (300, 1001, 200), (600, 256, 384), (2048, 512, 256)]
+               (300, 1001, 200), (600, 256, 384), (2048, 512, 256),
+               (4, 4096, 6144), (5, 4096, 6144), (4, 14336, 4096),
+               (5, 4096, 28672)]
 
 
 @pytest.mark.parametrize("M,K,N", INT8_SHAPES)
@@ -653,14 +688,18 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
 # (B, H, L, D, S, positions): the decode pair of 16 slots with phase 2's
 # positions (5000 clamps to L - 1, -1 counts from the end), a 128-row
 # piece of 4 rows (1950 + 128 and 3000 clamp to L - 128), GPT-2's decode
-# pair at 64 slots, and the direct path's scalar start at S 1 and 32
+# pair at 64 slots, the direct path's scalar start at S 1 and 32, and
+# the speculative verify block's S = k = 4 and 5, scalar and per-row
 PAIR_SHAPES = [
     (16, 8, 2048, 128, 1, [0, 1, 511, 2046, 2047, 5000, -1] + list(
         range(100, 1000, 100))),
     (4, 8, 2048, 128, 128, [0, 128, 1950, 3000]),
     (64, 12, 256, 64, 1, [0, 255, 300, -1, 17, 128, -256, 9] * 8),
     (1, 8, 2048, 128, 1, 100), (1, 8, 2048, 128, 32, 2040),
-    (1, 8, 2048, 128, 1, -1), (3, 2, 64, 5, 3, [0, 62, -4])]
+    (1, 8, 2048, 128, 1, -1), (3, 2, 64, 5, 3, [0, 62, -4]),
+    (1, 8, 2048, 128, 4, 100), (1, 8, 2048, 128, 5, 2043),
+    (4, 8, 2048, 128, 4, [0, 65, 1000, 2044]),
+    (4, 12, 256, 64, 5, [3, 63, 200, 251])]
 
 
 @pytest.mark.parametrize("cache_dt,upd_dt", KV_WRITE_DTYPES)
@@ -778,9 +817,10 @@ def test_attention_lowering_sends_a_head_dim_64_decode_step_to_the_kernel(
                   decode_attention_plain(q.float(), k, v.abs(), pos, 0.125))
 
 
-def _tiny_llama(max_len, pos_per_row=False):
+def _tiny_llama(max_len, pos_per_row=False, weight_map=None):
     """A 2-layer bf16 llama (the CPU tests' tiny shapes: hidden 256, 2
-    query heads and 1 KV head of 128, vocab 512), weights from numpy."""
+    query heads and 1 KV head of 128, vocab 512), weights from numpy.
+    weight_map: filled with the recipe's {initializer: HF name}."""
     import zlib
 
     from whisper_tensor_tpu_torch.dtype import DType
@@ -806,7 +846,7 @@ def _tiny_llama(max_len, pos_per_row=False):
 
     return Model.new_from_onnx(build_llama_step(
         weights, cfg, max_len=max_len, dtype=DType.BF16,
-        pos_per_row=pos_per_row))
+        pos_per_row=pos_per_row, weight_map=weight_map))
 
 
 def _direct_pair(cuda, max_len, quantize="int8"):
@@ -1082,3 +1122,117 @@ def test_tiny_llama_beam_constraint_and_hidden_states_on_the_gpu(cuda):
     got = gpu.hidden_states(prompt).astype(np.float32)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=0.03 * np.abs(want).max())
+
+
+def test_tiny_llama_speculative_greedy_on_the_gpu(cuda):
+    """The 2-layer bf16 int8 llama drafting for itself at k 4 on the
+    card: flash_attention launches once a layer for each prefill and
+    each verify round (4 query rows at a scalar start), kv_write_pair
+    once a layer for every run of either step graph, int8_matmul at the
+    verify's 4 rows. The verify block and a decode step round in bf16 in
+    different places, so the tokens must equal plain greedy decoding up
+    to the first difference, which must be a near tie (the plain
+    decode's margin over the speculative token within 6% of its logits'
+    scale: twice the 3% the tests above allow between paths), and every
+    token must stand a teacher-forced prefill (3% of the scale)."""
+    from whisper_tensor_tpu_torch.interfaces.speculative import (
+        SpeculativeDecoder)
+
+    gpu, _ = _direct_pair(cuda, 64)
+    prompt = np.random.default_rng(12).integers(3, 259, (1, 7))
+    plain, plain_logits = gpu.generate_with_logits(prompt, 20)
+    dec = SpeculativeDecoder(gpu, gpu, k=4)
+    f0, w0, m0 = (flash_attention.launches, kv_write_pair.launches,
+                  int8_matmul.launches)
+    toks = dec.generate_tokens(prompt, 20)
+    torch.cuda.synchronize()
+    rounds = dec.last_rounds
+    assert flash_attention.launches - f0 == 2 * (2 + rounds)
+    assert kv_write_pair.launches - w0 == 2 * (2 + rounds * (4 + 1))
+    assert int8_matmul.launches > m0
+    scale = np.abs(plain_logits).max()
+    differ = np.nonzero(toks[0] != plain[0])[0]
+    if differ.size:
+        i = differ[0]
+        row = plain_logits[0, i]
+        assert row[plain[0, i]] - row[toks[0, i]] <= 0.06 * scale
+    full = np.concatenate([prompt, toks[:, :-1]], axis=1)
+    forced = gpu.logits(full).astype(np.float32)[0, 6:]
+    gaps = forced.max(-1) - forced[np.arange(20), toks[0]]
+    assert gaps.max() <= 0.03 * np.abs(forced).max()
+
+
+def test_tiny_llama_adapted_batcher_on_the_gpu(cuda):
+    """The 2-layer bf16 llama with two adapters (rank 8 on q, k, v, o,
+    gate, up and down) through the batcher on the card: base, a and b
+    requests in one batch are served, the attention and cache-write
+    kernels launch, and one decode step of the adapted graph at 4 rows
+    under slots 0, 1, 2, 1 stands the same step with every kernel's
+    plain version in place, on copies of one cache, within 3% of the
+    logits' scale (the rounding the tests above allow between paths)."""
+    from whisper_tensor_tpu_torch.milli.ops import attention, misc
+    from whisper_tensor_tpu_torch.server.batching import ContinuousBatcher
+
+    wmap = {}
+    model = _tiny_llama(512, pos_per_row=True, weight_map=wmap)
+    rng = np.random.default_rng(21)
+    shapes = {"q_proj": (256, 256), "o_proj": (256, 256),
+              "k_proj": (256, 128), "v_proj": (256, 128),
+              "gate_proj": (256, 384), "up_proj": (256, 384),
+              "down_proj": (384, 256)}                   # (K, N)
+
+    def adapter():
+        out = {}
+        for init, hf in wmap.items():
+            proj = [k for k in shapes if k in hf]
+            if not proj:
+                continue                                 # the lm_head
+            K, N = shapes[proj[0]]
+            out[init] = ((rng.standard_normal((K, 8)) * 0.1).astype(
+                np.float32), (rng.standard_normal((8, N)) * 0.1).astype(
+                np.float32), 2.0)
+        return out
+
+    b = ContinuousBatcher(model, max_len=512, max_batch=4, chunk=4,
+                          prefill_chunk=16, device=cuda,
+                          adapters={"a": adapter(), "b": adapter()}).start()
+    n0 = [f.launches for f in (decode_attention, flash_attention,
+                               kv_write_pair)]
+    prompts = [rng.integers(3, 259, (n,)) for n in (5, 40, 12, 170)]
+    try:
+        outs = [f.result(timeout=300) for f in [
+            b.submit(p, 6, adapter=a)
+            for p, a in zip(prompts, (None, "a", "b", "a"))]]
+    finally:
+        b.stop()
+    assert all(o.shape == (6,) for o in outs)
+    assert all(f.launches > n for f, n in zip(
+        (decode_attention, flash_attention, kv_write_pair), n0))
+    iface = b.iface
+    caches = iface.fresh_cache(4)
+    iface.step(torch.from_numpy(rng.integers(3, 259, (4, 32))).to(cuda),
+               torch.zeros(4, dtype=torch.int64, device=cuda), caches,
+               torch.tensor([0, 1, 2, 1], device=cuda))
+    ids = torch.from_numpy(rng.integers(3, 259, (4, 1))).to(cuda)
+    pos = torch.full((4,), 32, dtype=torch.int64, device=cuda)
+    lora = torch.tensor([0, 1, 2, 1], device=cuda)
+    got = iface.step(ids, pos, [c.clone() for c in caches], lora).float()
+    swaps = [(attention, "flash_attention", flash_attention_plain),
+             (attention, "decode_attention", decode_attention_plain),
+             (misc, "kv_write_pair", kv_write_pair_plain)]
+    saved = [getattr(m, a) for m, a, _ in swaps]
+    try:
+        for m, a, fn in swaps:
+            setattr(m, a, fn)
+        want = iface.step(ids, pos, [c.clone() for c in caches],
+                          lora).float()
+    finally:
+        for (m, a, _), fn in zip(swaps, saved):
+            setattr(m, a, fn)
+    scale = want.abs().max()
+    assert (got - want).abs().max() <= 0.03 * scale
+    # the adapters act: the adapted rows part from the base model's
+    base = iface.step(ids, pos, [c.clone() for c in caches]).float()
+    assert (base[0] - got[0]).abs().max() <= 0.03 * scale
+    assert min((base[r] - got[r]).abs().max() for r in (1, 2, 3)) \
+        > 0.03 * scale

@@ -40,6 +40,7 @@ from whisper_tensor_tpu.dtype import DType as JaxDType  # noqa: E402
 from whisper_tensor_tpu.importers.recipes.llm import (  # noqa: E402
     gpt2 as jax_gpt2, llama as jax_llama)
 from whisper_tensor_tpu.milli import transforms as jax_transforms  # noqa: E402
+from whisper_tensor_tpu.milli.ops import einsum as jax_einsum  # noqa: E402
 from whisper_tensor_tpu.model import Model as JaxModel  # noqa: E402
 from whisper_tensor_tpu.utils import native as jax_native  # noqa: E402
 from whisper_tensor_tpu_torch import tokenizer  # noqa: E402
@@ -48,6 +49,7 @@ from whisper_tensor_tpu_torch.importers.recipes.llm import (  # noqa: E402
     gpt2, llama)
 from whisper_tensor_tpu_torch.milli import transforms  # noqa: E402
 from whisper_tensor_tpu_torch.milli.ops import LOWERINGS  # noqa: E402
+from whisper_tensor_tpu_torch.milli.ops import einsum as port_einsum  # noqa: E402
 from whisper_tensor_tpu_torch.model import Model  # noqa: E402
 
 MAX_LEN, V = 64, 512
@@ -225,6 +227,14 @@ def _capture_eval_cases(per_kind=4):
             cases.setdefault("PackedMatMul", []).append(
                 (jax_transforms.PackedMatMulMilli(bits=bits),
                  transforms.PackedMatMulMilli(bits=bits), [x, q, s, o]))
+        # Einsum (made by the multi-LoRA surgery): its three equations
+        for eq, shapes in (("bsk,nkr->bnsr", [(2, 5, 128), (3, 128, 16)]),
+                           ("bnsr,bn->bnsr", [(2, 3, 5, 16), (2, 3)]),
+                           ("bnsr,nrm->bsm", [(2, 3, 5, 16), (3, 16, 96)])):
+            ins = [rng.standard_normal(sh).astype(x_dt) for sh in shapes]
+            cases.setdefault("Einsum", []).append(
+                (jax_einsum.EinsumMilli(equation=eq),
+                 port_einsum.EinsumMilli(equation=eq), ins))
     return cases
 
 

@@ -14,7 +14,8 @@ packages' TransformersLoader at f32 on the CPU: the port's logits must
 stand the reference's to 1e-5 relative and 1e-4 absolute (both compute
 W = q * s - z * s in f32 and sum in another order), its quantized
 Linears must each run as a PackedMatMul node, and act-order (desc_act)
-weights must stay dense, as in the reference.
+weights must stay dense, as in the reference. A tiny GPTQ/AWQ GPT-2
+(_write_quantized_gpt2) holds its greedy tokens to the reference's.
 """
 
 import json
@@ -245,16 +246,113 @@ def test_act_order_checkpoint_stays_dense(tmp_path):
                                rtol=1e-5, atol=1e-4)
 
 
-def test_gptq_gpt2_is_refused(tmp_path):
+def _write_quantized_gpt2(tmp_path, method: str, g: int = 64):
+    """A tiny GPT-2 checkpoint (2 layers, n_embd 128, 2 heads, vocab 130)
+    with every Conv1D in GPTQ/AWQ format, as _write_quantized_llama
+    writes its llama: the quantized matrix is the Conv1D's own (in, out)
+    weight, as GPTQ/AWQ packers take it. Every width is a multiple of
+    128, so each quantized weight packs in both packages. Returns (dir,
+    {HF name: dense f32 (in, out) weight as dequantized})."""
     from safetensors.numpy import save_file
 
-    from whisper_tensor_tpu_torch.importers.loaders import loader_registry
+    E, V = 128, 130
+    rng = np.random.default_rng(8)
+    spec = ref_q.QuantSpec(method, 4, g)
+    pack = ref_q.pack_gptq if method == "gptq" else ref_q.pack_awq
+    qcfg = ({"quant_method": "gptq", "bits": 4, "group_size": g,
+             "desc_act": False, "sym": True} if method == "gptq" else
+            {"quant_method": "awq", "bits": 4, "group_size": g,
+             "version": "gemm", "zero_point": True})
+    sd, dense = {}, {}
 
-    d = tmp_path / "gpt2-gptq"
+    def dense_w(name, shape, scale=0.05):
+        sd[name] = (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def conv1d(mod, k_in, n_out):
+        q = rng.integers(0, 16, (k_in, n_out)).astype(np.uint8)
+        zeros = rng.integers(1, 15, (k_in // g, n_out)).astype(np.float32)
+        scales = rng.random((k_in // g, n_out), dtype=np.float32) * 0.01 \
+            + 0.001
+        qw, qz, sc = pack(q, zeros, scales, spec)
+        sd[mod + ".qweight"], sd[mod + ".qzeros"] = qw, qz
+        sd[mod + ".scales"] = sc
+        dense[mod + ".weight"] = ref_q.dequant_dense(
+            q, zeros, sc.astype(np.float32))
+        dense_w(mod + ".bias", (n_out,))
+
+    dense_w("transformer.wte.weight", (V, E), 0.5)
+    dense_w("transformer.wpe.weight", (64, E))
+    for n in ("weight", "bias"):
+        dense_w(f"transformer.ln_f.{n}", (E,))
+    sd["transformer.ln_f.weight"] += 1.0
+    for i in range(2):
+        p = f"transformer.h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            dense_w(p + ln + ".weight", (E,))
+            sd[p + ln + ".weight"] += 1.0
+            dense_w(p + ln + ".bias", (E,))
+        conv1d(p + "attn.c_attn", E, 3 * E)
+        conv1d(p + "attn.c_proj", E, E)
+        conv1d(p + "mlp.c_fc", E, 4 * E)
+        conv1d(p + "mlp.c_proj", 4 * E, E)
+    d = tmp_path / f"tiny-gpt2-{method}"
     d.mkdir()
     (d / "config.json").write_text(json.dumps({
-        "model_type": "gpt2", "quantization_config": {
-            "quant_method": "gptq", "bits": 4, "group_size": 64}}))
-    save_file({"w": np.zeros(2, np.float32)}, str(d / "model.safetensors"))
-    with pytest.raises(NotImplementedError, match="GPT-2"):
-        loader_registry()["transformers"].load({"path": str(d)})
+        "model_type": "gpt2", "n_layer": 2, "n_head": 2, "n_embd": E,
+        "vocab_size": V, "n_positions": 64,
+        "quantization_config": qcfg}))
+    save_file(sd, str(d / "model.safetensors"))
+    return d, {**{k: v for k, v in sd.items() if not k.endswith(
+        (".qweight", ".qzeros", ".scales"))}, **dense}
+
+
+@pytest.mark.parametrize("method", ["gptq", "awq"])
+def test_gptq_gpt2_is_refused(tmp_path, method):
+    """GPTQ/AWQ GPT-2 checkpoints were refused while the port's GPT-2
+    recipe recorded no weight map. They load now: each quantized Conv1D
+    records a packed source under its initializer name (8 PackedMatMul
+    nodes), greedy tokens equal the JAX package's on the same checkpoint
+    (every weight packs in both), and the logits stand those of a dense
+    GPT-2 built from the dequantized (in, out) weights to 1e-5 relative
+    and 1e-4 absolute. The dense weights the port's loader hands the
+    recipe keep Conv1D's (in, out) layout (QuantizedStore(linear=False));
+    the reference transposes them to (out, in), which its dense path
+    cannot run, so only its packed path is compared."""
+    from whisper_tensor_tpu.interfaces.text import (
+        TextInferenceInterface as JaxTextInterface)
+    from whisper_tensor_tpu.importers.loaders import (
+        loader_registry as jax_loaders)
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.loaders import loader_registry
+    from whisper_tensor_tpu_torch.importers.recipes.llm.gpt2 import (
+        GPT2Config, build_gpt2_step)
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+    from whisper_tensor_tpu_torch.model import Model
+
+    d, dense = _write_quantized_gpt2(tmp_path, method)
+    cfg = {"path": str(d), "dtype": "f32", "max_len": 64}
+    pb = loader_registry()["transformers"].load(cfg)
+    model = next(iter(pb.models.values()))
+    assert len(model.graph.store.packed_sources) == 8
+    port = TextInferenceInterface(model, max_len=64, prompt_buckets=(16,),
+                                  device="cpu")
+    assert sum(n.op.KIND == "PackedMatMul"
+               for n in port._exec.graph.nodes) == 8
+    jb = jax_loaders()["transformers"].load(cfg)
+    ref = JaxTextInterface(next(iter(jb.models.values())), max_len=64,
+                           prompt_buckets=(16,))
+    assert len(ref._packed) == 8
+    ids = np.random.default_rng(2).integers(0, 130, (2, 9)).astype(np.int64)
+    np.testing.assert_array_equal(port.generate_tokens(ids, 8),
+                                  np.asarray(ref.generate_tokens(ids, 8)))
+    gcfg = GPT2Config(n_layer=2, n_head=2, n_embd=128, vocab_size=130,
+                      n_positions=64)
+    plain = TextInferenceInterface(
+        Model.new_from_onnx(build_gpt2_step(dense.__getitem__, gcfg,
+                                            max_len=64, dtype=DType.F32)),
+        max_len=64, prompt_buckets=(16,), device="cpu")
+    want = plain.logits(ids)
+    np.testing.assert_allclose(port.logits(ids), want, rtol=1e-5,
+                               atol=1e-4)
+    assert np.abs(want).max() > 0.5

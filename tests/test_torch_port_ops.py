@@ -217,14 +217,17 @@ def test_executor_folds_once_per_plan_and_writes_caches_in_place():
 
 
 def test_executor_raises_for_an_op_without_lowering():
-    from whisper_tensor_tpu.milli.ops.einsum import EinsumMilli
+    """Pow, a milli op of the JAX package the port's recipes never emit,
+    has no lowering (Einsum, this test's op before, gained one with the
+    multi-LoRA surgery)."""
+    from whisper_tensor_tpu.milli.ops.basic import Pow
 
     g = MilliGraph("no-lowering")
     a, b = g.add_input("a"), g.add_input("b")
-    g.mark_output("y", g.op1(EinsumMilli(equation="ij,jk->ik"), a, b))
+    g.mark_output("y", g.op1(Pow(), a, b))
     ex = GraphExecutor(g, CPU)
-    with pytest.raises(NotImplementedError, match="Einsum"):
-        ex({"a": torch.ones(2, 3), "b": torch.ones(3, 2)})
+    with pytest.raises(NotImplementedError, match="Pow"):
+        ex({"a": torch.ones(2, 3), "b": torch.ones(2, 3)})
 
 
 # -- the GPT-2 step graphs (the batcher tests' fixtures) ---------------------

@@ -259,8 +259,7 @@ def test_cli_serve_reaches_the_batcher(checkpoint):  # noqa: F811
     ("/v1/audio/transcriptions", {}, "/v1/audio/transcriptions"),
     ("/v1/images/generations", {"prompt": "a cat"}, "/v1/images/generations"),
     ("/v1/audio/speech", {"input": "hi"}, "/v1/audio/speech"),
-    ("/v1/completions", {"prompt": "hi", "max_tokens": 2, "adapter": "a"},
-     "LoRA adapters"),
+    ("/v1/audio/translations", {}, "/v1/audio/translations"),
     ("/v1/chat/completions", {"messages": [{"role": "user", "content": [
         {"type": "image_url", "image_url": {"url": "data:,"}}]}],
         "max_tokens": 2}, "image content parts")])
@@ -280,9 +279,7 @@ def test_unported_routes_answer_not_ported(served, path, body, what):
     ({"type": "generate_image", "model_id": 1}, "image generation"),
     ({"type": "transcribe", "model_id": 1}, "transcription"),
     ({"type": "generate_multimodal", "model_id": 1}, "multimodal"),
-    ({"type": "generate_text", "model_id": 1, "prompt": "hi",
-      "draft_model_id": 1},
-     "speculative decoding")])
+    ({"type": "generate_speech", "model_id": 1}, "speech generation")])
 def test_unported_messages_raise_not_ported(served, msg, what):
     srv, entry, _ = served
     msg = dict(msg, model_id=entry.id) if "model_id" in msg else msg
@@ -291,13 +288,14 @@ def test_unported_messages_raise_not_ported(served, msg, what):
 
 
 @pytest.mark.parametrize("config,error,match", [
-    ({"lora": "/nowhere"}, NotImplementedError, "'lora' is not ported"),
-    ({"serve_adapters": "a=/nowhere"}, NotImplementedError,
-     "'serve_adapters' is not ported"),
+    ({"lora": "/nowhere"}, FileNotFoundError, "adapter_config.json"),
+    ({"serve_adapters": "a=/nowhere"}, ValueError, "needs ragged_decode"),
     ({"decode_windows": "32"}, NotImplementedError,
      "'decode_windows' is not ported")])
 def test_loader_options_left_out_raise(checkpoint, config, error, match):  # noqa: F811
-    """The port's transformers loader names each option it leaves out."""
+    """The port's transformers loader names the option it leaves out
+    (decode_windows), and refuses a `lora` dir that is no PEFT adapter
+    and `serve_adapters` on a model the batcher does not serve."""
     with pytest.raises(error, match=match):
         Server(device="cpu").models.run_loader(
             "transformers", dict(config, path=checkpoint, max_len=64))

@@ -238,9 +238,10 @@ def test_unported_modes_raise(models):
                                quantize="q2_k")
     with pytest.raises(NotImplementedError, match="mesh"):
         TextInferenceInterface(m, max_len=MAX_LEN, device="cpu", mesh=object())
+    # adapters need dense weights, as in the JAX package
     port = TextInferenceInterface(m, max_len=MAX_LEN, device="cpu",
-                                  tokenizer=ByteTokenizer())
-    with pytest.raises(NotImplementedError, match="LoRA"):
+                                  quantize="int8")
+    with pytest.raises(ValueError, match="quantized"):
         port.install_adapters({})
 
 

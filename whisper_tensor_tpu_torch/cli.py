@@ -3,12 +3,13 @@
 Counterpart of whisper_tensor_tpu/cli.py:41 (generate), :171 (embed)
 and :445 (serve), on a torch device chosen with --device (CUDA by
 default, the CPU only when asked for). The reference's other
-subcommands, and `generate --draft-model`, are not ported yet.
+subcommands are not ported yet.
 
 Usage:
   python -m whisper_tensor_tpu_torch.cli generate --model DIR \
       --prompt "..." [--max-new-tokens 64] [-c quantize=int8] [--device cuda]
-      [--regex RE | --json-schema JSON | --num-beams W]
+      [--regex RE | --json-schema JSON | --num-beams W
+       | --draft-model DIR [--draft-k 4]] [-c lora=PEFT_DIR]
   python -m whisper_tensor_tpu_torch.cli embed --model DIR \
       [--pooling last|mean] [--device cuda] TEXT [TEXT ...]
   python -m whisper_tensor_tpu_torch.cli serve --model DIR \
@@ -20,6 +21,11 @@ quantized Linears stay packed on the device) or a llama-family GGUF
 file (its blocks stay packed on the device; -c packed_weights=0 loads
 them dequantized). -c quantize=q4_0|q8_0|q5_0|q4_k|q6_k quantizes a
 dense checkpoint's matmul weights into GGUF blocks on the host.
+-c lora=PEFT_DIR merges a PEFT LoRA adapter into the weights at load.
+`generate --draft-model` decodes speculatively: the draft model (loaded
+with the same -c options, sharing the target's vocabulary) proposes
+--draft-k - 1 tokens a round and the target verifies them in one
+forward; greedy output equals plain greedy decoding token for token.
 
 `serve -c ragged_decode=1` serves the model through the port's
 ContinuousBatcher; the loader (importers/loaders.py) maps serve_batch,
@@ -55,20 +61,20 @@ def _parse_kv(pairs: List[str]) -> Dict[str, object]:
     return out
 
 
-def _load_text(args):
-    """--model through the loader -> (the text interface on --device,
-    with its tokenizer, and the model's name)."""
+def _load_text(args, path=None):
+    """--model (or `path`) through the loader -> (the text interface on
+    --device, with its tokenizer, and the model's name)."""
     from .importers.loaders import identify_and_load, loader_registry
     from .interfaces.text import TextInferenceInterface
     from .tokenizer import AnyTokenizer
 
     cfg = _parse_kv(args.config)
     cfg.setdefault("max_len", args.max_len)
+    path = path or args.model
     if args.loader == "auto":
-        bundle = identify_and_load(args.model, **cfg)
+        bundle = identify_and_load(path, **cfg)
     else:
-        bundle = loader_registry()[args.loader].load({"path": args.model,
-                                                      **cfg})
+        bundle = loader_registry()[args.loader].load({"path": path, **cfg})
     iface_cfg = bundle.interfaces.get("text")
     if iface_cfg is None:
         raise SystemExit("the port runs causal LMs only; this bundle has "
@@ -95,11 +101,13 @@ def cmd_generate(args) -> None:
     from .interfaces.text import SamplingParams
     from .tokenizer import apply_chat_template
 
-    if (args.regex or args.json_schema) and args.num_beams > 1:
+    if (args.regex or args.json_schema) and (args.num_beams > 1
+                                             or args.draft_model):
         raise SystemExit("--regex/--json-schema are not supported with "
-                         "--num-beams")
+                         "--num-beams or --draft-model")
     t0 = time.time()
     iface, name = _load_text(args)
+    draft = _load_text(args, args.draft_model)[0] if args.draft_model else None
     print(f"loaded {name} in {time.time() - t0:.1f}s", file=sys.stderr)
     if args.chat:
         messages = ([{"role": "system", "content": args.system}]
@@ -121,6 +129,18 @@ def cmd_generate(args) -> None:
         toks = iface.beam_search_tokens(ids, args.max_new_tokens,
                                         beam=args.num_beams)[0]
         text = iface.tokenizer.decode([int(t) for t in toks])
+    elif draft is not None:
+        from .interfaces.speculative import SpeculativeDecoder
+
+        dec = SpeculativeDecoder(iface, draft, k=args.draft_k)
+        ids = np.asarray(iface.tokenizer.encode(args.prompt), np.int64)
+        toks = dec.generate_tokens(ids, args.max_new_tokens,
+                                   sampling=sampling)[0]
+        text = iface.tokenizer.decode([int(t) for t in toks])
+        n = args.max_new_tokens
+        print(f"[speculative: {dec.last_rounds} rounds of k={args.draft_k}, "
+              f"acceptance {(n / dec.last_rounds - 1) / (args.draft_k - 1):.3f}]",
+              file=sys.stderr)
     else:
         schema = json.loads(args.json_schema) if args.json_schema else None
         text = iface.run_string_in_string_out(
@@ -193,6 +213,11 @@ def main(argv=None) -> None:
     g.add_argument("--presence-penalty", type=float, default=0.0)
     g.add_argument("--frequency-penalty", type=float, default=0.0)
     g.add_argument("--num-beams", type=int, default=1)
+    g.add_argument("--draft-model",
+                   help="speculative decoding: a small draft model sharing "
+                        "the target's vocabulary")
+    g.add_argument("--draft-k", type=int, default=4,
+                   help="speculation block length (k-1 proposals a round)")
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--regex",
                    help="constrain output to match this regex "

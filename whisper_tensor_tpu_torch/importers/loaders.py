@@ -7,16 +7,18 @@ files (:525-652) and the `auto` loader that probes for them. Their
 config keys and their bundles' `text` interface spec are the
 reference's: dtype, quantize (int8, or host quantization to q4_0, q8_0,
 q5_0, q4_k or q6_k), max_len, ragged_decode, serve_batch, serve_chunk,
-serve_chunk_max, serve_admit_coalesce_ms, prefill_chunk and
-serve_auto_prefix, and for GGUF packed_weights (keep the file's blocks
-packed on the device, default on); the end-of-sequence ids come from
-the checkpoint (`_resolve_eos`) or the GGUF metadata. Left out, each
-raising: other model types and GGUF archs (ValueError, as the reference
-does for an unknown one; NotImplementedError for the gemma and phi3
-GGUF adapters), GPTQ/AWQ GPT-2 checkpoints, `lora`, `serve_adapters`
-and `decode_windows` (NotImplementedError), and the ONNX, RWKV, TTS and
-image loaders (not registered). GPTQ/AWQ llama-family checkpoints load
-(importers/quantized.py): their quantized Linears run packed.
+serve_chunk_max, serve_admit_coalesce_ms, prefill_chunk,
+serve_auto_prefix, `lora` (a PEFT adapter merged into the weights at
+load, importers/lora.py) and `serve_adapters` (name=dir adapters the
+batcher selects per request), and for GGUF packed_weights (keep the
+file's blocks packed on the device, default on); the end-of-sequence
+ids come from the checkpoint (`_resolve_eos`) or the GGUF metadata.
+Left out, each raising: other model types and GGUF archs (ValueError,
+as the reference does for an unknown one; NotImplementedError for the
+gemma and phi3 GGUF adapters), `decode_windows` (NotImplementedError),
+and the ONNX, RWKV, TTS and image loaders (not registered). GPTQ/AWQ
+checkpoints load (importers/quantized.py): their quantized Linears run
+packed, unless a merged adapter densifies them as in the reference.
 
 Like the reference, the loader embeds every weight in one in-memory
 ONNX ModelProto, then decodes it into the graph's TensorStore: host
@@ -156,6 +158,14 @@ class TransformersLoader(Loader):
                         "weight quantization for the text interface",
                         default="", choices=["", "int8", "q4_0", "q8_0",
                                              "q5_0", "q4_k", "q6_k"]),
+            ConfigField("lora", ConfigFieldType.FILE_PATH,
+                        "PEFT adapter dir (adapter_config.json + "
+                        "adapter_model.safetensors) merged into the base "
+                        "weights at load", default=""),
+            ConfigField("serve_adapters", ConfigFieldType.STRING,
+                        "multi-LoRA serving: name=peft_dir[,name2=dir2] "
+                        "adapters selectable per request through the "
+                        "batcher (needs ragged_decode)", default=""),
         ]
 
     def can_load(self, path: str) -> bool:
@@ -166,11 +176,10 @@ class TransformersLoader(Loader):
         from .quantized import QuantizedStore, parse_quantization_config
         from .safetensors_io import SafetensorsStore, load_hf_config
 
-        for key in ("lora", "serve_adapters", "decode_windows"):
-            if config.get(key):
-                raise NotImplementedError(
-                    f"transformers loader option {key!r} is not ported to "
-                    f"PyTorch yet")
+        if config.get("decode_windows"):
+            raise NotImplementedError(
+                "transformers loader option 'decode_windows' is not ported "
+                "to PyTorch yet")
         d = config["path"]
         hf_cfg = load_hf_config(d)
         mt = hf_cfg.get("model_type")
@@ -182,15 +191,18 @@ class TransformersLoader(Loader):
         # reference loads them (:204-213, :466-471): `.weight` names
         # dequantize on the host for the recipe, and each quantized
         # Linear the recipe reads as a matmul weight records a packed
-        # source, so it runs through packed_matmul at 4 bits a weight
+        # source, so it runs through packed_matmul at 4 bits a weight.
+        # GPT-2's Conv1D weights stay (in, out) (QuantizedStore `linear`)
         qspec = parse_quantization_config(hf_cfg)
         qstore = None
         if qspec is not None:
-            if mt == "gpt2":
-                raise NotImplementedError(
-                    "GPTQ/AWQ GPT-2 checkpoints are not ported to PyTorch "
-                    "yet (the port's GPT-2 recipe records no weight map)")
-            store = qstore = QuantizedStore(store, qspec)
+            store = qstore = QuantizedStore(store, qspec,
+                                            linear=mt != "gpt2")
+        if config.get("lora"):
+            from .lora import LoraMergedStore
+
+            store = LoraMergedStore(store, config["lora"])
+            qstore = None   # merged deltas densify: no packed bypass
         weight_map: Dict[str, str] = {}   # initializer -> HF name
         ragged = bool(config.get("ragged_decode", False))
         if mt == "gpt2":
@@ -199,7 +211,8 @@ class TransformersLoader(Loader):
             cfg = GPT2Config.from_hf(hf_cfg)
             data = build_gpt2_step(store.getter(), cfg,
                                    max_len=min(max_len, cfg.n_positions),
-                                   dtype=dtype, pos_per_row=ragged)
+                                   dtype=dtype, pos_per_row=ragged,
+                                   weight_map=weight_map)
             geometry = dict(n_layers=cfg.n_layer, n_kv_heads=cfg.n_head,
                             head_dim=cfg.n_embd // cfg.n_head)
         elif mt in _LLAMA_FAMILY:
@@ -227,6 +240,21 @@ class TransformersLoader(Loader):
                 if src is not None:
                     model.graph.store.packed_sources[init_name] = src
         tok = d if os.path.exists(os.path.join(d, "tokenizer.json")) else None
+        # multi-LoRA serving: "name=/peft/dir,name2=/other", resolved
+        # against the recipe's weight_map when the batcher is built
+        serve_adapters = {}
+        for part in str(config.get("serve_adapters", "") or "").split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if "=" not in part:
+                raise ValueError(
+                    f"serve_adapters entry {part!r} is not name=path")
+            aname, apath = part.split("=", 1)
+            serve_adapters[aname.strip()] = apath.strip()
+        if serve_adapters and not ragged:
+            raise ValueError("serve_adapters needs ragged_decode=1 "
+                             "(adapters are served by the batcher)")
         return LoadedBundle(models={name: model},
                             interfaces={"text": {"model": name,
                                                  "max_len": max_len,
@@ -238,6 +266,8 @@ class TransformersLoader(Loader):
                                                  "admit_coalesce_s": float(config.get("serve_admit_coalesce_ms", 50) or 0) / 1e3,
                                                  "auto_prefix": int(config.get("serve_auto_prefix", 0) or 0),
                                                  "quantize": config.get("quantize") or "",
+                                                 "adapters": serve_adapters,
+                                                 "weight_map": weight_map,
                                                  "eos_token_id":
                                                      _resolve_eos(d, hf_cfg),
                                                  **geometry}},

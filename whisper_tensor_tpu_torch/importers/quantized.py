@@ -219,15 +219,23 @@ def repack_for_kernel(q: np.ndarray, zeros: np.ndarray,
 
 class QuantizedStore:
     """Duck-types the SafetensorsStore surface the loader reads (load /
-    __contains__ / names) over a GPTQ/AWQ checkpoint: `<module>.weight`
-    dequantizes from `<module>.{qweight,qzeros,scales}` when present,
-    everything else passes through. The reference's meta, getter and
-    zeros_getter serve windowed decode and the GPT-2 recipe, which the
-    port's GPTQ path does not run."""
+    __contains__ / names / getter) over a GPTQ/AWQ checkpoint:
+    `<module>.weight` dequantizes from `<module>.{qweight,qzeros,scales}`
+    when present, everything else passes through. The reference's meta
+    and zeros_getter serve windowed decode, which is not ported.
 
-    def __init__(self, base, spec: QuantSpec):
+    `linear`: a dense weight comes back in HF Linear's (out, in) layout,
+    as the reference returns it. GPT-2's Conv1D modules keep (in, out)
+    in the checkpoint, and a GPTQ/AWQ packer quantizes them as the
+    (in, out) matmul RHS, so `linear=False` returns that (K, N) array
+    itself. The reference transposes those too, which hands the GPT-2
+    recipe (out, in) matrices: its dense path then fails on any
+    non-square projection (the port's loader passes linear=False)."""
+
+    def __init__(self, base, spec: QuantSpec, linear: bool = True):
         self.base = base
         self.spec = spec
+        self.linear = linear
         self._qmods = {n[:-8] for n in base.names() if n.endswith(".qweight")}
 
     def _is_quant(self, name: str) -> bool:
@@ -272,7 +280,11 @@ class QuantizedStore:
         if not self._is_quant(name):
             return self.base.load(name)
         q, z, s, g_idx = self._unpacked(name[:-7])
-        return np.ascontiguousarray(dequant_dense(q, z, s, g_idx).T)
+        w = dequant_dense(q, z, s, g_idx)                 # (K, N)
+        return np.ascontiguousarray(w.T if self.linear else w)
+
+    def getter(self):
+        return self.load
 
     def packed_source(self, name: str) -> Optional[Callable]:
         """() -> the kernel's device dict for `<module>.weight`, or

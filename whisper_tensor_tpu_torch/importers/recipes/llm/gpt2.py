@@ -10,14 +10,15 @@ caches are donated buffers updated in place via CacheWrite
 (DynamicUpdateSlice). Masking makes unwritten cache slots inert.
 
 The port's copy of whisper_tensor_tpu/importers/recipes/llm/gpt2.py,
-without the training graph, the HF-module weight getter, the weight
-storage strategies other than embedding and the `weight_map`
-out-parameter (LoRA serving, not ported).
+without the training graph, the HF-module weight getter and the weight
+storage strategies other than embedding. The `weight_map` out-parameter
+records {initializer name: HF name} of the matmul weights, which
+GPTQ/AWQ packed sources and PEFT adapter serving resolve against.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
@@ -44,7 +45,8 @@ class GPT2Config:
 
 def build_gpt2_step(weights: Callable[[str], np.ndarray], cfg: GPT2Config,
                     max_len: int, dtype: DType = DType.F32,
-                    pos_per_row: bool = False) -> bytes:
+                    pos_per_row: bool = False,
+                    weight_map: Optional[dict] = None) -> bytes:
     """Build the unified step graph.
 
     weights(name) returns HF GPT-2 state-dict arrays
@@ -68,7 +70,10 @@ def build_gpt2_step(weights: Callable[[str], np.ndarray], cfg: GPT2Config,
         return np.asarray(weights(name)).astype(np_dt)
 
     def lin(init_name: str, hf_name: str) -> str:
-        # matmul-RHS weight (HF Conv1D (in, out), used directly)
+        # matmul-RHS weight (HF Conv1D (in, out), used directly);
+        # weight_map records the mapping for PEFT adapter resolution
+        if weight_map is not None:
+            weight_map[init_name] = hf_name
         return b.initializer(init_name, w(hf_name))
 
     b = OnnxBuilder("gpt2_step", opset=23, custom_opsets={"wt": 1})

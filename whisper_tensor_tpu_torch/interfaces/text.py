@@ -18,8 +18,8 @@ or automatically when the loader recorded packed sources) and
 host-quantized from any dense checkpoint (`quantize="q4_0" | "q8_0" |
 "q5_0" | "q4_k" | "q6_k"`, reference :341-390; weights that are not 2-D
 or whose K is not a multiple of the block stay dense); q/k/v and
-gate/up matmul fusion (always on: the reference turns it off only for
-meshes and LoRA, which are not ported), prompt buckets, greedy
+gate/up matmul fusion (on unless adapters are installed, which de-fuse
+the graph as the reference does), prompt buckets, greedy
 decoding, SamplingParams on a seeded torch.Generator, logit_bias, and
 the per-row sampling the ContinuousBatcher runs (`_pick_token_rows`).
 SamplingParams, the prompt buckets and the per-row sampling arrays are
@@ -39,8 +39,13 @@ Also ported (reference :195-214, :868-978, :1236-1441):
     packed lm_head); hidden_states runs only the nodes the tap needs;
   * `beam_search_tokens`: top-k over (B, W*V) a step, the caches
     gathered by parent beam into a second buffer.
+  * multi-LoRA serving (`install_adapters`, reference :515-581): the
+    per-row surgery of milli/transforms.py inject_multi_lora on the
+    de-fused graph. `step(..., lora_idx=)` runs the adapted graph;
+    without lora_idx the pre-surgery graph runs (the base model), as
+    the reference's all-base program variant does.
 Not ported yet, and raising NotImplementedError: windowed decode,
-meshes, LoRA adapters.
+meshes.
 """
 
 from __future__ import annotations
@@ -367,6 +372,8 @@ class TextInferenceInterface:
                 if n in weight_inputs or n in self._fused]
         self._quantized: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
         self._packed: Dict[str, Dict[str, np.ndarray]] = {}
+        # multi-LoRA serving (install_adapters): the adapter stacks
+        self._lora_stacks: Dict[str, np.ndarray] = {}
         store = model.graph.store
         if quantize == "int8":
             self._quantized = quantize_matmul_weights(
@@ -415,24 +422,28 @@ class TextInferenceInterface:
             model.graph.by_name[self.cache_in_names[0]]].info
         self.n_heads = int(info.dims()[1].value())
         self.head_dim = int(info.dims()[3].value())
-        # the graph that runs is `milli` with the port's own pass, on a
-        # copy: `self.milli` stays the JAX package's graph node for node
-        run = copy.copy(milli)
-        pair_cache_writes(run)
-        self._exec = GraphExecutor(run, self.device)
+        self._exec = self._executor(milli)
         self._weights_dev: Optional[Dict[str, torch.Tensor]] = None
         # the batcher's loop and an HTTP thread's logprobs rescoring may
         # both make the first call: one upload, not two
         self._weights_lock = threading.Lock()
-        # the reference's multi-LoRA fields, at their no-adapter values:
-        # submit(adapter=...) then fails as "unknown adapter"
+        # multi-LoRA serving: the slot of each adapter name (0 = base),
+        # the per-row input the adapted graph takes and its executor
         self.adapter_slots: Dict[Optional[str], int] = {None: 0}
         self.row_extra_names: List[str] = []
+        self._exec_lora: Optional[GraphExecutor] = None
         # constrained decoding: TokenDFAs by (regex, eos) and their
         # device tables by (pattern, table shape, eos)
         self._dfa_cache: Dict[Tuple, object] = {}
         self._dfa_device: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._hidden_exec: Optional[GraphExecutor] = None
+
+    def _executor(self, milli) -> GraphExecutor:
+        """An executor of `milli` with the port's own pass applied on a
+        copy: `self.milli` stays the JAX package's graph node for node."""
+        run = copy.copy(milli)
+        pair_cache_writes(run)
+        return GraphExecutor(run, self.device)
 
     # ------------------------------------------------------------------
     def _dense_np(self, n: str, dtype: Optional[DType] = None) -> np.ndarray:
@@ -490,17 +501,21 @@ class TextInferenceInterface:
         (bits 8), else the model's declared type."""
         if n.endswith(("::scale", "::pscales", "::poffsets")):
             return DType.F32
+        if n in self._lora_stacks:
+            return DType.from_numpy(self._lora_stacks[n].dtype)
         if n in self._quantized:
             return DType.I8
         if n in self._packed:
             return DType.U8 if int(self._packed[n]["bits"]) == 4 else DType.I8
         return self._declared(n)
 
-    def host_weights(self) -> Dict[str, np.ndarray]:
-        """{milli input name: host array}, assembled as the reference's
-        `_weights` does (interfaces/text.py:584-633)."""
+    def host_weights(self, names: Optional[Sequence[str]] = None
+                     ) -> Dict[str, np.ndarray]:
+        """{milli input name: host array} of `names` (default all the
+        weights), assembled as the reference's `_weights` does
+        (interfaces/text.py:584-633)."""
         out = {}
-        for n in self.weight_names:
+        for n in self.weight_names if names is None else names:
             if n.endswith("::scale"):
                 out[n] = self._quantized[n[:-7]][1]
             elif n in self._quantized:
@@ -511,6 +526,8 @@ class TextInferenceInterface:
                 out[n] = self._packed[n[:-10]]["offsets"]
             elif n in self._packed:
                 out[n] = self._packed[n]["q"]
+            elif n in self._lora_stacks:
+                out[n] = self._lora_stacks[n]
             else:
                 out[n] = self._dense_np(n)
         return out
@@ -519,6 +536,23 @@ class TextInferenceInterface:
         """Upload a weight set named as `host_weights` names it."""
         self._weights_dev = carry_weights(arrays, self.weight_dtypes,
                                           self.device)
+
+    def share_weights(self, other: "TextInferenceInterface") -> None:
+        """Take `other`'s device tensor for every model weight both
+        interfaces name with one type (`other` must be an interface over
+        the same model, as the batcher load_adapter builds is); upload
+        the rest, the adapter stacks always (their slot count differs).
+        Weights are read only, so sharing is safe. A fused weight of
+        `other` shares nothing with a de-fused interface's members."""
+        theirs = other._weights()
+        shared = {n: theirs[n] for n in self.weight_names
+                  if n in theirs and n not in self._lora_stacks
+                  and other.weight_dtypes.get(n) is self.weight_dtypes[n]}
+        rest = [n for n in self.weight_names if n not in shared]
+        dev = carry_weights(self.host_weights(rest),
+                            {n: self.weight_dtypes[n] for n in rest},
+                            self.device)
+        self._weights_dev = {**dev, **shared}
 
     def _weights(self) -> Dict[str, torch.Tensor]:
         if self._weights_dev is None:
@@ -543,20 +577,28 @@ class TextInferenceInterface:
         return out
 
     def _feeds(self, ids: torch.Tensor, pos: torch.Tensor,
-               caches: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+               caches: List[torch.Tensor],
+               lora_idx: Optional[torch.Tensor] = None
+               ) -> Dict[str, torch.Tensor]:
         if self._pos_per_row:
             pos = pos.reshape(-1).expand(ids.shape[0])
         feeds = {"input_ids": ids, "pos": pos}
         feeds.update(zip(self.cache_in_names, caches))
-        feeds.update(self._weights())
+        feeds.update(self._weights() if lora_idx is None
+                     else self.weights_with_rows([lora_idx]))
         return feeds
 
     def step(self, ids: torch.Tensor, pos: torch.Tensor,
-             caches: List[torch.Tensor]) -> torch.Tensor:
+             caches: List[torch.Tensor],
+             lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step graph run: ids (B, S) int64 and pos () or (B,) int64
         on the device -> logits (B, S, V). `caches` are updated in
-        place."""
-        return self._exec(self._feeds(ids, pos, caches))["logits"]
+        place. lora_idx: (B,) int64 adapter slots on the device, which
+        run the adapted graph (install_adapters); without it the base
+        model runs."""
+        feeds = self._feeds(ids, pos, caches, lora_idx)
+        run = self._exec if lora_idx is None else self._exec_lora
+        return run(feeds)["logits"]
 
     # ------------------------------------------------------------------
     def _prompt(self, prompt_ids) -> Tuple[torch.Tensor, int]:
@@ -931,5 +973,65 @@ class TextInferenceInterface:
             return out, scores.reshape(B, W)[pick].cpu().numpy()
         return out
 
-    def install_adapters(self, adapters):
-        raise _not_ported("LoRA adapters")
+    # -- multi-LoRA serving ----------------------------------------------
+    def install_adapters(self, adapters: Dict[str, Dict[str, Tuple]]):
+        """Install named adapters for per-row selection (reference
+        :515-581). adapters maps an adapter name to {milli weight input:
+        (A (K, r), B (r, N), scale)}. The graph is de-fused first (the
+        adapters target per-projection weights), `self.milli` becomes the
+        adapted graph, and the pre-surgery graph keeps running for
+        callers that pass no lora_idx; both carry pair_cache_writes.
+        `adapter_slots` maps names to slots (0 = base). Must be called
+        before the weights are uploaded."""
+        from ..milli.transforms import inject_multi_lora
+
+        if self._weights_dev is not None:
+            raise ValueError("install_adapters before any program "
+                             "compiles (fresh interface)")
+        if self.row_extra_names:
+            raise ValueError("adapters already installed")
+        targeted = {w for a in adapters.values() for w in a}
+        quantized = set(self._quantized) | set(self._packed)
+        if self._fused and quantized:
+            raise ValueError(
+                "adapters on a quantized graph with fused matmuls not "
+                "supported (int8 or packed weights): serve adapters over "
+                "dense weights")
+        if targeted & quantized:
+            raise ValueError(f"adapters on quantized weights not supported: "
+                             f"{sorted(targeted & quantized)}")
+        # de-fuse: adapters target per-projection weight inputs, and
+        # nothing has run yet
+        milli, weight_inputs = self.model.graph.to_milli()
+        names = list(adapters)
+        missing = sorted(w for w in targeted if w not in milli.inputs)
+        if missing:
+            raise ValueError(
+                f"adapter targets are not runtime weight inputs of this "
+                f"graph: {missing} (small weights are baked as "
+                f"constants; available: "
+                f"{[n for n in milli.inputs if n in weight_inputs][:8]}...)")
+        store = self.model.graph.store
+        base = copy.deepcopy(milli)
+        self._lora_stacks = inject_multi_lora(
+            milli, [adapters[n] for n in names],
+            lambda n: store.get_numeric(n, self.weight_dtype).numpy())
+        self.milli = milli
+        self._fused = {}
+        self.weight_names = ([n for n in milli.inputs if n in weight_inputs]
+                             + sorted(self._lora_stacks))
+        self.weight_dtypes = {n: self._weight_dtype(n)
+                              for n in self.weight_names}
+        self.adapter_slots = {None: 0,
+                              **{n: i + 1 for i, n in enumerate(names)}}
+        self.row_extra_names = ["lora_idx"]
+        self._exec = self._executor(base)
+        self._exec_lora = self._executor(milli)
+        self._hidden_exec = None
+
+    def weights_with_rows(self, row_extras: Sequence[torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+        """The weights with the per-row extra inputs (lora_idx) added:
+        the feeds the adapted graph takes beside ids, pos and caches."""
+        return {**self._weights(), **dict(zip(self.row_extra_names,
+                                              row_extras))}

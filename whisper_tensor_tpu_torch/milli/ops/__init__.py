@@ -11,6 +11,7 @@ from ..registry import LOWERINGS
 from .attention import AttentionMilli, RotaryMilli
 from .basic import (Cast, CastLike, Constant, MatMul, SimpleBinary,
                     SimpleUnary, Where)
+from .einsum import EinsumMilli
 from .index import Gather, Range
 from .misc import DynUpdateSliceMilli, KVWriteMilli
 from .norm import LayerNormMilli, RMSNormMilli
@@ -18,8 +19,8 @@ from .shape import Reshape, Shape, Split, Squeeze, Transpose, Unsqueeze
 
 __all__ = [
     "LOWERINGS", "AttentionMilli", "RotaryMilli", "Cast", "CastLike",
-    "Constant", "MatMul", "SimpleBinary", "SimpleUnary", "Where", "Gather",
-    "Range", "DynUpdateSliceMilli", "KVWriteMilli", "LayerNormMilli",
-    "RMSNormMilli", "Reshape", "Shape", "Split", "Squeeze", "Transpose",
-    "Unsqueeze",
+    "Constant", "EinsumMilli", "MatMul", "SimpleBinary", "SimpleUnary",
+    "Where", "Gather", "Range", "DynUpdateSliceMilli", "KVWriteMilli",
+    "LayerNormMilli", "RMSNormMilli", "Reshape", "Shape", "Split",
+    "Squeeze", "Transpose", "Unsqueeze",
 ]

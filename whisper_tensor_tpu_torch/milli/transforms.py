@@ -18,8 +18,11 @@ that the text interfaces run:
     a dense weight quantized on the host), and PackedMatMulMilli
     (:474-512), whose lowering runs the port's packed_matmul
     (backends/cuda/packed_matmul.py).
-LoRA injection and the windowed-decode reuse of precomputed weights are
-not ported.
+  * inject_multi_lora (:330-468): per-row multi-LoRA surgery, a one-hot
+    of `lora_idx` and three Einsum nodes and an Add after every targeted
+    MatMul, node for node the reference's.
+The training-side `inject_lora` and the windowed-decode reuse of
+precomputed weights are not ported.
 """
 
 from __future__ import annotations
@@ -288,6 +291,143 @@ def pair_cache_writes(milli: MilliGraph) -> int:
     milli.nodes = [merged.get(j, node) for j, node in enumerate(milli.nodes)
                    if j not in removed]
     return len(merged)
+
+
+def inject_multi_lora(
+    milli: MilliGraph,
+    adapters: Sequence[Dict[str, Tuple[np.ndarray, np.ndarray, float]]],
+    weight_getter,
+    idx_input: str = "lora_idx",
+) -> Dict[str, np.ndarray]:
+    """Per-row LoRA adapter selection by graph surgery (multi-LoRA
+    serving).
+
+    adapters: ordered list, one dict per adapter, mapping a milli
+    weight-input name to (A (K, r), B (r, N), scale). Every MatMul whose
+    RHS is one of those weights gains
+        y = x @ W + (x @ As[idx]) @ Bs[idx]
+    where As (n+1, K, rmax) / Bs (n+1, rmax, N) stack every adapter
+    (slot 0 = zeros = the base model; scale folded into B; ranks
+    zero-padded to rmax) as new inputs `<name>::lora_as/bs`, and `idx`
+    is a new per-row (batch,) int64 input `lora_idx` selecting each
+    row's adapter.
+
+    The selection is computed as the reference computes it: x @ As for
+    every slot, masked by one_hot(idx) in the weight's type, then
+    contracted with Bs (three Einsum nodes), not a per-row gather.
+
+    Returns {new input name: stacked array} for the adapter inputs."""
+    from ..dtype import DType
+    from .ops import MatMul   # (milli.ops imports this module)
+    from .ops.basic import Cast, Constant, SimpleBinary
+    from .ops.einsum import EinsumMilli
+    from .ops.shape import Unsqueeze
+
+    targeted = sorted({w for a in adapters for w in a})
+    if not targeted:
+        return {}
+    idx_tid = milli.add_input(idx_input)
+    tid_to_name = {tid: n for n, tid in milli.inputs.items()}
+    n_slots = len(adapters) + 1
+    new_inputs: Dict[str, np.ndarray] = {}
+    ab_tids: Dict[str, Tuple[int, int]] = {}
+    oh_tids: Dict[Any, int] = {}     # np dtype -> shared one-hot tid
+
+    i = 0
+    while i < len(milli.nodes):
+        node = milli.nodes[i]
+        if not (isinstance(node.op, MatMul) and len(node.inputs) == 2):
+            i += 1
+            continue
+        rhs_name = tid_to_name.get(node.inputs[1])
+        if rhs_name not in targeted:
+            i += 1
+            continue
+        w = np.asarray(weight_getter(rhs_name))
+        if w.ndim != 2:
+            i += 1
+            continue
+        K, N = w.shape
+        if rhs_name not in ab_tids:
+            rmax = max(int(np.asarray(a[rhs_name][0]).shape[1])
+                       for a in adapters if rhs_name in a)
+            As = np.zeros((n_slots, K, rmax), w.dtype)
+            Bs = np.zeros((n_slots, rmax, N), w.dtype)
+            for s, a in enumerate(adapters):
+                if rhs_name not in a:
+                    continue
+                A, B, scale = a[rhs_name]
+                A = np.asarray(A)
+                r = int(A.shape[1])
+                if A.shape != (K, r):
+                    raise ValueError(
+                        f"{rhs_name}: A shape {A.shape} != ({K}, r)")
+                B = np.asarray(B, np.float32) * float(scale)
+                if B.shape != (r, N):
+                    raise ValueError(
+                        f"{rhs_name}: B shape {B.shape} != ({r}, {N})")
+                As[s + 1, :, :r] = A.astype(w.dtype)
+                Bs[s + 1, :r, :] = B.astype(w.dtype)
+            a_name, b_name = f"{rhs_name}::lora_as", f"{rhs_name}::lora_bs"
+            ab_tids[rhs_name] = (milli.add_input(a_name),
+                                 milli.add_input(b_name))
+            new_inputs[a_name] = As
+            new_inputs[b_name] = Bs
+        a_tid, b_tid = ab_tids[rhs_name]
+        x_tid, orig_out = node.inputs[0], node.outputs[0]
+        phase, group = node.phase, node.group
+
+        def _t(label):
+            return milli.new_tensor(label=label)
+
+        new_nodes = []
+        oh_tid = oh_tids.get(w.dtype)
+        if oh_tid is None:
+            # shared per-row one-hot(idx) in the weight dtype
+            t_iota = _t("lora::iota")
+            t_idxu = _t("lora::idxu")
+            t_eq = _t("lora::eq")
+            oh_tid = _t(f"lora::onehot_{np.dtype(w.dtype).name}")
+            new_nodes += [
+                MilliNode(new_global_id(),
+                          Constant(value=np.arange(n_slots,
+                                                   dtype=np.int64)),
+                          [], [t_iota], phase, group),
+                MilliNode(new_global_id(), Unsqueeze(axes=[1]),
+                          [idx_tid], [t_idxu], phase, group),
+                MilliNode(new_global_id(), SimpleBinary(mode="eq"),
+                          [t_idxu, t_iota], [t_eq], phase, group),
+                MilliNode(new_global_id(),
+                          Cast(dtype=DType.from_numpy(w.dtype)),
+                          [t_eq], [oh_tid], phase, group),
+            ]
+            oh_tids[w.dtype] = oh_tid
+        t_xa = _t(f"{rhs_name}::xa_all")      # (B, n, S, r)
+        t_xm = _t(f"{rhs_name}::xa_masked")
+        t_xab = _t(f"{rhs_name}::xab")        # (B, S, N)
+        t_out = _t(f"{rhs_name}::mlora_out")
+        new_nodes += [
+            MilliNode(new_global_id(),
+                      EinsumMilli(equation="bsk,nkr->bnsr"),
+                      [x_tid, a_tid], [t_xa], phase, group),
+            MilliNode(new_global_id(),
+                      EinsumMilli(equation="bnsr,bn->bnsr"),
+                      [t_xa, oh_tid], [t_xm], phase, group),
+            MilliNode(new_global_id(),
+                      EinsumMilli(equation="bnsr,nrm->bsm"),
+                      [t_xm, b_tid], [t_xab], phase, group),
+            MilliNode(new_global_id(), SimpleBinary(mode="add"),
+                      [orig_out, t_xab], [t_out], phase, group),
+        ]
+        milli.nodes[i + 1:i + 1] = new_nodes
+        for later in milli.nodes[i + 1 + len(new_nodes):]:
+            later.inputs = [t_out if t == orig_out else t
+                            for t in later.inputs]
+        for oname, otid in list(milli.outputs.items()):
+            if otid == orig_out:
+                milli.outputs[oname] = t_out
+        i += 1 + len(new_nodes)
+    return new_inputs
 
 
 @dataclass

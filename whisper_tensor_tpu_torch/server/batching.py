@@ -42,10 +42,18 @@ Differences from the reference, each for a reason:
     has asked for; `stats()["slots"]` is the configured count;
   * no window admission (:464-500): it needs windowed decode, which is
     not ported;
-  * no multi-LoRA (`adapters`, the `la` program variants,
-    `_weights_for`): `adapters=` raises NotImplementedError, and
-    `submit(adapter=...)` fails as an unknown adapter;
   * no WT_BATCH_TRACE event timeline.
+
+Multi-LoRA serving is the reference's (`adapters=`, `submit(adapter=)`,
+:172-175, :266-290): each row's adapter slot (0 = base) is kept on the
+host in `_row_lora` and uploaded as a (B,) int64 tensor when it
+changes, at admission and at a slot's release. A decode chunk, an
+admission group or a prefill piece in which every row is base runs the
+interface's pre-surgery graph (the reference's `la=False` variants);
+any adapted row runs the adapted graph with the rows' slots. The shared
+prefix is prefilled once per adapter, and the auto-prefix pool is keyed
+by (adapter slot, tokens), so a prefix's KV is always computed under the
+request's own adapter.
 
 Two faults of the reference are repaired here (ROADMAP C):
   * a prompt longer than the largest prompt bucket under prefill_chunk
@@ -73,8 +81,8 @@ import torch
 
 from ..dtype import DType, host_to_device
 from ..interfaces.text import (SamplingParams, TextInferenceInterface,
-                               _bucket, _fold, _mix32, _not_ported,
-                               _pick_token_rows, _rows_flags, rows_tensors)
+                               _bucket, _fold, _mix32, _pick_token_rows,
+                               _rows_flags, rows_tensors)
 from ..model import Model
 
 
@@ -89,6 +97,8 @@ class _Request:
     sampling: Optional[SamplingParams] = None
     # arrival time (admission-coalescing deadline)
     t_arrival: float = field(default_factory=time.time)
+    # LoRA adapter name (multi-LoRA serving): None = base
+    adapter: Optional[str] = None
 
 
 @dataclass
@@ -134,8 +144,6 @@ class ContinuousBatcher:
                  iface: Optional[TextInferenceInterface] = None,
                  max_admit: Optional[int] = None,
                  device=None):
-        if adapters:
-            raise _not_ported("LoRA adapters")
         if iface is not None:
             if iface.max_len != max_len:
                 raise ValueError(
@@ -146,6 +154,9 @@ class ContinuousBatcher:
                 model, max_len=max_len, cache_dtype=cache_dtype,
                 prompt_buckets=prompt_buckets, quantize=quantize,
                 device=device)
+        if adapters:
+            # per-row adapter selection: submit(..., adapter=<name>)
+            self.iface.install_adapters(adapters)
         self.device = self.iface.device
         self.max_len = max_len
         self.max_batch = max_batch
@@ -173,6 +184,10 @@ class ContinuousBatcher:
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._requests: Dict[Future, _Request] = {}   # for cancel()
         self._slots = [_Slot() for _ in range(max_batch)]
+        # each slot's adapter (0 = base) on the host, and its last
+        # upload: (host values, (B,) int64 device tensor)
+        self._row_lora = np.zeros(max_batch, np.int64)
+        self._row_lora_dev = (None, None)
         self._caches: Optional[List[torch.Tensor]] = None
         # row state (chunk count, cur token, position, active) lives ON
         # THE DEVICE between chunks; the host queues slot updates
@@ -200,11 +215,12 @@ class ContinuousBatcher:
                            np.asarray(prefix_ids, np.int64).reshape(-1))
         self.prefix_len = 0 if self.prefix_ids is None \
             else int(self.prefix_ids.shape[0])
-        self._prefix_caches: Optional[List[torch.Tensor]] = None
+        # adapter slot -> the prefix's KV rows computed under it
+        self._prefix_caches: Dict[int, List[torch.Tensor]] = {}
         self.auto_prefix = int(auto_prefix)
         if self.auto_prefix and self.prefix_ids is not None:
             raise ValueError("auto_prefix and prefix_ids are exclusive")
-        # key bytes -> {caches, plen, used}; LRU by `used`
+        # (adapter slot, key bytes) -> {caches, plen, used}; LRU by `used`
         self._auto_pool: Dict[Any, dict] = {}
         self._auto_clock = 0
         self._auto_hits = 0
@@ -226,11 +242,21 @@ class ContinuousBatcher:
                 f"unknown adapter {adapter!r} "
                 f"(loaded: {[n for n in self.iface.adapter_slots if n]})")
         req = _Request(np.asarray(prompt_ids, np.int64).reshape(-1), n_new,
-                       on_token=on_token, sampling=sampling)
+                       on_token=on_token, sampling=sampling, adapter=adapter)
         self._requests[req.future] = req
         self._queue.put(req)
         self._wake.set()
         return req.future
+
+    def _adapter_slot(self, req: _Request) -> int:
+        return self.iface.adapter_slots.get(req.adapter, 0)
+
+    def _lora_rows(self, slots) -> Optional[torch.Tensor]:
+        """The (k,) int64 adapter slots of a group of rows on the device,
+        or None when every row is base (the pre-surgery graph runs)."""
+        if not any(slots):
+            return None
+        return self._upload(np.asarray(slots, np.int64))
 
     def stats(self) -> dict:
         """Live scheduler snapshot: slot occupancy, queue depth,
@@ -382,29 +408,36 @@ class ContinuousBatcher:
         return firsts
 
     # -- admission ------------------------------------------------------------
-    def _ensure_prefix(self) -> Optional[List[torch.Tensor]]:
-        """Prefill the shared prefix once (B=1) and keep its KV rows;
-        admissions start from copies of them."""
-        if self.prefix_ids is None:
-            return None
-        if self._prefix_caches is None:
+    def _ensure_prefix(self, adapter_slot: int = 0) -> List[torch.Tensor]:
+        """Prefill the shared prefix once per adapter (B=1) and keep its
+        KV rows; admissions start from copies of them. An adapter
+        request's prefix KV is computed under that adapter, as a plain
+        prefix + prompt run of the adapted model computes it."""
+        cached = self._prefix_caches.get(adapter_slot)
+        if cached is None:
             sb = _bucket(self.prefix_len, self.iface.prompt_buckets)
             padded = np.zeros((1, sb), np.int64)
             padded[0, :self.prefix_len] = self.prefix_ids
-            caches = self.iface.fresh_cache(1)
+            cached = self.iface.fresh_cache(1)
             self.iface.step(self._upload(padded),
                             torch.zeros(1, dtype=torch.int64,
-                                        device=self.device), caches)
-            self._prefix_caches = caches
-        return self._prefix_caches
+                                        device=self.device), cached,
+                            self._lora_rows([adapter_slot]))
+            self._prefix_caches[adapter_slot] = cached
+        return cached
 
-    def _prefix_small(self, k: int) -> List[torch.Tensor]:
-        """k-row admission caches: copies of the prefix KV (fresh zeros
-        when no prefix is configured). `repeat` copies: the admission
-        prefill writes into them, never into the shared prefix."""
+    def _prefix_small(self, k: int, gidx) -> List[torch.Tensor]:
+        """k-row admission caches: copies of the prefix KV, each row from
+        its adapter's (fresh zeros when no prefix is configured). The
+        copies are the admission prefill's to write into, never the
+        shared prefix."""
         if self.prefix_ids is None:
             return self.iface.fresh_cache(k)
-        return [c.repeat(k, 1, 1, 1) for c in self._ensure_prefix()]
+        if len(set(gidx)) == 1:
+            return [c.repeat(k, 1, 1, 1) for c in self._ensure_prefix(gidx[0])]
+        per_row = [self._ensure_prefix(a) for a in gidx]
+        return [torch.cat([pr[i] for pr in per_row])
+                for i in range(len(per_row[0]))]
 
     def _splice(self, small, slots: torch.Tensor) -> None:
         """Write an admission's k cache rows into the batched caches at
@@ -413,13 +446,14 @@ class ContinuousBatcher:
             big.index_copy_(0, slots, s.to(big.dtype))
 
     def _match_auto_prefix(self, req: _Request):
-        """Longest pool entry whose tokens strictly prefix the prompt ->
-        (plen, entry) or (0, None)."""
+        """Longest pool entry of the request's adapter whose tokens
+        strictly prefix the prompt -> (plen, entry) or (0, None)."""
         ids = req.prompt_ids
         L = ids.shape[0]
+        aslot = self._adapter_slot(req)
         best, best_plen = None, 0
-        for kb, e in self._auto_pool.items():
-            if e["plen"] <= best_plen or e["plen"] >= L:
+        for (a, kb), e in self._auto_pool.items():
+            if a != aslot or e["plen"] <= best_plen or e["plen"] >= L:
                 continue
             if ids[:e["plen"]].tobytes() == kb:
                 best, best_plen = e, e["plen"]
@@ -433,14 +467,14 @@ class ContinuousBatcher:
         overwrites the rows, the pool entry must keep them."""
         return [c[slot_idx:slot_idx + 1].clone() for c in self._caches]
 
-    def _store_auto_entries(self, grp):
+    def _store_auto_entries(self, grp, gidx):
         """Deposit each admitted prompt's 32-aligned prefix KV row into
-        the pool (LRU-capped)."""
-        for slot_idx, req in grp:
+        the pool (LRU-capped), keyed by its adapter."""
+        for (slot_idx, req), a in zip(grp, gidx):
             pk = 32 * (int(req.prompt_ids.shape[0]) // 32)
             if pk < 32:
                 continue
-            key = req.prompt_ids[:pk].tobytes()
+            key = (a, req.prompt_ids[:pk].tobytes())
             self._auto_clock += 1
             if key in self._auto_pool:
                 self._auto_pool[key]["used"] = self._auto_clock
@@ -502,19 +536,22 @@ class ContinuousBatcher:
                 rem = req.prompt_ids[cut:]
                 padded[row, :rem.shape[0]] = rem
                 lens.append(rem.shape[0])
+            gidx = [self._adapter_slot(r) for _, r in grp]
+            for (s, _), a in zip(grp, gidx):
+                self._row_lora[s] = a
             if entry is not None:
                 small = [c.repeat(k, 1, 1, 1) for c in entry["caches"]]
             else:
-                small = self._prefix_small(k)
+                small = self._prefix_small(k, gidx)
             meta = self._upload([[s for s, _ in grp], [L - 1 for L in lens]])
             logits = self.iface.step(
                 self._upload(padded),
                 torch.full((k,), plen, dtype=torch.int64, device=self.device),
-                small)
+                small, self._lora_rows(gidx))
             self._splice(small, meta[0])
             del small
             if self.auto_prefix:
-                self._store_auto_entries(grp)
+                self._store_auto_entries(grp, gidx)
             last = logits[torch.arange(k, device=self.device), meta[1]]
             del logits
             sps = [req.sampling or self.sampling for _, req in grp]
@@ -630,18 +667,22 @@ class ContinuousBatcher:
                 self._slots[i].req = req
                 self._slots[i].emitted = []
                 self._slots[i].dispatched = None
+            gidx = [self._adapter_slot(r) for _, r in grp]
+            for (s, _), a in zip(grp, gidx):
+                self._row_lora[s] = a
             self._admission = dict(
                 grp=grp, k=k, piece=0, n=n_pieces, padded=padded, lens=lens,
+                lora=self._lora_rows(gidx),
                 flg=torch.zeros((k, self.iface._vocab_size()),
                                 dtype=torch.float32, device=self.device),
-                small=self._prefix_small(k))
+                small=self._prefix_small(k, gidx))
         st = self._admission
         j = st["piece"]
         off = self.prefix_len + j * W
         logits = self.iface.step(
             self._upload(st["padded"][:, j * W:(j + 1) * W]),
             torch.full((st["k"],), off, dtype=torch.int64,
-                       device=self.device), st["small"])
+                       device=self.device), st["small"], st["lora"])
         # rows whose last prompt token falls in this piece keep its
         # logits (known on the host: no device-side select)
         idx = st["lens"] - 1 - off
@@ -672,6 +713,7 @@ class ContinuousBatcher:
         slot.emitted = []
         slot.dispatched = None
         slot.first_group = None
+        self._row_lora[slot_idx] = 0
         # park the device row at the next dispatch (harmless if it keeps
         # decoding for one in-flight chunk first: its writes land at
         # positions no future tenant reads below its own pos)
@@ -728,6 +770,7 @@ class ContinuousBatcher:
                 self._row_state = None
                 self._seen = None
                 self._rows = (None, None)
+                self._row_lora[:] = 0
                 inflight = None
 
     def _pick_chunk_len(self, inflight) -> int:
@@ -803,15 +846,27 @@ class ContinuousBatcher:
             return True
         return not any(slot.req is not None for slot in self._slots)
 
+    def _chunk_lora(self) -> Optional[torch.Tensor]:
+        """Every slot's adapter on the device, uploaded again only when a
+        slot's adapter changed; None while every row is base."""
+        if not self._row_lora.any():
+            return None
+        key = self._row_lora.tobytes()
+        if self._row_lora_dev[0] != key:
+            self._row_lora_dev = (key, self._upload(self._row_lora))
+        return self._row_lora_dev[1]
+
     def _run_chunk(self, n_steps, cur, pos, active, rows, flags, seen,
                    key: int):
         """`n_steps` decode steps of every row: (cur, pos, active) after
         them, and the (B, n_steps) tokens and active flags. Parked and
         finished rows step too (their picks are masked by `active`),
-        which keeps the batch shape fixed."""
+        which keeps the batch shape fixed. A chunk with no adapted row
+        runs the base graph."""
         toks, acts = [], []
+        lora = self._chunk_lora()
         for i in range(n_steps):
-            logits = self.iface.step(cur[:, None], pos, self._caches)
+            logits = self.iface.step(cur[:, None], pos, self._caches, lora)
             nxt = _pick_token_rows(logits[:, -1, :], _fold(key, i), rows,
                                    flags, seen)
             nxt = torch.where(active, nxt, cur)

@@ -8,25 +8,32 @@ the text flows it serves:
     list_models, get_model_graph, get_stored_tensor, get_tokenizer,
     compile_model;
   * generate_text, through the batcher for a `ragged_decode` model
-    (`_batcher`, `_generate_text_ragged`), else on the direct path
-    (`_score_iface`: the model's `_text_iface`, or a ragged model's
-    batcher interface for `with_probs`, `regex` / `json_schema`
-    constrained decoding and `num_beams` beam search), with sampling,
-    stop strings and chat messages;
+    (`_batcher`, `_generate_text_ragged`, with a served LoRA `adapter`),
+    else on the direct path (`_score_iface`: the model's `_text_iface`,
+    or a ragged model's batcher interface for `with_probs`, `regex` /
+    `json_schema` constrained decoding, `num_beams` beam search and
+    `draft_model_id` speculative decoding), with sampling, stop strings
+    and chat messages;
+  * load_adapter: a PEFT adapter added to a batcher-served model at run
+    time, by a replacement batcher (reference :379-416);
+  * start_profiler / stop_profiler on torch.profiler: a Chrome trace of
+    the host's ops and the card's kernels, written into the message's
+    `dir` (default WT_PROFILE_DIR, else wt_profile in the temp dir);
   * cancel_request, update_observer_settings, get_batcher_stats;
   * `_score_iface`, which the OpenAI front end's logprobs, echo,
     embeddings, best_of reranking and constrained requests use.
 Every other message of the reference (super graphs, images, speech,
-transcription, multimodal generation, adapters, graph layout, tensor
-slices, the profiler) and the unported generate_text variants
-(speculative decoding, RNN models) answer with an error naming them as
-not ported.
+transcription, multimodal generation, graph layout, tensor slices) and
+the unported generate_text variant (RNN models) answer with an error
+naming them as not ported.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import os
+import tempfile
 import threading
 import time
 from typing import Any, Dict, Optional, Set
@@ -47,10 +54,7 @@ from .ws import WebSocketConnection, serve_websocket
 _UNPORTED_MESSAGES = {
     "get_graph_layout": "graph layout",
     "get_tensor_slice": "tensor slices",
-    "start_profiler": "the profiler",
-    "stop_profiler": "the profiler",
     P.GENERATE_IMAGE: "image generation",
-    "load_adapter": "LoRA adapters",
     "generate_multimodal": "multimodal generation",
     "generate_speech": "speech generation",
     "transcribe": "transcription",
@@ -71,6 +75,11 @@ class Server:
         self._text_ifaces: dict = {}      # entry id -> direct interface
         self._batchers: dict = {}         # entry id -> ContinuousBatcher
         self._batch_jobs: dict = {}       # job_id -> (batcher, future)
+        self._spec_decoders: dict = {}    # (target, draft, k) -> decoder
+        self._profiler = None             # (torch.profiler.profile, dir)
+        # the profiler starts and stops on one thread of its own (the
+        # WebSocket handler runs each message on any executor thread)
+        self._profiler_thread = None
         # guards get-then-create on the caches above: the HTTP front end
         # is a ThreadingHTTPServer, so two concurrent first requests
         # would otherwise both build (and upload) a batcher or interface
@@ -131,6 +140,10 @@ class Server:
             with self._cache_lock:
                 bat = self._batchers.pop(mid, None)
                 self._text_ifaces.pop(mid, None)
+                # a decoder holds its models' interfaces (device weights)
+                self._spec_decoders = {k: v for k, v in
+                                       self._spec_decoders.items()
+                                       if mid not in k[:2]}
             if bat is not None:
                 bat.stop()
             self.models.unload(mid)
@@ -191,11 +204,59 @@ class Server:
             with open(path, encoding="utf-8") as f:
                 return {"type": P.TOKENIZER_FILE,
                         "model_id": msg["model_id"], "json": f.read()}
+        if t == P.START_PROFILER:
+            return self._start_profiler(msg)
+        if t == P.STOP_PROFILER:
+            return self._stop_profiler()
         if t == P.GENERATE_TEXT:
             return self._generate_text(msg)
+        if t == P.LOAD_ADAPTER:
+            return self._load_adapter(msg)
         if t in _UNPORTED_MESSAGES:
             raise _not_ported(f"{_UNPORTED_MESSAGES[t]} ({t!r})")
         raise ValueError(f"unknown message type {t!r}")
+
+    # -- the profiler ----------------------------------------------------------
+    def _start_profiler(self, msg) -> dict:
+        """torch.profiler over the host's ops and, on the card, its
+        kernels (CUPTI), until stop_profiler (reference :255-264)."""
+        import torch
+
+        pdir = (msg.get("dir") or os.environ.get("WT_PROFILE_DIR")
+                or os.path.join(tempfile.gettempdir(), "wt_profile"))
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with self._cache_lock:
+            if self._profiler is not None:
+                raise ValueError("the profiler is already running")
+            if self._profiler_thread is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._profiler_thread = ThreadPoolExecutor(
+                    1, thread_name_prefix="wt-profiler")
+            # every thread's ops (the batcher's and the job worker's),
+            # as jax.profiler traces the whole process
+            prof = torch.profiler.profile(
+                activities=acts, experimental_config=torch._C._profiler.
+                _ExperimentalConfig(profile_all_threads=True))
+            self._profiler_thread.submit(prof.start).result()
+            self._profiler = (prof, pdir)
+        return {"type": P.PROFILER_ACK, "started": True, "dir": pdir}
+
+    def _stop_profiler(self) -> dict:
+        """Stop the trace and write it into the start message's dir as a
+        Chrome trace (chrome://tracing, Perfetto)."""
+        with self._cache_lock:
+            if self._profiler is None:
+                raise ValueError("the profiler is not running")
+            (prof, pdir), self._profiler = self._profiler, None
+        self._profiler_thread.submit(prof.stop).result()
+        os.makedirs(pdir, exist_ok=True)
+        path = os.path.join(pdir, f"trace_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        return {"type": P.PROFILER_ACK, "started": False, "dir": pdir,
+                "trace": path}
 
     # -- interfaces and batchers ---------------------------------------------
     def _text_iface(self, entry) -> TextInferenceInterface:
@@ -231,11 +292,19 @@ class Server:
                 self._batchers[entry.id] = bat
             return bat
 
-    def _make_batcher(self, entry) -> ContinuousBatcher:
-        """Construct (not start) the batcher from the entry's text spec."""
+    def _make_batcher(self, entry, share=None) -> ContinuousBatcher:
+        """Construct (not start) the batcher from the entry's text spec:
+        install_adapters runs here, so an invalid adapter set fails
+        before any registry mutation. `share`: a batcher of the same
+        model whose device weights the new one takes where they match
+        (load_adapter's replacement)."""
+        from ..importers.lora import load_peft_adapter_arrays
+
         cfg = entry.interfaces["text"]
         pc = cfg.get("prefill_chunk")
-        return ContinuousBatcher(
+        adapters = {aname: load_peft_adapter_arrays(apath, cfg["weight_map"])
+                    for aname, apath in (cfg.get("adapters") or {}).items()}
+        bat = ContinuousBatcher(
             entry.model, max_len=int(cfg["max_len"]),
             max_batch=int(cfg.get("max_batch", 8)),
             chunk=int(cfg.get("chunk", 16)),
@@ -247,7 +316,51 @@ class Server:
             prefill_chunk=int(pc) if pc else None,
             quantize=cfg.get("quantize") or None,
             eos_token_id=cfg.get("eos_token_id"),
+            adapters=adapters or None,
             device=self.device)
+        if share is not None:
+            bat.iface.share_weights(share.iface)
+        return bat
+
+    def _load_adapter(self, msg) -> dict:
+        """Add a PEFT adapter to a batcher-served model at run time
+        (reference :379-416): the replacement batcher, carrying the
+        extended adapter set, is built eagerly (its weights are the old
+        batcher's device tensors where they match, the new adapter
+        stacks uploaded) and takes new requests at once, while the old
+        one drains its in-flight requests in a thread. A bad adapter
+        fails before the registry changes."""
+        from ..importers.lora import load_peft_adapter_arrays
+
+        entry = self.models.get(int(msg["model_id"]))
+        cfg = entry.interfaces.get("text") or {}
+        if not cfg.get("ragged"):
+            raise ValueError("load_adapter needs a ragged-decode "
+                             "(batcher-served) model")
+        if not cfg.get("weight_map"):
+            raise ValueError("this model family has no weight map for "
+                             "adapter serving")
+        name, path = str(msg["name"]), str(msg["path"])
+        old_ads = dict(cfg.get("adapters") or {})
+        if name in old_ads:
+            raise ValueError(f"adapter {name!r} already loaded")
+        load_peft_adapter_arrays(path, cfg["weight_map"])  # fail fast
+        with self._cache_lock:
+            cfg["adapters"] = {**old_ads, name: path}
+            try:
+                new = self._make_batcher(entry, self._batchers.get(entry.id))
+            except Exception:
+                cfg["adapters"] = old_ads
+                raise
+            old = self._batchers.pop(entry.id, None)
+            self._batchers[entry.id] = new.start()
+            self._spec_decoders = {k: v for k, v in
+                                   self._spec_decoders.items()
+                                   if entry.id not in k[:2]}
+        if old is not None:
+            threading.Thread(target=old.drain, daemon=True).start()
+        return {"type": P.ADAPTER_LOADED, "model_id": entry.id,
+                "name": name, "adapters": sorted(cfg["adapters"])}
 
     # -- text generation -------------------------------------------------------
     @staticmethod
@@ -273,6 +386,12 @@ class Server:
                               sampling=None) -> None:
         bat = self._batcher(entry)
         ids = np.asarray(tok.encode(msg["prompt"]), dtype=np.int64)
+        adapter = msg.get("adapter") or None
+        if adapter is not None and adapter not in bat.iface.adapter_slots:
+            # refused before JOB_ACCEPTED, which would strand the job
+            raise ValueError(
+                f"unknown adapter {adapter!r} (loaded: "
+                f"{[n for n in bat.iface.adapter_slots if n]})")
         job_id = next(self.scheduler._next)
         self.scheduler.reports.put({"type": P.JOB_ACCEPTED, "job": job_id})
         stops = [s for s in (msg.get("stop") or []) if s]
@@ -305,7 +424,8 @@ class Server:
                     if state["fut"] is not None:
                         bat.cancel(state["fut"])
 
-        fut = bat.submit(ids, n_new, on_token=on_tok, sampling=sampling)
+        fut = bat.submit(ids, n_new, on_token=on_tok, sampling=sampling,
+                         adapter=adapter)
         state["fut"] = fut
         if state["hit"] is not None:       # hit during the race window
             bat.cancel(fut)
@@ -344,8 +464,6 @@ class Server:
         iface_cfg = entry.interfaces.get("text")
         if iface_cfg is None:
             raise ValueError("model has no text interface")
-        if msg.get("draft_model_id") is not None:
-            raise _not_ported("speculative decoding")
         if iface_cfg.get("rnn_state"):
             raise _not_ported("constant-state (RNN) models")
         from ..tokenizer import AnyTokenizer, apply_chat_template
@@ -360,9 +478,24 @@ class Server:
         regex, json_schema = msg.get("regex"), msg.get("json_schema")
         constrained = regex is not None or json_schema is not None
         beams = int(msg.get("num_beams", 1))
-        if constrained and beams > 1:
+        draft_id = msg.get("draft_model_id")
+        with_probs = bool(msg.get("with_probs"))
+        if constrained and (beams > 1 or draft_id is not None):
             raise ValueError("regex/json_schema constraints are not "
-                             "supported with num_beams")
+                             "supported with num_beams or draft_model_id")
+        if msg.get("adapter") and (
+                not iface_cfg.get("ragged") or constrained or with_probs
+                or beams > 1 or draft_id is not None):
+            # only the batcher selects adapters; the direct path would
+            # answer from the base model
+            raise ValueError("adapter is served by the batcher alone: "
+                             "not on a direct-path model, nor with "
+                             "regex/json_schema, with_probs, num_beams or "
+                             "draft_model_id")
+        if draft_id is not None:
+            self._generate_speculative(msg, entry, tok, n_new,
+                                       int(draft_id))
+            return None
         if beams > 1:
             iface = self._score_iface(entry)
 
@@ -378,7 +511,6 @@ class Server:
             self.scheduler.submit(beam_job, ObserverSettings())
             return None
         sampling = self._sampling_from_msg(msg)
-        with_probs = bool(msg.get("with_probs"))
         if iface_cfg.get("ragged") and not with_probs and not constrained:
             # with_probs needs the direct path's teacher-forced rescore,
             # and a constraint the direct path's per-step mask
@@ -447,6 +579,35 @@ class Server:
 
         self.scheduler.submit(job, settings)
         return None  # job_accepted is emitted via the report pump
+
+    def _generate_speculative(self, msg, entry, tok, n_new: int,
+                              draft_id: int) -> None:
+        """Speculative decoding with a second loaded model as the draft
+        (reference :880-920): greedy output is token-exact against plain
+        greedy decoding; sampled output is distributed as the target's.
+        The decoder is cached per (target, draft, k). History penalties
+        are refused by the decoder."""
+        from ..interfaces.speculative import SpeculativeDecoder
+
+        dentry = self.models.get(draft_id)
+        if dentry.interfaces.get("text") is None:
+            raise ValueError("draft model has no text interface")
+        key = (entry.id, dentry.id, int(msg.get("draft_k", 4)))
+        with self._cache_lock:
+            dec = self._spec_decoders.get(key)
+            if dec is None:
+                dec = SpeculativeDecoder(self._score_iface(entry),
+                                         self._score_iface(dentry), k=key[2])
+                self._spec_decoders[key] = dec
+        sampling = self._sampling_from_msg(msg)
+
+        def spec_job(obs):
+            ids = np.asarray(tok.encode(msg["prompt"]), dtype=np.int64)
+            toks = dec.generate_tokens(ids, n_new, sampling=sampling)[0]
+            return {"text": tok.decode([int(t) for t in toks]),
+                    "rounds": dec.last_rounds}
+
+        self.scheduler.submit(spec_job, ObserverSettings())
 
     # -- lifecycle ---------------------------------------------------------------
     async def run(self, host: str = "127.0.0.1", port: int = 3000):

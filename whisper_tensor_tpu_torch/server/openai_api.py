@@ -10,7 +10,7 @@ guided function calls), `/v1/embeddings`, `GET /v1/models` and `GET
 routes (`/v1/images/generations`, `/v1/audio/speech`,
 `/v1/audio/transcriptions`, `/v1/audio/translations`) answer 501 with
 an OpenAI-style error naming them as not ported, and so do image
-content parts and `adapter`.
+content parts.
 
 Routing mirrors the WebSocket server: unconstrained requests against a
 ragged-decode model go through the ContinuousBatcher (per-request
@@ -19,7 +19,12 @@ requests, and everything against other models, through the direct
 interface (for a ragged model, the batcher's own, `_score_iface`).
 `stream: true` answers with server-sent events. `logprobs` (legacy int
 form, or chat's bool + `top_logprobs`) reports per-token
-log-probabilities from one teacher-forced rescoring prefill.
+log-probabilities from one teacher-forced rescoring prefill. The
+`adapter` extension selects a served LoRA adapter (models loaded with
+`serve_adapters=name=peft_dir,...`) for the request, and so does a
+model named `<model>:<adapter>` or a bare adapter name that one model
+serves; `/v1/models` lists those names too. Different adapters batch
+together in the batcher's decode.
 """
 
 from __future__ import annotations
@@ -169,9 +174,11 @@ def _tools_schema(body: Dict[str, Any]):
     return variants[0] if len(variants) == 1 else {"anyOf": variants}
 
 
-def _resolve_model(server, name):
+def _resolve_model(server, name, body=None):
     """The loaded model entry named `name` (by name or id); with no name,
-    the one model loaded."""
+    the one model loaded. With a request `body`, the served adapters'
+    aliases resolve too (reference :269-292): "<model>:<adapter>", or a
+    bare adapter name that only one model serves, set body["adapter"]."""
     models = server.models._models
     if name is None:
         if len(models) == 1:
@@ -180,6 +187,18 @@ def _resolve_model(server, name):
     for e in models.values():
         if e.name == name or str(e.id) == str(name):
             return e
+    matches = []
+    for e in models.values() if body is not None else ():
+        ads = (e.interfaces.get("text") or {}).get("adapters") or {}
+        for aname in ads:
+            if name in (f"{e.name}:{aname}", aname):
+                matches.append((e, aname))
+    if len(matches) == 1:
+        e, body["adapter"] = matches[0]
+        return e
+    if len(matches) > 1:
+        raise ApiError(400, f"adapter name {name!r} is ambiguous: use "
+                            "'<model>:<adapter>'")
     raise ApiError(404, f"model {name!r} not found", "not_found_error")
 
 
@@ -193,7 +212,7 @@ class _Generator:
 
         self.server = server
         self.body = body
-        self.entry = _resolve_model(server, body.get("model"))
+        self.entry = _resolve_model(server, body.get("model"), body)
         self.cfg = self.entry.interfaces.get("text")
         if self.cfg is None:
             raise ApiError(400, f"model {self.entry.name!r} has no text "
@@ -226,8 +245,24 @@ class _Generator:
             raise ApiError(400, "logit_bias must be a {token_id: bias} "
                                 "object")
         self.logit_bias = lb or None
-        if body.get("adapter"):
-            raise _not_ported("LoRA adapters (adapter)")
+        self.adapter = body.get("adapter") or None
+        if self.adapter:
+            if not self.cfg.get("ragged"):
+                raise ApiError(400, "adapter requires a ragged-decode "
+                                    "(batcher-served) model")
+            if self.regex is not None or self.schema is not None:
+                raise ApiError(400, "adapter is not supported with "
+                                    "constrained decoding")
+            if self.want_logprobs is not None or self.echo:
+                # the rescoring prefill runs the base model, which would
+                # score an adapter's tokens under the wrong weights
+                raise ApiError(400, "adapter is not supported with "
+                                    "logprobs/echo")
+            if self.logit_bias is not None:
+                # logit_bias runs on the direct path, which serves the
+                # base model (the reference silently drops the adapter)
+                raise ApiError(400, "adapter is not supported with "
+                                    "logit_bias")
         self.prompt_ids = np.asarray(self.tok.encode(prompt), np.int64)
 
     # ------------------------------------------------------------------
@@ -286,11 +321,15 @@ class _Generator:
                                 "response_format")
         if self.cfg.get("ragged") and self.logit_bias is None:
             bat = self.server._batcher(self.entry)
-            futs = [bat.submit(self.prompt_ids, self.n_new,
-                               sampling=_dc.replace(
-                                   self.sampling,
-                                   seed=self.sampling.seed + i))
-                    for i in range(best_of)]
+            try:
+                futs = [bat.submit(self.prompt_ids, self.n_new,
+                                   sampling=_dc.replace(
+                                       self.sampling,
+                                       seed=self.sampling.seed + i),
+                                   adapter=self.adapter)
+                        for i in range(best_of)]
+            except ValueError as e:   # unknown adapter name
+                raise ApiError(400, str(e))
             timeout = float(self.body.get("timeout", 600))
             rows = [f.result(timeout=timeout) for f in futs]
             eos = bat.eos_token_ids
@@ -314,6 +353,9 @@ class _Generator:
                             "finish_reason": finish,
                             "n_tokens": len(toks)})
         if best_of > self.n:
+            if self.adapter:
+                raise ApiError(400, "best_of reranking is not supported "
+                                    "with adapter")
             P = int(self.prompt_ids.shape[0])
             Lmax = P + max((len(t) for t in trimmed), default=0)
             full = np.zeros((best_of, max(Lmax, P + 1)), np.int64)
@@ -437,10 +479,13 @@ class _Generator:
                     on_delta(dec.text_from(state["decoded"]))
                     state["decoded"] = dec.length
 
-        fut = bat.submit(self.prompt_ids, self.n_new,
-                         on_token=None if on_delta is None
-                         and not self.stops else on_tok,
-                         sampling=self.sampling)
+        try:
+            fut = bat.submit(self.prompt_ids, self.n_new,
+                             on_token=None if on_delta is None
+                             and not self.stops else on_tok,
+                             sampling=self.sampling, adapter=self.adapter)
+        except ValueError as e:       # unknown adapter name
+            raise ApiError(400, str(e))
         with lock:
             state["fut"] = fut
         if state["hit"]:
@@ -535,6 +580,14 @@ class _Handler(BaseHTTPRequestHandler):
                 models.append({"id": e.name, "object": "model",
                                "owned_by": "whisper-tensor-tpu",
                                "created": 0})
+                # served LoRA adapters list as models "<base>:<adapter>"
+                ads = (e.interfaces.get("text") or {}).get("adapters") \
+                    or {}
+                for aname in ads:
+                    models.append({"id": f"{e.name}:{aname}",
+                                   "object": "model",
+                                   "owned_by": "whisper-tensor-tpu",
+                                   "parent": e.name, "created": 0})
             return self._json(200, {"object": "list", "data": models})
         self._json(404, {"error": {"message": f"no route {self.path}",
                                    "type": "not_found_error"}})

@@ -7,7 +7,9 @@ lib.rs:148-365): tensors stream to the UI as downsampled, u8-quantized
 previews to bound bandwidth.
 
 The port's copy of whisper_tensor_tpu/server/protocol.py, without
-its unused imports (the port imports nothing of the JAX package).
+its unused imports (the port imports nothing of the JAX package), and
+with constants for the adapter and profiler messages, which the
+reference spells out where it uses them.
 """
 
 from __future__ import annotations
@@ -94,6 +96,9 @@ UPDATE_OBSERVER_SETTINGS = "update_observer_settings"
 PING = "ping"
 COMPILE_MODEL = "compile_model"
 GET_TOKENIZER = "get_tokenizer"
+LOAD_ADAPTER = "load_adapter"
+START_PROFILER = "start_profiler"
+STOP_PROFILER = "stop_profiler"
 
 # server -> client types
 MODELS_REPORT = "models_report"
@@ -110,6 +115,8 @@ JOB_ERROR = "job_error"
 PONG = "pong"
 MODEL_COMPILED = "model_compiled"
 TOKENIZER_FILE = "tokenizer_file"
+ADAPTER_LOADED = "adapter_loaded"
+PROFILER_ACK = "profiler_ack"
 
 
 def message(msg_type: str, **payload) -> str:
