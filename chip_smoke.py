@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (whisper_tensor_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--layers N] [--plant-fault] [--kernels-only]
-                          [--plans]
+                          [--generic-only] [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -142,6 +142,28 @@ Phases:
      WebSocket: the Chrome trace must hold the port's kernels by name.
      Last, `cli generate --draft-model` on phase 7's GPT-2 checkpoint
      must print the speculative decoder's text.
+ 11. the generic ONNX path (Model.eval and EvalBackend on the default
+     device, the card): (a) every case of the CPU tests' conformance
+     corpus (tests/torch_corpus.npz: 2,160 cases outside the op
+     families not ported yet) at the case's own tolerances (a case that
+     needs another on the card is listed in CARD_TOLERANCES with its
+     measured error and reason); the cases passed by path (one graph on
+     the card, control flow on the host, the host by design) and the
+     worst float error as a share of its tolerance; any failure fails
+     the smoke. (b) ONNX opset-23 Attention in bf16 through Model.eval
+     at Llama-3-8B's 32/8 heads of 128 (S 2,048) and GPT-2's 12 heads of
+     64 (S 1,024), causal and with an additive (1, 1, S, S) mask: one
+     flash_attention launch each, within flash_agreement_bound of its
+     plain version, host-timed beside the plain path. (c) the step
+     graphs at full width through Model.eval: phase 3's checkpoint with
+     a per-row pos, a 1,900-token prefill (flash, pos-bound) and 8
+     greedy decode steps (decode_attention, one ragged_kv_write a cache
+     a run), launches equal to the lowering's calls, logits within phase
+     3's bound of the text interface's teacher-forced prefill; GPT-2
+     124M's widths with a scalar pos, a 512-token prefill whose additive
+     mask takes flash's additive mode, logits against the lowering's
+     plain path. `--generic-only` writes the checkpoint and runs phase
+     11 alone.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -4055,6 +4077,356 @@ def models_listing(port: int) -> list:
         c.close()
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the generic ONNX path (Model.eval and EvalBackend) on the card
+
+# the device phase 11 runs on (a CPU dry run at small widths sets "cpu")
+CARD = "cuda"
+# corpus cases that need another tolerance on the card than their own:
+# {name: (rtol, atol, measured error, reason)}
+CARD_TOLERANCES = {}
+
+
+def phase11_corpus(torch, np) -> None:
+    """(a) every case of the CPU tests' corpus (tests/torch_corpus.npz,
+    the selected cases of tests/conformance/) through Model.eval on the
+    default device, at the case's own tolerances."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_conformance as tc
+    from whisper_tensor_tpu_torch.model import Model
+
+    cases = tc.read_bundle()
+    say(f"phase 11 (a): {len(cases)} corpus cases through Model.eval on "
+        f"the card (tests/torch_corpus.npz)")
+    t0 = time.perf_counter()
+    paths, failures = {}, []
+    worst, worst_name = 0.0, ""
+    for c in cases:
+        rtol, atol = CARD_TOLERANCES.get(c.name, (c.rtol, c.atol))[:2]
+        try:
+            m = Model.new_from_onnx(c.onnx, name=c.name)
+            be = m.backend("torch")
+            out = be.run(m.graph, dict(c.inputs))
+            share = tc.check_outputs(c, out, rtol, atol)
+            if (be.last_path == "oracle") != m.graph.needs_host_eval():
+                raise AssertionError(f"ran on {be.last_path}")
+        except Exception as e:                        # noqa: BLE001
+            failures.append(f"{c.name}: {type(e).__name__}: "
+                            f"{str(e).strip()[:400]}")
+            continue
+        paths[be.last_path] = paths.get(be.last_path, 0) + 1
+        if share > worst:
+            worst, worst_name = share, c.name
+    torch.cuda.synchronize()
+    say(f"  passed {sum(paths.values())} of {len(cases)} in "
+        f"{time.perf_counter() - t0:.1f} s: on the card {paths.get('torch', 0)}"
+        f" (one graph) + {paths.get('torch-control', 0)} (control flow on "
+        f"the host, every other node on the card), on the host by design "
+        f"{paths.get('oracle', 0)} (strings, sequences, ai.onnx.ml); worst "
+        f"float error {worst:.4g} of the tolerance ({worst_name}); "
+        f"{len(CARD_TOLERANCES)} cases at a card tolerance")
+    for f in failures[:40]:
+        say(f"  FAILED {f}")
+    if failures:
+        fail(f"{len(failures)} corpus cases failed on the card")
+
+
+def attention_onnx(B, Hq, Hkv, S, D, mode):
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.onnx_builder import OnnxBuilder
+
+    b = OnnxBuilder("attn", opset=23)
+    for n, h in (("q", Hq), ("k", Hkv), ("v", Hkv)):
+        b.input(n, DType.BF16, [B, h, S, D])
+    ins = ["q", "k", "v"]
+    if mode == "additive":
+        b.input("mask", DType.BF16, [1, 1, S, S])
+        ins.append("mask")
+    b.node("Attention", ins, outputs=["y"],
+           is_causal=1 if mode == "causal" else None)
+    b.output("y", DType.BF16, [B, Hq, S, D])
+    return b.build()
+
+
+def phase11_attention(torch, np) -> dict:
+    """(b) ONNX Attention in bf16 at full width through Model.eval:
+    Llama-3-8B's 32/8 heads of 128 at S 2,048 and GPT-2's 12 heads of 64
+    at S 1,024, causal and with an additive (1, 1, S, S) mask. Each
+    launches flash_attention once, within flash_agreement_bound of its
+    plain version on the card; host-timed beside the plain path (the
+    lowering's f32 path)."""
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_agreement_bound, flash_attention, flash_attention_plain)
+    from whisper_tensor_tpu_torch.milli.ops import attention as lowering
+    from whisper_tensor_tpu_torch.model import Model
+
+    say("phase 11 (b): ONNX Attention in bf16 through Model.eval")
+    launches = 0
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 11)
+    for label, Hq, Hkv, S, D in (("Llama-3-8B", 32, 8, 2048, 128),
+                                 ("GPT-2", 12, 12, 1024, 64)):
+        for mode in ("causal", "additive"):
+            q = torch.randn(1, Hq, S, D, generator=gen, device=CARD,
+                            dtype=torch.bfloat16)
+            k, v = (torch.randn(1, Hkv, S, D, generator=gen, device=CARD,
+                                dtype=torch.bfloat16) for _ in range(2))
+            feeds = {"q": q, "k": k, "v": v}
+            kw = {"causal": True}
+            if mode == "additive":
+                hide = torch.rand(1, 1, S, S, generator=gen,
+                                  device=CARD) < 0.3
+                hide[..., 0] = False
+                feeds["mask"] = torch.where(hide, -1e4, 0.0).to(
+                    torch.bfloat16)
+                kw = {"mask": feeds["mask"]}
+            model = Model.new_from_onnx(attention_onnx(1, Hq, Hkv, S, D,
+                                                       mode))
+            n0 = flash_attention.launches
+            y = torch.from_numpy(model.eval(feeds)["y"].astype(np.float32))
+            n = flash_attention.launches - n0
+            launches += n
+            scale = 1.0 / math.sqrt(D)
+            ref = flash_attention_plain(q, k, v, scale, **kw)
+            mag = flash_attention_plain(q, k, v.abs(), scale, **kw)
+            err = (y.to(CARD) - ref.float()).abs()
+            share = float((err / flash_agreement_bound(ref, mag)).max())
+
+            def run():
+                model.eval(feeds)
+                torch.cuda.synchronize()
+
+            kernel_ms = statistics.median(_timed(run, 5))
+            saved = lowering.flash_mode
+            lowering.flash_mode = lambda *a, **k: None
+            try:
+                plain_ms = statistics.median(_timed(run, 3))
+            finally:
+                lowering.flash_mode = saved
+            say(f"  {label} {Hq}/{Hkv} heads of {D}, S {S}, {mode}: "
+                f"{n} flash launch(es); worst |err|/bound {share:.4g}; "
+                f"Model.eval {kernel_ms:.2f} ms host-timed against the "
+                f"plain path's {plain_ms:.2f} ms")
+            if n != 1:
+                fail(f"Attention ({label}, {mode}) launched flash_attention "
+                     f"{n} times, not once")
+            if not share <= 1.0:
+                fail(f"Attention ({label}, {mode}) disagrees with "
+                     f"flash_attention_plain")
+    return {"flash_attention": launches}
+
+
+def _timed(fn, reps: int) -> list:
+    fn()                                              # warm
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+class CallCounter:
+    """Counts the calls of a lowering in the LOWERINGS table."""
+
+    def __init__(self, kinds):
+        from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
+
+        self.table, self.calls, self.saved = LOWERINGS, {}, {}
+        for kind in kinds:
+            self.saved[kind] = fn = LOWERINGS[kind]
+            self.calls[kind] = 0
+
+            def wrapped(op, ins, static, device, fn=fn, kind=kind):
+                self.calls[kind] += 1
+                return fn(op, ins, static, device)
+
+            LOWERINGS[kind] = wrapped
+
+    def restore(self):
+        self.table.update(self.saved)
+
+
+def phase11_steps(torch, np, ckpt: Path, layers: int) -> dict:
+    """(c) the text recipes' step graphs at full width through Model.eval.
+    Phase 3's Llama-3-8B-width checkpoint (bf16, ragged_decode: a per-row
+    pos) as the loader builds it: a 1,900-token prefill (flash_attention,
+    pos-bound) and 8 greedy decode steps (decode_attention), each cache
+    write one ragged_kv_write launch; the launches equal the lowering's
+    calls and the logits stand the text interface's teacher-forced
+    prefill within phase 3's bound. Then GPT-2 124M's widths (seeded
+    random weights, a scalar pos): a 512-token prefill whose (1, 1, S,
+    1,024) additive mask takes flash_attention's additive mode, its
+    logits against the lowering's plain path."""
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        kv_write_pair, ragged_kv_write)
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.recipes.llm import gpt2
+    from whisper_tensor_tpu_torch.milli.ops import attention as lowering
+    from whisper_tensor_tpu_torch.model import Model
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    say(f"phase 11 (c): the step graphs through Model.eval; host RSS "
+        f"{host_rss_gb():.1f} GB")
+    counters = {"flash_attention": flash_attention,
+                "decode_attention": decode_attention,
+                "ragged_kv_write": ragged_kv_write,
+                "kv_write_pair": kv_write_pair}
+    srv = Server()
+    t0 = time.perf_counter()
+    (entry,) = srv.models.run_loader("transformers", {
+        "path": str(ckpt), "dtype": "bf16", "max_len": MAX_LEN,
+        "ragged_decode": True})
+    model = entry.model
+    say(f"  loader: {time.perf_counter() - t0:.1f} s")
+
+    def fresh(m):
+        out = {}
+        for name, info in m.input_infos().items():
+            if name.startswith("cache_"):
+                dims = [1] + [int(d.value()) for d in info.dims()[1:]]
+                out[name] = torch.zeros(dims, dtype=torch.bfloat16,
+                                        device=CARD)
+        return out
+
+    prompt = np.asarray(ByteTokenizer().encode(long_text(
+        np, MAX_LEN - 148, SEED + 12)), np.int64)   # 1,900 tokens
+    P, n_new = prompt.shape[0], 8
+    caches = fresh(model)
+    zero(counters)
+    calls = CallCounter(("Attention", "DynUpdateSlice"))
+    try:
+        t0 = time.perf_counter()
+        out = model.eval(dict(caches, input_ids=prompt[None],
+                              pos=np.asarray([0], np.int64)))
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        logits = [out["logits"][0].astype(np.float32)]
+        toks = [int(logits[0][-1].argmax())]
+        t0 = time.perf_counter()
+        for i in range(n_new):
+            out = model.eval(dict(caches, input_ids=np.asarray(
+                [[toks[-1]]], np.int64), pos=np.asarray([P + i], np.int64)))
+            logits.append(out["logits"][0].astype(np.float32))
+            toks.append(int(logits[-1][-1].argmax()))
+        decode_ms = (time.perf_counter() - t0) * 1e3 / n_new
+    finally:
+        calls.restore()
+    got = {name: fn.launches for name, fn in counters.items()}
+    # the plan's steps keep the counting wrappers: read them before the
+    # replay below
+    lowered = dict(calls.calls)
+    # the same prefill again: the plan replays, the weights are on the card
+    again = fresh(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.eval(dict(again, input_ids=prompt[None],
+                    pos=np.asarray([0], np.int64)))
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    del again
+    say(f"  llama ({layers} layers): prefill of {P} tokens "
+        f"{prefill_ms:.1f} ms (the first run: weights uploaded, plan "
+        f"built), {replay_ms:.1f} ms replayed; {n_new} decode steps "
+        f"{decode_ms:.1f} ms a step (logits and caches downloaded every "
+        f"step); launches {got}; lowering calls {lowered}")
+    if got["flash_attention"] != layers \
+            or got["decode_attention"] != n_new * layers \
+            or got["flash_attention"] + got["decode_attention"] \
+            != lowered["Attention"] \
+            or got["ragged_kv_write"] != lowered["DynUpdateSlice"] \
+            or got["ragged_kv_write"] != 2 * (1 + n_new) * layers:
+        fail(f"phase 11 (c): launches {got} do not match the lowering's "
+             f"calls {lowered}")
+    iface = srv._text_iface(entry)
+    teacher = iface.logits(np.concatenate([prompt, toks[:-1]])[None])[0]
+    teacher = teacher.astype(np.float32)
+    mine = np.concatenate(logits, axis=0)
+    scale = float(np.abs(teacher).max())
+    frac = 0.015 * math.sqrt(layers)
+    diff = float(np.abs(mine - teacher).max())
+    say(f"  logits of the prefill and the decode steps against the text "
+        f"interface's teacher-forced prefill: max |diff| {diff:.5g} "
+        f"({diff / scale:.3%} of max|logit| {scale:.4g}; bound "
+        f"{frac:.1%}, phase 3's); argmax agreement "
+        f"{float((mine.argmax(-1) == teacher.argmax(-1)).mean()):.3f}")
+    if not diff <= frac * scale:
+        fail("phase 11 (c): Model.eval's logits disagree with the text "
+             "interface's")
+    del iface, model, entry, srv, caches, out, logits, teacher, mine
+    free_memory(torch)
+
+    cfg = gpt2.GPT2Config()
+    g_model = Model.new_from_onnx(gpt2.build_gpt2_step(
+        gpt2.random_gpt2_weights(cfg, seed=SEED), cfg, max_len=1024,
+        dtype=DType.BF16, pos_per_row=False))
+    ids = np.random.default_rng(SEED + 13).integers(
+        0, cfg.vocab_size, (1, 512)).astype(np.int64)
+    modes = []
+    real = lowering.flash_attention
+
+    def spy(q, k, v, scale, **kw):
+        modes.append("additive" if kw.get("mask") is not None else "other")
+        return real(q, k, v, scale, **kw)
+
+    def prefill():
+        out = g_model.eval(dict(fresh(g_model), input_ids=ids,
+                                pos=np.asarray(0, np.int64)))
+        return out["logits"][0].astype(np.float32)
+
+    lowering.flash_attention = spy
+    n0 = flash_attention.launches
+    try:
+        with_kernel = prefill()         # uploads the weights, builds the plan
+    finally:
+        lowering.flash_attention = real
+    g_launches = flash_attention.launches - n0
+    kernel_ms = statistics.median(_timed(prefill, 3))
+    saved = lowering.flash_mode
+    lowering.flash_mode = lambda *a, **k: None
+    try:
+        plain = prefill()
+        plain_ms = statistics.median(_timed(prefill, 3))
+    finally:
+        lowering.flash_mode = saved
+    scale = float(np.abs(plain).max())
+    frac = 0.015 * math.sqrt(cfg.n_layer)
+    diff = float(np.abs(with_kernel - plain).max())
+    say(f"  GPT-2 124M widths, 512-token prefill: {g_launches} flash "
+        f"launches ({modes.count('additive')} in the additive mode), "
+        f"{kernel_ms:.1f} ms against the plain path's {plain_ms:.1f} ms "
+        f"(host-timed, median of 3 replays); teacher-forced logits "
+        f"against the plain "
+        f"path's: max |diff| {diff:.5g} ({diff / scale:.3%} of max|logit| "
+        f"{scale:.4g}; bound {frac:.1%})")
+    if g_launches != cfg.n_layer or modes.count("additive") != cfg.n_layer:
+        fail("phase 11 (c): GPT-2's prefill did not take flash_attention's "
+             "additive mode once a layer")
+    if not diff <= frac * scale:
+        fail("phase 11 (c): GPT-2's logits on the kernel disagree with the "
+             "plain path's")
+    got["flash_attention"] += g_launches
+    return got
+
+
+def phase11(torch, np, ckpt: Path, layers: int, results) -> None:
+    """Phase 11: the generic ONNX path; its launches join the kernels'
+    line as launches_generic."""
+    phase11_corpus(torch, np)
+    free_memory(torch)
+    launches = phase11_attention(torch, np)
+    free_memory(torch)
+    for name, n in phase11_steps(torch, np, ckpt, layers).items():
+        launches[name] = launches.get(name, 0) + n
+    for res in results:
+        if res["name"] in launches:
+            res["launches_generic"] = launches[res["name"]]
+    say(f"  phase 11 launches: {launches}")
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -4065,6 +4437,9 @@ def main() -> None:
                          "position early; check (d) must fail")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 2 (no result line)")
+    ap.add_argument("--generic-only", action="store_true",
+                    help="write the checkpoint and run phase 11 alone (no "
+                         "result line)")
     ap.add_argument("--plans", action="store_true",
                     help="time packed_matmul and decode_attention under "
                          "forced splits, then stop (no result line)")
@@ -4139,6 +4514,24 @@ def main() -> None:
         free_memory(torch)
         return out
 
+    if args.generic_only:
+        try:
+            import ml_dtypes
+            bf16 = np.dtype(ml_dtypes.bfloat16)
+        except ImportError:
+            bf16 = None
+        ckpt = ROOT / "build" / "smoke" / f"llama3-8b-widths-{args.layers}L"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        ckpt.mkdir(parents=True)
+        try:
+            step("write the checkpoint", write_checkpoint, ckpt, args.layers,
+                 np, bf16)
+            step("phase 11 (the generic ONNX path)", phase11, torch, np,
+                 ckpt, args.layers, results)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        say(f"{card_line()} (--generic-only: phases 2-10 not run)")
+        return
     step("phase 2: decode_attention, int8_matmul", phase2, torch, results)
     step("phase 2: ragged_kv_write", phase2_kv_write, torch, results)
     step("phase 2: flash_attention", phase2_flash, torch, results)
@@ -4190,6 +4583,8 @@ def main() -> None:
              args.layers, results, q4_0)
         step("phase 10 (multi-LoRA, the profiler, cli --draft-model)",
              phase10, torch, np, ckpt, gpt2_ckpt, args.layers, bf16, results)
+        step("phase 11 (the generic ONNX path)", phase11, torch, np, ckpt,
+             args.layers, results)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(gpt2_ckpt, ignore_errors=True)

@@ -1236,3 +1236,107 @@ def test_tiny_llama_adapted_batcher_on_the_gpu(cuda):
     assert (base[0] - got[0]).abs().max() <= 0.03 * scale
     assert min((base[r] - got[r]).abs().max() for r in (1, 2, 3)) \
         > 0.03 * scale
+
+
+# -- the Attention lowering's causal and additive routes to flash ---------
+# (B, Hq, Hkv, Sq, Skv, D, qdt, mask) around the edge of what the kernel
+# takes: the route must be exactly the wrapper's domain (a wrapper
+# launches its kernel or raises, so a routed call the wrapper refuses
+# would fail, and one it takes but the route misses runs the plain path)
+FLASH_ROUTES = [
+    (1, 4, 2, 16, 16, 64, torch.bfloat16, None),
+    (2, 8, 2, 33, 70, 128, torch.bfloat16, "B"),
+    (1, 4, 4, 16, 16, 128, torch.bfloat16, "1"),
+    (1, 4, 2, 16, 16, 96, torch.bfloat16, None),      # D outside
+    (1, 4, 2, 16, 16, 32, torch.bfloat16, "1"),       # D outside
+    (1, 4, 2, 16, 16, 64, torch.float32, None),       # f32
+    (1, 4, 2, 16, 16, 64, torch.float16, "1"),        # f16
+    (1, 4, 2, 16, 16, 64, torch.bfloat16, "H"),       # mask per head
+]
+
+
+def _route_inputs(cuda, B, Hq, Hkv, Sq, Skv, D, qdt, mask):
+    g = torch.Generator(device=cuda).manual_seed(B * 100 + Sq + D)
+    q = torch.randn(B, Hq, Sq, D, generator=g, device=cuda).to(qdt)
+    k, v = (torch.randn(B, Hkv, Skv, D, generator=g, device=cuda).to(qdt)
+            for _ in range(2))
+    m = None
+    if mask is not None:
+        mb, mh = (B if mask == "B" else 1), (Hq if mask == "H" else 1)
+        m = torch.where(torch.rand(mb, mh, Sq, Skv, generator=g,
+                                   device=cuda) < 0.7, 0.0, -1e4).to(qdt)
+    return q, k, v, m
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,qdt,mask", FLASH_ROUTES)
+def test_flash_route_is_exactly_what_the_wrapper_takes(cuda, B, Hq, Hkv, Sq,
+                                                       Skv, D, qdt, mask):
+    from whisper_tensor_tpu_torch.milli.ops.attention import (AttentionMilli,
+                                                             flash_mode)
+
+    q, k, v, m = _route_inputs(cuda, B, Hq, Hkv, Sq, Skv, D, qdt, mask)
+    op = AttentionMilli(is_causal=m is None)
+    mode = flash_mode(op, q, k, v, m, need_qk=False)
+    kw = {"causal": True} if m is None else {"mask": m}
+    if mode is None:
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v, 0.125, **kw)
+    else:
+        assert mode == ("causal" if m is None else "additive")
+        flash_attention(q, k, v, 0.125, **kw)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,qdt,mask", FLASH_ROUTES)
+def test_attention_lowering_takes_flash_in_its_causal_and_additive_modes(
+        cuda, B, Hq, Hkv, Sq, Skv, D, qdt, mask):
+    """A routed call launches flash once and agrees with the kernel's plain
+    version; a call just outside the route launches nothing and agrees
+    with the f32 plain path on the CPU."""
+    from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
+    from whisper_tensor_tpu_torch.milli.ops.attention import (AttentionMilli,
+                                                             flash_mode)
+
+    q, k, v, m = _route_inputs(cuda, B, Hq, Hkv, Sq, Skv, D, qdt, mask)
+    op = AttentionMilli(scale=0.125, is_causal=m is None)
+    ins = [q, k, v] + ([] if m is None else [m])
+    routed = flash_mode(op, q, k, v, m, need_qk=False) is not None
+    n0 = flash_attention.launches
+    (got,) = LOWERINGS["Attention"](op, ins, [None] * len(ins), cuda)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + int(routed)
+    if routed:
+        kw = {"causal": True} if m is None else {"mask": m}
+        want = flash_attention_plain(q, k, v, 0.125, **kw)
+        mag = flash_attention_plain(q, k, v.abs(), 0.125, **kw)
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= flash_agreement_bound(want, mag)).all())
+    else:
+        cpu = torch.device("cpu")
+        (want,) = LOWERINGS["Attention"](
+            op, [t.cpu() for t in ins], [None] * len(ins), cpu)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+def test_causal_rows_that_see_no_key_take_the_mean_of_v(cuda):
+    """Sq > Skv: the first Sq - Skv rows see no key; the oracle's -1e30
+    fill gives them the mean of v. The rest run the kernel's causal mode
+    in one launch."""
+    from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
+    from whisper_tensor_tpu_torch.milli.ops.attention import AttentionMilli
+
+    q, k, v, _ = _route_inputs(cuda, 1, 4, 2, 40, 24, 64, torch.bfloat16,
+                               None)
+    n0 = flash_attention.launches
+    (got,) = LOWERINGS["Attention"](AttentionMilli(scale=0.125,
+                                                   is_causal=True),
+                                    [q, k, v], [None] * 3, cuda)
+    assert flash_attention.launches == n0 + 1
+    mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(2, dim=1)
+    torch.testing.assert_close(got[:, :, :16].float(),
+                               mean.to(torch.bfloat16).float().expand(
+                                   1, 4, 16, 64), rtol=0, atol=0)
+    want = flash_attention_plain(q[:, :, 16:], k, v, 0.125, causal=True)
+    mag = flash_attention_plain(q[:, :, 16:], k, v.abs(), 0.125, causal=True)
+    err = (got[:, :, 16:].float() - want.float()).abs()
+    assert bool((err <= flash_agreement_bound(want, mag)).all())

@@ -243,13 +243,22 @@ def eval_cases():
     return _capture_eval_cases()
 
 
-# KVWrite, the port's merge of a layer's two cache writes
-# (pair_cache_writes), has no counterpart in the JAX package: its eval is
-# held against two of the reference's DynUpdateSlice evals in
-# tests/test_torch_port_transforms.py
-@pytest.mark.parametrize("kind", sorted(k for k in LOWERINGS
-                                        if k != "KVWrite"))
+# The kinds the text recipes' graphs hold. KVWrite, the port's merge of
+# a layer's two cache writes (pair_cache_writes), has no counterpart in
+# the JAX package: its eval is held against two of the reference's
+# DynUpdateSlice evals in tests/test_torch_port_transforms.py. Every
+# other kind of LOWERINGS is held to the reference's eval on the
+# conformance corpus's graphs (tests/test_torch_conformance_ops.py).
+RECIPE_KINDS = ("Attention", "Cast", "CastLike", "Constant",
+                "DynUpdateSlice", "Einsum", "Gather", "LayerNorm", "MatMul",
+                "PackedMatMul", "QuantMatMul", "RMSNorm", "Range", "Reshape",
+                "Rotary", "Shape", "SimpleBinary", "SimpleUnary", "Split",
+                "Squeeze", "Transpose", "Unsqueeze", "Where")
+
+
+@pytest.mark.parametrize("kind", RECIPE_KINDS)
 def test_milli_op_eval_matches_the_reference(kind, eval_cases):
+    assert kind in LOWERINGS
     cases = eval_cases.get(kind)
     assert cases, f"no node of kind {kind} in the recipes' graphs"
     for ref_op, port_op, inputs in cases:

@@ -13,6 +13,8 @@ package (whisper_tensor_tpu), at any level.
     a regex completion, an embeddings request on the q4_0 model and a
     best_of completion; neither jax nor the JAX package (by exact name
     or the `whisper_tensor_tpu.` prefix) is then in sys.modules.
+(c) A fresh interpreter runs one conformance case of every op type the
+    port runs through its Model.eval on the CPU, with the same check.
 """
 
 import ast
@@ -21,6 +23,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -198,4 +201,51 @@ def test_a_served_completion_loads_nothing_of_jax(tmp_path):
     assert proc.stdout.count("STATUS 200 3") == 5, proc.stdout
     assert proc.stdout.count("ROUTE 200") == 3, proc.stdout
     assert "PACKED [9, 9, 8]" in proc.stdout, proc.stdout
+    assert "FOREIGN []" in proc.stdout, proc.stdout
+
+
+_CORPUS_SCRIPT = r"""
+import sys
+from pathlib import Path
+import numpy as np
+from whisper_tensor_tpu_torch.model import Model
+paths = {}
+n = 0
+for f in sorted(Path(sys.argv[1]).glob("*.onnx")):
+    feeds = dict(np.load(f.with_suffix(".npz"), allow_pickle=True))
+    m = Model.new_from_onnx(f.read_bytes())
+    be = m.backend("torch", device="cpu")
+    be.run(m.graph, feeds)
+    paths[be.last_path] = paths.get(be.last_path, 0) + 1
+    n += 1
+print("RAN", n, sorted(paths.items()))
+print("FOREIGN", sorted(m for m in sys.modules
+                        if m in ("jax", "whisper_tensor_tpu")
+                        or m.startswith(("jax.", "whisper_tensor_tpu."))))
+"""
+
+
+def test_corpus_graphs_run_without_jax(tmp_path):
+    """One conformance case of every op type the port runs (built here
+    with the port's builder) goes through the port's Model.eval in a
+    fresh interpreter: the generic ONNX path, the interpreter of graphs
+    with strings and sequences and the host control flow included, loads
+    nothing of jax or the JAX package."""
+    import torch_conformance as tc
+
+    seen = set()
+    for case in tc.selected(tc.cases_of(*tc.MODULES)):
+        if case.op_type in seen:
+            continue
+        seen.add(case.op_type)
+        stem = tmp_path / f"{len(seen):03d}"
+        stem.with_suffix(".onnx").write_bytes(tc.onnx_bytes(case))
+        np.savez(stem.with_suffix(".npz"), **tc.feeds_of(case))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _CORPUS_SCRIPT, str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"RAN {len(seen)} " in proc.stdout, proc.stdout
+    assert "'torch-control'" in proc.stdout and "'oracle'" in proc.stdout
     assert "FOREIGN []" in proc.stdout, proc.stdout

@@ -217,16 +217,17 @@ def test_executor_folds_once_per_plan_and_writes_caches_in_place():
 
 
 def test_executor_raises_for_an_op_without_lowering():
-    """Pow, a milli op of the JAX package the port's recipes never emit,
-    has no lowering (Einsum, this test's op before, gained one with the
-    multi-LoRA surgery)."""
-    from whisper_tensor_tpu.milli.ops.basic import Pow
+    """Conv, a milli op of the JAX package the port has not ported yet
+    (the media slice), has no lowering (Einsum and then Pow, this test's
+    ops before, gained one with the multi-LoRA surgery and the generic
+    ONNX path)."""
+    from whisper_tensor_tpu.milli.ops.conv import Conv
 
     g = MilliGraph("no-lowering")
     a, b = g.add_input("a"), g.add_input("b")
-    g.mark_output("y", g.op1(Pow(), a, b))
+    g.mark_output("y", g.op1(Conv(), a, b))
     ex = GraphExecutor(g, CPU)
-    with pytest.raises(NotImplementedError, match="Pow"):
+    with pytest.raises(NotImplementedError, match="Conv"):
         ex({"a": torch.ones(2, 3), "b": torch.ones(2, 3)})
 
 

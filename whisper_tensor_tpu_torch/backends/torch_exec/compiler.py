@@ -17,6 +17,19 @@ steps that remain. Later runs with the same shapes replay the device
 steps only. Folded values that a device step or an output needs are
 uploaded once per plan.
 
+Two kinds of graph need more than shapes in the plan's key:
+  * A lowering that needs a host value the fold did not give it (a
+    Reshape shape, Slice bounds, Reduce axes or a TopK k fed as a graph
+    input) raises NeedsStatic. The executor then LIFTS the graph inputs
+    that value depends on: they fold as host values from then on, and
+    their values join the plan's key, so a plan built for axes [1] never
+    replays for axes [0]. The reference lifts small integer feeds the
+    same way (backends/eval_backend.py:283-318).
+  * An op whose output shape depends on the data (NonZero, Compress,
+    Unique) makes every shape read after it data-dependent: a plan that
+    folded such a Shape or SizeOf is not kept, and the next run builds
+    afresh.
+
 There is no oracle fallback: a node that has to run on the device and
 has no lowering raises NotImplementedError naming its KIND.
 """
@@ -28,13 +41,16 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ...dtype import to_device
+from ...dtype import to_device, to_host
 from ...milli.ir import MilliGraph
 from ...milli.ops import LOWERINGS
+from ...milli.registry import NeedsStatic
 
-_FOLD_BLOCKLIST = {"RandomNormalLike"}
+_FOLD_BLOCKLIST = {"RandomNormalLike", "Bernoulli", "Dropout"}
 _SHAPE_ONLY_OPS = {"Shape", "SizeOf"}
+_DATA_SHAPED_OPS = {"NonZero", "Compress", "Unique"}
 _FOLD_MAX_ELEMENTS = 1 << 16     # fold small host-side shape math only
+_LIFT_MAX_ELEMENTS = 1 << 16     # graph inputs that may be lifted
 
 PlanKey = Tuple[Tuple[Tuple[int, ...], torch.dtype], ...]
 
@@ -54,6 +70,15 @@ class _Plan:
     def __init__(self):
         self.steps: List[_Step] = []
         self.consts: Dict[int, torch.Tensor] = {}   # uploaded folded values
+        # False once a shape of a data-shaped value was folded
+        self.replayable = True
+
+
+class _LiftInputs(Exception):
+    """A build needs these graph inputs as host values."""
+
+    def __init__(self, names):
+        self.names = names
 
 
 def _host_dummy(t: torch.Tensor) -> np.ndarray:
@@ -73,18 +98,31 @@ class GraphExecutor:
         self.device = device
         self.input_names = list(graph.inputs)
         self._plans: Dict[PlanKey, _Plan] = {}
+        self._lifted: List[str] = []   # inputs whose values key a plan
+
+    def _key(self, feeds) -> PlanKey:
+        key = tuple((tuple(feeds[n].shape), feeds[n].dtype)
+                    for n in self.input_names)
+        if self._lifted:
+            key += tuple(_value_key(feeds[n]) for n in self._lifted)
+        return key
 
     def __call__(self, feeds: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         args = [feeds[n] for n in self.input_names]
-        key = tuple((tuple(a.shape), a.dtype) for a in args)
-        plan = self._plans.get(key)
+        plan = self._plans.get(self._key(feeds))
         if plan is None:
             # two threads may build one key at once (the batcher's loop
             # and an HTTP thread rescoring logprobs): each builds from
             # local state, and either plan serves later calls
-            plan, vals = self._build(args)
-            self._plans[key] = plan
+            while True:
+                try:
+                    plan, vals = self._build(args)
+                    break
+                except _LiftInputs as need:
+                    self._lifted = sorted(set(self._lifted) | need.names)
+            if plan.replayable:
+                self._plans[self._key(feeds)] = plan
         else:
             vals = dict(plan.consts)
             for tid, a in zip(self.graph.inputs.values(), args):
@@ -102,8 +140,15 @@ class GraphExecutor:
         plan = _Plan()
         vals: Dict[int, torch.Tensor] = {}
         statics: Dict[int, np.ndarray] = {}
-        for tid, a in zip(self.graph.inputs.values(), args):
+        # graph inputs each device value depends on, and the values whose
+        # shape depends on data
+        deps: Dict[int, frozenset] = {}
+        data_shaped: set = set()
+        for (name, tid), a in zip(self.graph.inputs.items(), args):
             vals[tid] = a
+            deps[tid] = frozenset([name])
+            if name in self._lifted:
+                statics[tid] = to_host(a)
 
         def lift(tid: int) -> torch.Tensor:
             if tid not in vals:
@@ -118,6 +163,8 @@ class GraphExecutor:
             if kind in _SHAPE_ONLY_OPS and any(
                     s is None and i is not None
                     for s, i in zip(in_statics, node.inputs)):
+                if any(i in data_shaped for i in node.inputs):
+                    plan.replayable = False
                 dummies = [s if s is not None or i is None
                            else _host_dummy(vals[i])
                            for s, i in zip(in_statics, node.inputs)]
@@ -144,14 +191,40 @@ class GraphExecutor:
             ins = [lift(i) if i is not None else None for i in node.inputs]
             step = _Step(fn, node.op, list(node.inputs), in_statics,
                          list(node.outputs))
-            outs = fn(node.op, ins, in_statics, self.device)
+            try:
+                outs = fn(node.op, ins, in_statics, self.device)
+            except NeedsStatic as e:
+                need = deps.get(node.inputs[e.index], frozenset())
+                names = {n for n in need if n not in self._lifted
+                         and _small(args[self.input_names.index(n)])}
+                if not names or names != set(need) - set(self._lifted):
+                    raise NotImplementedError(
+                        f"{e} (node {node.id}): it depends on no graph "
+                        f"input that can be lifted to a host value") from e
+                raise _LiftInputs(names) from e
             if len(outs) != len(node.outputs):
                 raise RuntimeError(f"lowering of {kind} returned "
                                    f"{len(outs)} outputs, graph has "
                                    f"{len(node.outputs)}")
             plan.steps.append(step)
+            dep = frozenset().union(*(deps.get(i, frozenset())
+                                      for i in node.inputs if i is not None))
+            shaped = kind in _DATA_SHAPED_OPS or any(
+                i in data_shaped for i in node.inputs if i is not None)
             for tid, o in zip(node.outputs, outs):
                 vals[tid] = o
+                deps[tid] = dep
+                if shaped:
+                    data_shaped.add(tid)
         for t in self.graph.outputs.values():
             lift(t)
         return plan, vals
+
+
+def _small(t: torch.Tensor) -> bool:
+    return t.numel() <= _LIFT_MAX_ELEMENTS
+
+
+def _value_key(t: torch.Tensor):
+    """A lifted input's value, as a plan-key part."""
+    return (str(t.dtype), tuple(t.shape), to_host(t).tobytes())

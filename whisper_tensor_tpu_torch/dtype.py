@@ -3,8 +3,34 @@
 `DType`, `ONNX_TO_DTYPE` and `DTYPE_TO_ONNX` are the port's copy of
 whisper_tensor_tpu/dtype.py, trimmed to the scalar types: the packed
 (block-quantized) formats live in packed_format.py; `AnyDType`,
-`promote` and the jax mapping are left out. Only the element types the text slice runs map to torch;
-every other DType raises NotImplementedError naming itself.
+`promote` and the jax mapping are left out.
+
+Where each DType lives on the device:
+
+  DType            host (numpy)            device (torch)
+  F64 F32 F16      float64/32/16           float64/32/16
+  BF16             ml_dtypes.bfloat16      bfloat16 (crosses as 16-bit words)
+  F8E4M3 F8E5M2    ml_dtypes float8s       float8_e4m3fn, float8_e5m2
+                                           (cross as bytes; the lowerings
+                                           compute in f32 and round back)
+  I64 I32 I16 I8   int64/32/16/8           int64/32/16/8
+  U8               uint8                   uint8
+  U16 U32 U64      uint16/32/64            uint16/32/64; torch lacks most
+                                           arithmetic on them, so the
+                                           lowerings widen for the op and
+                                           round back (milli/ops/common.py,
+                                           `widen_unsigned`)
+  BOOL             bool_                   bool
+  U4 I4            uint8 / int8 carriers   uint8 / int8 carriers (the
+                                           host's own unpacked form)
+  F4E2M1           ml_dtypes.float4_e2m1fn float32 carrier: crosses as its
+                                           4-bit codes in bytes, widened on
+                                           the device through a 16-entry
+                                           table, narrowed on the way back
+                                           (exact: every carried value is a
+                                           4-bit float)
+  STRING           object                  none: graphs with strings run
+                                           in the host interpreter
 
 bf16 crosses between host and device as raw 16-bit words: numpy has no
 bf16 of its own (the host keeps ml_dtypes' bfloat16), and
@@ -172,26 +198,45 @@ ONNX_TO_DTYPE = {
 DTYPE_TO_ONNX = {v: k for k, v in ONNX_TO_DTYPE.items()}
 
 _TORCH = {
+    DType.F64: torch.float64,
     DType.F32: torch.float32,
     DType.F16: torch.float16,
     DType.BF16: torch.bfloat16,
+    DType.F8E4M3: torch.float8_e4m3fn,
+    DType.F8E5M2: torch.float8_e5m2,
     DType.I64: torch.int64,
     DType.I32: torch.int32,
+    DType.I16: torch.int16,
     DType.I8: torch.int8,
+    DType.U64: torch.uint64,
+    DType.U32: torch.uint32,
+    DType.U16: torch.uint16,
     DType.U8: torch.uint8,
     DType.BOOL: torch.bool,
 }
 _DTYPE = {v: k for k, v in _TORCH.items()}
+# carriers: the device type that holds a DType torch does not have
+_TORCH.update({DType.U4: torch.uint8, DType.I4: torch.int8,
+               DType.F4E2M1: torch.float32})
+# the 16 values of a 4-bit E2M1 float, by code
+F4E2M1_VALUES = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0,
+                 -0.0, -0.5, -1.0, -1.5, -2.0, -3.0, -4.0, -6.0)
+_NP_F4 = (np.dtype(ml_dtypes.float4_e2m1fn)
+          if ml_dtypes is not None and hasattr(ml_dtypes, "float4_e2m1fn")
+          else None)
+_NP_F8 = ({np.dtype(ml_dtypes.float8_e4m3fn): torch.float8_e4m3fn,
+           np.dtype(ml_dtypes.float8_e5m2): torch.float8_e5m2}
+          if ml_dtypes is not None else {})
 
 
 def to_torch(dt: DType) -> torch.dtype:
-    """The torch dtype of a DType; NotImplementedError for the rest."""
+    """The torch dtype (or carrier, see the table above) of a DType."""
     try:
         return _TORCH[dt]
     except KeyError:
         raise NotImplementedError(
-            f"DType {dt.name} has no torch mapping in the port yet "
-            f"(mapped: {', '.join(d.name for d in _TORCH)})") from None
+            f"DType {dt.name} has no device type: it lives on the host "
+            f"only") from None
 
 
 def from_torch(dt: torch.dtype) -> DType:
@@ -199,20 +244,32 @@ def from_torch(dt: torch.dtype) -> DType:
         return _DTYPE[dt]
     except KeyError:
         raise NotImplementedError(
-            f"torch dtype {dt} has no DType mapping in the port yet") from None
+            f"torch dtype {dt} has no DType mapping in the port") from None
 
 
 def to_device(arr: np.ndarray, device: torch.device,
               dtype: Optional[DType] = None) -> torch.Tensor:
     """Upload a host array. `dtype` is the declared element type: an
-    array that arrives in another float type (BF16 kept as float32 on a
-    host without ml_dtypes) is cast on the device after the copy."""
+    array that arrives in another type (BF16 kept as float32 on a host
+    without ml_dtypes, a float feed of an integer input) is cast on the
+    device after the copy."""
     arr = np.asarray(arr, order="C")     # (ascontiguousarray makes 0-d 1-d)
-    if device.type == "cpu":
-        # never alias the host array: lowerings may write in place
+    if arr.dtype == np.dtype(object) or arr.dtype.kind in "US":
+        raise NotImplementedError(
+            "STRING tensors live on the host only")
+    if device.type == "cpu" or not arr.flags.writeable:
+        # never alias the host array: lowerings may write in place (and
+        # torch.from_numpy wants a writable array)
         arr = arr.copy()
     if _NP_BF16 is not None and arr.dtype == _NP_BF16:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    elif arr.dtype in _NP_F8:
+        t = torch.from_numpy(arr.view(np.uint8)).view(_NP_F8[arr.dtype])
+    elif _NP_F4 is not None and arr.dtype == _NP_F4:
+        codes = torch.from_numpy(arr.view(np.uint8)).to(device)
+        table = torch.tensor(F4E2M1_VALUES, dtype=torch.float32,
+                             device=device)
+        return table[codes.long()]
     else:
         t = torch.from_numpy(arr)
     t = t.to(device)
@@ -234,12 +291,18 @@ def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def to_host(t: torch.Tensor) -> np.ndarray:
+def to_host(t: torch.Tensor, dtype: Optional[DType] = None) -> np.ndarray:
     """Download a tensor into the host representation: bf16 as
-    ml_dtypes.bfloat16 (float32 where ml_dtypes is missing)."""
+    ml_dtypes.bfloat16 (float32 where ml_dtypes is missing), the f8 types
+    as ml_dtypes', and a declared F4E2M1 from its f32 carrier."""
     t = t.detach().cpu()
+    if dtype is DType.F4E2M1 and _NP_F4 is not None:
+        return t.float().numpy().astype(_NP_F4)
     if t.dtype == torch.bfloat16:
         if _NP_BF16 is None:
             return t.float().numpy()
         return t.contiguous().view(torch.int16).numpy().view(_NP_BF16)
+    for np_dt, tdt in _NP_F8.items():
+        if t.dtype == tdt:
+            return t.contiguous().view(torch.uint8).numpy().view(np_dt)
     return t.numpy()

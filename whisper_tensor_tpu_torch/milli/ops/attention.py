@@ -18,12 +18,26 @@ launches the kernel or raises for shapes it does not take:
     (backends/cuda/flash_attention.py), in its pos-bound mode: the
     visibility rule stays in registers and the key loop stops at the
     last visible key.
+A prefill in bf16 takes flash_attention's other two modes too
+(`flash_mode`): an is_causal call without a mask its causal mode, and a
+call with an additive float mask of shape (1|B, 1, Sq, Skv) its additive
+mode (GPT-2's scalar-position step graph emits one), when there is no
+softcap and no qk output, D is 64 or 128, Dv = D and Hq is a multiple of
+Hkv: exactly the calls the wrapper takes. The reference keeps these modes
+behind an opt-in gate measured on the v5e (backends/pallas/
+attention.py:94-125); on the H100 the additive mode runs at a quarter of
+the plain path's time (PERF.md).
+
+Rows that see no key follow the oracle: a causal row (Sq > Skv) takes
+the mean of v, as the oracle's finite -1e30 fill gives, and an additive
+mask is shifted by its row maximum first (softmax does not change), so a
+row masked by a large finite value everywhere keeps the scores' order
+as the oracle's float64 scores do, where f32 would round them away.
+
 Every other call (f32 caches among them, as the TPU kernel is bf16
 only) runs the plain f32 path below, which mirrors the reference's XLA
 path: scores in f32, softmax in f32, the probabilities rounded to the
-input type, the value product accumulated in f32. The kernels' causal
-and additive-mask modes have no caller here yet: no graph the port
-loads emits them with a bf16 cache.
+input type, the value product accumulated in f32.
 """
 
 from __future__ import annotations
@@ -296,6 +310,61 @@ def _to_4d(op, inputs):
     return q, k, v, mask, was_3d
 
 
+def flash_mode(op, q, k, v, mask, need_qk: bool) -> Optional[str]:
+    """"causal" or "additive" when this call takes flash_attention in
+    that mode: exactly the calls its wrapper takes (once k and v are
+    contiguous). None sends it to the plain path."""
+    if need_qk or op.softcap or q.ndim != 4 or k.ndim != 4:
+        return None
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if not (Sq > 1 and q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and tuple(v.shape) == tuple(k.shape) and k.shape[0] == B
+            and D == k.shape[3] and D in (64, 128) and Hkv > 0
+            and Hq % Hkv == 0 and B <= 65535):
+        return None
+    if op.is_causal:
+        return "causal" if mask is None else None
+    if mask is not None and mask.is_floating_point() and mask.ndim == 4 \
+            and mask.shape[0] in (1, B) \
+            and tuple(mask.shape[1:]) == (1, Sq, Skv):
+        return "additive"
+    return None
+
+
+def shift_rows(mask: torch.Tensor) -> torch.Tensor:
+    """An additive mask less its row maximum (where finite): the softmax
+    is the same, and a row masked everywhere by one large finite value
+    keeps the scores' order."""
+    top = mask.amax(dim=-1, keepdim=True)
+    return mask - torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _flash(mode: str, q, k, v, mask, scale) -> torch.Tensor:
+    k, v = _aligned(k), _aligned(v)
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    if mode == "additive":
+        return flash_attention(q, k, v, scale,
+                               mask=shift_rows(mask.float()))
+    Sq, Skv = q.shape[2], k.shape[2]
+    if Sq <= Skv:
+        return flash_attention(q, k, v, scale, causal=True)
+    # the first Sq - Skv rows see no key: the oracle's -1e30 fill gives
+    # them the mean of v; the rest are a causal call of Skv rows
+    B, Hq, _, D = q.shape
+    Hkv = k.shape[1]
+    mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(
+        Hq // Hkv, dim=1).to(q.dtype).expand(B, Hq, Sq - Skv, D)
+    tail = flash_attention(q[:, :, Sq - Skv:], k, v, scale, causal=True)
+    return torch.cat([mean, tail], dim=2)
+
+
 def position_mask(pos: torch.Tensor, sq: int, skv: int) -> torch.Tensor:
     """(B,) positions -> dense boolean (B, 1, Sq, Skv) visibility."""
     j = torch.arange(skv, device=pos.device).view(1, 1, 1, skv)
@@ -334,6 +403,10 @@ def attention(op, inputs, static, device):
             return finish(flash_attention(q, k.contiguous(), v.contiguous(),
                                           scale, pos_bound=pos))
         mask = position_mask(pos, Sq, Skv)
+    else:
+        mode = flash_mode(op, q, k, v, mask, need_qk)
+        if mode is not None:
+            return finish(_flash(mode, q, k, v, mask, scale))
 
     rep = 1 if need_qk else Hq // Hkv
     if need_qk and Hq != Hkv:
@@ -351,27 +424,34 @@ def attention(op, inputs, static, device):
     else:
         scores = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     qk_out = scores
+    shifted = None      # the softmax's input where the mask is shifted
     if mask is not None:
-        m = mask
+        m = mask.reshape((1,) * (4 - mask.ndim) + tuple(mask.shape))
         if rep > 1:
-            m = (m.reshape(B, Hkv, rep, *m.shape[2:])
-                 if m.ndim == 4 and m.shape[1] == Hq
-                 else m.unsqueeze(2) if m.ndim == 4 else m)
+            # (b, Hq|1, Sq, Skv) against the grouped (B, Hkv, rep, ...)
+            m = (m.reshape(m.shape[0], Hkv, rep, *m.shape[2:])
+                 if m.shape[1] == Hq else m.unsqueeze(2))
         if m.dtype == torch.bool:
             scores = scores.masked_fill(~m, -1e30)
+        elif op.softcap:
+            scores = scores + m.float()    # a softcap is not shift-free
         else:
-            scores = scores + m.float()
+            shifted = scores + shift_rows(m.float())
+            # the captured stages keep the unshifted bias
+            scores = scores + m.float() if op.qk_mode >= 1 else shifted
     if op.is_causal:
         causal = torch.ones(Sq, Skv, dtype=torch.bool,
                             device=q.device).tril(Skv - Sq)
         scores = scores.masked_fill(~causal, -1e30)
+        if shifted is not None:
+            shifted = shifted.masked_fill(~causal, -1e30)
     if op.qk_mode >= 1:
         qk_out = scores
     if op.softcap > 0:
         scores = op.softcap * torch.tanh(scores / op.softcap)
     if op.qk_mode >= 2:
         qk_out = scores
-    p = torch.softmax(scores, dim=-1)
+    p = torch.softmax(scores if shifted is None else shifted, dim=-1)
     if op.qk_mode >= 3:
         qk_out = p
     if low:

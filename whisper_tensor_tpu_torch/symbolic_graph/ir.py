@@ -7,12 +7,16 @@ a lazy TensorStore; ops are typed Operation objects constructed from
 NodeProtos via the registry.
 
 `to_milli()` lowers the whole graph into one MilliGraph, which the
-port's GraphExecutor runs.
+port's GraphExecutor runs; a graph with control flow runs in the
+interpreter (backends/eval_backend.py), its If/Scan/Loop on the host and
+their nested graphs (sub-graphs, bound at ingest) through the selected
+mode.
 
-The port's copy of whisper_tensor_tpu/symbolic_graph/ir.py, trimmed to
-ONNX ingest and whole-graph lowering: graph surgery, ONNX re-export
-and control-flow sub-graphs are left out. An initializer whose store
-entry is lazy (the GGUF loader's) is not materialized to lower it.
+The port's copy of whisper_tensor_tpu/symbolic_graph/ir.py without graph
+surgery and ONNX re-export. An initializer whose store entry is lazy
+(the GGUF loader's) is not materialized to lower it. `needs_host_eval`
+also holds the graphs with an `ai.onnx.ml` node: those ops (label
+encoders, tree ensembles, ...) run in the numpy interpreter by design.
 """
 
 from __future__ import annotations
@@ -38,6 +42,10 @@ from .tensor_store import LazyTensor, TensorStore
 # graph as constants (so trace-time shape folding sees them); larger
 # ones become named runtime inputs fed from the TensorStore.
 CONST_BAKE_MAX_ELEMENTS = 1024
+
+# ONNX op types whose outputs are STRING tensors
+_STRING_OPS = ("StringConcat", "StringSplit", "StringNormalizer",
+               "RegexFullMatch")
 
 
 class TensorKind(enum.Enum):
@@ -202,6 +210,11 @@ class SymbolicGraph:
             attrs = Attrs(node, base_dir)
             op = cls.from_onnx(node, attrs, opset)
             op.OP_TYPE = node.op_type  # instance-level: shared classes
+            op._onnx_domain = node.domain or ""
+            # control-flow ops parse their nested graphs here
+            if hasattr(op, "_bind_subgraphs"):
+                op._bind_subgraphs(node, attrs, resolver, store, opsets,
+                                   base_dir)
             # unknown input names are outer-scope captures (ONNX subgraph
             # semantics) or forward references; create placeholders.
             for n in node.input:
@@ -272,6 +285,26 @@ class SymbolicGraph:
     # ------------------------------------------------------------------
     # lowering
     # ------------------------------------------------------------------
+    def has_control_flow(self) -> bool:
+        return any(op.op.sub_graphs() for op in self.ops)
+
+    def needs_host_eval(self) -> bool:
+        """True when the graph carries values torch cannot represent:
+        sequence/optional host containers (ops that execute via
+        eval_direct), STRING tensors (declared, or made by a string op or
+        a Cast to STRING), or an `ai.onnx.ml` node. Such graphs run on
+        the host interpreter (reference :308-323)."""
+        if any(hasattr(op.op, "eval_direct") and not op.op.sub_graphs()
+               for op in self.ops):
+            return True
+        if any(getattr(op.op, "_onnx_domain", "") == "ai.onnx.ml"
+               or op.op.OP_TYPE in _STRING_OPS
+               or getattr(op.op, "to", None) is DType.STRING
+               for op in self.ops):
+            return True
+        return any(t.info is not None and t.info.dtype == DType.STRING
+                   for t in self.tensors.values())
+
     def to_milli(self, group: Optional[str] = None,
                  bake_small_constants: bool = True) -> Tuple[MilliGraph, Dict[str, str]]:
         """Lower the whole graph to one MilliOpGraph.
@@ -280,6 +313,9 @@ class SymbolicGraph:
         milli input name -> store tensor name for initializer feeds.
         (Reference: generate_milli_graph, src/symbolic_graph/mod.rs:716.)
         """
+        if self.has_control_flow():
+            raise UnsupportedOnnxOp("whole-graph lowering with control flow; "
+                                    "use the interpreter path")
         milli = MilliGraph(self.name)
         ctx = LowerCtx(milli, group)
         tmap: Dict[int, int] = {}

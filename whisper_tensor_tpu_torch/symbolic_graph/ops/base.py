@@ -9,8 +9,8 @@ Reference equivalent: the Operation trait + AnyOperation enum
   * optionally a direct `infer` override.
 
 The port's copy of whisper_tensor_tpu/symbolic_graph/ops/base.py,
-without the sub-graph and ONNX-export hooks of control-flow ops, which
-the port does not load, and `opset_of`, which nothing of it calls.
+without the ONNX-export hook `sub_graph_attrs` (the port has no exporter
+yet) and `opset_of`, which nothing of it calls.
 """
 
 from __future__ import annotations
@@ -139,3 +139,7 @@ class Operation(Introspectable):
 
     def display_name(self) -> str:
         return self.OP_TYPE
+
+    # Ops with nested sub-graphs (If/Scan/Loop/SequenceMap) override this.
+    def sub_graphs(self) -> list:
+        return []

@@ -1,10 +1,12 @@
-"""Composite symbolic ops (fused attention, rotary embedding, the KV
-cache write) -> milli lowerings.
+"""Composite symbolic ops: Attention, RotaryEmbedding, CacheWrite,
+Dropout, DepthToSpace/SpaceToDepth, QuantizeLinear/DequantizeLinear.
 
-The port's copy of whisper_tensor_tpu/symbolic_graph/ops/composite.py,
-trimmed to the ONNX op types the llama and GPT-2 recipes emit:
-Attention, RotaryEmbedding and the custom-domain CacheWrite. Any other
-op type raises UnsupportedOnnxOp at import.
+Reference equivalents: RotaryEmbedding / Lstm / Stft / QuantMatMul in
+src/symbolic_graph/ops/mod.rs:223-286.
+
+The port's copy of whisper_tensor_tpu/symbolic_graph/ops/composite.py
+without LSTM, GRU, RNN and STFT, which wait for the recurrent and
+signal milli ops (symbolic_graph/ops/not_ported.py).
 """
 
 from __future__ import annotations
@@ -12,8 +14,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+
+from ...dtype import DType, ONNX_TO_DTYPE
 from ...milli.ops.attention import AttentionMilli, RotaryMilli
-from ...milli.ops.misc import DynUpdateSliceMilli
+from ...milli.ops.quant import DequantizeLinearMilli, QuantizeLinearMilli
 from .base import Operation, register
 
 
@@ -70,6 +74,96 @@ class RotaryEmbedding(Operation):
                                       self.num_heads), *args)]
 
 
+@register("Dropout")
+@dataclass
+class Dropout(Operation):
+    """Inference: identity (+ all-true mask). Training (opset-13
+    training_mode input true): the official seeded numpy draw, via
+    DropoutMilli (oracle path). Opset<12 attr form is always
+    inference per ONNX >= 7."""
+
+    seed: Optional[int] = None
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        return cls(attrs.i("seed", None))
+
+    def lower(self, ctx, inputs, n_outputs):
+        from ...milli.ops.extra import DropoutMilli
+
+        args = list(inputs)
+        while args and args[-1] is None:
+            args.pop()
+        return ctx.emit(DropoutMilli(self.seed, n_out=n_outputs), *args,
+                        n_outputs=n_outputs)
+
+
+@register("DepthToSpace")
+@dataclass
+class DepthToSpace(Operation):
+    blocksize: int = 1
+    mode: str = "DCR"
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        return cls(attrs.i("blocksize", 1), attrs.s("mode", "DCR"))
+
+    def lower(self, ctx, inputs, n_outputs):
+        from ...milli.ops.misc import DepthToSpaceMilli
+
+        return [ctx.emit1(DepthToSpaceMilli(self.blocksize, self.mode), inputs[0])]
+
+
+@register("SpaceToDepth")
+@dataclass
+class SpaceToDepth(Operation):
+    blocksize: int = 1
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        return cls(attrs.i("blocksize", 1))
+
+    def lower(self, ctx, inputs, n_outputs):
+        from ...milli.ops.misc import SpaceToDepthMilli
+
+        return [ctx.emit1(SpaceToDepthMilli(self.blocksize), inputs[0])]
+
+
+@register("QuantizeLinear")
+@dataclass
+class QuantizeLinear(Operation):
+    axis: int = 1
+    output_dtype: Optional[DType] = None
+    block_size: int = 0
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        return cls(attrs.i("axis", 1),
+                   ONNX_TO_DTYPE.get(attrs.i("output_dtype", 0)),
+                   attrs.i("block_size", 0))
+
+    def lower(self, ctx, inputs, n_outputs):
+        args = [i for i in inputs if i is not None]
+        return [ctx.emit1(QuantizeLinearMilli(self.axis, self.output_dtype,
+                                              self.block_size), *args)]
+
+
+@register("DequantizeLinear")
+@dataclass
+class DequantizeLinear(Operation):
+    axis: int = 1
+    block_size: int = 0
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        return cls(attrs.i("axis", 1), attrs.i("block_size", 0))
+
+    def lower(self, ctx, inputs, n_outputs):
+        args = [i for i in inputs if i is not None]
+        return [ctx.emit1(DequantizeLinearMilli(self.axis,
+                                                self.block_size), *args)]
+
+
 @register("CacheWrite")
 @dataclass
 class CacheWrite(Operation):
@@ -84,5 +178,9 @@ class CacheWrite(Operation):
         return cls(attrs.i("axis", 0))
 
     def lower(self, ctx, inputs, n_outputs):
+        from ...milli.ops.misc import DynUpdateSliceMilli
+
         return [ctx.emit1(DynUpdateSliceMilli(self.axis),
                           inputs[0], inputs[1], inputs[2])]
+
+
