@@ -38,7 +38,14 @@ Phases:
      cache (ragged_kv_write) and as the pair that the served paths run
      (kv_write_pair: a layer's K and V in one launch) at the decode
      step of 16 slots, a 128-row piece, GPT-2's 64 slots and the direct
-     path's scalar start;
+     path's scalar start. Head dim 256 (the Gemma family): flash's
+     additive mode under the Gemma recipes' masks (Gemma-3 1B's 4/1
+     heads global and in a 512-key window, Gemma 2B's 8/1, at 2,048
+     rows and a 128-row prompt) with both of the kernel's tile shapes
+     at that head dim timed, decode_attention at 8/4 heads (B 1 and 16)
+     and the cache-write pair; f16 (an f16 model over the bf16 cache):
+     decode_attention's f16 query and the cache write's f16 mode, each
+     timed against a cast at the kernel's edge;
   3. the direct path: a Llama-3-8B-width checkpoint (hidden 4096, 32/8
      heads of 128, FFN 14336, vocab 128256, rope theta 5e5; depth cut to
      --layers, random weights from a seed) is written to disk, loaded by
@@ -164,6 +171,20 @@ Phases:
      mask takes flash's additive mode, logits against the lowering's
      plain path. `--generic-only` writes the checkpoint and runs phase
      11 alone.
+ 12. Gemma-3 1B (q4_0; 6 layers, so its global layer is in), Gemma-2 2B
+     (int8; then its weights as a Q8_0 GGUF of arch gemma2, dequantized
+     on the host by the loader), Gemma 2B and Phi-3-mini, each at its
+     published widths (FAMILIES) on seeded weights, bf16, max_len 2048,
+     loaded by the port's Server and served over HTTP (phase 3's three
+     requests): every run of the step graph writes each layer's caches
+     in one kv_write_pair launch; flash_attention launches once for each
+     of the lowering's Sq > 1 additive Attention calls on Gemma and
+     Gemma-3 (head dim 256), and never on Gemma-2 (its softcap) and
+     Phi-3 (head dim 96), whose attention runs the plain path;
+     decode_attention never (these recipes' decode steps carry an
+     additive mask, Phi-3's head dim is 96); int8 and packed launches
+     equal the lowering's QuantMatMul and PackedMatMul calls; the greedy
+     answer stands a teacher-forced prefill (phase 3's bound).
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -332,18 +353,24 @@ def phase2(torch, results):
     # (Hq, Hkv, D, L, B, positions). Llama-3-8B's heads: B=1 all keys
     # live, the smoke's direct decode (pos near 100), a () int32 pos,
     # phase 4's ragged slots, 16 full rows; GPT-2's 12 heads of 64 (phase
-    # 7's model) over its 1,024 positions at B 1, 16 and 64
-    cases = [(32, 8, 128, L, 1, [L - 1]), (32, 8, 128, L, 1, [100]),
-             (32, 8, 128, L, 1, [1234]),
-             (32, 8, 128, L, 8, [0, 1, 17, 511, 1000, L - 2, L - 1, 5000]),
-             (32, 8, 128, L, 16, [L - 1] * 16)] + [
-        (12, 12, 64, 1024, B, [1023] * B) for B in (1, 16, 64)]
-    for Hq, Hkv, D, L, B, pos_list in cases:
+    # 7's model) over its 1,024 positions at B 1, 16 and 64; head dim 256
+    # at Gemma-2 2B's 8/4 heads, B 1 and 16, and an f16 query (an f16
+    # model over the servers' bf16 cache)
+    bf16, f16 = torch.bfloat16, torch.float16
+    cases = [(32, 8, 128, L, 1, [L - 1], bf16), (32, 8, 128, L, 1, [100], bf16),
+             (32, 8, 128, L, 1, [1234], bf16),
+             (32, 8, 128, L, 8, [0, 1, 17, 511, 1000, L - 2, L - 1, 5000],
+              bf16),
+             (32, 8, 128, L, 16, [L - 1] * 16, bf16)] + [
+        (12, 12, 64, 1024, B, [1023] * B, bf16) for B in (1, 16, 64)] + [
+        (8, 4, 256, L, 1, [L - 1], bf16), (8, 4, 256, L, 16, [L - 1] * 16, bf16),
+        (8, 4, 256, L, 1, [L - 1], f16)]
+    for Hq, Hkv, D, L, B, pos_list, qdt in cases:
         scale = 1.0 / math.sqrt(D)
         kv_bytes = 2 * B * Hkv * L * D * 2
         sets = []
         for _ in range(copies_for(kv_bytes)):
-            q = torch.randn(B, Hq, 1, D, generator=gen, device=dev).bfloat16()
+            q = torch.randn(B, Hq, 1, D, generator=gen, device=dev).to(qdt)
             k = torch.randn(B, Hkv, L, D, generator=gen, device=dev).bfloat16()
             v = torch.randn(B, Hkv, L, D, generator=gen, device=dev).bfloat16()
             pos = torch.tensor(pos_list, dtype=torch.int64, device=dev)
@@ -365,23 +392,45 @@ def phase2(torch, results):
         # mask), GQA by head index
         live = (torch.arange(L, device=dev)
                 <= pos.reshape(-1).expand(B)[:, None].clamp(0, L - 1))
-        lsets = [(q, k, v, live[:, None, None, :]) for q, k, v, _, _ in sets]
+        # (an f16 query crosses to the cache's type: SDPA takes one type)
+        lsets = [(q.to(k.dtype), k, v, live[:, None, None, :])
+                 for q, k, v, _, _ in sets]
         calls = [(sdpa_gqa(torch, q, k, v, m, scale),)
                  for q, k, v, m in lsets]
         lib_ms = time_ms(torch, lambda f: f(), calls)
         lib_dev = device_time_ms(torch, lambda f: f(), calls)
         n_live = int(live.sum())
-        bms, bby = bound(2 * B * Hq * D * 2 + 2 * Hkv * n_live * D * 2,
-                         4 * Hq * D * n_live)
+        bms, bby = bound(2 * B * Hq * D * q.element_size()
+                         + 2 * Hkv * n_live * D * 2, 4 * Hq * D * n_live)
         splits, chunk = decode_splits(B, Hq, Hkv, L, D,
                                       torch.cuda.current_device())
         label = (f"GPT-2 D=64 B={B} L={L}" if D == 64 else
+                 f"D=256 B={B} L={L}" + (" f16 q" if qdt == f16 else "")
+                 if D == 256 else
                  f"B={B} pos={pos_list[0] if B == 1 else 'ragged' if B == 8 else 'L-1'}")
         shapes[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "bound_ms": bms, "device_ms": dev_ms,
                          "library_device_ms": lib_dev, "host_us": h_us}
+        if qdt == f16:
+            # ROADMAP C17's choice: the kernel's f16 query against a cast
+            # at the kernel's edge (q to f32, the f32-q kernel, the output
+            # back to f16), the same numbers
+            def edge(q, k, v, pos, scale):
+                return decode_attention(q.float(), k, v, pos, scale).half()
+
+            if not torch.equal(edge(*sets[0]), got):
+                fail("decode_attention: the f16 query's output is not the "
+                     "f32 query's rounded to f16")
+            shapes[label].update(
+                edge_cast_ms=time_ms(torch, edge, sets),
+                edge_cast_device_ms=device_time_ms(torch, edge, sets))
+            say(f"  decode_attention {label}: the kernel's f16 query "
+                f"{ms:.4f} ms (device {dev_ms:.4f}) against a cast at its "
+                f"edge {shapes[label]['edge_cast_ms']:.4f} ms (device "
+                f"{shapes[label]['edge_cast_device_ms']:.4f}), equal outputs")
         say(f"  decode_attention B={B} Hq/Hkv={Hq}/{Hkv} D={D} L={L} "
-            f"pos={pos_list} ({splits} splits of {chunk} keys): "
+            f"q {str(qdt)[6:]} pos={pos_list} ({splits} splits of {chunk} "
+            f"keys): "
             f"max_abs_err={err:.6g}, worst err/tol {share:.4g}; kernel "
             f"{ms:.4f} ms ({bms / ms:.1%} of the bound), plain "
             f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (kernel/SDPA "
@@ -673,7 +722,13 @@ def phase2_kv_write(torch, results):
         ("direct pair", 1, 8, L, 128, 32, torch.bfloat16, torch.bfloat16,
          2040),
         ("f32 update pair", 16, 8, L, 128, 1, torch.bfloat16,
-         torch.float32, decode_pos))
+         torch.float32, decode_pos),
+        ("f16 update pair", 16, 8, L, 128, 1, torch.bfloat16,
+         torch.float16, decode_pos),
+        ("Gemma-2 direct pair", 1, 4, L, 256, 1, torch.bfloat16,
+         torch.bfloat16, 100),
+        ("Phi-3 direct pair", 1, 32, L, 96, 1, torch.bfloat16,
+         torch.bfloat16, 100))
     say("  kv_write_pair: a layer's K and V caches in one launch, bit-exact "
         "against the plain version (two ragged_kv_write_plain) over both "
         "whole caches, in place; library: two scatter_ calls")
@@ -730,10 +785,26 @@ def phase2_kv_write(torch, results):
             f"{lib_dev_ms:.4f} ms (same caches as the kernel's: "
             f"{same_lib}); host {h_us:.1f} us a call; bound {bms:.5f} ms "
             f"({bby})")
-        shapes[f"{label} B={B} S={S} {str(udt)[6:]}"] = {
+        key = f"{label} B={B} S={S} {str(udt)[6:]}"
+        shapes[key] = {
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
             "bound_ms": bms, "host_us": h_us, "blocks": plan.blocks}
+        if udt == torch.float16:
+            # ROADMAP C17's choice: the kernel's f16 mode against a cast
+            # at its edge (both updates to bf16 first, then the bf16 pair)
+            def edge(k, a, v, b, p):
+                return kv_write_pair(k, a.bfloat16(), v, b.bfloat16(), p)
+
+            shapes[key].update(
+                edge_cast_ms=time_ms(torch, edge, sets),
+                edge_cast_device_ms=device_time_ms(torch, edge, sets),
+                edge_cast_host_us=host_us(torch, edge, sets))
+            say(f"  kv_write_pair {label}: the kernel's f16 mode {ms:.4f} "
+                f"ms (device {dev_ms:.4f}, host {h_us:.1f} us) against a "
+                f"cast at its edge {shapes[key]['edge_cast_ms']:.4f} ms "
+                f"(device {shapes[key]['edge_cast_device_ms']:.4f}, host "
+                f"{shapes[key]['edge_cast_host_us']:.1f} us)")
         if pair is None:
             pair = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bby,
                         library_ms=lib_ms,
@@ -780,8 +851,8 @@ def flash_work(torch, mode, B, Hq, Hkv, Sq, Skv, D, extra):
         vis = j <= limit.view(B, 1, 1) + s
     elif mode == "causal":
         vis = (j <= s + (Skv - Sq)).expand(B, Sq, Skv)
-    else:
-        vis = torch.isfinite(extra["mask"][:, 0]).expand(B, Sq, Skv)
+    else:     # an entry of -1e30 (the Gemma recipes') weighs exactly 0
+        vis = (extra["mask"][:, 0] > -1e20).expand(B, Sq, Skv)
     pairs = int(vis.sum())
     last = torch.where(vis.any(1), j, -1).amax(1)          # (B,)
     kv_bytes = int((last + 1).clamp_min(0).sum()) * Hkv * D * 2 * 2
@@ -813,7 +884,19 @@ def phase2_flash(torch, results):
              ("(ix) GPT-2 piece", "pos", 1, 12, 12, 128, 1024, 64, [512]),
              ("(x) verify block", "pos", 1, 32, 8, 4, 2048, 128, [700]),
              ("(xi) verify block, 4 rows", "pos", 4, 32, 8, 5, 2048, 128,
-              [0, 65, 1000, 2043]))
+              [0, 65, 1000, 2043]),
+             # head dim 256 under the Gemma recipes' additive (1, 1, Sq,
+             # max_len) mask: Gemma-3 1B's 4/1 heads, global and window
+             # 512, and Gemma 2B's 8/1, at 2,048 rows and a 128-row prompt
+             ("(xii) Gemma-3 global", "global", 1, 4, 1, 2048, 2048, 256,
+              None),
+             ("(xiii) Gemma-3 window 512", "window", 1, 4, 1, 2048, 2048,
+              256, None),
+             ("(xiv) Gemma-3 128-row prompt", "global", 1, 4, 1, 128, 2048,
+              256, None),
+             ("(xv) Gemma 2B", "global", 1, 8, 1, 2048, 2048, 256, None),
+             ("(xvi) Gemma 2B 128-row prompt", "global", 1, 8, 1, 128, 2048,
+              256, None))
     card = torch.cuda.current_device()
     worst, head, shapes = 0.0, None, {}
     for label, mode, B, Hq, Hkv, Sq, Skv, D, pos_list in cases:
@@ -828,6 +911,14 @@ def phase2_flash(torch, results):
             dense = (torch.arange(Skv, device=dev)
                      <= torch.arange(Sq, device=dev)[:, None]
                      + (Skv - Sq))[None, None]
+        elif mode in ("global", "window"):
+            # a prompt at position 0: key j visible from row i iff j <= i
+            # (and j > i - 512 in a window layer); -1e30 elsewhere, the
+            # lowering's f32 mask (its rows' maximum is 0 already)
+            j = torch.arange(Skv, device=dev)
+            i = torch.arange(Sq, device=dev)[:, None]
+            vis = (j <= i) & ((j > i - 512) if mode == "window" else True)
+            extra["mask"] = dense = torch.where(vis, 0.0, -1e30)[None, None]
         else:
             m = torch.randn(B, 1, Sq, Skv, generator=gen, device=dev) * 2
             m[torch.rand(m.shape, generator=gen, device=dev) < 0.3] = \
@@ -869,7 +960,7 @@ def phase2_flash(torch, results):
         pairs, kv_bytes = flash_work(torch, mode, B, Hq, Hkv, Sq, Skv, D,
                                      extra)
         io_bytes = 2 * B * Hq * Sq * D * 2 + kv_bytes + (
-            extra["mask"].numel() * 4 if mode == "mask" else 0)
+            extra["mask"].numel() * 4 if "mask" in extra else 0)
         bms, bby = bound(io_bytes, 4 * D * Hq * pairs)
         tflops = 4 * D * Hq * pairs / (ms * 1e-3) / 1e12
         say(f"  flash_attention {label} {mode} B={B} Hq/Hkv={Hq}/{Hkv} "
@@ -1383,11 +1474,13 @@ def check_cache_writes(launches: dict, runs: int, layers: int,
              f"launch a step")
 
 
-def serve_three(np, port: int, iface, counters: dict, layers: int):
+def serve_three(np, port: int, iface, counters: dict, layers: int,
+                snapshot=None):
     """The direct path's three requests over HTTP (a greedy completion,
     a streamed chat, a seeded sampled completion), with every counter of
     `counters` ({name: wrapper}) and the cache-write kernel's set to 0
-    just before them and read just after. All must answer in full; the
+    just before them and read just after (with `snapshot()`'s counts,
+    when given). All must answer in full; the
     greedy and the sampled request repeat to the same text; the chat's
     text is the interface's 16 greedy tokens; each run of the step graph
     writes a layer's caches in one launch. Returns (greedy response,
@@ -1409,6 +1502,8 @@ def serve_three(np, port: int, iface, counters: dict, layers: int):
         r3 = completion(port, SAMPLED)
         served_s = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
+        if snapshot is not None:
+            launches.update(snapshot())
     finally:
         del iface.step
     say(f"  three requests served in {served_s:.2f} s; kernel launches "
@@ -2522,6 +2617,34 @@ def packed_shadow(torch, lowering, bound):
     checked.inner, checked.calls, checked.worst, checked.max_err = \
         inner, 0, 0.0, 0.0
     lowering.packed_matmul = checked
+    return checked
+
+
+def int8_shadow(lowering, bound):
+    """Install, in the QuantMatMul lowering's module, an int8_matmul that
+    calls the one installed before and holds each result against the
+    plain version on the same inputs (`bound`, with |x| @ |W| as the
+    magnitude). Returns it; `.inner` is the one it wraps."""
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
+        int8_matmul_plain)
+
+    inner = lowering.int8_matmul
+
+    def checked(x, w, s):
+        got = inner(x, w, s)
+        err, share = worst_share(got, int8_matmul_plain(x, w, s),
+                                 int8_matmul_plain(x.float().abs(), w.abs(),
+                                                   s), bound)
+        checked.calls += 1
+        checked.worst = max(checked.worst, share)
+        checked.max_err = max(checked.max_err, err)
+        checked.shapes.add(tuple(w.shape))
+        return got
+
+    checked.inner, checked.calls, checked.worst, checked.max_err = \
+        inner, 0, 0.0, 0.0
+    checked.shapes = set()
+    lowering.int8_matmul = checked
     return checked
 
 
@@ -4226,18 +4349,23 @@ def _timed(fn, reps: int) -> list:
 
 
 class CallCounter:
-    """Counts the calls of a lowering in the LOWERINGS table."""
+    """Counts the calls of a lowering in the LOWERINGS table, and in
+    `matched` those whose inputs `where(kind, inputs)` holds for. The
+    plans built while it is installed keep the counting lowerings."""
 
-    def __init__(self, kinds):
+    def __init__(self, kinds, where=None):
         from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
 
-        self.table, self.calls, self.saved = LOWERINGS, {}, {}
+        self.table, self.saved = LOWERINGS, {}
+        self.calls, self.matched = {}, {}
         for kind in kinds:
             self.saved[kind] = fn = LOWERINGS[kind]
-            self.calls[kind] = 0
+            self.calls[kind] = self.matched[kind] = 0
 
             def wrapped(op, ins, static, device, fn=fn, kind=kind):
                 self.calls[kind] += 1
+                if where is not None and where(kind, ins):
+                    self.matched[kind] += 1
                 return fn(op, ins, static, device)
 
             LOWERINGS[kind] = wrapped
@@ -4427,6 +4555,337 @@ def phase11(torch, np, ckpt: Path, layers: int, results) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 12: Gemma, Gemma-2, Gemma-3 and Phi-3 at their published widths
+# (the config.json of each checkpoint named), depth cut to --layers (6
+# for Gemma-3, so that its sixth layer, the global one, is in), seeded
+# random weights, bf16, max_len 2048; (config, layers or None for
+# --layers, quantize)
+FAMILIES = {
+    # google/gemma-3-1b-pt
+    "gemma-3-1b": (dict(
+        model_type="gemma3_text", hidden_size=1152, num_attention_heads=4,
+        num_key_value_heads=1, head_dim=256, intermediate_size=6912,
+        vocab_size=262144, sliding_window=512, sliding_window_pattern=6,
+        rope_theta=1e6, rope_local_base_freq=1e4, query_pre_attn_scalar=256,
+        rms_norm_eps=1e-6, max_position_embeddings=32768), 6, "q4_0"),
+    # google/gemma-2-2b
+    "gemma-2-2b": (dict(
+        model_type="gemma2", hidden_size=2304, num_attention_heads=8,
+        num_key_value_heads=4, head_dim=256, intermediate_size=9216,
+        vocab_size=256000, attn_logit_softcapping=50.0,
+        final_logit_softcapping=30.0, query_pre_attn_scalar=256,
+        rope_theta=10000.0, rms_norm_eps=1e-6,
+        max_position_embeddings=8192), None, "int8"),
+    # google/gemma-2b
+    "gemma-2b": (dict(
+        model_type="gemma", hidden_size=2048, num_attention_heads=8,
+        num_key_value_heads=1, head_dim=256, intermediate_size=16384,
+        vocab_size=256000, rope_theta=10000.0, rms_norm_eps=1e-6,
+        max_position_embeddings=8192), None, ""),
+    # microsoft/Phi-3-mini-4k-instruct
+    "phi-3-mini": (dict(
+        model_type="phi3", hidden_size=3072, num_attention_heads=32,
+        num_key_value_heads=32, intermediate_size=8192, vocab_size=32064,
+        rope_theta=10000.0, rms_norm_eps=1e-5, max_position_embeddings=4096,
+        tie_word_embeddings=False), None, ""),
+}
+# the HF names of a Gemma-2 layer in a llama.cpp GGUF (gguf_llama.py's
+# _GEMMA2_LAYER_MAP)
+GEMMA2_GGUF = {"input_layernorm.weight": "attn_norm.weight",
+               "self_attn.q_proj.weight": "attn_q.weight",
+               "self_attn.k_proj.weight": "attn_k.weight",
+               "self_attn.v_proj.weight": "attn_v.weight",
+               "self_attn.o_proj.weight": "attn_output.weight",
+               "post_attention_layernorm.weight": "post_attention_norm.weight",
+               "pre_feedforward_layernorm.weight": "ffn_norm.weight",
+               "post_feedforward_layernorm.weight": "post_ffw_norm.weight",
+               "mlp.gate_proj.weight": "ffn_gate.weight",
+               "mlp.up_proj.weight": "ffn_up.weight",
+               "mlp.down_proj.weight": "ffn_down.weight"}
+
+
+def family_shapes(cfg: dict, layers: int) -> dict:
+    """HF name -> shape of a Gemma, Gemma-2, Gemma-3 or Phi-3 checkpoint
+    of `layers` layers."""
+    mt, E, I, V = cfg["model_type"], cfg["hidden_size"], \
+        cfg["intermediate_size"], cfg["vocab_size"]
+    Hq, Hkv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    D = cfg.get("head_dim") or E // Hq
+    shapes = {"model.embed_tokens.weight": (V, E), "model.norm.weight": (E,)}
+    if mt == "phi3":
+        shapes["lm_head.weight"] = (V, E)
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        shapes.update({p + "input_layernorm.weight": (E,),
+                       p + "post_attention_layernorm.weight": (E,)})
+        if mt == "phi3":
+            shapes.update({
+                p + "self_attn.qkv_proj.weight": ((Hq + 2 * Hkv) * D, E),
+                p + "self_attn.o_proj.weight": (E, Hq * D),
+                p + "mlp.gate_up_proj.weight": (2 * I, E),
+                p + "mlp.down_proj.weight": (E, I)})
+            continue
+        shapes.update({p + "self_attn.q_proj.weight": (Hq * D, E),
+                       p + "self_attn.k_proj.weight": (Hkv * D, E),
+                       p + "self_attn.v_proj.weight": (Hkv * D, E),
+                       p + "self_attn.o_proj.weight": (E, Hq * D)})
+        if mt != "gemma":
+            shapes.update({p + "pre_feedforward_layernorm.weight": (E,),
+                           p + "post_feedforward_layernorm.weight": (E,)})
+        if mt == "gemma3_text":
+            shapes.update({p + "self_attn.q_norm.weight": (D,),
+                           p + "self_attn.k_norm.weight": (D,)})
+        shapes.update({p + "mlp.gate_proj.weight": (I, E),
+                       p + "mlp.up_proj.weight": (I, E),
+                       p + "mlp.down_proj.weight": (E, I)})
+    return shapes
+
+
+def family_tensors(cfg: dict, layers: int, np):
+    """(HF name, f32 array) of family_shapes, in order: matrices tile a
+    seeded block of 2^20 + 7 normal values scaled 0.02 (as
+    checkpoint_tensors); norms are 0 for Gemma, whose RMSNorm multiplies
+    by 1 + w, and 1 for Phi-3; the output rows (Gemma's tied embedding,
+    Phi-3's lm_head) outside the byte tokenizer's ids are zero, so greedy
+    text decodes to printable bytes."""
+    rng = np.random.default_rng(SEED + 20)
+    norm = 1.0 if cfg["model_type"] == "phi3" else 0.0
+    for n, s in family_shapes(cfg, layers).items():
+        if len(s) == 1:
+            yield n, np.full(s, norm, np.float32)
+            continue
+        base = rng.standard_normal((1 << 20) + 7, dtype=np.float32) * 0.02
+        arr = np.resize(base, s)
+        if n in ("lm_head.weight", "model.embed_tokens.weight") and (
+                n == "lm_head.weight" or cfg["model_type"] != "phi3"):
+            arr[BYTE_VOCAB:] = 0.0
+        yield n, arr
+
+
+def write_family(d: Path, cfg: dict, layers: int, np, bf16) -> int:
+    (d / "config.json").write_text(json.dumps({
+        **cfg, "num_hidden_layers": layers,
+        "torch_dtype": "bfloat16" if bf16 else "float16"}))
+    return write_safetensors(d, family_shapes(cfg, layers),
+                             family_tensors(cfg, layers, np), np, bf16)
+
+
+def write_gemma2_gguf(path: Path, cfg: dict, layers: int, np, bf16) -> None:
+    """The Gemma-2 checkpoint's weights (their bf16 values) as a GGUF of
+    arch gemma2 the llama.cpp way: matrices in Q8_0, the norms in f32
+    with Gemma's 1 + w baked in, written by the port's writer."""
+    from whisper_tensor_tpu_torch.backends.cpu.dequant import quantize_blocks
+    from whisper_tensor_tpu_torch.importers.gguf import write_gguf
+    from whisper_tensor_tpu_torch.packed_format import PackedFormat
+    from whisper_tensor_tpu_torch.tensor import PackedTensor
+
+    tensors = {}
+    for n, arr in family_tensors(cfg, layers, np):
+        if bf16 is not None:
+            arr = arr.astype(bf16).astype(np.float32)
+        if n.startswith("model.layers."):
+            i, leaf = n[len("model.layers."):].split(".", 1)
+            name = f"blk.{i}.{GEMMA2_GGUF[leaf]}"
+        else:
+            name = {"model.embed_tokens.weight": "token_embd.weight",
+                    "model.norm.weight": "output_norm.weight"}[n]
+        if arr.ndim == 1:
+            tensors[name] = arr + 1.0
+            continue
+        with np.errstate(invalid="ignore", divide="ignore"):
+            tensors[name] = PackedTensor(quantize_blocks(
+                arr, PackedFormat.Q8_0), PackedFormat.Q8_0, arr.shape)
+        del arr
+    a = "gemma2."
+    write_gguf(str(path), {
+        "general.architecture": "gemma2", "general.name": "gemma-2-2b-widths",
+        a + "block_count": layers, a + "embedding_length": cfg["hidden_size"],
+        a + "attention.head_count": cfg["num_attention_heads"],
+        a + "attention.head_count_kv": cfg["num_key_value_heads"],
+        a + "attention.key_length": cfg["head_dim"],
+        a + "feed_forward_length": cfg["intermediate_size"],
+        a + "context_length": cfg["max_position_embeddings"],
+        a + "vocab_size": cfg["vocab_size"],
+        a + "attention.layer_norm_rms_epsilon": cfg["rms_norm_eps"],
+        a + "rope.freq_base": cfg["rope_theta"],
+        a + "attn_logit_softcapping": cfg["attn_logit_softcapping"],
+        a + "final_logit_softcapping": cfg["final_logit_softcapping"]},
+        tensors)
+
+
+def additive_prefill(kind, ins) -> bool:
+    """An Attention call with Sq > 1 and a 4-D float (additive) mask:
+    flash_attention's additive mode where the wrapper takes the head dim
+    and the call has no softcap."""
+    q, mask = ins[0], ins[3] if len(ins) > 3 else None
+    return (q.shape[-2 if q.ndim == 4 else 1] > 1 and mask is not None
+            and mask.ndim == 4 and mask.is_floating_point())
+
+
+def serve_family(torch, np, label: str, loader: str, path: Path,
+                 layers: int, quantize: str, results) -> None:
+    """One phase-12 model through the port's Server and its OpenAI HTTP
+    API: phase 3's three requests (serve_three: every run of the step
+    graph writes each layer's caches in one kv_write_pair launch); the
+    launches of flash_attention equal the lowering's Sq > 1 additive
+    Attention calls where the route takes them (head dim 256 without a
+    softcap: Gemma, Gemma-3) and are 0 elsewhere (Gemma-2's softcap,
+    Phi-3's head dim 96: the plain path, which must not raise);
+    decode_attention never launches (the Gemma recipes' decode steps carry
+    an additive mask, Phi-3's head dim is 96); int8 and packed launches
+    equal the lowering's QuantMatMul and PackedMatMul calls; the greedy
+    answer stands a teacher-forced prefill (phase 3's bound). That decode
+    and prefill run again outside the counted run, each flash_attention,
+    int8_matmul and packed_matmul call held against its plain version on
+    the same inputs (flash_agreement_bound, agreement_bound): the
+    family's own shapes, masks and lm_head."""
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_agreement_bound, flash_attention, flash_attention_plain)
+    from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+        packed_matmul)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
+    from whisper_tensor_tpu_torch.milli import transforms
+    from whisper_tensor_tpu_torch.milli.ops import attention as attn_lowering
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    # installed before the model's plans are built, which keep it
+    calls = CallCounter(("Attention",), where=additive_prefill)
+    qspy, pspy = quant_spy(transforms), packed_spy(transforms)
+    api = None
+    try:
+        srv = Server()
+        t0 = time.perf_counter()
+        (entry,) = srv.models.run_loader(loader, {
+            "path": str(path), "dtype": "bf16", "quantize": quantize,
+            "max_len": MAX_LEN})
+        iface = srv._text_iface(entry)
+        iface._weights()
+        torch.cuda.synchronize()
+        say(f"  {label} ({loader}, {layers} layers, {quantize or 'dense'} "
+            f"bf16): loaded in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+        api = OpenAIApi(srv, "127.0.0.1", 0).start()
+
+        def snapshot():
+            return {"Attention calls": calls.calls["Attention"],
+                    "additive prefill calls": calls.matched["Attention"],
+                    "QuantMatMul calls": qspy.calls,
+                    "PackedMatMul calls": pspy.calls}
+
+        calls.calls["Attention"] = calls.matched["Attention"] = 0
+        qspy.calls = qspy.launched = pspy.calls = 0
+        r1, launches, secs = serve_three(np, api.port, iface, {
+            "flash_attention": flash_attention,
+            "decode_attention": decode_attention,
+            "int8_matmul": int8_matmul,
+            "packed_matmul": packed_matmul}, layers, snapshot)
+    finally:
+        if api is not None:
+            api.stop()
+        calls.restore()
+        transforms.int8_matmul = qspy.inner
+        transforms.packed_matmul = pspy.inner
+    for res in results:
+        if res["name"] in launches:
+            res.setdefault("launches_phase12", {})[label] = \
+                launches[res["name"]]
+    flash_expected = (launches["additive prefill calls"]
+                      if label.startswith(("gemma-3", "gemma-2b")) else 0)
+    if launches["flash_attention"] != flash_expected or (
+            flash_expected == 0) == label.startswith(("gemma-3", "gemma-2b")):
+        fail(f"{label}: {launches['flash_attention']} flash_attention "
+             f"launches, not the lowering's {flash_expected} Sq > 1 additive "
+             f"Attention calls the route takes")
+    if launches["decode_attention"] or launches["Attention calls"] <= 0:
+        fail(f"{label}: the decode steps launched decode_attention, or no "
+             f"Attention call ran: {launches}")
+    if launches["int8_matmul"] != launches["QuantMatMul calls"] or \
+            launches["packed_matmul"] != launches["PackedMatMul calls"] or \
+            (quantize == "int8") != (launches["int8_matmul"] > 0) or \
+            (quantize == "q4_0") != (launches["packed_matmul"] > 0):
+        fail(f"{label}: the int8 and packed launches are not the lowering's "
+             f"QuantMatMul and PackedMatMul calls: {launches}")
+    # the greedy answer against a teacher-forced prefill (phase 3's (c)),
+    # every kernel call held against its plain version
+    tok = ByteTokenizer()
+    prompt = np.asarray(tok.encode(GREEDY["prompt"]), np.int64)[None]
+    shadows = {"flash_attention": flash_shadow(
+        attn_lowering, flash_attention_plain, flash_agreement_bound)}
+    try:
+        shadows["int8_matmul"] = int8_shadow(transforms, agreement_bound)
+        shadows["packed_matmul"] = packed_shadow(torch, transforms,
+                                                 agreement_bound)
+        toks, step_logits = iface.generate_with_logits(prompt, 32)
+        P = prompt.shape[1]
+        forced = iface.logits(np.concatenate([prompt, toks[:, :-1]], axis=1)
+                              ).astype(np.float32)[:, P - 1:P + 31]
+    finally:
+        attn_lowering.flash_attention = shadows["flash_attention"].inner
+        if "int8_matmul" in shadows:
+            transforms.int8_matmul = shadows["int8_matmul"].inner
+        if "packed_matmul" in shadows:
+            transforms.packed_matmul = shadows["packed_matmul"].inner
+    for name, sh in shadows.items():
+        extra = (f", weights {sorted(sh.shapes)}"
+                 if name == "int8_matmul" and sh.calls else "")
+        say(f"  {label}: {sh.calls} {name} calls of the greedy decode and "
+            f"its teacher-forced prefill against the plain version on "
+            f"their inputs: worst |err|/bound {sh.worst:.4g} (max |err| "
+            f"{sh.max_err:.5g}){extra}")
+        if (sh.calls > 0) != (launches[name] > 0) or not sh.worst <= 1.0:
+            fail(f"{label}: the {name} calls of the greedy decode were not "
+                 f"all held within the bound of the plain version, or ran "
+                 f"where the counted run launched none ({launches[name]})")
+    if tok.decode(list(toks[0])) != r1["choices"][0]["text"]:
+        fail(f"{label}: the interface's greedy tokens differ from the HTTP "
+             f"text")
+    scale = float(np.abs(forced).max())
+    frac = 0.015 * math.sqrt(layers)
+    diff = float(np.abs(forced - step_logits).max())
+    say(f"  {label}: (d) decode vs teacher-forced prefill logits: "
+        f"max_abs_diff={diff:.5g} ({diff / scale:.3%} of max|logit| "
+        f"{scale:.4g}; tol {frac:.1%}), argmax agreement "
+        f"{float((forced.argmax(-1) == toks).mean()):.3f}; served in "
+        f"{secs:.2f} s on {card_line()}")
+    if not diff <= frac * scale:
+        fail(f"{label}: decode-step logits disagree with the prefill logits")
+
+
+def phase12(torch, np, root: Path, layers: int, bf16, results) -> None:
+    """Phase 12: Gemma-3 1B (q4_0), Gemma-2 2B (int8; then the same
+    weights as a Q8_0 GGUF of arch gemma2), Gemma 2B and Phi-3-mini at
+    their published widths through the port's Server (serve_family)."""
+    say(f"phase 12: Gemma, Gemma-2, Gemma-3 and Phi-3 at published widths; "
+        f"host RSS {host_rss_gb():.1f} GB")
+    for name, (cfg, depth, quantize) in FAMILIES.items():
+        depth = depth or layers
+        d = root / name
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        try:
+            nbytes = write_family(d, cfg, depth, np, bf16)
+            say(f"  wrote {name} ({depth} layers, {nbytes / 1e9:.2f} GB)")
+            serve_family(torch, np, name, "transformers", d, depth, quantize,
+                         results)
+            free_memory(torch)
+            if name == "gemma-2-2b":
+                gg = d / "gemma-2-2b.gguf"
+                write_gemma2_gguf(gg, cfg, depth, np, bf16)
+                say(f"  wrote it as a Q8_0 GGUF of arch gemma2 "
+                    f"({gg.stat().st_size / 1e9:.2f} GB)")
+                serve_family(torch, np, "gemma-2-2b GGUF", "gguf", gg, depth,
+                             "", results)
+                free_memory(torch)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -4585,6 +5044,8 @@ def main() -> None:
              phase10, torch, np, ckpt, gpt2_ckpt, args.layers, bf16, results)
         step("phase 11 (the generic ONNX path)", phase11, torch, np, ckpt,
              args.layers, results)
+        step("phase 12 (Gemma, Gemma-2, Gemma-3, Phi-3)", phase12, torch, np,
+             ROOT / "build" / "smoke", args.layers, bf16, results)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(gpt2_ckpt, ignore_errors=True)

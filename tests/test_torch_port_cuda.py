@@ -68,14 +68,21 @@ DECODE_SHAPES = [(4, 8, 2, 192, 128), (2, 4, 4, 256, 128),
                  (1, 12, 12, 256, 64), (16, 12, 12, 256, 64),
                  (64, 12, 12, 256, 64), (1, 12, 12, 1024, 64),
                  (16, 12, 12, 1024, 64), (64, 12, 12, 1024, 64),
-                 (2, 8, 2, 192, 64), (3, 9, 3, 100, 64)]
+                 (2, 8, 2, 192, 64), (3, 9, 3, 100, 64),
+                 # head dim 256: Gemma-2 2B's 8/4 heads at B 1 and 16,
+                 # Gemma 2B's 8/1, Gemma-3 1B's 4/1, a group of 16 over
+                 # two blocks of 8, a group of 2 at a ragged L
+                 (1, 8, 4, 2048, 256), (16, 8, 4, 2048, 256),
+                 (1, 8, 1, 2048, 256), (4, 4, 1, 512, 256),
+                 (2, 16, 1, 300, 256), (3, 4, 2, 77, 256)]
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,L,D", DECODE_SHAPES)
-@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32,
+                                 torch.float16])
 def test_decode_attention_kernel_matches_plain(cuda, B, Hq, Hkv, L, D, qdt):
-    """An f32 query (a model computing in f32 over a bf16 cache) gives
-    an f32 output."""
+    """An f32 or f16 query (a model computing in that type over a bf16
+    cache) gives an output of its type."""
     rng = np.random.default_rng(B * L)
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
                .to(cuda).bfloat16()
@@ -105,7 +112,8 @@ SPLIT_EDGES = [(1, 2048, [31]), (1, 2048, [32]), (1, 2048, [63]),
 
 
 @pytest.mark.parametrize("B,L,pos_list", SPLIT_EDGES)
-@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 128), (12, 12, 64)])
+@pytest.mark.parametrize("Hq,Hkv,D", [(32, 8, 128), (12, 12, 64),
+                                      (8, 4, 256)])
 def test_decode_attention_kernel_split_edges(cuda, B, L, pos_list, Hq, Hkv,
                                              D):
     """Rows whose live keys end at a split's edge, a row of one key among
@@ -180,7 +188,18 @@ FLASH_CASES = [("pos", 1, 32, 8, 512, 2048, 128),
                ("causal", 2, 8, 8, 127, 129, 128),
                ("causal", 1, 32, 8, 3, 65, 128),
                ("mask", 1, 12, 12, 100, 190, 64),
-               ("mask1", 2, 32, 8, 129, 127, 128)]
+               ("mask1", 2, 32, 8, 129, 127, 128),
+               # head dim 256: Gemma-3 1B's 4/1 heads and Gemma 2B's 8/1
+               # under an additive mask (the Gemma recipes' mode), a
+               # prompt piece, Gemma-2 2B's 8/4 in every mode, the edges
+               ("mask1", 1, 4, 1, 300, 2048, 256),
+               ("mask1", 1, 8, 1, 128, 2048, 256),
+               ("mask", 2, 8, 4, 129, 200, 256),
+               ("pos", 1, 8, 4, 512, 2048, 256),
+               ("pos", 4, 8, 4, 128, 2048, 256),
+               ("causal", 2, 8, 4, 127, 129, 256),
+               ("causal", 1, 4, 2, 70, 40, 256),
+               ("pos", 2, 16, 1, 65, 1000, 256)]
 
 
 def _flash_inputs(cuda, mode, B, Hq, Hkv, Sq, Skv, D):
@@ -263,7 +282,7 @@ def test_flash_attention_kernel_at_the_verify_block(cuda, Sq, Hq, Hkv, D,
         f"{(err / bound.clamp_min(1e-30)).max().item()}"
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_attention_kernel_split_is_deterministic(cuda, D):
     """A 128-row piece at B = 1 fills a fraction of the card, so its keys
     are split over blocks and merged in split order: repeats are
@@ -294,6 +313,30 @@ def test_flash_attention_kernel_pos_forms(cuda):
         torch.testing.assert_close(flash_attention(q, k, v, 0.1,
                                                    pos_bound=pos),
                                    full, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("mode,B,Hq,Hkv,Sq,Skv", [
+    ("mask1", 1, 4, 1, 2048, 2048), ("mask1", 1, 8, 1, 128, 2048),
+    ("pos", 2, 8, 4, 200, 700), ("causal", 1, 8, 4, 129, 129)])
+def test_flash_attention_split_plans_at_head_dim_256(cuda, mode, B, Hq, Hkv,
+                                                     Sq, Skv):
+    """Head dim 256's tile shape (q in registers, 3 stages of 32 keys),
+    unsplit and split over the keys: within flash_agreement_bound."""
+    q, k, v, extra = _flash_inputs(cuda, mode, B, Hq, Hkv, Sq, Skv, 256)
+    mask = extra.get("mask")
+    pos = extra.get("pos_bound")
+    for splits, chunk in ((1, -(-Skv // 64) * 64),
+                          flash_splits(B, Hq, Hkv, Sq, Skv, 256)):
+        got = fa._launch(q, k, v, None if mask is None else mask.contiguous(),
+                         Sq * Skv if mask is not None and mask.shape[0] > 1
+                         else 0, pos, "causal" in extra, 0.0625, splits,
+                         chunk)
+        want = flash_attention_plain(q, k, v, 0.0625, **extra)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        bound = flash_agreement_bound(
+            want, flash_attention_plain(q, k, v.abs(), 0.0625, **extra))
+        assert bool((err <= bound).all()), (splits, err.max().item())
 
 
 def test_flash_attention_wrapper_raises_on_unsupported_cuda_inputs(cuda):
@@ -351,6 +394,34 @@ def test_int8_matmul_kernel_matches_plain(cuda, M, K, N, tdt):
     else:
         torch.testing.assert_close(
             got, want, atol=1e-5 * max(1.0, want.abs().max().item()), rtol=0)
+
+
+@pytest.mark.parametrize("M", [1, 5, 300])
+def test_f16_x_takes_the_quantized_kernels_through_f32(cuda, M):
+    """An f16 model's x: int8_matmul and packed_matmul widen it to f32 at
+    the kernel's edge and round the f32 result once to f16: one launch
+    each, bit for bit the f32-x kernel's result rounded, and within
+    agreement_bound (f16's ulp) of the plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    K, N = 512, 384
+    x = torch.randn(M, K, generator=g, device=cuda).half()
+    w = torch.randint(-127, 128, (K, N), generator=g, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand(N, generator=g, device=cuda) * 0.01
+    n0 = int8_matmul.launches
+    got = int8_matmul(x, w, s)
+    assert int8_matmul.launches == n0 + 1 and got.dtype == torch.float16
+    assert torch.equal(got, int8_matmul(x.float(), w, s).half())
+    _assert_agree(got, int8_matmul_plain(x, w, s),
+                  int8_matmul_plain(x.float().abs(), w.abs(), s))
+    q, sc, o = (torch.from_numpy(a).to(cuda) for a in
+                _packed_layout(4, 32, K, N, True, seed=M))
+    n0 = packed_matmul.launches
+    got = packed_matmul(x, q, sc, o, 4)
+    assert packed_matmul.launches == n0 + 1 and got.dtype == torch.float16
+    assert torch.equal(got, packed_matmul(x.float(), q, sc, o, 4).half())
+    _assert_agree(got, packed_matmul_plain(x, q, sc, o, 4),
+                  x.float().abs() @ dequantize_packed(q, sc, o, 4).abs())
 
 
 @pytest.mark.parametrize("M", [600, 2048])
@@ -525,7 +596,7 @@ def test_kernel_limits_on_the_card_match_the_cpu_defaults(cuda):
                             assert card == cpu, (path, bm)
     for Hq, Hkv in ((32, 8), (16, 1), (24, 2), (11, 1), (8, 2), (4, 4),
                     (12, 12)):
-        for D in (64, 128):
+        for D in (64, 128, 256):
             card = decode_limits(Hq, Hkv, D, index)
             cpu = decode_limits(Hq, Hkv, D)
             assert card[0] == heads_per_block(Hq, Hkv) and card[1] >= 1
@@ -575,8 +646,8 @@ def test_packed_matmul_wrapper_raises_on_unsupported_cuda_inputs(cuda):
                for a in _packed_layout(4, 32, 256, 128, True, seed=1))
     x = torch.randn(2, 256, device=cuda)
     n0 = packed_matmul.launches
-    with pytest.raises(ValueError, match="bf16 or f32"):
-        packed_matmul(x.half(), q, s, o, 4)
+    with pytest.raises(ValueError, match="bf16, f32 or f16"):
+        packed_matmul(x.double(), q, s, o, 4)
     with pytest.raises(ValueError, match="bits"):
         packed_matmul(x, q.view(torch.int8), s, o, 4)      # int8 q at bits 4
     with pytest.raises(ValueError, match="bits"):
@@ -598,7 +669,8 @@ def _bits(t):
 
 KV_WRITE_DTYPES = [(torch.bfloat16, torch.bfloat16),
                    (torch.float32, torch.float32),
-                   (torch.bfloat16, torch.float32)]      # f32 into bf16
+                   (torch.bfloat16, torch.float32),      # f32 into bf16
+                   (torch.bfloat16, torch.float16)]      # f16 into bf16
 
 
 @pytest.mark.parametrize("cache_dt,upd_dt", KV_WRITE_DTYPES)
@@ -652,10 +724,10 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
         decode_attention(q[..., :48].contiguous(), kv[..., :48].contiguous(),
                          kv[..., :48].contiguous(),
                          torch.tensor(3, device=cuda), 0.1)   # head dim 48
-    x = torch.zeros(2, 64, dtype=torch.float16, device=cuda)
+    x = torch.zeros(2, 64, dtype=torch.float64, device=cuda)
     w = torch.zeros(64, 128, dtype=torch.int8, device=cuda)
     n0 = int8_matmul.launches
-    with pytest.raises(ValueError, match="bf16 or f32"):
+    with pytest.raises(ValueError, match="bf16, f32 or f16"):
         int8_matmul(x, w, torch.ones(128, device=cuda))
     with pytest.raises(ValueError, match="scale"):
         int8_matmul(x.bfloat16(), w, torch.ones(100, device=cuda))
@@ -667,7 +739,7 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
     upd = torch.zeros(2, 2, 1, 64, dtype=torch.bfloat16, device=cuda)
     pos = torch.tensor([1, 2], device=cuda)
     n0 = ragged_kv_write.launches
-    for bad in (upd.half(),                                   # f16 update
+    for bad in (upd.double(),                                 # f64 update
                 torch.zeros(2, 2, 17, 64, dtype=torch.bfloat16,
                             device=cuda),                     # S > L
                 upd[:1]):                                     # batch differs
@@ -675,6 +747,8 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
             ragged_kv_write(cache, bad, pos)
     with pytest.raises(ValueError, match="unsupported"):
         ragged_kv_write(cache.float(), upd, pos)              # bf16 into f32
+    with pytest.raises(ValueError, match="unsupported"):
+        ragged_kv_write(cache.float(), upd.half(), pos)       # f16 into f32
     with pytest.raises(ValueError, match="contiguous"):
         ragged_kv_write(cache.transpose(2, 3).contiguous().transpose(2, 3),
                         upd, pos)
@@ -765,7 +839,7 @@ def test_kv_write_pair_wrapper_raises_on_unsupported_cuda_inputs(cuda):
         (cache, upd.float(), pos, "unsupported"),        # updates' types
         (cache, torch.zeros(2, 2, 2, 64, dtype=torch.bfloat16,
                             device=cuda), pos, "unsupported"),    # S differs
-        (cache, upd.half(), pos, "unsupported"),          # f16 update
+        (cache, upd.half(), pos, "unsupported"),  # V's f16, K's bf16
         (cache.transpose(2, 3).contiguous().transpose(2, 3), upd, pos,
          "contiguous"),
         (cache, upd.cpu(), pos, "contiguous"),            # update on the CPU
@@ -817,10 +891,12 @@ def test_attention_lowering_sends_a_head_dim_64_decode_step_to_the_kernel(
                   decode_attention_plain(q.float(), k, v.abs(), pos, 0.125))
 
 
-def _tiny_llama(max_len, pos_per_row=False, weight_map=None):
-    """A 2-layer bf16 llama (the CPU tests' tiny shapes: hidden 256, 2
-    query heads and 1 KV head of 128, vocab 512), weights from numpy.
-    weight_map: filled with the recipe's {initializer: HF name}."""
+def _tiny_llama(max_len, pos_per_row=False, weight_map=None, head_dim=128,
+                dtype=None):
+    """A 2-layer llama (the CPU tests' tiny shapes: hidden 256, 2 query
+    heads and 1 KV head of `head_dim`, vocab 512) in `dtype` (bf16 by
+    default), weights from numpy. weight_map: filled with the recipe's
+    {initializer: HF name}."""
     import zlib
 
     from whisper_tensor_tpu_torch.dtype import DType
@@ -828,33 +904,36 @@ def _tiny_llama(max_len, pos_per_row=False, weight_map=None):
         LlamaConfig, build_llama_step)
     from whisper_tensor_tpu_torch.model import Model
 
+    D = head_dim
     cfg = LlamaConfig(num_hidden_layers=2, num_attention_heads=2,
                       num_key_value_heads=1, hidden_size=256,
-                      intermediate_size=384, vocab_size=512, head_dim=128)
+                      intermediate_size=384, vocab_size=512, head_dim=D)
 
     def weights(name):
         rng = np.random.default_rng(zlib.crc32(name.encode()))
         if "norm" in name:
             return (1.0 + 0.1 * rng.standard_normal(256)).astype(np.float32)
         shape = {"embed": (512, 256), "lm_head": (512, 256),
-                 "q_proj": (256, 256), "o_proj": (256, 256),
-                 "k_proj": (128, 256), "v_proj": (128, 256),
+                 "q_proj": (2 * D, 256), "o_proj": (256, 2 * D),
+                 "k_proj": (D, 256), "v_proj": (D, 256),
                  "gate_proj": (384, 256), "up_proj": (384, 256),
                  "down_proj": (256, 384)}
         s = next(v for key, v in shape.items() if key in name)
         return (rng.standard_normal(s) * 0.08).astype(np.float32)
 
     return Model.new_from_onnx(build_llama_step(
-        weights, cfg, max_len=max_len, dtype=DType.BF16,
+        weights, cfg, max_len=max_len, dtype=dtype or DType.BF16,
         pos_per_row=pos_per_row, weight_map=weight_map))
 
 
-def _direct_pair(cuda, max_len, quantize="int8"):
+def _direct_pair(cuda, max_len, quantize="int8", **model_kw):
+    """The tiny llama's interfaces on the card and on the CPU, over a bf16
+    cache (the servers' cache type)."""
     from whisper_tensor_tpu_torch.dtype import DType
     from whisper_tensor_tpu_torch.interfaces.text import (
         TextInferenceInterface)
 
-    model = _tiny_llama(max_len)
+    model = _tiny_llama(max_len, **model_kw)
     kw = dict(max_len=max_len, cache_dtype=DType.BF16, quantize=quantize)
     return (TextInferenceInterface(model, device=cuda, **kw),
             TextInferenceInterface(model, device="cpu", **kw))
@@ -1001,6 +1080,92 @@ def test_tiny_llama_q4_0_on_the_gpu_direct_and_batched(cuda):
 
 
 # -- GPTQ/AWQ layouts, beam search, constraints, hidden states ------------
+
+def _batched_answers_stand(cuda, model, gpu, quantize, n_new=5, **kw):
+    """Prompts of 4, 21 and 9 tokens through the batcher on the card (bf16
+    cache, 16-token prefill pieces); each answer stands a teacher-forced
+    prefill of the direct path `gpu`: every emitted token's logit within
+    3% of the logits' scale of that step's largest."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.server.batching import ContinuousBatcher
+
+    b = ContinuousBatcher(model, max_len=64, max_batch=4, chunk=4,
+                          quantize=quantize, prefill_chunk=16,
+                          cache_dtype=DType.BF16, device=cuda, **kw).start()
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(3, 259, (n,)) for n in (4, 21, 9)]
+    try:
+        outs = [f.result(timeout=300)
+                for f in [b.submit(p, n_new) for p in prompts]]
+    finally:
+        b.stop()
+    for p, o in zip(prompts, outs):
+        lg = gpu.logits(np.concatenate([p, o[:-1]])[None]
+                        ).astype(np.float32)[0, len(p) - 1:]
+        gap = lg.max(-1) - lg[np.arange(n_new), o]
+        assert gap.max() <= 0.03 * np.abs(lg).max(), (len(p), gap)
+
+
+@pytest.mark.parametrize("D", [32, 96])
+def test_tiny_llama_of_a_head_dim_no_attention_kernel_takes(cuda, D):
+    """ROADMAP C16: a bf16 int8 llama of head dim 32 or 96 (Phi-3-mini's)
+    on the card, direct and batched. Neither attention kernel takes that
+    head dim, so the Attention lowering runs the plain path (no launch,
+    no raise); the cache writes and the int8 products still launch their
+    kernels. Decode logits within 3% of the scale of the CPU's teacher-
+    forced prefill; batched answers stand the direct path's."""
+    gpu, cpu = _direct_pair(cuda, 64, head_dim=D)
+    prompt = np.random.default_rng(5).integers(3, 259, (2, 9))
+    counters = (decode_attention, flash_attention, kv_write_pair,
+                int8_matmul)
+    before = [c.launches for c in counters]
+    toks, logits = gpu.generate_with_logits(prompt, 6)
+    torch.cuda.synchronize()
+    rose = [c.launches - n for c, n in zip(counters, before)]
+    assert rose[:2] == [0, 0] and rose[2] == 2 * 6 and rose[3] > 0, rose
+    full = np.concatenate([prompt, toks[:, :-1]], axis=1)
+    want = cpu.logits(full).astype(np.float32)[:, 8:]
+    np.testing.assert_allclose(logits, want, rtol=0,
+                               atol=0.03 * np.abs(want).max())
+    before = [c.launches for c in counters]
+    _batched_answers_stand(cuda, _tiny_llama(64, pos_per_row=True,
+                                             head_dim=D), gpu, "int8")
+    rose = [c.launches - n for c, n in zip(counters, before)]
+    assert rose[:2] == [0, 0] and min(rose[2:]) > 0, rose
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"])
+def test_tiny_llama_in_f16_over_a_bf16_cache(cuda, quantize):
+    """ROADMAP C17: a llama loaded with dtype=f16 over the servers' bf16
+    cache, dense and int8, direct and batched, on the card: each step's
+    K/V update is written by kv_write_pair (f16 into bf16), decode steps
+    run decode_attention on an f16 query, int8 products take f16 x
+    through f32; the f16 prefill runs the plain attention path (flash is
+    bf16 only, as the TPU kernel). Decode logits within 3% of the scale
+    of the CPU's teacher-forced prefill; batched answers stand the direct
+    path's."""
+    from whisper_tensor_tpu_torch.dtype import DType
+
+    gpu, cpu = _direct_pair(cuda, 64, quantize=quantize, dtype=DType.F16)
+    prompt = np.random.default_rng(7).integers(3, 259, (2, 9))
+    counters = (decode_attention, flash_attention, kv_write_pair,
+                int8_matmul)
+    before = [c.launches for c in counters]
+    toks, logits = gpu.generate_with_logits(prompt, 6)
+    torch.cuda.synchronize()
+    rose = [c.launches - n for c, n in zip(counters, before)]
+    assert rose[:3] == [2 * 5, 0, 2 * 6], rose
+    assert (rose[3] > 0) == (quantize == "int8"), rose
+    full = np.concatenate([prompt, toks[:, :-1]], axis=1)
+    want = cpu.logits(full).astype(np.float32)[:, 8:]
+    np.testing.assert_allclose(logits, want, rtol=0,
+                               atol=0.03 * np.abs(want).max())
+    before = [c.launches for c in counters]
+    _batched_answers_stand(cuda, _tiny_llama(64, pos_per_row=True,
+                                             dtype=DType.F16), gpu, quantize)
+    rose = [c.launches - n for c, n in zip(counters, before)]
+    assert rose[0] > 0 and rose[2] > 0, rose
+
 
 def _gptq_layout(K, N, G, seed):
     """A GPTQ-style quantized weight in the kernel's layout, by the

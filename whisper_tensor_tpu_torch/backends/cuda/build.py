@@ -45,8 +45,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    # q, k, v, pos (int64), out, partial acc, partial (m, l), q_f32, B,
-    # Hq, Hkv, L, D, splits, chunk, scale, stream
+    # q, k, v, pos (int64), out, partial acc, partial (m, l), q_type (0
+    # bf16, 1 f32, 2 f16), B, Hq, Hkv, L, D, splits, chunk, scale, stream
     "wt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, ctypes.c_float, _P],
     # Hq, Hkv, D, limits (int[2]: heads a block, blocks a multiprocessor)

@@ -8,7 +8,8 @@ on the H100 and how its design answers that.
 The v5e gates of the TPU kernel (batch below 64, a key block of at most
 512 that divides L) are measurements of that chip and are not carried
 over: this kernel takes any batch, cache length and GQA group size, at
-head dim 64 or 128.
+head dim 64, 128 or 256 (the TPU kernel's D % 128 == 0 or D == 64 at the
+head dims the repo's recipes use), with q in bf16, f32 or f16.
 
 The kernel splits each row's key range over blocks when the batch does
 not fill the card (decode_splits) and merges the splits' partial softmax
@@ -28,12 +29,14 @@ from .build import (CARD_SMS, card_sms, check, device_index, kernel_limits,
                     library, raw_stream)
 
 MIN_CHUNK = 32            # keys of one split at least: one key tile
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
+Q_TYPES = (torch.bfloat16, torch.float32, torch.float16)
 # the kernel's blocks a multiprocessor by head dim (the 48 KB ring at
 # D = 128; launch bounds of 4): the CPU default of what wt_decode_limits
 # reads on the card, for every group at D = 128 and for GPT-2's (a group
-# of 1) at D = 64 (other groups' registers give 4 there)
-BLOCKS_PER_SM = {128: 4, 64: 5}
+# of 1) at D = 64 (other groups' registers give 4 there); at D = 256 the
+# 96 KB ring leaves room for 2
+BLOCKS_PER_SM = {128: 4, 64: 5, 256: 2}
 
 
 def heads_per_block(Hq: int, Hkv: int) -> int:
@@ -110,7 +113,8 @@ def decode_attention_plain(q, k, v, pos, scale: float) -> torch.Tensor:
 
 
 def decode_attention(q, k, v, pos, scale: float) -> torch.Tensor:
-    """q (B, Hq, 1, D) bf16 or f32; k, v (B, Hkv, L, D) bf16; pos
+    """q (B, Hq, 1, D) bf16, f32 or f16, D 64, 128 or 256; k, v (B, Hkv,
+    L, D) bf16; pos
     int64 or int32 of shape () or (B,). Returns (B, Hq, 1, D) in q's
     type.
 
@@ -127,15 +131,15 @@ def decode_attention(q, k, v, pos, scale: float) -> torch.Tensor:
         ok = (Sq == 1 and k.shape[0] == B and D == k.shape[3]
               and D in HEAD_DIMS
               and Hkv > 0 and Hq % Hkv == 0
-              and q.dtype in (torch.bfloat16, torch.float32)
+              and q.dtype in Q_TYPES and B <= 65535
               and k.dtype == v.dtype == torch.bfloat16)
     if not ok:
         raise ValueError(
             f"decode_attention kernel: unsupported q {tuple(q.shape)} "
             f"{q.dtype}, k {tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} "
-            f"{v.dtype}: it takes one bf16 or f32 query step over a bf16 "
-            f"cache, head dim 64 or 128 for q, k and v, and Hq a multiple "
-            f"of Hkv")
+            f"{v.dtype}: it takes one bf16, f32 or f16 query step over a "
+            f"bf16 cache, head dim 64, 128 or 256 for q, k and v, Hq a "
+            f"multiple of Hkv and at most 65,535 rows")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"decode_attention kernel: {name} must be a "
@@ -171,7 +175,7 @@ def _launch(q, k, v, pos, scale: float, splits: int, chunk: int):
     code = library().wt_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos64.data_ptr(),
         out.data_ptr(), acc, ml,
-        int(q.dtype == torch.float32), B, Hq, Hkv, L, D, splits, chunk,
+        Q_TYPES.index(q.dtype), B, Hq, Hkv, L, D, splits, chunk,
         float(scale), raw_stream(q.device))
     check(code, "decode_attention kernel")
     decode_attention.launches += 1

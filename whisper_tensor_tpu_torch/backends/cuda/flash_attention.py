@@ -6,10 +6,12 @@ note says what bounds it on the H100, how its design answers that, and
 what of the TPU kernel it leaves out (the KV-chunk carry, the padding to
 128, the environment knobs and the 4 GiB threshold).
 
-The Attention lowering (milli/ops/attention.py) sends every bf16 prefill
-with a position mask here (the pos-bound mode). The causal and additive
-modes are the TPU kernel's too, and are checked on the card; no graph
-the port loads emits them yet.
+The Attention lowering (milli/ops/attention.py) sends the bf16 prefills
+this wrapper takes here: with a position mask (the pos-bound mode),
+is_causal (the causal mode) or an additive (1|B, 1, Sq, Skv) mask (the
+additive mode; GPT-2's scalar-position graph and the Gemma recipes).
+Head dims 64, 128 and 256: the TPU kernel's D % 128 == 0 or D == 64 at
+the head dims the repo's recipes use.
 
 When the grid does not fill the card, the kernel splits each block's
 keys over blocks (flash_splits) and merges the splits' partial softmax
@@ -28,12 +30,13 @@ from . import agreement_bound
 from .build import (CARD_SMS, card_sms, check, device_index, kernel_limits,
                     library, raw_stream)
 
-KEY_TILE = 64             # keys a tile: splits are whole tiles
+KEY_TILE = 64             # keys a split unit: splits are whole units
 BLOCK_ROWS = 128          # query rows a block (heads x positions)
 MAX_SPLITS = 16
+HEAD_DIMS = (64, 128, 256)
 # the kernel's blocks a multiprocessor by head dim: the CPU default of
 # what wt_flash_limits reads on the card
-BLOCKS_PER_SM = {128: 1, 64: 1}
+BLOCKS_PER_SM = {128: 1, 64: 1, 256: 1}
 
 
 def heads_per_block(Hq: int, Hkv: int) -> int:
@@ -132,8 +135,8 @@ def flash_attention_plain(q, k, v, scale: float, *, causal: bool = False,
 def flash_attention(q, k, v, scale: float, *, causal: bool = False,
                     mask=None, pos_bound=None) -> torch.Tensor:
     """q (B, Hq, Sq, D) bf16, read through its strides (the feature
-    stride must be 1); k, v (B, Hkv, Skv, D) bf16 contiguous; D 64 or
-    128; mask f32-castable (1|B, 1, Sq, Skv); pos_bound int64/int32 ()
+    stride must be 1); k, v (B, Hkv, Skv, D) bf16 contiguous; D 64, 128
+    or 256; mask f32-castable (1|B, 1, Sq, Skv); pos_bound int64/int32 ()
     or (B,), read on the device. pos_bound excludes causal and mask.
     Returns (B, Hq, Sq, D) bf16.
 
@@ -148,15 +151,15 @@ def flash_attention(q, k, v, scale: float, *, causal: bool = False,
     if ok:
         B, Hq, Sq, D = q.shape
         Hkv, Skv = k.shape[1], k.shape[2]
-        ok = (k.shape[0] == B and D == k.shape[3] and D in (64, 128)
+        ok = (k.shape[0] == B and D == k.shape[3] and D in HEAD_DIMS
               and Hkv > 0 and Hq % Hkv == 0 and B <= 65535
               and q.dtype == k.dtype == v.dtype == torch.bfloat16)
     if not ok:
         raise ValueError(
             f"flash_attention kernel: unsupported q {tuple(q.shape)} "
             f"{q.dtype}, k {tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} "
-            f"{v.dtype}: it takes bf16 q, k and v of one head dim, 64 or "
-            f"128, and Hq a multiple of Hkv")
+            f"{v.dtype}: it takes bf16 q, k and v of one head dim, 64, "
+            f"128 or 256, Hq a multiple of Hkv and at most 65,535 rows")
     if q.device != k.device or q.stride(3) != 1:
         raise ValueError(f"flash_attention kernel: q must lie on {k.device} "
                          f"with feature stride 1, got strides {q.stride()}")
@@ -190,6 +193,16 @@ def flash_attention(q, k, v, scale: float, *, causal: bool = False,
         mask_sb = Sq * Skv if mask.shape[0] == B and B > 1 else 0
     splits, chunk = flash_splits(B, Hq, Hkv, Sq, Skv, D,
                                  device_index(q.device))
+    return _launch(q, k, v, mask, mask_sb, pos, causal, scale, splits, chunk)
+
+
+def _launch(q, k, v, mask, mask_sb: int, pos, causal: bool, scale: float,
+            splits: int, chunk: int) -> torch.Tensor:
+    """Launch the kernel on checked CUDA inputs (mask f32 contiguous, pos
+    int64 (B,) or None) by a split plan: flash_attention's, or another
+    that a test forces."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
     out = torch.empty(B, Hq, Sq, D, dtype=q.dtype, device=q.device)
     acc = ml = None
     if splits > 1:

@@ -402,7 +402,7 @@ def _path_plan(path: str, M: int, K: int, N: int, G: int, bits: int,
 
 def packed_matmul(x, q, scales, offsets, bits: int,
                   has_off: bool = True) -> torch.Tensor:
-    """x (..., K) bf16/f32 @ dequant(q, scales, offsets) (K, N) -> (...,
+    """x (..., K) bf16/f32/f16 @ dequant(q, scales, offsets) (K, N) -> (...,
     N) in x's type.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
@@ -411,11 +411,16 @@ def packed_matmul(x, q, scales, offsets, bits: int,
     counter counts calls, one per call."""
     if x.device.type == "cpu":
         return packed_matmul_plain(x, q, scales, offsets, bits, has_off)
+    if x.dtype == torch.float16:
+        # an f16 model: x widened to f32 at the kernel's edge (exact), the
+        # f32 result rounded once to f16, as the plain version does
+        return packed_matmul(x.float(), q, scales, offsets, bits,
+                             has_off).to(torch.float16)
     K = x.shape[-1]
     M = x.numel() // K if K else 0
     bits = int(bits)
     if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"packed_matmul kernel: x must be bf16 or f32, "
+        raise ValueError(f"packed_matmul kernel: x must be bf16, f32 or f16, "
                          f"got {x.dtype}")
     want = {4: (torch.uint8, K // 2), 8: (torch.int8, K)}.get(bits)
     if want is None or q.ndim != 2 or (q.dtype, q.shape[0]) != want \

@@ -138,7 +138,7 @@ def _path_plan(path: str, M: int, K: int, N: int, x_bf16: bool,
 
 
 def int8_matmul(x, w_i8, scale) -> torch.Tensor:
-    """W8A16 matmul, x (..., K) bf16/f32 -> (..., N) in x's type.
+    """W8A16 matmul, x (..., K) bf16/f32/f16 -> (..., N) in x's type.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel
     at every M, by int8_plan, or raise. A call whose plan splits K runs
@@ -146,10 +146,14 @@ def int8_matmul(x, w_i8, scale) -> torch.Tensor:
     counts calls, one per call."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w_i8, scale)
+    if x.dtype == torch.float16:
+        # an f16 model: x widened to f32 at the kernel's edge (exact), the
+        # f32 result rounded once to f16, as the plain version does
+        return int8_matmul(x.float(), w_i8, scale).to(torch.float16)
     K = x.shape[-1]
     M = x.numel() // K if K else 0
     if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"int8_matmul kernel: x must be bf16 or f32, "
+        raise ValueError(f"int8_matmul kernel: x must be bf16, f32 or f16, "
                          f"got {x.dtype}")
     if w_i8.dtype != torch.int8 or w_i8.ndim != 2 or w_i8.shape[0] != K \
             or M == 0:

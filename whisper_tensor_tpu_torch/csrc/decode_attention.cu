@@ -6,13 +6,15 @@
 // cache, with scores, running max and running sum in f32 (an online
 // softmax), and a row whose sum is 0 writes 0.
 //
-//   q   (B, Hq, 1, D) bf16 or f32 (q_f32)    k, v (B, Hkv, L, D) bf16
+//   q   (B, Hq, 1, D) bf16, f32 or f16 (q_type 0, 1, 2)
+//   k, v (B, Hkv, L, D) bf16
 //   pos (B,) int64             out  (B, Hq, 1, D) in q's type
-//   D   64 or 128 (a template parameter: GPT-2 and llama models of head
-//       dim 64, and Llama-3's 128)
+//   D   64, 128 or 256 (a template parameter: GPT-2 and llama models of
+//       head dim 64, Llama-3's 128, every Gemma's 256)
 //
-// (an f32 q is a model computing in f32 over a bf16 cache: the scores
-// take q's f32 values as they are)
+// (an f32 or f16 q is a model computing in that type over a bf16 cache:
+// the scores take q's values as they are, exactly in f32, and the output
+// is rounded once from f32 to q's type)
 //
 // What bounds it on the H100: the bytes of LIVE K/V. Each K and V
 // element of a row's live prefix is read once (2 * Hkv * (pos+1) * D *
@@ -48,8 +50,13 @@
 //     P @ V: the block's 128 threads cover the D features 128 / D times:
 //     at D = 128 thread t owns feature t, at D = 64 threads t and t + 64
 //     own feature t, each over every other group of four keys, and the
-//     two halves are added in a fixed order at the end; every thread
-//     reads the probabilities four keys at a time;
+//     two halves are added in a fixed order at the end; at D = 256
+//     thread t owns features t and t + 128; every thread reads the
+//     probabilities four keys at a time;
+//   * at D = 256 the ring is 96 KB, so 2 blocks share a multiprocessor
+//     (4 at D = 128): the launch bounds ask for 2, which leaves a thread
+//     the registers to hold a key pair's 64 features, and q stays in
+//     registers for up to 2 heads (4 at D <= 128);
 //   * with more than one split each block writes its partial state, the
 //     running max m, the sum l and the unnormalized acc (D floats) of
 //     each head, to an f32 scratch, and a second kernel merges a head's
@@ -59,6 +66,7 @@
 //     the output itself.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math_constants.h>
 #include <stdint.h>
 
@@ -83,6 +91,24 @@ template <int D> __host__ __device__ constexpr int stage_bytes() {
 }
 template <int D> __host__ __device__ constexpr int smem_bytes() {
   return kStages * stage_bytes<D>();
+}
+
+// q's element `at` as f32, and y rounded once to the output's type
+// (q_type 0 bf16, 1 f32, 2 f16)
+__device__ __forceinline__ float load_q(const void* q, size_t at,
+                                        int q_type) {
+  if (q_type == 1) return static_cast<const float*>(q)[at];
+  if (q_type == 2) return __half2float(static_cast<const __half*>(q)[at]);
+  return __bfloat162float(static_cast<const __nv_bfloat16*>(q)[at]);
+}
+__device__ __forceinline__ void store_out(void* out, size_t at, float y,
+                                          int q_type) {
+  if (q_type == 1)
+    static_cast<float*>(out)[at] = y;
+  else if (q_type == 2)
+    static_cast<__half*>(out)[at] = __float2half_rn(y);
+  else
+    static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(y);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -112,19 +138,23 @@ __device__ __forceinline__ void unpack8(const uint4 u, float* f) {
 // D: the head dim; REP: the query heads of one block, all of KV head
 // g's group or a part of it
 template <int D, int REP>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, D > 128 ? 2 : 4)
 decode_attention_kernel(const void* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
                         const long long* __restrict__ pos,
                         void* __restrict__ out,
                         float* __restrict__ part_acc,
-                        float* __restrict__ part_ml, int q_f32,
+                        float* __restrict__ part_ml, int q_type,
                         int Hq, int Hkv, int L, int chunk, float scale) {
   constexpr int kRow = row_bytes<D>();
   constexpr int kStageBytes = stage_bytes<D>();
   constexpr int NI = D / 32;            // float4s of q a lane holds
-  constexpr int KH = kThreads / D;      // threads a feature in P @ V
+  // P @ V: thread t owns features t % kCols + u * kCols (u < FPT) over
+  // the key groups of half t / kCols (KH halves)
+  constexpr int FPT = D > kThreads ? D / kThreads : 1;
+  constexpr int kCols = D / FPT;
+  constexpr int KH = kThreads / kCols;
   extern __shared__ __align__(16) unsigned char ring[];   // [S][K | V tile]
   // query heads, pre-scaled f32, permuted so that lane c of a key's 8
   // lanes reads its NI float4s at [i][c]: conflict-free 16-byte reads
@@ -189,26 +219,27 @@ decode_attention_kernel(const void* __restrict__ q,
     const int i = r / 32, c = (r % 32) / 4, e = r % 4;
     const int d = (i >> 1) * 64 + 8 * c + (i & 1) * 4 + e;
     const size_t at = (head0 + h) * D + d;
-    s_q[h][i][c][e] =
-        (q_f32 ? static_cast<const float*>(q)[at]
-               : __bfloat162float(static_cast<const __nv_bfloat16*>(q)[at])) *
-        scale;
+    s_q[h][i][c][e] = load_q(q, at, q_type) * scale;
   }
   if (tid < REP) {
     s_m[tid] = -CUDART_INF_F;
     s_l[tid] = 0.f;
   }
-  float acc[REP];
+  float acc[REP][FPT];
 #pragma unroll
-  for (int h = 0; h < REP; ++h) acc[h] = 0.f;
+  for (int h = 0; h < REP; ++h)
+#pragma unroll
+    for (int u = 0; u < FPT; ++u) acc[h][u] = 0.f;
+  const int col = tid % kCols;          // this thread's first feature
 
   static_assert(kTile == kWarps * 8, "a warp scores 8 keys of a tile");
   const int kk = lane >> 3;             // keys kk, kk + 4 of its warp's 8
   const int c8 = lane & 7;              // this lane's D/8 features
-  // With up to 4 heads a lane keeps its D/8 features of each in registers:
-  // read from s_q on every tile they were the scores' largest shared-
-  // memory traffic. More heads would not fit and stay in s_q.
-  constexpr bool kQRegs = REP <= 4;
+  // With up to 4 heads (2 at D = 256) a lane keeps its D/8 features of
+  // each in registers: read from s_q on every tile they were the scores'
+  // largest shared-memory traffic. More heads would not fit and stay in
+  // s_q.
+  constexpr bool kQRegs = REP * D <= 512;
   float4 qr[kQRegs ? REP : 1][NI];
   if constexpr (kQRegs) {
     __syncthreads();
@@ -297,19 +328,26 @@ decode_attention_kernel(const void* __restrict__ q,
     // read per head (keys past tn have p = 0 and zero-filled V rows, so
     // they add nothing)
 #pragma unroll
-    for (int h = 0; h < REP; ++h) acc[h] *= s_alpha[h];
-    for (int j = 4 * (tid / D); j < tn; j += 4 * KH) {
-      float vj[4];
+    for (int h = 0; h < REP; ++h)
+#pragma unroll
+      for (int u = 0; u < FPT; ++u) acc[h][u] *= s_alpha[h];
+    for (int j = 4 * (tid / kCols); j < tn; j += 4 * KH) {
+      float vj[4][FPT];
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        vj[e] = __bfloat162float(vs[(j + e) * D + tid % D]);
+#pragma unroll
+        for (int u = 0; u < FPT; ++u)
+          vj[e][u] = __bfloat162float(vs[(j + e) * D + col + u * kCols]);
 #pragma unroll
       for (int h = 0; h < REP; ++h) {
         const float4 p = *reinterpret_cast<const float4*>(&s_p[h][j]);
-        acc[h] = fmaf(p.x, vj[0], acc[h]);
-        acc[h] = fmaf(p.y, vj[1], acc[h]);
-        acc[h] = fmaf(p.z, vj[2], acc[h]);
-        acc[h] = fmaf(p.w, vj[3], acc[h]);
+#pragma unroll
+        for (int u = 0; u < FPT; ++u) {
+          acc[h][u] = fmaf(p.x, vj[0][u], acc[h][u]);
+          acc[h][u] = fmaf(p.y, vj[1][u], acc[h][u]);
+          acc[h][u] = fmaf(p.z, vj[2][u], acc[h][u]);
+          acc[h][u] = fmaf(p.w, vj[3][u], acc[h][u]);
+        }
       }
     }
   }
@@ -320,17 +358,20 @@ decode_attention_kernel(const void* __restrict__ q,
     __shared__ float s_half[REP][D];
     if (tid >= D) {
 #pragma unroll
-      for (int h = 0; h < REP; ++h) s_half[h][tid - D] = acc[h];
+      for (int h = 0; h < REP; ++h) s_half[h][tid - D] = acc[h][0];
     }
     __syncthreads();
     if (tid >= D) return;
 #pragma unroll
-    for (int h = 0; h < REP; ++h) acc[h] += s_half[h][tid];
+    for (int h = 0; h < REP; ++h) acc[h][0] += s_half[h][tid];
   }
   if (part_acc != nullptr) {                // the split's partial state
 #pragma unroll
     for (int h = 0; h < REP; ++h)
-      part_acc[((head0 + h) * splits + split) * D + tid] = acc[h];
+#pragma unroll
+      for (int u = 0; u < FPT; ++u)
+        part_acc[((head0 + h) * splits + split) * D + col + u * kCols] =
+            acc[h][u];
     if (tid < REP) {
       float* ml = part_ml + ((head0 + tid) * splits + split) * 2;
       ml[0] = s_m[tid];
@@ -341,12 +382,10 @@ decode_attention_kernel(const void* __restrict__ q,
 #pragma unroll
   for (int h = 0; h < REP; ++h) {
     const float l = s_l[h];
-    const float y = l > 0.f ? acc[h] / l : 0.f;
-    const size_t at = (head0 + h) * D + tid;
-    if (q_f32)
-      static_cast<float*>(out)[at] = y;
-    else
-      static_cast<__nv_bfloat16*>(out)[at] = __float2bfloat16(y);
+#pragma unroll
+    for (int u = 0; u < FPT; ++u)
+      store_out(out, (head0 + h) * D + col + u * kCols,
+                l > 0.f ? acc[h][u] / l : 0.f, q_type);
   }
 }
 
@@ -357,7 +396,7 @@ template <int D>
 __global__ void __launch_bounds__(D)
 decode_merge_kernel(const float* __restrict__ part_acc,
                     const float* __restrict__ part_ml,
-                    void* __restrict__ out, int q_f32, int splits) {
+                    void* __restrict__ out, int q_type, int splits) {
   extern __shared__ float s_w[];          // [splits] weights, then [splits] l
   const size_t bh = blockIdx.x;
   const int d = threadIdx.x;
@@ -382,14 +421,10 @@ decode_merge_kernel(const float* __restrict__ part_acc,
     l = fmaf(s_w[splits + c], w, l);
     a = fmaf(acc[static_cast<size_t>(c) * D], w, a);
   }
-  const float y = l > 0.f ? a / l : 0.f;
-  if (q_f32)
-    static_cast<float*>(out)[bh * D + d] = y;
-  else
-    static_cast<__nv_bfloat16*>(out)[bh * D + d] = __float2bfloat16(y);
+  store_out(out, bh * D + d, l > 0.f ? a / l : 0.f, q_type);
 }
 
-// The ring and the static arrays may pass 48 KB (at D = 128): allowed
+// The ring and the static arrays may pass 48 KB (at D >= 128): allowed
 // once per device (of the first 16), not on every launch.
 template <int D, int REP>
 cudaError_t allow_smem() {
@@ -410,7 +445,7 @@ cudaError_t allow_smem() {
 template <int D, int REP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* pos, void* out, float* part_acc,
-                   float* part_ml, int q_f32, int B, int Hq, int Hkv, int L,
+                   float* part_ml, int q_type, int B, int Hq, int Hkv, int L,
                    int splits, int chunk, float scale, cudaStream_t stream) {
   cudaError_t e = allow_smem<D, REP>();
   if (e != cudaSuccess) return e;
@@ -420,7 +455,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       q, static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const long long*>(pos), out, merge ? part_acc : nullptr,
-      part_ml, q_f32, Hq, Hkv, L, chunk, scale);
+      part_ml, q_type, Hq, Hkv, L, chunk, scale);
   return cudaGetLastError();
 }
 
@@ -457,12 +492,15 @@ cudaError_t with_heads(int heads, F&& f) {
   }
 }
 
-// f(std::integral_constant<int, D>) for head dim D (64 or 128)
+// f(std::integral_constant<int, D>) for head dim D (64, 128 or 256)
 template <typename F>
 cudaError_t with_dim(int D, F&& f) {
   if (D == 64) return f(std::integral_constant<int, 64>{});
+  if (D == 256) return f(std::integral_constant<int, 256>{});
   return f(std::integral_constant<int, 128>{});
 }
+
+bool head_dim_ok(int D) { return D == 64 || D == 128 || D == 256; }
 
 }  // namespace
 
@@ -474,7 +512,7 @@ cudaError_t with_dim(int D, F&& f) {
 // code.
 extern "C" int wt_decode_limits(int Hq, int Hkv, int D, int* limits) {
   if (Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || limits == nullptr ||
-      (D != 64 && D != 128))
+      !head_dim_ok(D))
     return static_cast<int>(cudaErrorInvalidValue);
   limits[0] = heads_per_block(Hq, Hkv);
   return static_cast<int>(with_dim(D, [&](auto d) {
@@ -492,11 +530,12 @@ extern "C" int wt_decode_limits(int Hq, int Hkv, int D, int* limits) {
 // first).
 extern "C" int wt_decode_attention(const void* q, const void* k,
                                    const void* v, const void* pos, void* out,
-                                   void* part_acc, void* part_ml, int q_f32,
+                                   void* part_acc, void* part_ml, int q_type,
                                    int B, int Hq, int Hkv, int L, int D,
                                    int splits, int chunk, float scale,
                                    void* stream) {
-  if ((D != 64 && D != 128) || Hkv <= 0 || Hq % Hkv != 0 || L <= 0 || B <= 0 ||
+  if (!head_dim_ok(D) || q_type < 0 || q_type > 2 || Hkv <= 0 ||
+      Hq % Hkv != 0 || L <= 0 || B <= 0 ||
       B > 65535 || splits < 1 || splits > 4096 || chunk <= 0 ||
       static_cast<long long>(splits) * chunk < L ||
       static_cast<long long>(splits - 1) * chunk >= L ||
@@ -508,14 +547,14 @@ extern "C" int wt_decode_attention(const void* q, const void* k,
   cudaError_t e = with_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     cudaError_t r = with_heads(heads_per_block(Hq, Hkv), [&](auto R) {
-      return launch<kD, decltype(R)::value>(q, k, v, pos, out, pa, pm, q_f32,
+      return launch<kD, decltype(R)::value>(q, k, v, pos, out, pa, pm, q_type,
                                             B, Hq, Hkv, L, splits, chunk,
                                             scale, s);
     });
     if (r != cudaSuccess || splits == 1) return r;
     decode_merge_kernel<kD><<<static_cast<unsigned>(B) * Hq, kD,
                               2 * splits * sizeof(float), s>>>(
-        pa, pm, out, q_f32, splits);
+        pa, pm, out, q_type, splits);
     return cudaGetLastError();
   });
   return static_cast<int>(e);

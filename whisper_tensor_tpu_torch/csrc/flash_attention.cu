@@ -15,7 +15,7 @@
 // head h reads KV head h / (Hq / Hkv).
 //
 //   q    (B, Hq, Sq, D) bf16, any strides with the feature stride 1
-//   k, v (B, Hkv, Skv, D) bf16, contiguous      D = 64 or 128
+//   k, v (B, Hkv, Skv, D) bf16, contiguous      D = 64, 128 or 256
 //   mask (1|B, 1, Sq, Skv) f32 contiguous, or none
 //   pos  (B,) int64, or none                    out (B, Hq, Sq, D) bf16
 //
@@ -57,7 +57,22 @@
 //     The wrapper picks the split count (flash_attention.py:flash_splits)
 //     from the shapes and what wt_flash_limits reads on the card;
 //   * the ragged edges (Sq and Skv not multiples of the tiles) are masked
-//     in the kernel: no padded copies of q, k or v.
+//     in the kernel: no padded copies of q, k or v;
+//   * head dim 256 (every Gemma) does not fit the D = 128 design: a warp's
+//     16 rows of f32 output alone take 128 registers a thread there, its
+//     q fragments 64 more, and the 3-stage ring of 64-key tiles would be
+//     203 KB. The tile shape is a template parameter (Cfg: keys a tile,
+//     stages). D = 256 keeps q in registers and streams 32-key tiles in
+//     3 stages (101 KB), at twice the barriers and rescales a key; one
+//     block of 8 warps fills a multiprocessor's registers, as at D = 128.
+//     The other shape tried staged the block's 128 q rows in shared
+//     memory once (68 KB) and read each warp's A fragments by ldmatrix
+//     on every tile, with a ring of 2 stages of 64 keys (203 KB in all).
+//     Timed against it by chip_smoke.py's phase 2 on an H100 80GB HBM3
+//     at 700 W, the shape kept took 0.86-0.90x its device time at 2,048
+//     rows and 0.60-0.63x at a 128-row prompt (PERF.md §6), though ptxas
+//     gives it 255 registers and 60 bytes of spills (the other: 249,
+//     none); the other was then deleted.
 // Left out of the TPU kernel, each for a reason:
 //   * the KV-chunk carry (its carry / carry_out, :208-229, :366-373): it
 //     exists because one head's whole K/V had to sit in VMEM; here K/V
@@ -83,15 +98,19 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;      // query rows of a block
-constexpr int kBK = 64;                 // keys per tile
-constexpr int kStages = 3;              // cp.async ring depth
+constexpr int kChunkKeys = 64;          // splits are whole runs of 64 keys
 constexpr int kPad = 8;                 // bf16 of padding per shared row
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
-__host__ __device__ constexpr int smem_bytes() {
-  return kStages * 2 * kBK * (D + kPad) * 2;  // a K and a V tile a stage
-}
+// A kernel's tile shape: head dim D, BK keys a tile and a ring of
+// STAGES cp.async stages.
+template <int D_, int BK_, int STAGES_>
+struct Cfg {
+  static constexpr int D = D_, BK = BK_, STAGES = STAGES_;
+  static constexpr int kRow = D + kPad;  // shared row, in bf16
+  // a K and a V tile a stage
+  static constexpr int smem_bytes = STAGES * 2 * BK * kRow * 2;
+};
 
 // Query heads of one block: the most of 8, 4, 2, 1 that divide the group.
 int heads_per_block(int Hq, int Hkv) {
@@ -105,7 +124,7 @@ __device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-template <int D>
+template <typename C>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
@@ -118,7 +137,8 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        int Sq, int Skv, long long q_sb, long long q_sh,
                        long long q_ss, long long mask_sb, int causal,
                        int heads, float scale, int splits, int chunk_tiles) {
-  constexpr int kRow = D + kPad;        // shared row, in bf16
+  constexpr int D = C::D, kBK = C::BK, kStages = C::STAGES;
+  constexpr int kRow = C::kRow;         // shared row, in bf16
   constexpr int kTile = kBK * kRow;
   constexpr int kChunks = D / 8;        // 16-byte chunks of a key's row
   constexpr int NT = kBK / 8;           // n-tiles of 8 keys of a score tile
@@ -393,42 +413,44 @@ flash_merge_kernel(const float* __restrict__ part_acc,
 
 // The ring passes the 48 KB a block gets without asking: allowed once
 // per device (of the first 16), not on every launch.
-template <int D>
+template <typename C>
 cudaError_t allow_smem() {
   static bool allowed[16] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 16 || !allowed[dev]) {
-    e = cudaFuncSetAttribute(flash_attention_kernel<D>,
+    e = cudaFuncSetAttribute(flash_attention_kernel<C>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes<D>());
+                             C::smem_bytes);
     if (e != cudaSuccess) return e;
     if (dev < 16) allowed[dev] = true;
   }
   return cudaSuccess;
 }
 
-template <int D>
+template <typename C>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mask, const void* pos, void* out,
                    float* part_acc, float* part_ml, int B, int Hq, int Hkv,
                    int Sq, int Skv, long long q_sb, long long q_sh,
                    long long q_ss, long long mask_sb, int causal, float scale,
                    int splits, int chunk_tiles, cudaStream_t stream) {
-  cudaError_t e = allow_smem<D>();
+  constexpr int D = C::D;
+  cudaError_t e = allow_smem<C>();
   if (e != cudaSuccess) return e;
   const int heads = heads_per_block(Hq, Hkv);
   const int tq = kRows / heads;
   const dim3 grid(Hq / heads, B, ((Sq + tq - 1) / tq) * splits);
   const bool merge = splits > 1;
-  flash_attention_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
+  flash_attention_kernel<C><<<grid, kThreads, C::smem_bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(mask),
       static_cast<const long long*>(pos), static_cast<__nv_bfloat16*>(out),
       merge ? part_acc : nullptr, part_ml, B, Hq, Hkv, Sq, Skv, q_sb, q_sh,
-      q_ss, mask_sb, causal, heads, scale, splits, chunk_tiles);
+      q_ss, mask_sb, causal, heads, scale, splits,
+      chunk_tiles * (kChunkKeys / C::BK));
   e = cudaGetLastError();
   if (e != cudaSuccess || !merge) return e;
   const long long rows = static_cast<long long>(B) * Hq * Sq;
@@ -439,14 +461,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// Blocks of the D kernel one multiprocessor of the current device runs
+// Blocks of the C kernel one multiprocessor of the current device runs
 // at once.
-template <int D>
+template <typename C>
 cudaError_t occupancy(int* blocks) {
-  cudaError_t e = allow_smem<D>();
+  cudaError_t e = allow_smem<C>();
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, flash_attention_kernel<D>, kThreads, smem_bytes<D>());
+      blocks, flash_attention_kernel<C>, kThreads, C::smem_bytes);
+}
+
+// f(Cfg) for head dim D (64, 128 or 256): the tile shapes of the note
+// above
+template <typename F>
+cudaError_t with_cfg(int D, F&& f) {
+  if (D == 64) return f(Cfg<64, 64, 3>{});
+  if (D == 128) return f(Cfg<128, 64, 3>{});
+  if (D == 256) return f(Cfg<256, 32, 3>{});
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -458,18 +490,17 @@ cudaError_t occupancy(int* blocks) {
 // at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns a CUDA
 // error code.
 extern "C" int wt_flash_limits(int Hq, int Hkv, int D, int* limits) {
-  if (Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || limits == nullptr ||
-      (D != 64 && D != 128))
+  if (Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || limits == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   limits[0] = heads_per_block(Hq, Hkv);
   limits[1] = kRows / limits[0];
-  const cudaError_t e =
-      D == 64 ? occupancy<64>(limits + 2) : occupancy<128>(limits + 2);
-  return static_cast<int>(e);
+  return static_cast<int>(with_cfg(D, [&](auto c) {
+    return occupancy<decltype(c)>(limits + 2);
+  }));
 }
 
 // One call: the kernel over `splits` runs of `chunk` keys (a multiple of
-// the 64-key tile), then, when splits > 1, the merge of the partial
+// 64 keys), then, when splits > 1, the merge of the partial
 // states (part_acc: f32 (splits, B, Hq, Sq, D), part_ml: f32 (splits, B,
 // Hq, Sq, 2)) into `out`. Returns cudaGetLastError() after the launches;
 // cudaErrorInvalidValue for a shape or plan the kernel does not take (the
@@ -484,9 +515,10 @@ extern "C" int wt_flash_attention(const void* q, const void* k,
                                   long long q_sh, long long q_ss,
                                   long long mask_sb, int causal, float scale,
                                   int splits, int chunk, void* stream) {
-  if ((D != 64 && D != 128) || Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
+  if (Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 ||
       Skv <= 0 || B <= 0 || B > 65535 || splits < 1 || chunk <= 0 ||
-      chunk % kBK != 0 || static_cast<long long>(splits) * chunk < Skv ||
+      chunk % kChunkKeys != 0 ||
+      static_cast<long long>(splits) * chunk < Skv ||
       static_cast<long long>(splits - 1) * chunk >= Skv ||
       (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -498,13 +530,10 @@ extern "C" int wt_flash_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
-  const int ct = chunk / kBK;
-  const cudaError_t e =
-      D == 64 ? launch<64>(q, k, v, mask, pos, out, pa, pm, B, Hq, Hkv, Sq,
-                           Skv, q_sb, q_sh, q_ss, mask_sb, causal, scale,
-                           splits, ct, s)
-              : launch<128>(q, k, v, mask, pos, out, pa, pm, B, Hq, Hkv, Sq,
-                            Skv, q_sb, q_sh, q_ss, mask_sb, causal, scale,
-                            splits, ct, s);
-  return static_cast<int>(e);
+  const int ct = chunk / kChunkKeys;
+  return static_cast<int>(with_cfg(D, [&](auto c) {
+    return launch<decltype(c)>(q, k, v, mask, pos, out, pa, pm, B, Hq, Hkv,
+                               Sq, Skv, q_sb, q_sh, q_ss, mask_sb, causal,
+                               scale, splits, ct, s);
+  }));
 }

@@ -15,8 +15,9 @@
 // scalar start, which every row shares.
 //
 //   cache_c  (B, H, L, D) bf16 or f32, contiguous, written IN PLACE
-//   update_c (B, H, S, D) the cache's type, or f32 into a bf16 cache
-//            (rounded to nearest even); any strides, its own for each c
+//   update_c (B, H, S, D) the cache's type, or f32 or f16 into a bf16
+//            cache (rounded to nearest even, as XLA's convert: an f16
+//            value is exact in f32 first); any strides, its own for each c
 //   pos      (B,) or () int64 or int32, read on the device
 //
 // What bounds it on the H100: launch latency and the host, not bytes. A
@@ -47,6 +48,7 @@
 //     int32 as it comes.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -85,6 +87,10 @@ __device__ __forceinline__ long long slab_start(const Geometry& g, int b) {
 __device__ __forceinline__ __nv_bfloat16 to_cache(float x, __nv_bfloat16*) {
   return __float2bfloat16_rn(x);
 }
+__device__ __forceinline__ __nv_bfloat16 to_cache(__half x,
+                                                  __nv_bfloat16*) {
+  return __float2bfloat16_rn(__half2float(x));
+}
 __device__ __forceinline__ float to_cache(float x, float*) { return x; }
 __device__ __forceinline__ __nv_bfloat16 to_cache(__nv_bfloat16 x,
                                                   __nv_bfloat16*) {
@@ -120,8 +126,18 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       const int s = e0 / g.D, d = e0 - s * g.D;
       const Tu* sp = src + s * k.ss + d;
       uint4 out;
-      if constexpr (sizeof(Tu) == sizeof(Tc)) {
+      if constexpr (std::is_same<Tu, Tc>::value) {
         out = *reinterpret_cast<const uint4*>(sp);
+      } else if constexpr (std::is_same<Tu, __half>::value) {
+        const uint4 u = *reinterpret_cast<const uint4*>(sp);  // 8 f16
+        const __half2* h = reinterpret_cast<const __half2*>(&u);
+        float2 f[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) f[i] = __half22float2(h[i]);
+        out = make_uint4(pack_bf16x2(f[0].x, f[0].y),
+                         pack_bf16x2(f[1].x, f[1].y),
+                         pack_bf16x2(f[2].x, f[2].y),
+                         pack_bf16x2(f[3].x, f[3].y));
       } else {                           // 8 f32 -> 8 bf16, nearest even
         const float4 lo = reinterpret_cast<const float4*>(sp)[0];
         const float4 hi = reinterpret_cast<const float4*>(sp)[1];
@@ -166,6 +182,8 @@ cudaError_t with_mode(int mode, F&& f) {
                      static_cast<float*>(nullptr));
     case 2: return f(static_cast<__nv_bfloat16*>(nullptr),
                      static_cast<float*>(nullptr));
+    case 3: return f(static_cast<__nv_bfloat16*>(nullptr),
+                     static_cast<__half*>(nullptr));
     default: return cudaErrorInvalidValue;
   }
 }
@@ -188,7 +206,8 @@ extern "C" int wt_kv_write_limits(int mode, int* limits) {
 }
 
 // One launch writes `caches` (1 or 2) caches. geom (int64): caches, B, H,
-// L, D, S, mode (0 bf16 into bf16, 1 f32 into f32, 2 f32 into bf16),
+// L, D, S, mode (0 bf16 into bf16, 1 f32 into f32, 2 f32 into bf16,
+// 3 f16 into bf16),
 // pos_i32, pos stride, units a slab, units, blocks, then the update
 // strides (b, h, s, d) of cache 0 and of cache 1. Returns
 // cudaGetLastError() after the launch; cudaErrorInvalidValue for a
@@ -202,7 +221,7 @@ extern "C" int wt_kv_write(void* cache0, const void* upd0, void* cache1,
   const long long vec = mode == 1 ? 4 : 8;
   if ((caches != 1 && caches != 2) || B <= 0 || H <= 0 || D <= 0 || S <= 0
       || S > L || L > 0x7fffffffLL || S * D > 0x7fffffffLL || mode < 0
-      || mode > 2
+      || mode > 3
       || per_slab != (S * D + vec - 1) / vec
       || units != caches * B * H * per_slab || units >= (1LL << 30)
       || blocks <= 0 || blocks > (1LL << 20) || cache0 == nullptr

@@ -1,9 +1,9 @@
 """Loader registry, the transformers and GGUF loaders, identify_and_load.
 
 The port's copy of whisper_tensor_tpu/importers/loaders.py, trimmed to
-the `transformers` loader for llama- and GPT-2-family checkpoints
-(config.json + safetensors), the `gguf` loader for llama-family GGUF
-files (:525-652) and the `auto` loader that probes for them. Their
+the `transformers` loader for GPT-2, llama-family, Gemma and Phi-3
+checkpoints (config.json + safetensors), the `gguf` loader for
+llama-family, Gemma and Phi-3 GGUF files (:525-652) and the `auto` loader that probes for them. Their
 config keys and their bundles' `text` interface spec are the
 reference's: dtype, quantize (int8, or host quantization to q4_0, q8_0,
 q5_0, q4_k or q6_k), max_len, ragged_decode, serve_batch, serve_chunk,
@@ -13,10 +13,14 @@ load, importers/lora.py) and `serve_adapters` (name=dir adapters the
 batcher selects per request), and for GGUF packed_weights (keep the
 file's blocks packed on the device, default on); the end-of-sequence
 ids come from the checkpoint (`_resolve_eos`) or the GGUF metadata.
-Left out, each raising: other model types and GGUF archs (ValueError,
-as the reference does for an unknown one; NotImplementedError for the
-gemma and phi3 GGUF adapters), `decode_windows` (NotImplementedError),
-and the ONNX, RWKV, TTS and image loaders (not registered). GPTQ/AWQ
+Model types gemma, gemma2, gemma3_text (gemma3) and phi3 load as in the
+reference (:261-276, :454-460), and so do GGUF archs gemma, gemma2 and
+phi3, dequantized on the host; their recipes build one scalar position,
+so `ragged_decode` raises for them (the reference accepts it and its
+batcher fails at the first request: ROADMAP C18). Left out, each
+raising: other model types and GGUF archs (ValueError, as the reference
+does for an unknown one), `decode_windows` (NotImplementedError), and
+the ONNX, RWKV, TTS and image loaders (not registered). GPTQ/AWQ
 checkpoints load (importers/quantized.py): their quantized Linears run
 packed, unless a merged adapter densifies them as in the reference.
 
@@ -120,13 +124,15 @@ def _resolve_eos(d: str, hf_cfg: dict):
 
 _LLAMA_FAMILY = ("llama", "mistral", "mixtral", "qwen2", "qwen3",
                  "qwen3_moe")
+# model types whose recipes take no pos_per_row: one scalar position
+_SCALAR_POS = ("gemma", "gemma2", "gemma3_text", "gemma3", "phi3")
 
 
 @register_loader
 class TransformersLoader(Loader):
     NAME = "transformers"
     DESCRIPTION = "HF transformers checkpoint dir (config.json + safetensors)"
-    SUPPORTED = ("gpt2",) + _LLAMA_FAMILY
+    SUPPORTED = ("gpt2",) + _LLAMA_FAMILY + _SCALAR_POS
 
     def config_schema(self):
         return super().config_schema() + [
@@ -205,6 +211,13 @@ class TransformersLoader(Loader):
             qstore = None   # merged deltas densify: no packed bypass
         weight_map: Dict[str, str] = {}   # initializer -> HF name
         ragged = bool(config.get("ragged_decode", False))
+        if ragged and mt in _SCALAR_POS:
+            # the reference builds these recipes' scalar-position graph
+            # under ragged_decode too, and its batcher fails at the first
+            # request (ROADMAP C18): refused here, at load
+            raise ValueError(f"ragged_decode is not supported for "
+                             f"model_type {mt!r}: its recipe builds a step "
+                             f"graph with one position for every row")
         if mt == "gpt2":
             from .recipes.llm.gpt2 import GPT2Config, build_gpt2_step
 
@@ -227,6 +240,31 @@ class TransformersLoader(Loader):
 
             data = build_llama_step(getter, cfg, max_len=max_len, dtype=dtype,
                                     pos_per_row=ragged, weight_map=weight_map)
+            geometry = dict(n_layers=cfg.num_hidden_layers,
+                            n_kv_heads=cfg.num_key_value_heads, head_dim=cfg.hd)
+        elif mt in ("gemma", "gemma2"):
+            from .recipes.llm.gemma import GemmaConfig, build_gemma_step
+
+            cfg = GemmaConfig.from_hf(hf_cfg)
+            data = build_gemma_step(store.getter(), cfg, max_len=max_len,
+                                    dtype=dtype)
+            geometry = dict(n_layers=cfg.num_hidden_layers,
+                            n_kv_heads=cfg.num_key_value_heads, head_dim=cfg.hd)
+        elif mt in ("gemma3_text", "gemma3"):
+            from .recipes.llm.gemma3 import Gemma3Config, build_gemma3_step
+
+            cfg = Gemma3Config.from_hf(hf_cfg)
+            data = build_gemma3_step(store.getter(), cfg, max_len=max_len,
+                                     dtype=dtype)
+            geometry = dict(n_layers=cfg.num_hidden_layers,
+                            n_kv_heads=cfg.num_key_value_heads,
+                            head_dim=cfg.head_dim)
+        elif mt == "phi3":
+            from .recipes.llm.phi3 import Phi3Config, build_phi3_step
+
+            cfg = Phi3Config.from_hf(hf_cfg)
+            data = build_phi3_step(store.getter(), cfg, max_len=max_len,
+                                   dtype=dtype)
             geometry = dict(n_layers=cfg.num_hidden_layers,
                             n_kv_heads=cfg.num_key_value_heads, head_dim=cfg.hd)
         else:
@@ -252,6 +290,9 @@ class TransformersLoader(Loader):
                     f"serve_adapters entry {part!r} is not name=path")
             aname, apath = part.split("=", 1)
             serve_adapters[aname.strip()] = apath.strip()
+        if serve_adapters and not weight_map:
+            raise ValueError(f"serve_adapters not supported for "
+                             f"model_type {mt!r} (no weight map)")
         if serve_adapters and not ragged:
             raise ValueError("serve_adapters needs ragged_decode=1 "
                              "(adapters are served by the batcher)")
@@ -330,17 +371,14 @@ class GgufLoader(Loader):
                 "PyTorch yet")
         g = GGUFFile(config["path"])
         arch = g.architecture
-        if arch in ("phi3", "gemma", "gemma2"):
-            raise NotImplementedError(
-                f"gguf architecture {arch!r} is not ported to PyTorch yet")
-        if arch not in LLAMA_FAMILY:
+        if arch not in LLAMA_FAMILY + ("phi3", "gemma", "gemma2"):
             raise ValueError(f"gguf architecture {arch!r} not supported yet")
         max_len = int(config.get("max_len", 1024))
         dtype = {"f32": DType.F32, "bf16": DType.BF16,
                  "f16": DType.F16}[config.get("dtype", "bf16")]
         ragged = bool(config.get("ragged_decode", False))
         name = g.metadata.get("general.name", os.path.basename(config["path"]))
-        if bool(config.get("packed_weights", True)):
+        if bool(config.get("packed_weights", True)) and arch in LLAMA_FAMILY:
             # sub-byte weights stay packed end to end: structure-only
             # ONNX + TensorStore entries (lazy dense fallback + packed
             # source for the packed_matmul kernel)

@@ -8,9 +8,12 @@ host (build_from_gguf) or with the matmul weights left packed for the
 packed_matmul kernel (build_from_gguf_packed).
 
 The port's copy of whisper_tensor_tpu/importers/recipes/llm/
-gguf_llama.py (:19-75, :162-331), trimmed to the llama family (arch
-llama, mistral, qwen2, qwen3): the gemma and phi3 adapters raise as not
-ported, and so do the decode-window variants (`zeros`, `storage`).
+gguf_llama.py, without the decode-window variants (`zeros`, `storage`).
+Arch gemma, gemma2 and phi3 (:78-245: `_gguf_name_gemma`,
+`gemma_config_from_gguf`, `_PHI3_LAYER_MAP` and build_from_gguf's
+branches) dequantize every weight on the host and run their own
+recipes; the packed path takes the llama family (llama, mistral, qwen2,
+qwen3), as in the reference.
 
 One fault of the reference is not inherited (ROADMAP C5). llama.cpp's
 converter (convert_hf_to_gguf.py, LlamaModel.permute, applied to q_proj
@@ -102,6 +105,90 @@ def config_from_gguf(g) -> LlamaConfig:
     )
 
 
+_GEMMA1_LAYER_MAP = {
+    "input_layernorm.weight": "attn_norm.weight",
+    "self_attn.q_proj.weight": "attn_q.weight",
+    "self_attn.k_proj.weight": "attn_k.weight",
+    "self_attn.v_proj.weight": "attn_v.weight",
+    "self_attn.o_proj.weight": "attn_output.weight",
+    # gemma1 has a single pre-FFN norm: HF post_attention_layernorm
+    "post_attention_layernorm.weight": "ffn_norm.weight",
+    "mlp.gate_proj.weight": "ffn_gate.weight",
+    "mlp.up_proj.weight": "ffn_up.weight",
+    "mlp.down_proj.weight": "ffn_down.weight",
+}
+_GEMMA2_LAYER_MAP = {
+    **_GEMMA1_LAYER_MAP,
+    # gemma2's 4-norm sandwich (llama.cpp names)
+    "post_attention_layernorm.weight": "post_attention_norm.weight",
+    "pre_feedforward_layernorm.weight": "ffn_norm.weight",
+    "post_feedforward_layernorm.weight": "post_ffw_norm.weight",
+}
+
+
+def _gguf_name_gemma(hf_name: str, gemma2: bool) -> str:
+    if hf_name in _NAME_MAP:
+        return _NAME_MAP[hf_name]
+    if hf_name.startswith("model.layers."):
+        rest = hf_name[len("model.layers."):]
+        idx, leaf = rest.split(".", 1)
+        lmap = _GEMMA2_LAYER_MAP if gemma2 else _GEMMA1_LAYER_MAP
+        return f"blk.{idx}.{lmap[leaf]}"
+    raise KeyError(hf_name)
+
+
+def gemma_config_from_gguf(g):
+    from .gemma import GemmaConfig
+
+    arch = g.architecture
+    m = g.metadata
+
+    def key(suffix, default=None):
+        return m.get(f"{arch}.{suffix}", default)
+
+    n_head = int(key("attention.head_count"))
+    emb = int(key("embedding_length"))
+    soft_a = key("attn_logit_softcapping")
+    soft_f = key("final_logit_softcapping")
+    return GemmaConfig(
+        num_hidden_layers=int(key("block_count")),
+        num_attention_heads=n_head,
+        num_key_value_heads=int(key("attention.head_count_kv", 1)),
+        hidden_size=emb,
+        intermediate_size=int(key("feed_forward_length")),
+        vocab_size=int(key("vocab_size",
+                           len(m.get("tokenizer.ggml.tokens", [])))),
+        max_position_embeddings=int(key("context_length", 8192)),
+        rms_norm_eps=float(key("attention.layer_norm_rms_epsilon", 1e-6)),
+        rope_theta=float(key("rope.freq_base", 10000.0)),
+        head_dim=int(key("attention.key_length") or emb // n_head),
+        attn_logit_softcapping=float(soft_a) if soft_a else None,
+        final_logit_softcapping=float(soft_f) if soft_f else None,
+        gemma2=(arch == "gemma2"),
+        model_type=arch,
+    )
+
+
+_PHI3_LAYER_MAP = {
+    "self_attn.qkv_proj.weight": "attn_qkv.weight",
+    "self_attn.o_proj.weight": "attn_output.weight",
+    "mlp.gate_up_proj.weight": "ffn_up.weight",     # gguf fuses gate+up
+    "mlp.down_proj.weight": "ffn_down.weight",
+    "input_layernorm.weight": "attn_norm.weight",
+    "post_attention_layernorm.weight": "ffn_norm.weight",
+}
+
+
+def _gguf_name_phi3(hf_name: str) -> str:
+    if hf_name in _NAME_MAP:
+        return _NAME_MAP[hf_name]
+    if hf_name.startswith("model.layers."):
+        rest = hf_name[len("model.layers."):]
+        idx, leaf = rest.split(".", 1)
+        return f"blk.{idx}.{_PHI3_LAYER_MAP[leaf]}"
+    raise KeyError(hf_name)
+
+
 def _row_order(n_head: int, hd: int) -> np.ndarray:
     """Row r of the un-permuted weight is row order[r] of the llama.cpp
     file: the inverse of reshape(n_head, 2, hd / 2, K).swapaxes(1, 2)."""
@@ -157,24 +244,72 @@ class _Source:
 
     def dense(self, hf_name: str) -> np.ndarray:
         """f32 (floats) host array, HF orientation."""
-        t = self.load(hf_name)
-        if isinstance(t, PackedTensor):
-            return t.dequantize(DType.F32).numpy()
-        arr = t.numpy()
-        return arr.astype(np.float32) if arr.dtype.kind == "f" else arr
+        return _dense(self.load(hf_name))
+
+
+def _dense(t) -> np.ndarray:
+    """A GGUF tensor as a host array: packed blocks dequantized to f32,
+    floats widened to f32."""
+    if isinstance(t, PackedTensor):
+        return t.dequantize(DType.F32).numpy()
+    arr = t.numpy()
+    return arr.astype(np.float32) if arr.dtype.kind == "f" else arr
 
 
 def _llama_family(g) -> LlamaConfig:
     if g.architecture not in LLAMA_FAMILY:
-        raise NotImplementedError(
-            f"gguf architecture {g.architecture!r} is not ported to PyTorch "
-            f"yet (the port reads llama-family files: {LLAMA_FAMILY})")
+        raise ValueError(
+            f"packed path supports llama-family ggufs, not "
+            f"{g.architecture!r}")
     return config_from_gguf(g)
 
 
 def build_from_gguf(g, max_len: int, dtype: DType = DType.BF16,
                     pos_per_row: bool = False) -> Tuple[bytes, Dict]:
-    """Every weight dequantized on the host and embedded in the ONNX."""
+    """Every weight dequantized on the host and embedded in the ONNX.
+    Arch gemma, gemma2 and phi3 go through their own recipes, as in the
+    reference (:162-222); they have no per-row position (ValueError)."""
+    if g.architecture in ("gemma", "gemma2"):
+        from .gemma import build_gemma_step
+
+        if pos_per_row:
+            raise ValueError("ragged decode not supported for gguf gemma yet")
+        gcfg = gemma_config_from_gguf(g)
+        gemma2 = g.architecture == "gemma2"
+
+        def getter_g(hf_name: str) -> np.ndarray:
+            # gemma always ties the LM head to the embedding
+            if hf_name == "lm_head.weight":
+                hf_name = "model.embed_tokens.weight"
+            arr = _dense(g.load(_gguf_name_gemma(hf_name, gemma2)))
+            # the HF->GGUF converter bakes gemma's "+1" into every norm
+            # weight; the recipe adds it back, so un-bake here
+            if (hf_name.endswith("layernorm.weight")
+                    or hf_name == "model.norm.weight"):
+                arr = arr - 1.0
+            return arr
+
+        data = build_gemma_step(getter_g, gcfg, max_len=max_len, dtype=dtype)
+        return data, dict(n_layers=gcfg.num_hidden_layers,
+                          n_kv_heads=gcfg.num_key_value_heads,
+                          head_dim=gcfg.hd)
+    if g.architecture == "phi3":
+        from .phi3 import Phi3Config, build_phi3_step
+
+        if pos_per_row:
+            raise ValueError("ragged decode not supported for gguf phi3 yet")
+        cfg = Phi3Config(**{**config_from_gguf(g).__dict__,
+                            "model_type": "phi3", "attention_bias": False})
+
+        def getter3(hf_name: str) -> np.ndarray:
+            if hf_name == "lm_head.weight" and cfg.tie_word_embeddings:
+                hf_name = "model.embed_tokens.weight"
+            return _dense(g.load(_gguf_name_phi3(hf_name)))
+
+        data = build_phi3_step(getter3, cfg, max_len=max_len, dtype=dtype)
+        return data, dict(n_layers=cfg.num_hidden_layers,
+                          n_kv_heads=cfg.num_key_value_heads,
+                          head_dim=cfg.hd)
     cfg = _llama_family(g)
     src = _Source(g, cfg)
     data = build_llama_step(src.dense, cfg, max_len=max_len, dtype=dtype,

@@ -10,10 +10,11 @@ Attention with a rank-0 or rank-1 integer POSITION mask (the recipes'
 `pos`): query row s of batch b sees keys j <= pos[b] + s. A rank-0
 mask is broadcast to (B,) first, as the reference does at :170-171.
 Without softcap, a qk output or is_causal, such a call over a bf16
-cache goes to a hand-written kernel's wrapper, which on a CUDA device
-launches the kernel or raises for shapes it does not take:
+cache goes to a hand-written kernel's wrapper when the wrapper takes it
+(`pos_mode`: head dim 64, 128 or 256, Dv = D, Hq a multiple of Hkv, at
+most 65,535 rows); on a CUDA device the wrapper launches the kernel:
   * a single-query step (Sq == 1) to decode_attention
-    (backends/cuda/decode_attention.py; q bf16 or f32);
+    (backends/cuda/decode_attention.py; q bf16, f16 or f32);
   * a prefill (Sq > 1) with bf16 q, k and v to flash_attention
     (backends/cuda/flash_attention.py), in its pos-bound mode: the
     visibility rule stays in registers and the key loop stops at the
@@ -21,12 +22,14 @@ launches the kernel or raises for shapes it does not take:
 A prefill in bf16 takes flash_attention's other two modes too
 (`flash_mode`): an is_causal call without a mask its causal mode, and a
 call with an additive float mask of shape (1|B, 1, Sq, Skv) its additive
-mode (GPT-2's scalar-position step graph emits one), when there is no
-softcap and no qk output, D is 64 or 128, Dv = D and Hq is a multiple of
-Hkv: exactly the calls the wrapper takes. The reference keeps these modes
-behind an opt-in gate measured on the v5e (backends/pallas/
-attention.py:94-125); on the H100 the additive mode runs at a quarter of
-the plain path's time (PERF.md).
+mode (GPT-2's scalar-position step graph and the Gemma recipes emit
+one), when there is no softcap and no qk output, D is 64, 128 or 256,
+Dv = D and Hq is a multiple of Hkv: exactly the calls the wrapper takes.
+The TPU kernels gate on D % 128 == 0 or D == 64 and leave every other
+head dim to XLA; here head dims 384 and above run the plain path too.
+The reference keeps these modes behind an opt-in gate measured on the
+v5e (backends/pallas/attention.py:94-125); on the H100 the additive mode
+runs at a quarter of the plain path's time (PERF.md).
 
 Rows that see no key follow the oracle: a causal row (Sq > Skv) takes
 the mean of v, as the oracle's finite -1e30 fill gives, and an additive
@@ -49,8 +52,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ...backends.cuda.decode_attention import decode_attention
-from ...backends.cuda.flash_attention import flash_attention
+from ...backends.cuda.decode_attention import (
+    HEAD_DIMS as DECODE_HEAD_DIMS, Q_TYPES as DECODE_Q_TYPES,
+    decode_attention)
+from ...backends.cuda.flash_attention import (
+    HEAD_DIMS as FLASH_HEAD_DIMS, flash_attention)
 from ...tensor_info import Level, TensorInfo
 from ..ir import MilliOp
 from ..registry import lowering
@@ -320,7 +326,7 @@ def flash_mode(op, q, k, v, mask, need_qk: bool) -> Optional[str]:
     Hkv, Skv = k.shape[1], k.shape[2]
     if not (Sq > 1 and q.dtype == k.dtype == v.dtype == torch.bfloat16
             and tuple(v.shape) == tuple(k.shape) and k.shape[0] == B
-            and D == k.shape[3] and D in (64, 128) and Hkv > 0
+            and D == k.shape[3] and D in FLASH_HEAD_DIMS and Hkv > 0
             and Hq % Hkv == 0 and B <= 65535):
         return None
     if op.is_causal:
@@ -329,6 +335,29 @@ def flash_mode(op, q, k, v, mask, need_qk: bool) -> Optional[str]:
             and mask.shape[0] in (1, B) \
             and tuple(mask.shape[1:]) == (1, Sq, Skv):
         return "additive"
+    return None
+
+
+def pos_mode(op, q, k, v, pos, need_qk: bool) -> Optional[str]:
+    """"decode" when this position-mask call takes decode_attention,
+    "flash_pos" when it takes flash_attention's pos-bound mode: exactly
+    the calls their wrappers take (once k and v are contiguous). None
+    sends it to the plain path: a head dim the kernels lack (Phi-3's 96),
+    Dv != D, an f32 or f16 cache, a softcap (Gemma-2), a qk output."""
+    if need_qk or op.softcap or op.is_causal or q.ndim != 4 or k.ndim != 4:
+        return None
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    if not (tuple(v.shape) == tuple(k.shape) and k.shape[0] == B
+            and D == k.shape[3] and Hkv > 0 and Hq % Hkv == 0
+            and B <= 65535 and k.dtype == v.dtype == torch.bfloat16
+            and pos.dtype in (torch.int64, torch.int32)
+            and pos.numel() in (1, B)):
+        return None
+    if Sq == 1 and D in DECODE_HEAD_DIMS and q.dtype in DECODE_Q_TYPES:
+        return "decode"
+    if Sq > 1 and D in FLASH_HEAD_DIMS and q.dtype == torch.bfloat16:
+        return "flash_pos"
     return None
 
 
@@ -346,9 +375,14 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _flash(mode: str, q, k, v, mask, scale) -> torch.Tensor:
+    """flash_attention in `mode` (flash_mode's, or "flash_pos", where
+    `mask` is the (B,) positions)."""
     k, v = _aligned(k), _aligned(v)
+    # q is read through its strides (the recipes' Transpose view)
     if q.stride(3) != 1:
         q = q.contiguous()
+    if mode == "flash_pos":
+        return flash_attention(q, k, v, scale, pos_bound=mask)
     if mode == "additive":
         return flash_attention(q, k, v, scale,
                                mask=shift_rows(mask.float()))
@@ -392,16 +426,13 @@ def attention(op, inputs, static, device):
 
     if mask is not None and mask.ndim in (0, 1):
         pos = mask.reshape(-1).expand(B) if mask.ndim == 0 else mask
-        kernel = (not need_qk and not op.softcap and not op.is_causal
-                  and k.dtype == v.dtype == torch.bfloat16)
+        mode = pos_mode(op, q, k, v, pos, need_qk)
         # (a cache read in place is contiguous already: no copy)
-        if kernel and Sq == 1:
-            return finish(decode_attention(q.contiguous(), k.contiguous(),
-                                           v.contiguous(), pos, scale))
-        if kernel and q.dtype == torch.bfloat16:
-            # q is read through its strides (the recipes' Transpose view)
-            return finish(flash_attention(q, k.contiguous(), v.contiguous(),
-                                          scale, pos_bound=pos))
+        if mode == "decode":
+            return finish(decode_attention(_aligned(q), _aligned(k),
+                                           _aligned(v), pos, scale))
+        if mode == "flash_pos":
+            return finish(_flash(mode, q, k, v, pos, scale))
         mask = position_mask(pos, Sq, Skv)
     else:
         mode = flash_mode(op, q, k, v, mask, need_qk)
