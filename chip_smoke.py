@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (whisper_tensor_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--layers N] [--plant-fault] [--kernels-only]
-                          [--generic-only] [--plans]
+                          [--generic-only] [--image-only] [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -185,6 +185,31 @@ Phases:
      additive mask, Phi-3's head dim is 96); int8 and packed launches
      equal the lowering's QuantMatMul and PackedMatMul calls; the greedy
      answer stands a teacher-forced prefill (phase 3's bound).
+  13. SD-1.5 at its published widths (runwayml/stable-diffusion-v1-5:
+     UNet 320/640/1280/1280, 2 layers a block, 8 heads, cross-attention
+     768, 32 groups; CLIP ViT-L/14, 12 layers of 768, vocab 49,408, 77
+     positions; VAE 128/256/512/512), seeded weights written as a
+     diffusers directory in f16 safetensors, loaded in bf16 by the port's
+     Server: one 512 x 512 request over /v1/images/generations at 20
+     Euler steps and CFG 7.5 (the UNet at batch 2), flash_attention's
+     launches equal to the lowering's eligible Attention calls (the
+     UNet's unmasked self- and cross-attention at head dims 40, padded
+     to 64, 80 and 160; CLIP's causal calls) and every call
+     held against flash_attention_plain; a second request timed (seconds
+     per image); one UNet step timed, its device time split by
+     torch.profiler into attention, convolution, GroupNorm and the rest,
+     and its output with the kernels against the plain attention path
+     (within 4% of the output's scale); the VAE decode and its one-head
+     D = 512 attention (the plain path) timed; img2img at strength 0.5
+     and an inpaint with a half-image mask through the interface, every
+     flash call shadowed; then `cli image` at 256 x 256 and 4 steps (its
+     own load). The PNGs must decode and not be constant. Phase 2 times
+     flash's unmasked mode at the UNet's shapes (self-attention at
+     4,096, 1,024 and 256 positions, D 40, 80, 160; cross-attention at
+     4,096 x 77) against its bound, its plain version, SDPA at the
+     native head dim and the other design (zero-padding to 64, 128 or
+     256 against the kernel at D = 80 and 160). `--image-only` runs
+     phase 13 alone.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -193,6 +218,7 @@ card, and the result line.
 from __future__ import annotations
 
 import argparse
+import base64
 import ctypes
 import gc
 import http.client
@@ -578,6 +604,18 @@ def phase2_int8(torch, results):
                          f"plain version (M={M}, K={K}, N={N})")
                 t.append(device_time_ms(torch, run, sets))
             line.append(f"M={M} {t[0]:.4f}/{t[1]:.4f}")
+            if M in (4, 5):
+                # the speculative verify block's rows (k = 4, 5): the
+                # bound and the library call beside the two paths
+                bms, bby = bound(K * N + 4 * N + 2 * M * (K + N),
+                                 2 * M * K * N)
+                try:
+                    calls = [(int8pack_call(torch, *st),) for st in sets[:2]]
+                    lib = f"{device_time_ms(torch, lambda f: f(), calls):.4f}"
+                except RuntimeError as e:
+                    lib = f"raised ({str(e)[:60]})"
+                line.append(f"(M={M} bound {bms:.4f} ms ({bby}), "
+                            f"_weight_int8pack_mm device {lib})")
             del sets
         say(f"    K={K} N={N}: " + ", ".join(line))
         del wsets
@@ -991,6 +1029,113 @@ def phase2_flash(torch, results):
         "launches": None, "max_abs_err": worst, "ms": head[0],
         "plain_ms": head[1], "bound_ms": head[3], "bound_by": head[4],
         "library_ms": head[2], "shape": head[5], "shapes": shapes})
+
+
+# the SD-1.5 UNet's unmasked attention at a 512 x 512 image (the CFG
+# pair, 8 heads): self-attention at the 64 x 64, 32 x 32 and 16 x 16
+# latents' 4,096, 1,024 and 256 positions (head dims 40, 80, 160), and
+# the cross-attention over the 77 text tokens at 4,096 positions
+SD_FLASH = (("(sd-i) UNet self 4096, D=40", 2, 8, 4096, 4096, 40),
+            ("(sd-ii) UNet self 1024, D=80", 2, 8, 1024, 1024, 80),
+            ("(sd-iii) UNet self 256, D=160", 2, 8, 256, 256, 160),
+            ("(sd-iv) UNet cross 4096 x 77, D=40", 2, 8, 4096, 77, 40))
+
+
+def phase2_flash_sd(torch, results):
+    """flash_attention's unmasked mode at the SD UNet's shapes, as the
+    Attention lowering calls it (`_flash`, "none": at a head dim the
+    kernel lacks, q, k and v zero-padded, the kernel, the output sliced
+    back). Held to flash_agreement_bound of the plain version at the
+    native head dim; timed beside the other design (padding to 64, 128
+    or 256 against the native head dim), the kernel alone on padded
+    inputs, the plain version, SDPA at the native head dim and the bound
+    of the native work (q, k, v and out read or written once; 4 D
+    operations a (query, key) pair, every pair visible)."""
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        HEAD_DIMS, flash_agreement_bound, flash_attention,
+        flash_attention_plain, flash_splits)
+    from whisper_tensor_tpu_torch.milli.ops.attention import (_flash,
+                                                             flash_head_dim)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    card = torch.cuda.current_device()
+    entry = next(r for r in results if r["name"] == "flash_attention")
+    pad = torch.nn.functional.pad
+    for label, B, H, Sq, Skv, D in SD_FLASH:
+        Dp = flash_head_dim(D)
+        nbytes = (2 * B * H * Sq + 2 * B * H * Skv) * D * 2
+        sets = []
+        for _ in range(copies_for(nbytes)):
+            # the recipe's layout: (B, S, H, D) transposed to (B, H, S, D)
+            q = torch.randn(B, Sq, H, D, generator=gen,
+                            device=dev).bfloat16().transpose(1, 2)
+            k, v = (torch.randn(B, Skv, H, D, generator=gen,
+                                device=dev).bfloat16().transpose(1, 2)
+                    for _ in range(2))
+            sets.append((q, k, v))
+        q, k, v = sets[0]
+        scale = 1.0 / math.sqrt(D)
+
+        def routed(q, k, v):
+            return _flash("none", q, k, v, None, scale)
+
+        got = routed(q, k, v)
+        ref = flash_attention_plain(q, k, v, scale)
+        err, share = worst_share(got, ref, flash_attention_plain(
+            q, k, v.abs(), scale), flash_agreement_bound)
+        del ref, got
+        # the two designs, timed in turns: zero-padding to the next of
+        # 64, 128 and 256 (the JAX package's), and the kernel at the
+        # native head dim where it has one (80, 160)
+        Dpad = next(h for h in (64, 128, 256) if h >= D)
+        padded = [tuple(pad(t, (0, Dpad - D)).contiguous() for t in st)
+                  for st in sets]
+        ms = time_ms(torch, routed, sets)
+        dev_ms = device_time_ms(torch, routed, sets)
+        kern_ms = time_ms(torch, lambda q, k, v: flash_attention(
+            q, k, v, scale), padded)
+        pad_route_ms = time_ms(torch, lambda q, k, v: flash_attention(
+            *(pad(t, (0, Dpad - D)) for t in (q, k, v)), scale)[..., :D],
+            sets)
+        native_ms = (time_ms(torch, lambda q, k, v: flash_attention(
+            q, k.contiguous(), v.contiguous(), scale), sets)
+            if D in HEAD_DIMS else None)
+        big = Sq * Skv >= 4096 * 4096
+        plain_ms = time_ms(torch, lambda q, k, v: flash_attention_plain(
+            q, k, v, scale), sets[:2], reps=3 if big else 7,
+            inner=1 if big else 5)
+        calls = [(sdpa_gqa(torch, q, k, v, None, scale),)
+                 for q, k, v in sets[:2]]
+        lib_ms = time_ms(torch, lambda f: f(), calls)
+        lib_dev = device_time_ms(torch, lambda f: f(), calls)
+        io = (2 * B * H * Sq + 2 * B * H * Skv) * D * 2
+        flops = 4 * D * B * H * Sq * Skv
+        bms, bby = bound(io, flops)
+        splits, _ = flash_splits(B, H, H, Sq, Skv, Dp, card)
+        say(f"  flash_attention {label} unmasked B={B} H={H} Sq={Sq} "
+            f"Skv={Skv} D={D} (the kernel at D={Dp}, {splits} key splits): "
+            f"max_abs_err={err:.6g}, worst err/tol {share:.4g}; routed "
+            f"(pad, kernel, slice) {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f}"
+            f" TFLOP/s of the native work), device {dev_ms:.4f} ms "
+            f"({bms / dev_ms:.1%} of the bound); padded to {Dpad}: the "
+            f"route {pad_route_ms:.4f} ms, the kernel alone {kern_ms:.4f} "
+            f"ms; native D={D}: "
+            f"{'n/a' if native_ms is None else f'{native_ms:.4f} ms'} "
+            f"(k, v made contiguous in the call); plain {plain_ms:.4f} ms; SDPA at D={D}"
+            f" {lib_ms:.4f} ms (routed/SDPA {ms / lib_ms:.2f}), SDPA device "
+            f"{lib_dev:.4f} ms; bound {bms:.4f} ms ({bby})")
+        if not share <= 1.0:
+            fail(f"flash_attention's unmasked route disagrees with its "
+                 f"plain version ({label}): err/tol {share}")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["shapes"][label] = {
+            "ms": ms, "device_ms": dev_ms, "kernel_padded_ms": kern_ms,
+            "padded_route_ms": pad_route_ms, "native_ms": native_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_dev, "bound_ms": bms, "splits": splits}
+        del sets, padded, calls, q, k, v
+        torch.cuda.empty_cache()
 
 
 # (label, bits, G, has_off): the layouts the GGUF formats repack to, and
@@ -4886,6 +5031,393 @@ def phase12(torch, np, root: Path, layers: int, bf16, results) -> None:
             shutil.rmtree(d, ignore_errors=True)
 
 
+# phase 13: SD-1.5 at its published widths (runwayml/stable-diffusion-v1-5:
+# unet/, text_encoder/ and vae/ config.json)
+SD15_UNET = {"block_out_channels": [320, 640, 1280, 1280],
+             "layers_per_block": 2, "cross_attention_dim": 768,
+             "attention_head_dim": 8, "norm_num_groups": 32,
+             "sample_size": 64, "in_channels": 4, "out_channels": 4,
+             "down_block_types": ["CrossAttnDownBlock2D"] * 3
+             + ["DownBlock2D"]}
+SD15_CLIP = {"num_hidden_layers": 12, "hidden_size": 768,
+             "num_attention_heads": 12, "intermediate_size": 3072,
+             "vocab_size": 49408, "max_position_embeddings": 77,
+             "hidden_act": "quick_gelu", "bos_token_id": 49406,
+             "eos_token_id": 49407,
+             "architectures": ["CLIPTextModel"]}
+SD15_VAE = {"latent_channels": 4, "out_channels": 3,
+            "block_out_channels": [128, 256, 512, 512],
+            "layers_per_block": 2, "norm_num_groups": 32,
+            "scaling_factor": 0.18215}
+SD_PROMPT = "a photograph of an astronaut riding a horse"
+SD_HW = 512               # the image's height and width
+# one UNet step with the kernels against the same step with the plain
+# attention path: each of the step's 32 attention calls rounds its output
+# to bf16 in other places (flash rounds the unnormalized probabilities
+# against a running maximum), about one bf16 ulp (2^-8) of its output,
+# and the residual stream sums 32 such independent differences like a
+# random walk: sqrt(32) x 2^-8 = 2.2% of the output's scale; bound 4%
+SD_STEP_BOUND = 0.04
+
+
+def clip_shapes(cfg: dict) -> dict:
+    """The HF CLIPTextModel weights' names and shapes."""
+    E, F, L = cfg["hidden_size"], cfg["intermediate_size"], \
+        cfg["num_hidden_layers"]
+    tp = "text_model."
+    out = {tp + "embeddings.token_embedding.weight": (cfg["vocab_size"], E),
+           tp + "embeddings.position_embedding.weight":
+               (cfg["max_position_embeddings"], E),
+           tp + "final_layer_norm.weight": (E,),
+           tp + "final_layer_norm.bias": (E,)}
+    for i in range(L):
+        p = f"{tp}encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out[p + f"self_attn.{n}.weight"] = (E, E)
+            out[p + f"self_attn.{n}.bias"] = (E,)
+        for n in ("layer_norm1", "layer_norm2"):
+            out[p + n + ".weight"] = out[p + n + ".bias"] = (E,)
+        out.update({p + "mlp.fc1.weight": (F, E), p + "mlp.fc1.bias": (F,),
+                    p + "mlp.fc2.weight": (E, F), p + "mlp.fc2.bias": (E,)})
+    return out
+
+
+def recipe_shapes(build, np, **kw) -> dict:
+    """The names and shapes of the weights a diffusion recipe asks its
+    getter for (its graph is built against zero arrays and dropped)."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.onnx_builder import WeightStorage
+
+    shapes = {}
+
+    def getter(name, shape=None):
+        shapes[name] = tuple(shape)
+        return np.broadcast_to(np.zeros((), np.float16), shape)
+
+    build(getter, dtype=DType.F16, storage=WeightStorage.to_sink({}), **kw)
+    return shapes
+
+
+def write_sd15(torch, np, d: Path) -> int:
+    """SD-1.5's diffusers directory with seeded weights in f16
+    safetensors: random_unet_weights' rule (norm weights 1, biases 0,
+    the rest normal with std 1/sqrt(fan in)), drawn on the card. Returns
+    the bytes written."""
+    from safetensors.numpy import save_file
+
+    from whisper_tensor_tpu_torch.importers.recipes.diffusion import (unet,
+                                                                      vae)
+
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 13)
+    vcfg = vae.VAEConfig.from_hf(SD15_VAE)
+    parts = {
+        "unet": (SD15_UNET, recipe_shapes(
+            unet.build_sd_unet, np, cfg=unet.UNetConfig.from_hf(SD15_UNET),
+            batch=2, latent_hw=(8, 8))),
+        "text_encoder": (SD15_CLIP, clip_shapes(SD15_CLIP)),
+        "vae": (SD15_VAE, {**recipe_shapes(vae.build_vae_decoder, np,
+                                           cfg=vcfg, latent_hw=(8, 8)),
+                           **recipe_shapes(vae.build_vae_encoder, np,
+                                           cfg=vcfg, image_hw=(64, 64))})}
+    total = 0
+    for sub, (cfg, shapes) in parts.items():
+        (d / sub).mkdir(parents=True)
+        (d / sub / "config.json").write_text(json.dumps(cfg))
+        tensors = {}
+        for name, shape in shapes.items():
+            if name.endswith(".bias") or ("norm" in name
+                                          and name.endswith("weight")):
+                t = torch.full(shape, float(name.endswith("weight")),
+                               dtype=torch.float16)
+            else:
+                fan_in = math.prod(shape[1:]) if len(shape) > 1 else shape[0]
+                t = (torch.randn(shape, generator=gen, device=CARD)
+                     / math.sqrt(max(fan_in, 1))).half().cpu()
+            tensors[name] = t.numpy()
+            total += t.numel() * 2
+        save_file(tensors, str(d / sub / "model.safetensors"))
+        del tensors
+    (d / "scheduler").mkdir()
+    (d / "scheduler" / "scheduler_config.json").write_text(
+        json.dumps({"prediction_type": "epsilon"}))
+    (d / "model_index.json").write_text(
+        json.dumps({"_class_name": "StableDiffusionPipeline"}))
+    return total
+
+
+class SdSpy:
+    """Wraps the Attention, Conv and GroupNorm lowerings for phase 13:
+    counts the Attention calls on the card and those flash_mode sends to
+    flash_attention (the unmasked UNet calls at padded head dims, CLIP's
+    causal ones), and while `profiling` labels each call with
+    record_function so the profiler splits the device time by kind.
+    Installed before the first run, so the plans built keep it."""
+
+    KINDS = ("Attention", "Conv", "GroupNorm")
+
+    def __init__(self, torch):
+        from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
+        from whisper_tensor_tpu_torch.milli.ops.attention import flash_mode
+
+        self.table, self.saved = LOWERINGS, {}
+        self.profiling, self.calls, self.eligible = False, 0, 0
+        for kind in self.KINDS:
+            self.saved[kind] = fn = LOWERINGS[kind]
+
+            def wrapped(op, ins, static, device, fn=fn, kind=kind):
+                if kind == "Attention" and device.type == "cuda":
+                    self.calls += 1
+                    m = ins[3] if len(ins) > 3 else None
+                    if flash_mode(op, ins[0], ins[1], ins[2], m,
+                                  op.n_out >= 4) is not None:
+                        self.eligible += 1
+                if self.profiling:
+                    with torch.profiler.record_function(f"sd.{kind}"):
+                        return fn(op, ins, static, device)
+                return fn(op, ins, static, device)
+
+            LOWERINGS[kind] = wrapped
+
+    def zero(self):
+        self.calls = self.eligible = 0
+
+    def restore(self):
+        self.table.update(self.saved)
+
+
+def png_image(np, data: bytes, shape) -> None:
+    """A PNG that decodes to `shape` and is not one constant color."""
+    from whisper_tensor_tpu_torch.utils.image import png_to_array
+
+    px = png_to_array(data)
+    if px.shape != tuple(shape) or not float(px.astype(np.float64).std()) > 0:
+        fail(f"image {px.shape}, std {px.astype(np.float64).std()}: want "
+             f"{shape}, not constant")
+    return px
+
+
+def unet_step_split(torch, iface, spy, feeds) -> str:
+    """One UNet step's device time under torch.profiler, split into
+    attention, convolution, GroupNorm and the rest (the spy's labels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e, total=False):
+        name = "device_time_total" if total else "self_device_time_total"
+        return getattr(e, name, getattr(e, name.replace("device", "cuda"),
+                                        0.0))
+
+    spy.profiling = True
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                iface._run(iface.unet, feeds)
+            torch.cuda.synchronize()
+    finally:
+        spy.profiling = False
+    events = prof.key_averages()
+    busy = sum(dev_us(e) for e in events) / 2e3
+    parts = {k: sum(dev_us(e, True) for e in events if e.key == f"sd.{k}")
+             / 2e3 for k in SdSpy.KINDS}
+    rest = busy - sum(parts.values())
+    return (f"device {busy:.2f} ms a step: attention {parts['Attention']:.2f}"
+            f", conv {parts['Conv']:.2f}, GroupNorm {parts['GroupNorm']:.2f}"
+            f", the rest {rest:.2f} ms")
+
+
+def phase13(torch, np, root: Path, results) -> None:
+    """Phase 13: SD-1.5 at its published widths (seeded weights in f16
+    safetensors, loaded in bf16) through the port's Server: a 512 x 512
+    text-to-image request over /v1/images/generations at 20 Euler steps
+    and CFG 7.5 (the UNet at batch 2), then img2img at strength 0.5 and an
+    inpaint with a half-image mask through the interface, then `cli
+    image` at 256 x 256 and 4 steps."""
+    from whisper_tensor_tpu_torch import cli
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_agreement_bound, flash_attention, flash_attention_plain)
+    from whisper_tensor_tpu_torch.interfaces.image_gen import ImageGenConfig
+    from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
+    from whisper_tensor_tpu_torch.milli.ops import attention as att_lowering
+    from whisper_tensor_tpu_torch.milli.ops.attention import AttentionMilli
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+
+    card = card_line()
+    say(f"phase 13: SD-1.5 at its published widths (UNet 320/640/1280/1280, "
+        f"8 heads, CLIP ViT-L/14, VAE 128-512); host RSS "
+        f"{host_rss_gb():.1f} GB; {card}")
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the precision contract wants f32 convolutions and "
+             "matmuls at full precision (device.py)")
+    d = root / "sd15"
+    shutil.rmtree(d, ignore_errors=True)
+    spy = SdSpy(torch)
+    api = None
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_sd15(torch, np, d)
+        say(f"  wrote the diffusers directory ({nbytes / 1e9:.2f} GB of f16 "
+            f"safetensors) in {time.perf_counter() - t0:.1f} s")
+        srv = Server(device=CARD)
+        t0 = time.perf_counter()
+        entries = srv.models.run_loader("diffusers", {
+            "path": str(d), "dtype": "bf16", "img2img": True,
+            "height": SD_HW, "width": SD_HW})
+        load_s = time.perf_counter() - t0
+        api = OpenAIApi(srv, "127.0.0.1", 0).start()
+        body = {"prompt": SD_PROMPT, "steps": 20, "guidance_scale": 7.5,
+                "seed": 0}
+        # the main path, counted: the first request (the weights go to
+        # the card, the plans are built), launches against the lowering's
+        # eligible Attention calls, every flash call held against its
+        # plain version on the same inputs (no kernel launch)
+        shadow = flash_shadow(att_lowering, flash_attention_plain,
+                              flash_agreement_bound)
+        flash_attention.launches = 0
+        spy.zero()
+        t0 = time.perf_counter()
+        try:
+            status, data = request(api.port, "/v1/images/generations", body)
+            torch.cuda.synchronize()
+        finally:
+            att_lowering.flash_attention = shadow.inner
+        first_s = time.perf_counter() - t0
+        launches, eligible, calls = (flash_attention.launches, spy.eligible,
+                                     spy.calls)
+        shadowed = [shadow.calls, shadow.worst, shadow.max_err]
+        if status != 200:
+            fail(f"/v1/images/generations answered {status}: {data[:500]}")
+        imgs = json.loads(data)["data"]
+        px = png_image(np, base64.b64decode(imgs[0]["b64_json"]),
+                       (SD_HW, SD_HW, 3))
+        say(f"  loaded in {load_s:.1f} s ({[e.name for e in entries]}); the "
+            f"first request took {first_s:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; "
+            f"flash_attention launched {launches} times for {eligible} "
+            f"eligible of {calls} Attention calls on the card, each held "
+            f"against its plain version ({shadowed[0]} calls, worst "
+            f"{shadowed[1]:.3g} of flash_agreement_bound, max |err| "
+            f"{shadowed[2]:.4g}); the PNG is {SD_HW} x {SD_HW}, pixel std "
+            f"{px.std():.2f}")
+        if launches != eligible or launches == 0:
+            fail(f"flash_attention launches {launches} != the lowering's "
+                 f"{eligible} eligible Attention calls")
+        if shadowed[0] != launches or not shadowed[1] <= 1.0:
+            fail(f"the first request's flash calls against their plain "
+                 f"version: {shadowed[0]} calls, worst {shadowed[1]}")
+        for res in results:
+            if res["name"] == "flash_attention":
+                res["launches_phase13"] = launches
+        t0 = time.perf_counter()
+        status, data = request(api.port, "/v1/images/generations",
+                               dict(body, seed=1))
+        image_s = time.perf_counter() - t0
+        if status != 200:
+            fail(f"the second request answered {status}")
+        png_image(np, base64.b64decode(json.loads(data)["data"][0][
+            "b64_json"]), (SD_HW, SD_HW, 3))
+        say(f"  seconds per image (20 steps, {SD_HW} x {SD_HW}, warm): "
+            f"{image_s:.2f} s ({card})")
+
+        iface = srv._image_iface(srv.models.get(entries[0].id))
+        # one UNet step: time, device split, kernels against plain
+        ctx = iface._encode_cfg(SD_PROMPT, "")
+        lat = torch.randn(2, 4, SD_HW // 8, SD_HW // 8, device=CARD,
+                          generator=torch.Generator(device=CARD)
+                          .manual_seed(SEED))
+        feeds = {"sample": lat, "timestep": torch.tensor(500.0, device=CARD),
+                 "encoder_hidden_states": ctx}
+        step_ms = statistics.median(_timed(lambda: (
+            iface._run(iface.unet, feeds), torch.cuda.synchronize()), 5))
+        split = unet_step_split(torch, iface, spy, feeds)
+        got = iface._run(iface.unet, feeds)["out"].float()
+        att_lowering.flash_attention = flash_attention_plain
+        try:
+            want = iface._run(iface.unet, feeds)["out"].float()
+        finally:
+            att_lowering.flash_attention = flash_attention
+        share = float((got - want).abs().max() / want.abs().max())
+        say(f"  UNet step (batch 2, {SD_HW // 8} x {SD_HW // 8} latents): "
+            f"{step_ms:.2f} ms "
+            f"(host clock, synchronized); {split}; its output with the "
+            f"kernels against the plain attention path: max |diff| "
+            f"{share:.4%} of the output's scale (bound {SD_STEP_BOUND:.0%})")
+        if not share <= SD_STEP_BOUND:
+            fail(f"a UNet step with flash_attention parts from the plain "
+                 f"path by {share:.4%} of its scale")
+        vae_ms = statistics.median(_timed(lambda: (
+            iface._run(iface.vae, {"latents": lat[:1]}),
+            torch.cuda.synchronize()), 3))
+        # the VAE mid block's attention: one head of its 512 channels
+        # over the latent's positions (4,096 at 64 x 64)
+        n = (SD_HW // 8) ** 2
+        q = torch.randn(1, 1, n, 512, device=CARD).bfloat16()
+        att512 = time_ms(torch, lambda q: LOWERINGS["Attention"](
+            AttentionMilli(scale=512 ** -0.5), [q, q, q], [None] * 3,
+            q.device), [(q,), (q.clone(),)], reps=5, inner=3)
+        say(f"  VAE decode ({SD_HW} x {SD_HW}): {vae_ms:.2f} ms; its one-head "
+            f"D=512 attention at {n} positions on the plain path: {att512:.3f} "
+            f"ms a call")
+
+        # img2img and inpaint, every flash call held against its plain
+        # version on the same inputs
+        init = np.asarray(px)
+        mask = np.zeros((SD_HW, SD_HW), np.float32)
+        mask[:, SD_HW // 2:] = 1.0
+        shadow = flash_shadow(att_lowering, flash_attention_plain,
+                              flash_agreement_bound)
+        try:
+            cfg = ImageGenConfig(steps=20, height=SD_HW, width=SD_HW,
+                                 seed=2)
+            t0 = time.perf_counter()
+            a = iface.run_img2img(SD_PROMPT, init, strength=0.5, cfg=cfg)
+            b = iface.run_inpaint(SD_PROMPT, init, mask, cfg=cfg)
+            shadow_s = time.perf_counter() - t0
+        finally:
+            att_lowering.flash_attention = shadow.inner
+        for im in (a, b):
+            if im.pixels.shape != (SD_HW, SD_HW, 3) or not im.pixels.std() > 0:
+                fail(f"img2img/inpaint image {im.pixels.shape}, std "
+                     f"{im.pixels.std()}")
+        kept = float(np.abs(b.pixels[:, :SD_HW // 4].astype(np.float64)
+                            - init[:, :SD_HW // 4]).mean())
+        say(f"  img2img (strength 0.5: 10 of 20 steps) and inpaint (right "
+            f"half repainted), {shadow_s:.1f} s with every flash call "
+            f"shadowed: {shadow.calls} calls, worst {shadow.worst:.3g} of "
+            f"flash_agreement_bound (max |err| {shadow.max_err:.4g}); "
+            f"inpaint's kept left part is {kept:.1f} of 255 from the init "
+            f"image on average")
+        if shadow.calls == 0 or not shadow.worst <= 1.0:
+            fail(f"phase 13's flash calls against their plain version: "
+                 f"{shadow.calls} calls, worst {shadow.worst}")
+        api.stop()
+        api = None
+        del iface, srv, entries, ctx, feeds, got, want, lat, q
+        free_memory(torch)
+
+        out = root / "sd15-cli.png"
+        n0 = flash_attention.launches
+        t0 = time.perf_counter()
+        cli.main(["image", "--model", str(d), "--prompt", SD_PROMPT,
+                  "--steps", "4", "--height", str(SD_HW // 2),
+                  "--width", str(SD_HW // 2),
+                  "--output", str(out), "-c", "dtype=bf16",
+                  "--device", CARD])
+        cli_s = time.perf_counter() - t0
+        png_image(np, out.read_bytes(), (SD_HW // 2, SD_HW // 2, 3))
+        say(f"  cli image ({SD_HW // 2} x {SD_HW // 2}, 4 steps, its own "
+            f"load): {cli_s:.1f} s, "
+            f"{flash_attention.launches - n0} flash launches")
+        if flash_attention.launches == n0:
+            fail("cli image launched no flash_attention")
+    finally:
+        if api is not None:
+            api.stop()
+        spy.restore()
+        shutil.rmtree(d, ignore_errors=True)
+        (root / "sd15-cli.png").unlink(missing_ok=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -4898,6 +5430,9 @@ def main() -> None:
                     help="stop after phase 2 (no result line)")
     ap.add_argument("--generic-only", action="store_true",
                     help="write the checkpoint and run phase 11 alone (no "
+                         "result line)")
+    ap.add_argument("--image-only", action="store_true",
+                    help="run phase 13 (SD-1.5) alone after the build (no "
                          "result line)")
     ap.add_argument("--plans", action="store_true",
                     help="time packed_matmul and decode_attention under "
@@ -4991,9 +5526,16 @@ def main() -> None:
             shutil.rmtree(ckpt, ignore_errors=True)
         say(f"{card_line()} (--generic-only: phases 2-10 not run)")
         return
+    if args.image_only:
+        step("phase 13 (SD-1.5 image generation)", phase13, torch, np,
+             ROOT / "build" / "smoke", results)
+        say(f"{card_line()} (--image-only: phases 2-12 not run)")
+        return
     step("phase 2: decode_attention, int8_matmul", phase2, torch, results)
     step("phase 2: ragged_kv_write", phase2_kv_write, torch, results)
     step("phase 2: flash_attention", phase2_flash, torch, results)
+    step("phase 2: flash_attention at the SD UNet's shapes", phase2_flash_sd,
+         torch, results)
     step("phase 2: packed_matmul", phase2_packed, torch, results)
     if args.kernels_only:
         say(json.dumps({"kernels": results}))
@@ -5046,6 +5588,8 @@ def main() -> None:
              args.layers, results)
         step("phase 12 (Gemma, Gemma-2, Gemma-3, Phi-3)", phase12, torch, np,
              ROOT / "build" / "smoke", args.layers, bf16, results)
+        step("phase 13 (SD-1.5 image generation)", phase13, torch, np,
+             ROOT / "build" / "smoke", results)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(gpt2_ckpt, ignore_errors=True)

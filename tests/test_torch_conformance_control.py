@@ -10,8 +10,8 @@ single-node corpus:
 * replay: one Model reused with different lifted feeds (a Reshape shape
   input, a TopK k input) and with data that gives a different NonZero
   count at equal shapes;
-* the op types the port has not ported yet: each of the 23 raises "not
-  ported", and the corpus outside them numbers 2,160 cases.
+* the op types the port has not ported yet: each of the 13 raises "not
+  ported", and the corpus outside them numbers 2,353 cases.
 """
 
 import numpy as np
@@ -417,13 +417,13 @@ def test_deferred_op_type_raises_not_ported(op_type):
             m.eval(tc.feeds_of(case), mode=mode, device="cpu")
 
 
-def test_the_selected_corpus_numbers_2160_cases():
+def test_the_selected_corpus_numbers_2353_cases():
     deferred = [c for c in ALL_CASES if c.op_type in tc.DEFERRED]
-    assert len(tc.DEFERRED) == 23
+    assert len(tc.DEFERRED) == 13
     assert {c.op_type for c in deferred} == set(tc.DEFERRED)
     assert len(ALL_CASES) == 2453
-    assert len(deferred) == 293
-    assert len(tc.selected(ALL_CASES)) == 2160
+    assert len(deferred) == 100
+    assert len(tc.selected(ALL_CASES)) == 2353
 
 
 _BUNDLE_SCRIPT = r"""
@@ -450,7 +450,7 @@ def test_the_corpus_bundle_holds_the_selected_cases(tmp_path):
          str(tests.parent)], capture_output=True, text=True, timeout=300,
         env=dict(os.environ, PYTHONHASHSEED="0"))
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "WROTE 2160" in proc.stdout
+    assert "WROTE 2353" in proc.stdout
     want, got = tc.read_bundle(fresh), tc.read_bundle()
     assert [b.name for b in got] == [b.name for b in want]
     for g, w in zip(got, want):

@@ -199,7 +199,15 @@ FLASH_CASES = [("pos", 1, 32, 8, 512, 2048, 128),
                ("pos", 4, 8, 4, 128, 2048, 256),
                ("causal", 2, 8, 4, 127, 129, 256),
                ("causal", 1, 4, 2, 70, 40, 256),
-               ("pos", 2, 16, 1, 65, 1000, 256)]
+               ("pos", 2, 16, 1, 65, 1000, 256),
+               # head dims 80 and 160 (the SD UNet's, native since the
+               # image slice): every mode, key splits, ragged edges
+               ("pos", 1, 8, 8, 300, 1000, 80),
+               ("causal", 2, 8, 8, 127, 129, 80),
+               ("mask", 1, 8, 8, 64, 77, 80),
+               ("pos", 1, 8, 8, 129, 2001, 160),
+               ("causal", 1, 8, 4, 333, 333, 160),
+               ("mask1", 2, 8, 8, 70, 77, 160)]
 
 
 def _flash_inputs(cuda, mode, B, Hq, Hkv, Sq, Skv, D):
@@ -604,6 +612,7 @@ def test_kernel_limits_on_the_card_match_the_cpu_defaults(cuda):
             # of other groups' blocks give one block less)
             if h100 and card != cpu and (D == 128 or Hq == Hkv):
                 differ.append(("decode", (Hq, Hkv, D), card, cpu))
+        for D in fa.HEAD_DIMS:
             card = fa.flash_limits(Hq, Hkv, D, index)
             cpu = fa.flash_limits(Hq, Hkv, D)
             assert card[:2] == cpu[:2] and card[2] >= 1
@@ -1505,3 +1514,162 @@ def test_causal_rows_that_see_no_key_take_the_mean_of_v(cuda):
     mag = flash_attention_plain(q[:, :, 16:], k, v.abs(), 0.125, causal=True)
     err = (got[:, :, 16:].float() - want.float()).abs()
     assert bool((err <= flash_agreement_bound(want, mag)).all())
+
+
+# the SD UNet's unmasked calls: self-attention at 8 heads of 40, 80 and
+# 160 (padded by the lowering to 64, 128 and 256), the cross-attention's
+# 77 text keys at each, a head dim the kernel has (SD-2's 64), and key
+# counts that end inside a 32- or 64-key tile
+SD_UNMASKED = [(2, 8, 1024, 1024, 40), (2, 8, 256, 256, 80),
+               (2, 8, 64, 64, 160), (1, 8, 4096, 4096, 40),
+               (2, 8, 1024, 77, 40), (2, 8, 256, 77, 80),
+               (2, 8, 64, 77, 160), (2, 5, 100, 77, 64),
+               (1, 8, 300, 200, 160)]
+
+
+@pytest.mark.parametrize("B,H,Sq,Skv,D", SD_UNMASKED)
+def test_attention_lowering_takes_flash_unmasked_at_the_sd_shapes(
+        cuda, B, H, Sq, Skv, D):
+    """One flash launch a call, within flash_agreement_bound of the plain
+    version at the native head dim; q, k and v are the recipe's
+    transposed views."""
+    from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
+    from whisper_tensor_tpu_torch.milli.ops.attention import (AttentionMilli,
+                                                             flash_mode)
+
+    g = torch.Generator(device=cuda).manual_seed(B * Sq + Skv + D)
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, Skv, H, D, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    op = AttentionMilli(scale=D ** -0.5)
+    assert flash_mode(op, q, k, v, None, False) == "none"
+    n0 = flash_attention.launches
+    (got,) = LOWERINGS["Attention"](op, [q, k, v], [None] * 3, cuda)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert got.shape == (B, H, Sq, D)
+    want = flash_attention_plain(q, k, v, D ** -0.5)
+    mag = flash_attention_plain(q, k, v.abs(), D ** -0.5)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= flash_agreement_bound(want, mag)).all()), \
+        f"max |err| {err.max().item()}"
+
+
+def _write_tiny_sd(d):
+    """A tiny `sd` diffusers directory from the port's recipes and a
+    seeded getter (numpy and safetensors only)."""
+    import json
+    import os
+
+    from safetensors.numpy import save_file
+
+    from whisper_tensor_tpu_torch.importers.recipes.diffusion import (unet,
+                                                                      vae)
+
+    get = unet.random_unet_weights(0)
+
+    def component(sub, cfg_json, *builds):
+        rec = {}
+
+        def getter(name, shape=None):
+            rec[name] = np.ascontiguousarray(get(name, shape), np.float32)
+            return rec[name]
+
+        for build, kw in builds:
+            build(getter, **kw)
+        os.makedirs(os.path.join(d, sub))
+        with open(os.path.join(d, sub, "config.json"), "w") as f:
+            json.dump(cfg_json, f)
+        save_file(rec, os.path.join(d, sub, "model.safetensors"))
+
+    ucfg = {"block_out_channels": [32, 64], "layers_per_block": 1,
+            "cross_attention_dim": 32, "attention_head_dim": 2,
+            "norm_num_groups": 8, "sample_size": 16,
+            "down_block_types": ["CrossAttnDownBlock2D", "DownBlock2D"]}
+    vcfg = {"block_out_channels": [8, 8, 16, 16], "layers_per_block": 1,
+            "norm_num_groups": 4}
+    component("unet", ucfg, (unet.build_sd_unet, dict(
+        cfg=unet.UNetConfig.from_hf(ucfg), batch=2, latent_hw=(16, 16))))
+    vc = vae.VAEConfig.from_hf(vcfg)
+    component("vae", vcfg,
+              (vae.build_vae_decoder, dict(cfg=vc, latent_hw=(16, 16))),
+              (vae.build_vae_encoder, dict(cfg=vc, image_hw=(128, 128))))
+    E, F = 32, 64
+    p = "text_model.encoder.layers.0."
+    clip = {"text_model.embeddings.token_embedding.weight": (100, E),
+            "text_model.embeddings.position_embedding.weight": (77, E),
+            "text_model.final_layer_norm.weight": (E,),
+            "text_model.final_layer_norm.bias": (E,),
+            p + "mlp.fc1.weight": (F, E), p + "mlp.fc1.bias": (F,),
+            p + "mlp.fc2.weight": (E, F), p + "mlp.fc2.bias": (E,)}
+    for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        clip[p + f"self_attn.{n}.weight"] = (E, E)
+        clip[p + f"self_attn.{n}.bias"] = (E,)
+    for n in ("layer_norm1", "layer_norm2"):
+        clip[p + n + ".weight"] = clip[p + n + ".bias"] = (E,)
+    os.makedirs(os.path.join(d, "text_encoder"))
+    with open(os.path.join(d, "text_encoder", "config.json"), "w") as f:
+        json.dump({"num_hidden_layers": 1, "hidden_size": E,
+                   "num_attention_heads": 2, "intermediate_size": F,
+                   "vocab_size": 100, "max_position_embeddings": 77,
+                   "hidden_act": "quick_gelu", "bos_token_id": 1,
+                   "eos_token_id": 2}, f)
+    save_file({n: np.ascontiguousarray(get(n, s), np.float32)
+               for n, s in clip.items()},
+              os.path.join(d, "text_encoder", "model.safetensors"))
+    with open(os.path.join(d, "model_index.json"), "w") as f:
+        json.dump({"_class_name": "StableDiffusionPipeline"}, f)
+
+
+def test_tiny_sd_pipeline_on_the_gpu(cuda, tmp_path):
+    """txt2img, img2img and inpaint in bf16 on the card: the UNet's
+    unmasked attention (2 heads of 16 and of 32, padded to 64; the
+    cross-attention's 77 keys) and CLIP's causal attention launch flash
+    once a call; each image within bf16's drift of the same pipeline on
+    the CPU (kernels' plain versions)."""
+    from whisper_tensor_tpu_torch.importers.loaders import identify_and_load
+    from whisper_tensor_tpu_torch.interfaces.image_gen import (
+        ImageGenConfig, image_interface_from_bundle)
+    from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
+    from whisper_tensor_tpu_torch.milli.ops.attention import flash_mode
+
+    d = str(tmp_path / "sd")
+    _write_tiny_sd(d)
+    kw = dict(dtype="bf16", img2img=True, height=128, width=128)
+    gpu = image_interface_from_bundle(identify_and_load(d, **kw))
+    cpu = image_interface_from_bundle(identify_and_load(d, **kw),
+                                      device="cpu")
+    calls = []
+    attention = LOWERINGS["Attention"]
+
+    def spy(op, ins, static, device):
+        if device.type == "cuda":
+            m = ins[3] if len(ins) > 3 else None
+            calls.append(flash_mode(op, ins[0], ins[1], ins[2], m,
+                                    op.n_out >= 4) is not None)
+        return attention(op, ins, static, device)
+
+    cfg = ImageGenConfig(steps=3, height=128, width=128, seed=5)
+    init = np.random.default_rng(1).integers(0, 255, (128, 128, 3)).astype(
+        np.uint8)
+    mask = np.zeros((128, 128), np.float32)
+    mask[:, 64:] = 1
+    LOWERINGS["Attention"] = spy
+    try:
+        n0 = fa.flash_attention.launches
+        imgs = [gpu.run("x", cfg=cfg).pixels,
+                gpu.run_img2img("x", init, strength=0.5, cfg=cfg).pixels,
+                gpu.run_inpaint("x", init, mask, cfg=cfg).pixels]
+        torch.cuda.synchronize()
+        launches = fa.flash_attention.launches - n0
+    finally:
+        LOWERINGS["Attention"] = attention
+    assert sum(calls) == launches > 0
+    want = [cpu.run("x", cfg=cfg).pixels,
+            cpu.run_img2img("x", init, strength=0.5, cfg=cfg).pixels,
+            cpu.run_inpaint("x", init, mask, cfg=cfg).pixels]
+    for a, b in zip(imgs, want):
+        diff = np.abs(a.astype(np.int64) - b.astype(np.int64))
+        assert a.shape == (128, 128, 3) and a.std() > 1.0
+        assert diff.mean() <= 3.0, diff.mean()

@@ -249,3 +249,95 @@ def test_corpus_graphs_run_without_jax(tmp_path):
     assert f"RAN {len(seen)} " in proc.stdout, proc.stdout
     assert "'torch-control'" in proc.stdout and "'oracle'" in proc.stdout
     assert "FOREIGN []" in proc.stdout, proc.stdout
+
+
+_IMAGE_SCRIPT = r"""
+import base64, http.client, json, os, sys
+import numpy as np
+import torch
+from safetensors.numpy import save_file
+torch.set_num_threads(1)
+from whisper_tensor_tpu_torch.importers.recipes.diffusion import unet, vae
+d = sys.argv[1]
+get = unet.random_unet_weights(0)
+
+
+def component(sub, cfg_json, build, **kw):
+    rec = {}
+
+    def g(name, shape=None):
+        rec[name] = np.ascontiguousarray(get(name, shape), np.float32)
+        return rec[name]
+
+    build(g, **kw)
+    os.makedirs(os.path.join(d, sub))
+    json.dump(cfg_json, open(os.path.join(d, sub, "config.json"), "w"))
+    save_file(rec, os.path.join(d, sub, "model.safetensors"))
+
+
+ucfg = {"block_out_channels": [8, 16], "layers_per_block": 1,
+        "cross_attention_dim": 16, "attention_head_dim": 2,
+        "norm_num_groups": 4, "sample_size": 8,
+        "down_block_types": ["CrossAttnDownBlock2D", "DownBlock2D"]}
+vcfg = {"block_out_channels": [8, 8, 16, 16], "layers_per_block": 1,
+        "norm_num_groups": 4}
+component("unet", ucfg, unet.build_sd_unet,
+          cfg=unet.UNetConfig.from_hf(ucfg), batch=2, latent_hw=(8, 8))
+component("vae", vcfg, vae.build_vae_decoder,
+          cfg=vae.VAEConfig.from_hf(vcfg), latent_hw=(8, 8))
+E, F, L = 16, 32, 1
+clip = {"text_model.embeddings.token_embedding.weight": (100, E),
+        "text_model.embeddings.position_embedding.weight": (8, E),
+        "text_model.final_layer_norm.weight": (E,),
+        "text_model.final_layer_norm.bias": (E,)}
+p = "text_model.encoder.layers.0."
+for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+    clip[p + f"self_attn.{n}.weight"] = (E, E)
+    clip[p + f"self_attn.{n}.bias"] = (E,)
+for n in ("layer_norm1", "layer_norm2"):
+    clip[p + n + ".weight"] = clip[p + n + ".bias"] = (E,)
+clip.update({p + "mlp.fc1.weight": (F, E), p + "mlp.fc1.bias": (F,),
+             p + "mlp.fc2.weight": (E, F), p + "mlp.fc2.bias": (E,)})
+os.makedirs(os.path.join(d, "text_encoder"))
+json.dump({"num_hidden_layers": L, "hidden_size": E,
+           "num_attention_heads": 2, "intermediate_size": F,
+           "vocab_size": 100, "max_position_embeddings": 8,
+           "hidden_act": "gelu", "bos_token_id": 1, "eos_token_id": 2},
+          open(os.path.join(d, "text_encoder", "config.json"), "w"))
+save_file({n: np.ascontiguousarray(get(n, s), np.float32)
+           for n, s in clip.items()},
+          os.path.join(d, "text_encoder", "model.safetensors"))
+json.dump({"_class_name": "StableDiffusionPipeline"},
+          open(os.path.join(d, "model_index.json"), "w"))
+from whisper_tensor_tpu_torch.server.main import Server
+from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+from whisper_tensor_tpu_torch.utils.image import png_to_array
+srv = Server(device="cpu")
+srv.models.run_loader("auto", {"path": d, "height": 64, "width": 64})
+api = OpenAIApi(srv, "127.0.0.1", 0).start()
+c = http.client.HTTPConnection("127.0.0.1", api.port, timeout=120)
+c.request("POST", "/v1/images/generations",
+          body=json.dumps({"prompt": "x", "steps": 2}),
+          headers={"Content-Type": "application/json"})
+r = c.getresponse()
+img = png_to_array(base64.b64decode(json.loads(r.read())["data"][0]["b64_json"]))
+print("IMAGE", r.status, img.shape)
+api.stop()
+print("FOREIGN", sorted(m for m in sys.modules
+                        if m in ("jax", "whisper_tensor_tpu")
+                        or m.startswith(("jax.", "whisper_tensor_tpu."))))
+"""
+
+
+def test_a_served_image_loads_nothing_of_jax(tmp_path):
+    """The image slice (conv lowerings, the diffusion recipes, the
+    diffusers loader, the image interface, /v1/images/generations) in a
+    fresh interpreter on the CPU, its bf16 pipeline written with numpy
+    and safetensors alone."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMAGE_SCRIPT, str(tmp_path / "sd")],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "IMAGE 200 (64, 64, 3)" in proc.stdout, proc.stdout[-2000:]
+    assert "FOREIGN []" in proc.stdout, proc.stdout[-2000:]

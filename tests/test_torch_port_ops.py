@@ -217,17 +217,17 @@ def test_executor_folds_once_per_plan_and_writes_caches_in_place():
 
 
 def test_executor_raises_for_an_op_without_lowering():
-    """Conv, a milli op of the JAX package the port has not ported yet
-    (the media slice), has no lowering (Einsum and then Pow, this test's
-    ops before, gained one with the multi-LoRA surgery and the generic
-    ONNX path)."""
-    from whisper_tensor_tpu.milli.ops.conv import Conv
+    """GridSample, a milli op of the JAX package the port has not ported
+    yet (a later media slice), has no lowering (Einsum, Pow and then
+    Conv, this test's ops before, gained one with the multi-LoRA
+    surgery, the generic ONNX path and the image slice)."""
+    from whisper_tensor_tpu.milli.ops.vision import GridSampleMilli
 
     g = MilliGraph("no-lowering")
     a, b = g.add_input("a"), g.add_input("b")
-    g.mark_output("y", g.op1(Conv(), a, b))
+    g.mark_output("y", g.op1(GridSampleMilli(), a, b))
     ex = GraphExecutor(g, CPU)
-    with pytest.raises(NotImplementedError, match="Conv"):
+    with pytest.raises(NotImplementedError, match="GridSample"):
         ex({"a": torch.ones(2, 3), "b": torch.ones(2, 3)})
 
 

@@ -9,9 +9,12 @@ what of the TPU kernel it leaves out (the KV-chunk carry, the padding to
 The Attention lowering (milli/ops/attention.py) sends the bf16 prefills
 this wrapper takes here: with a position mask (the pos-bound mode),
 is_causal (the causal mode) or an additive (1|B, 1, Sq, Skv) mask (the
-additive mode; GPT-2's scalar-position graph and the Gemma recipes).
-Head dims 64, 128 and 256: the TPU kernel's D % 128 == 0 or D == 64 at
-the head dims the repo's recipes use.
+additive mode; GPT-2's scalar-position graph and the Gemma recipes) or
+no mask at all (the unmasked mode; the SD UNet's self- and
+cross-attention). Head dims 64, 128 and 256 (the TPU kernel's D % 128
+== 0 or D == 64 at the head dims the repo's recipes use) and the SD
+UNet's 80 and 160, which the TPU path zero-pads to 128 and 256: native
+here, faster on the H100 than the padded call (PERF.md, PR 12).
 
 When the grid does not fill the card, the kernel splits each block's
 keys over blocks (flash_splits) and merges the splits' partial softmax
@@ -33,10 +36,10 @@ from .build import (CARD_SMS, card_sms, check, device_index, kernel_limits,
 KEY_TILE = 64             # keys a split unit: splits are whole units
 BLOCK_ROWS = 128          # query rows a block (heads x positions)
 MAX_SPLITS = 16
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 160, 256)
 # the kernel's blocks a multiprocessor by head dim: the CPU default of
 # what wt_flash_limits reads on the card
-BLOCKS_PER_SM = {128: 1, 64: 1, 256: 1}
+BLOCKS_PER_SM = {128: 1, 64: 1, 256: 1, 80: 1, 160: 1}
 
 
 def heads_per_block(Hq: int, Hkv: int) -> int:
@@ -135,8 +138,8 @@ def flash_attention_plain(q, k, v, scale: float, *, causal: bool = False,
 def flash_attention(q, k, v, scale: float, *, causal: bool = False,
                     mask=None, pos_bound=None) -> torch.Tensor:
     """q (B, Hq, Sq, D) bf16, read through its strides (the feature
-    stride must be 1); k, v (B, Hkv, Skv, D) bf16 contiguous; D 64, 128
-    or 256; mask f32-castable (1|B, 1, Sq, Skv); pos_bound int64/int32 ()
+    stride must be 1); k, v (B, Hkv, Skv, D) bf16 contiguous; D in
+    HEAD_DIMS; mask f32-castable (1|B, 1, Sq, Skv); pos_bound int64/int32 ()
     or (B,), read on the device. pos_bound excludes causal and mask.
     Returns (B, Hq, Sq, D) bf16.
 
@@ -158,8 +161,8 @@ def flash_attention(q, k, v, scale: float, *, causal: bool = False,
         raise ValueError(
             f"flash_attention kernel: unsupported q {tuple(q.shape)} "
             f"{q.dtype}, k {tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} "
-            f"{v.dtype}: it takes bf16 q, k and v of one head dim, 64, "
-            f"128 or 256, Hq a multiple of Hkv and at most 65,535 rows")
+            f"{v.dtype}: it takes bf16 q, k and v of one head dim, one of "
+            f"{HEAD_DIMS}, Hq a multiple of Hkv and at most 65,535 rows")
     if q.device != k.device or q.stride(3) != 1:
         raise ValueError(f"flash_attention kernel: q must lie on {k.device} "
                          f"with feature stride 1, got strides {q.stride()}")

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..dtype import DType, to_device, to_host
+from ..dtype import DType, to_device, to_host, to_torch
 from ..milli.ir import EvalCancelled, MilliGraph
 from ..symbolic_graph.ir import SymbolicGraph
 from ..symbolic_graph.ops.base import LowerCtx
@@ -230,10 +230,21 @@ class EvalBackend:
                     graph.store.get_numeric(name).numpy(), self.device)
         return cache
 
+    def _executor(self, graph: SymbolicGraph):
+        """(the graph's GraphExecutor on the device, its weights there),
+        each made once."""
+        milli, weight_inputs = self._milli_of(graph)
+        weights = self._device_weights(graph, weight_inputs)
+        ex = self._exec_cache.get(graph.id)
+        if ex is None:
+            ex = self._exec_cache[graph.id] = GraphExecutor(milli,
+                                                            self.device)
+        return ex, weights
+
     def _run_torch(self, graph: SymbolicGraph, feeds: Dict[str, Any],
                    outer_env: Optional[Dict[str, Any]]) -> Dict[str, Any]:
         milli, weight_inputs = self._milli_of(graph)
-        weights = self._device_weights(graph, weight_inputs)
+        ex, weights = self._executor(graph)
         host: Dict[str, Any] = {}
         for name in milli.inputs:
             if name in feeds:
@@ -244,13 +255,32 @@ class EvalBackend:
                 host[name] = outer_env[name]
             else:
                 raise KeyError(f"missing input {name!r}")
-        ex = self._exec_cache.get(graph.id)
-        if ex is None:
-            ex = self._exec_cache[graph.id] = GraphExecutor(milli,
-                                                            self.device)
         dtypes = {graph.tensors[t].name: graph.tensors[t].dtype
                   for t in list(graph.inputs) + list(graph.outputs)}
         return self._execute(ex, host, weights, dtypes, dtypes)
+
+    def run_on_device(self, graph: SymbolicGraph,
+                      feeds: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """Torch mode without the host: device tensors in (cast to the
+        inputs' declared types), device tensors out. The graph is lowered
+        and its weights uploaded once; the executor folds its statics on
+        the first run for a set of shapes and replays the device steps
+        after. The image interface's denoise loop runs its UNet here, so
+        nothing crosses to the host between steps."""
+        if self.mode != "torch" or graph.has_control_flow() \
+                or graph.needs_host_eval():
+            raise ValueError("run_on_device takes a torch-mode backend and "
+                             "a graph without control flow or host values")
+        ex, weights = self._executor(graph)
+        dev = dict(weights)
+        for t in graph.inputs:
+            name, dt = graph.tensors[t].name, graph.tensors[t].dtype
+            v = feeds[name]
+            dev[name] = v.to(self.device, to_torch(dt) if dt is not None
+                             else v.dtype)
+        self.last_path = "torch"
+        return ex(dev)
 
     def _execute(self, ex: GraphExecutor, host: Dict[str, Any],
                  device_feeds: Dict[str, Any],

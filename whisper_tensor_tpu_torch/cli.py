@@ -1,8 +1,9 @@
-"""Command-line interface of the port: `generate`, `embed` and `serve`.
+"""Command-line interface of the port: `generate`, `embed`, `image` and
+`serve`.
 
-Counterpart of whisper_tensor_tpu/cli.py:41 (generate), :171 (embed)
-and :445 (serve), on a torch device chosen with --device (CUDA by
-default, the CPU only when asked for). The reference's other
+Counterpart of whisper_tensor_tpu/cli.py:41 (generate), :171 (embed),
+:201 (image) and :445 (serve), on a torch device chosen with --device
+(CUDA by default, the CPU only when asked for). The reference's other
 subcommands are not ported yet.
 
 Usage:
@@ -12,6 +13,10 @@ Usage:
        | --draft-model DIR [--draft-k 4]] [-c lora=PEFT_DIR]
   python -m whisper_tensor_tpu_torch.cli embed --model DIR \
       [--pooling last|mean] [--device cuda] TEXT [TEXT ...]
+  python -m whisper_tensor_tpu_torch.cli image --model SD_DIR \
+      --prompt "..." [--steps 20] [--cfg 7.5] [--height 512 --width 512]
+      [--init-image IMG [--strength 0.6] [--mask-image IMG]]
+      [--output out.png] [--device cuda]
   python -m whisper_tensor_tpu_torch.cli serve --model DIR \
       --http-port 8000 [-c quantize=int8] [--device cuda]
       [-c ragged_decode=1 -c serve_batch=16 -c prefill_chunk=128]
@@ -26,6 +31,12 @@ dense checkpoint's matmul weights into GGUF blocks on the host.
 with the same -c options, sharing the target's vocabulary) proposes
 --draft-k - 1 tokens a round and the target verifies them in one
 forward; greedy output equals plain greedy decoding token for token.
+
+`image` takes a diffusers `sd` pipeline dir (SD-1.5, SD-2.x) or the
+three ONNX files (--text-encoder, --unet, --vae); --init-image runs
+img2img, with --mask-image (white = repaint) inpainting. Images are PPM
+(P6) or PNG, by the signature when read and by the --output suffix when
+written.
 
 `serve -c ragged_decode=1` serves the model through the port's
 ContinuousBatcher; the loader (importers/loaders.py) maps serve_batch,
@@ -170,6 +181,62 @@ def cmd_embed(args) -> None:
                           [round(float(x), 7) for x in v]}))
 
 
+def cmd_image(args) -> None:
+    """Text-to-image, img2img or inpainting (reference cli.py:201-252)."""
+    from .interfaces.image_gen import (ImageGenConfig,
+                                       ImageGenerationInterface,
+                                       image_interface_from_bundle)
+    from .model import Model
+    from .tokenizer import AnyTokenizer
+    from .utils.image import png_bytes, read_image, write_ppm
+
+    if args.model:
+        from .importers.loaders import identify_and_load
+
+        extra = _parse_kv(args.config)
+        if args.init_image:
+            extra.setdefault("img2img", "1")
+        bundle = identify_and_load(args.model, height=args.height,
+                                   width=args.width, **extra)
+        if "image" not in bundle.interfaces:
+            raise SystemExit(f"{args.model} is not an image pipeline "
+                             f"(got: {sorted(bundle.interfaces) or 'none'})")
+        iface = image_interface_from_bundle(bundle, device=args.device)
+    else:
+        if not (args.text_encoder and args.unet and args.vae):
+            raise SystemExit("need --model <diffusers dir> OR all of "
+                             "--text-encoder/--unet/--vae")
+        te = Model.new_from_onnx_file(args.text_encoder)
+        unet = Model.new_from_onnx_file(args.unet)
+        vae = Model.new_from_onnx_file(args.vae)
+        tok = AnyTokenizer.load(args.tokenizer) if args.tokenizer else None
+        iface = ImageGenerationInterface(te, unet, vae, tokenizer=tok,
+                                         device=args.device)
+    gcfg = ImageGenConfig(steps=args.steps, guidance_scale=args.cfg,
+                          height=args.height, width=args.width,
+                          seed=args.seed,
+                          schedule="euler_karras" if args.karras else "euler")
+    if args.init_image and args.mask_image:
+        init = read_image(args.init_image)[..., :3]
+        mask = read_image(args.mask_image)[..., :3].mean(axis=-1) / 255.0
+        img = iface.run_inpaint(args.prompt, init, mask,
+                                negative_prompt=args.negative_prompt,
+                                cfg=gcfg)
+    elif args.init_image:
+        init = read_image(args.init_image)[..., :3]
+        img = iface.run_img2img(args.prompt, init, strength=args.strength,
+                                negative_prompt=args.negative_prompt,
+                                cfg=gcfg)
+    else:
+        img = iface.run(args.prompt, args.negative_prompt, gcfg)
+    if args.output.lower().endswith(".png"):
+        with open(args.output, "wb") as f:
+            f.write(png_bytes(img.pixels))
+    else:
+        write_ppm(args.output, img.pixels)
+    print(f"wrote {args.output} ({img.pixels.shape[1]}x{img.pixels.shape[0]})")
+
+
 def cmd_serve(args) -> None:
     import asyncio
 
@@ -251,6 +318,34 @@ def main(argv=None) -> None:
                    help="torch device: cuda (default) or cpu")
     e.add_argument("text", nargs="+", help="input text(s)")
     e.set_defaults(fn=cmd_embed)
+
+    i = sub.add_parser("image", help="text-to-image generation")
+    i.add_argument("--model", help="diffusers pipeline dir (sd; "
+                                   "model_index.json)")
+    i.add_argument("-c", "--config", action="append", default=[])
+    i.add_argument("--text-encoder")
+    i.add_argument("--unet")
+    i.add_argument("--vae")
+    i.add_argument("--tokenizer")
+    i.add_argument("--prompt", required=True)
+    i.add_argument("--negative-prompt", default="")
+    i.add_argument("--steps", type=int, default=20)
+    i.add_argument("--cfg", type=float, default=7.5)
+    i.add_argument("--height", type=int, default=512)
+    i.add_argument("--width", type=int, default=512)
+    i.add_argument("--seed", type=int, default=0)
+    i.add_argument("--output", default="out.ppm")
+    i.add_argument("--init-image",
+                   help="PPM or PNG image for img2img/inpaint")
+    i.add_argument("--strength", type=float, default=0.6,
+                   help="img2img strength (1.0 = full txt2img noise)")
+    i.add_argument("--mask-image",
+                   help="PPM or PNG mask (white = repaint) -> inpainting")
+    i.add_argument("--karras", action="store_true",
+                   help="Karras rho-spaced sigmas (euler pipelines)")
+    i.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    i.set_defaults(fn=cmd_image)
 
     s = sub.add_parser("serve", help="run the WebSocket server")
     s.add_argument("--host", default="127.0.0.1")

@@ -15,7 +15,7 @@
 // head h reads KV head h / (Hq / Hkv).
 //
 //   q    (B, Hq, Sq, D) bf16, any strides with the feature stride 1
-//   k, v (B, Hkv, Skv, D) bf16, contiguous      D = 64, 128 or 256
+//   k, v (B, Hkv, Skv, D) bf16, contiguous   D = 64, 80, 128, 160, 256
 //   mask (1|B, 1, Sq, Skv) f32 contiguous, or none
 //   pos  (B,) int64, or none                    out (B, Hq, Sq, D) bf16
 //
@@ -82,6 +82,16 @@
 //     4 GiB threshold on materialized scores (:171-172), a limit of the
 //     TPU's memory; the port routes every eligible call here;
 //   * TRACE_USES: the wrapper's launch counter takes its place.
+//   * head dims 80 and 160, the SD UNet's (640 and 1,280 channels over 8
+//     heads), run natively: D only needs to be a multiple of 16 (the mma
+//     k-step); their tiles are D = 128's (64 keys, 3 stages: 68 KB and
+//     129 KB), and the merge pass takes any D even. The TPU path pads
+//     them to 128 and 256; timed against that padded call by
+//     chip_smoke.py's phase 2 on an H100 80GB HBM3 at 700 W, the native
+//     call took 0.59x its time at 1,024 positions (D = 80) and 0.62x at
+//     256 (D = 160), its three copies and slice included (PERF.md). The
+//     UNet's 40 is not a multiple of 16: the Attention lowering pads it
+//     to 64 (milli/ops/attention.py).
 // What it does not do yet: wgmma and TMA (Hopper's asynchronous
 // warpgroup products and tile copies) and a producer warp.
 #include <cuda_runtime.h>
@@ -376,39 +386,48 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // The second pass: warp w of block x merges row 8x + w's `splits`
-// partial states in split order, each lane D/32 features. A split whose
-// max is -inf (it saw no key of the row) weighs 0; a row with no visible
-// key at all gives 0.
+// partial states in split order, lane t the feature pairs 2t + 64i. A
+// split whose max is -inf (it saw no key of the row) weighs 0; a row
+// with no visible key at all gives 0.
 template <int D>
 __global__ void __launch_bounds__(256)
 flash_merge_kernel(const float* __restrict__ part_acc,
                    const float* __restrict__ part_ml,
                    __nv_bfloat16* __restrict__ out, long long rows,
                    int splits) {
-  constexpr int kE = D / 32;
+  constexpr int kP = (D + 63) / 64;     // feature pairs a lane
   const long long row = blockIdx.x * 8LL + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   float m = -CUDART_INF_F;
   for (int c = 0; c < splits; ++c) m = fmaxf(m, part_ml[2 * (c * rows + row)]);
-  float l = 0.f, a[kE];
+  float l = 0.f, a[kP][2];
 #pragma unroll
-  for (int e = 0; e < kE; ++e) a[e] = 0.f;
+  for (int p = 0; p < kP; ++p) a[p][0] = a[p][1] = 0.f;
   for (int c = 0; c < splits; ++c) {
     const long long at = c * rows + row;
     const float mc = part_ml[2 * at];
     if (mc == -CUDART_INF_F) continue;
     const float w = exp2f(mc - m);
     l = fmaf(part_ml[2 * at + 1], w, l);
-    const float* src = part_acc + at * D + kE * lane;
+    const float* src = part_acc + at * D;
 #pragma unroll
-    for (int e = 0; e < kE; ++e) a[e] = fmaf(src[e], w, a[e]);
+    for (int p = 0; p < kP; ++p) {
+      const int e = 2 * lane + 64 * p;
+      if (e >= D) continue;
+      const float2 x = *reinterpret_cast<const float2*>(src + e);
+      a[p][0] = fmaf(x.x, w, a[p][0]);
+      a[p][1] = fmaf(x.y, w, a[p][1]);
+    }
   }
-  __nv_bfloat16* dst = out + row * D + kE * lane;
+  __nv_bfloat16* dst = out + row * D;
 #pragma unroll
-  for (int e = 0; e < kE; e += 2)
+  for (int p = 0; p < kP; ++p) {
+    const int e = 2 * lane + 64 * p;
+    if (e >= D) continue;
     *reinterpret_cast<uint32_t*>(dst + e) =
-        l > 0.f ? pack_bf16(a[e] / l, a[e + 1] / l) : 0u;
+        l > 0.f ? pack_bf16(a[p][0] / l, a[p][1] / l) : 0u;
+  }
 }
 
 // The ring passes the 48 KB a block gets without asking: allowed once
@@ -471,12 +490,14 @@ cudaError_t occupancy(int* blocks) {
       blocks, flash_attention_kernel<C>, kThreads, C::smem_bytes);
 }
 
-// f(Cfg) for head dim D (64, 128 or 256): the tile shapes of the note
-// above
+// f(Cfg) for head dim D (64, 80, 128, 160 or 256): the tile shapes of
+// the note above
 template <typename F>
 cudaError_t with_cfg(int D, F&& f) {
   if (D == 64) return f(Cfg<64, 64, 3>{});
+  if (D == 80) return f(Cfg<80, 64, 3>{});
   if (D == 128) return f(Cfg<128, 64, 3>{});
+  if (D == 160) return f(Cfg<160, 64, 3>{});
   if (D == 256) return f(Cfg<256, 32, 3>{});
   return cudaErrorInvalidValue;
 }

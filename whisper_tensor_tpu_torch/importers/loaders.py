@@ -1,9 +1,11 @@
-"""Loader registry, the transformers and GGUF loaders, identify_and_load.
+"""Loader registry, the transformers, GGUF and diffusers loaders,
+identify_and_load.
 
 The port's copy of whisper_tensor_tpu/importers/loaders.py, trimmed to
 the `transformers` loader for GPT-2, llama-family, Gemma and Phi-3
 checkpoints (config.json + safetensors), the `gguf` loader for
-llama-family, Gemma and Phi-3 GGUF files (:525-652) and the `auto` loader that probes for them. Their
+llama-family, Gemma and Phi-3 GGUF files (:525-652), the `diffusers`
+loader (below) and the `auto` loader that probes for them. Their
 config keys and their bundles' `text` interface spec are the
 reference's: dtype, quantize (int8, or host quantization to q4_0, q8_0,
 q5_0, q4_k or q6_k), max_len, ragged_decode, serve_batch, serve_chunk,
@@ -17,10 +19,13 @@ Model types gemma, gemma2, gemma3_text (gemma3) and phi3 load as in the
 reference (:261-276, :454-460), and so do GGUF archs gemma, gemma2 and
 phi3, dequantized on the host; their recipes build one scalar position,
 so `ragged_decode` raises for them (the reference accepts it and its
-batcher fails at the first request: ROADMAP C18). Left out, each
-raising: other model types and GGUF archs (ValueError, as the reference
-does for an unknown one), `decode_windows` (NotImplementedError), and
-the ONNX, RWKV, TTS and image loaders (not registered). GPTQ/AWQ
+batcher fails at the first request: ROADMAP C18). The `diffusers`
+loader builds the `sd` image pipeline (SD-1.5, SD-2.x; :785-948); its
+sdxl, sd3 and flux kinds and the `ldm` single-file loader raise "not
+ported". Left out, each raising: other model types and GGUF archs
+(ValueError, as the reference does for an unknown one), `decode_windows`
+(NotImplementedError), and the ONNX, RWKV and TTS loaders (not
+registered). GPTQ/AWQ
 checkpoints load (importers/quantized.py): their quantized Linears run
 packed, unless a merged adapter densifies them as in the reference.
 
@@ -419,6 +424,143 @@ class GgufLoader(Loader):
 
 
 @register_loader
+class DiffusersPipelineLoader(Loader):
+    """Diffusers pipeline directory (model_index.json), the reference's
+    DiffusersPipelineLoader (:785-948) for the `sd` kind: SD-1.5 and
+    SD-2.x (epsilon or, per scheduler_config.json, v-prediction). Every
+    component builds from diffusers-layout safetensors through the
+    recipes (importers/recipes/diffusion/): the CLIP text encoder, the
+    UNet at batch 2 (the CFG pair), the VAE decoder and, with `img2img`,
+    the VAE encoder. The sdxl, sd3 and flux kinds raise "not ported"."""
+
+    NAME = "diffusers"
+    DESCRIPTION = "Diffusers pipeline dir (model_index.json)"
+
+    def config_schema(self):
+        return super().config_schema() + [
+            ConfigField("height", ConfigFieldType.INT, "image height"),
+            ConfigField("width", ConfigFieldType.INT, "image width"),
+            ConfigField("dtype", ConfigFieldType.ENUM, "compute dtype",
+                        default="bf16", choices=["f32", "bf16", "f16"]),
+            ConfigField("img2img", ConfigFieldType.BOOL,
+                        "also build the VAE encoder (img2img, inpaint)"),
+        ]
+
+    def can_load(self, path: str) -> bool:
+        return os.path.isdir(path) and os.path.exists(
+            os.path.join(path, "model_index.json"))
+
+    def load(self, config):
+        from .recipes.diffusion.clip import ClipTextConfig, build_clip_text
+        from .recipes.diffusion.unet import UNetConfig, build_sd_unet
+        from .recipes.diffusion.vae import (VAEConfig, build_vae_decoder,
+                                            build_vae_encoder)
+        from .safetensors_io import SafetensorsStore
+
+        d = config["path"]
+        with open(os.path.join(d, "model_index.json")) as f:
+            idx = json.load(f)
+        cls = idx.get("_class_name", "")
+        kind = ("flux" if "Flux" in cls else
+                "sd3" if "StableDiffusion3" in cls else
+                "sdxl" if "XL" in cls else "sd")
+        if kind != "sd":
+            raise NotImplementedError(
+                f"the {kind!r} diffusers pipeline ({cls}) is not ported to "
+                f"the PyTorch package yet; it loads the 'sd' kind "
+                f"(SD-1.5, SD-2.x) only (ROADMAP A9)")
+        dtype = {"f32": DType.F32, "bf16": DType.BF16,
+                 "f16": DType.F16}[config.get("dtype", "bf16")]
+
+        def sub_cfg(sub):
+            with open(os.path.join(d, sub, "config.json")) as f:
+                return json.load(f)
+
+        def getter(sub):
+            store = SafetensorsStore.from_dir(os.path.join(d, sub))
+            return lambda name, shape=None: store.load(name)
+
+        models: Dict[str, Model] = {}
+        spec: Dict[str, Any] = {"pipeline": kind}
+
+        def add(key, data, name):
+            models[name] = Model.new_from_onnx(data, name=name)
+            spec[key] = name
+
+        cj = sub_cfg("text_encoder")
+        ccfg = ClipTextConfig.from_hf(cj)
+        spec["bos_token_id"] = cj.get("bos_token_id", 49406)
+        spec["eos_token_id"] = cj.get("eos_token_id", 49407)
+        spec["seq_len"] = min(ccfg.max_position_embeddings, 77)
+        # HF CLIP configs carry projection_dim even when the checkpoint
+        # has no text_projection weight
+        if "CLIPTextModelWithProjection" not in (cj.get("architectures")
+                                                 or []):
+            ccfg.projection_dim = None
+        add("text_encoder", build_clip_text(
+            getter("text_encoder"), ccfg, seq_len=spec["seq_len"],
+            dtype=dtype), f"{kind}-text_encoder")
+        ucfg = UNetConfig.from_hf(sub_cfg("unet"))
+        h = int(config.get("height", ucfg.sample_size * 8))
+        w_ = int(config.get("width", ucfg.sample_size * 8))
+        add("unet", build_sd_unet(getter("unet"), ucfg, batch=2,
+                                  latent_hw=(h // 8, w_ // 8), dtype=dtype),
+            f"{kind}-unet")
+        # scheduler prediction type (SD2-768 is v_prediction)
+        sp = os.path.join(d, "scheduler", "scheduler_config.json")
+        if os.path.exists(sp):
+            with open(sp) as f:
+                spec["prediction_type"] = json.load(f).get(
+                    "prediction_type", "epsilon")
+        vcfg = VAEConfig.from_hf(sub_cfg("vae"))
+        add("vae", build_vae_decoder(getter("vae"), vcfg,
+                                     latent_hw=(h // 8, w_ // 8),
+                                     dtype=dtype), f"{kind}-vae")
+        if config.get("img2img"):
+            add("vae_encoder", build_vae_encoder(getter("vae"), vcfg,
+                                                 image_hw=(h, w_),
+                                                 dtype=dtype),
+                f"{kind}-vae-encoder")
+            spec["vae_scaling"] = vcfg.scaling_factor
+            spec["vae_shift"] = vcfg.shift_factor
+        spec["height"], spec["width"] = h, w_
+        spec["latent_channels"] = vcfg.latent_channels
+        tok = os.path.join(d, "tokenizer", "tokenizer.json")
+        return LoadedBundle(models=models, interfaces={"image": spec},
+                            tokenizer_source=(tok if os.path.exists(tok)
+                                              else None),
+                            meta={"architecture": f"diffusers-{kind}"})
+
+
+@register_loader
+class LdmCheckpointLoader(Loader):
+    """Original LDM/CompVis single-file SD checkpoint, recognized as the
+    reference's LdmCheckpointLoader (:949) recognizes it; loading it
+    raises "not ported" (ROADMAP A9)."""
+
+    NAME = "ldm"
+    DESCRIPTION = "Single-file SD checkpoint (LDM naming, .safetensors)"
+
+    def can_load(self, path: str) -> bool:
+        if not (os.path.isfile(path) and path.endswith(".safetensors")):
+            return False
+        from .safetensors_io import SafetensorsStore
+
+        try:
+            store = SafetensorsStore([path])
+        except (OSError, ValueError):
+            return False
+        return any(n.startswith("model.diffusion_model.")
+                   for n in store.names())
+
+    def load(self, config):
+        raise NotImplementedError(
+            "the single-file LDM checkpoint loader ('ldm') is not ported to "
+            "the PyTorch package yet; convert the checkpoint to a diffusers "
+            "directory (ROADMAP A9)")
+
+
+@register_loader
 class AutoLoader(Loader):
     NAME = "auto"
     DESCRIPTION = "Probe the path and delegate to the right loader"
@@ -432,8 +574,8 @@ class AutoLoader(Loader):
             if name != "auto" and loader.can_load(path):
                 return loader.load(config)
         raise ValueError(f"cannot identify model format at {path!r} (the "
-                         f"port loads transformers checkpoint dirs and "
-                         f"GGUF files only)")
+                         f"port loads transformers checkpoint dirs, GGUF "
+                         f"files and diffusers pipeline dirs only)")
 
 
 def identify_and_load(path: str, **config) -> LoadedBundle:

@@ -3,15 +3,16 @@
 Each module holds op classes (the port's copy of whisper_tensor_tpu/
 milli/ops, numpy `eval` and shape inference) beside the lowerings of
 their KINDs. Importing this package registers every lowering the port
-has; the filled table is LOWERINGS. The convolution, resampling, vision,
-recurrent and spectral ops (the reference's conv.py, vision.py, rnn.py,
-signal.py) are not ported yet (symbolic_graph/ops/not_ported.py).
+has; the filled table is LOWERINGS. The vision, recurrent and spectral
+ops (the reference's vision.py, rnn.py, signal.py) are not ported yet
+(symbolic_graph/ops/not_ported.py).
 """
 
 from .. import transforms  # noqa: F401  (QuantMatMul, PackedMatMul)
 from ..registry import LOWERINGS
 from . import extra, quant  # noqa: F401  (register their lowerings)
 from .attention import AttentionMilli, RotaryMilli
+from .conv import Conv, ConvTransposeMilli, Pool, Resize
 from .basic import (Cast, CastLike, ClampMin, Constant, ConstantOfShape,
                     MatMul, Pow, SimpleBinary, SimpleUnary, Where)
 from .einsum import EinsumMilli
@@ -31,6 +32,7 @@ __all__ = [
     "LOWERINGS", "AttentionMilli", "RotaryMilli",
     "Cast", "CastLike", "ClampMin", "Constant", "ConstantOfShape", "MatMul",
     "Pow", "SimpleBinary", "SimpleUnary", "Where", "EinsumMilli",
+    "Conv", "ConvTransposeMilli", "Pool", "Resize",
     "Gather", "GatherElements", "GatherND", "Range", "ScatterElementsMilli",
     "ScatterND", "DepthToSpaceMilli", "DynUpdateSliceMilli", "EyeLikeMilli",
     "KVWriteMilli", "OneHotMilli", "SpaceToDepthMilli", "TileMilli",

@@ -11,7 +11,8 @@ Attention with a rank-0 or rank-1 integer POSITION mask (the recipes'
 mask is broadcast to (B,) first, as the reference does at :170-171.
 Without softcap, a qk output or is_causal, such a call over a bf16
 cache goes to a hand-written kernel's wrapper when the wrapper takes it
-(`pos_mode`: head dim 64, 128 or 256, Dv = D, Hq a multiple of Hkv, at
+(`pos_mode`: head dim 64, 128 or 256 for decode_attention, 64, 80, 128,
+160 or 256 for flash_attention, Dv = D, Hq a multiple of Hkv, at
 most 65,535 rows); on a CUDA device the wrapper launches the kernel:
   * a single-query step (Sq == 1) to decode_attention
     (backends/cuda/decode_attention.py; q bf16, f16 or f32);
@@ -19,14 +20,23 @@ most 65,535 rows); on a CUDA device the wrapper launches the kernel:
     (backends/cuda/flash_attention.py), in its pos-bound mode: the
     visibility rule stays in registers and the key loop stops at the
     last visible key.
-A prefill in bf16 takes flash_attention's other two modes too
-(`flash_mode`): an is_causal call without a mask its causal mode, and a
+A prefill in bf16 takes flash_attention's other modes too
+(`flash_mode`): an is_causal call without a mask its causal mode, a
 call with an additive float mask of shape (1|B, 1, Sq, Skv) its additive
 mode (GPT-2's scalar-position step graph and the Gemma recipes emit
-one), when there is no softcap and no qk output, D is 64, 128 or 256,
-Dv = D and Hq is a multiple of Hkv: exactly the calls the wrapper takes.
-The TPU kernels gate on D % 128 == 0 or D == 64 and leave every other
-head dim to XLA; here head dims 384 and above run the plain path too.
+one), and a call with neither its unmasked mode (the SD UNet's self-
+and cross-attention, Skv = 77 for the latter), when there is no softcap
+and no qk output, Dv = D and Hq is a multiple of Hkv. The causal and
+additive modes take the kernel's head dims (64, 80, 128, 160, 256),
+exactly the calls the wrapper takes. The unmasked mode takes any D up to
+256: a head dim the kernel lacks (the UNet's 40) is zero-padded at the
+lowering's edge to the next the kernel has and the output sliced back,
+as the reference does for 40, 80 and 160 (:199-215): zero q and k
+features add nothing to a score, and the padded v features are sliced
+away. The UNet's 80 and 160 run natively: on the H100 the native kernel
+beat the padded route at the UNet's shapes (PERF.md, PR 12). The TPU
+kernels gate on D % 128 == 0 or D == 64 and leave every other head dim
+to XLA; here head dims 384 and above run the plain path too.
 The reference keeps these modes behind an opt-in gate measured on the
 v5e (backends/pallas/attention.py:94-125); on the H100 the additive mode
 runs at a quarter of the plain path's time (PERF.md).
@@ -316,18 +326,30 @@ def _to_4d(op, inputs):
     return q, k, v, mask, was_3d
 
 
+def flash_head_dim(D: int) -> Optional[int]:
+    """The head dim the kernel runs a D-wide unmasked call at: the least
+    of FLASH_HEAD_DIMS not below D (D itself where the kernel has it;
+    above, q, k and v are zero-padded), None above the largest."""
+    return next((h for h in FLASH_HEAD_DIMS if h >= D), None)
+
+
 def flash_mode(op, q, k, v, mask, need_qk: bool) -> Optional[str]:
-    """"causal" or "additive" when this call takes flash_attention in
-    that mode: exactly the calls its wrapper takes (once k and v are
-    contiguous). None sends it to the plain path."""
+    """"causal", "additive" or "none" (unmasked) when this call takes
+    flash_attention in that mode: exactly the calls its wrapper takes
+    (once k and v are contiguous, and for "none" once q, k and v are
+    padded to flash_head_dim(D)). None sends it to the plain path."""
     if need_qk or op.softcap or q.ndim != 4 or k.ndim != 4:
         return None
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if not (Sq > 1 and q.dtype == k.dtype == v.dtype == torch.bfloat16
             and tuple(v.shape) == tuple(k.shape) and k.shape[0] == B
-            and D == k.shape[3] and D in FLASH_HEAD_DIMS and Hkv > 0
-            and Hq % Hkv == 0 and B <= 65535):
+            and D == k.shape[3] and Hkv > 0 and Hq % Hkv == 0
+            and B <= 65535):
+        return None
+    if mask is None and not op.is_causal:
+        return "none" if flash_head_dim(D) is not None else None
+    if D not in FLASH_HEAD_DIMS:
         return None
     if op.is_causal:
         return "causal" if mask is None else None
@@ -376,7 +398,14 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _flash(mode: str, q, k, v, mask, scale) -> torch.Tensor:
     """flash_attention in `mode` (flash_mode's, or "flash_pos", where
-    `mask` is the (B,) positions)."""
+    `mask` is the (B,) positions; "none" pads q, k and v to
+    flash_head_dim)."""
+    D = q.shape[-1]
+    if mode == "none" and flash_head_dim(D) != D:
+        # the padded copies are contiguous and aligned
+        padded = [torch.nn.functional.pad(t, (0, flash_head_dim(D) - D))
+                  for t in (q, k, v)]
+        return flash_attention(*padded, scale)[..., :D]
     k, v = _aligned(k), _aligned(v)
     # q is read through its strides (the recipes' Transpose view)
     if q.stride(3) != 1:
@@ -386,6 +415,8 @@ def _flash(mode: str, q, k, v, mask, scale) -> torch.Tensor:
     if mode == "additive":
         return flash_attention(q, k, v, scale,
                                mask=shift_rows(mask.float()))
+    if mode == "none":
+        return flash_attention(q, k, v, scale)
     Sq, Skv = q.shape[2], k.shape[2]
     if Sq <= Skv:
         return flash_attention(q, k, v, scale, causal=True)

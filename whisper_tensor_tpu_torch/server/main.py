@@ -22,6 +22,7 @@ the text flows it serves:
   * cancel_request, update_observer_settings, get_batcher_stats;
   * `_score_iface`, which the OpenAI front end's logprobs, echo,
     embeddings, best_of reranking and constrained requests use.
+The OpenAI front end's `/v1/images/generations` runs on `_image_iface`.
 Every other message of the reference (super graphs, images, speech,
 transcription, multimodal generation, graph layout, tensor slices) and
 the unported generate_text variant (RNN models) answer with an error
@@ -73,6 +74,8 @@ class Server:
         self._conns: Set[WebSocketConnection] = set()
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._text_ifaces: dict = {}      # entry id -> direct interface
+        self._image_ifaces: dict = {}     # bundle id -> image interface
+        self._image_lock = threading.Lock()   # one generation at a time
         self._batchers: dict = {}         # entry id -> ContinuousBatcher
         self._batch_jobs: dict = {}       # job_id -> (batcher, future)
         self._spec_decoders: dict = {}    # (target, draft, k) -> decoder
@@ -137,9 +140,12 @@ class Server:
                     "loaded": [e.id for e in entries]}
         if t == P.UNLOAD_MODEL:
             mid = int(msg["model_id"])
+            bid = (self.models.get(mid).meta.get("bundle_id")
+                   if mid in self.models._models else None)
             with self._cache_lock:
                 bat = self._batchers.pop(mid, None)
                 self._text_ifaces.pop(mid, None)
+                self._image_ifaces.pop(bid, None)
                 # a decoder holds its models' interfaces (device weights)
                 self._spec_decoders = {k: v for k, v in
                                        self._spec_decoders.items()
@@ -271,6 +277,21 @@ class Server:
                     quantize=cfg.get("quantize") or None,
                     device=self.device)
                 self._text_ifaces[entry.id] = iface
+            return iface
+
+    def _image_iface(self, entry):
+        """The image interface of an entry's bundle (its text encoder,
+        UNet and VAE entries share one), built on the Server's device at
+        the first request."""
+        from ..interfaces.image_gen import image_interface_from_bundle
+
+        bid = int(entry.meta["bundle_id"])
+        with self._cache_lock:
+            iface = self._image_ifaces.get(bid)
+            if iface is None:
+                iface = image_interface_from_bundle(
+                    self.models.bundle(bid), device=self.device)
+                self._image_ifaces[bid] = iface
             return iface
 
     def _score_iface(self, entry) -> TextInferenceInterface:

@@ -6,11 +6,13 @@ the text routes the port serves: `/v1/completions` and
 `best_of` reranking, `seed`, `stop`, `logit_bias`, `response_format`
 and the `regex` extension for constrained decoding, and `tools` for
 guided function calls), `/v1/embeddings`, `GET /v1/models` and `GET
-/metrics`, on the Python stdlib (`http.server`). The reference's media
-routes (`/v1/images/generations`, `/v1/audio/speech`,
-`/v1/audio/transcriptions`, `/v1/audio/translations`) answer 501 with
-an OpenAI-style error naming them as not ported, and so do image
-content parts.
+/metrics`, on the Python stdlib (`http.server`), and
+`/v1/images/generations` (reference :759, `_images`: an `sd` diffusers
+pipeline's images as base64 PNGs, one request at a time on the
+Server's image interface). The reference's audio routes
+(`/v1/audio/speech`, `/v1/audio/transcriptions`,
+`/v1/audio/translations`) answer 501 with an OpenAI-style error naming
+them as not ported, and so do image content parts.
 
 Routing mirrors the WebSocket server: unconstrained requests against a
 ragged-decode model go through the ContinuousBatcher (per-request
@@ -62,8 +64,8 @@ def _not_ported(what: str) -> ApiError:
 
 
 # the reference's media routes, which the port answers with _not_ported
-_UNPORTED_ROUTES = ("/v1/images/generations", "/v1/audio/speech",
-                    "/v1/audio/transcriptions", "/v1/audio/translations")
+_UNPORTED_ROUTES = ("/v1/audio/speech", "/v1/audio/transcriptions",
+                    "/v1/audio/translations")
 
 
 def _sampling_from(body: Dict[str, Any]):
@@ -172,6 +174,28 @@ def _tools_schema(body: Dict[str, Any]):
                  "required": ["name", "arguments"]}
                 for f in fns]
     return variants[0] if len(variants) == 1 else {"anyOf": variants}
+
+
+def _resolve_entry(server, name, iface_kind: str):
+    """Find a loaded model entry by name/id that exposes `iface_kind`
+    (reference :165-183).
+
+    With no name: unique by bundle (several entries can share one
+    bundle — e.g. a diffusers pipeline loads te/unet/vae entries)."""
+    models = [e for e in server.models._models.values()
+              if iface_kind in (e.interfaces or {})]
+    if not models:
+        raise ApiError(404, f"no loaded model has a {iface_kind!r} "
+                            "interface", "not_found_error")
+    if name is None:
+        bundles = {e.meta.get("bundle_id") for e in models}
+        if len(bundles) == 1:
+            return models[0]
+        raise ApiError(400, "model field required (several loaded)")
+    for e in models:
+        if e.name == name or str(e.id) == str(name):
+            return e
+    raise ApiError(404, f"model {name!r} not found", "not_found_error")
 
 
 def _resolve_model(server, name, body=None):
@@ -646,6 +670,8 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._completions(body, chat=True)
             if path == "/v1/embeddings":
                 return self._embeddings(body)
+            if path == "/v1/images/generations":
+                return self._images(body)
             raise ApiError(404, f"no route {path}", "not_found_error")
         except Exception as e:  # noqa: BLE001
             try:
@@ -654,6 +680,53 @@ class _Handler(BaseHTTPRequestHandler):
                 pass
 
     # ------------------------------------------------------------------
+    def _images(self, body: Dict[str, Any]):
+        """/v1/images/generations (reference :759-806): an `sd` diffusers
+        bundle -> b64 PNGs. The Server keeps one interface a bundle, its
+        weights on the card, and runs one generation at a time."""
+        import base64
+
+        from ..interfaces.image_gen import ImageGenConfig
+        from ..utils.image import png_bytes
+
+        server = self.api.server
+        prompt = body.get("prompt")
+        if not isinstance(prompt, str) or not prompt:
+            raise ApiError(400, "prompt must be a non-empty string")
+        rf = body.get("response_format", "b64_json")
+        if rf != "b64_json":
+            raise ApiError(400, "only response_format='b64_json' is "
+                                "supported (no URL hosting)")
+        entry = _resolve_entry(server, body.get("model"), "image")
+        spec = entry.interfaces["image"]
+        size = body.get("size")
+        if size:
+            try:
+                w, h = (int(p) for p in str(size).lower().split("x"))
+            except ValueError:
+                raise ApiError(400, f"bad size {size!r} (want 'WxH')")
+        else:
+            w, h = spec.get("width", 512), spec.get("height", 512)
+        if (w, h) != (spec["width"], spec["height"]):
+            # the UNet and VAE graphs are built for the loaded size
+            raise ApiError(400, f"size {w}x{h}: this pipeline was loaded "
+                                f"at {spec['width']}x{spec['height']}")
+        seed = int(body.get("seed", 0))
+        iface = server._image_iface(entry)
+        data = []
+        for i in range(int(body.get("n", 1))):
+            cfg = ImageGenConfig(
+                steps=int(body.get("steps", 20)),
+                guidance_scale=float(body.get("guidance_scale", 7.5)),
+                height=h, width=w, schedule="euler", seed=seed + i)
+            with server._image_lock:
+                img = iface.run(prompt,
+                                negative_prompt=body.get("negative_prompt",
+                                                         ""), cfg=cfg)
+            data.append({"b64_json": base64.b64encode(
+                png_bytes(img.pixels)).decode()})
+        self._json(200, {"created": int(time.time()), "data": data})
+
     def _embeddings(self, body: Dict[str, Any]):
         """/v1/embeddings (reference :701-756): final-hidden-state
         pooling over a causal LM, `pooling` last (default) or mean,

@@ -2,9 +2,7 @@
 
 Reference equivalents: src/symbolic_graph/ops/{shape,slice,gather,...}.rs.
 
-The port's copy of whisper_tensor_tpu/symbolic_graph/ops/data.py
-without Resize, which waits for the resampling milli op
-(symbolic_graph/ops/not_ported.py).
+The port's copy of whisper_tensor_tpu/symbolic_graph/ops/data.py.
 """
 
 from __future__ import annotations
@@ -449,6 +447,41 @@ class OneHot(Operation):
         from ...milli.ops import OneHotMilli
 
         return [ctx.emit1(OneHotMilli(self.axis), inputs[0], inputs[1], inputs[2])]
+
+
+@register("Resize")
+@dataclass
+class ResizeOp(Operation):
+    mode: str = "nearest"
+    coord_mode: str = "half_pixel"
+    nearest_mode: str = "round_prefer_floor"
+    cubic_a: float = -0.75
+    exclude_outside: bool = False
+    axes: Optional[List[int]] = None
+    antialias: bool = False
+    keep_policy: str = "stretch"
+    extrapolation_value: float = 0.0
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        return cls(attrs.s("mode", "nearest"),
+                   attrs.s("coordinate_transformation_mode", "half_pixel"),
+                   attrs.s("nearest_mode", "round_prefer_floor"),
+                   attrs.f("cubic_coeff_a", -0.75),
+                   bool(attrs.i("exclude_outside", 0)),
+                   attrs.ints("axes", None),
+                   bool(attrs.i("antialias", 0)),
+                   attrs.s("keep_aspect_ratio_policy", "stretch"),
+                   attrs.f("extrapolation_value", 0.0))
+
+    def lower(self, ctx, inputs, n_outputs):
+        from ...milli.ops import Resize
+
+        return [ctx.emit1(Resize(self.mode, self.coord_mode, self.nearest_mode,
+                                 self.cubic_a, self.exclude_outside, self.axes,
+                                 self.antialias, self.keep_policy,
+                                 self.extrapolation_value),
+                          *inputs)]
 
 
 @register("ScatterElements", "Scatter")

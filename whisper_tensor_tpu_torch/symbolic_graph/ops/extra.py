@@ -6,8 +6,9 @@ These close the remaining official-corpus op families the reference
 enumerates (tests/onnx_testing.rs).
 
 The port's copy of whisper_tensor_tpu/symbolic_graph/ops/extra.py
-without DFT, QLinearConv and ConvInteger, which wait for the signal and
-convolution milli ops (symbolic_graph/ops/not_ported.py).
+without DFT, which waits for the signal milli ops
+(symbolic_graph/ops/not_ported.py). ConvInteger sums in int32 operands
+(its lowering says why); QLinearConv is the reference's.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ...dtype import DType, ONNX_TO_DTYPE
+from ...milli.ops import Cast, SimpleBinary
 from ...milli.ops.extra import (ArrayFeatureExtractorMilli, BernoulliMilli,
                                 BinarizerMilli, CompressMilli, DetMilli,
                                 DynamicQuantizeLinearMilli,
@@ -26,6 +28,7 @@ from ...milli.ops.extra import (ArrayFeatureExtractorMilli, BernoulliMilli,
                                 StringNormalizerMilli, StringSplitMilli,
                                 TrainingOptimizerMilli, TreeEnsembleMilli,
                                 UniqueMilli, WindowMilli)
+from ...milli.ops.quant import DequantizeLinearMilli, QuantizeLinearMilli
 from .base import Operation, register
 
 
@@ -365,3 +368,79 @@ class TfIdfVectorizer(Operation):
             self.min_gram_length, self.mode, self.ngram_counts,
             self.ngram_indexes, self.pool_int64s, self.weights),
             inputs[0])]
+
+
+@register("QLinearConv")
+@dataclass
+class QLinearConv(Operation):
+    """Dequantize -> Conv (f32) -> Quantize, the official reference
+    semantics for quantized conv."""
+
+    conv_attrs: Dict = field(default_factory=dict)
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        return cls({"strides": attrs.ints("strides", None),
+                    "pads": attrs.ints("pads", None),
+                    "dilations": attrs.ints("dilations", None),
+                    "group": attrs.i("group", 1),
+                    "auto_pad": attrs.s("auto_pad", "NOTSET"),
+                    "kernel_shape": attrs.ints("kernel_shape", None)})
+
+    def lower(self, ctx, inputs, n_outputs):
+        from .linalg import ConvOp
+
+        (x, xs, xz, w, ws, wz, ys, yz) = inputs[:8]
+        bias = inputs[8] if len(inputs) > 8 else None
+        xf = ctx.emit1(DequantizeLinearMilli(axis=1), x, xs, xz)
+        wf = ctx.emit1(DequantizeLinearMilli(axis=0), w, ws, wz)
+        a = self.conv_attrs
+        conv_in = [xf, wf]
+        if bias is not None:
+            bf = ctx.emit1(Cast(DType.F32), bias)
+            # bias scale = x_scale * w_scale per spec
+            s = ctx.emit1(SimpleBinary("mul"), xs, ws)
+            bf = ctx.emit1(SimpleBinary("mul"), bf,
+                           ctx.emit1(Cast(DType.F32), s))
+            conv_in.append(bf)
+        y = ConvOp(a.get("strides"), a.get("pads"), a.get("dilations"),
+                   a.get("group", 1), a.get("auto_pad", "NOTSET"),
+                   a.get("kernel_shape")).lower(ctx, conv_in, 1)[0]
+        return [ctx.emit1(QuantizeLinearMilli(axis=1), y, ys, yz)]
+
+
+@register("ConvInteger")
+@dataclass
+class ConvInteger(Operation):
+    conv_attrs: Dict = field(default_factory=dict)
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        return cls({"strides": attrs.ints("strides", None),
+                    "pads": attrs.ints("pads", None),
+                    "dilations": attrs.ints("dilations", None),
+                    "group": attrs.i("group", 1),
+                    "auto_pad": attrs.s("auto_pad", "NOTSET")})
+
+    def lower(self, ctx, inputs, n_outputs):
+        """The reference's graph computes in f32 and casts the result to
+        int32, exact while every partial sum stays below 2^24; here the
+        operands and their zero points go to int32 and the Conv lowering
+        sums them exactly (int64), as the oracle does."""
+        x, w = inputs[0], inputs[1]
+        xz = inputs[2] if len(inputs) > 2 else None
+        wz = inputs[3] if len(inputs) > 3 else None
+        xf = ctx.emit1(Cast(DType.I32), x)
+        wf = ctx.emit1(Cast(DType.I32), w)
+        if xz is not None:
+            xf = ctx.emit1(SimpleBinary("sub"), xf,
+                           ctx.emit1(Cast(DType.I32), xz))
+        if wz is not None:
+            wf = ctx.emit1(SimpleBinary("sub"), wf,
+                           ctx.emit1(Cast(DType.I32), wz))
+        from .linalg import ConvOp
+
+        a = self.conv_attrs
+        return ConvOp(a.get("strides"), a.get("pads"), a.get("dilations"),
+                      a.get("group", 1),
+                      a.get("auto_pad", "NOTSET")).lower(ctx, [xf, wf], 1)
