@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (whisper_tensor_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--layers N] [--plant-fault] [--kernels-only]
-                          [--generic-only] [--image-only] [--plans]
+                          [--generic-only] [--image-only] [--train-only]
+                          [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -210,6 +211,31 @@ Phases:
      native head dim and the other design (zero-padding to 64, 128 or
      256 against the kernel at D = 80 and 160). `--image-only` runs
      phase 13 alone.
+  14. training (`--train-only` runs it alone after the build): (a) GPT-2
+     124M at its published widths and depth (seeded weights), LMTrainer
+     with AdamW and bf16 compute over f32 masters at B 8 x S 1,024: a warm
+     step and 5 timed steps on a fixed batch, ms a step, tok/s, peak card
+     GB and the step's device time by kernel kind (torch.profiler); the
+     loss finite and falling, no flash_attention launch (the trainer's
+     attention runs the plain path by design), step 1's loss within 2% of
+     the f32 loss on the card. (b) QLoRA at Llama-3-8B's widths, --layers
+     deep: rank-16 adapters on the seven projections over an int8-frozen
+     base, bf16, remat, B 2 x S 512, a warm step and 8 steps on two
+     batches of README.md bytes (bench.py's llama8b_lora_train); the
+     loss falls, int8_matmul launches equal the lowering's QuantMatMul
+     calls (forward and re-forward), int8_matmul_dx launches equal
+     Int8MatMul's backward calls; the same steps run again with every
+     int8_matmul_dx call held against its plain version
+     (agreement_bound); the int8 base unchanged; the adapters through
+     save_peft_adapter and load_peft_adapter_arrays. (c) The milli
+     training graph (build_training_graph, AdamW) of a 2-layer GPT-2 at
+     124M's widths, B 2 x S 128, one step through the executor: grad::*
+     within 1e-3 of each tensor's largest |g| of autograd's (the f32
+     trainer); the same in bf16 within 5%, flash_attention launching
+     once an eligible forward Attention call. Phase 2 also holds
+     int8_matmul_dx against its plain version at QLoRA's M = 1,024 over
+     the Llama-3-8B weight shapes and one odd K and N, with its time,
+     bound and a bf16 yardstick.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -628,6 +654,86 @@ def phase2_int8(torch, results):
         "plain_ms": timing[1], "bound_ms": timing[3], "bound_by": timing[4],
         "library_ms": timing[5], "library_error": lib_err,
         "shape": timing[2], "shapes": shapes})
+
+
+# Llama-3-8B's int8 products as QLoRA trains them: (K, N) of W, x (M, K)
+DX_SHAPES = (("q/o", 4096, 4096), ("k/v", 4096, 1024),
+             ("gate/up", 4096, 14336), ("down", 14336, 4096),
+             ("lm_head", 4096, 128256), ("odd K and N", 1000, 771))
+DX_ROWS = 1024          # QLoRA's M = B 2 x S 512 (phase 14 (b))
+
+
+def phase2_int8_dx(torch, results):
+    """int8_matmul_dx (the backward of int8_matmul for x) against its
+    plain version at QLoRA's M = 1,024 over the Llama-3-8B weight shapes
+    and one odd K and N: error against agreement_bound, the kernel's and
+    the plain version's median time (CUDA events), the bound (the larger
+    of its bytes over 3.35 TB/s and 2 M K N over 989 TFLOP/s) and a
+    yardstick, dy @ W^T with W already in bf16 (the product without the
+    scale or the int8 weight; no single PyTorch call computes the scaled
+    int8 function, so library_ms is null)."""
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
+        int8_matmul_dx, int8_matmul_dx_plain)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    say("  int8_matmul_dx (dx = (dy * scale) @ W_i8^T, bf16 dy, M = "
+        f"{DX_ROWS}; tolerance per element: agreement_bound, plain version "
+        "on |dy| and |W|; yardstick: dy @ W^T with W already in bf16)")
+    worst, timing, shapes = 0.0, None, {}
+    M = DX_ROWS
+    for label, K, N in DX_SHAPES:
+        sets = []
+        for _ in range(copies_for(K * N + M * N * 2)):
+            sets.append((torch.randn(M, N, generator=gen, device=dev)
+                         .bfloat16(),
+                         torch.randint(-127, 128, (K, N), generator=gen,
+                                       device=dev, dtype=torch.int8),
+                         torch.rand(N, generator=gen, device=dev) * 0.01
+                         + 1e-3))
+        dy, w, sc = sets[0]
+        err, share = worst_share(
+            int8_matmul_dx(dy, w, sc), int8_matmul_dx_plain(dy, w, sc),
+            int8_matmul_dx_plain(dy.float().abs(), w.abs(), sc),
+            agreement_bound)
+        big = K * N >= 1 << 28
+        slow = dict(reps=3, inner=1) if big else {}
+        ms = time_ms(torch, int8_matmul_dx, sets)
+        plain_ms = time_ms(torch, int8_matmul_dx_plain, sets[:2], **slow)
+        wbf = w.bfloat16()
+        yard_ms = time_ms(torch, lambda d: torch.matmul(d, wbf.t()),
+                          [(d,) for d, _, _ in sets[:2]], **slow)
+        del wbf
+        bms, bby = bound(M * N * 2 + K * N + N * 4 + M * K * 2,
+                         2 * M * K * N)
+        say(f"  int8_matmul_dx {label} M={M} K={K} N={N}: "
+            f"max_abs_err={err:.6g}, worst err/tol {share:.4g}; kernel "
+            f"{ms:.4f} ms ({bms / ms:.1%} of the bound), plain "
+            f"{plain_ms:.4f} ms, bf16 yardstick {yard_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({bby})")
+        if not share <= 1.0:
+            fail(f"int8_matmul_dx disagrees with its plain version ({label},"
+                 f" M={M}, K={K}, N={N}): err/tol {share}")
+        worst = max(worst, err)
+        shapes[f"{label} M={M} K={K} N={N}"] = {
+            "ms": ms, "plain_ms": plain_ms, "yardstick_ms": yard_ms,
+            "bound_ms": bms, "bound_by": bby, "worst_share": share}
+        if label == "lm_head":
+            timing = (ms, plain_ms, f"{label} M={M} K={K} N={N}", bms, bby,
+                      yard_ms)
+        del sets, dy, w, sc
+        torch.cuda.empty_cache()
+    results.append({
+        "name": "int8_matmul_dx", "route": "cuda",
+        "source": "whisper_tensor_tpu_torch/csrc/int8_matmul_dx.cu",
+        "replaces": "whisper_tensor_tpu/backends/pallas/quant_matmul.py:68",
+        "launches": None, "max_abs_err": worst, "ms": timing[0],
+        "plain_ms": timing[1], "bound_ms": timing[3], "bound_by": timing[4],
+        "library_ms": None, "yardstick_ms": timing[5], "shape": timing[2],
+        "note": "the port's backward of int8_matmul for x (QLoRA's frozen "
+                "base); the JAX package has no Pallas backward",
+        "shapes": shapes})
 
 
 def int8pack_call(torch, x, w, s):
@@ -5418,6 +5524,448 @@ def phase13(torch, np, root: Path, results) -> None:
         (root / "sd15-cli.png").unlink(missing_ok=True)
 
 
+# phase 14: training (LMTrainer and the milli training graph)
+GPT2_TRAIN = dict(B=8, S=1024, steps=5)
+QLORA = dict(B=2, S=512, steps=8, rank=16,
+             targets=("wq_", "wk_", "wv_", "wo_", "w_gate_", "w_up_",
+                      "w_down_"))
+MILLI_TRAIN = dict(layers=2, B=2, S=128)
+# the (kind, name pieces) of a training step's CUDA kernels, for its split
+KERNEL_KINDS = (("int8 kernels", ("int8_", "dx_mma", "dx_split")),
+                ("cuBLAS products", ("gemm", "sm90", "cutlass", "xmma",
+                                     "cublas", "ampere", "splitk")),
+                ("softmax and reductions", ("softmax", "reduce", "logsumexp",
+                                            "norm")),
+                ("elementwise and copies", ("elementwise", "vectorized",
+                                            "unrolled", "copy", "fill",
+                                            "cat", "index")))
+
+
+class LoweringSpy:
+    """Counts the calls of some lowerings (for QuantMatMul
+    the calls and those whose x requires grad, for Attention the calls
+    and those flash_mode sends to flash_attention). Installed before the
+    first run, so the plans built keep it."""
+
+    def __init__(self, kinds):
+        from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
+        from whisper_tensor_tpu_torch.milli.ops.attention import flash_mode
+
+        self.table, self.saved = LOWERINGS, {}
+        self.calls = {k: 0 for k in kinds}
+        self.grad_x = self.eligible = 0
+        for kind in kinds:
+            self.saved[kind] = fn = LOWERINGS[kind]
+
+            def wrapped(op, ins, static, device, fn=fn, kind=kind):
+                self.calls[kind] += 1
+                if kind == "QuantMatMul" and ins[0].requires_grad:
+                    self.grad_x += 1
+                if kind == "Attention":
+                    m = ins[3] if len(ins) > 3 else None
+                    if flash_mode(op, ins[0], ins[1], ins[2], m,
+                                  op.n_out >= 4) is not None:
+                        self.eligible += 1
+                return fn(op, ins, static, device)
+
+            LOWERINGS[kind] = wrapped
+
+    def zero(self):
+        self.calls = {k: 0 for k in self.calls}
+        self.grad_x = self.eligible = 0
+
+    def restore(self):
+        self.table.update(self.saved)
+
+
+def step_profile(torch, run) -> str:
+    """One training step's device time under torch.profiler, split by the
+    names of its CUDA kernels (KERNEL_KINDS), and the three largest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    # the kernels' own events (an op's device time repeats its kernels')
+    events = [(e.key, getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
+              for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    events = [(k, ms) for k, ms in events if ms > 0]
+    busy = sum(ms for _, ms in events)
+    parts = {}
+    for key, ms in events:
+        low = key.lower()
+        kind = next((kind for kind, marks in KERNEL_KINDS
+                     if any(m in low for m in marks)), "the rest")
+        parts[kind] = parts.get(kind, 0.0) + ms
+    top = sorted(events, key=lambda e: -e[1])[:3]
+    return (f"device {busy:.1f} ms: " + ", ".join(
+        f"{k} {ms:.1f}" for k, ms in sorted(parts.items(),
+                                             key=lambda p: -p[1]))
+        + "; largest: " + ", ".join(f"{k[:60]} {ms:.1f}" for k, ms in top))
+
+
+def phase14a(torch, np, results) -> dict:
+    """(a) GPT-2 124M at its published widths and full depth (12 layers of
+    768, 12 heads, vocab 50,257, 1,024 positions; seeded weights): LMTrainer
+    with AdamW (lr 1e-4) and bf16 compute over f32 masters, B 8 x S 1,024:
+    one warm step, then 5 timed steps on a fixed batch. The forward's
+    attention runs the plain path by design (kernel_attention_disabled:
+    the kernels have no backward), so flash_attention must not launch."""
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.recipes.llm.gpt2 import (
+        GPT2Config, build_gpt2_train, random_gpt2_weights)
+    from whisper_tensor_tpu_torch.model import Model
+    from whisper_tensor_tpu_torch.training.trainer import LMTrainer
+
+    B, S, steps = GPT2_TRAIN["B"], GPT2_TRAIN["S"], GPT2_TRAIN["steps"]
+    say(f"phase 14 (a): GPT-2 124M widths, LMTrainer AdamW, bf16 compute "
+        f"over f32 masters, B {B} x S {S}")
+    t0 = time.perf_counter()
+    cfg = GPT2Config(**GPT2_WIDTHS)
+    tr = LMTrainer(Model.new_from_onnx(build_gpt2_train(
+        random_gpt2_weights(cfg, SEED), cfg)), optimizer="adamw", lr=1e-4,
+        compute_dtype=DType.BF16, device=CARD)
+    params = tr.init_params()
+    opt = tr.init_opt_state(params)
+    n_mm = sum(p.numel() for n, p in params.items() if p.ndim == 2
+               and n not in ("wte", "wpe"))
+    say(f"  built and uploaded in {time.perf_counter() - t0:.1f} s: "
+        f"{sum(p.numel() for p in params.values()) / 1e6:.1f} M parameters "
+        f"({n_mm / 1e6:.1f} M in products), {len(opt)} optimizer leaves")
+    ids = np.random.default_rng(SEED + 20).integers(0, cfg.vocab_size,
+                                                     (B, S + 1))
+    x, y = ids[:, :-1], ids[:, 1:]
+    tr.compute_dtype = None                     # the f32 reference loss
+    with torch.no_grad():
+        loss32 = float(tr.loss_fn(params, x, y))
+    tr.compute_dtype = DType.BF16
+    f0 = flash_attention.launches
+    t = time.perf_counter()
+    params, opt, loss = tr.train_step(params, opt, x, y)
+    losses = [float(loss)]
+    warm_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        params, opt, loss = tr.train_step(params, opt, x, y)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = statistics.median(times)
+    flop = 6 * n_mm * B * S + 3 * 4 * B * S * S * cfg.n_embd * cfg.n_layer
+    say(f"  losses {[round(v, 4) for v in losses]} (f32 compute, step 1: "
+        f"{loss32:.4f}); warm step {warm_s:.2f} s; {step_s * 1e3:.1f} ms a "
+        f"step (median of {steps}), {B * S / step_s:.0f} tok/s, "
+        f"{flop / 1e12:.2f} TFLOP a step = {flop / step_s / 1e12:.1f} "
+        f"TFLOP/s ({flop / step_s / PEAK_BF16_FLOP_S:.1%} of 989); peak "
+        f"{peak:.2f} GB on the card")
+    say(f"  {step_profile(torch, lambda: tr.train_step(params, opt, x, y))}")
+    say(f"  flash_attention launches in the trainer's steps: "
+        f"{flash_attention.launches - f0} (the forward runs dense attention "
+        f"by design: the kernels have no backward)")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"phase 14 (a): the loss is not finite or does not fall: "
+             f"{losses}")
+    if flash_attention.launches != f0:
+        fail("phase 14 (a): the trainer's forward launched flash_attention")
+    if not abs(losses[0] - loss32) <= 0.02 * abs(loss32):
+        fail(f"phase 14 (a): bf16 step 1's loss {losses[0]} is not within "
+             f"2% of the f32 step's {loss32}")
+    return {"ms": step_s * 1e3, "tok_s": B * S / step_s, "peak_gb": peak}
+
+
+def readme_batches(np, B: int, S: int, n: int):
+    """n batches of this repository's README bytes, as bench.py's
+    llama8b_lora_train arm takes them (byte ids are valid llama ids)."""
+    corpus = np.frombuffer((ROOT / "README.md").read_bytes(),
+                           np.uint8).astype(np.int64)
+    corpus = np.tile(corpus, -(-B * (S + 1) * n // corpus.size))
+    out = []
+    for i in range(n):
+        blk = corpus[i * B * (S + 1):(i + 1) * B * (S + 1)].reshape(B, S + 1)
+        out.append((blk[:, :-1].copy(), blk[:, 1:].copy()))
+    return out
+
+
+def phase14b(torch, np, layers: int, results) -> dict:
+    """(b) QLoRA at Llama-3-8B's widths, `layers` deep (the smoke
+    checkpoint's seeded weights, build_llama_train's weight_map): the
+    bench arm's rank-16 adapters on the seven projections over an
+    int8-frozen base, bf16 compute and adapters, remat, B 2 x S 512, a
+    warm step and 8 steps on two batches of README bytes. Launches
+    against the lowering's calls; then the same 9 steps again from the
+    same adapters with every int8_matmul_dx call held against its plain
+    version; the frozen base unchanged; the adapters through a PEFT
+    directory and back."""
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda import quant_matmul as qm
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.lora import (
+        load_peft_adapter_arrays, save_peft_adapter)
+    from whisper_tensor_tpu_torch.importers.recipes.llm.llama import (
+        LlamaConfig, build_llama_train)
+    from whisper_tensor_tpu_torch.model import Model
+    from whisper_tensor_tpu_torch.training.trainer import LMTrainer
+
+    B, S, steps, rank = QLORA["B"], QLORA["S"], QLORA["steps"], QLORA["rank"]
+    say(f"phase 14 (b): QLoRA at Llama-3-8B widths, {layers} layers, rank "
+        f"{rank} on {len(QLORA['targets'])} projections, int8-frozen base, "
+        f"bf16, remat, B {B} x S {S}")
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(num_hidden_layers=layers, **{
+        k: WIDTHS[k] for k in ("hidden_size", "num_attention_heads",
+                               "num_key_value_heads", "intermediate_size",
+                               "vocab_size", "rope_theta", "rms_norm_eps",
+                               "max_position_embeddings")})
+    weights = dict(checkpoint_tensors(layers, np))
+    wm = {}
+    model = Model.new_from_onnx(build_llama_train(
+        weights.__getitem__, cfg, max_len=S, dtype=DType.BF16,
+        weight_map=wm))
+    del weights
+    spy = LoweringSpy(("QuantMatMul", "Attention"))
+    try:
+        tr = LMTrainer(model, lr=2e-4, compute_dtype=DType.BF16,
+                       param_dtype=DType.BF16, lora_rank=rank,
+                       lora_targets=QLORA["targets"], quantize_base="int8",
+                       remat=True, device=CARD)
+        start = tr.init_params()
+        base = {n: t.clone() for n, t in tr._frozen_params().items()
+                if n in tr._quantized_base}
+        say(f"  built, quantized and uploaded in "
+            f"{time.perf_counter() - t0:.1f} s: {len(start)} adapter "
+            f"tensors, {len(tr._quantized_base)} int8 weights "
+            f"({sum(t.numel() for t in base.values()) / 1e9:.2f} GB)")
+        batches = readme_batches(np, B, S, 2)
+
+        def run(shadow=None):
+            params = {k: v.clone() for k, v in start.items()}
+            opt = tr.init_opt_state(params)
+            losses, times = [], []
+            for i in range(steps + 1):
+                x, y = batches[i % 2] if i else batches[0]
+                t = time.perf_counter()
+                params, opt, loss = tr.train_step(params, opt, x, y)
+                losses.append(float(loss))
+                times.append(time.perf_counter() - t)
+            return params, losses, times
+
+        spy.zero()
+        n_i8, n_dx = qm.int8_matmul.launches, qm.int8_matmul_dx.launches
+        n_bw, f0 = qm.Int8MatMul.backward_calls, flash_attention.launches
+        torch.cuda.reset_peak_memory_stats()
+        params, losses, times = run()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = {"int8_matmul": qm.int8_matmul.launches - n_i8,
+                    "int8_matmul_dx": qm.int8_matmul_dx.launches - n_dx,
+                    "flash_attention": flash_attention.launches - f0}
+        backward = qm.Int8MatMul.backward_calls - n_bw
+        calls, grad_x, eligible = (dict(spy.calls), spy.grad_x,
+                                   spy.eligible)
+        step_s = statistics.median(times[1:])
+        n_mm = sum(w.numel() for w in base.values())
+        say(f"  losses {[round(v, 4) for v in losses]}; warm step "
+            f"{times[0]:.2f} s; {step_s * 1e3:.1f} ms a step (median of "
+            f"{steps}), {B * S / step_s:.0f} tok/s, 6N = "
+            f"{6 * n_mm * B * S / step_s / 1e12:.1f} TFLOP/s over the int8 "
+            f"base; peak {peak:.2f} GB on the card")
+        say(f"  {step_profile(torch, lambda: tr.train_step(dict(params), tr.init_opt_state(params), *batches[0]))}")
+        say(f"  launches over the {steps + 1} steps: {launches}; the "
+            f"lowering's QuantMatMul calls {calls['QuantMatMul']} (forward "
+            f"and remat re-forward; {grad_x} with x requiring grad), "
+            f"Int8MatMul backward calls {backward}, Attention calls "
+            f"{calls['Attention']} (flash-eligible {eligible})")
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            fail(f"phase 14 (b): the loss is not finite or does not fall: "
+                 f"{losses}")
+        if launches["int8_matmul"] != calls["QuantMatMul"] or \
+                not launches["int8_matmul"]:
+            fail(f"phase 14 (b): int8_matmul launched "
+                 f"{launches['int8_matmul']} times for "
+                 f"{calls['QuantMatMul']} QuantMatMul calls")
+        if launches["int8_matmul_dx"] != backward or not backward:
+            fail(f"phase 14 (b): int8_matmul_dx launched "
+                 f"{launches['int8_matmul_dx']} times for {backward} "
+                 f"backward calls of Int8MatMul")
+        if launches["flash_attention"] or eligible:
+            fail("phase 14 (b): the trainer's attention took a kernel")
+        for res in results:
+            if res["name"] == "int8_matmul_dx":
+                res["launches"] = launches["int8_matmul_dx"]
+            elif res["name"] == "int8_matmul":
+                res["launches_train"] = launches["int8_matmul"]
+
+        # the same 9 steps, every dx call against the plain version
+        kernel_dx = qm.int8_matmul_dx
+
+        def shadowed(dy, w, s):
+            got = kernel_dx(dy, w, s)
+            err, share = worst_share(
+                got, qm.int8_matmul_dx_plain(dy, w, s),
+                qm.int8_matmul_dx_plain(dy.float().abs(), w.abs(), s),
+                agreement_bound)
+            shadowed.calls += 1
+            shadowed.worst = max(shadowed.worst, share)
+            return got
+
+        # (the wrapper counts its launches on the name it is bound to)
+        shadowed.calls, shadowed.worst = 0, 0.0
+        shadowed.launches = kernel_dx.launches
+        qm.int8_matmul_dx = shadowed
+        try:
+            _, again, _ = run()
+        finally:
+            qm.int8_matmul_dx = kernel_dx
+            kernel_dx.launches = shadowed.launches
+        say(f"  shadowed run: {shadowed.calls} int8_matmul_dx calls, worst "
+            f"err/tol {shadowed.worst:.4g} (agreement_bound); losses "
+            f"{[round(v, 4) for v in again]}")
+        if shadowed.calls != backward or not shadowed.worst <= 1.0:
+            fail(f"phase 14 (b): {shadowed.calls} shadowed dx calls of "
+                 f"{backward}, worst err/tol {shadowed.worst}")
+        for n, t in tr._frozen_params().items():
+            if n in base and not torch.equal(t, base[n]):
+                fail(f"phase 14 (b): the frozen int8 weight {n} changed")
+        host = {k: v.float().cpu().numpy() for k, v in params.items()}
+        d = ROOT / "build" / "smoke" / "qlora-adapter"
+        shutil.rmtree(d, ignore_errors=True)
+        try:
+            back = load_peft_adapter_arrays(
+                save_peft_adapter(host, wm, rank, str(d)), wm)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        if len(back) * 2 != len(host) or any(
+                not np.array_equal(a, host[f"{n}::lora_a"])
+                or not np.array_equal(b, host[f"{n}::lora_b"])
+                for n, (a, b, _) in back.items()):
+            fail("phase 14 (b): the adapters did not round-trip through "
+                 "save_peft_adapter and load_peft_adapter_arrays")
+        say(f"  the int8 base unchanged; {len(back)} adapter pairs through a "
+            f"PEFT directory and back")
+    finally:
+        spy.restore()
+    return {"ms": step_s * 1e3, "tok_s": B * S / step_s, "peak_gb": peak}
+
+
+def phase14c(torch, np, results) -> None:
+    """(c) The milli training graph at GPT-2 124M's widths, 2 layers, B 2
+    x S 128, AdamW: build_training_graph's one step through the
+    executor on the card, its grad::* outputs against autograd's (the
+    f32 LMTrainer on the same weights and batch) within 1e-3 of each
+    tensor's largest |g|; then the same in bf16, where flash_attention
+    takes the forward's causal Attention calls (launches equal to the
+    eligible calls) and the bound is 5% of the largest |g| (bf16 rounds
+    every node of the forward and the backward)."""
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.backends.torch_exec.compiler import (
+        GraphExecutor)
+    from whisper_tensor_tpu_torch.dtype import DType, to_device
+    from whisper_tensor_tpu_torch.importers.recipes.llm.gpt2 import (
+        GPT2Config, build_gpt2_train, random_gpt2_weights)
+    from whisper_tensor_tpu_torch.milli.optimizers import (
+        OptimizerKind, OptimizerOptions)
+    from whisper_tensor_tpu_torch.milli.training_graph import (
+        build_training_graph, init_opt_state)
+    from whisper_tensor_tpu_torch.model import Model
+    from whisper_tensor_tpu_torch.tensor_info import TensorInfo
+    from whisper_tensor_tpu_torch.training.trainer import LMTrainer
+
+    L, B, S = (MILLI_TRAIN[k] for k in ("layers", "B", "S"))
+    say(f"phase 14 (c): the milli training graph, GPT-2 124M widths, {L} "
+        f"layers, B {B} x S {S}, AdamW")
+    cfg = GPT2Config(**dict(GPT2_WIDTHS, n_layer=L))
+    ids = np.random.default_rng(SEED + 21).integers(0, cfg.vocab_size,
+                                                     (B, S + 1))
+    x, y = ids[:, :-1], ids[:, 1:]
+    dev = torch.device(CARD)
+    want = None
+    for dt, frac in ((DType.F32, 1e-3), (DType.BF16, 5e-2)):
+        model = Model.new_from_onnx(build_gpt2_train(
+            random_gpt2_weights(cfg, SEED), cfg, dtype=dt))
+        if want is None:                 # autograd's gradients, f32
+            tr = LMTrainer(model, optimizer="adamw", lr=1e-3, device=CARD)
+            leaves = {k: v.requires_grad_(True)
+                      for k, v in tr.init_params().items()}
+            loss = tr.loss_fn(leaves, x, y)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            want = dict(zip(leaves, grads))
+            want_loss = float(loss.detach())
+            del tr, leaves, grads
+        milli, weights = model.graph.to_milli(bake_small_constants=False)
+        names = sorted(weights)
+        t0 = time.perf_counter()
+        g, meta = build_training_graph(
+            milli, names, "logits", optimizer=OptimizerOptions(
+                OptimizerKind.ADAMW, lr=1e-3, weight_decay=0.01),
+            input_infos={"input_ids": TensorInfo.shaped(DType.I64, [B, S])})
+        build_s = time.perf_counter() - t0
+        params = {n: model.graph.store.get_numeric(n).numpy() for n in names}
+        state = {k: v.astype(dt.to_numpy())          # Adam's m, v in dt
+                 for k, v in init_opt_state(meta, params).items()}
+        feeds = {"input_ids": x, "target": y,
+                 "step": np.asarray(1.0, np.float32), **params, **state}
+        feeds = {k: to_device(np.asarray(v), dev) for k, v in feeds.items()}
+        spy = LoweringSpy(("Attention",))
+        try:
+            ex = GraphExecutor(g, dev)
+            f0 = flash_attention.launches
+            t0 = time.perf_counter()
+            out = ex(feeds)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            flash = flash_attention.launches - f0
+        finally:
+            spy.restore()
+        worst = 0.0
+        for n in names:
+            got = out[f"grad::{n}"].float()
+            ref = want[n].float()
+            share = ((got - ref).abs().max()
+                     / ref.abs().max().clamp_min(1e-30)).item()
+            worst = max(worst, share)
+        say(f"  {dt.name}: {len(g.nodes)} nodes ({sum(n.phase.value == 'backward' for n in g.nodes)} "
+            f"backward), built in {build_s:.1f} s, one step through the "
+            f"executor in {run_s:.2f} s (plan included); loss "
+            f"{float(out['loss']):.5f} (autograd f32 {want_loss:.5f}); "
+            f"grad::* against autograd: worst {worst:.3g} of the tensor's "
+            f"largest |g| (bound {frac}); Attention calls "
+            f"{spy.calls['Attention']}, flash-eligible {spy.eligible}, "
+            f"flash_attention launches {flash}")
+        if not worst <= frac:
+            fail(f"phase 14 (c): {dt.name} grad::* off autograd's by "
+                 f"{worst} of the largest |g|")
+        if flash != spy.eligible or (dt is DType.BF16 and not flash):
+            fail(f"phase 14 (c): {flash} flash launches for {spy.eligible} "
+                 f"eligible Attention calls ({dt.name})")
+        del g, ex, out, feeds, model
+
+
+def run_phase14(step, torch, np, layers: int, results) -> None:
+    t0 = time.perf_counter()
+    a = step("phase 14 (a): GPT-2 124M training", phase14a, torch, np,
+             results)
+    b = step("phase 14 (b): QLoRA at Llama-3-8B widths", phase14b, torch, np,
+             layers, results)
+    step("phase 14 (c): the milli training graph", phase14c, torch, np,
+         results)
+    say(f"phase 14 in {time.perf_counter() - t0:.1f} s: GPT-2 124M "
+        f"{a['ms']:.1f} ms a step, {a['tok_s']:.0f} tok/s, {a['peak_gb']:.2f}"
+        f" GB; QLoRA {b['ms']:.1f} ms a step, {b['tok_s']:.0f} tok/s, "
+        f"{b['peak_gb']:.2f} GB")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -5434,6 +5982,9 @@ def main() -> None:
     ap.add_argument("--image-only", action="store_true",
                     help="run phase 13 (SD-1.5) alone after the build (no "
                          "result line)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run phase 14 (training) alone after the build "
+                         "(no result line)")
     ap.add_argument("--plans", action="store_true",
                     help="time packed_matmul and decode_attention under "
                          "forced splits, then stop (no result line)")
@@ -5531,12 +6082,17 @@ def main() -> None:
              ROOT / "build" / "smoke", results)
         say(f"{card_line()} (--image-only: phases 2-12 not run)")
         return
+    if args.train_only:
+        run_phase14(step, torch, np, args.layers, results)
+        say(f"{card_line()} (--train-only: phases 2-13 not run)")
+        return
     step("phase 2: decode_attention, int8_matmul", phase2, torch, results)
     step("phase 2: ragged_kv_write", phase2_kv_write, torch, results)
     step("phase 2: flash_attention", phase2_flash, torch, results)
     step("phase 2: flash_attention at the SD UNet's shapes", phase2_flash_sd,
          torch, results)
     step("phase 2: packed_matmul", phase2_packed, torch, results)
+    step("phase 2: int8_matmul_dx", phase2_int8_dx, torch, results)
     if args.kernels_only:
         say(json.dumps({"kernels": results}))
         say(f"{card_line()} (--kernels-only: phases 3-6 not run)")
@@ -5590,6 +6146,7 @@ def main() -> None:
              ROOT / "build" / "smoke", args.layers, bf16, results)
         step("phase 13 (SD-1.5 image generation)", phase13, torch, np,
              ROOT / "build" / "smoke", results)
+        run_phase14(step, torch, np, args.layers, results)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(gpt2_ckpt, ignore_errors=True)

@@ -34,9 +34,13 @@ from whisper_tensor_tpu.model import Model as JaxModel  # noqa: E402
 from whisper_tensor_tpu_torch.milli.ops import LOWERINGS  # noqa: E402
 
 # RandomNormalLike draws from torch's generator: it matches the oracle in
-# distribution (test_torch_conformance_control.py), not value for value
+# distribution (test_torch_conformance_control.py), not value for value.
+# The gradient kinds appear in no ONNX graph: only build_training_graph
+# emits them (test_torch_port_milli_training.py holds their lowerings)
+TRAINING_KINDS = {"GatherGrad", "SumTo", "ConvInputGrad", "ConvWeightGrad",
+                  "ConvBiasGrad"}
 OTHER_KINDS = sorted(set(LOWERINGS) - set(RECIPE_KINDS)
-                     - {"KVWrite", "RandomNormalLike"})
+                     - {"KVWrite", "RandomNormalLike"} - TRAINING_KINDS)
 
 
 def _cases_by_kind(per_kind=3):

@@ -1673,3 +1673,169 @@ def test_tiny_sd_pipeline_on_the_gpu(cuda, tmp_path):
         diff = np.abs(a.astype(np.int64) - b.astype(np.int64))
         assert a.shape == (128, 128, 3) and a.std() > 1.0
         assert diff.mean() <= 3.0, diff.mean()
+
+
+# -- training (int8_matmul_dx, the trainer on the card, the grad guards) ----
+
+# (K, N) of W: aligned, an odd N (staged by plain loads), odd K and N
+DX_SHAPES = [(4096, 1024), (1000, 771), (257, 129)]
+
+
+@pytest.mark.parametrize("K,N", DX_SHAPES)
+@pytest.mark.parametrize("M", [1, 5, 1024, 2048])
+@pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32])
+def test_int8_matmul_dx_kernel_matches_plain(cuda, M, K, N, tdt):
+    gen = torch.Generator(device=cuda).manual_seed(M * 7 + K + N)
+    dy = torch.randn(M, N, generator=gen, device=cuda).to(tdt)
+    w = torch.randint(-127, 128, (K, N), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand(N, generator=gen, device=cuda) * 0.01 + 1e-3
+    n0 = qm.int8_matmul_dx.launches
+    got = qm.int8_matmul_dx(dy, w, s)
+    torch.cuda.synchronize()
+    assert qm.int8_matmul_dx.launches == n0 + 1
+    assert got.shape == (M, K) and got.dtype == tdt
+    _assert_agree(got, qm.int8_matmul_dx_plain(dy, w, s),
+                  qm.int8_matmul_dx_plain(dy.float().abs(), w.abs(), s))
+
+
+def test_int8_matmul_dx_kernel_is_deterministic(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    dy = torch.randn(300, 1024, generator=gen, device=cuda).bfloat16()
+    w = torch.randint(-127, 128, (512, 1024), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand(1024, generator=gen, device=cuda) + 0.1
+    first = qm.int8_matmul_dx(dy, w, s)
+    for _ in range(3):
+        assert torch.equal(qm.int8_matmul_dx(dy, w, s), first)
+
+
+def _tiny_gpt2_train():
+    from whisper_tensor_tpu_torch.importers.recipes.llm.gpt2 import (
+        GPT2Config, build_gpt2_train, random_gpt2_weights)
+
+    cfg = GPT2Config(n_layer=2, n_head=4, n_embd=64, vocab_size=128,
+                     n_positions=32)
+    return build_gpt2_train(random_gpt2_weights(cfg, 1), cfg)
+
+
+def test_tiny_trainer_on_the_gpu_matches_the_cpu(cuda):
+    """Two SGD steps of a tiny GPT-2 (f32) on the card and on the CPU:
+    losses within 1e-4 relative, parameters within 1e-4 of each tensor's
+    largest (f32 sums in other orders); the forward's attention runs the
+    plain path (no flash launch)."""
+    from whisper_tensor_tpu_torch.model import Model
+    from whisper_tensor_tpu_torch.training.trainer import LMTrainer
+
+    data = _tiny_gpt2_train()
+    ids = np.random.default_rng(0).integers(0, 128, (2, 17))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tr = LMTrainer(Model.new_from_onnx(data), optimizer="sgd", lr=0.1,
+                       device=dev)
+        p = tr.init_params()
+        s = tr.init_opt_state(p)
+        f0 = fa.flash_attention.launches
+        losses = []
+        for _ in range(2):
+            p, s, loss = tr.train_step(p, s, ids[:, :-1], ids[:, 1:])
+            losses.append(float(loss))
+        assert fa.flash_attention.launches == f0
+        out[dev] = (losses, {k: v.float().cpu().numpy()
+                             for k, v in p.items()})
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    for k, want in out["cpu"][1].items():
+        err = np.abs(out["cuda"][1][k] - want).max()
+        assert err <= 1e-4 * np.abs(want).max(), (k, err)
+
+
+def test_qlora_step_runs_the_dx_kernel_once_a_backward_call(cuda):
+    """A QLoRA step (int8-frozen tiny llama, bf16 compute and adapters,
+    remat): int8_matmul launches once a QuantMatMul call, forward and
+    re-forward; int8_matmul_dx once a backward call of Int8MatMul; no
+    flash launch; the int8 base unchanged."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.recipes.llm.llama import (
+        LlamaConfig, build_llama_train)
+    from whisper_tensor_tpu_torch.model import Model
+    from whisper_tensor_tpu_torch.training.trainer import LMTrainer
+
+    cfg = LlamaConfig(hidden_size=128, intermediate_size=512,
+                      num_attention_heads=4, num_key_value_heads=2,
+                      num_hidden_layers=2, vocab_size=512)
+    rng = np.random.default_rng(2)
+    cache = {}
+
+    def get(n):
+        if n not in cache:
+            if "norm" in n:
+                cache[n] = np.ones(128, np.float32)
+            else:
+                shp = {"embed": (512, 128), "lm_head": (512, 128),
+                       "k_proj": (64, 128), "v_proj": (64, 128),
+                       "gate": (512, 128), "up": (512, 128),
+                       "down": (128, 512)}
+                key = next((k for k in shp if k in n), None)
+                cache[n] = (rng.standard_normal(shp.get(key, (128, 128)))
+                            * 0.05).astype(np.float32)
+        return cache[n]
+
+    tr = LMTrainer(Model.new_from_onnx(build_llama_train(get, cfg, 32)),
+                   lr=5e-3, compute_dtype=DType.BF16,
+                   param_dtype=DType.BF16, lora_rank=4,
+                   lora_targets=("wq_", "wk_", "wv_", "wo_"),
+                   quantize_base="int8", remat=True, device="cuda")
+    p = tr.init_params()
+    s = tr.init_opt_state(p)
+    base = {n: t.clone() for n, t in tr._frozen_params().items()}
+    ids = rng.integers(0, 512, (2, 17))
+    n_quant = sum(n.op.KIND == "QuantMatMul" for n in tr.milli.nodes)
+    i0, d0 = qm.int8_matmul.launches, qm.int8_matmul_dx.launches
+    b0, f0 = qm.Int8MatMul.backward_calls, fa.flash_attention.launches
+    p, s, loss = tr.train_step(p, s, ids[:, :-1], ids[:, 1:])
+    torch.cuda.synchronize()
+    assert np.isfinite(float(loss)) and n_quant == 7
+    assert qm.int8_matmul.launches - i0 == 2 * n_quant
+    assert qm.int8_matmul_dx.launches - d0 == \
+        qm.Int8MatMul.backward_calls - b0 == n_quant
+    assert fa.flash_attention.launches == f0
+    for n, t in tr._frozen_params().items():
+        assert torch.equal(t, base[n]), n
+
+
+def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
+    q = torch.randn(1, 4, 8, 64, device=cuda).bfloat16()
+    cache = torch.zeros(1, 4, 16, 64, device=cuda, dtype=torch.bfloat16)
+    pos = torch.tensor([3], device=cuda)
+    x = torch.randn(4, 256, device=cuda).bfloat16()
+    w = torch.randint(-127, 128, (256, 128), device=cuda, dtype=torch.int8)
+    s = torch.rand(128, device=cuda) + 0.1
+
+    def g(t):
+        return t.clone().requires_grad_(True)
+
+    calls = {
+        "flash_attention": lambda: fa.flash_attention(g(q), q, q, 0.125,
+                                                      causal=True),
+        "decode_attention": lambda: decode_attention(
+            g(q[:, :, :1]).contiguous(), cache, cache, pos, 0.125),
+        "ragged_kv_write": lambda: ragged_kv_write(cache.clone(),
+                                                   g(q[:, :, :1]), pos),
+        "kv_write_pair": lambda: kv_write_pair(
+            cache.clone(), g(q[:, :, :1]), cache.clone(), q[:, :, :1], pos),
+        "int8_matmul": lambda: int8_matmul(g(x), w, s),
+        "int8_matmul_dx": lambda: qm.int8_matmul_dx(
+            g(x[:, :128]).contiguous(), w, s),
+        "packed_matmul": lambda: packed_matmul(
+            g(x), torch.zeros(128, 128, dtype=torch.uint8, device=cuda),
+            torch.ones(8, 128, device=cuda), torch.zeros(8, 128,
+                                                         device=cuda), 4),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            call()
+    xg = x.float().requires_grad_(True)
+    y = qm.Int8MatMul.apply(xg, w, s)
+    y.sum().backward()
+    _assert_agree(xg.grad, qm.int8_matmul_dx_plain(torch.ones_like(y), w, s),
+                  qm.int8_matmul_dx_plain(torch.ones_like(y), w.abs(), s))

@@ -341,3 +341,63 @@ def test_a_served_image_loads_nothing_of_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "IMAGE 200 (64, 64, 3)" in proc.stdout, proc.stdout[-2000:]
     assert "FOREIGN []" in proc.stdout, proc.stdout[-2000:]
+
+
+_TRAIN_SCRIPT = r"""
+import os, sys
+import numpy as np
+from whisper_tensor_tpu_torch.importers.lora import (
+    load_peft_adapter_arrays, save_peft_adapter)
+from whisper_tensor_tpu_torch.importers.recipes.llm.gpt2 import (
+    GPT2Config, build_gpt2_train, random_gpt2_weights)
+from whisper_tensor_tpu_torch.milli.serde import graph_from_json, graph_to_json
+from whisper_tensor_tpu_torch.milli.training_graph import build_training_graph
+from whisper_tensor_tpu_torch.model import Model
+from whisper_tensor_tpu_torch.training.checkpoint import (
+    load_checkpoint, save_checkpoint)
+from whisper_tensor_tpu_torch.training.trainer import LMTrainer
+from whisper_tensor_tpu_torch.dtype import DType
+from whisper_tensor_tpu_torch.tensor_info import TensorInfo
+cfg = GPT2Config(n_layer=1, n_head=2, n_embd=32, vocab_size=64,
+                 n_positions=16)
+wm = {}
+data = build_gpt2_train(random_gpt2_weights(cfg, 0), cfg, weight_map=wm)
+ids = np.random.default_rng(0).integers(0, 64, (2, 9))
+for kw in (dict(remat="dots"), dict(lora_rank=2, lora_targets=("wfc_",))):
+    tr = LMTrainer(Model.new_from_onnx(data), device="cpu", **kw)
+    p = tr.init_params()
+    s = tr.init_opt_state(p)
+    for _ in range(2):
+        p, s, loss = tr.train_step(p, s, ids[:, :-1], ids[:, 1:])
+    print("LOSS", np.isfinite(float(loss)))
+save_checkpoint(os.path.join(sys.argv[1], "ck.npz"), p, s, step=2)
+print("CKPT", load_checkpoint(os.path.join(sys.argv[1], "ck.npz"),
+                              opt_state_like=s)[2])
+d = save_peft_adapter(p, wm, 2, os.path.join(sys.argv[1], "peft"))
+print("PEFT", len(load_peft_adapter_arrays(d, wm)))
+milli, w = Model.new_from_onnx(data).graph.to_milli(
+    bake_small_constants=False)
+g, _ = build_training_graph(
+    milli, sorted(w), "logits",
+    input_infos={"input_ids": TensorInfo.shaped(DType.I64, [2, 8])})
+print("JSON", graph_to_json(graph_from_json(graph_to_json(g))) ==
+      graph_to_json(g))
+print("FOREIGN", sorted(m for m in sys.modules
+                        if m in ("jax", "whisper_tensor_tpu")
+                        or m.startswith(("jax.", "whisper_tensor_tpu."))))
+"""
+
+
+def test_training_loads_nothing_of_jax(tmp_path):
+    """The training slice (LMTrainer with remat and LoRA, checkpoints,
+    PEFT files, the milli training graph and its JSON) in a fresh
+    interpreter on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN_SCRIPT, str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.count("LOSS True") == 2, proc.stdout
+    assert "CKPT 2" in proc.stdout and "PEFT 1" in proc.stdout, proc.stdout
+    assert "JSON True" in proc.stdout, proc.stdout
+    assert "FOREIGN []" in proc.stdout, proc.stdout

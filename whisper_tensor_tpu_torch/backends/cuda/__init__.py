@@ -1,5 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sources in ../../csrc/), each
-with a plain PyTorch version beside its wrapper."""
+with a plain PyTorch version beside its wrapper.
+
+Only int8_matmul has a backward (quant_matmul.Int8MatMul, whose dx is
+the int8_matmul_dx kernel). Every other wrapper refuses an input that
+needs a gradient (refuse_grad), on the CPU as on the card: its launch
+would give a tensor with no grad_fn, and the gradient would be lost
+without a word."""
 
 from __future__ import annotations
 
@@ -25,3 +31,16 @@ def agreement_bound(ref: torch.Tensor, magnitude: torch.Tensor
     and not against the largest output's."""
     eps = torch.finfo(ref.dtype).eps
     return eps * ref.float().abs() + 2.0 ** -16 * magnitude.float().abs()
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise RuntimeError, naming `kernel`, when grad mode is on and one
+    of `tensors` (None skipped) requires grad: the kernel has no
+    backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: an input requires grad under grad "
+            f"mode. Differentiated code runs attention on the plain path "
+            f"(kernel_attention_disabled()) and int8 products through "
+            f"Int8MatMul")

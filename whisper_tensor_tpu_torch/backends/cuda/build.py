@@ -67,6 +67,11 @@ _SIGNATURES = {
     # path, bm, x_is_bf16, limits (int[3]: rows of W a stage, columns a
     # block, blocks a multiprocessor)
     "wt_int8_limits": [_I, _I, _I, _P],
+    # dy, w_i8, scale, dx, hi and lo scratch, M, K, N, dy_is_bf16, sms,
+    # stream
+    "wt_int8_matmul_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (none): the stage width the dx scratch rows are padded to
+    "wt_int8_dx_stage_cols": [],
     # x, q, scales, offsets, out, partial sums, M, K, N, G, bits,
     # has_off, x_is_bf16, path, bm, splits, kchunk, sms, stream
     "wt_packed_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import refuse_grad
 from .build import (CARD_SMS, card_sms, check, device_index, kernel_limits,
                     library, raw_stream)
 
@@ -122,6 +123,7 @@ def decode_attention(q, k, v, pos, scale: float) -> torch.Tensor:
     or raise when it does not take them. A call that splits the keys
     (decode_splits) runs two device kernels, the splits and their merge;
     the launch counter counts calls, one per call."""
+    refuse_grad("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, pos, scale)
     ok = q.ndim == k.ndim == 4 and v.shape == k.shape

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import agreement_bound
+from . import agreement_bound, refuse_grad
 from .build import (CARD_SMS, card_sms, check, device_index, kernel_limits,
                     library, raw_stream)
 
@@ -147,6 +147,7 @@ def flash_attention(q, k, v, scale: float, *, causal: bool = False,
     or raise when it does not take them. A call that splits the keys
     (flash_splits) runs two device kernels, the splits and their merge;
     the launch counter counts calls, one per call."""
+    refuse_grad("flash_attention", q, k, v, mask)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, causal=causal,
                                      mask=mask, pos_bound=pos_bound)

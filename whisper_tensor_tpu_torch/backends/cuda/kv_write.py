@@ -26,6 +26,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import refuse_grad
 from .build import (CARD_SMS, card_sms, check, kernel_limits, library,
                     raw_stream)
 
@@ -130,6 +131,7 @@ def ragged_kv_write(cache, update, pos) -> torch.Tensor:
     or raise when it does not take them. `ragged_kv_write.launches`
     counts every launch of the kernel, of this wrapper's and of
     kv_write_pair's."""
+    refuse_grad("ragged_kv_write", cache, update)
     if cache.device.type == "cpu":
         return ragged_kv_write_plain(cache, update, pos)
     _launch((cache,), (update,), pos)
@@ -147,6 +149,7 @@ def kv_write_pair(cache_k, update_k, cache_v, update_v, pos
     CPU tensors take the plain version. CUDA tensors launch the kernel,
     or raise when it does not take them. The launch counts once in
     `kv_write_pair.launches` and once in `ragged_kv_write.launches`."""
+    refuse_grad("kv_write_pair", cache_k, update_k, cache_v, update_v)
     if cache_k.device.type == "cpu":
         return kv_write_pair_plain(cache_k, update_k, cache_v, update_v, pos)
     if _launch((cache_k, cache_v), (update_k, update_v), pos):

@@ -39,7 +39,7 @@ import torch
 
 from ...packed_format import PackedFormat
 from ..cpu.dequant import PIECE_BLOCKS, in_pieces
-from . import build
+from . import build, refuse_grad
 from .build import card_sms, check, device_index, library, raw_stream
 
 _DENSE_COLS = 8192      # column chunk of the plain version: bounds the f32 copy
@@ -409,6 +409,7 @@ def packed_matmul(x, q, scales, offsets, bits: int,
     at every M, by packed_plan, or raise. A call whose plan splits K
     runs two device kernels (the splits, then their sum); the launch
     counter counts calls, one per call."""
+    refuse_grad("packed_matmul", x, scales, offsets)
     if x.device.type == "cpu":
         return packed_matmul_plain(x, q, scales, offsets, bits, has_off)
     if x.dtype == torch.float16:

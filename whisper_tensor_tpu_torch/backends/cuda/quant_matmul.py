@@ -1,5 +1,5 @@
 """int8 weight matmul: the CUDA kernel's wrapper, its launch plan and
-its plain version.
+its plain version; and its backward for x, Int8MatMul.
 
 Replaces int8_matmul (whisper_tensor_tpu/backends/pallas/quant_matmul.py
 :68). The kernel is csrc/int8_matmul.cu; its source note says what
@@ -14,6 +14,16 @@ numerics are the reference's: int8 and bf16 values are exact in f32,
 the products are summed in f32 (TF32 is off, device.py), the scale is
 applied in f32, and the result is rounded to x's type once; the plain
 version computes the same in torch.
+
+Int8MatMul is the product as a torch.autograd.Function, for the frozen
+int8 base of QLoRA training (training/trainer.py): the forward is
+int8_matmul, the backward gives dx = (dy * scale[n]) @ W_i8^T by the
+kernel csrc/int8_matmul_dx.cu (int8_matmul_dx; int8_matmul_dx_plain on
+the CPU), and the weight and the scale are frozen: they get no
+gradient. The JAX package's int8 base trains through jax.grad of its
+cast-and-dot fallback (the 512-row route above, which a training step's
+M = B * S takes); the dx numerics are that transpose's, an f32 sum of
+(dy * scale) * W rounded once to dy's type.
 """
 
 from __future__ import annotations
@@ -24,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, refuse_grad
 from .build import card_sms, check, device_index, library, raw_stream
 
 _DENSE_COLS = 8192      # column chunk of the plain version: bounds the f32 copy
@@ -143,7 +153,9 @@ def int8_matmul(x, w_i8, scale) -> torch.Tensor:
     CPU tensors take the plain version. CUDA tensors launch the kernel
     at every M, by int8_plan, or raise. A call whose plan splits K runs
     two device kernels (the splits, then their sum); the launch counter
-    counts calls, one per call."""
+    counts calls, one per call. An x that requires grad under grad mode
+    is refused (refuse_grad): Int8MatMul differentiates it."""
+    refuse_grad("int8_matmul", x, scale)
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w_i8, scale)
     if x.dtype == torch.float16:
@@ -195,3 +207,96 @@ def _launch(x2, w_i8, scale, plan: Int8Plan) -> torch.Tensor:
 
 
 int8_matmul.launches = 0
+
+
+# -- the backward for x ---------------------------------------------------
+
+_DX_ELEMENTS = 1 << 27    # f32 elements of W the plain dx converts at once
+
+
+def int8_matmul_dx_plain(dy, w_i8, scale) -> torch.Tensor:
+    """dy (..., N) bf16/f32/f16, w_i8 (K, N) int8, scale (N,) f32 -> dx
+    (..., K) = (dy * scale) @ W^T in dy's type, summed in f32 and
+    rounded once. W is converted to f32 a block of rows at a time."""
+    K, N = w_i8.shape
+    g = dy.reshape(-1, N).float() * scale.float()
+    out = torch.empty((g.shape[0], K), dtype=dy.dtype, device=dy.device)
+    rows = max(1, _DX_ELEMENTS // max(N, 1))
+    for k0 in range(0, K, rows):
+        sl = slice(k0, k0 + rows)
+        out[:, sl] = torch.matmul(g, w_i8[sl].float().t()).to(dy.dtype)
+    return out.reshape(*dy.shape[:-1], K)
+
+
+def int8_matmul_dx(dy, w_i8, scale) -> torch.Tensor:
+    """dx = (dy * scale[n]) @ W_i8^T: dy (..., N) bf16/f32/f16, w_i8 (K,
+    N) int8, scale (N,) f32 -> (..., K) in dy's type.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernels
+    (csrc/int8_matmul_dx.cu: the split of dy * scale into bf16 hi and
+    lo, into a scratch of 4 M N bytes, then the product) at any M, K and
+    N, or raise; an f16 dy is widened to f32 at the kernel's edge and
+    the result rounded once to f16. `int8_matmul_dx.launches` counts
+    calls, one per call."""
+    refuse_grad("int8_matmul_dx", dy, scale)
+    if dy.device.type == "cpu":
+        return int8_matmul_dx_plain(dy, w_i8, scale)
+    if dy.dtype == torch.float16:
+        return int8_matmul_dx(dy.float(), w_i8, scale).to(torch.float16)
+    N = dy.shape[-1]
+    M = dy.numel() // N if N else 0
+    if dy.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"int8_matmul_dx kernel: dy must be bf16, f32 or "
+                         f"f16, got {dy.dtype}")
+    if w_i8.dtype != torch.int8 or w_i8.ndim != 2 or w_i8.shape[1] != N \
+            or M == 0 or w_i8.shape[0] == 0:
+        raise ValueError(f"int8_matmul_dx kernel: w must be int8 (K, {N}) "
+                         f"and dy must have rows, got {w_i8.dtype} "
+                         f"{tuple(w_i8.shape)}, M={M}")
+    K = w_i8.shape[0]
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (N,):
+        raise ValueError(f"int8_matmul_dx kernel: scale must be f32 ({N},),"
+                         f" got {scale.dtype} {tuple(scale.shape)}")
+    dy2 = dy.reshape(M, N).contiguous()
+    for name, t in (("dy", dy2), ("w", w_i8), ("scale", scale)):
+        if t.device != dy.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"int8_matmul_dx kernel: {name} must be a "
+                             f"contiguous, 16-byte aligned tensor on "
+                             f"{dy.device}")
+    out = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
+    # dy * scale split into bf16 hi and lo, rows padded to whole stages
+    cols = library().wt_int8_dx_stage_cols()
+    hi, lo = torch.empty((2, M, -(-N // cols) * cols), dtype=torch.bfloat16,
+                         device=dy.device)
+    code = library().wt_int8_matmul_dx(
+        dy2.data_ptr(), w_i8.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        hi.data_ptr(), lo.data_ptr(), M, K, N,
+        int(dy.dtype == torch.bfloat16), card_sms(device_index(dy.device)),
+        raw_stream(dy.device))
+    check(code, "int8_matmul_dx kernel")
+    int8_matmul_dx.launches += 1
+    return out.reshape(*dy.shape[:-1], K)
+
+
+int8_matmul_dx.launches = 0
+
+
+class Int8MatMul(torch.autograd.Function):
+    """y = int8_matmul(x, w_i8, scale), differentiable in x: the backward
+    is int8_matmul_dx. The weight and the scale are frozen (no
+    gradient). `Int8MatMul.backward_calls` counts the backward calls."""
+
+    backward_calls = 0
+
+    @staticmethod
+    def forward(ctx, x, w_i8, scale):
+        ctx.save_for_backward(w_i8, scale)
+        return int8_matmul(x, w_i8, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        w_i8, scale = ctx.saved_tensors
+        Int8MatMul.backward_calls += 1
+        return int8_matmul_dx(dy, w_i8, scale), None, None

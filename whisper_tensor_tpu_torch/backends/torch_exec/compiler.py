@@ -30,6 +30,11 @@ Two kinds of graph need more than shapes in the plan's key:
     folded such a Shape or SizeOf is not kept, and the next run builds
     afresh.
 
+An input that requires grad under grad mode is never lifted: the
+executor raises instead, since the host value would carry no gradient.
+Everything else runs on torch tensors, so autograd differentiates a
+graph the executor runs (training/trainer.py).
+
 There is no oracle fallback: a node that has to run on the device and
 has no lowering raises NotImplementedError naming its KIND.
 """
@@ -148,7 +153,7 @@ class GraphExecutor:
             vals[tid] = a
             deps[tid] = frozenset([name])
             if name in self._lifted:
-                statics[tid] = to_host(a)
+                statics[tid] = _lifted_value(name, a)
 
         def lift(tid: int) -> torch.Tensor:
             if tid not in vals:
@@ -197,6 +202,8 @@ class GraphExecutor:
                 need = deps.get(node.inputs[e.index], frozenset())
                 names = {n for n in need if n not in self._lifted
                          and _small(args[self.input_names.index(n)])}
+                for n in names:
+                    _lifted_value(n, args[self.input_names.index(n)])
                 if not names or names != set(need) - set(self._lifted):
                     raise NotImplementedError(
                         f"{e} (node {node.id}): it depends on no graph "
@@ -219,6 +226,16 @@ class GraphExecutor:
         for t in self.graph.outputs.values():
             lift(t)
         return plan, vals
+
+
+def _lifted_value(name: str, t: torch.Tensor) -> np.ndarray:
+    """A lifted input's host value; an input that requires grad is never
+    lifted (its host copy would carry no gradient)."""
+    if t.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            f"graph input {name!r} requires grad, but a lowering needs it "
+            f"as a host value: lifting it would drop its gradient")
+    return to_host(t)
 
 
 def _small(t: torch.Tensor) -> bool:

@@ -1,8 +1,9 @@
 """PEFT LoRA adapters: merged into the base weights at load, or resolved
 into per-weight (A, B, scale) for per-row multi-LoRA serving.
 
-The port's copy of whisper_tensor_tpu/importers/lora.py (numpy only),
-without `save_peft_adapter` (the training side, not ported). A PEFT
+The port's copy of whisper_tensor_tpu/importers/lora.py (numpy only);
+`save_peft_adapter` writes the adapters a LoRA training run
+(training/trainer.py) produces. A PEFT
 adapter directory holds `adapter_config.json` (r, lora_alpha,
 fan_in_fan_out, use_rslora) and `adapter_model.safetensors` with keys
 like `base_model.model.<module>.lora_A.weight` (r, in) and
@@ -145,3 +146,54 @@ def load_peft_adapter_arrays(adapter_dir: str, weight_map: Dict[str, str]):
 
 
 __all__ = ["LoraMergedStore", "load_peft_adapter_arrays"]
+
+
+def save_peft_adapter(adapters: Dict[str, np.ndarray],
+                      weight_map: Dict[str, str], rank: int,
+                      out_dir: str, alpha: float | None = None) -> str:
+    """Write trained adapters as a standard PEFT directory
+    (adapter_config.json + adapter_model.safetensors) so they round-trip
+    through the loaders (`lora=<dir>` merge-at-load, `serve_adapters`
+    multi-LoRA serving, and load_peft_adapter_arrays).
+
+    `adapters` is the LMTrainer/inject_lora naming: `<init>::lora_a`
+    (K, r) and `<init>::lora_b` (r, N) pairs in the milli matmul-RHS
+    orientation; `weight_map` is the recipe's {initializer_name:
+    hf_state_dict_name} record. PEFT stores A as (r, in) and B as
+    (out, r), i.e. the transposes.
+
+    Closes the loop the reference aspires to in
+    examples/rwkv_lora_train.rs (train adapters, persist, re-serve).
+    """
+    from safetensors.numpy import save_file
+
+    if alpha is None:
+        alpha = float(rank)
+    os.makedirs(out_dir, exist_ok=True)
+    tensors: Dict[str, np.ndarray] = {}
+    modules = set()
+    for key, val in adapters.items():
+        if key.endswith("::lora_a"):
+            init, side = key[:-8], "A"
+        elif key.endswith("::lora_b"):
+            init, side = key[:-8], "B"
+        else:
+            continue
+        hf = weight_map.get(init)
+        if hf is None:
+            raise KeyError(f"adapter {key}: no hf mapping for {init!r}")
+        mod = hf[:-len(".weight")] if hf.endswith(".weight") else hf
+        modules.add(mod)
+        arr = np.ascontiguousarray(np.asarray(val, np.float32).T)
+        tensors[f"base_model.model.{mod}.lora_{side}.weight"] = arr
+    save_file(tensors, os.path.join(out_dir,
+                                    "adapter_model.safetensors"))
+    cfg = {"peft_type": "LORA", "r": rank, "lora_alpha": alpha,
+           "fan_in_fan_out": False, "use_rslora": False,
+           "target_modules": sorted(m.rsplit(".", 1)[-1]
+                                    for m in modules),
+           "task_type": "CAUSAL_LM"}
+    with open(os.path.join(out_dir, "adapter_config.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(cfg, f, indent=1)
+    return out_dir

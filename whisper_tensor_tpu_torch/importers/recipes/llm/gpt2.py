@@ -10,8 +10,8 @@ caches are donated buffers updated in place via CacheWrite
 (DynamicUpdateSlice). Masking makes unwritten cache slots inert.
 
 The port's copy of whisper_tensor_tpu/importers/recipes/llm/gpt2.py,
-without the training graph, the HF-module weight getter and the weight
-storage strategies other than embedding. The `weight_map` out-parameter
+without the HF-module weight getter; with the training graph
+(`build_gpt2_train`, :223-284). The `weight_map` out-parameter
 records {initializer name: HF name} of the matmul weights, which
 GPTQ/AWQ packed sources and PEFT adapter serving resolve against.
 """
@@ -23,7 +23,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from ....dtype import DType
-from ...onnx_builder import OnnxBuilder
+from ...onnx_builder import OnnxBuilder, WeightStorage
 
 
 class GPT2Config:
@@ -213,3 +213,69 @@ def random_gpt2_weights(cfg: GPT2Config, seed: int = 0) -> Callable[[str], np.nd
         return cache[name]
 
     return get
+
+
+def build_gpt2_train(weights: Callable[[str], np.ndarray], cfg: GPT2Config,
+                     dtype: DType = DType.F32,
+                     storage: Optional[WeightStorage] = None,
+                     weight_map: Optional[dict] = None) -> bytes:
+    """Training-mode graph: input_ids (B,S) -> logits (B,S,V).
+
+    No KV caches; causal fused attention. Every weight stays a runtime
+    input (> CONST_BAKE threshold not required: recipes always route
+    weights through the TensorStore), so jax.grad over the traced milli
+    graph differentiates w.r.t. the weight inputs directly.
+    """
+    E, H, L, V = cfg.n_embd, cfg.n_head, cfg.n_layer, cfg.vocab_size
+    D = E // H
+    np_dt = dtype.to_numpy()
+
+    def w(name: str) -> np.ndarray:
+        return np.asarray(weights(name)).astype(np_dt)
+
+    def lin(init_name: str, hf_name: str) -> str:
+        if weight_map is not None:
+            weight_map[init_name] = hf_name
+        return b.initializer(init_name, w(hf_name))
+
+    b = OnnxBuilder("gpt2_train", opset=23)
+    ids = b.input("input_ids", DType.I64, ["batch", "seq"])
+    wte = b.initializer("wte", w("transformer.wte.weight"))
+    wpe = b.initializer("wpe", w("transformer.wpe.weight"))
+    tok = b.gather(wte, ids)
+    seq_shape = b.node("Shape", [ids], start=1, end=2)
+    s_scalar = b.node("Squeeze", [seq_shape, b.const_i64([0])])
+    positions = b.node("Range", [b.const_i64(0), s_scalar, b.const_i64(1)])
+    x = b.add(tok, b.gather(wpe, positions))
+    eps = cfg.layer_norm_epsilon
+    for i in range(L):
+        p = f"transformer.h.{i}."
+        ln1 = b.layer_norm(x, b.initializer(f"ln1g_{i}", w(p + "ln_1.weight")),
+                           b.initializer(f"ln1b_{i}", w(p + "ln_1.bias")), epsilon=eps)
+        qkv = b.add(b.matmul(ln1, lin(f"wqkv_{i}", p + "attn.c_attn.weight")),
+                    b.initializer(f"bqkv_{i}", w(p + "attn.c_attn.bias")))
+        q, k, v = b.node("Split", [qkv], n_outputs=3, axis=-1, num_outputs=3)
+
+        def heads(t):
+            return b.transpose(b.reshape(t, [0, 0, H, D]), [0, 2, 1, 3])
+
+        att = b.attention(heads(q), heads(k), heads(v),
+                          scale=1.0 / float(np.sqrt(D)), is_causal=True)
+        att = b.reshape(b.transpose(att, [0, 2, 1, 3]), [0, 0, E])
+        att = b.add(b.matmul(att, lin(f"wproj_{i}", p + "attn.c_proj.weight")),
+                    b.initializer(f"bproj_{i}", w(p + "attn.c_proj.bias")))
+        x = b.add(x, att)
+        ln2 = b.layer_norm(x, b.initializer(f"ln2g_{i}", w(p + "ln_2.weight")),
+                           b.initializer(f"ln2b_{i}", w(p + "ln_2.bias")), epsilon=eps)
+        hmid = b.add(b.matmul(ln2, lin(f"wfc_{i}", p + "mlp.c_fc.weight")),
+                     b.initializer(f"bfc_{i}", w(p + "mlp.c_fc.bias")))
+        hmid = b.node("Gelu", [hmid], approximate="tanh")
+        mlp = b.add(b.matmul(hmid, lin(f"wmp_{i}", p + "mlp.c_proj.weight")),
+                    b.initializer(f"bmp_{i}", w(p + "mlp.c_proj.bias")))
+        x = b.add(x, mlp)
+    xf = b.layer_norm(x, b.initializer("lnfg", w("transformer.ln_f.weight")),
+                      b.initializer("lnfb", w("transformer.ln_f.bias")), epsilon=eps)
+    wte_t = b.initializer("wte_t", np.ascontiguousarray(w("transformer.wte.weight").T))
+    b.node("MatMul", [xf, wte_t], outputs=["logits"])
+    b.output("logits", dtype, ["batch", "seq", V])
+    return b.build(storage or WeightStorage.embed())

@@ -6,8 +6,8 @@ step graph with fixed-shape KV caches + scalar position; RMSNorm,
 rotary embeddings (NeoX halves), GQA fused attention, SwiGLU MLP.
 
 The port's copy of whisper_tensor_tpu/importers/recipes/llm/llama.py,
-without the training graph, the HF-module weight getter and
-`logits_last_only`. `storage` and the `weight_map` out-parameter
+without the HF-module weight getter and `logits_last_only`; with the
+training graph (`build_llama_train`, :276-356). `storage` and the `weight_map` out-parameter
 (:88-125, :280-304) are the reference's: the packed GGUF loader builds
 the graph structure-only into a sink and binds the matmul weights that
 weight_map names to packed sources.
@@ -263,4 +263,82 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
     for i, (nk, nv) in enumerate(cache_outs):
         b.output(nk, dtype, ["batch", Hkv, max_len, D])
         b.output(nv, dtype, ["batch", Hkv, max_len, D])
+    return b.build(storage or WeightStorage.embed())
+
+
+def build_llama_train(weights: Callable[[str], np.ndarray],
+                      cfg: LlamaConfig, max_len: int,
+                      dtype: DType = DType.F32,
+                      storage: Optional[WeightStorage] = None,
+                      weight_map: Optional[dict] = None) -> bytes:
+    """Training-mode llama graph: input_ids (B,S) -> logits (B,S,V).
+
+    No KV caches; fused causal attention; rope applied at absolute
+    positions 0..S-1. Weights stay runtime inputs so jax.grad (and the
+    LoRA/frozen-int8 trainer path) differentiates through them —
+    mirrors build_gpt2_train. Dense mlp only (training MoE routes
+    through the parallel.moe trainer instead)."""
+    E, Hq, Hkv, D = cfg.hidden_size, cfg.num_attention_heads, \
+        cfg.num_key_value_heads, cfg.hd
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    np_dt = dtype.to_numpy()
+
+    def w(name: str) -> np.ndarray:
+        return np.asarray(weights(name)).astype(np_dt)
+
+    def wT(name: str) -> np.ndarray:
+        return np.ascontiguousarray(w(name).T)
+
+    b = OnnxBuilder(f"{cfg.model_type}_train", opset=23,
+                    custom_opsets={"wt": 1})
+
+    def lin(init_name: str, hf_name: str) -> str:
+        if weight_map is not None:
+            weight_map[init_name] = hf_name
+        return b.initializer(init_name, wT(hf_name))
+
+    ids = b.input("input_ids", DType.I64, ["batch", "seq"])
+    embed = b.initializer("embed_tokens", w("model.embed_tokens.weight"))
+    x = b.gather(embed, ids)
+    cos_t, sin_t = rope_tables(cfg, max_len)
+    cos = b.initializer("rope_cos", cos_t.astype(np_dt))
+    sin = b.initializer("rope_sin", sin_t.astype(np_dt))
+    eps = cfg.rms_norm_eps
+    for i in range(L):
+        p = f"model.layers.{i}."
+        h = b.rms_norm(x, b.initializer(
+            f"in_norm_{i}", w(p + "input_layernorm.weight")), epsilon=eps)
+        q = b.matmul(h, lin(f"wq_{i}", p + "self_attn.q_proj.weight"))
+        k = b.matmul(h, lin(f"wk_{i}", p + "self_attn.k_proj.weight"))
+        v = b.matmul(h, lin(f"wv_{i}", p + "self_attn.v_proj.weight"))
+
+        def heads(tns, nh):
+            return b.transpose(b.reshape(tns, [0, 0, nh, D]), [0, 2, 1, 3])
+
+        qh, kh, vh = heads(q, Hq), heads(k, Hkv), heads(v, Hkv)
+        qh = b.rotary(qh, cos, sin)
+        kh = b.rotary(kh, cos, sin)
+        att = b.attention(qh, kh, vh, scale=1.0 / float(np.sqrt(D)),
+                          is_causal=True)
+        att = b.reshape(b.transpose(att, [0, 2, 1, 3]), [0, 0, Hq * D])
+        att = b.matmul(att, lin(f"wo_{i}", p + "self_attn.o_proj.weight"))
+        x = b.add(x, att)
+        h2 = b.rms_norm(x, b.initializer(
+            f"post_norm_{i}", w(p + "post_attention_layernorm.weight")),
+            epsilon=eps)
+        gate = b.matmul(h2, lin(f"w_gate_{i}", p + "mlp.gate_proj.weight"))
+        up = b.matmul(h2, lin(f"w_up_{i}", p + "mlp.up_proj.weight"))
+        silu = b.mul(gate, b.node("Sigmoid", [gate]))
+        mlp = b.matmul(b.mul(silu, up),
+                       lin(f"w_down_{i}", p + "mlp.down_proj.weight"))
+        x = b.add(x, mlp)
+    xf = b.rms_norm(x, b.initializer("final_norm", w("model.norm.weight")),
+                    epsilon=eps)
+    if cfg.tie_word_embeddings:
+        lm = b.initializer("lm_head", np.ascontiguousarray(
+            w("model.embed_tokens.weight").T))
+    else:
+        lm = lin("lm_head", "lm_head.weight")
+    b.node("MatMul", [xf, lm], outputs=["logits"])
+    b.output("logits", dtype, ["batch", "seq", V])
     return b.build(storage or WeightStorage.embed())

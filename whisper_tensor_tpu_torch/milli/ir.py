@@ -8,9 +8,10 @@ CPU correctness oracle. The port runs a graph on torch tensors through
 backends/torch_exec (GraphExecutor), with the lowerings keyed by
 `MilliOp.KIND` in milli/registry.py.
 
-The port's copy of whisper_tensor_tpu/milli/ir.py, without `to_jax`,
-the autodiff `backward` rules and the introspection helpers
-(`intermediate_labels`, `op_census`).
+The port's copy of whisper_tensor_tpu/milli/ir.py, without `to_jax`
+and the introspection helpers (`intermediate_labels`, `op_census`).
+The ops' reverse-mode `backward` rules (milli/autodiff.py) are the
+reference's.
 """
 
 from __future__ import annotations
@@ -65,6 +66,8 @@ class MilliOp(Introspectable):
       * ``infer(infos) -> infos`` — symbolic-aware inference. Returning
         *less* knowledge is always legal; contradicting eval is not
         (validated by validate_infer).
+      * ``backward(b, node, grads) -> per-input grad ids`` — symbolic
+        reverse-mode rule (reference MilliOp::backward).
     """
 
     KIND = "?"
@@ -82,6 +85,14 @@ class MilliOp(Introspectable):
             vals.append(fi.value)
         outs = self.eval(vals)
         return [TensorInfo.numeric(o) for o in outs]
+
+    def backward(
+        self,
+        b: "MilliGraph",
+        node: MilliNode,
+        out_grads: List[Optional[int]],
+    ) -> List[Optional[int]]:
+        raise NotImplementedError(f"{self.KIND} has no backward rule")
 
     def display_name(self) -> str:
         return self.KIND

@@ -12,11 +12,12 @@ from .. import transforms  # noqa: F401  (QuantMatMul, PackedMatMul)
 from ..registry import LOWERINGS
 from . import extra, quant  # noqa: F401  (register their lowerings)
 from .attention import AttentionMilli, RotaryMilli
-from .conv import Conv, ConvTransposeMilli, Pool, Resize
+from .conv import (Conv, ConvBiasGrad, ConvInputGrad, ConvTransposeMilli,
+                   ConvWeightGrad, Pool, Resize)
 from .basic import (Cast, CastLike, ClampMin, Constant, ConstantOfShape,
                     MatMul, Pow, SimpleBinary, SimpleUnary, Where)
 from .einsum import EinsumMilli
-from .index import (Gather, GatherElements, GatherND, Range,
+from .index import (Gather, GatherElements, GatherGrad, GatherND, Range,
                     ScatterElementsMilli, ScatterND)
 from .misc import (DepthToSpaceMilli, DynUpdateSliceMilli, EyeLikeMilli,
                    KVWriteMilli, OneHotMilli, SpaceToDepthMilli, TileMilli,
@@ -26,19 +27,20 @@ from .norm import (BatchNormMilli, GroupNormMilli, InstanceNormMilli,
 from .random import RandomNormalLike
 from .reduce import ArgMinMax, CumSum, NonZero, Reduce, SizeOf, TopK
 from .shape import (Concat, Expand, GatherShape, Pad, Reshape, Shape, Slice,
-                    Split, Squeeze, Transpose, Unsqueeze)
+                    Split, Squeeze, SumTo, Transpose, Unsqueeze)
 
 __all__ = [
     "LOWERINGS", "AttentionMilli", "RotaryMilli",
     "Cast", "CastLike", "ClampMin", "Constant", "ConstantOfShape", "MatMul",
     "Pow", "SimpleBinary", "SimpleUnary", "Where", "EinsumMilli",
-    "Conv", "ConvTransposeMilli", "Pool", "Resize",
-    "Gather", "GatherElements", "GatherND", "Range", "ScatterElementsMilli",
+    "Conv", "ConvBiasGrad", "ConvInputGrad", "ConvTransposeMilli",
+    "ConvWeightGrad", "Pool", "Resize",
+    "Gather", "GatherElements", "GatherGrad", "GatherND", "Range", "ScatterElementsMilli",
     "ScatterND", "DepthToSpaceMilli", "DynUpdateSliceMilli", "EyeLikeMilli",
     "KVWriteMilli", "OneHotMilli", "SpaceToDepthMilli", "TileMilli",
     "TriluMilli", "BatchNormMilli", "GroupNormMilli", "InstanceNormMilli",
     "LayerNormMilli", "RMSNormMilli", "RandomNormalLike",
     "ArgMinMax", "CumSum", "NonZero", "Reduce", "SizeOf", "TopK",
     "Concat", "Expand", "GatherShape", "Pad", "Reshape", "Shape", "Slice",
-    "Split", "Squeeze", "Transpose", "Unsqueeze",
+    "Split", "Squeeze", "SumTo", "Transpose", "Unsqueeze",
 ]

@@ -2,8 +2,9 @@
 lowerings.
 
 The classes are the port's copy of AttentionMilli and RotaryMilli from
-whisper_tensor_tpu/milli/ops/attention.py (numpy `eval` and shape
-inference; no `to_jax`). The lowerings are the counterparts of its
+whisper_tensor_tpu/milli/ops/attention.py (numpy `eval`, shape
+inference and Attention's recompute-based autodiff `backward`; no
+`to_jax`). The lowerings are the counterparts of its
 `to_jax` at :147-260 (Attention) and :547 (Rotary).
 
 Attention with a rank-0 or rank-1 integer POSITION mask (the recipes'
@@ -47,6 +48,9 @@ mask is shifted by its row maximum first (softmax does not change), so a
 row masked by a large finite value everywhere keeps the scores' order
 as the oracle's float64 scores do, where f32 would round them away.
 
+Inside kernel_attention_disabled() every call runs the plain path: the
+kernels have no backward, and the trainer differentiates its forward.
+
 Every other call (f32 caches among them, as the TPU kernel is bf16
 only) runs the plain f32 path below, which mirrors the reference's XLA
 path: scores in f32, softmax in f32, the probabilities rounded to the
@@ -55,7 +59,9 @@ input type, the value product accumulated in f32.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from dataclasses import dataclass
 from typing import Optional
 
@@ -219,6 +225,163 @@ class AttentionMilli(MilliOp):
             outs.append(TensorInfo.ranked(q.dtype, 4))
         return outs[:self.n_out]
 
+    def backward(self, b, node, out_grads):
+        """Recompute-based attention backward (milli training artifact):
+          p = softmax(q·kᵀ·scale + mask [+ causal])
+          g_v = pᵀ·g ;  g_p = g·vᵀ ;  g_s = p⊙(g_p − Σ(g_p⊙p))
+          g_q = g_s·k·scale ;  g_k = g_sᵀ·q·scale
+        GQA sums g_k/g_v over the query-head group (needs head counts
+        from infer infos). Mask input gets no gradient (positional)."""
+        g = out_grads[0]
+        if g is None and not any(og is not None for og in out_grads):
+            return [None] * len(node.inputs)
+        if len(node.inputs) > 4 or self.q_heads or \
+                any(og is not None for og in out_grads[1:]):
+            raise NotImplementedError(
+                "attention backward: only the 4-D q,k,v[,mask] surface "
+                "with a Y gradient is differentiable (past-KV / 3-D / "
+                "present-output grads are inference artifacts)")
+        from .basic import CastLike, Constant, MatMul, Pow, SimpleBinary
+        from ..ir import Phase
+        from .shape import (Concat, Expand, GatherShape, Reshape, Shape,
+                            Transpose, Unsqueeze)
+        from .reduce import Reduce
+        from .index import Range as RangeMilli
+
+        P = Phase.BACKWARD
+        q, k, v = node.inputs[0], node.inputs[1], node.inputs[2]
+        mask = node.inputs[3] if len(node.inputs) > 3 else None
+
+        def bop(mode, *ins):
+            return b.op1(SimpleBinary(mode), *ins, phase=P)
+
+        def mm(a, c):
+            return b.op1(MatMul(), a, c, phase=P)
+
+        def tsw(t):
+            return b.op1(Transpose(swap_last2=True), t, phase=P)
+
+        def const_i64(val):
+            return b.op1(Constant(np.asarray(val, dtype=np.int64)), phase=P)
+
+        # GQA: repeat factor from infer infos (static head counts)
+        qi = b.tensors[q].info
+        ki = b.tensors[k].info
+        rep = 1
+        if qi is not None and ki is not None and qi.dims() is not None \
+                and ki.dims() is not None and qi.dims()[1].is_known \
+                and ki.dims()[1].is_known:
+            rep = int(qi.dims()[1].value()) // int(ki.dims()[1].value())
+        elif qi is not None and ki is not None:
+            raise NotImplementedError(
+                "attention backward: unknown head counts (run infer_all)")
+
+        kshape = b.op1(Shape(), k, phase=P)
+        kb = [b.op1(GatherShape(i), kshape, phase=P) for i in range(4)]
+        if rep > 1:
+            # k/v -> (B, Hkv, 1, S, D) -> expand rep -> (B, Hq, S, D)
+            def rep_heads(t):
+                tu = b.op1(Unsqueeze(axes=[2]), t, phase=P)
+                tgt = b.op1(Concat(axis=0),
+                            kb[0], kb[1], const_i64([rep]), kb[2], kb[3],
+                            phase=P)
+                te = b.op1(Expand(), tu, tgt, phase=P)
+                hq = bop("mul", kb[1], const_i64([rep]))
+                out_shape = b.op1(Concat(axis=0), kb[0], hq, kb[2], kb[3],
+                                  phase=P)
+                return b.op1(Reshape(), te, out_shape, phase=P)
+
+            k_full, v_full = rep_heads(k), rep_heads(v)
+        else:
+            k_full, v_full = k, v
+
+        # scale as a traced scalar: D^-0.5 (folds at trace time)
+        if self.scale is not None:
+            scale_t = b.op1(CastLike(), b.op1(Constant(
+                np.asarray(self.scale, dtype=np.float32)), phase=P), g,
+                phase=P)
+        else:
+            qshape = b.op1(Shape(), q, phase=P)
+            d_t = b.op1(GatherShape(3), qshape, phase=P)
+            d_f = b.op1(CastLike(), d_t, g, phase=P)
+            neg_half = b.op1(CastLike(), b.op1(Constant(
+                np.asarray(-0.5, dtype=np.float32)), phase=P), g, phase=P)
+            scale_t = b.op1(Pow(), d_f, neg_half, phase=P)
+
+        s = bop("mul", mm(q, tsw(k_full)), scale_t)
+        if mask is not None:
+            s = bop("add", s, b.op1(CastLike(), mask, s, phase=P))
+        if self.is_causal:
+            qshape = b.op1(Shape(), q, phase=P)
+            sq = b.op1(GatherShape(2), qshape, phase=P)
+            skv = kb[2]
+            zero = const_i64(0)
+            one = const_i64(1)
+            rows = b.op1(RangeMilli(), zero, sq, one, phase=P)
+            cols = b.op1(RangeMilli(), zero, skv, one, phase=P)
+            off = bop("sub", skv, sq)
+            rows2 = b.op1(Unsqueeze(axes=[1]), bop("add", rows, off),
+                          phase=P)
+            cols2 = b.op1(Unsqueeze(axes=[0]), cols, phase=P)
+            vis = bop("le", cols2, rows2)
+            big = b.op1(CastLike(), b.op1(Constant(
+                np.asarray(-1e30, dtype=np.float32)), phase=P), s, phase=P)
+            zf = b.op1(CastLike(), b.op1(Constant(
+                np.asarray(0.0, dtype=np.float32)), phase=P), s, phase=P)
+            from .basic import Where
+
+            s = bop("add", s, b.op1(Where(), vis, zf, big, phase=P))
+        cap_deriv = None
+        if self.softcap > 0:
+            # ONNX-23 order: cap AFTER bias/causal. s_cap = c·tanh(s/c);
+            # ds_cap/ds = 1 − tanh²(s/c) — at masked (-1e30-biased)
+            # entries tanh saturates so the derivative is 0 there, which
+            # is exactly right: masked scores carry no gradient.
+            from .basic import SimpleUnary as _SU
+
+            cap = b.op1(CastLike(), b.op1(Constant(
+                np.asarray(self.softcap, dtype=np.float32)), phase=P), s,
+                phase=P)
+            th = b.op1(_SU("tanh"), bop("div", s, cap), phase=P)
+            one_f = b.op1(CastLike(), b.op1(Constant(
+                np.asarray(1.0, dtype=np.float32)), phase=P), s, phase=P)
+            cap_deriv = bop("sub", one_f, bop("mul", th, th))
+            s = bop("mul", cap, th)
+        # softmax recompute
+        mx = b.op1(Reduce("max", axes=[-1], keepdims=True), s, phase=P)
+        from .basic import SimpleUnary
+
+        e = b.op1(SimpleUnary("exp"), bop("sub", s, mx), phase=P)
+        l = b.op1(Reduce("sum", axes=[-1], keepdims=True), e, phase=P)
+        p = bop("div", e, l)
+
+        g_v_full = mm(tsw(p), g)
+        g_p = mm(g, tsw(v_full))
+        inner = b.op1(Reduce("sum", axes=[-1], keepdims=True),
+                      bop("mul", g_p, p), phase=P)
+        g_s = bop("mul", p, bop("sub", g_p, inner))
+        if cap_deriv is not None:
+            g_s = bop("mul", g_s, cap_deriv)
+        g_q = bop("mul", mm(g_s, k_full), scale_t)
+        g_k_full = bop("mul", mm(tsw(g_s), q), scale_t)
+        if rep > 1:
+            # sum group gradients back to the kv heads
+            def group_sum(t):
+                tgt = b.op1(Concat(axis=0),
+                            kb[0], kb[1], const_i64([rep]), kb[2], kb[3],
+                            phase=P)
+                tr = b.op1(Reshape(), t, tgt, phase=P)
+                return b.op1(Reduce("sum", axes=[2], keepdims=False), tr,
+                             phase=P)
+
+            g_k, g_v = group_sum(g_k_full), group_sum(g_v_full)
+        else:
+            g_k, g_v = g_k_full, g_v_full
+        grads = [g_q, g_k, g_v]
+        if len(node.inputs) > 3:
+            grads.append(None)
+        return grads
+
 
 @dataclass
 class RotaryMilli(MilliOp):
@@ -333,12 +496,40 @@ def flash_head_dim(D: int) -> Optional[int]:
     return next((h for h in FLASH_HEAD_DIMS if h >= D), None)
 
 
+_NO_KERNEL = threading.local()
+
+
+@contextlib.contextmanager
+def kernel_attention_disabled():
+    """Inside, flash_mode and pos_mode return None: every Attention call
+    runs the plain path below, whose backward autograd derives. Code
+    that will be differentiated (LMTrainer's forward) runs in it: the
+    attention kernels have no backward, as the reference's flash kernel
+    has no VJP, and the reference's trainer enters its counterpart
+    (pallas_attention_disabled, whisper_tensor_tpu/backends/pallas/
+    attention.py:55-79) for the same reason (ROADMAP A10). Thread-local,
+    like the reference's."""
+    prev = getattr(_NO_KERNEL, "on", False)
+    _NO_KERNEL.on = True
+    try:
+        yield
+    finally:
+        _NO_KERNEL.on = prev
+
+
+def kernels_disabled() -> bool:
+    """Whether this thread is inside kernel_attention_disabled()."""
+    return getattr(_NO_KERNEL, "on", False)
+
+
 def flash_mode(op, q, k, v, mask, need_qk: bool) -> Optional[str]:
     """"causal", "additive" or "none" (unmasked) when this call takes
     flash_attention in that mode: exactly the calls its wrapper takes
     (once k and v are contiguous, and for "none" once q, k and v are
-    padded to flash_head_dim(D)). None sends it to the plain path."""
-    if need_qk or op.softcap or q.ndim != 4 or k.ndim != 4:
+    padded to flash_head_dim(D)). None sends it to the plain path, as
+    it does every call inside kernel_attention_disabled()."""
+    if kernels_disabled() or need_qk or op.softcap or q.ndim != 4 \
+            or k.ndim != 4:
         return None
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -365,8 +556,10 @@ def pos_mode(op, q, k, v, pos, need_qk: bool) -> Optional[str]:
     "flash_pos" when it takes flash_attention's pos-bound mode: exactly
     the calls their wrappers take (once k and v are contiguous). None
     sends it to the plain path: a head dim the kernels lack (Phi-3's 96),
-    Dv != D, an f32 or f16 cache, a softcap (Gemma-2), a qk output."""
-    if need_qk or op.softcap or op.is_causal or q.ndim != 4 or k.ndim != 4:
+    Dv != D, an f32 or f16 cache, a softcap (Gemma-2), a qk output, or
+    any call inside kernel_attention_disabled()."""
+    if kernels_disabled() or need_qk or op.softcap or op.is_causal \
+            or q.ndim != 4 or k.ndim != 4:
         return None
     B, Hq, Sq, D = q.shape
     Hkv = k.shape[1]

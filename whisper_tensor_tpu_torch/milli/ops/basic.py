@@ -2,8 +2,8 @@
 ClampMin, Where and MatMul, and their PyTorch lowerings.
 
 The classes are the port's copy of whisper_tensor_tpu/milli/ops/basic.py
-(numpy `eval` and shape inference; no `to_jax` and no autodiff
-`backward`). Oracle contract: bf16/f16/f8 elementwise math computes in
+(numpy `eval`, shape inference and the autodiff `backward` rules; no
+`to_jax`). Oracle contract: bf16/f16/f8 elementwise math computes in
 f32 and rounds back once; matmuls accumulate in f32 (bf16/f16/f8 inputs)
 or in their own type (f32, f64, ints). Casts follow the oracle's numpy
 `astype`: a float8 cast out of range gives NaN (e4m3fn) or inf (e5m2),
@@ -24,12 +24,22 @@ import torch
 from ...dtype import (F4E2M1_VALUES, DType, from_torch, to_device,
                       to_torch)
 from ...tensor_info import Level, TensorInfo
-from ..ir import MilliOp
+from ..ir import MilliGraph, MilliOp, Phase
 from ..registry import lowering, need_static
 from .common import (binary_compute, elementwise_infer, unary_compute,
                      upcast_for_compute)
 from .lowering_common import (LOW_FLOATS, WIDE_UNSIGNED, down,
                               from_order_key, narrow, order_key, up, widen)
+
+
+def _sum_to_like(b: MilliGraph, grad: int, ref: int, phase: Phase) -> int:
+    """Reduce `grad` to the shape of tensor `ref` (broadcast-aware grad
+    accumulation; reference analyze_broadcast + SumTo,
+    src/milli_graph/mod.rs:1107-1167)."""
+    from .shape import Shape, SumTo
+
+    shp = b.op1(Shape(), ref, phase=phase)
+    return b.op1(SumTo(), grad, shp, phase=phase)
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +109,16 @@ class Cast(MilliOp):
             return [TensorInfo.numeric(self.eval([i.value])[0], self.dtype)]
         return [TensorInfo(self.dtype, i.level, shape=i.shape, rank_=i.rank_)]
 
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None]
+        src_info = b.tensors[node.inputs[0]].info
+        src_dt = src_info.dtype if src_info is not None else DType.F32
+        if not src_dt.is_float:
+            return [None]
+        return [b.op1(Cast(src_dt), g, phase=Phase.BACKWARD)]
+
 
 @dataclass
 class CastLike(MilliOp):
@@ -116,6 +136,15 @@ class CastLike(MilliOp):
         if x.level is Level.NUMERIC:
             return [TensorInfo.numeric(x.value.astype(dt.to_numpy()), dt)]
         return [TensorInfo(dt, x.level, shape=x.shape, rank_=x.rank_)]
+
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None, None]
+        from ..ir import Phase
+
+        return [b.op1(CastLike(), g, node.inputs[0], phase=Phase.BACKWARD),
+                None]
 
 
 # ---------------------------------------------------------------------------
@@ -200,12 +229,101 @@ class SimpleUnary(MilliOp):
             return [TensorInfo.numeric(self.eval([i.value])[0], dt)]
         return [TensorInfo(dt, min(i.level, Level.SHAPED), shape=i.shape, rank_=i.rank_)]
 
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None]
+        x = node.inputs[0]
+        y = node.outputs[0]
+        P = Phase.BACKWARD
+        m = self.mode
+
+        def u(mode, t):
+            return b.op1(SimpleUnary(mode), t, phase=P)
+
+        def bin(mode, a, c):
+            return b.op1(SimpleBinary(mode), a, c, phase=P)
+
+        if m == "neg":
+            return [u("neg", g)]
+        if m == "exp":
+            return [bin("mul", g, y)]
+        if m == "log":
+            return [bin("div", g, x)]
+        if m == "sqrt":
+            two = b.op1(Constant(np.asarray(2.0, dtype=np.float32)), phase=P)
+            twoc = b.op1(CastLike(), two, y, phase=P)
+            return [bin("div", g, bin("mul", twoc, y))]
+        if m == "tanh":
+            one = _const_like(b, 1.0, y, P)
+            return [bin("mul", g, bin("sub", one, bin("mul", y, y)))]
+        if m == "sigmoid":
+            one = _const_like(b, 1.0, y, P)
+            return [bin("mul", g, bin("mul", y, bin("sub", one, y)))]
+        if m == "relu":
+            zero = _const_like(b, 0.0, x, P)
+            gt = b.op1(SimpleBinary("gt"), x, zero, phase=P)
+            mask = b.op1(CastLike(), gt, g, phase=P)
+            return [bin("mul", g, mask)]
+        if m == "erf":
+            # d/dx erf(x) = 2/sqrt(pi) * exp(-x^2)
+            c = _const_like(b, 2.0 / np.sqrt(np.pi), x, P)
+            xx = bin("mul", x, x)
+            e = u("exp", u("neg", xx))
+            return [bin("mul", g, bin("mul", c, e))]
+        if m == "abs":
+            return [bin("mul", g, u("sign", x))]
+        if m == "sin":
+            return [bin("mul", g, u("cos", x))]
+        if m == "cos":
+            return [u("neg", bin("mul", g, u("sin", x)))]
+        if m == "reciprocal":
+            return [u("neg", bin("mul", g, bin("mul", y, y)))]
+        if m == "softplus":
+            return [bin("mul", g, u("sigmoid", x))]
+        if m in ("floor", "ceil", "round", "sign"):
+            # piecewise-constant: zero gradient almost everywhere
+            zero = _const_like(b, 0.0, g, P)
+            return [bin("mul", g, zero)]
+        if m == "tan":
+            one = _const_like(b, 1.0, y, P)
+            return [bin("mul", g, bin("add", one, bin("mul", y, y)))]
+        if m in ("asin", "acos"):
+            one = _const_like(b, 1.0, x, P)
+            d = u("sqrt", bin("sub", one, bin("mul", x, x)))
+            r = bin("div", g, d)
+            return [u("neg", r) if m == "acos" else r]
+        if m == "atan":
+            one = _const_like(b, 1.0, x, P)
+            return [bin("div", g, bin("add", one, bin("mul", x, x)))]
+        if m == "sinh":
+            return [bin("mul", g, u("cosh", x))]
+        if m == "cosh":
+            return [bin("mul", g, u("sinh", x))]
+        if m == "asinh":
+            one = _const_like(b, 1.0, x, P)
+            return [bin("div", g, u("sqrt", bin("add", bin("mul", x, x),
+                                                one)))]
+        if m == "acosh":
+            one = _const_like(b, 1.0, x, P)
+            return [bin("div", g, u("sqrt", bin("sub", bin("mul", x, x),
+                                                one)))]
+        if m == "atanh":
+            one = _const_like(b, 1.0, x, P)
+            return [bin("div", g, bin("sub", one, bin("mul", x, x)))]
+        raise NotImplementedError(f"backward for unary {m}")
+
 
 # ---------------------------------------------------------------------------
 # binary
 # ---------------------------------------------------------------------------
 
 _BOOL_MODES = ("eq", "ne", "lt", "le", "gt", "ge", "and", "or", "xor")
+
+
+def _const_like(b: MilliGraph, v: float, like: int, phase: Phase) -> int:
+    c = b.op1(Constant(np.asarray(v, dtype=np.float32)), phase=phase)
+    return b.op1(CastLike(), c, like, phase=phase)
 
 
 @dataclass
@@ -267,6 +385,40 @@ class SimpleBinary(MilliOp):
         dt = DType.BOOL if self.mode in _BOOL_MODES else None
         return [elementwise_infer(infos, out_dtype=dt)]
 
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None, None]
+        a, c = node.inputs
+        P = Phase.BACKWARD
+        m = self.mode
+
+        def bin(mode, x, y):
+            return b.op1(SimpleBinary(mode), x, y, phase=P)
+
+        if m == "add":
+            return [_sum_to_like(b, g, a, P), _sum_to_like(b, g, c, P)]
+        if m == "sub":
+            ng = b.op1(SimpleUnary("neg"), g, phase=P)
+            return [_sum_to_like(b, g, a, P), _sum_to_like(b, ng, c, P)]
+        if m == "mul":
+            return [_sum_to_like(b, bin("mul", g, c), a, P),
+                    _sum_to_like(b, bin("mul", g, a), c, P)]
+        if m == "div":
+            ga = bin("div", g, c)
+            y = node.outputs[0]
+            gc = b.op1(SimpleUnary("neg"), bin("div", bin("mul", g, y), c), phase=P)
+            return [_sum_to_like(b, ga, a, P), _sum_to_like(b, gc, c, P)]
+        if m in ("max", "min"):
+            cmp = "ge" if m == "max" else "le"
+            mask = b.op1(SimpleBinary(cmp), a, c, phase=P)
+            maskf = b.op1(CastLike(), mask, g, phase=P)
+            one = _const_like(b, 1.0, g, P)
+            inv = bin("sub", one, maskf)
+            return [_sum_to_like(b, bin("mul", g, maskf), a, P),
+                    _sum_to_like(b, bin("mul", g, inv), c, P)]
+        raise NotImplementedError(f"backward for binary {m}")
+
 
 @dataclass
 class Pow(MilliOp):
@@ -287,6 +439,24 @@ class Pow(MilliOp):
             return [TensorInfo.numeric(self.eval([i.value for i in infos])[0])]
         return [elementwise_infer([infos[0], TensorInfo(infos[0].dtype, infos[1].level,
                                                         shape=infos[1].shape, rank_=infos[1].rank_)])]
+
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None, None]
+        a, c = node.inputs
+        y = node.outputs[0]
+        P = Phase.BACKWARD
+
+        def bin(mode, x, z):
+            return b.op1(SimpleBinary(mode), x, z, phase=P)
+
+        one = _const_like(b, 1.0, a, P)
+        cm1 = bin("sub", b.op1(CastLike(), c, a, phase=P), one)
+        ga = bin("mul", g, bin("mul", b.op1(CastLike(), c, a, phase=P), b.op1(Pow(), a, cm1, phase=P)))
+        lg = b.op1(SimpleUnary("log"), a, phase=P)
+        gc = bin("mul", g, bin("mul", y, lg))
+        return [_sum_to_like(b, ga, a, P), _sum_to_like(b, gc, c, P)]
 
 
 @dataclass
@@ -324,6 +494,17 @@ class Where(MilliOp):
             return [TensorInfo.numeric(self.eval([i.value for i in infos])[0])]
         dt = infos[1].dtype
         return [elementwise_infer(infos, out_dtype=dt)]
+
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None, None, None]
+        cond, a, c = node.inputs
+        P = Phase.BACKWARD
+        zero = _const_like(b, 0.0, g, P)
+        ga = b.op1(Where(), cond, g, zero, phase=P)
+        gc = b.op1(Where(), cond, zero, g, phase=P)
+        return [None, _sum_to_like(b, ga, a, P), _sum_to_like(b, gc, c, P)]
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +569,21 @@ class MatMul(MilliOp):
         if a.rank is not None and c.rank is not None:
             return [TensorInfo.ranked(out_dt, max(a.rank, c.rank))]
         return [TensorInfo.minimal(out_dt)]
+
+    def backward(self, b, node, out_grads):
+        from .shape import Transpose
+
+        g = out_grads[0]
+        if g is None:
+            return [None, None]
+        a, c = node.inputs
+        P = Phase.BACKWARD
+        # dA = g @ c^T ; dC = a^T @ g   (last-two-dims transpose)
+        ct = b.op1(Transpose(perm=None, swap_last2=True), c, phase=P)
+        at = b.op1(Transpose(perm=None, swap_last2=True), a, phase=P)
+        ga = b.op1(MatMul(self.accumulate, self.out_dtype), g, ct, phase=P)
+        gc = b.op1(MatMul(self.accumulate, self.out_dtype), at, g, phase=P)
+        return [_sum_to_like(b, ga, a, P), _sum_to_like(b, gc, c, P)]
 
 
 # -- lowerings ----------------------------------------------------------

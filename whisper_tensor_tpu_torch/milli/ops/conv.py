@@ -3,11 +3,12 @@ PyTorch lowerings.
 
 The classes are the port's copy of whisper_tensor_tpu/milli/ops/conv.py
 (numpy `eval` and shape inference, Resize's host-side gather plan
-`resize_plan` and its helpers; no `to_jax` and no autodiff `backward`).
-Left out: ConvInputGrad, ConvWeightGrad and ConvBiasGrad (:202-441),
-which only training emits (ROADMAP A10); ConvTranspose's numpy eval keeps
-the input-gradient arithmetic it shares with ConvInputGrad as
-`_conv_input_grad_np`.
+`resize_plan` and its helpers, Conv's autodiff `backward`; no `to_jax`),
+with the gradient kinds that only training emits, ConvInputGrad,
+ConvWeightGrad and ConvBiasGrad (:202-441), lowered by
+`torch.nn.grad.conv*d_input`/`_weight` over the padded input and a sum.
+ConvTranspose's numpy eval shares the input-gradient arithmetic of
+ConvInputGrad, `_conv_input_grad_np`.
 
 The lowerings are the counterparts of the reference's `to_jax`, which
 computes these ops with `lax` outside any Pallas kernel; here torch's
@@ -44,7 +45,7 @@ import torch.nn.functional as F
 from ...dtype import DType
 from ...scalar_info import ScalarInfo
 from ...tensor_info import Level, TensorInfo
-from ..ir import MilliOp
+from ..ir import MilliOp, Phase
 from ..registry import lowering, need_static
 from .common import downcast_result, upcast_for_compute
 
@@ -161,6 +162,127 @@ class Conv(MilliOp):
         if x.rank is not None:
             return [TensorInfo.ranked(x.dtype, x.rank)]
         return [TensorInfo.minimal(x.dtype)]
+
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None] * len(node.inputs)
+        P = Phase.BACKWARD
+        from .shape import Shape
+
+        x, w = node.inputs[0], node.inputs[1]
+        xs = b.op1(Shape(), x, phase=P)
+        ws = b.op1(Shape(), w, phase=P)
+        gx = b.op1(ConvInputGrad(self.strides, self.pads, self.dilations, self.groups),
+                   xs, w, g, phase=P)
+        gw = b.op1(ConvWeightGrad(self.strides, self.pads, self.dilations, self.groups),
+                   ws, x, g, phase=P)
+        grads = [gx, gw]
+        if len(node.inputs) > 2:
+            gb = b.op1(ConvBiasGrad(), g, phase=P)
+            grads.append(gb)
+        return grads
+
+
+@dataclass
+class ConvInputGrad(MilliOp):
+    """(x_shape, w, grad) -> dX. Transposed convolution of grad by w."""
+
+    strides: Optional[List[int]] = None
+    pads: Optional[List[int]] = None
+    dilations: Optional[List[int]] = None
+    groups: int = 1
+    KIND = "ConvInputGrad"
+
+    def eval(self, inputs):
+        x_shape = tuple(int(v) for v in np.asarray(inputs[0]).reshape(-1))
+        w, g = inputs[1], inputs[2]
+        wc, _ = upcast_for_compute(w)
+        gc, orig = upcast_for_compute(g)
+        return [downcast_result(_conv_input_grad_np(
+            x_shape, wc, gc, self.strides, self.pads, self.dilations,
+            self.groups), orig)]
+
+    def infer(self, infos):
+        shp = infos[0]
+        dt = infos[2].dtype
+        if shp.level is Level.NUMERIC:
+            return [TensorInfo.shaped(dt, [int(v) for v in shp.value.reshape(-1)])]
+        return [TensorInfo.minimal(dt)]
+
+
+@dataclass
+class ConvWeightGrad(MilliOp):
+    """(w_shape, x, grad) -> dW."""
+
+    strides: Optional[List[int]] = None
+    pads: Optional[List[int]] = None
+    dilations: Optional[List[int]] = None
+    groups: int = 1
+    KIND = "ConvWeightGrad"
+
+    def eval(self, inputs):
+        w_shape = tuple(int(v) for v in np.asarray(inputs[0]).reshape(-1))
+        x, g = inputs[1], inputs[2]
+        xc, _ = upcast_for_compute(x)
+        gc, orig = upcast_for_compute(g)
+        nsp = x.ndim - 2
+        strides = list(self.strides or [1] * nsp)
+        dil = list(self.dilations or [1] * nsp)
+        pads = list(self.pads or [0] * (2 * nsp))
+        pb, pe = pads[:nsp], pads[nsp:]
+        xp = np.pad(xc, [(0, 0), (0, 0)] + [(pb[i], pe[i]) for i in range(nsp)])
+        N, Cin = x.shape[:2]
+        Cout = w_shape[0]
+        icg = Cin // self.groups
+        ocg = Cout // self.groups
+        ksp = w_shape[2:]
+        osp = gc.shape[2:]
+        dw = np.zeros(w_shape, dtype=gc.dtype)
+        for kpos in itertools.product(*[range(k) for k in ksp]):
+            sl = tuple(
+                slice(kpos[i] * dil[i],
+                      kpos[i] * dil[i] + strides[i] * (osp[i] - 1) + 1,
+                      strides[i])
+                for i in range(nsp))
+            xs = xp[(slice(None), slice(None)) + sl]  # (N, Cin, *osp)
+            sp = "defgh"[:nsp]  # spatial index letters (reduced)
+            if self.groups == 1:
+                dw[(slice(None), slice(None)) + kpos] += np.einsum(
+                    f"no{sp},nc{sp}->oc", gc, xs)
+            else:
+                g_g = gc.reshape(N, self.groups, ocg, *osp)
+                xs_g = xs.reshape(N, self.groups, icg, *osp)
+                dd = np.einsum(f"ngo{sp},ngc{sp}->goc", g_g, xs_g).reshape(Cout, icg)
+                dw[(slice(None), slice(None)) + kpos] += dd
+        return [downcast_result(dw, orig)]
+
+    def infer(self, infos):
+        shp = infos[0]
+        dt = infos[2].dtype
+        if shp.level is Level.NUMERIC:
+            return [TensorInfo.shaped(dt, [int(v) for v in shp.value.reshape(-1)])]
+        return [TensorInfo.minimal(dt)]
+
+
+@dataclass
+class ConvBiasGrad(MilliOp):
+    """grad -> dBias (sum over all but channel axis 1)."""
+
+    KIND = "ConvBiasGrad"
+
+    def eval(self, inputs):
+        g = inputs[0]
+        gc, orig = upcast_for_compute(g)
+        ax = (0,) + tuple(range(2, g.ndim))
+        return [downcast_result(gc.sum(axis=ax), orig)]
+
+    def infer(self, infos):
+        i = infos[0]
+        dims = i.dims()
+        if dims is not None:
+            return [TensorInfo.shaped(i.dtype, [dims[1]])]
+        return [TensorInfo.ranked(i.dtype, 1)]
 
 
 def _conv_input_grad_np(x_shape, w, g, strides, pads, dilations, groups):
@@ -665,6 +787,9 @@ class Pool(MilliOp):
 _CONV_FNS = {1: (F.conv1d, F.conv_transpose1d),
              2: (F.conv2d, F.conv_transpose2d),
              3: (F.conv3d, F.conv_transpose3d)}
+_GRAD_FNS = {1: (torch.nn.grad.conv1d_input, torch.nn.grad.conv1d_weight),
+             2: (torch.nn.grad.conv2d_input, torch.nn.grad.conv2d_weight),
+             3: (torch.nn.grad.conv3d_input, torch.nn.grad.conv3d_weight)}
 
 
 def _compute_pair(x: torch.Tensor, w: torch.Tensor):
@@ -745,6 +870,61 @@ def conv(op, inputs, static, device):
         padding=tuple(pads[:nsp]) if sym else 0,
         dilation=tuple(op.dilations or [1] * nsp), groups=op.groups)
     return [_add_bias(out.to(x.dtype), bias)]
+
+
+def _grad_geometry(op, nsp: int):
+    """(strides, dilations, begin pads, end pads) of a gradient kind."""
+    pads = list(op.pads or [0] * (2 * nsp))
+    return (tuple(op.strides or [1] * nsp), tuple(op.dilations or [1] * nsp),
+            pads[:nsp], pads[nsp:])
+
+
+def _grad_compute(t: torch.Tensor) -> torch.Tensor:
+    """A gradient kind's operand in f32 where it is a 16-bit float: the
+    oracle sums in f32 and rounds once."""
+    return t.float() if t.dtype in (torch.bfloat16, torch.float16) else t
+
+
+@lowering("ConvInputGrad")
+def conv_input_grad(op, inputs, static, device):
+    x_shape = [int(v) for v in need_static(static, 0, "ConvInputGrad")
+               .reshape(-1)]
+    w, g = inputs[1], inputs[2]
+    nsp = len(x_shape) - 2
+    if nsp not in _GRAD_FNS:
+        raise NotImplementedError(f"ConvInputGrad over {nsp} spatial axes")
+    s, d, pb, pe = _grad_geometry(op, nsp)
+    # the gradient of the padded input, cropped to x: asymmetric pads
+    # are then no special case
+    padded = x_shape[:2] + [x_shape[2 + i] + pb[i] + pe[i]
+                            for i in range(nsp)]
+    gc = _grad_compute(g)
+    dxp = _GRAD_FNS[nsp][0](padded, _grad_compute(w).to(gc.dtype), gc,
+                            stride=s, padding=0, dilation=d, groups=op.groups)
+    return [_pad_spatial(dxp, [-p for p in pb], [-p for p in pe]).to(g.dtype)]
+
+
+@lowering("ConvWeightGrad")
+def conv_weight_grad(op, inputs, static, device):
+    w_shape = [int(v) for v in need_static(static, 0, "ConvWeightGrad")
+               .reshape(-1)]
+    x, g = inputs[1], inputs[2]
+    nsp = x.ndim - 2
+    if nsp not in _GRAD_FNS:
+        raise NotImplementedError(f"ConvWeightGrad over {nsp} spatial axes")
+    s, d, pb, pe = _grad_geometry(op, nsp)
+    gc = _grad_compute(g)
+    xp = _pad_spatial(_grad_compute(x).to(gc.dtype), pb, pe)
+    dw = _GRAD_FNS[nsp][1](xp, w_shape, gc, stride=s, padding=0, dilation=d,
+                           groups=op.groups)
+    return [dw.to(g.dtype)]
+
+
+@lowering("ConvBiasGrad")
+def conv_bias_grad(op, inputs, static, device):
+    g = inputs[0]
+    return [_grad_compute(g).sum(dim=(0,) + tuple(range(2, g.ndim)))
+            .to(g.dtype)]
 
 
 @lowering("ConvTranspose")

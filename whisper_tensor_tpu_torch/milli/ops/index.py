@@ -2,8 +2,9 @@
 Range, and their PyTorch lowerings.
 
 The classes are the port's copy of whisper_tensor_tpu/milli/ops/index.py
-(numpy `eval` and shape inference; no `to_jax`) without GatherGrad, the
-training-only gradient of Gather. Scatters write into a copy of `data`;
+(numpy `eval`, shape inference and the autodiff `backward` rules; no
+`to_jax`), GatherGrad (the training-only gradient of Gather, lowered by
+`index_add_`) among them. Scatters write into a copy of `data`;
 an N-d index becomes one linear index over the indexed leading dims, so
 every scatter is one `index_*` or `scatter_reduce` call.
 """
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from ...tensor_info import Level, TensorInfo
-from ..ir import MilliOp
+from ..ir import MilliOp, Phase
 from ..registry import lowering, need_static
 from .lowering_common import narrow, widen
 
@@ -49,6 +50,52 @@ class Gather(MilliOp):
             return [TensorInfo.ranked(data.dtype, data.rank - 1 + idx.rank)]
         return [TensorInfo.minimal(data.dtype)]
 
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None, None]
+        P = Phase.BACKWARD
+        from .shape import Shape
+
+        shp = b.op1(Shape(), node.inputs[0], phase=P)
+        gg = b.op1(GatherGrad(axis=self.axis), shp, node.inputs[1], g, phase=P)
+        return [gg, None]
+
+
+@dataclass
+class GatherGrad(MilliOp):
+    """Scatter-add gradient of Gather: (data_shape, indices, grad) -> d(data).
+
+    Reference: src/milli_graph/ops/mod.rs GatherGrad; a segment sum.
+    """
+
+    axis: int = 0
+    KIND = "GatherGrad"
+
+    def eval(self, inputs):
+        shape, idx, g = inputs
+        shape = tuple(int(x) for x in np.asarray(shape).reshape(-1))
+        ax = self.axis % len(shape)
+        from .common import downcast_result, upcast_for_compute
+
+        gc, orig = upcast_for_compute(g)
+        out = np.zeros(shape, dtype=gc.dtype)
+        idxf = idx.astype(np.int64).reshape(-1)
+        idxf = np.where(idxf < 0, idxf + shape[ax], idxf)
+        # flatten index dims into the gather axis, move that axis to front
+        g_flat = gc.reshape(shape[:ax] + (idxf.size,) + shape[ax + 1:])
+        out_moved = np.moveaxis(out, ax, 0)
+        np.add.at(out_moved, idxf, np.moveaxis(g_flat, ax, 0))
+        return [downcast_result(out, orig)]
+
+    def infer(self, infos):
+        shape = infos[0]
+        dt = infos[2].dtype
+        if shape.level is Level.NUMERIC:
+            dims = [int(x) for x in shape.value.reshape(-1)]
+            return [TensorInfo.shaped(dt, dims)]
+        return [TensorInfo.minimal(dt)]
+
 
 @dataclass
 class GatherElements(MilliOp):
@@ -74,6 +121,51 @@ class GatherElements(MilliOp):
         if idx.rank is not None:
             return [TensorInfo.ranked(data.dtype, idx.rank)]
         return [TensorInfo.minimal(data.dtype)]
+
+    def backward(self, b, node, out_grads):
+        """grad_data = sum_K onehot(idx) * g along the gathered axis.
+        Non-last axes transpose the axis to the end, apply the last-axis
+        rule, and transpose back (needs rank info)."""
+        g = out_grads[0]
+        if g is None:
+            return [None, None]
+        info = b.tensors[node.inputs[0]].info
+        rank = info.rank if info is not None else None
+        last = self.axis == -1 or (rank is not None
+                                   and self.axis % rank == rank - 1)
+        if not last and rank is None:
+            raise NotImplementedError(
+                "GatherElements backward: non-last axis without rank info")
+        from .misc import OneHotMilli
+        from .shape import GatherShape, Shape, Transpose, Unsqueeze
+
+        P = Phase.BACKWARD
+        data, idx = node.inputs
+        from .basic import CastLike, Constant, SimpleBinary
+
+        if last:
+            depth_src, g_in, idx_in = data, g, idx
+            shp = b.op1(Shape(start=-1), data, phase=P)               # [V]
+            depth = b.op1(GatherShape(0), shp, phase=P)
+        else:
+            ax = self.axis % rank
+            perm = [i for i in range(rank) if i != ax] + [ax]
+            inv = [int(i) for i in np.argsort(perm)]
+            g_in = b.op1(Transpose(perm=perm), g, phase=P)
+            idx_in = b.op1(Transpose(perm=perm), idx, phase=P)
+            shp = b.op1(Shape(), data, phase=P)
+            depth = b.op1(GatherShape(ax), shp, phase=P)
+        vals = b.op1(Constant(np.asarray([0.0, 1.0], dtype=np.float32)), phase=P)
+        valsc = b.op1(CastLike(), vals, g, phase=P)
+        hot = b.op1(OneHotMilli(axis=-1), idx_in, depth, valsc, phase=P)  # (...,K,V)
+        gk = b.op1(Unsqueeze(axes=[-1]), g_in, phase=P)                   # (...,K,1)
+        contrib = b.op1(SimpleBinary("mul"), hot, gk, phase=P)
+        from .reduce import Reduce
+
+        gd = b.op1(Reduce("sum", axes=[-2], keepdims=False), contrib, phase=P)
+        if not last:
+            gd = b.op1(Transpose(perm=inv), gd, phase=P)
+        return [gd, None]
 
 
 @dataclass
@@ -217,6 +309,21 @@ def gather(op, inputs, static, device):
     idx = torch.where(idx < 0, idx + data.shape[ax], idx)
     out = torch.index_select(data, ax, idx.reshape(-1))
     return [out.reshape(data.shape[:ax] + idx.shape + data.shape[ax + 1:])]
+
+
+@lowering("GatherGrad")
+def gather_grad(op, inputs, static, device):
+    shape = tuple(int(x) for x in need_static(static, 0, "GatherGrad")
+                  .reshape(-1))
+    idx, g = inputs[1], inputs[2]
+    ax = op.axis % len(shape)
+    flat = _norm_idx(idx.reshape(-1), shape[ax])
+    # 16-bit floats sum in f32 and round once, as the oracle
+    acc = torch.float32 if g.dtype in (torch.bfloat16, torch.float16) \
+        else g.dtype
+    g2 = g.reshape(shape[:ax] + (flat.numel(),) + shape[ax + 1:]).to(acc)
+    out = torch.zeros(shape, dtype=acc, device=g.device)
+    return [out.index_add_(ax, flat, g2).to(g.dtype)]
 
 
 @lowering("Range")

@@ -2,8 +2,8 @@
 BatchNorm, and their PyTorch lowerings.
 
 The classes are the port's copy of whisper_tensor_tpu/milli/ops/norm.py
-(numpy `eval` and shape inference; no `to_jax` and no autodiff
-`backward`). The lowerings take statistics in f32 (the ONNX stash_type=1
+(numpy `eval`, shape inference and the autodiff `backward` rules; no
+`to_jax`). The lowerings take statistics in f32 (the ONNX stash_type=1
 default) and round the output back to the input type once.
 """
 
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ...tensor_info import Level, TensorInfo
-from ..ir import MilliOp
+from ..ir import MilliOp, Phase
 from ..registry import lowering
 
 
@@ -73,6 +73,71 @@ class LayerNormMilli(MilliOp):
         stats = (TensorInfo.ranked(stash, i.rank) if i.rank is not None
                  else TensorInfo.minimal(stash))
         return [i.forget_value(), stats, stats][:self.n_out]
+
+    def backward(self, b, node, out_grads):
+        """Recompute-based LN backward:
+          x̂ = (x-μ)·inv,  ĝ = g·γ
+          dx = inv·(ĝ − mean(ĝ) − x̂·mean(ĝ·x̂))   over normalized axes
+          dγ = Σ_batch g·x̂,   dβ = Σ_batch g
+        Needs the input rank (to span axis..rank); stats recomputed in
+        the graph (cheap — XLA fuses them with the forward's)."""
+        g = out_grads[0]
+        if any(og is not None for og in out_grads[1:]):
+            raise NotImplementedError(
+                "LayerNorm backward: grads into Mean/InvStdDev outputs")
+        if g is None:
+            return [None] * len(node.inputs)
+        from .basic import Constant, SimpleBinary, SimpleUnary
+        from .reduce import Reduce
+
+        x, scale = node.inputs[0], node.inputs[1]
+        has_bias = len(node.inputs) > 2 and node.inputs[2] is not None
+        info = b.tensors[x].info
+        rank = info.rank if info is not None else None
+        if rank is None:
+            raise NotImplementedError("LayerNorm backward: unknown rank")
+        ax = self.axis % rank
+        norm_axes = list(range(ax, rank))
+        batch_axes = list(range(0, ax))
+        P = Phase.BACKWARD
+
+        def bop(mode, *ins):
+            return b.op1(SimpleBinary(mode), *ins, phase=P)
+
+        mean = b.op1(Reduce("mean", norm_axes, keepdims=True), x, phase=P)
+        d = bop("sub", x, mean)
+        var = b.op1(Reduce("mean", norm_axes, keepdims=True),
+                    bop("mul", d, d), phase=P)
+        eps = b.op1(Constant(np.asarray(self.epsilon, dtype=np.float32)),
+                    phase=P)
+        from .basic import CastLike
+
+        epsc = b.op1(CastLike(), eps, var, phase=P)
+        inv = bop("div",
+                  b.op1(CastLike(), b.op1(Constant(
+                      np.asarray(1.0, dtype=np.float32)), phase=P), var,
+                      phase=P),
+                  b.op1(SimpleUnary("sqrt"), bop("add", var, epsc), phase=P))
+        xhat = bop("mul", d, inv)
+        ghat = bop("mul", g, scale)
+        m1 = b.op1(Reduce("mean", norm_axes, keepdims=True), ghat, phase=P)
+        m2 = b.op1(Reduce("mean", norm_axes, keepdims=True),
+                   bop("mul", ghat, xhat), phase=P)
+        dx = bop("mul", inv, bop("sub", bop("sub", ghat, m1),
+                                 bop("mul", xhat, m2)))
+        gx = bop("mul", g, xhat)
+        if batch_axes:
+            dscale = b.op1(Reduce("sum", batch_axes, keepdims=False), gx,
+                           phase=P)
+            dbias = (b.op1(Reduce("sum", batch_axes, keepdims=False), g,
+                           phase=P) if has_bias else None)
+        else:
+            dscale = gx
+            dbias = g if has_bias else None
+        out = [dx, dscale]
+        if len(node.inputs) > 2:
+            out.append(dbias)
+        return out
 
 
 @dataclass
@@ -155,6 +220,72 @@ class GroupNormMilli(MilliOp):
         if all(f.level is Level.NUMERIC for f in infos):
             return [TensorInfo.numeric(self.eval([f.value for f in infos])[0])]
         return [i.forget_value()]
+
+    def backward(self, b, node, out_grads):
+        """Per-group LayerNorm backward in the grouped view:
+          x̂ = (x−μ_g)·inv_g,  ĝ = g·γ_c
+          dx = inv·(ĝ − mean_g(ĝ) − x̂·mean_g(ĝ·x̂))
+          dγ_c = Σ_{N,spatial} g·x̂,   dβ_c = Σ_{N,spatial} g
+        Needs a concrete input shape (group reshape), like the
+        reference's shape-resolved norm backward rules."""
+        g = out_grads[0]
+        if g is None:
+            return [None, None, None]
+        from .basic import CastLike, Constant, SimpleBinary, SimpleUnary
+        from .reduce import Reduce
+        from .shape import Reshape
+
+        x, scale = node.inputs[0], node.inputs[1]
+        info = b.tensors[x].info
+        dims = info.dims() if info is not None else None
+        if dims is None or any(d is None or not d.is_known for d in dims):
+            raise NotImplementedError("GroupNorm backward: unknown shape")
+        shape = [int(d.value()) for d in dims]
+        N, C, sp = shape[0], shape[1], shape[2:]
+        G = self.num_groups
+        gshape = [N, G, C // G] + sp
+        P = Phase.BACKWARD
+
+        def bop(mode, *ins):
+            return b.op1(SimpleBinary(mode), *ins, phase=P)
+
+        def const_i64(vals):
+            return b.op1(Constant(np.asarray(vals, dtype=np.int64)),
+                         phase=P)
+
+        def reshape(t, spec):
+            return b.op1(Reshape(), t, const_i64(spec), phase=P)
+
+        norm_axes = list(range(2, len(gshape)))
+        xg = reshape(x, gshape)
+        mean = b.op1(Reduce("mean", norm_axes, keepdims=True), xg, phase=P)
+        d = bop("sub", xg, mean)
+        var = b.op1(Reduce("mean", norm_axes, keepdims=True),
+                    bop("mul", d, d), phase=P)
+        eps = b.op1(CastLike(), b.op1(Constant(
+            np.asarray(self.epsilon, dtype=np.float32)), phase=P), var,
+            phase=P)
+        one = b.op1(CastLike(), b.op1(Constant(
+            np.asarray(1.0, dtype=np.float32)), phase=P), var, phase=P)
+        inv = bop("div", one,
+                  b.op1(SimpleUnary("sqrt"), bop("add", var, eps), phase=P))
+        xhat = bop("mul", d, inv)
+
+        # ĝ = g·γ broadcast per channel (axis 1), then grouped
+        sc_view = reshape(b.op1(CastLike(), scale, g, phase=P),
+                          [1, C] + [1] * len(sp))
+        ghat = reshape(bop("mul", g, sc_view), gshape)
+        m1 = b.op1(Reduce("mean", norm_axes, keepdims=True), ghat, phase=P)
+        m2 = b.op1(Reduce("mean", norm_axes, keepdims=True),
+                   bop("mul", ghat, xhat), phase=P)
+        dx = reshape(bop("mul", inv, bop("sub", bop("sub", ghat, m1),
+                                         bop("mul", xhat, m2))), shape)
+
+        red_axes = [0] + list(range(2, len(shape)))   # all but channel
+        gx = bop("mul", g, reshape(xhat, shape))
+        dscale = b.op1(Reduce("sum", red_axes, keepdims=False), gx, phase=P)
+        dbias = b.op1(Reduce("sum", red_axes, keepdims=False), g, phase=P)
+        return [dx, dscale, dbias]
 
 
 @dataclass

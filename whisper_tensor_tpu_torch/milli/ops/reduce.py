@@ -2,7 +2,8 @@
 and their PyTorch lowerings.
 
 The classes are the port's copy of whisper_tensor_tpu/milli/ops/
-reduce.py (numpy `eval` and shape inference; no `to_jax`). Reduce axes
+reduce.py (numpy `eval`, shape inference and Reduce's autodiff
+`backward`; no `to_jax`). Reduce axes
 and TopK's k must be host values (NeedsStatic lifts them). NonZero's
 output shape depends on the data: the executor does not replay a plan
 that folded a shape read after it (backends/torch_exec/compiler.py).
@@ -21,7 +22,7 @@ import torch
 from ...dtype import DType
 from ...scalar_info import ScalarInfo
 from ...tensor_info import Level, TensorInfo
-from ..ir import MilliOp
+from ..ir import MilliOp, Phase
 from ..registry import lowering, need_static
 from .lowering_common import (down, from_order_key, narrow, np_dtype,
                               order_key, up, widen)
@@ -125,6 +126,100 @@ class Reduce(MilliOp):
             r = i.rank if self.keepdims else max(0, i.rank - len(self._axes(i.rank)))
             return [TensorInfo.ranked(i.dtype, r)]
         return [TensorInfo.minimal(i.dtype)]
+
+    def backward(self, b, node, out_grads):
+        from .basic import CastLike, Constant, SimpleBinary
+        from .shape import Expand, Reshape, Shape, Unsqueeze
+
+        g = out_grads[0]
+        if g is None:
+            return [None]
+        x = node.inputs[0]
+        P = Phase.BACKWARD
+        if self.mode in ("max", "min"):
+            # subgradient: distribute grad equally over arg-extreme ties
+            y = node.outputs[0]
+            yk, gk = y, g
+            if not self.keepdims and self.axes:
+                if all(a < 0 for a in self.axes):
+                    ax = sorted(self.axes)
+                else:
+                    info = b.tensors[x].info
+                    rank = (info.rank if info is not None
+                            and info.rank is not None else None)
+                    if rank is None:
+                        raise NotImplementedError(
+                            "Reduce max/min backward without rank info")
+                    ax = list(self._axes(rank))
+                yk = b.op1(Unsqueeze(axes=ax), y, phase=P)
+                gk = b.op1(Unsqueeze(axes=ax), g, phase=P)
+            mask = b.op1(SimpleBinary("eq"), x, yk, phase=P)
+            maskf = b.op1(CastLike(), mask, g, phase=P)
+            cnt = b.op1(Reduce("sum", self.axes, keepdims=True), maskf, phase=P)
+            share = b.op1(SimpleBinary("div"), maskf, cnt, phase=P)
+            return [b.op1(SimpleBinary("mul"), gk, share, phase=P)]
+        if self.mode in ("prod", "l1", "l2", "sumsquare", "logsumexp"):
+            from .basic import SimpleUnary
+
+            y = node.outputs[0]
+            yk, gk = y, g
+            if not self.keepdims and self.axes:
+                if all(a < 0 for a in self.axes):
+                    ax = sorted(self.axes)
+                else:
+                    info = b.tensors[x].info
+                    rank = (info.rank if info is not None
+                            and info.rank is not None else None)
+                    if rank is None:
+                        raise NotImplementedError(
+                            f"Reduce {self.mode} backward without rank info")
+                    ax = list(self._axes(rank))
+                yk = b.op1(Unsqueeze(axes=ax), y, phase=P)
+                gk = b.op1(Unsqueeze(axes=ax), g, phase=P)
+
+            def bop(mode, a_, c_):
+                return b.op1(SimpleBinary(mode), a_, c_, phase=P)
+
+            if self.mode == "prod":
+                # d prod/dx_i = prod / x_i (subgradient away from zeros)
+                return [bop("mul", gk, bop("div", yk, x))]
+            if self.mode == "l1":
+                return [bop("mul", gk, b.op1(SimpleUnary("sign"), x,
+                                             phase=P))]
+            if self.mode == "l2":
+                # d sqrt(sum x^2)/dx = x / y
+                return [bop("mul", gk, bop("div", x, yk))]
+            if self.mode == "sumsquare":
+                two = b.op1(CastLike(), b.op1(Constant(
+                    np.asarray(2.0, dtype=np.float32)), phase=P), g, phase=P)
+                return [bop("mul", gk, bop("mul", two, x))]
+            # logsumexp: d/dx = exp(x - y) (the softmax weights)
+            e = b.op1(SimpleUnary("exp"), bop("sub", x, yk), phase=P)
+            return [bop("mul", gk, e)]
+        if self.mode not in ("sum", "mean"):
+            raise NotImplementedError(f"backward for Reduce-{self.mode}")
+        # re-insert reduced dims if keepdims=False, then broadcast
+        if not self.keepdims and self.axes:
+            if all(a < 0 for a in self.axes):
+                ax = sorted(self.axes)  # negative axes need no rank info
+            else:
+                info = b.tensors[x].info
+                rank = info.rank if info is not None and info.rank is not None else None
+                if rank is None:
+                    raise NotImplementedError("Reduce backward without rank info")
+                ax = list(self._axes(rank))
+            g = b.op1(Unsqueeze(axes=ax), g, phase=P)
+        # all-axes reduce to scalar: Expand broadcasts directly
+        shp = b.op1(Shape(), x, phase=P)
+        g = b.op1(Expand(), g, shp, phase=P)
+        if self.mode == "mean":
+            # divide by number of reduced elements = size(x)/size(g_preexpand)
+            from .reduce import SizeOf
+
+            n = b.op1(SizeOf(axes=self.axes), x, phase=P)
+            nf = b.op1(CastLike(), n, g, phase=P)
+            g = b.op1(SimpleBinary("div"), g, nf, phase=P)
+        return [g]
 
 
 @dataclass

@@ -3,8 +3,8 @@ Unsqueeze, Expand, Slice, Concat, GatherShape, Split, Pad) and their
 PyTorch lowerings.
 
 The classes are the port's copy of whisper_tensor_tpu/milli/ops/shape.py
-(numpy `eval` and shape inference; no `to_jax` and no autodiff
-`backward`, and so no SumTo, the gradient's reducer). Shape arguments
+(numpy `eval`, shape inference and the autodiff `backward` rules; no
+`to_jax`), with SumTo, the gradient's broadcast reducer. Shape arguments
 (Reshape's target, axes, Split sizes, Slice bounds, Pad amounts) must be
 host values: the executor folds them, or lifts the graph inputs they
 come from (need_static). The lowerings reuse the classes' own shape
@@ -23,7 +23,7 @@ import torch
 from ...dtype import DType
 from ...scalar_info import ScalarInfo
 from ...tensor_info import Level, TensorInfo
-from ..ir import MilliOp
+from ..ir import MilliOp, Phase
 from ..registry import lowering, need_static
 
 
@@ -121,6 +121,14 @@ class Reshape(MilliOp):
             return [TensorInfo.ranked(data.dtype, int(sd[0].value()))]
         return [TensorInfo.minimal(data.dtype)]
 
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None, None]
+        P = Phase.BACKWARD
+        shp = b.op1(Shape(), node.inputs[0], phase=P)
+        return [b.op1(Reshape(), g, shp, phase=P), None]
+
 
 @dataclass
 class Transpose(MilliOp):
@@ -152,6 +160,20 @@ class Transpose(MilliOp):
         if i.rank is not None:
             return [TensorInfo.ranked(i.dtype, i.rank)]
         return [i]
+
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None]
+        P = Phase.BACKWARD
+        if self.swap_last2:
+            return [b.op1(Transpose(swap_last2=True), g, phase=P)]
+        if self.perm is None:
+            return [b.op1(Transpose(), g, phase=P)]
+        inv = [0] * len(self.perm)
+        for i, p in enumerate(self.perm):
+            inv[p] = i
+        return [b.op1(Transpose(perm=inv), g, phase=P)]
 
 
 @dataclass
@@ -196,6 +218,14 @@ class Squeeze(MilliOp):
         if i.rank is not None and axes is not None:
             return [TensorInfo.ranked(i.dtype, i.rank - len(axes))]
         return [TensorInfo.minimal(i.dtype)]
+
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None]
+        P = Phase.BACKWARD
+        shp = b.op1(Shape(), node.inputs[0], phase=P)
+        return [b.op1(Reshape(), g, shp, phase=P)]
 
 
 @dataclass
@@ -252,6 +282,14 @@ class Unsqueeze(MilliOp):
             return [TensorInfo.ranked(i.dtype, i.rank + len(axes))]
         return [TensorInfo.minimal(i.dtype)]
 
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None]
+        P = Phase.BACKWARD
+        shp = b.op1(Shape(), node.inputs[0], phase=P)
+        return [b.op1(Reshape(), g, shp, phase=P)]
+
 
 @dataclass
 class Expand(MilliOp):
@@ -291,6 +329,53 @@ class Expand(MilliOp):
                         out.append(ScalarInfo.of(s))
                 return [TensorInfo.shaped(data.dtype, out)]
             return [TensorInfo.ranked(data.dtype, len(sv))]
+        return [TensorInfo.minimal(data.dtype)]
+
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None, None]
+        P = Phase.BACKWARD
+        shp = b.op1(Shape(), node.inputs[0], phase=P)
+        return [b.op1(SumTo(), g, shp, phase=P), None]
+
+
+@dataclass
+class SumTo(MilliOp):
+    """data, target_shape(i64) -> sum-reduce data down to target shape.
+
+    The broadcast-gradient reducer (reference src/milli_graph/ops/sum_to.rs).
+    """
+
+    KIND = "SumTo"
+
+    @staticmethod
+    def _reduce(data, tgt):
+        tgt = tuple(int(x) for x in np.asarray(tgt).reshape(-1))
+        while data.ndim > len(tgt):
+            data = data.sum(axis=0)
+        for ax, (d, t) in enumerate(zip(data.shape, tgt)):
+            if d != t:
+                if t != 1:
+                    raise ValueError(f"SumTo: cannot reduce {data.shape} to {tgt}")
+                data = data.sum(axis=ax, keepdims=True)
+        return data
+
+    def eval(self, inputs):
+        data, tgt = inputs
+        x = data
+        if x.dtype.kind == "f" and x.dtype.itemsize < 4:
+            out = self._reduce(x.astype(np.float32), tgt).astype(x.dtype)
+        else:
+            out = self._reduce(x, tgt)
+        return [np.ascontiguousarray(out)]
+
+    def infer(self, infos):
+        data, tgt = infos
+        if data.level is Level.NUMERIC and tgt.level is Level.NUMERIC:
+            return [TensorInfo.numeric(self.eval([data.value, tgt.value])[0])]
+        if tgt.level is Level.NUMERIC:
+            return [TensorInfo.shaped(data.dtype, [int(x) for x in tgt.value.reshape(-1)])]
         return [TensorInfo.minimal(data.dtype)]
 
 
@@ -352,6 +437,77 @@ class Slice(MilliOp):
             return [TensorInfo.ranked(data.dtype, data.rank)]
         return [TensorInfo.minimal(data.dtype)]
 
+    def backward(self, b, node, out_grads):
+        """grad_data scatters the output grad back to the input shape:
+        unit steps are a zero Pad; strided steps interleave step-1 zero
+        rows (unsqueeze/pad/merge) first; negative steps reverse before
+        interleaving. Needs build-time starts/ends/axes/steps (Constant
+        producers or NUMERIC infos) and a concrete input shape."""
+        g = out_grads[0]
+        if g is None:
+            return [None] * len(node.inputs)
+
+        def _static(tid):
+            if tid is None:
+                return None
+            info = b.tensors[tid].info
+            if info is not None and info.level is Level.NUMERIC:
+                return np.asarray(info.value)
+            for n in b.nodes:
+                if tid in n.outputs and getattr(n.op, "KIND", None) == "Constant":
+                    return np.asarray(n.op.value)
+            raise NotImplementedError("Slice backward: dynamic start/end")
+
+        data = node.inputs[0]
+        dinfo = b.tensors[data].info
+        cs = dinfo.concrete_shape() if dinfo is not None else None
+        if cs is None:
+            raise NotImplementedError("Slice backward: unknown input shape")
+        starts = _static(node.inputs[1])
+        ends = _static(node.inputs[2])
+        axes = _static(node.inputs[3]) if len(node.inputs) > 3 else None
+        steps = _static(node.inputs[4]) if len(node.inputs) > 4 else None
+        idx = self._indexer(cs, starts, ends, axes, steps)
+        from .basic import Constant
+
+        P = Phase.BACKWARD
+
+        def const(vals):
+            return b.op1(Constant(np.asarray(vals, dtype=np.int64)), phase=P)
+
+        rank = len(cs)
+        # current (static) shape of the grad being transformed
+        shape_now = [len(range(*sl.indices(d))) for d, sl in zip(cs, idx)]
+        cur = g
+        begin, end_pad = [], []
+        for a, (d, sl) in enumerate(zip(cs, idx)):
+            lo, hi, st = sl.indices(d)
+            n = shape_now[a]
+            if st < 0:
+                # reverse along `a` so positions ascend, then treat as +|st|
+                cur = b.op1(Slice(), cur, const([-1]), const([-(n + 1)]),
+                            const([a]), const([-1]), phase=P)
+                lo = lo + (n - 1) * st
+                st = -st
+            if st > 1 and n > 0:
+                # interleave st-1 zeros between grad rows: unsqueeze a+1,
+                # pad that axis to st, merge, trim the trailing zeros
+                cur = b.op1(Unsqueeze(axes=[a + 1]), cur, phase=P)
+                pv = [0] * (2 * (rank + 1))
+                pv[rank + 1 + a + 1] = st - 1   # pad after, axis a+1
+                cur = b.op1(Pad(mode="constant"), cur, const(pv), phase=P)
+                tgt = list(shape_now)
+                tgt[a] = n * st
+                cur = b.op1(Reshape(), cur, const(tgt), phase=P)
+                cur = b.op1(Slice(), cur, const([0]),
+                            const([(n - 1) * st + 1]), const([a]), phase=P)
+                shape_now[a] = (n - 1) * st + 1
+            begin.append(lo if n > 0 else 0)
+            end_pad.append(d - (lo if n > 0 else 0) - shape_now[a])
+        pads = const(begin + end_pad)
+        gd = b.op1(Pad(mode="constant"), cur, pads, phase=P)
+        return [gd] + [None] * (len(node.inputs) - 1)
+
 
 @dataclass
 class Concat(MilliOp):
@@ -387,6 +543,35 @@ class Concat(MilliOp):
         if all(r is not None for r in ranks):
             return [TensorInfo.ranked(dt, ranks[0])]
         return [TensorInfo.minimal(dt)]
+
+    def backward(self, b, node, out_grads):
+        g = out_grads[0]
+        if g is None:
+            return [None] * len(node.inputs)
+        P = Phase.BACKWARD
+        from .basic import Constant
+
+        grads = []
+        # split grad by each input's length along axis using Slice with
+        # runtime Shape-derived boundaries.
+
+        offset = None
+        for idx, inp in enumerate(node.inputs):
+            shp = b.op1(Shape(), inp, phase=P)
+            ax_const = b.op1(Constant(np.asarray([self.axis], dtype=np.int64)), phase=P)
+            ln = b.op1(GatherShape(self.axis), shp, phase=P)
+            if offset is None:
+                zero = b.op1(Constant(np.asarray([0], dtype=np.int64)), phase=P)
+                start = zero
+            else:
+                start = offset
+            from .basic import SimpleBinary
+
+            end = b.op1(SimpleBinary("add"), start, ln, phase=P)
+            gslice = b.op1(Slice(), g, start, end, ax_const, phase=P)
+            grads.append(gslice)
+            offset = end
+        return grads
 
 
 @dataclass
@@ -466,6 +651,13 @@ class Split(MilliOp):
                 outs.append(TensorInfo.shaped(i.dtype, d))
             return outs
         return [TensorInfo.minimal(i.dtype) for _ in range(n_out)]
+
+    def backward(self, b, node, out_grads):
+        P = Phase.BACKWARD
+        if any(g is None for g in out_grads):
+            raise NotImplementedError("Split backward with missing grads")
+        cat = b.add_op(Concat(axis=self.axis), list(out_grads), phase=P)[0]
+        return [cat]
 
 
 @dataclass
@@ -587,6 +779,27 @@ def expand(op, inputs, static, device):
     x = inputs[0]
     spec = need_static(static, 1, "Expand").reshape(-1)
     return [x.expand(op._target(tuple(x.shape), spec))]
+
+
+@lowering("SumTo")
+def sum_to(op, inputs, static, device):
+    x = inputs[0]
+    tgt = [int(v) for v in need_static(static, 1, "SumTo").reshape(-1)]
+    lead = x.ndim - len(tgt)
+    dims = list(range(lead))
+    for ax, t in enumerate(tgt):
+        d = x.shape[lead + ax]
+        if d != t:
+            if t != 1:
+                raise ValueError(f"SumTo: cannot reduce {tuple(x.shape)} "
+                                 f"to {tuple(tgt)}")
+            dims.append(lead + ax)
+    if not dims:
+        return [x]
+    # 16-bit floats sum in f32 and round once, as the oracle
+    low = x.dtype in (torch.bfloat16, torch.float16)
+    out = (x.float() if low else x).sum(dim=dims).reshape(tgt)
+    return [out.to(x.dtype)]
 
 
 def take_range(x: torch.Tensor, axis: int, sl: slice) -> torch.Tensor:

@@ -21,8 +21,10 @@ that the text interfaces run:
   * inject_multi_lora (:330-468): per-row multi-LoRA surgery, a one-hot
     of `lora_idx` and three Einsum nodes and an Add after every targeted
     MatMul, node for node the reference's.
-The training-side `inject_lora` and the windowed-decode reuse of
-precomputed weights are not ported.
+  * inject_lora (:227-329): the training-side LoRA surgery, a low-rank
+    bypass x @ A @ B * (alpha / r) after every targeted MatMul, node for
+    node the reference's (training/trainer.py's `lora_rank`).
+The windowed-decode reuse of precomputed weights is not ported.
 """
 
 from __future__ import annotations
@@ -31,10 +33,11 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..backends.cuda.packed_matmul import (dequant_repacked, packed_matmul,
                                            repack_packed_tensor)
-from ..backends.cuda.quant_matmul import int8_matmul
+from ..backends.cuda.quant_matmul import Int8MatMul, int8_matmul
 from ..graph import new_global_id
 from ..tensor_info import Level, TensorInfo
 from .ir import MilliGraph, MilliNode, MilliOp
@@ -293,6 +296,109 @@ def pair_cache_writes(milli: MilliGraph) -> int:
     return len(merged)
 
 
+def inject_lora(
+    milli: MilliGraph,
+    weight_names: Sequence[str],
+    rank: int,
+    weight_getter,
+    alpha: Optional[float] = None,
+    seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    """LoRA adapter injection by graph surgery.
+
+    Every MatMul whose RHS is a 2-D weight input from `weight_names`
+    gains a low-rank bypass: y = x @ W  +  (x @ A) @ B * (alpha/rank),
+    with A (K,r) gaussian-init and B (r,N) zero-init (so the adapted
+    model starts exactly equal to the base). A/B become new graph inputs
+    `<name>::lora_a` / `<name>::lora_b`; the base weight stays a plain
+    input, so freezing it is just "don't put it in the trained params".
+
+    Reference equivalent: examples/rwkv_lora_train.rs (adapters trained
+    through the milli training artifact). Returns {adapter_name: init}.
+    The port's copy of the JAX package's (whisper_tensor_tpu/milli/
+    transforms.py:227-329), node for node.
+    """
+    from .ops import MatMul   # (milli.ops imports this module)
+    from .ops.basic import Constant, SimpleBinary
+
+    if alpha is None:
+        alpha = float(rank)
+    scale = float(alpha) / float(rank)
+    rng = np.random.default_rng(seed)
+    tid_to_name = {tid: n for n, tid in milli.inputs.items()}
+    adapters: Dict[str, np.ndarray] = {}
+    # per-weight adapter tids (a weight used by several MatMuls shares
+    # one adapter pair, like sharing the base weight)
+    ab_tids: Dict[str, Tuple[int, int]] = {}
+
+    i = 0
+    while i < len(milli.nodes):
+        node = milli.nodes[i]
+        if not (isinstance(node.op, MatMul) and len(node.inputs) == 2):
+            i += 1
+            continue
+        rhs_name = tid_to_name.get(node.inputs[1])
+        if rhs_name not in weight_names:
+            i += 1
+            continue
+        w = np.asarray(weight_getter(rhs_name))
+        if w.ndim != 2:
+            i += 1
+            continue
+        K, N = w.shape
+        if rhs_name not in ab_tids:
+            a_name, b_name = f"{rhs_name}::lora_a", f"{rhs_name}::lora_b"
+            ab_tids[rhs_name] = (milli.add_input(a_name),
+                                 milli.add_input(b_name))
+            # adapters share the base weight's dtype so the bypass never
+            # changes the graph's promotion behavior
+            adapters[a_name] = (rng.standard_normal((K, rank))
+                                / np.sqrt(K)).astype(w.dtype)
+            adapters[b_name] = np.zeros((rank, N), dtype=w.dtype)
+        a_tid, b_tid = ab_tids[rhs_name]
+        x_tid, orig_out = node.inputs[0], node.outputs[0]
+        phase, group = node.phase, node.group
+
+        def _t(label):
+            return milli.new_tensor(label=label)
+
+        t_xa = _t(f"{rhs_name}::xa")
+        t_xab = _t(f"{rhs_name}::xab")
+        new_nodes = [
+            MilliNode(new_global_id(), MatMul(), [x_tid, a_tid], [t_xa],
+                      phase, group),
+            MilliNode(new_global_id(), MatMul(), [t_xa, b_tid], [t_xab],
+                      phase, group),
+        ]
+        bypass = t_xab
+        if scale != 1.0:
+            t_sc = _t(f"{rhs_name}::lora_scale")
+            t_scaled = _t(f"{rhs_name}::xab_scaled")
+            new_nodes += [
+                MilliNode(new_global_id(),
+                          Constant(value=np.asarray(scale, dtype=w.dtype)),
+                          [], [t_sc], phase, group),
+                MilliNode(new_global_id(), SimpleBinary(mode="mul"),
+                          [bypass, t_sc], [t_scaled], phase, group),
+            ]
+            bypass = t_scaled
+        t_out = _t(f"{rhs_name}::lora_out")
+        new_nodes.append(MilliNode(new_global_id(),
+                                   SimpleBinary(mode="add"),
+                                   [orig_out, bypass], [t_out], phase, group))
+        # splice right after the MatMul (keeps topological list order),
+        # then rewire every later consumer + graph outputs to the sum
+        milli.nodes[i + 1:i + 1] = new_nodes
+        for later in milli.nodes[i + 1 + len(new_nodes):]:
+            later.inputs = [t_out if t == orig_out else t
+                            for t in later.inputs]
+        for oname, otid in list(milli.outputs.items()):
+            if otid == orig_out:
+                milli.outputs[oname] = t_out
+        i += 1 + len(new_nodes)
+    return adapters
+
+
 def inject_multi_lora(
     milli: MilliGraph,
     adapters: Sequence[Dict[str, Tuple[np.ndarray, np.ndarray, float]]],
@@ -525,7 +631,11 @@ def pack_matmul_nodes(
 
 @lowering("QuantMatMul")
 def quant_matmul(op, inputs, static, device):
+    """int8_matmul; Int8MatMul (its backward the int8_matmul_dx kernel)
+    when x requires grad under grad mode, as in a QLoRA training step."""
     x, w_i8, scale = inputs
+    if x.requires_grad and torch.is_grad_enabled():
+        return [Int8MatMul.apply(x, w_i8, scale)]
     return [int8_matmul(x, w_i8, scale)]
 
 
