@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--layers N] [--plant-fault] [--kernels-only]
                           [--generic-only] [--image-only] [--train-only]
-                          [--plans]
+                          [--inspect-only] [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -175,7 +175,9 @@ Phases:
  12. Gemma-3 1B (q4_0; 6 layers, so its global layer is in), Gemma-2 2B
      (int8; then its weights as a Q8_0 GGUF of arch gemma2, dequantized
      on the host by the loader), Gemma 2B and Phi-3-mini, each at its
-     published widths (FAMILIES) on seeded weights, bf16, max_len 2048,
+     published widths (FAMILIES; the others 2 layers deep, Gemma-2's
+     local and global layer both in) on seeded weights, bf16, max_len
+     2048,
      loaded by the port's Server and served over HTTP (phase 3's three
      requests): every run of the step graph writes each layer's caches
      in one kv_write_pair launch; flash_attention launches once for each
@@ -236,6 +238,39 @@ Phases:
      int8_matmul_dx against its plain version at QLoRA's M = 1,024 over
      the Llama-3-8B weight shapes and one odd K and N, with its time,
      bound and a bf16 yardstick.
+ 15. the introspection path (`--inspect-only` writes the checkpoints
+     and runs phases 13 and 15 alone after the build). (a)-(c) and (e)'s
+     Llama export run at the end of phase 3, on its Server and its
+     model, so the checkpoint loads once; (d) at the end of phase 13;
+     (e)'s GPT-2 and (f) after phase 14. (a) phase 3's checkpoint (int8,
+     bf16; under --inspect-only loaded by run_loader over the port's
+     WebSocket server), its super graph fetched (get_super_graph,
+     16 new tokens) and sent back unchanged as a super_graph_request on
+     a 200-token prompt (the card, the default backend mode):
+     decode_attention launches 15 x layers, flash_attention layers,
+     ragged_kv_write 2 x 16 x layers (one a cache a run: Model.eval runs
+     no pair pass), each equal to the lowering's calls, int8_matmul
+     equal to the QuantMatMul calls; every attention call held against
+     its plain version; the answer stands a teacher-forced prefill
+     (phase 3's bound); (b) the job with tensor_subscriptions on
+     first_token and layer 0's attention output (a tap of the step
+     graph's executor): one report of the link and 16 of the label,
+     the label's prefill value within flash_agreement_bound of a prefill
+     on the plain attention path, the job's seconds with and without the
+     taps; (c) get_graph_layout (every op placed, edges down),
+     get_op_milli of an Attention and a MatMul, get_tensor_slice of an
+     embedding row against the checkpoint; (d) at the end of phase 13:
+     generate_image over the WebSocket at 4 steps, plainly and with
+     `preview` (one step_preview frame a step, flash launches equal to
+     the eligible calls, the same 7 model runs with bit-equal feeds and
+     outputs, and the image equal to the plain one byte for byte);
+     (e) `cli export` of phase 7's GPT-2 (embedded) and of the Llama
+     checkpoint (external weights), each reloaded with
+     Model.new_from_onnx_file and its logits bit-equal to the original
+     model's; `cli inspect` of GPT-2; (f) phase 14 (c)'s milli training
+     graph as a training super graph of 3 steps on one batch, its losses
+     bit-equal to 3 direct steps of the executor (deterministic
+     algorithms on) and falling.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -1939,7 +1974,8 @@ def load_direct(torch, srv, ckpt: Path, quantize: str):
 
 
 def phase3(torch, np, ckpt: Path, layers: int, results) -> dict:
-    """Returns the direct path's rates (direct_rates)."""
+    """Returns the direct path's rates (direct_rates). At its end, on its
+    Server and model, phase 15 (a)-(c) and the Llama export (e)."""
     from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
     from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
         decode_attention, decode_attention_plain)
@@ -1983,6 +2019,7 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> dict:
         api.stop()
     # the long prompt's prefill runs 2,048 rows (bucket 2048)
     check_quant_spy(spy, "phases 3 and 5 (direct)", min_rows=2048)
+    phase15_at_phase3(torch, np, srv, ckpt, layers, results, rates)
     return rates
 
 
@@ -3938,7 +3975,7 @@ def phase10_spec_direct(torch, np, srv, iface, ckpt: Path, layers: int,
     decoding with two drafts, the target itself (self-draft: every
     proposal accepted) and the first layer of the same weights with the
     embedding and the head (a truncated draft, near the all-rejected
-    floor with random weights); greedy at k 4 and 5, 64 new tokens, each
+    floor with random weights); greedy at k 4 and 5, 32 new tokens, each
     token-exact against the target's own greedy decode; sampled at
     temperature 0.8 (seeded, repeatable); once over the WebSocket
     generate_text with draft_model_id; speculative against plain decode
@@ -3969,7 +4006,7 @@ def phase10_spec_direct(torch, np, srv, iface, ckpt: Path, layers: int,
             f"int8) loaded in {time.perf_counter() - t0:.1f} s")
         tok = ByteTokenizer()
         prompt = np.asarray(tok.encode(GREEDY["prompt"]), np.int64)[None]
-        n_new = 64
+        n_new = 32
         plain = iface.generate_with_logits(prompt, n_new)
         kernels = {}
         for dname, d, dl in (("self-draft", iface, layers),
@@ -4221,7 +4258,7 @@ def phase10_lora(torch, np, ckpt: Path, ads: dict, pdir: Path, layers: int,
     reqs = []
     for i, n in enumerate(lengths):
         body = {"prompt": long_text(np, n, SEED + 400 + i),
-                "max_tokens": int(rng.integers(12, 41)), "temperature": 0,
+                "max_tokens": int(rng.integers(8, 25)), "temperature": 0,
                 "model": name}
         if i % 3 == 1:
             body["adapter"] = "a"
@@ -4808,10 +4845,10 @@ def phase11(torch, np, ckpt: Path, layers: int, results) -> None:
 
 # ---------------------------------------------------------------------------
 # phase 12: Gemma, Gemma-2, Gemma-3 and Phi-3 at their published widths
-# (the config.json of each checkpoint named), depth cut to --layers (6
-# for Gemma-3, so that its sixth layer, the global one, is in), seeded
-# random weights, bf16, max_len 2048; (config, layers or None for
-# --layers, quantize)
+# (the config.json of each checkpoint named), depth cut to 2 layers
+# (Gemma-2 alternates a local and a global layer) and to 6 for Gemma-3,
+# so that its sixth layer, the global one, is in; seeded random weights,
+# bf16, max_len 2048; (config, layers or None for --layers, quantize)
 FAMILIES = {
     # google/gemma-3-1b-pt
     "gemma-3-1b": (dict(
@@ -4827,19 +4864,19 @@ FAMILIES = {
         vocab_size=256000, attn_logit_softcapping=50.0,
         final_logit_softcapping=30.0, query_pre_attn_scalar=256,
         rope_theta=10000.0, rms_norm_eps=1e-6,
-        max_position_embeddings=8192), None, "int8"),
+        max_position_embeddings=8192), 2, "int8"),
     # google/gemma-2b
     "gemma-2b": (dict(
         model_type="gemma", hidden_size=2048, num_attention_heads=8,
         num_key_value_heads=1, head_dim=256, intermediate_size=16384,
         vocab_size=256000, rope_theta=10000.0, rms_norm_eps=1e-6,
-        max_position_embeddings=8192), None, ""),
+        max_position_embeddings=8192), 2, ""),
     # microsoft/Phi-3-mini-4k-instruct
     "phi-3-mini": (dict(
         model_type="phi3", hidden_size=3072, num_attention_heads=32,
         num_key_value_heads=32, intermediate_size=8192, vocab_size=32064,
         rope_theta=10000.0, rms_norm_eps=1e-5, max_position_embeddings=4096,
-        tie_word_embeddings=False), None, ""),
+        tie_word_embeddings=False), 2, ""),
 }
 # the HF names of a Gemma-2 layer in a llama.cpp GGUF (gguf_llama.py's
 # _GEMMA2_LAYER_MAP)
@@ -5496,6 +5533,7 @@ def phase13(torch, np, root: Path, results) -> None:
         if shadow.calls == 0 or not shadow.worst <= 1.0:
             fail(f"phase 13's flash calls against their plain version: "
                  f"{shadow.calls} calls, worst {shadow.worst}")
+        phase15_preview(torch, np, srv, entries[0].id, spy, results)
         api.stop()
         api = None
         del iface, srv, entries, ctx, feeds, got, want, lat, q
@@ -5966,6 +6004,631 @@ def run_phase14(step, torch, np, layers: int, results) -> None:
         f"{b['peak_gb']:.2f} GB")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the introspection path: the super graph over the WebSocket
+# server, its capture taps, the inspection messages, export and inspect,
+# the training super graph
+SG_NEW = 16               # tokens the LLM super-graph job generates
+SG_PROMPT = 200           # its prompt's tokens (byte tokenizer)
+
+
+class SgRecorder:
+    """A SuperObserver that keeps the values of the names it subscribes
+    to (the port's observers receive snapshots)."""
+
+    def __init__(self, names):
+        from whisper_tensor_tpu_torch.super_graph import SuperObserver
+
+        names = set(names)
+        self.got = {}
+
+        class Obs(SuperObserver):
+            def subscribed(obs, name):
+                return name in names
+
+            def on_tensor_assigned(obs, name, value):
+                self.got.setdefault(name, []).append(value)
+
+        self.observer = Obs()
+
+
+def sg_job(ws, msg) -> tuple:
+    """Send a super_graph_request or generate_image; its reports up to
+    the job's result and the seconds it took. A job_error fails."""
+    t0 = time.perf_counter()
+    ws.send(msg)
+    reports = []
+    while True:
+        r = ws.recv()
+        reports.append(r)
+        if r["type"] == "job_error":
+            fail(f"the job failed: {r.get('error')}\n{r.get('traceback', '')}")
+        if r["type"] == "job_result":
+            return reports, time.perf_counter() - t0
+
+
+def node_ms(reports) -> dict:
+    """{node name: (runs, mean host ms)} of a job's node_executed
+    reports (the Scan's ms includes its body's)."""
+    acc = {}
+    for r in reports:
+        if r["type"] == "node_executed":
+            n, ms = acc.get(r["node"], (0, 0.0))
+            acc[r["node"]] = (n + 1, ms + r["ms"])
+    return {k: (n, ms / n) for k, (n, ms) in acc.items()}
+
+
+def phase15_llm(torch, np, ckpt: Path, layers: int, results,
+                rates, srv=None) -> dict:
+    """(a)-(c): phase 3's checkpoint (int8, bf16) on the port's WebSocket
+    server: loaded by run_loader over the WebSocket, or, given phase 3's
+    Server `srv`, the model phase 3 loaded there (the checkpoint loads
+    once in the whole smoke); its super graph fetched and run unchanged
+    as a super_graph_request on a 200-token prompt; launches against the
+    lowering's calls, every attention call shadowed, the answer against
+    a teacher-forced prefill; then the same job with taps; the taps'
+    prefill value against the plain attention path; the inspection
+    messages over the same connection. Returns {"entry": the model's
+    entry, "launches": ..., "tap_ms": ...}."""
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_agreement_bound, flash_attention, flash_attention_plain)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        kv_write_pair, ragged_kv_write)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import int8_matmul
+    from whisper_tensor_tpu_torch.milli import transforms
+    from whisper_tensor_tpu_torch.milli.ops import attention as attn_lowering
+    from whisper_tensor_tpu_torch.server import protocol as P
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.super_graph import (ExecutionContext,
+                                                      SuperGraph)
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    say(f"phase 15 (a): the LLM super graph over the WebSocket server, "
+        f"{layers} layers, int8, bf16; {card}")
+    loaded = srv is not None
+    srv = srv or Server()
+    port, stop = ws_serve(srv)
+    ws = WSClient(port)
+    out = {}
+    try:
+        if loaded:
+            (entry,) = [e for e in srv.models._models.values()
+                        if (e.interfaces.get("text") or {}).get("quantize")
+                        == "int8"]
+            mid = entry.id
+            say("  the model phase 3 loaded on this Server (no second load)")
+        else:
+            t0 = time.perf_counter()
+            ws.send({"type": "run_loader", "loader": "transformers",
+                     "config": {"path": str(ckpt), "dtype": "bf16",
+                                "quantize": "int8", "max_len": MAX_LEN}})
+            mid = ws.until("models_report")["loaded"][0]
+            entry = srv.models.get(mid)
+            say(f"  run_loader over the WebSocket: "
+                f"{time.perf_counter() - t0:.1f} s")
+        ws.send({"type": "get_super_graph", "model_id": mid,
+                 "n_new": SG_NEW})
+        graph = ws.until("super_graph")["graph"]
+        text = long_text(np, SG_PROMPT, SEED + 50)
+        msg = {"type": "super_graph_request", "graph": graph,
+               "inputs": {"text": text}, "model_ids": [mid]}
+        counters = {"decode_attention": decode_attention,
+                    "flash_attention": flash_attention,
+                    "ragged_kv_write": ragged_kv_write,
+                    "kv_write_pair": kv_write_pair,
+                    "int8_matmul": int8_matmul}
+        zero(counters)
+        spy = quant_spy(transforms)
+        calls = CallCounter(("Attention", "DynUpdateSlice"))
+        dshadow = shadow_checked(attn_lowering, decode_attention_plain,
+                                 agreement_bound)
+        fshadow = flash_shadow(attn_lowering, flash_attention_plain,
+                               flash_agreement_bound)
+        try:
+            reports, first_s = sg_job(ws, msg)
+        finally:
+            attn_lowering.flash_attention = fshadow.inner
+            attn_lowering.decode_attention = dshadow.inner
+            transforms.int8_matmul = spy.inner
+            calls.restore()
+        got = {name: fn.launches for name, fn in counters.items()}
+        result = reports[-1]["result"]
+        toks = P.decode_tensor(result["tokens"]).astype(np.int64)
+        prompt = np.asarray(ByteTokenizer().encode(text), np.int64)
+        P_ = prompt.shape[0]
+        say(f"  first job ({P_}-token prompt, {SG_NEW} new tokens; on the "
+            f"text interface's int8 graph and weights{'' if loaded else ', made here'}, "
+            f"plans included): {first_s:.1f} s; "
+            f"launches {got}; lowering calls {calls.calls}, QuantMatMul "
+            f"{spy.calls}; shadowed: decode_attention {dshadow.calls} calls "
+            f"worst {dshadow.worst:.3g} of agreement_bound, flash "
+            f"{fshadow.calls} calls worst {fshadow.worst:.3g} of "
+            f"flash_agreement_bound")
+        if toks.shape != (SG_NEW,) or toks.min() < 0:
+            fail(f"the super-graph job answered tokens {toks}")
+        if got["decode_attention"] != (SG_NEW - 1) * layers \
+                or got["flash_attention"] != layers \
+                or got["decode_attention"] + got["flash_attention"] \
+                != calls.calls["Attention"] \
+                or got["ragged_kv_write"] != calls.calls["DynUpdateSlice"] \
+                or got["ragged_kv_write"] != 2 * SG_NEW * layers \
+                or got["kv_write_pair"] != 0:
+            fail(f"phase 15 (a): launches {got} against the lowering's "
+                 f"calls {calls.calls}")
+        check_quant_spy(spy, "phase 15 (a)'s super-graph job")
+        if got["int8_matmul"] != spy.calls:
+            fail(f"phase 15 (a): {got['int8_matmul']} int8_matmul launches "
+                 f"for {spy.calls} QuantMatMul calls")
+        if dshadow.calls != got["decode_attention"] \
+                or fshadow.calls != got["flash_attention"] \
+                or not max(dshadow.worst, fshadow.worst) <= 1.0:
+            fail("phase 15 (a): an attention call of the job disagrees with "
+                 "its plain version on the same inputs")
+        for res in results:
+            if res["name"] in got:
+                res["launches_super_graph"] = got[res["name"]]
+        out["launches"] = got
+
+        # the answer against a teacher-forced prefill over prompt and
+        # answer through the same int8 graph and weights (phase 3's
+        # bound): the backend the job derived from
+        be = srv._score_iface(entry).eval_backend()
+        feeds = {"input_ids": torch.from_numpy(np.concatenate(
+            [prompt, toks[:-1]])[None]).to(CARD),
+            "pos": torch.tensor(0, device=CARD)}
+        g = entry.model.graph
+        for name, info in entry.model.input_infos().items():
+            if name.startswith("cache_"):
+                feeds[name] = torch.zeros(
+                    [1] + [int(d.value()) for d in info.dims()[1:]],
+                    dtype=torch.bfloat16, device=CARD)
+        logits = be.run_on_device(g, feeds)["logits"][0].float().cpu().numpy()
+        forced = logits[P_ - 1:P_ - 1 + SG_NEW]
+        gaps = forced.max(-1) - forced[np.arange(SG_NEW), toks]
+        frac = 0.015 * math.sqrt(layers)
+        scale = float(np.abs(forced).max())
+        say(f"  the answer against a teacher-forced prefill: worst (max "
+            f"logit - emitted logit) {float(gaps.max()):.4g}, "
+            f"{float(gaps.max()) / (frac * scale):.3g} of the bound "
+            f"({frac:.1%} of max|logit| {scale:.4g}); argmax agreement "
+            f"{float((gaps == 0).mean()):.3f}")
+        if not float(gaps.max()) <= frac * scale:
+            fail("phase 15 (a): the super graph's answer does not stand a "
+                 "teacher-forced prefill")
+
+        # warm, taps off and on
+        warm, warm_s = sg_job(ws, msg)
+        again = P.decode_tensor(warm[-1]["result"]["tokens"])
+        if not np.array_equal(again, toks):
+            fail("phase 15 (a): a second run of the job answered other "
+                 "tokens")
+        decode_ms = node_ms(warm)["LLMDecodeStepNode"][1]
+        label = next(g.tensors[o].name for sop in g.ops
+                     if sop.op.OP_TYPE == "Attention"
+                     for o in sop.outputs if o is not None)
+        subs = ["first_token", label]
+        tap_runs = []
+        for _i in range(2):
+            reports2, s = sg_job(ws, dict(msg, tensor_subscriptions=subs))
+            tap_runs.append(s)
+        assigned = [r for r in reports2 if r["type"] == "tensor_assigned"]
+        n_label = sum(r["link"] == label for r in assigned)
+        n_first = sum(r["link"] == "first_token" for r in assigned)
+        say(f"  (b) taps on 'first_token' and layer 0's attention output "
+            f"{label!r}: {n_first} and {n_label} tensor_assigned reports "
+            f"(a run of the step graph each: 1 + {SG_NEW - 1}); the job "
+            f"{warm_s:.2f} s warm without taps, {tap_runs[0]:.2f} s with "
+            f"them (their executor's plans built), {tap_runs[1]:.2f} s "
+            f"again")
+        if n_label != SG_NEW or n_first != 1 or len(assigned) != SG_NEW + 1:
+            fail(f"phase 15 (b): {n_label} reports of the label, {n_first} "
+                 f"of first_token")
+        if not np.array_equal(P.decode_tensor(
+                reports2[-1]["result"]["tokens"]), toks):
+            fail("phase 15 (b): the job with taps answered other tokens")
+        t = assigned[1]["tensor"] if assigned[0]["link"] == "first_token" \
+            else assigned[0]["tensor"]
+        if t["dtype"] != "bfloat16" or t["has_nan"]:
+            fail(f"phase 15 (b): the tapped label's report {t}")
+
+        # the tap's prefill value, in process, against the label of a
+        # prefill with the attention kernels' plain versions in place
+        # (the int8 products stay on their kernel, whose repeats are
+        # bit-equal, so layer 0's attention sees the same q, k, v); the
+        # magnitude is layer 0's plain attention on |v|
+        rec = SgRecorder([label])
+        ctx = ExecutionContext(models={entry.name: entry.model}, device=CARD,
+                               observer=rec.observer,
+                               capture_labels={label},
+                               backends={entry.name: be})
+        SuperGraph.from_json(graph).run(ctx, {"text": text})
+        mine = rec.got[label][0].float()
+        taps = {}
+
+        class Keep:
+            def on_tensor_assigned(self, graph, name, value):
+                taps[name] = value.float()
+
+            def on_loading_weight(self, name):
+                pass
+
+        tapped = be.derive(observer=Keep(), capture={label})
+        pre = dict(feeds, input_ids=torch.from_numpy(prompt[None]).to(CARD))
+
+        def prefill(fn):
+            saved = (attn_lowering.flash_attention,
+                     attn_lowering.decode_attention)
+            attn_lowering.flash_attention = fn
+            attn_lowering.decode_attention = decode_attention_plain
+            try:
+                tapped.run_on_device(g, {k: (v.zero_() if k.startswith(
+                    "cache_") else v) for k, v in pre.items()})
+            finally:
+                (attn_lowering.flash_attention,
+                 attn_lowering.decode_attention) = saved
+            return taps[label]
+
+        ref = prefill(flash_attention_plain)
+        mag = prefill(lambda q, k, v, scale, **kw: flash_attention_plain(
+            q, k, v.abs(), scale, **kw))
+        err, share = worst_share(mine, ref, mag, flash_agreement_bound)
+        say(f"  (b) the label's prefill value from the job's tap against "
+            f"the plain attention path's: max |err| {err:.4g}, worst "
+            f"{share:.3g} of flash_agreement_bound")
+        if not share <= 1.0:
+            fail("phase 15 (b): the tapped prefill value parts from the "
+                 "plain path's")
+        out["tap_ms"] = (tap_runs[1] - warm_s) * 1e3
+        sg_tok_s = 1e3 / decode_ms
+        direct = rates.get("tok_s") if rates else None
+        say(f"  information: the super-graph job decodes at {sg_tok_s:.1f} "
+            f"tok/s (its LLMDecodeStepNode's mean host ms {decode_ms:.2f}: "
+            f"a step's inputs fed and its argmax token read back each "
+            f"step); the direct path on this checkpoint (phase 3) "
+            f"{'%.1f tok/s' % direct if direct else 'not measured in this run'}; "
+            f"host ms a node {json.dumps({k: round(v[1], 2) for k, v in node_ms(warm).items()})}; "
+            f"the taps cost {out['tap_ms']:.1f} ms a job "
+            f"({SG_NEW} runs, two labels) on {card}")
+
+        # (c) the inspection messages over the same connection
+        ws.send({"type": "get_model_graph", "model_id": mid})
+        gj = ws.until("model_graph")["graph"]
+        ws.send({"type": "get_graph_layout", "model_id": mid})
+        layout = ws.until("graph_layout")["layout"]
+        ops = [n for n in layout["nodes"] if n["kind"] == "op"]
+        ys = {n["id"]: n["y"] for n in layout["nodes"]}
+        down = all(ys[e["src"]] < ys[e["dst"]] for e in layout["edges"])
+        milli = {}
+        for kind in ("Attention", "MatMul"):
+            op = next(o for o in gj["ops"] if o["op_type"] == kind)
+            ws.send({"type": "get_op_milli", "model_id": mid,
+                     "op_id": op["id"]})
+            milli[kind] = [n["kind"] for n in ws.until("op_milli")["nodes"]]
+        row = 1234
+        ws.send({"type": "get_tensor_slice", "model_id": mid,
+                 "name": "embed_tokens", "fix": [row, None],
+                 "max_cols": 512})
+        sl = ws.until("tensor_slice")
+        want = g.store.get_numeric("embed_tokens").numpy()[row, :512]
+        diff = float(np.abs(np.asarray(sl["values"][0], np.float64)
+                            - want.astype(np.float64)).max())
+        say(f"  (c) get_graph_layout: {len(ops)} of {len(gj['ops'])} ops "
+            f"placed, {len(layout['edges'])} edges, all pointing down: "
+            f"{down}; get_op_milli: Attention -> {milli['Attention']}, "
+            f"MatMul -> {milli['MatMul']}; get_tensor_slice of embedding "
+            f"row {row}: {sl['slice_shape']}, max |diff| against the "
+            f"checkpoint's {diff:.3g}")
+        if len(ops) != len(gj["ops"]) or not down \
+                or not milli["Attention"] or not milli["MatMul"] \
+                or not diff <= 1e-6:
+            fail("phase 15 (c): an inspection reply is wrong")
+        ws.close()
+        out["entry"] = entry
+    finally:
+        stop()
+    say(f"[phase 15 (a)-(c): {time.perf_counter() - t_phase:.1f} s]")
+    return out
+
+
+def logits_equal(torch, np, a, b, ids, what: str) -> None:
+    """One step of two Models on the card (zero bf16 caches, pos 0):
+    their logits must be equal bit for bit."""
+    outs = []
+    for m in (a, b):
+        feeds = {"input_ids": ids, "pos": np.asarray(0, np.int64)}
+        for name, info in m.input_infos().items():
+            if name.startswith("cache_"):
+                feeds[name] = torch.zeros(
+                    [1] + [int(d.value()) for d in info.dims()[1:]],
+                    dtype=torch.bfloat16, device=CARD)
+        outs.append(m.eval(feeds)["logits"])
+    same = outs[0].shape == outs[1].shape and np.array_equal(
+        outs[0].view(np.uint16), outs[1].view(np.uint16))
+    say(f"  {what}: one step's logits {outs[0].shape} bit-equal to the "
+        f"original model's: {same}")
+    if not same:
+        fail(f"phase 15 (e): {what}'s logits differ from the original's")
+
+
+def phase15_export(torch, np, src: Path, weights: str, original=None,
+                   inspect: bool = False) -> None:
+    """(e) `cli export` of a checkpoint with `weights` (embed, external),
+    reloaded by Model.new_from_onnx_file: one step's logits bit-equal to
+    `original`'s (a loaded Model), or to the checkpoint loaded afresh
+    (GPT-2 124M, max_len 256); with `inspect`, `cli inspect` of it
+    first."""
+    import contextlib
+    import io
+
+    from whisper_tensor_tpu_torch import cli
+    from whisper_tensor_tpu_torch.importers.loaders import identify_and_load
+    from whisper_tensor_tpu_torch.model import Model
+
+    say(f"phase 15 (e): cli export --weights {weights} of {src.name}"
+        f"{' and cli inspect' if inspect else ''}")
+    ids = np.asarray([list(range(10, 42))], np.int64)
+    d = src.with_name(src.name + "-export")
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    cfg = ["-c", "dtype=bf16", "-c",
+           f"max_len={MAX_LEN if original is not None else 256}"]
+    try:
+        if inspect:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["inspect", "--model", str(src)] + cfg)
+            info = json.loads(buf.getvalue())
+            say(f"  cli inspect ({src.name}): {info['ops']} ops, "
+                f"{info['weights']} weights ({info['weight_bytes'] / 1e9:.2f}"
+                f" GB), op census {json.dumps(info['op_census'])}")
+        out = d / f"{src.name}.onnx"
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["export", "--model", str(src), "-o", str(out),
+                      "--weights", weights] + cfg)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = Model.new_from_onnx_file(str(out))
+        say(f"  cli export --weights {weights}: {buf.getvalue().strip()}"
+            f" in {export_s:.1f} s; reloaded in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if original is None:
+            (original,) = identify_and_load(
+                str(src), dtype="bf16", max_len=256).models.values()
+        logits_equal(torch, np, original, back, ids,
+                     f"{src.name} ({weights})")
+        del back, original
+        free_memory(torch)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase15_train(torch, np) -> None:
+    """(f) the milli training graph of phase 14 (c) (2-layer GPT-2 at
+    124M's widths, B 2 x S 128, AdamW, f32) as a training super graph of
+    3 steps on one batch, against 3 steps of the same graph run directly
+    through the executor: the losses bit-equal (deterministic algorithms
+    on for both), and falling."""
+    from whisper_tensor_tpu_torch.backends.torch_exec.compiler import (
+        GraphExecutor)
+    from whisper_tensor_tpu_torch.dtype import DType, to_device
+    from whisper_tensor_tpu_torch.importers.recipes.llm.gpt2 import (
+        GPT2Config, build_gpt2_train, random_gpt2_weights)
+    from whisper_tensor_tpu_torch.milli.optimizers import (
+        OptimizerKind, OptimizerOptions)
+    from whisper_tensor_tpu_torch.milli.training_graph import (
+        build_training_graph)
+    from whisper_tensor_tpu_torch.model import Model
+    from whisper_tensor_tpu_torch.super_graph import (ExecutionContext,
+                                                      SuperGraph)
+    from whisper_tensor_tpu_torch.super_graph.training import (
+        build_training_supergraph, initial_train_state)
+    from whisper_tensor_tpu_torch.tensor_info import TensorInfo
+
+    L, B, S = (MILLI_TRAIN[k] for k in ("layers", "B", "S"))
+    steps = 3
+    say(f"phase 15 (f): the milli training graph as a super graph, GPT-2 "
+        f"124M widths, {L} layers, B {B} x S {S}, AdamW, f32, {steps} steps")
+    cfg = GPT2Config(**dict(GPT2_WIDTHS, n_layer=L))
+    ids = np.random.default_rng(SEED + 21).integers(0, cfg.vocab_size,
+                                                     (B, S + 1))
+    x, y = ids[:, :-1], ids[:, 1:]
+    model = Model.new_from_onnx(build_gpt2_train(
+        random_gpt2_weights(cfg, SEED), cfg, dtype=DType.F32))
+    milli, weights = model.graph.to_milli(bake_small_constants=False)
+    names = sorted(weights)
+    g, meta = build_training_graph(
+        milli, names, "logits", optimizer=OptimizerOptions(
+            OptimizerKind.ADAMW, lr=1e-3, weight_decay=0.01),
+        input_infos={"input_ids": TensorInfo.shaped(DType.I64, [B, S])})
+    params = {n: model.graph.store.get_numeric(n).numpy() for n in names}
+    state0 = initial_train_state(meta, params)
+    sg = SuperGraph.loads(build_training_supergraph(
+        g, meta, ["input_ids", "target"]).dumps())
+    state_map = dict(meta.param_to_new)
+    state_map.update(meta.opt_state_in_to_out)
+    dev = torch.device(CARD)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        ex = GraphExecutor(g, dev)
+        state = {k: to_device(np.asarray(v), dev) for k, v in state0.items()}
+        direct = []
+        for _ in range(steps):
+            out = ex(dict(state, input_ids=to_device(x, dev),
+                          target=to_device(y, dev)))
+            direct.append(out["loss"].float().cpu().numpy())
+            nxt = {k: out[v] for k, v in state_map.items()}
+            nxt["step"] = state["step"] + 1.0
+            state = nxt
+        direct_s = time.perf_counter() - t0
+        del ex, state, out
+        t0 = time.perf_counter()
+        res = sg.run(ExecutionContext(device=CARD), {
+            "init_state": state0,
+            "batches_input_ids": np.stack([x] * steps),
+            "batches_target": np.stack([y] * steps)})
+        job_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    losses = np.asarray(res["losses"], np.float32)
+    direct = np.asarray(direct, np.float32)
+    say(f"  losses: super graph {losses.tolist()} in {job_s:.2f} s, direct "
+        f"{direct.tolist()} in {direct_s:.2f} s (plans included); "
+        f"bit-equal: {np.array_equal(losses, direct)}; final step "
+        f"{float(res['final_state']['step'])}")
+    if not np.array_equal(losses, direct) or not losses[-1] < losses[0] \
+            or float(res["final_state"]["step"]) != steps + 1:
+        fail("phase 15 (f): the training super graph's losses differ from "
+             "the direct run's, or do not fall")
+
+
+class RunTrace:
+    """Records every EvalBackend.run_on_device call while `on`: (the
+    graph, the backend, copies of its feeds and of its outputs)."""
+
+    def __init__(self, torch, np):
+        from whisper_tensor_tpu_torch.backends.eval_backend import EvalBackend
+
+        self.cls, self.inner = EvalBackend, EvalBackend.run_on_device
+        self.calls, self.on = [], False
+
+        def copy(v):
+            if isinstance(v, torch.Tensor):
+                return v.detach().clone()
+            return torch.from_numpy(np.array(v))
+
+        def spy(be, graph, feeds):
+            out = self.inner(be, graph, feeds)
+            if self.on:
+                self.calls.append((graph, be,
+                                   {k: copy(v) for k, v in feeds.items()},
+                                   {k: copy(v) for k, v in out.items()}))
+            return out
+
+        EvalBackend.run_on_device = spy
+
+    def restore(self) -> None:
+        self.cls.run_on_device = self.inner
+
+
+def max_diff(a, b) -> float:
+    """max |a - b| over two tensors of one shape (inf if the shapes
+    differ), on a's device."""
+    if tuple(a.shape) != tuple(b.shape):
+        return float("inf")
+    if a.numel() == 0:
+        return 0.0
+    return float((a.double() - b.to(a.device).double()).abs().max())
+
+
+def phase15_preview(torch, np, srv, mid: int, spy, results) -> None:
+    """(d), at the end of phase 13 on its server and its SD-1.5 load
+    (whose graphs are fixed at 512 x 512 by the loader): generate_image
+    over the WebSocket at 4 steps, plainly and with `preview` (the
+    diffusion super graph, one step_preview frame a denoise step):
+    flash_attention's launches in the preview job equal the lowering's
+    eligible Attention calls. Every model run of both requests is
+    recorded (RunTrace): the two make the same 7 runs (CLIP twice, the
+    UNet 4 times, the VAE) with bit-equal feeds and outputs, and the
+    images are equal byte for byte. Both paths run the same graphs and
+    executors, scale the UNet's input with one expression
+    (`euler_scaled`) and update the latents with the same f32 arithmetic,
+    and the post-processing of a bf16 VAE output gives the same byte in
+    the interface's bf16 arithmetic and the job's f32 (every bf16 value in
+    [-1.5, 1.5], checked on the CPU); so any difference is a fault."""
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+
+    say(f"phase 15 (d): generate_image with preview over the WebSocket "
+        f"(SD-1.5, {SD_HW} x {SD_HW}, 4 steps)")
+    port, stop = ws_serve(srv)
+    ws = WSClient(port)
+
+    def pixels(r):
+        res = r[-1]["result"]
+        return np.frombuffer(base64.b64decode(res["rgb_b64"]),
+                             np.uint8).reshape(res["height"],
+                                               res["width"], 3)
+
+    trace = RunTrace(torch, np)
+    try:
+        msg = {"type": "generate_image", "model_id": mid,
+               "prompt": SD_PROMPT, "steps": 4, "height": SD_HW,
+               "width": SD_HW, "seed": 5}
+        trace.on = True
+        plain, plain_s = sg_job(ws, msg)
+        n_plain = len(trace.calls)
+        flash_attention.launches = 0
+        spy.zero()
+        prev, prev_s = sg_job(ws, dict(msg, preview=True))
+        launches, eligible = flash_attention.launches, spy.eligible
+        trace.on = False
+    finally:
+        trace.restore()
+        ws.close()
+        stop()
+    frames = [r for r in prev if r["type"] == "step_preview"]
+    a, b = pixels(plain), pixels(prev)
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    A, B = trace.calls[:n_plain], trace.calls[n_plain:]
+    names = [g.name for g, *_ in A]
+    worst = 0.0
+    for (ga, _, fa, oa), (gb, _, fb, ob) in zip(A, B):
+        for x, y in ((fa, fb), (oa, ob)):
+            worst = max([worst] + [max_diff(x[n], y[n]) if n in y
+                                   else float("inf") for n in x])
+    say(f"  {len(frames)} step_preview frames "
+        f"({frames[0]['width']} x {frames[0]['height']} each); "
+        f"flash_attention launched {launches} times for {eligible} eligible "
+        f"Attention calls in the preview job; model runs {names} in both, "
+        f"worst |diff| of their feeds and outputs {worst:.3g}; the image "
+        f"against the plain request's at the same seed: max |diff| "
+        f"{int(d.max())} of 255; {plain_s:.2f} s plain, {prev_s:.2f} s with "
+        f"the preview on {card_line()}")
+    if len(frames) != 4 or launches != eligible or launches == 0 \
+            or a.shape != (SD_HW, SD_HW, 3) or len(A) != 7 \
+            or names != [g.name for g, *_ in B] or worst != 0 \
+            or int(d.max()) != 0:
+        fail("phase 15 (d): the preview job's frames, launches, model runs "
+             "or image part from the plain request's")
+    for res in results:
+        if res["name"] == "flash_attention":
+            res["launches_preview"] = launches
+
+
+def phase15_at_phase3(torch, np, srv, ckpt: Path, layers: int, results,
+                      rates) -> None:
+    """(a)-(c) and the Llama checkpoint's (e), on phase 3's Server and
+    model, the super-graph job beside the direct path's rates."""
+    llm = phase15_llm(torch, np, ckpt, layers, results, rates, srv)
+    phase15_export(torch, np, ckpt, "external", llm["entry"].model)
+    del llm
+    free_memory(torch)
+
+
+def phase15(torch, np, ckpt: Path, gpt2_ckpt: Path, layers: int,
+            results) -> None:
+    """Phase 15's parts that need no model of phase 3: (e) of GPT-2
+    (embedded, with `cli inspect`) and (f); `ckpt`: given (the
+    --inspect-only run), (a)-(c) and the Llama export run here too, on a
+    model of their own loaded over the WebSocket."""
+    if ckpt is not None:
+        llm = phase15_llm(torch, np, ckpt, layers, results, None)
+        phase15_export(torch, np, ckpt, "external", llm["entry"].model)
+        del llm
+        free_memory(torch)
+    phase15_export(torch, np, gpt2_ckpt, "embed", inspect=True)
+    free_memory(torch)
+    phase15_train(torch, np)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=4,
@@ -5985,6 +6648,10 @@ def main() -> None:
     ap.add_argument("--train-only", action="store_true",
                     help="run phase 14 (training) alone after the build "
                          "(no result line)")
+    ap.add_argument("--inspect-only", action="store_true",
+                    help="write the checkpoints, run phase 13 (with 15 (d)) "
+                         "and phase 15 (the introspection path) after the "
+                         "build (no result line)")
     ap.add_argument("--plans", action="store_true",
                     help="time packed_matmul and decode_attention under "
                          "forced splits, then stop (no result line)")
@@ -6006,7 +6673,8 @@ def main() -> None:
         f"(CUDA {torch.version.cuda})")
     try:
         import ml_dtypes
-        say(f"  ml_dtypes {ml_dtypes.__version__} imports")
+        say(f"  ml_dtypes {ml_dtypes.__version__} imports (numpy "
+            f"{np.__version__})")
     except ImportError:
         say("  ml_dtypes does not import: bf16 crosses as f32 on the host")
 
@@ -6086,6 +6754,32 @@ def main() -> None:
         run_phase14(step, torch, np, args.layers, results)
         say(f"{card_line()} (--train-only: phases 2-13 not run)")
         return
+    if args.inspect_only:
+        try:
+            import ml_dtypes
+            bf16 = np.dtype(ml_dtypes.bfloat16)
+        except ImportError:
+            bf16 = None
+        smoke = ROOT / "build" / "smoke"
+        ckpt = smoke / f"llama3-8b-widths-{args.layers}L"
+        gpt2_ckpt = smoke / "gpt2-124m-widths"
+        for d in (ckpt, gpt2_ckpt):
+            shutil.rmtree(d, ignore_errors=True)
+            d.mkdir(parents=True)
+        try:
+            step("write the checkpoint", write_checkpoint, ckpt, args.layers,
+                 np, bf16)
+            step("write the GPT-2 checkpoint", write_gpt2_checkpoint,
+                 gpt2_ckpt, np, bf16)
+            step("phase 13 (SD-1.5 image generation, with 15 (d))", phase13,
+                 torch, np, smoke, results)
+            step("phase 15 (the introspection path)", phase15, torch, np,
+                 ckpt, gpt2_ckpt, args.layers, results)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+            shutil.rmtree(gpt2_ckpt, ignore_errors=True)
+        say(f"{card_line()} (--inspect-only: phases 2-12 and 14 not run)")
+        return
     step("phase 2: decode_attention, int8_matmul", phase2, torch, results)
     step("phase 2: ragged_kv_write", phase2_kv_write, torch, results)
     step("phase 2: flash_attention", phase2_flash, torch, results)
@@ -6114,7 +6808,8 @@ def main() -> None:
                       args.layers, np, bf16)
         say(f"wrote a {args.layers}-layer Llama-3-8B-width checkpoint "
             f"({nbytes / 1e9:.2f} GB)")
-        int8 = step("phases 3 and 5 (direct)", phase3, torch, np, ckpt,
+        int8 = step("phases 3, 5 and 15 (a)-(c), (e) (direct)", phase3,
+                    torch, np, ckpt,
                     args.layers, results)
         step("phases 4 and 5 (batched)", phase4, torch, np, ckpt,
              args.layers, results, args.plant_fault)
@@ -6144,9 +6839,12 @@ def main() -> None:
              args.layers, results)
         step("phase 12 (Gemma, Gemma-2, Gemma-3, Phi-3)", phase12, torch, np,
              ROOT / "build" / "smoke", args.layers, bf16, results)
-        step("phase 13 (SD-1.5 image generation)", phase13, torch, np,
-             ROOT / "build" / "smoke", results)
+        step("phase 13 (SD-1.5 image generation, with 15 (d))", phase13,
+             torch, np, ROOT / "build" / "smoke", results)
         run_phase14(step, torch, np, args.layers, results)
+        step("phase 15 (e) GPT-2 and (f) (with (a)-(c) at phase 3, (d) "
+             "at phase 13)", phase15, torch, np, None, gpt2_ckpt,
+             args.layers, results)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(gpt2_ckpt, ignore_errors=True)

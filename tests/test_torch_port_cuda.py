@@ -1050,6 +1050,62 @@ def test_tiny_llama_batcher_on_the_gpu_launches_all_three_kernels(cuda):
         assert gap.max() <= 0.03 * np.abs(lg).max(), (len(p), gap)
 
 
+def test_tiny_llama_super_graph_job_on_the_gpu(cuda):
+    """The LLM super graph (super_graph/llm.py) over a 2-layer bf16 llama
+    of head dim 128 on the card, on its int8 text interface's graph and
+    weights (TextInferenceInterface.eval_backend): the prefill launches
+    flash_attention once a layer, each decode step decode_attention once
+    a layer, every run writes each cache with one
+    ragged_kv_write launch (Model.eval runs no pair pass), int8_matmul
+    launches once a QuantMatMul call, each equal to the lowering's
+    calls; the answer stands a teacher-forced prefill of the direct path
+    on the CPU (every emitted token's logit within 3% of the logits'
+    scale of that step's largest)."""
+    from whisper_tensor_tpu_torch.milli.ops import LOWERINGS
+    from whisper_tensor_tpu_torch.super_graph import ExecutionContext
+    from whisper_tensor_tpu_torch.super_graph.llm import build_llm_supergraph
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    gpu, cpu = _direct_pair(cuda, 64)
+    model = gpu.model
+    n_new, text = 6, "hello there"
+    g = build_llm_supergraph(model.name, "bytes", n_layers=2, n_kv_heads=1,
+                             max_len=64, head_dim=128, n_new=n_new)
+    calls = {"Attention": 0, "DynUpdateSlice": 0, "QuantMatMul": 0}
+    saved = {k: LOWERINGS[k] for k in calls}
+
+    def counting(kind, fn):
+        def wrapped(*a):
+            calls[kind] += 1
+            return fn(*a)
+        return wrapped
+
+    counters = (flash_attention, decode_attention, ragged_kv_write,
+                kv_write_pair, int8_matmul)
+    before = [f.launches for f in counters]
+    LOWERINGS.update({k: counting(k, fn) for k, fn in saved.items()})
+    try:
+        out = g.run(ExecutionContext(models={model.name: model}, device=cuda,
+                                     backends={model.name:
+                                               gpu.eval_backend()}),
+                    {"text": text})
+    finally:
+        LOWERINGS.update(saved)
+    flash, decode, kv, pair, i8 = [f.launches - n
+                                   for f, n in zip(counters, before)]
+    assert (flash, decode) == (2, 2 * (n_new - 1))
+    assert flash + decode == calls["Attention"]
+    assert kv == calls["DynUpdateSlice"] == 2 * 2 * n_new and pair == 0
+    assert i8 == calls["QuantMatMul"] > 0
+    toks = out["tokens"]
+    assert toks.shape == (n_new,)
+    prompt = np.asarray(ByteTokenizer().encode(text), np.int64)
+    full = np.concatenate([prompt, toks[:-1]])[None]
+    lg = cpu.logits(full).astype(np.float32)[0, len(prompt) - 1:]
+    gap = lg.max(-1) - lg[np.arange(n_new), toks]
+    assert gap.max() <= 0.03 * np.abs(lg).max(), gap
+
+
 def test_tiny_llama_q4_0_on_the_gpu_direct_and_batched(cuda):
     """The 2-layer bf16 llama host-quantized to q4_0: the direct path and
     the batcher launch packed_matmul (and int8_matmul never); each

@@ -104,6 +104,25 @@ def test_recipes_write_byte_identical_onnx(family, dt, per_row):
     assert len(got) == len(want) and got == want
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8",
+                                   "float16", "float64"])
+@pytest.mark.parametrize("shape", [(300, 77), (1, 5), (4096, 1)])
+def test_transposed_equals_numpys_transpose(dtype, shape):
+    """The recipes' torch transpose gives np.ascontiguousarray(a.T) bit
+    for bit, for ml_dtypes' bf16 too, from a read-only or a strided
+    array as well."""
+    from whisper_tensor_tpu_torch.importers.recipes.llm import transposed
+
+    dt = np.dtype(getattr(ml_dtypes, dtype, None) or dtype)
+    a = (np.random.default_rng(3).standard_normal(shape) * 50).astype(dt)
+    ro = a.copy()
+    ro.setflags(write=False)
+    for src in (a, ro, np.asfortranarray(a)):
+        got, want = transposed(src), np.ascontiguousarray(src.T)
+        assert got.dtype == want.dtype and got.flags.c_contiguous
+        assert got.tobytes() == want.tobytes()
+
+
 def test_random_gpt2_weights_match():
     want = jax_gpt2.random_gpt2_weights(jax_gpt2.GPT2Config(**GPT2), seed=3)
     got = gpt2.random_gpt2_weights(gpt2.GPT2Config(**GPT2), seed=3)

@@ -101,13 +101,13 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
 
 @pytest.mark.parametrize("shape,start_shape,axis,routed", [
     ((B, H, L, D), (B,), 2, True),        # the batcher's per-row write
-    ((B, H, L, D), (), 2, False),         # scalar start: index_copy_
+    ((B, H, L, D), (), 2, True),          # scalar start: Model.eval's
     ((B, L, H * D), (B,), 1, False),      # per-row start, 3-D: indexed
     ((B, H, L, D), (B,), 3, False),       # per-row start on another axis
 ])
 def test_lowering_routes_per_row_cache_writes_to_the_kernel_wrapper(
         monkeypatch, shape, start_shape, axis, routed):
-    """Only a per-row start on axis 2 of a 4-D cache goes to
+    """A per-row or scalar start on axis 2 of a 4-D cache goes to
     ragged_kv_write (on a CUDA device it then launches the kernel or
     raises); every form writes in place and equals to_jax."""
     from whisper_tensor_tpu_torch.milli.ops import misc

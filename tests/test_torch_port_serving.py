@@ -280,8 +280,7 @@ def test_unported_routes_answer_not_ported(served, path, body, what):
 
 
 @pytest.mark.parametrize("msg,what", [
-    ({"type": "get_super_graph"}, "super graphs"),
-    ({"type": "generate_image", "model_id": 1}, "image generation"),
+    ({"type": "transcribe_stream", "model_id": 1}, "streaming transcription"),
     ({"type": "transcribe", "model_id": 1}, "transcription"),
     ({"type": "generate_multimodal", "model_id": 1}, "multimodal"),
     ({"type": "generate_speech", "model_id": 1}, "speech generation")])

@@ -138,6 +138,19 @@ def ragged_kv_write(cache, update, pos) -> torch.Tensor:
     return cache
 
 
+def kernel_takes(cache: torch.Tensor, update: torch.Tensor) -> bool:
+    """Whether the kernel takes one write of `update` into `cache` along
+    axis 2, for any start it takes: a contiguous 4-D cache of a type
+    pair the kernel has a mode for, an update of the cache's B, H and D
+    with 0 < S <= L, both on one device."""
+    return ((cache.dtype, update.dtype) in _MODES
+            and cache.ndim == update.ndim == 4
+            and update.shape[:2] == cache.shape[:2]
+            and update.shape[3] == cache.shape[3]
+            and 0 < update.shape[2] <= cache.shape[2]
+            and cache.is_contiguous() and cache.device == update.device)
+
+
 def kv_write_pair(cache_k, update_k, cache_v, update_v, pos
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A layer's K and V writes in one launch: ragged_kv_write of

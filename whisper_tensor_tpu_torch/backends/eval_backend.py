@@ -20,12 +20,27 @@ nested graph on the device) or "oracle" (the numpy interpreter). There is
 no other fallback: a node without a lowering raises NotImplementedError
 naming its KIND. The reference's segmented XLA path (xla/segmented.py) is
 a workaround for its missing host callbacks and has no counterpart here.
+
+`capture` (reference :44-70, reported at :319-321): labels of tensors
+inside the lowered graph (a symbolic graph's tensor names) that the
+torch path reports through `observer.on_tensor_assigned` after each run,
+as taps of the graph's GraphExecutor: fixed when the executor is made,
+so a label that is not chosen costs nothing, and each value a copy taken
+where it was made. The interpreter reports every assignment, as in the
+reference. `derive` makes a backend with its own observer and taps that
+shares the lowered graph, the device weights and the executors, which
+are kept by the labels the lowered graph holds: one without taps, and
+the TAPPED_EXECUTORS most recently used tap sets. `bind` runs a graph as
+a lowered copy that its owner transformed, over that owner's device
+weights: the text interface binds its int8 graph
+(TextInferenceInterface.eval_backend).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional
+from collections import OrderedDict
+from typing import Any, Dict, FrozenSet, List, Optional
 
 import numpy as np
 import torch
@@ -37,6 +52,10 @@ from ..symbolic_graph.ir import SymbolicGraph
 from ..symbolic_graph.ops.base import LowerCtx
 from ..tensor_info import TensorInfo
 from .torch_exec.compiler import GraphExecutor
+
+# executors with taps kept beside each graph's untapped one, the least
+# recently used dropped first
+TAPPED_EXECUTORS = 4
 
 
 class SymbolicObserver:
@@ -67,10 +86,11 @@ class EvalBackend:
 
     def __init__(self, mode: str = "oracle", validate: Optional[bool] = None,
                  observer: Optional[SymbolicObserver] = None,
-                 device=None):
+                 device=None, capture: Optional[set] = None):
         if mode not in ("oracle", "torch"):
             raise ValueError(f"unknown mode {mode!r} (oracle or torch)")
         self.mode = mode
+        self.capture = frozenset(capture or ())
         self.device = resolve_device(device) if mode == "torch" else None
         # the interpreter validates every assignment (reference
         # eval_backend.rs:230-270); the torch path does not
@@ -79,9 +99,38 @@ class EvalBackend:
         self.last_path: Optional[str] = None
         self._op_milli_cache: Dict[int, MilliGraph] = {}
         self._op_exec_cache: Dict[int, GraphExecutor] = {}
+        # by graph id: (the lowered graph, {weight input: store name}),
+        # the labels it holds, its weights on the device
         self._graph_milli_cache: Dict[int, Any] = {}
-        self._exec_cache: Dict[int, GraphExecutor] = {}
+        self._labels: Dict[int, FrozenSet[str]] = {}
         self._weights_device_cache: Dict[int, Dict[str, torch.Tensor]] = {}
+        # GraphExecutors by (graph id, the taps it reports)
+        self._executors: OrderedDict = OrderedDict()
+
+    def derive(self, observer: Optional[SymbolicObserver] = None,
+               capture: Optional[set] = None) -> "EvalBackend":
+        """A backend of the same mode and device with its own observer
+        and taps, sharing this one's lowered graphs, device weights and
+        executors."""
+        be = EvalBackend(self.mode, self.validate, observer, self.device,
+                         capture)
+        be._graph_milli_cache = self._graph_milli_cache
+        be._labels = self._labels
+        be._weights_device_cache = self._weights_device_cache
+        be._executors = self._executors
+        return be
+
+    def bind(self, graph: SymbolicGraph, milli: MilliGraph,
+             weights: Dict[str, torch.Tensor]) -> "EvalBackend":
+        """Run `graph` in torch mode as `milli`, a lowering of it that its
+        owner transformed (fused, quantized), over `weights` ({input of
+        milli: tensor on this backend's device}), which are used as they
+        are: nothing of the graph's store is read or uploaded again."""
+        if self.mode != "torch":
+            raise ValueError("bind takes a torch-mode backend")
+        self._graph_milli_cache[graph.id] = (milli, {n: n for n in weights})
+        self._weights_device_cache[graph.id] = weights
+        return self
 
     # ------------------------------------------------------------------
     def run(self, graph: SymbolicGraph, feeds: Dict[str, Any],
@@ -231,14 +280,25 @@ class EvalBackend:
         return cache
 
     def _executor(self, graph: SymbolicGraph):
-        """(the graph's GraphExecutor on the device, its weights there),
-        each made once."""
+        """(the graph's GraphExecutor with this backend's taps among the
+        labels the lowered graph holds, its weights on the device), each
+        made once; executors with taps are bounded (TAPPED_EXECUTORS)."""
         milli, weight_inputs = self._milli_of(graph)
         weights = self._device_weights(graph, weight_inputs)
-        ex = self._exec_cache.get(graph.id)
+        labels = self._labels.get(graph.id)
+        if labels is None:
+            labels = self._labels[graph.id] = frozenset(
+                t.label for t in milli.tensors.values() if t.label)
+        key = (graph.id, self.capture & labels)
+        ex = self._executors.get(key)
         if ex is None:
-            ex = self._exec_cache[graph.id] = GraphExecutor(milli,
-                                                            self.device)
+            ex = self._executors[key] = GraphExecutor(milli, self.device,
+                                                      taps=key[1])
+            tapped = [k for k in self._executors if k[1]]
+            for k in tapped[:-TAPPED_EXECUTORS]:
+                del self._executors[k]
+        else:
+            self._executors.move_to_end(key)
         return ex, weights
 
     def _run_torch(self, graph: SymbolicGraph, feeds: Dict[str, Any],
@@ -257,13 +317,14 @@ class EvalBackend:
                 raise KeyError(f"missing input {name!r}")
         dtypes = {graph.tensors[t].name: graph.tensors[t].dtype
                   for t in list(graph.inputs) + list(graph.outputs)}
-        return self._execute(ex, host, weights, dtypes, dtypes)
+        return self._execute(ex, host, weights, dtypes, dtypes, graph)
 
     def run_on_device(self, graph: SymbolicGraph,
                       feeds: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:
         """Torch mode without the host: device tensors in (cast to the
-        inputs' declared types), device tensors out. The graph is lowered
+        inputs' declared types; a numpy feed is uploaded in its declared
+        type), device tensors out. The graph is lowered
         and its weights uploaded once; the executor folds its statics on
         the first run for a set of shapes and replays the device steps
         after. The image interface's denoise loop runs its UNet here, so
@@ -277,15 +338,30 @@ class EvalBackend:
         for t in graph.inputs:
             name, dt = graph.tensors[t].name, graph.tensors[t].dtype
             v = feeds[name]
-            dev[name] = v.to(self.device, to_torch(dt) if dt is not None
-                             else v.dtype)
+            if isinstance(v, torch.Tensor):
+                dev[name] = v.to(self.device, to_torch(dt) if dt is not None
+                                 else v.dtype)
+            else:
+                dev[name] = to_device(np.asarray(v), self.device, dt)
         self.last_path = "torch"
-        return ex(dev)
+        return self._report(graph, ex, dev)
+
+    def _report(self, graph: SymbolicGraph, ex: GraphExecutor,
+                dev: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Run `ex`; hand its taps to the observer, as device tensors."""
+        if not ex.tap_labels:
+            return ex(dev)
+        out, taps = ex.run(dev)
+        if self.observer is not None:
+            for lbl, v in taps.items():
+                self.observer.on_tensor_assigned(graph, lbl, v)
+        return out
 
     def _execute(self, ex: GraphExecutor, host: Dict[str, Any],
                  device_feeds: Dict[str, Any],
                  in_dtypes: Dict[str, Optional[DType]],
-                 out_dtypes: Dict[str, Optional[DType]]
+                 out_dtypes: Dict[str, Optional[DType]],
+                 graph: Optional[SymbolicGraph] = None
                  ) -> Dict[str, np.ndarray]:
         """Upload the host feeds in their declared types, run, and
         download the outputs in theirs (a 4-bit float crosses as its f32
@@ -298,4 +374,4 @@ class EvalBackend:
                          else to_device(np.asarray(v), self.device,
                                         in_dtypes.get(name)))
         return {name: to_host(t, out_dtypes.get(name))
-                for name, t in ex(dev).items()}
+                for name, t in self._report(graph, ex, dev).items()}

@@ -35,13 +35,24 @@ executor raises instead, since the host value would carry no gradient.
 Everything else runs on torch tensors, so autograd differentiates a
 graph the executor runs (training/trainer.py).
 
+Taps (the reference's `compile_milli(capture_labels=)`,
+backends/xla/compiler.py:273-277): `GraphExecutor(graph, device,
+taps=labels)` also reports the values of the milli tensors with those
+labels (a symbolic graph's tensor names). The set is fixed when the
+executor is made, so it never keys a plan: the plan records where each
+tap's value appears (a graph input, a folded value, or the output of a
+device step) and `run` returns a copy of it taken at that point, so a
+later in-place write (a cache write into the tensor it is handed)
+cannot change it. A replayed plan reports the same taps as the run that
+built it. An executor without taps replays as before.
+
 There is no oracle fallback: a node that has to run on the device and
 has no lowering raises NotImplementedError naming its KIND.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +88,10 @@ class _Plan:
         self.consts: Dict[int, torch.Tensor] = {}   # uploaded folded values
         # False once a shape of a data-shaped value was folded
         self.replayable = True
+        # taps whose value exists before the first step (inputs, folded
+        # values), and those each step makes: (label, tensor id) lists
+        self.tap_start: List[Tuple[str, int]] = []
+        self.tap_after: Dict[int, List[Tuple[str, int]]] = {}
 
 
 class _LiftInputs(Exception):
@@ -96,14 +111,25 @@ class GraphExecutor:
     """Executes `graph` on `device`; call with {input name: tensor}.
 
     Inputs are used as given: a lowering may write into one in place
-    (DynUpdateSlice writes into the cache it is handed)."""
+    (DynUpdateSlice writes into the cache it is handed). `taps`: labels
+    of milli tensors whose values `run` reports as well; a label the
+    graph lacks is left out (`tap_labels` lists those found)."""
 
-    def __init__(self, graph: MilliGraph, device: torch.device):
+    def __init__(self, graph: MilliGraph, device: torch.device,
+                 taps: Sequence[str] = ()):
         self.graph = graph
         self.device = device
         self.input_names = list(graph.inputs)
         self._plans: Dict[PlanKey, _Plan] = {}
         self._lifted: List[str] = []   # inputs whose values key a plan
+        by_label = {t.label: tid for tid, t in graph.tensors.items()
+                    if t.label}
+        self._taps: Dict[int, List[str]] = {}
+        for lbl in sorted(set(taps)):
+            if lbl in by_label:
+                self._taps.setdefault(by_label[lbl], []).append(lbl)
+        self.tap_labels = [lbl for lbls in self._taps.values()
+                           for lbl in lbls]
 
     def _key(self, feeds) -> PlanKey:
         key = tuple((tuple(feeds[n].shape), feeds[n].dtype)
@@ -114,15 +140,21 @@ class GraphExecutor:
 
     def __call__(self, feeds: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
+        return self.run(feeds)[0]
+
+    def run(self, feeds: Dict[str, torch.Tensor]):
+        """(outputs, taps): {output name: tensor}, {tap label: a copy of
+        its value where it was made}."""
         args = [feeds[n] for n in self.input_names]
         plan = self._plans.get(self._key(feeds))
+        taps: Dict[str, torch.Tensor] = {}
         if plan is None:
             # two threads may build one key at once (the batcher's loop
             # and an HTTP thread rescoring logprobs): each builds from
             # local state, and either plan serves later calls
             while True:
                 try:
-                    plan, vals = self._build(args)
+                    plan, vals = self._build(args, taps)
                     break
                 except _LiftInputs as need:
                     self._lifted = sorted(set(self._lifted) | need.names)
@@ -132,19 +164,30 @@ class GraphExecutor:
             vals = dict(plan.consts)
             for tid, a in zip(self.graph.inputs.values(), args):
                 vals[tid] = a
-            for st in plan.steps:
+            for lbl, tid in plan.tap_start:
+                taps[lbl] = vals[tid].clone()
+            tap_after = plan.tap_after
+            for k, st in enumerate(plan.steps):
                 ins = [None if i is None else vals[i] for i in st.inputs]
-                for tid, o in zip(st.outputs,
-                                  st.fn(st.op, ins, st.static, self.device)):
+                for tid, o in zip(st.outputs, st.fn(st.op, ins, st.static,
+                                                    self.device)):
                     vals[tid] = o
-        return {n: vals[t] for n, t in self.graph.outputs.items()}
+                if tap_after:
+                    for lbl, tid in tap_after.get(k, ()):
+                        taps[lbl] = vals[tid].clone()
+        return {n: vals[t] for n, t in self.graph.outputs.items()}, taps
 
     # ------------------------------------------------------------------
-    def _build(self, args: List[torch.Tensor]):
-        """First run for these shapes: fold, execute, record the plan."""
+    def _build(self, args: List[torch.Tensor],
+               taps: Optional[Dict[str, torch.Tensor]] = None):
+        """First run for these shapes: fold, execute, record the plan;
+        the taps' values go into `taps`."""
         plan = _Plan()
         vals: Dict[int, torch.Tensor] = {}
         statics: Dict[int, np.ndarray] = {}
+        if taps is None:
+            taps = {}
+        taps.clear()
         # graph inputs each device value depends on, and the values whose
         # shape depends on data
         deps: Dict[int, frozenset] = {}
@@ -154,6 +197,9 @@ class GraphExecutor:
             deps[tid] = frozenset([name])
             if name in self._lifted:
                 statics[tid] = _lifted_value(name, a)
+            for lbl in self._taps.get(tid, ()):
+                plan.tap_start.append((lbl, tid))
+                taps[lbl] = a.clone()
 
         def lift(tid: int) -> torch.Tensor:
             if tid not in vals:
@@ -223,8 +269,19 @@ class GraphExecutor:
                 deps[tid] = dep
                 if shaped:
                     data_shaped.add(tid)
+                for lbl in self._taps.get(tid, ()):
+                    plan.tap_after.setdefault(len(plan.steps) - 1, []).append(
+                        (lbl, tid))
+                    taps[lbl] = o.clone()
         for t in self.graph.outputs.values():
             lift(t)
+        made = {tid for k in plan.tap_after.values() for _, tid in k}
+        for tid, lbls in self._taps.items():
+            if tid not in made and tid not in self.graph.inputs.values():
+                # a folded value: uploaded with the plan's constants
+                for lbl in lbls:
+                    plan.tap_start.append((lbl, tid))
+                    taps[lbl] = lift(tid).clone()
         return plan, vals
 
 

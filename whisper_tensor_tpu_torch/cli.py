@@ -1,10 +1,11 @@
-"""Command-line interface of the port: `generate`, `embed`, `image` and
-`serve`.
+"""Command-line interface of the port: `generate`, `embed`, `image`,
+`serve`, `inspect` and `export`.
 
 Counterpart of whisper_tensor_tpu/cli.py:41 (generate), :171 (embed),
-:201 (image) and :445 (serve), on a torch device chosen with --device
-(CUDA by default, the CPU only when asked for). The reference's other
-subcommands are not ported yet.
+:201 (image), :445 (serve), :292 (inspect) and :313 (export), on a
+torch device chosen with --device (CUDA by default, the CPU only when
+asked for); `inspect` and `export` load on the host and touch no
+device. The reference's other subcommands are not ported yet.
 
 Usage:
   python -m whisper_tensor_tpu_torch.cli generate --model DIR \
@@ -20,6 +21,14 @@ Usage:
   python -m whisper_tensor_tpu_torch.cli serve --model DIR \
       --http-port 8000 [-c quantize=int8] [--device cuda]
       [-c ragged_decode=1 -c serve_batch=16 -c prefill_chunk=128]
+  python -m whisper_tensor_tpu_torch.cli inspect --model DIR [-c k=v]
+  python -m whisper_tensor_tpu_torch.cli export --model DIR -o out.onnx \
+      [--weights embed|external|none] [--name MODEL] [--loader auto]
+
+`inspect` prints each model of the loaded bundle as JSON (op census,
+weights, inputs, outputs, interfaces). `export` writes each model as
+ONNX, the bytes the JAX package's `export` writes: `external` (the
+default) puts the weights in `<out>.bin` beside it, 64-byte aligned.
 
 --model takes a transformers checkpoint dir (a GPTQ/AWQ one too: its
 quantized Linears stay packed on the device) or a llama-family GGUF
@@ -261,6 +270,61 @@ def cmd_serve(args) -> None:
     asyncio.run(srv.run(args.host, args.port))
 
 
+def cmd_inspect(args) -> None:
+    from .importers.loaders import identify_and_load
+
+    bundle = identify_and_load(args.model, **_parse_kv(args.config))
+    for name, model in bundle.models.items():
+        g = model.graph
+        census: Dict[str, int] = {}
+        for sop in g.ops:
+            census[sop.op.OP_TYPE] = census.get(sop.op.OP_TYPE, 0) + 1
+        print(json.dumps({
+            "name": name, "ops": len(g.ops),
+            "weights": len(g.store),
+            "weight_bytes": g.store.total_bytes(),
+            "inputs": [g.tensors[t].name for t in g.inputs],
+            "outputs": [g.tensors[t].name for t in g.outputs],
+            "op_census": dict(sorted(census.items(), key=lambda kv: -kv[1])),
+            "interfaces": {k: {kk: vv for kk, vv in v.items()
+                               if isinstance(vv, (str, int, float, bool))}
+                           for k, v in bundle.interfaces.items()},
+        }, indent=2))
+
+
+def cmd_export(args) -> None:
+    """Convert any checkpoint the port loads to ONNX (reference
+    identify_and_load -> ONNX bytes, crates/whisper-tensor-import/src/
+    lib.rs:38)."""
+    import os
+
+    from .importers.loaders import identify_and_load, loader_registry
+
+    cfg = _parse_kv(args.config)
+    if args.loader == "auto":
+        bundle = identify_and_load(args.model, **cfg)
+    else:
+        bundle = loader_registry()[args.loader].load(
+            {"path": args.model, **cfg})
+    names = list(bundle.models)
+    if args.name:
+        if args.name not in bundle.models:
+            raise SystemExit(f"no model {args.name!r}; have {names}")
+        names = [args.name]
+    multi = len(names) > 1
+    for name in names:
+        out = args.output
+        if multi:
+            stem, ext = os.path.splitext(out)
+            out = f"{stem}.{name}{ext or '.onnx'}"
+        bundle.models[name].save_onnx(out, weights=args.weights)
+        size = os.path.getsize(out)
+        extra = ""
+        if args.weights == "external":
+            extra = f" + {os.path.getsize(out + '.bin')} B weights"
+        print(f"{name}: wrote {out} ({size} B{extra})")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser("whisper-tensor-tpu-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -360,6 +424,25 @@ def main(argv=None) -> None:
     s.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     s.set_defaults(fn=cmd_serve)
+
+    n = sub.add_parser("inspect", help="load a model and print its structure")
+    n.add_argument("--model", required=True)
+    n.add_argument("-c", "--config", action="append", default=[])
+    n.set_defaults(fn=cmd_inspect)
+
+    x = sub.add_parser("export",
+                       help="convert any supported checkpoint to ONNX")
+    x.add_argument("--model", required=True)
+    x.add_argument("--loader", default="auto")
+    x.add_argument("-o", "--output", required=True,
+                   help="output .onnx path (per-model suffix added when "
+                        "the bundle has several models)")
+    x.add_argument("--weights", default="external",
+                   choices=["embed", "external", "none"])
+    x.add_argument("--name", default=None,
+                   help="export only this model from the bundle")
+    x.add_argument("-c", "--config", action="append", default=[])
+    x.set_defaults(fn=cmd_export)
 
     args = ap.parse_args(argv)
     args.fn(args)

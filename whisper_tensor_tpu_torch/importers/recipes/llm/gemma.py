@@ -23,6 +23,7 @@ import numpy as np
 
 from ....dtype import DType
 from ...onnx_builder import OnnxBuilder, WeightStorage
+from . import transposed
 from .llama import rope_tables
 
 
@@ -82,7 +83,7 @@ def build_gemma_step(weights: Callable[[str], np.ndarray], cfg: GemmaConfig,
         return np.asarray(weights(name)).astype(np_dt)
 
     def wT(name):
-        return np.ascontiguousarray(w(name).T)
+        return transposed(w(name))
 
     def gemma_norm_weight(name):
         # gemma RMSNorm multiplies by (1 + weight)
@@ -185,8 +186,8 @@ def build_gemma_step(weights: Callable[[str], np.ndarray], cfg: GemmaConfig,
     xf = b.rms_norm(x, b.initializer("final_norm",
                                      gemma_norm_weight("model.norm.weight")),
                     epsilon=eps)
-    lm = b.initializer("lm_head", np.ascontiguousarray(
-        w("model.embed_tokens.weight").T))
+    lm = b.initializer("lm_head", transposed(
+        w("model.embed_tokens.weight")))
     logits = b.matmul(xf, lm)
     if cfg.gemma2 and cfg.final_logit_softcapping:
         c = b.const(np.asarray(cfg.final_logit_softcapping, dtype=np.float32))

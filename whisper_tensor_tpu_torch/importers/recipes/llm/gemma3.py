@@ -21,6 +21,7 @@ import numpy as np
 
 from ....dtype import DType
 from ...onnx_builder import OnnxBuilder, WeightStorage
+from . import transposed
 from .gemma import GemmaConfig
 from .llama import LlamaConfig, rope_tables
 
@@ -77,7 +78,7 @@ def build_gemma3_step(weights: Callable[[str], np.ndarray], cfg: Gemma3Config,
         return np.asarray(weights(name)).astype(np_dt)
 
     def wT(name):
-        return np.ascontiguousarray(w(name).T)
+        return transposed(w(name))
 
     def norm_w(name):
         return (np.asarray(weights(name)).astype(np.float32) + 1.0).astype(np_dt)
@@ -188,8 +189,8 @@ def build_gemma3_step(weights: Callable[[str], np.ndarray], cfg: Gemma3Config,
 
     xf = b.rms_norm(x, b.initializer("final_norm", norm_w("model.norm.weight")),
                     epsilon=eps)
-    lm = b.initializer("lm_head", np.ascontiguousarray(
-        w("model.embed_tokens.weight").T))
+    lm = b.initializer("lm_head", transposed(
+        w("model.embed_tokens.weight")))
     b.node("MatMul", [xf, lm], outputs=["logits"])
     b.output("logits", dtype, ["batch", "seq", V])
     for i, (nk, nv) in enumerate(cache_outs):

@@ -41,6 +41,7 @@ import numpy as np
 
 from ....dtype import DType
 from ....tensor import NumericTensor, PackedTensor
+from . import transposed
 from .llama import LlamaConfig, build_llama_step
 
 _NAME_MAP = {
@@ -371,7 +372,7 @@ def build_from_gguf_packed(g, max_len: int, dtype: DType = DType.BF16,
         info = g.tensors[src.resolve(hf_name)]
 
         def dense_loader(hf_name=hf_name):
-            return np.ascontiguousarray(src.dense(hf_name).T)
+            return transposed(src.dense(hf_name))
 
         packed_loader = None
         if info.packed is not None and info.packed in SUPPORTED \

@@ -24,6 +24,7 @@ import numpy as np
 
 from ....dtype import DType
 from ...onnx_builder import OnnxBuilder, WeightStorage
+from . import transposed
 
 
 class GPT2Config:
@@ -163,7 +164,7 @@ def build_gpt2_step(weights: Callable[[str], np.ndarray], cfg: GPT2Config,
                       b.initializer("lnfb", w("transformer.ln_f.bias")),
                       epsilon=eps)
     # tied lm head: logits = xf @ wte^T
-    wte_t = b.initializer("wte_t", np.ascontiguousarray(w("transformer.wte.weight").T))
+    wte_t = b.initializer("wte_t", transposed(w("transformer.wte.weight")))
     logits = b.node("MatMul", [xf, wte_t], outputs=["logits"])
     b.output("logits", dtype, ["batch", "seq", V])
     for i, (nk, nv) in enumerate(cache_outs):
@@ -275,7 +276,7 @@ def build_gpt2_train(weights: Callable[[str], np.ndarray], cfg: GPT2Config,
         x = b.add(x, mlp)
     xf = b.layer_norm(x, b.initializer("lnfg", w("transformer.ln_f.weight")),
                       b.initializer("lnfb", w("transformer.ln_f.bias")), epsilon=eps)
-    wte_t = b.initializer("wte_t", np.ascontiguousarray(w("transformer.wte.weight").T))
+    wte_t = b.initializer("wte_t", transposed(w("transformer.wte.weight")))
     b.node("MatMul", [xf, wte_t], outputs=["logits"])
     b.output("logits", dtype, ["batch", "seq", V])
     return b.build(storage or WeightStorage.embed())

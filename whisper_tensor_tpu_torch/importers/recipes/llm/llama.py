@@ -22,6 +22,7 @@ import numpy as np
 
 from ....dtype import DType
 from ...onnx_builder import OnnxBuilder, WeightStorage
+from . import transposed
 
 
 @dataclass
@@ -116,7 +117,7 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
         return np.asarray(weights(name)).astype(np_dt)
 
     def wT(name: str) -> np.ndarray:
-        return np.ascontiguousarray(w(name).T)
+        return transposed(w(name))
 
     def lin(init_name: str, hf_name: str) -> str:
         # matmul-RHS weight: dense transposed payload + weight_map entry
@@ -254,8 +255,8 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
     xf = b.rms_norm(x, b.initializer("final_norm", w("model.norm.weight")),
                     epsilon=eps)
     if cfg.tie_word_embeddings:
-        lm = b.initializer("lm_head", np.ascontiguousarray(
-            w("model.embed_tokens.weight").T))
+        lm = b.initializer("lm_head", transposed(
+            w("model.embed_tokens.weight")))
     else:
         lm = lin("lm_head", "lm_head.weight")
     b.node("MatMul", [xf, lm], outputs=["logits"])
@@ -287,7 +288,7 @@ def build_llama_train(weights: Callable[[str], np.ndarray],
         return np.asarray(weights(name)).astype(np_dt)
 
     def wT(name: str) -> np.ndarray:
-        return np.ascontiguousarray(w(name).T)
+        return transposed(w(name))
 
     b = OnnxBuilder(f"{cfg.model_type}_train", opset=23,
                     custom_opsets={"wt": 1})
@@ -335,8 +336,8 @@ def build_llama_train(weights: Callable[[str], np.ndarray],
     xf = b.rms_norm(x, b.initializer("final_norm", w("model.norm.weight")),
                     epsilon=eps)
     if cfg.tie_word_embeddings:
-        lm = b.initializer("lm_head", np.ascontiguousarray(
-            w("model.embed_tokens.weight").T))
+        lm = b.initializer("lm_head", transposed(
+            w("model.embed_tokens.weight")))
     else:
         lm = lin("lm_head", "lm_head.weight")
     b.node("MatMul", [xf, lm], outputs=["logits"])

@@ -28,7 +28,6 @@ The SDXL, SD3 and Flux subclasses are not ported yet (ROADMAP A9).
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -92,6 +91,20 @@ def euler_karras_schedule(n_steps: int, num_train_timesteps: int = 1000,
     timesteps = np.interp(np.log(sigmas[:-1]), np.log(all_sigmas),
                           np.arange(num_train_timesteps))
     return {"sigmas": sigmas, "timesteps": timesteps.astype(np.float32)}
+
+
+def euler_scaled(latents, sig: float):
+    """latents / sqrt(sig^2 + 1), the UNet's input at an Euler step: an
+    f32 division by the divisor rounded to f32, as the reference's
+    super-graph node divides. The divisor is a tensor on the latents'
+    device, since torch on the card multiplies by a reciprocal when it
+    divides by a Python number; so a numpy array and a tensor on any
+    device give the same bits, and the interface and the diffusion super
+    graph feed the UNet the same sample."""
+    b = np.float32(np.sqrt(sig * sig + 1.0))
+    if isinstance(latents, torch.Tensor):
+        return latents / torch.tensor(b, device=latents.device)
+    return latents / b
 
 
 def make_schedule(schedule: str, n_steps: int) -> Dict[str, np.ndarray]:
@@ -184,9 +197,13 @@ class ImageGenerationInterface:
 
     def _decode(self, latents: torch.Tensor) -> Image:
         """The VAE decode on the device, then the reference's
-        post-processing of its output, in the output's type, on the
-        host."""
-        img = to_host(self._run(self.vae, {"latents": latents})["image"])
+        post-processing of its output on the host, in f32: the type the
+        reference's numpy arithmetic gives a bf16 output under numpy 2.0,
+        named because a later numpy keeps bf16 and rounds (x + 1) and the
+        product by 255 to it. The diffusion super graph's
+        TensorToImageNode computes in f32 too, so both give one image."""
+        img = to_host(self._run(self.vae, {"latents": latents})["image"]
+                      ).astype(np.float32)
         pixels = np.clip((img[0].transpose(1, 2, 0) + 1) / 2, 0, 1)
         return Image((pixels * 255).round().astype(np.uint8))
 
@@ -228,7 +245,7 @@ class ImageGenerationInterface:
             self.device)
         for i in range(n_steps):
             sig = float(sigmas[i])
-            scaled = latents if flow else latents / math.sqrt(sig * sig + 1.0)
+            scaled = latents if flow else euler_scaled(latents, sig)
             out = self._run(self.unet, {
                 "sample": torch.cat([scaled, scaled], dim=0),
                 "timestep": ts[i], "encoder_hidden_states": ctx})["out"]

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ..backends.cpu.dequant import quantize_blocks
+from ..backends.eval_backend import EvalBackend
 from ..backends.torch_exec.compiler import GraphExecutor
 from ..device import resolve_device
 from ..dtype import DType, host_to_device, to_host, to_torch
@@ -437,6 +438,7 @@ class TextInferenceInterface:
         self._dfa_cache: Dict[Tuple, object] = {}
         self._dfa_device: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._hidden_exec: Optional[GraphExecutor] = None
+        self._eval_backend: Optional[EvalBackend] = None
 
     def _executor(self, milli) -> GraphExecutor:
         """An executor of `milli` with the port's own pass applied on a
@@ -560,6 +562,21 @@ class TextInferenceInterface:
                 if self._weights_dev is None:
                     self.load_weights(self.host_weights())
         return self._weights_dev
+
+    def eval_backend(self) -> EvalBackend:
+        """A torch-mode EvalBackend that runs the model as this
+        interface's graph (`self.milli`: fused, int8 or packed; no pair
+        pass) over this interface's device weights, so that a super-graph
+        job of the model quantizes and uploads nothing again. Made once,
+        with the weights the interface holds then."""
+        if self.row_extra_names:
+            raise ValueError("an interface with adapters installed runs a "
+                             "graph that takes lora_idx: no eval backend")
+        if self._eval_backend is None:
+            self._eval_backend = EvalBackend(
+                "torch", device=self.device).bind(
+                self.model.graph, self.milli, self._weights())
+        return self._eval_backend
 
     def _vocab_size(self) -> int:
         info = self.model.graph.tensors[

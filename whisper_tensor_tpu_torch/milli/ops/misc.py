@@ -26,8 +26,11 @@ to XLA's own dynamic_update_slice.
 
 A write that does not pair keeps its DynUpdateSlice lowering: a per-row
 start on axis 2 of a 4-D cache goes to the kernel's single-cache
-wrapper ragged_kv_write; any other per-row write is an indexed store and
-a scalar start an index_copy_.
+wrapper ragged_kv_write, and so does a scalar start there when the
+kernel takes the cache and update (`kernel_takes`: the step graphs that
+Model.eval and the super graph run, which no pass pairs); any other
+per-row write is an indexed store and any other scalar start an
+index_copy_.
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ...backends.cuda.kv_write import (clamped_start, kv_write_pair,
-                                       ragged_kv_write)
+from ...backends.cuda.kv_write import (clamped_start, kernel_takes,
+                                       kv_write_pair, ragged_kv_write)
 from ...dtype import DType, to_device
 from ...scalar_info import ScalarInfo
 from ...tensor_info import Level, TensorInfo
@@ -288,6 +291,9 @@ def dyn_update_slice(op, inputs, static, device):
         view = data.movedim(ax, 1)                      # (B, L, ...)
         view[rows, cols] = update.movedim(ax, 1).to(data.dtype)
         return [data]
+    if ax == 2 and start.dtype in (torch.int64, torch.int32) \
+            and start.device == data.device and kernel_takes(data, update):
+        return [ragged_kv_write(data, update, start.reshape(()))]
     s = clamped_start(start.reshape(()), data.shape[ax], n)
     data.index_copy_(ax, s + torch.arange(n, device=data.device),
                      update.to(data.dtype))

@@ -1,7 +1,7 @@
 """Model: a SymbolicGraph with a name, an id and execution convenience.
 
 The port's copy of whisper_tensor_tpu/model.py (reference src/model.rs:
-47-182) without `save_onnx` (the port has no exporter yet). `eval` runs
+47-182). `eval` runs
 the graph through an EvalBackend (backends/eval_backend.py): mode "torch"
 (the default) on the device `resolve_device` gives, the card unless the
 caller passes device="cpu"; mode "oracle" in the numpy interpreter.
@@ -40,6 +40,11 @@ class Model:
             data = f.read()
         return Model.new_from_onnx(data, base_dir=os.path.dirname(path),
                                    name=name or os.path.basename(path))
+
+    def save_onnx(self, path: str, weights: str = "embed") -> None:
+        """Serialize back to ONNX (weights: embed | external | none) —
+        the inverse of new_from_onnx (symbolic_graph/export.py)."""
+        self.graph.save_onnx(path, weights=weights)
 
     # -- execution ----------------------------------------------------------
     def backend(self, mode: str = "torch", validate: Optional[bool] = None,

@@ -13,8 +13,11 @@ schema (onnx.proto, IR version <= 11). It provides both directions:
 Only the subset of the schema the framework uses is modeled; unknown
 fields are skipped on decode (forward-compatible).
 
-The port's copy of whisper_tensor_tpu/onnx_pb.py, unchanged
-(the port imports nothing of the JAX package).
+The port's copy of whisper_tensor_tpu/onnx_pb.py (the port imports
+nothing of the JAX package). `dumps` writes the reference's bytes, but
+gathers an encoding as a list of parts (`_Chunks`) in which a large
+payload (a weight's raw_data) is kept by reference, so the final join
+copies it once instead of once for each enclosing message.
 """
 
 from __future__ import annotations
@@ -187,11 +190,11 @@ class Message:
 
     # -- encode ---------------------------------------------------------
     def dumps(self) -> bytes:
-        out = bytearray()
+        out = _Chunks()
         self._emit(out)
-        return bytes(out)
+        return out.join()
 
-    def _emit(self, out: bytearray) -> None:
+    def _emit(self, out: "_Chunks") -> None:
         for num, (name, kind, rep, mcls, packed) in self.FIELDS.items():
             val = getattr(self, name)
             if rep:
@@ -218,7 +221,53 @@ class Message:
                 _emit_one(out, num, kind, val)
 
 
-def _emit_one(out: bytearray, num: int, kind: str, v: Any) -> None:
+class _Chunks:
+    """An encoding in parts, written like a bytearray (`append`, `+=`,
+    `len`): small writes gather in a bytearray, a payload of _BIG bytes
+    or more and a nested message's parts are kept by reference, and
+    `join` copies every part once."""
+
+    __slots__ = ("parts", "buf", "n")
+
+    def __init__(self):
+        self.parts: List[Any] = []
+        self.buf = bytearray()
+        self.n = 0
+
+    def append(self, b: int) -> None:
+        self.buf.append(b)
+        self.n += 1
+
+    def __iadd__(self, data) -> "_Chunks":
+        if isinstance(data, _Chunks):
+            self._flush()
+            self.parts += data.parts
+            self.parts.append(data.buf)
+        elif len(data) >= _BIG:
+            self._flush()
+            self.parts.append(data)
+        else:
+            self.buf += data
+        self.n += len(data)
+        return self
+
+    def _flush(self) -> None:
+        if self.buf:
+            self.parts.append(self.buf)
+            self.buf = bytearray()
+
+    def __len__(self) -> int:
+        return self.n
+
+    def join(self) -> bytes:
+        self._flush()
+        return b"".join(self.parts)
+
+
+_BIG = 1 << 16      # bytes from which a payload is kept by reference
+
+
+def _emit_one(out: _Chunks, num: int, kind: str, v: Any) -> None:
     if kind == _VARINT:
         _write_varint(out, (num << 3) | 0)
         _write_varint(out, int(v))
@@ -239,7 +288,7 @@ def _emit_one(out: bytearray, num: int, kind: str, v: Any) -> None:
         _write_varint(out, len(raw))
         out += raw
     elif kind == _MSG:
-        body = bytearray()
+        body = _Chunks()
         v._emit(body)
         _write_varint(out, (num << 3) | 2)
         _write_varint(out, len(body))

@@ -22,11 +22,33 @@ the text flows it serves:
   * cancel_request, update_observer_settings, get_batcher_stats;
   * `_score_iface`, which the OpenAI front end's logprobs, echo,
     embeddings, best_of reranking and constrained requests use.
+  * inspection (reference :150-213, :293-352): get_graph_layout (the
+    server-side layered layout of graph_layout.py, into control-flow
+    bodies by `subgraph_path`), get_tensor_slice (exact values of a
+    weight's 2-D slice with its statistics), get_op_milli (one symbolic
+    op lowered to its milli ops), get_super_graph (a text model's
+    tokenize -> prefill -> Scan(decode) -> detokenize job as JSON);
+  * super_graph_request (reference :1137-1165): a SuperGraph job run on
+    the Server's device, its node timings, progress and the tensors the
+    client subscribed to (`tensor_subscriptions`: the graph's link names,
+    and labels of tensors inside a model's graph, which become taps of
+    that model's executor) streamed as reports. `backend_mode` defaults
+    to "torch", the card: the numpy interpreter runs only when the
+    client names "oracle" (the reference defaults to "oracle"); "xla"
+    runs as "torch". A model with quantized weights (a `quantize`
+    setting, or a GGUF's packed blocks) runs on its text interface's
+    graph and device weights (`_score_iface`), int8 or packed as its
+    text path runs them; another model on the Model's own backend. Each
+    model's lowered graph and device weights are made once and shared by
+    later jobs;
+  * generate_image (reference :1023-1135): text to image, img2img and
+    inpainting on the bundle's ImageGenerationInterface, and with
+    `preview` the diffusion super graph, which streams one
+    `step_preview` frame a denoise step (`_latent_preview_rgb`).
 The OpenAI front end's `/v1/images/generations` runs on `_image_iface`.
-Every other message of the reference (super graphs, images, speech,
-transcription, multimodal generation, graph layout, tensor slices) and
-the unported generate_text variant (RNN models) answer with an error
-naming them as not ported.
+Every other message of the reference (speech, transcription, multimodal
+generation) and the unported generate_text variant (RNN models) answer
+with an error naming them as not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +67,10 @@ from ..device import resolve_device
 from ..dtype import DType
 from ..interfaces.text import (SamplingParams, TextInferenceInterface,
                                _not_ported)
+from ..super_graph import image as _sg_image  # noqa: F401  (node kinds)
+from ..super_graph import llm as _sg_llm  # noqa: F401
+from ..super_graph import training as _sg_training  # noqa: F401
+from ..super_graph.graph import ExecutionContext, SuperGraph
 from . import protocol as P
 from .batching import ContinuousBatcher
 from .model_server import ModelServer
@@ -53,17 +79,30 @@ from .ws import WebSocketConnection, serve_websocket
 
 # messages of the reference's protocol that the port does not serve
 _UNPORTED_MESSAGES = {
-    "get_graph_layout": "graph layout",
-    "get_tensor_slice": "tensor slices",
-    P.GENERATE_IMAGE: "image generation",
     "generate_multimodal": "multimodal generation",
     "generate_speech": "speech generation",
     "transcribe": "transcription",
     "transcribe_stream": "streaming transcription",
-    "get_op_milli": "per-op milli lowering views",
-    "get_super_graph": "super graphs",
-    P.SUPER_GRAPH_REQUEST: "super graphs",
 }
+
+
+def _latent_preview_rgb(lat) -> dict:
+    """(1,C,H,W) latents -> small RGB frame dict for the live SD
+    preview stream (no VAE decode — the standard cheap latent->RGB
+    linear approximation, normalized per frame). The reference's
+    (:27-41); device latents are downloaded first."""
+    import base64
+
+    from ..super_graph.nodes import host_value
+
+    a = np.asarray(host_value(lat), dtype=np.float32)[0]
+    rgb = a[:3] if a.shape[0] >= 3 else np.repeat(a[:1], 3, axis=0)
+    lo, hi = float(rgb.min()), float(rgb.max())
+    u8 = ((rgb - lo) / ((hi - lo) or 1.0) * 255).astype(np.uint8)
+    u8 = u8.transpose(1, 2, 0)                      # (H, W, 3)
+    return {"width": int(u8.shape[1]), "height": int(u8.shape[0]),
+            "rgb_b64": base64.b64encode(
+                np.ascontiguousarray(u8).tobytes()).decode()}
 
 
 class Server:
@@ -163,6 +202,28 @@ class Server:
         if t == P.GET_MODEL_GRAPH:
             return {"type": P.MODEL_GRAPH,
                     "graph": self.models.graph_json(int(msg["model_id"]))}
+        if t == "get_graph_layout":
+            # server-side layered layout (graph_layout.py)
+            from .graph_layout import build_layout
+
+            g = self.models.graph_json(int(msg["model_id"]))
+            for key in msg.get("subgraph_path", ()):
+                oid, attr = key
+                op = next(o for o in g["ops"] if o["id"] == int(oid))
+                g = op["subgraphs"][attr]
+            return {"type": "graph_layout", "model_id": msg["model_id"],
+                    "layout": build_layout(
+                        g, max_ops=msg.get("max_ops"))}
+        if t == "get_tensor_slice":
+            return self._get_tensor_slice(msg)
+        if t == "get_op_milli":
+            return self._get_op_milli(msg)
+        if t == "get_super_graph":
+            return self._get_super_graph(msg)
+        if t == P.SUPER_GRAPH_REQUEST:
+            return self._super_graph_request(msg)
+        if t == P.GENERATE_IMAGE:
+            return self._generate_image(msg)
         if t == P.GET_STORED_TENSOR:
             entry = self.models.get(int(msg["model_id"]))
             arr = entry.model.graph.store.get_numeric(msg["name"]).numpy()
@@ -221,6 +282,264 @@ class Server:
         if t in _UNPORTED_MESSAGES:
             raise _not_ported(f"{_UNPORTED_MESSAGES[t]} ({t!r})")
         raise ValueError(f"unknown message type {t!r}")
+
+    # -- inspection and super graphs ---------------------------------------------
+    def _get_tensor_slice(self, msg) -> dict:
+        """Exact-value N-D slicing for the UI inspect windows (reference
+        inspect_windows.rs value tables): `fix` pins an index per axis;
+        nulls mark the (up to 2) display axes."""
+        entry = self.models.get(int(msg["model_id"]))
+        a = np.asarray(entry.model.graph.store.get_numeric(
+            msg["name"]).numpy())
+        af = a.astype(np.float32, copy=False)
+        finite = af[np.isfinite(af)] if af.size else af
+        stats = {"min": float(finite.min()) if finite.size else 0.0,
+                 "max": float(finite.max()) if finite.size else 0.0,
+                 "mean": float(finite.mean()) if finite.size else 0.0,
+                 "std": float(finite.std()) if finite.size else 0.0,
+                 "nan": int(np.isnan(af).sum()) if af.size else 0}
+        fix = msg.get("fix") or [None] * a.ndim
+        if len(fix) != a.ndim:
+            raise ValueError(f"fix has {len(fix)} entries for a "
+                             f"{a.ndim}-d tensor")
+        free = [d for d, v in enumerate(fix) if v is None]
+        if len(free) > 2:       # display the trailing two free axes
+            for d in free[:-2]:
+                fix[d] = 0
+            free = free[-2:]
+        idx = tuple(slice(None) if v is None else
+                    int(v) % max(int(a.shape[d]), 1)
+                    for d, v in enumerate(fix))
+        sl = np.atleast_2d(af[idx])     # 0 free axes -> (1,1); 1 -> (1,N)
+        ro = min(max(int(msg.get("row_off", 0)), 0), max(sl.shape[0] - 1, 0))
+        co = min(max(int(msg.get("col_off", 0)), 0), max(sl.shape[1] - 1, 0))
+        mr = min(int(msg.get("max_rows", 64)), 512)
+        mc = min(int(msg.get("max_cols", 64)), 512)
+        view = sl[ro:ro + mr, co:co + mc]
+        return {"type": "tensor_slice", "name": msg["name"],
+                "shape": list(a.shape), "dtype": str(a.dtype),
+                "slice_shape": list(sl.shape),
+                "row_off": ro, "col_off": co,
+                "free_axes": free, "fix": fix,
+                "values": [[(None if not np.isfinite(v) else
+                             round(float(v), 6)) for v in row]
+                           for row in view],
+                "stats": stats}
+
+    def _get_op_milli(self, msg) -> dict:
+        """Lower ONE symbolic op to its milli ops (the nested
+        symbolic->milli graph navigation of the reference UI,
+        crates/whisper-tensor-ui/src/graph_explorer/)."""
+        import dataclasses
+
+        from ..milli.ir import MilliGraph
+        from ..symbolic_graph.ops.base import LowerCtx
+
+        entry = self.models.get(int(msg["model_id"]))
+        g = entry.model.graph
+        sop = next((o for o in g.ops if o.id == int(msg["op_id"])), None)
+        if sop is None:
+            raise ValueError(f"no op {msg['op_id']}")
+        milli = MilliGraph(f"op:{sop.op.OP_TYPE}")
+        ctx = LowerCtx(milli)
+        in_ids = [milli.add_input(g.tensors[i].name) if i is not None
+                  else None for i in sop.inputs]
+        outs = sop.op.lower(ctx, in_ids, len(sop.outputs))
+        for k, o in enumerate(outs):
+            name = (g.tensors[sop.outputs[k]].name
+                    if sop.outputs[k] is not None else f"o{k}")
+            milli.mark_output(name, o)
+        nodes = []
+        for node in milli.nodes:
+            params = {}
+            if dataclasses.is_dataclass(node.op):
+                for f in dataclasses.fields(node.op):
+                    v = getattr(node.op, f.name)
+                    if isinstance(v, np.ndarray):
+                        v = f"ndarray{list(v.shape)}"
+                    params[f.name] = v
+            nodes.append({"kind": node.op.KIND, "params": params,
+                          "inputs": node.inputs, "outputs": node.outputs})
+        return {"type": "op_milli", "op_id": sop.id,
+                "op_type": sop.op.OP_TYPE,
+                "inputs": {n: tid for n, tid in milli.inputs.items()},
+                "outputs": {n: tid for n, tid in milli.outputs.items()},
+                "nodes": nodes}
+
+    def _get_super_graph(self, msg) -> dict:
+        """The SuperGraph-level view of a loaded text model: the full
+        tokenize -> prefill -> Scan(decode) -> detokenize job as JSON,
+        with nested Scan bodies included — the top layer of the
+        reference UI's SuperGraph -> Symbolic -> Milli navigation."""
+        from ..super_graph.llm import build_llm_supergraph
+
+        entry = self.models.get(int(msg["model_id"]))
+        cfg = entry.interfaces.get("text")
+        if cfg is None:
+            raise ValueError("model has no text interface")
+        sg = build_llm_supergraph(
+            entry.name, entry.tokenizer_source or "bytes",
+            n_layers=int(cfg["n_layers"]),
+            n_kv_heads=int(cfg["n_kv_heads"]), max_len=int(cfg["max_len"]),
+            head_dim=int(cfg["head_dim"]),
+            n_new=int(msg.get("n_new", 16)))
+        return {"type": "super_graph", "model_id": int(msg["model_id"]),
+                "graph": sg.to_json()}
+
+    def _super_graph_request(self, msg) -> None:
+        """Run a SuperGraph job on the Server's device (see the module
+        docstring); its result answers the graph's outputs as the
+        reference's JSON."""
+        graph = SuperGraph.from_json(msg["graph"])
+
+        def decode_value(v):
+            if isinstance(v, dict) and "data_b64" in v:
+                return P.decode_tensor(v)
+            if isinstance(v, dict):  # tensor map
+                return {k: decode_value(x) for k, x in v.items()}
+            return v
+
+        feeds: Dict[str, Any] = {name: decode_value(v)
+                                 for name, v in msg.get("inputs", {}).items()}
+        entries = [self.models.get(int(i)) for i in msg.get("model_ids", [])]
+        models = {e.name: e.model for e in entries}
+        backend_mode = msg.get("backend_mode", "torch")
+        settings = ObserverSettings(
+            tensor_subscriptions=set(msg.get("tensor_subscriptions", [])))
+
+        def job(obs):
+            # a model with quantized weights runs on its text interface's
+            # graph and weights
+            backends = {e.name: self._score_iface(e).eval_backend()
+                        for e in entries if backend_mode != "oracle"
+                        and "text" in e.interfaces
+                        and (e.interfaces["text"].get("quantize")
+                             or e.model.graph.store.packed_sources)}
+            ctx = ExecutionContext(models=models, backend_mode=backend_mode,
+                                   observer=obs,
+                                   capture_labels=settings.tensor_subscriptions,
+                                   device=self.device, backends=backends)
+            out = graph.run(ctx, feeds)
+            return {k: (P.encode_tensor(v) if isinstance(v, np.ndarray) else
+                        v if isinstance(v, (str, int, float, bool, list)) else
+                        repr(v))
+                    for k, v in out.items()}
+
+        self.scheduler.submit(job, settings)
+        return None  # job_accepted is emitted via the report pump
+
+    def _generate_image(self, msg) -> None:
+        """Run an image pipeline bundle (diffusers loader) on the Server's
+        device; the result carries raw RGB bytes + dims (canvas-ready).
+        With `preview` the diffusion super graph runs instead and streams
+        one `step_preview` frame a denoise step."""
+        import base64
+
+        from ..interfaces.image_gen import ImageGenConfig
+
+        bid = msg.get("bundle_id")
+        if bid is None:
+            bid = self.models.get(int(msg["model_id"])).meta.get("bundle_id")
+        bundle = self.models.bundle(int(bid))
+        if "image" not in bundle.interfaces:
+            raise ValueError("bundle has no image interface")
+        iface = self._image_iface_of(int(bid))
+        spec = bundle.interfaces["image"]
+        cfg = ImageGenConfig(
+            steps=int(msg.get("steps", 20)),
+            guidance_scale=float(msg.get("guidance_scale", 7.5)),
+            height=int(msg.get("height", spec.get("height", 512))),
+            width=int(msg.get("width", spec.get("width", 512))),
+            schedule=("rectified_flow" if spec["pipeline"] in ("sd3", "flux")
+                      else "euler"),
+            seed=int(msg.get("seed", 0)))
+        settings = ObserverSettings(report_progress=True)
+
+        def rgb(img) -> dict:
+            return {"width": img.pixels.shape[1],
+                    "height": img.pixels.shape[0],
+                    "rgb_b64": base64.b64encode(
+                        img.pixels.tobytes()).decode()}
+
+        if msg.get("preview") and spec["pipeline"] == "sd":
+            # live per-step latent previews (reference sd_explorer.rs):
+            # the introspectable SuperGraph job, each denoise step a node
+            # whose latents the observer turns into a small RGB frame
+            from ..super_graph.image import build_diffusion_supergraph
+
+            te = bundle.models[spec["text_encoder"]]
+            unet = bundle.models[spec["unet"]]
+            vae = bundle.models[spec["vae"]]
+            sg = build_diffusion_supergraph(
+                te.name, unet.name, vae.name, steps=cfg.steps,
+                guidance_scale=cfg.guidance_scale,
+                latent_channels=spec["latent_channels"],
+                latent_hw=(cfg.height // 8, cfg.width // 8),
+                seed=cfg.seed,
+                prediction_type=spec.get("prediction_type", "epsilon"),
+                bos_token_id=spec.get("bos_token_id", 49406),
+                eos_token_id=spec.get("eos_token_id", 49407),
+                seq_len=spec.get("seq_len", 77))
+            ids = iface.encode_prompt(msg.get("prompt", ""))
+            nids = iface.encode_prompt(msg.get("negative_prompt", ""))
+
+            def preview_job(obs):
+                out_q, job_id = obs.out, obs.job_id
+                orig_assign, orig_subscribed = (obs.on_tensor_assigned,
+                                                obs.subscribed)
+
+                def on_assign(link_name, value):
+                    if link_name == "step_latents":
+                        out_q.put({"type": "step_preview", "job": job_id,
+                                   **_latent_preview_rgb(value)})
+                    if orig_subscribed(link_name):
+                        orig_assign(link_name, value)
+
+                obs.on_tensor_assigned = on_assign
+                obs.subscribed = lambda name: (name == "step_latents"
+                                               or orig_subscribed(name))
+                ctx = ExecutionContext(
+                    models={te.name: te, unet.name: unet, vae.name: vae},
+                    backend_mode="torch", observer=obs, device=self.device)
+                with self._image_lock:
+                    out = sg.run(ctx, {"prompt_ids": ids,
+                                       "negative_ids": nids})
+                return rgb(out["image"])
+
+            self.scheduler.submit(preview_job, settings)
+            return None
+
+        init = msg.get("init_image")     # {rgb_b64, width, height}
+        mask = msg.get("mask_image")
+        strength = float(msg.get("strength", 0.6))
+
+        def _decode_rgb(d):
+            raw = base64.b64decode(d["rgb_b64"])
+            return np.frombuffer(raw, np.uint8).reshape(
+                int(d["height"]), int(d["width"]), 3)
+
+        def job(obs):
+            with self._image_lock:
+                if init is not None and mask is not None:
+                    m = _decode_rgb(mask).astype(np.float32).mean(-1) / 255.0
+                    img = iface.run_inpaint(
+                        msg.get("prompt", ""), _decode_rgb(init), m,
+                        negative_prompt=msg.get("negative_prompt", ""),
+                        cfg=cfg, observer=obs)
+                elif init is not None:
+                    img = iface.run_img2img(
+                        msg.get("prompt", ""), _decode_rgb(init),
+                        strength=strength,
+                        negative_prompt=msg.get("negative_prompt", ""),
+                        cfg=cfg, observer=obs)
+                else:
+                    img = iface.run(msg.get("prompt", ""),
+                                    msg.get("negative_prompt", ""), cfg,
+                                    observer=obs)
+            return rgb(img)
+
+        self.scheduler.submit(job, settings)
+        return None  # job_accepted is emitted via the report pump
 
     # -- the profiler ----------------------------------------------------------
     def _start_profiler(self, msg) -> dict:
@@ -283,9 +602,11 @@ class Server:
         """The image interface of an entry's bundle (its text encoder,
         UNet and VAE entries share one), built on the Server's device at
         the first request."""
+        return self._image_iface_of(int(entry.meta["bundle_id"]))
+
+    def _image_iface_of(self, bid: int):
         from ..interfaces.image_gen import image_interface_from_bundle
 
-        bid = int(entry.meta["bundle_id"])
         with self._cache_lock:
             iface = self._image_ifaces.get(bid)
             if iface is None:

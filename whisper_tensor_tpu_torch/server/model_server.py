@@ -3,9 +3,7 @@
 Reference equivalent: crates/whisper-tensor-server/src/model_server.rs:
 23-241 (loader registry, load/unload, Arc<Model> cache, model reports).
 
-The port's copy of whisper_tensor_tpu/server/model_server.py; its
-graph report has no control-flow sub-graphs, which the port's graphs
-never hold.
+The port's copy of whisper_tensor_tpu/server/model_server.py, unchanged.
 """
 
 from __future__ import annotations
@@ -101,6 +99,13 @@ class ModelServer:
                      "properties": sop.op.properties(),
                      "inputs": [i for i in sop.inputs],
                      "outputs": [o for o in sop.outputs]}
+            # nested control-flow bodies (If/Scan/Loop) — the UI descends
+            # these like the reference's nested graph navigation
+            # (crates/whisper-tensor-ui/src/graph_explorer/)
+            subs = sop.op.sub_graph_attrs()
+            if subs:
+                entry["subgraphs"] = {k: self._graph_json(sg)
+                                      for k, sg in subs.items()}
             ops.append(entry)
         return {"name": g.name, "tensors": tensors, "ops": ops,
                 "inputs": g.inputs, "outputs": g.outputs}

@@ -8,8 +8,14 @@ streaming through a lock-free queue :215-392, cancellation registry
 per device, like the reference), queue.Queue report streaming, and an
 Event-based cancellation registry.
 
-The port's copy of whisper_tensor_tpu/server/scheduler.py; its
-observer stands alone, as the port has no SuperGraph.
+The port's copy of whisper_tensor_tpu/server/scheduler.py. Its
+StreamingObserver subclasses the port's SuperObserver and reports what
+the reference's drops without a word: a subscribed device or bf16 torch
+tensor is downloaded (`to_host`, bf16 kept as bf16) and abbreviated,
+and a tensor map is reported with one abbreviated tensor per entry in
+`tensors` beside the reference's placeholder `tensor`. A subscribed
+value it cannot encode fails the job (job_error), never a quiet return.
+The worker drops a finished job before it waits for the next one.
 """
 
 from __future__ import annotations
@@ -22,8 +28,11 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+import torch
 
+from ..dtype import to_host
 from ..milli.ir import EvalCancelled
+from ..super_graph.graph import SuperObserver
 from .protocol import (JOB_ACCEPTED, JOB_ERROR, JOB_RESULT, NODE_EXECUTED,
                        PROGRESS, TENSOR_ASSIGNED, AbbreviatedTensor)
 
@@ -37,7 +46,20 @@ class ObserverSettings:
     tensor_subscriptions: set = field(default_factory=set)  # link names
 
 
-class StreamingObserver:
+def _abbreviate(name: str, value) -> AbbreviatedTensor:
+    """The preview of one subscribed value; TypeError for a value that is
+    not a tensor."""
+    if isinstance(value, torch.Tensor):
+        value = to_host(value)
+    if isinstance(value, (np.ndarray, np.generic, int, float, bool)):
+        a = np.asarray(value)
+        if a.dtype.kind in "biufcV":       # ml_dtypes' bf16 is kind V
+            return AbbreviatedTensor.from_array(a)
+    raise TypeError(f"subscribed link {name!r} carries a "
+                    f"{type(value).__name__}, which is not a tensor")
+
+
+class StreamingObserver(SuperObserver):
     """Pushes reports into the job's outbound queue (the reference's
     ArrayQueue + Notify pattern)."""
 
@@ -53,14 +75,22 @@ class StreamingObserver:
             self.out.put({"type": NODE_EXECUTED, "job": self.job_id,
                           "node": getattr(node, "name", str(node)), "ms": ms})
 
+    def subscribed(self, name: str) -> bool:
+        return name in self.settings.tensor_subscriptions
+
     def on_tensor_assigned(self, link_name: str, value) -> None:
-        if link_name in self.settings.tensor_subscriptions:
-            try:
-                abbrev = AbbreviatedTensor.from_array(np.asarray(value))
-            except Exception:
-                return
-            self.out.put({"type": TENSOR_ASSIGNED, "job": self.job_id,
-                          "link": link_name, "tensor": abbrev.__dict__})
+        if link_name not in self.settings.tensor_subscriptions:
+            return
+        report = {"type": TENSOR_ASSIGNED, "job": self.job_id,
+                  "link": link_name}
+        if isinstance(value, dict):
+            report["tensor"] = AbbreviatedTensor.from_array(
+                np.asarray(value)).__dict__
+            report["tensors"] = {k: _abbreviate(f"{link_name}.{k}", v).__dict__
+                                 for k, v in value.items()}
+        else:
+            report["tensor"] = _abbreviate(link_name, value).__dict__
+        self.out.put(report)
 
     def on_progress(self, node, fraction: float) -> None:
         if self.settings.report_progress:
@@ -141,3 +171,7 @@ class Scheduler:
             finally:
                 self._cancel_registry.pop(job.id, None)
                 self._settings_registry.pop(job.id, None)
+                # keep nothing of a finished job while waiting for the
+                # next: its closure may hold models and their device
+                # weights (an unloaded model's among them)
+                job = obs = result = None

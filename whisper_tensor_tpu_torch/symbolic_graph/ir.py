@@ -13,7 +13,7 @@ their nested graphs (sub-graphs, bound at ingest) through the selected
 mode.
 
 The port's copy of whisper_tensor_tpu/symbolic_graph/ir.py without graph
-surgery and ONNX re-export. An initializer whose store entry is lazy
+surgery; ONNX re-export is symbolic_graph/export.py. An initializer whose store entry is lazy
 (the GGUF loader's) is not materialized to lower it. `needs_host_eval`
 also holds the graphs with an `ai.onnx.ml` node: those ops (label
 encoders, tree ensembles, ...) run in the numpy interpreter by design.
@@ -210,6 +210,9 @@ class SymbolicGraph:
             attrs = Attrs(node, base_dir)
             op = cls.from_onnx(node, attrs, opset)
             op.OP_TYPE = node.op_type  # instance-level: shared classes
+            # keep the source attributes for lossless ONNX re-export
+            # (symbolic_graph/export.py)
+            op._onnx_attrs = list(node.attribute)
             op._onnx_domain = node.domain or ""
             # control-flow ops parse their nested graphs here
             if hasattr(op, "_bind_subgraphs"):
@@ -304,6 +307,19 @@ class SymbolicGraph:
             return True
         return any(t.info is not None and t.info.dtype == DType.STRING
                    for t in self.tensors.values())
+
+    # ------------------------------------------------------------------
+    # ONNX export (inverse of from_onnx_bytes; symbolic_graph/export.py)
+    # ------------------------------------------------------------------
+    def to_onnx_bytes(self, weights: str = "embed", sink=None) -> bytes:
+        from .export import to_onnx_bytes
+
+        return to_onnx_bytes(self, weights=weights, sink=sink)
+
+    def save_onnx(self, path: str, weights: str = "embed") -> None:
+        from .export import save_onnx
+
+        save_onnx(self, path, weights=weights)
 
     def to_milli(self, group: Optional[str] = None,
                  bake_small_constants: bool = True) -> Tuple[MilliGraph, Dict[str, str]]:

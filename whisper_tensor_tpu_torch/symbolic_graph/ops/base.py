@@ -9,13 +9,12 @@ Reference equivalent: the Operation trait + AnyOperation enum
   * optionally a direct `infer` override.
 
 The port's copy of whisper_tensor_tpu/symbolic_graph/ops/base.py,
-without the ONNX-export hook `sub_graph_attrs` (the port has no exporter
-yet) and `opset_of`, which nothing of it calls.
+without `opset_of`, which nothing of it calls.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Type
+from typing import Any, Dict, List, Optional, Type
 
 import numpy as np
 
@@ -143,3 +142,11 @@ class Operation(Introspectable):
     # Ops with nested sub-graphs (If/Scan/Loop/SequenceMap) override this.
     def sub_graphs(self) -> list:
         return []
+
+    # ONNX export support (symbolic_graph/export.py). Imported ops
+    # re-emit their stored AttributeProtos verbatim; control-flow ops
+    # override sub_graph_attrs so nested graphs re-encode LIVE (nested
+    # surgery survives export). Programmatically-constructed ops with
+    # attributes define to_onnx_attrs() -> {attr_name: value}.
+    def sub_graph_attrs(self) -> Dict[str, Any]:
+        return {}

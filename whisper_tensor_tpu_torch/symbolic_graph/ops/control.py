@@ -7,9 +7,9 @@ the whole-graph XLA lowering partitions around. (LLM decode loops do NOT
 go through ONNX Scan in this framework — the SuperGraph compiles decode
 to lax.scan directly.)
 
-The port's copy of whisper_tensor_tpu/symbolic_graph/ops/control.py
-without the ONNX re-export hooks (`sub_graph_attrs`, `to_onnx_attrs`):
-the port has no exporter yet.
+The port's copy of whisper_tensor_tpu/symbolic_graph/ops/control.py,
+with the ONNX re-export hooks (`sub_graph_attrs`, `to_onnx_attrs`) that
+symbolic_graph/export.py reads.
 """
 
 from __future__ import annotations
@@ -43,6 +43,10 @@ class If(Operation):
     def sub_graphs(self):
         return [g for g in (self.then_graph, self.else_graph) if g is not None]
 
+    def sub_graph_attrs(self):
+        return {k: g for k, g in (("then_branch", self.then_graph),
+                                  ("else_branch", self.else_graph))
+                if g is not None}
 
     def eval_direct(self, backend, inputs: List[np.ndarray],
                     outer_env: Dict[str, np.ndarray], n_outputs: int) -> List[np.ndarray]:
@@ -81,6 +85,17 @@ class Scan(Operation):
     def sub_graphs(self):
         return [self.body] if self.body is not None else []
 
+    def sub_graph_attrs(self):
+        return {"body": self.body} if self.body is not None else {}
+    def sub_graph_attrs(self):
+        return {"body": self.body} if self.body is not None else {}
+
+    def to_onnx_attrs(self):
+        return {"num_scan_inputs": self.num_scan_inputs,
+                "scan_input_directions": self.scan_input_directions,
+                "scan_output_directions": self.scan_output_directions,
+                "scan_input_axes": self.scan_input_axes,
+                "scan_output_axes": self.scan_output_axes}
 
     def eval_direct(self, backend, inputs: List[np.ndarray],
                     outer_env: Dict[str, np.ndarray], n_outputs: int) -> List[np.ndarray]:

@@ -9,9 +9,9 @@ like If/Scan/Loop) — sequences are host-side containers by nature, the
 compiled TPU paths never carry them (reference treats the sequence ops
 the same way: interpreter-tier, tests/onnx_testing.rs sequence cases).
 
-The port's copy of whisper_tensor_tpu/symbolic_graph/ops/sequence.py
-without the ONNX re-export hooks (`sub_graph_attrs`, `to_onnx_attrs`):
-the port has no exporter yet.
+The port's copy of whisper_tensor_tpu/symbolic_graph/ops/sequence.py,
+with the ONNX re-export hook `sub_graph_attrs` that
+symbolic_graph/export.py reads.
 """
 
 from __future__ import annotations
@@ -159,6 +159,8 @@ class SequenceMap(Operation):
     def sub_graphs(self):
         return [self.body] if self.body is not None else []
 
+    def sub_graph_attrs(self):
+        return {"body": self.body} if self.body is not None else {}
 
     def eval_direct(self, backend, inputs, outer_env, n_outputs):
         body = self.body
