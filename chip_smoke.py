@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--layers N] [--plant-fault] [--kernels-only]
                           [--generic-only] [--image-only] [--train-only]
-                          [--inspect-only] [--plans]
+                          [--inspect-only] [--text-family-only] [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -49,7 +49,8 @@ Phases:
      timed against a cast at the kernel's edge;
   3. the direct path: a Llama-3-8B-width checkpoint (hidden 4096, 32/8
      heads of 128, FFN 14336, vocab 128256, rope theta 5e5; depth cut to
-     --layers, random weights from a seed) is written to disk, loaded by
+     --layers, 2 by default, random weights from a seed) is written to
+     disk, loaded by
      the port's Server through its loader (bf16, int8 weights, max_len
      2048), and served by its OpenAI HTTP API; three
      requests go through it, and the kernels' launch counters must rise;
@@ -271,6 +272,38 @@ Phases:
      graph as a training super graph of 3 steps on one batch, its losses
      bit-equal to 3 direct steps of the executor (deterministic
      algorithms on) and falling.
+ 16. the rest of the text family at published widths, seeded weights,
+     bf16 (`--text-family-only` runs it alone after the build). In each
+     counted run every kernel counter is 0 just before and read just
+     after, and flash_attention, decode_attention, int8_matmul,
+     kv_write_pair and ragged_kv_write launch exactly as often as the
+     lowering's eligible calls (flash_mode's and pos_mode's choices,
+     QuantMatMul, KVWrite and DynUpdateSlice calls); a rerun holds
+     every kernel call against its plain version. (a) DeepSeek-V2-Lite
+     (2 layers: one dense, one MoE of 64 experts; int8; max_len 2048),
+     a 512-token prompt and 32 new tokens over /v1/completions with the
+     absorbed and the naive MLA build: no attention kernel launches and
+     the latent and rope-key caches are written unpaired; each build's
+     decode stands its teacher-forced prefill (phase 3's bound), the
+     naive build's teacher-forced logits the absorbed decode's within
+     1/16 of each row's largest |logit| (C10); the plain MLA attention
+     call's time at 2,048 keys, a decode step's QuantMatMul calls and
+     the MoE layer's share. (b) flan-t5-base at full depth through `cli
+     generate`, greedy and --num-beams 4, 64 tokens: the caches written
+     one pair a layer, no attention kernel; the texts equal the
+     interface's, its greedy decode stands a teacher-forced decoder
+     pass. (c) RWKV-7 at World 1.5B widths, 4 layers, a torch.save'd
+     .pth and a seeded World vocabulary: a 512-token scan and 64 tokens
+     of stepwise feedback (timed); 64 tokens of the served greedy loop
+     over the WebSocket and /v1/completions, on the prompt's first 32
+     tokens, equal to stepwise feedback's. (d) LLaVA-1.5-7B (the
+     CLIP ViT-L/14-336 tower at 4 layers, the Llama-2-7B text model at 2,
+     int8): one seeded 336 x 336 PNG through generate_multimodal over
+     the WebSocket and through /v1/chat/completions with an image
+     content part; flash_attention in the tower and the embeds prefill,
+     decode_attention in the decode; the decode stands a teacher-forced
+     embeds prefill. Each family prints its load seconds, prefill or
+     scan ms, decode tok/s and card bytes.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -6629,11 +6662,870 @@ def phase15(torch, np, ckpt: Path, gpt2_ckpt: Path, layers: int,
     phase15_train(torch, np)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the rest of the text family at published widths, seeded weights
+# deepseek-ai/DeepSeek-V2-Lite (config.json; its yarn rope_scaling, which
+# the recipe does not read, left out), 2 layers: one dense, one MoE
+DEEPSEEK_V2_LITE = dict(
+    model_type="deepseek_v2", hidden_size=2048, num_attention_heads=16,
+    q_lora_rank=None, kv_lora_rank=512, qk_nope_head_dim=128,
+    qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=64,
+    num_experts_per_tok=6, n_shared_experts=2, moe_intermediate_size=1408,
+    intermediate_size=10944, first_k_dense_replace=1, moe_layer_freq=1,
+    vocab_size=102400, rms_norm_eps=1e-6, rope_theta=10000.0,
+    routed_scaling_factor=1.0, norm_topk_prob=False, topk_method="greedy",
+    max_position_embeddings=163840, tie_word_embeddings=False,
+    num_hidden_layers=2)
+# google/flan-t5-base, full depth
+FLAN_T5_BASE = dict(
+    model_type="t5", d_model=768, d_kv=64, d_ff=2048, num_heads=12,
+    num_layers=12, num_decoder_layers=12, vocab_size=32128,
+    relative_attention_num_buckets=32, relative_attention_max_distance=128,
+    feed_forward_proj="gated-gelu", tie_word_embeddings=False,
+    layer_norm_epsilon=1e-6, decoder_start_token_id=0, eos_token_id=1)
+# RWKV-7 World 1.5B (n_embd 2048, head size 64, vocab 65536, FFN 4 x
+# 2048), 4 layers; the LoRA ranks the RWKV-7 code derives for C = 2048
+# (w and a 96, v 64, g 256), which rwkv7_config_from_sd reads back
+RWKV7_1B5 = dict(n_layer=4, n_embd=2048, n_head=32, vocab_size=65536,
+                 lora_w=96, lora_a=96, lora_v=64, lora_g=256)
+# llava-hf/llava-1.5-7b-hf: the CLIP ViT-L/14-336 tower at 4 layers, the
+# projector to 4096, the Llama-2-7B text model at 2 layers
+LLAVA_15_7B = {
+    "model_type": "llava", "vision_feature_layer": -2,
+    "image_token_index": 32000,
+    "vision_config": dict(model_type="clip_vision_model", hidden_size=1024,
+                          intermediate_size=4096, num_attention_heads=16,
+                          num_hidden_layers=4, image_size=336,
+                          patch_size=14, hidden_act="quick_gelu",
+                          layer_norm_eps=1e-5),
+    "text_config": dict(model_type="llama", hidden_size=4096,
+                        intermediate_size=11008, num_attention_heads=32,
+                        num_key_value_heads=32, num_hidden_layers=2,
+                        vocab_size=32064, rms_norm_eps=1e-5,
+                        rope_theta=10000.0, max_position_embeddings=4096)}
+TF_PROMPT, DS_NEW, T5_NEW, RWKV_NEW, LLAVA_NEW = 512, 32, 64, 64, 32
+# the C10 rule: the same math in two rounding orders, each step's logits
+# within 1/16 of its largest |logit|
+C10 = 1 / 16
+
+
+def tiled_tensors(shapes: dict, seed: int, np, out_rows=()):
+    """(name, f32 array) of `shapes` in order: matrices tile a seeded
+    block of 2^20 + 7 normal values scaled 0.02 (as checkpoint_tensors),
+    1-D weights are ones (the norms), other 1-D tensors zeros; the rows
+    of `out_rows` tensors past the byte tokenizer's ids are zero, so
+    greedy text decodes to printable bytes."""
+    rng = np.random.default_rng(seed)
+    for n, s in shapes.items():
+        if len(s) == 1:
+            yield n, np.full(s, float(n.endswith(".weight")), np.float32)
+            continue
+        base = rng.standard_normal((1 << 20) + 7, dtype=np.float32) * 0.02
+        arr = np.resize(base, s)
+        if n in out_rows:
+            arr[BYTE_VOCAB:] = 0.0
+        yield n, arr
+
+
+def deepseek_shapes(c: dict) -> dict:
+    E, H, L = c["hidden_size"], c["num_attention_heads"], \
+        c["num_hidden_layers"]
+    qd = c["qk_nope_head_dim"] + c["qk_rope_head_dim"]
+    kvl, V = c["kv_lora_rank"], c["vocab_size"]
+    s = {"model.embed_tokens.weight": (V, E), "model.norm.weight": (E,),
+         "lm_head.weight": (V, E)}
+    for i in range(L):
+        p, a = f"model.layers.{i}.", f"model.layers.{i}.self_attn."
+        s.update({p + "input_layernorm.weight": (E,),
+                  p + "post_attention_layernorm.weight": (E,),
+                  a + "q_proj.weight": (H * qd, E),
+                  a + "kv_a_proj_with_mqa.weight":
+                      (kvl + c["qk_rope_head_dim"], E),
+                  a + "kv_a_layernorm.weight": (kvl,),
+                  a + "kv_b_proj.weight":
+                      (H * (c["qk_nope_head_dim"] + c["v_head_dim"]), kvl),
+                  a + "o_proj.weight": (E, H * c["v_head_dim"])})
+        mlps = [(p + "mlp.", c["intermediate_size"])]
+        if i >= c["first_k_dense_replace"]:
+            s[p + "mlp.gate.weight"] = (c["n_routed_experts"], E)
+            m = c["moe_intermediate_size"]
+            mlps = [(p + f"mlp.experts.{j}.", m)
+                    for j in range(c["n_routed_experts"])] + [
+                (p + "mlp.shared_experts.", m * c["n_shared_experts"])]
+        for q, inter in mlps:
+            s.update({q + "gate_proj.weight": (inter, E),
+                      q + "up_proj.weight": (inter, E),
+                      q + "down_proj.weight": (E, inter)})
+    return s
+
+
+def t5_shapes(c: dict) -> dict:
+    E, H, F, V = c["d_model"], c["num_heads"], c["d_ff"], c["vocab_size"]
+    HD = H * c["d_kv"]
+    s = {"shared.weight": (V, E), "lm_head.weight": (V, E),
+         "encoder.final_layer_norm.weight": (E,),
+         "decoder.final_layer_norm.weight": (E,)}
+    for part, n in (("encoder", c["num_layers"]),
+                    ("decoder", c["num_decoder_layers"])):
+        s[f"{part}.block.0.layer.0.SelfAttention.relative_attention_bias."
+          f"weight"] = (c["relative_attention_num_buckets"], H)
+        for i in range(n):
+            p = f"{part}.block.{i}.layer."
+            atts = ["0.SelfAttention."] + (["1.EncDecAttention."]
+                                           if part == "decoder" else [])
+            for a in atts:
+                s.update({p + a + "q.weight": (HD, E),
+                          p + a + "k.weight": (HD, E),
+                          p + a + "v.weight": (HD, E),
+                          p + a + "o.weight": (E, HD),
+                          p + a[:2] + "layer_norm.weight": (E,)})
+            f = "2." if part == "decoder" else "1."
+            s.update({p + f + "DenseReluDense.wi_0.weight": (F, E),
+                      p + f + "DenseReluDense.wi_1.weight": (F, E),
+                      p + f + "DenseReluDense.wo.weight": (E, F),
+                      p + f + "layer_norm.weight": (E,)})
+    return s
+
+
+def llava_shapes(c: dict) -> dict:
+    t, v = c["text_config"], c["vision_config"]
+    E, I, V = t["hidden_size"], t["intermediate_size"], t["vocab_size"]
+    s = {"language_model.model.embed_tokens.weight": (V, E),
+         "language_model.model.norm.weight": (E,),
+         "language_model.lm_head.weight": (V, E)}
+    for i in range(t["num_hidden_layers"]):
+        p = f"language_model.model.layers.{i}."
+        s.update({p + "input_layernorm.weight": (E,),
+                  p + "post_attention_layernorm.weight": (E,)})
+        for n in ("q", "k", "v", "o"):
+            s[p + f"self_attn.{n}_proj.weight"] = (E, E)
+        s.update({p + "mlp.gate_proj.weight": (I, E),
+                  p + "mlp.up_proj.weight": (I, E),
+                  p + "mlp.down_proj.weight": (E, I)})
+    VE, VF, P = v["hidden_size"], v["intermediate_size"], v["patch_size"]
+    n_pos = (v["image_size"] // P) ** 2 + 1
+    vp = "vision_tower.vision_model."
+    s.update({vp + "embeddings.class_embedding": (VE,),
+              vp + "embeddings.patch_embedding.weight": (VE, 3, P, P),
+              vp + "embeddings.position_embedding.weight": (n_pos, VE),
+              vp + "pre_layrnorm.weight": (VE,),
+              vp + "pre_layrnorm.bias": (VE,),
+              vp + "post_layernorm.weight": (VE,),
+              vp + "post_layernorm.bias": (VE,)})
+    for i in range(v["num_hidden_layers"]):
+        p = f"{vp}encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            s[p + f"self_attn.{n}.weight"] = (VE, VE)
+            s[p + f"self_attn.{n}.bias"] = (VE,)
+        for n in ("layer_norm1", "layer_norm2"):
+            s[p + n + ".weight"] = s[p + n + ".bias"] = (VE,)
+        s.update({p + "mlp.fc1.weight": (VF, VE), p + "mlp.fc1.bias": (VF,),
+                  p + "mlp.fc2.weight": (VE, VF), p + "mlp.fc2.bias": (VE,)})
+    mp = "multi_modal_projector."
+    s.update({mp + "linear_1.weight": (E, VE), mp + "linear_1.bias": (E,),
+              mp + "linear_2.weight": (E, E), mp + "linear_2.bias": (E,)})
+    return s
+
+
+def write_hf(d: Path, cfg: dict, shapes: dict, seed: int, np, bf16,
+             out_rows) -> int:
+    (d / "config.json").write_text(json.dumps(cfg))
+    return write_safetensors(d, shapes, tiled_tensors(shapes, seed, np,
+                                                      out_rows), np, bf16)
+
+
+class RouteSpy:
+    """Counts, on the card, the Attention lowering's calls, the cache
+    writes (DynUpdateSlice one cache, KVWrite a pair) and what the
+    attention routes choose: flash_mode's modes and pos_mode's
+    "flash_pos" (flash_attention) and "decode" (decode_attention). The
+    lowering kinds are wrapped before the plans are built, which keep
+    them; the routes are the lowering module's globals, looked up at
+    each call."""
+
+    KINDS = ("Attention", "DynUpdateSlice", "KVWrite")
+
+    def __init__(self):
+        from whisper_tensor_tpu_torch.milli.ops import attention as att
+
+        self.calls = CallCounter(self.KINDS)
+        self.att, self.routes = att, {}
+        self.saved = {n: getattr(att, n) for n in ("flash_mode", "pos_mode")}
+        for name, fn in self.saved.items():
+            def spy(*a, _fn=fn, **kw):
+                mode = _fn(*a, **kw)
+                self.routes[mode] = self.routes.get(mode, 0) + 1
+                return mode
+
+            setattr(att, name, spy)
+
+    def zero(self):
+        self.routes.clear()
+        for k in self.KINDS:
+            self.calls.calls[k] = 0
+
+    def snapshot(self) -> dict:
+        r = self.routes
+        return {"Attention calls": self.calls.calls["Attention"],
+                "flash-eligible calls": sum(v for k, v in r.items()
+                                            if k not in (None, "decode")),
+                "decode-eligible calls": r.get("decode", 0),
+                "DynUpdateSlice calls": self.calls.calls["DynUpdateSlice"],
+                "KVWrite calls": self.calls.calls["KVWrite"]}
+
+    def restore(self):
+        self.calls.restore()
+        for name, fn in self.saved.items():
+            setattr(self.att, name, fn)
+
+
+def family_kernels():
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        kv_write_pair, ragged_kv_write)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
+        int8_matmul)
+
+    return {"flash_attention": flash_attention,
+            "decode_attention": decode_attention,
+            "int8_matmul": int8_matmul, "ragged_kv_write": ragged_kv_write,
+            "kv_write_pair": kv_write_pair}
+
+
+def counted(run, spy, qspy, label: str, results):
+    """run() with every kernel counter, spy and QuantMatMul spy at 0 just
+    before it and read just after; each launch count must equal the
+    lowering's eligible calls. Returns (run's value, launches)."""
+    kernels = family_kernels()
+    for fn in kernels.values():
+        fn.launches = 0
+    spy.zero()
+    qspy.calls = qspy.launched = 0
+    out = run()
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    launches.update(spy.snapshot(), **{"QuantMatMul calls": qspy.calls})
+    say(f"  {label}: kernel launches {launches}")
+    want = {"flash_attention": launches["flash-eligible calls"],
+            "decode_attention": launches["decode-eligible calls"],
+            "int8_matmul": launches["QuantMatMul calls"],
+            "kv_write_pair": launches["KVWrite calls"],
+            "ragged_kv_write": launches["KVWrite calls"]
+            + launches["DynUpdateSlice calls"]}
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad or launches["Attention calls"] <= 0:
+        fail(f"{label}: launches against the lowering's eligible calls "
+             f"(launched, eligible): {bad}, or no Attention call ran")
+    for res in results:
+        if res["name"] in launches:
+            d = res.setdefault("launches_phase16", {})
+            d[label] = d.get(label, 0) + launches[res["name"]]
+    return out, launches
+
+
+class Shadows:
+    """flash_attention, decode_attention and int8_matmul, each call held
+    against its plain version on its inputs while installed."""
+
+    def __init__(self):
+        from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+        from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+            decode_attention_plain)
+        from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+            flash_agreement_bound, flash_attention_plain)
+        from whisper_tensor_tpu_torch.milli import transforms
+        from whisper_tensor_tpu_torch.milli.ops import attention as att
+
+        self.att, self.tr = att, transforms
+        self.sh = {
+            "flash_attention": flash_shadow(att, flash_attention_plain,
+                                            flash_agreement_bound),
+            "decode_attention": shadow_checked(att, decode_attention_plain,
+                                               agreement_bound),
+            "int8_matmul": int8_shadow(transforms, agreement_bound)}
+
+    def close(self, label: str, launches: dict):
+        self.att.flash_attention = self.sh["flash_attention"].inner
+        self.att.decode_attention = self.sh["decode_attention"].inner
+        self.tr.int8_matmul = self.sh["int8_matmul"].inner
+        for name, sh in self.sh.items():
+            say(f"  {label}: {sh.calls} {name} calls of the shadowed rerun "
+                f"against the plain version: worst |err|/bound "
+                f"{sh.worst:.4g} (max |err| {sh.max_err:.5g})")
+            if (sh.calls > 0) != (launches[name] > 0) or not sh.worst <= 1.0:
+                fail(f"{label}: the {name} calls of the rerun were not all "
+                     f"within the plain version's bound, or ran where the "
+                     f"counted run launched none ({launches[name]})")
+
+
+def rows_within(np, got, want, frac: float, what: str) -> float:
+    """Each logit row of `got` within `frac` of its largest |logit| in
+    `want`; returns the worst share of the bound."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    lim = frac * np.abs(want).max(axis=-1, keepdims=True)
+    share = float((np.abs(got - want) / lim).max())
+    say(f"  {what}: worst |diff| {share:.4g} of the bound ({frac:.4g} of "
+        f"each row's max |logit|)")
+    if not share <= 1.0:
+        fail(f"{what}: logits beyond the bound")
+    return share
+
+
+def mla_attention_ms(torch, absorb: bool) -> str:
+    """The plain attention path of one MLA decode call at 2,048 keys
+    (V2-Lite's 16 heads), timed through the Attention lowering."""
+    from whisper_tensor_tpu_torch.milli.ops import attention as att
+
+    c = DEEPSEEK_V2_LITE
+    H, L = c["num_attention_heads"], MAX_LEN
+    qd = c["qk_nope_head_dim"] + c["qk_rope_head_dim"]
+    if absorb:
+        D, Dv, Hkv = c["kv_lora_rank"] + c["qk_rope_head_dim"], \
+            c["kv_lora_rank"], 1
+    else:
+        D, Dv, Hkv = qd, c["v_head_dim"], H
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 16)
+    op = att.AttentionMilli(scale=qd ** -0.5)
+    args = []
+    for _ in range(copies_for(2 * L * Hkv * (D + Dv))):
+        args.append(([torch.randn(1, H, 1, D, generator=gen, device=CARD,
+                                  dtype=torch.bfloat16),
+                      torch.randn(1, Hkv, L, D, generator=gen, device=CARD,
+                                  dtype=torch.bfloat16),
+                      torch.randn(1, Hkv, L, Dv, generator=gen, device=CARD,
+                                  dtype=torch.bfloat16),
+                      torch.zeros(1, 1, 1, L, device=CARD,
+                                  dtype=torch.bfloat16)],))
+    if att.flash_mode(op, *args[0][0], False) is not None:
+        fail("an MLA decode call would take a kernel")
+    ms = time_ms(torch, lambda ins: att.attention(op, ins, {}, torch.device(
+        CARD)), args)
+    b_ms, _ = bound(2 * L * Hkv * (D + Dv), 2 * H * L * (D + Dv))
+    return (f"{'absorbed' if absorb else 'naive'} (q {H}x{D}, k/v {Hkv} "
+            f"head(s) x {L} x {D}/{Dv}): {ms:.4f} ms a call, "
+            f"{ms * c['num_hidden_layers']:.4f} ms a decode step at "
+            f"{c['num_hidden_layers']} layers; bound {b_ms:.4f} ms")
+
+
+def moe_layer_products(iface, layer: int) -> int:
+    """QuantMatMul nodes of one layer in the graph the interface runs."""
+    g = iface._exec.graph
+    names = {tid: n for n, tid in g.inputs.items()}
+    n = 0
+    for node in g.nodes:
+        if node.op.KIND == "QuantMatMul":
+            m = re.match(r"(?:q|kv_a|wo|router|exp|shexp|mlp)_(\d+)",
+                         names.get(node.inputs[1], ""))
+            n += bool(m) and int(m.group(1)) == layer
+    return n
+
+
+def phase16_deepseek(torch, np, root: Path, bf16, results) -> None:
+    """(a) DeepSeek-V2-Lite widths, 2 layers, int8, absorbed and naive
+    MLA over /v1/completions."""
+    from whisper_tensor_tpu_torch.milli import transforms
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    c = DEEPSEEK_V2_LITE
+    d = root / "deepseek-v2-lite"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    shapes = deepseek_shapes(c)
+    nbytes = write_hf(d, c, shapes, SEED + 161, np, bf16, ("lm_head.weight",))
+    say(f"  (a) wrote DeepSeek-V2-Lite at {c['num_hidden_layers']} layers "
+        f"({sum(math.prod(s) for s in shapes.values()) / 1e9:.3f} B "
+        f"parameters, {nbytes / 1e9:.2f} GB)")
+    say("  (a) the plain MLA attention path: " + mla_attention_ms(torch, True)
+        + "; " + mla_attention_ms(torch, False))
+    text = long_text(np, TF_PROMPT, SEED + 162)
+    prompt = np.asarray(ByteTokenizer().encode(text), np.int64)[None]
+    kept = {}
+    try:
+        for absorb in (True, False):
+            label = f"deepseek {'absorbed' if absorb else 'naive'}"
+            spy, qspy = RouteSpy(), quant_spy(transforms)
+            api = None
+            try:
+                srv = Server()
+                t0 = time.perf_counter()
+                (entry,) = srv.models.run_loader("transformers", {
+                    "path": str(d), "dtype": "bf16", "quantize": "int8",
+                    "max_len": MAX_LEN, "absorb_mla": absorb})
+                iface = srv._text_iface(entry)
+                iface._weights()
+                torch.cuda.synchronize()
+                say(f"  (a) {label}: loaded in {time.perf_counter() - t0:.1f}"
+                    f" s, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+                    f"card")
+                api = OpenAIApi(srv, "127.0.0.1", 0).start()
+                r, launches = counted(lambda: completion(api.port, {
+                    "prompt": text, "max_tokens": DS_NEW, "temperature": 0}),
+                    spy, qspy, f"(a) {label}", results)
+                if launches["KVWrite calls"] or launches[
+                        "flash_attention"] or launches["decode_attention"]:
+                    fail(f"{label}: MLA must take the plain attention path "
+                         f"and write its two caches unpaired")
+                for fn in family_kernels().values():
+                    fn.launches = 0
+                qspy.calls = 0
+                iface.step(torch.zeros((1, 1), dtype=torch.int64,
+                                       device=CARD),
+                           torch.tensor(TF_PROMPT, device=CARD),
+                           iface.fresh_cache(1))
+                torch.cuda.synchronize()
+                step_launches = family_kernels()["int8_matmul"].launches
+                say(f"  (a) {label}: one decode step: {qspy.calls} "
+                    f"QuantMatMul calls, {step_launches} int8_matmul "
+                    f"launches; the MoE layer's graph holds "
+                    f"{moe_layer_products(iface, 1)} of them, the dense "
+                    f"layer's {moe_layer_products(iface, 0)}")
+                if step_launches != qspy.calls:
+                    fail(f"{label}: a decode step's int8 launches are not "
+                         f"its QuantMatMul calls")
+            finally:
+                if api is not None:
+                    api.stop()
+                spy.restore()
+                transforms.int8_matmul = qspy.inner
+            direct_rates(torch, iface, prompt, c["num_hidden_layers"])
+            sh = Shadows()
+            try:
+                toks, steps = iface.generate_with_logits(prompt, DS_NEW)
+                full = np.concatenate([prompt, toks[:, :-1]], axis=1)
+                forced = iface.logits(full)[:, TF_PROMPT - 1:]
+            finally:
+                sh.close(f"(a) {label}", launches)
+            if ByteTokenizer().decode(list(toks[0])) != \
+                    r["choices"][0]["text"]:
+                fail(f"{label}: the interface's greedy tokens differ from "
+                     f"the HTTP text")
+            rows_within(np, steps, forced, 0.015 * math.sqrt(
+                c["num_hidden_layers"]), f"(a) {label}: decode vs "
+                f"teacher-forced prefill")
+            kept[absorb] = (toks, steps, forced, None)
+            if absorb:
+                del iface, srv, entry
+            else:
+                kept[False] = kept[False][:3] + (
+                    lambda ids: iface.logits(ids)[:, TF_PROMPT - 1:],)
+            free_memory(torch)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    # the two builds' teacher-forced logits over the absorbed build's
+    # tokens: the same math in another rounding order
+    if not np.array_equal(kept[True][0], kept[False][0]):
+        say("  (a) the two builds' greedy tokens part (a near tie in bf16)")
+    nt = np.concatenate([prompt, kept[True][0][:, :-1]], axis=1)
+    rows_within(np, kept[False][3](nt), kept[True][2], C10,
+                "(a) naive vs absorbed teacher-forced logits (C10)")
+
+
+def phase16_t5(torch, np, root: Path, bf16, results) -> None:
+    """(b) flan-t5-base widths, full depth: `cli generate`, greedy and
+    beams of 4."""
+    import contextlib
+    import io
+
+    from whisper_tensor_tpu_torch import cli
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.loaders import identify_and_load
+    from whisper_tensor_tpu_torch.interfaces.seq2seq import Seq2SeqInterface
+    from whisper_tensor_tpu_torch.milli import transforms
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    c = FLAN_T5_BASE
+    d = root / "flan-t5-base"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    shapes = t5_shapes(c)
+    nbytes = write_hf(d, c, shapes, SEED + 163, np, bf16, ("lm_head.weight",))
+    n_par = sum(math.prod(s) for s in shapes.values())
+    say(f"  (b) wrote flan-t5-base ({n_par / 1e9:.3f} B parameters, "
+        f"{nbytes / 1e9:.2f} GB)")
+    text = long_text(np, 200, SEED + 164)
+    argv = ["generate", "--model", str(d), "--prompt", text,
+            "--max-new-tokens", str(T5_NEW), "--max-len", "128", "-c",
+            "dtype=bf16"]
+    outs = {}
+    try:
+        for beams in (1, 4):
+            spy, qspy = RouteSpy(), quant_spy(transforms)
+            buf = io.StringIO()
+
+            def run_cli():
+                with contextlib.redirect_stdout(buf):
+                    cli.main(argv + ["--num-beams", str(beams)])
+
+            try:
+                t0 = time.perf_counter()
+                counted(run_cli, spy, qspy,
+                        f"(b) cli generate, {beams} beam(s)", results)
+                say(f"  (b) cli generate --num-beams {beams}: "
+                    f"{time.perf_counter() - t0:.1f} s with the load")
+            finally:
+                spy.restore()
+                transforms.int8_matmul = qspy.inner
+            outs[beams] = buf.getvalue().rstrip("\n")
+            say(f"  (b) {beams} beam(s): {outs[beams][:60]!r}")
+            free_memory(torch)
+        t0 = time.perf_counter()
+        b = identify_and_load(str(d), dtype="bf16", max_len=128)
+        spec = b.interfaces["text2text"]
+        s2s = Seq2SeqInterface(b.models[spec["encoder"]],
+                               b.models[spec["decoder"]], spec["max_len"],
+                               spec["start"], spec["eos"],
+                               cache_dtype=DType.BF16)
+        tok = ByteTokenizer()
+        ids = np.asarray(tok.encode(text), np.int64)[None]
+        enc = s2s.encode(ids)
+        torch.cuda.synchronize()
+        say(f"  (b) loaded in {time.perf_counter() - t0:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+        t0 = time.perf_counter()
+        s2s.encode(ids)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        greedy = s2s.generate_tokens(ids, T5_NEW)
+        dec_s = time.perf_counter() - t0 - enc_ms / 1e3
+        t0 = time.perf_counter()
+        beams = s2s.beam_search_tokens(ids, T5_NEW, beam=4)
+        beam_s = time.perf_counter() - t0
+        say(f"  (b) encoder {enc_ms:.1f} ms (512 positions), greedy decode "
+            f"{T5_NEW / dec_s:.1f} tok/s, beams of 4 {beam_s:.2f} s for "
+            f"{T5_NEW} steps, on {card_line()}")
+        for want, (name, got) in zip((outs[1], outs[4]),
+                                     (("greedy", greedy), ("beams", beams))):
+            t = [int(x) for x in got[0]]
+            if 1 in t:
+                t = t[:t.index(1)]
+            if tok.decode(t) != want:
+                fail(f"(b) the cli's {name} text is not the interface's")
+        # the greedy decode's step logits against one teacher-forced pass
+        # of the decoder over [start] + the tokens
+        steps, caches = [], s2s.fresh_cache(1)
+        crosses = [enc[n] for n in s2s.cross_in]
+        cur = s2s._prefix(1)
+        pos = torch.zeros((), dtype=torch.int64, device=CARD)
+        for i in range(T5_NEW):
+            lg = s2s._step(cur, pos, caches, crosses)[:, -1]
+            steps.append(lg.float())
+            cur = torch.from_numpy(greedy[:, i:i + 1]).to(CARD)
+            pos = pos + 1
+        seq = torch.from_numpy(np.concatenate(
+            [[[0]], greedy[:, :-1]], axis=1)).to(CARD)
+        forced = s2s._step(seq, torch.zeros((), dtype=torch.int64,
+                                            device=CARD),
+                           s2s.fresh_cache(1), crosses)[0].float()
+        rows_within(np, torch.stack(steps, 1)[0].cpu().numpy(),
+                    forced.cpu().numpy(), 0.015 * math.sqrt(24),
+                    "(b) greedy decode vs teacher-forced decoder")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def write_world_vocab(path: Path, np) -> None:
+    """A seeded RWKV World vocabulary file: the 256 bytes, then 4,096
+    lowercase words of 2 to 6 letters (with leading spaces for half)."""
+    rng = np.random.default_rng(SEED + 165)
+    toks = [bytes([b]) for b in range(256)]
+    seen = set(toks)
+    while len(toks) < 256 + 4096:
+        w = bytes(rng.integers(97, 123, int(rng.integers(2, 7))).tolist())
+        if rng.random() < 0.5:
+            w = b" " + w
+        if w not in seen:
+            seen.add(w)
+            toks.append(w)
+    with open(path, "w", encoding="utf-8") as f:
+        for i, t in enumerate(toks, 1):
+            try:
+                rep = repr(t.decode("utf-8"))
+            except UnicodeDecodeError:
+                rep = repr(t)
+            f.write(f"{i} {rep} {len(t)}\n")
+
+
+def phase16_rwkv(torch, np, root: Path, results) -> None:
+    """(c) RWKV-7 World 1.5B widths, 4 layers, a .pth by torch.save: a
+    512-token scan and 64 tokens of step-by-step greedy feedback; then
+    on the prompt's first 32 tokens 64 tokens of the served greedy loop
+    over the WebSocket and /v1/completions against stepwise feedback."""
+    from whisper_tensor_tpu_torch.importers.recipes.llm import rwkv7
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+    from whisper_tensor_tpu_torch.tokenizer import RwkvWorldTokenizer
+
+    d = root / "rwkv7"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    pth, vocab = d / "rwkv7-world-1.5b-widths.pth", d / "rwkv_vocab.txt"
+    cfg = rwkv7.Rwkv7Config(**RWKV7_1B5)
+    sd = rwkv7.random_rwkv7_weights(cfg, seed=SEED + 166)
+    torch.save({k: torch.from_numpy(v).to(torch.bfloat16)
+                for k, v in sd.items()}, str(pth))
+    say(f"  (c) wrote RWKV-7 at 1.5B widths, {cfg.n_layer} layers (LoRA "
+        f"ranks w {cfg.lora_w}, a {cfg.lora_a}, v {cfg.lora_v}, g "
+        f"{cfg.lora_g}; {sum(v.size for v in sd.values()) / 1e9:.3f} B "
+        f"parameters, {pth.stat().st_size / 1e9:.2f} GB bf16)")
+    del sd
+    write_world_vocab(vocab, np)
+    stop = None
+    try:
+        srv = Server()
+        t0 = time.perf_counter()
+        (entry,) = srv.models.run_loader("rwkv7", {
+            "path": str(pth), "dtype": "bf16", "tokenizer": str(vocab)})
+        iface = srv._rnn_iface(entry)
+        iface._weights()
+        torch.cuda.synchronize()
+        g = entry.model.graph
+        ranks = {k: int(g.tensors[g.by_name[f"blocks_{i}_att_{k}1"]].info
+                        .dims()[1].value())
+                 for k, i in (("w", 0), ("a", 0), ("v", 1), ("g", 0))}
+        say(f"  (c) loaded in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; "
+            f"the loader's LoRA ranks (rwkv7_config_from_sd) {ranks}")
+        if ranks != {"w": cfg.lora_w, "a": cfg.lora_a, "v": cfg.lora_v,
+                     "g": cfg.lora_g}:
+            fail("(c) the loader read other LoRA ranks")
+        tok = RwkvWorldTokenizer(str(vocab))
+        text = long_text(np, 4 * TF_PROMPT, SEED + 167)
+        ids = np.asarray(tok.encode(text)[:TF_PROMPT], np.int64)
+        text = tok.decode(list(ids))
+        if len(ids) != TF_PROMPT:
+            fail(f"(c) the prompt has {len(ids)} tokens")
+        iface._feed(ids[None, :16])            # the executor's plans
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st = iface._feed(ids[None])
+        torch.cuda.synchronize()
+        scan_s = time.perf_counter() - t0
+        if not bool(torch.isfinite(logits).all()):
+            fail("(c) the scan's logits are not finite")
+        # 64 tokens by step-by-step feedback: the decode rate
+        t0 = time.perf_counter()
+        manual = []
+        for _ in range(RWKV_NEW):
+            manual.append(torch.argmax(logits, dim=-1))
+            logits, st = iface.step(manual[-1], st)
+        torch.stack(manual, 1).cpu()
+        rate = RWKV_NEW / (time.perf_counter() - t0)
+        say(f"  (c) a {TF_PROMPT}-token scan {scan_s * 1e3:.1f} ms "
+            f"({TF_PROMPT / scan_s:.0f} tok/s), greedy decode {rate:.1f} "
+            f"tok/s, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the "
+            f"card, on {card_line()}")
+        # the served greedy loop on the prompt's first 32 tokens (each
+        # route scans its prompt again) against stepwise feedback
+        ids = ids[:32]
+        text = tok.decode(list(ids))
+        logits, st = iface._feed(ids[None])
+        manual = []
+        for _ in range(RWKV_NEW):
+            manual.append(int(torch.argmax(logits, dim=-1)[0]))
+            logits, st = iface.step(torch.tensor([manual[-1]], device=CARD),
+                                    st)
+        want = tok.decode(manual)
+        kernels = family_kernels()
+        for fn in kernels.values():
+            fn.launches = 0
+        port, stop = ws_serve(srv)
+        ws = WSClient(port)
+        reports, ws_s = sg_job(ws, {"type": "generate_text",
+                                    "model_id": entry.id, "prompt": text,
+                                    "max_new_tokens": RWKV_NEW})
+        ws.close()
+        api = OpenAIApi(srv, "127.0.0.1", 0).start()
+        try:
+            r = completion(api.port, {"prompt": text, "max_tokens": RWKV_NEW,
+                                      "temperature": 0})
+        finally:
+            api.stop()
+        got = (reports[-1]["result"]["text"], r["choices"][0]["text"])
+        say(f"  (c) WebSocket {ws_s:.2f} s and /v1/completions: {got[0][:60]!r}")
+        if got != (want, want):
+            fail("(c) the WebSocket or HTTP text (the interface's greedy "
+                 "loop) is not the stepwise feedback's")
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        say(f"  (c) kernel launches over the WebSocket and HTTP: {launches} "
+            f"(the step graph holds no attention and no int8 product)")
+        for res in results:
+            if res["name"] in launches:
+                res.setdefault("launches_phase16", {})["(c) rwkv7"] = \
+                    launches[res["name"]]
+    finally:
+        if stop is not None:
+            stop()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def png_of(np, size: int) -> bytes:
+    """A seeded size x size RGB PNG: smooth gradients plus noise."""
+    from whisper_tensor_tpu_torch.utils.image import png_bytes
+
+    rng = np.random.default_rng(SEED + 168)
+    y, x = np.mgrid[0:size, 0:size] / size
+    img = np.stack([x, y, (x + y) / 2], axis=-1) * 200
+    img += rng.normal(0, 20, img.shape)
+    return png_bytes(np.clip(img, 0, 255).astype(np.uint8))
+
+
+def phase16_llava(torch, np, root: Path, bf16, results) -> None:
+    """(d) LLaVA-1.5-7B widths: generate_multimodal over the WebSocket
+    and /v1/chat/completions with an image content part."""
+    from whisper_tensor_tpu_torch.milli import transforms
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+
+    c = LLAVA_15_7B
+    d = root / "llava-1.5-7b"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    shapes = llava_shapes(c)
+    nbytes = write_hf(d, c, shapes, SEED + 169, np, bf16,
+                      ("language_model.lm_head.weight",))
+    say(f"  (d) wrote LLaVA-1.5-7B widths (tower 4 layers, text 2 layers; "
+        f"{sum(math.prod(s) for s in shapes.values()) / 1e9:.3f} B "
+        f"parameters, {nbytes / 1e9:.2f} GB)")
+    png64 = base64.b64encode(png_of(np, 336)).decode()
+    items = [{"text": "USER: "}, {"image_b64": png64},
+             {"text": "\nDescribe the picture. ASSISTANT:"}]
+    chat = {"messages": [{"role": "user", "content": [
+        {"type": "text", "text": "What is in this image?"},
+        {"type": "image_url", "image_url": {
+            "url": "data:image/png;base64," + png64}}]}],
+        "max_tokens": LLAVA_NEW, "temperature": 0}
+    spy, qspy = RouteSpy(), quant_spy(transforms)
+    stop = api = None
+    try:
+        srv = Server()
+        t0 = time.perf_counter()
+        entries = srv.models.run_loader("transformers", {
+            "path": str(d), "dtype": "bf16", "quantize": "int8",
+            "max_len": MAX_LEN})
+        entry = next(e for e in entries if not e.name.endswith("-vision"))
+        mm, spec = srv._mm_iface(entry)
+        mm.text._weights()
+        torch.cuda.synchronize()
+        say(f"  (d) loaded in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+        port, stop = ws_serve(srv)
+        api = OpenAIApi(srv, "127.0.0.1", 0).start()
+
+        def serve():
+            ws = WSClient(port)
+            reports, ws_s = sg_job(ws, {
+                "type": "generate_multimodal", "model_id": entry.id,
+                "items": items, "max_new_tokens": LLAVA_NEW})
+            ws.close()
+            status, data = request(api.port, "/v1/chat/completions", chat)
+            if status != 200:
+                fail(f"(d) /v1/chat/completions answered {status}: "
+                     f"{data[:300]!r}")
+            return reports[-1]["result"]["text"], json.loads(data), ws_s
+
+        (ws_text, r, ws_s), launches = counted(
+            serve, spy, qspy, "(d) llava generate_multimodal + chat",
+            results)
+        say(f"  (d) WebSocket {ws_s:.2f} s: {ws_text[:60]!r}; chat: "
+            f"{r['choices'][0]['message']['content'][:60]!r} "
+            f"({r['usage']['prompt_tokens']} prompt positions)")
+        if not launches["flash_attention"] or not launches[
+                "decode_attention"] or not launches["int8_matmul"]:
+            fail("(d) the tower, the prefill or the decode took no kernel")
+    finally:
+        if api is not None:
+            api.stop()
+        if stop is not None:
+            stop()
+        spy.restore()
+        transforms.int8_matmul = qspy.inner
+    # timing, then the decode held against a teacher-forced embeds
+    # prefill, every kernel call shadowed
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    mm.text.tokenizer = ByteTokenizer()
+    mitems = srv._mm_items(spec, items)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embeds = mm.embed_items(mitems)
+        torch.cuda.synchronize()
+        emb_ms = (time.perf_counter() - t0) * 1e3
+        L = embeds.shape[1]
+        t0 = time.perf_counter()
+        mm.generate_from_embeds(embeds, 1)
+        ttft = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mm.generate_from_embeds(embeds, LLAVA_NEW + 1)
+        rate = LLAVA_NEW / (time.perf_counter() - t0 - ttft)
+        say(f"  (d) image + text embeds {emb_ms:.1f} ms ({L} positions), "
+            f"prefill {ttft * 1e3:.1f} ms, decode {rate:.1f} tok/s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, on "
+            f"{card_line()}")
+        sh = Shadows()
+        embeds = mm.embed_items(mitems)          # the tower, shadowed
+        text = mm.text
+        caches = text.fresh_cache(1)
+        Sb = min(b for b in text.prompt_buckets if b >= L)
+        pad = torch.zeros((1, Sb, embeds.shape[2]), dtype=embeds.dtype,
+                          device=CARD)
+        pad[:, :L] = embeds
+        lg = mm.prefill_embeds(pad, caches)[:, L - 1]
+        steps, toks = [], []
+        pos = torch.full((), L, dtype=torch.int64, device=CARD)
+        for _ in range(LLAVA_NEW):
+            steps.append(lg.float())
+            toks.append(torch.argmax(lg, dim=-1))
+            lg = text.step(toks[-1][:, None], pos, caches)[:, -1]
+            pos = pos + 1
+        seq = torch.cat([embeds, mm._wte()[torch.stack(toks[:-1], 1)]], 1)
+        Sb = min(b for b in text.prompt_buckets if b >= seq.shape[1])
+        pad = torch.zeros((1, Sb, seq.shape[2]), dtype=seq.dtype,
+                          device=CARD)
+        pad[:, :seq.shape[1]] = seq
+        forced = mm.prefill_embeds(pad, text.fresh_cache(1))[
+            0, L - 1:L - 1 + LLAVA_NEW].float()
+    finally:
+        sh.close("(d) llava", launches)
+    got = ByteTokenizer().decode([int(t[0]) for t in toks])
+    if got != ws_text:
+        fail(f"(d) the WebSocket text {ws_text!r} is not the greedy decode "
+             f"{got!r}")
+    rows_within(np, torch.stack(steps, 1)[0].cpu().numpy(),
+                forced.cpu().numpy(), 0.015 * math.sqrt(2),
+                "(d) decode vs teacher-forced embeds prefill")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def phase16(torch, np, root: Path, bf16, results) -> None:
+    """Phase 16: DeepSeek-V2-Lite (MLA, MoE), flan-t5-base, RWKV-7 World
+    1.5B and LLaVA-1.5-7B at published widths through the port's entry
+    points."""
+    say(f"phase 16: the rest of the text family at published widths; host "
+        f"RSS {host_rss_gb():.1f} GB")
+    for label, fn, args in (
+            ("(a) DeepSeek-V2-Lite", phase16_deepseek, (bf16,)),
+            ("(b) flan-t5-base", phase16_t5, (bf16,)),
+            ("(c) RWKV-7 World 1.5B", phase16_rwkv, ()),
+            ("(d) LLaVA-1.5-7B", phase16_llava, (bf16,))):
+        t0 = time.perf_counter()
+        fn(torch, np, root, *args, results)
+        free_memory(torch)
+        say(f"  [{label}: {time.perf_counter() - t0:.1f} s]")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=4,
+    ap.add_argument("--layers", type=int, default=2,
                     help="transformer layers of the smoke model (32 = full "
-                         "Llama-3-8B depth)")
+                         "Llama-3-8B depth; 2 by default since phase 16 "
+                         "came, 4 before, to keep the run well inside its "
+                         "time limit)")
     ap.add_argument("--plant-fault", action="store_true",
                     help="phase 4 writes every decode step's K/V one "
                          "position early; check (d) must fail")
@@ -6652,6 +7544,9 @@ def main() -> None:
                     help="write the checkpoints, run phase 13 (with 15 (d)) "
                          "and phase 15 (the introspection path) after the "
                          "build (no result line)")
+    ap.add_argument("--text-family-only", action="store_true",
+                    help="run phase 16 (DeepSeek, T5, RWKV-7, LLaVA) alone "
+                         "after the build (no result line)")
     ap.add_argument("--plans", action="store_true",
                     help="time packed_matmul and decode_attention under "
                          "forced splits, then stop (no result line)")
@@ -6754,6 +7649,17 @@ def main() -> None:
         run_phase14(step, torch, np, args.layers, results)
         say(f"{card_line()} (--train-only: phases 2-13 not run)")
         return
+    if args.text_family_only:
+        try:
+            import ml_dtypes
+            bf16 = np.dtype(ml_dtypes.bfloat16)
+        except ImportError:
+            bf16 = None
+        step("phase 16 (DeepSeek, T5, RWKV-7, LLaVA)", phase16, torch, np,
+             ROOT / "build" / "smoke", bf16, results)
+        say(json.dumps({"kernels": results}))
+        say(f"{card_line()} (--text-family-only: phases 2-15 not run)")
+        return
     if args.inspect_only:
         try:
             import ml_dtypes
@@ -6845,6 +7751,8 @@ def main() -> None:
         step("phase 15 (e) GPT-2 and (f) (with (a)-(c) at phase 3, (d) "
              "at phase 13)", phase15, torch, np, None, gpt2_ckpt,
              args.layers, results)
+        step("phase 16 (DeepSeek, T5, RWKV-7, LLaVA)", phase16, torch, np,
+             ROOT / "build" / "smoke", bf16, results)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(gpt2_ckpt, ignore_errors=True)

@@ -1895,3 +1895,182 @@ def test_kernel_wrappers_refuse_grad_on_the_card(cuda):
     y.sum().backward()
     _assert_agree(xg.grad, qm.int8_matmul_dx_plain(torch.ones_like(y), w, s),
                   qm.int8_matmul_dx_plain(torch.ones_like(y), w.abs(), s))
+
+
+# -- the rest of the text family (DeepSeek, T5, LLaVA) ----------------------
+# tiny checkpoints in bf16 safetensors with chip_smoke.py's seeded tiled
+# weights and its HF name tables
+
+def _write_family(d, cfg, shapes_fn, out_rows):
+    import chip_smoke
+    import ml_dtypes
+
+    d.mkdir()
+    chip_smoke.write_hf(d, cfg, getattr(chip_smoke, shapes_fn)(cfg), 7, np,
+                        np.dtype(ml_dtypes.bfloat16), out_rows)
+    return str(d)
+
+
+def _launches():
+    return {"flash": flash_attention.launches,
+            "decode": decode_attention.launches,
+            "int8": int8_matmul.launches,
+            "writes": ragged_kv_write.launches,
+            "pairs": kv_write_pair.launches}
+
+
+def _rose(before):
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in _launches().items()}
+
+
+def _quant_nodes(iface):
+    return sum(n.op.KIND == "QuantMatMul" for n in iface._exec.graph.nodes)
+
+
+@pytest.mark.parametrize("absorb", [True, False], ids=["absorb", "naive"])
+def test_tiny_deepseek_on_the_gpu_takes_no_attention_kernel(cuda, tmp_path,
+                                                            absorb):
+    """MLA (absorbed: q and k 80 wide over a 64-wide latent v; naive: 48
+    over 32) takes no attention kernel on the card and does not raise;
+    the latent and rope-key caches are written by one single-cache launch
+    each a layer a run (unpaired: their widths differ); int8_matmul
+    launches once a QuantMatMul node a run. Decode logits within 3% of
+    the scale of the CPU's teacher-forced prefill."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.loaders import identify_and_load
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+
+    cfg = dict(model_type="deepseek_v2", hidden_size=256,
+               num_attention_heads=2, q_lora_rank=None, kv_lora_rank=64,
+               qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+               n_routed_experts=4, num_experts_per_tok=2, n_shared_experts=1,
+               moe_intermediate_size=128, intermediate_size=256,
+               first_k_dense_replace=1, moe_layer_freq=1, vocab_size=512,
+               num_hidden_layers=2)
+    path = _write_family(tmp_path / "ds", cfg, "deepseek_shapes",
+                         ("lm_head.weight",))
+    (model,) = identify_and_load(path, dtype="bf16", max_len=64,
+                                 absorb_mla=absorb).models.values()
+    kw = dict(max_len=64, cache_dtype=DType.BF16, quantize="int8")
+    gpu = TextInferenceInterface(model, device=cuda, **kw)
+    cpu = TextInferenceInterface(model, device="cpu", **kw)
+    prompt = np.random.default_rng(5).integers(3, 259, (2, 9))
+    before = _launches()
+    toks, logits = gpu.generate_with_logits(prompt, 6)
+    rose = _rose(before)
+    assert rose == {"flash": 0, "decode": 0, "int8": 6 * _quant_nodes(gpu),
+                    "writes": 2 * 2 * 6, "pairs": 0}, rose
+    full = np.concatenate([prompt, toks[:, :-1]], axis=1)
+    want = cpu.logits(full).astype(np.float32)[:, 8:]
+    np.testing.assert_allclose(logits, want, rtol=0,
+                               atol=0.03 * np.abs(want).max())
+
+
+def test_tiny_t5_on_the_gpu_takes_no_attention_kernel(cuda, tmp_path):
+    """T5's attention (a per-head relative-position bias; one query row a
+    decoder step) takes no kernel on the card; the decoder's caches are
+    written one pair a layer a step. The decoder's step logits within 3%
+    of the scale of one teacher-forced decoder pass on the CPU."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.loaders import identify_and_load
+    from whisper_tensor_tpu_torch.interfaces.seq2seq import Seq2SeqInterface
+
+    cfg = dict(model_type="t5", d_model=256, d_kv=64, d_ff=512, num_heads=4,
+               num_layers=2, num_decoder_layers=2, vocab_size=512,
+               relative_attention_num_buckets=8,
+               relative_attention_max_distance=16,
+               feed_forward_proj="gated-gelu", tie_word_embeddings=False)
+    path = _write_family(tmp_path / "t5", cfg, "t5_shapes",
+                         ("lm_head.weight",))
+    b = identify_and_load(path, dtype="bf16", max_len=32, enc_len=16)
+    spec = b.interfaces["text2text"]
+    enc, dec = b.models[spec["encoder"]], b.models[spec["decoder"]]
+    gpu, cpu = (Seq2SeqInterface(enc, dec, 32, cache_dtype=DType.BF16,
+                                 device=dev) for dev in (cuda, "cpu"))
+    ids = np.random.default_rng(6).integers(3, 259, (1, 11))
+    before = _launches()
+    toks = gpu.generate_tokens(ids, 6)
+    assert gpu.beam_search_tokens(ids, 6, beam=3).shape == (1, 6)
+    rose = _rose(before)
+    assert rose == {"flash": 0, "decode": 0, "int8": 0, "writes": 2 * 12,
+                    "pairs": 2 * 12}, rose
+    seq = np.concatenate([[[0]], toks[:, :-1]], axis=1)
+    got, want = (
+        s._step(torch.from_numpy(seq).to(s.device),
+                torch.zeros((), dtype=torch.int64, device=s.device),
+                s.fresh_cache(1), [s.encode(ids)[n] for n in s.cross_in])
+        .float().cpu().numpy() for s in (gpu, cpu))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=0.03 * np.abs(want).max())
+    assert (got.argmax(-1) == toks).mean() > 0.8
+
+
+def test_tiny_llava_on_the_gpu_goes_through_the_kernels(cuda, tmp_path):
+    """A tiny LLaVA (a CLIP tower of 2 layers, 2 heads of 64, 32 x 32
+    images in 8 x 8 patches; a llama text model of 2 layers, 2 heads of
+    128, int8) on the card: the tower's unmasked attention and the
+    inputs_embeds prefill launch flash_attention once a layer, each
+    decode step decode_attention once a layer and the cache-write pair
+    once a layer, int8_matmul once a QuantMatMul node a run. Prefill
+    logits within 3% of the scale of the CPU's."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.loaders import identify_and_load
+    from whisper_tensor_tpu_torch.interfaces.multimodal import (
+        MultimodalLanguageInterface)
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+    from whisper_tensor_tpu_torch.super_graph.links import (Image,
+                                                            MultimodalItem)
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    cfg = {"model_type": "llava", "vision_feature_layer": -2,
+           "vision_config": dict(hidden_size=128, intermediate_size=256,
+                                 num_attention_heads=2, num_hidden_layers=2,
+                                 image_size=32, patch_size=8),
+           "text_config": dict(model_type="llama", hidden_size=256,
+                               intermediate_size=512, num_attention_heads=2,
+                               num_key_value_heads=2, num_hidden_layers=2,
+                               vocab_size=512)}
+    path = _write_family(tmp_path / "llava", cfg, "llava_shapes",
+                         ("language_model.lm_head.weight",))
+    b = identify_and_load(path, dtype="bf16", max_len=64, quantize="int8")
+    spec = b.interfaces["multimodal"]
+    mms = [MultimodalLanguageInterface(
+        TextInferenceInterface(b.models[spec["model"]], max_len=64,
+                               cache_dtype=DType.BF16, quantize="int8",
+                               device=dev), "embed_tokens",
+        b.models[spec["vision"]]) for dev in (cuda, "cpu")]
+    px = np.random.default_rng(8).integers(0, 255, (32, 32, 3))
+    items = [MultimodalItem(text="look: "),
+             MultimodalItem(image=Image(px.astype(np.uint8))),
+             MultimodalItem(text=" now")]
+    for mm in mms:
+        mm.text.tokenizer = ByteTokenizer()
+    before = _launches()
+    embeds = mms[0].embed_items(items)
+    assert _rose(before)["flash"] == 2           # the tower's 2 layers
+    before = _launches()
+    mms[0].generate_from_embeds(embeds, 5)
+    rose = _rose(before)
+    prefill_q = sum(n.op.KIND == "QuantMatMul"
+                    for n in mms[0]._embeds_exec.graph.nodes)
+    assert prefill_q > 0
+    assert rose == {"flash": 2, "decode": 2 * 4,
+                    "int8": prefill_q + 4 * _quant_nodes(mms[0].text),
+                    "writes": 2 * 5, "pairs": 2 * 5}, rose
+    L = embeds.shape[1]
+    got, want = (mm.prefill_embeds(e, mm.text.fresh_cache(1))[0, :L]
+                 .float().cpu().numpy()
+                 for mm, e in ((mms[0], _pad(embeds, 32)),
+                               (mms[1], _pad(embeds.cpu(), 32))))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=0.03 * np.abs(want).max())
+
+
+def _pad(embeds, n):
+    out = torch.zeros((1, n, embeds.shape[2]), dtype=embeds.dtype,
+                      device=embeds.device)
+    out[:, :embeds.shape[1]] = embeds
+    return out

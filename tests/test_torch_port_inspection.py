@@ -372,8 +372,7 @@ def test_get_op_milli_equals_the_jax_servers_reply(servers, op_type):
 def test_media_messages_still_answer_not_ported(servers):
     _, psrv = servers
     assert set(port_main._UNPORTED_MESSAGES) == {
-        "generate_multimodal", "generate_speech", "transcribe",
-        "transcribe_stream"}
+        "generate_speech", "transcribe", "transcribe_stream"}
     for t, what in port_main._UNPORTED_MESSAGES.items():
         with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
             psrv._dispatch({"type": t, "model_id": 1})

@@ -15,6 +15,9 @@ package (whisper_tensor_tpu), at any level.
     or the `whisper_tensor_tpu.` prefix) is then in sys.modules.
 (c) A fresh interpreter runs one conformance case of every op type the
     port runs through its Model.eval on the CPU, with the same check.
+(d) A served image, training, and the rest of the text family
+    (DeepSeek and RWKV-7 over HTTP, a LLaVA chat with an image, T5
+    beams), each in a fresh interpreter, with the same check.
 """
 
 import ast
@@ -400,4 +403,105 @@ def test_training_loads_nothing_of_jax(tmp_path):
     assert proc.stdout.count("LOSS True") == 2, proc.stdout
     assert "CKPT 2" in proc.stdout and "PEFT 1" in proc.stdout, proc.stdout
     assert "JSON True" in proc.stdout, proc.stdout
+    assert "FOREIGN []" in proc.stdout, proc.stdout
+
+
+_FAMILY_SCRIPT = r"""
+import base64, http.client, json, os, sys
+import numpy as np
+import torch
+d = sys.argv[1]
+from whisper_tensor_tpu_torch.importers.recipes.llm.rwkv7 import (
+    Rwkv7Config, random_rwkv7_weights)
+sd = random_rwkv7_weights(Rwkv7Config(n_layer=1, n_embd=32, n_head=2,
+                                      vocab_size=300, lora_w=8, lora_a=8,
+                                      lora_v=8, lora_g=8))
+torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+           os.path.join(d, "rwkv-tiny.pth"))
+with open(os.path.join(d, "vocab.txt"), "w", encoding="utf-8") as f:
+    for i in range(256):
+        f.write(f"{i + 1} {bytes([i])!r} 1\n")
+from whisper_tensor_tpu_torch.interfaces.seq2seq import Seq2SeqInterface
+from whisper_tensor_tpu_torch.server.main import Server
+from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+from whisper_tensor_tpu_torch.utils.image import png_bytes
+srv = Server(device="cpu")
+api = OpenAIApi(srv, "127.0.0.1", 0).start()
+
+def post(path, body):
+    c = http.client.HTTPConnection("127.0.0.1", api.port, timeout=120)
+    c.request("POST", path, body=json.dumps(body),
+              headers={"Content-Type": "application/json"})
+    r = c.getresponse()
+    return r.status, json.loads(r.read())
+
+for name in ("deepseek", "rwkv-tiny.pth"):
+    cfg = {"path": os.path.join(d, name), "dtype": "f32", "max_len": 32}
+    if name.endswith(".pth"):
+        cfg["tokenizer"] = os.path.join(d, "vocab.txt")
+    (e,) = srv.models.run_loader("auto", cfg)
+    print("TEXT", name, post("/v1/completions", {
+        "model": e.name, "prompt": "hi", "max_tokens": 3,
+        "temperature": 0})[0])
+    srv._dispatch({"type": "unload_model", "model_id": e.id})
+srv.models.run_loader("auto", {"path": os.path.join(d, "llava"),
+                               "dtype": "f32", "max_len": 128})
+png = base64.b64encode(png_bytes(np.zeros((16, 16, 3), np.uint8))).decode()
+print("IMAGE", post("/v1/chat/completions", {"max_tokens": 3, "messages": [
+    {"role": "user", "content": [{"type": "image_url", "image_url": {
+        "url": "data:image/png;base64," + png}}]}]})[0])
+api.stop()
+b = srv.models.run_loader("auto", {"path": os.path.join(d, "t5"),
+                                   "dtype": "f32", "enc_len": 8,
+                                   "max_len": 16})
+enc, dec = (e.model for e in b)
+s2s = Seq2SeqInterface(enc, dec, 16, device="cpu")
+print("T5", s2s.beam_search_tokens(np.ones((1, 5), np.int64), 3, 2).shape)
+print("FOREIGN", sorted(m for m in sys.modules
+                        if m in ("jax", "whisper_tensor_tpu")
+                        or m.startswith(("jax.", "whisper_tensor_tpu."))))
+"""
+
+
+def test_the_text_familys_last_slice_loads_nothing_of_jax(tmp_path):
+    """DeepSeek and RWKV-7 completions over HTTP (the RWKV World
+    tokenizer), a LLaVA chat with an image, T5 beams, in a fresh
+    interpreter on the CPU. The checkpoints are written here, by
+    transformers."""
+    transformers = pytest.importorskip("transformers")
+    import torch
+
+    torch.manual_seed(0)
+    transformers.DeepseekV2ForCausalLM(transformers.DeepseekV2Config(
+        num_hidden_layers=2, num_attention_heads=2, hidden_size=32,
+        intermediate_size=48, moe_intermediate_size=16, vocab_size=300,
+        q_lora_rank=None, kv_lora_rank=16, qk_nope_head_dim=8,
+        qk_rope_head_dim=4, v_head_dim=8, n_routed_experts=4,
+        num_experts_per_tok=2, n_shared_experts=1, first_k_dense_replace=1,
+        max_position_embeddings=32)).save_pretrained(
+            str(tmp_path / "deepseek"))
+    transformers.T5ForConditionalGeneration(transformers.T5Config(
+        num_layers=1, num_decoder_layers=1, num_heads=2, d_model=16, d_kv=8,
+        d_ff=32, vocab_size=300, relative_attention_num_buckets=8,
+        relative_attention_max_distance=16)).save_pretrained(
+            str(tmp_path / "t5"))
+    transformers.LlavaForConditionalGeneration(transformers.LlavaConfig(
+        vision_config=dict(model_type="clip_vision_model",
+                           num_hidden_layers=1, hidden_size=32,
+                           num_attention_heads=2, intermediate_size=64,
+                           image_size=16, patch_size=8),
+        text_config=dict(model_type="llama", num_hidden_layers=1,
+                         hidden_size=32, num_attention_heads=2,
+                         intermediate_size=64, vocab_size=300,
+                         max_position_embeddings=128))).save_pretrained(
+            str(tmp_path / "llava"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _FAMILY_SCRIPT, str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "TEXT deepseek 200" in proc.stdout, proc.stdout
+    assert "TEXT rwkv-tiny.pth 200" in proc.stdout, proc.stdout
+    assert "IMAGE 200" in proc.stdout and "T5 (1, 3)" in proc.stdout, \
+        proc.stdout
     assert "FOREIGN []" in proc.stdout, proc.stdout

@@ -262,12 +262,9 @@ def test_cli_serve_reaches_the_batcher(checkpoint):  # noqa: F811
     pytest.param("/v1/audio/speech", {"input": "hi"}, "/v1/audio/speech",
                  id="/v1/audio/speech-body2-/v1/audio/speech"),
     pytest.param("/v1/audio/translations", {}, "/v1/audio/translations",
-                 id="/v1/audio/translations-body3-/v1/audio/translations"),
-    pytest.param("/v1/chat/completions", {"messages": [
-        {"role": "user", "content": [
-            {"type": "image_url", "image_url": {"url": "data:,"}}]}],
-        "max_tokens": 2}, "image content parts",
-        id="/v1/chat/completions-body4-image content parts")])
+                 id="/v1/audio/translations-body3-/v1/audio/translations")])
+    # (image content parts are served since the text family's last
+    # slice: tests/test_torch_port_llava.py)
 def test_unported_routes_answer_not_ported(served, path, body, what):
     """The reference's routes and request features the port does not
     serve answer 501 with an OpenAI-style error that names them."""
@@ -282,7 +279,7 @@ def test_unported_routes_answer_not_ported(served, path, body, what):
 @pytest.mark.parametrize("msg,what", [
     ({"type": "transcribe_stream", "model_id": 1}, "streaming transcription"),
     ({"type": "transcribe", "model_id": 1}, "transcription"),
-    ({"type": "generate_multimodal", "model_id": 1}, "multimodal"),
+    # (generate_multimodal is served: tests/test_torch_port_llava.py)
     ({"type": "generate_speech", "model_id": 1}, "speech generation")])
 def test_unported_messages_raise_not_ported(served, msg, what):
     srv, entry, _ = served

@@ -12,6 +12,8 @@ Usage:
       --prompt "..." [--max-new-tokens 64] [-c quantize=int8] [--device cuda]
       [--regex RE | --json-schema JSON | --num-beams W
        | --draft-model DIR [--draft-k 4]] [-c lora=PEFT_DIR]
+      (a T5 `text2text` checkpoint: the prompt through its encoder, the
+      answer greedy, sampled or by --num-beams W)
   python -m whisper_tensor_tpu_torch.cli embed --model DIR \
       [--pooling last|mean] [--device cuda] TEXT [TEXT ...]
   python -m whisper_tensor_tpu_torch.cli image --model SD_DIR \
@@ -81,20 +83,32 @@ def _parse_kv(pairs: List[str]) -> Dict[str, object]:
     return out
 
 
-def _load_text(args, path=None):
-    """--model (or `path`) through the loader -> (the text interface on
-    --device, with its tokenizer, and the model's name)."""
+def _load_bundle(args, path=None):
+    """--model (or `path`) through --loader with the -c settings."""
     from .importers.loaders import identify_and_load, loader_registry
-    from .interfaces.text import TextInferenceInterface
-    from .tokenizer import AnyTokenizer
 
     cfg = _parse_kv(args.config)
     cfg.setdefault("max_len", args.max_len)
     path = path or args.model
     if args.loader == "auto":
-        bundle = identify_and_load(path, **cfg)
-    else:
-        bundle = loader_registry()[args.loader].load({"path": path, **cfg})
+        return identify_and_load(path, **cfg)
+    return loader_registry()[args.loader].load({"path": path, **cfg})
+
+
+def _cache_dtype(model):
+    """The element type the step graph declares for its KV cache."""
+    g = model.graph
+    return next(g.tensors[g.by_name[n]].info.dtype
+                for n in g.by_name if n.startswith("cache_"))
+
+
+def _load_text(args, path=None, bundle=None):
+    """--model (or `path`, or a loaded bundle) -> (the text interface on
+    --device, with its tokenizer, and the model's name)."""
+    from .interfaces.text import TextInferenceInterface
+    from .tokenizer import AnyTokenizer
+
+    bundle = bundle or _load_bundle(args, path)
     iface_cfg = bundle.interfaces.get("text")
     if iface_cfg is None:
         raise SystemExit("the port runs causal LMs only; this bundle has "
@@ -102,23 +116,72 @@ def _load_text(args, path=None):
     if iface_cfg.get("windows"):
         raise SystemExit("decode_windows is not ported to PyTorch yet")
     model = bundle.models[iface_cfg.get("model") or next(iter(bundle.models))]
-    # the KV cache keeps the element type the step graph declares for it
-    g = model.graph
-    cache_dtype = next(g.tensors[g.by_name[n]].info.dtype
-                       for n in g.by_name if n.startswith("cache_"))
     iface = TextInferenceInterface(
         model, max_len=int(iface_cfg.get("max_len", args.max_len)),
-        cache_dtype=cache_dtype, eos_token_id=iface_cfg.get("eos_token_id"),
+        cache_dtype=_cache_dtype(model),
+        eos_token_id=iface_cfg.get("eos_token_id"),
         quantize=iface_cfg.get("quantize") or None, device=args.device)
     iface.tokenizer = AnyTokenizer.load(args.tokenizer
                                         or bundle.tokenizer_source or "bytes")
     return iface, model.name
 
 
+def _sampling(args):
+    from .interfaces.text import SamplingParams
+
+    if (args.temperature > 0 or args.repetition_penalty != 1.0
+            or args.presence_penalty != 0.0 or args.frequency_penalty != 0.0):
+        return SamplingParams(
+            temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+            min_p=args.min_p, repetition_penalty=args.repetition_penalty,
+            presence_penalty=args.presence_penalty,
+            frequency_penalty=args.frequency_penalty, seed=args.seed)
+    return None
+
+
+def _generate_text2text(args, bundle, t0: float) -> None:
+    """A `text2text` (T5) bundle, as the reference's cli runs it
+    (cli.py:55-70): the prompt through the encoder, the answer from the
+    decoder; --num-beams W > 1 takes beam search."""
+    import numpy as np
+
+    from .interfaces.seq2seq import Seq2SeqInterface
+    from .tokenizer import AnyTokenizer
+
+    if args.regex or args.json_schema or args.draft_model or args.chat:
+        raise SystemExit("a text2text model takes no --regex, "
+                         "--json-schema, --draft-model or --chat")
+    spec = bundle.interfaces["text2text"]
+    dec = bundle.models[spec["decoder"]]
+    s2s = Seq2SeqInterface(bundle.models[spec["encoder"]], dec,
+                           max_len=spec["max_len"],
+                           start_token=spec.get("start", 0),
+                           eos_token=spec.get("eos", 1),
+                           cache_dtype=_cache_dtype(dec),
+                           device=args.device)
+    s2s.tokenizer = AnyTokenizer.load(
+        args.tokenizer or bundle.tokenizer_source or "bytes")
+    print(f"loaded {spec['decoder']} in {time.time() - t0:.1f}s",
+          file=sys.stderr)
+    t1 = time.time()
+    if args.num_beams > 1:
+        ids = np.asarray(s2s.tokenizer.encode(args.prompt), np.int64)[None]
+        toks = [int(t) for t in s2s.beam_search_tokens(
+            ids, args.max_new_tokens, beam=args.num_beams)[0]]
+        if s2s.eos_token in toks:
+            toks = toks[:toks.index(s2s.eos_token)]
+        text = s2s.tokenizer.decode(toks)
+    else:
+        text = s2s.run_string_in_string_out(args.prompt, args.max_new_tokens,
+                                            sampling=_sampling(args))
+    print(text)
+    print(f"[{args.max_new_tokens} tokens in {time.time() - t1:.2f}s]",
+          file=sys.stderr)
+
+
 def cmd_generate(args) -> None:
     import numpy as np
 
-    from .interfaces.text import SamplingParams
     from .tokenizer import apply_chat_template
 
     if (args.regex or args.json_schema) and (args.num_beams > 1
@@ -126,7 +189,10 @@ def cmd_generate(args) -> None:
         raise SystemExit("--regex/--json-schema are not supported with "
                          "--num-beams or --draft-model")
     t0 = time.time()
-    iface, name = _load_text(args)
+    bundle = _load_bundle(args)
+    if "text2text" in bundle.interfaces and "text" not in bundle.interfaces:
+        return _generate_text2text(args, bundle, t0)
+    iface, name = _load_text(args, bundle=bundle)
     draft = _load_text(args, args.draft_model)[0] if args.draft_model else None
     print(f"loaded {name} in {time.time() - t0:.1f}s", file=sys.stderr)
     if args.chat:
@@ -134,14 +200,7 @@ def cmd_generate(args) -> None:
                     if args.system else [])
         messages.append({"role": "user", "content": args.prompt})
         args.prompt = apply_chat_template(iface.tokenizer, messages)
-    sampling = None
-    if (args.temperature > 0 or args.repetition_penalty != 1.0
-            or args.presence_penalty != 0.0 or args.frequency_penalty != 0.0):
-        sampling = SamplingParams(
-            temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-            min_p=args.min_p, repetition_penalty=args.repetition_penalty,
-            presence_penalty=args.presence_penalty,
-            frequency_penalty=args.frequency_penalty, seed=args.seed)
+    sampling = _sampling(args)
     t1 = time.time()
     if args.num_beams > 1:
         ids = np.asarray(iface.tokenizer.encode(args.prompt),

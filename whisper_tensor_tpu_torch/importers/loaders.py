@@ -1,12 +1,13 @@
-"""Loader registry, the transformers, GGUF and diffusers loaders,
-identify_and_load.
+"""Loader registry, the transformers, GGUF, RWKV-7 and diffusers
+loaders, identify_and_load.
 
 The port's copy of whisper_tensor_tpu/importers/loaders.py, trimmed to
-the `transformers` loader for GPT-2, llama-family, Gemma and Phi-3
-checkpoints (config.json + safetensors), the `gguf` loader for
-llama-family, Gemma and Phi-3 GGUF files (:525-652), the `diffusers`
-loader (below) and the `auto` loader that probes for them. Their
-config keys and their bundles' `text` interface spec are the
+the `transformers` loader for GPT-2, llama-family, Gemma, Phi-3,
+DeepSeek-V2/V3, T5 and LLaVA checkpoints (config.json + safetensors),
+the `gguf` loader for llama-family, Gemma and Phi-3 GGUF files
+(:525-652), the `rwkv7` loader for RWKV-7 `.pth` files (:656-679), the
+`diffusers` loader (below) and the `auto` loader that probes for them.
+Their config keys and their bundles' `text` interface spec are the
 reference's: dtype, quantize (int8, or host quantization to q4_0, q8_0,
 q5_0, q4_k or q6_k), max_len, ragged_decode, serve_batch, serve_chunk,
 serve_chunk_max, serve_admit_coalesce_ms, prefill_chunk,
@@ -19,12 +20,21 @@ Model types gemma, gemma2, gemma3_text (gemma3) and phi3 load as in the
 reference (:261-276, :454-460), and so do GGUF archs gemma, gemma2 and
 phi3, dequantized on the host; their recipes build one scalar position,
 so `ragged_decode` raises for them (the reference accepts it and its
-batcher fails at the first request: ROADMAP C18). The `diffusers`
+batcher fails at the first request: ROADMAP C18), and for deepseek_v2
+and deepseek_v3 likewise (ROADMAP C25). deepseek_v2/v3 take
+`absorb_mla` (default on: attention over the latent cache) and v3 its
+sigmoid group routing (:279-293); `t5` builds an encoder and a decoder
+step (`enc_len`, default 512) under a `text2text` spec (:422-452);
+`llava` a llama/mistral/qwen2 text model and a CLIP vision tower with
+its projector under `text` and `multimodal` specs, in either weight
+layout (:350-420). The `rwkv7` loader takes `dtype` (default f32, the
+reference's graph) and `tokenizer` (a World vocabulary file; the
+reference's loader names none). The `diffusers`
 loader builds the `sd` image pipeline (SD-1.5, SD-2.x; :785-948); its
 sdxl, sd3 and flux kinds and the `ldm` single-file loader raise "not
 ported". Left out, each raising: other model types and GGUF archs
 (ValueError, as the reference does for an unknown one), `decode_windows`
-(NotImplementedError), and the ONNX, RWKV and TTS loaders (not
+(NotImplementedError), and the ONNX and TTS loaders (not
 registered). GPTQ/AWQ
 checkpoints load (importers/quantized.py): their quantized Linears run
 packed, unless a merged adapter densifies them as in the reference.
@@ -130,14 +140,15 @@ def _resolve_eos(d: str, hf_cfg: dict):
 _LLAMA_FAMILY = ("llama", "mistral", "mixtral", "qwen2", "qwen3",
                  "qwen3_moe")
 # model types whose recipes take no pos_per_row: one scalar position
-_SCALAR_POS = ("gemma", "gemma2", "gemma3_text", "gemma3", "phi3")
+_SCALAR_POS = ("gemma", "gemma2", "gemma3_text", "gemma3", "phi3",
+               "deepseek_v2", "deepseek_v3")
 
 
 @register_loader
 class TransformersLoader(Loader):
     NAME = "transformers"
     DESCRIPTION = "HF transformers checkpoint dir (config.json + safetensors)"
-    SUPPORTED = ("gpt2",) + _LLAMA_FAMILY + _SCALAR_POS
+    SUPPORTED = ("gpt2",) + _LLAMA_FAMILY + _SCALAR_POS + ("t5", "llava")
 
     def config_schema(self):
         return super().config_schema() + [
@@ -177,6 +188,13 @@ class TransformersLoader(Loader):
                         "multi-LoRA serving: name=peft_dir[,name2=dir2] "
                         "adapters selectable per request through the "
                         "batcher (needs ragged_decode)", default=""),
+            ConfigField("absorb_mla", ConfigFieldType.BOOL,
+                        "deepseek: attention over the compressed latent "
+                        "cache (kv_b_proj folded into q and the output)",
+                        default=True),
+            ConfigField("enc_len", ConfigFieldType.INT,
+                        "t5: encoder length (prompts pad to it)",
+                        default=512, min=1),
         ]
 
     def can_load(self, path: str) -> bool:
@@ -219,7 +237,7 @@ class TransformersLoader(Loader):
         if ragged and mt in _SCALAR_POS:
             # the reference builds these recipes' scalar-position graph
             # under ragged_decode too, and its batcher fails at the first
-            # request (ROADMAP C18): refused here, at load
+            # request (ROADMAP C18, C25): refused here, at load
             raise ValueError(f"ragged_decode is not supported for "
                              f"model_type {mt!r}: its recipe builds a step "
                              f"graph with one position for every row")
@@ -272,6 +290,27 @@ class TransformersLoader(Loader):
                                    dtype=dtype)
             geometry = dict(n_layers=cfg.num_hidden_layers,
                             n_kv_heads=cfg.num_key_value_heads, head_dim=cfg.hd)
+        elif mt in ("deepseek_v2", "deepseek_v3"):
+            from .recipes.llm.deepseek import (DeepseekConfig,
+                                               build_deepseek_step)
+
+            cfg = DeepseekConfig.from_hf(hf_cfg)
+            if mt == "deepseek_v3":
+                cfg.scoring_func = "sigmoid"
+                cfg.topk_method = "noaux_tc"
+            data = build_deepseek_step(store.getter(), cfg, max_len=max_len,
+                                       dtype=dtype,
+                                       absorb=bool(config.get("absorb_mla",
+                                                              True)))
+            # the two caches differ in width: the latent (kv_lora_rank)
+            # and the rope key (qk_rope_head_dim)
+            geometry = dict(n_layers=cfg.num_hidden_layers, n_kv_heads=1,
+                            head_dim=cfg.kv_lora_rank)
+        elif mt == "llava":
+            return self._load_llava(config, d, hf_cfg, store, dtype,
+                                    max_len)
+        elif mt == "t5":
+            return self._load_t5(config, d, hf_cfg, store, dtype, max_len)
         else:
             raise ValueError(f"transformers model_type {mt!r} not supported "
                              f"by the port (have: {self.SUPPORTED})")
@@ -319,6 +358,108 @@ class TransformersLoader(Loader):
                                                  **geometry}},
                             tokenizer_source=tok,
                             meta={"model_type": mt, "dtype": dtype.name})
+
+
+    @staticmethod
+    def _load_llava(config, d, hf_cfg, store, dtype, max_len):
+        """A LLaVA checkpoint: language_model.* + vision_tower.* +
+        multi_modal_projector.* in one dir, in the classic layout or the
+        transformers 4.52+ one (model.language_model.*, lm_head.*)."""
+        from .recipes.llm.llama import LlamaConfig, build_llama_step
+        from .recipes.vision import ClipVisionConfig, build_clip_vision
+
+        text_cfg = hf_cfg["text_config"]
+        if text_cfg.get("model_type", "llama") not in (
+                "llama", "mistral", "qwen2"):
+            raise ValueError(
+                f"llava text model {text_cfg.get('model_type')!r} "
+                "not supported")
+
+        def lm_getter(name):
+            cands = [f"language_model.{name}"]
+            if name.startswith("model."):
+                cands.append("model.language_model." + name[len("model."):])
+            else:
+                cands.append(name)
+            for cand in cands:
+                if cand in store:
+                    return store.load(cand)
+            if name == "lm_head.weight":
+                return lm_getter("model.embed_tokens.weight")
+            return store.load(cands[0])
+
+        cfg = LlamaConfig.from_hf(text_cfg)
+        data = build_llama_step(lm_getter, cfg, max_len=max_len, dtype=dtype)
+        vcfg = ClipVisionConfig.from_hf(hf_cfg["vision_config"])
+        vcfg.select_layer = int(hf_cfg.get("vision_feature_layer", -2))
+
+        def prefixed(prefix):
+            def get(name):
+                for cand in (f"{prefix}.{name}", f"model.{prefix}.{name}"):
+                    if cand in store:
+                        return store.load(cand)
+                return store.load(name)
+            return get
+
+        vdata = build_clip_vision(prefixed("vision_tower"), vcfg,
+                                  dtype=dtype,
+                                  projector=prefixed("multi_modal_projector"))
+        name = (hf_cfg.get("_name_or_path")
+                or os.path.basename(os.path.normpath(d)))
+        tok = d if os.path.exists(os.path.join(d, "tokenizer.json")) else None
+        return LoadedBundle(
+            models={name: Model.new_from_onnx(data, name=name),
+                    name + "-vision": Model.new_from_onnx(
+                        vdata, name=name + "-vision")},
+            interfaces={"text": {"model": name, "max_len": max_len,
+                                 "quantize": config.get("quantize") or "",
+                                 "eos_token_id": _resolve_eos(d, hf_cfg),
+                                 "n_layers": cfg.num_hidden_layers,
+                                 "n_kv_heads": cfg.num_key_value_heads,
+                                 "head_dim": cfg.hd},
+                        "multimodal": {"model": name,
+                                       "vision": name + "-vision",
+                                       "embed_weight": "embed_tokens",
+                                       "image_size": vcfg.image_size}},
+            tokenizer_source=tok,
+            meta={"model_type": "llava", "dtype": dtype.name})
+
+    @staticmethod
+    def _load_t5(config, d, hf_cfg, store, dtype, max_len):
+        """A T5 checkpoint: the encoder at `enc_len` and the decoder step
+        under a `text2text` spec; the head ties to shared.weight when
+        the checkpoint has no lm_head."""
+        from .recipes.llm.t5 import (T5Config, build_t5_decoder_step,
+                                     build_t5_encoder)
+
+        cfg = T5Config.from_hf(hf_cfg)
+        enc_len = int(config.get("enc_len", 512))
+        dec_len = min(max_len, 512)
+
+        def t5_getter(nm):
+            if nm == "lm_head.weight" and nm not in store:
+                return store.load("shared.weight")
+            return store.load(nm)
+
+        name = (hf_cfg.get("_name_or_path")
+                or os.path.basename(os.path.normpath(d)))
+        enc = Model.new_from_onnx(
+            build_t5_encoder(t5_getter, cfg, seq_len=enc_len, dtype=dtype),
+            name=name + "-encoder")
+        dec = Model.new_from_onnx(
+            build_t5_decoder_step(t5_getter, cfg, max_len=dec_len,
+                                  enc_len=enc_len, dtype=dtype),
+            name=name + "-decoder")
+        tok = d if os.path.exists(os.path.join(d, "tokenizer.json")) else None
+        return LoadedBundle(
+            models={enc.name: enc, dec.name: dec},
+            interfaces={"text2text": {
+                "encoder": enc.name, "decoder": dec.name,
+                "max_len": dec_len, "enc_len": enc_len,
+                "start": int(hf_cfg.get("decoder_start_token_id", 0)),
+                "eos": int(hf_cfg.get("eos_token_id", 1))}},
+            tokenizer_source=tok,
+            meta={"model_type": "t5", "dtype": dtype.name})
 
 
 @register_loader
@@ -421,6 +562,49 @@ class GgufLoader(Loader):
                                                  **geometry}},
                             meta={"architecture": arch,
                                   "quantized": True})
+
+
+@register_loader
+class Rwkv7Loader(Loader):
+    """RWKV-7 `.pth` checkpoint (a torch.save'd state dict; the
+    reference's Rwkv7Loader, :656-679): one step graph whose state the
+    `text` spec marks `rnn_state`, served by interfaces/rnn_text.py."""
+
+    NAME = "rwkv7"
+    DESCRIPTION = "RWKV-7 .pth checkpoint (linear recurrence)"
+
+    def config_schema(self):
+        return super().config_schema() + [
+            ConfigField("dtype", ConfigFieldType.ENUM, "compute dtype "
+                        "(the recurrent state stays f32)", default="f32",
+                        choices=["f32", "bf16", "f16"]),
+            ConfigField("tokenizer", ConfigFieldType.FILE_PATH,
+                        "RWKV World vocabulary file (.txt)", default=""),
+        ]
+
+    def can_load(self, path: str) -> bool:
+        return os.path.isfile(path) and path.endswith(".pth") \
+            and "rwkv" in os.path.basename(path).lower()
+
+    def load(self, config):
+        from .pth import load_pth
+        from .recipes.llm.rwkv7 import build_rwkv7_step, rwkv7_config_from_sd
+
+        sd = load_pth(config["path"])
+        cfg = rwkv7_config_from_sd(sd)
+        dtype = {"f32": DType.F32, "bf16": DType.BF16,
+                 "f16": DType.F16}[config.get("dtype", "f32")]
+        data = build_rwkv7_step(lambda n: sd[n], cfg, dtype=dtype)
+        name = os.path.basename(config["path"])
+        model = Model.new_from_onnx(data, name=name)
+        return LoadedBundle(models={name: model},
+                            interfaces={"text": {"model": name,
+                                                 "rnn_state": True,
+                                                 "n_layers": cfg.n_layer,
+                                                 "n_embd": cfg.n_embd}},
+                            tokenizer_source=config.get("tokenizer") or None,
+                            meta={"architecture": "rwkv7",
+                                  "dtype": dtype.name})
 
 
 @register_loader
@@ -575,7 +759,8 @@ class AutoLoader(Loader):
                 return loader.load(config)
         raise ValueError(f"cannot identify model format at {path!r} (the "
                          f"port loads transformers checkpoint dirs, GGUF "
-                         f"files and diffusers pipeline dirs only)")
+                         f"files, RWKV-7 .pth files and diffusers "
+                         f"pipeline dirs only)")
 
 
 def identify_and_load(path: str, **config) -> LoadedBundle:

@@ -45,10 +45,17 @@ the text flows it serves:
     inpainting on the bundle's ImageGenerationInterface, and with
     `preview` the diffusion super graph, which streams one
     `step_preview` frame a denoise step (`_latent_preview_rgb`).
-The OpenAI front end's `/v1/images/generations` runs on `_image_iface`.
-Every other message of the reference (speech, transcription, multimodal
-generation) and the unported generate_text variant (RNN models) answer
-with an error naming them as not ported.
+  * generate_text on a constant-state (RWKV) model (reference
+    :833-858): greedy decoding on the RnnTextInterface (`_rnn_iface`);
+  * generate_multimodal (reference :453-540): interleaved text and
+    image items (`_mm_items`: PNG base64 or raw RGB, resized to the
+    vision encoder's input) through a LLaVA bundle's
+    MultimodalLanguageInterface (`_mm_iface`), which shares the text
+    entry's interface.
+The OpenAI front end's `/v1/images/generations` runs on `_image_iface`,
+its chat with image content parts on `_mm_iface`. Every other message
+of the reference (speech, transcription) answers with an error naming
+it as not ported.
 """
 
 from __future__ import annotations
@@ -79,7 +86,6 @@ from .ws import WebSocketConnection, serve_websocket
 
 # messages of the reference's protocol that the port does not serve
 _UNPORTED_MESSAGES = {
-    "generate_multimodal": "multimodal generation",
     "generate_speech": "speech generation",
     "transcribe": "transcription",
     "transcribe_stream": "streaming transcription",
@@ -114,6 +120,7 @@ class Server:
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._text_ifaces: dict = {}      # entry id -> direct interface
         self._image_ifaces: dict = {}     # bundle id -> image interface
+        self._mm_ifaces: dict = {}        # bundle id -> multimodal iface
         self._image_lock = threading.Lock()   # one generation at a time
         self._batchers: dict = {}         # entry id -> ContinuousBatcher
         self._batch_jobs: dict = {}       # job_id -> (batcher, future)
@@ -184,7 +191,9 @@ class Server:
             with self._cache_lock:
                 bat = self._batchers.pop(mid, None)
                 self._text_ifaces.pop(mid, None)
+                self._text_ifaces.pop(("rnn", mid), None)
                 self._image_ifaces.pop(bid, None)
+                self._mm_ifaces.pop(bid, None)
                 # a decoder holds its models' interfaces (device weights)
                 self._spec_decoders = {k: v for k, v in
                                        self._spec_decoders.items()
@@ -279,6 +288,8 @@ class Server:
             return self._generate_text(msg)
         if t == P.LOAD_ADAPTER:
             return self._load_adapter(msg)
+        if t == "generate_multimodal":
+            return self._generate_multimodal(msg)
         if t in _UNPORTED_MESSAGES:
             raise _not_ported(f"{_UNPORTED_MESSAGES[t]} ({t!r})")
         raise ValueError(f"unknown message type {t!r}")
@@ -598,6 +609,107 @@ class Server:
                 self._text_ifaces[entry.id] = iface
             return iface
 
+    def _rnn_iface(self, entry):
+        """The RnnTextInterface of a constant-state (RWKV) model, built
+        on the Server's device at the first request."""
+        from ..interfaces.rnn_text import RnnTextInterface
+
+        with self._cache_lock:
+            iface = self._text_ifaces.get(("rnn", entry.id))
+            if iface is None:
+                iface = RnnTextInterface(entry.model, device=self.device)
+                self._text_ifaces[("rnn", entry.id)] = iface
+            return iface
+
+    def _mm_iface(self, entry):
+        """The MultimodalLanguageInterface of a LLaVA-style bundle and
+        its spec: one a bundle, on the text entry's interface."""
+        from ..interfaces.multimodal import MultimodalLanguageInterface
+
+        bid = int(entry.meta["bundle_id"])
+        bundle = self.models.bundle(bid)
+        if "multimodal" not in bundle.interfaces:
+            raise ValueError("model has no multimodal interface")
+        spec = bundle.interfaces["multimodal"]
+        with self._cache_lock:
+            mm = self._mm_ifaces.get(bid)
+            if mm is None:
+                text_entry = next(
+                    e for e in self.models._models.values()
+                    if e.name == spec["model"]
+                    and int(e.meta.get("bundle_id", -1)) == bid)
+                mm = MultimodalLanguageInterface(
+                    self._text_iface(text_entry),
+                    embed_weight_name=spec["embed_weight"],
+                    vision_encoder=bundle.models[spec["vision"]])
+                self._mm_ifaces[bid] = mm
+            return mm, spec
+
+    @staticmethod
+    def _mm_items(spec, items):
+        """Wire items [{text} | {image_b64: PNG} | {rgb_b64, width,
+        height}] -> MultimodalItems; images are resized to the vision
+        encoder's square input."""
+        import base64
+
+        from ..super_graph.links import Image as ImageLink
+        from ..super_graph.links import MultimodalItem
+        from ..utils.image import png_to_array, resize_bilinear
+
+        size = int(spec.get("image_size", 224))
+
+        def fit(px):
+            if px.ndim == 2:
+                px = px[:, :, None]
+            if px.shape[2] == 2:     # PNG color type 4: gray + alpha
+                px = px[:, :, :1]
+            if px.shape[2] == 1:
+                px = np.repeat(px, 3, axis=2)
+            if px.shape[2] == 4:
+                px = px[:, :, :3]
+            if px.shape[:2] != (size, size):
+                px = resize_bilinear(px, size, size)
+            return px
+
+        out = []
+        for it in items:
+            if it.get("text"):
+                out.append(MultimodalItem(text=it["text"]))
+            elif it.get("image_b64"):
+                px = png_to_array(base64.b64decode(it["image_b64"]))
+                out.append(MultimodalItem(image=ImageLink(fit(px))))
+            elif it.get("rgb_b64"):
+                raw = base64.b64decode(it["rgb_b64"])
+                px = np.frombuffer(raw, np.uint8).reshape(
+                    int(it["height"]), int(it["width"]), 3)
+                out.append(MultimodalItem(image=ImageLink(fit(px))))
+            else:
+                raise ValueError("item needs text, image_b64, or rgb_b64")
+        if not out:
+            raise ValueError("no items")
+        return out
+
+    def _generate_multimodal(self, msg) -> None:
+        """Interleaved image and text generation through the
+        inputs_embeds prefill (reference :519-540), as a scheduler job."""
+        entry = self.models.get(int(msg["model_id"]))
+        mm, spec = self._mm_iface(entry)
+        if mm.text.tokenizer is None:
+            from ..tokenizer import AnyTokenizer
+
+            mm.text.tokenizer = AnyTokenizer.load(
+                entry.tokenizer_source or "bytes")
+        items = self._mm_items(spec, msg.get("items") or [])
+        n_new = int(msg.get("max_new_tokens", 32))
+        sampling = self._sampling_from_msg(msg)
+
+        def job(obs):
+            return {"text": mm.run_items_in_string_out(
+                items, n_new, sampling=sampling)}
+
+        self.scheduler.submit(job, ObserverSettings())
+        return None
+
     def _image_iface(self, entry):
         """The image interface of an entry's bundle (its text encoder,
         UNet and VAE entries share one), built on the Server's device at
@@ -806,8 +918,6 @@ class Server:
         iface_cfg = entry.interfaces.get("text")
         if iface_cfg is None:
             raise ValueError("model has no text interface")
-        if iface_cfg.get("rnn_state"):
-            raise _not_ported("constant-state (RNN) models")
         from ..tokenizer import AnyTokenizer, apply_chat_template
 
         tok = AnyTokenizer.load(msg.get("tokenizer")
@@ -817,6 +927,8 @@ class Server:
             # ChatML fallback) into the prompt every path below uses
             msg["prompt"] = apply_chat_template(tok, msg["messages"])
         n_new = int(msg.get("max_new_tokens", 32))
+        if iface_cfg.get("rnn_state"):
+            return self._generate_text_rnn(msg, entry, tok, n_new)
         regex, json_schema = msg.get("regex"), msg.get("json_schema")
         constrained = regex is not None or json_schema is not None
         beams = int(msg.get("num_beams", 1))
@@ -921,6 +1033,29 @@ class Server:
 
         self.scheduler.submit(job, settings)
         return None  # job_accepted is emitted via the report pump
+
+    def _generate_text_rnn(self, msg, entry, tok, n_new: int) -> None:
+        """A constant-state (RWKV) model: greedy decoding only, as the
+        reference serves it (:833-858)."""
+        if float(msg.get("temperature", 0.0)) > 0.0:
+            raise ValueError("rnn models serve greedy decoding "
+                             "only (set temperature 0)")
+        iface = self._rnn_iface(entry)
+        iface.tokenizer = tok
+        stops = [s for s in (msg.get("stop") or []) if s]
+
+        def rnn_job(obs):
+            ids = np.asarray(tok.encode(msg["prompt"]), dtype=np.int64)
+            toks = iface.generate_tokens(ids[None], n_new)[0]
+            text = tok.decode([int(t) for t in toks])
+            for s in stops:
+                i = text.find(s)
+                if i >= 0:
+                    text = text[:i]
+            return {"text": text}
+
+        self.scheduler.submit(rnn_job, ObserverSettings())
+        return None
 
     def _generate_speculative(self, msg, entry, tok, n_new: int,
                               draft_id: int) -> None:

@@ -9,10 +9,13 @@ guided function calls), `/v1/embeddings`, `GET /v1/models` and `GET
 /metrics`, on the Python stdlib (`http.server`), and
 `/v1/images/generations` (reference :759, `_images`: an `sd` diffusers
 pipeline's images as base64 PNGs, one request at a time on the
-Server's image interface). The reference's audio routes
-(`/v1/audio/speech`, `/v1/audio/transcriptions`,
-`/v1/audio/translations`) answer 501 with an OpenAI-style error naming
-them as not ported, and so do image content parts.
+Server's image interface). Chat messages with image content parts
+(data: URLs) run a LLaVA bundle's inputs_embeds path
+(`_chat_multimodal`, reference :997-1080), and completions on a
+constant-state (RWKV) model its greedy decoding (reference :546-565).
+The reference's audio routes (`/v1/audio/speech`,
+`/v1/audio/transcriptions`, `/v1/audio/translations`) answer 501 with
+an OpenAI-style error naming them as not ported.
 
 Routing mirrors the WebSocket server: unconstrained requests against a
 ragged-decode model go through the ContinuousBatcher (per-request
@@ -537,6 +540,23 @@ class _Generator:
         return bias
 
     def _run_direct(self, on_delta):
+        if self.cfg.get("rnn_state"):
+            # constant-state (RWKV) models: greedy decoding only
+            if (self.sampling is not None or self.regex is not None
+                    or self.schema is not None or self.logit_bias
+                    or self.want_logprobs is not None or self.echo):
+                raise ApiError(400, "rnn models serve greedy text only "
+                                    "(no sampling/logprobs/echo/"
+                                    "constraints)")
+            iface = self.server._rnn_iface(self.entry)
+            iface.tokenizer = self.tok
+            toks = [int(t) for t in iface.generate_tokens(
+                self.prompt_ids[None], self.n_new)[0]]
+            if on_delta is not None:
+                text = self.tok.decode(toks)
+                if text:
+                    on_delta(text)
+            return toks, "length"
         iface = self.server._score_iface(self.entry)
         iface.tokenizer = self.tok
         constraint = None
@@ -789,7 +809,7 @@ class _Handler(BaseHTTPRequestHandler):
                         for p in m["content"])
                 for m in messages)
             if has_image:
-                raise _not_ported("image content parts (multimodal chat)")
+                return self._chat_multimodal(body)
             # text-only content arrays flatten to plain strings
             for m in messages:
                 if isinstance(m.get("content"), list):
@@ -882,6 +902,104 @@ class _Handler(BaseHTTPRequestHandler):
                          "created": int(time.time()),
                          "model": gen.entry.name,
                          "choices": [choice], "usage": res["usage"]})
+
+    def _chat_multimodal(self, body: Dict[str, Any]):
+        """Chat messages carrying image_url parts (data: URIs) run the
+        LLaVA-style inputs_embeds path: render the chat template with
+        image sentinels, split, and interleave text/image items (the
+        reference's, :997-1080)."""
+        import re as _re
+
+        from ..tokenizer import AnyTokenizer, apply_chat_template
+
+        if body.get("stream"):
+            raise ApiError(400, "stream is not supported with image "
+                                "inputs")
+        if body.get("tools") and body.get("tool_choice") not in (None,
+                                                                 "none"):
+            # refusing beats silently dropping the forced-call contract
+            raise ApiError(400, "tools are not supported together with "
+                                "image inputs")
+        server = self.api.server
+        entry = _resolve_entry(server, body.get("model"), "multimodal")
+        try:
+            mm, spec = server._mm_iface(entry)
+        except ValueError as e:
+            raise ApiError(400, str(e))
+        tok = AnyTokenizer.load(entry.tokenizer_source or "bytes")
+        mm.text.tokenizer = tok
+        imgs: List[str] = []
+        msgs = []
+        for m in _normalize_messages(body["messages"]):
+            c = m.get("content")
+            if not isinstance(c, list):
+                if isinstance(c, str) and "\x00" in c:
+                    m = {**m, "content": c.replace("\x00", "")}
+                msgs.append(m)
+                continue
+            parts = []
+            for p in c:
+                kind = p.get("type")
+                if kind == "text":
+                    # NUL can't reach the model anyway; stripping it
+                    # keeps user text from forging image sentinels
+                    parts.append(p.get("text", "").replace("\x00", ""))
+                elif kind == "image_url":
+                    url = (p.get("image_url") or {}).get("url", "")
+                    if not url.startswith("data:image/") \
+                            or "," not in url:
+                        raise ApiError(400, "only data:image/...;base64 "
+                                            "URLs are supported "
+                                            "(no outbound fetches)")
+                    imgs.append(url.split(",", 1)[1])
+                    parts.append(f"\x00IMG{len(imgs) - 1}\x00")
+                else:
+                    raise ApiError(400, f"unsupported content part "
+                                        f"{kind!r}")
+            msgs.append({**m, "content": "".join(parts)})
+        rendered = apply_chat_template(tok, msgs)
+        wire_items, pos = [], 0
+        for hit in _re.finditer(r"\x00IMG(\d+)\x00", rendered):
+            if hit.start() > pos:
+                wire_items.append({"text": rendered[pos:hit.start()]})
+            wire_items.append({"image_b64": imgs[int(hit.group(1))]})
+            pos = hit.end()
+        if pos < len(rendered):
+            wire_items.append({"text": rendered[pos:]})
+        try:
+            items = server._mm_items(spec, wire_items)
+        except ValueError as e:
+            raise ApiError(400, f"bad image payload: {e}")
+        n_new = int(body.get("max_tokens",
+                             body.get("max_completion_tokens", 16)))
+        try:
+            embeds = mm.embed_items(items)
+            toks = [int(t) for t in mm.generate_from_embeds(
+                embeds, n_new, sampling=_sampling_from(body))[0]]
+        except ValueError as e:    # fused sequence beyond the buckets
+            raise ApiError(400, str(e))
+        finish = "length"
+        eos_ids = getattr(mm.text, "eos_token_ids", None) or ()
+        hits = [toks.index(e) for e in eos_ids if e in toks]
+        if hits:
+            toks, finish = toks[:min(hits)], "stop"
+        text = tok.decode(toks)
+        for s in _stops_from(body):
+            i = text.find(s)
+            if i >= 0:
+                text, finish = text[:i], "stop"
+        prompt_toks = int(embeds.shape[1])   # fused text+image length
+        rid = f"cmpl-{int(time.time() * 1000):x}"
+        self._json(200, {
+            "id": rid, "object": "chat.completion",
+            "created": int(time.time()), "model": entry.name,
+            "choices": [{"index": 0, "logprobs": None,
+                         "finish_reason": finish,
+                         "message": {"role": "assistant",
+                                     "content": text}}],
+            "usage": {"prompt_tokens": prompt_toks,
+                      "completion_tokens": len(toks),
+                      "total_tokens": prompt_toks + len(toks)}})
 
     @staticmethod
     def _fmt_logprobs(lp, chat: bool):

@@ -239,6 +239,20 @@ class SymbolicGraph:
             g.outputs.append(tid)
         return g
 
+    # mutation (the reference's, symbolic_graph/ir.py:248-257; surgery.py
+    # uses it)
+    # ------------------------------------------------------------------
+    def consumers_of(self, tid: int) -> List[SOp]:
+        return [op for op in self.ops if tid in op.inputs]
+
+    def replace_tensor(self, old: int, new: int) -> None:
+        for op in self.ops:
+            op.inputs = [new if i == old else i for i in op.inputs]
+        self.outputs = [new if i == old else i for i in self.outputs]
+
+    def remove_op(self, sop: SOp) -> None:
+        self.ops.remove(sop)
+
     def topo_sort(self) -> List[SOp]:
         produced = set(self.inputs)
         for tid, t in self.tensors.items():

@@ -6,8 +6,7 @@ trait). Here: HF tokenizers (baked-in Rust lib) via local file or JSON
 string, the RWKV World trie tokenizer (vocab file), and a byte-level
 fallback that needs no assets.
 
-The port's copy of whisper_tensor_tpu/tokenizer.py, without the RWKV
-World vocabulary (RWKV models are not ported).
+The port's copy of whisper_tensor_tpu/tokenizer.py.
 """
 
 from __future__ import annotations
@@ -146,6 +145,63 @@ class HFTokenizer:
         return self._tok.decode(list(ids))
 
 
+class RwkvWorldTokenizer:
+    """Greedy-longest-match trie tokenizer over the RWKV World vocab
+    (reference rwkv-tokenizer crate). Vocab file lines:
+    `<id> <python-repr-of-bytes-or-str> <length>`."""
+
+    def __init__(self, vocab_path: str):
+        import ast
+
+        self._id_to_bytes = {}
+        trie = {}
+        with open(vocab_path, "r", encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                idx_s, rest = line.split(" ", 1)
+                payload_s, _len = rest.rsplit(" ", 1)
+                token = ast.literal_eval(payload_s)
+                if isinstance(token, str):
+                    token = token.encode("utf-8")
+                tid = int(idx_s)
+                self._id_to_bytes[tid] = token
+                node = trie
+                for byte in token:
+                    node = node.setdefault(byte, {})
+                node[-1] = tid
+        self._trie = trie
+
+    @property
+    def vocab_size(self) -> int:
+        return max(self._id_to_bytes) + 1
+
+    def encode(self, text: str) -> List[int]:
+        data = text.encode("utf-8")
+        out, i = [], 0
+        while i < len(data):
+            node = self._trie
+            best = None
+            best_len = 0
+            j = i
+            while j < len(data) and data[j] in node:
+                node = node[data[j]]
+                j += 1
+                if -1 in node:
+                    best, best_len = node[-1], j - i
+            if best is None:
+                i += 1  # skip unencodable byte
+            else:
+                out.append(best)
+                i += best_len
+        return out
+
+    def decode(self, ids: List[int]) -> str:
+        return b"".join(self._id_to_bytes.get(i, b"") for i in ids).decode(
+            "utf-8", errors="replace")
+
+
 class IncrementalDecoder:
     """Amortized-O(1)-per-token detokenizer for streaming paths.
 
@@ -232,8 +288,7 @@ class AnyTokenizer:
         if source.endswith(".json"):
             return HFTokenizer.from_file(source)
         if source.endswith(".txt"):
-            raise NotImplementedError(
-                "the RWKV World tokenizer is not ported to PyTorch yet")
+            return RwkvWorldTokenizer(source)
         if source.lstrip().startswith("{"):
             return HFTokenizer.from_json(source)
         raise ValueError(f"cannot identify tokenizer source {source!r}")

@@ -7,9 +7,9 @@ container is needed. Encodes 8-bit RGB / RGBA / grayscale with filter
 type 0; the decoder handles all five standard filters so it can read
 PNGs produced by other encoders too.
 
-The port's copy of whisper_tensor_tpu/utils/image.py without
-`resize_bilinear` (the vision encoders' input fit, which waits for the
-multimodal interface), with the reference CLI's PPM reader and writer
+The port's copy of whisper_tensor_tpu/utils/image.py (`resize_bilinear`
+fits an upload to a vision encoder's square input), with the reference
+CLI's PPM reader and writer
 (whisper_tensor_tpu/cli.py:255-289) beside it as `read_ppm` and
 `write_ppm`, and `read_image`, which reads the init image and mask of
 `cli image` from either format.
@@ -47,6 +47,30 @@ def png_bytes(pixels: np.ndarray) -> bytes:
     return (_SIG + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(raw, 6))
             + _chunk(b"IEND", b""))
+
+
+def resize_bilinear(pixels: np.ndarray, out_h: int,
+                    out_w: int) -> np.ndarray:
+    """(H,W,C) uint8/float -> (out_h,out_w,C) bilinear resize
+    (half-pixel centers, numpy only — the image has no PIL). Used to
+    fit arbitrary uploads to a vision encoder's square input."""
+    a = np.asarray(pixels)
+    h, w = a.shape[:2]
+    ys = (np.arange(out_h) + 0.5) * h / out_h - 0.5
+    xs = (np.arange(out_w) + 0.5) * w / out_w - 0.5
+    y0 = np.clip(np.floor(ys).astype(np.int64), 0, h - 1)
+    x0 = np.clip(np.floor(xs).astype(np.int64), 0, w - 1)
+    y1 = np.minimum(y0 + 1, h - 1)
+    x1 = np.minimum(x0 + 1, w - 1)
+    wy = np.clip(ys - y0, 0.0, 1.0)[:, None, None]
+    wx = np.clip(xs - x0, 0.0, 1.0)[None, :, None]
+    af = a.astype(np.float32)
+    top = af[y0][:, x0] * (1 - wx) + af[y0][:, x1] * wx
+    bot = af[y1][:, x0] * (1 - wx) + af[y1][:, x1] * wx
+    out = top * (1 - wy) + bot * wy
+    if a.dtype == np.uint8:
+        return np.clip(np.round(out), 0, 255).astype(np.uint8)
+    return out.astype(a.dtype)
 
 
 def _unfilter(kind: int, cur: np.ndarray, prev: np.ndarray,
