@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--layers N] [--plant-fault] [--kernels-only]
                           [--generic-only] [--image-only] [--train-only]
-                          [--inspect-only] [--text-family-only] [--plans]
+                          [--inspect-only] [--text-family-only]
+                          [--speech-only] [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -304,6 +305,29 @@ Phases:
      decode_attention in the decode; the decode stands a teacher-forced
      embeds prefill. Each family prints its load seconds, prefill or
      scan ms, decode tok/s and card bytes.
+ 17. speech at published widths, seeded weights (`--speech-only` runs it
+     alone after the build, with the 34 recurrent and spectral corpus
+     cases of phase 11 (a)). (a) Whisper at openai/whisper-large-v3's
+     widths (d_model 1280, 20 heads of 64, FFN 5120, 128 mel bins,
+     vocabulary 51866, 1500 source and 448 target positions), bf16, at
+     the published 32 + 32 layers under --speech-only and 4 + 4 in the
+     default run (the smoke's time limit), with its
+     generation_config.json's four-token start sequence: a seeded 30 s
+     clip through /v1/audio/transcriptions (multipart WAV), the
+     WebSocket `transcribe` greedy and with beams of 4, and
+     `transcribe_stream` in 1 s feeds, a 75 s clip through
+     transcribe_long, and the direct referee loop, in one counted run
+     (flash_attention and ragged_kv_write launch as often as the
+     lowering's eligible calls; the plain-path attention calls of the
+     decode steps counted), then `cli stt` of the 30 s clip; the greedy
+     tokens equal the referee's and the cli's text the route's; the
+     decode's step logits and a teacher-forced pass on the kernels stand
+     C10's rule against a teacher-forced pass on the plain path; a
+     rerun holds every flash call against its plain version; load s,
+     mel ms, encoder ms, prefill ms, decode tok/s and card GB. (b) the
+     synthetic piper, kokoro and F5-TTS sets (tests/torch_tts_sets.py)
+     through /v1/audio/speech, `generate_speech` and `cli tts`: their
+     samples within 1e-5 of the port on the CPU.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -4531,17 +4555,20 @@ CARD = "cuda"
 CARD_TOLERANCES = {}
 
 
-def phase11_corpus(torch, np) -> None:
+def phase11_corpus(torch, np, op_types=None, want=None) -> None:
     """(a) every case of the CPU tests' corpus (tests/torch_corpus.npz,
-    the selected cases of tests/conformance/) through Model.eval on the
-    default device, at the case's own tolerances."""
+    the selected cases of tests/conformance/), or those of `op_types`
+    (`want` of them), through Model.eval on the default device, at the
+    case's own tolerances."""
     sys.path.insert(0, str(ROOT / "tests"))
     import torch_conformance as tc
     from whisper_tensor_tpu_torch.model import Model
 
-    cases = tc.read_bundle()
+    cases = [c for c in tc.read_bundle()
+             if op_types is None or c.op_type in op_types]
     say(f"phase 11 (a): {len(cases)} corpus cases through Model.eval on "
-        f"the card (tests/torch_corpus.npz)")
+        f"the card (tests/torch_corpus.npz"
+        f"{', ' + ', '.join(op_types) if op_types else ''})")
     t0 = time.perf_counter()
     paths, failures = {}, []
     worst, worst_name = 0.0, ""
@@ -4571,8 +4598,9 @@ def phase11_corpus(torch, np) -> None:
         f"{len(CARD_TOLERANCES)} cases at a card tolerance")
     for f in failures[:40]:
         say(f"  FAILED {f}")
-    if failures:
-        fail(f"{len(failures)} corpus cases failed on the card")
+    if failures or want not in (None, len(cases)):
+        fail(f"{len(failures)} of {len(cases)} corpus cases failed on the "
+             f"card ({want or len(cases)} expected)")
 
 
 def attention_onnx(B, Hq, Hkv, S, D, mode):
@@ -6709,12 +6737,13 @@ TF_PROMPT, DS_NEW, T5_NEW, RWKV_NEW, LLAVA_NEW = 512, 32, 64, 64, 32
 C10 = 1 / 16
 
 
-def tiled_tensors(shapes: dict, seed: int, np, out_rows=()):
+def tiled_tensors(shapes: dict, seed: int, np, out_rows=(),
+                  out_vocab: int = BYTE_VOCAB):
     """(name, f32 array) of `shapes` in order: matrices tile a seeded
     block of 2^20 + 7 normal values scaled 0.02 (as checkpoint_tensors),
     1-D weights are ones (the norms), other 1-D tensors zeros; the rows
-    of `out_rows` tensors past the byte tokenizer's ids are zero, so
-    greedy text decodes to printable bytes."""
+    of `out_rows` tensors from `out_vocab` on (the byte tokenizer's ids
+    by default) are zero, so greedy text decodes to bytes."""
     rng = np.random.default_rng(seed)
     for n, s in shapes.items():
         if len(s) == 1:
@@ -6723,7 +6752,7 @@ def tiled_tensors(shapes: dict, seed: int, np, out_rows=()):
         base = rng.standard_normal((1 << 20) + 7, dtype=np.float32) * 0.02
         arr = np.resize(base, s)
         if n in out_rows:
-            arr[BYTE_VOCAB:] = 0.0
+            arr[out_vocab:] = 0.0
         yield n, arr
 
 
@@ -6828,10 +6857,10 @@ def llava_shapes(c: dict) -> dict:
 
 
 def write_hf(d: Path, cfg: dict, shapes: dict, seed: int, np, bf16,
-             out_rows) -> int:
+             out_rows, out_vocab: int = BYTE_VOCAB) -> int:
     (d / "config.json").write_text(json.dumps(cfg))
-    return write_safetensors(d, shapes, tiled_tensors(shapes, seed, np,
-                                                      out_rows), np, bf16)
+    return write_safetensors(d, shapes, tiled_tensors(
+        shapes, seed, np, out_rows, out_vocab), np, bf16)
 
 
 class RouteSpy:
@@ -6895,10 +6924,12 @@ def family_kernels():
             "kv_write_pair": kv_write_pair}
 
 
-def counted(run, spy, qspy, label: str, results):
+def counted(run, spy, qspy, label: str, results,
+            key: str = "launches_phase16"):
     """run() with every kernel counter, spy and QuantMatMul spy at 0 just
     before it and read just after; each launch count must equal the
-    lowering's eligible calls. Returns (run's value, launches)."""
+    lowering's eligible calls. Returns (run's value, launches); each
+    kernel's launches also go into its `results` entry under `key`."""
     kernels = family_kernels()
     for fn in kernels.values():
         fn.launches = 0
@@ -6920,14 +6951,45 @@ def counted(run, spy, qspy, label: str, results):
              f"(launched, eligible): {bad}, or no Attention call ran")
     for res in results:
         if res["name"] in launches:
-            d = res.setdefault("launches_phase16", {})
+            d = res.setdefault(key, {})
             d[label] = d.get(label, 0) + launches[res["name"]]
     return out, launches
 
 
+def kv_shadow(misc, name: str, plain):
+    """Install, in the cache-write lowerings' module, a `name`
+    (ragged_kv_write or kv_write_pair) that calls the one installed
+    before and holds the caches it writes, bit for bit, against `plain`
+    on clones of the caches as they were. Returns it; `.inner` is the
+    one it wraps, `.worst` 0 while every write was exact, else inf."""
+    inner = getattr(misc, name)
+
+    def checked(*a):
+        # a: (cache, update, pos) or (cache_k, update_k, cache_v,
+        # update_v, pos); the caches are the even places before pos
+        want = plain(*(x.clone() if i % 2 == 0 and i < len(a) - 1 else x
+                       for i, x in enumerate(a)))
+        got = inner(*a)
+        want, got = ((want, got) if name == "kv_write_pair"
+                     else ((want,), (got,)))
+        for g, w in zip(got, want):
+            if not g.equal(w):
+                checked.worst = float("inf")
+                checked.max_err = max(checked.max_err, float(
+                    (g.float() - w.float()).abs().max()))
+        checked.calls += 1
+        return got if name == "kv_write_pair" else got[0]
+
+    checked.inner, checked.calls, checked.worst, checked.max_err = \
+        inner, 0, 0.0, 0.0
+    setattr(misc, name, checked)
+    return checked
+
+
 class Shadows:
-    """flash_attention, decode_attention and int8_matmul, each call held
-    against its plain version on its inputs while installed."""
+    """flash_attention, decode_attention, int8_matmul and both cache
+    writes, each call held against its plain version on its inputs
+    while installed (the writes bit for bit)."""
 
     def __init__(self):
         from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
@@ -6935,29 +6997,47 @@ class Shadows:
             decode_attention_plain)
         from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
             flash_agreement_bound, flash_attention_plain)
+        from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+            kv_write_pair_plain, ragged_kv_write_plain)
         from whisper_tensor_tpu_torch.milli import transforms
         from whisper_tensor_tpu_torch.milli.ops import attention as att
+        from whisper_tensor_tpu_torch.milli.ops import misc
 
-        self.att, self.tr = att, transforms
+        self.att, self.tr, self.misc = att, transforms, misc
         self.sh = {
             "flash_attention": flash_shadow(att, flash_attention_plain,
                                             flash_agreement_bound),
             "decode_attention": shadow_checked(att, decode_attention_plain,
                                                agreement_bound),
-            "int8_matmul": int8_shadow(transforms, agreement_bound)}
+            "int8_matmul": int8_shadow(transforms, agreement_bound),
+            "ragged_kv_write": kv_shadow(misc, "ragged_kv_write",
+                                         ragged_kv_write_plain),
+            "kv_write_pair": kv_shadow(misc, "kv_write_pair",
+                                       kv_write_pair_plain)}
 
     def close(self, label: str, launches: dict):
         self.att.flash_attention = self.sh["flash_attention"].inner
         self.att.decode_attention = self.sh["decode_attention"].inner
         self.tr.int8_matmul = self.sh["int8_matmul"].inner
+        for name in ("ragged_kv_write", "kv_write_pair"):
+            setattr(self.misc, name, self.sh[name].inner)
+        # the counted run's single-cache launches: ragged_kv_write's
+        # counter also counts the pairs
+        counted = dict(launches, ragged_kv_write=launches["ragged_kv_write"]
+                       - launches["kv_write_pair"])
         for name, sh in self.sh.items():
+            exact = name in ("ragged_kv_write", "kv_write_pair")
             say(f"  {label}: {sh.calls} {name} calls of the shadowed rerun "
-                f"against the plain version: worst |err|/bound "
-                f"{sh.worst:.4g} (max |err| {sh.max_err:.5g})")
-            if (sh.calls > 0) != (launches[name] > 0) or not sh.worst <= 1.0:
+                f"against the plain version: "
+                + (f"{'bit for bit' if sh.worst == 0 else 'DIFFERENT'} "
+                   f"(max |err| {sh.max_err:.5g})" if exact else
+                   f"worst |err|/bound {sh.worst:.4g} (max |err| "
+                   f"{sh.max_err:.5g})"))
+            if (sh.calls > 0) != (counted[name] > 0) or not sh.worst <= 1.0:
                 fail(f"{label}: the {name} calls of the rerun were not all "
                      f"within the plain version's bound, or ran where the "
-                     f"counted run launched none ({launches[name]})")
+                     f"counted run launched none ({counted[name]}), or "
+                     f"none where it launched")
 
 
 def rows_within(np, got, want, frac: float, what: str) -> float:
@@ -7519,6 +7599,517 @@ def phase16(torch, np, root: Path, bf16, results) -> None:
         say(f"  [{label}: {time.perf_counter() - t0:.1f} s]")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: speech at published widths, seeded weights
+# openai/whisper-large-v3 (config.json), at WHISPER_LAYERS + WHISPER_LAYERS
+# layers, and the generation_config.json of an English transcription
+# (start, <|en|>, <|transcribe|>, <|notimestamps|>)
+WHISPER_LARGE_V3 = dict(
+    model_type="whisper", d_model=1280, encoder_layers=32,
+    decoder_layers=32, encoder_attention_heads=20,
+    decoder_attention_heads=20, encoder_ffn_dim=5120, decoder_ffn_dim=5120,
+    num_mel_bins=128, vocab_size=51866, max_source_positions=1500,
+    max_target_positions=448, decoder_start_token_id=50258,
+    eos_token_id=50257, pad_token_id=50256)
+WHISPER_GENERATION = {"decoder_start_token_id": 50258, "eos_token_id": 50257,
+                      "forced_decoder_ids": [[1, 50259], [2, 50360],
+                                             [3, 50364]]}
+# encoder and decoder layers each: the published 32 under --speech-only,
+# 4 in the default run, which must stay inside its time limit (the smoke
+# took 1,005 s after phase 2 with 32 on an H100 at 700 W: PERF.md, phase 17)
+WHISPER_LAYERS, WHISPER_LAYERS_DEFAULT_RUN = 32, 4
+STT_NEW = 24              # tokens a transcription request decodes
+SPEECH_CASES = ("LSTM", "GRU", "RNN", "DFT", "STFT")
+
+
+def whisper_shapes(c: dict) -> dict:
+    E, F, V = c["d_model"], c["encoder_ffn_dim"], c["vocab_size"]
+    s = {"model.encoder.conv1.weight": (E, c["num_mel_bins"], 3),
+         "model.encoder.conv1.bias": (E,),
+         "model.encoder.conv2.weight": (E, E, 3),
+         "model.encoder.conv2.bias": (E,),
+         "model.encoder.embed_positions.weight":
+             (c["max_source_positions"], E),
+         "model.encoder.layer_norm.weight": (E,),
+         "model.encoder.layer_norm.bias": (E,),
+         "model.decoder.embed_tokens.weight": (V, E),
+         "model.decoder.embed_positions.weight":
+             (c["max_target_positions"], E),
+         "model.decoder.layer_norm.weight": (E,),
+         "model.decoder.layer_norm.bias": (E,)}
+
+    def attn(p):
+        for n in ("q", "k", "v", "out"):
+            s[f"{p}.{n}_proj.weight"] = (E, E)
+            if n != "k":
+                s[f"{p}.{n}_proj.bias"] = (E,)
+
+    for part, n in (("encoder", c["encoder_layers"]),
+                    ("decoder", c["decoder_layers"])):
+        for i in range(n):
+            p = f"model.{part}.layers.{i}."
+            norms = ["self_attn_layer_norm", "final_layer_norm"]
+            attn(p + "self_attn")
+            if part == "decoder":
+                attn(p + "encoder_attn")
+                norms.append("encoder_attn_layer_norm")
+            for nm in norms:
+                s[f"{p}{nm}.weight"] = (E,)
+                s[f"{p}{nm}.bias"] = (E,)
+            s.update({p + "fc1.weight": (F, E), p + "fc1.bias": (F,),
+                      p + "fc2.weight": (E, F), p + "fc2.bias": (E,)})
+    return s
+
+
+def whisper_tensors(shapes: dict, seed: int, np, out_vocab: int):
+    """tiled_tensors, but the tied head's rows from `out_vocab` on are
+    each the mean of 4 seeded distinct rows of the ASCII bytes' ids
+    (3 to `out_vocab` - 1): inside their hull, no logit there passes the
+    bytes' largest (up to rounding; argmax takes the lower id of a tie),
+    so greedy tokens are bytes. The decoder's position table is scaled
+    30x, so that the hidden state moves with the position and the tokens
+    vary: at 1x the layers' drift (each GELU's mean through its fc2)
+    holds every step on one token."""
+    for n, a in tiled_tensors(shapes, seed, np):
+        if n == "model.decoder.embed_tokens.weight":
+            rng = np.random.default_rng(seed + 1)
+            nb = out_vocab - 3
+            pick = 3 + np.argsort(rng.random((a.shape[0] - out_vocab, nb)),
+                                  axis=1)[:, :4]
+            mix = np.zeros((a.shape[0] - out_vocab, a.shape[1]), np.float32)
+            for k in range(4):
+                mix += a[pick[:, k]]
+            a[out_vocab:] = mix / 4
+        elif n == "model.decoder.embed_positions.weight":
+            a = a * 30.0
+        yield n, a
+
+
+def speech_clip(np, seconds: float, seed: int):
+    """A seeded synthetic utterance at 16 kHz: a few harmonics under a
+    slow syllable envelope, over noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000.0
+    f0 = 120 + 40 * np.sin(2 * np.pi * 0.3 * t)
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.1 * t) ** 2
+    s = sum(np.sin(2 * np.pi * k * np.cumsum(f0) / 16000.0) / k
+            for k in (1, 2, 3))
+    return (0.2 * env * s + 0.01 * rng.standard_normal(t.size)).astype(
+        np.float32)
+
+
+def multipart_wav(wav: bytes, fields: dict):
+    bound = "chip-smoke-boundary"
+    out = b""
+    for k, v in fields.items():
+        out += (f"--{bound}\r\nContent-Disposition: form-data; "
+                f'name="{k}"\r\n\r\n{v}\r\n').encode()
+    out += (f"--{bound}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"clip.wav\"\r\nContent-Type: audio/wav\r\n\r\n"
+            ).encode() + wav + f"\r\n--{bound}--\r\n".encode()
+    return out, f"multipart/form-data; boundary={bound}"
+
+
+def post_raw(port: int, path: str, body: bytes, ctype: str):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        c.request("POST", path, body=body, headers={"Content-Type": ctype})
+        r = c.getresponse()
+        return r.status, r.getheader("Content-Type"), r.read()
+    finally:
+        c.close()
+
+
+def whisper_steps(torch, iface, mel):
+    """The device loop's greedy decode (as _transcribe_compiled runs it,
+    without stopping) with each step's logits: (tokens, (n, V) f32)."""
+    dec = iface.dec
+    enc = iface.encode(mel)
+    cross_in = [n for n in dec.milli.inputs if n.startswith("cross_")]
+    caches = dec.fresh_cache(1)
+
+    def step(ids, pos):
+        f = dec._feeds(ids, pos, caches)
+        f.update({n: enc[n] for n in cross_in})
+        return dec._exec(f)["logits"]
+
+    P = len(iface.sot_sequence)
+    lg = step(torch.tensor([iface.sot_sequence], device=CARD),
+              torch.zeros((), dtype=torch.int64, device=CARD))[0, P - 1]
+    pos = torch.full((), P, dtype=torch.int64, device=CARD)
+    toks, logits = [], []
+    for _ in range(STT_NEW):
+        logits.append(lg.float())
+        toks.append(torch.argmax(lg))
+        lg = step(toks[-1].view(1, 1), pos)[0, -1]
+        pos = pos + 1
+    return ([int(t) for t in torch.stack(toks).cpu()],
+            torch.stack(logits).cpu().numpy())
+
+
+def whisper_forced(torch, iface, mel, toks):
+    """One teacher-forced decoder pass over the start sequence and the
+    tokens (the last one's successor not needed): the logits that pick
+    each token, (n, V) f32."""
+    dec = iface.dec
+    enc = iface.encode(mel)
+    seq = torch.tensor([iface.sot_sequence + toks[:-1]], device=CARD)
+    f = dec._feeds(seq, torch.zeros((), dtype=torch.int64, device=CARD),
+                   dec.fresh_cache(1))
+    f.update({n: enc[n] for n in enc if n.startswith("cross_")})
+    P = len(iface.sot_sequence)
+    return dec._exec(f)["logits"][0, P - 1:].float().cpu().numpy()
+
+
+def phase17_whisper(torch, np, root: Path, bf16, layers: int,
+                    results) -> None:
+    """(a) Whisper at whisper-large-v3's widths and `layers` + `layers`
+    layers (module docstring)."""
+    import contextlib
+    import io
+
+    from whisper_tensor_tpu_torch import cli
+    from whisper_tensor_tpu_torch.milli import transforms
+    from whisper_tensor_tpu_torch.milli.ops.attention import (
+        kernel_attention_disabled)
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+    from whisper_tensor_tpu_torch.super_graph.links import AudioClip
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+    from whisper_tensor_tpu_torch.utils.audio import wav_bytes
+
+    c = dict(WHISPER_LARGE_V3, encoder_layers=layers, decoder_layers=layers)
+    d = root / "whisper-large-v3"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    shapes = whisper_shapes(c)
+    t0 = time.perf_counter()
+    out_vocab = 3 + 128           # the byte tokenizer's ASCII ids
+    (d / "config.json").write_text(json.dumps(c))
+    nbytes = write_safetensors(d, shapes, whisper_tensors(
+        shapes, SEED + 171, np, out_vocab), np, bf16)
+    (d / "generation_config.json").write_text(json.dumps(WHISPER_GENERATION))
+    n_par = sum(math.prod(s) for s in shapes.values())
+    say(f"  (a) wrote whisper-large-v3 widths at {layers} + {layers} layers "
+        f"({n_par / 1e9:.3f} B parameters, {nbytes / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    clip30, clip75, clip4 = (speech_clip(np, s, SEED + 172 + i)
+                             for i, s in enumerate((30.0, 75.0, 4.0)))
+    wav30 = wav_bytes(clip30, 16000)
+    wav_path = d / "clip30.wav"
+    wav_path.write_bytes(wav30)
+    # the route reads the WAV back at 16 bits: every path takes its samples
+    from whisper_tensor_tpu_torch.utils.audio import read_wav_bytes
+
+    s30, _ = read_wav_bytes(wav30)
+    spy, qspy = RouteSpy(), quant_spy(transforms)
+    stop = api = None
+    try:
+        srv = Server()
+        t0 = time.perf_counter()
+        (entry, _) = srv.models.run_loader("transformers", {
+            "path": str(d), "dtype": "bf16", "max_len": 448})
+        iface = srv._stt_iface(entry)
+        iface.tokenizer = ByteTokenizer()
+        iface.dec._weights()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        say(f"  (a) loaded in {load_s:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card; "
+            f"start sequence {iface.sot_sequence}")
+        port, stop = ws_serve(srv)
+        api = OpenAIApi(srv, "127.0.0.1", 0).start()
+        b64 = base64.b64encode(s30.tobytes()).decode()
+
+        def serve():
+            body, ctype = multipart_wav(wav30, {"max_new_tokens": STT_NEW})
+            status, _, data = post_raw(api.port, "/v1/audio/transcriptions",
+                                       body, ctype)
+            if status != 200:
+                fail(f"(a) /v1/audio/transcriptions answered {status}: "
+                     f"{data[:300]!r}")
+            http_text = json.loads(data)["text"]
+            ws = WSClient(port)
+            texts = []
+            for beam in (1, 4):
+                reports, _ = sg_job(ws, {
+                    "type": "transcribe", "model_id": entry.id,
+                    "samples_b64": b64, "max_new_tokens": STT_NEW,
+                    "beam": beam})
+                texts.append(reports[-1]["result"]["text"])
+            commits = []
+            for off in range(0, len(clip4), 16000):
+                ws.send({"type": "transcribe_stream", "model_id": entry.id,
+                         "stream_id": "smoke", "max_new_tokens": 8,
+                         "samples_b64": base64.b64encode(
+                             clip4[off:off + 16000].tobytes()).decode()})
+                commits += ws.until("transcribe_stream_update")["tokens"]
+            ws.send({"type": "transcribe_stream", "model_id": entry.id,
+                     "stream_id": "smoke", "final": True})
+            r = ws.until("transcribe_stream_update")
+            commits += r["tokens"]
+            ws.close()
+            long_toks = iface.transcribe_long(AudioClip(clip75, 16000),
+                                              max_new_per_chunk=16)
+            referee = iface._transcribe_mel(
+                iface.mel_from_samples(s30), STT_NEW)
+            return http_text, texts, commits, long_toks, referee
+
+        (http_text, (greedy, beams), commits, long_toks, referee), \
+            launches = counted(serve, spy, qspy,
+                               "(a) whisper routes, stream, long, referee",
+                               results, key="launches_phase17")
+        attn = launches["Attention calls"]
+        plain = attn - launches["flash-eligible calls"] - launches[
+            "decode-eligible calls"]
+        say(f"  (a) /v1/audio/transcriptions: {http_text[:40]!r}; beams of "
+            f"4: {beams[:40]!r}; stream commits {len(commits)} tokens; "
+            f"transcribe_long {len(long_toks)} tokens over 3 windows; "
+            f"Attention calls {attn}, of them on the plain path {plain}")
+        if greedy != http_text:
+            fail("(a) the WebSocket greedy text is not the route's")
+        if not launches["flash_attention"] or not launches["ragged_kv_write"]:
+            fail("(a) flash_attention or ragged_kv_write never launched")
+        if launches["decode_attention"] or launches["int8_matmul"]:
+            fail("(a) decode_attention or int8_matmul launched")
+        mel = iface.mel_from_samples(s30)
+        toks = iface._transcribe_compiled(mel, STT_NEW)
+        say(f"  (a) greedy tokens {toks} ({http_text!r})")
+        if len(toks) != STT_NEW or max(toks) >= out_vocab \
+                or len(set(toks)) < 2:
+            fail(f"(a) the greedy tokens are not {STT_NEW} tokens below "
+                 f"{out_vocab} of more than one id")
+        if ByteTokenizer().decode(toks) != http_text:
+            fail("(a) the device loop's text is not the route's")
+    finally:
+        if api is not None:
+            api.stop()
+        if stop is not None:
+            stop()
+        spy.restore()
+        transforms.int8_matmul = qspy.inner
+    # timing, then the decode and a teacher-forced pass on the kernels
+    # against a teacher-forced pass on the plain path, every flash call
+    # of a rerun shadowed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mel = iface.mel_from_samples(s30)
+    mel_ms = (time.perf_counter() - t0) * 1e3
+    iface.encode(mel)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = iface.encode(mel)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    dec = iface.dec
+    cross = {n: enc[n] for n in enc if n.startswith("cross_")}
+    sot = torch.tensor([iface.sot_sequence], device=CARD)
+    zero = torch.zeros((), dtype=torch.int64, device=CARD)
+
+    def prefill():
+        f = dec._feeds(sot, zero, dec.fresh_cache(1))
+        f.update(cross)
+        return dec._exec(f)["logits"]
+
+    prefill()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill()
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    iface._transcribe_compiled(mel, STT_NEW)
+    torch.cuda.synchronize()
+    rate = STT_NEW / (time.perf_counter() - t0 - (enc_ms + pre_ms) / 1e3)
+    say(f"  (a) mel {mel_ms:.1f} ms (host), encoder {enc_ms:.1f} ms "
+        f"(1,500 positions), prefill {pre_ms:.1f} ms (4 tokens), decode "
+        f"{rate:.1f} tok/s, {torch.cuda.memory_allocated() / 1e9:.2f} GB on "
+        f"the card, load {load_s:.1f} s, on {card_line()}")
+    sh = Shadows()
+    try:
+        st_toks, st_logits = whisper_steps(torch, iface, mel)
+        forced = whisper_forced(torch, iface, mel, st_toks)
+        iface.transcribe_beam(AudioClip(s30, 16000), max_new=8, beam=4)
+        iface._transcribe_mel(mel, 8)         # single-cache writes
+    finally:
+        sh.close("(a) whisper", launches)
+    with kernel_attention_disabled(), PlainVersions():
+        plain_forced = whisper_forced(torch, iface, mel, st_toks)
+    if st_toks != toks:
+        fail(f"(a) the stepped decode {st_toks} is not the loop's {toks}")
+    # the referee's tokens equal the loop's up to the first near tie of
+    # the plain path's logits (C10's rule)
+    n = next((i for i, (a, b) in enumerate(zip(toks, referee)) if a != b),
+             None)
+    if n is None and len(referee) != len(toks):
+        fail(f"(a) the referee's tokens {referee} are not the loop's")
+    if n is not None:
+        row = plain_forced[n]
+        gap = float(np.diff(np.sort(row)[-2:])[0])
+        say(f"  (a) the referee's tokens part from the loop's at step {n}: "
+            f"top-2 gap {gap:.4g}, near-tie bound "
+            f"{C10 * np.abs(row).max():.4g}")
+        if not gap <= C10 * np.abs(row).max():
+            fail(f"(a) the referee's tokens {referee} part from the "
+                 f"loop's {toks} at step {n}, not at a near tie")
+    else:
+        say("  (a) the referee's tokens equal the loop's")
+    rows_within(np, st_logits, plain_forced, C10,
+                "(a) decode steps vs teacher-forced pass on the plain path")
+    rows_within(np, forced, plain_forced, C10,
+                "(a) teacher-forced pass on the kernels vs the plain path")
+    # cli stt: its own load, the route's text
+    spy, qspy = RouteSpy(), quant_spy(transforms)
+    buf = io.StringIO()
+
+    def run_cli():
+        with contextlib.redirect_stdout(buf):
+            cli.main(["stt", "--model", str(d), "--audio", str(wav_path),
+                      "--max-tokens", str(STT_NEW), "-c", "dtype=bf16",
+                      "--tokenizer", "bytes"])
+
+    try:
+        t0 = time.perf_counter()
+        counted(run_cli, spy, qspy, "(a) cli stt", results,
+                key="launches_phase17")
+        say(f"  (a) cli stt: {time.perf_counter() - t0:.1f} s with the load")
+    finally:
+        spy.restore()
+        transforms.int8_matmul = qspy.inner
+    if buf.getvalue().rstrip("\n") != http_text:
+        fail(f"(a) cli stt printed {buf.getvalue()[:80]!r}, not the route's "
+             f"text {http_text[:80]!r}")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def phase17_tts(torch, np, root: Path, results) -> None:
+    """(b) the synthetic TTS sets through /v1/audio/speech,
+    generate_speech and cli tts, against the port on the CPU."""
+    import contextlib
+    import io
+    import wave
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_tts_sets as sets
+    from whisper_tensor_tpu_torch import cli
+    from whisper_tensor_tpu_torch.importers.loaders import identify_and_load
+    from whisper_tensor_tpu_torch.interfaces.tts import (F5Synthesizer,
+                                                         TextToSpeechInterface)
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+    from whisper_tensor_tpu_torch.super_graph.links import AudioClip
+    from whisper_tensor_tpu_torch.utils.audio import read_wav, write_wav
+
+    text = "tab up at a pub"
+    ref = np.sin(np.linspace(0, 20, 400)).astype(np.float32)
+    base = root / "tts"
+    shutil.rmtree(base, ignore_errors=True)
+    dirs = {}
+    for name, write in (("piper", sets.write_piper_voice),
+                        ("kokoro", sets.write_kokoro_dir),
+                        ("f5", sets.write_f5_dir)):
+        dirs[name] = base / name
+        dirs[name].mkdir(parents=True)
+        write(str(dirs[name]))
+    ref_wav = base / "ref.wav"
+    write_wav(str(ref_wav), ref, 24000)
+    ref16, _ = read_wav(str(ref_wav))
+
+    def cpu_samples(name, voice=0, ref_clip=None):
+        iface = TextToSpeechInterface.from_bundle(
+            identify_and_load(str(dirs[name])), device="cpu")
+        if isinstance(iface, F5Synthesizer):
+            return iface.run_text_to_audio(
+                text, ref_audio=AudioClip(ref_clip, 24000)).samples
+        return iface.run_text_to_audio(text, voice=voice).samples
+
+    def pcm(data):
+        """A 16-bit WAV's samples, as the writer's float samples."""
+        with wave.open(io.BytesIO(data), "rb") as w:
+            return np.frombuffer(w.readframes(w.getnframes()),
+                                 "<i2").astype(np.float32) / 32767.0
+
+    worst = 0.0
+
+    def same(got, want, what, tol):
+        nonlocal worst
+        got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+        if got.shape != want.shape:
+            fail(f"(b) {what}: {got.shape} samples, the CPU's {want.shape}")
+        err = float(np.abs(got - want).max()) if got.size else 0.0
+        worst = max(worst, err if tol == 1e-5 else 0.0)
+        if not err <= tol:
+            fail(f"(b) {what}: |diff| {err:.3g} beyond {tol:g}")
+
+    srv = Server()
+    ids = {n: srv.models.run_loader("auto", {"path": str(dirs[n])})[0].id
+           for n in ("piper", "kokoro")}
+    api = OpenAIApi(srv, "127.0.0.1", 0).start()
+    port, stop = ws_serve(srv)
+    t0 = time.perf_counter()
+    try:
+        for name, voice in (("piper", 0), ("kokoro", "am_adam")):
+            status, data = request(api.port, "/v1/audio/speech", {
+                "input": text, "model": str(ids[name]), "voice": voice})
+            if status != 200:
+                fail(f"(b) /v1/audio/speech on {name} answered {status}")
+            want = cpu_samples(name, 1 if voice == "am_adam" else 0)
+            # the route sends 16-bit samples: one step of rounding
+            same(pcm(data), want, f"/v1/audio/speech {name}", 1.01 / 32767)
+            iface = srv._tts_iface(srv.models.get(ids[name]))
+            same(iface.run_text_to_audio(
+                text, voice=1 if voice == "am_adam" else 0).samples, want,
+                f"{name} on the card", 1e-5)
+        ws = WSClient(port)
+        reports, _ = sg_job(ws, {"type": "generate_speech", "text": text,
+                                 "model_id": ids["kokoro"], "voice": 1})
+        ws.close()
+        same(pcm(base64.b64decode(reports[-1]["result"]["wav_b64"])),
+             cpu_samples("kokoro", 1), "generate_speech kokoro", 1.01 / 32767)
+        f5 = TextToSpeechInterface.from_bundle(
+            identify_and_load(str(dirs["f5"])))
+        same(f5.run_text_to_audio(text, ref_audio=AudioClip(
+            ref16, 24000)).samples, cpu_samples("f5", ref_clip=ref16),
+             "F5 on the card", 1e-5)
+        for name, extra in (("piper", []), ("kokoro", ["--voice", "am_adam"]),
+                            ("f5", ["--ref-audio", str(ref_wav)])):
+            out = base / f"{name}.wav"
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["tts", "--model", str(dirs[name]), "--text", text,
+                          "--output", str(out)] + extra)
+            same(pcm(out.read_bytes()),
+                 cpu_samples(name, 1 if extra[:1] == ["--voice"] else 0,
+                             ref16), f"cli tts {name}", 1.01 / 32767)
+    finally:
+        stop()
+        api.stop()
+    say(f"  (b) piper, kokoro and F5 through /v1/audio/speech, "
+        f"generate_speech and cli tts in {time.perf_counter() - t0:.1f} s: "
+        f"samples on the card within {worst:.3g} of the CPU's (bound 1e-5; "
+        f"16-bit WAVs within one step)")
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def phase17(torch, np, root: Path, bf16, results, layers: int,
+            corpus: bool = False) -> None:
+    """Phase 17: Whisper at whisper-large-v3's widths and `layers` +
+    `layers` layers, and the TTS sets, through the port's entry points;
+    with `corpus`, the recurrent and spectral corpus cases too."""
+    say(f"phase 17: speech at published widths; host RSS "
+        f"{host_rss_gb():.1f} GB")
+    parts = [("(a) Whisper large-v3", phase17_whisper,
+              (root, bf16, layers, results)),
+             ("(b) TTS", phase17_tts, (root, results))]
+    if corpus:
+        parts.append(("(c) recurrent and spectral cases", phase11_corpus,
+                      (SPEECH_CASES, 34)))
+    for label, fn, args in parts:
+        t0 = time.perf_counter()
+        fn(torch, np, *args)
+        free_memory(torch)
+        say(f"  [{label}: {time.perf_counter() - t0:.1f} s]")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2,
@@ -7547,6 +8138,10 @@ def main() -> None:
     ap.add_argument("--text-family-only", action="store_true",
                     help="run phase 16 (DeepSeek, T5, RWKV-7, LLaVA) alone "
                          "after the build (no result line)")
+    ap.add_argument("--speech-only", action="store_true",
+                    help="run phase 17 (Whisper, TTS) and the recurrent and "
+                         "spectral corpus cases alone after the build (no "
+                         "result line)")
     ap.add_argument("--plans", action="store_true",
                     help="time packed_matmul and decode_attention under "
                          "forced splits, then stop (no result line)")
@@ -7660,6 +8255,18 @@ def main() -> None:
         say(json.dumps({"kernels": results}))
         say(f"{card_line()} (--text-family-only: phases 2-15 not run)")
         return
+    if args.speech_only:
+        try:
+            import ml_dtypes
+            bf16 = np.dtype(ml_dtypes.bfloat16)
+        except ImportError:
+            bf16 = None
+        step("phase 17 (Whisper, TTS, recurrent and spectral cases)",
+             phase17, torch, np, ROOT / "build" / "smoke", bf16, results,
+             WHISPER_LAYERS, True)
+        say(json.dumps({"kernels": results}))
+        say(f"{card_line()} (--speech-only: phases 2-16 not run)")
+        return
     if args.inspect_only:
         try:
             import ml_dtypes
@@ -7753,6 +8360,9 @@ def main() -> None:
              args.layers, results)
         step("phase 16 (DeepSeek, T5, RWKV-7, LLaVA)", phase16, torch, np,
              ROOT / "build" / "smoke", bf16, results)
+        step("phase 17 (Whisper, TTS)", phase17, torch, np,
+             ROOT / "build" / "smoke", bf16, results,
+             WHISPER_LAYERS_DEFAULT_RUN)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(gpt2_ckpt, ignore_errors=True)

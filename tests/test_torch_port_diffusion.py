@@ -538,7 +538,7 @@ def test_images_route_and_cli_image_on_the_cpu(sd_dir, pipelines, tmp_path):
         c.request("POST", "/v1/audio/speech", json.dumps({"input": "x"}),
                   {"Content-Type": "application/json"})
         r = c.getresponse()
-        assert r.status == 501 and b"not ported" in r.read()
+        assert r.status == 404 and b"'tts' interface" in r.read()
         c.close()
     finally:
         api.stop()

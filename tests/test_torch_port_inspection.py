@@ -16,8 +16,8 @@
 * One live WebSocket session: get_super_graph, then super_graph_request
   of that JSON unchanged, on the port's server; the web UI over HTTP.
 * generate_image on the tiny f32 `sd` pipeline, plain and with
-  `preview` (one step_preview frame a step); the four media messages
-  still answer "not ported".
+  `preview` (one step_preview frame a step); the speech messages,
+  served since the speech slice, name the interface a text model lacks.
 * `build_layout` equal to the JAX package's on the same graph JSON.
 * Export: `to_onnx_bytes` / `save_onnx` of the tiny GPT-2, the tiny
   llama, and an If and a Scan graph give the JAX package's bytes for
@@ -25,8 +25,8 @@
   equal outputs; `cli inspect` prints the JAX CLI's JSON and `cli
   export` writes its bytes.
 * The port's `webui.html`: the checks of tests/test_webui.py against the
-  port's server (sent types dispatched or answered "not ported", handled
-  report types emitted, brackets, DOM ids).
+  port's server (sent types dispatched, handled report types emitted,
+  brackets, DOM ids).
 """
 
 from __future__ import annotations
@@ -370,12 +370,18 @@ def test_get_op_milli_equals_the_jax_servers_reply(servers, op_type):
 
 
 def test_media_messages_still_answer_not_ported(servers):
+    """(Named when the speech messages answered "not ported": since the
+    speech slice the port serves every message of the JAX server, and a
+    speech message on a model without speech names what it lacks.)"""
     _, psrv = servers
-    assert set(port_main._UNPORTED_MESSAGES) == {
-        "generate_speech", "transcribe", "transcribe_stream"}
-    for t, what in port_main._UNPORTED_MESSAGES.items():
-        with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
-            psrv._dispatch({"type": t, "model_id": 1})
+    assert not hasattr(port_main, "_UNPORTED_MESSAGES")
+    mid = psrv.models.list_models()[0]["id"]
+    for t, what in (("generate_speech", "no TTS interface"),
+                    ("transcribe", "no STT interface"),
+                    ("transcribe_stream", "no STT interface")):
+        with pytest.raises(ValueError, match=what):
+            psrv._dispatch({"type": t, "model_id": mid, "text": "hi",
+                            "samples_b64": "", "stream_id": t})
 
 
 def test_build_layout_equals_the_jax_packages():
@@ -616,18 +622,17 @@ def test_port_webui_sends_only_types_the_port_serves_or_refuses():
     served = set(re.findall(r"""if t == ['"]([a-z_]+)['"]""", src["main.py"]))
     served |= {consts[n] for n in re.findall(r"if t == P\.([A-Z_]+)",
                                              src["main.py"]) if n in consts}
-    served |= set(port_main._UNPORTED_MESSAGES)
     unknown = sorted(_sent_types(js) - served)
     assert not unknown, unknown
     assert {"get_super_graph", "get_graph_layout", "get_tensor_slice",
-            "get_op_milli", "generate_image"} <= _sent_types(js) - set(
-        port_main._UNPORTED_MESSAGES)
+            "get_op_milli", "generate_image"} <= _sent_types(js)
 
 
 def test_port_webui_handles_the_report_types_the_port_emits():
     """The UI's handlers cover every report a job streams and every reply
     of the inspection messages; the one type it handles that the port
-    never emits is the unported streaming transcription's."""
+    never emitted was the streaming transcription's, which the port has
+    emitted since the speech slice."""
     _, js = _ui_js()
     handled = set(re.findall(r"""\bm\.type\s*===?\s*['"]([a-z_]+)['"]""",
                              js))
@@ -642,7 +647,7 @@ def test_port_webui_handles_the_report_types_the_port_emits():
                "models_report", "loaders_report"}
     assert reports <= emitted
     assert reports <= handled, sorted(reports - handled)
-    assert sorted(handled - emitted) == ["transcribe_stream_update"]
+    assert sorted(handled - emitted) == []
 
 
 def test_port_webui_dom_ids_resolve_and_it_names_no_tpu_tool():

@@ -15,9 +15,11 @@ package (whisper_tensor_tpu), at any level.
     or the `whisper_tensor_tpu.` prefix) is then in sys.modules.
 (c) A fresh interpreter runs one conformance case of every op type the
     port runs through its Model.eval on the CPU, with the same check.
-(d) A served image, training, and the rest of the text family
-    (DeepSeek and RWKV-7 over HTTP, a LLaVA chat with an image, T5
-    beams), each in a fresh interpreter, with the same check.
+(d) A served image, training, the rest of the text family (DeepSeek
+    and RWKV-7 over HTTP, a LLaVA chat with an image, T5 beams), and
+    speech (a transcription and a speech request over HTTP, a streaming
+    transcription, F5, an LSTM graph), each in a fresh interpreter, with
+    the same check.
 """
 
 import ast
@@ -505,3 +507,93 @@ def test_the_text_familys_last_slice_loads_nothing_of_jax(tmp_path):
     assert "IMAGE 200" in proc.stdout and "T5 (1, 3)" in proc.stdout, \
         proc.stdout
     assert "FOREIGN []" in proc.stdout, proc.stdout
+
+
+_SPEECH_SCRIPT = r"""
+import base64, http.client, json, os, sys
+import numpy as np
+sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+d = sys.argv[1]
+import torch_tts_sets as sets
+from whisper_tensor_tpu_torch.importers.loaders import identify_and_load
+from whisper_tensor_tpu_torch.interfaces.tts import TextToSpeechInterface
+from whisper_tensor_tpu_torch.model import Model
+from whisper_tensor_tpu_torch.importers.onnx_builder import OnnxBuilder
+from whisper_tensor_tpu_torch.dtype import DType
+from whisper_tensor_tpu_torch.server.main import Server
+from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+from whisper_tensor_tpu_torch.super_graph.links import AudioClip
+from whisper_tensor_tpu_torch.utils.audio import wav_bytes
+for name, write in (("piper", sets.write_piper_voice),
+                    ("f5", sets.write_f5_dir)):
+    os.makedirs(os.path.join(d, name))
+    write(os.path.join(d, name))
+srv = Server(device="cpu")
+api = OpenAIApi(srv, "127.0.0.1", 0).start()
+srv.models.run_loader("auto", {"path": os.path.join(d, "whisper"),
+                               "dtype": "f32", "max_len": 32})
+srv.models.run_loader("auto", {"path": os.path.join(d, "piper")})
+samples = (0.1 * np.sin(np.arange(16000) / 9.0)).astype(np.float32)
+c = http.client.HTTPConnection("127.0.0.1", api.port, timeout=120)
+c.request("POST", "/v1/audio/transcriptions", body=json.dumps(
+    {"audio_b64": base64.b64encode(wav_bytes(samples, 16000)).decode(),
+     "max_new_tokens": 3}), headers={"Content-Type": "application/json"})
+r = c.getresponse()
+r.read()
+print("STT", r.status)
+c.request("POST", "/v1/audio/speech", body=json.dumps({"input": "tab"}),
+          headers={"Content-Type": "application/json"})
+r = c.getresponse()
+r.read()
+print("TTS", r.status)
+api.stop()
+mid = srv.models.list_models()[0]["id"]
+print("STREAM", srv._dispatch({
+    "type": "transcribe_stream", "model_id": mid, "final": True,
+    "max_new_tokens": 3,
+    "samples_b64": base64.b64encode(samples.tobytes()).decode()})["final"])
+f5 = TextToSpeechInterface.from_bundle(
+    identify_and_load(os.path.join(d, "f5")), device="cpu")
+print("F5", f5.run_text_to_audio("hello", ref_audio=AudioClip(
+    samples[:400], 24000)).samples.size > 0)
+b = OnnxBuilder("lstm", opset=17)
+x = b.input("x", DType.F32, [3, 1, 2])
+b.node("LSTM", [x, b.initializer("w", np.ones((1, 8, 2), np.float32)),
+                b.initializer("r", np.ones((1, 8, 2), np.float32))],
+       outputs=["y"], hidden_size=2)
+b.output("y", DType.F32, [3, 1, 1, 2])
+out = Model.new_from_onnx(b.build()).eval({"x": np.ones((3, 1, 2),
+                                                         np.float32)},
+                                          device="cpu")
+print("LSTM", out["y"].shape)
+print("FOREIGN", sorted(m for m in sys.modules
+                        if m in ("jax", "whisper_tensor_tpu")
+                        or m.startswith(("jax.", "whisper_tensor_tpu."))))
+"""
+
+
+def test_speech_loads_nothing_of_jax(tmp_path):
+    """A transcription and a speech request over HTTP, a streaming
+    transcription message, an F5 synthesis and an LSTM graph, in a fresh
+    interpreter on the CPU. The Whisper checkpoint is written here, by
+    transformers; the TTS sets by the port's own builders."""
+    transformers = pytest.importorskip("transformers")
+    import torch
+
+    torch.manual_seed(0)
+    transformers.WhisperForConditionalGeneration(transformers.WhisperConfig(
+        d_model=16, encoder_layers=1, decoder_layers=1,
+        encoder_attention_heads=2, decoder_attention_heads=2,
+        encoder_ffn_dim=32, decoder_ffn_dim=32, num_mel_bins=16,
+        max_source_positions=50, max_target_positions=32, vocab_size=120,
+        decoder_start_token_id=5, eos_token_id=2, pad_token_id=0,
+        bos_token_id=1)).save_pretrained(
+            str(tmp_path / "whisper"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SPEECH_SCRIPT, str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for line in ("STT 200", "TTS 200", "STREAM True", "F5 True",
+                 "LSTM (3, 1, 1, 2)", "FOREIGN []"):
+        assert line in proc.stdout, proc.stdout

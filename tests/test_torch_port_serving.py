@@ -266,25 +266,34 @@ def test_cli_serve_reaches_the_batcher(checkpoint):  # noqa: F811
     # (image content parts are served since the text family's last
     # slice: tests/test_torch_port_llava.py)
 def test_unported_routes_answer_not_ported(served, path, body, what):
-    """The reference's routes and request features the port does not
-    serve answer 501 with an OpenAI-style error that names them."""
+    """(Named when these routes answered 501 "not ported": the port has
+    served them since the speech slice, tests/test_torch_port_speech.py
+    and ..._tts.py.) On a text model they answer an OpenAI-style error
+    that says what the request lacks: a WAV file, or a loaded model with
+    a speech interface."""
     srv, entry, api = served
     status, data = _post(api.port, path, dict(body, model=str(entry.id)))
-    assert status == 501, data
     err = json.loads(data)["error"]
-    assert err["type"] == "not_implemented_error"
-    assert what in err["message"] and "not ported" in err["message"]
+    if path == "/v1/audio/speech":
+        assert status == 404 and "'tts' interface" in err["message"], data
+    else:
+        assert status == 400 and "file field required" in err["message"], \
+            data
+    assert "not ported" not in err["message"]
 
 
 @pytest.mark.parametrize("msg,what", [
-    ({"type": "transcribe_stream", "model_id": 1}, "streaming transcription"),
-    ({"type": "transcribe", "model_id": 1}, "transcription"),
+    ({"type": "transcribe_stream", "model_id": 1}, "no STT interface"),
+    ({"type": "transcribe", "model_id": 1}, "no STT interface"),
     # (generate_multimodal is served: tests/test_torch_port_llava.py)
-    ({"type": "generate_speech", "model_id": 1}, "speech generation")])
+    ({"type": "generate_speech", "model_id": 1}, "no TTS interface")])
 def test_unported_messages_raise_not_ported(served, msg, what):
+    """(Named when these messages raised "not ported": the port has
+    served them since the speech slice.) On a text model each names the
+    interface it lacks."""
     srv, entry, _ = served
-    msg = dict(msg, model_id=entry.id) if "model_id" in msg else msg
-    with pytest.raises(NotImplementedError, match=f"{what}.*not ported"):
+    msg = dict(msg, model_id=entry.id, samples_b64="", text="hi")
+    with pytest.raises(ValueError, match=what):
         srv._dispatch(msg)
 
 

@@ -20,7 +20,7 @@ test states another; images within 1 of 255 per pixel.
   a tap and a subscribed link keep the value they had when assigned,
   whatever a later in-place cache write does.
 * The node kinds of the reference's tests/test_super_graph.py:25-127,
-  the audio nodes, and the phoneme nodes that raise "not ported".
+  the audio nodes, and the phoneme nodes (equal to the JAX nodes').
 * The diffusion job on the tiny f32 `sd` pipeline: each step's latents
   and the image against the JAX package's job and the port's
   ImageGenerationInterface.
@@ -597,12 +597,19 @@ def test_audio_nodes_and_the_phoneme_nodes():
     clip_out = sg_nodes.TensorToAudioClipNode(sample_rate=100).execute(
         ctx, {"tensor": torch.ones(1, 5)})["audio"]
     assert clip_out.sample_rate == 100 and clip_out.samples.shape == (5,)
+    params = {"language": "en-us", "phoneme_id_map": {
+        "^": [1], "$": [2], "_": [0], "h": [5], "a": [6], "ɪ": [7]},
+        "vocab": {"h": 3, "a": 4, "ɪ": 5}}
     for name in ("TextToPhonemesNode", "PiperPhonemesToTensorNode",
                  "KokoroPhonemesToTensorNode"):
-        node = sg_nodes.SuperNode.from_json(
-            {"type": name, "name": name, "inputs": {}, "outputs": {}})
-        with pytest.raises(NotImplementedError, match="A9.5"):
-            node.execute(ctx, {"text": "hi", "phonemes": "h"})
+        d = {"type": name, "name": name, "inputs": {}, "outputs": {},
+             "params": params}
+        node, jnode = (m.SuperNode.from_json(d) for m in (sg_nodes, jsg_nodes))
+        ins = {"text": "Hi, 42 cats!", "phonemes": "haɪ, h"}
+        got, want = node.execute(ctx, ins), jnode.execute(jctx, ins)
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
     f5 = sg_nodes.F5TextToTensorNode(vocab={"a": 3, "b": 4})
     np.testing.assert_array_equal(f5.execute(ctx, {"text": "abz"})["tokens"],
                                   [[3, 4, 0]])

@@ -19,9 +19,14 @@ decoder's cache 16.
   differently.
 * Every Attention of both graphs takes the plain path in bf16 (the
   per-head relative-position bias, one query row a decoder step).
+* A prompt shorter than the encoder length is padded and masked (the
+  loader's graphs take `attention_mask`, ROADMAP C28): its encoder
+  outputs at the prompt's positions and its greedy tokens equal the JAX
+  package's graphs built at the prompt's own length, and
+  `transformers`' encoder and `generate` under `attention_mask`.
 * `cli generate` on a T5 directory, greedy and --num-beams 4: a short
-  prompt padded to the encoder length, against the JAX interface on the
-  same padded ids (the JAX cli takes only prompts of that length).
+  prompt, against the JAX interface built at the prompt's length (the
+  JAX cli takes only prompts of its encoder's length).
 """
 
 import numpy as np
@@ -79,16 +84,17 @@ def checkpoints(tmp_path_factory):
     return out
 
 
-def _load(pkg, path, dtype="f32"):
+def _load(pkg, path, dtype="f32", enc_len=ENC_LEN):
     reg = loader_registry() if pkg == "port" else jax_loaders()
     return reg["transformers"].load({"path": path, "max_len": MAX_DEC,
-                                     "enc_len": ENC_LEN, "dtype": dtype})
+                                     "enc_len": enc_len, "dtype": dtype})
 
 
-def _ifaces(path, dtype="f32"):
-    pb, jb = _load("port", path, dtype), _load("jax", path, dtype)
+def _ifaces(path, dtype="f32", jax_enc_len=ENC_LEN):
+    pb, jb = (_load("port", path, dtype),
+              _load("jax", path, dtype, enc_len=jax_enc_len))
     ps, js = pb.interfaces["text2text"], jb.interfaces["text2text"]
-    assert ps == js
+    assert ps == dict(js, enc_len=ENC_LEN)
     cache = {"f32": DType.F32, "bf16": DType.BF16}[dtype]
     port = Seq2SeqInterface(pb.models[ps["encoder"]],
                             pb.models[ps["decoder"]], max_len=ps["max_len"],
@@ -133,11 +139,11 @@ def test_encoder_and_teacher_forced_decoder_match(checkpoints, kind):
     port, ref = _ifaces(checkpoints[kind])
     enc = port.encode(IDS)
     want = ref.encode(IDS)
-    for n in ["encoder_states"] + port.cross_in:
+    for n in ["encoder_states"] + ref.cross_in:
         _close(enc[n], want[n])
     caches = port.fresh_cache(2)
     crosses = [enc[n] for n in port.cross_in]
-    feeds = {n: np.asarray(want[n]) for n in port.cross_in}
+    feeds = {n: np.asarray(want[n]) for n in ref.cross_in}
     for i in range(2):
         for c in ("k", "v"):
             feeds[f"cache_{c}_{i}"] = np.zeros((2, 2, MAX_DEC, 8), np.float32)
@@ -209,12 +215,79 @@ def test_cli_generate_serves_t5(checkpoints, capsys, beams):
               "-c", "dtype=f32", "-c", f"enc_len={ENC_LEN}", "--max-len",
               str(MAX_DEC)])
     out = capsys.readouterr().out.rstrip("\n")
-    _, ref = _ifaces(path)
-    ids = np.zeros((1, ENC_LEN), np.int64)
-    enc = ByteTokenizer().encode("hello")
-    ids[0, :len(enc)] = enc
+    ids = np.asarray([ByteTokenizer().encode("hello")], np.int64)
+    _, ref = _ifaces(path, jax_enc_len=ids.shape[1])
     toks = [int(t) for t in (ref.generate_tokens(ids, 6) if beams == 1
                              else ref.beam_search_tokens(ids, 6, beam=4))[0]]
     if 1 in toks:
         toks = toks[:toks.index(1)]
     assert out == ByteTokenizer().decode(toks)
+
+
+SHORT = 5      # a prompt of 5 tokens, padded to ENC_LEN = 12
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_a_short_prompt_attends_no_pad(checkpoints, kind):
+    """ROADMAP C28: the pads of a short prompt are masked out of the
+    encoder's self-attention and the decoder's cross-attention. The
+    port's padded, masked run against the JAX package's graphs built at
+    the prompt's length and against transformers under attention_mask."""
+    port, ref = _ifaces(checkpoints[kind], jax_enc_len=SHORT)
+    assert port.masked and "cross_mask" in port.cross_in
+    ids = IDS[:, :SHORT]
+    enc = port.encode(ids)
+    want = ref.encode(ids)
+    for n in ["encoder_states"] + [c for c in port.cross_in
+                                   if c != "cross_mask"]:
+        axis = 1 if n == "encoder_states" else 2
+        _close(np.take(enc[n].numpy(), range(SHORT), axis=axis), want[n])
+    hf = _hf(kind)
+    am = np.zeros((2, ENC_LEN), np.int64)
+    am[:, :SHORT] = 1
+    with torch.no_grad():
+        hs = hf.encoder(input_ids=torch.from_numpy(
+            np.pad(ids, ((0, 0), (0, ENC_LEN - SHORT)))),
+            attention_mask=torch.from_numpy(am)).last_hidden_state
+    _close(enc["encoder_states"][:, :SHORT].numpy(), hs[:, :SHORT].numpy())
+    got = port.generate_tokens(ids, 10)
+    np.testing.assert_array_equal(got, ref.generate_tokens(ids, 10))
+    with torch.no_grad():
+        gen = hf.generate(input_ids=torch.from_numpy(ids),
+                          attention_mask=torch.ones_like(
+                              torch.from_numpy(ids)),
+                          max_new_tokens=10, do_sample=False, num_beams=1,
+                          min_length=0)[:, 1:].numpy()
+    for row, hrow in zip(got, gen):
+        n = (list(row).index(1) + 1) if 1 in row else 10
+        np.testing.assert_array_equal(row[:n], hrow[:n])
+    np.testing.assert_array_equal(port.beam_search_tokens(ids, 6, beam=2),
+                                  ref.beam_search_tokens(ids, 6, beam=2))
+
+
+def test_an_unmasked_encoder_takes_only_full_prompts(checkpoints):
+    """The default recipe graph (the JAX package's bytes) has no
+    attention_mask: a full-length prompt runs, a short one raises rather
+    than attend its pads."""
+    from whisper_tensor_tpu_torch.model import Model
+
+    jb = _load("jax", checkpoints["relu"])
+    sd = {k: v.float().numpy() for k, v in _hf("relu").state_dict().items()}
+    cfg = t5.T5Config(num_layers=2, num_decoder_layers=2, num_heads=2,
+                      d_model=16, d_kv=8, d_ff=32, vocab_size=V,
+                      relative_attention_num_buckets=8,
+                      relative_attention_max_distance=16)
+    enc = Model.new_from_onnx(t5.build_t5_encoder(sd.__getitem__, cfg,
+                                                  ENC_LEN))
+    dec = Model.new_from_onnx(t5.build_t5_decoder_step(
+        lambda n: sd[n if n in sd else "shared.weight"], cfg, MAX_DEC,
+        ENC_LEN))
+    port = Seq2SeqInterface(enc, dec, MAX_DEC, device="cpu")
+    assert not port.masked and "cross_mask" not in port.cross_in
+    js = jb.interfaces["text2text"]
+    ref = JaxSeq2Seq(jb.models[js["encoder"]], jb.models[js["decoder"]],
+                     max_len=MAX_DEC)
+    np.testing.assert_array_equal(port.generate_tokens(IDS, 6),
+                                  ref.generate_tokens(IDS, 6))
+    with pytest.raises(ValueError, match="attention_mask"):
+        port.generate_tokens(IDS[:, :SHORT], 6)

@@ -1,11 +1,11 @@
 """Command-line interface of the port: `generate`, `embed`, `image`,
-`serve`, `inspect` and `export`.
+`serve`, `inspect`, `export`, `tts` and `stt`.
 
 Counterpart of whisper_tensor_tpu/cli.py:41 (generate), :171 (embed),
-:201 (image), :445 (serve), :292 (inspect) and :313 (export), on a
-torch device chosen with --device (CUDA by default, the CPU only when
-asked for); `inspect` and `export` load on the host and touch no
-device. The reference's other subcommands are not ported yet.
+:201 (image), :445 (serve), :292 (inspect), :313 (export), :347 (tts)
+and :382 (stt), on a torch device chosen with --device (CUDA by
+default, the CPU only when asked for); `inspect` and `export` load on
+the host and touch no device.
 
 Usage:
   python -m whisper_tensor_tpu_torch.cli generate --model DIR \
@@ -23,6 +23,11 @@ Usage:
   python -m whisper_tensor_tpu_torch.cli serve --model DIR \
       --http-port 8000 [-c quantize=int8] [--device cuda]
       [-c ragged_decode=1 -c serve_batch=16 -c prefill_chunk=128]
+  python -m whisper_tensor_tpu_torch.cli tts --model VOICE --text "..." \
+      [--voice NAME] [--ref-audio REF.wav] [--output out.wav] [--device cuda]
+  python -m whisper_tensor_tpu_torch.cli stt --model WHISPER_DIR \
+      --audio in.wav [--beam 4 | --stream 1.0] [--max-tokens 128]
+      [--device cuda]
   python -m whisper_tensor_tpu_torch.cli inspect --model DIR [-c k=v]
   python -m whisper_tensor_tpu_torch.cli export --model DIR -o out.onnx \
       [--weights embed|external|none] [--name MODEL] [--loader auto]
@@ -48,6 +53,12 @@ three ONNX files (--text-encoder, --unet, --vae); --init-image runs
 img2img, with --mask-image (white = repaint) inpainting. Images are PPM
 (P6) or PNG, by the signature when read and by the --output suffix when
 written.
+
+`tts` takes a piper voice (.onnx + .onnx.json), a kokoro dir or an
+F5-TTS dir (with --ref-audio, the voice prompt) and writes a 16-bit WAV.
+`stt` takes a Whisper checkpoint dir (or --encoder and --decoder ONNX
+files) and a WAV file: greedy by default, --beam W beams, --stream S
+feeds the file S seconds at a time through the streaming transcriber.
 
 `serve -c ragged_decode=1` serves the model through the port's
 ContinuousBatcher; the loader (importers/loaders.py) maps serve_batch,
@@ -95,13 +106,6 @@ def _load_bundle(args, path=None):
     return loader_registry()[args.loader].load({"path": path, **cfg})
 
 
-def _cache_dtype(model):
-    """The element type the step graph declares for its KV cache."""
-    g = model.graph
-    return next(g.tensors[g.by_name[n]].info.dtype
-                for n in g.by_name if n.startswith("cache_"))
-
-
 def _load_text(args, path=None, bundle=None):
     """--model (or `path`, or a loaded bundle) -> (the text interface on
     --device, with its tokenizer, and the model's name)."""
@@ -118,7 +122,7 @@ def _load_text(args, path=None, bundle=None):
     model = bundle.models[iface_cfg.get("model") or next(iter(bundle.models))]
     iface = TextInferenceInterface(
         model, max_len=int(iface_cfg.get("max_len", args.max_len)),
-        cache_dtype=_cache_dtype(model),
+        cache_dtype=model.cache_dtype(),
         eos_token_id=iface_cfg.get("eos_token_id"),
         quantize=iface_cfg.get("quantize") or None, device=args.device)
     iface.tokenizer = AnyTokenizer.load(args.tokenizer
@@ -157,7 +161,7 @@ def _generate_text2text(args, bundle, t0: float) -> None:
                            max_len=spec["max_len"],
                            start_token=spec.get("start", 0),
                            eos_token=spec.get("eos", 1),
-                           cache_dtype=_cache_dtype(dec),
+                           cache_dtype=dec.cache_dtype(),
                            device=args.device)
     s2s.tokenizer = AnyTokenizer.load(
         args.tokenizer or bundle.tokenizer_source or "bytes")
@@ -303,6 +307,102 @@ def cmd_image(args) -> None:
     else:
         write_ppm(args.output, img.pixels)
     print(f"wrote {args.output} ({img.pixels.shape[1]}x{img.pixels.shape[0]})")
+
+
+def cmd_tts(args) -> None:
+    from .importers.loaders import identify_and_load
+    from .interfaces.tts import F5Synthesizer, TextToSpeechInterface
+    from .utils.audio import write_wav
+
+    bundle = identify_and_load(args.model, **_parse_kv(args.config))
+    if "tts" not in bundle.interfaces:
+        raise SystemExit(f"{args.model} does not expose a TTS interface "
+                         f"(got: {sorted(bundle.interfaces) or 'none'})")
+    iface = TextToSpeechInterface.from_bundle(bundle, device=args.device)
+    if isinstance(iface, F5Synthesizer):
+        if not args.ref_audio:
+            raise SystemExit("F5-TTS needs --ref-audio <voice prompt .wav>")
+        from .super_graph.links import AudioClip
+        from .utils.audio import read_wav
+
+        samples, sr = read_wav(args.ref_audio)
+        clip = iface.run_text_to_audio(args.text,
+                                       ref_audio=AudioClip(samples, sr))
+    else:
+        voice = 0
+        if args.voice and iface.voice_names:
+            if args.voice not in iface.voice_names:
+                raise SystemExit(f"unknown voice {args.voice!r}; available: "
+                                 f"{iface.voice_names}")
+            voice = iface.voice_names.index(args.voice)
+        clip = iface.run_text_to_audio(args.text, voice=voice)
+    write_wav(args.output, clip.samples, clip.sample_rate)
+    print(json.dumps({"output": args.output, "samples": len(clip.samples),
+                      "sample_rate": clip.sample_rate,
+                      "seconds": round(len(clip.samples)
+                                       / clip.sample_rate, 3)}))
+
+
+def cmd_stt(args) -> None:
+    import numpy as np
+
+    from .interfaces.stt import SpeechToTextInterface, StreamingTranscriber
+    from .model import Model
+    from .super_graph.links import AudioClip
+    from .utils.audio import read_wav, resample
+
+    samples, sr = read_wav(args.audio)
+    tok = None
+    if args.tokenizer:
+        from .tokenizer import AnyTokenizer
+
+        tok = AnyTokenizer.load(args.tokenizer)
+    if args.model:
+        from .importers.loaders import identify_and_load
+
+        bundle = identify_and_load(args.model, **_parse_kv(args.config))
+        if "stt" not in bundle.interfaces:
+            raise SystemExit(f"{args.model} has no STT interface")
+        iface = SpeechToTextInterface.from_bundle(bundle, tokenizer=tok,
+                                                  device=args.device)
+        tok = iface.tokenizer
+    else:
+        if not (args.encoder and args.decoder):
+            raise SystemExit("need --model <whisper dir> OR --encoder + "
+                             "--decoder")
+        sot = [int(x) for x in args.sot.split(",")] if args.sot else None
+        iface = SpeechToTextInterface(
+            Model.new_from_onnx_file(args.encoder),
+            Model.new_from_onnx_file(args.decoder), tokenizer=tok,
+            sot_sequence=sot, eot_token=args.eot, device=args.device)
+    clip = AudioClip(samples, sr)
+    if args.stream:
+        # simulate live input: feed the file in --stream-second chunks,
+        # print commits as they stabilize (LocalAgreement-2)
+        s16 = samples if sr == 16000 else resample(
+            np.asarray(samples, np.float32).reshape(-1), sr, 16000)
+        st = StreamingTranscriber(iface, max_new_per_window=args.max_tokens)
+        step = max(int(args.stream * 16000), 1)
+        for off in range(0, len(s16), step):
+            new = st.feed(s16[off:off + step])
+            if new:
+                txt = tok.decode(new) if tok is not None else json.dumps(new)
+                print(txt, flush=True, end="" if tok is not None else "\n")
+        new = st.flush()
+        if new:
+            print(tok.decode(new) if tok is not None else json.dumps(new),
+                  end="")
+        print()
+        return
+    if args.beam > 1:
+        toks = iface.transcribe_beam(clip, max_new=args.max_tokens,
+                                     beam=args.beam)
+        print(tok.decode(toks) if tok is not None else json.dumps(toks))
+    elif tok is not None:
+        print(iface.run_audio_in_text_out(clip, max_new=args.max_tokens))
+    else:
+        print(json.dumps(iface.transcribe_tokens(clip,
+                                                 max_new=args.max_tokens)))
 
 
 def cmd_serve(args) -> None:
@@ -502,6 +602,39 @@ def main(argv=None) -> None:
                    help="export only this model from the bundle")
     x.add_argument("-c", "--config", action="append", default=[])
     x.set_defaults(fn=cmd_export)
+
+    t = sub.add_parser("tts", help="text-to-speech (piper, kokoro, F5)")
+    t.add_argument("--model", required=True,
+                   help="piper .onnx(+.onnx.json), kokoro dir or F5 dir")
+    t.add_argument("--text", required=True)
+    t.add_argument("--voice", help="kokoro voice name (see voices/)")
+    t.add_argument("--ref-audio", help="f5: reference voice-prompt WAV")
+    t.add_argument("--output", default="out.wav")
+    t.add_argument("-c", "--config", action="append", default=[])
+    t.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    t.set_defaults(fn=cmd_tts)
+
+    st = sub.add_parser("stt", help="speech-to-text (whisper)")
+    st.add_argument("--model", help="HF whisper checkpoint dir")
+    st.add_argument("-c", "--config", action="append", default=[])
+    st.add_argument("--encoder")
+    st.add_argument("--decoder")
+    st.add_argument("--audio", required=True, help="WAV file")
+    st.add_argument("--tokenizer")
+    st.add_argument("--max-tokens", type=int, default=128)
+    st.add_argument("--sot", help="comma-separated start-of-transcript ids "
+                                  "(default: whisper 50258)")
+    st.add_argument("--eot", type=int, default=50257)
+    st.add_argument("--beam", type=int, default=1,
+                    help="beam width (>1 = beam search)")
+    st.add_argument("--stream", type=float, default=0,
+                    help="simulate live input: feed the file in this "
+                         "many seconds per chunk and print text as it "
+                         "stabilizes (LocalAgreement-2)")
+    st.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    st.set_defaults(fn=cmd_stt)
 
     args = ap.parse_args(argv)
     args.fn(args)

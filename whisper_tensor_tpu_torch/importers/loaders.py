@@ -1,12 +1,14 @@
-"""Loader registry, the transformers, GGUF, RWKV-7 and diffusers
+"""Loader registry, the transformers, GGUF, RWKV-7, diffusers and TTS
 loaders, identify_and_load.
 
 The port's copy of whisper_tensor_tpu/importers/loaders.py, trimmed to
 the `transformers` loader for GPT-2, llama-family, Gemma, Phi-3,
-DeepSeek-V2/V3, T5 and LLaVA checkpoints (config.json + safetensors),
+DeepSeek-V2/V3, T5, LLaVA and Whisper checkpoints (config.json +
+safetensors),
 the `gguf` loader for llama-family, Gemma and Phi-3 GGUF files
 (:525-652), the `rwkv7` loader for RWKV-7 `.pth` files (:656-679), the
-`diffusers` loader (below) and the `auto` loader that probes for them.
+`diffusers` loader (below), the TTS loaders `piper`, `kokoro` and `f5`
+(:681-784, :1123-1158) and the `auto` loader that probes for them.
 Their config keys and their bundles' `text` interface spec are the
 reference's: dtype, quantize (int8, or host quantization to q4_0, q8_0,
 q5_0, q4_k or q6_k), max_len, ragged_decode, serve_batch, serve_chunk,
@@ -27,15 +29,16 @@ sigmoid group routing (:279-293); `t5` builds an encoder and a decoder
 step (`enc_len`, default 512) under a `text2text` spec (:422-452);
 `llava` a llama/mistral/qwen2 text model and a CLIP vision tower with
 its projector under `text` and `multimodal` specs, in either weight
-layout (:350-420). The `rwkv7` loader takes `dtype` (default f32, the
+layout (:350-420); `whisper` an encoder over 2 * max_source_positions
+mel frames and a decoder step under an `stt` spec (:293-348). The
+`rwkv7` loader takes `dtype` (default f32, the
 reference's graph) and `tokenizer` (a World vocabulary file; the
 reference's loader names none). The `diffusers`
 loader builds the `sd` image pipeline (SD-1.5, SD-2.x; :785-948); its
 sdxl, sd3 and flux kinds and the `ldm` single-file loader raise "not
 ported". Left out, each raising: other model types and GGUF archs
 (ValueError, as the reference does for an unknown one), `decode_windows`
-(NotImplementedError), and the ONNX and TTS loaders (not
-registered). GPTQ/AWQ
+(NotImplementedError), and the raw ONNX loader (not registered). GPTQ/AWQ
 checkpoints load (importers/quantized.py): their quantized Linears run
 packed, unless a merged adapter densifies them as in the reference.
 
@@ -148,7 +151,8 @@ _SCALAR_POS = ("gemma", "gemma2", "gemma3_text", "gemma3", "phi3",
 class TransformersLoader(Loader):
     NAME = "transformers"
     DESCRIPTION = "HF transformers checkpoint dir (config.json + safetensors)"
-    SUPPORTED = ("gpt2",) + _LLAMA_FAMILY + _SCALAR_POS + ("t5", "llava")
+    SUPPORTED = ("gpt2",) + _LLAMA_FAMILY + _SCALAR_POS + ("t5", "llava",
+                                                            "whisper")
 
     def config_schema(self):
         return super().config_schema() + [
@@ -311,6 +315,8 @@ class TransformersLoader(Loader):
                                     max_len)
         elif mt == "t5":
             return self._load_t5(config, d, hf_cfg, store, dtype, max_len)
+        elif mt == "whisper":
+            return self._load_whisper(d, hf_cfg, store, dtype, max_len)
         else:
             raise ValueError(f"transformers model_type {mt!r} not supported "
                              f"by the port (have: {self.SUPPORTED})")
@@ -425,10 +431,63 @@ class TransformersLoader(Loader):
             meta={"model_type": "llava", "dtype": dtype.name})
 
     @staticmethod
+    def _load_whisper(d, hf_cfg, store, dtype, max_len):
+        """A Whisper checkpoint (reference :293-348): the encoder over
+        2 * max_source_positions mel frames and the decoder step at
+        min(max_len, max_target_positions) under an `stt` spec, whose
+        forced start sequence comes from generation_config.json."""
+        from .recipes.speech.whisper import (WhisperConfig,
+                                             build_whisper_decoder_step,
+                                             build_whisper_encoder)
+
+        cfg = WhisperConfig.from_hf(hf_cfg)
+        dec_len = min(max_len, cfg.max_target_positions)
+        n_frames = 2 * cfg.max_source_positions  # conv stride-2 stack
+        enc = Model.new_from_onnx(
+            build_whisper_encoder(store.getter(), cfg, n_frames=n_frames,
+                                  dtype=dtype), name="whisper-encoder")
+        dec = Model.new_from_onnx(
+            build_whisper_decoder_step(store.getter(), cfg, max_len=dec_len,
+                                       n_frames=n_frames, dtype=dtype),
+            name="whisper-decoder")
+        tok = d if os.path.exists(os.path.join(d, "tokenizer.json")) else None
+        gcfg = {}
+        gp = os.path.join(d, "generation_config.json")
+        if os.path.exists(gp):
+            try:
+                with open(gp, "r", encoding="utf-8") as f:
+                    gcfg = json.load(f)
+            except (OSError, ValueError):
+                gcfg = {}
+        start = int(gcfg.get("decoder_start_token_id",
+                             hf_cfg.get("decoder_start_token_id", 50258)))
+        # keep POSITIONS: real multilingual checkpoints ship [[1, null],
+        # [2, task], [3, notimestamps]] where null is the auto-detect
+        # language slot, which sot_with substitutes by position
+        sot_seq: list = [start]
+        for pos, tid in sorted(gcfg.get("forced_decoder_ids") or [],
+                               key=lambda p: p[0]):
+            while len(sot_seq) < pos:
+                sot_seq.append(None)
+            sot_seq.append(None if tid is None else int(tid))
+        return LoadedBundle(
+            models={"whisper-encoder": enc, "whisper-decoder": dec},
+            interfaces={"stt": {
+                "encoder": "whisper-encoder", "decoder": "whisper-decoder",
+                "n_mels": cfg.num_mel_bins, "max_len": dec_len,
+                "n_frames": n_frames, "sot": start, "sot_sequence": sot_seq,
+                "eot": int(gcfg.get("eos_token_id",
+                                    hf_cfg.get("eos_token_id", 50257)))}},
+            tokenizer_source=tok,
+            meta={"model_type": "whisper", "dtype": dtype.name})
+
+    @staticmethod
     def _load_t5(config, d, hf_cfg, store, dtype, max_len):
         """A T5 checkpoint: the encoder at `enc_len` and the decoder step
         under a `text2text` spec; the head ties to shared.weight when
-        the checkpoint has no lm_head."""
+        the checkpoint has no lm_head. Both graphs take the padding mask
+        (recipes/llm/t5.py `pad_mask`), so a shorter prompt's pads are
+        not attended (ROADMAP C28)."""
         from .recipes.llm.t5 import (T5Config, build_t5_decoder_step,
                                      build_t5_encoder)
 
@@ -444,11 +503,13 @@ class TransformersLoader(Loader):
         name = (hf_cfg.get("_name_or_path")
                 or os.path.basename(os.path.normpath(d)))
         enc = Model.new_from_onnx(
-            build_t5_encoder(t5_getter, cfg, seq_len=enc_len, dtype=dtype),
+            build_t5_encoder(t5_getter, cfg, seq_len=enc_len, dtype=dtype,
+                             pad_mask=True),
             name=name + "-encoder")
         dec = Model.new_from_onnx(
             build_t5_decoder_step(t5_getter, cfg, max_len=dec_len,
-                                  enc_len=enc_len, dtype=dtype),
+                                  enc_len=enc_len, dtype=dtype,
+                                  pad_mask=True),
             name=name + "-decoder")
         tok = d if os.path.exists(os.path.join(d, "tokenizer.json")) else None
         return LoadedBundle(
@@ -744,6 +805,137 @@ class LdmCheckpointLoader(Loader):
             "directory (ROADMAP A9)")
 
 
+def _find_piper_pair(path: str):
+    """Resolve (onnx_path, config_path) for a piper voice: the config is
+    the sibling `<model>.onnx.json` (or `<model>.json`). The reference's
+    (:681-700)."""
+    if os.path.isfile(path) and path.endswith(".onnx"):
+        for cand in (path + ".json", path[:-5] + ".json"):
+            if os.path.exists(cand):
+                return path, cand
+        return None
+    if os.path.isdir(path):
+        for f in sorted(os.listdir(path)):
+            if f.endswith(".onnx"):
+                pair = _find_piper_pair(os.path.join(path, f))
+                if pair:
+                    return pair
+    return None
+
+
+@register_loader
+class PiperLoader(Loader):
+    NAME = "piper"
+    DESCRIPTION = "Piper VITS TTS voice (.onnx + .onnx.json config)"
+    PRIORITY = 10   # probed before the other loaders
+
+    def can_load(self, path: str) -> bool:
+        return _find_piper_pair(path) is not None
+
+    def load(self, config):
+        """The reference's (:702-735)."""
+        onnx_path, cfg_path = _find_piper_pair(config["path"])
+        with open(cfg_path) as f:
+            pcfg = json.load(f)
+        model = Model.new_from_onnx_file(onnx_path)
+        name = model.name
+        inf = pcfg.get("inference", {})
+        tts = {"model": name, "engine": "piper",
+               "sample_rate": int(pcfg.get("audio", {}).get("sample_rate",
+                                                            22050)),
+               "language": pcfg.get("espeak", {}).get("voice", "en-us"),
+               "phoneme_id_map": pcfg.get("phoneme_id_map"),
+               "num_speakers": int(pcfg.get("num_speakers", 1)),
+               "noise_scale": float(inf.get("noise_scale", 0.667)),
+               "length_scale": float(inf.get("length_scale", 1.0)),
+               "noise_w": float(inf.get("noise_w", 0.8))}
+        return LoadedBundle(models={name: model},
+                            interfaces={"tts": tts},
+                            meta={"architecture": "piper-vits"})
+
+
+@register_loader
+class KokoroLoader(Loader):
+    NAME = "kokoro"
+    DESCRIPTION = ("Kokoro TTS dir (onnx/<variant>.onnx + tokenizer.json + "
+                   "voices/*.bin)")
+    PRIORITY = 10
+
+    def can_load(self, path: str) -> bool:
+        return (os.path.isdir(path)
+                and os.path.isdir(os.path.join(path, "onnx"))
+                and os.path.exists(os.path.join(path, "tokenizer.json"))
+                and os.path.isdir(os.path.join(path, "voices")))
+
+    def load(self, config):
+        """The reference's (:736-784): the first (or the `variant`)
+        ONNX file, the tokenizer's vocabulary, and each voice's style
+        rows, one 256-wide row a phoneme count."""
+        import numpy as np
+
+        d = config["path"]
+        variant = config.get("variant")
+        onnx_dir = os.path.join(d, "onnx")
+        cands = sorted(f for f in os.listdir(onnx_dir) if f.endswith(".onnx"))
+        if variant:
+            fname = f"{variant}.onnx"
+            if fname not in cands:
+                raise ValueError(f"kokoro variant {variant!r} not in {cands}")
+        else:
+            fname = cands[0]
+        model = Model.new_from_onnx_file(os.path.join(onnx_dir, fname))
+        name = model.name
+        with open(os.path.join(d, "tokenizer.json")) as f:
+            vocab = json.load(f).get("model", {}).get("vocab", {})
+        voices = {}
+        vdir = os.path.join(d, "voices")
+        for f_ in sorted(os.listdir(vdir)):
+            if f_.endswith(".bin"):
+                raw = np.fromfile(os.path.join(vdir, f_), dtype="<f4")
+                voices[f_[:-4]] = raw.reshape(-1, 256)
+        tts = {"model": name, "engine": "kokoro", "sample_rate": 24000,
+               "vocab": vocab, "voices": sorted(voices)}
+        return LoadedBundle(models={name: model},
+                            interfaces={"tts": tts},
+                            tokenizer_source=os.path.join(d, "tokenizer.json"),
+                            meta={"architecture": "kokoro",
+                                  "voice_embeddings": voices})
+
+
+@register_loader
+class F5TtsLoader(Loader):
+    NAME = "f5"
+    DESCRIPTION = ("F5-TTS dir (F5_Preprocess.onnx + F5_Transformer.onnx + "
+                   "F5_Decode.onnx + vocab.txt)")
+    PRIORITY = 10
+    PARTS = ("F5_Preprocess.onnx", "F5_Transformer.onnx", "F5_Decode.onnx")
+
+    def can_load(self, path: str) -> bool:
+        return (os.path.isdir(path)
+                and all(os.path.exists(os.path.join(path, p))
+                        for p in self.PARTS)
+                and os.path.exists(os.path.join(path, "vocab.txt")))
+
+    def load(self, config):
+        """The reference's (:1123-1158): three ONNX stages and a
+        newline vocabulary, 32 ODE steps by default, 24 kHz output."""
+        d = config["path"]
+        models, names = {}, {}
+        for part, key in zip(self.PARTS,
+                             ("preprocess", "transformer", "decode")):
+            m = Model.new_from_onnx_file(os.path.join(d, part))
+            models[m.name] = m
+            names[key] = m.name
+        with open(os.path.join(d, "vocab.txt"), encoding="utf-8") as f:
+            vocab = {line.rstrip("\n"): i
+                     for i, line in enumerate(f) if line.rstrip("\n")}
+        tts = {"engine": "f5", "sample_rate": 24000,
+               "nfe_steps": int(config.get("nfe_steps", 32)),
+               "vocab": vocab, **names}
+        return LoadedBundle(models=models, interfaces={"tts": tts},
+                            meta={"architecture": "f5-tts"})
+
+
 @register_loader
 class AutoLoader(Loader):
     NAME = "auto"
@@ -754,13 +946,18 @@ class AutoLoader(Loader):
 
     def load(self, config):
         path = config["path"]
-        for name, loader in _LOADERS.items():
-            if name != "auto" and loader.can_load(path):
+        # the TTS loaders (PRIORITY 10) are probed first, as in the
+        # reference; the rest keep their registration order
+        ranked = sorted((item for item in _LOADERS.items()
+                         if item[0] != "auto"),
+                        key=lambda kv: -getattr(kv[1], "PRIORITY", 0))
+        for name, loader in ranked:
+            if loader.can_load(path):
                 return loader.load(config)
         raise ValueError(f"cannot identify model format at {path!r} (the "
                          f"port loads transformers checkpoint dirs, GGUF "
-                         f"files, RWKV-7 .pth files and diffusers "
-                         f"pipeline dirs only)")
+                         f"files, RWKV-7 .pth files, diffusers pipeline "
+                         f"dirs and piper, kokoro and F5-TTS voices only)")
 
 
 def identify_and_load(path: str, **config) -> LoadedBundle:

@@ -10,9 +10,16 @@ BASELINE.json config #3. HF T5 layout. Design notes:
   * decoder step graph uses the same fixed-cache design as the LLM
     recipes; cross K/V precomputed per utterance by the encoder graph.
 
-The port's copy of whisper_tensor_tpu/importers/recipes/llm/t5.py,
-unchanged (the same ONNX bytes). Every Attention of both graphs runs
-the plain path: the relative-position bias is per head, (1, H, Sq,
+The port's copy of whisper_tensor_tpu/importers/recipes/llm/t5.py
+(the same ONNX bytes by default), with one option of its own:
+`pad_mask=True` gives the encoder an `attention_mask` input (B, L), 1
+for a prompt token and 0 for a pad, which masks the pads out of its
+self-attention and comes out as `cross_mask`, the additive (B, 1, 1, L)
+mask the decoder step (built with `pad_mask=True` too) adds to its
+cross-attention. A prompt shorter than the encoder's length then gives
+the outputs of a graph built at the prompt's own length, as HF's T5
+does under `attention_mask`. Every Attention of both graphs runs the
+plain path: the relative-position bias is per head, (1 or B, H, Sq,
 Skv), which no kernel mode takes, and the cross attention runs one
 query row a step.
 """
@@ -91,9 +98,11 @@ def rel_bias_table(emb: np.ndarray, q_len: int, k_len: int, bidirectional: bool,
 def build_t5_encoder(weights: Callable[[str], np.ndarray], cfg: T5Config,
                      seq_len: int, dtype: DType = DType.F32,
                      storage: Optional[WeightStorage] = None,
-                     with_cross: bool = True) -> bytes:
+                     with_cross: bool = True,
+                     pad_mask: bool = False) -> bytes:
     """with_cross=False: encoder-only (no decoder cross-K/V heads) — the
-    form SD3/Flux use T5 in (pure text conditioning)."""
+    form SD3/Flux use T5 in (pure text conditioning). pad_mask=True: an
+    `attention_mask` input masks the pads (module docstring)."""
     E, H, DK = cfg.d_model, cfg.num_heads, cfg.d_kv
     np_dt = dtype.to_numpy()
 
@@ -113,6 +122,12 @@ def build_t5_encoder(weights: Callable[[str], np.ndarray], cfg: T5Config,
         seq_len, seq_len, True, cfg.relative_attention_num_buckets,
         cfg.relative_attention_max_distance)
     mask = b.initializer("enc_bias", bias[None].astype(np_dt))  # (1,H,S,S)
+    if pad_mask:
+        keep = b.input("attention_mask", DType.I64, ["batch", seq_len])
+        pads = b.node("Unsqueeze", [b.node("Equal", [keep, b.const_i64(0)]),
+                                    b.const_i64([1, 2])])
+        cross_mask = _additive(b, pads, dtype)            # (B,1,1,S)
+        mask = b.add(mask, cross_mask)                    # (B,H,S,S)
 
     def rms(xx, name):
         return b.rms_norm(xx, b.initializer(name + "_g", w(name + ".weight")),
@@ -154,13 +169,28 @@ def build_t5_encoder(weights: Callable[[str], np.ndarray], cfg: T5Config,
         b.node("Identity", [heads(v)], outputs=[f"cross_v_{i}"])
         b.output(f"cross_k_{i}", dtype, ["batch", H, seq_len, DK])
         b.output(f"cross_v_{i}", dtype, ["batch", H, seq_len, DK])
+    if pad_mask and with_cross:
+        b.node("Identity", [cross_mask], outputs=["cross_mask"])
+        b.output("cross_mask", dtype, ["batch", 1, 1, seq_len])
     return b.build(storage or WeightStorage.embed())
+
+
+def _additive(b: OnnxBuilder, hidden: str, dtype: DType) -> str:
+    """A bool tensor -> the additive mask in `dtype`: -1e30 where true,
+    0 elsewhere."""
+    add = b.node("Where", [hidden,
+                           b.const(np.asarray(-1e30, dtype=np.float32)),
+                           b.const(np.asarray(0.0, dtype=np.float32))])
+    return add if dtype is DType.F32 else b.cast(add, dtype)
 
 
 def build_t5_decoder_step(weights: Callable[[str], np.ndarray], cfg: T5Config,
                           max_len: int, enc_len: int,
                           dtype: DType = DType.F32,
-                          storage: Optional[WeightStorage] = None) -> bytes:
+                          storage: Optional[WeightStorage] = None,
+                          pad_mask: bool = False) -> bytes:
+    """pad_mask=True: a `cross_mask` input (the encoder's output of that
+    name) is added to every cross-attention."""
     E, H, DK, V = cfg.d_model, cfg.num_heads, cfg.d_kv, cfg.vocab_size
     np_dt = dtype.to_numpy()
 
@@ -179,6 +209,8 @@ def build_t5_decoder_step(weights: Callable[[str], np.ndarray], cfg: T5Config,
                        b.input(f"cache_v_{i}", dtype, ["batch", H, max_len, DK])))
         crosses.append((b.input(f"cross_k_{i}", dtype, ["batch", H, enc_len, DK]),
                         b.input(f"cross_v_{i}", dtype, ["batch", H, enc_len, DK])))
+    cross_mask = (b.input("cross_mask", dtype, ["batch", 1, 1, enc_len])
+                  if pad_mask else None)
 
     x = b.gather(b.initializer("shared", w("shared.weight")), ids)
 
@@ -230,7 +262,7 @@ def build_t5_decoder_step(weights: Callable[[str], np.ndarray], cfg: T5Config,
         cp = p + "layer.1.EncDecAttention."
         q = b.matmul(h, b.initializer(cp + "q_T", wT(cp + "q.weight")))
         xk, xv = crosses[i]
-        att = b.attention(heads(q), xk, xv, scale=1.0)
+        att = b.attention(heads(q), xk, xv, mask=cross_mask, scale=1.0)
         att = b.reshape(b.transpose(att, [0, 2, 1, 3]), [0, 0, H * DK])
         x = b.add(x, b.matmul(att, b.initializer(cp + "o_T", wT(cp + "o.weight"))))
 

@@ -1,4 +1,5 @@
-"""Sequence-to-sequence (T5-style) text2text interface on PyTorch.
+"""Sequence-to-sequence text2text (T5) and speech (Whisper) interface on
+PyTorch.
 
 Counterpart of whisper_tensor_tpu/interfaces/seq2seq.py. The reference
 runs the encoder once and compiles the decode loop (`_decode_program`,
@@ -10,14 +11,21 @@ caches on the device and reads back only the finished tokens. The
 decoder step runs through a TextInferenceInterface (`self.dec`), which
 fuses its matmuls, pairs its cache writes (one ragged_kv_write launch a
 layer a step) and holds its device weights; the step graph's cross_*
-inputs are fed beside its caches.
+inputs are fed beside its caches. As in the reference, `start_sequence`
+is a forced decoder prefix of one or more tokens (Whisper's
+start-of-transcript sequence) run as one prefill, and `encoder_feed`
+names the encoder's input ("mel" for Whisper).
 
-The encoder graph has a fixed length with no padding mask: a shorter
-prompt is padded with id 0 (T5's pad) to that length and the pads are
-attended, as in the reference's graph (whose own `encode` takes only
-prompts of that length). Beam search takes the top W of (B, W*V) with
-torch.topk, which orders equal scores differently from lax.top_k: beams
-agree with the reference where no two candidates tie.
+A token encoder (`input_ids`) has a fixed length. A shorter prompt is
+padded with id 0 (T5's pad) to it; an encoder that takes an
+`attention_mask` (the loader's T5 graphs, recipes/llm/t5.py `pad_mask`)
+is fed 1 over the prompt and 0 over the pads, and hands the decoder its
+`cross_mask`, so no pad is attended (ROADMAP C28). An encoder without
+that input takes only prompts of its length, as the reference's
+`encode` does. A `mel` feed is never padded. Beam search takes the top
+W of (B, W*V) with torch.topk, which orders equal scores differently
+from lax.top_k: beams agree with the reference where no two candidates
+tie.
 """
 
 from __future__ import annotations
@@ -42,39 +50,71 @@ class Seq2SeqInterface:
     def __init__(self, encoder: Model, decoder_step: Model, max_len: int,
                  start_token: int = 0, eos_token: int = 1,
                  tokenizer=None, cache_dtype: DType = DType.F32,
-                 device=None):
+                 start_sequence: Optional[List[int]] = None,
+                 encoder_feed: str = "input_ids", device=None,
+                 dec: Optional[TextInferenceInterface] = None):
+        """start_sequence: multi-token forced decoder prefix (Whisper's
+        start-of-transcript sequence); defaults to [start_token].
+        encoder_feed: the encoder's input name ('mel' for Whisper).
+        dec: a TextInferenceInterface of `decoder_step` on `device` to
+        share (its fused graph and device weights)."""
         self.device = resolve_device(device)
         self.encoder = encoder
         self.decoder = decoder_step
         self.max_len = max_len
         self.start_token = start_token
+        self.start_sequence = list(start_sequence) if start_sequence \
+            else [start_token]
+        self.encoder_feed = encoder_feed
         self.eos_token = eos_token
         self.tokenizer = tokenizer
         self.cache_dtype = cache_dtype
-        self.dec = TextInferenceInterface(decoder_step, max_len,
-                                          cache_dtype=cache_dtype,
-                                          device=self.device)
+        self.dec = dec or TextInferenceInterface(decoder_step, max_len,
+                                                 cache_dtype=cache_dtype,
+                                                 device=self.device)
         self.cross_in = [n for n in self.dec.milli.inputs
                          if n.startswith("cross_")]
         g = encoder.graph
-        self.enc_len = int(g.tensors[g.by_name["input_ids"]].info
-                           .dims()[1].value())
+        self.enc_len = self.masked = None
+        if encoder_feed == "input_ids":
+            self.enc_len = int(g.tensors[g.by_name["input_ids"]].info
+                               .dims()[1].value())
+            self.masked = "attention_mask" in [g.tensors[t].name
+                                               for t in g.inputs]
         self._enc_backend = EvalBackend("torch", device=self.device)
 
     # ------------------------------------------------------------------
-    def _enc_input(self, input_ids) -> np.ndarray:
-        a = np.asarray(input_ids, dtype=np.int64)
+    def _enc_feeds(self, inputs) -> Dict[str, np.ndarray]:
+        """The encoder's feeds: a mel batch as given; (B, L) ids padded
+        with 0 to `enc_len`, with their `attention_mask` where the graph
+        takes one."""
+        if self.encoder_feed != "input_ids":
+            a = np.asarray(inputs, dtype=np.float32)
+            return {self.encoder_feed: a if a.ndim == 3 else a[None]}
+        a = np.asarray(inputs, dtype=np.int64)
         if a.ndim == 1:
             a = a[None]
-        if a.shape[1] > self.enc_len:
-            raise ValueError(f"prompt of {a.shape[1]} tokens exceeds the "
-                             f"encoder length {self.enc_len}")
-        return np.pad(a, ((0, 0), (0, self.enc_len - a.shape[1])))
+        B, L = a.shape
+        if L > self.enc_len:
+            raise ValueError(f"prompt of {L} tokens exceeds the encoder "
+                             f"length {self.enc_len}")
+        if L < self.enc_len and not self.masked:
+            raise ValueError(f"prompt of {L} tokens is shorter than the "
+                             f"encoder length {self.enc_len}, and the "
+                             f"encoder graph has no attention_mask input "
+                             f"to mask the pads")
+        feeds = {"input_ids": np.pad(a, ((0, 0), (0, self.enc_len - L)))}
+        if self.masked:
+            feeds["attention_mask"] = np.broadcast_to(
+                (np.arange(self.enc_len) < L).astype(np.int64),
+                (B, self.enc_len)).copy()
+        return feeds
 
-    def encode(self, input_ids) -> Dict[str, torch.Tensor]:
-        """(B, L) ids -> the encoder's outputs as device tensors."""
-        return self._enc_backend.run_on_device(
-            self.encoder.graph, {"input_ids": self._enc_input(input_ids)})
+    def encode(self, inputs) -> Dict[str, torch.Tensor]:
+        """(B, L) ids, or (B, n_mels, frames) mel -> the encoder's
+        outputs as device tensors."""
+        return self._enc_backend.run_on_device(self.encoder.graph,
+                                               self._enc_feeds(inputs))
 
     def fresh_cache(self, batch: int) -> List[torch.Tensor]:
         return self.dec.fresh_cache(batch)
@@ -89,17 +129,18 @@ class Seq2SeqInterface:
         return self.dec._exec(feeds)["logits"]
 
     def _prefix(self, rows: int) -> torch.Tensor:
-        """The decoder's first input: the start token in each row."""
-        return torch.full((rows, 1), self.start_token, dtype=torch.int64,
-                          device=self.device)
+        """The decoder's first input: the forced start sequence in each
+        row."""
+        return torch.tensor(self.start_sequence, dtype=torch.int64,
+                            device=self.device)[None].expand(rows, -1)
 
     # ------------------------------------------------------------------
     def generate_tokens(self, input_ids, n_new: int,
                         sampling: Optional[SamplingParams] = None
                         ) -> np.ndarray:
-        """(B, L_enc) encoder ids -> (B, n_new) decoder ids (starting
-        after the start token). sampling=None is greedy; otherwise
-        tokens are drawn from a torch.Generator seeded with
+        """(B, L) encoder ids (or a mel batch) -> (B, n_new) decoder ids
+        (starting after the start sequence). sampling=None is greedy;
+        otherwise tokens are drawn from a torch.Generator seeded with
         sampling.seed."""
         enc = self.encode(input_ids)
         crosses = [enc[n] for n in self.cross_in]
@@ -109,10 +150,11 @@ class Seq2SeqInterface:
         if sampling is not None and sampling.temperature > 0.0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(sampling.seed))
+        P = len(self.start_sequence)
         pos = torch.zeros((), dtype=torch.int64, device=self.device)
         lg = self._step(self._prefix(B), pos, caches, crosses)
         toks = [_pick_token(lg[:, -1, :], gen, sampling, None)]
-        pos = pos + 1
+        pos = pos + P
         for _ in range(1, n_new):
             lg = self._step(toks[-1][:, None], pos, caches, crosses)
             toks.append(_pick_token(lg[:, -1, :], gen, sampling, None))
@@ -121,7 +163,8 @@ class Seq2SeqInterface:
 
     def beam_search_tokens(self, input_ids, n_new: int, beam: int = 4,
                            length_penalty: float = 0.0) -> np.ndarray:
-        """Beam-search decode: (B, L_enc) -> (B, n_new) best sequences.
+        """Beam-search decode: (B, L) ids (or a mel batch) -> (B, n_new)
+        best sequences.
         Rows are batch * beam; each step re-scores (B, W*V), keeps the
         top W and gathers caches and histories by parent beam. A beam
         that emitted EOS extends only with EOS, at no cost."""
@@ -159,7 +202,7 @@ class Seq2SeqInterface:
         cur, scores, alive = select(
             torch.log_softmax(lg[:, -1, :].float(), dim=-1), 0, scores,
             alive)
-        pos = pos + 1
+        pos = pos + len(self.start_sequence)
         for i in range(1, n_new):
             lg = self._step(cur[:, None], pos, caches, crosses)
             cur, scores, alive = select(

@@ -3,9 +3,9 @@
 Each module holds op classes (the port's copy of whisper_tensor_tpu/
 milli/ops, numpy `eval` and shape inference) beside the lowerings of
 their KINDs. Importing this package registers every lowering the port
-has; the filled table is LOWERINGS. The vision, recurrent and spectral
-ops (the reference's vision.py, rnn.py, signal.py) are not ported yet
-(symbolic_graph/ops/not_ported.py).
+has; the filled table is LOWERINGS. The recurrent and spectral ops
+(rnn.py, signal.py, DFT in extra.py) are ported; the vision ops (the
+reference's vision.py) are not yet (symbolic_graph/ops/not_ported.py).
 """
 
 from .. import transforms  # noqa: F401  (QuantMatMul, PackedMatMul)
@@ -25,6 +25,8 @@ from .misc import (DepthToSpaceMilli, DynUpdateSliceMilli, EyeLikeMilli,
 from .norm import (BatchNormMilli, GroupNormMilli, InstanceNormMilli,
                    LayerNormMilli, RMSNormMilli)
 from .random import RandomNormalLike
+from .rnn import GruMilli, LstmMilli, RnnMilli
+from .signal import StftMilli
 from .reduce import ArgMinMax, CumSum, NonZero, Reduce, SizeOf, TopK
 from .shape import (Concat, Expand, GatherShape, Pad, Reshape, Shape, Slice,
                     Split, Squeeze, SumTo, Transpose, Unsqueeze)
@@ -40,6 +42,7 @@ __all__ = [
     "KVWriteMilli", "OneHotMilli", "SpaceToDepthMilli", "TileMilli",
     "TriluMilli", "BatchNormMilli", "GroupNormMilli", "InstanceNormMilli",
     "LayerNormMilli", "RMSNormMilli", "RandomNormalLike",
+    "GruMilli", "LstmMilli", "RnnMilli", "StftMilli",
     "ArgMinMax", "CumSum", "NonZero", "Reduce", "SizeOf", "TopK",
     "Concat", "Expand", "GatherShape", "Pad", "Reshape", "Shape", "Slice",
     "Split", "Squeeze", "SumTo", "Transpose", "Unsqueeze",

@@ -4,10 +4,10 @@ optimizers, TfIdfVectorizer, Dropout) and the PyTorch lowerings of those
 that run on tensors.
 
 The classes are the port's copy of whisper_tensor_tpu/milli/ops/extra.py
-(numpy `eval` and shape inference; no `to_jax`) without DFT, which waits
-for the spectral ops (symbolic_graph/ops/not_ported.py). The string ops
-and the `ai.onnx.ml` ops have no lowering: a graph that holds one runs
-in the host interpreter (SymbolicGraph.needs_host_eval).
+(numpy `eval` and shape inference; no `to_jax`). DFT is lowered with
+torch.fft. The string ops and the `ai.onnx.ml` ops have no lowering: a
+graph that holds one runs in the host interpreter
+(SymbolicGraph.needs_host_eval).
 
 Random draws follow the oracle's numpy generators bit for bit: Bernoulli
 (default_rng) and training-mode Dropout (the legacy seeded generator)
@@ -190,6 +190,75 @@ class WindowMilli(MilliOp):
         if i is not None and i.level is Level.NUMERIC:
             return [TensorInfo.numeric(self.eval([i.value])[0])]
         return [TensorInfo.ranked(self.dtype, 1)]
+
+
+@dataclass
+class DFTMilli(MilliOp):
+    """ONNX-20 DFT: x (..., 1|2 trailing real/imag), optional
+    dft_length + axis inputs; inverse/onesided attrs."""
+
+    inverse: bool = False
+    onesided: bool = False
+    axis_default: int = -2
+    KIND = "DFT"
+
+    def _args(self, inputs):
+        n = (int(np.asarray(inputs[1]).reshape(()))
+             if len(inputs) > 1 and inputs[1] is not None
+             and np.asarray(inputs[1]).size else None)
+        ax = (int(np.asarray(inputs[2]).reshape(()))
+              if len(inputs) > 2 and inputs[2] is not None
+              and np.asarray(inputs[2]).size else self.axis_default)
+        return n, ax
+
+    def eval(self, inputs):
+        x = inputs[0]
+        n, ax = self._args(inputs)
+        ax = ax % x.ndim
+        if ax == x.ndim - 1:
+            raise ValueError("DFT axis cannot be the component axis")
+        xc = x.astype(np.float64)
+        z = xc[..., 0] + (1j * xc[..., 1] if x.shape[-1] == 2 else 0.0)
+        if self.inverse:
+            out = np.fft.ifft(z, n=n, axis=ax)
+        elif self.onesided:
+            out = np.fft.rfft(z.real, n=n, axis=ax)
+        else:
+            out = np.fft.fft(z, n=n, axis=ax)
+        res = np.stack([out.real, out.imag], axis=-1)
+        return [res.astype(x.dtype)]
+
+    def infer(self, infos):
+        i = infos[0]
+        if _numeric_all(infos):
+            return [TensorInfo.numeric(self.eval(
+                [None if f is None else f.value for f in infos])[0])]
+        if i.rank is not None:
+            return [TensorInfo.ranked(i.dtype, i.rank)]
+        return [TensorInfo.minimal(i.dtype)]
+
+
+@lowering("DFT")
+def _lower_dft(op, inputs, static, device):
+    """torch.fft over the axis, complex from the trailing real/imag
+    component, in f32 (f64 for an f64 input); dft_length and axis must
+    be host values."""
+    x = inputs[0]
+    n = (int(np.asarray(need_static(static, 1, "DFT")).reshape(()))
+         if len(inputs) > 1 and inputs[1] is not None else None)
+    ax = (int(np.asarray(need_static(static, 2, "DFT")).reshape(()))
+          if len(inputs) > 2 and inputs[2] is not None else op.axis_default)
+    ax = ax % x.ndim
+    xc = x.to(torch.float64 if x.dtype == torch.float64 else torch.float32)
+    z = (torch.complex(xc[..., 0], xc[..., 1]) if x.shape[-1] == 2
+         else xc[..., 0])
+    if op.inverse:
+        out = torch.fft.ifft(z, n=n, dim=ax)
+    elif op.onesided:
+        out = torch.fft.rfft(z.real if z.is_complex() else z, n=n, dim=ax)
+    else:
+        out = torch.fft.fft(z, n=n, dim=ax)
+    return [torch.stack([out.real, out.imag], dim=-1).to(x.dtype)]
 
 
 @dataclass

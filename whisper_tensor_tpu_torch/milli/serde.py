@@ -13,8 +13,9 @@ serialized — they are derived state (re-inferred from feeds at eval /
 compile time), not part of the graph's identity.
 
 The port's copy of whisper_tensor_tpu/milli/serde.py, over the port's
-op set: the reference's vision, recurrent and spectral op modules are
-not ported, so their kinds do not load.
+op set: the reference's vision op module is not ported, so its kinds do
+not load; the recurrent (rnn.py) and spectral (signal.py, DFT in
+extra.py) kinds do.
 """
 
 from __future__ import annotations
@@ -41,11 +42,11 @@ def op_registry() -> Dict[str, Type[MilliOp]]:
         from . import ops as O
         from . import transforms as T
         from .ops import (attention, conv, einsum, extra, index, misc,
-                          norm, quant, random)
+                          norm, quant, random, rnn, signal)
 
         reg: Dict[str, Type[MilliOp]] = {}
         for mod in (O, T, attention, conv, einsum, extra, index, misc,
-                    norm, quant, random):
+                    norm, quant, random, rnn, signal):
             for name in dir(mod):
                 c = getattr(mod, name)
                 if (inspect.isclass(c) and issubclass(c, MilliOp)

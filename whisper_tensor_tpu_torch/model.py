@@ -81,5 +81,12 @@ class Model:
     def output_names(self) -> List[str]:
         return [self.graph.tensors[t].name for t in self.graph.outputs]
 
+    def cache_dtype(self):
+        """The element type a step graph declares for its KV cache (its
+        first `cache_*` input)."""
+        g = self.graph
+        return next(g.tensors[g.by_name[n]].info.dtype
+                    for n in g.by_name if n.startswith("cache_"))
+
     def __repr__(self) -> str:
         return f"Model({self.name!r}, {self.graph!r})"

@@ -52,10 +52,18 @@ the text flows it serves:
     vision encoder's input) through a LLaVA bundle's
     MultimodalLanguageInterface (`_mm_iface`), which shares the text
     entry's interface.
+  * transcribe (reference :565-602): f32 samples through the entry's
+    SpeechToTextInterface (`_stt_iface`, one an entry), greedy on the
+    device loop or beams, with a per-request `language`/`task` start
+    sequence on a shallow copy that shares the device weights;
+  * transcribe_stream (reference :604-648): a StreamingTranscriber a
+    `stream_id`, answered in the reply;
+  * generate_speech (reference :354-377): text to WAV through the
+    bundle's TextToSpeechInterface or F5Synthesizer (`_tts_iface`, one a
+    bundle).
 The OpenAI front end's `/v1/images/generations` runs on `_image_iface`,
-its chat with image content parts on `_mm_iface`. Every other message
-of the reference (speech, transcription) answers with an error naming
-it as not ported.
+its chat with image content parts on `_mm_iface`, the audio routes on
+`_stt_iface` and `_tts_iface`.
 """
 
 from __future__ import annotations
@@ -72,8 +80,7 @@ import numpy as np
 
 from ..device import resolve_device
 from ..dtype import DType
-from ..interfaces.text import (SamplingParams, TextInferenceInterface,
-                               _not_ported)
+from ..interfaces.text import SamplingParams, TextInferenceInterface
 from ..super_graph import image as _sg_image  # noqa: F401  (node kinds)
 from ..super_graph import llm as _sg_llm  # noqa: F401
 from ..super_graph import training as _sg_training  # noqa: F401
@@ -83,14 +90,6 @@ from .batching import ContinuousBatcher
 from .model_server import ModelServer
 from .scheduler import ObserverSettings, Scheduler
 from .ws import WebSocketConnection, serve_websocket
-
-# messages of the reference's protocol that the port does not serve
-_UNPORTED_MESSAGES = {
-    "generate_speech": "speech generation",
-    "transcribe": "transcription",
-    "transcribe_stream": "streaming transcription",
-}
-
 
 def _latent_preview_rgb(lat) -> dict:
     """(1,C,H,W) latents -> small RGB frame dict for the live SD
@@ -121,6 +120,9 @@ class Server:
         self._text_ifaces: dict = {}      # entry id -> direct interface
         self._image_ifaces: dict = {}     # bundle id -> image interface
         self._mm_ifaces: dict = {}        # bundle id -> multimodal iface
+        self._stt_ifaces: dict = {}       # entry id -> speech-to-text iface
+        self._stt_streams: dict = {}      # stream_id -> StreamingTranscriber
+        self._tts_ifaces: dict = {}       # bundle id -> text-to-speech iface
         self._image_lock = threading.Lock()   # one generation at a time
         self._batchers: dict = {}         # entry id -> ContinuousBatcher
         self._batch_jobs: dict = {}       # job_id -> (batcher, future)
@@ -194,6 +196,8 @@ class Server:
                 self._text_ifaces.pop(("rnn", mid), None)
                 self._image_ifaces.pop(bid, None)
                 self._mm_ifaces.pop(bid, None)
+                self._stt_ifaces.pop(mid, None)
+                self._tts_ifaces.pop(bid, None)
                 # a decoder holds its models' interfaces (device weights)
                 self._spec_decoders = {k: v for k, v in
                                        self._spec_decoders.items()
@@ -290,8 +294,12 @@ class Server:
             return self._load_adapter(msg)
         if t == "generate_multimodal":
             return self._generate_multimodal(msg)
-        if t in _UNPORTED_MESSAGES:
-            raise _not_ported(f"{_UNPORTED_MESSAGES[t]} ({t!r})")
+        if t == "generate_speech":
+            return self._generate_speech(msg)
+        if t == "transcribe":
+            return self._transcribe(msg)
+        if t == "transcribe_stream":
+            return self._transcribe_stream(msg)
         raise ValueError(f"unknown message type {t!r}")
 
     # -- inspection and super graphs ---------------------------------------------
@@ -706,6 +714,149 @@ class Server:
         def job(obs):
             return {"text": mm.run_items_in_string_out(
                 items, n_new, sampling=sampling)}
+
+        self.scheduler.submit(job, ObserverSettings())
+        return None
+
+    # -- speech --------------------------------------------------------------
+    def _stt_iface(self, entry):
+        """The entry's SpeechToTextInterface, built on the Server's device
+        at the first request and kept: its fused decoder step and device
+        weights serve every later transcription."""
+        from ..interfaces.stt import SpeechToTextInterface
+
+        with self._cache_lock:
+            iface = self._stt_ifaces.get(entry.id)
+            if iface is None:
+                bundle = self.models.bundle(int(entry.meta["bundle_id"]))
+                if "stt" not in bundle.interfaces:
+                    raise ValueError("model has no STT interface")
+                tok = None
+                if entry.tokenizer_source:
+                    from ..tokenizer import AnyTokenizer
+
+                    tok = AnyTokenizer.load(entry.tokenizer_source)
+                iface = SpeechToTextInterface.from_bundle(
+                    bundle, tokenizer=tok, device=self.device)
+                # the fused decoder step, built here: the copies
+                # _with_sot makes share it and its device weights
+                _ = iface.dec
+                self._stt_ifaces[entry.id] = iface
+            return iface
+
+    @staticmethod
+    def _with_sot(iface, language, task):
+        """A shallow copy of `iface` with the request's start sequence
+        (it shares the fused decoder step `_stt_iface` built, and its
+        device weights), or `iface` itself."""
+        if not (language or task):
+            return iface
+        import copy
+
+        sot = iface.sot_with(language=language or None, task=task or None)
+        iface = copy.copy(iface)
+        iface.sot_sequence = sot
+        return iface
+
+    def _transcribe(self, msg) -> None:
+        """STT: f32 samples -> text, as a scheduler job."""
+        import base64
+
+        from ..super_graph.links import AudioClip
+
+        entry = self.models.get(int(msg["model_id"]))
+        iface = self._with_sot(self._stt_iface(entry), msg.get("language"),
+                               msg.get("task"))
+        samples = np.frombuffer(base64.b64decode(msg["samples_b64"]),
+                                dtype=np.float32)
+        clip = AudioClip(samples, int(msg.get("sample_rate", 16000)))
+        beam = int(msg.get("beam", 1))
+        max_new = int(msg.get("max_new_tokens", 64))
+
+        def job(obs):
+            if beam > 1:
+                if iface.tokenizer is None:
+                    raise ValueError("no tokenizer configured for "
+                                     "text output")
+                toks = iface.transcribe_beam(clip, max_new=max_new,
+                                             beam=beam)
+                return {"text": iface.tokenizer.decode(toks)}
+            return {"text": iface.run_audio_in_text_out(clip,
+                                                        max_new=max_new)}
+
+        self.scheduler.submit(job, ObserverSettings())
+        return None
+
+    def _transcribe_stream(self, msg) -> dict:
+        """Streaming STT: audio chunks under a stream_id; text comes back
+        in the reply as it stabilizes (LocalAgreement-2, or window-
+        boundary commits with local_agreement=null); `final` flushes
+        and closes the stream."""
+        import base64
+
+        from ..interfaces.stt import StreamingTranscriber
+
+        sid = str(msg.get("stream_id", "default"))
+        st = self._stt_streams.get(sid)
+        if st is None:
+            entry = self.models.get(int(msg["model_id"]))
+            iface = self._with_sot(self._stt_iface(entry),
+                                   msg.get("language"), msg.get("task"))
+            st = StreamingTranscriber(
+                iface, local_agreement=msg.get("local_agreement", 2),
+                max_new_per_window=int(msg.get("max_new_tokens", 224)))
+            self._stt_streams[sid] = st
+        new = []
+        if msg.get("samples_b64") is not None:
+            # an empty chunk still re-decodes the buffer (it advances
+            # the LocalAgreement hypothesis window)
+            samples = np.frombuffer(base64.b64decode(msg["samples_b64"]),
+                                    dtype=np.float32)
+            new = st.feed(samples, int(msg.get("sample_rate", 16000)))
+        final = bool(msg.get("final"))
+        if final:
+            new = new + st.flush()
+            self._stt_streams.pop(sid, None)
+        tok = st.iface.tokenizer
+        return {"type": "transcribe_stream_update", "stream_id": sid,
+                "tokens": [int(x) for x in new],
+                "text": (tok.decode(new) if tok is not None else None),
+                "pending": (tok.decode(st.pending)
+                            if tok is not None and not final else ""),
+                "final": final}
+
+    def _tts_iface(self, entry):
+        """The bundle's TextToSpeechInterface (or F5Synthesizer), built on
+        the Server's device at the first request."""
+        from ..interfaces.tts import TextToSpeechInterface
+
+        bid = int(entry.meta["bundle_id"])
+        with self._cache_lock:
+            iface = self._tts_ifaces.get(bid)
+            if iface is None:
+                bundle = self.models.bundle(bid)
+                if "tts" not in bundle.interfaces:
+                    raise ValueError("model has no TTS interface")
+                iface = TextToSpeechInterface.from_bundle(bundle,
+                                                          device=self.device)
+                self._tts_ifaces[bid] = iface
+            return iface
+
+    def _generate_speech(self, msg) -> None:
+        """TTS: text -> WAV bytes, as a scheduler job."""
+        import base64
+
+        from ..utils.audio import wav_bytes
+
+        iface = self._tts_iface(self.models.get(int(msg["model_id"])))
+        voice = int(msg.get("voice", 0))
+
+        def job(obs):
+            clip = iface.run_text_to_audio(msg["text"], voice=voice)
+            return {"wav_b64": base64.b64encode(
+                wav_bytes(clip.samples, clip.sample_rate)).decode(),
+                "sample_rate": clip.sample_rate,
+                "seconds": round(len(clip.samples) / clip.sample_rate, 3)}
 
         self.scheduler.submit(job, ObserverSettings())
         return None

@@ -13,9 +13,10 @@ Server's image interface). Chat messages with image content parts
 (data: URLs) run a LLaVA bundle's inputs_embeds path
 (`_chat_multimodal`, reference :997-1080), and completions on a
 constant-state (RWKV) model its greedy decoding (reference :546-565).
-The reference's audio routes (`/v1/audio/speech`,
-`/v1/audio/transcriptions`, `/v1/audio/translations`) answer 501 with
-an OpenAI-style error naming them as not ported.
+The audio routes are the reference's: `/v1/audio/speech` (:805-836, a
+TTS bundle's WAV or s16le PCM) and `/v1/audio/transcriptions` and
+`/translations` (:837-880, a multipart or JSON WAV upload through the
+Server's SpeechToTextInterface, as JSON or text).
 
 Routing mirrors the WebSocket server: unconstrained requests against a
 ragged-decode model go through the ContinuousBatcher (per-request
@@ -61,14 +62,30 @@ class ApiError(Exception):
         self.etype = etype
 
 
-def _not_ported(what: str) -> ApiError:
-    return ApiError(501, f"{what} is not ported to PyTorch yet",
-                    "not_implemented_error")
+def _parse_multipart(raw: bytes, content_type: str) -> Dict[str, Any]:
+    """multipart/form-data -> {name: str | bytes}. File parts (those
+    with a filename) stay bytes; plain fields decode to str. The stdlib
+    email parser does the boundary and header work (reference :186)."""
+    from email import policy
+    from email.parser import BytesParser
 
-
-# the reference's media routes, which the port answers with _not_ported
-_UNPORTED_ROUTES = ("/v1/audio/speech", "/v1/audio/transcriptions",
-                    "/v1/audio/translations")
+    msg = BytesParser(policy=policy.default).parsebytes(
+        b"Content-Type: " + content_type.encode() + b"\r\n\r\n" + raw)
+    if not msg.is_multipart():
+        raise ApiError(400, "malformed multipart body")
+    out: Dict[str, Any] = {}
+    for part in msg.iter_parts():
+        name = part.get_param("name", header="content-disposition")
+        if not name:
+            continue
+        payload = part.get_payload(decode=True) or b""
+        if part.get_filename() is None:
+            try:
+                payload = payload.decode()
+            except UnicodeDecodeError:
+                pass
+        out[name] = payload
+    return out
 
 
 def _sampling_from(body: Dict[str, Any]):
@@ -681,8 +698,11 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             n = int(self.headers.get("Content-Length", 0))
             raw = self.rfile.read(n)
-            if path in _UNPORTED_ROUTES:
-                raise _not_ported(path)
+            if path in ("/v1/audio/transcriptions", "/v1/audio/translations"):
+                return self._transcriptions(
+                    raw, self.headers.get("Content-Type", ""),
+                    task="translate" if path.endswith("translations")
+                    else None)
             body = json.loads(raw or b"{}")
             if path == "/v1/completions":
                 return self._completions(body, chat=False)
@@ -692,6 +712,8 @@ class _Handler(BaseHTTPRequestHandler):
                 return self._embeddings(body)
             if path == "/v1/images/generations":
                 return self._images(body)
+            if path == "/v1/audio/speech":
+                return self._speech(body)
             raise ApiError(404, f"no route {path}", "not_found_error")
         except Exception as e:  # noqa: BLE001
             try:
@@ -700,6 +722,80 @@ class _Handler(BaseHTTPRequestHandler):
                 pass
 
     # ------------------------------------------------------------------
+    def _speech(self, body: Dict[str, Any]):
+        """/v1/audio/speech: TTS bundle -> WAV (or s16le PCM) bytes."""
+        from ..utils.audio import wav_bytes
+
+        server = self.api.server
+        text = body.get("input")
+        if not isinstance(text, str) or not text:
+            raise ApiError(400, "input must be a non-empty string")
+        rf = body.get("response_format", "wav")
+        if rf not in ("wav", "pcm"):
+            raise ApiError(400, f"unsupported response_format {rf!r} "
+                                "(wav|pcm)")
+        entry = _resolve_entry(server, body.get("model"), "tts")
+        iface = server._tts_iface(entry)
+        voice = body.get("voice", 0)
+        if isinstance(voice, str) and not voice.isdigit():
+            # OpenAI's named voices have no analogue; kokoro-style
+            # bundles carry their own names
+            names = getattr(iface, "voice_names", []) or []
+            voice = names.index(voice) if voice in names else 0
+        clip = iface.run_text_to_audio(text, voice=int(voice))
+        sr = [("X-Sample-Rate", str(clip.sample_rate))]
+        if rf == "pcm":
+            pcm = np.clip(np.asarray(clip.samples, np.float32), -1.0, 1.0)
+            self._binary(200, "audio/pcm",
+                         (pcm * 32767.0).astype("<i2").tobytes(), sr)
+        else:
+            self._binary(200, "audio/wav",
+                         wav_bytes(clip.samples, clip.sample_rate), sr)
+
+    def _transcriptions(self, raw: bytes, ctype: str,
+                        task: Optional[str] = None):
+        """/v1/audio/transcriptions (and /translations, task forced to
+        'translate'): multipart (or JSON + audio_b64) WAV upload -> text
+        through the STT interface. `language` substitutes the whisper
+        `<|lang|>` start token on multilingual checkpoints."""
+        import base64
+
+        from ..super_graph.links import AudioClip
+        from ..tokenizer import AnyTokenizer
+        from ..utils.audio import read_wav_bytes
+
+        if "multipart/form-data" in (ctype or ""):
+            fields = _parse_multipart(raw, ctype)
+        else:
+            fields = json.loads(raw or b"{}")
+            if "audio_b64" in fields:
+                fields["file"] = base64.b64decode(fields.pop("audio_b64"))
+        wav = fields.get("file")
+        if not isinstance(wav, (bytes, bytearray)):
+            raise ApiError(400, "file field required (WAV bytes)")
+        try:
+            samples, rate = read_wav_bytes(bytes(wav))
+        except Exception as e:  # noqa: BLE001
+            raise ApiError(400, f"could not read WAV: {e}")
+        server = self.api.server
+        entry = _resolve_entry(server, fields.get("model") or None, "stt")
+        iface = server._stt_iface(entry)
+        if iface.tokenizer is None:
+            iface.tokenizer = AnyTokenizer.load(
+                entry.tokenizer_source or "bytes")
+        try:
+            iface = server._with_sot(iface, fields.get("language"),
+                                     fields.get("task") or task)
+        except ValueError as e:
+            raise ApiError(400, str(e))
+        text = iface.run_audio_in_text_out(
+            AudioClip(samples, rate),
+            max_new=int(fields.get("max_new_tokens", 64) or 64))
+        if fields.get("response_format") == "text":
+            return self._binary(200, "text/plain; charset=utf-8",
+                                text.encode())
+        self._json(200, {"text": text})
+
     def _images(self, body: Dict[str, Any]):
         """/v1/images/generations (reference :759-806): an `sd` diffusers
         bundle -> b64 PNGs. The Server keeps one interface a bundle, its

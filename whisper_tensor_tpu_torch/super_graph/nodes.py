@@ -9,10 +9,8 @@ XLA programs via the ExecutionContext).
 The port's copy of whisper_tensor_tpu/super_graph/nodes.py (:80-383).
 In torch mode a payload may be a device tensor (super_graph/graph.py):
 the host-side nodes take it to numpy where they read it (`host_value`),
-and ScanNode stacks a device column on the device. TextToPhonemesNode,
-PiperPhonemesToTensorNode and KokoroPhonemesToTensorNode stay
-registered, so a graph naming them deserializes, and raise "not ported
-(A9.5)" when they run: they need phonemization and the TTS recipes.
+and ScanNode stacks a device column on the device. The phoneme nodes
+run the port's copy of phonemization.py on the host.
 """
 
 from __future__ import annotations
@@ -70,11 +68,6 @@ class SuperNode:
 
             node.body = SuperGraph.from_json(d["body"])
         return node
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               f"(ROADMAP A9.5)")
 
 
 def host_value(v):
@@ -390,7 +383,10 @@ class TextToPhonemesNode(SuperNode):
     """in: 'text' -> out 'phonemes' (IPA string). params: language."""
 
     def execute(self, ctx, ins):
-        raise _not_ported("TextToPhonemesNode (phonemization)")
+        from ..phonemization import phonemize
+
+        return {"phonemes": phonemize(ins["text"],
+                                      self.params.get("language", "en-us"))}
 
 
 @register_node
@@ -399,7 +395,10 @@ class PiperPhonemesToTensorNode(SuperNode):
     (params: phoneme_id_map)."""
 
     def execute(self, ctx, ins):
-        raise _not_ported("PiperPhonemesToTensorNode (the piper phoneme ids)")
+        from ..phonemization import piper_phoneme_ids
+
+        ids = piper_phoneme_ids(ins["phonemes"], self.params.get("phoneme_id_map"))
+        return {"tokens": np.asarray(ids, dtype=np.int64)[None]}
 
 
 @register_node
@@ -407,7 +406,10 @@ class KokoroPhonemesToTensorNode(SuperNode):
     """in: 'phonemes' -> out 'tokens' via the kokoro (misaki) vocab."""
 
     def execute(self, ctx, ins):
-        raise _not_ported("KokoroPhonemesToTensorNode (the kokoro vocabulary)")
+        from ..phonemization import kokoro_phoneme_ids
+
+        ids = kokoro_phoneme_ids(ins["phonemes"], self.params.get("vocab"))
+        return {"tokens": np.asarray(ids, dtype=np.int64)[None]}
 
 
 @register_node

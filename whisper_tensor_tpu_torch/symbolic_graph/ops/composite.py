@@ -1,12 +1,11 @@
-"""Composite symbolic ops: Attention, RotaryEmbedding, CacheWrite,
-Dropout, DepthToSpace/SpaceToDepth, QuantizeLinear/DequantizeLinear.
+"""Composite symbolic ops: Attention, RotaryEmbedding, LSTM, STFT,
+CacheWrite, GRU, RNN, Dropout, DepthToSpace/SpaceToDepth,
+QuantizeLinear/DequantizeLinear.
 
 Reference equivalents: RotaryEmbedding / Lstm / Stft / QuantMatMul in
 src/symbolic_graph/ops/mod.rs:223-286.
 
-The port's copy of whisper_tensor_tpu/symbolic_graph/ops/composite.py
-without LSTM, GRU, RNN and STFT, which wait for the recurrent and
-signal milli ops (symbolic_graph/ops/not_ported.py).
+The port's copy of whisper_tensor_tpu/symbolic_graph/ops/composite.py.
 """
 
 from __future__ import annotations
@@ -18,6 +17,8 @@ from typing import Optional
 from ...dtype import DType, ONNX_TO_DTYPE
 from ...milli.ops.attention import AttentionMilli, RotaryMilli
 from ...milli.ops.quant import DequantizeLinearMilli, QuantizeLinearMilli
+from ...milli.ops.rnn import GruMilli, LstmMilli, RnnMilli
+from ...milli.ops.signal import StftMilli
 from .base import Operation, register
 
 
@@ -72,6 +73,40 @@ class RotaryEmbedding(Operation):
         return [ctx.emit1(RotaryMilli(self.interleaved,
                                       self.rotary_embedding_dim,
                                       self.num_heads), *args)]
+
+
+@register("LSTM")
+@dataclass
+class LSTM(Operation):
+    hidden_size: int = 0
+    direction: str = "forward"
+    layout: int = 0
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        acts = attrs.strings("activations", None)
+        if acts and [a.lower() for a in acts[:3]] != ["sigmoid", "tanh", "tanh"]:
+            raise NotImplementedError(f"LSTM custom activations {acts}")
+        return cls(attrs.i("hidden_size", 0), attrs.s("direction", "forward"),
+                   attrs.i("layout", 0))
+
+    def lower(self, ctx, inputs, n_outputs):
+        outs = ctx.emit(LstmMilli(self.hidden_size, self.direction,
+                                  self.layout), *inputs, n_outputs=3)
+        return outs[:n_outputs] if n_outputs < 3 else outs
+
+
+@register("STFT")
+@dataclass
+class STFT(Operation):
+    onesided: bool = True
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        return cls(bool(attrs.i("onesided", 1)))
+
+    def lower(self, ctx, inputs, n_outputs):
+        return [ctx.emit1(StftMilli(self.onesided), *inputs)]
 
 
 @register("Dropout")
@@ -184,3 +219,50 @@ class CacheWrite(Operation):
                           inputs[0], inputs[1], inputs[2])]
 
 
+@register("GRU")
+@dataclass
+class GRU(Operation):
+    hidden_size: int = 0
+    direction: str = "forward"
+    linear_before_reset: bool = False
+    layout: int = 0
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        acts = attrs.strings("activations", None)
+        if acts and [a.lower() for a in acts[:2]] != ["sigmoid", "tanh"]:
+            raise NotImplementedError(f"GRU custom activations {acts}")
+        return cls(attrs.i("hidden_size", 0), attrs.s("direction", "forward"),
+                   bool(attrs.i("linear_before_reset", 0)),
+                   attrs.i("layout", 0))
+
+    def lower(self, ctx, inputs, n_outputs):
+        outs = ctx.emit(GruMilli(self.hidden_size, self.direction,
+                                 self.linear_before_reset, self.layout),
+                        *inputs,
+                        n_outputs=2)
+        return outs[:n_outputs] if n_outputs < 2 else outs
+
+
+@register("RNN")
+@dataclass
+class RNN(Operation):
+    hidden_size: int = 0
+    direction: str = "forward"
+    activation: str = "tanh"
+    layout: int = 0
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        acts = attrs.strings("activations", None)
+        act = (acts[0].lower() if acts else "tanh")
+        if act not in ("tanh", "relu"):
+            raise NotImplementedError(f"RNN activation {act}")
+        return cls(attrs.i("hidden_size", 0), attrs.s("direction", "forward"),
+                   act, attrs.i("layout", 0))
+
+    def lower(self, ctx, inputs, n_outputs):
+        outs = ctx.emit(RnnMilli(self.hidden_size, self.direction,
+                                 self.activation, self.layout), *inputs,
+                        n_outputs=2)
+        return outs[:n_outputs] if n_outputs < 2 else outs

@@ -1,13 +1,12 @@
 """Long-tail symbolic ops: LRN, Det, DynamicQuantizeLinear, Bernoulli,
-spectral windows, Unique, Compress, string ops, ai.onnx.ml ops and
-the ai.onnx.preview.training optimizers.
+spectral windows, DFT, Unique, Compress, string ops, ai.onnx.ml ops
+and the ai.onnx.preview.training optimizers.
 
 These close the remaining official-corpus op families the reference
 enumerates (tests/onnx_testing.rs).
 
-The port's copy of whisper_tensor_tpu/symbolic_graph/ops/extra.py
-without DFT, which waits for the signal milli ops
-(symbolic_graph/ops/not_ported.py). ConvInteger sums in int32 operands
+The port's copy of whisper_tensor_tpu/symbolic_graph/ops/extra.py.
+ConvInteger sums in int32 operands
 (its lowering says why); QLinearConv is the reference's.
 """
 
@@ -22,7 +21,7 @@ from ...dtype import DType, ONNX_TO_DTYPE
 from ...milli.ops import Cast, SimpleBinary
 from ...milli.ops.extra import (ArrayFeatureExtractorMilli, BernoulliMilli,
                                 BinarizerMilli, CompressMilli, DetMilli,
-                                DynamicQuantizeLinearMilli,
+                                DFTMilli, DynamicQuantizeLinearMilli,
                                 LabelEncoderMilli, LRNMilli,
                                 RegexFullMatchMilli, StringConcatMilli,
                                 StringNormalizerMilli, StringSplitMilli,
@@ -104,6 +103,30 @@ def _window_cls(kind):
 register("HannWindow")(_window_cls("hann"))
 register("HammingWindow")(_window_cls("hamming"))
 register("BlackmanWindow")(_window_cls("blackman"))
+
+
+@register("DFT")
+@dataclass
+class DFT(Operation):
+    inverse: bool = False
+    onesided: bool = False
+    axis_attr: Optional[int] = None   # opset-17 form carries axis attr
+
+    @classmethod
+    def from_onnx(cls, node, attrs, opset):
+        return cls(bool(attrs.i("inverse", 0)),
+                   bool(attrs.i("onesided", 0)),
+                   attrs.i("axis", None) if opset < 20 else None)
+
+    def lower(self, ctx, inputs, n_outputs):
+        args = list(inputs)
+        while args and args[-1] is None:
+            args.pop()
+        axis_default = self.axis_attr if self.axis_attr is not None else -2
+        if self.axis_attr is not None and len(args) > 2:
+            args = args[:2]
+        return [ctx.emit1(DFTMilli(self.inverse, self.onesided,
+                                   axis_default), *args)]
 
 
 @register("Unique")

@@ -1,12 +1,11 @@
 """The ONNX op types the port parses but does not run yet.
 
-Two families of the JAX package wait for the port's later media slices
-(ROADMAP A9), whose models are their first users: the vision ops
-(whisper_tensor_tpu/symbolic_graph/ops/vision.py, milli/ops/vision.py;
-DeformConv's lowering lives there too) and the recurrent and spectral
-ops (ops/composite.py, ops/extra.py, milli/ops/rnn.py,
-milli/ops/signal.py). The convolution family and Resize are ported
-(milli/ops/conv.py).
+One family of the JAX package waits for a later media slice (ROADMAP
+A9.1): the vision ops (whisper_tensor_tpu/symbolic_graph/ops/vision.py,
+milli/ops/vision.py; DeformConv's lowering lives there too). The
+convolution family and Resize (milli/ops/conv.py) and the recurrent and
+spectral ops (milli/ops/rnn.py, milli/ops/signal.py, DFT in
+milli/ops/extra.py) are ported.
 A graph that holds one of them loads, so it can be inspected; lowering
 or evaluating the node raises NotImplementedError naming its op type.
 """
@@ -19,8 +18,6 @@ DEFERRED_OP_TYPES = (
     # vision
     "DeformConv", "GridSample", "AffineGrid", "RoiAlign", "Col2Im",
     "CenterCropPad", "NonMaxSuppression", "ImageDecoder",
-    # recurrent and spectral
-    "LSTM", "GRU", "RNN", "DFT", "STFT",
 )
 
 

@@ -3,9 +3,10 @@
 Reference equivalent: the AudioClipToMelSpectrogram node internals
 (src/super_graph/nodes.rs) and audio handling in the STT pipeline.
 
-The port's copy of whisper_tensor_tpu/utils/audio.py:1-87, the part the
-super graph's AudioClipToTensor and AudioClipToMelSpectrogram nodes
-run; the WAV codec waits for the speech interfaces (ROADMAP A9.5).
+The port's copy of whisper_tensor_tpu/utils/audio.py: the resampler
+and the mel front end the super graph's audio nodes and the speech
+interfaces run, and the stdlib WAV codec of the audio routes and
+`cli stt|tts`.
 """
 
 from __future__ import annotations
@@ -89,3 +90,56 @@ def log_mel_spectrogram(samples: np.ndarray, sr: int = 16000, n_mels: int = 80,
     log_spec = np.log10(np.maximum(mel, 1e-10))
     log_spec = np.maximum(log_spec, log_spec.max() - 8.0)
     return ((log_spec + 4.0) / 4.0).astype(np.float32)
+
+
+def wav_bytes(samples: np.ndarray, sample_rate: int) -> bytes:
+    """Mono float samples in [-1, 1] -> 16-bit PCM WAV bytes (stdlib)."""
+    import io
+    import wave
+
+    pcm = np.round(np.clip(np.asarray(samples, dtype=np.float32), -1.0, 1.0)
+                   * 32767.0).astype("<i2")
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(int(sample_rate))
+        w.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+def write_wav(path: str, samples: np.ndarray, sample_rate: int) -> None:
+    """Write mono float samples in [-1, 1] as 16-bit PCM WAV (stdlib)."""
+    with open(path, "wb") as f:
+        f.write(wav_bytes(samples, sample_rate))
+
+
+def read_wav_bytes(data: bytes):
+    """WAV bytes -> (float32 mono samples in [-1, 1], sample_rate)."""
+    import io
+
+    return read_wav(io.BytesIO(data))
+
+
+def read_wav(path):
+    """Read a WAV file (path or file-like) to (float32 mono samples in
+    [-1, 1], sample_rate)."""
+    import wave
+
+    with wave.open(path, "rb") as w:
+        sr = w.getframerate()
+        n = w.getnframes()
+        width = w.getsampwidth()
+        ch = w.getnchannels()
+        raw = w.readframes(n)
+    if width == 2:
+        s = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+    elif width == 4:
+        s = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+    elif width == 1:
+        s = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128) / 128
+    else:
+        raise ValueError(f"unsupported WAV sample width {width}")
+    if ch > 1:
+        s = s.reshape(-1, ch).mean(axis=1)
+    return s, sr
