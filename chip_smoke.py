@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--layers N] [--plant-fault] [--kernels-only]
                           [--generic-only] [--image-only] [--train-only]
                           [--inspect-only] [--text-family-only]
-                          [--speech-only] [--plans]
+                          [--speech-only] [--media-only] [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -154,8 +154,10 @@ Phases:
      must print the speculative decoder's text.
  11. the generic ONNX path (Model.eval and EvalBackend on the default
      device, the card): (a) every case of the CPU tests' conformance
-     corpus (tests/torch_corpus.npz: 2,160 cases outside the op
-     families not ported yet) at the case's own tolerances (a case that
+     corpus (tests/torch_corpus.npz: all 2,453 cases; the 9
+     ImageDecoder cases are held on the CPU only, with the count and the
+     reason printed, where PIL does not import) at the case's own
+     tolerances (a case that
      needs another on the card is listed in CARD_TOLERANCES with its
      measured error and reason); the cases passed by path (one graph on
      the card, control flow on the host, the host by design) and the
@@ -208,7 +210,9 @@ Phases:
      D = 512 attention (the plain path) timed; img2img at strength 0.5
      and an inpaint with a half-image mask through the interface, every
      flash call shadowed; then `cli image` at 256 x 256 and 4 steps (its
-     own load). The PNGs must decode and not be constant. Phase 2 times
+     own load; in the default run phase 18 (d)'s `cli image` of the same
+     weights as an LDM file stands in for it, held to this load's image
+     at 512 x 512 and 2 steps). The PNGs must decode and not be constant. Phase 2 times
      flash's unmasked mode at the UNet's shapes (self-attention at
      4,096, 1,024 and 256 positions, D 40, 80, 160; cross-attention at
      4,096 x 77) against its bound, its plain version, SDPA at the
@@ -328,6 +332,30 @@ Phases:
      synthetic piper, kokoro and F5-TTS sets (tests/torch_tts_sets.py)
      through /v1/audio/speech, `generate_speech` and `cli tts`: their
      samples within 1e-5 of the port on the CPU.
+ 18. SDXL, SD3 and Flux at published widths, seeded bf16 weights written
+     as diffusers directories (stabilityai/stable-diffusion-xl-base-1.0,
+     stabilityai/stable-diffusion-3-medium-diffusers with T5-XXL at
+     T5_LAYERS of 24 layers and t5_seq_len 256, black-forest-labs/
+     FLUX.1-dev at FLUX_DEPTH of 19 + 38 blocks and t5_seq_len 512),
+     `--media-only` at full depth, 1,024 x 1,024 and 4 steps, the default
+     run at one block or layer a stage, 512 x 512 and 2 steps. Each
+     through the port's Server: one /v1/images/generations request with
+     every kernel counter 0 before it, flash_attention's launches equal
+     to flash_mode's eligible Attention calls and no other kernel; the
+     plain-path calls counted and named (the VAE's head dim 512, T5's
+     per-head bias; any other fails); the interface's image for the same
+     seed equal to the route's; one denoise step timed, then shadowed
+     (every flash call against flash_attention_plain within
+     flash_agreement_bound); the VAE decode timed; load s, s an image
+     and peak card GB; (a) SDXL also img2img (shadowed) and `cli image`
+     (its own load, the route's image). (d) SD-1.5's seeded weights
+     (phase 13's directory, kept for it) renamed into one CompVis
+     single file by the port's ldm maps: `cli image` at 512 x 512 and 2
+     steps on the file gives the image of the directory (phase 13's
+     load; under --media-only `cli image` of it) byte for byte. (e), under
+     --media-only: the 66 vision corpus cases (phase 11 (a) runs them in
+     the default run). Phase 2 also times flash's unmasked mode at the
+     pipelines' attention shapes (MEDIA_FLASH).
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -1333,6 +1361,93 @@ def phase2_flash_sd(torch, results):
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library_device_ms": lib_dev, "bound_ms": bms, "splits": splits}
         del sets, padded, calls, q, k, v
+        torch.cuda.empty_cache()
+
+
+# the unmasked mode at the media pipelines' shapes: SD3's joint attention
+# (4,096 latent + 77 CLIP + 256 T5 rows, the CFG pair, 24 heads of 64),
+# Flux's (4,096 + 512 rows, 24 heads of 128) and SDXL's self-attention at
+# the 64 x 64 and 32 x 32 latent levels of a 1,024 x 1,024 image
+MEDIA_FLASH = (("(m-i) SD3 joint 4429, D=64", 2, 24, 4429, 4429, 64),
+               ("(m-ii) Flux joint 4608, D=128", 1, 24, 4608, 4608, 128),
+               ("(m-iii) SDXL self 4096, D=64", 2, 10, 4096, 4096, 64),
+               ("(m-iv) SDXL self 1024, D=64", 2, 20, 1024, 1024, 64))
+
+
+def phase2_flash_media(torch, results):
+    """flash_attention's unmasked mode at MEDIA_FLASH's shapes, as the
+    Attention lowering calls it (`_flash`, "none"): held to
+    flash_agreement_bound of the plain version, timed (CUDA events and
+    the device alone) beside the plain version and SDPA, against the
+    bound (q, k, v and out read or written once; 4 D operations a
+    (query, key) pair)."""
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_agreement_bound, flash_attention_plain, flash_splits)
+    from whisper_tensor_tpu_torch.milli.ops.attention import _flash
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    card = torch.cuda.current_device()
+    entry = next((r for r in results if r["name"] == "flash_attention"),
+                 None)
+    for label, B, H, Sq, Skv, D in MEDIA_FLASH:
+        nbytes = (2 * B * H * Sq + 2 * B * H * Skv) * D * 2
+        sets = []
+        for _ in range(copies_for(nbytes)):
+            # the recipes' layout: (B, S, H, D) transposed to (B, H, S, D)
+            q, k, v = (torch.randn(B, S, H, D, generator=gen,
+                                   device=dev).bfloat16().transpose(1, 2)
+                       for S in (Sq, Skv, Skv))
+            sets.append((q, k, v))
+        q, k, v = sets[0]
+        scale = 1.0 / math.sqrt(D)
+
+        def routed(q, k, v):
+            return _flash("none", q, k, v, None, scale)
+
+        got = routed(q, k, v)
+        ref = flash_attention_plain(q, k, v, scale)
+        err, share = worst_share(got, ref, flash_attention_plain(
+            q, k, v.abs(), scale), flash_agreement_bound)
+        del ref, got
+        ms = time_ms(torch, routed, sets)
+        dev_ms = device_time_ms(torch, routed, sets)
+        plain_ms = time_ms(torch, lambda q, k, v: flash_attention_plain(
+            q, k, v, scale), sets[:2], reps=3, inner=1)
+        calls = [(sdpa_gqa(torch, q, k, v, None, scale),)
+                 for q, k, v in sets[:2]]
+        lib_ms = time_ms(torch, lambda f: f(), calls)
+        lib_dev = device_time_ms(torch, lambda f: f(), calls)
+        flops = 4 * D * B * H * Sq * Skv
+        bms, bby = bound(nbytes, flops)
+        splits, _ = flash_splits(B, H, H, Sq, Skv, D, card)
+        say(f"  flash_attention {label} unmasked B={B} H={H} Sq={Sq} "
+            f"Skv={Skv} D={D} ({splits} key splits): max_abs_err={err:.6g}, "
+            f"worst err/tol {share:.4g}; {ms:.4f} ms "
+            f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), device "
+            f"{dev_ms:.4f} ms ({bms / dev_ms:.1%} of the bound); plain "
+            f"{plain_ms:.4f} ms; SDPA {lib_ms:.4f} ms (kernel/SDPA "
+            f"{ms / lib_ms:.2f}), SDPA device {lib_dev:.4f} ms; bound "
+            f"{bms:.4f} ms ({bby})")
+        if not share <= 1.0:
+            fail(f"flash_attention's unmasked route disagrees with its "
+                 f"plain version ({label}): err/tol {share}")
+        shape = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms, "library_device_ms": lib_dev,
+                 "bound_ms": bms, "splits": splits}
+        if entry is None:       # --media-only: no earlier flash case ran
+            entry = {"name": "flash_attention", "route": "cuda",
+                     "source": "whisper_tensor_tpu_torch/csrc/"
+                               "flash_attention.cu",
+                     "replaces": "whisper_tensor_tpu/backends/pallas/"
+                                 "attention.py:175",
+                     "launches": None, "max_abs_err": 0.0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+                     "library_ms": lib_ms, "shape": label, "shapes": {}}
+            results.append(entry)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["shapes"][label] = shape
+        del sets, calls, q, k, v
         torch.cuda.empty_cache()
 
 
@@ -4566,6 +4681,16 @@ def phase11_corpus(torch, np, op_types=None, want=None) -> None:
 
     cases = [c for c in tc.read_bundle()
              if op_types is None or c.op_type in op_types]
+    try:
+        import PIL  # noqa: F401  (ImageDecoder decodes on the host with it)
+    except ImportError:
+        held = [c for c in cases if c.op_type == "ImageDecoder"]
+        cases = [c for c in cases if c.op_type != "ImageDecoder"]
+        if held:
+            say(f"  {len(held)} ImageDecoder cases held on the CPU only: PIL "
+                f"does not import on this machine (the op decodes on the "
+                f"host with PIL, as the JAX package does)")
+            want = None if want is None else want - len(held)
     say(f"phase 11 (a): {len(cases)} corpus cases through Model.eval on "
         f"the card (tests/torch_corpus.npz"
         f"{', ' + ', '.join(op_types) if op_types else ''})")
@@ -5255,6 +5380,7 @@ SD15_VAE = {"latent_channels": 4, "out_channels": 3,
             "scaling_factor": 0.18215}
 SD_PROMPT = "a photograph of an astronaut riding a horse"
 SD_HW = 512               # the image's height and width
+LDM_STEPS = 2             # phase 18 (d)'s steps (`cli image` of the LDM file)
 # one UNet step with the kernels against the same step with the plain
 # attention path: each of the step's 32 attention calls rounds its output
 # to bf16 in other places (flash rounds the unnormalized probabilities
@@ -5429,13 +5555,16 @@ def unet_step_split(torch, iface, spy, feeds) -> str:
             f", the rest {rest:.2f} ms")
 
 
-def phase13(torch, np, root: Path, results) -> None:
+def phase13(torch, np, root: Path, results, keep: bool = False) -> None:
     """Phase 13: SD-1.5 at its published widths (seeded weights in f16
     safetensors, loaded in bf16) through the port's Server: a 512 x 512
     text-to-image request over /v1/images/generations at 20 Euler steps
     and CFG 7.5 (the UNet at batch 2), then img2img at strength 0.5 and an
     inpaint with a half-image mask through the interface, then `cli
-    image` at 256 x 256 and 4 steps."""
+    image` at 256 x 256 and 4 steps. `keep` (the default run): the
+    directory and its image at phase 18 (d)'s size and steps are left
+    for (d), whose `cli image` of the same weights as an LDM file stands
+    in for this one."""
     from whisper_tensor_tpu_torch import cli
     from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
         flash_agreement_bound, flash_attention, flash_attention_plain)
@@ -5525,7 +5654,7 @@ def phase13(torch, np, root: Path, results) -> None:
 
         iface = srv._image_iface(srv.models.get(entries[0].id))
         # one UNet step: time, device split, kernels against plain
-        ctx = iface._encode_cfg(SD_PROMPT, "")
+        ctx, _ = iface._encode_cfg(SD_PROMPT, "")
         lat = torch.randn(2, 4, SD_HW // 8, SD_HW // 8, device=CARD,
                           generator=torch.Generator(device=CARD)
                           .manual_seed(SEED))
@@ -5594,12 +5723,24 @@ def phase13(torch, np, root: Path, results) -> None:
         if shadow.calls == 0 or not shadow.worst <= 1.0:
             fail(f"phase 13's flash calls against their plain version: "
                  f"{shadow.calls} calls, worst {shadow.worst}")
+        if keep:
+            # phase 18 (d)'s reference: the directory's image at (d)'s
+            # size and steps through this load, in the PNG `cli image`
+            # writes; (d)'s `cli image` of the LDM file is then the one
+            # further load, and it holds the cli path too
+            from whisper_tensor_tpu_torch.utils.image import png_bytes
+
+            ref = iface.run(SD_PROMPT, cfg=ImageGenConfig(
+                steps=LDM_STEPS, height=SD_HW, width=SD_HW, seed=0))
+            (root / "sd15-ref.png").write_bytes(png_bytes(ref.pixels))
         phase15_preview(torch, np, srv, entries[0].id, spy, results)
         api.stop()
         api = None
         del iface, srv, entries, ctx, feeds, got, want, lat, q
         free_memory(torch)
 
+        if keep:
+            return
         out = root / "sd15-cli.png"
         n0 = flash_attention.launches
         t0 = time.perf_counter()
@@ -5619,8 +5760,9 @@ def phase13(torch, np, root: Path, results) -> None:
         if api is not None:
             api.stop()
         spy.restore()
-        shutil.rmtree(d, ignore_errors=True)
         (root / "sd15-cli.png").unlink(missing_ok=True)
+        if not keep:
+            shutil.rmtree(d, ignore_errors=True)
 
 
 # phase 14: training (LMTrainer and the milli training graph)
@@ -8110,6 +8252,531 @@ def phase17(torch, np, root: Path, bf16, results, layers: int,
         say(f"  [{label}: {time.perf_counter() - t0:.1f} s]")
 
 
+# phase 18: SDXL, SD3 and Flux at published widths, the LDM single file
+# and the vision cases. Published configs: stabilityai/
+# stable-diffusion-xl-base-1.0 (unet/, text_encoder/, text_encoder_2/,
+# vae/ config.json), stabilityai/stable-diffusion-3-medium-diffusers
+# (transformer/, text_encoder{,_2,_3}/, vae/), black-forest-labs/
+# FLUX.1-dev (transformer/, text_encoder{,_2}/, vae/)
+SDXL_UNET = {"block_out_channels": [320, 640, 1280], "layers_per_block": 2,
+             "cross_attention_dim": 2048, "attention_head_dim": [5, 10, 20],
+             "transformer_layers_per_block": [1, 2, 10],
+             "down_block_types": ["DownBlock2D", "CrossAttnDownBlock2D",
+                                  "CrossAttnDownBlock2D"],
+             "addition_embed_type": "text_time", "addition_time_embed_dim": 256,
+             "projection_class_embeddings_input_dim": 2816,
+             "norm_num_groups": 32, "sample_size": 128, "in_channels": 4,
+             "out_channels": 4, "use_linear_projection": True}
+CLIP_L = dict(SD15_CLIP, architectures=["CLIPTextModel"], projection_dim=768)
+CLIP_L_PROJ = dict(CLIP_L, architectures=["CLIPTextModelWithProjection"])
+CLIP_BIGG = {"num_hidden_layers": 32, "hidden_size": 1280,
+             "num_attention_heads": 20, "intermediate_size": 5120,
+             "vocab_size": 49408, "max_position_embeddings": 77,
+             "hidden_act": "gelu", "projection_dim": 1280,
+             "bos_token_id": 0, "eos_token_id": 2,
+             "architectures": ["CLIPTextModelWithProjection"]}
+SDXL_VAE = dict(SD15_VAE, scaling_factor=0.13025, sample_size=1024)
+SD3_MMDIT = {"num_layers": 24, "num_attention_heads": 24,
+             "attention_head_dim": 64, "caption_projection_dim": 1536,
+             "in_channels": 16, "out_channels": 16, "patch_size": 2,
+             "pos_embed_max_size": 192, "joint_attention_dim": 4096,
+             "pooled_projection_dim": 2048, "sample_size": 128}
+# google/t5-v1_1-xxl, the encoder SD3 and Flux ship (depth cut: T5_LAYERS)
+T5_XXL = dict(model_type="t5", d_model=4096, d_kv=64, d_ff=10240,
+              num_heads=64, num_layers=24, num_decoder_layers=0,
+              vocab_size=32128, relative_attention_num_buckets=32,
+              relative_attention_max_distance=128,
+              feed_forward_proj="gated-gelu", layer_norm_epsilon=1e-6,
+              architectures=["T5EncoderModel"])
+LATENT16_VAE = dict(SD15_VAE, latent_channels=16, sample_size=1024)
+SD3_VAE = dict(LATENT16_VAE, scaling_factor=1.5305, shift_factor=0.0609)
+FLUX_VAE = dict(LATENT16_VAE, scaling_factor=0.3611, shift_factor=0.1159)
+FLUX_DEV = {"num_layers": 19, "num_single_layers": 38,
+            "num_attention_heads": 24, "attention_head_dim": 128,
+            "in_channels": 64, "joint_attention_dim": 4096,
+            "pooled_projection_dim": 768, "guidance_embeds": True,
+            "axes_dims_rope": [16, 56, 56], "patch_size": 1}
+T5_LAYERS = 2                 # of T5-XXL's 24 (the smoke's time)
+FLUX_DEPTH = (2, 4)           # double and single blocks of FLUX.1-dev's 19 + 38
+MEDIA_HW, MEDIA_STEPS = 1024, 4
+MEDIA_PROMPT = SD_PROMPT
+# the default run's cut: the published widths, one block or transformer
+# layer a stage, 512 x 512, 2 steps (--media-only runs the above)
+MEDIA_CUT_HW, MEDIA_CUT_STEPS = 512, 2
+VISION_CASES = ("DeformConv", "GridSample", "AffineGrid", "RoiAlign",
+                "Col2Im", "CenterCropPad", "NonMaxSuppression",
+                "ImageDecoder")
+
+
+def media_pipelines(full: bool) -> dict:
+    """{kind: (model_index class, {sub: config.json}, run settings)} at
+    the published widths; `full`: SDXL and SD3 at full depth (T5 at
+    T5_LAYERS), Flux at FLUX_DEPTH, else one block or layer a stage."""
+    def depth(cfg, key, n):
+        return dict(cfg, **{key: cfg[key] if full else n})
+
+    unet = dict(SDXL_UNET) if full else dict(
+        SDXL_UNET, layers_per_block=1, transformer_layers_per_block=[1, 1, 1])
+    vae_cut = {} if full else {"layers_per_block": 1}
+    t5 = dict(T5_XXL, num_layers=T5_LAYERS if full else 1)
+    hw = MEDIA_HW if full else MEDIA_CUT_HW
+    steps = MEDIA_STEPS if full else MEDIA_CUT_STEPS
+    flux = dict(FLUX_DEV, num_layers=FLUX_DEPTH[0] if full else 1,
+                num_single_layers=FLUX_DEPTH[1] if full else 1)
+    return {
+        "sdxl": ("StableDiffusionXLPipeline", {
+            "unet": unet,
+            "text_encoder": depth(CLIP_L, "num_hidden_layers", 1),
+            "text_encoder_2": depth(CLIP_BIGG, "num_hidden_layers", 1),
+            "vae": dict(SDXL_VAE, **vae_cut)},
+            dict(hw=hw, steps=steps, guidance=7.5, schedule="euler",
+                 loader={"img2img": True})),
+        "sd3": ("StableDiffusion3Pipeline", {
+            "transformer": depth(SD3_MMDIT, "num_layers", 1),
+            "text_encoder": depth(CLIP_L_PROJ, "num_hidden_layers", 1),
+            "text_encoder_2": depth(CLIP_BIGG, "num_hidden_layers", 1),
+            "text_encoder_3": t5, "vae": dict(SD3_VAE, **vae_cut)},
+            dict(hw=hw, steps=steps, guidance=7.5, schedule="rectified_flow",
+                 loader={"t5_seq_len": 256})),
+        "flux": ("FluxPipeline", {
+            "transformer": flux,
+            "text_encoder": depth(CLIP_L, "num_hidden_layers", 1),
+            "text_encoder_2": t5, "vae": dict(FLUX_VAE, **vae_cut)},
+            dict(hw=hw, steps=steps, guidance=3.5, schedule="rectified_flow",
+                 loader={"t5_seq_len": 512}))}
+
+
+def component_shapes(np, sub: str, cfg: dict) -> dict:
+    """The weight names and shapes a pipeline component's recipe asks
+    its getter for."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.onnx_builder import WeightStorage
+    from whisper_tensor_tpu_torch.importers.recipes.diffusion import (
+        flux, mmdit, unet, vae)
+
+    if sub == "unet":
+        return recipe_shapes(unet.build_sd_unet, np,
+                             cfg=unet.UNetConfig.from_hf(cfg), batch=2,
+                             latent_hw=(8, 8))
+    if sub == "vae":
+        v = vae.VAEConfig.from_hf(cfg)
+        return {**recipe_shapes(vae.build_vae_decoder, np, cfg=v,
+                                latent_hw=(8, 8)),
+                **recipe_shapes(vae.build_vae_encoder, np, cfg=v,
+                                image_hw=(64, 64))}
+    if sub == "transformer":
+        if "num_single_layers" in cfg:
+            c, shape_of, build, kw = (flux.FluxConfig.from_hf(cfg),
+                                      flux.flux_weight_shape, flux.build_flux,
+                                      dict(batch=1, context_len=8,
+                                           latent_hw=(16, 16)))
+        else:
+            c, shape_of, build, kw = (mmdit.SD3Config.from_hf(cfg),
+                                      mmdit.sd3_weight_shape,
+                                      mmdit.build_sd3_mmdit,
+                                      dict(batch=2, context_len=8,
+                                           latent_hw=(16, 16)))
+        shapes = {}
+
+        def getter(name):
+            shapes[name] = tuple(shape_of(c, name))
+            return np.broadcast_to(np.zeros((), np.float16), shapes[name])
+
+        build(getter, c, dtype=DType.F16, storage=WeightStorage.to_sink({}),
+              **kw)
+        return shapes
+    if cfg.get("model_type") == "t5":
+        return {n: s for n, s in t5_shapes(cfg).items()
+                if not n.startswith(("decoder.", "lm_head."))}
+    shapes = clip_shapes(cfg)
+    if "CLIPTextModelWithProjection" in cfg["architectures"]:
+        shapes["text_projection.weight"] = (cfg["projection_dim"],
+                                            cfg["hidden_size"])
+    return shapes
+
+
+def write_seeded(torch, d: Path, shapes: dict, seed: int) -> int:
+    """d/model.safetensors: f16 weights by random_unet_weights' rule
+    (norm weights 1, biases 0, the rest normal with std 1/sqrt(fan in)),
+    drawn on the card. Returns the bytes written."""
+    from safetensors.numpy import save_file
+
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    tensors, total = {}, 0
+    for name, shape in shapes.items():
+        if name.endswith(".bias") or ("norm" in name
+                                      and name.endswith("weight")):
+            t = torch.full(shape, float(name.endswith("weight")),
+                           dtype=torch.float16)
+        else:
+            fan_in = math.prod(shape[1:]) if len(shape) > 1 else shape[0]
+            t = (torch.randn(shape, generator=gen, device=CARD)
+                 / math.sqrt(max(fan_in, 1))).half().cpu()
+        tensors[name] = t.numpy()
+        total += t.numel() * 2
+    save_file(tensors, str(d / "model.safetensors"))
+    return total
+
+
+def write_pipeline(torch, np, d: Path, cls: str, parts: dict,
+                   seed: int) -> int:
+    """A diffusers directory of seeded f16 weights at `parts`' configs."""
+    total = 0
+    for i, (sub, cfg) in enumerate(parts.items()):
+        (d / sub).mkdir(parents=True)
+        (d / sub / "config.json").write_text(json.dumps(cfg))
+        total += write_seeded(torch, d / sub,
+                              component_shapes(np, sub, cfg), seed + i)
+    (d / "scheduler").mkdir()
+    (d / "scheduler" / "scheduler_config.json").write_text(
+        json.dumps({"prediction_type": "epsilon"}))
+    (d / "model_index.json").write_text(json.dumps({"_class_name": cls}))
+    return total
+
+
+class MediaSpy(SdSpy):
+    """SdSpy's counts (the Attention calls on the card, those flash_mode
+    sends to flash_attention), with each other call named by why it runs
+    the plain path: a head dim past the kernel's (the VAE's one head of
+    512, B6) or a per-head additive bias (T5's relative positions)."""
+
+    def __init__(self, torch):
+        from whisper_tensor_tpu_torch.milli.ops.attention import flash_mode
+
+        super().__init__(torch)
+        self.plain = {}
+        counted = self.table["Attention"]          # SdSpy's counting wrapper
+
+        def wrapped(op, ins, static, device):
+            if device.type == "cuda":
+                m = ins[3] if len(ins) > 3 else None
+                if flash_mode(op, ins[0], ins[1], ins[2], m,
+                              op.n_out >= 4) is None:
+                    D = ins[0].shape[-1]
+                    why = (f"head dim {D} (one head: the VAE, B6)"
+                           if D > 256 else
+                           "a per-head bias (T5)" if m is not None
+                           and m.dim() == 4 and m.shape[1] > 1 else
+                           f"other (D {D}, mask "
+                           f"{None if m is None else tuple(m.shape)})")
+                    self.plain[why] = self.plain.get(why, 0) + 1
+            return counted(op, ins, static, device)
+
+        self.table["Attention"] = wrapped
+
+    def zero(self):
+        super().zero()
+        self.plain = {}
+
+
+def denoiser_feeds(torch, iface, kind: str, cfg) -> dict:
+    """One denoise step's feeds, built as the interface builds them."""
+    h8, w8 = cfg.height // 8, cfg.width // 8
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 18)
+    if kind == "flux":
+        ctx, pooled = iface._encode(MEDIA_PROMPT)
+        return {"hidden_states": torch.randn(1, iface.latent_channels, h8, w8,
+                                             device=CARD, generator=gen),
+                "timestep": torch.ones(1, device=CARD),
+                "pooled_projections": pooled, "encoder_hidden_states": ctx,
+                "guidance": torch.full((1,), cfg.guidance_scale,
+                                       device=CARD)}
+    ctx, extra = iface._encode_cfg(MEDIA_PROMPT, "", cfg)
+    sample = torch.randn(2, iface.latent_channels, h8, w8, device=CARD,
+                         generator=gen)
+    return iface._unet_feeds(sample, torch.tensor(500.0, device=CARD), ctx,
+                             extra)
+
+
+def phase18_pipeline(torch, np, root: Path, kind: str, full: bool,
+                     spy) -> dict:
+    """(a) SDXL, (b) SD3 or (c) Flux: the seeded directory through the
+    port's Server, /v1/images/generations counted, the interface's image
+    for the same seed, one denoise step timed and shadowed, the VAE
+    decode timed; SDXL's img2img and `cli image` too."""
+    import contextlib
+    import io
+
+    from whisper_tensor_tpu_torch import cli
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_agreement_bound, flash_attention, flash_attention_plain)
+    from whisper_tensor_tpu_torch.interfaces.image_gen import ImageGenConfig
+    from whisper_tensor_tpu_torch.milli.ops import attention as att_lowering
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+
+    cls, parts, run = media_pipelines(full)[kind]
+    hw, steps = run["hw"], run["steps"]
+    card = card_line()
+    d = root / f"media-{kind}"
+    shutil.rmtree(d, ignore_errors=True)
+    api, out = None, {}
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_pipeline(torch, np, d, cls, parts,
+                                SEED + 18 * 10 + len(kind))
+        write_s = time.perf_counter() - t0
+        srv = Server(device=CARD)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        entries = srv.models.run_loader("diffusers", {
+            "path": str(d), "dtype": "bf16", "height": hw, "width": hw,
+            **run["loader"]})
+        load_s = time.perf_counter() - t0
+        api = OpenAIApi(srv, "127.0.0.1", 0).start()
+        body = {"prompt": MEDIA_PROMPT, "steps": steps,
+                "guidance_scale": run["guidance"], "seed": 0}
+        # the main path, counted: every kernel counter 0 just before
+        kernels = family_kernels()
+        for fn in kernels.values():
+            fn.launches = 0
+        spy.zero()
+        t0 = time.perf_counter()
+        status, data = request(api.port, "/v1/images/generations", body)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launched = {n: fn.launches for n, fn in kernels.items()}
+        launches, eligible, calls, plain = (launched.pop("flash_attention"),
+                                            spy.eligible, spy.calls,
+                                            dict(spy.plain))
+        route_gb = torch.cuda.max_memory_allocated() / 1e9
+        if any(launched.values()):
+            fail(f"({kind}) kernels off the image path launched: {launched}")
+        if status != 200:
+            fail(f"({kind}) /v1/images/generations answered {status}: "
+                 f"{data[:500]}")
+        px = png_image(np, base64.b64decode(json.loads(data)["data"][0][
+            "b64_json"]), (hw, hw, 3))
+        if launches != eligible or launches == 0:
+            fail(f"({kind}) flash_attention launches {launches} != the "
+                 f"lowering's {eligible} eligible Attention calls")
+        if any(w.startswith("other") for w in plain):
+            fail(f"({kind}) Attention calls on the plain path outside the "
+                 f"kernel's domain rule: {plain}")
+        iface = srv._image_iface(srv.models.get(entries[0].id))
+        cfg = ImageGenConfig(steps=steps, guidance_scale=run["guidance"],
+                             height=hw, width=hw, schedule=run["schedule"],
+                             seed=0)
+        t0 = time.perf_counter()
+        img = iface.run(MEDIA_PROMPT, cfg=cfg)
+        torch.cuda.synchronize()
+        image_s = time.perf_counter() - t0
+        if not np.array_equal(img.pixels, px):
+            fail(f"({kind}) the route's image differs from the interface's "
+                 f"for the same seed")
+        # one denoise step: timed, then every flash call of it shadowed
+        feeds = denoiser_feeds(torch, iface, kind, cfg)
+        step_ms = statistics.median(_timed(lambda: (
+            iface._run(iface.unet, feeds), torch.cuda.synchronize()), 3))
+        shadow = flash_shadow(att_lowering, flash_attention_plain,
+                              flash_agreement_bound)
+        try:
+            got = iface._run(iface.unet, feeds)["out"]
+            torch.cuda.synchronize()
+        finally:
+            att_lowering.flash_attention = shadow.inner
+        if not bool(torch.isfinite(got.float()).all()):
+            fail(f"({kind}) a denoise step's output is not finite")
+        if shadow.calls == 0 or not shadow.worst <= 1.0:
+            fail(f"({kind}) a denoise step's flash calls against their "
+                 f"plain version: {shadow.calls} calls, worst "
+                 f"{shadow.worst}")
+        lat = feeds["hidden_states" if kind != "sdxl" else "sample"][:1]
+        vae_ms = statistics.median(_timed(lambda: (
+            iface._run(iface.vae, {"latents": lat}),
+            torch.cuda.synchronize()), 3))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        out = {"launches": launches, "eligible": eligible, "calls": calls,
+               "plain": plain, "shadow_calls": shadow.calls,
+               "shadow_worst": shadow.worst, "load_s": load_s,
+               "step_ms": step_ms, "image_s": image_s, "vae_ms": vae_ms,
+               "route_gb": route_gb, "peak_gb": peak_gb}
+        say(f"  ({kind}) {cls} at {hw} x {hw}, {steps} {run['schedule']} "
+            f"steps, guidance {run['guidance']}: wrote {nbytes / 1e9:.2f} GB "
+            f"in {write_s:.1f} s, loaded in {load_s:.1f} s; the first "
+            f"request {first_s:.1f} s; flash_attention launched {launches} "
+            f"times for {eligible} eligible of {calls} Attention calls on the"
+            f" card; plain-path calls {plain or 'none'}; the route's PNG "
+            f"equals the interface's image (pixel std {px.std():.2f}); "
+            f"{image_s:.2f} s an image (warm); a denoise step "
+            f"{step_ms:.2f} ms, its {shadow.calls} flash calls shadowed "
+            f"(worst {shadow.worst:.3g} of flash_agreement_bound, max |err| "
+            f"{shadow.max_err:.4g}); VAE decode {vae_ms:.2f} ms; peak "
+            f"{route_gb:.2f} GB on the card through the load and the first "
+            f"request, {peak_gb:.2f} GB with the shadowed step's plain "
+            f"versions ({card})")
+        if kind == "sdxl":
+            shadow = flash_shadow(att_lowering, flash_attention_plain,
+                                  flash_agreement_bound)
+            try:
+                a = iface.run_img2img(MEDIA_PROMPT, px, strength=0.5,
+                                      cfg=cfg)
+            finally:
+                att_lowering.flash_attention = shadow.inner
+            if a.pixels.shape != (hw, hw, 3) or not a.pixels.std() > 0:
+                fail(f"(sdxl) img2img image {a.pixels.shape}, std "
+                     f"{a.pixels.std()}")
+            if not shadow.worst <= 1.0:
+                fail(f"(sdxl) img2img's flash calls: worst {shadow.worst}")
+            say(f"  (sdxl) img2img at strength 0.5: {shadow.calls} flash "
+                f"calls shadowed (worst {shadow.worst:.3g})")
+        api.stop()
+        api = None
+        del iface, srv, entries, feeds, got, lat, img
+        free_memory(torch)
+        if kind == "sdxl":
+            png = root / "media-sdxl-cli.png"
+            n0 = flash_attention.launches
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["image", "--model", str(d), "--prompt",
+                          MEDIA_PROMPT, "--steps", str(steps), "--height",
+                          str(hw), "--width", str(hw), "--output", str(png),
+                          "-c", "dtype=bf16", "--device", CARD])
+            cli_px = png_image(np, png.read_bytes(), (hw, hw, 3))
+            png.unlink()
+            if flash_attention.launches == n0:
+                fail("(sdxl) cli image launched no flash_attention")
+            if not np.array_equal(cli_px, px):
+                fail("(sdxl) cli image's image differs from the route's")
+            say(f"  (sdxl) cli image: {time.perf_counter() - t0:.1f} s (its "
+                f"own load), {flash_attention.launches - n0} flash launches, "
+                f"the route's image")
+    finally:
+        if api is not None:
+            api.stop()
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def write_ldm_file(np, sd15: Path, path: Path) -> None:
+    """SD-1.5's diffusers weights (phase 13's directory) renamed into one
+    CompVis-layout file by the port's own maps (importers/ldm.py): the
+    UNet, the VAE (its attention as 1x1 convs, as LDM stores them) and
+    CLIP."""
+    from safetensors.numpy import load_file, save_file
+
+    from whisper_tensor_tpu_torch.importers import ldm
+    from whisper_tensor_tpu_torch.importers.recipes.diffusion import unet
+
+    ucfg = unet.UNetConfig.from_hf(SD15_UNET)
+    sd = {}
+    for n, a in load_file(str(sd15 / "unet" / "model.safetensors")).items():
+        sd[ldm.UNET_PREFIX + ldm.unet_diffusers_to_ldm(
+            n, ucfg.layers_per_block, ucfg.down_has_attn)] = a
+    nb = len(SD15_VAE["block_out_channels"])
+    for n, a in load_file(str(sd15 / "vae" / "model.safetensors")).items():
+        key = (ldm.vae_encoder_diffusers_to_ldm(n)
+               if n.startswith(("encoder.", "quant_conv"))
+               else ldm.vae_decoder_diffusers_to_ldm(n, nb))
+        if "attentions" in n and n.endswith(".weight") and a.ndim == 2:
+            a = a[:, :, None, None]
+        sd[ldm.VAE_PREFIX + key] = a
+    for n, a in load_file(str(sd15 / "text_encoder" /
+                               "model.safetensors")).items():
+        sd[ldm.CLIP_PREFIX + n] = a
+    save_file(sd, str(path))
+
+
+def phase18_ldm(torch, np, root: Path) -> None:
+    """(d) SD-1.5's seeded weights as one LDM file through `cli image`
+    (512 x 512, 2 steps): its image equals, bit for bit, the image of
+    the same weights loaded as a diffusers directory."""
+    import contextlib
+    import io
+
+    from whisper_tensor_tpu_torch import cli
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import \
+        flash_attention
+
+    sd15 = root / "sd15"
+    kept = root / "sd15-ref.png"       # phase 13's image of the directory
+    path = root / "sd15-ldm.safetensors"
+    try:
+        if not (sd15 / "model_index.json").exists():
+            # --media-only: phase 13 kept no directory
+            shutil.rmtree(sd15, ignore_errors=True)
+            kept.unlink(missing_ok=True)
+            write_sd15(torch, np, sd15)
+        t0 = time.perf_counter()
+        write_ldm_file(np, sd15, path)
+        conv_s = time.perf_counter() - t0
+        pngs, secs = {}, {"diffusers": None}
+        if kept.exists():
+            pngs["diffusers"] = kept.read_bytes()
+        n0 = flash_attention.launches
+        for label, model in (("ldm", path), ("diffusers", sd15)):
+            if label in pngs:
+                continue
+            out = root / f"sd15-{label}.png"
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["image", "--model", str(model), "--prompt",
+                          SD_PROMPT, "--steps", str(LDM_STEPS), "--height",
+                          str(SD_HW), "--width", str(SD_HW), "--output",
+                          str(out), "-c", "dtype=bf16", "--device", CARD])
+            secs[label] = time.perf_counter() - t0
+            pngs[label] = out.read_bytes()
+            out.unlink()
+        px = png_image(np, pngs["ldm"], (SD_HW, SD_HW, 3))
+        if pngs["ldm"] != pngs["diffusers"]:
+            fail("(d) the LDM file's image differs from the diffusers "
+                 "directory's")
+        if flash_attention.launches == n0:
+            fail("(d) cli image launched no flash_attention")
+        ref = ("phase 13's" if secs["diffusers"] is None
+               else f"{secs['diffusers']:.1f} s")
+        say(f"  (d) SD-1.5 as one LDM file ({path.stat().st_size / 1e9:.2f} "
+            f"GB, renamed in {conv_s:.1f} s): cli image {secs['ldm']:.1f} s, "
+            f"the diffusers directory's ({ref}); the PNGs are equal byte "
+            f"for byte (pixel std {px.std():.2f})")
+    finally:
+        path.unlink(missing_ok=True)
+        kept.unlink(missing_ok=True)
+        shutil.rmtree(sd15, ignore_errors=True)
+
+
+def phase18_vision(torch, np) -> None:
+    """(e) the 66 vision corpus cases on the card (phase 11 (a)'s run
+    of tests/torch_corpus.npz for these op types)."""
+    phase11_corpus(torch, np, VISION_CASES, 66)
+
+
+def phase18(torch, np, root: Path, results, full: bool) -> None:
+    """Phase 18: SDXL, SD3 and Flux (`full`: at --media-only's depth and
+    size, else the default run's cut), the LDM single file and, with
+    `full`, the vision corpus cases."""
+    say(f"phase 18: SDXL, SD3 and Flux at published widths "
+        f"({'full' if full else 'the default run cut'}); host RSS "
+        f"{host_rss_gb():.1f} GB")
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the precision contract wants f32 convolutions and "
+             "matmuls at full precision (device.py)")
+    spy = MediaSpy(torch)
+    seen = {}
+    try:
+        t_all = time.perf_counter()
+        for label, kind in (("(a)", "sdxl"), ("(b)", "sd3"),
+                            ("(c)", "flux")):
+            t0 = time.perf_counter()
+            seen[kind] = phase18_pipeline(torch, np, root, kind, full, spy)
+            free_memory(torch)
+            say(f"  [{label} {kind}: {time.perf_counter() - t0:.1f} s]")
+        say(f"  [(a)-(c): {time.perf_counter() - t_all:.1f} s]")
+    finally:
+        spy.restore()
+    entry = next(r for r in results if r["name"] == "flash_attention")
+    entry["launches_phase18"] = {k: v["launches"] for k, v in seen.items()}
+    entry["shadow_phase18"] = {k: v["shadow_worst"] for k, v in seen.items()}
+    t0 = time.perf_counter()
+    phase18_ldm(torch, np, root)
+    say(f"  [(d) LDM: {time.perf_counter() - t0:.1f} s]")
+    if full:
+        t0 = time.perf_counter()
+        phase18_vision(torch, np)
+        say(f"  [(e) vision cases: {time.perf_counter() - t0:.1f} s]")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2,
@@ -8142,6 +8809,11 @@ def main() -> None:
                     help="run phase 17 (Whisper, TTS) and the recurrent and "
                          "spectral corpus cases alone after the build (no "
                          "result line)")
+    ap.add_argument("--media-only", action="store_true",
+                    help="run phase 2's flash cases at the media shapes and "
+                         "phase 18 (SDXL, SD3 and Flux at full size, the LDM "
+                         "file, the vision corpus cases) alone after the "
+                         "build (no result line)")
     ap.add_argument("--plans", action="store_true",
                     help="time packed_matmul and decode_attention under "
                          "forced splits, then stop (no result line)")
@@ -8167,6 +8839,12 @@ def main() -> None:
             f"{np.__version__})")
     except ImportError:
         say("  ml_dtypes does not import: bf16 crosses as f32 on the host")
+    try:
+        import PIL
+        say(f"  PIL {PIL.__version__} imports (ImageDecoder's host decode)")
+    except ImportError:
+        say("  PIL does not import: the ImageDecoder cases are held on the "
+            "CPU only")
 
     from whisper_tensor_tpu_torch.backends.cuda import build
 
@@ -8267,6 +8945,14 @@ def main() -> None:
         say(json.dumps({"kernels": results}))
         say(f"{card_line()} (--speech-only: phases 2-16 not run)")
         return
+    if args.media_only:
+        step("phase 2: flash_attention at the media shapes",
+             phase2_flash_media, torch, results)
+        step("phase 18 (SDXL, SD3, Flux, the LDM file, the vision cases)",
+             phase18, torch, np, ROOT / "build" / "smoke", results, True)
+        say(json.dumps({"kernels": results}))
+        say(f"{card_line()} (--media-only: phases 3-17 not run)")
+        return
     if args.inspect_only:
         try:
             import ml_dtypes
@@ -8297,6 +8983,8 @@ def main() -> None:
     step("phase 2: ragged_kv_write", phase2_kv_write, torch, results)
     step("phase 2: flash_attention", phase2_flash, torch, results)
     step("phase 2: flash_attention at the SD UNet's shapes", phase2_flash_sd,
+         torch, results)
+    step("phase 2: flash_attention at the media shapes", phase2_flash_media,
          torch, results)
     step("phase 2: packed_matmul", phase2_packed, torch, results)
     step("phase 2: int8_matmul_dx", phase2_int8_dx, torch, results)
@@ -8353,7 +9041,7 @@ def main() -> None:
         step("phase 12 (Gemma, Gemma-2, Gemma-3, Phi-3)", phase12, torch, np,
              ROOT / "build" / "smoke", args.layers, bf16, results)
         step("phase 13 (SD-1.5 image generation, with 15 (d))", phase13,
-             torch, np, ROOT / "build" / "smoke", results)
+             torch, np, ROOT / "build" / "smoke", results, True)
         run_phase14(step, torch, np, args.layers, results)
         step("phase 15 (e) GPT-2 and (f) (with (a)-(c) at phase 3, (d) "
              "at phase 13)", phase15, torch, np, None, gpt2_ckpt,
@@ -8363,7 +9051,11 @@ def main() -> None:
         step("phase 17 (Whisper, TTS)", phase17, torch, np,
              ROOT / "build" / "smoke", bf16, results,
              WHISPER_LAYERS_DEFAULT_RUN)
+        step("phase 18 (SDXL, SD3, Flux cut; the LDM file)", phase18, torch,
+             np, ROOT / "build" / "smoke", results, False)
     finally:
+        shutil.rmtree(ROOT / "build" / "smoke" / "sd15", ignore_errors=True)
+        (ROOT / "build" / "smoke" / "sd15-ref.png").unlink(missing_ok=True)
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(gpt2_ckpt, ignore_errors=True)
         shutil.rmtree(gptq_ckpt, ignore_errors=True)

@@ -5,8 +5,7 @@ Each case is built with the port's OnnxBuilder, run through the port's
 `Model.eval(..., device="cpu")` and held to the case's independent
 oracle at its own tolerances (rtol 1e-3 / atol 1e-7 unless the case sets
 others; integers and strings exact), as tests/conformance/harness.py's
-`check_case` holds the JAX package. Cases of the op families the port
-has not ported yet are left out (tests/torch_conformance.py, DEFERRED).
+`check_case` holds the JAX package.
 """
 
 import pytest

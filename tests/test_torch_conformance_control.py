@@ -10,12 +10,11 @@ single-node corpus:
 * replay: one Model reused with different lifted feeds (a Reshape shape
   input, a TopK k input) and with data that gives a different NonZero
   count at equal shapes;
-* the op types the port has not ported yet: each of the 8 raises "not
-  ported", and the corpus outside them numbers 2,387 cases.
+* the corpus numbers 2,453 cases, every one selected (66 of them the
+  vision ops, the last family ported).
 """
 
 import numpy as np
-import pytest
 
 import torch_conformance as tc
 from whisper_tensor_tpu_torch.dtype import DType
@@ -403,29 +402,19 @@ def test_replay_with_a_new_nonzero_count_at_equal_shapes():
         np.testing.assert_array_equal(out["s"], want.sum(axis=1))
 
 
-# -- the op types not ported yet ------------------------------------------
+# -- the corpus as a whole ---------------------------------------------------
 
 ALL_CASES = tc.cases_of(*tc.MODULES)
 
 
-@pytest.mark.parametrize("op_type", sorted(tc.DEFERRED))
-def test_deferred_op_type_raises_not_ported(op_type):
-    case = next(c for c in ALL_CASES if c.op_type == op_type)
-    m = tc.port_model(case)
-    for mode in ("torch", "oracle"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            m.eval(tc.feeds_of(case), mode=mode, device="cpu")
-
-
 def test_the_selected_corpus_numbers_2353_cases():
-    """(The name is the count before the recurrent and spectral ops came:
-    the vision family alone stays deferred.)"""
-    deferred = [c for c in ALL_CASES if c.op_type in tc.DEFERRED]
-    assert len(tc.DEFERRED) == 8
-    assert {c.op_type for c in deferred} == set(tc.DEFERRED)
+    """(The name is the count before the recurrent, spectral and vision
+    ops came: every case is selected now.)"""
     assert len(ALL_CASES) == 2453
-    assert len(deferred) == 66
-    assert len(tc.selected(ALL_CASES)) == 2387
+    assert len(tc.selected(ALL_CASES)) == 2453
+    vision = {"DeformConv", "GridSample", "AffineGrid", "RoiAlign",
+              "Col2Im", "CenterCropPad", "NonMaxSuppression", "ImageDecoder"}
+    assert sum(c.op_type in vision for c in tc.selected(ALL_CASES)) == 66
 
 
 _BUNDLE_SCRIPT = r"""
@@ -452,7 +441,7 @@ def test_the_corpus_bundle_holds_the_selected_cases(tmp_path):
          str(tests.parent)], capture_output=True, text=True, timeout=300,
         env=dict(os.environ, PYTHONHASHSEED="0"))
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "WROTE 2387" in proc.stdout
+    assert "WROTE 2453" in proc.stdout
     want, got = tc.read_bundle(fresh), tc.read_bundle()
     assert [b.name for b in got] == [b.name for b in want]
     for g, w in zip(got, want):

@@ -19,8 +19,9 @@
   v-prediction), img2img and inpaint give the JAX package's image (its
   per-step oracle loop) within 2 of 255 per pixel and 0.05 on average;
   `/v1/images/generations` and `cli image` on device="cpu" give the
-  interface's own image; the kinds and loaders the port has not ported
-  raise "not ported".
+  interface's own image. (The sdxl, sd3 and flux kinds and the ldm
+  loader are held in tests/test_torch_port_dit.py and
+  tests/test_torch_port_ldm.py.)
 
 Torch runs on one thread here: the sandbox's multi-threaded CPU
 convolutions are 10-50x slower than one thread's at these sizes.
@@ -560,26 +561,6 @@ def test_images_route_and_cli_image_on_the_cpu(sd_dir, pipelines, tmp_path):
     np.testing.assert_array_equal(read_image(inpaint), port.run_inpaint(
         "a tpu", INIT, MASK, cfg=ImageGenConfig(
             steps=2, height=128, width=128, seed=3)).pixels)
-
-
-@pytest.mark.parametrize("cls_name,kind", [
-    ("StableDiffusionXLPipeline", "sdxl"),
-    ("StableDiffusion3Pipeline", "sd3"), ("FluxPipeline", "flux")])
-def test_unported_pipeline_kinds_raise(tmp_path, cls_name, kind):
-    with open(tmp_path / "model_index.json", "w") as f:
-        json.dump({"_class_name": cls_name}, f)
-    with pytest.raises(NotImplementedError, match=f"'{kind}'.*not ported"):
-        identify_and_load(str(tmp_path))
-
-
-def test_ldm_checkpoint_raises_not_ported(tmp_path):
-    from safetensors.numpy import save_file
-
-    p = str(tmp_path / "sd.safetensors")
-    save_file({"model.diffusion_model.conv_in.weight":
-               np.zeros((2, 2), np.float32)}, p)
-    with pytest.raises(NotImplementedError, match="'ldm'.*not ported"):
-        identify_and_load(p)
 
 
 def test_interface_refuses_img2img_without_an_encoder(sd_dir):

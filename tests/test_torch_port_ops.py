@@ -217,17 +217,23 @@ def test_executor_folds_once_per_plan_and_writes_caches_in_place():
 
 
 def test_executor_raises_for_an_op_without_lowering():
-    """GridSample, a milli op of the JAX package the port has not ported
-    yet (a later media slice), has no lowering (Einsum, Pow and then
-    Conv, this test's ops before, gained one with the multi-LoRA
-    surgery, the generic ONNX path and the image slice)."""
-    from whisper_tensor_tpu.milli.ops.vision import GridSampleMilli
+    """A milli op kind without a lowering raises, naming its kind. Since
+    the vision ops came every milli op of the JAX package has one
+    (GridSample was this test's op until then; Einsum, Pow and Conv
+    before it), so the op here is the test's own."""
+    from whisper_tensor_tpu.milli.ir import MilliOp
+
+    class Unlowered(MilliOp):
+        KIND = "Unlowered"
+
+        def infer(self, infos):
+            return [infos[0]]
 
     g = MilliGraph("no-lowering")
     a, b = g.add_input("a"), g.add_input("b")
-    g.mark_output("y", g.op1(GridSampleMilli(), a, b))
+    g.mark_output("y", g.op1(Unlowered(), a, b))
     ex = GraphExecutor(g, CPU)
-    with pytest.raises(NotImplementedError, match="GridSample"):
+    with pytest.raises(NotImplementedError, match="Unlowered"):
         ex({"a": torch.ones(2, 3), "b": torch.ones(2, 3)})
 
 

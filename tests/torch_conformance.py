@@ -7,8 +7,8 @@ port's builder in place of the JAX package's), run through the port's
 `Model.eval(..., device="cpu")` and held to the case's independent
 oracle by the rules of tests/conformance/harness.py:98-129 (`check_case`):
 `assert_allclose` at the case's rtol/atol for floats, exact for integers
-and strings. Cases whose op type belongs to a family the port has not
-ported yet (DEFERRED) are left out here and held to raise "not ported".
+and strings. Every case is selected: the port has every op type of the
+corpus.
 
 The selected cases are also kept as a bundle, torch_corpus.npz beside
 this file: each case's ONNX bytes (the port's builder), feeds, expected
@@ -39,10 +39,6 @@ from whisper_tensor_tpu_torch.dtype import DType
 from whisper_tensor_tpu_torch.importers.onnx_builder import (OnnxBuilder,
                                                              WeightStorage)
 from whisper_tensor_tpu_torch.model import Model
-from whisper_tensor_tpu_torch.symbolic_graph.ops.not_ported import (
-    DEFERRED_OP_TYPES)
-
-DEFERRED = frozenset(DEFERRED_OP_TYPES)
 
 # the corpus modules, in tests/conformance/test_conformance.py's order
 MODULES = ("cases_elementwise", "cases_shape", "cases_nn", "cases_dtypes",
@@ -61,7 +57,8 @@ def cases_of(*modules: str) -> List:
 
 
 def selected(cases) -> List:
-    return [c for c in cases if c.op_type not in DEFERRED]
+    """The cases the port runs: all of them."""
+    return list(cases)
 
 
 def _port_attr(v):

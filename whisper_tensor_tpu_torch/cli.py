@@ -48,9 +48,12 @@ with the same -c options, sharing the target's vocabulary) proposes
 --draft-k - 1 tokens a round and the target verifies them in one
 forward; greedy output equals plain greedy decoding token for token.
 
-`image` takes a diffusers `sd` pipeline dir (SD-1.5, SD-2.x) or the
-three ONNX files (--text-encoder, --unet, --vae); --init-image runs
-img2img, with --mask-image (white = repaint) inpainting. Images are PPM
+`image` takes a diffusers pipeline dir (SD-1.5, SD-2.x, SDXL, SD3,
+Flux), a single-file LDM checkpoint (.safetensors: SD-1.x/2.x, SDXL) or
+the three ONNX files (--text-encoder, --unet, --vae); SD3 and Flux run
+rectified flow, the others Euler (--karras: Karras sigmas);
+--init-image runs img2img (not for Flux), with --mask-image (white =
+repaint) inpainting. Images are PPM
 (P6) or PNG, by the signature when read and by the --output suffix when
 written.
 
@@ -274,6 +277,10 @@ def cmd_image(args) -> None:
             raise SystemExit(f"{args.model} is not an image pipeline "
                              f"(got: {sorted(bundle.interfaces) or 'none'})")
         iface = image_interface_from_bundle(bundle, device=args.device)
+        schedule = ("rectified_flow"
+                    if bundle.interfaces["image"]["pipeline"] in
+                    ("sd3", "flux") else
+                    ("euler_karras" if args.karras else "euler"))
     else:
         if not (args.text_encoder and args.unet and args.vae):
             raise SystemExit("need --model <diffusers dir> OR all of "
@@ -284,10 +291,10 @@ def cmd_image(args) -> None:
         tok = AnyTokenizer.load(args.tokenizer) if args.tokenizer else None
         iface = ImageGenerationInterface(te, unet, vae, tokenizer=tok,
                                          device=args.device)
+        schedule = "euler_karras" if args.karras else "euler"
     gcfg = ImageGenConfig(steps=args.steps, guidance_scale=args.cfg,
                           height=args.height, width=args.width,
-                          seed=args.seed,
-                          schedule="euler_karras" if args.karras else "euler")
+                          seed=args.seed, schedule=schedule)
     if args.init_image and args.mask_image:
         init = read_image(args.init_image)[..., :3]
         mask = read_image(args.mask_image)[..., :3].mean(axis=-1) / 255.0
@@ -543,8 +550,9 @@ def main(argv=None) -> None:
     e.set_defaults(fn=cmd_embed)
 
     i = sub.add_parser("image", help="text-to-image generation")
-    i.add_argument("--model", help="diffusers pipeline dir (sd; "
-                                   "model_index.json)")
+    i.add_argument("--model", help="diffusers pipeline dir (sd, sdxl, "
+                                   "sd3, flux; model_index.json) or a "
+                                   "single-file LDM .safetensors")
     i.add_argument("-c", "--config", action="append", default=[])
     i.add_argument("--text-encoder")
     i.add_argument("--unet")

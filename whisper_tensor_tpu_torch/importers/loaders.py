@@ -1,5 +1,5 @@
-"""Loader registry, the transformers, GGUF, RWKV-7, diffusers and TTS
-loaders, identify_and_load.
+"""Loader registry, the transformers, GGUF, RWKV-7, diffusers, LDM and
+TTS loaders, identify_and_load.
 
 The port's copy of whisper_tensor_tpu/importers/loaders.py, trimmed to
 the `transformers` loader for GPT-2, llama-family, Gemma, Phi-3,
@@ -7,7 +7,7 @@ DeepSeek-V2/V3, T5, LLaVA and Whisper checkpoints (config.json +
 safetensors),
 the `gguf` loader for llama-family, Gemma and Phi-3 GGUF files
 (:525-652), the `rwkv7` loader for RWKV-7 `.pth` files (:656-679), the
-`diffusers` loader (below), the TTS loaders `piper`, `kokoro` and `f5`
+`diffusers` and `ldm` loaders (below), the TTS loaders `piper`, `kokoro` and `f5`
 (:681-784, :1123-1158) and the `auto` loader that probes for them.
 Their config keys and their bundles' `text` interface spec are the
 reference's: dtype, quantize (int8, or host quantization to q4_0, q8_0,
@@ -34,9 +34,9 @@ mel frames and a decoder step under an `stt` spec (:293-348). The
 `rwkv7` loader takes `dtype` (default f32, the
 reference's graph) and `tokenizer` (a World vocabulary file; the
 reference's loader names none). The `diffusers`
-loader builds the `sd` image pipeline (SD-1.5, SD-2.x; :785-948); its
-sdxl, sd3 and flux kinds and the `ldm` single-file loader raise "not
-ported". Left out, each raising: other model types and GGUF archs
+loader builds the sd (SD-1.5, SD-2.x), sdxl, sd3 and flux image
+pipelines (:784-946), the `ldm` loader SD-1.x/2.x and SDXL single files
+(:949-1120). Left out, each raising: other model types and GGUF archs
 (ValueError, as the reference does for an unknown one), `decode_windows`
 (NotImplementedError), and the raw ONNX loader (not registered). GPTQ/AWQ
 checkpoints load (importers/quantized.py): their quantized Linears run
@@ -671,12 +671,15 @@ class Rwkv7Loader(Loader):
 @register_loader
 class DiffusersPipelineLoader(Loader):
     """Diffusers pipeline directory (model_index.json), the reference's
-    DiffusersPipelineLoader (:785-948) for the `sd` kind: SD-1.5 and
-    SD-2.x (epsilon or, per scheduler_config.json, v-prediction). Every
-    component builds from diffusers-layout safetensors through the
-    recipes (importers/recipes/diffusion/): the CLIP text encoder, the
-    UNet at batch 2 (the CFG pair), the VAE decoder and, with `img2img`,
-    the VAE encoder. The sdxl, sd3 and flux kinds raise "not ported"."""
+    DiffusersPipelineLoader (:785-946): the `sd` kind (SD-1.5, SD-2.x,
+    epsilon or, per scheduler_config.json, v-prediction), `sdxl` (CLIP-L
+    and the projected OpenCLIP-bigG, the UNet's addition embeddings),
+    `sd3` (two CLIPs, an optional T5 encoder, the MMDiT) and `flux`
+    (CLIP-L's pooled output, the T5 encoder, the Flux transformer).
+    Every component builds from diffusers-layout safetensors through the
+    recipes (importers/recipes/): the CFG kinds' denoiser at batch 2 (the
+    CFG pair), Flux's at batch 1 (guidance-distilled), the VAE decoder
+    and, with `img2img`, the VAE encoder."""
 
     NAME = "diffusers"
     DESCRIPTION = "Diffusers pipeline dir (model_index.json)"
@@ -687,6 +690,8 @@ class DiffusersPipelineLoader(Loader):
             ConfigField("width", ConfigFieldType.INT, "image width"),
             ConfigField("dtype", ConfigFieldType.ENUM, "compute dtype",
                         default="bf16", choices=["f32", "bf16", "f16"]),
+            ConfigField("t5_seq_len", ConfigFieldType.INT,
+                        "T5 context tokens (sd3/flux)", default=77),
             ConfigField("img2img", ConfigFieldType.BOOL,
                         "also build the VAE encoder (img2img, inpaint)"),
         ]
@@ -697,7 +702,6 @@ class DiffusersPipelineLoader(Loader):
 
     def load(self, config):
         from .recipes.diffusion.clip import ClipTextConfig, build_clip_text
-        from .recipes.diffusion.unet import UNetConfig, build_sd_unet
         from .recipes.diffusion.vae import (VAEConfig, build_vae_decoder,
                                             build_vae_encoder)
         from .safetensors_io import SafetensorsStore
@@ -709,11 +713,6 @@ class DiffusersPipelineLoader(Loader):
         kind = ("flux" if "Flux" in cls else
                 "sd3" if "StableDiffusion3" in cls else
                 "sdxl" if "XL" in cls else "sd")
-        if kind != "sd":
-            raise NotImplementedError(
-                f"the {kind!r} diffusers pipeline ({cls}) is not ported to "
-                f"the PyTorch package yet; it loads the 'sd' kind "
-                f"(SD-1.5, SD-2.x) only (ROADMAP A9)")
         dtype = {"f32": DType.F32, "bf16": DType.BF16,
                  "f16": DType.F16}[config.get("dtype", "bf16")]
 
@@ -732,32 +731,80 @@ class DiffusersPipelineLoader(Loader):
             models[name] = Model.new_from_onnx(data, name=name)
             spec[key] = name
 
-        cj = sub_cfg("text_encoder")
-        ccfg = ClipTextConfig.from_hf(cj)
-        spec["bos_token_id"] = cj.get("bos_token_id", 49406)
-        spec["eos_token_id"] = cj.get("eos_token_id", 49407)
-        spec["seq_len"] = min(ccfg.max_position_embeddings, 77)
-        # HF CLIP configs carry projection_dim even when the checkpoint
-        # has no text_projection weight
-        if "CLIPTextModelWithProjection" not in (cj.get("architectures")
-                                                 or []):
-            ccfg.projection_dim = None
-        add("text_encoder", build_clip_text(
-            getter("text_encoder"), ccfg, seq_len=spec["seq_len"],
-            dtype=dtype), f"{kind}-text_encoder")
-        ucfg = UNetConfig.from_hf(sub_cfg("unet"))
-        h = int(config.get("height", ucfg.sample_size * 8))
-        w_ = int(config.get("width", ucfg.sample_size * 8))
-        add("unet", build_sd_unet(getter("unet"), ucfg, batch=2,
-                                  latent_hw=(h // 8, w_ // 8), dtype=dtype),
-            f"{kind}-unet")
-        # scheduler prediction type (SD2-768 is v_prediction)
-        sp = os.path.join(d, "scheduler", "scheduler_config.json")
-        if os.path.exists(sp):
-            with open(sp) as f:
-                spec["prediction_type"] = json.load(f).get(
-                    "prediction_type", "epsilon")
+        def clip(sub):
+            cj = sub_cfg(sub)
+            ccfg = ClipTextConfig.from_hf(cj)
+            if sub == "text_encoder":
+                spec["bos_token_id"] = cj.get("bos_token_id", 49406)
+                spec["eos_token_id"] = cj.get("eos_token_id", 49407)
+                spec["seq_len"] = min(ccfg.max_position_embeddings, 77)
+            # HF CLIP configs carry projection_dim even when the
+            # checkpoint has no text_projection weight
+            if "CLIPTextModelWithProjection" not in (
+                    cj.get("architectures") or []):
+                ccfg.projection_dim = None
+            add(sub, build_clip_text(getter(sub), ccfg, seq_len=min(
+                ccfg.max_position_embeddings, 77), dtype=dtype),
+                f"{kind}-{sub}")
+
+        def t5(sub, name):
+            from .recipes.llm.t5 import T5Config, build_t5_encoder
+
+            add(sub, build_t5_encoder(getter(sub),
+                                      T5Config.from_hf(sub_cfg(sub)),
+                                      seq_len=t5_len, dtype=dtype,
+                                      with_cross=False), name)
+
         vcfg = VAEConfig.from_hf(sub_cfg("vae"))
+        t5_len = int(config.get("t5_seq_len", 77))
+        if kind in ("sd", "sdxl"):
+            from .recipes.diffusion.unet import UNetConfig, build_sd_unet
+
+            ucfg = UNetConfig.from_hf(sub_cfg("unet"))
+            h = int(config.get("height", ucfg.sample_size * 8))
+            w_ = int(config.get("width", ucfg.sample_size * 8))
+            clip("text_encoder")
+            if kind == "sdxl":
+                clip("text_encoder_2")
+            add("unet", build_sd_unet(getter("unet"), ucfg, batch=2,
+                                      latent_hw=(h // 8, w_ // 8),
+                                      dtype=dtype), f"{kind}-unet")
+            # scheduler prediction type (SD2-768 is v_prediction)
+            sp = os.path.join(d, "scheduler", "scheduler_config.json")
+            if os.path.exists(sp):
+                with open(sp) as f:
+                    spec["prediction_type"] = json.load(f).get(
+                        "prediction_type", "epsilon")
+        elif kind == "sd3":
+            from .recipes.diffusion.mmdit import SD3Config, build_sd3_mmdit
+
+            mcfg = SD3Config.from_hf(sub_cfg("transformer"))
+            h = int(config.get("height", mcfg.sample_size * 8))
+            w_ = int(config.get("width", mcfg.sample_size * 8))
+            clip("text_encoder")
+            clip("text_encoder_2")
+            has_t5 = os.path.isdir(os.path.join(d, "text_encoder_3"))
+            ctx = spec["seq_len"] + (t5_len if has_t5 else 0)
+            if has_t5:
+                t5("text_encoder_3", "sd3-t5")
+            add("transformer", build_sd3_mmdit(
+                getter("transformer"), mcfg, batch=2, context_len=ctx,
+                latent_hw=(h // 8, w_ // 8), dtype=dtype), "sd3-mmdit")
+            spec["joint_dim"] = mcfg.joint_attention_dim
+            spec["t5_seq_len"] = t5_len
+        else:  # flux
+            from .recipes.diffusion.flux import FluxConfig, build_flux
+
+            fcfg = FluxConfig.from_hf(sub_cfg("transformer"))
+            h = int(config.get("height", 1024))
+            w_ = int(config.get("width", 1024))
+            clip("text_encoder")
+            t5("text_encoder_2", "flux-t5")
+            add("transformer", build_flux(
+                getter("transformer"), fcfg, batch=1, context_len=t5_len,
+                latent_hw=(h // 8, w_ // 8), dtype=dtype), "flux-transformer")
+            spec["guidance_embeds"] = fcfg.guidance_embeds
+            spec["t5_seq_len"] = t5_len
         add("vae", build_vae_decoder(getter("vae"), vcfg,
                                      latent_hw=(h // 8, w_ // 8),
                                      dtype=dtype), f"{kind}-vae")
@@ -779,9 +826,14 @@ class DiffusersPipelineLoader(Loader):
 
 @register_loader
 class LdmCheckpointLoader(Loader):
-    """Original LDM/CompVis single-file SD checkpoint, recognized as the
-    reference's LdmCheckpointLoader (:949) recognizes it; loading it
-    raises "not ported" (ROADMAP A9)."""
+    """Original LDM/CompVis single-file SD checkpoint
+    (model.diffusion_model.* / first_stage_model.* / cond_stage_model.*),
+    the reference's LdmCheckpointLoader (:949-1120): SD-1.x (the HF CLIP
+    naming), SD-2.x (the open_clip tower, its penultimate layer) and SDXL
+    (conditioner.embedders.0 CLIP-L and 1 OpenCLIP-bigG), each detected
+    from the names and shapes (importers/ldm.py) and built by the same
+    recipes as a diffusers directory, through name maps; `img2img` adds
+    the VAE encoder."""
 
     NAME = "ldm"
     DESCRIPTION = "Single-file SD checkpoint (LDM naming, .safetensors)"
@@ -798,11 +850,157 @@ class LdmCheckpointLoader(Loader):
         return any(n.startswith("model.diffusion_model.")
                    for n in store.names())
 
+    def config_schema(self):
+        return super().config_schema() + [
+            ConfigField("height", ConfigFieldType.INT, "image height"),
+            ConfigField("width", ConfigFieldType.INT, "image width"),
+            ConfigField("dtype", ConfigFieldType.ENUM, "compute dtype",
+                        default="bf16", choices=["f32", "bf16", "f16"]),
+            ConfigField("prediction_type", ConfigFieldType.ENUM,
+                        "scheduler prediction (SD2-768: v_prediction)",
+                        default="epsilon",
+                        choices=["epsilon", "v_prediction"]),
+            ConfigField("img2img", ConfigFieldType.BOOL,
+                        "also build the VAE encoder (img2img, inpaint)"),
+        ]
+
     def load(self, config):
-        raise NotImplementedError(
-            "the single-file LDM checkpoint loader ('ldm') is not ported to "
-            "the PyTorch package yet; convert the checkpoint to a diffusers "
-            "directory (ROADMAP A9)")
+        from .ldm import (CLIP_PREFIX, UNET_PREFIX, VAE_PREFIX, LdmWeights,
+                          detect_openclip_config, detect_unet_config,
+                          openclip_getter)
+        from .recipes.diffusion.clip import ClipTextConfig, build_clip_text
+        from .recipes.diffusion.unet import build_sd_unet
+        from .recipes.diffusion.vae import (VAEConfig, build_vae_decoder,
+                                            build_vae_encoder)
+        from .safetensors_io import SafetensorsStore
+
+        path = config["path"]
+        store = SafetensorsStore([path])
+        dtype = {"f32": DType.F32, "bf16": DType.BF16,
+                 "f16": DType.F16}[config.get("dtype", "bf16")]
+        lw = LdmWeights(store.load, lambda k: k in store)
+        has = lambda k: k in store  # noqa: E731
+        names = list(store.names())
+        ucfg = detect_unet_config(
+            lambda k: (UNET_PREFIX + k) in store,
+            lambda k: store.load(UNET_PREFIX + k).shape)
+        sdxl = ucfg.addition_embed
+
+        def probe_hf_clip(prefix):
+            tok = store.load(prefix
+                             + "text_model.embeddings.token_embedding.weight")
+            n_layers = 0
+            while (prefix + f"text_model.encoder.layers.{n_layers}."
+                   "layer_norm1.weight") in store:
+                n_layers += 1
+            return ClipTextConfig(
+                num_hidden_layers=n_layers, hidden_size=tok.shape[1],
+                num_attention_heads=max(tok.shape[1] // 64, 1),
+                intermediate_size=store.load(
+                    prefix + "text_model.encoder.layers.0.mlp.fc1.weight"
+                ).shape[0],
+                vocab_size=tok.shape[0],
+                max_position_embeddings=store.load(
+                    prefix + "text_model.embeddings.position_embedding"
+                    ".weight").shape[0])
+
+        openclip_sd2 = any(n.startswith("cond_stage_model.model.")
+                           for n in names)
+        if sdxl:
+            # conditioner.embedders.0 = CLIP-L (HF naming),
+            # conditioner.embedders.1 = OpenCLIP bigG (+text_projection)
+            te1_prefix = "conditioner.embedders.0.transformer."
+            te2_prefix = "conditioner.embedders.1.model."
+            if not any(n.startswith(te1_prefix) for n in names):
+                raise ValueError("SDXL checkpoint missing "
+                                 "conditioner.embedders.0")
+            ccfg = probe_hf_clip(te1_prefix)
+            ccfg2 = detect_openclip_config(store.load, has, te2_prefix)
+            # label_emb input = pooled(te2 projection) + 6 micro-cond
+            # sinusoids; solve for the sinusoid width (256 on real SDXL)
+            ucfg.addition_time_embed_dim = (
+                ucfg.projection_class_embeddings_input_dim
+                - ccfg2.projection_dim) // 6
+        elif openclip_sd2:
+            # SD2: open_clip ViT-H tower; conditioning = 'penultimate'
+            # (stop one block early, then ln_final) -> build L-1 blocks
+            ccfg = detect_openclip_config(store.load, has,
+                                          "cond_stage_model.model.",
+                                          drop_last=True)
+            ccfg.projection_dim = None
+        elif any(n.startswith(CLIP_PREFIX) for n in names):
+            ccfg = probe_hf_clip(CLIP_PREFIX)
+        else:
+            raise ValueError("checkpoint has no recognizable text encoder")
+
+        h = int(config.get("height", 1024 if sdxl else 512))
+        w_ = int(config.get("width", 1024 if sdxl else 512))
+        # VAE decoder config by shape probing
+        lat = store.load(VAE_PREFIX + "post_quant_conv.weight").shape[0]
+        boc = []
+        k = 0
+        while (VAE_PREFIX + f"decoder.up.{k}.block.0.conv1.weight") in store:
+            boc.append(store.load(
+                VAE_PREFIX + f"decoder.up.{k}.block.0.conv1.weight").shape[0])
+            k += 1
+        vlpb = 0
+        while (VAE_PREFIX + f"decoder.up.0.block.{vlpb}.conv1.weight") in store:
+            vlpb += 1
+        groups = 32 if all(c % 32 == 0 for c in boc) else 4
+        vcfg = VAEConfig(latent_channels=lat,
+                         block_out_channels=tuple(boc),
+                         layers_per_block=max(vlpb - 1, 1), norm_groups=groups)
+
+        models: Dict[str, Model] = {}
+        spec: Dict[str, Any] = {
+            "pipeline": "sdxl" if sdxl else "sd",
+            "height": h, "width": w_, "latent_channels": lat,
+            "seq_len": min(ccfg.max_position_embeddings, 77),
+            # CLIP convention: the two top vocab slots are BOS/EOS
+            # (49406/49407 for the real 49408-token vocab)
+            "bos_token_id": ccfg.vocab_size - 2,
+            "eos_token_id": ccfg.vocab_size - 1,
+            "prediction_type": config.get("prediction_type", "epsilon")}
+
+        def add(key, data, name):
+            models[name] = Model.new_from_onnx(data, name=name)
+            spec[key] = name
+
+        if sdxl:
+            add("text_encoder",
+                build_clip_text(lw.clip_getter(te1_prefix), ccfg,
+                                seq_len=spec["seq_len"], dtype=dtype),
+                "ldm-clip-l")
+            add("text_encoder_2",
+                build_clip_text(openclip_getter(store.load, te2_prefix),
+                                ccfg2, seq_len=spec["seq_len"], dtype=dtype),
+                "ldm-clip-g")
+        elif openclip_sd2:
+            add("text_encoder",
+                build_clip_text(openclip_getter(store.load,
+                                                "cond_stage_model.model."),
+                                ccfg, seq_len=spec["seq_len"], dtype=dtype),
+                "ldm-openclip")
+        else:
+            add("text_encoder", build_clip_text(lw.clip_getter(), ccfg,
+                                                seq_len=spec["seq_len"],
+                                                dtype=dtype), "ldm-clip")
+        add("unet", build_sd_unet(lw.unet_getter(ucfg), ucfg, batch=2,
+                                  latent_hw=(h // 8, w_ // 8),
+                                  dtype=dtype), "ldm-unet")
+        add("vae", build_vae_decoder(lw.vae_getter(len(boc)), vcfg,
+                                     latent_hw=(h // 8, w_ // 8),
+                                     dtype=dtype), "ldm-vae")
+        if config.get("img2img"):
+            add("vae_encoder", build_vae_encoder(lw.vae_encoder_getter(),
+                                                 vcfg, image_hw=(h, w_),
+                                                 dtype=dtype),
+                "ldm-vae-encoder")
+            spec["vae_scaling"] = vcfg.scaling_factor
+            spec["vae_shift"] = vcfg.shift_factor
+        return LoadedBundle(models=models, interfaces={"image": spec},
+                            meta={"architecture":
+                                  "ldm-sdxl" if sdxl else "ldm-sd"})
 
 
 def _find_piper_pair(path: str):
@@ -954,10 +1152,7 @@ class AutoLoader(Loader):
         for name, loader in ranked:
             if loader.can_load(path):
                 return loader.load(config)
-        raise ValueError(f"cannot identify model format at {path!r} (the "
-                         f"port loads transformers checkpoint dirs, GGUF "
-                         f"files, RWKV-7 .pth files, diffusers pipeline "
-                         f"dirs and piper, kokoro and F5-TTS voices only)")
+        raise ValueError(f"cannot identify model format at {path!r}")
 
 
 def identify_and_load(path: str, **config) -> LoadedBundle:

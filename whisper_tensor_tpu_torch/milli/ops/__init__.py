@@ -3,14 +3,14 @@
 Each module holds op classes (the port's copy of whisper_tensor_tpu/
 milli/ops, numpy `eval` and shape inference) beside the lowerings of
 their KINDs. Importing this package registers every lowering the port
-has; the filled table is LOWERINGS. The recurrent and spectral ops
-(rnn.py, signal.py, DFT in extra.py) are ported; the vision ops (the
-reference's vision.py) are not yet (symbolic_graph/ops/not_ported.py).
+has; the filled table is LOWERINGS: every KIND of the reference, the
+recurrent and spectral ops (rnn.py, signal.py, DFT in extra.py) and the
+vision ops (vision.py) included.
 """
 
 from .. import transforms  # noqa: F401  (QuantMatMul, PackedMatMul)
 from ..registry import LOWERINGS
-from . import extra, quant  # noqa: F401  (register their lowerings)
+from . import extra, quant, vision  # noqa: F401  (register their lowerings)
 from .attention import AttentionMilli, RotaryMilli
 from .conv import (Conv, ConvBiasGrad, ConvInputGrad, ConvTransposeMilli,
                    ConvWeightGrad, Pool, Resize)

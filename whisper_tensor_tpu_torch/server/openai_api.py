@@ -797,8 +797,9 @@ class _Handler(BaseHTTPRequestHandler):
         self._json(200, {"text": text})
 
     def _images(self, body: Dict[str, Any]):
-        """/v1/images/generations (reference :759-806): an `sd` diffusers
-        bundle -> b64 PNGs. The Server keeps one interface a bundle, its
+        """/v1/images/generations (reference :759-806): an image bundle
+        (sd, sdxl, sd3, flux; a diffusers dir or an LDM file) -> b64
+        PNGs, rectified flow for sd3 and flux, Euler for the others. The Server keeps one interface a bundle, its
         weights on the card, and runs one generation at a time."""
         import base64
 
@@ -834,7 +835,11 @@ class _Handler(BaseHTTPRequestHandler):
             cfg = ImageGenConfig(
                 steps=int(body.get("steps", 20)),
                 guidance_scale=float(body.get("guidance_scale", 7.5)),
-                height=h, width=w, schedule="euler", seed=seed + i)
+                height=h, width=w,
+                schedule=("rectified_flow"
+                          if spec["pipeline"] in ("sd3", "flux")
+                          else "euler"),
+                seed=seed + i)
             with server._image_lock:
                 img = iface.run(prompt,
                                 negative_prompt=body.get("negative_prompt",
