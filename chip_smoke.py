@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--layers N] [--plant-fault] [--kernels-only]
                           [--generic-only] [--image-only] [--train-only]
                           [--inspect-only] [--text-family-only]
-                          [--speech-only] [--media-only] [--plans]
+                          [--speech-only] [--media-only] [--gguf-only]
+                          [--parallel-only] [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -88,7 +89,8 @@ Phases:
      rise and int8_matmul's stay 0, one forward must launch it once per
      matmul weight; then phase 3's checks (a)-(c) with every
      packed_matmul call shadowed by its plain version, and the rates
-     against phase 3's int8. (6b) The same weights written by the port's
+     against phase 3's int8. (6b, under --gguf-only since phase 19 came)
+     The same weights written by the port's
      write_gguf as an arch-llama GGUF, Q/K rows permuted the way
      llama.cpp's converter permutes them (Q4_K, Q6_K for ffn_down and
      output), loaded by GgufLoader with ragged_decode (16 slots, pieces
@@ -356,6 +358,28 @@ Phases:
      --media-only: the 66 vision corpus cases (phase 11 (a) runs them in
      the default run). Phase 2 also times flash's unmasked mode at the
      pipelines' attention shapes (MEDIA_FLASH).
+  19. parallelism (`parallel/`), right after phase 3 on its checkpoint.
+     (a) Two spawned ranks sharing the card over gloo (NCCL refuses two
+     ranks on one device) load it at tp=2 through the port's loader and
+     TextInferenceInterface(mesh=, shard_rules=LLAMA_RULES) (int8, a
+     bf16 cache, max_len 2048) and decode 16 greedy tokens of a 24-token
+     prompt (under --parallel-only also the 1,900-token prompt, and a
+     q4_0 build): each rank's kernel launches equal its local
+     lowering's eligible calls (counter 0 before, read after), a rerun
+     holds every kernel call against its plain version, the tokens equal
+     the single rank's (phase 3's model) up to a near tie and the logits
+     teacher-forced on its answer lie within C10 of each step's largest
+     |logit|; each rank prints its load s, TTFT, decode tok/s, card GB
+     and the host ms a step spent in collectives. (c) On the same world:
+     ring attention (causal and not), moe_ffn at ep=2 and
+     pipeline_apply at pp=2 with its gradients, each within 1e-4 of the
+     single-rank result's largest |value|. (b) A world of one under
+     NCCL: the mesh path at tp=1, its tokens the single rank's, its
+     collectives counted (beside (a) in the default run, after it under
+     --parallel-only, which also asks gloo directly which collectives
+     it takes on CUDA tensors, each in its own pair of processes).
+     `--parallel-only` writes the checkpoint, builds the single-rank
+     int8 and q4_0 references and runs phase 19 alone.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -2145,9 +2169,11 @@ def load_direct(torch, srv, ckpt: Path, quantize: str):
     return iface
 
 
-def phase3(torch, np, ckpt: Path, layers: int, results) -> dict:
+def phase3(torch, np, ckpt: Path, layers: int, results,
+           par_ref: dict) -> dict:
     """Returns the direct path's rates (direct_rates). At its end, on its
-    Server and model, phase 15 (a)-(c) and the Llama export (e)."""
+    Server and model, phase 15 (a)-(c) and the Llama export (e), and
+    phase 19's single-rank reference (into `par_ref`)."""
     from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
     from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
         decode_attention, decode_attention_plain)
@@ -2192,6 +2218,7 @@ def phase3(torch, np, ckpt: Path, layers: int, results) -> dict:
     # the long prompt's prefill runs 2,048 rows (bucket 2048)
     check_quant_spy(spy, "phases 3 and 5 (direct)", min_rows=2048)
     phase15_at_phase3(torch, np, srv, ckpt, layers, results, rates)
+    par_ref["int8"] = par_reference(torch, np, iface, par_prompts(np, False))
     return rates
 
 
@@ -3819,6 +3846,10 @@ def phase9(torch, np, ckpt: Path, layers: int, results, q4_0: dict) -> None:
     for res in results:
         if res["name"] in launches:
             res["launches_gptq_batched"] = launches[res["name"]]
+        if res["name"] == "packed_matmul" and res.get("launches") is None:
+            # the default run's main-path count (phase 6b, which set it,
+            # runs under --gguf-only)
+            res["launches"] = launches["packed_matmul"]
     n_tokens = 0
     for i, ((path, body), ans) in enumerate(zip(reqs, answers)):
         if ans is None or ans[0] != 200:
@@ -8777,6 +8808,555 @@ def phase18(torch, np, root: Path, results, full: bool) -> None:
         say(f"  [(e) vision cases: {time.perf_counter() - t0:.1f} s]")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: parallelism (parallel/: the mesh over torch.distributed)
+PAR_NEW = 16
+PAR_TP = 2
+PAR_TIMEOUT_S = 900
+
+
+def par_prompts(np, full: bool) -> dict:
+    """Phase 19's prompts as byte-tokenizer ids: 24 tokens, and with
+    `full` phase 5's 1,900-token prompt."""
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    out = {"24-token": long_text(np, 24, SEED + 19)}
+    if full:
+        out["1,900-token"] = long_text(np, 1900, SEED + 5)
+    return {k: np.asarray(tok.encode(v), np.int64) for k, v in out.items()}
+
+
+def forced_rows(torch, np, iface, ids, toks):
+    """The f32 logits of a prefill over prompt + answer[:-1] (one row,
+    its bucket) at the rows that predict each answer token."""
+    padded, _ = iface._prompt(np.concatenate([ids, toks[:-1]])[None])
+    logits = iface.step(padded, torch.zeros((), dtype=torch.int64,
+                                            device=iface.device),
+                        iface.fresh_cache(1))
+    P = len(ids)
+    return logits[0, P - 1:P - 1 + len(toks)].float().cpu().numpy()
+
+
+def par_reference(torch, np, iface, prompts) -> dict:
+    """{prompt: (greedy tokens, teacher-forced logits)} of the single-rank
+    port."""
+    out = {}
+    for name, ids in prompts.items():
+        toks = iface.generate_tokens(ids[None], PAR_NEW)[0]
+        out[name] = (toks, forced_rows(torch, np, iface, ids, toks))
+    return out
+
+
+def par_load(torch, ckpt: Path, quantize: str, mesh=None, device=None):
+    """Phase 3's checkpoint through the port's loader into a
+    TextInferenceInterface (bf16, a bf16 cache, max_len 2048, `quantize`;
+    over `mesh` with LLAMA_RULES), weights uploaded; (interface, s)."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.loaders import identify_and_load
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+    from whisper_tensor_tpu_torch.parallel.mesh import LLAMA_RULES
+
+    t0 = time.perf_counter()
+    b = identify_and_load(str(ckpt), dtype="bf16", max_len=MAX_LEN)
+    text = b.interfaces["text"]
+    iface = TextInferenceInterface(
+        b.models[text["model"]], MAX_LEN, cache_dtype=DType.BF16,
+        eos_token_id=text.get("eos_token_id"), quantize=quantize, mesh=mesh,
+        shard_rules=None if mesh is None else LLAMA_RULES, device=device)
+    iface._weights()
+    if iface.device.type == "cuda":
+        torch.cuda.synchronize()
+    return iface, time.perf_counter() - t0
+
+
+def par_child(rank, n, store, backend, device, task, args, outq):
+    """A rank of one of phase 19's spawned worlds: joins it and puts
+    (rank, True, task's result) or (rank, False, the traceback) on outq."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        import datetime
+
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        from whisper_tensor_tpu_torch.parallel.mesh import distributed_init
+
+        distributed_init(f"file://{store}", n, rank, backend=backend,
+                         device=device, timeout=datetime.timedelta(
+                             seconds=PAR_TIMEOUT_S // 2))
+        try:
+            outq.put((rank, True, task(torch, np, rank, n, device, *args)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:       # the parent fails the phase with it
+        outq.put((rank, False, traceback.format_exc()))
+
+
+def par_start(n: int, backend: str, device, task, *args) -> tuple:
+    """Start task(torch, np, rank, n, device, *args) on every rank of a
+    new world of n spawned processes (sharing the card); par_collect
+    waits for it."""
+    import multiprocessing as mp
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    procs = [ctx.Process(target=par_child, daemon=True, args=(
+        r, n, str(tmp / "store"), backend, device, task, args, outq))
+        for r in range(n)]
+    for p in procs:
+        p.start()
+    return task, procs, outq, tmp
+
+
+def par_collect(world: tuple) -> list:
+    """The ranks' results of a par_start world, in rank order. A rank
+    that fails, or does not answer, fails the phase; every process is
+    stopped before this returns."""
+    import queue
+
+    task, procs, outq, tmp = world
+    n = len(procs)
+    got = {}
+    deadline = time.perf_counter() + PAR_TIMEOUT_S
+    try:
+        while len(got) < n:
+            try:
+                rank, ok, res = outq.get(timeout=5)
+                got[rank] = (ok, res)
+                continue
+            except queue.Empty:
+                pass
+            dead = [r for r, p in enumerate(procs)
+                    if r not in got and p.exitcode is not None]
+            try:        # a rank that answered and ended: its answer waits
+                while dead:
+                    rank, ok, res = outq.get(timeout=2)
+                    got[rank] = (ok, res)
+            except queue.Empty:
+                pass
+            dead = [r for r in dead if r not in got]
+            if dead or time.perf_counter() > deadline:
+                fail(f"phase 19: ranks {sorted(got)} of {n} answered; "
+                     f"ranks {dead} ended without an answer (exit codes "
+                     f"{[procs[r].exitcode for r in dead]})")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = [f"rank {r}:\n{res}" for r, (ok, res) in sorted(got.items())
+           if not ok]
+    if bad:
+        say("\n".join(bad))
+        fail(f"phase 19: {task.__name__} failed on a rank of {n}")
+    return [got[r][1] for r in range(n)]
+
+
+def par_kernels():
+    from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+        packed_matmul)
+
+    return {**family_kernels(), "packed_matmul": packed_matmul}
+
+
+def par_serve(torch, np, mesh, ckpt: Path, quantize: str, prompts,
+              ref_toks: dict) -> dict:
+    """(a) on one rank: the checkpoint at tp over the mesh; each prompt's
+    time to first token and greedy decode with every kernel counter 0
+    before and read after, beside the lowering's eligible calls; a rerun
+    with every kernel call held against its plain version; the logits
+    teacher-forced on the single rank's answer (`ref_toks`)."""
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.milli import transforms
+
+    iface, load_s = par_load(torch, ckpt, quantize, mesh)
+    cuda = iface.device.type == "cuda"
+    say(f"  [rank {mesh.rank}: {quantize} loaded in {load_s:.1f} s]")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    out = {"load_s": load_s, "fallbacks": list(iface._tp.fallbacks),
+           "card_gb": torch.cuda.memory_allocated() / 1e9 if cuda else 0.0,
+           "shapes": {n: tuple(t.shape) for n, t in iface._weights().items()
+                      if n in ("wq_0", "wo_0", "embed_tokens", "lm_head")},
+           "cache": tuple(iface.fresh_cache(1)[0].shape), "runs": {}}
+    kernels = par_kernels()
+    spy, qspy, pspy = RouteSpy(), quant_spy(transforms), packed_spy(
+        transforms)
+    try:
+        for fn in kernels.values():
+            fn.launches = 0
+        spy.zero()
+        qspy.calls = qspy.launched = pspy.calls = 0
+        for name, ids in prompts.items():
+            iface.generate_tokens(ids[None], 2)   # the plans of both steps
+            sync()
+            t0 = time.perf_counter()
+            iface.generate_tokens(ids[None], 1)
+            ttft = time.perf_counter() - t0
+            c0, k0 = mesh.comm_seconds, mesh.comm_calls
+            t0 = time.perf_counter()
+            toks = iface.generate_tokens(ids[None], PAR_NEW)[0]
+            total = time.perf_counter() - t0
+            say(f"  [rank {mesh.rank}: {quantize}, the {name} prompt "
+                f"decoded]")
+            out["runs"][name] = {
+                "tokens": toks, "ttft_ms": ttft * 1e3,
+                "tok_s": (PAR_NEW - 1) / max(total - ttft, 1e-9),
+                "comm_ms_step": (mesh.comm_seconds - c0) * 1e3 / PAR_NEW,
+                "comm_calls_step": (mesh.comm_calls - k0) / PAR_NEW}
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        launches.update(spy.snapshot(), **{
+            "QuantMatMul calls": qspy.calls, "PackedMatMul calls":
+            pspy.calls})
+    finally:
+        spy.restore()
+        transforms.int8_matmul = qspy.inner
+        transforms.packed_matmul = pspy.inner
+    out["launches"] = launches
+    out["packed_shadow"] = (0, 0.0, 0.0)
+    if cuda:        # (a CPU rehearsal launches no kernel to hold)
+        sh = Shadows()
+        psh = packed_shadow(torch, transforms, agreement_bound)
+        try:
+            for name, ids in prompts.items():
+                iface.generate_tokens(ids[None], 1)
+                iface.generate_tokens(ids[None], PAR_NEW)
+        finally:
+            transforms.packed_matmul = psh.inner
+            sh.close(f"(a) {quantize} rank {mesh.rank}", launches)
+        out["packed_shadow"] = (psh.calls, psh.worst, psh.max_err)
+        if (psh.calls > 0) != (launches["packed_matmul"] > 0) \
+                or not psh.worst <= 1.0:
+            raise RuntimeError(f"packed_matmul's rerun calls ({psh.calls}) "
+                               f"against the plain version: worst "
+                               f"{psh.worst:.4g} of the bound")
+    for name, ids in prompts.items():
+        out["runs"][name]["forced"] = forced_rows(torch, np, iface, ids,
+                                                  ref_toks[name])
+    del iface
+    free_memory(torch)
+    return out
+
+
+GLOO_CASE = r"""
+import sys, torch, torch.distributed as dist
+rank, store, op, n = int(sys.argv[1]), sys.argv[2], sys.argv[3], int(sys.argv[4])
+dist.init_process_group("gloo", init_method="file://" + store, world_size=2,
+                        rank=rank)
+x = (torch.arange(n, device="cuda") % 7 + 10 * rank).to(torch.bfloat16)
+try:
+    if op == "all_reduce":
+        dist.all_reduce(x.clone())
+    elif op == "broadcast":
+        dist.broadcast(x.clone(), src=0)
+    elif op == "all_gather":
+        dist.all_gather([torch.empty_like(x) for _ in range(2)], x)
+    else:
+        y = torch.empty_like(x)
+        for r in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
+                                         dist.P2POp(dist.irecv, y, 1 - rank)]):
+            r.wait()
+    torch.cuda.synchronize()
+    print("TAKES", flush=True)
+except RuntimeError as e:
+    print("REFUSES", str(e).splitlines()[0][-60:], flush=True)
+dist.destroy_process_group()
+"""
+
+
+def gloo_table() -> dict:
+    """What gloo does with bf16 CUDA tensors on this machine, asked of
+    torch.distributed directly, each collective and size in its own
+    two-process world (a crash stays in its world). parallel/comm.py
+    stages every gloo collective on CUDA tensors through host memory."""
+    import tempfile
+
+    cases = [(op, n) for op in ("all_reduce", "broadcast", "all_gather",
+                                "send/recv") for n in (4, 1 << 24)]
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    runs = [(op, n, [subprocess.Popen(
+        [sys.executable, "-c", GLOO_CASE, str(r), str(tmp / f"{k}"), op,
+         str(n)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]) for k, (op, n) in enumerate(cases)]
+    table = {}
+    try:
+        for op, n, procs in runs:
+            outs = []
+            for p in procs:
+                try:
+                    out = p.communicate(timeout=120)[0]
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    out = p.communicate()[0] + "\nno answer in 120 s"
+                last = [ln for ln in out.splitlines()
+                        if ln.startswith(("TAKES", "REFUSES"))]
+                outs.append(last[0] if last and p.returncode == 0 else
+                            f"ended with code {p.returncode}: "
+                            f"{out.strip().splitlines()[-1:]}")
+            table[f"{op} of {n} bf16"] = outs[0] if outs[0] == outs[1] \
+                else " / ".join(outs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return table
+
+
+def par_primitives(torch, np, rank, n, device) -> dict:
+    """(c) on one rank: ring attention (causal and not), moe_ffn under
+    ep = n and pipeline_apply at pp = n with its gradients, each against
+    the single-rank result on the same inputs (f32), and their times."""
+    from whisper_tensor_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from whisper_tensor_tpu_torch.parallel.moe import (moe_ffn,
+                                                       shard_moe_params)
+    from whisper_tensor_tpu_torch.parallel.pipeline import pipeline_apply
+    from whisper_tensor_tpu_torch.parallel.ring_attention import (
+        ring_attention_sharded)
+
+    dev = torch.device(device) if device else torch.device("cuda")
+    cuda = dev.type == "cuda"
+    gen = torch.Generator().manual_seed(SEED + 190)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    def timed(fn):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    def share(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    out = {}
+    sp = Mesh(("sp",), (n,), device=device)
+    B, H, S, D = 1, 8, 2048, 128
+    q, k, v = randn(B, H, S, D), randn(B, H, S, D), randn(B, H, S, D)
+    for causal in (False, True):
+        mask = (torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+                if causal else None)
+        want, plain_ms = timed(lambda: torch.softmax(
+            (q @ k.transpose(-1, -2) * D ** -0.5).masked_fill(
+                ~mask, -torch.inf) if causal else
+            q @ k.transpose(-1, -2) * D ** -0.5, dim=-1) @ v)
+        got, ms = timed(lambda: ring_attention_sharded(q, k, v, sp,
+                                                       causal=causal))
+        out[f"ring {'causal' if causal else 'full'}"] = (
+            share(got, want), ms, plain_ms)
+    T, Dm, F, E, kk = 256, 1024, 512, 16, 2
+    p = {"router_w": randn(E, Dm), "w_gate": randn(E, Dm, F, scale=Dm ** -0.5),
+         "w_up": randn(E, Dm, F, scale=Dm ** -0.5),
+         "w_down": randn(E, F, Dm, scale=F ** -0.5)}
+    x = randn(T, Dm)
+    ep = make_mesh(ep=n, device=device)
+    mine = shard_moe_params(p, ep)
+    for cap in (T, 48):
+        want, plain_ms = timed(lambda: moe_ffn(x, *p.values(), k=kk,
+                                               capacity=cap))
+        got, ms = timed(lambda: moe_ffn(x, *mine.values(), k=kk,
+                                        capacity=cap, mesh=ep))
+        out[f"moe ep={n} capacity {cap}"] = (share(got, want), ms, plain_ms)
+    L, Dp, Bp, M = 2 * n, 1024, 64, 4
+    stack = {"w": randn(L, Dp, Dp, scale=Dp ** -0.5),
+             "b": randn(L, Dp, scale=0.1)}
+    xp = randn(Bp, Dp)
+
+    def stage(prm, h):
+        return torch.tanh(h @ prm["w"] + prm["b"])
+
+    def sequential(ps):
+        h = xp
+        for i in range(L):
+            h = stage({"w": ps["w"][i], "b": ps["b"][i]}, h)
+        return h
+
+    pp = Mesh(("pp",), (n,), device=device)
+    ps = {k2: t.clone().requires_grad_(True) for k2, t in stack.items()}
+    got, ms = timed(lambda: pipeline_apply(stage, ps, xp, pp,
+                                           microbatches=M))
+    (got ** 2).sum().backward()
+    rs = {k2: t.clone().requires_grad_(True) for k2, t in stack.items()}
+    want, plain_ms = timed(lambda: sequential(rs))
+    (want ** 2).sum().backward()
+    lay = slice(rank * L // n, (rank + 1) * L // n)
+    grad = max(share(ps[k2].grad[lay], rs[k2].grad[lay]) for k2 in ps)
+    out[f"pipeline pp={n}"] = (share(got.detach(), want.detach()), ms,
+                               plain_ms)
+    out[f"pipeline pp={n} gradients"] = (grad, None, None)
+    return out
+
+
+def phase19_rank(torch, np, rank, n, device, ckpt, ref_toks, full):
+    """(a) then (c) on one rank of the two-rank gloo world; ref_toks:
+    {build: {prompt: the single rank's greedy tokens}}."""
+    from whisper_tensor_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(tp=n, device=device)
+    prompts = par_prompts(np, full)
+    out = {"device": str(mesh.device), "backend": mesh.backend,
+           "serving": {q: par_serve(torch, np, mesh, ckpt, q, prompts, t)
+                       for q, t in ref_toks.items()}}
+    say(f"  [rank {rank}: (a) done]")
+    out["primitives"] = par_primitives(torch, np, rank, n, device)
+    say(f"  [rank {rank}: (c) done]")
+    return out
+
+
+def phase19_nccl(torch, np, rank, n, device, ckpt, ref_toks):
+    """(b) in a world of one: the mesh path at tp=1 on phase 3's
+    checkpoint (int8), the 24-token prompt (teacher-forced on the single
+    rank's answer, `ref_toks`)."""
+    from whisper_tensor_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(tp=1, device=device)
+    iface, load_s = par_load(torch, ckpt, "int8", mesh)
+    ids = par_prompts(np, False)["24-token"]
+    toks = iface.generate_tokens(ids[None], PAR_NEW)[0]
+    return {"backend": mesh.backend, "load_s": load_s, "tokens": toks,
+            "forced": forced_rows(torch, np, iface, ids, ref_toks),
+            "comm_calls": mesh.comm_calls,
+            "fallbacks": list(iface._tp.fallbacks)}
+
+
+def par_agree(np, toks, forced, ref, what: str) -> None:
+    """Greedy tokens equal to the single-rank port's up to the first near
+    tie (where the reference's top two logits lie within C10 of its
+    largest |logit|), and the logits teacher-forced on the single rank's
+    answer within C10 of each step's largest |logit| (C10's rule: bf16
+    rounds in other places)."""
+    rtoks, rforced = ref
+    differ = np.nonzero(toks != rtoks)[0]
+    if differ.size:
+        i = int(differ[0])
+        row = rforced[i]
+        gap = float(np.diff(np.sort(row)[-2:])[0])
+        say(f"  {what}: tokens part from the single rank's at step {i}: "
+            f"top-2 gap {gap:.4g}, near-tie bound "
+            f"{C10 * np.abs(row).max():.4g}")
+        if not gap <= C10 * np.abs(row).max():
+            fail(f"{what}: tokens {toks.tolist()} part from the single "
+                 f"rank's {rtoks.tolist()} at step {i}, not at a near tie")
+    else:
+        say(f"  {what}: the {len(toks)} greedy tokens equal the single "
+            f"rank's")
+    rows_within(np, forced, rforced, C10,
+                f"{what}: teacher-forced logits against the single rank's")
+
+
+def par_check_launches(launches: dict, what: str) -> None:
+    """Every kernel's launches equal the lowering's eligible calls of the
+    counted run (`counted`'s rule, plus packed_matmul's)."""
+    want = {"flash_attention": launches["flash-eligible calls"],
+            "decode_attention": launches["decode-eligible calls"],
+            "int8_matmul": launches["QuantMatMul calls"],
+            "packed_matmul": launches["PackedMatMul calls"],
+            "kv_write_pair": launches["KVWrite calls"],
+            "ragged_kv_write": launches["KVWrite calls"]
+            + launches["DynUpdateSlice calls"]}
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    say(f"  {what}: kernel launches {launches}")
+    if bad or min(launches[k] for k in ("flash_attention",
+                                         "decode_attention",
+                                         "kv_write_pair")) <= 0 or max(
+            launches["int8_matmul"], launches["packed_matmul"]) <= 0:
+        fail(f"{what}: launches against the lowering's eligible calls "
+             f"(launched, eligible): {bad}, or a kernel of the path never "
+             f"launched")
+
+
+def phase19(torch, np, ckpt: Path, results, refs: dict, full: bool,
+            device=None, nccl: str = "nccl") -> None:
+    """Phase 19: (a) two ranks sharing the card over gloo serve phase 3's
+    checkpoint at tp=2 (int8; with `full` also q4_0 and the 1,900-token
+    prompt), held to the single-rank port's tokens and teacher-forced
+    logits (`refs`: {build: par_reference}), each kernel's launches to
+    the lowering's eligible calls per rank and every call to its plain
+    version; (c) ring attention, moe_ffn and pipeline_apply over the
+    same world against their single-rank results; (b) a world of one
+    under NCCL: the mesh path at tp=1, its tokens the single rank's."""
+    builds = tuple(refs)
+    ref_toks = {q: {name: t for name, (t, _) in r.items()}
+                for q, r in refs.items()}
+    say(f"phase 19: parallelism: {PAR_TP} ranks sharing the card over "
+        f"gloo (NCCL refuses two ranks on one device), builds {builds}, "
+        f"prompts {list(par_prompts(np, full))}")
+    # the cut starts (b) beside (a) and (c), whose timings it then
+    # shares the card and host with; the full phase runs them in turn
+    b_world = None if full else par_start(
+        1, nccl, device, phase19_nccl, ckpt, ref_toks["int8"]["24-token"])
+    outs = par_collect(par_start(PAR_TP, "gloo", device, phase19_rank, ckpt,
+                                 ref_toks, full))
+    for rank, o in enumerate(outs):
+        say(f"  rank {rank} on {o['device']} ({o['backend']})")
+        for q, s in o["serving"].items():
+            what = f"(a) {q} rank {rank}"
+            if s["fallbacks"]:
+                fail(f"{what}: the tp pass fell back to gathers at "
+                     f"{s['fallbacks']}")
+            say(f"  {what}: load {s['load_s']:.1f} s, "
+                f"{s['card_gb']:.2f} GB on the card, local shapes "
+                f"{s['shapes']}, cache {s['cache']}")
+            for name, r in s["runs"].items():
+                say(f"  {what}, {name} prompt: TTFT {r['ttft_ms']:.1f} ms, "
+                    f"decode {r['tok_s']:.1f} tok/s, collectives "
+                    f"{r['comm_ms_step']:.3f} host ms a step "
+                    f"({r['comm_calls_step']:.1f} calls)")
+                par_agree(np, r["tokens"], r["forced"], refs[q][name],
+                          f"{what}, {name} prompt")
+            par_check_launches(s["launches"], what)
+            pc, pw, pe = s["packed_shadow"]
+            say(f"  {what}: {pc} packed_matmul calls of the shadowed rerun "
+                f"against the plain version: worst |err|/bound {pw:.4g} "
+                f"(max |err| {pe:.5g})")
+            for res in results:
+                if res["name"] in s["launches"]:
+                    res.setdefault("launches_phase19", {})[
+                        f"{q} rank {rank}"] = s["launches"][res["name"]]
+        for name, (err, ms, plain_ms) in o["primitives"].items():
+            say(f"  (c) rank {rank}, {name}: max |diff| {err:.3g} of the "
+                f"single-rank result's largest |value|"
+                + ("" if ms is None else
+                   f", {ms:.1f} ms (single rank {plain_ms:.1f} ms)"))
+            if not err <= 1e-4:
+                fail(f"(c) {name} on rank {rank} differs from the "
+                     f"single-rank result by {err:.3g} of its scale")
+    for o in outs[1:]:
+        for q in builds:
+            for name in outs[0]["serving"][q]["runs"]:
+                if not np.array_equal(o["serving"][q]["runs"][name]["tokens"],
+                                      outs[0]["serving"][q]["runs"][name][
+                                          "tokens"]):
+                    fail(f"(a) the ranks returned different tokens ({q}, "
+                         f"{name})")
+    (b,) = par_collect(b_world if b_world is not None else par_start(
+        1, nccl, device, phase19_nccl, ckpt, ref_toks["int8"]["24-token"]))
+    if full:
+        say(f"  gloo's own answer to CUDA tensors (each in a world of "
+            f"two processes): {gloo_table()}")
+    say(f"  (b) a world of one under {b['backend']}: load {b['load_s']:.1f} "
+        f"s, {b['comm_calls']} collectives launched, fallbacks "
+        f"{b['fallbacks']}")
+    if b["backend"] != nccl or b["comm_calls"] <= 0 or b["fallbacks"]:
+        fail("(b) the NCCL world of one launched no collective, or fell "
+             "back")
+    par_agree(np, b["tokens"], b["forced"], refs["int8"]["24-token"],
+              "(b) tp=1 under NCCL")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2,
@@ -8814,6 +9394,16 @@ def main() -> None:
                          "phase 18 (SDXL, SD3 and Flux at full size, the LDM "
                          "file, the vision corpus cases) alone after the "
                          "build (no result line)")
+    ap.add_argument("--gguf-only", action="store_true",
+                    help="write the checkpoint's weights as a Q4_K/Q6_K GGUF "
+                         "and run phase 6b (the GGUF through the batcher) "
+                         "alone after the build (no result line)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="write the checkpoint and run phase 19 (tp=2 over "
+                         "gloo on the card: int8 and q4_0, the 24- and "
+                         "1,900-token prompts; NCCL at tp=1; ring "
+                         "attention, MoE, pipeline) alone after the build "
+                         "(no result line)")
     ap.add_argument("--plans", action="store_true",
                     help="time packed_matmul and decode_attention under "
                          "forced splits, then stop (no result line)")
@@ -8953,6 +9543,56 @@ def main() -> None:
         say(json.dumps({"kernels": results}))
         say(f"{card_line()} (--media-only: phases 3-17 not run)")
         return
+    if args.gguf_only:
+        try:
+            import ml_dtypes
+            bf16 = np.dtype(ml_dtypes.bfloat16)
+        except ImportError:
+            bf16 = None
+        gguf_path = (ROOT / "build" / "smoke"
+                     / f"llama3-8b-widths-{args.layers}L.gguf")
+        gguf_path.parent.mkdir(parents=True, exist_ok=True)
+        try:
+            step("write the GGUF", write_smoke_gguf, gguf_path, args.layers,
+                 np, bf16)
+            say(f"wrote the checkpoint as a Q4_K/Q6_K GGUF "
+                f"({gguf_path.stat().st_size / 1e9:.2f} GB)")
+            step("phase 6b (GGUF batched)", phase6b, torch, np, gguf_path,
+                 args.layers, results)
+        finally:
+            gguf_path.unlink(missing_ok=True)
+        say(json.dumps({"kernels": results}))
+        say(f"{card_line()} (--gguf-only: phases 2-6a and 7-19 not run)")
+        return
+    if args.parallel_only:
+        try:
+            import ml_dtypes
+            bf16 = np.dtype(ml_dtypes.bfloat16)
+        except ImportError:
+            bf16 = None
+        ckpt = ROOT / "build" / "smoke" / f"llama3-8b-widths-{args.layers}L"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        ckpt.mkdir(parents=True)
+        try:
+            step("write the checkpoint", write_checkpoint, ckpt, args.layers,
+                 np, bf16)
+            refs = {}
+            for q in ("int8", "q4_0"):
+                def reference(q=q):
+                    iface, load_s = par_load(torch, ckpt, q)
+                    say(f"  the single-rank {q} reference: load {load_s:.1f}"
+                        f" s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+                        f"on the card")
+                    refs[q] = par_reference(torch, np, iface,
+                                            par_prompts(np, True))
+                step(f"phase 19's single-rank {q} reference", reference)
+            step("phase 19 (parallelism)", phase19, torch, np, ckpt, results,
+                 refs, True)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        say(json.dumps({"kernels": results}))
+        say(f"{card_line()} (--parallel-only: phases 2-18 not run)")
+        return
     if args.inspect_only:
         try:
             import ml_dtypes
@@ -8998,7 +9638,6 @@ def main() -> None:
     except ImportError:       # the loader then reads f16 and casts
         bf16 = None
     ckpt = ROOT / "build" / "smoke" / f"llama3-8b-widths-{args.layers}L"
-    gguf_path = ckpt.with_suffix(".gguf")
     gpt2_ckpt = ROOT / "build" / "smoke" / "gpt2-124m-widths"
     gptq_ckpt = ckpt.with_name(ckpt.name + "-gptq")
     for d in (ckpt, gpt2_ckpt):
@@ -9009,19 +9648,15 @@ def main() -> None:
                       args.layers, np, bf16)
         say(f"wrote a {args.layers}-layer Llama-3-8B-width checkpoint "
             f"({nbytes / 1e9:.2f} GB)")
+        par_ref = {}
         int8 = step("phases 3, 5 and 15 (a)-(c), (e) (direct)", phase3,
-                    torch, np, ckpt,
-                    args.layers, results)
+                    torch, np, ckpt, args.layers, results, par_ref)
+        step("phase 19 (parallelism, cut: the 24-token prompt, int8)",
+             phase19, torch, np, ckpt, results, par_ref, False)
         step("phases 4 and 5 (batched)", phase4, torch, np, ckpt,
              args.layers, results, args.plant_fault)
         q4_0 = step("phase 6a (q4_0 direct)", phase6a, torch, np, ckpt,
                     args.layers, results, int8)
-        step("write the GGUF", write_smoke_gguf, gguf_path, args.layers, np,
-             bf16)
-        say(f"wrote the checkpoint as a Q4_K/Q6_K GGUF "
-            f"({gguf_path.stat().st_size / 1e9:.2f} GB)")
-        step("phase 6b (GGUF batched)", phase6b, torch, np, gguf_path,
-             args.layers, results)
         nbytes = step("write the GPT-2 checkpoint", write_gpt2_checkpoint,
                       gpt2_ckpt, np, bf16)
         say(f"wrote a GPT-2 124M-width checkpoint ({nbytes / 1e9:.2f} GB)")
@@ -9059,7 +9694,6 @@ def main() -> None:
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(gpt2_ckpt, ignore_errors=True)
         shutil.rmtree(gptq_ckpt, ignore_errors=True)
-        gguf_path.unlink(missing_ok=True)
     say(json.dumps({"kernels": results}))
     say(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -597,3 +597,70 @@ def test_speech_loads_nothing_of_jax(tmp_path):
     for line in ("STT 200", "TTS 200", "STREAM True", "F5 True",
                  "LSTM (3, 1, 1, 2)", "FOREIGN []"):
         assert line in proc.stdout, proc.stdout
+
+
+def test_the_scan_covers_the_parallel_package():
+    """parallel/ is among the scanned sources, every module of it."""
+    names = {p.name for p in SOURCES
+             if p.parent.name == "parallel"
+             and p.parent.parent.name == "whisper_tensor_tpu_torch"}
+    assert {"mesh.py", "comm.py", "tp.py", "ring_attention.py", "moe.py",
+            "pipeline.py"} <= names
+
+
+_PARALLEL_SCRIPT = r"""
+import os, sys
+import numpy as np
+import torch
+from whisper_tensor_tpu_torch.importers.recipes.llm.gpt2 import (
+    GPT2Config, build_gpt2_step, random_gpt2_weights)
+from whisper_tensor_tpu_torch.interfaces.text import TextInferenceInterface
+from whisper_tensor_tpu_torch.model import Model
+from whisper_tensor_tpu_torch.parallel.mesh import (
+    GPT2_RULES, Mesh, distributed_init, make_mesh)
+from whisper_tensor_tpu_torch.parallel.moe import moe_ffn, shard_moe_params
+from whisper_tensor_tpu_torch.parallel.pipeline import pipeline_apply
+from whisper_tensor_tpu_torch.parallel.ring_attention import (
+    ring_attention_sharded)
+print("BACKEND", distributed_init("file://" + os.path.join(sys.argv[1], "s"),
+                                  1, 0, device="cpu"))
+cfg = GPT2Config(n_layer=1, n_head=2, n_embd=32, vocab_size=64,
+                 n_positions=16)
+m = Model.new_from_onnx(build_gpt2_step(random_gpt2_weights(cfg), cfg,
+                                        max_len=16))
+mesh = make_mesh(tp=1, device="cpu")
+it = TextInferenceInterface(m, 16, prompt_buckets=(8,), mesh=mesh,
+                            shard_rules=GPT2_RULES, device="cpu")
+print("TOKENS", it.generate_tokens(np.array([[1, 2, 3]]), 4).shape,
+      mesh.comm_calls > 0)
+q = torch.randn(1, 2, 8, 4)
+print("RING", ring_attention_sharded(q, q, q, Mesh(("sp",), (1,),
+                                                   device="cpu")).shape)
+p = {"router_w": np.ones((2, 4), np.float32),
+     "w_gate": np.ones((2, 4, 3), np.float32),
+     "w_up": np.ones((2, 4, 3), np.float32),
+     "w_down": np.ones((2, 3, 4), np.float32)}
+sp = shard_moe_params(p, make_mesh(device="cpu"))
+print("MOE", moe_ffn(torch.ones(5, 4), *sp.values(), k=1).shape)
+print("PIPE", pipeline_apply(lambda w, h: h @ w, torch.eye(4)[None],
+                             torch.ones(2, 4), Mesh(("pp",), (1,),
+                                                    device="cpu"),
+                             microbatches=2).shape)
+print("FOREIGN", sorted(m for m in sys.modules
+                        if m in ("jax", "whisper_tensor_tpu")
+                        or m.startswith(("jax.", "whisper_tensor_tpu."))))
+"""
+
+
+def test_parallel_serving_loads_nothing_of_jax(tmp_path):
+    """A one-rank gloo world on the CPU: a mesh-served GPT-2, ring
+    attention, the MoE layer and the pipeline, in a fresh interpreter."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PARALLEL_SCRIPT, str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for line in ("BACKEND gloo", "TOKENS (1, 4) True",
+                 "RING torch.Size([1, 2, 8, 4])", "MOE torch.Size([5, 4])",
+                 "PIPE torch.Size([2, 4])", "FOREIGN []"):
+        assert line in proc.stdout, proc.stdout

@@ -236,7 +236,7 @@ def test_unported_modes_raise(models):
     with pytest.raises(ValueError, match="unknown quantize mode 'q2_k'"):
         TextInferenceInterface(m, max_len=MAX_LEN, device="cpu",
                                quantize="q2_k")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be a parallel.mesh.Mesh"):
         TextInferenceInterface(m, max_len=MAX_LEN, device="cpu", mesh=object())
     # adapters need dense weights, as in the JAX package
     port = TextInferenceInterface(m, max_len=MAX_LEN, device="cpu",

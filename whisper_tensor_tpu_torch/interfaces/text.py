@@ -44,8 +44,19 @@ Also ported (reference :195-214, :868-978, :1236-1441):
     de-fused graph. `step(..., lora_idx=)` runs the adapted graph;
     without lora_idx the pre-surgery graph runs (the base model), as
     the reference's all-base program variant does.
-Not ported yet, and raising NotImplementedError: windowed decode,
-meshes.
+  * multi-device serving (`mesh=`, `shard_rules=`, reference :262,
+    :273-277, :588-603, :635-643, :1197-1203) on a parallel.mesh.Mesh:
+    every rank of the mesh builds the interface and makes the same
+    calls. parallel/tp.py cuts the step graph, the weights and the KV
+    caches over `tp` (heads split where tp divides them, else
+    replicated); matmul fusion stays off, as in the reference. Over
+    `dp` a batch of B rows is cut into B/dp rows a rank when dp divides
+    B (else every rank runs all rows), and each step's logits are
+    gathered, so every rank picks the same tokens (greedy, or sampled
+    from one generator seeded alike on each) and returns all rows.
+    Beam search and hidden states need a batch dp does not cut; the
+    batcher, the server and the cli take no mesh, as in the reference.
+Not ported yet, and raising NotImplementedError: windowed decode.
 """
 
 from __future__ import annotations
@@ -333,12 +344,23 @@ class TextInferenceInterface:
                  tokenizer=None, eos_token_id=None,
                  quantize: Optional[str] = None,
                  weight_dtype: Optional[DType] = None,
-                 window_models=None, mesh=None,
+                 window_models=None, mesh=None, shard_rules=None,
                  device=None):
         if window_models:
             raise _not_ported("windowed decode (window_models)")
         if mesh is not None:
-            raise _not_ported("multi-device serving (mesh)")
+            from ..parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh (see "
+                                f"make_mesh), not {type(mesh).__name__}")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
+        self.shard_rules = shard_rules
+        self._dp = 1 if mesh is None else mesh.shape.get("dp", 1)
         self.device = resolve_device(device)
         self.model = model
         self.max_len = max_len
@@ -366,9 +388,11 @@ class TextInferenceInterface:
             self.eos_token_ids = ids or None
         milli, weight_inputs = model.graph.to_milli()
         self.milli = milli
-        # the numpy graph passes (milli/transforms.py)
-        self._fused: Dict[str, List[Tuple[str, int]]] = \
+        # the numpy graph passes (milli/transforms.py); no fusion under a
+        # mesh (reference :318-322)
+        self._fused: Dict[str, List[Tuple[str, int]]] = (
             fuse_parallel_matmuls(milli, set(weight_inputs))
+            if mesh is None else {})
         live = [n for n in milli.inputs
                 if n in weight_inputs or n in self._fused]
         self._quantized: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
@@ -423,6 +447,7 @@ class TextInferenceInterface:
             model.graph.by_name[self.cache_in_names[0]]].info
         self.n_heads = int(info.dims()[1].value())
         self.head_dim = int(info.dims()[3].value())
+        self._tp = None            # the rank's parallel.tp.TpPlan
         self._exec = self._executor(milli)
         self._weights_dev: Optional[Dict[str, torch.Tensor]] = None
         # the batcher's loop and an HTTP thread's logprobs rescoring may
@@ -442,10 +467,49 @@ class TextInferenceInterface:
 
     def _executor(self, milli) -> GraphExecutor:
         """An executor of `milli` with the port's own pass applied on a
-        copy: `self.milli` stays the JAX package's graph node for node."""
-        run = copy.copy(milli)
+        copy: `self.milli` stays the JAX package's graph node for node.
+        Under a mesh the copy is this rank's share (parallel/tp.py), and
+        `self._tp` its plan."""
+        if self.mesh is None:
+            run = copy.copy(milli)
+        else:
+            from ..parallel.tp import shard_graph
+
+            plan = shard_graph(
+                milli, self.mesh, self.shard_rules or [],
+                {n: self._weight_shape(n) for n in self.weight_names},
+                self.weight_dtypes,
+                packed={n: int(p["bits"]) for n, p in self._packed.items()})
+            if self._tp is not None and any(
+                    plan.inputs.get(n) != self._tp.inputs.get(n)
+                    for n in set(plan.inputs) | set(self._tp.inputs)
+                    if "::lora_" not in n):
+                raise ValueError("the adapted graph cuts the base weights "
+                                 "differently from the base graph")
+            # install_adapters makes the adapted graph's plan last: it
+            # places the adapter stacks too
+            self._tp = plan
+            run = plan.graph
         pair_cache_writes(run)
         return GraphExecutor(run, self.device)
+
+    def _weight_shape(self, n: str) -> Tuple[int, ...]:
+        """The global shape of weight input `n` as it is fed."""
+        for suffix, key in (("::scale", None), ("::pscales", "scales"),
+                            ("::poffsets", "offsets")):
+            if n.endswith(suffix):
+                base = n[:-len(suffix)]
+                return tuple((self._quantized[base][1] if key is None
+                              else self._packed[base][key]).shape)
+        if n in self._quantized:
+            return tuple(self._quantized[n][0].shape)
+        if n in self._packed:
+            return tuple(self._packed[n]["q"].shape)
+        if n in self._lora_stacks:
+            return tuple(self._lora_stacks[n].shape)
+        g = self.model.graph
+        return tuple(int(d.value()) for d in
+                     g.tensors[g.by_name[n]].info.dims())
 
     # ------------------------------------------------------------------
     def _dense_np(self, n: str, dtype: Optional[DType] = None) -> np.ndarray:
@@ -535,7 +599,11 @@ class TextInferenceInterface:
         return out
 
     def load_weights(self, arrays: Mapping[str, np.ndarray]) -> None:
-        """Upload a weight set named as `host_weights` names it."""
+        """Upload a weight set named as `host_weights` names it (under a
+        mesh, the global arrays: this rank's blocks go up)."""
+        if self._tp is not None:
+            arrays = self._tp.shard_weights(arrays, {
+                n: int(p["bits"]) for n, p in self._packed.items()})
         self._weights_dev = carry_weights(arrays, self.weight_dtypes,
                                           self.device)
 
@@ -546,6 +614,8 @@ class TextInferenceInterface:
         the rest, the adapter stacks always (their slot count differs).
         Weights are read only, so sharing is safe. A fused weight of
         `other` shares nothing with a de-fused interface's members."""
+        if self.mesh is not None or other.mesh is not None:
+            raise NotImplementedError("share_weights under a mesh")
         theirs = other._weights()
         shared = {n: theirs[n] for n in self.weight_names
                   if n in theirs and n not in self._lora_stacks
@@ -572,6 +642,8 @@ class TextInferenceInterface:
         if self.row_extra_names:
             raise ValueError("an interface with adapters installed runs a "
                              "graph that takes lora_idx: no eval backend")
+        if self.mesh is not None:
+            raise NotImplementedError("an eval backend under a mesh")
         if self._eval_backend is None:
             self._eval_backend = EvalBackend(
                 "torch", device=self.device).bind(
@@ -583,12 +655,24 @@ class TextInferenceInterface:
             self.model.graph.by_name["logits"]].info
         return int(info.dims()[-1].value())
 
+    def _dp_cut(self, batch: int) -> bool:
+        """True when a batch of `batch` rows is cut over dp (reference
+        :1197-1203: only when dp divides it)."""
+        return self._dp > 1 and batch % self._dp == 0
+
     def fresh_cache(self, batch: int) -> List[torch.Tensor]:
+        """Zeroed KV caches for `batch` rows: under a mesh, this rank's
+        (its rows of a batch cut over dp, its heads where tp cuts
+        them)."""
+        if self._dp_cut(batch):
+            batch //= self._dp
         out = []
         for n in self.cache_in_names:
             info = self.model.graph.tensors[self.model.graph.by_name[n]].info
             dims = tuple(batch if not d.is_known else int(d.value())
                          for d in info.dims())
+            if self._tp is not None:
+                dims = self._tp.local_dims(n, dims)
             out.append(torch.zeros(dims, dtype=to_torch(self.cache_dtype),
                                    device=self.device))
         return out
@@ -612,10 +696,29 @@ class TextInferenceInterface:
         on the device -> logits (B, S, V). `caches` are updated in
         place. lora_idx: (B,) int64 adapter slots on the device, which
         run the adapted graph (install_adapters); without it the base
-        model runs."""
+        model runs. Under a mesh whose dp cuts B, the caches hold this
+        rank's rows (fresh_cache), the rank runs its rows and the logits
+        of all rows are gathered."""
+        B = ids.shape[0]
+        cut = self._dp_cut(B)
+        if cut:
+            from ..parallel import comm
+
+            b = B // self._dp
+            rows = slice(self.mesh.index("dp") * b,
+                         (self.mesh.index("dp") + 1) * b)
+            if caches and caches[0].shape[0] != b:
+                raise ValueError(f"caches of {caches[0].shape[0]} rows for "
+                                 f"a rank's {b} of {B} (fresh_cache(B))")
+            ids = ids[rows]
+            if pos.dim() == 1:
+                pos = pos[rows]
+            if lora_idx is not None:
+                lora_idx = lora_idx[rows]
         feeds = self._feeds(ids, pos, caches, lora_idx)
         run = self._exec if lora_idx is None else self._exec_lora
-        return run(feeds)["logits"]
+        logits = run(feeds)["logits"]
+        return comm.all_gather(logits, self.mesh, "dp", 0) if cut else logits
 
     # ------------------------------------------------------------------
     def _prompt(self, prompt_ids) -> Tuple[torch.Tensor, int]:
@@ -825,7 +928,7 @@ class TextInferenceInterface:
                 return deepest
             if kind in ("SimpleBinary", "SimpleUnary", "Cast", "CastLike",
                         "Reshape", "Transpose", "Identity", "Squeeze",
-                        "Unsqueeze") and deepest is not None:
+                        "Unsqueeze", "AllGather") and deepest is not None:
                 tid = deepest
                 continue
             break
@@ -858,6 +961,8 @@ class TextInferenceInterface:
         lm_head's input), from a prefill that stops at the tap. Backs
         /v1/embeddings."""
         ids, L = self._prompt(prompt_ids)
+        if self._dp_cut(ids.shape[0]):
+            raise NotImplementedError("hidden states over a mesh's dp axis")
         pos = torch.zeros((), dtype=torch.int64, device=self.device)
         feeds = self._feeds(ids, pos, self.fresh_cache(ids.shape[0]))
         return to_host(self._hidden_executor()(feeds)["hidden"][:, :L])
@@ -937,6 +1042,8 @@ class TextInferenceInterface:
         log-probabilities (B,) f32, before the length penalty."""
         ids, L = self._prompt(prompt_ids)
         B, W = ids.shape[0], int(beam)
+        if self._dp_cut(B) or self._dp_cut(B * W):
+            raise NotImplementedError("beam search over a mesh's dp axis")
         R = B * W
         eos = (eos_token_id if eos_token_id is not None
                else (self.eos_token_id if self.eos_token_id is not None
