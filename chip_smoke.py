@@ -5,7 +5,8 @@
                           [--generic-only] [--image-only] [--train-only]
                           [--inspect-only] [--text-family-only]
                           [--speech-only] [--media-only] [--gguf-only]
-                          [--parallel-only] [--plans]
+                          [--parallel-only] [--train-parallel-only]
+                          [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -179,8 +180,9 @@ Phases:
      plain path. `--generic-only` writes the checkpoint and runs phase
      11 alone.
  12. Gemma-3 1B (q4_0; 6 layers, so its global layer is in), Gemma-2 2B
-     (int8; then its weights as a Q8_0 GGUF of arch gemma2, dequantized
-     on the host by the loader), Gemma 2B and Phi-3-mini, each at its
+     (int8; its weights as a Q8_0 GGUF of arch gemma2, dequantized on
+     the host by the loader, under --gguf-only since phase 20 came),
+     Gemma 2B and Phi-3-mini, each at its
      published widths (FAMILIES; the others 2 layers deep, Gemma-2's
      local and global layer both in) on seeded weights, bf16, max_len
      2048,
@@ -310,7 +312,10 @@ Phases:
      content part; flash_attention in the tower and the embeds prefill,
      decode_attention in the decode; the decode stands a teacher-forced
      embeds prefill. Each family prints its load seconds, prefill or
-     scan ms, decode tok/s and card bytes.
+     scan ms, decode tok/s and card bytes. Since phase 20 came the
+     default run leaves out (a)'s naive build and its check against the
+     absorbed one and runs (c) at 2 layers; `--text-family-only` runs
+     them as above.
  17. speech at published widths, seeded weights (`--speech-only` runs it
      alone after the build, with the 34 recurrent and spectral corpus
      cases of phase 11 (a)). (a) Whisper at openai/whisper-large-v3's
@@ -380,6 +385,32 @@ Phases:
      it takes on CUDA tensors, each in its own pair of processes).
      `--parallel-only` writes the checkpoint, builds the single-rank
      int8 and q4_0 references and runs phase 19 alone.
+  20. training across ranks (`LMTrainer(mesh=, rules=, fsdp=)`, the
+     sharded checkpoint, `PipelinedLMTrainer`), `--train-parallel-only`:
+     (g) a world of one under NCCL: LMTrainer(mesh=make_mesh()) on phase
+     14 (a)'s model (f32, B 8 x S 1,024, 2 steps) against the trainer
+     without a mesh (losses within 1e-6 relative, params within 1e-6 of
+     each tensor's largest |p|), and (f)'s pp=1 reference. Then two
+     ranks sharing the card over gloo, each case against rank 0's
+     single-rank trainer on the same card and batch: (a) GPT-2 124M at
+     dp=2, AdamW, B 8 x S 1,024, 3 f32 steps (losses within rtol 2e-4,
+     atol 1e-5) and 4 bf16 steps (rtol 2e-2; timed); (b) (a) under FSDP,
+     the masters' and AdamW state's bytes a rank beside (a)'s; (c)
+     Llama-3-8B widths, 2 layers, full-parameter AdamW in f32, LLAMA_RULES,
+     B 1 x S 1,024, tp=2, 2 steps, no fallback of the tp pass, a sharded
+     checkpoint that the single-rank trainer loads and whose next step
+     equals the world's; (d) (c)'s model at sp=2, SGD (each rank holds
+     the whole model under sp: two copies with AdamW's state do not fit
+     one card); (e) QLoRA at dp=2
+     (phase 14 (b)'s setup, --layers deep, 4 steps): int8_matmul and
+     int8_matmul_dx launches a rank equal to the lowering's QuantMatMul
+     and Int8MatMul backward calls, a rerun with every such call held to
+     agreement_bound, the adapters within 2 x steps x lr plus a bf16
+     ulp of the single rank's; (f) PipelinedLMTrainer over GPT-2 124M at pp=2, 4
+     microbatches, losses against pp=1. Each prints load s, ms a step,
+     tok/s, card GB a rank and the collectives' calls and host ms a
+     step. The default run carries (e) at one layer for 2 steps in phase
+     19's gloo world and (g) at B 2 x S 512 in its world of one.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -5362,24 +5393,30 @@ def serve_family(torch, np, label: str, loader: str, path: Path,
         fail(f"{label}: decode-step logits disagree with the prefill logits")
 
 
-def phase12(torch, np, root: Path, layers: int, bf16, results) -> None:
-    """Phase 12: Gemma-3 1B (q4_0), Gemma-2 2B (int8; then the same
-    weights as a Q8_0 GGUF of arch gemma2), Gemma 2B and Phi-3-mini at
-    their published widths through the port's Server (serve_family)."""
+def phase12(torch, np, root: Path, layers: int, bf16, results,
+            gguf: bool = False) -> None:
+    """Phase 12: Gemma-3 1B (q4_0), Gemma-2 2B (int8), Gemma 2B and
+    Phi-3-mini at their published widths through the port's Server
+    (serve_family); with `gguf` (under --gguf-only since phase 20 came)
+    only the Gemma-2 weights as a Q8_0 GGUF of arch gemma2."""
     say(f"phase 12: Gemma, Gemma-2, Gemma-3 and Phi-3 at published widths; "
         f"host RSS {host_rss_gb():.1f} GB")
     for name, (cfg, depth, quantize) in FAMILIES.items():
+        if gguf and name != "gemma-2-2b":
+            continue
         depth = depth or layers
         d = root / name
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
         try:
-            nbytes = write_family(d, cfg, depth, np, bf16)
-            say(f"  wrote {name} ({depth} layers, {nbytes / 1e9:.2f} GB)")
-            serve_family(torch, np, name, "transformers", d, depth, quantize,
-                         results)
-            free_memory(torch)
-            if name == "gemma-2-2b":
+            if not gguf:
+                nbytes = write_family(d, cfg, depth, np, bf16)
+                say(f"  wrote {name} ({depth} layers, {nbytes / 1e9:.2f} "
+                    f"GB)")
+                serve_family(torch, np, name, "transformers", d, depth,
+                             quantize, results)
+                free_memory(torch)
+            else:
                 gg = d / "gemma-2-2b.gguf"
                 write_gemma2_gguf(gg, cfg, depth, np, bf16)
                 say(f"  wrote it as a Q8_0 GGUF of arch gemma2 "
@@ -7275,9 +7312,11 @@ def moe_layer_products(iface, layer: int) -> int:
     return n
 
 
-def phase16_deepseek(torch, np, root: Path, bf16, results) -> None:
-    """(a) DeepSeek-V2-Lite widths, 2 layers, int8, absorbed and naive
-    MLA over /v1/completions."""
+def phase16_deepseek(torch, np, root: Path, bf16, results,
+                     both: bool = True) -> None:
+    """(a) DeepSeek-V2-Lite widths, 2 layers, int8, absorbed MLA over
+    /v1/completions, and with `both` (--text-family-only since phase 20
+    came) the naive build against it."""
     from whisper_tensor_tpu_torch.milli import transforms
     from whisper_tensor_tpu_torch.server.main import Server
     from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
@@ -7298,7 +7337,7 @@ def phase16_deepseek(torch, np, root: Path, bf16, results) -> None:
     prompt = np.asarray(ByteTokenizer().encode(text), np.int64)[None]
     kept = {}
     try:
-        for absorb in (True, False):
+        for absorb in (True, False) if both else (True,):
             label = f"deepseek {'absorbed' if absorb else 'naive'}"
             spy, qspy = RouteSpy(), quant_spy(transforms)
             api = None
@@ -7368,6 +7407,8 @@ def phase16_deepseek(torch, np, root: Path, bf16, results) -> None:
             free_memory(torch)
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    if not both:
+        return
     # the two builds' teacher-forced logits over the absorbed build's
     # tokens: the same math in another rounding order
     if not np.array_equal(kept[True][0], kept[False][0]):
@@ -7503,11 +7544,13 @@ def write_world_vocab(path: Path, np) -> None:
             f.write(f"{i} {rep} {len(t)}\n")
 
 
-def phase16_rwkv(torch, np, root: Path, results) -> None:
-    """(c) RWKV-7 World 1.5B widths, 4 layers, a .pth by torch.save: a
-    512-token scan and 64 tokens of step-by-step greedy feedback; then
-    on the prompt's first 32 tokens 64 tokens of the served greedy loop
-    over the WebSocket and /v1/completions against stepwise feedback."""
+def phase16_rwkv(torch, np, root: Path, results,
+                 all_layers: bool = True) -> None:
+    """(c) RWKV-7 World 1.5B widths, 4 layers (2 in the default run,
+    without `all_layers`), a .pth by torch.save: a 512-token scan and 64 tokens of
+    step-by-step greedy feedback; then on the prompt's first 32 tokens
+    64 tokens of the served greedy loop over the WebSocket and
+    /v1/completions against stepwise feedback."""
     from whisper_tensor_tpu_torch.importers.recipes.llm import rwkv7
     from whisper_tensor_tpu_torch.server.main import Server
     from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
@@ -7517,7 +7560,8 @@ def phase16_rwkv(torch, np, root: Path, results) -> None:
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
     pth, vocab = d / "rwkv7-world-1.5b-widths.pth", d / "rwkv_vocab.txt"
-    cfg = rwkv7.Rwkv7Config(**RWKV7_1B5)
+    cfg = rwkv7.Rwkv7Config(**dict(RWKV7_1B5, n_layer=RWKV7_1B5["n_layer"]
+                                   if all_layers else 2))
     sd = rwkv7.random_rwkv7_weights(cfg, seed=SEED + 166)
     torch.save({k: torch.from_numpy(v).to(torch.bfloat16)
                 for k, v in sd.items()}, str(pth))
@@ -7755,10 +7799,11 @@ def phase16_llava(torch, np, root: Path, bf16, results) -> None:
     shutil.rmtree(d, ignore_errors=True)
 
 
-def phase16(torch, np, root: Path, bf16, results) -> None:
+def phase16(torch, np, root: Path, bf16, results, full: bool = True) -> None:
     """Phase 16: DeepSeek-V2-Lite (MLA, MoE), flan-t5-base, RWKV-7 World
     1.5B and LLaVA-1.5-7B at published widths through the port's entry
-    points."""
+    points. The default run (not `full`, since phase 20 came) leaves
+    DeepSeek's naive build out and runs RWKV-7 at 2 of its 4 layers."""
     say(f"phase 16: the rest of the text family at published widths; host "
         f"RSS {host_rss_gb():.1f} GB")
     for label, fn, args in (
@@ -7767,7 +7812,10 @@ def phase16(torch, np, root: Path, bf16, results) -> None:
             ("(c) RWKV-7 World 1.5B", phase16_rwkv, ()),
             ("(d) LLaVA-1.5-7B", phase16_llava, (bf16,))):
         t0 = time.perf_counter()
-        fn(torch, np, root, *args, results)
+        if fn in (phase16_deepseek, phase16_rwkv):
+            fn(torch, np, root, *args, results, full)
+        else:
+            fn(torch, np, root, *args, results)
         free_memory(torch)
         say(f"  [{label}: {time.perf_counter() - t0:.1f} s]")
 
@@ -8943,7 +8991,7 @@ def par_collect(world: tuple) -> list:
                 pass
             dead = [r for r in dead if r not in got]
             if dead or time.perf_counter() > deadline:
-                fail(f"phase 19: ranks {sorted(got)} of {n} answered; "
+                fail(f"{task.__name__}: ranks {sorted(got)} of {n} answered; "
                      f"ranks {dead} ended without an answer (exit codes "
                      f"{[procs[r].exitcode for r in dead]})")
     finally:
@@ -8957,7 +9005,7 @@ def par_collect(world: tuple) -> list:
            if not ok]
     if bad:
         say("\n".join(bad))
-        fail(f"phase 19: {task.__name__} failed on a rank of {n}")
+        fail(f"{task.__name__} failed on a rank of {n}")
     return [got[r][1] for r in range(n)]
 
 
@@ -9116,7 +9164,8 @@ def par_primitives(torch, np, rank, n, device) -> dict:
     """(c) on one rank: ring attention (causal and not), moe_ffn under
     ep = n and pipeline_apply at pp = n with its gradients, each against
     the single-rank result on the same inputs (f32), and their times."""
-    from whisper_tensor_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from whisper_tensor_tpu_torch.parallel.mesh import (
+        Mesh, Sharding, local_block, make_mesh)
     from whisper_tensor_tpu_torch.parallel.moe import (moe_ffn,
                                                        shard_moe_params)
     from whisper_tensor_tpu_torch.parallel.pipeline import pipeline_apply
@@ -9186,8 +9235,9 @@ def par_primitives(torch, np, rank, n, device) -> dict:
 
     pp = Mesh(("pp",), (n,), device=device)
     ps = {k2: t.clone().requires_grad_(True) for k2, t in stack.items()}
-    got, ms = timed(lambda: pipeline_apply(stage, ps, xp, pp,
-                                           microbatches=M))
+    got, ms = timed(lambda: pipeline_apply(
+        stage, {k2: local_block(t, Sharding(pp, ("pp",)), k2)
+                for k2, t in ps.items()}, xp, pp, microbatches=M))
     (got ** 2).sum().backward()
     rs = {k2: t.clone().requires_grad_(True) for k2, t in stack.items()}
     want, plain_ms = timed(lambda: sequential(rs))
@@ -9200,9 +9250,11 @@ def par_primitives(torch, np, rank, n, device) -> dict:
     return out
 
 
-def phase19_rank(torch, np, rank, n, device, ckpt, ref_toks, full):
+def phase19_rank(torch, np, rank, n, device, ckpt, ref_toks, full,
+                 cfg=None):
     """(a) then (c) on one rank of the two-rank gloo world; ref_toks:
-    {build: {prompt: the single rank's greedy tokens}}."""
+    {build: {prompt: the single rank's greedy tokens}}. The cut (not
+    `full`) then runs phase 20 (e)'s cut in the same world."""
     from whisper_tensor_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(tp=n, device=device)
@@ -9213,23 +9265,35 @@ def phase19_rank(torch, np, rank, n, device, ckpt, ref_toks, full):
     say(f"  [rank {rank}: (a) done]")
     out["primitives"] = par_primitives(torch, np, rank, n, device)
     say(f"  [rank {rank}: (c) done]")
+    if not full:
+        free_memory(torch)
+        out["train"] = phase20_rank(torch, np, rank, n, device, False, 1,
+                                    cfg)
     return out
 
 
-def phase19_nccl(torch, np, rank, n, device, ckpt, ref_toks):
+def phase19_nccl(torch, np, rank, n, device, ckpt, ref_toks,
+                 cfg=None):
     """(b) in a world of one: the mesh path at tp=1 on phase 3's
     checkpoint (int8), the 24-token prompt (teacher-forced on the single
-    rank's answer, `ref_toks`)."""
+    rank's answer, `ref_toks`). With `train`, then phase 20 (g)'s cut."""
     from whisper_tensor_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(tp=1, device=device)
     iface, load_s = par_load(torch, ckpt, "int8", mesh)
     ids = par_prompts(np, False)["24-token"]
     toks = iface.generate_tokens(ids[None], PAR_NEW)[0]
-    return {"backend": mesh.backend, "load_s": load_s, "tokens": toks,
-            "forced": forced_rows(torch, np, iface, ids, ref_toks),
-            "comm_calls": mesh.comm_calls,
-            "fallbacks": list(iface._tp.fallbacks)}
+    out = {"backend": mesh.backend, "load_s": load_s, "tokens": toks,
+           "forced": forced_rows(torch, np, iface, ids, ref_toks),
+           "comm_calls": mesh.comm_calls,
+           "fallbacks": list(iface._tp.fallbacks)}
+    if cfg is not None:
+        globals().update(cfg)
+        del iface
+        free_memory(torch)
+        out["train"] = pt_case_g(torch, np, device, PT_CUT["g_B"],
+                                 PT_CUT["g_S"])
+    return out
 
 
 def par_agree(np, toks, forced, ref, what: str) -> None:
@@ -9297,9 +9361,20 @@ def phase19(torch, np, ckpt: Path, results, refs: dict, full: bool,
     # the cut starts (b) beside (a) and (c), whose timings it then
     # shares the card and host with; the full phase runs them in turn
     b_world = None if full else par_start(
-        1, nccl, device, phase19_nccl, ckpt, ref_toks["int8"]["24-token"])
-    outs = par_collect(par_start(PAR_TP, "gloo", device, phase19_rank, ckpt,
-                                 ref_toks, full))
+        1, nccl, device, phase19_nccl, ckpt, ref_toks["int8"]["24-token"],
+        pt_config())
+    world = par_start(PAR_TP, "gloo", device, phase19_rank, ckpt, ref_toks,
+                      full, pt_config())
+    # the cut's phase 20 (e) reference, here while the worlds run
+    t0 = time.perf_counter()
+    e_ref = None if full else pt_qlora_reference(
+        torch, np, PT_CUT["qlora_layers"], PT_CUT["qlora_steps"], device)
+    free_memory(torch)
+    say(f"  [phase 20 (e)'s single-rank reference in this process: "
+        f"{time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    outs = par_collect(world)
+    say(f"  [the worlds answered {time.perf_counter() - t0:.1f} s later]")
     for rank, o in enumerate(outs):
         say(f"  rank {rank} on {o['device']} ({o['backend']})")
         for q, s in o["serving"].items():
@@ -9355,6 +9430,717 @@ def phase19(torch, np, ckpt: Path, results, refs: dict, full: bool,
              "back")
     par_agree(np, b["tokens"], b["forced"], refs["int8"]["24-token"],
               "(b) tp=1 under NCCL")
+    if not full:
+        say("phase 20's cut (the same worlds): (e) QLoRA at dp=2, "
+            f"{PT_CUT['qlora_layers']} layer, {PT_CUT['qlora_steps']} "
+            f"steps; (g) a world of one under {b['backend']}")
+        phase20_check_qlora(np, [o["train"] for o in outs], results, e_ref)
+        phase20_check_g(np, b["train"])
+
+
+# ---------------------------------------------------------------------------
+# phase 20: training across ranks (LMTrainer's dp, sp, tp and fsdp, sharded
+# checkpoints, PipelinedLMTrainer)
+PT_GPT2 = dict(B=8, S=1024, f32_steps=3, bf16_steps=4)
+PT_LLAMA = dict(layers=2, B=1, S=1024, steps=2)
+PT_QLORA = dict(steps=4)
+PT_PIPE = dict(B=8, S=1024, microbatches=4, steps=2)
+# the default run's cut: (e) at one layer for 2 steps, (g) at this batch
+PT_CUT = dict(qlora_layers=1, qlora_steps=2, g_B=2, g_S=512)
+# (e)'s gates on the gradient sum over dp (phase20_check_qlora)
+PT_E = dict(grad=0.05, adam=0.1)
+# the settings a spawned rank takes from its parent (a rehearsal on the
+# CPU shrinks them in the parent)
+PT_CONFIG = ("GPT2_WIDTHS", "WIDTHS", "QLORA", "PT_GPT2", "PT_LLAMA",
+             "PT_QLORA", "PT_PIPE", "PT_CUT")
+
+
+def pt_config() -> dict:
+    return {k: globals()[k] for k in PT_CONFIG}
+
+
+def pt_gpt2_model():
+    """Phase 14 (a)'s model: GPT-2 124M's training graph on seeded
+    weights, and the weights by HF name (the layered model's source)."""
+    from whisper_tensor_tpu_torch.importers.recipes.llm.gpt2 import (
+        GPT2Config, build_gpt2_train, random_gpt2_weights)
+    from whisper_tensor_tpu_torch.model import Model
+
+    cfg = GPT2Config(**GPT2_WIDTHS)
+    wg = random_gpt2_weights(cfg, SEED)
+    return cfg, wg, Model.new_from_onnx(build_gpt2_train(wg, cfg))
+
+
+def pt_llama_model(layers: int, dtype_name: str):
+    """The smoke checkpoint's seeded weights (checkpoint_tensors) as
+    Llama-3-8B widths' training graph, `layers` deep, max_len 1,024."""
+    import numpy as np
+
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.recipes.llm.llama import (
+        LlamaConfig, build_llama_train)
+    from whisper_tensor_tpu_torch.model import Model
+
+    cfg = LlamaConfig(num_hidden_layers=layers, **{
+        k: WIDTHS[k] for k in ("hidden_size", "num_attention_heads",
+                               "num_key_value_heads", "intermediate_size",
+                               "vocab_size", "rope_theta", "rms_norm_eps",
+                               "max_position_embeddings")})
+    weights = dict(checkpoint_tensors(layers, np))
+    model = Model.new_from_onnx(build_llama_train(
+        weights.__getitem__, cfg, max_len=PT_LLAMA["S"],
+        dtype=getattr(DType, dtype_name)))
+    del weights
+    return model
+
+
+def pt_batches(np, B: int, S: int, n: int, vocab: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, (B, S + 1)) for _ in range(n)]
+
+
+def pt_steps(torch, mesh, cuda: bool, step, batches):
+    """Run `step(batch) -> loss` on each of `batches`: the losses, and
+    the median past the first step of its ms and of its collectives'
+    calls and host ms. Both medians are over the same steps, so the
+    collectives' share of a step reads off them; the first step, with
+    the ranks' wait for each other to arrive, is left out of both."""
+    losses, rows = [], []
+    for b in batches:
+        c0 = (mesh.comm_calls, mesh.comm_seconds) if mesh else (0, 0.0)
+        t = time.perf_counter()
+        losses.append(float(step(b)))
+        if cuda:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        c1 = (mesh.comm_calls, mesh.comm_seconds) if mesh else (0, 0.0)
+        rows.append((dt * 1e3, c1[0] - c0[0], (c1[1] - c0[1]) * 1e3))
+    ms, calls, comm_ms = (statistics.median(col)
+                          for col in zip(*(rows[1:] or rows)))
+    return losses, {"ms": ms, "comm_calls": calls, "comm_ms": comm_ms}
+
+
+def pt_run(torch, make, mesh, batches, steps=None, start=None):
+    """Build a trainer (`make(mesh)`) and step it on `batches` (whole on
+    every rank): load s, losses, ms a step and the collectives' calls
+    and host ms a step (pt_steps), tok/s, this rank's peak card GB, the
+    bytes of its masters and optimizer state; `trainer`, `params`,
+    `opt` for the caller. start: (params, opt) to step from."""
+    cuda = torch.cuda.is_available() and (mesh is None
+                                          or mesh.device.type == "cuda")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = make(mesh)
+    if start is None:
+        params = tr.init_params()
+        opt = tr.init_opt_state(params)
+    else:
+        params, opt = start
+    sync()
+    load_s = time.perf_counter() - t0
+    state = [params, opt]
+
+    def step(b):
+        state[0], state[1], loss = tr.train_step(*state, b[:, :-1],
+                                                 b[:, 1:])
+        return loss
+
+    losses, timing = pt_steps(torch, mesh, cuda, step, batches[:steps])
+    params, opt = state
+    B, S = batches[0].shape[0], batches[0].shape[1] - 1
+    out = {"load_s": load_s, "losses": losses, **timing,
+           "tok_s": B * S / timing["ms"] * 1e3,
+           "gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.values()),
+           "opt_bytes": sum(x.numel() * x.element_size() for x in opt),
+           "fallbacks": (None if getattr(tr, "tp_plan", None) is None
+                         else list(tr.tp_plan.fallbacks)),
+           "trainer": tr, "params": params, "opt": opt}
+    return out
+
+
+def pt_public(r: dict) -> dict:
+    """A pt_run result without the live objects (for the parent)."""
+    return {k: v for k, v in r.items() if k not in ("trainer", "params",
+                                                    "opt")}
+
+
+def pt_free(torch, *results) -> None:
+    for r in results:
+        for k in ("trainer", "params", "opt"):
+            r.pop(k, None)
+    free_memory(torch)
+
+
+def pt_case_gpt2(torch, np, rank, mesh_dp, device, out) -> None:
+    """(a) dp=2 in f32 (against rank 0's single-rank run) and bf16
+    (timing, beside rank 0's single rank), (b) the same under FSDP."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.training.trainer import LMTrainer
+
+    cfg, _, model = pt_gpt2_model()
+    f32 = pt_batches(np, PT_GPT2["B"], PT_GPT2["S"], 1, cfg.vocab_size,
+                     SEED + 200) * PT_GPT2["f32_steps"]
+    bf16 = pt_batches(np, PT_GPT2["B"], PT_GPT2["S"], 1, cfg.vocab_size,
+                      SEED + 201) * PT_GPT2["bf16_steps"]
+
+    def make(compute=None, **kw):
+        return lambda mesh: LMTrainer(
+            model, optimizer="adamw", lr=1e-4, compute_dtype=compute,
+            mesh=mesh, device=None if mesh else device, **kw)
+
+    if rank == 0:
+        r = pt_run(torch, make(), None, f32)
+        out["a_ref"] = pt_public(r)
+        pt_free(torch, r)
+        r = pt_run(torch, make(DType.BF16), None, bf16)
+        out["a_ref_bf16"] = pt_public(r)
+        pt_free(torch, r)
+    say(f"  [rank {rank}: (a) the single-rank runs done]")
+    r = pt_run(torch, make(), mesh_dp, f32)
+    out["a"] = pt_public(r)
+    pt_free(torch, r)
+    r = pt_run(torch, make(DType.BF16), mesh_dp, bf16)
+    out["a_bf16"] = pt_public(r)
+    pt_free(torch, r)
+    r = pt_run(torch, make(fsdp=True), mesh_dp, f32)
+    out["b"] = pt_public(r)
+    pt_free(torch, r)
+    say(f"  [rank {rank}: (a), (b) done: {pt_line('dp=2', out['a'])}; "
+        f"{pt_line('fsdp', out['b'])}]")
+
+
+def pt_case_llama(torch, np, rank, n, device, out) -> None:
+    """(c) tp=2 against rank 0's single rank, the sharded checkpoint
+    into rank 0's single-rank trainer, (d) sp=2 with SGD against rank
+    0's single rank (sp keeps the whole model on each rank, and two
+    copies of it with AdamW's state and the update's temporaries, ~48 GB
+    a rank, do not fit one card)."""
+    from whisper_tensor_tpu_torch.parallel.mesh import LLAMA_RULES, make_mesh
+    from whisper_tensor_tpu_torch.training.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from whisper_tensor_tpu_torch.training.trainer import LMTrainer
+
+    t0 = time.perf_counter()
+    model = pt_llama_model(PT_LLAMA["layers"], "F32")
+    out["c_build_s"] = time.perf_counter() - t0
+    batches = pt_batches(np, PT_LLAMA["B"], PT_LLAMA["S"],
+                         PT_LLAMA["steps"] + 1, WIDTHS["vocab_size"],
+                         SEED + 202)
+    steps = PT_LLAMA["steps"]
+
+    def make(mesh, optimizer="adamw"):
+        return LMTrainer(model, optimizer=optimizer, lr=1e-4, mesh=mesh,
+                         rules=LLAMA_RULES if mesh else None,
+                         device=None if mesh else device)
+
+    def make_sgd(mesh):
+        return make(mesh, "sgd")
+
+    if rank == 0:
+        r = pt_run(torch, make, None, batches, steps)
+        out["c_ref"] = pt_public(r)
+        pt_free(torch, r)
+    say(f"  [rank {rank}: (c) the single-rank run done]")
+    mesh = make_mesh(tp=n, device=device)
+    r = pt_run(torch, make, mesh, batches, steps)
+    tr = r["trainer"]
+    (ROOT / "build" / "smoke").mkdir(parents=True, exist_ok=True)
+    ckpt = str(ROOT / "build" / "smoke" / "phase20-tp.npz")
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, r["params"], r["opt"], steps, mesh=mesh,
+                    param_shardings=tr.param_shardings,
+                    param_order=tr.weight_names)
+    out["c_save_s"] = time.perf_counter() - t0
+    nxt = batches[steps]
+    _, _, loss = tr.train_step(r["params"], r["opt"], nxt[:, :-1],
+                               nxt[:, 1:])
+    r["next_loss"] = float(loss)
+    out["c"] = pt_public(r)
+    out["c"]["shapes"] = {k: tuple(v.shape) for k, v in r["params"].items()
+                          if k in ("embed_tokens", "wq_0", "wo_0",
+                                   "lm_head")}
+    pt_free(torch, r)
+    if rank == 0:
+        t0 = time.perf_counter()
+        single = make(None)
+        fresh = single.init_opt_state(single.init_params())
+        p, s, step, _ = load_checkpoint(ckpt, opt_state_like=fresh)
+        del fresh
+        free_memory(torch)
+        out["c_load_s"] = time.perf_counter() - t0
+        _, _, loss = single.train_step(p, s, nxt[:, :-1], nxt[:, 1:])
+        out["c_resumed"] = {"step": step, "next_loss": float(loss)}
+        del single, p, s
+        Path(ckpt).unlink(missing_ok=True)
+        free_memory(torch)
+    say(f"  [rank {rank}: (c) done: {pt_line('tp=2', out['c'])}]")
+    if rank == 0:
+        r = pt_run(torch, make_sgd, None, batches, steps)
+        out["d_ref"] = pt_public(r)
+        pt_free(torch, r)
+    r = pt_run(torch, make_sgd, make_mesh(sp=n, device=device), batches,
+               steps)
+    out["d"] = pt_public(r)
+    pt_free(torch, r)
+    del model
+    free_memory(torch)
+    say(f"  [rank {rank}: (d) done: {pt_line('sp=2', out['d'])}]")
+
+
+class Int8Shadow:
+    """int8_matmul (both names the QuantMatMul paths call it by) and
+    int8_matmul_dx, each call held against its plain version on its
+    inputs (agreement_bound) while installed."""
+
+    def __init__(self):
+        from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+        from whisper_tensor_tpu_torch.backends.cuda import quant_matmul as qm
+        from whisper_tensor_tpu_torch.milli import transforms
+
+        self.qm, self.tr = qm, transforms
+        self.kernel, self.kernel_dx = qm.int8_matmul, qm.int8_matmul_dx
+        self.calls = {"int8_matmul": 0, "int8_matmul_dx": 0}
+        self.worst = {"int8_matmul": 0.0, "int8_matmul_dx": 0.0}
+
+        def check(name, got, want, mag):
+            _, share = worst_share(got, want, mag, agreement_bound)
+            self.calls[name] += 1
+            self.worst[name] = max(self.worst[name], share)
+            return got
+
+        def fwd(x, w, s):
+            return check("int8_matmul", self.kernel(x, w, s),
+                         qm.int8_matmul_plain(x, w, s),
+                         qm.int8_matmul_plain(x.float().abs(), w.abs(), s))
+
+        def dx(dy, w, s):
+            return check("int8_matmul_dx", self.kernel_dx(dy, w, s),
+                         qm.int8_matmul_dx_plain(dy, w, s),
+                         qm.int8_matmul_dx_plain(dy.float().abs(), w.abs(),
+                                                 s))
+
+        # (a wrapper counts its launches on the name it is bound to)
+        fwd.launches, dx.launches = (self.kernel.launches,
+                                     self.kernel_dx.launches)
+        self.fwd, self.dx = fwd, dx
+        qm.int8_matmul = transforms.int8_matmul = fwd
+        qm.int8_matmul_dx = dx
+
+    def close(self):
+        self.qm.int8_matmul = self.tr.int8_matmul = self.kernel
+        self.qm.int8_matmul_dx = self.kernel_dx
+        self.kernel.launches = self.fwd.launches
+        self.kernel_dx.launches = self.dx.launches
+
+
+def pt_qlora_setup(np, layers: int, steps: int, device):
+    """(e)'s model (phase 14 (b)'s setup, `layers` deep), its batches of
+    README bytes and its trainer maker (a mesh, or None: `device`)."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.training.trainer import LMTrainer
+
+    model = pt_llama_model(layers, "BF16")
+    batches = [np.concatenate([x, y[:, -1:]], axis=1)
+               for x, y in readme_batches(np, QLORA["B"], QLORA["S"], steps)]
+
+    def make(mesh):
+        return LMTrainer(model, lr=2e-4, compute_dtype=DType.BF16,
+                         param_dtype=DType.BF16, lora_rank=QLORA["rank"],
+                         lora_targets=QLORA["targets"], quantize_base="int8",
+                         remat=True, mesh=mesh,
+                         device=None if mesh else device)
+
+    return batches, make
+
+
+def pt_host(params) -> dict:
+    return {k: v.float().cpu().numpy() for k, v in params.items()}
+
+
+def pt_qlora_grads(torch, np, tr, b) -> dict:
+    """tr's adapter gradients (value_and_grad) on batch `b` at a point
+    both runs can make: the adapters' start plus seeded noise (the B
+    adapters start at 0, which would zero the A adapters' gradients)."""
+    rng = np.random.default_rng(SEED + 205)
+    p = {}
+    for k, v in tr.init_params().items():
+        noise = rng.standard_normal(tuple(v.shape)).astype(np.float32)
+        p[k] = (v.float() + torch.from_numpy(noise).to(v.device) * 1e-2
+                ).to(v.dtype)
+    _, g = tr.value_and_grad(p, b[:, :-1], b[:, 1:])
+    return pt_host(g)
+
+
+def pt_qlora_single(torch, np, batches, make) -> dict:
+    """(e)'s single-rank run: losses, timings, the adapters before and
+    after the steps, the gradients on the first batch (pt_qlora_grads)
+    and, to show what the gradient gate reads on a fault, those of its
+    first half alone (the rows rank 0 of dp=2 takes)."""
+    r = pt_run(torch, make, None, batches)
+    tr, b = r["trainer"], batches[0]
+    out = dict(pt_public(r), adapters=pt_host(r["params"]),
+               start=pt_host(tr.init_params()),
+               grads=pt_qlora_grads(torch, np, tr, b),
+               grads_half=pt_qlora_grads(torch, np, tr, b[:len(b) // 2]))
+    pt_free(torch, r)
+    return out
+
+
+def pt_qlora_reference(torch, np, layers: int, steps: int, device) -> dict:
+    """(e)'s single-rank run (pt_qlora_single) on its own setup."""
+    batches, make = pt_qlora_setup(np, layers, steps, device)
+    return pt_qlora_single(torch, np, batches, make)
+
+
+def pt_case_qlora(torch, np, rank, mesh_dp, device, layers: int,
+                  steps: int, out, reference: bool = True) -> None:
+    """(e) QLoRA at dp=2 (phase 14 (b)'s setup, `layers` deep, `steps`
+    steps): launches against the lowering's calls on this rank, every
+    int8 call of a rerun against its plain version; with `reference`,
+    rank 0's single-rank run first (the default run's cut has its
+    parent run it beside the worlds)."""
+    from whisper_tensor_tpu_torch.backends.cuda import quant_matmul as qm
+
+    t0 = time.perf_counter()
+    batches, make = pt_qlora_setup(np, layers, steps, device)
+    build_s = time.perf_counter() - t0
+    if reference and rank == 0:
+        out["e_ref"] = pt_qlora_single(torch, np, batches, make)
+    cuda = mesh_dp.device.type == "cuda"
+    spy = LoweringSpy(("QuantMatMul",))
+    try:
+        n_i8, n_dx = qm.int8_matmul.launches, qm.int8_matmul_dx.launches
+        n_bw = qm.Int8MatMul.backward_calls
+        spy.zero()
+        r = pt_run(torch, make, mesh_dp, batches)
+        launches = {"int8_matmul": qm.int8_matmul.launches - n_i8,
+                    "int8_matmul_dx": qm.int8_matmul_dx.launches - n_dx,
+                    "QuantMatMul calls": spy.calls["QuantMatMul"],
+                    "Int8MatMul backward calls":
+                        qm.Int8MatMul.backward_calls - n_bw}
+    finally:
+        spy.restore()
+    tr = r["trainer"]
+    res = dict(pt_public(r), adapters=pt_host(r["params"]), build_s=build_s,
+               grads=pt_qlora_grads(torch, np, tr, batches[0]),
+               launches=launches, layers=layers, steps=steps,
+               int8_weights=len(tr._quantized_base),
+               shadow={"int8_matmul": (0, 0.0), "int8_matmul_dx": (0, 0.0)})
+    if cuda:        # (a CPU rehearsal launches no kernel to hold)
+        sh = Int8Shadow()
+        try:
+            p = tr.init_params()
+            o = tr.init_opt_state(p)
+            for b in batches:
+                p, o, _ = tr.train_step(p, o, b[:, :-1], b[:, 1:])
+        finally:
+            sh.close()
+        res["shadow"] = {k: (sh.calls[k], sh.worst[k]) for k in sh.calls}
+    out["e"] = res
+    pt_free(torch, r)
+    del make
+    free_memory(torch)
+    say(f"  [rank {rank}: (e) done: {pt_line('qlora', res)}, launches "
+        f"{res['launches']}, shadows {res['shadow']}]")
+
+
+def pt_pipe_trainer(mesh, lr: float = 1e-4):
+    """PipelinedLMTrainer over layered_gpt2 at GPT-2 124M's widths
+    (seeded weights), tp inside the block, AdamW."""
+    from whisper_tensor_tpu_torch.importers.recipes.llm.gpt2 import (
+        GPT2Config, random_gpt2_weights)
+    from whisper_tensor_tpu_torch.parallel.pipeline_trainer import (
+        PipelinedLMTrainer, layered_gpt2)
+
+    cfg = GPT2Config(**GPT2_WIDTHS)
+    return PipelinedLMTrainer(
+        layered_gpt2(cfg, random_gpt2_weights(cfg, SEED), tp_axis="tp"),
+        mesh, microbatches=PT_PIPE["microbatches"], lr=lr)
+
+
+def pt_case_pipe(torch, np, mesh, out, key: str) -> None:
+    """(f) PipelinedLMTrainer over GPT-2 124M on `mesh` (pp=2, or pp=1
+    for the reference)."""
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = pt_pipe_trainer(mesh)
+    p = tr.init_params()
+    o = tr.init_opt_state(p)
+    load_s = time.perf_counter() - t0
+    (b,) = pt_batches(np, PT_PIPE["B"], PT_PIPE["S"], 1,
+                      GPT2_WIDTHS["vocab_size"], SEED + 203)
+    state = [p, o]
+
+    def step(b):
+        state[0], state[1], loss = tr.train_step(*state, b[:, :-1],
+                                                 b[:, 1:])
+        return loss
+
+    losses, timing = pt_steps(torch, mesh, cuda, step,
+                              [b] * PT_PIPE["steps"])
+    out[key] = {"load_s": load_s, "losses": losses, **timing,
+                "tok_s": PT_PIPE["B"] * PT_PIPE["S"] / timing["ms"] * 1e3,
+                "gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
+                else 0.0,
+                "block_local": {k: tuple(v.shape)
+                                for k, v in state[0]["block"].items()
+                                if k in ("wqkv", "wproj")}}
+    del tr, p, o, state
+    free_memory(torch)
+
+
+def phase20_rank(torch, np, rank, n, device, full: bool, layers: int,
+                 cfg: dict):
+    """Phase 20 on one rank of the two-rank gloo world: (a)-(f) with
+    `full`, else (e)'s cut. cfg: the parent's pt_config()."""
+    from whisper_tensor_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    globals().update(cfg)
+    out = {"device": device or "cuda"}
+    if full:
+        pt_case_gpt2(torch, np, rank, make_mesh(dp=n, device=device),
+                     device, out)
+        pt_case_llama(torch, np, rank, n, device, out)
+    pt_case_qlora(torch, np, rank, make_mesh(dp=n, device=device), device,
+                  layers if full else PT_CUT["qlora_layers"],
+                  PT_QLORA["steps"] if full else PT_CUT["qlora_steps"], out,
+                  reference=full)
+    if full:
+        pt_case_pipe(torch, np, Mesh(("dp", "pp", "tp"), (1, n, 1),
+                                     device=device), out, "f")
+    return out
+
+
+def pt_case_g(torch, np, device, B: int, S: int) -> dict:
+    """(g) in a world of one: LMTrainer(mesh=make_mesh()) steps against
+    the trainer without a mesh on phase 14 (a)'s model (f32, AdamW, two
+    steps of B x S)."""
+    from whisper_tensor_tpu_torch.parallel.mesh import make_mesh
+    from whisper_tensor_tpu_torch.training.trainer import LMTrainer
+
+    cfg, _, model = pt_gpt2_model()
+    batches = pt_batches(np, B, S, 2, cfg.vocab_size, SEED + 204)
+    mesh = make_mesh(device=device)
+
+    def make(m):
+        return LMTrainer(model, optimizer="adamw", lr=1e-4, mesh=m,
+                         device=None if m else device)
+
+    out = {"backend": mesh.backend}
+    for key, m in (("g_plain", None), ("g", mesh)):
+        r = pt_run(torch, make, m, batches)
+        out[key] = dict(pt_public(r), params={
+            k: v.float().cpu().numpy() for k, v in r["params"].items()})
+        pt_free(torch, r)
+    del model
+    free_memory(torch)
+    return out
+
+
+def phase20_nccl(torch, np, rank, n, device, cfg: dict):
+    """(g) and (f)'s pp=1 reference in a world of one."""
+    from whisper_tensor_tpu_torch.parallel.mesh import Mesh
+
+    globals().update(cfg)
+    out = pt_case_g(torch, np, device, PT_GPT2["B"], PT_GPT2["S"])
+    mesh = Mesh(("dp", "pp", "tp"), (1, 1, 1), device=device)
+    pt_case_pipe(torch, np, mesh, out, "f_ref")
+    out["nccl_calls"] = mesh.comm_calls
+    return out
+
+
+def pt_line(label: str, r: dict) -> str:
+    return (f"{label}: load {r['load_s']:.1f} s, {r['ms']:.1f} ms a step, "
+            f"{r['tok_s']:.0f} tok/s, {r['gb']:.2f} GB on the card, "
+            f"collectives {r['comm_calls']:.1f} calls and "
+            f"{r['comm_ms']:.1f} host ms a step")
+
+
+def pt_losses_agree(np, got, want, what: str, rtol=2e-4, atol=1e-5):
+    ok = len(got) == len(want) and np.allclose(got, want, rtol=rtol,
+                                               atol=atol)
+    say(f"  {what}: losses {[round(v, 5) for v in got]} against "
+        f"{[round(v, 5) for v in want]} (rtol {rtol}, atol {atol}): "
+        f"{'agree' if ok else 'DIFFER'}")
+    if not ok:
+        fail(f"phase 20 {what}: the losses differ")
+
+
+def pt_ratio(np, got: dict, want: dict, base=None) -> float:
+    """|got - want| / |want - base| over all the leaves (base: zeros)."""
+    num = sum(float(((got[k] - v) ** 2).sum()) for k, v in want.items())
+    den = sum(float(((v - (0 if base is None else base[k])) ** 2).sum())
+              for k, v in want.items())
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def phase20_check_qlora(np, outs, results, ref: dict) -> None:
+    """(e) on every rank: launches equal the lowering's calls, shadows
+    within agreement_bound, losses at (a)'s bf16 tolerance of the single
+    rank's (`ref`, pt_qlora_single's), and two gates on the gradient
+    sum over dp:
+      * the gradients at one point, against the single rank's on the
+        whole batch: |difference| / |gradient| within PT_E["grad"]. A
+        gradient scaled by 2 or by 1/2 reads 1 and 0.5, and one rank's
+        rows alone read what the single rank's first half reads
+        (printed beside it): AdamW's steps would hide a scale;
+      * the adapters after the steps: |difference| / |the single rank's
+        update| within PT_E["adam"] (sound runs read 0.029-0.030 in the
+        logs this limit was set from), and every element within 2 x
+        steps x lr + a bf16 ulp, a sanity bound: Adam moves an element
+        by about lr a step whatever its gradient."""
+    g, half = ref["grads"], ref["grads_half"]
+    faults = {"a rank's rows alone": pt_ratio(np, half, g),
+              "a rank's share, not summed": pt_ratio(
+                  np, {k: v / 2 for k, v in half.items()}, g)}
+    for rank, o in enumerate(outs):
+        e = o["e"]
+        L = e["launches"]
+        what = f"(e) QLoRA at dp=2, {e['layers']} layer(s), rank {rank}"
+        say(f"  {pt_line(what, e)}; build {e['build_s']:.1f} s, "
+            f"{e['int8_weights']} int8 weights")
+        say(f"  {what}: launches {L}; shadowed rerun (calls, worst "
+            f"err/tol): {e['shadow']}")
+        if L["int8_matmul"] != L["QuantMatMul calls"] or \
+                not L["int8_matmul"] or \
+                L["int8_matmul_dx"] != L["Int8MatMul backward calls"] or \
+                not L["int8_matmul_dx"]:
+            fail(f"phase 20 {what}: launches against the lowering's "
+                 f"calls: {L}")
+        for k, (calls, worst) in e["shadow"].items():
+            if calls != L[k] or not worst <= 1.0:
+                fail(f"phase 20 {what}: {calls} shadowed {k} calls of "
+                     f"{L[k]}, worst {worst}")
+        pt_losses_agree(np, e["losses"], ref["losses"], what, rtol=2e-2,
+                        atol=0)
+        grad = pt_ratio(np, e["grads"], g)
+        say(f"  {what}: gradients at one point against the single rank's: "
+            f"|difference| / |gradient| {grad:.4g} (limit {PT_E['grad']}; "
+            f"faults read: a scale of 2 1.0, of 1/2 0.5, "
+            + ", ".join(f"{k} {v:.4g}" for k, v in faults.items()) + ")")
+        if not grad <= PT_E["grad"]:
+            fail(f"phase 20 {what}: the gradients summed over dp differ "
+                 f"from the single rank's")
+        worst = 0.0
+        for k, want in ref["adapters"].items():
+            lim = 2 * e["steps"] * 2e-4 + np.abs(want) * 2.0 ** -8
+            worst = max(worst, float((np.abs(e["adapters"][k] - want)
+                                      / lim).max()))
+        adam = pt_ratio(np, e["adapters"], ref["adapters"], ref["start"])
+        say(f"  {what}: adapters after the steps against the single "
+            f"rank's: |difference| / |the single rank's update| "
+            f"{adam:.4g} (limit {PT_E['adam']}); worst element {worst:.3g} "
+            f"of 2 x steps x lr + a bf16 ulp")
+        if not adam <= PT_E["adam"] or not worst <= 1.0:
+            fail(f"phase 20 {what}: the adapters part from the single "
+                 f"rank's")
+        for res in results:
+            if res["name"] in ("int8_matmul", "int8_matmul_dx"):
+                res.setdefault("launches_phase20", {})[f"rank {rank}"] = \
+                    L[res["name"]]
+    say(f"  (e) single rank: {pt_line('', ref)[2:]}")
+
+
+def phase20_check_g(np, g: dict) -> None:
+    plain, meshed = g["g_plain"], g["g"]
+    say(f"  (g) a world of one under {g['backend']}: "
+        f"{pt_line('mesh', meshed)}; without a mesh {plain['ms']:.1f} ms "
+        f"a step")
+    same = plain["losses"] == meshed["losses"] and all(
+        np.array_equal(plain["params"][k], meshed["params"][k])
+        for k in plain["params"])
+    worst = max(float(np.abs(meshed["params"][k] - v).max()
+                      / max(np.abs(v).max(), 1e-30))
+                for k, v in plain["params"].items())
+    say(f"  (g) losses {meshed['losses']} against {plain['losses']}; "
+        f"params bit for bit: {same} (worst {worst:.3g} of a tensor's "
+        f"largest |p|; bound 1e-6)")
+    if not np.allclose(meshed["losses"], plain["losses"], rtol=1e-6,
+                       atol=0) or not worst <= 1e-6:
+        fail("phase 20 (g): the mesh of one's steps differ from the "
+             "trainer without a mesh")
+
+
+def phase20(torch, np, results, layers: int, device=None,
+            nccl: str = "nccl") -> None:
+    """Phase 20 (`--train-parallel-only`): (g) and (f)'s pp=1 reference in
+    a world of one under NCCL, then (a)-(f) in two ranks sharing the card
+    over gloo, each held against the single rank on the same card."""
+    say(f"phase 20: training across ranks: (g) a world of one under "
+        f"{nccl}, then two ranks sharing the card over gloo (a) GPT-2 124M "
+        f"dp=2, (b) FSDP, (c) Llama-3-8B widths ({PT_LLAMA['layers']} "
+        f"layers) tp=2 with a sharded checkpoint, (d) sp=2, (e) QLoRA dp=2 "
+        f"({layers} layers), (f) PipelinedLMTrainer pp=2")
+    (g,) = par_collect(par_start(1, nccl, device, phase20_nccl,
+                                 pt_config()))
+    phase20_check_g(np, g)
+    outs = par_collect(par_start(PAR_TP, "gloo", device, phase20_rank, True,
+                                 layers, pt_config()))
+    ref, ref16 = outs[0]["a_ref"], outs[0]["a_ref_bf16"]
+    say(f"  (a) single rank f32: {pt_line('', ref)[2:]}")
+    say(f"  (a) single rank bf16: {pt_line('', ref16)[2:]}")
+    for rank, o in enumerate(outs):
+        what = f"rank {rank}"
+        say(f"  {pt_line(f'(a) dp=2 f32, {what}', o['a'])}")
+        pt_losses_agree(np, o["a"]["losses"], ref["losses"],
+                        f"(a) dp=2, {what}")
+        say(f"  {pt_line(f'(a) dp=2 bf16, {what}', o['a_bf16'])}")
+        pt_losses_agree(np, o["a_bf16"]["losses"], ref16["losses"],
+                        f"(a) dp=2 bf16, {what}", rtol=2e-2, atol=0)
+        say(f"  {pt_line(f'(b) FSDP dp=2, {what}', o['b'])}")
+        pt_losses_agree(np, o["b"]["losses"], ref["losses"],
+                        f"(b) FSDP, {what}")
+        say(f"  (b) {what}: masters {o['b']['param_bytes'] / 1e9:.3f} GB "
+            f"and AdamW state {o['b']['opt_bytes'] / 1e9:.3f} GB, against "
+            f"(a)'s {o['a']['param_bytes'] / 1e9:.3f} and "
+            f"{o['a']['opt_bytes'] / 1e9:.3f} GB")
+        if not o["b"]["param_bytes"] < 0.6 * o["a"]["param_bytes"]:
+            fail(f"phase 20 (b) {what}: the masters are not cut over dp")
+    cref, dref = outs[0]["c_ref"], outs[0]["d_ref"]
+    say(f"  (c) single rank: {pt_line('', cref)[2:]}")
+    say(f"  (d) single rank, SGD: {pt_line('', dref)[2:]}")
+    for rank, o in enumerate(outs):
+        what = f"rank {rank}"
+        c = o["c"]
+        say(f"  {pt_line(f'(c) tp=2, {what}', c)}; build "
+            f"{o['c_build_s']:.1f} s, local shapes {c['shapes']}, "
+            f"fallbacks {c['fallbacks']}, checkpoint written in "
+            f"{o['c_save_s']:.1f} s")
+        if c["fallbacks"]:
+            fail(f"phase 20 (c) {what}: the tp pass fell back at "
+                 f"{c['fallbacks']}")
+        pt_losses_agree(np, c["losses"], cref["losses"], f"(c) tp=2, {what}")
+        say(f"  {pt_line(f'(d) sp=2, {what}', o['d'])}")
+        pt_losses_agree(np, o["d"]["losses"], dref["losses"],
+                        f"(d) sp=2 (SGD), {what}")
+    res = outs[0]["c_resumed"]
+    say(f"  (c) the sharded checkpoint into the single-rank trainer: "
+        f"loaded in {outs[0]['c_load_s']:.1f} s at step {res['step']}")
+    pt_losses_agree(np, [res["next_loss"]],
+                    [o["c"]["next_loss"] for o in outs][:1],
+                    "(c) the resumed step against the world's")
+    phase20_check_qlora(np, outs, results, outs[0]["e_ref"])
+    fref = g["f_ref"]
+    say(f"  {pt_line('(f) pp=1 (the world of one)', fref)}")
+    for rank, o in enumerate(outs):
+        say(f"  {pt_line(f'(f) pp=2, rank {rank}', o['f'])}; local block "
+            f"shapes {o['f']['block_local']}")
+        pt_losses_agree(np, o["f"]["losses"], fref["losses"],
+                        f"(f) pp=2, rank {rank}")
+    say(f"  (g)'s world launched {g['nccl_calls']} {g['backend']} "
+        f"collectives (the pp=1 reference's)")
+    if g["backend"] != nccl or g["nccl_calls"] <= 0:
+        fail("phase 20: the world of one launched no collective")
 
 
 def main() -> None:
@@ -9383,8 +10169,9 @@ def main() -> None:
                          "and phase 15 (the introspection path) after the "
                          "build (no result line)")
     ap.add_argument("--text-family-only", action="store_true",
-                    help="run phase 16 (DeepSeek, T5, RWKV-7, LLaVA) alone "
-                         "after the build (no result line)")
+                    help="run phase 16 (DeepSeek, T5, RWKV-7, LLaVA; in "
+                         "full: DeepSeek's naive build too, RWKV-7 at 4 "
+                         "layers) alone after the build (no result line)")
     ap.add_argument("--speech-only", action="store_true",
                     help="run phase 17 (Whisper, TTS) and the recurrent and "
                          "spectral corpus cases alone after the build (no "
@@ -9396,14 +10183,22 @@ def main() -> None:
                          "build (no result line)")
     ap.add_argument("--gguf-only", action="store_true",
                     help="write the checkpoint's weights as a Q4_K/Q6_K GGUF "
-                         "and run phase 6b (the GGUF through the batcher) "
-                         "alone after the build (no result line)")
+                         "and run phase 6b (the GGUF through the batcher), "
+                         "then phase 12's Gemma-2 2B as a Q8_0 GGUF, alone "
+                         "after the build (no result line)")
     ap.add_argument("--parallel-only", action="store_true",
                     help="write the checkpoint and run phase 19 (tp=2 over "
                          "gloo on the card: int8 and q4_0, the 24- and "
                          "1,900-token prompts; NCCL at tp=1; ring "
                          "attention, MoE, pipeline) alone after the build "
                          "(no result line)")
+    ap.add_argument("--train-parallel-only", action="store_true",
+                    help="run phase 20 (training across ranks: GPT-2 124M "
+                         "at dp=2 and FSDP, Llama-3-8B widths at tp=2 with "
+                         "a sharded checkpoint and at sp=2, QLoRA at dp=2, "
+                         "the pipelined trainer at pp=2, a world of one "
+                         "under NCCL) alone after the build (no result "
+                         "line)")
     ap.add_argument("--plans", action="store_true",
                     help="time packed_matmul and decode_attention under "
                          "forced splits, then stop (no result line)")
@@ -9561,8 +10356,17 @@ def main() -> None:
                  args.layers, results)
         finally:
             gguf_path.unlink(missing_ok=True)
+        step("phase 12's Gemma-2 2B as a Q8_0 GGUF", phase12, torch, np,
+             ROOT / "build" / "smoke", args.layers, bf16, results, True)
         say(json.dumps({"kernels": results}))
-        say(f"{card_line()} (--gguf-only: phases 2-6a and 7-19 not run)")
+        say(f"{card_line()} (--gguf-only: phases 2-6a, 7-11 and 13-20 "
+            f"not run)")
+        return
+    if args.train_parallel_only:
+        step("phase 20 (training across ranks)", phase20, torch, np,
+             results, args.layers)
+        say(json.dumps({"kernels": results}))
+        say(f"{card_line()} (--train-parallel-only: phases 2-19 not run)")
         return
     if args.parallel_only:
         try:
@@ -9651,7 +10455,8 @@ def main() -> None:
         par_ref = {}
         int8 = step("phases 3, 5 and 15 (a)-(c), (e) (direct)", phase3,
                     torch, np, ckpt, args.layers, results, par_ref)
-        step("phase 19 (parallelism, cut: the 24-token prompt, int8)",
+        step("phases 19 and 20 (parallelism, cut: the 24-token prompt, "
+             "int8; training: QLoRA at dp=2, a world of one)",
              phase19, torch, np, ckpt, results, par_ref, False)
         step("phases 4 and 5 (batched)", phase4, torch, np, ckpt,
              args.layers, results, args.plant_fault)
@@ -9681,8 +10486,8 @@ def main() -> None:
         step("phase 15 (e) GPT-2 and (f) (with (a)-(c) at phase 3, (d) "
              "at phase 13)", phase15, torch, np, None, gpt2_ckpt,
              args.layers, results)
-        step("phase 16 (DeepSeek, T5, RWKV-7, LLaVA)", phase16, torch, np,
-             ROOT / "build" / "smoke", bf16, results)
+        step("phase 16 (DeepSeek, T5, RWKV-7, LLaVA; cut)", phase16, torch,
+             np, ROOT / "build" / "smoke", bf16, results, False)
         step("phase 17 (Whisper, TTS)", phase17, torch, np,
              ROOT / "build" / "smoke", bf16, results,
              WHISPER_LAYERS_DEFAULT_RUN)

@@ -605,7 +605,7 @@ def test_the_scan_covers_the_parallel_package():
              if p.parent.name == "parallel"
              and p.parent.parent.name == "whisper_tensor_tpu_torch"}
     assert {"mesh.py", "comm.py", "tp.py", "ring_attention.py", "moe.py",
-            "pipeline.py"} <= names
+            "pipeline.py", "sp.py", "pipeline_trainer.py"} <= names
 
 
 _PARALLEL_SCRIPT = r"""
@@ -663,4 +663,59 @@ def test_parallel_serving_loads_nothing_of_jax(tmp_path):
     for line in ("BACKEND gloo", "TOKENS (1, 4) True",
                  "RING torch.Size([1, 2, 8, 4])", "MOE torch.Size([5, 4])",
                  "PIPE torch.Size([2, 4])", "FOREIGN []"):
+        assert line in proc.stdout, proc.stdout
+
+
+_PARALLEL_TRAIN_SCRIPT = r"""
+import os, sys
+import numpy as np
+from whisper_tensor_tpu_torch.importers.recipes.llm.gpt2 import (
+    GPT2Config, build_gpt2_train, random_gpt2_weights)
+from whisper_tensor_tpu_torch.model import Model
+from whisper_tensor_tpu_torch.parallel import (
+    Mesh, PipelinedLMTrainer, distributed_init, layered_gpt2, make_mesh)
+from whisper_tensor_tpu_torch.training.checkpoint import (
+    load_checkpoint, save_checkpoint)
+from whisper_tensor_tpu_torch.training.trainer import LMTrainer
+distributed_init("file://" + os.path.join(sys.argv[1], "s"), 1, 0,
+                 device="cpu")
+cfg = GPT2Config(n_layer=2, n_head=2, n_embd=32, vocab_size=64,
+                 n_positions=16)
+data = build_gpt2_train(random_gpt2_weights(cfg, 0), cfg)
+ids = np.random.default_rng(0).integers(0, 64, (2, 9))
+mesh = make_mesh(device="cpu")
+tr = LMTrainer(Model.new_from_onnx(data), mesh=mesh, fsdp=True,
+               grad_clip=1.0, device="cpu")
+p = tr.init_params()
+s = tr.init_opt_state(p)
+p, s, loss = tr.train_step(p, s, ids[:, :-1], ids[:, 1:])
+print("LOSS", np.isfinite(float(loss)))
+path = os.path.join(sys.argv[1], "ck.npz")
+save_checkpoint(path, p, s, 1, mesh=mesh, param_shardings=tr.param_shardings,
+                param_order=tr.weight_names)
+print("CKPT", load_checkpoint(path, opt_state_like=s, mesh=mesh,
+                              param_shardings=tr.param_shardings,
+                              param_order=tr.weight_names)[2])
+pt = PipelinedLMTrainer(layered_gpt2(cfg, random_gpt2_weights(cfg, 0)),
+                        Mesh(("dp", "pp", "tp"), (1, 1, 1), device="cpu"),
+                        microbatches=2)
+pp = pt.init_params()
+print("PIPE", np.isfinite(float(pt.train_step(
+    pp, pt.init_opt_state(pp), ids[:, :-1], ids[:, 1:])[2])))
+print("FOREIGN", sorted(m for m in sys.modules
+                        if m in ("jax", "whisper_tensor_tpu")
+                        or m.startswith(("jax.", "whisper_tensor_tpu."))))
+"""
+
+
+def test_parallel_training_loads_nothing_of_jax(tmp_path):
+    """A one-rank gloo world on the CPU: LMTrainer under a mesh with
+    fsdp and clipping, a sharded checkpoint written and read, and a
+    PipelinedLMTrainer step, in a fresh interpreter."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PARALLEL_TRAIN_SCRIPT, str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for line in ("LOSS True", "CKPT 1", "PIPE True", "FOREIGN []"):
         assert line in proc.stdout, proc.stdout

@@ -491,18 +491,36 @@ def test_the_executor_never_lifts_an_input_that_requires_grad():
         ex({"n": torch.tensor(3.0, requires_grad=True)})
 
 
-def test_the_trainer_refuses_what_is_not_ported(gpt2_bytes):
+def test_the_trainer_refuses_what_is_not_ported(gpt2_bytes, tmp_path):
+    """What the trainer refuses (a mesh that is not a parallel.mesh.Mesh,
+    quantize_base without adapters, a missing card by default), and, as
+    in the JAX package, fsdp and rules without a mesh doing nothing: the
+    same steps as the plain trainer's and the JAX trainer's given them.
+    Training across ranks is held in test_torch_port_parallel_training.py;
+    a checkpoint loaded with a mesh but no shardings comes back whole."""
     m = Model.new_from_onnx(gpt2_bytes)
-    for kw in (dict(mesh=object()), dict(fsdp=True), dict(rules={})):
-        with pytest.raises(NotImplementedError, match="A11"):
-            LMTrainer(m, device="cpu", **kw)
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+        LMTrainer(m, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="lora_rank"):
         LMTrainer(m, device="cpu", quantize_base="int8")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             LMTrainer(m)                      # the card, by default
-    with pytest.raises(NotImplementedError, match="A11"):
-        checkpoint.load_checkpoint("unused.npz", mesh=object())
+    kw = dict(optimizer="sgd", lr=1e-2)
+    _, plain, s, pl = _port_run(gpt2_bytes, 2, **kw)
+    for extra in (dict(fsdp=True), dict(rules=[]),
+                  dict(fsdp=True, fsdp_min_size=1)):
+        _, got, _, gl = _port_run(gpt2_bytes, 2, **kw, **extra)
+        _, _, _, jl = _jax_run(gpt2_bytes, 2, **kw, **extra)
+        assert gl == pl
+        np.testing.assert_allclose(gl, jl, rtol=1e-5)
+        for k in plain:
+            np.testing.assert_array_equal(got[k], plain[k])
+    path = str(tmp_path / "ck.npz")
+    checkpoint.save_checkpoint(path, plain, s, step=2)
+    back, _, step, _ = checkpoint.load_checkpoint(path, mesh=object())
+    assert step == 2 and all(np.array_equal(back[k], plain[k])
+                             for k in plain)
 
 
 def test_int8_matmul_dx_plain_sums_in_f32_and_rounds_once():

@@ -195,13 +195,16 @@ def _mlp_stage(p, h):
 def pipeline(rank, n, params: dict, x, microbatches: int, grads: bool):
     """Output of pipeline_apply over pp = n and, with grads, this rank's
     gradients of sum(out ** 2) with respect to the whole stacks."""
-    from whisper_tensor_tpu_torch.parallel.mesh import Mesh
+    from whisper_tensor_tpu_torch.parallel.mesh import (Mesh, Sharding,
+                                                        local_block)
     from whisper_tensor_tpu_torch.parallel.pipeline import pipeline_apply
 
     mesh = Mesh(("pp",), (n,), device="cpu")
     ps = {k: torch.from_numpy(v).requires_grad_(grads)
           for k, v in params.items()}
-    out = pipeline_apply(_mlp_stage, ps, torch.from_numpy(x), mesh,
+    mine = {k: local_block(v, Sharding(mesh, ("pp",)), k)
+            for k, v in ps.items()}
+    out = pipeline_apply(_mlp_stage, mine, torch.from_numpy(x), mesh,
                          microbatches=microbatches)
     res = {"out": out.detach().numpy()}
     if grads:

@@ -1,5 +1,6 @@
-"""Collectives over a mesh axis: all_reduce, all_gather, broadcast and
-the ring shift.
+"""Collectives over a mesh axis: all_reduce, all_gather, reduce_scatter,
+broadcast and the ring shift, and the tensor-parallel pair of training
+(copy_in, reduce_out, with gather_out).
 
 The port's own module: in the JAX package GSPMD inserts these
 (psum, all_gather, ppermute) and XLA runs them over ICI. Here the code
@@ -23,12 +24,28 @@ nothing retries another way.
 
 Gradients. Every helper is differentiable: all_reduce's backward is an
 all_reduce of the incoming gradients, all_gather's sums each rank's
-slice of them, the ring shift's backward shifts the
-gradient the other way, and broadcast's backward hands the source its
-own gradient (and the others zeros): a replicated value that every rank
-turns into the same loss gets the gradient of that one loss, not the
-sum over ranks. Under grad mode each runs as a torch.autograd.Function;
-otherwise the plain call.
+slice of them (a reduce_scatter), reduce_scatter's gathers them, the
+ring shift's backward shifts the gradient the other way, and
+broadcast's backward hands the source its own gradient (and the others
+zeros): a replicated value that every rank turns into the same loss
+gets the gradient of that one loss, not the sum over ranks. Under grad
+mode each runs as a torch.autograd.Function; otherwise the plain call.
+
+all_reduce and all_gather's rules fit a loss that is a SUM of per-rank
+terms (data or sequence parallelism: each rank's loss covers its own
+tokens). A tensor-parallel region instead feeds ONE loss that every rank
+of the axis computes alike, so its gradients arrive replicated, and
+summing them would count them once per rank. Training's tp graph
+(parallel/tp.py) therefore uses Megatron's pair, and a gather fit for
+it:
+  * copy_in: identity forward, all_reduce backward, on a replicated
+    input of work that each rank does on its own block (a
+    column-parallel product, a slice): the ranks' partial gradients
+    add up to the input's whole one;
+  * reduce_out: all_reduce forward, identity backward, on the partial
+    sums of a row-parallel product;
+  * gather_out: all_gather forward, and backward this rank's slice of
+    the (replicated) gradient.
 
 An axis of extent 1 still runs its collective (a copy on one rank), so
 a mesh path exercises its backend at any extent; the ring shift alone
@@ -42,6 +59,10 @@ import time
 import torch
 
 from .mesh import Mesh
+
+# all_reduce_many's bucket, in elements: it bounds the card memory that
+# concatenating a bucket adds (256 MB of f32), not a tuned size.
+_BUCKET = 1 << 26
 
 
 def _buffer(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -96,6 +117,23 @@ def _bcast(x: torch.Tensor, mesh: Mesh, axis: str, src: int
         return y.to(x.device)
 
 
+def _scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
+             ) -> torch.Tensor:
+    import torch.distributed as dist
+
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dimension {dim} of "
+                         f"{tuple(x.shape)} does not divide over the {n} "
+                         f"ranks of {axis!r}")
+    with _Timed(mesh):
+        y = _buffer(x.movedim(dim, 0), mesh)
+        out = torch.empty((y.shape[0] // n, *y.shape[1:]), dtype=y.dtype,
+                          device=y.device)
+        dist.reduce_scatter_tensor(out, y, group=mesh.group(axis))
+        return out.movedim(0, dim).to(x.device)
+
+
 def _shift(x: torch.Tensor, mesh: Mesh, axis: str, offset: int
            ) -> torch.Tensor:
     import torch.distributed as dist
@@ -129,8 +167,51 @@ class _AllReduce(torch.autograd.Function):
 
 class _AllGather(torch.autograd.Function):
     """Backward: each rank's slice of the gradients summed over the
-    ranks."""
+    ranks (a reduce_scatter)."""
 
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim % x.dim()
+        return _gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim % x.dim()
+        return _scatter(x, mesh, axis, ctx.dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _sum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherOut(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
         ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim % x.dim()
@@ -139,9 +220,9 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = _sum(g, ctx.mesh, ctx.axis)
         i = ctx.mesh.index(ctx.axis)
-        return g.narrow(ctx.dim, i * ctx.n, ctx.n), None, None, None
+        return (g.narrow(ctx.dim, i * ctx.n, ctx.n).contiguous(), None, None,
+                None)
 
 
 class _Broadcast(torch.autograd.Function):
@@ -182,6 +263,63 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0
     axis's order, on every rank."""
     return (_AllGather.apply(x, mesh, axis, dim) if _grad(x)
             else _gather(x, mesh, axis, dim))
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0
+                   ) -> torch.Tensor:
+    """The sum of x over the ranks of `axis`, of which each rank keeps
+    its block along `dim` (the axis's extent must divide it)."""
+    return (_ReduceScatter.apply(x, mesh, axis, dim) if _grad(x)
+            else _scatter(x, mesh, axis, dim % x.dim()))
+
+
+def copy_in(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """x itself; in the backward the sum of the ranks' gradients of it
+    (Megatron's f: a replicated input entering a tensor-parallel
+    region)."""
+    return _CopyIn.apply(x, mesh, axis) if _grad(x) else x
+
+
+def reduce_out(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum of the ranks' partial x, whose gradient passes through
+    unchanged (Megatron's g: a tensor-parallel region's partial sums
+    leaving it)."""
+    return _ReduceOut.apply(x, mesh, axis) if _grad(x) else _sum(x, mesh,
+                                                                  axis)
+
+
+def gather_out(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0
+               ) -> torch.Tensor:
+    """all_gather for one replicated loss: each rank's gradient of its
+    block is its slice of the gathered tensor's gradient."""
+    return (_GatherOut.apply(x, mesh, axis, dim) if _grad(x)
+            else _gather(x, mesh, axis, dim))
+
+
+def all_reduce_many(tensors, mesh: Mesh, axis: str) -> list:
+    """The sum over the ranks of `axis` of each of `tensors` (no
+    gradient), in as few collectives as buckets of up to _BUCKET
+    elements of one type allow: a larger tensor goes alone. Every rank
+    must hand the same shapes and types in the same order."""
+    out = list(tensors)
+    runs: dict = {}
+    for i, t in enumerate(out):
+        runs.setdefault((t.dtype, t.device), []).append(i)
+    for idx in runs.values():
+        while idx:
+            take, n = [], 0
+            while idx and (not take or n + out[idx[0]].numel() <= _BUCKET):
+                n += out[idx[0]].numel()
+                take.append(idx.pop(0))
+            flat = _sum(torch.cat([out[i].detach().reshape(-1)
+                                   for i in take]) if len(take) > 1
+                        else out[take[0]].detach().reshape(-1), mesh, axis)
+            at = 0
+            for i in take:
+                k = out[i].numel()
+                out[i] = flat[at:at + k].view_as(out[i])
+                at += k
+    return out
 
 
 def broadcast(x: torch.Tensor, mesh: Mesh, axis: str, src: int = 0

@@ -170,10 +170,23 @@ def auto_mesh(n_devices: int, device=None) -> Mesh:
 class Sharding:
     """Where each dimension of an array lies on a mesh: `spec` is the
     tuple the reference's PartitionSpec holds (an axis name, a tuple of
-    names, or None per leading dimension; () = replicated)."""
+    names, or None per leading dimension; () = replicated). `sections`
+    (per leading dimension, default 1): a dimension made of that many
+    equal concatenated parts, each cut on its own, as the tp pass cuts a
+    fused q/k/v product (parallel/tp.py Split)."""
 
     mesh: Mesh
     spec: Tuple[SpecEntry, ...] = ()
+    sections: Tuple[int, ...] = ()
+
+    def cuts(self, dim: int) -> int:
+        """The sections of dimension `dim` (1 unless stated)."""
+        return self.sections[dim] if dim < len(self.sections) else 1
+
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes of extent > 1 that cut the array."""
+        return tuple(a for e in self.spec for a in _axes(e)
+                     if self.mesh.shape.get(a, 1) > 1)
 
 
 def named(mesh: Mesh, *spec) -> Sharding:
@@ -261,25 +274,70 @@ def fsdp_shardings(names: Sequence[str], shapes: Sequence[Tuple[int, ...]],
 
 def local_block(arr, sharding: Sharding, name: Optional[str] = None):
     """This rank's block of a host or device array under `sharding`
-    (a view where slicing allows). Refuses a dimension its extent does
-    not divide, as jax.device_put refuses it, naming the array."""
+    (a view where slicing allows and no dimension has sections).
+    Refuses a dimension its extent does not divide, as jax.device_put
+    refuses it, naming the array."""
     mesh = sharding.mesh
-    idx = []
     for d, entry in enumerate(sharding.spec):
         k = mesh.extent(entry)
         if k == 1:
-            idx.append(slice(None))
             continue
-        size = int(arr.shape[d])
-        if size % k:
+        size, sec = int(arr.shape[d]), sharding.cuts(d)
+        if size % (k * sec):
             raise ValueError(
                 f"{name or 'array'} of shape {tuple(arr.shape)}: the "
-                f"global size of its dimension {d} ({size}) should be "
-                f"divisible by {k}, the extent of mesh axes {entry!r}")
-        part = size // k
-        i = mesh.index(entry)
-        idx.append(slice(i * part, (i + 1) * part))
-    return arr[tuple(idx)]
+                f"global size of its dimension {d} ({size}"
+                + ("" if sec == 1 else f" in {sec} sections")
+                + f") should be divisible by {k}, the extent of mesh axes "
+                f"{entry!r}")
+        part, i = size // sec // k, mesh.index(entry)
+        pieces = []
+        for j in range(sec):
+            idx = [slice(None)] * arr.ndim
+            start = j * (size // sec) + i * part
+            idx[d] = slice(start, start + part)
+            pieces.append(arr[tuple(idx)])
+        if sec == 1:
+            arr = pieces[0]
+        elif isinstance(arr, torch.Tensor):
+            arr = torch.cat(pieces, dim=d)
+        else:
+            arr = np.concatenate(pieces, axis=d)
+    return arr
+
+
+def gather_block(block: torch.Tensor, sharding: Sharding) -> torch.Tensor:
+    """The whole array from every rank's block under `sharding` (the
+    inverse of local_block; a collective: every rank of the axes that
+    cut it calls it). No gradient flows through it."""
+    from . import comm
+
+    mesh = sharding.mesh
+    out = block.detach()
+    for d, entry in enumerate(sharding.spec):
+        # several axes on one dimension: major to minor, so the minor
+        # axis's blocks are joined first
+        for a in reversed(_axes(entry)):
+            n = mesh.shape.get(a, 1)
+            if n == 1:
+                continue
+            out = comm._gather(out, mesh, a, d)
+            sec = sharding.cuts(d)
+            if sec > 1:
+                # [r0: s0 s1 ..| r1: s0 s1 ..] -> [s0: r0 r1 ..| s1: ..]
+                blocks = [b.chunk(sec, dim=d) for b in out.chunk(n, dim=d)]
+                out = torch.cat([blk[k] for k in range(sec)
+                                 for blk in blocks], dim=d)
+    return out
+
+
+def data_sharding(mesh: Mesh, shape: Sequence[int]) -> Sharding:
+    """Where a (B, S, ...) batch lies on a training mesh (reference
+    training/trainer.py:330-337): rows over `dp`, and the sequence over
+    `sp` only when sp divides S; replicated over every other axis."""
+    sp = mesh.shape.get("sp", 1)
+    seq = "sp" if sp > 1 and int(shape[1]) % sp == 0 else None
+    return Sharding(mesh, ("dp" if "dp" in mesh.shape else None, seq))
 
 
 def shard_array(arr, sharding: Sharding, name: Optional[str] = None

@@ -3,7 +3,8 @@ over layer groups held by the ranks of a mesh axis.
 
 The port's counterpart of whisper_tensor_tpu/parallel/pipeline.py.
 Layer parameters are stacked on a leading L axis; the rank at index d of
-`axis` runs layers [d*L/P, (d+1)*L/P). At schedule step t the rank
+`axis` holds and runs layers [d*L/P, (d+1)*L/P) (its local block,
+which the caller cuts: a trainer keeps only its blocks). At schedule step t the rank
 works on microbatch t - d (bubble steps compute values that are never
 used), then the activation moves to rank d+1 by the ring shift
 (parallel/comm.py, the reference's ppermute): M + P - 1 steps for M
@@ -13,13 +14,13 @@ stage's outputs are broadcast to every rank.
 Gradients go through autograd: the ring shift's backward sends each
 activation's gradient back a stage, and the broadcast's backward hands
 the last stage the gradient of the loss every rank computes from the
-replicated output, so each rank's parameters get the gradient of that
-one loss (zero outside its own layers).
+replicated output, so each rank's layers get the gradient of that one
+loss.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -35,29 +36,20 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _tree_map2(fn, tree, specs):
-    if isinstance(tree, dict):
-        return {k: _tree_map2(fn, v, specs[k]) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map2(fn, v, s) for v, s in zip(tree, specs))
-    return fn(tree, specs)
-
-
-def pipeline_apply(stage_fn: Callable, stacked_params, x: torch.Tensor,
+def pipeline_apply(stage_fn: Callable, local_params, x: torch.Tensor,
                    mesh: Mesh, axis: str = "pp", microbatches: int = 4,
-                   param_specs: Optional[Dict] = None,
                    batch_axis: Optional[str] = None) -> torch.Tensor:
     """Run x through all L stacked layers, layer groups held over
     `axis` (reference :22).
 
     stage_fn(params_one_layer, h) -> h          (one layer)
-    stacked_params: pytree (dicts, lists) of whole tensors with leading
-        dim L (L % pp == 0); each rank takes its layers' slice.
+    local_params: pytree (dicts, lists) of this rank's blocks of the
+        stacks (leading dim L, L % pp == 0): its L/pp layers, as
+        `local_block(leaf, Sharding(mesh, (axis, *spec)))` cuts them,
+        where a spec for the other dims (the reference's param_specs,
+        e.g. (None, "tp") for a column-cut weight) asks stage_fn to hold
+        the matching collectives.
     x: (B, ...) whole on every rank, with B % microbatches == 0.
-    param_specs: optional pytree of spec tuples for the NON-layer dims
-        of each leaf (e.g. (None, "tp") for a column-cut weight); each
-        rank then takes its block of those dims too, and stage_fn must
-        hold the matching collectives.
     batch_axis: optional mesh axis (e.g. "dp") cutting each
         microbatch's ROWS, composing data parallelism with the pipeline.
     Returns the same result as applying all L layers in order, whole on
@@ -72,16 +64,7 @@ def pipeline_apply(stage_fn: Callable, stacked_params, x: torch.Tensor,
     if batch_axis is not None:
         xm = local_block(xm, Sharding(mesh, (None, batch_axis)), "x")
 
-    def mine(leaf, spec=()):
-        L = leaf.shape[0]
-        if L % n:
-            raise ValueError(f"{L} stacked layers do not divide over {n} "
-                             f"stages of {axis!r}")
-        return local_block(leaf, Sharding(mesh, (axis, *tuple(spec))),
-                           "stacked_params").to(mesh.device)
-
-    local = (_tree_map(mine, stacked_params) if param_specs is None
-             else _tree_map2(mine, stacked_params, param_specs))
+    local = _tree_map(lambda p: p.to(mesh.device), local_params)
     n_local = next(iter(_leaves(local))).shape[0]
 
     def group(h):

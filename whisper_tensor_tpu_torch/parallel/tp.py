@@ -1,6 +1,8 @@
-"""Tensor-parallel serving: each rank's step graph, weights and caches.
+"""Tensor parallelism: each rank's step or training graph, weights and
+caches.
 
-The port's own pass behind `TextInferenceInterface(mesh=, shard_rules=)`.
+The port's own pass behind `TextInferenceInterface(mesh=, shard_rules=)`
+and, in its training mode, `LMTrainer(mesh=, rules=)`.
 In the JAX package GSPMD keeps every array at its global shape and
 inserts the collectives; eager PyTorch has no such compiler, so each
 rank runs the step graph at its LOCAL shapes, with the collectives
@@ -52,7 +54,21 @@ reshape keeps the split dimension leading.
 
 Anything the rules above do not cover is made replicated first (a gather
 of a split input, a sum of a partial one), which is correct and slow;
-the plan lists such places in `fallbacks`. A weight whose cut dimension
+the plan lists such places in `fallbacks`.
+
+Training (`training=True`, on the trainer's graph: every weight an
+input, no caches, logits at every position). The loss is one value that
+every rank of `tp` computes alike from the gathered logits, so each
+collective takes the gradient rule of that one loss (parallel/comm.py):
+a replicated tensor that enters work each rank does on its own block (a
+column-parallel product's input, a slice, a weight broadcast over a
+split tensor, the k and v that KVHeads picks from) passes a CopyIn, whose
+backward sums the ranks' partial gradients; a partial sum leaves through
+AllReduce as reduce_out (identity backward); a split tensor made whole,
+the logits among them, through AllGather as gather_out (backward: the
+rank's slice). The vocab-parallel embedding is the masked lookup above;
+the head is column-parallel and its logits are gathered before the loss
+(the loss is not vocab-parallel). A weight whose cut dimension
 the axis does not divide is refused, naming it (jax.device_put refuses
 it the same way: GPT-2's 50,257-row wte at tp=2).
 """
@@ -137,15 +153,35 @@ def shard_packed_rows(q: np.ndarray, bits: int, parts: int, index: int,
 
 @dataclass
 class AllReduceMilli(MilliOp):
-    """Sum of a partial tensor over the mesh axis."""
+    """Sum of a partial tensor over the mesh axis (`training`: with
+    reduce_out's gradient)."""
 
     mesh: Any = None
     axis: str = "tp"
+    training: bool = False
     KIND = "AllReduce"
+
+    def run(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return comm.reduce_out(x, self.mesh, self.axis)
+        return comm.all_reduce(x, self.mesh, self.axis)
 
     def eval(self, inputs):
         x = torch.from_numpy(np.ascontiguousarray(inputs[0]))
-        return [comm.all_reduce(x, self.mesh, self.axis).numpy()]
+        return [self.run(x).numpy()]
+
+
+@dataclass
+class CopyInMilli(MilliOp):
+    """x itself, with copy_in's gradient: the sum over the mesh axis of
+    the ranks' gradients of a replicated tensor."""
+
+    mesh: Any = None
+    axis: str = "tp"
+    KIND = "CopyIn"
+
+    def eval(self, inputs):
+        return [inputs[0]]
 
 
 @dataclass
@@ -157,10 +193,12 @@ class AllGatherMilli(MilliOp):
     axis: str = "tp"
     dim: int = 0
     sections: int = 1
+    training: bool = False
     KIND = "AllGather"
 
     def run(self, x: torch.Tensor) -> torch.Tensor:
-        y = comm.all_gather(x, self.mesh, self.axis, self.dim)
+        gather = comm.gather_out if self.training else comm.all_gather
+        y = gather(x, self.mesh, self.axis, self.dim)
         if self.sections == 1:
             return y
         # [r0: s0 s1 ..| r1: s0 s1 ..] -> [s0: r0 r1 ..| s1: r0 r1 ..]
@@ -241,7 +279,12 @@ class KVHeadsMilli(MilliOp):
 
 @lowering("AllReduce")
 def _all_reduce(op, inputs, static, device):
-    return [comm.all_reduce(inputs[0], op.mesh, op.axis)]
+    return [op.run(inputs[0])]
+
+
+@lowering("CopyIn")
+def _copy_in(op, inputs, static, device):
+    return [comm.copy_in(inputs[0], op.mesh, op.axis)]
 
 
 @lowering("AllGather")
@@ -356,8 +399,9 @@ class _Pass:
     def __init__(self, milli: MilliGraph, mesh: Mesh, rules,
                  weight_shapes: Mapping[str, Tuple[int, ...]],
                  weight_dtypes: Mapping[str, DType], axis: str,
-                 packed: Mapping[str, int]):
+                 packed: Mapping[str, int], training: bool = False):
         self.mesh, self.axis = mesh, axis
+        self.training = training
         self.parts = mesh.shape[axis]
         self.index = mesh.index(axis)
         self.g = g = copy.deepcopy(milli)
@@ -668,10 +712,12 @@ class _Pass:
         key = ("rep", tid)
         if key not in self._memo:
             if st == PARTIAL:
-                op = AllReduceMilli(mesh=self.mesh, axis=self.axis)
+                op = AllReduceMilli(mesh=self.mesh, axis=self.axis,
+                                    training=self.training)
             else:
                 op = AllGatherMilli(mesh=self.mesh, axis=self.axis,
-                                    dim=st.dim, sections=st.sections)
+                                    dim=st.dim, sections=st.sections,
+                                    training=self.training)
                 if why is not None:
                     self.fallbacks.append(why)
             (out,) = self._add(op, [tid])
@@ -685,9 +731,30 @@ class _Pass:
         if key not in self._memo:
             (out,) = self._add(TpSliceMilli(dim=dim, parts=self.parts,
                                             index=self.index,
-                                            sections=sections), [tid])
+                                            sections=sections),
+                               [self.copy_in(tid)])
             self._copy_info(tid, out)
             self.state[out] = Split(dim, sections)
+            self._memo[key] = out
+        return self._memo[key]
+
+    def copy_in(self, tid) -> int:
+        """Training: a replicated tensor that may carry a gradient, passed
+        through CopyIn before work each rank does on its own part of it
+        (once for every such use). Otherwise, and for constants and
+        integer tensors, tid itself."""
+        if not self.training or self.state.get(tid) is not None \
+                or self.const(tid) is not None:
+            return tid
+        info = self.infos.get(tid)
+        if info is not None and info.dtype is not None \
+                and not info.dtype.is_float:
+            return tid
+        key = ("copy_in", tid)
+        if key not in self._memo:
+            (out,) = self._add(CopyInMilli(mesh=self.mesh, axis=self.axis),
+                               [tid])
+            self._copy_info(tid, out)
             self._memo[key] = out
         return self._memo[key]
 
@@ -721,6 +788,9 @@ class _Pass:
 
     def _emit(self, node: MilliNode, ins: List, states: List,
               op: Optional[MilliOp] = None) -> None:
+        if any(s is not None for s in states):
+            # the replicated inputs of work that is split or partial
+            ins = [None if i is None else self.copy_in(i) for i in ins]
         node.inputs = ins
         if op is not None:
             node.op = op
@@ -756,6 +826,15 @@ class _Pass:
                 ins[0] = self.to_split(a, ra - 1, 1)
             elif sa != Split(ra - 1, 1):
                 return False
+            self._emit(node, ins, [PARTIAL])
+            return True
+        if sb is None and sa == Split(ra - 1, 1) and rb >= 2:
+            # a replicated right side under an activation cut along the
+            # contraction (a LoRA A of a row-parallel base): its rows
+            k = self.size(b, rb - 2)
+            if k is None or k % self.parts:
+                return False
+            ins[1] = self.to_split(b, rb - 2, 1)
             self._emit(node, ins, [PARTIAL])
             return True
         return False
@@ -961,7 +1040,7 @@ class _Pass:
             if sk is None and sv is None:
                 ins[1], ins[2] = self._add(
                     KVHeadsMilli(parts=self.parts, index=self.index),
-                    [q, k, v], n_out=2)
+                    [q, self.copy_in(k), self.copy_in(v)], n_out=2)
             elif not (sk == sv == Split(1)):
                 return False
             if len(ins) > 3 and ins[3] is not None and \
@@ -1037,15 +1116,17 @@ class _Pass:
 def shard_graph(milli: MilliGraph, mesh: Mesh, rules,
                 weight_shapes: Mapping[str, Tuple[int, ...]],
                 weight_dtypes: Mapping[str, DType], axis: str = "tp",
-                packed: Mapping[str, int] = {}) -> TpPlan:
+                packed: Mapping[str, int] = {},
+                training: bool = False) -> TpPlan:
     """This rank's share of `milli` under `rules` over mesh axis `axis`.
 
     weight_shapes / weight_dtypes: the global shape and type of each
     weight input (every graph input the caller feeds from its weights:
     int8 scales, packed scales and offsets and LoRA stacks included).
-    packed: {packed q input: bits}. The graph is copied; `milli` is not
-    changed."""
+    packed: {packed q input: bits}. training: the gradient rules of one
+    replicated loss (CopyIn, reduce_out, gather_out; see the module's
+    docstring). The graph is copied; `milli` is not changed."""
     if axis not in mesh.shape:
         raise ValueError(f"mesh {mesh.shape} has no {axis!r} axis")
     return _Pass(milli, mesh, rules, weight_shapes, weight_dtypes, axis,
-                  packed).run()
+                  packed, training).run()

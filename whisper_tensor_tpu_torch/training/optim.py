@@ -121,17 +121,25 @@ def _zeros(params: Tensors) -> List[torch.Tensor]:
 
 class ClipByGlobalNorm(Transform):
     """optax.clip_by_global_norm: where the global norm is at least
-    max_norm, every update becomes (u / norm) * max_norm."""
+    max_norm, every update becomes (u / norm) * max_norm. norm_sq: the
+    squared global norm of the updates where they are cut over a mesh
+    (each element counted once; LMTrainer._global_sq), else their local
+    sum of squares."""
 
-    def __init__(self, max_norm: float):
+    def __init__(self, max_norm: float,
+                 norm_sq: Optional[Callable[[Tensors], torch.Tensor]] = None):
         self.max_norm = max_norm
+        self.norm_sq = norm_sq
 
     def update(self, updates, state, params):
         names = sorted(updates)
-        sq = 0
-        for n in names:     # optax: sum(jnp.sum(|x|^2) for x in leaves)
-            u = updates[n]
-            sq = sq + torch.sum(u * u)
+        if self.norm_sq is not None:
+            sq = self.norm_sq(updates)
+        else:
+            sq = 0
+            for n in names:     # optax: sum(jnp.sum(|x|^2) for x in leaves)
+                u = updates[n]
+                sq = sq + torch.sum(u * u)
         norm = torch.sqrt(sq)
         keep = norm < self.max_norm
         return {n: torch.where(keep, updates[n],
@@ -289,9 +297,12 @@ class MultiSteps(Transform):
 def build_optimizer(optimizer: str, lr: float, weight_decay: float,
                     grad_clip: Optional[float], accum_steps: int,
                     lr_schedule: Optional[str], warmup_steps: int,
-                    total_steps: int) -> Transform:
+                    total_steps: int,
+                    norm_sq: Optional[Callable[[Tensors], torch.Tensor]]
+                    = None) -> Transform:
     """The optimizer the JAX trainer builds from the same arguments
-    (trainer.py:117-137)."""
+    (trainer.py:117-137); norm_sq: ClipByGlobalNorm's, for updates cut
+    over a mesh."""
     if lr_schedule is None:
         lr_arg: "float | Schedule" = lr
     elif lr_schedule == "warmup_cosine":
@@ -317,7 +328,7 @@ def build_optimizer(optimizer: str, lr: float, weight_decay: float,
     else:
         raise ValueError(optimizer)
     if grad_clip:
-        tx = Chain(ClipByGlobalNorm(grad_clip), tx)
+        tx = Chain(ClipByGlobalNorm(grad_clip, norm_sq), tx)
     if accum_steps > 1:
         tx = MultiSteps(tx, accum_steps)
     return tx
