@@ -236,8 +236,10 @@ Phases:
      batches of README.md bytes (bench.py's llama8b_lora_train); the
      loss falls, int8_matmul launches equal the lowering's QuantMatMul
      calls (forward and re-forward), int8_matmul_dx launches equal
-     Int8MatMul's backward calls; the same steps run again with every
-     int8_matmul_dx call held against its plain version
+     Int8MatMul's backward calls, each on the TMA path; ms a step and the
+     int8 kernels' device ms in a profiled step, and ms a step again
+     with every dx call on the cp.async path; the same steps run again
+     with every int8_matmul_dx call held against its plain version
      (agreement_bound); the int8 base unchanged; the adapters through
      save_peft_adapter and load_peft_adapter_arrays. (c) The milli
      training graph (build_training_graph, AdamW) of a 2-layer GPT-2 at
@@ -246,8 +248,11 @@ Phases:
      trainer); the same in bf16 within 5%, flash_attention launching
      once an eligible forward Attention call. Phase 2 also holds
      int8_matmul_dx against its plain version at QLoRA's M = 1,024 over
-     the Llama-3-8B weight shapes and one odd K and N, with its time,
-     bound and a bf16 yardstick.
+     the Llama-3-8B weight shapes (each must take the TMA path) and one
+     odd K and N, with each shape's path, time, host us a call, bound,
+     the cp.async path's time and a bf16 yardstick, the TMA kernel's
+     ptxas line (no spills), the build's seconds and the lm_head call's
+     peak memory.
  15. the introspection path (`--inspect-only` writes the checkpoints
      and runs phases 13 and 15 alone after the build). (a)-(c) and (e)'s
      Llama export run at the end of phase 3, on its Server and its
@@ -404,10 +409,12 @@ Phases:
      one card); (e) QLoRA at dp=2
      (phase 14 (b)'s setup, --layers deep, 4 steps): int8_matmul and
      int8_matmul_dx launches a rank equal to the lowering's QuantMatMul
-     and Int8MatMul backward calls, a rerun with every such call held to
-     agreement_bound, the adapters within 2 x steps x lr plus a bf16
-     ulp of the single rank's; (f) PipelinedLMTrainer over GPT-2 124M at pp=2, 4
-     microbatches, losses against pp=1. Each prints load s, ms a step,
+     and Int8MatMul backward calls (each dx launch on the TMA path), a
+     rerun with every such call held to agreement_bound, the int8
+     kernels' device ms in a profiled step, the adapters within 2 x
+     steps x lr plus a bf16 ulp of the single rank's; (f)
+     PipelinedLMTrainer over GPT-2 124M at pp=2, 4 microbatches, losses
+     against pp=1. Each prints load s, ms a step,
      tok/s, card GB a rank and the collectives' calls and host ms a
      step. The default run carries (e) at one layer for 2 steps in phase
      19's gloo world and (g) at B 2 x S 512 in its world of one.
@@ -841,17 +848,23 @@ DX_ROWS = 1024          # QLoRA's M = B 2 x S 512 (phase 14 (b))
 def phase2_int8_dx(torch, results):
     """int8_matmul_dx (the backward of int8_matmul for x) against its
     plain version at QLoRA's M = 1,024 over the Llama-3-8B weight shapes
-    and one odd K and N: error against agreement_bound, the kernel's and
-    the plain version's median time (CUDA events), the bound (the larger
-    of its bytes over 3.35 TB/s and 2 M K N over 989 TFLOP/s) and a
-    yardstick, dy @ W^T with W already in bf16 (the product without the
-    scale or the int8 weight; no single PyTorch call computes the scaled
-    int8 function, so library_ms is null)."""
-    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    and one odd K and N: each shape's path (dx_plan), error against
+    agreement_bound, the kernel's, the plain version's and the cp.async
+    path's median time at the same shape (CUDA events), the host's
+    microseconds a call, the bound (the larger of its bytes over 3.35
+    TB/s and 2 M K N over 989 TFLOP/s) and a yardstick timed in the same
+    call, dy @ W^T with W already in bf16 (the product without the scale
+    or the int8 weight; no single PyTorch call computes the scaled int8
+    function, so library_ms is null). Then the TMA kernel's ptxas line,
+    the build's seconds and the lm_head call's peak memory beside its
+    operands'. Fails where a QLoRA shape takes the cp.async path."""
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound, build
+    from whisper_tensor_tpu_torch.backends.cuda import quant_matmul as qm
     from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
         int8_matmul_dx, int8_matmul_dx_plain)
 
     dev = torch.device("cuda")
+    card = torch.cuda.current_device()
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
     say("  int8_matmul_dx (dx = (dy * scale) @ W_i8^T, bf16 dy, M = "
         f"{DX_ROWS}; tolerance per element: agreement_bound, plain version "
@@ -859,6 +872,10 @@ def phase2_int8_dx(torch, results):
     worst, timing, shapes = 0.0, None, {}
     M = DX_ROWS
     for label, K, N in DX_SHAPES:
+        plan = qm.dx_plan(M, K, N, torch.bfloat16, card)
+        if label != "odd K and N" and plan.path != "tma":
+            fail(f"int8_matmul_dx: the QLoRA shape {label} took the "
+                 f"{plan.path} path")
         sets = []
         for _ in range(copies_for(K * N + M * N * 2)):
             sets.append((torch.randn(M, N, generator=gen, device=dev)
@@ -868,23 +885,46 @@ def phase2_int8_dx(torch, results):
                          torch.rand(N, generator=gen, device=dev) * 0.01
                          + 1e-3))
         dy, w, sc = sets[0]
+        if label == "lm_head":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        got = int8_matmul_dx(dy, w, sc)
+        if label == "lm_head":
+            torch.cuda.synchronize()
+            peak_mb = (torch.cuda.max_memory_allocated() - before) / 1e6
         err, share = worst_share(
-            int8_matmul_dx(dy, w, sc), int8_matmul_dx_plain(dy, w, sc),
+            got, int8_matmul_dx_plain(dy, w, sc),
             int8_matmul_dx_plain(dy.float().abs(), w.abs(), sc),
             agreement_bound)
+        del got
         big = K * N >= 1 << 28
         slow = dict(reps=3, inner=1) if big else {}
         ms = time_ms(torch, int8_matmul_dx, sets)
+        dev_ms = device_time_ms(torch, int8_matmul_dx, sets,
+                                **(dict(reps=3, inner=5) if big else {}))
+        h_us = host_us(torch, int8_matmul_dx, sets, inner=20 if big else 100)
         plain_ms = time_ms(torch, int8_matmul_dx_plain, sets[:2], **slow)
+        cp_plan = qm._dx_path_plan("cp.async", M, K, N, True, card)
+        cp_ms, cp_dev = (ms, dev_ms) if plan.path == "cp.async" else (
+            time_ms(torch, lambda d, w, s: qm._dx_launch(d, w, s, cp_plan),
+                    sets),
+            device_time_ms(torch, lambda d, w, s: qm._dx_launch(
+                d, w, s, cp_plan), sets,
+                **(dict(reps=3, inner=5) if big else {})))
         wbf = w.bfloat16()
         yard_ms = time_ms(torch, lambda d: torch.matmul(d, wbf.t()),
                           [(d,) for d, _, _ in sets[:2]], **slow)
         del wbf
         bms, bby = bound(M * N * 2 + K * N + N * 4 + M * K * 2,
                          2 * M * K * N)
-        say(f"  int8_matmul_dx {label} M={M} K={K} N={N}: "
+        say(f"  int8_matmul_dx {label} M={M} K={K} N={N}: {plan.path} path"
+            f" ({plan.splits} splits of {plan.split_cols} columns): "
             f"max_abs_err={err:.6g}, worst err/tol {share:.4g}; kernel "
-            f"{ms:.4f} ms ({bms / ms:.1%} of the bound), plain "
+            f"{ms:.4f} ms ({bms / ms:.1%} of the bound, {ms / yard_ms:.2f}x "
+            f"the yardstick), device {dev_ms:.4f} ms, host {h_us:.1f} us a "
+            f"call; cp.async path {cp_ms:.4f} ms ({cp_ms / yard_ms:.2f}x, "
+            f"{cp_plan.splits} splits), device {cp_dev:.4f} ms; plain "
             f"{plain_ms:.4f} ms, bf16 yardstick {yard_ms:.4f} ms, bound "
             f"{bms:.4f} ms ({bby})")
         if not share <= 1.0:
@@ -892,13 +932,39 @@ def phase2_int8_dx(torch, results):
                  f" M={M}, K={K}, N={N}): err/tol {share}")
         worst = max(worst, err)
         shapes[f"{label} M={M} K={K} N={N}"] = {
-            "ms": ms, "plain_ms": plain_ms, "yardstick_ms": yard_ms,
-            "bound_ms": bms, "bound_by": bby, "worst_share": share}
+            "path": plan.path, "splits": plan.splits, "ms": ms,
+            "device_ms": dev_ms, "host_us": h_us, "cp_async_ms": cp_ms,
+            "cp_async_device_ms": cp_dev, "plain_ms": plain_ms,
+            "yardstick_ms": yard_ms, "bound_ms": bms, "bound_by": bby,
+            "worst_share": share}
         if label == "lm_head":
             timing = (ms, plain_ms, f"{label} M={M} K={K} N={N}", bms, bby,
                       yard_ms)
         del sets, dy, w, sc
         torch.cuda.empty_cache()
+    info = build.build_info()
+    log = info.log.splitlines() if info else []
+    seen = set()
+    for i, line in enumerate(log):
+        if "Function properties for" in line and "dx_wgmma_kernel" in line:
+            kind = "bf16" if "ILb1E" in line else "f32"
+            text = "; ".join(x.split(":", 1)[-1].strip()
+                             for x in log[i + 1:i + 3])
+            if kind in seen:
+                continue
+            seen.add(kind)
+            say(f"  ptxas, the TMA path's kernel, {kind} dy: {text}")
+            if "0 bytes spill stores, 0 bytes spill loads" not in text:
+                fail(f"int8_matmul_dx: the TMA path's kernel spills "
+                     f"({kind} dy)")
+    if not seen:
+        say("  ptxas: no log (the library was loaded as built by an earlier "
+            "process)")
+    say(f"  the library's build: {info.seconds if info else 0.0:.1f} s "
+        f"(0.0: loaded as built); the lm_head call's peak above what was "
+        f"allocated: {peak_mb:.1f} MB (dx {M * 4096 * 2 / 1e6:.1f} MB; the "
+        f"cp.async path's hi and lo scratch would be "
+        f"{4 * M * 128256 / 1e6:.1f} MB)")
     results.append({
         "name": "int8_matmul_dx", "route": "cuda",
         "source": "whisper_tensor_tpu_torch/csrc/int8_matmul_dx.cu",
@@ -906,6 +972,7 @@ def phase2_int8_dx(torch, results):
         "launches": None, "max_abs_err": worst, "ms": timing[0],
         "plain_ms": timing[1], "bound_ms": timing[3], "bound_by": timing[4],
         "library_ms": None, "yardstick_ms": timing[5], "shape": timing[2],
+        "lm_head_peak_mb": peak_mb,
         "note": "the port's backward of int8_matmul for x (QLoRA's frozen "
                 "base); the JAX package has no Pallas backward",
         "shapes": shapes})
@@ -5840,7 +5907,8 @@ QLORA = dict(B=2, S=512, steps=8, rank=16,
                       "w_down_"))
 MILLI_TRAIN = dict(layers=2, B=2, S=128)
 # the (kind, name pieces) of a training step's CUDA kernels, for its split
-KERNEL_KINDS = (("int8 kernels", ("int8_", "dx_mma", "dx_split")),
+KERNEL_KINDS = (("int8 kernels", ("int8_", "dx_mma", "dx_split", "dx_wgmma",
+                                   "dx_sum")),
                 ("cuBLAS products", ("gemm", "sm90", "cutlass", "xmma",
                                      "cublas", "ampere", "splitk")),
                 ("softmax and reductions", ("softmax", "reduce", "logsumexp",
@@ -5887,9 +5955,10 @@ class LoweringSpy:
         self.table.update(self.saved)
 
 
-def step_profile(torch, run) -> str:
+def step_profile(torch, run) -> tuple:
     """One training step's device time under torch.profiler, split by the
-    names of its CUDA kernels (KERNEL_KINDS), and the three largest."""
+    names of its CUDA kernels (KERNEL_KINDS), and the three largest: the
+    text, and the ms of each kind."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -5914,7 +5983,8 @@ def step_profile(torch, run) -> str:
     return (f"device {busy:.1f} ms: " + ", ".join(
         f"{k} {ms:.1f}" for k, ms in sorted(parts.items(),
                                              key=lambda p: -p[1]))
-        + "; largest: " + ", ".join(f"{k[:60]} {ms:.1f}" for k, ms in top))
+        + "; largest: " + ", ".join(f"{k[:60]} {ms:.1f}" for k, ms in top),
+        parts)
 
 
 def phase14a(torch, np, results) -> dict:
@@ -5975,7 +6045,8 @@ def phase14a(torch, np, results) -> dict:
         f"{flop / 1e12:.2f} TFLOP a step = {flop / step_s / 1e12:.1f} "
         f"TFLOP/s ({flop / step_s / PEAK_BF16_FLOP_S:.1%} of 989); peak "
         f"{peak:.2f} GB on the card")
-    say(f"  {step_profile(torch, lambda: tr.train_step(params, opt, x, y))}")
+    prof, _ = step_profile(torch, lambda: tr.train_step(params, opt, x, y))
+    say(f"  {prof}")
     say(f"  flash_attention launches in the trainer's steps: "
         f"{flash_attention.launches - f0} (the forward runs dense attention "
         f"by design: the kernels have no backward)")
@@ -6071,12 +6142,15 @@ def phase14b(torch, np, layers: int, results) -> dict:
 
         spy.zero()
         n_i8, n_dx = qm.int8_matmul.launches, qm.int8_matmul_dx.launches
+        n_tma = qm.int8_matmul_dx.path_launches["tma"]
         n_bw, f0 = qm.Int8MatMul.backward_calls, flash_attention.launches
         torch.cuda.reset_peak_memory_stats()
         params, losses, times = run()
         peak = torch.cuda.max_memory_allocated() / 1e9
         launches = {"int8_matmul": qm.int8_matmul.launches - n_i8,
                     "int8_matmul_dx": qm.int8_matmul_dx.launches - n_dx,
+                    "int8_matmul_dx tma":
+                        qm.int8_matmul_dx.path_launches["tma"] - n_tma,
                     "flash_attention": flash_attention.launches - f0}
         backward = qm.Int8MatMul.backward_calls - n_bw
         calls, grad_x, eligible = (dict(spy.calls), spy.grad_x,
@@ -6088,7 +6162,12 @@ def phase14b(torch, np, layers: int, results) -> dict:
             f"{steps}), {B * S / step_s:.0f} tok/s, 6N = "
             f"{6 * n_mm * B * S / step_s / 1e12:.1f} TFLOP/s over the int8 "
             f"base; peak {peak:.2f} GB on the card")
-        say(f"  {step_profile(torch, lambda: tr.train_step(dict(params), tr.init_opt_state(params), *batches[0]))}")
+        prof, kinds = step_profile(torch, lambda: tr.train_step(
+            dict(params), tr.init_opt_state(params), *batches[0]))
+        int8_ms = kinds.get("int8 kernels", 0.0)
+        say(f"  {prof}")
+        say(f"  the QLoRA step: {step_s * 1e3:.1f} ms, int8 kernels "
+            f"{int8_ms:.1f} ms of it on the card (a profiled step)")
         say(f"  launches over the {steps + 1} steps: {launches}; the "
             f"lowering's QuantMatMul calls {calls['QuantMatMul']} (forward "
             f"and remat re-forward; {grad_x} with x requiring grad), "
@@ -6107,6 +6186,9 @@ def phase14b(torch, np, layers: int, results) -> dict:
             fail(f"phase 14 (b): int8_matmul_dx launched "
                  f"{launches['int8_matmul_dx']} times for {backward} "
                  f"backward calls of Int8MatMul")
+        if launches["int8_matmul_dx tma"] != backward:
+            fail(f"phase 14 (b): {launches['int8_matmul_dx tma']} of "
+                 f"{backward} int8_matmul_dx calls took the TMA path")
         if launches["flash_attention"] or eligible:
             fail("phase 14 (b): the trainer's attention took a kernel")
         for res in results:
@@ -6131,6 +6213,7 @@ def phase14b(torch, np, layers: int, results) -> dict:
         # (the wrapper counts its launches on the name it is bound to)
         shadowed.calls, shadowed.worst = 0, 0.0
         shadowed.launches = kernel_dx.launches
+        shadowed.path_launches = kernel_dx.path_launches
         qm.int8_matmul_dx = shadowed
         try:
             _, again, _ = run()
@@ -6143,6 +6226,27 @@ def phase14b(torch, np, layers: int, results) -> dict:
         if shadowed.calls != backward or not shadowed.worst <= 1.0:
             fail(f"phase 14 (b): {shadowed.calls} shadowed dx calls of "
                  f"{backward}, worst err/tol {shadowed.worst}")
+
+        # the same steps with every dx call on the cp.async path (the
+        # design the TMA path replaced)
+        tma_plan, n_cp = qm.dx_plan, qm.int8_matmul_dx.path_launches[
+            "cp.async"]
+
+        def cp_plan(M, K, N, dy_dtype=torch.bfloat16, device=None):
+            return qm._dx_path_plan("cp.async", M, K, N,
+                                    dy_dtype == torch.bfloat16, device)
+
+        qm.dx_plan = cp_plan
+        try:
+            _, _, cp_times = run()
+        finally:
+            qm.dx_plan = tma_plan
+        cp_ms = statistics.median(cp_times[1:]) * 1e3
+        say(f"  the same steps with int8_matmul_dx on the cp.async path: "
+            f"{cp_ms:.1f} ms a step (on the TMA path {step_s * 1e3:.1f})")
+        if qm.int8_matmul_dx.path_launches["cp.async"] - n_cp < backward:
+            fail("phase 14 (b): the comparison run did not take the "
+                 "cp.async path")
         for n, t in tr._frozen_params().items():
             if n in base and not torch.equal(t, base[n]):
                 fail(f"phase 14 (b): the frozen int8 weight {n} changed")
@@ -6164,7 +6268,8 @@ def phase14b(torch, np, layers: int, results) -> dict:
             f"PEFT directory and back")
     finally:
         spy.restore()
-    return {"ms": step_s * 1e3, "tok_s": B * S / step_s, "peak_gb": peak}
+    return {"ms": step_s * 1e3, "tok_s": B * S / step_s, "peak_gb": peak,
+            "int8_ms": int8_ms, "cp_async_ms": cp_ms}
 
 
 def phase14c(torch, np, results) -> None:
@@ -6271,8 +6376,9 @@ def run_phase14(step, torch, np, layers: int, results) -> None:
          results)
     say(f"phase 14 in {time.perf_counter() - t0:.1f} s: GPT-2 124M "
         f"{a['ms']:.1f} ms a step, {a['tok_s']:.0f} tok/s, {a['peak_gb']:.2f}"
-        f" GB; QLoRA {b['ms']:.1f} ms a step, {b['tok_s']:.0f} tok/s, "
-        f"{b['peak_gb']:.2f} GB")
+        f" GB; QLoRA {b['ms']:.1f} ms a step (int8 kernels {b['int8_ms']:.1f}"
+        f" ms; {b['cp_async_ms']:.1f} with dx on the cp.async path), "
+        f"{b['tok_s']:.0f} tok/s, {b['peak_gb']:.2f} GB")
 
 
 # ---------------------------------------------------------------------------
@@ -9730,6 +9836,7 @@ class Int8Shadow:
         # (a wrapper counts its launches on the name it is bound to)
         fwd.launches, dx.launches = (self.kernel.launches,
                                      self.kernel_dx.launches)
+        dx.path_launches = self.kernel_dx.path_launches
         self.fwd, self.dx = fwd, dx
         qm.int8_matmul = transforms.int8_matmul = fwd
         qm.int8_matmul_dx = dx
@@ -9818,11 +9925,14 @@ def pt_case_qlora(torch, np, rank, mesh_dp, device, layers: int,
     spy = LoweringSpy(("QuantMatMul",))
     try:
         n_i8, n_dx = qm.int8_matmul.launches, qm.int8_matmul_dx.launches
+        n_tma = qm.int8_matmul_dx.path_launches["tma"]
         n_bw = qm.Int8MatMul.backward_calls
         spy.zero()
         r = pt_run(torch, make, mesh_dp, batches)
         launches = {"int8_matmul": qm.int8_matmul.launches - n_i8,
                     "int8_matmul_dx": qm.int8_matmul_dx.launches - n_dx,
+                    "int8_matmul_dx tma":
+                        qm.int8_matmul_dx.path_launches["tma"] - n_tma,
                     "QuantMatMul calls": spy.calls["QuantMatMul"],
                     "Int8MatMul backward calls":
                         qm.Int8MatMul.backward_calls - n_bw}
@@ -9844,6 +9954,11 @@ def pt_case_qlora(torch, np, rank, mesh_dp, device, layers: int,
         finally:
             sh.close()
         res["shadow"] = {k: (sh.calls[k], sh.worst[k]) for k in sh.calls}
+        # one more step on every rank (the collectives pair up), profiled:
+        # the int8 kernels' device ms in it
+        b = batches[0]
+        res["int8_ms"] = step_profile(torch, lambda: tr.train_step(
+            p, o, b[:, :-1], b[:, 1:]))[1].get("int8 kernels", 0.0)
     out["e"] = res
     pt_free(torch, r)
     del make
@@ -10007,14 +10122,16 @@ def phase20_check_qlora(np, outs, results, ref: dict) -> None:
         e = o["e"]
         L = e["launches"]
         what = f"(e) QLoRA at dp=2, {e['layers']} layer(s), rank {rank}"
-        say(f"  {pt_line(what, e)}; build {e['build_s']:.1f} s, "
+        say(f"  {pt_line(what, e)}, int8 kernels {e.get('int8_ms', 0.0):.1f}"
+            f" ms of a step on the card; build {e['build_s']:.1f} s, "
             f"{e['int8_weights']} int8 weights")
         say(f"  {what}: launches {L}; shadowed rerun (calls, worst "
             f"err/tol): {e['shadow']}")
         if L["int8_matmul"] != L["QuantMatMul calls"] or \
                 not L["int8_matmul"] or \
                 L["int8_matmul_dx"] != L["Int8MatMul backward calls"] or \
-                not L["int8_matmul_dx"]:
+                not L["int8_matmul_dx"] or \
+                L["int8_matmul_dx tma"] != L["int8_matmul_dx"]:
             fail(f"phase 20 {what}: launches against the lowering's "
                  f"calls: {L}")
         for k, (calls, worst) in e["shadow"].items():

@@ -1733,37 +1733,86 @@ def test_tiny_sd_pipeline_on_the_gpu(cuda, tmp_path):
 
 # -- training (int8_matmul_dx, the trainer on the card, the grad guards) ----
 
-# (K, N) of W: aligned, an odd N (staged by plain loads), odd K and N
-DX_SHAPES = [(4096, 1024), (1000, 771), (257, 129)]
+# (K, N) of W. The TMA path: QLoRA's k/v widths, a K that is not a
+# multiple of the 256-row tile, an N below one 64-column stage. The
+# cp.async path: an odd N (W staged by plain loads), odd K and N, and a K
+# whose bf16 dx rows are not whole 16-byte units (f32 dy takes the TMA
+# path there). Small M splits the reduction on both paths.
+DX_SHAPES = [(4096, 1024), (1000, 4096), (264, 48), (1000, 771), (257, 129),
+             (4100, 512)]
+
+
+def _dx_inputs(dev, M, K, N, tdt, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dy = torch.randn(M, N, generator=gen, device=dev).to(tdt)
+    w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(N, generator=gen, device=dev) * 0.01 + 1e-3
+    return dy, w, s
 
 
 @pytest.mark.parametrize("K,N", DX_SHAPES)
-@pytest.mark.parametrize("M", [1, 5, 1024, 2048])
+@pytest.mark.parametrize("M", [1, 5, 1000, 1024, 2048])
 @pytest.mark.parametrize("tdt", [torch.bfloat16, torch.float32])
 def test_int8_matmul_dx_kernel_matches_plain(cuda, M, K, N, tdt):
-    gen = torch.Generator(device=cuda).manual_seed(M * 7 + K + N)
-    dy = torch.randn(M, N, generator=gen, device=cuda).to(tdt)
-    w = torch.randint(-127, 128, (K, N), generator=gen, device=cuda,
-                      dtype=torch.int8)
-    s = torch.rand(N, generator=gen, device=cuda) * 0.01 + 1e-3
+    dy, w, s = _dx_inputs(cuda, M, K, N, tdt, M * 7 + K + N)
+    plan = qm.dx_plan(M, K, N, tdt, torch.cuda.current_device())
+    bf16 = tdt == torch.bfloat16
+    assert plan.path == ("tma" if qm.dx_tma_takes(K, N, bf16)
+                         else "cp.async")
     n0 = qm.int8_matmul_dx.launches
+    paths = dict(qm.int8_matmul_dx.path_launches)
     got = qm.int8_matmul_dx(dy, w, s)
     torch.cuda.synchronize()
     assert qm.int8_matmul_dx.launches == n0 + 1
+    paths[plan.path] += 1
+    assert qm.int8_matmul_dx.path_launches == paths
     assert got.shape == (M, K) and got.dtype == tdt
     _assert_agree(got, qm.int8_matmul_dx_plain(dy, w, s),
                   qm.int8_matmul_dx_plain(dy.float().abs(), w.abs(), s))
 
 
-def test_int8_matmul_dx_kernel_is_deterministic(cuda):
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    dy = torch.randn(300, 1024, generator=gen, device=cuda).bfloat16()
-    w = torch.randint(-127, 128, (512, 1024), generator=gen, device=cuda,
-                      dtype=torch.int8)
-    s = torch.rand(1024, generator=gen, device=cuda) + 0.1
+# (M, K, N, path, split): each path with its reduction split and whole
+@pytest.mark.parametrize("M,K,N,path,split", [
+    (300, 512, 1024, "tma", True), (2048, 4096, 1024, "tma", False),
+    (300, 512, 1000, "cp.async", True), (1024, 4096, 1000, "cp.async",
+                                         False)])
+def test_int8_matmul_dx_kernel_is_deterministic(cuda, M, K, N, path, split):
+    dy, w, s = _dx_inputs(cuda, M, K, N, torch.bfloat16, 3)
+    s += 0.1
+    plan = qm.dx_plan(M, K, N, torch.bfloat16, torch.cuda.current_device())
+    assert plan.path == path and (plan.splits > 1) == split
     first = qm.int8_matmul_dx(dy, w, s)
     for _ in range(3):
         assert torch.equal(qm.int8_matmul_dx(dy, w, s), first)
+
+
+@pytest.mark.parametrize("path", qm.DX_PATHS)
+@pytest.mark.parametrize("bf16", [True, False])
+def test_int8_matmul_dx_limits_on_the_card_are_the_plans_cpu_defaults(
+        cuda, path, bf16):
+    got = qm.dx_limits(path, bf16, torch.cuda.current_device())
+    want = qm.dx_limits(path, bf16)
+    assert (got.stage_cols, got.tile_rows, got.tile_cols,
+            got.blocks_per_sm) == (want.stage_cols, want.tile_rows,
+                                   want.tile_cols, want.blocks_per_sm)
+
+
+def test_int8_matmul_dx_tma_path_allocates_no_scratch(cuda):
+    """The TMA path's only allocation is dx: the split into hi and lo
+    happens in the product's registers (the cp.async path allocates 4 M
+    N bytes of scratch for them)."""
+    M, K, N = 1024, 4096, 16384
+    dy, w, s = _dx_inputs(cuda, M, K, N, torch.bfloat16, 5)
+    assert qm.dx_plan(M, K, N) == qm.DxPlan("tma", 1, N)   # no partials
+    qm.int8_matmul_dx(dy, w, s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = qm.int8_matmul_dx(dy, w, s)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before <= \
+        out.numel() * out.element_size() + (1 << 20)
 
 
 def _tiny_gpt2_train():

@@ -67,11 +67,19 @@ _SIGNATURES = {
     # path, bm, x_is_bf16, limits (int[3]: rows of W a stage, columns a
     # block, blocks a multiprocessor)
     "wt_int8_limits": [_I, _I, _I, _P],
-    # dy, w_i8, scale, dx, hi and lo scratch, M, K, N, dy_is_bf16, sms,
-    # stream
-    "wt_int8_matmul_dx": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # the cp.async path: dy, w_i8, scale, dx, hi and lo scratch, partial
+    # sums, M, K, N, dy_is_bf16, splits, split_cols, sms, stream
+    "wt_int8_matmul_dx": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _P],
     # (none): the stage width the dx scratch rows are padded to
     "wt_int8_dx_stage_cols": [],
+    # the TMA path: dy, w_i8, scale, dx, partial sums, M, K, N,
+    # dy_is_bf16, splits, split_cols, sms, stream
+    "wt_int8_matmul_dx_tma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
+    # tma, dy_is_bf16, limits (int[4]: reduction columns a stage, rows
+    # and columns of dx a block, blocks a multiprocessor)
+    "wt_int8_dx_limits": [_I, _I, _P],
     # x, q, scales, offsets, out, partial sums, M, K, N, G, bits,
     # has_off, x_is_bf16, path, bm, splits, kchunk, sms, stream
     "wt_packed_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -197,10 +205,10 @@ def card_sms(index: Optional[int] = None) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def kernel_limits(entry: str, index: int, *args) -> tuple:
-    """The ints a `wt_*_limits` C entry writes for `args` on CUDA device
-    `index` (what the launch plans read of a kernel on the card)."""
-    out = (ctypes.c_int * 3)()
+def kernel_limits(entry: str, index: int, *args, count: int = 3) -> tuple:
+    """The `count` ints a `wt_*_limits` C entry writes for `args` on CUDA
+    device `index` (what the launch plans read of a kernel on the card)."""
+    out = (ctypes.c_int * count)()
     with torch.cuda.device(index):
         check(getattr(library(), entry)(*args, out), entry)
     return tuple(out)

@@ -18,12 +18,12 @@ version computes the same in torch.
 Int8MatMul is the product as a torch.autograd.Function, for the frozen
 int8 base of QLoRA training (training/trainer.py): the forward is
 int8_matmul, the backward gives dx = (dy * scale[n]) @ W_i8^T by the
-kernel csrc/int8_matmul_dx.cu (int8_matmul_dx; int8_matmul_dx_plain on
-the CPU), and the weight and the scale are frozen: they get no
-gradient. The JAX package's int8 base trains through jax.grad of its
-cast-and-dot fallback (the 512-row route above, which a training step's
-M = B * S takes); the dx numerics are that transpose's, an f32 sum of
-(dy * scale) * W rounded once to dy's type.
+kernels of csrc/int8_matmul_dx.cu (int8_matmul_dx, by dx_plan's path;
+int8_matmul_dx_plain on the CPU), and the weight and the scale are
+frozen: they get no gradient. The JAX package's int8 base trains
+through jax.grad of its cast-and-dot fallback (the 512-row route above,
+which a training step's M = B * S takes); the dx numerics are that
+transpose's, an f32 sum of (dy * scale) * W rounded once to dy's type.
 """
 
 from __future__ import annotations
@@ -228,16 +228,101 @@ def int8_matmul_dx_plain(dy, w_i8, scale) -> torch.Tensor:
     return out.reshape(*dy.shape[:-1], K)
 
 
+# -- the backward's launch plan -------------------------------------------
+
+DX_PATHS = ("tma", "cp.async")
+# The CPU defaults, for the plan's tests, of what wt_int8_dx_limits reads
+# of each path's kernel on the card (DxLimits), as the H100 gives them:
+# reduction columns a stage (splits are whole stages), rows and columns
+# of dx a block, blocks a multiprocessor
+DX_LIMITS = {"tma": (64, 128, 256, 1), "cp.async": (32, 128, 128, 2)}
+DX_FILL_STAGES = 4        # a block's fixed cost (ring fill, epilogue), stages
+DX_MAX_SPLITS = 32
+
+
+@dataclass(frozen=True)
+class DxLimits:
+    """What dx_plan sizes a path's grid by, on one card."""
+    stage_cols: int       # reduction columns a stage
+    tile_rows: int        # rows of dx (of dy) a block
+    tile_cols: int        # columns of dx (rows of W) a block
+    blocks_per_sm: int    # blocks a multiprocessor runs at once
+    sms: int              # the card's multiprocessors
+
+
+@functools.lru_cache(maxsize=None)
+def dx_limits(path: str, dy_bf16: bool,
+              device: Optional[int] = None) -> DxLimits:
+    """The limits of `path`'s kernel for dy bf16 or f32: read on CUDA
+    device `device` (wt_int8_dx_limits), or for None the CPU defaults
+    (DX_LIMITS)."""
+    if device is None:
+        return DxLimits(*DX_LIMITS[path], build.card_sms())
+    return DxLimits(*build.kernel_limits(
+        "wt_int8_dx_limits", device, int(path == "tma"), int(dy_bf16),
+        count=4), card_sms(device))
+
+
+@dataclass(frozen=True)
+class DxPlan:
+    """How one int8_matmul_dx call runs on the card
+    (csrc/int8_matmul_dx.cu): `path` "tma" (wgmma on tiles loaded by TMA)
+    or "cp.async" (the split pass into a scratch, then mma.sync), the
+    reduction cut into `splits` runs of `split_cols` columns."""
+    path: str
+    splits: int
+    split_cols: int
+
+
+def dx_tma_takes(K: int, N: int, dy_bf16: bool) -> bool:
+    """Whether the TMA path takes a (K, N) weight: tensor maps need W's and
+    dy's rows in whole 16-byte units (N % 16 == 0 covers both), and dx's
+    rows are written as pairs of an even K (K % 8 for bf16, % 4 for f32:
+    whole 16-byte rows)."""
+    return N % 16 == 0 and K % (8 if dy_bf16 else 4) == 0
+
+
+@functools.lru_cache(maxsize=4096)
+def dx_plan(M: int, K: int, N: int, dy_dtype=torch.bfloat16,
+            device: Optional[int] = None) -> DxPlan:
+    """The launch plan of dx (M, K) = (dy (M, N) * scale) @ W (K, N)^T for
+    dy of `dy_dtype` (f16 runs as f32, widened at the kernel's edge), by
+    shape alone: the TMA path where its tensor maps can describe the
+    operands (dx_tma_takes), else the cp.async path."""
+    bf16 = dy_dtype == torch.bfloat16
+    return _dx_path_plan("tma" if dx_tma_takes(K, N, bf16) else "cp.async",
+                         M, K, N, bf16, device)
+
+
+def _dx_path_plan(path: str, M: int, K: int, N: int, dy_bf16: bool,
+                  device: Optional[int]) -> DxPlan:
+    """dx_plan on a given path (chip_smoke.py times the cp.async path at
+    the TMA path's shapes through it): a grid of blocks under a wave
+    splits the reduction into whole stages (build.split_units, with the
+    limits of dx_limits on CUDA device `device`; None: the CPU
+    defaults)."""
+    lim = dx_limits(path, dy_bf16, device)
+    units = -(-N // lim.stage_cols)
+    blocks = -(-M // lim.tile_rows) * -(-K // lim.tile_cols)
+    per = build.split_units(units, blocks, lim.blocks_per_sm * lim.sms,
+                            DX_FILL_STAGES / units, DX_MAX_SPLITS)
+    return DxPlan(path, -(-units // per), per * lim.stage_cols)
+
+
 def int8_matmul_dx(dy, w_i8, scale) -> torch.Tensor:
     """dx = (dy * scale[n]) @ W_i8^T: dy (..., N) bf16/f32/f16, w_i8 (K,
     N) int8, scale (N,) f32 -> (..., K) in dy's type.
 
     CPU tensors take the plain version. CUDA tensors launch the kernels
-    (csrc/int8_matmul_dx.cu: the split of dy * scale into bf16 hi and
-    lo, into a scratch of 4 M N bytes, then the product) at any M, K and
-    N, or raise; an f16 dy is widened to f32 at the kernel's edge and
-    the result rounded once to f16. `int8_matmul_dx.launches` counts
-    calls, one per call."""
+    of dx_plan's path (csrc/int8_matmul_dx.cu) at any M, K and N, or
+    raise: the TMA path (wgmma, the hi/lo split in the product's
+    registers, no scratch) where its tensor maps describe the operands,
+    else the cp.async path (a split pass into a scratch of 4 M N bytes,
+    then the product). On either path a reduction split for a small grid
+    adds a kernel that sums its f32 partials in a fixed order. An f16 dy
+    is widened to f32 at the kernel's edge and the result rounded once
+    to f16. `int8_matmul_dx.launches` counts calls, one per call;
+    `int8_matmul_dx.path_launches` counts them by path."""
     refuse_grad("int8_matmul_dx", dy, scale)
     if dy.device.type == "cpu":
         return int8_matmul_dx_plain(dy, w_i8, scale)
@@ -264,22 +349,45 @@ def int8_matmul_dx(dy, w_i8, scale) -> torch.Tensor:
             raise ValueError(f"int8_matmul_dx kernel: {name} must be a "
                              f"contiguous, 16-byte aligned tensor on "
                              f"{dy.device}")
-    out = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
-    # dy * scale split into bf16 hi and lo, rows padded to whole stages
-    cols = library().wt_int8_dx_stage_cols()
-    hi, lo = torch.empty((2, M, -(-N // cols) * cols), dtype=torch.bfloat16,
-                         device=dy.device)
-    code = library().wt_int8_matmul_dx(
-        dy2.data_ptr(), w_i8.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        hi.data_ptr(), lo.data_ptr(), M, K, N,
-        int(dy.dtype == torch.bfloat16), card_sms(device_index(dy.device)),
-        raw_stream(dy.device))
-    check(code, "int8_matmul_dx kernel")
+    plan = dx_plan(M, K, N, dy.dtype, device_index(dy.device))
+    out = _dx_launch(dy2, w_i8, scale, plan)
     int8_matmul_dx.launches += 1
+    int8_matmul_dx.path_launches[plan.path] += 1
     return out.reshape(*dy.shape[:-1], K)
 
 
+def _dx_launch(dy2, w_i8, scale, plan: DxPlan) -> torch.Tensor:
+    """Launch the dx kernels by `plan` (dx_plan's, or the cp.async path's
+    that chip_smoke.py times beside it) on checked CUDA inputs, dy2 (M,
+    N); (M, K). Counts nothing."""
+    (M, N), K = dy2.shape, w_i8.shape[0]
+    bf16 = int(dy2.dtype == torch.bfloat16)
+    dev = device_index(dy2.device)
+    out = torch.empty((M, K), dtype=dy2.dtype, device=dy2.device)
+    part = (torch.empty((plan.splits, M, K), dtype=torch.float32,
+                        device=dy2.device) if plan.splits > 1 else None)
+    part_ptr = None if part is None else part.data_ptr()
+    if plan.path == "tma":
+        code = library().wt_int8_matmul_dx_tma(
+            dy2.data_ptr(), w_i8.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), part_ptr, M, K, N, bf16, plan.splits,
+            plan.split_cols, card_sms(dev), raw_stream(dev))
+    else:
+        # dy * scale split into bf16 hi and lo, rows padded to whole stages
+        cols = library().wt_int8_dx_stage_cols()
+        hi, lo = torch.empty((2, M, -(-N // cols) * cols),
+                             dtype=torch.bfloat16, device=dy2.device)
+        code = library().wt_int8_matmul_dx(
+            dy2.data_ptr(), w_i8.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), hi.data_ptr(), lo.data_ptr(), part_ptr, M, K, N,
+            bf16, plan.splits, plan.split_cols, card_sms(dev),
+            raw_stream(dev))
+    check(code, f"int8_matmul_dx kernel ({plan.path} path)")
+    return out
+
+
 int8_matmul_dx.launches = 0
+int8_matmul_dx.path_launches = dict.fromkeys(DX_PATHS, 0)
 
 
 class Int8MatMul(torch.autograd.Function):

@@ -1,6 +1,7 @@
 // Device helpers shared by the kernel sources: type conversions, cp.async
-// copies, prmt, the bf16 tensor-core product and its ldmatrix fragment
-// loads, and the opt-in to more than 48 KB of dynamic shared memory.
+// copies, prmt and the exact int8 conversions it makes, the bf16
+// tensor-core product and its ldmatrix fragment loads, and the opt-in to
+// more than 48 KB of dynamic shared memory.
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,6 +51,26 @@ __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
   uint32_t r;
   asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
   return r;
+}
+
+// Byte c of a word of int8 values whose sign bits were flipped (u = q +
+// 128), as the exact f32 q: prmt builds the float 2^23 + u (byte c, two
+// zero bytes, 0x4B), and 2^23 + u - (2^23 + 128) is q, exactly.
+__device__ __forceinline__ float i8_value(uint32_t flipped, int c) {
+  return __int_as_float(prmt(flipped, 0x4B000000u, 0x7440u | c)) -
+         8388736.f;
+}
+
+// A word of four int8 values (byte 0 the lowest column) as two bf16x2
+// words, exactly: i8_value truncated to its top half (an int8 value has at
+// most 7 significant bits, bf16 has 8).
+__device__ __forceinline__ uint2 i8x4_to_bf16(uint32_t q) {
+  const uint32_t v = q ^ 0x80808080u;
+  const uint32_t f0 = __float_as_uint(i8_value(v, 0));
+  const uint32_t f1 = __float_as_uint(i8_value(v, 1));
+  const uint32_t f2 = __float_as_uint(i8_value(v, 2));
+  const uint32_t f3 = __float_as_uint(i8_value(v, 3));
+  return make_uint2(prmt(f0, f1, 0x7632u), prmt(f2, f3, 0x7632u));
 }
 
 // two floats -> bf16x2, `lo` in the low half (the lower column index)

@@ -64,14 +64,6 @@
 
 namespace {
 
-// Byte c of a word of int8 values whose sign bits were flipped (u = q +
-// 128), as the exact f32 q: prmt builds the float 2^23 + u (byte c, two
-// zero bytes, 0x4B), and 2^23 + u - (2^23 + 128) is q, exactly.
-__device__ __forceinline__ float i8_value(uint32_t flipped, int c) {
-  return __int_as_float(prmt(flipped, 0x4B000000u, 0x7440u | c)) -
-         8388736.f;
-}
-
 // Four bytes of a W row from device memory, zero past N or past the
 // split: the path for rows that are not 16-byte aligned (N % 16 != 0).
 __device__ __forceinline__ uint32_t load_bytes(const int8_t* __restrict__ w,
