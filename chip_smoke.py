@@ -6,7 +6,7 @@
                           [--inspect-only] [--text-family-only]
                           [--speech-only] [--media-only] [--gguf-only]
                           [--parallel-only] [--train-parallel-only]
-                          [--plans]
+                          [--onnx-only] [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -418,6 +418,25 @@ Phases:
      tok/s, card GB a rank and the collectives' calls and host ms a
      step. The default run carries (e) at one layer for 2 steps in phase
      19's gloo world and (g) at B 2 x S 512 in its world of one.
+  21. the compiler facade and ONNX files as a model source, on phase 3's
+     checkpoint (bf16, ragged_decode): (a) build_program over phase 11
+     (c)'s Model runs its 1,900-token prefill and 8 greedy decode steps
+     on the card: tokens equal to Model.eval's, logits bit for bit or
+     within phase 3's bound (printed which), launches of flash_attention
+     (2 at 2 layers), decode_attention (16) and ragged_kv_write (36)
+     equal to the lowering's calls, backend "torch"; a second, shadowed
+     run holds each launch against its plain version and uploads no
+     weight byte (the default run makes (a)'s first run and its checks
+     inside phase 11 (c), without the second run, its launches in the
+     kernels' line as launches_program). `--onnx-only` writes the
+     checkpoint and runs (a) whole on its own load, then (b)
+     Model.save_onnx(weights="external") of that model (file sizes,
+     export and load seconds) loaded back by the Server's `onnx` loader:
+     tokens and logits bit for bit (a)'s; (c) the llama recipe over
+     SafetensorsStore.lazy getters with WeightStorage.origin_reference():
+     no weight payload in the file, loaded by the `onnx` loader, (a)'s
+     tokens, logits bit for bit or within phase 3's bound; it ends with
+     the result line.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -5016,34 +5035,16 @@ def phase11_steps(torch, np, ckpt: Path, layers: int) -> dict:
     say(f"  loader: {time.perf_counter() - t0:.1f} s")
 
     def fresh(m):
-        out = {}
-        for name, info in m.input_infos().items():
-            if name.startswith("cache_"):
-                dims = [1] + [int(d.value()) for d in info.dims()[1:]]
-                out[name] = torch.zeros(dims, dtype=torch.bfloat16,
-                                        device=CARD)
-        return out
+        return fresh_caches(torch, m)
 
-    prompt = np.asarray(ByteTokenizer().encode(long_text(
-        np, MAX_LEN - 148, SEED + 12)), np.int64)   # 1,900 tokens
+    prompt = step_prompt(np)
     P, n_new = prompt.shape[0], 8
     caches = fresh(model)
     zero(counters)
     calls = CallCounter(("Attention", "DynUpdateSlice"))
     try:
-        t0 = time.perf_counter()
-        out = model.eval(dict(caches, input_ids=prompt[None],
-                              pos=np.asarray([0], np.int64)))
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        logits = [out["logits"][0].astype(np.float32)]
-        toks = [int(logits[0][-1].argmax())]
-        t0 = time.perf_counter()
-        for i in range(n_new):
-            out = model.eval(dict(caches, input_ids=np.asarray(
-                [[toks[-1]]], np.int64), pos=np.asarray([P + i], np.int64)))
-            logits.append(out["logits"][0].astype(np.float32))
-            toks.append(int(logits[-1][-1].argmax()))
-        decode_ms = (time.perf_counter() - t0) * 1e3 / n_new
+        toks, logits, prefill_ms, decode_ms = greedy_steps(
+            np, model.eval, caches, prompt, n_new)
     finally:
         calls.restore()
     got = {name: fn.launches for name, fn in counters.items()}
@@ -5086,7 +5087,11 @@ def phase11_steps(torch, np, ckpt: Path, layers: int) -> dict:
     if not diff <= frac * scale:
         fail("phase 11 (c): Model.eval's logits disagree with the text "
              "interface's")
-    del iface, model, entry, srv, caches, out, logits, teacher, mine
+    del iface, caches, teacher, mine
+    free_memory(torch)
+    program = phase21_program(torch, np, model, prompt, toks, logits,
+                              layers, counters, shadowed=False)
+    del model, entry, srv, logits, program["prog"]
     free_memory(torch)
 
     cfg = gpt2.GPT2Config()
@@ -5139,26 +5144,303 @@ def phase11_steps(torch, np, ckpt: Path, layers: int) -> dict:
         fail("phase 11 (c): GPT-2's logits on the kernel disagree with the "
              "plain path's")
     got["flash_attention"] += g_launches
-    return got
+    return got, program["launches"]
 
 
 def phase11(torch, np, ckpt: Path, layers: int, results) -> None:
     """Phase 11: the generic ONNX path; its launches join the kernels'
-    line as launches_generic."""
+    line as launches_generic, phase 21 (a)'s as launches_program."""
     phase11_corpus(torch, np)
     free_memory(torch)
     launches = phase11_attention(torch, np)
     free_memory(torch)
-    for name, n in phase11_steps(torch, np, ckpt, layers).items():
+    steps, program = phase11_steps(torch, np, ckpt, layers)
+    for name, n in steps.items():
         launches[name] = launches.get(name, 0) + n
     for res in results:
         if res["name"] in launches:
             res["launches_generic"] = launches[res["name"]]
-    say(f"  phase 11 launches: {launches}")
+        if res["name"] in program:
+            res["launches_program"] = program[res["name"]]
+    say(f"  phase 11 launches: {launches}; phase 21 (a): {program}")
 
 
 
 # ---------------------------------------------------------------------------
+# phase 21: the compiler facade and ONNX files as a model source, on phase
+# 3's checkpoint: (a) build_program over phase 11 (c)'s Model (default
+# run); (b) a .bin export and (c) an origin-referenced export, each loaded
+# by the `onnx` loader (--onnx-only)
+
+
+def fresh_caches(torch, model) -> dict:
+    """Zeroed bf16 caches on the card for one row of a step graph."""
+    out = {}
+    for name, info in model.input_infos().items():
+        if name.startswith("cache_"):
+            dims = [1] + [int(d.value()) for d in info.dims()[1:]]
+            out[name] = torch.zeros(dims, dtype=torch.bfloat16, device=CARD)
+    return out
+
+
+def step_prompt(np):
+    """Phase 11 (c)'s 1,900-token prompt."""
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    return np.asarray(ByteTokenizer().encode(long_text(
+        np, MAX_LEN - 148, SEED + 12)), np.int64)
+
+
+def greedy_steps(np, run, caches, prompt, n_new: int):
+    """A prefill of `prompt` and `n_new` greedy decode steps through
+    `run(feeds) -> host outputs` (Model.eval, CompiledProgram.run) over
+    `caches` (on the card, written in place): (tokens, each run's logits
+    in f32, the prefill's ms, ms a decode step)."""
+    P = prompt.shape[0]
+    t0 = time.perf_counter()
+    out = run(dict(caches, input_ids=prompt[None],
+                   pos=np.asarray([0], np.int64)))
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    logits = [out["logits"][0].astype(np.float32)]
+    toks = [int(logits[0][-1].argmax())]
+    t0 = time.perf_counter()
+    for i in range(n_new):
+        out = run(dict(caches, input_ids=np.asarray([[toks[-1]]], np.int64),
+                       pos=np.asarray([P + i], np.int64)))
+        logits.append(out["logits"][0].astype(np.float32))
+        toks.append(int(logits[-1][-1].argmax()))
+    return toks, logits, prefill_ms, (time.perf_counter() - t0) * 1e3 / n_new
+
+
+def logits_held(np, got, want, layers: int, what: str) -> str:
+    """`got` bit for bit `want`'s (lists of f32 logits), or within phase
+    3's bound of max|logit|; says which held, fails if neither."""
+    if all(np.array_equal(g, w) for g, w in zip(got, want)):
+        return "bit for bit"
+    scale = max(float(np.abs(w).max()) for w in want)
+    diff = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    frac = 0.015 * math.sqrt(layers)
+    if not diff <= frac * scale:
+        fail(f"{what}: logits off by {diff:.5g} ({diff / scale:.3%} of "
+             f"max|logit|), past phase 3's bound {frac:.1%}")
+    return (f"within phase 3's bound: max |diff| {diff:.5g}, "
+            f"{diff / scale:.3%} of max|logit| {scale:.4g} (bound "
+            f"{frac:.1%})")
+
+
+def program_run(torch, np, model, prompt, n_new: int, layers: int,
+                counters: dict, what: str) -> dict:
+    """build_program over `model` on the card, its first run (weights
+    uploaded, plan built) counted: the launches of flash_attention (the
+    prefill's pos-bound calls), decode_attention and ragged_kv_write
+    (one a cache a run: no pair pass) equal the lowering's Attention and
+    DynUpdateSlice calls, and backend is "torch"."""
+    from whisper_tensor_tpu_torch.compiler import (CompilationSubject,
+                                                   build_program)
+
+    prog = build_program(CompilationSubject(model=model))
+    zero(counters)
+    calls = CallCounter(("Attention", "DynUpdateSlice"))
+    try:
+        toks, logits, prefill_ms, decode_ms = greedy_steps(
+            np, prog.run, fresh_caches(torch, model), prompt, n_new)
+    finally:
+        calls.restore()
+    got = {name: fn.launches for name, fn in counters.items()}
+    lowered = dict(calls.calls)
+    say(f"  {what}: build_program on {prog.device}, backend "
+        f"{prog.backend!r} (host RSS {host_rss_gb():.1f} GB); prefill of "
+        f"{prompt.shape[0]} tokens "
+        f"{prefill_ms:.1f} ms (weights uploaded: "
+        f"{prog.stats['weight_bytes_uploaded'] / 1e9:.2f} GB; plan built), "
+        f"{n_new} decode steps {decode_ms:.1f} ms a step; launches {got}; "
+        f"lowering calls {lowered}")
+    if prog.backend != "torch" or "fallback_reason" in prog.stats:
+        fail(f"{what}: the program fell back: {prog.stats}")
+    if got["flash_attention"] != layers \
+            or got["decode_attention"] != n_new * layers \
+            or got["flash_attention"] + got["decode_attention"] \
+            != lowered["Attention"] \
+            or got["ragged_kv_write"] != lowered["DynUpdateSlice"] \
+            or got["ragged_kv_write"] != 2 * (1 + n_new) * layers \
+            or got["kv_write_pair"] != 0:
+        fail(f"{what}: launches {got} do not match the lowering's calls "
+             f"{lowered}")
+    return {"prog": prog, "toks": toks, "logits": logits, "launches": got}
+
+
+def phase21_program(torch, np, model, prompt, ref_toks, ref_logits,
+                    layers: int, counters: dict, shadowed: bool) -> dict:
+    """(a) build_program over `model` against its Model.eval run
+    (`ref_toks`, `ref_logits`): tokens equal, logits bit for bit or
+    within phase 3's bound; with `shadowed`, a second run holds every
+    launch against its plain version (agreement_bound; the cache writes
+    bit for bit) and uploads no weight byte."""
+    n_new = len(ref_toks) - 1
+    run = program_run(torch, np, model, prompt, n_new, layers, counters,
+                      "phase 21 (a)")
+    if run["toks"] != ref_toks:
+        fail(f"phase 21 (a): the program's tokens {run['toks']} are not "
+             f"Model.eval's {ref_toks}")
+    held = logits_held(np, run["logits"], ref_logits, layers,
+                       "phase 21 (a)")
+    say(f"  phase 21 (a): tokens equal Model.eval's; logits {held}")
+    if shadowed:
+        prog = run["prog"]
+        uploaded = prog.stats["weight_bytes_uploaded"]
+        sh = Shadows()
+        try:
+            again = greedy_steps(np, prog.run, fresh_caches(torch, model),
+                                 prompt, n_new)[0]
+        finally:
+            sh.close("phase 21 (a)", dict(run["launches"], int8_matmul=0))
+        if prog.stats["weight_bytes_uploaded"] != uploaded:
+            fail("phase 21 (a): the second run uploaded weights again")
+        if again != run["toks"]:
+            fail("phase 21 (a): the shadowed rerun's tokens differ")
+        say("  phase 21 (a): the second run uploaded no weight byte")
+    return run
+
+
+def phase21(torch, np, ckpt: Path, layers: int) -> dict:
+    """Phase 21 (--onnx-only): (a) as in the default run, over its own
+    load of phase 3's checkpoint; (b) Model.save_onnx(weights="external")
+    of that model, loaded back through the Server's `onnx` loader and run
+    by build_program: tokens equal and logits bit for bit (a)'s; (c) the
+    llama recipe over SafetensorsStore.lazy getters of the checkpoint
+    with WeightStorage.origin_reference(): every checkpoint tensor
+    referenced, no weight payload in the ONNX file (only the recipe's
+    rope tables), loaded through the `onnx` loader, (a)'s tokens and logits (bit
+    for bit or within phase 3's bound). Returns (a)'s launches."""
+    import safetensors
+
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        kv_write_pair, ragged_kv_write)
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.onnx_builder import WeightStorage
+    from whisper_tensor_tpu_torch.importers.recipes.llm.llama import (
+        LlamaConfig, build_llama_step)
+    from whisper_tensor_tpu_torch.importers.safetensors_io import (
+        SafetensorsStore, load_hf_config)
+    from whisper_tensor_tpu_torch.onnx_pb import ModelProto
+    from whisper_tensor_tpu_torch.server.main import Server
+
+    counters = {"flash_attention": flash_attention,
+                "decode_attention": decode_attention,
+                "ragged_kv_write": ragged_kv_write,
+                "kv_write_pair": kv_write_pair}
+    srv = Server()
+    t0 = time.perf_counter()
+    (entry,) = srv.models.run_loader("transformers", {
+        "path": str(ckpt), "dtype": "bf16", "max_len": MAX_LEN,
+        "ragged_decode": True})
+    say(f"phase 21: the transformers loader: {time.perf_counter() - t0:.1f}"
+        f" s; host RSS {host_rss_gb():.1f} GB")
+    model = entry.model
+    prompt = step_prompt(np)
+    toks, logits, prefill_ms, decode_ms = greedy_steps(
+        np, model.eval, fresh_caches(torch, model), prompt, 8)
+    say(f"  Model.eval: prefill {prefill_ms:.1f} ms, {decode_ms:.1f} ms a "
+        f"decode step; tokens {toks}")
+    a = phase21_program(torch, np, model, prompt, toks, logits, layers,
+                        counters, shadowed=True)
+    del a["prog"]
+    free_memory(torch)
+
+    d = ckpt.with_name(ckpt.name + "-onnx")
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    try:
+        path = d / "model.onnx"
+        t0 = time.perf_counter()
+        model.save_onnx(str(path), weights="external")
+        export_s = time.perf_counter() - t0
+        n_params = sum(int(np.prod(model.graph.store.get(n).shape))
+                       for n in model.graph.store.names())
+        srv.models.unload(entry.id)
+        del model, entry
+        free_memory(torch)
+        t0 = time.perf_counter()
+        (loaded,) = srv.models.run_loader("onnx", {"path": str(path)})
+        load_s = time.perf_counter() - t0
+        say(f"phase 21 (b): save_onnx(weights=\"external\") of "
+            f"{n_params / 1e9:.3f} B parameters in {export_s:.1f} s: "
+            f"{path.name} {path.stat().st_size / 1e6:.2f} MB, "
+            f"{path.name}.bin {(d / (path.name + '.bin')).stat().st_size / 1e9:.3f} GB; "
+            f"the `onnx` loader took {load_s:.1f} s; host RSS "
+            f"{host_rss_gb():.1f} GB")
+        b = program_run(torch, np, loaded.model, prompt, 8, layers,
+                        counters, "phase 21 (b)")
+        if b["toks"] != a["toks"] or not all(
+                np.array_equal(g, w) for g, w in zip(b["logits"],
+                                                     a["logits"])):
+            fail("phase 21 (b): the .bin export's tokens or logits are not "
+                 "(a)'s bit for bit")
+        say("  phase 21 (b): tokens equal (a)'s; logits bit for bit")
+        del b, loaded
+        free_memory(torch)
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+
+        st = SafetensorsStore.from_dir(str(ckpt))
+        hf = load_hf_config(str(ckpt))
+        t0 = time.perf_counter()
+        data = build_llama_step(st.lazy, LlamaConfig.from_hf(hf),
+                                max_len=MAX_LEN, dtype=DType.BF16,
+                                pos_per_row=True,
+                                storage=WeightStorage.origin_reference())
+        build_s = time.perf_counter() - t0
+        graph = ModelProto.parse(data).graph
+        refs = {dict((e.key, e.value) for e in t.external_data)
+                ["tensor_name"] for t in graph.initializer
+                if t.data_location == 1}
+        embedded = {t.name: len(t.raw_data) for t in graph.initializer
+                    if t.raw_data}
+        payload = sum(embedded.values())
+        path = d / "origin.onnx"
+        path.write_bytes(data)
+        t0 = time.perf_counter()
+        (loaded,) = srv.models.run_loader("onnx", {"path": str(path)})
+        load_s = time.perf_counter() - t0
+        try:
+            from safetensors import safe_open
+            with safe_open(str(ckpt / "model.safetensors"),
+                           framework="numpy") as f:
+                numpy_bf16 = str(f.get_tensor("model.norm.weight").dtype)
+        except Exception as e:  # noqa: BLE001 (reported, not relied on)
+            numpy_bf16 = f"fails ({type(e).__name__}: {e})"
+        say(f"phase 21 (c): the llama recipe over SafetensorsStore.lazy with "
+            f"origin_reference in {build_s:.1f} s: {len(data) / 1e3:.1f} kB, "
+            f"{len(refs)} of {len(st.names())} checkpoint tensors referenced, "
+            f"{payload} bytes of initializer payload (the recipe's own "
+            f"tables: {embedded}); the `onnx` loader took "
+            f"{load_s:.1f} s, host RSS {host_rss_gb():.1f} GB (safetensors "
+            f"{safetensors.__version__}: its "
+            f"numpy reader of a bf16 tensor gives {numpy_bf16})")
+        if refs != set(st.names()) or set(embedded) - {"rope_cos",
+                                                       "rope_sin"}:
+            fail("phase 21 (c): the origin-referenced ONNX holds weight "
+                 "payload or misses a checkpoint tensor")
+        c = program_run(torch, np, loaded.model, prompt, 8, layers,
+                        counters, "phase 21 (c)")
+        if c["toks"] != a["toks"]:
+            fail(f"phase 21 (c): tokens {c['toks']} are not (a)'s "
+                 f"{a['toks']}")
+        held = logits_held(np, c["logits"], a["logits"], layers,
+                           "phase 21 (c)")
+        say(f"  phase 21 (c): tokens equal (a)'s; logits {held}")
+        del c, loaded
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del srv
+    free_memory(torch)
+    return a["launches"]
+
+
 # phase 12: Gemma, Gemma-2, Gemma-3 and Phi-3 at their published widths
 # (the config.json of each checkpoint named), depth cut to 2 layers
 # (Gemma-2 alternates a local and a global layer) and to 6 for Gemma-3,
@@ -10316,6 +10598,11 @@ def main() -> None:
                          "the pipelined trainer at pp=2, a world of one "
                          "under NCCL) alone after the build (no result "
                          "line)")
+    ap.add_argument("--onnx-only", action="store_true",
+                    help="write the checkpoint and run phase 21 (the "
+                         "compiler facade over phase 11 (c)'s Model, a .bin "
+                         "and an origin-referenced ONNX export loaded by the "
+                         "`onnx` loader) alone after the build")
     ap.add_argument("--plans", action="store_true",
                     help="time packed_matmul and decode_attention under "
                          "forced splits, then stop (no result line)")
@@ -10414,6 +10701,28 @@ def main() -> None:
         finally:
             shutil.rmtree(ckpt, ignore_errors=True)
         say(f"{card_line()} (--generic-only: phases 2-10 not run)")
+        return
+    if args.onnx_only:
+        try:
+            import ml_dtypes
+            bf16 = np.dtype(ml_dtypes.bfloat16)
+        except ImportError:
+            bf16 = None
+        ckpt = ROOT / "build" / "smoke" / f"llama3-8b-widths-{args.layers}L"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        ckpt.mkdir(parents=True)
+        try:
+            step("write the checkpoint", write_checkpoint, ckpt, args.layers,
+                 np, bf16)
+            launches = step("phase 21 (build_program, ONNX sources)",
+                            phase21, torch, np, ckpt, args.layers)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        say(json.dumps({"phase21_launches": launches}))
+        say(f"{card_line()} (--onnx-only: phases 2-20 not run)")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
         return
     if args.image_only:
         step("phase 13 (SD-1.5 image generation)", phase13, torch, np,

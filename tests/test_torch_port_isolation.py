@@ -20,6 +20,9 @@ package (whisper_tensor_tpu), at any level.
     speech (a transcription and a speech request over HTTP, a streaming
     transcription, F5, an LSTM graph), each in a fresh interpreter, with
     the same check.
+(e) A raw .onnx file with .bin weights through the Server's `onnx`
+    loader and build_program, in a fresh interpreter, with the same
+    check.
 """
 
 import ast
@@ -718,4 +721,49 @@ def test_parallel_training_loads_nothing_of_jax(tmp_path):
         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     for line in ("LOSS True", "CKPT 1", "PIPE True", "FOREIGN []"):
+        assert line in proc.stdout, proc.stdout
+
+
+_ONNX_SCRIPT = r"""
+import os, sys
+import numpy as np
+d = sys.argv[1]
+from whisper_tensor_tpu_torch.compiler import CompilationSubject, build_program
+from whisper_tensor_tpu_torch.importers.onnx_builder import WeightStorage
+from whisper_tensor_tpu_torch.importers.recipes.llm.gpt2 import (
+    GPT2Config, build_gpt2_step, random_gpt2_weights)
+from whisper_tensor_tpu_torch.server.main import Server
+cfg = GPT2Config(n_layer=1, n_head=2, n_embd=256, vocab_size=1024,
+                 n_positions=16)
+path = os.path.join(d, "tiny.onnx")
+with open(path, "wb") as f:
+    f.write(build_gpt2_step(random_gpt2_weights(cfg), cfg, max_len=16,
+                            storage=WeightStorage.bin_file(
+                                os.path.join(d, "tiny.bin"))))
+srv = Server(device="cpu")
+(entry,) = srv.models.run_loader("onnx", {"path": path})
+prog = build_program(CompilationSubject(model=entry.model), device="cpu")
+feeds = {"input_ids": np.asarray([[1, 2, 3]], np.int64),
+         "pos": np.asarray(0, np.int64),
+         "cache_k_0": np.zeros((1, 2, 16, 128), np.float32),
+         "cache_v_0": np.zeros((1, 2, 16, 128), np.float32)}
+out = prog.run(feeds)
+print("ONNX", prog.backend, out["logits"].shape,
+      bool(np.isfinite(out["logits"]).all()))
+print("FOREIGN", sorted(m for m in sys.modules
+                        if m in ("jax", "whisper_tensor_tpu")
+                        or m.startswith(("jax.", "whisper_tensor_tpu."))))
+"""
+
+
+def test_a_raw_onnx_file_loads_and_runs_without_jax(tmp_path):
+    """A raw .onnx file with .bin weights, written by the port's builder,
+    loaded by the port's Server through the `onnx` loader and run by
+    build_program, in a fresh interpreter on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _ONNX_SCRIPT, str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for line in ("ONNX torch (1, 3, 1024) True", "FOREIGN []"):
         assert line in proc.stdout, proc.stdout

@@ -46,8 +46,14 @@ later in-place write (a cache write into the tensor it is handed)
 cannot change it. A replayed plan reports the same taps as the run that
 built it. An executor without taps replays as before.
 
-There is no oracle fallback: a node that has to run on the device and
-has no lowering raises NotImplementedError naming its KIND.
+There is no oracle fallback on the card: a node that has to run on the
+device and has no lowering raises NoLowering (a NotImplementedError)
+naming its KIND. On the CPU, `host_ops=True` runs such a node through
+its op's numpy eval as a step of the plan, between the lowered steps,
+so a cache the graph writes in place is still written in place; a
+value such a step makes that torch cannot hold (a string) stays a host
+array, and any node it feeds runs the same way. `host_kinds` then names
+each kind so run, with the reason.
 """
 
 from __future__ import annotations
@@ -69,6 +75,11 @@ _FOLD_MAX_ELEMENTS = 1 << 16     # fold small host-side shape math only
 _LIFT_MAX_ELEMENTS = 1 << 16     # graph inputs that may be lifted
 
 PlanKey = Tuple[Tuple[Tuple[int, ...], torch.dtype], ...]
+
+
+class NoLowering(NotImplementedError):
+    """A node that has to run on the device is of a kind with no
+    lowering."""
 
 
 class _Step:
@@ -116,9 +127,14 @@ class GraphExecutor:
     graph lacks is left out (`tap_labels` lists those found)."""
 
     def __init__(self, graph: MilliGraph, device: torch.device,
-                 taps: Sequence[str] = ()):
+                 taps: Sequence[str] = (), host_ops: bool = False):
+        if host_ops and device.type != "cpu":
+            raise ValueError("host_ops runs a node through its numpy eval: "
+                             "the CPU only")
         self.graph = graph
         self.device = device
+        self.host_ops = host_ops
+        self.host_kinds: Dict[str, str] = {}   # kind -> why it ran on the host
         self.input_names = list(graph.inputs)
         self._plans: Dict[PlanKey, _Plan] = {}
         self._lifted: List[str] = []   # inputs whose values key a plan
@@ -165,7 +181,7 @@ class GraphExecutor:
             for tid, a in zip(self.graph.inputs.values(), args):
                 vals[tid] = a
             for lbl, tid in plan.tap_start:
-                taps[lbl] = vals[tid].clone()
+                taps[lbl] = _snapshot(vals[tid])
             tap_after = plan.tap_after
             for k, st in enumerate(plan.steps):
                 ins = [None if i is None else vals[i] for i in st.inputs]
@@ -174,7 +190,7 @@ class GraphExecutor:
                     vals[tid] = o
                 if tap_after:
                     for lbl, tid in tap_after.get(k, ()):
-                        taps[lbl] = vals[tid].clone()
+                        taps[lbl] = _snapshot(vals[tid])
         return {n: vals[t] for n, t in self.graph.outputs.items()}, taps
 
     # ------------------------------------------------------------------
@@ -199,7 +215,7 @@ class GraphExecutor:
                 statics[tid] = _lifted_value(name, a)
             for lbl in self._taps.get(tid, ()):
                 plan.tap_start.append((lbl, tid))
-                taps[lbl] = a.clone()
+                taps[lbl] = _snapshot(a)
 
         def lift(tid: int) -> torch.Tensor:
             if tid not in vals:
@@ -236,11 +252,25 @@ class GraphExecutor:
                 continue
             fn = LOWERINGS.get(kind)
             if fn is None:
-                raise NotImplementedError(
-                    f"milli op {kind} has no PyTorch lowering in the port "
-                    f"(node {node.id}); the port has no oracle fallback")
-            ins = [lift(i) if i is not None else None for i in node.inputs]
-            step = _Step(fn, node.op, list(node.inputs), in_statics,
+                why = (f"milli op {kind} has no PyTorch lowering in the port "
+                       f"(node {node.id})")
+                if not self.host_ops:
+                    raise NoLowering(f"{why}; the port has no oracle "
+                                     f"fallback on the card")
+                self.host_kinds.setdefault(
+                    kind, f"{why}: it ran through its numpy eval on the CPU")
+                fn = _host_eval
+            elif self.host_ops and any(isinstance(vals.get(i), np.ndarray)
+                                       for i in node.inputs):
+                fn = _host_eval
+            if fn is _host_eval:
+                # a static input reaches the op as its host value
+                step_ins = [None if s is not None else i
+                            for s, i in zip(in_statics, node.inputs)]
+            else:
+                step_ins = list(node.inputs)
+            ins = [lift(i) if i is not None else None for i in step_ins]
+            step = _Step(fn, node.op, step_ins, in_statics,
                          list(node.outputs))
             try:
                 outs = fn(node.op, ins, in_statics, self.device)
@@ -272,7 +302,7 @@ class GraphExecutor:
                 for lbl in self._taps.get(tid, ()):
                     plan.tap_after.setdefault(len(plan.steps) - 1, []).append(
                         (lbl, tid))
-                    taps[lbl] = o.clone()
+                    taps[lbl] = _snapshot(o)
         for t in self.graph.outputs.values():
             lift(t)
         made = {tid for k in plan.tap_after.values() for _, tid in k}
@@ -281,8 +311,27 @@ class GraphExecutor:
                 # a folded value: uploaded with the plan's constants
                 for lbl in lbls:
                     plan.tap_start.append((lbl, tid))
-                    taps[lbl] = lift(tid).clone()
+                    taps[lbl] = _snapshot(lift(tid))
         return plan, vals
+
+
+def _host_eval(op, ins, static, device) -> List:
+    """A node's numpy eval as a plan step (host_ops, on the CPU): inputs
+    as host values, outputs back as tensors, a string as a host array."""
+    host = [st if st is not None else x if x is None
+            or isinstance(x, np.ndarray) else to_host(x)
+            for x, st in zip(ins, static)]
+    outs = []
+    for o in op.eval(host):
+        o = np.asarray(o)
+        outs.append(o if o.dtype == object or o.dtype.kind in "US"
+                    else to_device(o, device))
+    return outs
+
+
+def _snapshot(v):
+    """A tap's copy of a value: a tensor, or a host step's array."""
+    return v.copy() if isinstance(v, np.ndarray) else v.clone()
 
 
 def _lifted_value(name: str, t: torch.Tensor) -> np.ndarray:
@@ -296,7 +345,8 @@ def _lifted_value(name: str, t: torch.Tensor) -> np.ndarray:
 
 
 def _small(t: torch.Tensor) -> bool:
-    return t.numel() <= _LIFT_MAX_ELEMENTS
+    # a host array (a string feed under host_ops) is never lifted
+    return isinstance(t, torch.Tensor) and t.numel() <= _LIFT_MAX_ELEMENTS
 
 
 def _value_key(t: torch.Tensor):

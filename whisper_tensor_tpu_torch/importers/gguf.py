@@ -1,14 +1,15 @@
-"""GGUF file parser and writer: metadata, lazy quantized tensors.
+"""GGUF file parser and writer: metadata, lazy quantized tensors,
+tokenizer synthesis.
 
 Reference equivalent: crates/whisper-tensor-import/src/gguf/ (full GGUF
 parser incl. quantized tensors). Tensors load lazily; block-quantized
 payloads become PackedTensors (dequantized by backends.cpu.dequant or
 repacked for the packed_matmul kernel).
 
-The port's copy of whisper_tensor_tpu/importers/gguf.py (:108-245):
-GGUFFile and write_gguf. `GGUFFile.stored` (out-of-line TensorStore
-entries) and `gguf_tokenizer` are not ported: the server serves GGUF
-models with the byte tokenizer, as the reference's does.
+The port's copy of whisper_tensor_tpu/importers/gguf.py: GGUFFile (with
+`stored`, a TensorStore entry read when first used), write_gguf and
+gguf_tokenizer. `tokenizers` is imported inside gguf_tokenizer, for a
+`gpt2` vocabulary only.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 
 from ..dtype import DType
 from ..packed_format import GGML_TYPE_TO_PACKED, PackedFormat
+from ..symbolic_graph.tensor_store import ExternalBinary, ExternalPacked
 from ..tensor import NumericTensor, PackedTensor
 
 GGUF_MAGIC = 0x46554747  # 'GGUF'
@@ -163,6 +165,16 @@ class GGUFFile:
         arr = np.frombuffer(raw, dtype=info.dtype.to_numpy()).reshape(info.shape)
         return NumericTensor.from_numpy(arr, info.dtype)
 
+    def stored(self, name: str):
+        """Lazy TensorStore entry for this tensor."""
+        info = self.tensors[name]
+        start = self.data_start + info.offset
+        if info.packed is not None:
+            return ExternalPacked(self.path, start, info.nbytes(), info.packed,
+                                  info.shape)
+        return ExternalBinary(self.path, start, info.nbytes(), info.dtype,
+                              info.shape)
+
     @property
     def architecture(self) -> Optional[str]:
         return self.metadata.get("general.architecture")
@@ -240,3 +252,36 @@ def write_gguf(path: str, metadata: Dict[str, Any],
             f.write(bytes(tsr.data) if isinstance(tsr, PackedTensor)
                     else np.ascontiguousarray(np.asarray(tsr)).tobytes())
             f.write(b"\0" * pad)
+
+
+def gguf_tokenizer(g: GGUFFile):
+    """Synthesize a tokenizer from GGUF metadata (reference gguf tokenizer
+    synthesis). Supports tokenizer.ggml.model == 'gpt2' (BPE) and 'llama'
+    (sentencepiece-like unigram fallback via greedy longest match)."""
+    model = g.metadata.get("tokenizer.ggml.model")
+    tokens = g.metadata.get("tokenizer.ggml.tokens")
+    if tokens is None:
+        raise ValueError("gguf has no tokenizer metadata")
+    if model == "gpt2":
+        import json
+
+        from ..tokenizer import HFTokenizer
+
+        merges = g.metadata.get("tokenizer.ggml.merges", [])
+        vocab = {tok: i for i, tok in enumerate(tokens)}
+        spec = {
+            "version": "1.0",
+            "model": {"type": "BPE", "vocab": vocab,
+                      "merges": [m.split(" ", 1) for m in merges]},
+            "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
+                              "trim_offsets": True, "use_regex": True},
+            "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                        "trim_offsets": True, "use_regex": True},
+        }
+        return HFTokenizer.from_json(json.dumps(spec))
+    # greedy longest match over the raw token strings (the reference's
+    # World-vocabulary matcher, built in memory; "▁" marks a space)
+    from ..tokenizer import RwkvWorldTokenizer
+
+    return RwkvWorldTokenizer.from_pieces(
+        [tok.replace("\u2581", " ") for tok in tokens])

@@ -1,8 +1,10 @@
-"""Loader registry, the transformers, GGUF, RWKV-7, diffusers, LDM and
-TTS loaders, identify_and_load.
+"""Loader registry, the raw ONNX, transformers, GGUF, RWKV-7, diffusers,
+LDM and TTS loaders, identify_and_load.
 
-The port's copy of whisper_tensor_tpu/importers/loaders.py, trimmed to
-the `transformers` loader for GPT-2, llama-family, Gemma, Phi-3,
+The port's copy of whisper_tensor_tpu/importers/loaders.py: the `onnx`
+loader for a raw .onnx file (:110-121; its weights embedded, in a .bin
+file beside it, or referenced in their origin checkpoint), the
+`transformers` loader for GPT-2, llama-family, Gemma, Phi-3,
 DeepSeek-V2/V3, T5, LLaVA and Whisper checkpoints (config.json +
 safetensors),
 the `gguf` loader for llama-family, Gemma and Phi-3 GGUF files
@@ -37,8 +39,10 @@ reference's loader names none). The `diffusers`
 loader builds the sd (SD-1.5, SD-2.x), sdxl, sd3 and flux image
 pipelines (:784-946), the `ldm` loader SD-1.x/2.x and SDXL single files
 (:949-1120). Left out, each raising: other model types and GGUF archs
-(ValueError, as the reference does for an unknown one), `decode_windows`
-(NotImplementedError), and the raw ONNX loader (not registered). GPTQ/AWQ
+(ValueError, as the reference does for an unknown one) and
+`decode_windows` (NotImplementedError). `auto` probes the loaders in the
+reference's order: `ldm` (PRIORITY 11), then diffusers, piper, kokoro and
+f5 (10), then the rest as registered, `onnx` first. GPTQ/AWQ
 checkpoints load (importers/quantized.py): their quantized Linears run
 packed, unless a merged adapter densifies them as in the reference.
 
@@ -121,6 +125,20 @@ def register_loader(cls):
 
 def loader_registry() -> Dict[str, Loader]:
     return dict(_LOADERS)
+
+
+@register_loader
+class OnnxLoader(Loader):
+    NAME = "onnx"
+    DESCRIPTION = "Load a raw ONNX model file"
+
+    def can_load(self, path: str) -> bool:
+        return os.path.isfile(path) and path.endswith(".onnx")
+
+    def load(self, config):
+        path = config["path"]
+        model = Model.new_from_onnx_file(path)
+        return LoadedBundle(models={model.name: model})
 
 
 def _resolve_eos(d: str, hf_cfg: dict):
@@ -683,6 +701,7 @@ class DiffusersPipelineLoader(Loader):
 
     NAME = "diffusers"
     DESCRIPTION = "Diffusers pipeline dir (model_index.json)"
+    PRIORITY = 10
 
     def config_schema(self):
         return super().config_schema() + [
@@ -837,6 +856,7 @@ class LdmCheckpointLoader(Loader):
 
     NAME = "ldm"
     DESCRIPTION = "Single-file SD checkpoint (LDM naming, .safetensors)"
+    PRIORITY = 11   # a .safetensors file is ambiguous; probe keys first
 
     def can_load(self, path: str) -> bool:
         if not (os.path.isfile(path) and path.endswith(".safetensors")):
@@ -1144,8 +1164,9 @@ class AutoLoader(Loader):
 
     def load(self, config):
         path = config["path"]
-        # the TTS loaders (PRIORITY 10) are probed first, as in the
-        # reference; the rest keep their registration order
+        # ldm, then the TTS and diffusers loaders (PRIORITY 11, 10) are
+        # probed first, as in the reference; the rest keep their
+        # registration order
         ranked = sorted((item for item in _LOADERS.items()
                          if item[0] != "auto"),
                         key=lambda kv: -getattr(kv[1], "PRIORITY", 0))

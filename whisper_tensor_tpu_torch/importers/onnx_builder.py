@@ -3,19 +3,18 @@
 Reference equivalent: crates/whisper-tensor-import/src/onnx_graph/
 (operators.rs ~75 constructors; mod.rs:56-80 WeightStorageStrategy;
 weights.rs weight managers). Python redesign: one generic `node()`
-emitter with attribute coercion plus typed sugar methods.
+emitter with attribute coercion plus typed sugar methods; weight
+storage strategies Embed / BinFile / NoWeights / Sink / OriginReference.
 
-The port's copy of whisper_tensor_tpu/importers/onnx_builder.py, trimmed
-to the weight storages the port's loaders use (WeightStorage, :29-70):
-"embed" (every initializer inline, the default), "none" (structure
-only) and "sink" (structure only, every initializer value handed to a
-dict: the GGUF loader installs them in the TensorStore itself). The
-reference's external .bin file and origin-reference strategies (with
-LazyWeight), `hint_shape` and `gemm` are left out.
+The port's copy of whisper_tensor_tpu/importers/onnx_builder.py: it
+writes the bytes the JAX package writes, external-data records (a .bin
+file's location/offset/length, an origin's format/tensor_name/location
+and a .pth span's offset/length) with the same keys in the same order.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -23,28 +22,45 @@ import numpy as np
 
 from ..dtype import DTYPE_TO_ONNX, DType
 from ..onnx_pb import (AttributeProto, AttrType, GraphProto, ModelProto,
-                       NodeProto, OperatorSetIdProto, TensorProto,
-                       TensorShapeDim, TensorShapeProto, TensorTypeProto,
-                       TypeProto, ValueInfoProto, numpy_to_tensor_proto)
+                       NodeProto, OperatorSetIdProto, StringStringEntryProto,
+                       TensorProto, TensorShapeDim, TensorShapeProto,
+                       TensorTypeProto, TypeProto, ValueInfoProto,
+                       numpy_to_tensor_proto)
+
+# Weight payloads larger than this are candidates for external storage.
+EXTERNAL_THRESHOLD_BYTES = 1 << 20
 
 
 @dataclass
 class WeightStorage:
     """Storage strategy for initializer payloads.
 
-    kind: "embed" (raw_data inline), "none" (structure only — payloads
-    dropped; reference WeightStorageStrategy::None), "sink" (structure
-    only in the ONNX bytes, but every initializer VALUE lands in the
-    given dict — the caller installs them into the TensorStore directly,
-    so large payloads never round-trip through protobuf serialization).
+    kind: "embed" (raw_data inline), "bin" (single external .bin file),
+    "none" (structure only — payloads dropped; for shape-only tests,
+    reference WeightStorageStrategy::None), "sink" (structure only in
+    the ONNX bytes, but every initializer VALUE lands in the given dict
+    — the caller installs them into the TensorStore directly, so large
+    payloads never round-trip through protobuf serialization),
+    "origin" (reference WeightStorageStrategy::OriginReference,
+    onnx_graph/mod.rs:56-80 + weights.rs:233-420: initializers become
+    external-data protos whose `location` points back at the ORIGINAL
+    checkpoint file — .pth zip member offsets or a safetensors tensor
+    name — so the exported ONNX carries no payload bytes yet loads
+    anywhere the origin checkpoint exists. Initializers without origin
+    metadata (generated/derived arrays) embed inline.)
     """
 
     kind: str = "embed"
+    bin_path: Optional[str] = None
     sink: Optional[dict] = None
 
     @staticmethod
     def embed() -> "WeightStorage":
         return WeightStorage("embed")
+
+    @staticmethod
+    def bin_file(path: str) -> "WeightStorage":
+        return WeightStorage("bin", path)
 
     @staticmethod
     def none() -> "WeightStorage":
@@ -53,6 +69,33 @@ class WeightStorage:
     @staticmethod
     def to_sink(sink: dict) -> "WeightStorage":
         return WeightStorage("sink", sink=sink)
+
+    @staticmethod
+    def origin_reference() -> "WeightStorage":
+        return WeightStorage("origin")
+
+
+class LazyWeight:
+    """Deferred weight payload (e.g. a safetensors slice); materialized
+    only when the chosen storage strategy needs bytes.
+
+    origin: optional provenance for WeightStorage.origin_reference() —
+    a dict with keys `format` ("pth" | "safetensors"), `location`
+    (origin file path), `tensor_name`, and for pth `offset`/`length`
+    (byte span of the tensor inside the checkpoint). Mirrors the
+    external_data entries the reference writes
+    (onnx_graph/weights.rs:318-410)."""
+
+    def __init__(self, loader, dtype: DType, shape: Tuple[int, ...],
+                 origin: Optional[Dict[str, str]] = None):
+        self.loader = loader
+        self.dtype = dtype
+        self.shape = tuple(int(d) for d in shape)
+        self.origin = origin
+
+    def load(self) -> np.ndarray:
+        arr = self.loader()
+        return np.ascontiguousarray(np.asarray(arr, dtype=self.dtype.to_numpy()))
 
 
 def _shape_proto(dims: Sequence[Union[int, str]]) -> TensorShapeProto:
@@ -112,7 +155,7 @@ class OnnxBuilder:
         self.inputs: List[ValueInfoProto] = []
         self.outputs: List[ValueInfoProto] = []
         self.value_infos: List[ValueInfoProto] = []
-        self.initializers: Dict[str, np.ndarray] = {}
+        self.initializers: Dict[str, Union[np.ndarray, LazyWeight]] = {}
         self._counter = 0
 
     # -- naming --------------------------------------------------------
@@ -129,7 +172,11 @@ class OnnxBuilder:
         self.outputs.append(_value_info(name, dtype, shape))
         return name
 
-    def initializer(self, name: str, value: np.ndarray) -> str:
+    def hint_shape(self, name: str, dtype: DType, shape: Sequence[Union[int, str]]) -> str:
+        self.value_infos.append(_value_info(name, dtype, shape))
+        return name
+
+    def initializer(self, name: str, value: Union[np.ndarray, LazyWeight]) -> str:
         self.initializers[name] = value
         return name
 
@@ -165,6 +212,10 @@ class OnnxBuilder:
 
     def matmul(self, a, b):
         return self.node("MatMul", [a, b])
+
+    def gemm(self, a, b, c=None, trans_b=False):
+        return self.node("Gemm", [a, b] + ([c] if c else []),
+                         transB=1 if trans_b else None)
 
     def reshape(self, x, shape) -> str:
         if not isinstance(shape, str):
@@ -217,17 +268,62 @@ class OnnxBuilder:
         g = GraphProto(name=self.name, node=self.nodes,
                        input=self.inputs, output=self.outputs,
                        value_info=self.value_infos)
-        for name, w in self.initializers.items():
-            arr = np.asarray(w)
-            dt = DType.from_numpy(arr.dtype)
-            if storage.kind == "sink":
-                storage.sink[name] = w
-            if storage.kind in ("none", "sink"):
-                g.initializer.append(TensorProto(
-                    name=name, data_type=DTYPE_TO_ONNX[dt],
-                    dims=[int(d) for d in arr.shape]))
-                continue
-            g.initializer.append(numpy_to_tensor_proto(arr, name, dt))
+        bin_f = None
+        bin_rel = None
+        try:
+            if storage.kind == "bin":
+                os.makedirs(os.path.dirname(os.path.abspath(storage.bin_path)),
+                            exist_ok=True)
+                bin_f = open(storage.bin_path, "wb")
+                bin_rel = os.path.basename(storage.bin_path)
+            for name, w in self.initializers.items():
+                if storage.kind == "sink":
+                    storage.sink[name] = w
+                if storage.kind in ("none", "sink"):
+                    arr_shape = w.shape
+                    dt = (w.dtype if isinstance(w, LazyWeight)
+                          else DType.from_numpy(w.dtype))
+                    tp = TensorProto(name=name, data_type=DTYPE_TO_ONNX[dt],
+                                     dims=[int(d) for d in arr_shape])
+                    g.initializer.append(tp)
+                    continue
+                if (storage.kind == "origin" and isinstance(w, LazyWeight)
+                        and w.origin):
+                    tp = TensorProto(name=name,
+                                     data_type=DTYPE_TO_ONNX[w.dtype],
+                                     dims=[int(d) for d in w.shape],
+                                     data_location=1)
+                    # key order matches the reference's external_data
+                    # (weights.rs:318-352): format, tensor_name,
+                    # location, then pth offset/length
+                    tp.external_data = [
+                        StringStringEntryProto(key=k, value=str(w.origin[k]))
+                        for k in ("format", "tensor_name", "location",
+                                  "offset", "length") if k in w.origin]
+                    g.initializer.append(tp)
+                    continue
+                arr = w.load() if isinstance(w, LazyWeight) else np.asarray(w)
+                dt = (w.dtype if isinstance(w, LazyWeight)
+                      else DType.from_numpy(arr.dtype))
+                nbytes = arr.nbytes
+                if storage.kind == "bin" and nbytes >= EXTERNAL_THRESHOLD_BYTES:
+                    offset = bin_f.tell()
+                    raw = np.ascontiguousarray(arr).tobytes()
+                    bin_f.write(raw)
+                    tp = TensorProto(name=name, data_type=DTYPE_TO_ONNX[dt],
+                                     dims=[int(d) for d in arr.shape],
+                                     data_location=1)
+                    tp.external_data = [
+                        StringStringEntryProto(key="location", value=bin_rel),
+                        StringStringEntryProto(key="offset", value=str(offset)),
+                        StringStringEntryProto(key="length", value=str(len(raw))),
+                    ]
+                    g.initializer.append(tp)
+                else:
+                    g.initializer.append(numpy_to_tensor_proto(arr, name, dt))
+        finally:
+            if bin_f is not None:
+                bin_f.close()
         return g
 
     def build(self, storage: Optional[WeightStorage] = None,

@@ -10,7 +10,7 @@ caches are donated buffers updated in place via CacheWrite
 (DynamicUpdateSlice). Masking makes unwritten cache slots inert.
 
 The port's copy of whisper_tensor_tpu/importers/recipes/llm/gpt2.py,
-without the HF-module weight getter; with the training graph
+with the training graph
 (`build_gpt2_train`, :223-284). The `weight_map` out-parameter
 records {initializer name: HF name} of the matmul weights, which
 GPTQ/AWQ packed sources and PEFT adapter serving resolve against.
@@ -47,7 +47,8 @@ class GPT2Config:
 def build_gpt2_step(weights: Callable[[str], np.ndarray], cfg: GPT2Config,
                     max_len: int, dtype: DType = DType.F32,
                     pos_per_row: bool = False,
-                    weight_map: Optional[dict] = None) -> bytes:
+                    weight_map: Optional[dict] = None,
+                    storage: Optional[WeightStorage] = None) -> bytes:
     """Build the unified step graph.
 
     weights(name) returns HF GPT-2 state-dict arrays
@@ -170,7 +171,17 @@ def build_gpt2_step(weights: Callable[[str], np.ndarray], cfg: GPT2Config,
     for i, (nk, nv) in enumerate(cache_outs):
         b.output(nk, dtype, ["batch", H, max_len, D])
         b.output(nv, dtype, ["batch", H, max_len, D])
-    return b.build()
+    return b.build(storage or WeightStorage.embed())
+
+
+def hf_gpt2_weight_getter(model) -> Callable[[str], np.ndarray]:
+    """Weight getter over a torch transformers GPT2LMHeadModel."""
+    sd = model.state_dict()
+
+    def get(name: str) -> np.ndarray:
+        return sd[name].detach().cpu().numpy()
+
+    return get
 
 
 def random_gpt2_weights(cfg: GPT2Config, seed: int = 0) -> Callable[[str], np.ndarray]:

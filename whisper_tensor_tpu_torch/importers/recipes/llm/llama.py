@@ -6,11 +6,17 @@ step graph with fixed-shape KV caches + scalar position; RMSNorm,
 rotary embeddings (NeoX halves), GQA fused attention, SwiGLU MLP.
 
 The port's copy of whisper_tensor_tpu/importers/recipes/llm/llama.py,
-without the HF-module weight getter and `logits_last_only`; with the
-training graph (`build_llama_train`, :276-356). `storage` and the `weight_map` out-parameter
-(:88-125, :280-304) are the reference's: the packed GGUF loader builds
-the graph structure-only into a sink and binds the matmul weights that
-weight_map names to packed sources.
+without `logits_last_only`; with the training graph
+(`build_llama_train`, :276-356). A weight getter may return an
+origin-bearing LazyWeight (SafetensorsStore.lazy) in the graph's type:
+the step graph then keeps it as a reference to the checkpoint (under
+WeightStorage.origin_reference() the ONNX carries no payload), and a
+matmul weight stays in its (out, in) layout, transposed by a Transpose
+node, since a byte span cannot describe a transposed tensor. `storage`
+and the `weight_map` out-parameter (:88-125, :280-304) are the
+reference's: the packed GGUF loader builds the graph structure-only
+into a sink and binds the matmul weights that weight_map names to
+packed sources.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from ....dtype import DType
-from ...onnx_builder import OnnxBuilder, WeightStorage
+from ...onnx_builder import LazyWeight, OnnxBuilder, WeightStorage
 from . import transposed
 
 
@@ -113,17 +119,28 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
     I = cfg.intermediate_size
     np_dt = dtype.to_numpy()
 
-    def w(name: str) -> np.ndarray:
-        return np.asarray(weights(name)).astype(np_dt)
+    def w(name: str):
+        v = weights(name)
+        if isinstance(v, LazyWeight):
+            if v.origin and v.dtype == dtype:
+                return v        # stays a reference to the checkpoint
+            v = v.load()
+        return np.asarray(v).astype(np_dt)
 
-    def wT(name: str) -> np.ndarray:
-        return transposed(w(name))
+    def rhs(init_name: str, hf_name: str) -> str:
+        # matmul-RHS weight: the transposed payload, or a referenced
+        # (out, in) checkpoint tensor transposed in the graph
+        v = w(hf_name)
+        if isinstance(v, LazyWeight):
+            return b.node("Transpose", [b.initializer(init_name + "_hf", v)],
+                          outputs=[init_name], perm=[1, 0])
+        return b.initializer(init_name, transposed(v))
 
     def lin(init_name: str, hf_name: str) -> str:
-        # matmul-RHS weight: dense transposed payload + weight_map entry
+        # matmul-RHS weight + weight_map entry
         if weight_map is not None:
             weight_map[init_name] = hf_name
-        return b.initializer(init_name, wT(hf_name))
+        return rhs(init_name, hf_name)
 
     b = OnnxBuilder(f"{cfg.model_type}_step", opset=23, custom_opsets={"wt": 1})
     ids = b.input("input_ids", DType.I64, ["batch", "seq"])
@@ -215,8 +232,8 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
             K = cfg.num_experts_per_tok
             moe_p = ("mlp." if cfg.moe_style == "qwen3"
                      else "block_sparse_moe.")
-            logits = b.matmul(h2, b.initializer(
-                f"router_{i}", wT(p + moe_p + "gate.weight")))
+            logits = b.matmul(h2, rhs(
+                f"router_{i}", p + moe_p + "gate.weight"))
             scores = b.softmax(logits, axis=-1)
             topv, _ = b.node("TopK", [scores, b.const_i64([K])],
                              n_outputs=2, axis=-1)
@@ -234,13 +251,13 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
             acc = None
             for j in range(cfg.num_local_experts):
                 ep = p + moe_p + f"experts.{j}."
-                eg = b.matmul(h2, b.initializer(f"e{i}_{j}_w1",
-                                                wT(ep + names[0] + ".weight")))
-                eu = b.matmul(h2, b.initializer(f"e{i}_{j}_w3",
-                                                wT(ep + names[1] + ".weight")))
+                eg = b.matmul(h2, rhs(f"e{i}_{j}_w1",
+                                      ep + names[0] + ".weight"))
+                eu = b.matmul(h2, rhs(f"e{i}_{j}_w3",
+                                      ep + names[1] + ".weight"))
                 eact = b.mul(b.mul(eg, b.node("Sigmoid", [eg])), eu)
-                eo = b.matmul(eact, b.initializer(f"e{i}_{j}_w2",
-                                                  wT(ep + names[2] + ".weight")))
+                eo = b.matmul(eact, rhs(f"e{i}_{j}_w2",
+                                        ep + names[2] + ".weight"))
                 term = b.mul(eo, b.slice_(wts, [j], [j + 1], axes=[2]))
                 acc = term if acc is None else b.add(acc, term)
             mlp = acc
@@ -255,8 +272,7 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
     xf = b.rms_norm(x, b.initializer("final_norm", w("model.norm.weight")),
                     epsilon=eps)
     if cfg.tie_word_embeddings:
-        lm = b.initializer("lm_head", transposed(
-            w("model.embed_tokens.weight")))
+        lm = rhs("lm_head", "model.embed_tokens.weight")
     else:
         lm = lin("lm_head", "lm_head.weight")
     b.node("MatMul", [xf, lm], outputs=["logits"])
@@ -265,6 +281,17 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
         b.output(nk, dtype, ["batch", Hkv, max_len, D])
         b.output(nv, dtype, ["batch", Hkv, max_len, D])
     return b.build(storage or WeightStorage.embed())
+
+
+def hf_weight_getter(model) -> Callable[[str], np.ndarray]:
+    sd = model.state_dict()
+
+    def get(name: str) -> np.ndarray:
+        if name not in sd and name == "lm_head.weight":
+            return sd["model.embed_tokens.weight"].detach().cpu().float().numpy()
+        return sd[name].detach().cpu().float().numpy()
+
+    return get
 
 
 def build_llama_train(weights: Callable[[str], np.ndarray],

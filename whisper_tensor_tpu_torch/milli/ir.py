@@ -8,8 +8,7 @@ CPU correctness oracle. The port runs a graph on torch tensors through
 backends/torch_exec (GraphExecutor), with the lowerings keyed by
 `MilliOp.KIND` in milli/registry.py.
 
-The port's copy of whisper_tensor_tpu/milli/ir.py, without `to_jax`
-and the introspection helpers (`intermediate_labels`, `op_census`).
+The port's copy of whisper_tensor_tpu/milli/ir.py, without `to_jax`.
 The ops' reverse-mode `backward` rules (milli/autodiff.py) are the
 reference's.
 """
@@ -283,6 +282,15 @@ class MilliGraph:
         return infos
 
     # -- introspection -------------------------------------------------------
+    def intermediate_labels(self) -> Dict[int, str]:
+        return {tid: t.label for tid, t in self.tensors.items() if t.label}
+
+    def op_census(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for n in self.nodes:
+            out[n.op.KIND] = out.get(n.op.KIND, 0) + 1
+        return out
+
     def __repr__(self) -> str:
         return (f"MilliGraph({self.name!r}, {len(self.nodes)} ops, "
                 f"{len(self.inputs)} in, {len(self.outputs)} out)")

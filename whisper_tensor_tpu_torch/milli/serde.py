@@ -12,10 +12,9 @@ dtype/shape/b64, DType -> name, enums -> value). Tensor infos are NOT
 serialized — they are derived state (re-inferred from feeds at eval /
 compile time), not part of the graph's identity.
 
-The port's copy of whisper_tensor_tpu/milli/serde.py, over the port's
-op set: the reference's vision op module is not ported, so its kinds do
-not load; the recurrent (rnn.py) and spectral (signal.py, DFT in
-extra.py) kinds do.
+The port's copy of whisper_tensor_tpu/milli/serde.py: its registry holds
+every kind of the reference's (the vision kinds of ops/vision.py among
+them) and the port's own KVWrite (milli/transforms.py).
 """
 
 from __future__ import annotations
@@ -42,11 +41,11 @@ def op_registry() -> Dict[str, Type[MilliOp]]:
         from . import ops as O
         from . import transforms as T
         from .ops import (attention, conv, einsum, extra, index, misc,
-                          norm, quant, random, rnn, signal)
+                          norm, quant, random, rnn, signal, vision)
 
         reg: Dict[str, Type[MilliOp]] = {}
         for mod in (O, T, attention, conv, einsum, extra, index, misc,
-                    norm, quant, random, rnn, signal):
+                    norm, quant, random, rnn, signal, vision):
             for name in dir(mod):
                 c = getattr(mod, name)
                 if (inspect.isclass(c) and issubclass(c, MilliOp)

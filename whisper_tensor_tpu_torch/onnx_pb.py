@@ -17,7 +17,9 @@ The port's copy of whisper_tensor_tpu/onnx_pb.py (the port imports
 nothing of the JAX package). `dumps` writes the reference's bytes, but
 gathers an encoding as a list of parts (`_Chunks`) in which a large
 payload (a weight's raw_data) is kept by reference, so the final join
-copies it once instead of once for each enclosing message.
+copies it once instead of once for each enclosing message. A safetensors
+origin reference is read by its span in the file's header (bf16
+included), one tensor at a time.
 """
 
 from __future__ import annotations
@@ -491,12 +493,11 @@ def tensor_proto_to_numpy(tp: "TensorProto", base_dir: Optional[str] = None) -> 
             # OriginReference export pointing at a safetensors origin
             # (reference onnx_graph/weights.rs:365-410): resolved by
             # tensor NAME through the safetensors header, not by byte
-            # span, so re-sharded checkpoints still load.
-            from safetensors import safe_open
+            # span, so re-sharded checkpoints still load
+            from .importers.safetensors_io import read_span
 
-            with safe_open(path, framework="numpy") as f:
-                arr = f.get_tensor(meta["tensor_name"])
-            return np.ascontiguousarray(arr).reshape(shape).astype(
+            st_dt, raw = read_span(path, meta["tensor_name"])
+            return _raw_to_numpy(raw, st_dt, shape).astype(
                 dt.to_numpy(), copy=False)
         offset = int(meta.get("offset", 0))
         length = int(meta.get("length", -1))

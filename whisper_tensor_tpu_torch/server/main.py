@@ -63,7 +63,9 @@ the text flows it serves:
     bundle).
 The OpenAI front end's `/v1/images/generations` runs on `_image_iface`,
 its chat with image content parts on `_mm_iface`, the audio routes on
-`_stt_iface` and `_tts_iface`.
+`_stt_iface` and `_tts_iface`. `python -m whisper_tensor_tpu_torch.server.main
+[--host H] [--port P] [--device cpu]` starts the server (`main`, the
+reference's flags and --device; the card unless it says cpu).
 """
 
 from __future__ import annotations
@@ -1260,4 +1262,27 @@ def _json_safe(v):
     return v
 
 
-__all__ = ["Server"]
+def main():
+    """`python -m whisper_tensor_tpu_torch.server.main`: the WebSocket
+    server (the reference's :1190-1201), on the card unless --device
+    cpu."""
+    import argparse
+
+    ap = argparse.ArgumentParser("whisper-tensor-tpu server")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=3000)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' to run "
+                         "on the CPU)")
+    args = ap.parse_args()
+    srv = Server(device=args.device)
+    print(f"whisper-tensor-tpu (PyTorch, {srv.device}) server on "
+          f"ws://{args.host}:{args.port}", flush=True)
+    asyncio.run(srv.run(args.host, args.port))
+
+
+__all__ = ["Server", "main"]
+
+
+if __name__ == "__main__":
+    main()

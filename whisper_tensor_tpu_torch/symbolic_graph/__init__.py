@@ -3,7 +3,8 @@ ops (the port's copy of whisper_tensor_tpu/symbolic_graph/: every ONNX
 op type of the reference, ONNX re-export and surgery)."""
 
 from .ir import SOp, STensor, SymbolicGraph, TensorKind, UnsupportedOnnxOp
-from .tensor_store import TensorStore
+from .tensor_store import (ExternalBinary, ExternalPacked, LazyTensor,
+                           TensorStore)
 
 # op registration side effects
 from .ops import composite as _composite  # noqa: F401
@@ -18,4 +19,5 @@ from .ops import sequence as _sequence  # noqa: F401
 from .ops import vision as _vision  # noqa: F401
 
 __all__ = ["SymbolicGraph", "STensor", "SOp", "TensorKind",
-           "UnsupportedOnnxOp", "TensorStore"]
+           "UnsupportedOnnxOp", "TensorStore", "ExternalBinary",
+           "ExternalPacked", "LazyTensor"]

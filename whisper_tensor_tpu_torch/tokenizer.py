@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import List
+from typing import List, Optional
 
 
 # chat templating ------------------------------------------------------------
@@ -150,11 +150,13 @@ class RwkvWorldTokenizer:
     (reference rwkv-tokenizer crate). Vocab file lines:
     `<id> <python-repr-of-bytes-or-str> <length>`."""
 
-    def __init__(self, vocab_path: str):
+    def __init__(self, vocab_path: Optional[str] = None):
         import ast
 
         self._id_to_bytes = {}
-        trie = {}
+        self._trie = {}
+        if vocab_path is None:
+            return
         with open(vocab_path, "r", encoding="utf-8") as f:
             for line in f:
                 line = line.strip()
@@ -165,13 +167,22 @@ class RwkvWorldTokenizer:
                 token = ast.literal_eval(payload_s)
                 if isinstance(token, str):
                     token = token.encode("utf-8")
-                tid = int(idx_s)
-                self._id_to_bytes[tid] = token
-                node = trie
-                for byte in token:
-                    node = node.setdefault(byte, {})
-                node[-1] = tid
-        self._trie = trie
+                self._add(int(idx_s), token)
+
+    @staticmethod
+    def from_pieces(pieces: List[str]) -> "RwkvWorldTokenizer":
+        """The same matcher over token strings given in id order."""
+        tok = RwkvWorldTokenizer()
+        for tid, piece in enumerate(pieces):
+            tok._add(tid, piece.encode("utf-8"))
+        return tok
+
+    def _add(self, tid: int, token: bytes) -> None:
+        self._id_to_bytes[tid] = token
+        node = self._trie
+        for byte in token:
+            node = node.setdefault(byte, {})
+        node[-1] = tid
 
     @property
     def vocab_size(self) -> int:
