@@ -6,7 +6,8 @@
                           [--inspect-only] [--text-family-only]
                           [--speech-only] [--media-only] [--gguf-only]
                           [--parallel-only] [--train-parallel-only]
-                          [--onnx-only] [--plans]
+                          [--onnx-only] [--examples-only] [--lora-only]
+                          [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -62,6 +63,10 @@ Phases:
      Then the greedy decode again: each decode_attention call against
      its plain version on the same inputs, the decode's logits with the
      plain version swapped in, and against a teacher-forced prefill;
+     (l) decode_tokens for 8 tokens from the prefill's caches at its pos
+     must give generate_tokens' tokens, with decode_attention and
+     kv_write_pair launched once a layer a step-graph run, int8_matmul
+     once a QuantMatMul call and flash_attention never;
   4. the batched path: the same checkpoint loaded with ragged_decode
      (16 slots, chunks of 16 up to 64, prefill pieces of 128, an
      automatic prefix pool of 8) and served over HTTP to 32 client
@@ -154,7 +159,10 @@ Phases:
      start_profiler, one served completion, stop_profiler over the
      WebSocket: the Chrome trace must hold the port's kernels by name.
      Last, `cli generate --draft-model` on phase 7's GPT-2 checkpoint
-     must print the speculative decoder's text.
+     must print the speculative decoder's text. Since phase 22 came,
+     (l), (n) and `cli generate --draft-model` run only under
+     `--lora-only` (the checkpoints written first), not in the default
+     run, for its time limit; (m) stays in phases 3 and 4.
  11. the generic ONNX path (Model.eval and EvalBackend on the default
      device, the card): (a) every case of the CPU tests' conformance
      corpus (tests/torch_corpus.npz: all 2,453 cases; the 9
@@ -319,8 +327,9 @@ Phases:
      embeds prefill. Each family prints its load seconds, prefill or
      scan ms, decode tok/s and card bytes. Since phase 20 came the
      default run leaves out (a)'s naive build and its check against the
-     absorbed one and runs (c) at 2 layers; `--text-family-only` runs
-     them as above.
+     absorbed one and runs (c) at 2 layers, and since phase 22 came it
+     leaves out (b), for its time limit; `--text-family-only` runs them
+     all as above.
  17. speech at published widths, seeded weights (`--speech-only` runs it
      alone after the build, with the 34 recurrent and spectral corpus
      cases of phase 11 (a)). (a) Whisper at openai/whisper-large-v3's
@@ -437,6 +446,23 @@ Phases:
      no weight payload in the file, loaded by the `onnx` loader, (a)'s
      tokens, logits bit for bit or within phase 3's bound; it ends with
      the result line.
+  22. the port's examples (`--examples-only`, after the build; not in
+     the default run): each of the 13 examples/torch_port/*.py through
+     its main(argv) in this process (multihost_train starts its two
+     ranks as processes, gloo on the one card), at its defaults; the
+     --model ones on seeded checkpoints written here: serve_clients on
+     phase 3's Llama-3-8B-width checkpoint (--layers deep; 8 clients, 32
+     tokens, --prefix 64, --prefill-chunk 128), sd_image on phase 13's
+     SD-1.5 (512 x 512, 4 steps), llava_chat on phase 16's LLaVA-1.5-7B
+     widths (a seeded 336 x 336 .ppm), whisper_stt on phase 17's
+     whisper-large-v3 widths at 4 + 4 layers (a seeded 30 s 16 kHz
+     .wav), tts_speak on the synthetic piper voice. Each must exit
+     without error, print its output line and run on cuda; with every
+     kernel counter 0 just before its main and read just after, each
+     kernel's launches must equal the lowering's eligible calls, and the
+     kernels of its path (EXAMPLE_RUNS) must have launched. It prints
+     each example's wall time, peak card GB and launches, a JSON line of
+     them, and the result line.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -1113,8 +1139,8 @@ def phase2_kv_write(torch, results):
 
     # the pair: K contiguous, V the llama recipe's transposed view; the
     # decode pair of the 16 slots, the 128-row piece, GPT-2's decode pair
-    # at 64 slots, the direct path's scalar start (S 1 and 32), f32 into
-    # bf16; the same positions as above
+    # at 64 slots, the direct path's scalar start (S 1 and 32), f32 and
+    # f16 into bf16, bf16 and f16 into f32; the same positions as above
     pair_cases = (
         ("decode pair", 16, 8, L, 128, 1, torch.bfloat16, torch.bfloat16,
          decode_pos),
@@ -1130,6 +1156,12 @@ def phase2_kv_write(torch, results):
          torch.float32, decode_pos),
         ("f16 update pair", 16, 8, L, 128, 1, torch.bfloat16,
          torch.float16, decode_pos),
+        # a bf16 (or f16) model over the text interface's default f32
+        # cache, the update widened to f32 in the kernel (modes 4 and 5)
+        ("bf16 into f32 direct pair", 1, 32, 1024, 128, 1, torch.float32,
+         torch.bfloat16, 600),
+        ("f16 into f32 direct pair", 1, 32, 1024, 128, 1, torch.float32,
+         torch.float16, 600),
         ("Gemma-2 direct pair", 1, 4, L, 256, 1, torch.bfloat16,
          torch.bfloat16, 100),
         ("Phi-3 direct pair", 1, 32, L, 96, 1, torch.bfloat16,
@@ -2209,6 +2241,68 @@ def decode_checks(np, iface, greedy_text: str, layers: int, kernel: str,
     return prompt
 
 
+DECODE_TOKENS_NEW = 8      # tokens check (l) asks decode_tokens for
+
+
+def decode_tokens_check(torch, np, iface, prompt, layers: int, qspy,
+                        results) -> None:
+    """(l) decode_tokens from a prefill's caches at its pos: the tokens
+    of generate_tokens over the same prompt; with every kernel counter 0
+    just before it and read just after, decode_attention and the pair
+    cache write launch once a layer a step-graph run, int8_matmul once a
+    QuantMatMul call of the lowering, flash_attention never."""
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_attention)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        kv_write_pair, ragged_kv_write)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
+        int8_matmul)
+
+    n = DECODE_TOKENS_NEW
+    want = iface.generate_tokens(prompt, n)
+    ids, L = iface._prompt(prompt)
+    caches = iface.fresh_cache(1)
+    first = iface.step(ids, torch.zeros((), dtype=torch.int64, device=CARD),
+                       caches)[:, L - 1].argmax(-1)
+    counters = {"decode_attention": decode_attention,
+                "kv_write_pair": kv_write_pair,
+                "ragged_kv_write": ragged_kv_write,
+                "int8_matmul": int8_matmul,
+                "flash_attention": flash_attention}
+    zero(counters)
+    calls0, launched0 = qspy.calls, qspy.launched
+    steps = count_steps(iface)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        got = iface.decode_tokens(first, L, caches, n)
+    finally:
+        del iface.step
+    secs = time.perf_counter() - t0
+    got_l = {k: fn.launches for k, fn in counters.items()}
+    qcalls = qspy.calls - calls0
+    say(f"  (l) decode_tokens: {n} tokens from the prefill's caches at pos "
+        f"{L} in {secs * 1e3:.1f} ms ({steps.runs} step-graph runs), "
+        f"{got[0].tolist()}; generate_tokens {want[0].tolist()}; kernel "
+        f"launches {got_l}, QuantMatMul calls {qcalls}")
+    for res in results:
+        if res["name"] in got_l:
+            res["launches_decode_tokens"] = got_l[res["name"]]
+    if not np.array_equal(got, want):
+        fail("(l) decode_tokens' tokens are not generate_tokens'")
+    runs = steps.runs
+    if runs != n or got_l["decode_attention"] != runs * layers \
+            or got_l["kv_write_pair"] != runs * layers \
+            or got_l["ragged_kv_write"] != runs * layers \
+            or qcalls <= 0 or got_l["int8_matmul"] != qcalls \
+            or qspy.launched - launched0 != qcalls \
+            or got_l["flash_attention"]:
+        fail(f"(l) launches against the lowering's calls: {runs} runs x "
+             f"{layers} layers, {qcalls} QuantMatMul calls, {got_l}")
+
+
 def direct_rates(torch, iface, prompt, layers: int) -> dict:
     """Time to first token and decode rate at batch 1 (host clock,
     direct calls), and the bytes on the card."""
@@ -2323,6 +2417,7 @@ def phase3(torch, np, ckpt: Path, layers: int, results,
             lambda: shadow_checked(attn_lowering, decode_attention_plain,
                                    agreement_bound),
             decode_attention_plain)
+        decode_tokens_check(torch, np, iface, prompt, layers, spy, results)
         rates = direct_rates(torch, iface, prompt, layers)
         profile_decode(torch, iface, prompt, "int8")
         rates["long_ttft_ms"] = phase5_direct(torch, np, iface, api.port,
@@ -7523,11 +7618,12 @@ def family_kernels():
 
 
 def counted(run, spy, qspy, label: str, results,
-            key: str = "launches_phase16"):
+            key: str = "launches_phase16", attention: bool = True):
     """run() with every kernel counter, spy and QuantMatMul spy at 0 just
     before it and read just after; each launch count must equal the
-    lowering's eligible calls. Returns (run's value, launches); each
-    kernel's launches also go into its `results` entry under `key`."""
+    lowering's eligible calls, and (`attention`) some Attention call must
+    have run. Returns (run's value, launches); each kernel's launches
+    also go into its `results` entry under `key`."""
     kernels = family_kernels()
     for fn in kernels.values():
         fn.launches = 0
@@ -7544,7 +7640,7 @@ def counted(run, spy, qspy, label: str, results,
             "ragged_kv_write": launches["KVWrite calls"]
             + launches["DynUpdateSlice calls"]}
     bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
-    if bad or launches["Attention calls"] <= 0:
+    if bad or (attention and launches["Attention calls"] <= 0):
         fail(f"{label}: launches against the lowering's eligible calls "
              f"(launched, eligible): {bad}, or no Attention call ran")
     for res in results:
@@ -8048,15 +8144,20 @@ def phase16_rwkv(torch, np, root: Path, results,
         shutil.rmtree(d, ignore_errors=True)
 
 
-def png_of(np, size: int) -> bytes:
-    """A seeded size x size RGB PNG: smooth gradients plus noise."""
-    from whisper_tensor_tpu_torch.utils.image import png_bytes
-
+def seeded_pixels(np, size: int):
+    """Seeded size x size RGB u8 pixels: smooth gradients plus noise."""
     rng = np.random.default_rng(SEED + 168)
     y, x = np.mgrid[0:size, 0:size] / size
     img = np.stack([x, y, (x + y) / 2], axis=-1) * 200
     img += rng.normal(0, 20, img.shape)
-    return png_bytes(np.clip(img, 0, 255).astype(np.uint8))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def png_of(np, size: int) -> bytes:
+    """seeded_pixels as a PNG."""
+    from whisper_tensor_tpu_torch.utils.image import png_bytes
+
+    return png_bytes(seeded_pixels(np, size))
 
 
 def phase16_llava(torch, np, root: Path, bf16, results) -> None:
@@ -8191,7 +8292,8 @@ def phase16(torch, np, root: Path, bf16, results, full: bool = True) -> None:
     """Phase 16: DeepSeek-V2-Lite (MLA, MoE), flan-t5-base, RWKV-7 World
     1.5B and LLaVA-1.5-7B at published widths through the port's entry
     points. The default run (not `full`, since phase 20 came) leaves
-    DeepSeek's naive build out and runs RWKV-7 at 2 of its 4 layers."""
+    DeepSeek's naive build out, runs RWKV-7 at 2 of its 4 layers and
+    (since phase 22 came) leaves T5 out."""
     say(f"phase 16: the rest of the text family at published widths; host "
         f"RSS {host_rss_gb():.1f} GB")
     for label, fn, args in (
@@ -8199,6 +8301,8 @@ def phase16(torch, np, root: Path, bf16, results, full: bool = True) -> None:
             ("(b) flan-t5-base", phase16_t5, (bf16,)),
             ("(c) RWKV-7 World 1.5B", phase16_rwkv, ()),
             ("(d) LLaVA-1.5-7B", phase16_llava, (bf16,))):
+        if fn is phase16_t5 and not full:
+            continue
         t0 = time.perf_counter()
         if fn in (phase16_deepseek, phase16_rwkv):
             fn(torch, np, root, *args, results, full)
@@ -8294,6 +8398,28 @@ def whisper_tensors(shapes: dict, seed: int, np, out_vocab: int):
         yield n, a
 
 
+WHISPER_OUT_VOCAB = 3 + 128       # the byte tokenizer's ASCII ids
+
+
+def write_whisper(np, d: Path, layers: int, bf16, label: str) -> None:
+    """whisper-large-v3's widths at `layers` + `layers` layers, seeded
+    (whisper_tensors), written to `d` (made anew) with its generation
+    config."""
+    c = dict(WHISPER_LARGE_V3, encoder_layers=layers, decoder_layers=layers)
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    shapes = whisper_shapes(c)
+    t0 = time.perf_counter()
+    (d / "config.json").write_text(json.dumps(c))
+    nbytes = write_safetensors(d, shapes, whisper_tensors(
+        shapes, SEED + 171, np, WHISPER_OUT_VOCAB), np, bf16)
+    (d / "generation_config.json").write_text(json.dumps(WHISPER_GENERATION))
+    n_par = sum(math.prod(s) for s in shapes.values())
+    say(f"  {label} wrote whisper-large-v3 widths at {layers} + {layers} "
+        f"layers ({n_par / 1e9:.3f} B parameters, {nbytes / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def speech_clip(np, seconds: float, seed: int):
     """A seeded synthetic utterance at 16 kHz: a few harmonics under a
     slow syllable envelope, over noise."""
@@ -8387,21 +8513,9 @@ def phase17_whisper(torch, np, root: Path, bf16, layers: int,
     from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
     from whisper_tensor_tpu_torch.utils.audio import wav_bytes
 
-    c = dict(WHISPER_LARGE_V3, encoder_layers=layers, decoder_layers=layers)
     d = root / "whisper-large-v3"
-    shutil.rmtree(d, ignore_errors=True)
-    d.mkdir(parents=True)
-    shapes = whisper_shapes(c)
-    t0 = time.perf_counter()
-    out_vocab = 3 + 128           # the byte tokenizer's ASCII ids
-    (d / "config.json").write_text(json.dumps(c))
-    nbytes = write_safetensors(d, shapes, whisper_tensors(
-        shapes, SEED + 171, np, out_vocab), np, bf16)
-    (d / "generation_config.json").write_text(json.dumps(WHISPER_GENERATION))
-    n_par = sum(math.prod(s) for s in shapes.values())
-    say(f"  (a) wrote whisper-large-v3 widths at {layers} + {layers} layers "
-        f"({n_par / 1e9:.3f} B parameters, {nbytes / 1e9:.2f} GB) in "
-        f"{time.perf_counter() - t0:.1f} s")
+    out_vocab = WHISPER_OUT_VOCAB
+    write_whisper(np, d, layers, bf16, "(a)")
     clip30, clip75, clip4 = (speech_clip(np, s, SEED + 172 + i)
                              for i, s in enumerate((30.0, 75.0, 4.0)))
     wav30 = wav_bytes(clip30, 16000)
@@ -10542,6 +10656,140 @@ def phase20(torch, np, results, layers: int, device=None,
         fail("phase 20: the world of one launched no collective")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the port's examples (examples/torch_port/*.py) on the card
+EXAMPLES_DIR = ROOT / "examples" / "torch_port"
+# (example, the line it must print, the kernels its run must launch).
+# ragged_kv_write counts every launch of the cache-write kernel, paired or
+# not. speculative_decode's and super_graph_llm's GPT-2s decode over f32
+# caches, which neither attention kernel takes (pos_mode, as the JAX
+# package's ragged_decode_attention takes bf16 only): the cache write is
+# their path's only kernel. Every run's launches must also equal the
+# lowering's eligible calls (counted).
+EXAMPLE_RUNS = (
+    ("serve_clients", "aggregate", ("decode_attention", "kv_write_pair")),
+    ("speculative_decode", "token-exact", ("ragged_kv_write",)),
+    ("gpt2_train", "done in", ()),
+    ("lora_train", "done in", ()),
+    ("mnist_train", "accuracy:", ()),
+    ("mnist_train_supergraph", "accuracy:", ()),
+    ("super_graph_llm", "identical tokens", ("ragged_kv_write",)),
+    ("rwkv_lora_train", "OK: adapters trained", ()),
+    ("multihost_train", "both workers finished", ()),
+    ("sd_image", "wrote", ("flash_attention",)),
+    ("llava_chat", '"response"',
+     ("flash_attention", "decode_attention", "kv_write_pair")),
+    ("whisper_stt", '"text"', ("flash_attention", "ragged_kv_write")),
+    ("tts_speak", '"sample_rate"', ()),
+)
+
+
+def phase22_args(torch, np, name: str, d: Path, layers: int, bf16) -> list:
+    """The arguments phase 22 runs `name` with: its defaults, and for the
+    examples that read a model, a seeded one at published widths written
+    into `d` by the writers of phases 3, 13, 16 and 17 (with a seeded
+    input to read)."""
+    from whisper_tensor_tpu_torch.utils.audio import wav_bytes
+
+    if name == "serve_clients":
+        write_checkpoint(d, layers, np, bf16)
+        return ["--model", str(d), "--clients", "8", "--tokens", "32",
+                "--prefix", "64", "--prefill-chunk", "128"]
+    if name == "sd_image":
+        write_sd15(torch, np, d)
+        return ["--model", str(d), "--steps", "4", "--out",
+                str(d / "out.ppm")]
+    if name == "llava_chat":
+        write_hf(d, LLAVA_15_7B, llava_shapes(LLAVA_15_7B), SEED + 169, np,
+                 bf16, ("language_model.lm_head.weight",))
+        px = seeded_pixels(np, 336)
+        (d / "image.ppm").write_bytes(b"P6\n336 336\n255\n" + px.tobytes())
+        return ["--model", str(d), "--image", str(d / "image.ppm")]
+    if name == "whisper_stt":
+        write_whisper(np, d, WHISPER_LAYERS_DEFAULT_RUN, bf16, "phase 22:")
+        (d / "clip.wav").write_bytes(
+            wav_bytes(speech_clip(np, 30.0, SEED + 172), 16000))
+        return ["--model", str(d), "--audio", str(d / "clip.wav")]
+    if name == "tts_speak":
+        sys.path.insert(0, str(ROOT / "tests"))
+        import torch_tts_sets as sets
+
+        return ["--model", sets.write_piper_voice(str(d)), "--out",
+                str(d / "out.wav")]
+    return []
+
+
+def phase22(torch, np, root: Path, layers: int, bf16, results) -> list:
+    """Every port example through its main(argv), on the card, with every
+    kernel counter at 0 just before and read just after; returns one
+    row an example (module docstring)."""
+    import contextlib
+    import importlib
+    import io
+    import traceback
+
+    from whisper_tensor_tpu_torch.milli import transforms
+
+    say("phase 22: the port's examples on the card")
+    sys.path.insert(0, str(EXAMPLES_DIR))
+    rows = []
+    for name, want, rises in EXAMPLE_RUNS:
+        d = root / f"example-{name}"
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        try:
+            t0 = time.perf_counter()
+            argv = phase22_args(torch, np, name, d, layers, bf16)
+            write_s = time.perf_counter() - t0
+            mod = importlib.import_module(name)
+            buf, wall = io.StringIO(), {}
+
+            def run():
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    out = mod.main(argv)
+                torch.cuda.synchronize()
+                wall["s"] = time.perf_counter() - t0
+                return out
+
+            spy, qspy = RouteSpy(), quant_spy(transforms)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                out, launches = counted(run, spy, qspy, f"phase 22 {name}",
+                                        results, key="launches_phase22",
+                                        attention=False)
+            except (Exception, SystemExit):
+                say(buf.getvalue()[-3000:])
+                traceback.print_exc()
+                fail(f"phase 22: {name} {' '.join(argv)} failed")
+            finally:
+                spy.restore()
+                transforms.int8_matmul = qspy.inner
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        line = next((ln[:160] for ln in buf.getvalue().splitlines()
+                     if want in ln), None)
+        kern = {k: launches[k] for k in family_kernels()}
+        row = {"example": name, "argv": argv, "device": out["device"],
+               "seconds": round(wall["s"], 2),
+               "inputs_written_s": round(write_s, 1),
+               "peak_card_gb": round(torch.cuda.max_memory_allocated() / 1e9,
+                                     2), "launches": kern, "line": line}
+        say(f"  phase 22 {name}: exited without error on {out['device']} in "
+            f"{wall['s']:.2f} s (inputs written in {write_s:.1f} s), peak "
+            f"{row['peak_card_gb']} GB on the card, printed {line!r}; "
+            f"kernel launches {kern}")
+        if line is None:
+            fail(f"phase 22: {name} did not print its line {want!r}")
+        if not str(out["device"]).startswith("cuda"):
+            fail(f"phase 22: {name} ran on {out['device']}, not the card")
+        if any(kern[k] <= 0 for k in rises):
+            fail(f"phase 22: {name} launched none of {rises}: {kern}")
+        rows.append(row)
+        free_memory(torch)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2,
@@ -10569,8 +10817,8 @@ def main() -> None:
                          "build (no result line)")
     ap.add_argument("--text-family-only", action="store_true",
                     help="run phase 16 (DeepSeek, T5, RWKV-7, LLaVA; in "
-                         "full: DeepSeek's naive build too, RWKV-7 at 4 "
-                         "layers) alone after the build (no result line)")
+                         "full: DeepSeek's naive build too, T5, RWKV-7 at "
+                         "4 layers) alone after the build (no result line)")
     ap.add_argument("--speech-only", action="store_true",
                     help="run phase 17 (Whisper, TTS) and the recurrent and "
                          "spectral corpus cases alone after the build (no "
@@ -10603,6 +10851,16 @@ def main() -> None:
                          "compiler facade over phase 11 (c)'s Model, a .bin "
                          "and an origin-referenced ONNX export loaded by the "
                          "`onnx` loader) alone after the build")
+    ap.add_argument("--examples-only", action="store_true",
+                    help="run phase 22 (every examples/torch_port example "
+                         "through its main on the card, the --model ones "
+                         "on seeded checkpoints at published widths) alone "
+                         "after the build")
+    ap.add_argument("--lora-only", action="store_true",
+                    help="write the checkpoints and run phase 10 (l) "
+                         "multi-LoRA serving, (n) the profiler and cli "
+                         "generate --draft-model alone after the build (no "
+                         "result line)")
     ap.add_argument("--plans", action="store_true",
                     help="time packed_matmul and decode_attention under "
                          "forced splits, then stop (no result line)")
@@ -10723,6 +10981,46 @@ def main() -> None:
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if args.examples_only:
+        try:
+            import ml_dtypes
+            bf16 = np.dtype(ml_dtypes.bfloat16)
+        except ImportError:
+            bf16 = None
+        rows = step("phase 22 (the port's examples)", phase22, torch, np,
+                    ROOT / "build" / "smoke", args.layers, bf16, results)
+        say(json.dumps({"phase22": rows}))
+        say(f"{card_line()} (--examples-only: phases 2-21 not run)")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if args.lora_only:
+        try:
+            import ml_dtypes
+            bf16 = np.dtype(ml_dtypes.bfloat16)
+        except ImportError:
+            bf16 = None
+        smoke = ROOT / "build" / "smoke"
+        ckpt = smoke / f"llama3-8b-widths-{args.layers}L"
+        gpt2_ckpt = smoke / "gpt2-124m-widths"
+        for d in (ckpt, gpt2_ckpt):
+            shutil.rmtree(d, ignore_errors=True)
+            d.mkdir(parents=True)
+        try:
+            step("write the checkpoint", write_checkpoint, ckpt, args.layers,
+                 np, bf16)
+            step("write the GPT-2 checkpoint", write_gpt2_checkpoint,
+                 gpt2_ckpt, np, bf16)
+            step("phase 10 (multi-LoRA, the profiler, cli --draft-model)",
+                 phase10, torch, np, ckpt, gpt2_ckpt, args.layers, bf16,
+                 results)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+            shutil.rmtree(gpt2_ckpt, ignore_errors=True)
+        say(json.dumps({"kernels": results}))
+        say(f"{card_line()} (--lora-only: phases 2-9 and 11-22 not run)")
         return
     if args.image_only:
         step("phase 13 (SD-1.5 image generation)", phase13, torch, np,
@@ -10900,8 +11198,6 @@ def main() -> None:
         say(f"wrote the checkpoint as GPTQ ({nbytes / 1e9:.2f} GB)")
         step("phase 9 (GPTQ batched)", phase9, torch, np, gptq_ckpt,
              args.layers, results, q4_0)
-        step("phase 10 (multi-LoRA, the profiler, cli --draft-model)",
-             phase10, torch, np, ckpt, gpt2_ckpt, args.layers, bf16, results)
         step("phase 11 (the generic ONNX path)", phase11, torch, np, ckpt,
              args.layers, results)
         step("phase 12 (Gemma, Gemma-2, Gemma-3, Phi-3)", phase12, torch, np,
@@ -10912,7 +11208,7 @@ def main() -> None:
         step("phase 15 (e) GPT-2 and (f) (with (a)-(c) at phase 3, (d) "
              "at phase 13)", phase15, torch, np, None, gpt2_ckpt,
              args.layers, results)
-        step("phase 16 (DeepSeek, T5, RWKV-7, LLaVA; cut)", phase16, torch,
+        step("phase 16 (DeepSeek, RWKV-7, LLaVA; cut)", phase16, torch,
              np, ROOT / "build" / "smoke", bf16, results, False)
         step("phase 17 (Whisper, TTS)", phase17, torch, np,
              ROOT / "build" / "smoke", bf16, results,

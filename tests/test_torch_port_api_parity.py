@@ -6,9 +6,9 @@ classes (those it defines), and the methods of those classes (from the
 class dicts along the JAX package's part of each MRO: `dir()` hides an
 Enum class's methods), must exist in the port's module, read with
 `getattr` (which sees Enum members too). What the port lacks must be
-exactly the allow-list below, each entry with its reason: jax-only,
-left out by design, or queued under its ROADMAP item. A new gap fails
-the test, and so does an entry that is no longer a gap.
+exactly the allow-list below, each entry with its reason: jax-only or
+left out by design. A new gap fails the test, and so does an entry that
+is no longer a gap.
 """
 
 import importlib
@@ -43,20 +43,6 @@ ALLOWED = {
         "by design: windowed decode",
     "interfaces.text:TextInferenceInterface.window_cache_dims":
         "by design: windowed decode",
-    # queued: ROADMAP A15, in its order
-    "interfaces.text:TextInferenceInterface.decode_tokens": "queued: A15",
-    "milli.transforms:apply_matmul_fusion": "queued: A15",
-    "symbolic_graph.ir:SymbolicGraph.producer_of": "queued: A15",
-    "symbolic_graph.ops.base:opset_of": "queued: A15",
-    "dtype:DType.is_numeric": "queued: A15",
-    "dtype:DType.bits": "queued: A15",
-    "dtype:AnyDType": "queued: A15",
-    "dtype:promote": "queued: A15",
-    "milli.ops.common:np_dtype_of": "queued: A15",
-    "tensor:NumericTensor.scalar": "queued: A15",
-    "tensor:NumericTensor.item": "queued: A15",
-    "tensor:NumericTensor.has_nan": "queued: A15",
-    "tensor:as_tensor": "queued: A15",
 }
 
 
@@ -125,4 +111,4 @@ def test_the_pairs_cover_the_new_modules():
 @pytest.mark.parametrize("entry", sorted(ALLOWED))
 def test_each_entry_gives_a_reason(entry):
     reason = ALLOWED[entry]
-    assert reason.startswith(("jax-only:", "by design:", "queued: A"))
+    assert reason.startswith(("jax-only:", "by design:"))

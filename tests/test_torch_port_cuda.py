@@ -679,7 +679,9 @@ def _bits(t):
 KV_WRITE_DTYPES = [(torch.bfloat16, torch.bfloat16),
                    (torch.float32, torch.float32),
                    (torch.bfloat16, torch.float32),      # f32 into bf16
-                   (torch.bfloat16, torch.float16)]      # f16 into bf16
+                   (torch.bfloat16, torch.float16),      # f16 into bf16
+                   (torch.float32, torch.bfloat16),      # bf16 into f32
+                   (torch.float32, torch.float16)]       # f16 into f32
 
 
 @pytest.mark.parametrize("cache_dt,upd_dt", KV_WRITE_DTYPES)
@@ -754,10 +756,6 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_inputs(cuda):
                 upd[:1]):                                     # batch differs
         with pytest.raises(ValueError, match="unsupported"):
             ragged_kv_write(cache, bad, pos)
-    with pytest.raises(ValueError, match="unsupported"):
-        ragged_kv_write(cache.float(), upd, pos)              # bf16 into f32
-    with pytest.raises(ValueError, match="unsupported"):
-        ragged_kv_write(cache.float(), upd.half(), pos)       # f16 into f32
     with pytest.raises(ValueError, match="contiguous"):
         ragged_kv_write(cache.transpose(2, 3).contiguous().transpose(2, 3),
                         upd, pos)

@@ -23,6 +23,11 @@ package (whisper_tensor_tpu), at any level.
 (e) A raw .onnx file with .bin weights through the Server's `onnx`
     loader and build_program, in a fresh interpreter, with the same
     check.
+(f) The port's examples (examples/torch_port/*.py): the AST scan of (a),
+    which also refuses `transformers`; and a fresh interpreter imports
+    all of them and runs llava_chat's --smoke --cpu (its checkpoint
+    written from numpy, loaded by the port's transformers loader): no
+    jax, no JAX package and no transformers in sys.modules.
 """
 
 import ast
@@ -37,11 +42,12 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "whisper_tensor_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples" / "torch_port").glob("*.py"))
 FORBIDDEN = ("jax", "whisper_tensor_tpu")
 
 
-def _foreign(name: str) -> bool:
-    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+def _foreign(name: str, forbidden=FORBIDDEN) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in forbidden)
 
 
 def _imports(tree):
@@ -60,6 +66,19 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
     tree = ast.parse(path.read_text(), str(path))
     bad = [(line, mod) for line, mod in _imports(tree) if _foreign(mod)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", EXAMPLES,
+                         ids=[str(p.relative_to(ROOT)) for p in EXAMPLES])
+def test_example_imports_nothing_of_jax_or_transformers(path):
+    tree = ast.parse(path.read_text(), str(path))
+    bad = [(line, mod) for line, mod in _imports(tree)
+           if _foreign(mod, FORBIDDEN + ("transformers",))]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_examples_are_scanned():
+    assert len(EXAMPLES) == 13
 
 
 def test_the_scan_sees_nested_imports():
@@ -766,4 +785,32 @@ def test_a_raw_onnx_file_loads_and_runs_without_jax(tmp_path):
         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     for line in ("ONNX torch (1, 3, 1024) True", "FOREIGN []"):
+        assert line in proc.stdout, proc.stdout
+
+
+_EXAMPLES_SCRIPT = r"""
+import importlib, sys
+sys.path.insert(0, sys.argv[1])
+names = sys.argv[2:]
+mods = {n: importlib.import_module(n) for n in names}
+out = mods["llava_chat"].main(["--smoke", "--cpu", "--max-tokens", "3"])
+print("EXAMPLES", len(mods), out["device"], isinstance(out["response"], str))
+print("FOREIGN", sorted(m for m in sys.modules
+                        if m in ("jax", "whisper_tensor_tpu", "transformers")
+                        or m.startswith(("jax.", "whisper_tensor_tpu.",
+                                         "transformers."))))
+"""
+
+
+def test_the_examples_load_nothing_of_jax(tmp_path):
+    """All 13 port examples imported and llava_chat's smoke run in a
+    fresh interpreter on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), TMPDIR=str(tmp_path))
+    proc = subprocess.run(
+        [sys.executable, "-c", _EXAMPLES_SCRIPT,
+         str(ROOT / "examples" / "torch_port"),
+         *[p.stem for p in EXAMPLES]],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for line in ("EXAMPLES 13 cpu True", "FOREIGN []"):
         assert line in proc.stdout, proc.stdout

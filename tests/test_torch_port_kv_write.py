@@ -20,8 +20,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from whisper_tensor_tpu.milli.ops.misc import DynUpdateSliceMilli  # noqa: E402
 from whisper_tensor_tpu_torch.backends.cuda.kv_write import (  # noqa: E402
-    kv_write_limits, kv_write_pair, kv_write_pair_plain, kv_write_plan,
-    ragged_kv_write, ragged_kv_write_plain)
+    kernel_takes, kv_write_limits, kv_write_pair, kv_write_pair_plain,
+    kv_write_plan, ragged_kv_write, ragged_kv_write_plain)
 from whisper_tensor_tpu_torch.dtype import to_device, to_host  # noqa: E402
 from whisper_tensor_tpu_torch.milli.ops import (  # noqa: E402
     LOWERINGS, KVWriteMilli)
@@ -48,7 +48,9 @@ def _inputs(S, cache_dt, upd_dt, seed):
 # negative (counted from the end, then clamped), as jax.lax does
 IN_RANGE = [(1, [0, L - 1, 7]), (4, [0, L - 4, 5])]
 CLAMPED = [(1, [L + 3, -2, 9]), (4, [L - 1, 100, -7])]
-DTYPES = [("f32", "f32"), ("bf16", "bf16"), ("bf16", "f32")]
+# (cache, update): the last a bf16 model over the text interface's default
+# f32 cache, which the kernel widens to f32
+DTYPES = [("f32", "f32"), ("bf16", "bf16"), ("bf16", "f32"), ("f32", "bf16")]
 
 
 @pytest.mark.parametrize("S,pos", IN_RANGE + CLAMPED)
@@ -136,6 +138,38 @@ def test_lowering_routes_per_row_cache_writes_to_the_kernel_wrapper(
     want = op.to_jax([jnp.asarray(data), jnp.asarray(upd),
                       jnp.asarray(start)])[0]
     assert _bits(to_host(out)) == _bits(want)
+
+
+@pytest.mark.parametrize("udt", [torch.bfloat16, torch.float16])
+def test_a_narrow_update_into_an_f32_cache_takes_the_kernel(monkeypatch, udt):
+    """A bf16 (or f16) model over an f32 cache, as llava_chat's text
+    interface keeps by default: the kernel takes the write (kernel_takes;
+    the kernel widens the update to f32, exactly), so a
+    scalar start's DynUpdateSlice goes to ragged_kv_write, where it used
+    to go to index_copy_ on the CPU and the card's wrappers raised for
+    the pair. The write equals the widened update's."""
+    from whisper_tensor_tpu_torch.milli.ops import misc
+
+    calls = []
+
+    def spy(*args):
+        calls.append(args)
+        return ragged_kv_write(*args)
+
+    monkeypatch.setattr(misc, "ragged_kv_write", spy)
+    rng = np.random.default_rng(21)
+    cache = torch.from_numpy(rng.standard_normal((B, H, L, D)).astype(
+        np.float32))
+    upd = torch.from_numpy(rng.standard_normal((B, H, 3, D)).astype(
+        np.float32)).to(udt)
+    assert kernel_takes(cache, upd)
+    want = cache.clone()
+    want[:, :, 5:8] = upd.float()
+    out = LOWERINGS["DynUpdateSlice"](
+        DynUpdateSliceMilli(axis=2), [cache, upd, torch.tensor(5)],
+        [None] * 3, CPU)[0]
+    assert out is cache and len(calls) == 1
+    assert torch.equal(out, want)
 
 
 # -- the pair: a layer's K and V writes in one call (KVWrite) ---------------

@@ -14,7 +14,10 @@ kernel takes any H, L and D, any S <= L (the batcher's admission
 prefill and chunked-prefill pieces write S > 1 rows), an update of the
 cache's type, or f32 or f16 into a bf16 cache (an f16 model over the
 server's bf16 cache: XLA's round to nearest), an update with any strides, and
-a start per row (B,) or one for every row (), int64 or int32.
+a start per row (B,) or one for every row (), int64 or int32. It also
+takes a bf16 or f16 update into an f32 cache (a bf16 model over the text
+interface's default f32 cache), widened in the kernel: exact, so the
+write is the plain version's bit for bit.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ from .build import (CARD_SMS, card_sms, check, kernel_limits, library,
 _MODES = {(torch.bfloat16, torch.bfloat16): 0,
           (torch.float32, torch.float32): 1,
           (torch.bfloat16, torch.float32): 2,
-          (torch.bfloat16, torch.float16): 3}
+          (torch.bfloat16, torch.float16): 3,
+          (torch.float32, torch.bfloat16): 4,
+          (torch.float32, torch.float16): 5}
 # The CPU defaults, for the plan's tests, of what wt_kv_write_limits reads
 # of the kernel on the card: threads a block and blocks a multiprocessor
 # (its launch bounds), as the H100 gives them.
@@ -124,8 +129,9 @@ def kv_write_plan(caches: int, B: int, H: int, S: int, D: int,
 
 def ragged_kv_write(cache, update, pos) -> torch.Tensor:
     """cache (B, H, L, D) bf16 or f32, contiguous; update (B, H, S, D)
-    of the cache's type or f32 or f16 into a bf16 cache, any strides; pos (B,)
-    or () int64 or int32. Writes in place and returns `cache`.
+    of the cache's type, f32 or f16 into a bf16 cache, or bf16 or f16
+    into an f32 cache, any strides; pos (B,) or () int64 or int32.
+    Writes in place and returns `cache`.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel,
     or raise when it does not take them. `ragged_kv_write.launches`
@@ -223,8 +229,9 @@ def _geometry(caches, updates, pos):
             f"{[(tuple(c.shape), c.dtype) for c in caches]}, updates "
             f"{[(tuple(u.shape), u.dtype) for u in updates]}: it writes "
             f"(B, H, S, D) updates, S <= L, of the cache's type (bf16 or "
-            f"f32) or f32 or f16 into a bf16 cache, into caches of one shape and "
-            f"type, from updates of one shape and type")
+            f"f32), f32 or f16 into a bf16 cache, or bf16 or f16 into an "
+            f"f32 cache, into caches of one shape and type, from updates "
+            f"of one shape and type")
     B, H, L, D = cache.shape
     S = update.shape[2]
     device = cache.device

@@ -15,9 +15,10 @@
 // scalar start, which every row shares.
 //
 //   cache_c  (B, H, L, D) bf16 or f32, contiguous, written IN PLACE
-//   update_c (B, H, S, D) the cache's type, or f32 or f16 into a bf16
+//   update_c (B, H, S, D) the cache's type, f32 or f16 into a bf16
 //            cache (rounded to nearest even, as XLA's convert: an f16
-//            value is exact in f32 first); any strides, its own for each c
+//            value is exact in f32 first), or bf16 or f16 into an f32
+//            cache (widened, exactly); any strides, its own for each c
 //   pos      (B,) or () int64 or int32, read on the device
 //
 // What bounds it on the H100: launch latency and the host, not bytes. A
@@ -42,8 +43,8 @@
 //   * each update is read through its own strides, so the transposed V
 //     view of the llama recipe needs no copy; where a cache's feature
 //     dim is unit stride and every offset is 16-byte aligned its units
-//     move as one 16-byte load and store (two loads for f32 into bf16),
-//     else element by element;
+//     move as one 16-byte load and store (two loads for f32 into bf16,
+//     one 8-byte load for bf16 or f16 into f32), else element by element;
 //   * pos is read on the device (the host never waits for it), int64 or
 //     int32 as it comes.
 #include <cuda_runtime.h>
@@ -92,6 +93,12 @@ __device__ __forceinline__ __nv_bfloat16 to_cache(__half x,
   return __float2bfloat16_rn(__half2float(x));
 }
 __device__ __forceinline__ float to_cache(float x, float*) { return x; }
+__device__ __forceinline__ float to_cache(__nv_bfloat16 x, float*) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_cache(__half x, float*) {
+  return __half2float(x);
+}
 __device__ __forceinline__ __nv_bfloat16 to_cache(__nv_bfloat16 x,
                                                   __nv_bfloat16*) {
   return x;
@@ -128,6 +135,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
       uint4 out;
       if constexpr (std::is_same<Tu, Tc>::value) {
         out = *reinterpret_cast<const uint4*>(sp);
+      } else if constexpr (std::is_same<Tc, float>::value) {
+        const uint2 v = *reinterpret_cast<const uint2*>(sp);  // 4 bf16/f16
+        const Tu* e = reinterpret_cast<const Tu*>(&v);
+        float* f = nullptr;
+        out = make_uint4(__float_as_uint(to_cache(e[0], f)),
+                         __float_as_uint(to_cache(e[1], f)),
+                         __float_as_uint(to_cache(e[2], f)),
+                         __float_as_uint(to_cache(e[3], f)));
       } else if constexpr (std::is_same<Tu, __half>::value) {
         const uint4 u = *reinterpret_cast<const uint4*>(sp);  // 8 f16
         const __half2* h = reinterpret_cast<const __half2*>(&u);
@@ -184,6 +199,10 @@ cudaError_t with_mode(int mode, F&& f) {
                      static_cast<float*>(nullptr));
     case 3: return f(static_cast<__nv_bfloat16*>(nullptr),
                      static_cast<__half*>(nullptr));
+    case 4: return f(static_cast<float*>(nullptr),
+                     static_cast<__nv_bfloat16*>(nullptr));
+    case 5: return f(static_cast<float*>(nullptr),
+                     static_cast<__half*>(nullptr));
     default: return cudaErrorInvalidValue;
   }
 }
@@ -207,7 +226,7 @@ extern "C" int wt_kv_write_limits(int mode, int* limits) {
 
 // One launch writes `caches` (1 or 2) caches. geom (int64): caches, B, H,
 // L, D, S, mode (0 bf16 into bf16, 1 f32 into f32, 2 f32 into bf16,
-// 3 f16 into bf16),
+// 3 f16 into bf16, 4 bf16 into f32, 5 f16 into f32),
 // pos_i32, pos stride, units a slab, units, blocks, then the update
 // strides (b, h, s, d) of cache 0 and of cache 1. Returns
 // cudaGetLastError() after the launch; cudaErrorInvalidValue for a
@@ -218,10 +237,10 @@ extern "C" int wt_kv_write(void* cache0, const void* upd0, void* cache1,
   const long long caches = geom[0], B = geom[1], H = geom[2], L = geom[3],
                   D = geom[4], S = geom[5], mode = geom[6],
                   per_slab = geom[9], units = geom[10], blocks = geom[11];
-  const long long vec = mode == 1 ? 4 : 8;
+  const long long vec = mode == 1 || mode >= 4 ? 4 : 8;  // f32 cache: 4
   if ((caches != 1 && caches != 2) || B <= 0 || H <= 0 || D <= 0 || S <= 0
       || S > L || L > 0x7fffffffLL || S * D > 0x7fffffffLL || mode < 0
-      || mode > 3
+      || mode > 5
       || per_slab != (S * D + vec - 1) / vec
       || units != caches * B * H * per_slab || units >= (1LL << 30)
       || blocks <= 0 || blocks > (1LL << 20) || cache0 == nullptr

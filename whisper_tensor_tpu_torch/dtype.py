@@ -2,8 +2,8 @@
 
 `DType`, `ONNX_TO_DTYPE` and `DTYPE_TO_ONNX` are the port's copy of
 whisper_tensor_tpu/dtype.py, trimmed to the scalar types: the packed
-(block-quantized) formats live in packed_format.py; `AnyDType`,
-`promote` and the jax mapping are left out.
+(block-quantized) formats live in packed_format.py, and `AnyDType`
+holds one of either; the jax mapping is left out.
 
 Where each DType lives on the device:
 
@@ -41,12 +41,15 @@ is uploaded as float32 and cast to bf16 on the device.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import enum
 
 import numpy as np
 import torch
+
+from .packed_format import PackedFormat
 
 try:
     import ml_dtypes
@@ -102,9 +105,18 @@ class DType(enum.Enum):
         return self.is_signed_int or self.is_unsigned_int
 
     @property
+    def is_numeric(self) -> bool:
+        return self is not DType.STRING
+
+    @property
     def size_bytes(self) -> Optional[float]:
         """Bytes per element; fractional for sub-byte types; None for STRING."""
         return _SIZES.get(self)
+
+    @property
+    def bits(self) -> Optional[int]:
+        s = _SIZES.get(self)
+        return None if s is None else int(s * 8)
 
     def to_numpy(self) -> np.dtype:
         """The numpy dtype of the host (oracle) representation."""
@@ -196,6 +208,41 @@ ONNX_TO_DTYPE = {
     23: DType.F4E2M1,
 }
 DTYPE_TO_ONNX = {v: k for k, v in ONNX_TO_DTYPE.items()}
+
+
+@dataclass(frozen=True)
+class AnyDType:
+    """Either a scalar DType or a Packed quantized format.
+
+    Equivalent of the reference's ``DType::Packed(PackedFormat)`` arm
+    (src/dtype.rs:22-40). Scalar dtypes are represented by ``scalar``;
+    packed block-quant formats by ``packed``.
+    """
+
+    scalar: Optional[DType] = None
+    packed: Optional[PackedFormat] = None
+
+    def __post_init__(self):
+        if (self.scalar is None) == (self.packed is None):
+            raise ValueError("exactly one of scalar/packed must be set")
+
+    @property
+    def is_packed(self) -> bool:
+        return self.packed is not None
+
+    def __repr__(self) -> str:
+        return repr(self.scalar) if self.scalar else f"AnyDType({self.packed})"
+
+
+def promote(a: DType, b: DType) -> DType:
+    """Numpy-style type promotion restricted to our dtype set."""
+    if a == b:
+        return a
+    if a is DType.STRING or b is DType.STRING:
+        raise ValueError("cannot promote STRING")
+    ra = np.result_type(a.to_numpy(), b.to_numpy())
+    return DType.from_numpy(ra)
+
 
 _TORCH = {
     DType.F64: torch.float64,

@@ -142,7 +142,7 @@ class MultimodalLanguageInterface:
                              ) -> np.ndarray:
         """(B, L, E) fused embeddings -> (B, n_new) generated ids: the
         embeds prefill at the prompt's bucket, then the text interface's
-        decode steps. sampling=None is greedy."""
+        decode_tokens from its first token. sampling=None is greedy."""
         wte = self._wte()
         embeds = torch.as_tensor(embeds, device=self.device).to(wte.dtype)
         if embeds.ndim == 2:
@@ -157,13 +157,9 @@ class MultimodalLanguageInterface:
         if sampling is not None and sampling.temperature > 0.0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(sampling.seed))
-        toks = [_pick_token(logits[:, L - 1, :], gen, sampling, None)]
-        pos = torch.full((), L, dtype=torch.int64, device=self.device)
-        for _ in range(1, n_new):
-            last = self.text.step(toks[-1][:, None], pos, caches)[:, -1, :]
-            toks.append(_pick_token(last, gen, sampling, None))
-            pos = pos + 1
-        return torch.stack(toks[:n_new], dim=1).cpu().numpy()
+        first = _pick_token(logits[:, L - 1, :], gen, sampling, None)
+        return self.text.decode_tokens(first, L, caches,
+                                       n_new, sampling=sampling)
 
     def run_items_in_string_out(self, items: List[MultimodalItem],
                                 n_new: int = 32,

@@ -20,7 +20,7 @@ import torch
 from ..backends.torch_exec.compiler import GraphExecutor
 from ..device import resolve_device
 from ..dtype import to_host, to_torch
-from ..milli.transforms import fuse_parallel_matmuls
+from ..milli.transforms import apply_matmul_fusion
 from ..model import Model
 from ..weights import carry_weights
 
@@ -33,7 +33,8 @@ class RnnTextInterface:
         milli, weight_inputs = model.graph.to_milli()
         self.milli = milli
         # the r/k/v/g projections of one x fuse: exact concatenation
-        self._fused = fuse_parallel_matmuls(milli, set(weight_inputs))
+        self._fused, self._dense_np = apply_matmul_fusion(
+            milli, weight_inputs, model.graph.store)
         self.weight_names = [n for n in milli.inputs
                              if n in weight_inputs or n in self._fused]
         self.state_names = [n for n in milli.inputs
@@ -47,15 +48,6 @@ class RnnTextInterface:
         g = self.model.graph
         name = self._fused[n][0][0] if n in self._fused else n
         return g.tensors[g.by_name[name]].info.dtype
-
-    def _dense_np(self, n: str) -> np.ndarray:
-        """Host weight by milli input name; a fused input is its members
-        concatenated column-wise."""
-        store = self.model.graph.store
-        if n in self._fused:
-            return np.concatenate([store.get_numeric(m).numpy()
-                                   for m, _ in self._fused[n]], axis=1)
-        return store.get_numeric(n).numpy()
 
     def _weights(self) -> Dict[str, torch.Tensor]:
         if self._weights_dev is None:

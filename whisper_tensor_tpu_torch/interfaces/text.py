@@ -735,17 +735,47 @@ class TextInferenceInterface:
                 sampling: Optional[SamplingParams],
                 logit_bias: Optional[np.ndarray], keep_logits: bool,
                 constraint=None):
-        """Prefill, then n_new - 1 decode steps. Returns (tokens (B,
-        n_new) on the device, per-token f32 logits or None).
+        """Prefill, then n_new - 1 decode steps (_decode_steps). Returns
+        (tokens (B, n_new) on the device, per-token f32 logits or
+        None)."""
+        ids, L = self._prompt(prompt_ids)
+        B = ids.shape[0]
+        if caches is None:
+            caches = self.fresh_cache(B)
+        pos = torch.zeros((), dtype=torch.int64, device=self.device)
+        last = self.step(ids, pos, caches)[:, L - 1, :]
+        seen = None
+        if _uses_seen(sampling):
+            # prompt tokens count as seen (only the real prefix)
+            seen = torch.zeros((B, last.shape[-1]), dtype=torch.int32,
+                               device=self.device)
+            seen.scatter_add_(1, ids[:, :L],
+                              torch.ones_like(ids[:, :L], dtype=torch.int32))
+        return self._decode_steps(last, None, pos + L, caches, n_new,
+                                  sampling, logit_bias, keep_logits,
+                                  constraint, seen)
+
+    def _decode_steps(self, last: Optional[torch.Tensor],
+                      first: Optional[torch.Tensor], pos: torch.Tensor,
+                      caches, n_new: int,
+                      sampling: Optional[SamplingParams],
+                      logit_bias: Optional[np.ndarray], keep_logits: bool,
+                      constraint, seen: Optional[torch.Tensor]):
+        """The decode loop of generate_tokens and decode_tokens. From a
+        prefill's last logits (first=None), n_new tokens: the first
+        picked from `last`, each next after one step at `pos`. From a
+        given (B,) first token (last=None), n_new steps from `pos`, the
+        first fed `first`, each emitting the token it was fed, as the
+        reference's decode program does; under sampling, token k then
+        takes the seed stream's k-th pick, as in generate_tokens (the
+        reference draws token k from fold_in(seed, k) in both). Returns (tokens (B, n_new) on
+        the device, per-token f32 logits or None).
 
         Each token is picked in the reference's order (:756-800): the
         bias is added, the constraint's mask applied (its table row of
         each sequence's state), the token picked with the penalties, and
         the state advanced; the state never leaves the device."""
-        ids, L = self._prompt(prompt_ids)
-        B = ids.shape[0]
-        if caches is None:
-            caches = self.fresh_cache(B)
+        B = (last if first is None else first).shape[0]
         bias = (None if logit_bias is None else torch.as_tensor(
             np.asarray(logit_bias, np.float32), device=self.device))
         if constraint is not None:
@@ -757,21 +787,15 @@ class TextInferenceInterface:
         if sampling is not None and sampling.temperature > 0.0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(sampling.seed))
-        pos = torch.zeros((), dtype=torch.int64, device=self.device)
-        last = self.step(ids, pos, caches)[:, L - 1, :]
-        seen = None
-        if _uses_seen(sampling):
-            # prompt tokens count as seen (only the real prefix)
-            seen = torch.zeros((B, last.shape[-1]), dtype=torch.int32,
-                               device=self.device)
-            seen.scatter_add_(1, ids[:, :L],
-                              torch.ones_like(ids[:, :L], dtype=torch.int32))
-        toks, kept = [], []
-        pos = pos + L
+        toks, kept = ([] if first is None else [first]), []
         for i in range(n_new):
-            if i:
+            if toks:
                 last = self.step(toks[-1][:, None], pos, caches)[:, -1, :]
                 pos = pos + 1
+            if i == 0 and first is not None and gen is not None:
+                # the draw that picked `first` from the same stream: a
+                # pick's draws depend on its logits' shape and type only
+                _pick_token(last, gen, sampling, None)
             if bias is not None:
                 last = last + bias
             if constraint is not None:
@@ -787,10 +811,39 @@ class TextInferenceInterface:
                                   torch.ones_like(tok[:, None],
                                                   dtype=torch.int32))
             toks.append(tok)
-        out = (torch.stack(toks, dim=1) if toks
+        out = (torch.stack(toks[:n_new], dim=1) if n_new > 0
                else torch.zeros((B, 0), dtype=torch.int64, device=self.device))
         return out, (torch.stack(kept, dim=1) if keep_logits and kept
                      else None)
+
+    def decode_tokens(self, first_tok: np.ndarray, pos: int, caches,
+                      n_new: int,
+                      sampling: Optional[SamplingParams] = None,
+                      constraint=None) -> np.ndarray:
+        """Continue generation from caches: emits n_new tokens starting
+        with first_tok (which is included in the output). first_tok: (B,)
+        ids, on the host or the device; pos: where first_tok goes in the
+        caches, which are written in place (n_new step runs: the last
+        token's keys and values are written too). The constraint governs
+        the tokens after first_tok, from its start state; the penalties
+        count first_tok as seen. Under sampling, token k >= 1 takes the
+        k-th pick of the seed's stream, as in generate_tokens: first_tok
+        picked with the same seed (generate_from_embeds) continues one
+        stream."""
+        first = torch.as_tensor(first_tok, device=self.device
+                                ).reshape(-1).long()
+        seen = None
+        if _uses_seen(sampling):
+            seen = torch.zeros((first.shape[0], self._vocab_size()),
+                               dtype=torch.int32, device=self.device)
+            seen[torch.arange(first.shape[0], device=self.device),
+                 first] += 1
+        start = torch.full((), int(pos), dtype=torch.int64,
+                           device=self.device)
+        toks, _ = self._decode_steps(None, first, start, caches, n_new,
+                                     sampling, None, False, constraint,
+                                     seen)
+        return toks.cpu().numpy()
 
     def generate_tokens(self, prompt_ids: np.ndarray, n_new: int,
                         caches=None,

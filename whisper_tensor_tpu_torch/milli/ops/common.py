@@ -7,8 +7,7 @@ and the final downcast is correctly rounded, so elementwise results are
 bit-exact. Contractions control their accumulate dtype explicitly
 (reference src/milli_graph/ops/binary.rs:530-620).
 
-The port's copy of whisper_tensor_tpu/milli/ops/common.py, without
-`np_dtype_of`, which nothing of the port calls.
+The port's copy of whisper_tensor_tpu/milli/ops/common.py.
 """
 
 from __future__ import annotations
@@ -116,3 +115,7 @@ def elementwise_infer(infos: List[TensorInfo], out_dtype: Optional[DType] = None
     if all(r is not None for r in ranks):
         return TensorInfo.ranked(dt, max(ranks))
     return TensorInfo.minimal(dt)
+
+
+def np_dtype_of(info: TensorInfo) -> np.dtype:
+    return info.dtype.to_numpy()

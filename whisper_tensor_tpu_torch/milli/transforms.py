@@ -3,7 +3,8 @@
 The port's copy of the parts of whisper_tensor_tpu/milli/transforms.py
 that the text interfaces run:
   * fuse_parallel_matmuls: same-input weight matmuls (q/k/v, gate/up)
-    become one wide matmul and a static Split;
+    become one wide matmul and a static Split; apply_matmul_fusion runs
+    it and binds the fused weights;
   * pair_cache_writes (the port's own, no counterpart in the JAX
     package): a layer's K and V cache writes (DynUpdateSlice with one
     start) become one KVWrite node, one launch of the cache-write kernel;
@@ -38,6 +39,7 @@ import torch
 from ..backends.cuda.packed_matmul import (dequant_repacked, packed_matmul,
                                            repack_packed_tensor)
 from ..backends.cuda.quant_matmul import Int8MatMul, int8_matmul
+from ..dtype import DType
 from ..graph import new_global_id
 from ..tensor_info import Level, TensorInfo
 from .ir import MilliGraph, MilliNode, MilliOp
@@ -213,6 +215,24 @@ def fuse_parallel_matmuls(
             new_nodes.append(node)
     milli.nodes = new_nodes
     return fused
+
+
+def apply_matmul_fusion(milli: MilliGraph, weight_inputs, store):
+    """Convenience wrapper: run fuse_parallel_matmuls and return
+    (fused_map, getter) where getter(name, dtype) binds both plain and
+    fused weight inputs from a TensorStore (fused = column concat of the
+    members). dtype is the dequantized type of a packed weight: F32, the
+    store's default, where the reference's default None fails."""
+    fused = fuse_parallel_matmuls(milli, set(weight_inputs))
+
+    def get(n: str, dtype: DType = DType.F32) -> np.ndarray:
+        if n in fused:
+            return np.concatenate(
+                [store.get_numeric(m, dtype).numpy()
+                 for m, _ in fused[n]], axis=1)
+        return store.get_numeric(n, dtype).numpy()
+
+    return fused, get
 
 
 def pair_cache_writes(milli: MilliGraph) -> int:

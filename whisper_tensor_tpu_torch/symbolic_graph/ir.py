@@ -242,6 +242,12 @@ class SymbolicGraph:
     # mutation (the reference's, symbolic_graph/ir.py:248-257; surgery.py
     # uses it)
     # ------------------------------------------------------------------
+    def producer_of(self, tid: int) -> Optional[SOp]:
+        for op in self.ops:
+            if tid in op.outputs:
+                return op
+        return None
+
     def consumers_of(self, tid: int) -> List[SOp]:
         return [op for op in self.ops if tid in op.inputs]
 

@@ -8,8 +8,7 @@ Reference equivalent: the Operation trait + AnyOperation enum
     LowerCtx (no per-op sub-graph merge step needed),
   * optionally a direct `infer` override.
 
-The port's copy of whisper_tensor_tpu/symbolic_graph/ops/base.py,
-without `opset_of`, which nothing of it calls.
+The port's copy of whisper_tensor_tpu/symbolic_graph/ops/base.py.
 """
 
 from __future__ import annotations
@@ -150,3 +149,7 @@ class Operation(Introspectable):
     # attributes define to_onnx_attrs() -> {attr_name: value}.
     def sub_graph_attrs(self) -> Dict[str, Any]:
         return {}
+
+
+def opset_of(model_opsets: Dict[str, int], domain: str = "") -> int:
+    return model_opsets.get(domain, 0)

@@ -10,7 +10,7 @@ format and shape, and `dequantize` through backends/cpu/dequant.py.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -33,6 +33,10 @@ class NumericTensor:
     @staticmethod
     def from_numpy(arr: np.ndarray, dtype: Optional[DType] = None) -> "NumericTensor":
         return NumericTensor(np.asarray(arr), dtype=dtype)
+
+    @staticmethod
+    def scalar(v, dtype: DType) -> "NumericTensor":
+        return NumericTensor(np.asarray(v, dtype=dtype.to_numpy()), dtype=dtype)
 
     @staticmethod
     def zeros(shape: Sequence[int], dtype: DType) -> "NumericTensor":
@@ -66,6 +70,15 @@ class NumericTensor:
         if dtype is DType.BOOL:
             return NumericTensor.from_numpy(self._data.astype(np.bool_), dtype)
         return NumericTensor.from_numpy(self._data.astype(dtype.to_numpy()), dtype)
+
+    def item(self):
+        arr = self.numpy()
+        return arr.reshape(()).item() if arr.size == 1 else arr
+
+    def has_nan(self) -> bool:
+        if not self._dtype.is_float:
+            return False
+        return bool(np.isnan(self.numpy().astype(np.float32)).any())
 
     def __repr__(self) -> str:
         return f"NumericTensor({self._dtype.name}, shape={self.shape})"
@@ -109,3 +122,12 @@ class PackedTensor:
 
     def __repr__(self) -> str:
         return f"PackedTensor({self.fmt.name}, shape={self.shape})"
+
+
+TensorLike = Union[NumericTensor, np.ndarray, int, float, bool]
+
+
+def as_tensor(x: TensorLike, dtype: Optional[DType] = None) -> NumericTensor:
+    if isinstance(x, NumericTensor):
+        return x.astype(dtype) if dtype is not None else x
+    return NumericTensor(np.asarray(x), dtype=dtype)
