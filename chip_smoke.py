@@ -7,7 +7,7 @@
                           [--speech-only] [--media-only] [--gguf-only]
                           [--parallel-only] [--train-parallel-only]
                           [--onnx-only] [--examples-only] [--lora-only]
-                          [--plans]
+                          [--long-context-only] [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -463,6 +463,35 @@ Phases:
      kernels of its path (EXAMPLE_RUNS) must have launched. It prints
      each example's wall time, peak card GB and launches, a JSON line of
      them, and the result line.
+  23. the long-context path (`--long-context-only`, after the build; not
+     in the default run, for its time limit). (a) The kernels at its new
+     shapes, each held against its plain version and timed against its
+     bound and the library call: flash_attention pos-bound at B 2, 32/8
+     heads, S 8,192 and 16,384 query rows over S + 512 keys (the first
+     and the last 128 rows held, over every key: the plain version's
+     scores of a whole prompt do not fit the card), decode_attention
+     over 16,896 slots at pos 16,384 and 16,895, int8_matmul as the full
+     graph's 16k lm_head (M 32,768 x N 128,256: 4.2e9 outputs, past
+     2^31; held in row blocks), the prefill's kv_write_pair of 16,384
+     rows (bit for bit). (b) Llama-3-8B widths at 4 layers on seeded
+     weights (checkpoint_tensors), the llama recipe built from that one
+     getter with logits_last_only=True and without, at S 8,192 and
+     16,384 (max_len S + 512, int8, a bf16 cache, the one bucket S, B 2
+     prompts that fill it); the first interface quantizes, the other
+     three take its int8 weights by quantize_precomputed (their device
+     tensors the first's, checked). For each S and graph that fits (a
+     graph that does not is recorded): TTFT (median of 3), 32 greedy
+     decode steps at pos S (decode_tokens, ms a step and tok/s), peak
+     card GB and each kernel's launches against the lowering's eligible
+     calls (every counter 0 just before, read just after); the
+     constructor's s and the card GB each upload added, the caches' GB;
+     the last-only and full graphs' greedy tokens equal at 8,192; one
+     16k prefill's device time by kernel kind (torch.profiler); at
+     16,384 a rerun with every decode_attention, int8_matmul and cache
+     write held against its plain version (the writes bit for bit) and
+     each flash call's first and last 128 rows; a shorter prompt than its
+     bucket refused with a ValueError naming logits_last_only. It prints
+     a JSON line of its readings and the result line.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -486,6 +515,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -10790,6 +10820,522 @@ def phase22(torch, np, root: Path, layers: int, bf16, results) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the long-context path on one card (--long-context-only).
+# Llama-3-8B's widths at LC_LAYERS layers (depth cut for host time only),
+# int8 weights, a bf16 cache, B = 2 prompts that fill their bucket of S,
+# max_len S + 512 (the JAX package's long-context bench, bench.py:804-877)
+LC_LAYERS = 4
+LC_SEQS = (8192, 16384)
+LC_BATCH = 2
+LC_NEW = 32               # greedy decode steps timed at pos ~ S
+LC_EDGE = 128             # flash's held query rows at each end of a prompt
+LC_BLOCK = 4096           # the 16k lm_head's rows a block, held and timed
+LC_SHADOW_NEW = 8         # decode steps of the shadowed rerun
+
+
+def flash_edges_shadow(lowering, plain, bound, edge: int):
+    """Install, in the Attention lowering, a flash_attention that calls
+    the one installed before and holds the first and the last `edge`
+    query rows of each result against `plain` on those rows over every
+    key (a pos-bound call: the slice starting at row r sees key j iff
+    j <= pos + r + s), since the plain version's (B, H, Sq, Skv) f32
+    scores of a whole long prompt do not fit the card. Returns it;
+    `.inner` is the one it wraps, `.rows` the rows it held."""
+    inner = lowering.flash_attention
+
+    def checked(q, k, v, scale, **kw):
+        got = inner(q, k, v, scale, **kw)
+        Sq = q.shape[2]
+        for r0 in sorted({0, max(Sq - edge, 0)}):
+            r1 = min(r0 + edge, Sq)
+            kw_r = dict(kw)
+            if kw.get("pos_bound") is not None:
+                kw_r["pos_bound"] = kw["pos_bound"] + r0
+            elif kw.get("mask") is not None or kw.get("causal"):
+                raise RuntimeError("flash_edges_shadow holds pos-bound "
+                                   "calls only")
+            qs = q[:, :, r0:r1]
+            err, share = worst_share(
+                got[:, :, r0:r1], plain(qs, k, v, scale, **kw_r),
+                plain(qs, k, v.abs(), scale, **kw_r), bound)
+            checked.worst = max(checked.worst, share)
+            checked.max_err = max(checked.max_err, err)
+            checked.rows += r1 - r0
+        checked.calls += 1
+        return got
+
+    checked.inner, checked.calls, checked.worst, checked.max_err = \
+        inner, 0, 0.0, 0.0
+    checked.rows = 0
+    lowering.flash_attention = checked
+    return checked
+
+
+def lc_kernels(torch, results) -> None:
+    """(a) The kernels at the long-context path's new shapes, each held
+    against its plain version and timed against its bound and the library
+    call: flash_attention pos-bound over S + 512 keys at S 8,192 and
+    16,384 (rows held at each end, LC_EDGE), decode_attention over 16,896
+    slots at pos past 16,384, the full graph's 16k lm_head (int8_matmul at
+    M 32,768 x N 128,256: 4.2e9 outputs, past 2^31) and the prefill's
+    cache-write pair of 16,384 rows."""
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention, decode_attention_plain, decode_splits)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_agreement_bound, flash_attention, flash_attention_plain,
+        flash_splits)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        kv_write_pair, kv_write_pair_plain)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
+        int8_matmul, int8_matmul_plain)
+
+    dev = torch.device("cuda")
+    card = torch.cuda.current_device()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    B, Hq, Hkv, D = (LC_BATCH, WIDTHS["num_attention_heads"],
+                     WIDTHS["num_key_value_heads"], 128)
+    scale = 1.0 / math.sqrt(D)
+    rows = {}
+    for S in LC_SEQS:
+        Skv = S + 512
+        q = torch.randn(B, S, Hq, D, generator=gen,
+                        device=dev).bfloat16().transpose(1, 2)
+        k, v = (torch.randn(B, Hkv, Skv, D, generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        pos = torch.zeros((), dtype=torch.int64, device=dev)
+        lowering = types.SimpleNamespace(flash_attention=flash_attention)
+        sh = flash_edges_shadow(lowering, flash_attention_plain,
+                                flash_agreement_bound, LC_EDGE)
+        lowering.flash_attention(q, k, v, scale, pos_bound=pos)
+
+        def kernel():
+            return flash_attention(q, k, v, scale, pos_bound=pos)
+
+        def edges_plain():
+            for r0 in (0, S - LC_EDGE):
+                flash_attention_plain(q[:, :, r0:r0 + LC_EDGE], k, v, scale,
+                                      pos_bound=pos + r0)
+
+        ms = time_ms(torch, kernel, [()], reps=3, inner=2)
+        dev_ms = device_time_ms(torch, kernel, [()], reps=3, inner=2)
+        plain_ms = time_ms(torch, edges_plain, [()], reps=3, inner=1)
+        dense = (torch.arange(Skv, device=dev)
+                 <= torch.arange(S, device=dev)[:, None])[None, None]
+        lib = sdpa_gqa(torch, q, k, v, dense, scale)
+        try:
+            lib_ms = time_ms(torch, lib, [()], reps=3, inner=1)
+            lib_dev = device_time_ms(torch, lib, [()], reps=3, inner=1)
+        except torch.cuda.OutOfMemoryError:
+            lib_ms = lib_dev = float("nan")     # printed as such
+        del dense, lib
+        pairs = B * S * (S + 1) // 2
+        bms, bby = bound(2 * B * Hq * S * D * 2 + B * S * Hkv * D * 2 * 2,
+                         4 * D * Hq * pairs)
+        splits, _ = flash_splits(B, Hq, Hkv, S, Skv, D, card)
+        say(f"  flash_attention pos-bound B={B} Hq/Hkv={Hq}/{Hkv} Sq={S} "
+            f"Skv={Skv} D={D} pos=0 ({splits} key splits): the first and "
+            f"last {LC_EDGE} rows against the plain version: max_abs_err="
+            f"{sh.max_err:.6g}, worst err/tol {sh.worst:.4g}; kernel "
+            f"{ms:.4f} ms, device {dev_ms:.4f} ms "
+            f"({4 * D * Hq * pairs / (dev_ms * 1e-3) / 1e12:.1f} TFLOP/s "
+            f"over visible keys, {bms / dev_ms:.1%} of the bound), plain on "
+            f"the {2 * LC_EDGE} held rows {plain_ms:.4f} ms, SDPA (a boolean "
+            f"mask) {lib_ms:.4f} ms, device {lib_dev:.4f} (kernel/SDPA "
+            f"{dev_ms / lib_dev:.2f}), bound {bms:.4f} ms ({bby})")
+        if not sh.worst <= 1.0:
+            fail(f"flash_attention at Sq={S} disagrees with its plain "
+                 f"version on the held rows: err/tol {sh.worst}")
+        rows[f"flash S={S}"] = {
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "plain_rows": 2 * LC_EDGE, "library_ms": lib_ms,
+            "library_device_ms": lib_dev, "bound_ms": bms, "bound_by": bby,
+            "max_abs_err": sh.max_err, "splits": splits}
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # decode over the 16k sibling's cache, past 16,384 keys
+    L = LC_SEQS[-1] + 512
+    pos_list = [LC_SEQS[-1], L - 1]
+    sets = []
+    for _ in range(copies_for(2 * B * Hkv * L * D * 2)):
+        sets.append((torch.randn(B, Hq, 1, D, generator=gen,
+                                 device=dev).bfloat16(),
+                     *(torch.randn(B, Hkv, L, D, generator=gen,
+                                   device=dev).bfloat16() for _ in range(2)),
+                     torch.tensor(pos_list, device=dev), scale))
+    q, k, v, pos, _ = sets[0]
+    err, share = worst_share(
+        decode_attention(*sets[0]), decode_attention_plain(*sets[0]),
+        decode_attention_plain(q.float(), k, v.abs(), pos, scale),
+        agreement_bound)
+    ms = time_ms(torch, decode_attention, sets)
+    dev_ms = device_time_ms(torch, decode_attention, sets)
+    plain_ms = time_ms(torch, decode_attention_plain, sets)
+    live = torch.arange(L, device=dev) <= pos[:, None]
+    calls = [(sdpa_gqa(torch, q, k, v, live[:, None, None, :], scale),)
+             for q, k, v, _, _ in sets]
+    lib_ms = time_ms(torch, lambda f: f(), calls)
+    lib_dev = device_time_ms(torch, lambda f: f(), calls)
+    n_live = int(live.sum())
+    bms, bby = bound(2 * B * Hq * D * 2 + 2 * Hkv * n_live * D * 2,
+                     4 * Hq * D * n_live)
+    splits, chunk = decode_splits(B, Hq, Hkv, L, D, card)
+    say(f"  decode_attention B={B} Hq/Hkv={Hq}/{Hkv} D={D} L={L} pos="
+        f"{pos_list} ({splits} splits of {chunk} keys): max_abs_err="
+        f"{err:.6g}, worst err/tol {share:.4g}; kernel {ms:.4f} ms, device "
+        f"{dev_ms:.4f} ms ({bms / dev_ms:.1%} of the bound), plain "
+        f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, device {lib_dev:.4f} "
+        f"(kernel/SDPA {dev_ms / lib_dev:.2f}), bound {bms:.4f} ms ({bby})")
+    if not share <= 1.0:
+        fail(f"decode_attention at L={L} disagrees with its plain version: "
+             f"err/tol {share}")
+    rows[f"decode L={L}"] = {
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "library_ms": lib_ms, "library_device_ms": lib_dev,
+        "bound_ms": bms, "bound_by": bby, "max_abs_err": err,
+        "splits": splits}
+    del sets, calls, q, k, v, live
+    torch.cuda.empty_cache()
+
+    # the full graph's lm_head at S = 16,384: 4.2e9 outputs
+    M, K, N = B * LC_SEQS[-1], WIDTHS["hidden_size"], WIDTHS["vocab_size"]
+    x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+    w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(N, generator=gen, device=dev) * 1e-3 + 1e-4
+    got = int8_matmul(x, w, s)
+    ms = time_ms(torch, int8_matmul, [(x, w, s)], reps=3, inner=1)
+    dev_ms = device_time_ms(torch, int8_matmul, [(x, w, s)], reps=3,
+                            inner=1)
+    worst, max_err = 0.0, 0.0
+    for r0 in range(0, M, LC_BLOCK):
+        xs = x[r0:r0 + LC_BLOCK]
+        err, share = worst_share(got[r0:r0 + LC_BLOCK], int8_matmul_plain(
+            xs, w, s), int8_matmul_plain(xs.float().abs(), w.abs(), s),
+            agreement_bound)
+        worst, max_err = max(worst, share), max(max_err, err)
+    del got
+    plain_ms = time_ms(torch, int8_matmul_plain, [(x, w, s)], reps=1,
+                       inner=1)
+    # the library call over the same rows, one call a block of the hold
+    # (4,096 rows: 5.3e8 outputs each, under 2^31), after one warm call;
+    # library_ms is the blocks' sum, the function over all M rows
+    lib_ms = lib_block = None
+    try:
+        mm = torch.ops.aten._weight_int8pack_mm
+        wt, sb = w.t().contiguous(), s.bfloat16()    # as int8pack_call
+        mm(x[:LC_BLOCK], wt, sb)                     # a warm call
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for r0 in range(0, M, LC_BLOCK):
+            mm(x[r0:r0 + LC_BLOCK], wt, sb)
+        end.record()
+        torch.cuda.synchronize()
+        lib_ms = start.elapsed_time(end)
+        lib_block = lib_ms / (M // LC_BLOCK)
+        del wt, sb
+        lib = (f"_weight_int8pack_mm {lib_ms:.4f} ms over {M // LC_BLOCK} "
+               f"calls of {LC_BLOCK:,} rows ({lib_block:.4f} a call; "
+               f"kernel/library {ms / lib_ms:.3f})")
+    except (RuntimeError, NotImplementedError) as e:
+        lib = (f"_weight_int8pack_mm raised: {type(e).__name__}: "
+               f"{str(e)[:200]}")
+    bms, bby = bound(M * K * 2 + K * N + N * 4 + M * N * 2, 2 * M * K * N)
+    say(f"  int8_matmul M={M} K={K} N={N} ({M * N / 2 ** 31:.2f} x 2^31 "
+        f"outputs): max_abs_err={max_err:.6g}, worst err/tol {worst:.4g} "
+        f"(row blocks of {LC_BLOCK:,} against the plain version); kernel "
+        f"{ms:.4f} ms, device {dev_ms:.4f} ms "
+        f"({2 * M * K * N / (dev_ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+        f"{bms / dev_ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
+        f"{lib}, bound {bms:.4f} ms ({bby})")
+    if not worst <= 1.0:
+        fail(f"int8_matmul at M={M} N={N} disagrees with its plain version: "
+             f"err/tol {worst}")
+    rows[f"int8 lm_head M={M}"] = {
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        "library_ms": lib_ms, "library_block_ms": lib_block,
+        "library_calls": M // LC_BLOCK, "bound_ms": bms, "bound_by": bby,
+        "max_abs_err": max_err}
+    del x, w, s
+    torch.cuda.empty_cache()
+
+    # the prefill's cache-write pair: 16,384 rows into 16,896 slots
+    S = LC_SEQS[-1]
+    ck, cv = (torch.randn(B, Hkv, L, D, generator=gen, device=dev).bfloat16()
+              for _ in range(2))
+    uk, uv = (torch.randn(B, Hkv, S, D, generator=gen, device=dev).bfloat16()
+              for _ in range(2))
+    pos = torch.zeros((), dtype=torch.int64, device=dev)
+    want = kv_write_pair_plain(ck.clone(), uk, cv.clone(), uv, pos)
+    got = kv_write_pair(ck, uk, cv, uv, pos)
+    exact = all(torch.equal(g.view(torch.int16), w_.view(torch.int16))
+                for g, w_ in zip(got, want))
+    del want, got
+    args = [(ck, uk, cv, uv, pos)]
+    ms = time_ms(torch, kv_write_pair, args)
+    plain_ms = time_ms(torch, kv_write_pair_plain, args)
+
+    def two_copies(ck, uk, cv, uv, pos):
+        ck[:, :, :S].copy_(uk)
+        cv[:, :, :S].copy_(uv)
+
+    lib_ms = time_ms(torch, two_copies, args)
+    bms, bby = bound(2 * 2 * B * Hkv * S * D * 2, 0)
+    say(f"  kv_write_pair B={B} H={Hkv} S={S} into L={L}: "
+        f"{'bit for bit' if exact else 'DIFFERENT'} against the plain "
+        f"version over both caches; kernel {ms:.4f} ms ({bms / ms:.1%} of "
+        f"the bound), plain {plain_ms:.4f} ms, two slice copies "
+        f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({bby})")
+    if not exact:
+        fail("kv_write_pair at the 16k prefill is not its plain version's "
+             "write")
+    rows[f"kv pair S={S}"] = {"ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, "bound_ms": bms,
+                              "bound_by": bby, "max_abs_err": 0.0}
+    del ck, cv, uk, uv
+    torch.cuda.empty_cache()
+    for name, key, source, replaces in (
+            ("flash_attention", f"flash S={LC_SEQS[-1]}",
+             "whisper_tensor_tpu_torch/csrc/flash_attention.cu",
+             "whisper_tensor_tpu/backends/pallas/attention.py:175"),
+            ("decode_attention", f"decode L={L}",
+             "whisper_tensor_tpu_torch/csrc/decode_attention.cu",
+             "whisper_tensor_tpu/backends/pallas/decode_attention.py:179"),
+            ("int8_matmul", f"int8 lm_head M={M}",
+             "whisper_tensor_tpu_torch/csrc/int8_matmul.cu",
+             "whisper_tensor_tpu/backends/pallas/quant_matmul.py:68"),
+            ("kv_write_pair", f"kv pair S={S}",
+             "whisper_tensor_tpu_torch/csrc/kv_write.cu",
+             "whisper_tensor_tpu/backends/pallas/kv_write.py:104")):
+        r = rows[key]
+        results.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": key, "shapes": {k_: v_ for k_, v_ in rows.items()
+                                     if k_.split()[0] == key.split()[0]}})
+
+
+def lc_models(tensors: dict, S: int) -> dict:
+    """{last_only: the llama recipe's Model at max_len S + 512}, both
+    built from one weight getter (`tensors`, the checkpoint_tensors
+    arrays), the weights kept out of the ONNX bytes (a sink) and put in
+    each model's store."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.onnx_builder import WeightStorage
+    from whisper_tensor_tpu_torch.importers.recipes.llm.llama import (
+        LlamaConfig, build_llama_step)
+    from whisper_tensor_tpu_torch.model import Model
+    from whisper_tensor_tpu_torch.tensor import NumericTensor
+
+    cfg = LlamaConfig(num_hidden_layers=LC_LAYERS, **WIDTHS)
+    out = {}
+    for last in (True, False):
+        sink = {}
+        model = Model.new_from_onnx(build_llama_step(
+            tensors.__getitem__, cfg, max_len=S + 512, dtype=DType.BF16,
+            storage=WeightStorage.to_sink(sink), logits_last_only=last))
+        for name, val in sink.items():
+            model.graph.store.put(name, NumericTensor(val))
+        out[last] = model
+    return out
+
+
+def lc_interface(torch, model, S: int, shared=None):
+    """A TextInferenceInterface over `model` (int8, a bf16 cache, the one
+    bucket S, max_len S + 512), its weights uploaded: (interface, its
+    constructor's s, the card bytes its upload added)."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+
+    t0 = time.perf_counter()
+    iface = TextInferenceInterface(
+        model, S + 512, cache_dtype=DType.BF16,
+        prompt_buckets=(S,), quantize="int8", quantize_precomputed=shared,
+        device=CARD)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    iface._weights()
+    torch.cuda.synchronize()
+    return iface, build_s, torch.cuda.memory_allocated() - before
+
+
+def lc_run(torch, np, iface, prompt, label: str, spy, qspy, results) -> dict:
+    """One interface on `prompt`: TTFT (the median of 3 prefills), the
+    rate of LC_NEW greedy decode steps from the prefill's caches at pos S
+    (decode_tokens, the median of 3), the card's peak GB, and a counted
+    run of the prefill and LC_NEW steps (every kernel's launches against
+    the lowering's eligible calls)."""
+    B, S = prompt.shape
+    iface.generate_tokens(prompt, 2)      # the plans of both step shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    caches = iface.fresh_cache(B)
+    ttft, dec = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        first = iface.generate_tokens(prompt, 1, caches=caches)[:, 0]
+        torch.cuda.synchronize()
+        ttft.append(time.perf_counter() - t0)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        iface.decode_tokens(first, S, caches, LC_NEW)
+        dec.append(time.perf_counter() - t0)
+    del caches
+    toks, launches = counted(lambda: iface.generate_tokens(
+        prompt, 1 + LC_NEW), spy, qspy, label, results,
+        key="launches_phase23")
+    out = {"ttft_ms": statistics.median(ttft) * 1e3,
+           "step_ms": statistics.median(dec) * 1e3 / LC_NEW,
+           "tok_s": B * LC_NEW / statistics.median(dec),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "tokens": toks}
+    say(f"  {label}: TTFT {out['ttft_ms']:.1f} ms (3 runs "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in ttft)}), {LC_NEW} decode "
+        f"steps at pos {S}+ {out['step_ms']:.2f} ms a step, "
+        f"{out['tok_s']:.1f} tok/s ({B} rows), peak {out['peak_gb']:.2f} "
+        f"GB on the card")
+    return out
+
+
+def phase23(torch, np, results) -> dict:
+    """Phase 23 (--long-context-only): (a) lc_kernels; (b) Llama-3-8B
+    widths at LC_LAYERS layers built twice from one getter, with
+    logits_last_only=True and without, at S 8,192 and 16,384 (max_len
+    S + 512, B 2, the bucket S, int8 shared: the first interface's
+    `_quantized` serves the other three as quantize_precomputed). For
+    each S and graph that fits: TTFT, decode rate, peak card GB, the
+    kernels' launches; the 16k sibling's constructor s and the card bytes
+    its upload added; the last-only and full graphs' greedy tokens equal
+    at 8,192; a profiled 16k prefill; a shadowed rerun at 16,384; a
+    shorter prompt refused."""
+    from whisper_tensor_tpu_torch.milli import transforms
+
+    lc_kernels(torch, results)
+    out = {"card": card_line(), "runs": {}}
+    spy, qspy = RouteSpy(), quant_spy(transforms)
+    try:
+        t0 = time.perf_counter()
+        tensors = dict(checkpoint_tensors(LC_LAYERS, np))
+        say(f"phase 23: {LC_LAYERS}-layer Llama-3-8B-width weights made "
+            f"in {time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(SEED + 23)
+        shared, first, ifaces = None, None, {}
+        for S in LC_SEQS:
+            prompt = rng.integers(3, BYTE_VOCAB, (LC_BATCH, S)
+                                  ).astype(np.int64)
+            t0 = time.perf_counter()
+            models = lc_models(tensors, S)
+            say(f"  S={S}: both graphs built in "
+                f"{time.perf_counter() - t0:.1f} s; host RSS "
+                f"{host_rss_gb():.1f} GB")
+            for last in (True, False):
+                label = f"S={S} {'last-only' if last else 'full'}"
+                try:
+                    iface, build_s, up = lc_interface(torch, models[last], S,
+                                                      shared)
+                    if shared is None:
+                        shared, first = iface._quantized, iface
+                    how = ("quantized" if iface is first else
+                           "the int8 weights taken from the first interface")
+                    say(f"  {label}: built in {build_s:.1f} s ({how}), its "
+                        f"upload added {up / 1e9:.3f} GB to the card")
+                    if iface is not first:
+                        mine, theirs = iface._weights(), first._weights()
+                        names = [n for q in first._quantized
+                                 for n in (q, q + "::scale")]
+                        if not all(mine[n].data_ptr() == theirs[n].data_ptr()
+                                   for n in names):
+                            fail(f"{label}: an int8 weight is not the first "
+                                 f"interface's device tensor")
+                    if iface.logits_last_only != last:
+                        fail(f"{label}: the interface misreads the graph's "
+                             f"logits")
+                    run = lc_run(torch, np, iface, prompt, label, spy, qspy,
+                                 results)
+                    cache_gb = sum(c.numel() * c.element_size() for c in
+                                   iface.fresh_cache(LC_BATCH)) / 1e9
+                    run.update(build_s=build_s, upload_gb=up / 1e9,
+                               cache_gb=cache_gb)
+                    out["runs"][label] = run
+                    ifaces[S, last] = iface
+                except torch.cuda.OutOfMemoryError as e:
+                    say(f"  {label}: does not fit the card: "
+                        f"{str(e).splitlines()[0][:160]}")
+                    out["runs"][label] = {"oom": True}
+                    iface = None
+                    free_memory(torch)
+            del models
+        del tensors
+        S = LC_SEQS[0]
+        a, b = (out["runs"][f"S={S} {k}"] for k in ("last-only", "full"))
+        if "oom" in a or "oom" in b:
+            fail(f"S={S}: a graph did not fit the card")
+        if not np.array_equal(a["tokens"], b["tokens"]):
+            fail(f"S={S}: the last-only graph's greedy tokens "
+                 f"{a['tokens'][:, :8]} are not the full graph's "
+                 f"{b['tokens'][:, :8]}")
+        say(f"  S={S}: the last-only and full graphs give equal greedy "
+            f"tokens ({1 + LC_NEW} a row); the full graph's extra: "
+            f"{b['ttft_ms'] - a['ttft_ms']:.1f} ms of TTFT, "
+            f"{b['peak_gb'] - a['peak_gb']:.2f} GB of peak")
+        S = LC_SEQS[-1]
+        sib = ifaces[S, True]
+        r = out["runs"][f"S={S} last-only"]
+        first_s = out["runs"][f"S={LC_SEQS[0]} last-only"]["build_s"]
+        int8_gb = sum(t.numel() * t.element_size()
+                      for n, t in first._weights().items()
+                      if n in first._quantized or n.endswith("::scale")) / 1e9
+        out["int8_gb"] = int8_gb
+        say(f"  the S={S} sibling: built in {r['build_s']:.1f} s against the "
+            f"first's {first_s:.1f} s; its upload added {r['upload_gb']:.3f} "
+            f"GB (the int8 set, {int8_gb:.3f} GB, shared), its caches take "
+            f"{r['cache_gb']:.3f} GB")
+        prompt = rng.integers(3, BYTE_VOCAB, (LC_BATCH, S)).astype(np.int64)
+        t0 = time.perf_counter()
+        text, parts = step_profile(torch, lambda: sib.generate_tokens(
+            prompt, 1))
+        out["prefill_profile"] = dict(parts, wall_ms=(
+            time.perf_counter() - t0) * 1e3)
+        say(f"  S={S} last-only, one prefill under torch.profiler "
+            f"({out['prefill_profile']['wall_ms']:.1f} ms wall with the "
+            f"profiler): {text}")
+        sh = Shadows()
+        full = sh.att.flash_attention
+        sh.att.flash_attention = full.inner
+        from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+            flash_agreement_bound, flash_attention_plain)
+        sh.sh["flash_attention"] = edges = flash_edges_shadow(
+            sh.att, flash_attention_plain, flash_agreement_bound, LC_EDGE)
+        try:
+            sib.generate_tokens(prompt, 1 + LC_SHADOW_NEW)
+        finally:
+            sh.close(f"S={S} last-only, shadowed (flash: {edges.rows} "
+                     f"held rows)", r["launches"])
+        try:
+            sib.generate_tokens(prompt[:, :S - 1], 2)
+            fail("a prompt shorter than its bucket was not refused by the "
+                 "last-only graph")
+        except ValueError as e:
+            if "logits_last_only" not in str(e):
+                raise
+            say(f"  a {S - 1}-token prompt in the bucket of {S}: "
+                f"refused ({str(e)[:80]}...)")
+    finally:
+        spy.restore()
+        transforms.int8_matmul = qspy.inner
+    for run in out["runs"].values():
+        run.pop("tokens", None)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2,
@@ -10855,6 +11401,13 @@ def main() -> None:
                     help="run phase 22 (every examples/torch_port example "
                          "through its main on the card, the --model ones "
                          "on seeded checkpoints at published widths) alone "
+                         "after the build")
+    ap.add_argument("--long-context-only", action="store_true",
+                    help="run phase 23 (the long-context path: the "
+                         "kernels at S 8,192 and 16,384, then a 4-layer "
+                         "Llama-3-8B-width int8 model with "
+                         "logits_last_only and without, sibling "
+                         "interfaces sharing the int8 weights) alone "
                          "after the build")
     ap.add_argument("--lora-only", action="store_true",
                     help="write the checkpoints and run phase 10 (l) "
@@ -10992,6 +11545,18 @@ def main() -> None:
                     ROOT / "build" / "smoke", args.layers, bf16, results)
         say(json.dumps({"phase22": rows}))
         say(f"{card_line()} (--examples-only: phases 2-21 not run)")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if args.long_context_only:
+        out = step("phase 23 (the long-context path)", phase23, torch, np,
+                   results)
+        for res in results:
+            res["launches"] = sum(res.get("launches_phase23", {}).values())
+        say(json.dumps({"phase23": out}))
+        say(json.dumps({"kernels": results}))
+        say(f"{card_line()} (--long-context-only: phases 2-22 not run)")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

@@ -28,7 +28,7 @@ pytest.importorskip("jax")
 
 from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (  # noqa: E402
     dequant_repacked)
-from whisper_tensor_tpu_torch.dtype import DType  # noqa: E402
+from whisper_tensor_tpu_torch.dtype import DType, to_host  # noqa: E402
 
 from tests.test_torch_port_slice import PROMPT, _pair  # noqa: E402
 from tests.test_torch_port_slice import models  # noqa: F401,E402 (fixture)
@@ -126,7 +126,8 @@ def test_c12_hidden_states_on_a_quantized_lm_head(models, quantize):  # noqa: F8
     # tap @ dequantized lm_head against the JAX package's logits
     name = next(n for n, t in run.inputs.items() if t == head.inputs[1])
     if quantize == "int8":
-        w8, scale = port._quantized[name]
+        # after the upload the pair is the uploaded device tensors
+        w8, scale = (to_host(a) for a in port._quantized[name])
         w = w8.astype(np.float32) * scale
     else:
         w = dequant_repacked(port._packed[name])

@@ -74,6 +74,15 @@ class SymbolicObserver:
         return False
 
 
+def mode_device(mode: str, device=None) -> torch.device:
+    """The device an interface of `mode` keeps its tensors on: `device`
+    for "torch"; the CPU for "oracle", whose interpreter hands its outputs
+    over there (run_on_device)."""
+    if mode not in ("oracle", "torch"):
+        raise ValueError(f"unknown mode {mode!r} (oracle or torch)")
+    return resolve_device("cpu" if mode == "oracle" else device)
+
+
 def _is_container(v) -> bool:
     from ..symbolic_graph.ops.sequence import OptionalVal
 
@@ -328,11 +337,17 @@ class EvalBackend:
         and its weights uploaded once; the executor folds its statics on
         the first run for a set of shapes and replays the device steps
         after. The image interface's denoise loop runs its UNet here, so
-        nothing crosses to the host between steps."""
-        if self.mode != "torch" or graph.has_control_flow() \
-                or graph.needs_host_eval():
-            raise ValueError("run_on_device takes a torch-mode backend and "
-                             "a graph without control flow or host values")
+        nothing crosses to the host between steps. In oracle mode the
+        interpreter runs on host copies of the feeds, and its outputs
+        come back as CPU tensors (the interfaces' `mode="oracle"`)."""
+        if self.mode == "oracle":
+            out = self.run(graph, {n: to_host(v) if isinstance(
+                v, torch.Tensor) else v for n, v in feeds.items()})
+            return {n: to_device(np.asarray(v), torch.device("cpu"))
+                    for n, v in out.items()}
+        if graph.has_control_flow() or graph.needs_host_eval():
+            raise ValueError("run_on_device takes a graph without control "
+                             "flow or host values")
         ex, weights = self._executor(graph)
         dev = dict(weights)
         for t in graph.inputs:

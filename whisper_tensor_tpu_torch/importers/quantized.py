@@ -283,8 +283,12 @@ class QuantizedStore:
         w = dequant_dense(q, z, s, g_idx)                 # (K, N)
         return np.ascontiguousarray(w.T if self.linear else w)
 
-    def getter(self):
-        return self.load
+    def getter(self, transform: Optional[Callable] = None):
+        """name -> array: `load`, through transform(name, array) when it
+        is given."""
+        if transform is None:
+            return self.load
+        return lambda name: transform(name, self.load(name))
 
     def packed_source(self, name: str) -> Optional[Callable]:
         """() -> the kernel's device dict for `<module>.weight`, or

@@ -6,7 +6,7 @@ step graph with fixed-shape KV caches + scalar position; RMSNorm,
 rotary embeddings (NeoX halves), GQA fused attention, SwiGLU MLP.
 
 The port's copy of whisper_tensor_tpu/importers/recipes/llm/llama.py,
-without `logits_last_only`; with the training graph
+with the training graph
 (`build_llama_train`, :276-356). A weight getter may return an
 origin-bearing LazyWeight (SafetensorsStore.lazy) in the graph's type:
 the step graph then keeps it as a reference to the checkpoint (under
@@ -99,7 +99,8 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
                      max_len: int, dtype: DType = DType.F32,
                      storage: Optional[WeightStorage] = None,
                      pos_per_row: bool = False,
-                     weight_map: Optional[dict] = None) -> bytes:
+                     weight_map: Optional[dict] = None,
+                     logits_last_only: bool = False) -> bytes:
     """HF llama state-dict names; HF Linear weights are (out, in) and are
     transposed once at import into matmul-RHS layout.
 
@@ -109,7 +110,14 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
     weight_map (optional out-param): records {initializer_name:
     hf_name} for every 2-D matmul-RHS weight — the packed-GGUF loader
     uses it to bind those initializers to lazily-loaded packed tensors
-    instead of dense payloads."""
+    instead of dense payloads.
+
+    logits_last_only=True slices the hidden state to the LAST position
+    before the lm_head, so logits are (B, 1, V) instead of (B, S, V):
+    at long-context prefill the full logits dominate device memory
+    (16k x 128,256 bf16 = 4.2 GB a row) and generation reads only the
+    last position. The interface reads such a graph only where the
+    prompt fills its bucket (interfaces/text.py, `logits_last_only`)."""
     E = cfg.hidden_size
     Hq = cfg.num_attention_heads
     Hkv = cfg.num_key_value_heads
@@ -271,12 +279,18 @@ def build_llama_step(weights: Callable[[str], np.ndarray], cfg: LlamaConfig,
 
     xf = b.rms_norm(x, b.initializer("final_norm", w("model.norm.weight")),
                     epsilon=eps)
+    if logits_last_only:
+        xf = b.node("Slice", [
+            xf, b.const(np.asarray([-1], np.int64)),
+            b.const(np.asarray([np.iinfo(np.int64).max], np.int64)),
+            b.const(np.asarray([1], np.int64))])
     if cfg.tie_word_embeddings:
         lm = rhs("lm_head", "model.embed_tokens.weight")
     else:
         lm = lin("lm_head", "lm_head.weight")
     b.node("MatMul", [xf, lm], outputs=["logits"])
-    b.output("logits", dtype, ["batch", "seq", V])
+    b.output("logits", dtype,
+             ["batch", 1 if logits_last_only else "seq", V])
     for i, (nk, nv) in enumerate(cache_outs):
         b.output(nk, dtype, ["batch", Hkv, max_len, D])
         b.output(nv, dtype, ["batch", Hkv, max_len, D])

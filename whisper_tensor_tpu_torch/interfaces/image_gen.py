@@ -39,7 +39,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..backends.eval_backend import mode_device
 from ..dtype import to_device, to_host
 from ..model import Model
 from ..super_graph.links import Image
@@ -151,7 +151,9 @@ class ImageGenerationInterface:
             vae (latents -> image), and optionally vae_encoder
             (image -> moments), which enables run_img2img and
             run_inpaint. Every model runs on `device` (CUDA unless
-            "cpu" is passed).
+            "cpu" is passed); mode "oracle" runs each in the numpy
+            interpreter on the CPU (the reference's mode, whose "xla"
+            is "torch" here).
     """
 
     def __init__(self, text_encoder: Model, unet: Model, vae: Model,
@@ -160,7 +162,7 @@ class ImageGenerationInterface:
                  seq_len: int = 77, prediction_type: str = "epsilon",
                  vae_encoder: Optional[Model] = None,
                  vae_scaling: float = 0.18215, vae_shift: float = 0.0,
-                 device=None):
+                 mode: str = "torch", device=None):
         self.text_encoder = text_encoder
         self.unet = unet
         self.vae = vae
@@ -173,13 +175,14 @@ class ImageGenerationInterface:
         self.bos = bos_token_id
         self.eos = uncond_token_id
         self.prediction_type = prediction_type
-        self.device = resolve_device(device)
+        self.device = mode_device(mode, device)
+        self.mode = mode
 
     # ------------------------------------------------------------------
     def _run(self, model: Model, feeds: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
         """One model on the device: device tensors in and out."""
-        return model.backend("torch", device=self.device).run_on_device(
+        return model.backend(self.mode, device=self.device).run_on_device(
             model.graph, feeds)
 
     def encode_prompt(self, text: str) -> np.ndarray:
@@ -493,7 +496,10 @@ class FluxImageGenerationInterface(ImageGenerationInterface):
             "img2img is not wired for the flux pipeline yet (its loop "
             "has no CFG pair); use an sd/sdxl/sd3 pipeline")
 
-    def run_inpaint(self, *a, **kw):
+    def run_inpaint(self, prompt: str, init_image: np.ndarray,
+                    mask: np.ndarray, negative_prompt: str = "",
+                    cfg: Optional[ImageGenConfig] = None,
+                    observer=None) -> Image:
         raise NotImplementedError(
             "inpainting is not wired for the flux pipeline (its loop has "
             "no CFG pair); use an sd/sdxl/sd3 pipeline")
@@ -537,11 +543,13 @@ class FluxImageGenerationInterface(ImageGenerationInterface):
         return self._decode(latents)
 
 
-def image_interface_from_bundle(bundle, device=None
+def image_interface_from_bundle(bundle, mode: str = "torch", device=None
                                 ) -> ImageGenerationInterface:
     """The pipeline interface of a DiffusersPipelineLoader or
     LdmCheckpointLoader bundle (importers.loaders) on `device`: SD/SD2 ->
-    ImageGenerationInterface, SDXL/SD3/Flux -> their subclasses."""
+    ImageGenerationInterface, SDXL/SD3/Flux -> their subclasses. mode
+    "oracle" runs every model in the numpy interpreter on the CPU (the
+    reference's mode, :754-756, whose "xla" is "torch" here)."""
     spec = bundle.interfaces["image"]
     m = bundle.models
     tok = None
@@ -552,7 +560,8 @@ def image_interface_from_bundle(bundle, device=None
     common = dict(tokenizer=tok, latent_channels=spec["latent_channels"],
                   bos_token_id=spec.get("bos_token_id", 49406),
                   uncond_token_id=spec.get("eos_token_id", 49407),
-                  seq_len=spec.get("seq_len", 77), device=device)
+                  seq_len=spec.get("seq_len", 77), mode=mode,
+                  device=device)
     if spec.get("vae_encoder"):
         common["vae_encoder"] = m[spec["vae_encoder"]]
         common["vae_scaling"] = spec.get("vae_scaling", 0.18215)

@@ -109,10 +109,8 @@ class MultimodalLanguageInterface:
         if t._quantized:
             # the placement is the text graph's; the values come from the
             # text interface's device weights, so none is quantized here
-            quantize_matmul_weights(
-                milli, list(t._quantized),
-                lambda n: np.broadcast_to(np.float32(0.0),
-                                          t._quantized[n][0].shape))
+            quantize_matmul_weights(milli, list(t._quantized), None,
+                                    precomputed=t._quantized)
         names = [n for n in milli.inputs
                  if n in weight_inputs or n in t._fused
                  or n.endswith("::scale")]
@@ -149,6 +147,7 @@ class MultimodalLanguageInterface:
             embeds = embeds[None]
         B, L, E = embeds.shape
         Sb = _bucket(L, self.text.prompt_buckets)
+        at = self.text.prefill_at(L, Sb)
         padded = torch.zeros((B, Sb, E), dtype=wte.dtype, device=self.device)
         padded[:, :L] = embeds
         caches = self.text.fresh_cache(B)
@@ -157,7 +156,7 @@ class MultimodalLanguageInterface:
         if sampling is not None and sampling.temperature > 0.0:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(sampling.seed))
-        first = _pick_token(logits[:, L - 1, :], gen, sampling, None)
+        first = _pick_token(logits[:, at, :], gen, sampling, None)
         return self.text.decode_tokens(first, L, caches,
                                        n_new, sampling=sampling)
 

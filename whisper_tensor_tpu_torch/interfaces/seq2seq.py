@@ -110,11 +110,11 @@ class Seq2SeqInterface:
                 (B, self.enc_len)).copy()
         return feeds
 
-    def encode(self, inputs) -> Dict[str, torch.Tensor]:
+    def encode(self, input_ids) -> Dict[str, torch.Tensor]:
         """(B, L) ids, or (B, n_mels, frames) mel -> the encoder's
         outputs as device tensors."""
         return self._enc_backend.run_on_device(self.encoder.graph,
-                                               self._enc_feeds(inputs))
+                                               self._enc_feeds(input_ids))
 
     def fresh_cache(self, batch: int) -> List[torch.Tensor]:
         return self.dec.fresh_cache(batch)

@@ -66,6 +66,8 @@ class SpeculativeDecoder:
         if target.device != draft.device:
             raise ValueError(f"target on {target.device}, draft on "
                              f"{draft.device}: both must share a device")
+        if target.logits_last_only:
+            raise target._last_only_refusal("the speculative verify")
         self.target = target
         self.draft = draft
         self.k = k

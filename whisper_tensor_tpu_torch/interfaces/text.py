@@ -18,8 +18,9 @@ or automatically when the loader recorded packed sources) and
 host-quantized from any dense checkpoint (`quantize="q4_0" | "q8_0" |
 "q5_0" | "q4_k" | "q6_k"`, reference :341-390; weights that are not 2-D
 or whose K is not a multiple of the block stay dense); q/k/v and
-gate/up matmul fusion (on unless adapters are installed, which de-fuse
-the graph as the reference does), prompt buckets, greedy
+gate/up matmul fusion (on without a mesh unless `fuse_matmuls=False`
+or adapters are installed, which de-fuse the graph as the reference
+does), prompt buckets, greedy
 decoding, SamplingParams on a seeded torch.Generator, logit_bias, and
 the per-row sampling the ContinuousBatcher runs (`_pick_token_rows`).
 SamplingParams, the prompt buckets and the per-row sampling arrays are
@@ -56,6 +57,13 @@ Also ported (reference :195-214, :868-978, :1236-1441):
     from one generator seeded alike on each) and returns all rows.
     Beam search and hidden states need a batch dp does not cut; the
     batcher, the server and the cli take no mesh, as in the reference.
+  * long context (reference :264-265, :315-340, :613-626): a step graph
+    built with `logits_last_only=True` gives the logits of the bucket's
+    last position only; generation reads them where the prompt fills its
+    bucket and raises a ValueError naming logits_last_only everywhere
+    else (`logits()`, scoring, a shorter prompt). `fuse_matmuls` turns
+    the fusion on or off; `quantize_precomputed` takes a sibling
+    interface's int8 weights, its device tensors once it has uploaded.
 Not ported yet, and raising NotImplementedError: windowed decode.
 """
 
@@ -345,7 +353,16 @@ class TextInferenceInterface:
                  quantize: Optional[str] = None,
                  weight_dtype: Optional[DType] = None,
                  window_models=None, mesh=None, shard_rules=None,
+                 fuse_matmuls: Optional[bool] = None,
+                 quantize_precomputed: Optional[Dict[str, Tuple]] = None,
                  device=None):
+        """fuse_matmuls: merge the q/k/v and gate/up projections into one
+        wide matmul each (None: on without a mesh, reference :315-326).
+        quantize_precomputed: a sibling interface's `_quantized` dict (the
+        same recipe at another max_len) whose int8 weights this one takes
+        instead of quantizing again (reference :332-340); once the
+        sibling has uploaded its weights the dict holds its device
+        tensors, and this interface uploads none of those again."""
         if window_models:
             raise _not_ported("windowed decode (window_models)")
         if mesh is not None:
@@ -388,21 +405,32 @@ class TextInferenceInterface:
             self.eos_token_ids = ids or None
         milli, weight_inputs = model.graph.to_milli()
         self.milli = milli
-        # the numpy graph passes (milli/transforms.py); no fusion under a
-        # mesh (reference :318-322)
+        # a graph built with logits_last_only=True declares (B, 1, V)
+        # logits: the bucket's last position only
+        dims = model.graph.tensors[model.graph.by_name["logits"]].info.dims()
+        self.logits_last_only = (dims is not None and len(dims) == 3
+                                 and dims[1].is_known
+                                 and int(dims[1].value()) == 1)
+        # the numpy graph passes (milli/transforms.py); by default no
+        # fusion under a mesh (reference :318-322)
+        if fuse_matmuls is None:
+            fuse_matmuls = mesh is None
         self._fused: Dict[str, List[Tuple[str, int]]] = (
             fuse_parallel_matmuls(milli, set(weight_inputs))
-            if mesh is None else {})
+            if fuse_matmuls else {})
         live = [n for n in milli.inputs
                 if n in weight_inputs or n in self._fused]
-        self._quantized: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        # {name: (w_i8, scale)}: host arrays, the device tensors once
+        # uploaded
+        self._quantized: Dict[str, Tuple] = {}
         self._packed: Dict[str, Dict[str, np.ndarray]] = {}
         # multi-LoRA serving (install_adapters): the adapter stacks
         self._lora_stacks: Dict[str, np.ndarray] = {}
         store = model.graph.store
         if quantize == "int8":
             self._quantized = quantize_matmul_weights(
-                milli, live, lambda n: self._dense_np(n, DType.F32))
+                milli, live, lambda n: self._dense_np(n, DType.F32),
+                precomputed=quantize_precomputed)
         elif quantize == "packed" or (quantize is None
                                       and store.packed_sources):
             # GGUF weights stay packed on the device (reference :341-355),
@@ -600,37 +628,48 @@ class TextInferenceInterface:
 
     def load_weights(self, arrays: Mapping[str, np.ndarray]) -> None:
         """Upload a weight set named as `host_weights` names it (under a
-        mesh, the global arrays: this rank's blocks go up)."""
+        mesh, the global arrays: this rank's blocks go up). A tensor
+        already on the device in its type is taken as it is."""
         if self._tp is not None:
             arrays = self._tp.shard_weights(arrays, {
                 n: int(p["bits"]) for n, p in self._packed.items()})
         self._weights_dev = carry_weights(arrays, self.weight_dtypes,
                                           self.device)
 
+    def _upload(self, given: Dict[str, torch.Tensor]) -> None:
+        """Upload the weights, taking the device tensors `given` as they
+        are. Then `_quantized` holds the uploaded int8 pairs, so a
+        sibling built with quantize_precomputed= that dict takes them and
+        uploads none of them again (reference :613-632); under a mesh a
+        rank's blocks stay its own."""
+        rest = [n for n in self.weight_names if n not in given]
+        self.load_weights({**self.host_weights(rest), **given})
+        if self._tp is None:
+            dev = self._weights_dev
+            for n in self._quantized:
+                self._quantized[n] = (dev[n], dev[n + "::scale"])
+
     def share_weights(self, other: "TextInferenceInterface") -> None:
-        """Take `other`'s device tensor for every model weight both
-        interfaces name with one type (`other` must be an interface over
-        the same model, as the batcher load_adapter builds is); upload
-        the rest, the adapter stacks always (their slot count differs).
-        Weights are read only, so sharing is safe. A fused weight of
-        `other` shares nothing with a de-fused interface's members."""
+        """Take `other`'s device tensor for every weight both interfaces
+        name with one type and shape (`other` is an interface over the
+        same model, as the batcher load_adapter builds is, or a sibling
+        at another max_len); upload the rest, the adapter stacks always
+        (their slot count differs). Weights are read only, so sharing is
+        safe. A fused weight of `other` shares nothing with a de-fused
+        interface's members."""
         if self.mesh is not None or other.mesh is not None:
             raise NotImplementedError("share_weights under a mesh")
         theirs = other._weights()
-        shared = {n: theirs[n] for n in self.weight_names
-                  if n in theirs and n not in self._lora_stacks
-                  and other.weight_dtypes.get(n) is self.weight_dtypes[n]}
-        rest = [n for n in self.weight_names if n not in shared]
-        dev = carry_weights(self.host_weights(rest),
-                            {n: self.weight_dtypes[n] for n in rest},
-                            self.device)
-        self._weights_dev = {**dev, **shared}
+        self._upload({n: theirs[n] for n in self.weight_names
+                      if n in theirs and n not in self._lora_stacks
+                      and other.weight_dtypes.get(n) is self.weight_dtypes[n]
+                      and tuple(theirs[n].shape) == self._weight_shape(n)})
 
     def _weights(self) -> Dict[str, torch.Tensor]:
         if self._weights_dev is None:
             with self._weights_lock:
                 if self._weights_dev is None:
-                    self.load_weights(self.host_weights())
+                    self._upload({})
         return self._weights_dev
 
     def eval_backend(self) -> EvalBackend:
@@ -649,6 +688,27 @@ class TextInferenceInterface:
                 "torch", device=self.device).bind(
                 self.model.graph, self.milli, self._weights())
         return self._eval_backend
+
+    def _last_only_refusal(self, what: str) -> ValueError:
+        return ValueError(
+            f"{what} needs logits at a position other than the bucket's "
+            f"last, and this model was built with logits_last_only=True "
+            f"(logits of that position only): build it without "
+            f"logits_last_only")
+
+    def prefill_at(self, L: int, S: int) -> int:
+        """The position of a prefill's logits, at a bucket of S tokens,
+        that holds the prompt's last token (L - 1). A graph built with
+        logits_last_only=True gives (B, 1, V), the bucket's last position:
+        the prompt's only where the prompt fills its bucket (L == S), and
+        anywhere else this raises, before anything runs (the JAX package
+        clamps the index and answers from the bucket's last position)."""
+        if not self.logits_last_only:
+            return L - 1
+        if L != S:
+            raise self._last_only_refusal(
+                f"a prompt of {L} tokens in a bucket of {S}")
+        return 0
 
     def _vocab_size(self) -> int:
         info = self.model.graph.tensors[
@@ -740,10 +800,11 @@ class TextInferenceInterface:
         None)."""
         ids, L = self._prompt(prompt_ids)
         B = ids.shape[0]
+        at = self.prefill_at(L, ids.shape[1])
         if caches is None:
             caches = self.fresh_cache(B)
         pos = torch.zeros((), dtype=torch.int64, device=self.device)
-        last = self.step(ids, pos, caches)[:, L - 1, :]
+        last = self.step(ids, pos, caches)[:, at, :]
         seen = None
         if _uses_seen(sampling):
             # prompt tokens count as seen (only the real prefix)
@@ -874,6 +935,8 @@ class TextInferenceInterface:
 
     def logits(self, prompt_ids: np.ndarray) -> np.ndarray:
         """Single forward: (B, L) -> (B, L, V) logits (prefill step)."""
+        if self.logits_last_only:
+            raise self._last_only_refusal("logits()")
         ids, L = self._prompt(prompt_ids)
         pos = torch.zeros((), dtype=torch.int64, device=self.device)
         out = self.step(ids, pos, self.fresh_cache(ids.shape[0]))
@@ -1027,6 +1090,8 @@ class TextInferenceInterface:
         (reference :1325-1365). One batched prefill; the log-softmax,
         gather and masked mean run on the device and only (B,) comes
         back."""
+        if self.logits_last_only:
+            raise self._last_only_refusal("teacher-forced scoring")
         full_ids = np.asarray(full_ids, np.int64)
         B, L = full_ids.shape
         Sb = _bucket(max(L - 1, 1), self.prompt_buckets)
@@ -1103,9 +1168,10 @@ class TextInferenceInterface:
                      else -1))
         dev = self.device
         pos = torch.zeros((), dtype=torch.int64, device=dev)
+        at = self.prefill_at(L, ids.shape[1])
         caches = self.fresh_cache(B)
         last = torch.log_softmax(
-            self.step(ids, pos, caches)[:, L - 1, :].float(), dim=-1)
+            self.step(ids, pos, caches)[:, at, :].float(), dim=-1)
         V = last.shape[-1]
         top_s, top_i = torch.topk(last, W, dim=-1)             # (B, W)
         cur = top_i.reshape(-1)

@@ -14,7 +14,9 @@ Text preprocessing runs on the host through the port's copy of
 phonemization.py and the per-engine id maps (the code the super graph's
 phoneme nodes run); each model runs on the device through
 EvalBackend.run_on_device, its graph lowered and its weights uploaded
-once, and only the samples come back.
+once, and only the samples come back. `mode="oracle"` (the reference's
+`mode`, whose "xla" is "torch" here) runs each model in the numpy
+interpreter instead, its outputs on the CPU.
 
 F5's ODE: the reference fuses the 32 Euler steps into one jitted scan
 (:154-204) and falls back to a per-step host loop when that program
@@ -33,8 +35,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..backends.eval_backend import EvalBackend
-from ..device import resolve_device
+from ..backends.eval_backend import EvalBackend, mode_device
 from ..model import Model
 from ..phonemization import kokoro_phoneme_ids, phonemize, piper_phoneme_ids
 from ..super_graph.links import AudioClip
@@ -61,15 +62,16 @@ class TTSInputConfig:
 
 
 class TextToSpeechInterface:
-    def __init__(self, model: Model, config: TTSInputConfig, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, model: Model, config: TTSInputConfig,
+                 mode: str = "torch", device=None):
+        self.device = mode_device(mode, device)
         self.model = model
         self.config = config
         self.voice_names: list = []
-        self._backend = EvalBackend("torch", device=self.device)
+        self._backend = EvalBackend(mode, device=self.device)
 
     @classmethod
-    def from_bundle(cls, bundle, device=None):
+    def from_bundle(cls, bundle, mode: str = "torch", device=None):
         """Build from a loader bundle (importers.loaders piper/kokoro/f5).
         Returns an F5Synthesizer for the f5 engine (3-model pipeline)."""
         spec = bundle.interfaces["tts"]
@@ -79,7 +81,8 @@ class TextToSpeechInterface:
                 bundle.models[spec["transformer"]],
                 bundle.models[spec["decode"]],
                 vocab=spec["vocab"], nfe_steps=spec.get("nfe_steps", 32),
-                sample_rate=spec.get("sample_rate", 24000), device=device)
+                sample_rate=spec.get("sample_rate", 24000), mode=mode,
+                device=device)
         cfg = TTSInputConfig(
             engine=spec["engine"],
             language=spec.get("language", "en-us"),
@@ -89,7 +92,8 @@ class TextToSpeechInterface:
             noise_scale=spec.get("noise_scale", 0.667),
             length_scale=spec.get("length_scale", 1.0),
             noise_w=spec.get("noise_w", 0.8))
-        iface = cls(bundle.models[spec["model"]], cfg, device=device)
+        iface = cls(bundle.models[spec["model"]], cfg, mode=mode,
+                    device=device)
         ve = bundle.meta.get("voice_embeddings")
         if ve:
             iface.voice_names = sorted(ve)
@@ -141,8 +145,10 @@ class F5Synthesizer:
 
     def __init__(self, preprocess: Model, transformer: Model, decode: Model,
                  vocab: Dict[str, int], nfe_steps: int = 32,
-                 sample_rate: int = 24000, device=None):
-        self.device = resolve_device(device)
+                 sample_rate: int = 24000, mode: str = "torch",
+                 device=None):
+        self.device = mode_device(mode, device)
+        self.mode = mode
         self.preprocess = preprocess
         self.transformer = transformer
         self.decode = decode
@@ -154,7 +160,7 @@ class F5Synthesizer:
     def _backend(self, model: Model) -> EvalBackend:
         be = self._backends.get(model.id)
         if be is None:
-            be = self._backends[model.id] = EvalBackend("torch",
+            be = self._backends[model.id] = EvalBackend(self.mode,
                                                         device=self.device)
         return be
 

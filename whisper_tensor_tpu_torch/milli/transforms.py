@@ -84,11 +84,17 @@ def quantize_matmul_weights(
     weight_names: Sequence[str],
     weight_getter,
     min_elements: int = 1 << 16,
+    precomputed: Optional[Dict[str, Tuple]] = None,
 ) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
     """Mutate `milli`: every MatMul whose RHS is a 2-D weight input from
     `weight_names` (and large enough to matter) becomes QuantMatMul with
     an extra `<name>::scale` input. Returns {name: (w_i8, scale)} —
     callers feed w_i8 under the original name and scale under the new.
+
+    precomputed: apply the SAME surgery to a second graph built from the
+    same recipe without touching the dense weights again: exactly the
+    names present get QuantMatMul, reusing the given (w_i8, scale), host
+    arrays or device tensors, so both graphs share one weight set.
     """
     from .ops import MatMul   # (milli.ops imports this module)
 
@@ -106,12 +112,19 @@ def quantize_matmul_weights(
                 break
         if rhs_name is None:
             continue
-        w = np.asarray(weight_getter(rhs_name))
-        if w.ndim != 2 or w.size < min_elements:
-            continue
-        if rhs_name not in quantized:
-            quantized[rhs_name] = quantize_int8(w.astype(np.float32))
-            scale_tid[rhs_name] = milli.add_input(f"{rhs_name}::scale")
+        if precomputed is not None:
+            if rhs_name not in precomputed:
+                continue
+            if rhs_name not in quantized:
+                quantized[rhs_name] = precomputed[rhs_name]
+                scale_tid[rhs_name] = milli.add_input(f"{rhs_name}::scale")
+        else:
+            w = np.asarray(weight_getter(rhs_name))
+            if w.ndim != 2 or w.size < min_elements:
+                continue
+            if rhs_name not in quantized:
+                quantized[rhs_name] = quantize_int8(w.astype(np.float32))
+                scale_tid[rhs_name] = milli.add_input(f"{rhs_name}::scale")
         node.op = QuantMatMulMilli()
         node.inputs = [node.inputs[0], rhs, scale_tid[rhs_name]]
     return quantized

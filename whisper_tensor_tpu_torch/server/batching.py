@@ -154,6 +154,10 @@ class ContinuousBatcher:
                 model, max_len=max_len, cache_dtype=cache_dtype,
                 prompt_buckets=prompt_buckets, quantize=quantize,
                 device=device)
+        if self.iface.logits_last_only:
+            # admission reads each row's own last position, a chunked
+            # prefill's a piece's
+            raise self.iface._last_only_refusal("the batcher's admission")
         if adapters:
             # per-row adapter selection: submit(..., adapter=<name>)
             self.iface.install_adapters(adapters)

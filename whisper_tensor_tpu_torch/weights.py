@@ -20,7 +20,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from .dtype import DType, to_device
+from .dtype import DType, to_device, to_torch
 
 
 def carry_weights(arrays: Mapping[str, np.ndarray],
@@ -29,12 +29,17 @@ def carry_weights(arrays: Mapping[str, np.ndarray],
     """{name: host array} + {name: declared DType} -> {name: tensor}.
 
     A float array whose host type differs from its declared DType (BF16
-    held as float32 where ml_dtypes is missing) is cast on the device."""
+    held as float32 where ml_dtypes is missing) is cast on the device. A
+    tensor already on `device` in its declared type is taken as it is
+    (an interface's int8 weights shared with a sibling's)."""
     if set(arrays) != set(dtypes):
         raise ValueError(
             f"weights and declared dtypes name different tensors: "
             f"{sorted(set(arrays) ^ set(dtypes))[:8]}")
-    return {n: to_device(a, device, dtypes[n]) for n, a in arrays.items()}
+    return {n: (a.to(device, to_torch(dtypes[n]))
+                if isinstance(a, torch.Tensor)
+                else to_device(a, device, dtypes[n]))
+            for n, a in arrays.items()}
 
 
 def carry_arrays(arrays: Mapping[str, np.ndarray], dtype: DType,
