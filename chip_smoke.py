@@ -7,7 +7,8 @@
                           [--speech-only] [--media-only] [--gguf-only]
                           [--parallel-only] [--train-parallel-only]
                           [--onnx-only] [--examples-only] [--lora-only]
-                          [--long-context-only] [--plans]
+                          [--long-context-only] [--windows-only]
+                          [--plans]
 
 Run from the root of a checkout on a machine with one NVIDIA Hopper GPU
 and the CUDA toolkit (nvcc). It imports nothing of JAX or of the JAX
@@ -492,6 +493,40 @@ Phases:
      each flash call's first and last 128 rows; a shorter prompt than its
      bucket refused with a ValueError naming logits_last_only. It prints
      a JSON line of its readings and the result line.
+  24. windowed decode (`--windows-only`, after the build; not in the
+     default run, for its time limit). (e) The five kernels at the
+     window shapes, each held against its plain version and timed beside
+     its bound and a library call: flash_attention pos-bound over the
+     first window's 256 keys, decode_attention in the 256 and 1,024
+     windows and over 16,384 slots at the same positions, int8_matmul
+     and packed_matmul at B 8, the decode step's and a bucket-512
+     admission's cache-write pairs and ragged_kv_write (bit for bit).
+     Then Llama-3-8B widths at 4 layers on seeded weights
+     (write_checkpoint), int8, a bf16 cache: (a) the transformers loader
+     with decode_windows=256,1024 at max_len 16,384, the windowed
+     interface and a flat one on its device weights, B 8 prompts of 100
+     tokens and 200 greedy tokens: the tokens (win_agree: equal up to
+     each row's first difference, a near tie in bf16 since the kernels
+     split keys by the cache's length, and standing a teacher-forced
+     prefill), TTFT, decode ms a step,
+     peak card GB, each upload's card bytes (the windowed one no more
+     than the flat weight set), launches against the lowering's eligible
+     calls (every counter 0 just before, read just after), then a rerun
+     with every kernel call held against its plain version (the cache
+     pairs bit for bit); (b) bench.py:544-562's serving arm: ragged graphs
+     at max_len 8,192, bucket windows 16-512, 16 requests of 10-500
+     tokens at once through the batcher with window admission and again
+     without, each answer against the other, the sequential direct path
+     and a teacher-forced prefill, the card's peak above the weights and
+     slots, tok/s, the admissions' cache lengths; (c) one OpenAI
+     completion and one `cli generate` over the windowed bundle, equal to
+     (a)'s text; (d) phase 6b's smoke GGUF with decode_windows, packed:
+     windowed tokens against flat (win_agree), packed_matmul launches
+     equal the
+     lowering's calls, a shadowed rerun with packed_matmul's calls too.
+     It also runs phase 2's int8_matmul_dx (not on this path) for the
+     kernels' line, and prints a JSON line of its readings and the result
+     line.
 Each step prints its seconds, the peak host RSS and its peak bytes on
 the card. The last three lines are the kernels' JSON summary line, the
 card, and the result line.
@@ -11336,6 +11371,867 @@ def phase23(torch, np, results) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: windowed decode on one card (--windows-only). Llama-3-8B's
+# published widths (WIDTHS) at WIN_LAYERS layers (depth cut for host
+# time only), int8 weights, a bf16 cache, seeded weights (write_checkpoint)
+WIN_LAYERS = 4
+WIN_MAX_LEN = 16384          # (a), (c), (d): the flat interface's cache
+WIN_WINDOWS = (256, 1024)    # the loader option decode_windows=256,1024
+WIN_BATCH, WIN_PROMPT, WIN_NEW = 8, 100, 200
+# (b): bench.py:544-562's serving arm, pos_per_row graphs at max_len
+# 8,192 and bucket-sized window graphs for the admission
+WIN_SERVE_LEN = 8192
+WIN_BUCKETS = (16, 32, 64, 128, 256, 512)
+WIN_REQUESTS, WIN_SERVE_NEW = 16, 32
+WIN_TEXT = "The capital of France is"
+
+
+def win_kernels(torch, results) -> None:
+    """(e) The five kernels at the windowed path's shapes, each held
+    against its plain version on the same inputs and timed beside its
+    bound and a library call: flash_attention pos-bound as the prefill
+    inside the first window (B 8 x 128 rows over 256 keys), decode_attention
+    over the 256 and 1,024 windows and, at the same positions, over the
+    flat interface's 16,384 slots, int8_matmul and packed_matmul (Q4_K)
+    at B 8 on the fused gate/up shape, the decode step's cache-write
+    pair into a 1,024 window (bit for bit) and an admission's pair of 16
+    rows x 512 (a bucket-512 window's caches), ragged_kv_write at the
+    decode shape."""
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda.decode_attention import (
+        decode_attention, decode_attention_plain, decode_splits)
+    from whisper_tensor_tpu_torch.backends.cuda.flash_attention import (
+        flash_agreement_bound, flash_attention, flash_attention_plain,
+        flash_splits)
+    from whisper_tensor_tpu_torch.backends.cuda.kv_write import (
+        kv_write_pair, kv_write_pair_plain, ragged_kv_write,
+        ragged_kv_write_plain)
+    from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+        packed_matmul, packed_matmul_plain)
+    from whisper_tensor_tpu_torch.backends.cuda.quant_matmul import (
+        int8_matmul, int8_matmul_plain)
+
+    dev = torch.device("cuda")
+    card = torch.cuda.current_device()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    B, Hq, Hkv, D = (WIN_BATCH, WIDTHS["num_attention_heads"],
+                     WIDTHS["num_key_value_heads"], 128)
+    scale = 1.0 / math.sqrt(D)
+    rows = {}
+    say("phase 24 (e): the kernels at the windowed path's shapes "
+        "(tolerance per element: agreement_bound, flash_agreement_bound; "
+        "the writes bit for bit)")
+
+    # the prefill inside the first window: 128 rows (the bucket of a
+    # 100-token prompt) over the 256 window's keys
+    Sq, Skv = 128, WIN_WINDOWS[0]
+    sets = []
+    for _ in range(copies_for(2 * B * Hkv * Skv * D * 2)):
+        sets.append((torch.randn(B, Sq, Hq, D, generator=gen,
+                                 device=dev).bfloat16().transpose(1, 2),
+                     *(torch.randn(B, Hkv, Skv, D, generator=gen,
+                                   device=dev).bfloat16() for _ in range(2)),
+                     torch.zeros((), dtype=torch.int64, device=dev)))
+
+    def flash(q, k, v, pos):
+        return flash_attention(q, k, v, scale, pos_bound=pos)
+
+    def flash_plain(q, k, v, pos):
+        return flash_attention_plain(q, k, v, scale, pos_bound=pos)
+
+    q, k, v, pos = sets[0]
+    err, share = worst_share(flash(*sets[0]), flash_plain(*sets[0]),
+                             flash_attention_plain(q, k, v.abs(), scale,
+                                                   pos_bound=pos),
+                             flash_agreement_bound)
+    ms = time_ms(torch, flash, sets)
+    plain_ms = time_ms(torch, flash_plain, sets)
+    dense = (torch.arange(Skv, device=dev)
+             <= torch.arange(Sq, device=dev)[:, None])[None, None]
+    libs = [(sdpa_gqa(torch, q_, k_, v_, dense, scale),)
+            for q_, k_, v_, _ in sets]
+    lib_ms = time_ms(torch, lambda f: f(), libs)
+    pairs, kv_bytes = flash_work(torch, "pos", B, Hq, Hkv, Sq, Skv, D,
+                                 {"pos_bound": pos})
+    bms, bby = bound(2 * B * Hq * Sq * D * 2 + kv_bytes, 4 * D * Hq * pairs)
+    splits, _ = flash_splits(B, Hq, Hkv, Sq, Skv, D, card)
+    say(f"  flash_attention pos-bound B={B} Hq/Hkv={Hq}/{Hkv} Sq={Sq} "
+        f"Skv={Skv} D={D} ({splits} key splits): max_abs_err={err:.6g}, "
+        f"worst err/tol {share:.4g}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA (a boolean mask) {lib_ms:.4f} ms, bound "
+        f"{bms:.5f} ms ({bby})")
+    if not share <= 1.0:
+        fail(f"flash_attention at the first window's prefill disagrees with "
+             f"its plain version: err/tol {share}")
+    rows["flash_attention"] = dict(
+        shape=f"pos-bound B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={Skv} D={D}",
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+        bound_by=bby, max_abs_err=err)
+    del sets, libs, q, k, v, dense
+    torch.cuda.empty_cache()
+
+    # decode in each window, the rows at positions inside the window,
+    # and at the same positions in the flat interface's 16,384 slots
+    # (decode_splits cuts keys by the cache's length)
+    shapes = {}
+    for L in WIN_WINDOWS + (WIN_MAX_LEN,):
+        pos_list = [min(L - 1, WIN_PROMPT + 37 * b) for b in range(B)]
+        sets = []
+        for _ in range(copies_for(2 * B * Hkv * L * D * 2)):
+            sets.append((torch.randn(B, Hq, 1, D, generator=gen,
+                                     device=dev).bfloat16(),
+                         *(torch.randn(B, Hkv, L, D, generator=gen,
+                                       device=dev).bfloat16()
+                           for _ in range(2)),
+                         torch.tensor(pos_list, device=dev), scale))
+        q, k, v, pos, _ = sets[0]
+        err, share = worst_share(
+            decode_attention(*sets[0]), decode_attention_plain(*sets[0]),
+            decode_attention_plain(q.float(), k, v.abs(), pos, scale),
+            agreement_bound)
+        ms = time_ms(torch, decode_attention, sets)
+        plain_ms = time_ms(torch, decode_attention_plain, sets)
+        live = torch.arange(L, device=dev) <= pos[:, None]
+        libs = [(sdpa_gqa(torch, q_, k_, v_, live[:, None, None, :],
+                          scale),) for q_, k_, v_, _, _ in sets]
+        lib_ms = time_ms(torch, lambda f: f(), libs)
+        n_live = int(live.sum())
+        bms, bby = bound(2 * B * Hq * D * 2 + 2 * Hkv * n_live * D * 2,
+                         4 * Hq * D * n_live)
+        splits, chunk = decode_splits(B, Hq, Hkv, L, D, card)
+        say(f"  decode_attention B={B} Hq/Hkv={Hq}/{Hkv} D={D} L={L} "
+            f"pos={pos_list} ({splits} splits of {chunk} keys): "
+            f"max_abs_err={err:.6g}, worst err/tol {share:.4g}; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+            f"bound {bms:.5f} ms ({bby})")
+        if not share <= 1.0:
+            fail(f"decode_attention over {L} slots disagrees with its "
+                 f"plain version: err/tol {share}")
+        shapes[f"L={L}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                bound_ms=bms, bound_by=bby,
+                                max_abs_err=err, splits=splits)
+        del sets, libs, q, k, v, live
+        torch.cuda.empty_cache()
+    rows["decode_attention"] = dict(
+        shapes[f"L={WIN_WINDOWS[-1]}"], shapes=shapes,
+        shape=f"B={B} Hq={Hq} Hkv={Hkv} D={D} L={WIN_WINDOWS[-1]}")
+
+    # the products at B 8 on the fused gate/up shape
+    K, N = WIDTHS["hidden_size"], 2 * WIDTHS["intermediate_size"]
+    sets = [(torch.randn(B, K, generator=gen, device=dev).bfloat16(),
+             torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                           dtype=torch.int8),
+             torch.rand(N, generator=gen, device=dev) * 1e-3 + 1e-4)
+            for _ in range(copies_for(K * N))]
+    x, w, s = sets[0]
+    err, share = worst_share(int8_matmul(x, w, s), int8_matmul_plain(x, w, s),
+                             int8_matmul_plain(x.float().abs(), w.abs(), s),
+                             agreement_bound)
+    ms = time_ms(torch, int8_matmul, sets)
+    plain_ms = time_ms(torch, int8_matmul_plain, sets)
+    try:
+        libs = [(int8pack_call(torch, *a),) for a in sets]
+        lib_ms = time_ms(torch, lambda f: f(), libs)
+        del libs
+    except (RuntimeError, NotImplementedError):
+        lib_ms = None
+    bms, bby = bound(B * K * 2 + K * N + N * 4 + B * N * 2, 2 * B * K * N)
+    say(f"  int8_matmul M={B} K={K} N={N}: max_abs_err={err:.6g}, worst "
+        f"err/tol {share:.4g}; kernel {ms:.4f} ms ({bms / ms:.1%} of the "
+        f"bound), plain {plain_ms:.4f} ms, _weight_int8pack_mm {lib_ms} ms, "
+        f"bound {bms:.5f} ms ({bby})")
+    if not share <= 1.0:
+        fail(f"int8_matmul at M={B} disagrees with its plain version")
+    rows["int8_matmul"] = dict(shape=f"M={B} K={K} N={N}", ms=ms,
+                               plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bms, bound_by=bby, max_abs_err=err)
+    del sets, x, w, s
+    sets = [(torch.randn(B, K, generator=gen, device=dev).bfloat16(),
+             *random_packed(torch, gen, 4, 32, True, K, N), 4, True)
+            for _ in range(copies_for(K * N // 2))]
+    x, q, s, o, bits, has_off = sets[0]
+    err, share = worst_share(
+        packed_matmul(*sets[0]), packed_matmul_plain(*sets[0]),
+        packed_magnitude(torch, x, q, s, o, bits, has_off), agreement_bound)
+    ms = time_ms(torch, packed_matmul, sets)
+    plain_ms = time_ms(torch, packed_matmul_plain, sets)
+    try:
+        libs = [(int4pack_call(torch, a[0], a[1], a[2], a[3], 32),)
+                for a in sets]
+        lib_ms = time_ms(torch, lambda f: f(), libs)
+        del libs
+    except (RuntimeError, NotImplementedError):
+        lib_ms = None
+    bms, bby = bound(B * K * 2 + K * N // 2 + 2 * (K // 32) * N * 4
+                     + B * N * 2, 2 * B * K * N)
+    say(f"  packed_matmul Q4_K layout (bits 4, groups of 32, offsets) M={B} "
+        f"K={K} N={N}: max_abs_err={err:.6g}, worst err/tol {share:.4g}; "
+        f"kernel {ms:.4f} ms ({bms / ms:.1%} of the bound), plain "
+        f"{plain_ms:.4f} ms, _weight_int4pack_mm {lib_ms} ms, bound "
+        f"{bms:.5f} ms ({bby})")
+    if not share <= 1.0:
+        fail(f"packed_matmul at M={B} disagrees with its plain version")
+    rows["packed_matmul"] = dict(shape=f"Q4_K M={B} K={K} N={N}", ms=ms,
+                                 plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=bms, bound_by=bby,
+                                 max_abs_err=err)
+    del sets, x, q, s, o
+    torch.cuda.empty_cache()
+
+    # the cache writes: a decode step's pair into the 1,024 window (the
+    # direct path's scalar start), an admission's 16 rows x 512 into a
+    # bucket window (per-row starts), one cache at the decode shape
+    L = WIN_WINDOWS[-1]
+    for label, k_, S, Lc, start in (
+            ("decode pair", B, 1, L,
+             torch.tensor(WIN_PROMPT + 57, device=dev)),
+            ("admission pair", WIN_REQUESTS, 512, 512,
+             torch.zeros(WIN_REQUESTS, dtype=torch.int64, device=dev))):
+        sets = [tuple(torch.randn(k_, Hkv, n, D, generator=gen,
+                                  device=dev).bfloat16()
+                      for n in (Lc, S, Lc, S)) + (start,)
+                for _ in range(copies_for(2 * k_ * Hkv * Lc * D * 2))]
+        ck, uk, cv, uv, pos = sets[0]
+        want = kv_write_pair_plain(ck.clone(), uk, cv.clone(), uv, pos)
+        got = kv_write_pair(ck, uk, cv, uv, pos)
+        exact = all(torch.equal(g.view(torch.int16), w_.view(torch.int16))
+                    for g, w_ in zip(got, want))
+        del want, got
+        ms = time_ms(torch, kv_write_pair, sets)
+        plain_ms = time_ms(torch, kv_write_pair_plain, sets)
+        p0 = int(start.reshape(-1)[0])
+
+        def two_copies(ck, uk, cv, uv, pos, p0=p0, S=S):
+            ck[:, :, p0:p0 + S].copy_(uk)
+            cv[:, :, p0:p0 + S].copy_(uv)
+
+        lib_ms = time_ms(torch, two_copies, sets)
+        bms, bby = bound(2 * 2 * k_ * Hkv * S * D * 2, 0)
+        say(f"  kv_write_pair {label} B={k_} H={Hkv} S={S} into L={Lc}: "
+            f"{'bit for bit' if exact else 'DIFFERENT'} against the plain "
+            f"version over both caches; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, two slice copies {lib_ms:.4f} ms, bound "
+            f"{bms:.5f} ms ({bby})")
+        if not exact:
+            fail(f"kv_write_pair ({label}) is not its plain version's write")
+        rows.setdefault("kv_write_pair", dict(
+            shape=f"{label} B={k_} H={Hkv} S={S} L={Lc}", ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+            bound_by=bby, max_abs_err=0.0, shapes={}))
+        rows["kv_write_pair"]["shapes"][label] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms)
+        del sets, ck, uk, cv, uv
+        torch.cuda.empty_cache()
+    sets = [(torch.randn(B, Hkv, L, D, generator=gen, device=dev).bfloat16(),
+             torch.randn(B, Hkv, 1, D, generator=gen, device=dev).bfloat16(),
+             torch.tensor([WIN_PROMPT + 7 * b for b in range(B)],
+                          device=dev))
+            for _ in range(copies_for(B * Hkv * L * D * 2))]
+    c, u, pos = sets[0]
+    exact = torch.equal(ragged_kv_write(c.clone(), u, pos).view(torch.int16),
+                        ragged_kv_write_plain(c.clone(), u, pos).view(
+                            torch.int16))
+    ms = time_ms(torch, ragged_kv_write, sets)
+    plain_ms = time_ms(torch, ragged_kv_write_plain, sets)
+    # the library call: one scatter_ along the cache axis, its index
+    # (B, H, 1, D) built first (the positions are inside the window)
+    lsets = [(c_, p_[:, None, None, None].expand(B, Hkv, 1, D).contiguous(),
+              u_) for c_, u_, p_ in sets]
+    lib_ms = time_ms(torch, lambda c_, i_, u_: c_.scatter_(2, i_, u_),
+                     lsets)
+    bms, bby = bound(2 * B * Hkv * D * 2, 0)
+    say(f"  ragged_kv_write B={B} H={Hkv} S=1 into L={L}: "
+        f"{'bit for bit' if exact else 'DIFFERENT'}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, scatter_ {lib_ms:.4f} ms, bound "
+        f"{bms:.5f} ms ({bby})")
+    if not exact:
+        fail("ragged_kv_write at the window's decode shape is not its plain "
+             "version's write")
+    rows["ragged_kv_write"] = dict(
+        shape=f"B={B} H={Hkv} S=1 L={L}", ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=bms, bound_by=bby, max_abs_err=0.0)
+    del sets, lsets, c, u
+    torch.cuda.empty_cache()
+    sources = {
+        "flash_attention": ("flash_attention.cu",
+                            "backends/pallas/attention.py:175"),
+        "decode_attention": ("decode_attention.cu",
+                             "backends/pallas/decode_attention.py:179"),
+        "int8_matmul": ("int8_matmul.cu",
+                        "backends/pallas/quant_matmul.py:68"),
+        "packed_matmul": ("packed_matmul.cu",
+                          "backends/pallas/packed_matmul.py:278"),
+        "kv_write_pair": ("kv_write.cu", "backends/pallas/kv_write.py:104"),
+        "ragged_kv_write": ("kv_write.cu",
+                            "backends/pallas/kv_write.py:104")}
+    for name, (src, rep) in sources.items():
+        results.append({"name": name, "route": "cuda",
+                        "source": "whisper_tensor_tpu_torch/csrc/" + src,
+                        "replaces": "whisper_tensor_tpu/" + rep,
+                        "launches": None, **rows[name]})
+
+
+def win_agree(torch, np, what: str, flat, prompt, got, want) -> dict:
+    """Windowed greedy tokens `got` against the flat interface's `want`,
+    row by row. The kernels split a row's keys by the cache's length
+    (decode_splits, flash_splits), so the windowed and the flat decode
+    add the same terms in different orders and round apart in bf16; they
+    can pick different tokens where two logits nearly tie. So, as
+    spec_agreement holds speculative decoding: the tokens equal up to
+    each row's first difference, where the flat run (its per-step
+    logits) must rate the windowed token within twice the decode bound
+    (1.5% of max|logit| per sqrt(layer)) of its own pick; and every
+    windowed token must stand a teacher-forced prefill over prompt and
+    answer through the flat interface (its logit within the bound of
+    the step's largest). A window graph that read or wrote the caches
+    at a wrong place breaks both. Returns the readings."""
+    frac = 0.015 * math.sqrt(WIN_LAYERS)
+    first = []
+    for b in range(got.shape[0]):
+        diff = np.nonzero(got[b] != want[b])[0]
+        first.append(int(diff[0]) if diff.size else got.shape[1])
+    out = {"equal": sum(f == got.shape[1] for f in first),
+           "rows": got.shape[0], "first": first, "tie": 0.0,
+           "teacher": 0.0}
+    if out["equal"] != out["rows"]:
+        _, logits = flat.generate_with_logits(prompt, got.shape[1])
+        for b, i in enumerate(first):
+            if i < got.shape[1]:
+                row = logits[b, i]
+                out["tie"] = max(out["tie"], float(
+                    row[want[b, i]] - row[got[b, i]]) / (
+                    2 * frac * float(np.abs(logits[b]).max())))
+        del logits
+    for b in range(got.shape[0]):
+        gaps, scale = teacher_gaps(torch, np, flat, prompt[b], got[b])
+        out["teacher"] = max(out["teacher"],
+                             float(gaps.max()) / (frac * scale))
+    say(f"  {what}: windowed tokens equal to the flat interface's in "
+        f"{out['equal']} of {out['rows']} rows ({got.shape[1]} tokens a "
+        f"row; each row's first difference at {first}); at the first "
+        f"difference the flat run's margin over the windowed token "
+        f"{out['tie']:.4g} of its bound (2 x {frac:.1%} of max|logit|); "
+        f"against teacher-forced prefills worst {out['teacher']:.4g} of "
+        f"the bound ({frac:.1%})")
+    if not (out["tie"] <= 1.0 and out["teacher"] <= 1.0):
+        fail(f"{what}: windowed greedy tokens part from the flat decode "
+             f"away from a near tie, or do not stand a teacher-forced "
+             f"prefill")
+    return out
+
+
+def win_run(torch, np, iface, prompt, n_new: int, label: str, spy, qspy,
+            results) -> dict:
+    """One interface on `prompt`: a warm run (every step graph's plan),
+    TTFT (the median of 3 runs of generate_tokens(prompt, 1)), 3 timed
+    runs of n_new tokens (decode ms a step: their median less the TTFT
+    over n_new - 1 steps) with the card's peak GB above what was
+    allocated before them, then a counted run (every kernel's launches
+    against the lowering's eligible calls)."""
+    iface.generate_tokens(prompt, n_new)
+    ttft, totals = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        iface.generate_tokens(prompt, 1)
+        ttft.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        toks = iface.generate_tokens(prompt, n_new)
+        totals.append(time.perf_counter() - t0)
+    total = statistics.median(totals)
+    peak = torch.cuda.max_memory_allocated()
+    _, launches = counted(lambda: iface.generate_tokens(prompt, n_new), spy,
+                          qspy, label, results, key="launches_phase24")
+    out = {"ttft_ms": statistics.median(ttft) * 1e3,
+           "step_ms": (total - statistics.median(ttft)) * 1e3
+           / max(n_new - 1, 1),
+           "tok_s": prompt.shape[0] * n_new / total,
+           "peak_gb": peak / 1e9, "peak_above_gb": (peak - base) / 1e9,
+           "launches": launches, "tokens": toks}
+    say(f"  {label}: TTFT {out['ttft_ms']:.1f} ms (3 runs "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in ttft)}), decode "
+        f"{out['step_ms']:.2f} ms a step (runs of {n_new} tokens "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in totals)} ms), "
+        f"{out['tok_s']:.1f} tok/s "
+        f"({prompt.shape[0]} rows x {n_new}); peak {out['peak_gb']:.3f} GB "
+        f"on the card, {out['peak_above_gb']:.3f} GB above the "
+        f"{base / 1e9:.3f} GB allocated before the run")
+    return out
+
+
+def win_models(bundle) -> tuple:
+    """(the text spec's main Model, {window: Model}) of a bundle."""
+    spec = bundle.interfaces["text"]
+    wins = {int(w): bundle.models[m] for w, m in spec["windows"].items()}
+    return bundle.models[spec["model"]], wins
+
+
+def window_plan_bytes(iface) -> int:
+    """Card bytes the window executors hold in their plans (their
+    graphs' folded constants)."""
+    return sum(c.numel() * c.element_size()
+               for ex in iface._window_exec.values()
+               for plan in ex._plans.values() for c in plan.consts.values())
+
+
+def phase24_direct(torch, np, ckpt: Path, results) -> dict:
+    """(a) The direct path through the transformers loader with
+    decode_windows=256,1024 at max_len 16,384: the windowed interface and
+    a flat one on the same int8 weights (it takes the windowed one's
+    device tensors, share_weights), B 8 prompts of 100 tokens, 200 greedy
+    tokens: tokens (win_agree), TTFT, decode ms a step, peak card GB, the
+    card bytes
+    each upload added, launches; then a rerun with every kernel call held
+    against its plain version (Shadows)."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.loaders import loader_registry
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+    from whisper_tensor_tpu_torch.milli import transforms
+
+    out = {"card": card_line()}
+    t0 = time.perf_counter()
+    bundle = loader_registry()["transformers"].load({
+        "path": str(ckpt), "dtype": "bf16", "max_len": WIN_MAX_LEN,
+        "quantize": "int8",
+        "decode_windows": ",".join(map(str, WIN_WINDOWS))})
+    main, wins = win_models(bundle)
+    out["load_s"] = time.perf_counter() - t0
+    say(f"phase 24 (a): the transformers loader with decode_windows="
+        f"{','.join(map(str, WIN_WINDOWS))} at max_len {WIN_MAX_LEN}: "
+        f"{out['load_s']:.1f} s, windows {sorted(wins)}; host RSS "
+        f"{host_rss_gb():.1f} GB")
+    if sorted(wins) != list(WIN_WINDOWS):
+        fail(f"decode_windows built the windows {sorted(wins)}")
+    kw = dict(cache_dtype=DType.BF16, quantize="int8", device=CARD)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    win = TextInferenceInterface(main, WIN_MAX_LEN, window_models=wins, **kw)
+    win._weights()
+    torch.cuda.synchronize()
+    out["windowed_build_s"] = time.perf_counter() - t0
+    out["windowed_upload_gb"] = (torch.cuda.memory_allocated()
+                                 - before) / 1e9
+    before = torch.cuda.memory_allocated()
+    flat = TextInferenceInterface(main, WIN_MAX_LEN,
+                                  quantize_precomputed=win._quantized, **kw)
+    flat.share_weights(win)
+    torch.cuda.synchronize()
+    out["flat_upload_gb"] = (torch.cuda.memory_allocated() - before) / 1e9
+    mine, theirs = win._weights(), flat._weights()
+    out["flat_set_gb"] = sum(t.numel() * t.element_size()
+                             for t in theirs.values()) / 1e9
+    rope = [n for n in mine if n.startswith("rope_")]
+    out["rope_gb"] = sum(mine[n].numel() * mine[n].element_size()
+                         for n in rope) / 1e9
+    shared = all(mine[n].data_ptr() == theirs[n].data_ptr() for n in mine)
+    say(f"  the windowed interface: built and uploaded in "
+        f"{out['windowed_build_s']:.1f} s, its upload added "
+        f"{out['windowed_upload_gb']:.4f} GB to the card; the flat "
+        f"interface's weight set {out['flat_set_gb']:.4f} GB (its rope "
+        f"tables {out['rope_gb']:.4f} GB, {rope}), its upload added "
+        f"{out['flat_upload_gb']:.4f} GB (every weight the windowed one's "
+        f"device tensor: {shared})")
+    if (sorted(mine) != sorted(theirs) or not shared
+            or out["windowed_upload_gb"] > out["flat_set_gb"]
+            + out["rope_gb"] + 1e-3):
+        fail("the windowed interface uploaded more than the flat "
+             "interface's weight set, or the two do not share it")
+    rng = np.random.default_rng(SEED + 24)
+    prompt = rng.integers(3, BYTE_VOCAB, (WIN_BATCH, WIN_PROMPT)).astype(
+        np.int64)
+    spy, qspy = RouteSpy(), quant_spy(transforms)
+    try:
+        runs = {}
+        for label, iface in (("windowed", win), ("flat", flat)):
+            runs[label] = win_run(torch, np, iface, prompt, WIN_NEW,
+                                  f"(a) {label}", spy, qspy, results)
+            free_memory(torch)
+        out["window_plan_gb"] = window_plan_bytes(win) / 1e9
+        say(f"  the window executors' plans hold "
+            f"{out['window_plan_gb'] * 1e3:.3f} MB of folded constants")
+        out["agree"] = win_agree(torch, np, "(a)", flat, prompt,
+                                 runs["windowed"]["tokens"],
+                                 runs["flat"]["tokens"])
+        sh = Shadows()
+        try:
+            win.generate_tokens(prompt, WIN_NEW)
+        finally:
+            sh.close("(a) windowed, shadowed", runs["windowed"]["launches"])
+        out["shadowed_calls"] = {n: s.calls for n, s in sh.sh.items()}
+    finally:
+        spy.restore()
+        transforms.int8_matmul = qspy.inner
+    for label, r in runs.items():
+        out[label] = {k: v for k, v in r.items() if k != "tokens"}
+    w, f = runs["windowed"], runs["flat"]
+    say(f"  (a) windowed against flat: peak {w['peak_gb']:.3f} against "
+        f"{f['peak_gb']:.3f} GB ({w['peak_above_gb']:.3f} against "
+        f"{f['peak_above_gb']:.3f} GB above the weights), TTFT "
+        f"{w['ttft_ms']:.1f} against {f['ttft_ms']:.1f} ms, decode "
+        f"{w['step_ms']:.2f} against {f['step_ms']:.2f} ms a step on "
+        f"{card_line()}")
+    out["text"] = win.generate_tokens(
+        np.frombuffer(WIN_TEXT.encode(), np.uint8).astype(np.int64)[None]
+        + 3, WIN_SERVE_NEW)[0].tolist()
+    del win, flat, bundle, main, wins
+    free_memory(torch)
+    return out
+
+
+def serve_window_models(ckpt: Path, buckets) -> dict:
+    """bench.py:544-562's bucket windows: the llama recipe at max_len =
+    each bucket under max_len, pos_per_row, structure-only (zeros from
+    the checkpoint's headers), sharing no store yet."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.onnx_builder import WeightStorage
+    from whisper_tensor_tpu_torch.importers.recipes.llm.llama import (
+        LlamaConfig, build_llama_step)
+    from whisper_tensor_tpu_torch.importers.safetensors_io import (
+        SafetensorsStore)
+    from whisper_tensor_tpu_torch.model import Model
+
+    cfg = LlamaConfig(num_hidden_layers=WIN_LAYERS, **WIDTHS)
+    zeros = SafetensorsStore.from_dir(str(ckpt)).zeros_getter()
+    return {b: Model.new_from_onnx(build_llama_step(
+        zeros, cfg, max_len=b, dtype=DType.BF16, pos_per_row=True,
+        storage=WeightStorage.none()), name=f"llama-w{b}")
+        for b in buckets if b < WIN_SERVE_LEN}
+
+
+def serve_batch(torch, np, iface, prompts, label: str, spy, qspy,
+                results) -> dict:
+    """The prompts through a ContinuousBatcher over `iface` (16 slots,
+    one admission of all after a warm request): answers, tok/s, the
+    card's peak GB above the weights and slot caches, launches."""
+    from whisper_tensor_tpu_torch.server.batching import ContinuousBatcher
+
+    bat = ContinuousBatcher(None, max_len=WIN_SERVE_LEN,
+                            max_batch=WIN_REQUESTS, chunk=16, iface=iface,
+                            max_admit=64).start()
+    try:
+        bat.submit(prompts[0], 4).result(timeout=900)   # slot caches, plans
+        for p in prompts:                               # every bucket's plan
+            bat.submit(p, 2).result(timeout=900)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            t0 = time.perf_counter()
+            futs = [bat.submit(p, WIN_SERVE_NEW) for p in prompts]
+            res = [f.result(timeout=900) for f in futs]
+            return res, time.perf_counter() - t0
+
+        (answers, secs), launches = counted(run, spy, qspy, label, results,
+                                            key="launches_phase24")
+        peak = torch.cuda.max_memory_allocated()
+        st = bat.stats()
+    finally:
+        bat.stop()
+    out = {"tok_s": len(prompts) * WIN_SERVE_NEW / secs, "secs": secs,
+           "peak_above_gb": (peak - base) / 1e9, "peak_gb": peak / 1e9,
+           "launches": launches, "chunks": st["chunks_dispatched"],
+           "answers": answers}
+    say(f"  {label}: {len(prompts)} requests x {WIN_SERVE_NEW} tokens in "
+        f"{secs:.2f} s = {out['tok_s']:.1f} tok/s; peak {peak / 1e9:.3f} GB "
+        f"on the card, {out['peak_above_gb']:.3f} GB above the "
+        f"{base / 1e9:.3f} GB of weights and slot caches")
+    return out
+
+
+def phase24_batcher(torch, np, ckpt: Path, results) -> dict:
+    """(b) The batcher's window admission, built as bench.py:544-562
+    builds it: the checkpoint loaded with ragged_decode at max_len 8,192
+    (int8), bucket windows 16-512, 16 requests of 10-500 tokens submitted
+    at once, 32 greedy tokens each; the same requests through a batcher
+    over an interface without windows (admission caches k x 8,192) on
+    the same device weights, and each request alone on the direct path
+    (sequential). Every answer is held to a teacher-forced prefill."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.loaders import loader_registry
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+    from whisper_tensor_tpu_torch.milli import transforms
+
+    t0 = time.perf_counter()
+    bundle = loader_registry()["transformers"].load({
+        "path": str(ckpt), "dtype": "bf16", "max_len": WIN_SERVE_LEN,
+        "quantize": "int8", "ragged_decode": True})
+    model = bundle.models[bundle.interfaces["text"]["model"]]
+    wins = serve_window_models(ckpt, WIN_BUCKETS)
+    for wm in wins.values():
+        wm.graph.store = model.graph.store
+    kw = dict(cache_dtype=DType.BF16, prompt_buckets=WIN_BUCKETS,
+              quantize="int8", device=CARD)
+    win = TextInferenceInterface(model, WIN_SERVE_LEN, window_models=wins,
+                                 **kw)
+    win._weights()
+    flat = TextInferenceInterface(model, WIN_SERVE_LEN,
+                                  quantize_precomputed=win._quantized, **kw)
+    flat.share_weights(win)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0,
+           "windows": sorted(win._window_millis)}
+    say(f"phase 24 (b): the batcher's window admission; loader, "
+        f"{len(wins)} bucket windows {out['windows']} and both interfaces "
+        f"in {out['build_s']:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB on the card")
+    rng = np.random.default_rng(SEED + 240)
+    lengths = np.linspace(10, WIN_BUCKETS[-1] - 12, WIN_REQUESTS).astype(int)
+    prompts = [rng.integers(3, BYTE_VOCAB, (n,)).astype(np.int64)
+               for n in lengths]
+    spy, qspy = RouteSpy(), quant_spy(transforms)
+    admitted = []
+    inner = win.step
+
+    def step(ids, pos, caches, lora_idx=None, window=None):
+        if ids.shape[1] > 1:
+            admitted.append((ids.shape[0], ids.shape[1], window,
+                             caches[0].shape[2]))
+        return inner(ids, pos, caches, lora_idx, window)
+
+    win.step = step
+    try:
+        runs = {}
+        for label, iface in (("window admission", win),
+                             ("full-length admission", flat)):
+            runs[label] = serve_batch(torch, np, iface, prompts,
+                                      f"(b) {label}", spy, qspy, results)
+            free_memory(torch)
+        seq = [flat.generate_tokens(p[None], WIN_SERVE_NEW)[0]
+               for p in prompts]
+    finally:
+        del win.step
+        spy.restore()
+        transforms.int8_matmul = qspy.inner
+    say(f"  (b) the window admission's prefills (rows, bucket, window, "
+        f"cache length): {sorted(set(admitted))}")
+    if not any(w is not None and w == s and length == s
+               for _, s, w, length in admitted):
+        fail("(b) no admission prefilled in a bucket window")
+    a, f = runs["window admission"], runs["full-length admission"]
+    same_flat = sum(np.array_equal(x, y) for x, y in zip(a["answers"],
+                                                         f["answers"]))
+    same_seq = sum(np.array_equal(x, y) for x, y in zip(a["answers"], seq))
+    frac = 0.015 * math.sqrt(WIN_LAYERS)
+    worst = 0.0
+    for p, toks in zip(prompts, a["answers"]):
+        gaps, scale = teacher_gaps(torch, np, flat, p, toks)
+        worst = max(worst, float(gaps.max()) / (frac * scale))
+    out.update(same_as_full_admission=same_flat, same_as_sequential=same_seq,
+               teacher_worst=worst, admitted=sorted(set(admitted)))
+    for label, r in runs.items():
+        out[label] = {k: v for k, v in r.items() if k != "answers"}
+    say(f"  (b) answers with window admission: {same_flat} of "
+        f"{len(prompts)} equal to the full-length admission's, {same_seq} "
+        f"to the sequential direct path's; against teacher-forced prefills "
+        f"worst (max logit - emitted logit) {worst:.4g} of the bound "
+        f"({frac:.1%} of max|logit|); peak above the weights and slots "
+        f"{a['peak_above_gb']:.3f} GB with windows against "
+        f"{f['peak_above_gb']:.3f} GB without; {a['tok_s']:.1f} against "
+        f"{f['tok_s']:.1f} tok/s on {card_line()}")
+    if not worst <= 1.0:
+        fail("(b) a window-admitted answer disagrees with its "
+             "teacher-forced prefill")
+    del win, flat, bundle, model, wins
+    free_memory(torch)
+    return out
+
+
+def phase24_served(torch, np, ckpt: Path, want: list) -> dict:
+    """(c) One OpenAI completion and one `cli generate` from the
+    checkpoint loaded with decode_windows (the Server's text interface
+    takes the bundle's windows): the greedy text of (a)'s windowed
+    interface for WIN_TEXT."""
+    import contextlib
+    import io
+
+    from whisper_tensor_tpu_torch import cli
+    from whisper_tensor_tpu_torch.server.main import Server
+    from whisper_tensor_tpu_torch.server.openai_api import OpenAIApi
+    from whisper_tensor_tpu_torch.tokenizer import ByteTokenizer
+
+    toks = list(want)
+    if ByteTokenizer.EOS in toks:
+        toks = toks[:toks.index(ByteTokenizer.EOS)]
+    text = ByteTokenizer().decode(toks)
+    srv = Server()
+    t0 = time.perf_counter()
+    (entry, *rest) = srv.models.run_loader("transformers", {
+        "path": str(ckpt), "dtype": "bf16", "quantize": "int8",
+        "max_len": WIN_MAX_LEN,
+        "decode_windows": ",".join(map(str, WIN_WINDOWS))})
+    iface = srv._text_iface(entry)
+    api = OpenAIApi(srv, "127.0.0.1", 0).start()
+    try:
+        body = completion(api.port, {"prompt": WIN_TEXT, "temperature": 0,
+                                     "max_tokens": WIN_SERVE_NEW,
+                                     "model": entry.name})
+    finally:
+        api.stop()
+    got = body["choices"][0]["text"]
+    out = {"served_s": time.perf_counter() - t0,
+           "windows": sorted(iface._window_millis),
+           "models": [e.name for e in (entry, *rest)],
+           "http_equal": got == text}
+    say(f"phase 24 (c): the Server over the windowed bundle "
+        f"({out['models']}): its text interface's windows "
+        f"{out['windows']}; /v1/completions answered "
+        f"{body['usage']['completion_tokens']} tokens in "
+        f"{out['served_s']:.1f} s (load included), equal to (a)'s windowed "
+        f"text: {out['http_equal']}")
+    del iface, srv, entry, rest
+    free_memory(torch)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["generate", "--model", str(ckpt), "--prompt", WIN_TEXT,
+                  "--max-len", str(WIN_MAX_LEN), "--max-new-tokens",
+                  str(WIN_SERVE_NEW), "-c", "quantize=int8", "-c",
+                  "decode_windows=" + ",".join(map(str, WIN_WINDOWS))])
+    printed = buf.getvalue()
+    out["cli_s"] = time.perf_counter() - t0
+    out["cli_equal"] = printed.rstrip("\n") == text
+    say(f"  `cli generate -c decode_windows=...`: {out['cli_s']:.1f} s "
+        f"(load included), its text equal to (a)'s windowed text: "
+        f"{out['cli_equal']}")
+    if sorted(out["windows"]) != list(WIN_WINDOWS) or not (
+            out["http_equal"] and out["cli_equal"]):
+        fail(f"(c) the served windowed bundle answered {got!r} over HTTP "
+             f"and {printed!r} from the CLI for (a)'s {text!r}, or its "
+             f"windows are {out['windows']}")
+    free_memory(torch)
+    return out
+
+
+def phase24_gguf(torch, np, path: Path, results) -> dict:
+    """(d) Phase 6b's smoke GGUF (Q4_K/Q6_K, llama.cpp's Q/K order)
+    through the gguf loader with decode_windows at max_len 16,384,
+    packed: the windowed and the flat interface (sharing the packed
+    device weights) on B 8 prompts of 100 tokens, their greedy tokens
+    held by win_agree; packed_matmul launches equal the lowering's
+    calls; a rerun
+    with every kernel call, packed_matmul's too, held against its plain
+    version."""
+    from whisper_tensor_tpu_torch.backends.cuda import agreement_bound
+    from whisper_tensor_tpu_torch.backends.cuda.packed_matmul import (
+        packed_matmul)
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.importers.loaders import loader_registry
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+    from whisper_tensor_tpu_torch.milli import transforms
+
+    t0 = time.perf_counter()
+    bundle = loader_registry()["gguf"].load({
+        "path": str(path), "dtype": "bf16", "max_len": WIN_MAX_LEN,
+        "decode_windows": ",".join(map(str, WIN_WINDOWS))})
+    main, wins = win_models(bundle)
+    win = TextInferenceInterface(main, WIN_MAX_LEN, cache_dtype=DType.BF16,
+                                 window_models=wins, device=CARD)
+    win._weights()
+    flat = TextInferenceInterface(main, WIN_MAX_LEN, cache_dtype=DType.BF16,
+                                  device=CARD)
+    flat.share_weights(win)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t0, "windows": sorted(wins),
+           "packed": len(win._packed)}
+    say(f"phase 24 (d): the smoke GGUF with decode_windows: windows "
+        f"{out['windows']}, {out['packed']} packed weights, built and "
+        f"uploaded in {out['build_s']:.1f} s")
+    if sorted(wins) != list(WIN_WINDOWS) or not win._packed:
+        fail("(d) the GGUF bundle has no windows or no packed weights")
+    rng = np.random.default_rng(SEED + 2400)
+    prompt = rng.integers(3, BYTE_VOCAB, (WIN_BATCH, WIN_PROMPT)).astype(
+        np.int64)
+    spy, qspy, pspy = RouteSpy(), quant_spy(transforms), packed_spy(
+        transforms)
+    try:
+        toks = {}
+        for label, iface in (("windowed", win), ("flat", flat)):
+            iface.generate_tokens(prompt, WIN_NEW)
+            packed_matmul.launches, pspy.calls = 0, 0
+            toks[label], launches = counted(
+                lambda iface=iface: iface.generate_tokens(prompt, WIN_NEW),
+                spy, qspy, f"(d) GGUF {label}", results,
+                key="launches_phase24")
+            say(f"  (d) GGUF {label}: packed_matmul {packed_matmul.launches} "
+                f"launches for {pspy.calls} PackedMatMul calls of the "
+                f"lowering")
+            if pspy.calls <= 0 or packed_matmul.launches != pspy.calls:
+                fail(f"(d) {label}: packed_matmul launches against the "
+                     f"lowering's calls")
+            for res in results:
+                if res["name"] == "packed_matmul":
+                    d = res.setdefault("launches_phase24", {})
+                    d[f"(d) GGUF {label}"] = packed_matmul.launches
+            out[label] = {"launches": dict(
+                launches, packed_matmul=packed_matmul.launches)}
+        out["agree"] = win_agree(torch, np, "(d)", flat, prompt,
+                                 toks["windowed"], toks["flat"])
+        sh = Shadows()
+        psh = packed_shadow(torch, transforms, agreement_bound)
+        try:
+            win.generate_tokens(prompt, WIN_NEW)
+        finally:
+            transforms.packed_matmul = psh.inner
+            sh.close("(d) GGUF windowed, shadowed",
+                     out["windowed"]["launches"])
+        say(f"  (d) GGUF windowed, shadowed: {psh.calls} packed_matmul calls "
+            f"against the plain version: worst |err|/bound {psh.worst:.4g} "
+            f"(max |err| {psh.max_err:.5g})")
+        out["packed_shadow"] = {"calls": psh.calls, "worst": psh.worst,
+                                "max_err": psh.max_err}
+        if psh.calls <= 0 or not psh.worst <= 1.0:
+            fail("(d) a packed_matmul call of the shadowed rerun disagrees "
+                 "with its plain version")
+    finally:
+        transforms.packed_matmul = pspy.inner
+        spy.restore()
+        transforms.int8_matmul = qspy.inner
+    del win, flat, bundle, main, wins
+    free_memory(torch)
+    return out
+
+
+def phase24(torch, np, root: Path, bf16, results) -> dict:
+    """Phase 24 (--windows-only): (e) win_kernels, then on a
+    WIN_LAYERS-layer checkpoint at Llama-3-8B's widths (a) the direct
+    path, (b) the batcher's window admission, (c) HTTP and the CLI, then
+    (d) the smoke GGUF."""
+    win_kernels(torch, results)
+    out = {"card": card_line()}
+    ckpt = root / f"llama3-8b-widths-{WIN_LAYERS}L-windows"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        write_checkpoint(ckpt, WIN_LAYERS, np, bf16)
+        say(f"phase 24: wrote a {WIN_LAYERS}-layer Llama-3-8B-width "
+            f"checkpoint in {time.perf_counter() - t0:.1f} s")
+        out["a"] = phase24_direct(torch, np, ckpt, results)
+        out["b"] = phase24_batcher(torch, np, ckpt, results)
+        out["c"] = phase24_served(torch, np, ckpt, out["a"].pop("text"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    path = root / f"llama3-8b-widths-{WIN_LAYERS}L-windows.gguf"
+    try:
+        t0 = time.perf_counter()
+        write_smoke_gguf(path, WIN_LAYERS, np, bf16)
+        say(f"phase 24: wrote the smoke GGUF in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out["d"] = phase24_gguf(torch, np, path, results)
+    finally:
+        path.unlink(missing_ok=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=2,
@@ -11409,6 +12305,13 @@ def main() -> None:
                          "logits_last_only and without, sibling "
                          "interfaces sharing the int8 weights) alone "
                          "after the build")
+    ap.add_argument("--windows-only", action="store_true",
+                    help="run phase 24 (windowed decode: the kernels at "
+                         "the window shapes, then a 4-layer "
+                         "Llama-3-8B-width int8 model with "
+                         "decode_windows=256,1024 direct, the batcher's "
+                         "window admission, HTTP and the CLI, the smoke "
+                         "GGUF) alone after the build")
     ap.add_argument("--lora-only", action="store_true",
                     help="write the checkpoints and run phase 10 (l) "
                          "multi-LoRA serving, (n) the profiler and cli "
@@ -11557,6 +12460,25 @@ def main() -> None:
         say(json.dumps({"phase23": out}))
         say(json.dumps({"kernels": results}))
         say(f"{card_line()} (--long-context-only: phases 2-22 not run)")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
+    if args.windows_only:
+        try:
+            import ml_dtypes
+            bf16 = np.dtype(ml_dtypes.bfloat16)
+        except ImportError:
+            bf16 = None
+        out = step("phase 24 (windowed decode)", phase24, torch, np,
+                   ROOT / "build" / "smoke", bf16, results)
+        step("phase 2: int8_matmul_dx (not on this path: its row of the "
+             "kernels' line)", phase2_int8_dx, torch, results)
+        for res in results:
+            res["launches"] = sum(res.get("launches_phase24", {}).values())
+        say(json.dumps({"phase24": out}, default=str))
+        say(json.dumps({"kernels": results}))
+        say(f"{card_line()} (--windows-only: phases 2-23 not run)")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

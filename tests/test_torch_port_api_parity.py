@@ -40,15 +40,6 @@ ALLOWED = {
     "tensor:NumericTensor.to_backend": "jax-only: numpy or jax storage",
     "tensor:NumericTensor.raw": "jax-only: the numpy or jax array",
     "milli.ops.norm:jax_rsqrt": "jax-only: an XLA rsqrt",
-    # left out by design: windowed decode (a v5e KV-read trick)
-    "importers.lora:LoraMergedStore.meta": "by design: windowed decode",
-    "importers.lora:LoraMergedStore.zeros_getter":
-        "by design: windowed decode",
-    "importers.quantized:QuantizedStore.meta": "by design: windowed decode",
-    "importers.quantized:QuantizedStore.zeros_getter":
-        "by design: windowed decode",
-    "interfaces.text:TextInferenceInterface.window_cache_dims":
-        "by design: windowed decode",
 }
 
 PARAMS_ALLOWED = {
@@ -56,12 +47,6 @@ PARAMS_ALLOWED = {
     "interfaces.text:TextInferenceInterface(pad_batch_pow2)":
         "by design: pads a batch to a power of two, a v5e tiling cliff "
         "(ROADMAP, left out by design)",
-    "importers.recipes.llm.gguf_llama:build_from_gguf(storage)":
-        "by design: windowed decode (a structure-only build that a "
-        "window graph shares its weights through)",
-    "importers.recipes.llm.gguf_llama:build_from_gguf(zeros)":
-        "by design: windowed decode (a structure-only build that a "
-        "window graph shares its weights through)",
     "parallel.pipeline:pipeline_apply(stacked_params)":
         "by design: an eager rank takes its local blocks, cut by "
         "local_block (parallel/pipeline.py), as local_params",

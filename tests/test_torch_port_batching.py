@@ -14,8 +14,8 @@ the same ONNX bytes (the JAX package's recipe).
 
 Not mirrored here: the four multi-LoRA tests (test_batching.py:697-890;
 tests/test_torch_port_lora.py holds the port's adapters against the JAX
-package), window admission (:990; windowed decode is not ported)
-and the power-of-two cliff guard (:359; the port keeps max_batch as
+package), window admission (:990; tests/test_torch_port_windows.py
+mirrors it) and the power-of-two cliff guard (:359; the port keeps max_batch as
 configured).
 """
 

@@ -551,8 +551,9 @@ def test_gguf_loader_names_what_it_leaves_out(tmp_path):
     path = _write_gguf(tmp_path / "tiny.gguf", "qwen2", lambda n: F.Q4_0)
     gl = loader_registry()["gguf"]
     assert gl.can_load(path) and not gl.can_load(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="decode_windows"):
-        gl.load({"path": path, "decode_windows": "32"})
+    # decode_windows loads (tests/test_torch_port_windows.py serves it)
+    b = gl.load({"path": path, "max_len": MAX_LEN, "decode_windows": "32"})
+    assert list(b.interfaces["text"]["windows"]) == ["32"]
     # gemma, gemma2 and phi3 load (tests/test_torch_port_gemma_phi3.py)
     other = tmp_path / "gpt2.gguf"
     gguf.write_gguf(str(other), {"general.architecture": "gpt2"}, {})

@@ -23,6 +23,8 @@ import torch_parallel_world as tasks  # noqa: E402
 from torch_parallel_world import World  # noqa: E402
 from whisper_tensor_tpu.dtype import DType as JaxDType  # noqa: E402
 from whisper_tensor_tpu.importers.recipes.llm import gpt2 as jax_gpt2  # noqa: E402
+from whisper_tensor_tpu.importers.onnx_builder import (  # noqa: E402
+    WeightStorage as JaxStorage)
 from whisper_tensor_tpu.importers.recipes.llm import llama as jax_llama  # noqa: E402
 from whisper_tensor_tpu.interfaces.text import (  # noqa: E402
     TextInferenceInterface as JaxText, _bucket)
@@ -126,6 +128,38 @@ def test_gpt2_serving_matches_the_jax_package(request, dp, tp):
         assert g["kinds"]["AllReduce"] == 2 * 2 + 1
         assert g["kinds"]["AllGather"] == 1
         assert g["kinds"]["VocabGather"] == 1
+
+
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 1)])
+def test_windowed_serving_matches_the_jax_package(world2, dp, tp):
+    """Windowed decode (windows 16 and 32) over a mesh: each rank's
+    greedy tokens equal the JAX package's windowed tokens and the port's
+    flat ones, and the windows' caches are the rank's share (rows cut
+    over dp, heads over tp)."""
+    cfg = jax_gpt2.GPT2Config(n_layer=2, n_head=4, n_embd=64,
+                              vocab_size=256, n_positions=64)
+    weights = jax_gpt2.random_gpt2_weights(cfg, seed=3)
+    wins = {w: jax_gpt2.build_gpt2_step(
+        weights, cfg, max_len=w, dtype=JaxDType.F32,
+        storage=JaxStorage.none()) for w in (16, 32)}
+    onnx = _gpt2_onnx()
+    prompt = np.random.default_rng(19).integers(0, 256, (4, 6))
+    got = world2.run(tasks.windowed, onnx, wins, dp, tp, "GPT2_RULES",
+                     prompt, 40)
+    main = JaxModel.new_from_onnx(onnx)
+    models = {w: JaxModel.new_from_onnx(b) for w, b in wins.items()}
+    for m in models.values():
+        m.graph.store = main.graph.store
+    want = JaxText(main, max_len=64, prompt_buckets=(8,),
+                   cache_dtype=JaxDType.F32,
+                   window_models=models).generate_tokens(prompt, 40)
+    for rank, g in enumerate(got):
+        np.testing.assert_array_equal(g["tokens"], want,
+                                      err_msg=f"rank {rank}")
+        np.testing.assert_array_equal(g["flat"], want)
+        assert g["fallbacks"] == []
+        assert g["caches"] == [(4 // dp, 4 // tp, n, 16) for n in (16, 32,
+                                                                   64)]
 
 
 def test_sampled_tokens_agree_across_ranks(world2):

@@ -229,10 +229,25 @@ def test_penalties_and_logit_bias_token_exact(models):
 
 
 def test_unported_modes_raise(models):
+    """(Named when window_models raised "not ported": windowed decode is
+    served since; tests/test_torch_port_windows.py holds it.) A window
+    graph whose weight inputs are not the main graph's is refused, with
+    the JAX package's ValueError; so are an unknown quantize mode, a
+    mesh that is not a parallel.mesh.Mesh and adapters over int8."""
     m = models[DType.F32]
-    with pytest.raises(NotImplementedError, match="windowed"):
-        TextInferenceInterface(m, max_len=MAX_LEN, device="cpu",
-                               window_models={32: m})
+    other = build_llama_step(_weights, LlamaConfig(
+        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
+        hidden_size=E, intermediate_size=I, vocab_size=V, head_dim=D),
+        max_len=32)
+    for pkg, iface, model in (("jax", JaxTextInterface, JaxModel),
+                              ("port", TextInferenceInterface, Model)):
+        kw = {} if pkg == "jax" else {"device": "cpu"}
+        main = models[DType.F32] if pkg == "port" else models["jax",
+                                                              DType.F32]
+        with pytest.raises(ValueError, match="build all windows from one "
+                                             "recipe"):
+            iface(main, max_len=MAX_LEN, window_models={
+                32: model.new_from_onnx(other)}, **kw)
     with pytest.raises(ValueError, match="unknown quantize mode 'q2_k'"):
         TextInferenceInterface(m, max_len=MAX_LEN, device="cpu",
                                quantize="q2_k")

@@ -134,6 +134,41 @@ def serve(rank, n, onnx: bytes, dp: int, tp: int, rules: str, prompt,
             "comm_calls": it.mesh.comm_calls}
 
 
+def windowed(rank, n, onnx: bytes, wins: dict, dp: int, tp: int,
+             rules: str, prompt, n_new: int) -> dict:
+    """Greedy tokens of the sharded interface with window graphs ({size:
+    the recipe's structure-only ONNX at that max_len}, over the main
+    model's store) and without them, with the sharded cache lengths
+    each windowed step ran over."""
+    from whisper_tensor_tpu_torch.dtype import DType
+    from whisper_tensor_tpu_torch.interfaces.text import (
+        TextInferenceInterface)
+    from whisper_tensor_tpu_torch.model import Model
+    from whisper_tensor_tpu_torch.parallel import mesh as M
+
+    main = Model.new_from_onnx(onnx)
+    models = {}
+    for w, data in wins.items():
+        models[w] = Model.new_from_onnx(data)
+        models[w].graph.store = main.graph.store
+    kw = dict(max_len=64, prompt_buckets=(8,), cache_dtype=DType.F32,
+              mesh=M.make_mesh(dp=dp, tp=tp, device="cpu"),
+              shard_rules=getattr(M, rules), device="cpu")
+    it = TextInferenceInterface(main, window_models=models, **kw)
+    lengths = []
+    inner = it.step
+
+    def step(ids, pos, caches, lora_idx=None, window=None):
+        lengths.append(tuple(caches[0].shape))
+        return inner(ids, pos, caches, lora_idx, window)
+
+    it.step = step
+    toks = it.generate_tokens(prompt, n_new)
+    flat = TextInferenceInterface(main, **kw).generate_tokens(prompt, n_new)
+    return {"tokens": toks, "flat": flat, "caches": sorted(set(lengths)),
+            "fallbacks": list(it._tp.fallbacks)}
+
+
 def refused(rank, n, onnx: bytes, tp: int, rules: str) -> str:
     """The message of the ValueError a sharded interface raises."""
     try:

@@ -120,14 +120,16 @@ def _load_text(args, path=None, bundle=None):
     if iface_cfg is None:
         raise SystemExit("the port runs causal LMs only; this bundle has "
                          "no text interface")
-    if iface_cfg.get("windows"):
-        raise SystemExit("decode_windows is not ported to PyTorch yet")
     model = bundle.models[iface_cfg.get("model") or next(iter(bundle.models))]
+    # decode_windows: the bundle's window graphs (reference cli.py:77-82)
+    window_models = {int(w): bundle.models[mn]
+                     for w, mn in (iface_cfg.get("windows") or {}).items()}
     iface = TextInferenceInterface(
         model, max_len=int(iface_cfg.get("max_len", args.max_len)),
         cache_dtype=model.cache_dtype(),
         eos_token_id=iface_cfg.get("eos_token_id"),
-        quantize=iface_cfg.get("quantize") or None, device=args.device)
+        quantize=iface_cfg.get("quantize") or None,
+        window_models=window_models or None, device=args.device)
     iface.tokenizer = AnyTokenizer.load(args.tokenizer
                                         or bundle.tokenizer_source or "bytes")
     return iface, model.name

@@ -39,8 +39,14 @@ reference's loader names none). The `diffusers`
 loader builds the sd (SD-1.5, SD-2.x), sdxl, sd3 and flux image
 pipelines (:784-946), the `ldm` loader SD-1.x/2.x and SDXL single files
 (:949-1120). Left out, each raising: other model types and GGUF archs
-(ValueError, as the reference does for an unknown one) and
-`decode_windows` (NotImplementedError). `auto` probes the loaders in the
+(ValueError, as the reference does for an unknown one). `decode_windows`
+(`transformers`: GPT-2 and the llama family, :221-260, :474-485; `gguf`:
+every arch but phi3, :621-633; neither under ragged_decode) adds, for
+each window size below max_len, the recipe's step graph at that max_len
+built structure-only (zero weights from the store's zeros_getter, or
+build_from_gguf(zeros=True), under WeightStorage.none()) sharing the
+main model's TensorStore, and names them in the text spec's "windows"
+({size: model name}). `auto` probes the loaders in the
 reference's order: `ldm` (PRIORITY 11), then diffusers, piper, kokoro and
 f5 (10), then the rest as registered, `onnx` first. GPTQ/AWQ
 checkpoints load (importers/quantized.py): their quantized Linears run
@@ -61,6 +67,7 @@ from typing import Any, Dict, List, Optional
 
 from ..dtype import DType
 from ..model import Model
+from .onnx_builder import WeightStorage
 
 
 class ConfigFieldType(enum.Enum):
@@ -158,6 +165,27 @@ def _resolve_eos(d: str, hf_cfg: dict):
     return eos
 
 
+def _add_windows(models: Dict[str, Model], model: Model, name: str,
+                 max_len: int, config, build) -> Dict[str, str]:
+    """The `decode_windows` option (reference :474-485, :621-633): for
+    each size w in the comma-separated list with 0 < w < max_len, the
+    structure-only step graph `build(w)` as a Model sharing `model`'s
+    TensorStore, added to `models` as `<name>-w<w>`. Returns the text
+    spec's "windows", {str(w): model name}."""
+    spec = {}
+    for tok in str(config.get("decode_windows", "") or "").split(","):
+        if not tok.strip():
+            continue
+        w = int(tok.strip())
+        if not 0 < w < max_len:
+            continue
+        wm = Model.new_from_onnx(build(w), name=f"{name}-w{w}")
+        wm.graph.store = model.graph.store     # the weights are shared
+        models[wm.name] = wm
+        spec[str(w)] = wm.name
+    return spec
+
+
 _LLAMA_FAMILY = ("llama", "mistral", "mixtral", "qwen2", "qwen3",
                  "qwen3_moe")
 # model types whose recipes take no pos_per_row: one scalar position
@@ -202,6 +230,10 @@ class TransformersLoader(Loader):
                         "weight quantization for the text interface",
                         default="", choices=["", "int8", "q4_0", "q8_0",
                                              "q5_0", "q4_k", "q6_k"]),
+            ConfigField("decode_windows", ConfigFieldType.STRING,
+                        "comma-separated KV window sizes (e.g. 256,1024) "
+                        "for phased windowed decode: smaller caches on "
+                        "early tokens (gpt2/llama-family)", default=""),
             ConfigField("lora", ConfigFieldType.FILE_PATH,
                         "PEFT adapter dir (adapter_config.json + "
                         "adapter_model.safetensors) merged into the base "
@@ -227,10 +259,6 @@ class TransformersLoader(Loader):
         from .quantized import QuantizedStore, parse_quantization_config
         from .safetensors_io import SafetensorsStore, load_hf_config
 
-        if config.get("decode_windows"):
-            raise NotImplementedError(
-                "transformers loader option 'decode_windows' is not ported "
-                "to PyTorch yet")
         d = config["path"]
         hf_cfg = load_hf_config(d)
         mt = hf_cfg.get("model_type")
@@ -255,6 +283,7 @@ class TransformersLoader(Loader):
             store = LoraMergedStore(store, config["lora"])
             qstore = None   # merged deltas densify: no packed bypass
         weight_map: Dict[str, str] = {}   # initializer -> HF name
+        window_builder = None             # max_len -> a window's ONNX
         ragged = bool(config.get("ragged_decode", False))
         if ragged and mt in _SCALAR_POS:
             # the reference builds these recipes' scalar-position graph
@@ -273,6 +302,9 @@ class TransformersLoader(Loader):
                                    weight_map=weight_map)
             geometry = dict(n_layers=cfg.n_layer, n_kv_heads=cfg.n_head,
                             head_dim=cfg.n_embd // cfg.n_head)
+            window_builder = lambda w: build_gpt2_step(  # noqa: E731
+                store.zeros_getter(), cfg, max_len=w, dtype=dtype,
+                storage=WeightStorage.none())
         elif mt in _LLAMA_FAMILY:
             from .recipes.llm.llama import LlamaConfig, build_llama_step
 
@@ -287,6 +319,15 @@ class TransformersLoader(Loader):
                                     pos_per_row=ragged, weight_map=weight_map)
             geometry = dict(n_layers=cfg.num_hidden_layers,
                             n_kv_heads=cfg.num_key_value_heads, head_dim=cfg.hd)
+
+            def zeros(name, _zg=store.zeros_getter()):
+                if name == "lm_head.weight" and name not in store:
+                    name = "model.embed_tokens.weight"
+                return _zg(name)
+
+            window_builder = lambda w: build_llama_step(  # noqa: E731
+                zeros, cfg, max_len=w, dtype=dtype,
+                storage=WeightStorage.none())
         elif mt in ("gemma", "gemma2"):
             from .recipes.llm.gemma import GemmaConfig, build_gemma_step
 
@@ -345,6 +386,11 @@ class TransformersLoader(Loader):
                 src = qstore.packed_source(hf_name)
                 if src is not None:
                     model.graph.store.packed_sources[init_name] = src
+        models = {name: model}
+        window_spec = {}
+        if window_builder is not None and not ragged:
+            window_spec = _add_windows(models, model, name, max_len,
+                                       config, window_builder)
         tok = d if os.path.exists(os.path.join(d, "tokenizer.json")) else None
         # multi-LoRA serving: "name=/peft/dir,name2=/other", resolved
         # against the recipe's weight_map when the batcher is built
@@ -364,7 +410,7 @@ class TransformersLoader(Loader):
         if serve_adapters and not ragged:
             raise ValueError("serve_adapters needs ragged_decode=1 "
                              "(adapters are served by the batcher)")
-        return LoadedBundle(models={name: model},
+        return LoadedBundle(models=models,
                             interfaces={"text": {"model": name,
                                                  "max_len": max_len,
                                                  "ragged": ragged,
@@ -375,6 +421,7 @@ class TransformersLoader(Loader):
                                                  "admit_coalesce_s": float(config.get("serve_admit_coalesce_ms", 50) or 0) / 1e3,
                                                  "auto_prefix": int(config.get("serve_auto_prefix", 0) or 0),
                                                  "quantize": config.get("quantize") or "",
+                                                 "windows": window_spec,
                                                  "adapters": serve_adapters,
                                                  "weight_map": weight_map,
                                                  "eos_token_id":
@@ -572,6 +619,9 @@ class GgufLoader(Loader):
             ConfigField("serve_auto_prefix", ConfigFieldType.INT,
                         "automatic prefix caching: LRU pool of N cached "
                         "KV rows (0 = off)", default=0),
+            ConfigField("decode_windows", ConfigFieldType.STRING,
+                        "comma-separated KV window sizes for phased "
+                        "windowed decode", default=""),
             ConfigField("packed_weights", ConfigFieldType.BOOL,
                         "keep GGUF quants packed on the device (the "
                         "packed_matmul kernel; llama-family)", default=True),
@@ -590,10 +640,6 @@ class GgufLoader(Loader):
         from .recipes.llm.gguf_llama import (LLAMA_FAMILY, build_from_gguf,
                                              build_from_gguf_packed)
 
-        if config.get("decode_windows"):
-            raise NotImplementedError(
-                "gguf loader option 'decode_windows' is not ported to "
-                "PyTorch yet")
         g = GGUFFile(config["path"])
         arch = g.architecture
         if arch not in LLAMA_FAMILY + ("phi3", "gemma", "gemma2"):
@@ -623,8 +669,16 @@ class GgufLoader(Loader):
             data, geometry = build_from_gguf(g, max_len=max_len, dtype=dtype,
                                              pos_per_row=ragged)
             model = Model.new_from_onnx(data, name=name)
+        models = {name: model}
+        window_spec = {}
+        if not ragged and arch != "phi3":
+            window_spec = _add_windows(
+                models, model, name, max_len, config,
+                lambda w: build_from_gguf(g, max_len=w, dtype=dtype,
+                                          zeros=True,
+                                          storage=WeightStorage.none())[0])
         eos = g.metadata.get("tokenizer.ggml.eos_token_id")
-        return LoadedBundle(models={name: model},
+        return LoadedBundle(models=models,
                             interfaces={"text": {"model": name,
                                                  "max_len": max_len,
                                                  "ragged": ragged,
@@ -635,6 +689,7 @@ class GgufLoader(Loader):
                                                  "admit_coalesce_s": float(config.get("serve_admit_coalesce_ms", 50) or 0) / 1e3,
                                                  "auto_prefix": int(config.get("serve_auto_prefix", 0) or 0),
                                                  "quantize": config.get("quantize") or "",
+                                                 "windows": window_spec,
                                                  "eos_token_id":
                                                      (int(eos) if eos
                                                       is not None else None),

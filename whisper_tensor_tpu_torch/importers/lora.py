@@ -65,7 +65,7 @@ class LoraMergedStore:
     """Wraps a weight store; `load(name)` returns the base weight with
     the adapter's low-rank delta merged in (f32 accumulate, cast back).
     Duck-types the store surface the loaders read (load / __contains__ /
-    names / getter)."""
+    names / meta / getter / zeros_getter)."""
 
     def __init__(self, base, adapter_dir: str):
         self.base = base
@@ -81,6 +81,11 @@ class LoraMergedStore:
 
     def __contains__(self, name):
         return name in self.base
+
+    def meta(self, name: str):
+        """(shape, numpy dtype) of the base weight: a merged delta keeps
+        both."""
+        return self.base.meta(name)
 
     def load(self, name: str) -> np.ndarray:
         arr = self.base.load(name)
@@ -107,6 +112,11 @@ class LoraMergedStore:
             return transform(name, arr) if transform else arr
 
         return get
+
+    def zeros_getter(self):
+        """The base store's shape-faithful zeros (a window graph's
+        structure-only build: no delta is merged)."""
+        return self.base.zeros_getter()
 
 
 def load_peft_adapter_arrays(adapter_dir: str, weight_map: Dict[str, str]):

@@ -219,10 +219,12 @@ def repack_for_kernel(q: np.ndarray, zeros: np.ndarray,
 
 class QuantizedStore:
     """Duck-types the SafetensorsStore surface the loader reads (load /
-    __contains__ / names / getter) over a GPTQ/AWQ checkpoint:
-    `<module>.weight` dequantizes from `<module>.{qweight,qzeros,scales}`
-    when present, everything else passes through. The reference's meta
-    and zeros_getter serve windowed decode, which is not ported.
+    __contains__ / names / meta / getter / zeros_getter) over a GPTQ/AWQ
+    checkpoint: `<module>.weight` dequantizes from
+    `<module>.{qweight,qzeros,scales}` when present, everything else
+    passes through. meta and zeros_getter give the dequantized weight's
+    shape without unpacking it: a decode window's structure-only graph
+    is built from them.
 
     `linear`: a dense weight comes back in HF Linear's (out, in) layout,
     as the reference returns it. GPT-2's Conv1D modules keep (in, out)
@@ -283,12 +285,32 @@ class QuantizedStore:
         w = dequant_dense(q, z, s, g_idx)                 # (K, N)
         return np.ascontiguousarray(w.T if self.linear else w)
 
+    def meta(self, name: str):
+        """(shape, numpy dtype) of what `load(name)` returns, read from
+        the headers: a quantized module's f32 weight, (N, K) in HF
+        Linear's layout or (K, N) where `linear` is False."""
+        if not self._is_quant(name):
+            return self.base.meta(name)
+        qw_shape, _ = self.base.meta(name[:-7] + ".qweight")
+        if self.spec.method == "gptq":
+            K, N = qw_shape[0] * 8, qw_shape[1]
+        else:
+            K, N = qw_shape[0], qw_shape[1] * 8
+        return ((N, K) if self.linear else (K, N)), np.dtype(np.float32)
+
     def getter(self, transform: Optional[Callable] = None):
         """name -> array: `load`, through transform(name, array) when it
         is given."""
         if transform is None:
             return self.load
         return lambda name: transform(name, self.load(name))
+
+    def zeros_getter(self):
+        """name -> shape-faithful zeros (meta only: nothing unpacked)."""
+        def get(name: str) -> np.ndarray:
+            shape, dt = self.meta(name)
+            return np.zeros(shape, dtype=dt)
+        return get
 
     def packed_source(self, name: str) -> Optional[Callable]:
         """() -> the kernel's device dict for `<module>.weight`, or

@@ -8,8 +8,11 @@ host (build_from_gguf) or with the matmul weights left packed for the
 packed_matmul kernel (build_from_gguf_packed).
 
 The port's copy of whisper_tensor_tpu/importers/recipes/llm/
-gguf_llama.py, without the decode-window variants (`zeros`, `storage`).
-Arch gemma, gemma2 and phi3 (:78-245: `_gguf_name_gemma`,
+gguf_llama.py. build_from_gguf's `zeros=True` and `storage` (reference
+:162-170) build a decode window's structure-only graph: shape-faithful
+zero weights read from the file's tensor infos, nothing loaded or
+dequantized, the payloads dropped under WeightStorage.none(). Arch
+gemma, gemma2 and phi3 (:78-245: `_gguf_name_gemma`,
 `gemma_config_from_gguf`, `_PHI3_LAYER_MAP` and build_from_gguf's
 branches) dequantize every weight on the host and run their own
 recipes; the packed path takes the llama family (llama, mistral, qwen2,
@@ -266,10 +269,20 @@ def _llama_family(g) -> LlamaConfig:
 
 
 def build_from_gguf(g, max_len: int, dtype: DType = DType.BF16,
-                    pos_per_row: bool = False) -> Tuple[bytes, Dict]:
-    """Every weight dequantized on the host and embedded in the ONNX.
-    Arch gemma, gemma2 and phi3 go through their own recipes, as in the
-    reference (:162-222); they have no per-row position (ValueError)."""
+                    pos_per_row: bool = False, storage=None,
+                    zeros: bool = False) -> Tuple[bytes, Dict]:
+    """Every weight dequantized on the host and embedded in the ONNX
+    (under `storage`, default WeightStorage.embed()). Arch gemma, gemma2
+    and phi3 go through their own recipes, as in the reference
+    (:162-222); they have no per-row position (ValueError).
+
+    zeros=True builds a structure-only graph: shape-faithful zero
+    weights from the tensor infos, no tensor loaded or dequantized, for
+    a decode window's graph that shares the main model's TensorStore
+    (the loader's `decode_windows`)."""
+    def zero(gname: str) -> np.ndarray:
+        return np.zeros(tuple(g.tensors[gname].shape), dtype=np.float32)
+
     if g.architecture in ("gemma", "gemma2"):
         from .gemma import build_gemma_step
 
@@ -282,7 +295,10 @@ def build_from_gguf(g, max_len: int, dtype: DType = DType.BF16,
             # gemma always ties the LM head to the embedding
             if hf_name == "lm_head.weight":
                 hf_name = "model.embed_tokens.weight"
-            arr = _dense(g.load(_gguf_name_gemma(hf_name, gemma2)))
+            gname = _gguf_name_gemma(hf_name, gemma2)
+            if zeros:
+                return zero(gname)
+            arr = _dense(g.load(gname))
             # the HF->GGUF converter bakes gemma's "+1" into every norm
             # weight; the recipe adds it back, so un-bake here
             if (hf_name.endswith("layernorm.weight")
@@ -290,7 +306,8 @@ def build_from_gguf(g, max_len: int, dtype: DType = DType.BF16,
                 arr = arr - 1.0
             return arr
 
-        data = build_gemma_step(getter_g, gcfg, max_len=max_len, dtype=dtype)
+        data = build_gemma_step(getter_g, gcfg, max_len=max_len, dtype=dtype,
+                                storage=storage)
         return data, dict(n_layers=gcfg.num_hidden_layers,
                           n_kv_heads=gcfg.num_key_value_heads,
                           head_dim=gcfg.hd)
@@ -305,16 +322,22 @@ def build_from_gguf(g, max_len: int, dtype: DType = DType.BF16,
         def getter3(hf_name: str) -> np.ndarray:
             if hf_name == "lm_head.weight" and cfg.tie_word_embeddings:
                 hf_name = "model.embed_tokens.weight"
-            return _dense(g.load(_gguf_name_phi3(hf_name)))
+            gname = _gguf_name_phi3(hf_name)
+            return zero(gname) if zeros else _dense(g.load(gname))
 
-        data = build_phi3_step(getter3, cfg, max_len=max_len, dtype=dtype)
+        data = build_phi3_step(getter3, cfg, max_len=max_len, dtype=dtype,
+                               storage=storage)
         return data, dict(n_layers=cfg.num_hidden_layers,
                           n_kv_heads=cfg.num_key_value_heads,
                           head_dim=cfg.hd)
     cfg = _llama_family(g)
     src = _Source(g, cfg)
-    data = build_llama_step(src.dense, cfg, max_len=max_len, dtype=dtype,
-                            pos_per_row=pos_per_row)
+
+    def getter(hf_name: str) -> np.ndarray:
+        return zero(src.resolve(hf_name)) if zeros else src.dense(hf_name)
+
+    data = build_llama_step(getter, cfg, max_len=max_len, dtype=dtype,
+                            pos_per_row=pos_per_row, storage=storage)
     geometry = dict(n_layers=cfg.num_hidden_layers,
                     n_kv_heads=cfg.num_key_value_heads, head_dim=cfg.hd)
     return data, geometry

@@ -64,7 +64,16 @@ Also ported (reference :195-214, :868-978, :1236-1441):
     else (`logits()`, scoring, a shorter prompt). `fuse_matmuls` turns
     the fusion on or off; `quantize_precomputed` takes a sibling
     interface's int8 weights, its device tensors once it has uploaded.
-Not ported yet, and raising NotImplementedError: windowed decode.
+  * windowed decode (`window_models=`, reference :261-270, :415-454,
+    :651-665, :1000-1137): step graphs of the same recipe at smaller
+    max_len values. generate_tokens without caches prefills in the first
+    window above the prompt's bucket, decodes each position in the
+    smallest window above it, and grows the caches to the next window
+    with a zero tail where the reference pads them. Each window's graph
+    gets the main graph's passes and runs on the main graph's device
+    weights by name (its own initializers are never uploaded), so its
+    caches, not its weights, are what a window saves. The batcher's
+    window admission prefills into window_cache_dims caches.
 """
 
 from __future__ import annotations
@@ -88,10 +97,6 @@ from ..model import Model
 from ..packed_format import PackedFormat
 from ..tensor import PackedTensor
 from ..weights import carry_weights
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet")
 
 
 @dataclass(frozen=True)
@@ -362,9 +367,12 @@ class TextInferenceInterface:
         same recipe at another max_len) whose int8 weights this one takes
         instead of quantizing again (reference :332-340); once the
         sibling has uploaded its weights the dict holds its device
-        tensors, and this interface uploads none of those again."""
-        if window_models:
-            raise _not_ported("windowed decode (window_models)")
+        tensors, and this interface uploads none of those again.
+
+        window_models: {window size: step Model} of the same recipe built
+        at smaller max_len values (WeightStorage.none(), the main model's
+        store), for windowed decode (reference :266-271). Each window's
+        graph takes the main graph's weights by name."""
         if mesh is not None:
             from ..parallel.mesh import Mesh
 
@@ -477,6 +485,13 @@ class TextInferenceInterface:
         self.head_dim = int(info.dims()[3].value())
         self._tp = None            # the rank's parallel.tp.TpPlan
         self._exec = self._executor(milli)
+        # windowed decode: each window's graph after the main graph's
+        # passes, and its executor
+        self.window_models = dict(window_models or {})
+        self._window_millis: Dict[int, object] = {}
+        self._window_exec: Dict[int, GraphExecutor] = {}
+        for w, wm in sorted(self.window_models.items()):
+            self._add_window(int(w), wm)
         self._weights_dev: Optional[Dict[str, torch.Tensor]] = None
         # the batcher's loop and an HTTP thread's logprobs rescoring may
         # both make the first call: one upload, not two
@@ -521,6 +536,41 @@ class TextInferenceInterface:
         pair_cache_writes(run)
         return GraphExecutor(run, self.device)
 
+    def _add_window(self, w: int, wm: Model) -> None:
+        """The step graph of window `w` with the main graph's passes
+        (reference :415-454): the same fusion, the int8 surgery over the
+        main graph's `_quantized` pairs, and the packing of the weights
+        the main graph packed, from its packed arrays (the reference
+        packs again from the same sources, to the same arrays). Its
+        weight inputs must be the main graph's, in order; the executor
+        feeds it the main graph's device weights."""
+        wmilli, w_weights = wm.graph.to_milli()
+        if self._fused:
+            # the same recipe fuses the same members under the same names
+            fuse_parallel_matmuls(wmilli, set(w_weights))
+        w_live = [n for n in wmilli.inputs
+                  if n in w_weights or n in self._fused]
+        if self._quantized:
+            quantize_matmul_weights(wmilli, w_live, None,
+                                    precomputed=self._quantized)
+        if self._packed:
+            pack_matmul_nodes(wmilli, w_live, wm.graph.store, sources={
+                n: (lambda p=p: p) for n, p in self._packed.items()})
+        wnames = [n for n in wmilli.inputs
+                  if n in w_weights or n in self._fused
+                  or n.endswith(("::scale", "::pscales", "::poffsets"))]
+        dims = wm.graph.tensors[wm.graph.by_name["logits"]].info.dims()
+        last_only = (dims is not None and len(dims) == 3 and dims[1].is_known
+                     and int(dims[1].value()) == 1)
+        if wnames != self.weight_names or last_only != self.logits_last_only:
+            raise ValueError(
+                f"window {w} model weight inputs differ from the main "
+                f"model's — build all windows from one recipe")
+        self._window_millis[w] = wmilli
+        main_plan = self._tp
+        self._window_exec[w] = self._executor(wmilli)
+        self._tp = main_plan
+
     def _weight_shape(self, n: str) -> Tuple[int, ...]:
         """The global shape of weight input `n` as it is fed."""
         for suffix, key in (("::scale", None), ("::pscales", "scales"),
@@ -536,8 +586,16 @@ class TextInferenceInterface:
         if n in self._lora_stacks:
             return tuple(self._lora_stacks[n].shape)
         g = self.model.graph
-        return tuple(int(d.value()) for d in
-                     g.tensors[g.by_name[n]].info.dims())
+
+        def dims(name):
+            return tuple(int(d.value())
+                         for d in g.tensors[g.by_name[name]].info.dims())
+
+        if n in self._fused:
+            # a dense fused weight: its members (K, N_i) side by side
+            members = [dims(m) for m, _ in self._fused[n]]
+            return (members[0][0], sum(m[1] for m in members))
+        return dims(n)
 
     # ------------------------------------------------------------------
     def _dense_np(self, n: str, dtype: Optional[DType] = None) -> np.ndarray:
@@ -720,21 +778,65 @@ class TextInferenceInterface:
         :1197-1203: only when dp divides it)."""
         return self._dp > 1 and batch % self._dp == 0
 
-    def fresh_cache(self, batch: int) -> List[torch.Tensor]:
-        """Zeroed KV caches for `batch` rows: under a mesh, this rank's
-        (its rows of a batch cut over dp, its heads where tp cuts
-        them)."""
+    def _cache_dims(self, milli, batch: int) -> List[Tuple[int, ...]]:
+        """The cache inputs' declared shapes in `milli` at `batch` rows."""
+        return [tuple(batch if not d.is_known else int(d.value())
+                      for d in milli.tensors[milli.inputs[n]].info.dims())
+                for n in self.cache_in_names]
+
+    def _caches(self, milli, batch: int) -> List[torch.Tensor]:
+        """Zeroed caches of `milli`'s declared shapes for `batch` rows:
+        under a mesh, this rank's (its rows of a batch cut over dp, its
+        heads where tp cuts them)."""
         if self._dp_cut(batch):
             batch //= self._dp
         out = []
-        for n in self.cache_in_names:
-            info = self.model.graph.tensors[self.model.graph.by_name[n]].info
-            dims = tuple(batch if not d.is_known else int(d.value())
-                         for d in info.dims())
+        for n, dims in zip(self.cache_in_names,
+                           self._cache_dims(milli, batch)):
             if self._tp is not None:
                 dims = self._tp.local_dims(n, dims)
             out.append(torch.zeros(dims, dtype=to_torch(self.cache_dtype),
                                    device=self.device))
+        return out
+
+    def fresh_cache(self, batch: int) -> List[torch.Tensor]:
+        """Zeroed KV caches for `batch` rows: under a mesh, this rank's
+        (its rows of a batch cut over dp, its heads where tp cuts
+        them)."""
+        return self._caches(self.milli, batch)
+
+    def window_cache_dims(self, batch: int, window: int
+                          ) -> List[Tuple[int, ...]]:
+        """Declared cache shapes of the `window`-sized step graph, the
+        length axis `window` instead of max_len (reference :651-665).
+        The batcher's window admission allocates these, k x window
+        caches for a k-row admission instead of k x max_len."""
+        return self._cache_dims(self._window_millis[window], batch)
+
+    def _window_plan(self, L: int, S: int, n_new: int
+                     ) -> Tuple[int, List[int]]:
+        """The reference's static phase schedule (:1112-1132) for a
+        prompt of L tokens in a bucket of S: the windows above max(S, L)
+        and then max_len; the prefill runs in the first of them and the
+        decode step at position p in the smallest one above p. Returns
+        (the prefill's window, the window of each of the n_new - 1 decode
+        steps, at positions L, L + 1, ...)."""
+        windows = sorted(w for w in self._window_millis if w > max(S, L))
+        windows.append(self.max_len)
+        steps = [next((w for w in windows if w > p), self.max_len)
+                 for p in range(L, L + max(n_new - 1, 0))]
+        return windows[0], steps
+
+    @staticmethod
+    def _grow(caches: List[torch.Tensor], window: int) -> List[torch.Tensor]:
+        """The caches at `window` slots: the written ones copied into
+        the front of new zeroed caches (the reference's jnp.pad of the
+        length axis, :1060-1063)."""
+        out = []
+        for c in caches:
+            g = c.new_zeros(c.shape[:2] + (window,) + c.shape[3:])
+            g[:, :, :c.shape[2]] = c
+            out.append(g)
         return out
 
     def _feeds(self, ids: torch.Tensor, pos: torch.Tensor,
@@ -751,14 +853,17 @@ class TextInferenceInterface:
 
     def step(self, ids: torch.Tensor, pos: torch.Tensor,
              caches: List[torch.Tensor],
-             lora_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+             lora_idx: Optional[torch.Tensor] = None,
+             window: Optional[int] = None) -> torch.Tensor:
         """One step graph run: ids (B, S) int64 and pos () or (B,) int64
         on the device -> logits (B, S, V). `caches` are updated in
         place. lora_idx: (B,) int64 adapter slots on the device, which
         run the adapted graph (install_adapters); without it the base
-        model runs. Under a mesh whose dp cuts B, the caches hold this
-        rank's rows (fresh_cache), the rank runs its rows and the logits
-        of all rows are gathered."""
+        model runs. window: run that window's step graph over caches of
+        `window` slots (window_models; max_len or None: the main graph).
+        Under a mesh whose dp cuts B, the caches hold this rank's rows
+        (fresh_cache), the rank runs its rows and the logits of all rows
+        are gathered."""
         B = ids.shape[0]
         cut = self._dp_cut(B)
         if cut:
@@ -776,7 +881,8 @@ class TextInferenceInterface:
             if lora_idx is not None:
                 lora_idx = lora_idx[rows]
         feeds = self._feeds(ids, pos, caches, lora_idx)
-        run = self._exec if lora_idx is None else self._exec_lora
+        run = (self._window_exec.get(window, self._exec) if lora_idx is None
+               else self._exec_lora)
         logits = run(feeds)["logits"]
         return comm.all_gather(logits, self.mesh, "dp", 0) if cut else logits
 
@@ -794,17 +900,23 @@ class TextInferenceInterface:
     def _decode(self, prompt_ids, n_new: int, caches,
                 sampling: Optional[SamplingParams],
                 logit_bias: Optional[np.ndarray], keep_logits: bool,
-                constraint=None):
+                constraint=None, windowed: bool = False):
         """Prefill, then n_new - 1 decode steps (_decode_steps). Returns
         (tokens (B, n_new) on the device, per-token f32 logits or
-        None)."""
+        None). windowed: the caches start at the prefill's window and
+        grow as _window_plan schedules (caches must be None)."""
         ids, L = self._prompt(prompt_ids)
         B = ids.shape[0]
         at = self.prefill_at(L, ids.shape[1])
-        if caches is None:
+        w0, wins = None, None
+        if windowed:
+            w0, wins = self._window_plan(L, ids.shape[1], n_new)
+            caches = self._caches(self._window_millis.get(w0, self.milli),
+                                  B)
+        elif caches is None:
             caches = self.fresh_cache(B)
         pos = torch.zeros((), dtype=torch.int64, device=self.device)
-        last = self.step(ids, pos, caches)[:, at, :]
+        last = self.step(ids, pos, caches, window=w0)[:, at, :]
         seen = None
         if _uses_seen(sampling):
             # prompt tokens count as seen (only the real prefix)
@@ -814,14 +926,15 @@ class TextInferenceInterface:
                               torch.ones_like(ids[:, :L], dtype=torch.int32))
         return self._decode_steps(last, None, pos + L, caches, n_new,
                                   sampling, logit_bias, keep_logits,
-                                  constraint, seen)
+                                  constraint, seen, wins)
 
     def _decode_steps(self, last: Optional[torch.Tensor],
                       first: Optional[torch.Tensor], pos: torch.Tensor,
                       caches, n_new: int,
                       sampling: Optional[SamplingParams],
                       logit_bias: Optional[np.ndarray], keep_logits: bool,
-                      constraint, seen: Optional[torch.Tensor]):
+                      constraint, seen: Optional[torch.Tensor],
+                      windows: Optional[List[int]] = None):
         """The decode loop of generate_tokens and decode_tokens. From a
         prefill's last logits (first=None), n_new tokens: the first
         picked from `last`, each next after one step at `pos`. From a
@@ -830,7 +943,9 @@ class TextInferenceInterface:
         reference's decode program does; under sampling, token k then
         takes the seed stream's k-th pick, as in generate_tokens (the
         reference draws token k from fold_in(seed, k) in both). Returns (tokens (B, n_new) on
-        the device, per-token f32 logits or None).
+        the device, per-token f32 logits or None). windows: the window
+        of each decode step (_window_plan); the caches grow to a step's
+        window before it runs, and the picks are the flat loop's.
 
         Each token is picked in the reference's order (:756-800): the
         bias is added, the constraint's mask applied (its table row of
@@ -851,7 +966,13 @@ class TextInferenceInterface:
         toks, kept = ([] if first is None else [first]), []
         for i in range(n_new):
             if toks:
-                last = self.step(toks[-1][:, None], pos, caches)[:, -1, :]
+                w = None
+                if windows is not None:
+                    w = windows[len(toks) - 1]
+                    if caches[0].shape[2] != w:
+                        caches = self._grow(caches, w)
+                last = self.step(toks[-1][:, None], pos, caches,
+                                 window=w)[:, -1, :]
                 pos = pos + 1
             if i == 0 and first is not None and gen is not None:
                 # the draw that picked `first` from the same stream: a
@@ -918,10 +1039,18 @@ class TextInferenceInterface:
         logit_bias: (V,) f32 added to every step's logits. constraint:
         a TokenDFA (compile_constraint); every emitted token keeps the
         output inside its language, and eos follows once it is
-        complete."""
+        complete. With window_models and no caches the decode is
+        windowed (reference :1181-1186), with the flat loop's picks: the
+        same tokens where the arithmetic is order-free (the CPU's f32);
+        on the card the kernels split a row's keys by the cache's length,
+        so in bf16 a near tie can part the two."""
+        windowed = bool(self._window_millis) and caches is None
+        if windowed and logit_bias is not None:
+            raise ValueError("logit_bias is not supported with windowed "
+                             "decode")
         toks, _ = self._decode(prompt_ids, n_new, caches, sampling,
                                logit_bias, keep_logits=False,
-                               constraint=constraint)
+                               constraint=constraint, windowed=windowed)
         return toks.cpu().numpy()
 
     def generate_with_logits(self, prompt_ids: np.ndarray, n_new: int,
@@ -1231,6 +1360,8 @@ class TextInferenceInterface:
         if self._weights_dev is not None:
             raise ValueError("install_adapters before any program "
                              "compiles (fresh interface)")
+        if self._window_millis:
+            raise ValueError("adapters + windowed decode not supported")
         if self.row_extra_names:
             raise ValueError("adapters already installed")
         targeted = {w for a in adapters.values() for w in a}

@@ -25,7 +25,9 @@ that the text interfaces run:
   * inject_lora (:227-329): the training-side LoRA surgery, a low-rank
     bypass x @ A @ B * (alpha / r) after every targeted MatMul, node for
     node the reference's (training/trainer.py's `lora_rank`).
-The windowed-decode reuse of precomputed weights is not ported.
+A decode window's graph (interfaces/text.py, window_models) takes the
+main graph's passes: quantize_matmul_weights(precomputed=) over the
+main graph's int8 pairs, and pack_matmul_nodes over its packed arrays.
 """
 
 from __future__ import annotations

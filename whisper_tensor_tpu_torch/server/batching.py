@@ -40,8 +40,6 @@ Differences from the reference, each for a reason:
   * `max_batch` is not rounded up to a power of two (:177-184): that
     avoids an XLA tiling cliff measured on v5e, which no H100 measurement
     has asked for; `stats()["slots"]` is the configured count;
-  * no window admission (:464-500): it needs windowed decode, which is
-    not ported;
   * no WT_BATCH_TRACE event timeline.
 
 Multi-LoRA serving is the reference's (`adapters=`, `submit(adapter=)`,
@@ -54,6 +52,15 @@ any adapted row runs the adapted graph with the rows' slots. The shared
 prefix is prefilled once per adapter, and the auto-prefix pool is keyed
 by (adapter slot, tokens), so a prefix's KV is always computed under the
 request's own adapter.
+
+Window admission is the reference's (:464-500): where the interface
+carries a step graph built at max_len == bucket (window_models, which
+rule adapters out) and no prefix is configured or matched, a k-row
+admission prefills into `window_cache_dims(k, bucket)` caches, k x
+bucket instead of k x max_len, and writes them into positions
+[0, bucket) of the slots. Positions at or past the bucket keep the
+previous tenant's keys and values, hidden by the position mask until
+decode overwrites them (decode writes a position before it reads it).
 
 Two faults of the reference are repaired here (ROADMAP C):
   * a prompt longer than the largest prompt bucket under prefill_chunk
@@ -445,9 +452,22 @@ class ContinuousBatcher:
 
     def _splice(self, small, slots: torch.Tensor) -> None:
         """Write an admission's k cache rows into the batched caches at
-        `slots`, in place."""
+        `slots`, in place; window caches (a window admission) into the
+        first positions of the slots' rows."""
         for big, s in zip(self._caches, small):
+            if s.shape[2:] != big.shape[2:]:
+                big = big[:, :, :s.shape[2]]
             big.index_copy_(0, slots, s.to(big.dtype))
+
+    def _admit_window(self, bucket: int) -> Optional[int]:
+        """The window a no-prefix admission at `bucket` prefills in: the
+        bucket itself, where the interface has a step graph at that
+        max_len below the slots' (window_models; such an interface takes
+        no adapters); else None."""
+        if (self.prefix_ids is None and bucket < self.max_len
+                and bucket in self.iface._window_millis):
+            return bucket
+        return None
 
     def _match_auto_prefix(self, req: _Request):
         """Longest pool entry of the request's adapter whose tokens
@@ -543,15 +563,20 @@ class ContinuousBatcher:
             gidx = [self._adapter_slot(r) for _, r in grp]
             for (s, _), a in zip(grp, gidx):
                 self._row_lora[s] = a
+            win = None if entry is not None else self._admit_window(Sb)
             if entry is not None:
                 small = [c.repeat(k, 1, 1, 1) for c in entry["caches"]]
+            elif win is not None:
+                small = [torch.zeros(d, dtype=self._caches[0].dtype,
+                                     device=self.device)
+                         for d in self.iface.window_cache_dims(k, win)]
             else:
                 small = self._prefix_small(k, gidx)
             meta = self._upload([[s for s, _ in grp], [L - 1 for L in lens]])
             logits = self.iface.step(
                 self._upload(padded),
                 torch.full((k,), plen, dtype=torch.int64, device=self.device),
-                small, self._lora_rows(gidx))
+                small, self._lora_rows(gidx), window=win)
             self._splice(small, meta[0])
             del small
             if self.auto_prefix:

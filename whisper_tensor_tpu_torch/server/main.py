@@ -610,9 +610,19 @@ class Server:
             iface = self._text_ifaces.get(entry.id)
             if iface is None:
                 cfg = entry.interfaces["text"]
+                # decode_windows: the window graphs of the entry's own
+                # bundle (the reference, :658-670, looks their names up
+                # among every loaded model, where a second load of the
+                # same checkpoint has the same names over another store)
+                wins = cfg.get("windows") or {}
+                models = (self.models.bundle(int(entry.meta["bundle_id"]))
+                          .models if wins else {})
+                window_models = {int(w): models[mn]
+                                 for w, mn in wins.items()
+                                 if mn in models} or None
                 iface = TextInferenceInterface(
                     entry.model, max_len=int(cfg["max_len"]),
-                    cache_dtype=DType.BF16,
+                    cache_dtype=DType.BF16, window_models=window_models,
                     eos_token_id=cfg.get("eos_token_id"),
                     quantize=cfg.get("quantize") or None,
                     device=self.device)
